@@ -1,0 +1,349 @@
+"""Direct-space nonbonded terms over 16-atom bricks: the persistent
+candidate state, kernel 1 (`nonbonded_tiles`) and its plain version.
+
+Counterpart of openmm_tpu/ops/pallas_pairs.py (build_tile_state,
+eval_tiles, _kernel_body/_tile_compute) with the capacity budgets of
+openmm_tpu/forces/nonbonded.py. What carries over is what the TPU kernel
+computes and its persistence contract: atoms are spatially sorted into
+16-atom bricks, each row brick keeps the list of candidate bricks whose
+bounding boxes come within cutoff + skin, and the list is rebuilt only when
+an atom has moved more than skin/2; a list that did not fit its capacity
+is reported as an overflow, which poisons the result with NaN. What does
+not carry over are the TPU workarounds: the per-step compacted candidate
+slabs (the kernel reads candidates by index), float-parity bit tests and
+one-hot matmuls (the exclusion test is an integer bit test).
+
+Layout. `pos4` and `par4` are (n_pad, 4) float tensors in the sorted frame:
+(x, y, z, 0) and (sqrt(k_e) q, sigma / 2, 2 sqrt(eps), 0), so that the
+Lorentz-Berthelot mixing of a pair is one add and one multiply. `cand` is
+(n_bricks, max_cand) int32, ordered per row [exclusion-carrying | plain |
+unused]; `count` is the number of live candidates per row; `words` is
+(n_pad, exc_cap) int32 with bit l of words[i, k] set when row atom i must
+not interact with atom l of candidate brick k (exclusions and the atom
+itself); only the first exc_cap candidates can carry such bits.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .. import _build
+from ..constants import ONE_4PI_EPS0
+from . import geometry as geom
+from .pairs import pad_to_block, spatial_sort_keys
+
+BRICK = 16
+EXC_SLOTS = 32          # candidate slots that may carry exclusion bits
+MODE_EWALD, MODE_RF = 0, 1
+TWO_OVER_SQRT_PI = 2.0 / math.sqrt(math.pi)
+
+TILES = _build.Kernel(
+    name="nonbonded_tiles", source="openmm_tpu_torch/csrc/nonbonded_tiles.cu",
+    replaces="openmm_tpu/ops/pallas_pairs.py:541")
+
+
+def tile_budget(n: int, box_widths, cutoff: float, skin: float,
+                scale: float = 1.0) -> dict:
+    """Static capacities of the candidate state (the 16-atom-row Pallas
+    budget of forces/nonbonded.py): `max_bricks` candidates per row brick,
+    the sort cell, and `exc_cap`. `scale` grows after an overflow."""
+    vol = float(box_widths[0] * box_widths[1] * box_widths[2])
+    nq = pad_to_block(n, BRICK) // BRICK
+    block_side = (64.0 * vol / n) ** (1.0 / 3.0)
+    s16 = (16.0 * vol / n) ** (1.0 / 3.0)
+    r_q = cutoff + skin + 0.85 * s16 + 0.85 * s16
+    max_bricks = min(nq, int((nq / vol) * (4.0 / 3.0) * math.pi * r_q ** 3
+                             * 1.18 * scale) + 8)
+    return {"max_bricks": max_bricks, "sort_cell": 0.6 * block_side,
+            "exc_cap": min(max_bricks, int(EXC_SLOTS * scale))}
+
+
+def build_tile_state(pos, box, charge, sigma, epsilon, exclusions, reach,
+                     max_bricks, sort_cell, exc_cap=EXC_SLOTS) -> dict:
+    """Candidate state for kernel 1 at positions `pos` (n, 3).
+
+    exclusions: (n, E) int tensor of excluded partners (-1 padded). The
+    state's float tensors take pos.dtype. Returns a dict of tensors on
+    pos.device; "overflow" counts candidates and exclusion slots that did
+    not fit (0 when the state is complete).
+    """
+    dev, dt = pos.device, pos.dtype
+    n = pos.shape[0]
+    n_pad = pad_to_block(n, BRICK)
+    nb = n_pad // BRICK
+    boxd = box.to(dt)
+    binv = geom.box_inverse(boxd)
+    posf = torch.cat([pos, pos[:1].expand(n_pad - n, 3)])
+    # wrap bookkeeping: pos = pos_w + W @ box with integer W
+    wraps = torch.floor(geom.to_fractional(posf, binv))
+    pos_w = posf - geom.from_fractional(wraps, boxd)
+
+    order = torch.argsort(spatial_sort_keys(pos_w, boxd, n, sort_cell),
+                          stable=True)
+    inv_order = torch.argsort(order)
+    pos_s = pos_w[order]
+    w_s = wraps[order]
+    pos_s[n:] = pos_s[n - 1]
+    w_s[n:] = w_s[n - 1]
+    # image every atom next to its brick's first atom, so a brick that
+    # straddles the box edge keeps a tight bounding box
+    anchor = pos_s.view(nb, BRICK, 3)[:, :1].expand(nb, BRICK, 3)
+    anchor = anchor.reshape(n_pad, 3)
+    d = pos_s - anchor
+    d_red = geom.periodic_delta(d, boxd)
+    pos_s = anchor + d_red
+    w_s = w_s + torch.round(geom.to_fractional(d - d_red, binv))
+
+    bricks = pos_s.view(nb, BRICK, 3)
+    lo, hi = bricks.amin(dim=1), bricks.amax(dim=1)
+    centre, half = 0.5 * (lo + hi), 0.5 * (hi - lo)
+    dc = geom.periodic_delta(centre[:, None] - centre[None], boxd)
+    gap = torch.clamp(dc.abs() - (half[:, None] + half[None]), min=0.0)
+    close = (gap * gap).sum(dim=-1) < reach * reach              # (nb, nb)
+
+    mc = min(nb, int(max_bricks))
+    cand = torch.argsort((~close).to(torch.int8), dim=1, stable=True)[:, :mc]
+    valid = close.gather(1, cand)
+    count = valid.sum(dim=1)
+    overflow = close.sum() - count.sum()
+
+    # exclusion entries in the sorted frame, plus every atom itself
+    table = torch.full((n_pad, exclusions.shape[1]), -1, dtype=torch.int64,
+                       device=dev)
+    table[:n] = exclusions.to(device=dev, dtype=torch.int64)
+    table = table[order]
+    slots = torch.where(table >= 0, inv_order[table.clamp(min=0)], -1)
+    entries = torch.cat(
+        [slots, torch.arange(n_pad, device=dev)[:, None]], dim=1)
+    e_brick = torch.where(entries >= 0, entries // BRICK, nb)
+    row = (torch.arange(n_pad, device=dev) // BRICK)[:, None].expand_as(
+        entries)
+    carries = torch.zeros((nb, nb + 1), dtype=torch.bool, device=dev)
+    carries[row, e_brick] = True
+    has_excl = carries.gather(1, cand) & valid
+    rank = torch.where(valid, torch.where(has_excl, 0, 1), 2)
+    reorder = torch.argsort(rank, dim=1, stable=True)
+    cand = cand.gather(1, reorder)
+    excl_count = has_excl.sum(dim=1)
+    exc_cap = min(int(exc_cap), mc)
+    overflow = overflow + torch.clamp(excl_count - exc_cap, min=0).sum()
+
+    slot_of = torch.full((nb, nb + 1), -1, dtype=torch.int64, device=dev)
+    slot_of.scatter_(1, cand[:, :exc_cap],
+                     torch.arange(exc_cap, device=dev).expand(nb, exc_cap))
+    k = slot_of[row, e_brick]
+    ok = (entries >= 0) & (k >= 0) & (k < excl_count[row])
+    atom = torch.arange(n_pad, device=dev)[:, None].expand_as(entries)
+    words = torch.zeros(n_pad * exc_cap, dtype=torch.int32, device=dev)
+    words.index_add_(0, (atom * exc_cap + k)[ok],
+                     (1 << (entries % BRICK)).to(torch.int32)[ok])
+
+    def padded(x, fill):
+        x = torch.cat([x.to(device=dev, dtype=dt),
+                       torch.full((n_pad - n,), fill, dtype=dt, device=dev)])
+        return x[order]
+
+    par4 = torch.stack([math.sqrt(ONE_4PI_EPS0) * padded(charge, 0.0),
+                        0.5 * padded(sigma, 1.0),
+                        2.0 * torch.sqrt(padded(epsilon, 0.0)),
+                        torch.zeros(n_pad, dtype=dt, device=dev)], dim=1)
+    return {"order": order, "inv_order": inv_order, "wraps": w_s,
+            "par4": par4.contiguous(),
+            "cand": cand.to(torch.int32).contiguous(),
+            "count": count.to(torch.int32).contiguous(),
+            "words": words.view(n_pad, exc_cap),
+            "overflow": overflow.to(torch.int64)}
+
+
+def sorted_positions(pos, box, st) -> torch.Tensor:
+    """(n_pad, 4) positions in the state's sorted frame, imaged next to
+    their brick anchors by the wrap offsets stored at build."""
+    order = st["order"]
+    n_pad = order.shape[0]
+    n = pos.shape[0]
+    dt = st["par4"].dtype
+    posf = pos.to(dt)
+    posf = torch.cat([posf, posf[:1].expand(n_pad - n, 3)])
+    ps = posf[order] - geom.from_fractional(st["wraps"], box.to(dt))
+    return torch.cat([ps, torch.zeros((n_pad, 1), dtype=dt,
+                                      device=ps.device)], dim=1)
+
+
+def tile_consts(box, scalars) -> torch.Tensor:
+    """The kernel's 16 constants: scalars = (alpha, cutoff^2, krf, crf,
+    switch distance, 1/(cutoff - switch distance)) as a tensor."""
+    b = box.to(scalars.dtype)
+    diag = torch.stack([b[0, 0], b[1, 1], b[2, 2]])
+    return torch.cat([scalars[:4], b[0, :1], b[1, :2], b[2, :3],
+                      1.0 / diag, scalars[4:6],
+                      torch.zeros(1, dtype=b.dtype, device=b.device)])
+
+
+def _check_tile_args(pos4, par4, cand, count, words, consts, mode):
+    if mode not in (MODE_EWALD, MODE_RF):
+        raise ValueError("mode must be MODE_EWALD or MODE_RF")
+    n_pad = pos4.shape[0]
+    if n_pad % BRICK or pos4.shape != (n_pad, 4) or par4.shape != (n_pad, 4):
+        raise ValueError("pos4/par4 must be (n_pad, 4) with n_pad % 16 == 0")
+    nb = n_pad // BRICK
+    if cand.shape[0] != nb or count.shape != (nb,) or words.shape[0] != n_pad:
+        raise ValueError("cand/count/words do not match the row bricks")
+    if words.shape[1] > cand.shape[1] or consts.shape != (16,):
+        raise ValueError("words wider than cand, or consts not (16,)")
+    if cand.dtype != torch.int32 or count.dtype != torch.int32 \
+            or words.dtype != torch.int32:
+        raise TypeError("cand, count and words must be int32")
+    for t in (pos4, par4, cand, count, words, consts):
+        if t.device != pos4.device or not t.is_contiguous():
+            raise ValueError("tile tensors must be contiguous, one device")
+    if par4.dtype != pos4.dtype or consts.dtype != pos4.dtype:
+        raise TypeError("pos4, par4 and consts must share one float dtype")
+
+
+def nonbonded_tiles(pos4, par4, cand, count, words, consts, mode,
+                    use_switch) -> torch.Tensor:
+    """Kernel 1: per sorted atom (fx, fy, fz, e) as an (n_pad, 4) tensor,
+    e the atom's full (not halved) pair energy. A CUDA tensor runs the
+    hand-written kernel (float32 only); a CPU tensor runs the plain
+    version."""
+    _check_tile_args(pos4, par4, cand, count, words, consts, mode)
+    if pos4.device.type == "cpu":
+        return nonbonded_tiles_plain(pos4, par4, cand, count, words, consts,
+                                     mode, use_switch)
+    if pos4.device.type != "cuda" or pos4.dtype != torch.float32:
+        raise TypeError("the CUDA tile kernel takes float32 CUDA tensors")
+    out = torch.empty_like(pos4)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(pos4.device).cuda_stream
+    code = lib.omm_nonbonded_tiles(
+        pos4.data_ptr(), par4.data_ptr(), cand.data_ptr(), count.data_ptr(),
+        words.data_ptr(), consts.data_ptr(), count.shape[0], cand.shape[1],
+        words.shape[1], int(mode), int(bool(use_switch)), out.data_ptr(),
+        stream)
+    _build.check_launch(code, TILES)
+    TILES.launches += 1
+    return out
+
+
+def _row_chunks(n_bricks, max_cand, budget=1 << 22):
+    rows = max(1, budget // (BRICK * BRICK * max(max_cand, 1)))
+    for r0 in range(0, n_bricks, rows):
+        yield r0, min(n_bricks, r0 + rows)
+
+
+def _chunk_pairs(pos4, cand, count, words, consts, r0, r1):
+    """Displacements, r^2 and the interaction mask of row bricks r0:r1
+    against all their candidate atoms: each (rows, 16, max_cand * 16)."""
+    rows = r1 - r0
+    mc = cand.shape[1]
+    exc_cap = words.shape[1]
+    dev = pos4.device
+    lanes = torch.arange(BRICK, device=dev)
+    c = cand[r0:r1].long()
+    cj = (c[:, :, None] * BRICK + lanes).reshape(rows, mc * BRICK)
+    pj = pos4[cj]
+    pi = pos4[r0 * BRICK:r1 * BRICK].view(rows, BRICK, 4)
+    dx = pi[:, :, None, 0] - pj[:, None, :, 0]
+    dy = pi[:, :, None, 1] - pj[:, None, :, 1]
+    dz = pi[:, :, None, 2] - pj[:, None, :, 2]
+    ax, bx, by, cx, cy, cz, iax, iby, icz = consts[4:13]
+    sc = torch.round(dz * icz)
+    dx, dy, dz = dx - sc * cx, dy - sc * cy, dz - sc * cz
+    sb = torch.round(dy * iby)
+    dx, dy = dx - sb * bx, dy - sb * by
+    dx = dx - torch.round(dx * iax) * ax
+    r2 = dx * dx + dy * dy + dz * dz
+    w = torch.zeros((rows, BRICK, mc), dtype=torch.int32, device=dev)
+    w[:, :, :exc_cap] = words[r0 * BRICK:r1 * BRICK].view(rows, BRICK,
+                                                          exc_cap)
+    excluded = ((w[..., None] >> lanes) & 1).reshape(rows, BRICK, mc * BRICK)
+    live = (torch.arange(mc, device=dev)[None] < count[r0:r1, None].long())
+    live = live[:, None, :, None].expand(rows, BRICK, mc, BRICK)
+    ok = (r2 < consts[1]) & (excluded == 0) \
+        & live.reshape(rows, BRICK, mc * BRICK)
+    return cj, dx, dy, dz, r2, ok
+
+
+def nonbonded_tiles_plain(pos4, par4, cand, count, words, consts, mode,
+                          use_switch) -> torch.Tensor:
+    """Plain PyTorch version of kernel 1 on the same inputs. In float32 it
+    repeats the kernel's arithmetic (Hastings erfc); in float64 it uses the
+    exact erfc and serves as the accuracy oracle."""
+    _check_tile_args(pos4, par4, cand, count, words, consts, mode)
+    n_pad = pos4.shape[0]
+    out = torch.zeros((n_pad, 4), dtype=pos4.dtype, device=pos4.device)
+    alpha, _, krf, crf = consts[0:4]
+    rs, inv_w = consts[13], consts[14]
+    for r0, r1 in _row_chunks(n_pad // BRICK, cand.shape[1]):
+        cj, dx, dy, dz, r2, ok = _chunk_pairs(pos4, cand, count, words,
+                                              consts, r0, r1)
+        rows = r1 - r0
+        qi = par4[r0 * BRICK:r1 * BRICK].view(rows, BRICK, 1, 4)
+        qj = par4[cj][:, None]
+        r2s = torch.clamp(r2, min=2e-6)
+        inv_r = torch.rsqrt(r2s)
+        inv_r2 = inv_r * inv_r
+        sig = qi[..., 1] + qj[..., 1]
+        eps4 = qi[..., 2] * qj[..., 2]
+        s2 = sig * sig * inv_r2
+        s6 = s2 * s2 * s2
+        es6 = eps4 * s6
+        de_lj = -3.0 * es6 * (2.0 * s6 - 1.0) * inv_r2
+        e_lj = es6 * (s6 - 1.0)
+        if use_switch:
+            t = torch.clamp((r2s * inv_r - rs) * inv_w, 0.0, 1.0)
+            t2 = t * t
+            sw = 1.0 - t2 * t * (10.0 - 15.0 * t + 6.0 * t2)
+            dsw = (-30.0 * t2 * (1.0 - t) ** 2 * inv_w) * (0.5 * inv_r)
+            de_lj = de_lj * sw + e_lj * dsw
+            e_lj = e_lj * sw
+        qq = qi[..., 0] * qj[..., 0]
+        if mode == MODE_EWALD:
+            ar = alpha * (r2s * inv_r)
+            ex = torch.exp(-ar * ar)
+            if pos4.dtype == torch.float64:
+                erfc_ar = torch.special.erfc(ar)
+            else:
+                t = 1.0 / (1.0 + 0.3275911 * ar)
+                erfc_ar = (0.254829592 + (-0.284496736 + (
+                    1.421413741 + (-1.453152027 + 1.061405429 * t) * t)
+                    * t) * t) * t * ex
+            de_c = -qq * (erfc_ar * inv_r2
+                          + TWO_OVER_SQRT_PI * alpha * ex * inv_r) \
+                * (0.5 * inv_r)
+            e_c = qq * inv_r * erfc_ar
+        else:
+            de_c = qq * (-0.5 * inv_r2 * inv_r + krf)
+            e_c = qq * (inv_r + krf * r2s - crf)
+        dedr2 = torch.where(ok, de_lj + de_c, 0.0)
+        e = torch.where(ok, e_lj + e_c, 0.0)
+        sl = slice(r0 * BRICK, r1 * BRICK)
+        out[sl, 0] = (-2.0 * (dedr2 * dx).sum(dim=-1)).reshape(-1)
+        out[sl, 1] = (-2.0 * (dedr2 * dy).sum(dim=-1)).reshape(-1)
+        out[sl, 2] = (-2.0 * (dedr2 * dz).sum(dim=-1)).reshape(-1)
+        out[sl, 3] = e.sum(dim=-1).reshape(-1)
+    return out
+
+
+def count_tile_pairs(pos4, cand, count, words, consts) -> tuple[int, int]:
+    """(candidate pair slots, pairs inside the cutoff) that kernel 1 visits
+    for these inputs, full-matrix (each pair counted from both atoms)."""
+    slots = int(count.long().sum()) * BRICK * BRICK
+    inside = 0
+    for r0, r1 in _row_chunks(pos4.shape[0] // BRICK, cand.shape[1]):
+        inside += int(_chunk_pairs(pos4, cand, count, words, consts,
+                                   r0, r1)[5].sum())
+    return slots, inside
+
+
+def tile_energy_forces(pos, box, st, consts, mode, use_switch,
+                       plain=False):
+    """(energy, forces (n, 3)) of the direct-space sweep on state `st`.
+    plain=True runs the plain version on any device (the float64 oracle)."""
+    pos4 = sorted_positions(pos, box, st)
+    fn = nonbonded_tiles_plain if plain else nonbonded_tiles
+    out = fn(pos4, st["par4"], st["cand"], st["count"], st["words"],
+             consts, mode, use_switch)
+    forces = out[st["inv_order"], :3][:pos.shape[0]]
+    return 0.5 * out[:, 3].sum(dtype=torch.float64), forces

@@ -1,0 +1,74 @@
+"""Platforms: where a Context runs and in which precision.
+
+Counterpart of openmm_tpu/platform.py. A Platform here names a torch device
+class and the properties a Context reads from it:
+
+- "CUDA" (the default): the H100. Forces run through the hand-written
+  kernels in float32; positions and velocities are integrated in float64.
+- "CPU": the same program on the host, with each kernel replaced by its
+  plain PyTorch version. It exists for tests and must be asked for by name.
+
+The "Precision" property is "mixed" (float32 forces, the default) or
+"double" (float64 forces through the plain versions on the platform's
+device: the accuracy oracle). There is no fallback: a CUDA platform without
+a card raises.
+"""
+from __future__ import annotations
+
+import torch
+
+_PRECISIONS = ("mixed", "double")
+
+
+class Platform:
+    def __init__(self, name: str, device_type: str):
+        self._name = name
+        self._device_type = device_type
+        self._defaults = {"Precision": "mixed", "DeviceIndex": "0"}
+
+    def getName(self) -> str:
+        return self._name
+
+    def resolve(self, properties=None):
+        """(device, precision) for a Context built with `properties`."""
+        props = dict(self._defaults)
+        for key, value in (properties or {}).items():
+            if key not in props:
+                raise ValueError("unknown platform property: %s" % key)
+            props[key] = str(value)
+        precision = props["Precision"]
+        if precision not in _PRECISIONS:
+            raise ValueError("Precision must be 'mixed' or 'double', not %r"
+                             % precision)
+        if self._device_type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "the CUDA platform needs an NVIDIA GPU and none is "
+                    "visible to torch; ask for Platform 'CPU' by name to run "
+                    "on the host")
+            device = torch.device("cuda", int(props["DeviceIndex"]))
+        else:
+            device = torch.device("cpu")
+        return device, precision
+
+    @staticmethod
+    def getPlatformByName(name: str) -> "Platform":
+        if name not in _REGISTRY:
+            raise ValueError('There is no registered Platform called "%s"'
+                             % name)
+        return _REGISTRY[name]
+
+    @staticmethod
+    def getDefaultPlatform() -> "Platform":
+        return _REGISTRY["CUDA"]
+
+
+_REGISTRY = {"CUDA": Platform("CUDA", "cuda"), "CPU": Platform("CPU", "cpu")}
+
+
+def set_fp32_matmul_exact() -> None:
+    """Keep every float32 product in full float32: TF32 keeps ~3 decimal
+    digits, which is the H100 form of the bf16 truncation that put the
+    TPU's Ewald k-sum 1.4 % off (the JAX package pins HIGHEST there)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

@@ -1,0 +1,102 @@
+"""The slice as a whole: openmm_tpu_torch's Context on the "CPU" platform
+against openmm_tpu's "CPU" (float32 tiles) and "Reference" (float64,
+dense) platforms on a 343-water PME box (1,029 atoms, 20^3 grid).
+
+Tolerances: the port's float32 path stays within the accuracy class the
+JAX float32 path reaches (median relative force error <= 1e-5 against the
+float64 oracle); energies within 1e-5 relative of Reference and 5e-5 of the
+JAX "CPU" platform (both float32, different summation orders). The port's
+float64 path evaluates the same formulas as Reference: 1e-10. At zero
+friction LangevinMiddle is deterministic, so 20 steps from the same
+positions and velocities must give the same positions; the two float32
+force paths differ by ~1e-6 relative each step, which a hot lattice start
+grows to a few 1e-6 nm over 20 steps, so the bar is 1e-5 nm against moves
+of ~1e-2 nm."""
+import numpy as np
+import pytest
+import torch
+
+import openmm_tpu as mm
+from openmm_tpu.models import tip3p_water_box as jax_water_box
+
+import chip_smoke
+import openmm_tpu_torch as omm
+from torch_port_helpers import median_relative_error, system_params
+
+
+@pytest.fixture(scope="module")
+def box343():
+    jsys, jpos = jax_water_box(n_waters=343)
+    pos = np.array([[p.x, p.y, p.z] for p in jpos])
+    return jsys, pos, omm.from_numpy(system_params(jsys))
+
+
+def _jax_state(jsys, pos, platform, **kw):
+    ctx = mm.Context(jsys, mm.VerletIntegrator(0.001),
+                     mm.Platform.getPlatformByName(platform))
+    ctx.setPositions(pos)
+    st = ctx.getState(**kw)
+    return st.getPotentialEnergy()._value, \
+        np.asarray(st.getForces(asNumpy=True)._value)
+
+
+def _port_state(system, pos, precision):
+    ctx = omm.Context(system, omm.LangevinMiddleIntegrator(300, 1, 0.002),
+                      "CPU", {"Precision": precision})
+    ctx.setPositions(pos)
+    st = ctx.getState(getEnergy=True, getForces=True)
+    return st.getPotentialEnergy(), st.getForces()
+
+
+def test_energy_and_forces_match_jax_platforms(box343):
+    jsys, pos, system = box343
+    e_ref, f_ref = _jax_state(jsys, pos, "Reference", getEnergy=True,
+                              getForces=True)
+    e_cpu, f_cpu = _jax_state(jsys, pos, "CPU", getEnergy=True,
+                              getForces=True)
+    e, f = _port_state(system, pos, "mixed")
+    assert abs(e - e_ref) < 1e-5 * abs(e_ref)
+    assert abs(e - e_cpu) < 5e-5 * abs(e_cpu)
+    assert median_relative_error(f, f_ref) <= 1e-5
+    assert median_relative_error(f, f_cpu) <= 1e-5
+    e64, f64 = _port_state(system, pos, "double")
+    assert abs(e64 - e_ref) < 1e-10 * abs(e_ref)
+    assert np.abs(f64 - f_ref).max() < 1e-10 * np.abs(f_ref).max()
+
+
+def test_zero_friction_trajectory_matches_jax(box343):
+    jsys, pos, system = box343
+    rng = np.random.RandomState(5)
+    masses = omm.to_numpy(system)["masses"]
+    vel = rng.randn(*pos.shape) * np.sqrt(omm.BOLTZ * 300.0 / masses)[:, None]
+
+    jint = mm.LangevinMiddleIntegrator(300.0, 0.0, 0.002)
+    jctx = mm.Context(jsys, jint, mm.Platform.getPlatformByName("CPU"))
+    jctx.setPositions(pos)
+    jctx.applyConstraints()
+    start = np.asarray(jctx.getState(getPositions=True)
+                       .getPositions(asNumpy=True)._value)
+    jctx.setVelocities(vel)
+    jint.step(20)
+    want = np.asarray(jctx.getState(getPositions=True)
+                      .getPositions(asNumpy=True)._value)
+
+    integ = omm.LangevinMiddleIntegrator(300.0, 0.0, 0.002)
+    ctx = omm.Context(system, integ, "CPU")
+    ctx.setPositions(start)
+    ctx.setVelocities(vel)
+    integ.step(20)
+    got = ctx.getState(getPositions=True).getPositions()
+    assert np.abs(want - start).max() > 1e-3       # the atoms did move
+    assert np.abs(got - want).max() < 1e-5
+
+
+def test_chip_smoke_main_path_phase_on_cpu():
+    torch.manual_seed(0)
+    result = chip_smoke.phase_main_path(
+        torch.device("cpu"), n_waters=343,
+        relax=((0.0005, 50.0, 80), (0.001, 50.0, 60)), steps=20,
+        energy_every=10)
+    assert result["force_err"] <= chip_smoke.FORCE_ERR_BAR
+    assert len(result["energies"]) == 3
+    assert result["rebuilds"] > 0 and result["escalations"] == 0
