@@ -2,16 +2,25 @@
 
     python3 chip_smoke.py
 
-Builds the three CUDA kernels from csrc/ with one nvcc call, holds each
-kernel against its plain PyTorch version at the shapes of the main path,
-then runs the main path -- a 24,000-atom TIP3P PME box (8,000 rigid waters,
-0.9 nm cutoff, LangevinMiddle) -- through the port's public entry points,
-and checks what comes out. It imports nothing of JAX or of openmm_tpu.
+Builds the five CUDA kernels from csrc/ with one nvcc call, holds each
+kernel against its plain PyTorch version at the shapes of the paths that
+run it, then drives two paths through the port's public entry points and
+checks what comes out:
+
+- the main path: a 24,000-atom TIP3P PME box (8,000 rigid waters, 0.9 nm
+  cutoff) relaxed and stepped under LangevinMiddle (kernels 1-3);
+- energy minimization of the same box from its lattice start with
+  LocalEnergyMinimizer (kernel 1 and the dense PME spread, kernels 4-5),
+  checked against the float64 objective and against the z-slab
+  reciprocal forces.
+
+It imports nothing of JAX or of openmm_tpu.
 
 The script keeps to a budget of its own (BUDGET_S, build included) and exits
 non-zero, naming the phase, when that is exceeded or any phase fails. Its
 last line is {"ok": true, "device": {...}} and nothing else; the line before
-it is the per-kernel JSON record (launches on the main path, times, bounds).
+it is the per-kernel JSON record (launches on the path that runs the
+kernel, times, bounds).
 Without a CUDA device it exits non-zero before printing any result.
 """
 from __future__ import annotations
@@ -31,7 +40,9 @@ from openmm_tpu_torch import _build
 from openmm_tpu_torch.forces.nonbonded import NonbondedModule
 from openmm_tpu_torch.models import tip3p_water_box
 from openmm_tpu_torch.ops import geometry as geom
-from openmm_tpu_torch.ops import pme_zslab, tile_pairs
+from openmm_tpu_torch.ops import pallas_pme, pme_zslab, tile_pairs
+from openmm_tpu_torch.ops import pme as pme_mod
+from openmm_tpu_torch.platform import set_fp32_matmul_exact
 
 BUDGET_S = 180.0
 N_WATERS = 8000
@@ -43,18 +54,28 @@ FRICTION = 1.0
 PRODUCTION_STEPS = 200
 ENERGY_EVERY = 50
 FORCE_ERR_BAR = 1e-5
+# minimization: LocalEnergyMinimizer calls of MINIMIZE_ITERATIONS
+# iterations each (per penalty stage), the deadline checked between calls
+MINIMIZE_CALLS = 4
+MINIMIZE_ITERATIONS = 25
+MINIMIZE_TOLERANCE = 10.0       # kJ/mol/nm, the RMS gradient per particle
 # clock cycles the card sleeps before each timed call (~1 ms at 1.98 GHz)
 SLEEP_CYCLES = 2_000_000
 # peak rates of one H100 SXM (data sheet, dense): float32 outside the
 # tensor cores, and HBM bandwidth
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_S = 3.35e12
-KERNELS = (tile_pairs.TILES, pme_zslab.SPREAD, pme_zslab.GATHER)
-# kernel vs plain tolerances, relative to the largest magnitude of the plain
-# result: summation order differs (kernel 1: 8 slice partials; kernel 2:
-# atomics in a run-dependent order) and rsqrtf/expf differ in the last ulps
+MAIN_PATH_KERNELS = (tile_pairs.TILES, pme_zslab.SPREAD, pme_zslab.GATHER)
+MINIMIZER_KERNELS = (tile_pairs.TILES, pallas_pme.FWD, pallas_pme.BWD)
+KERNELS = MAIN_PATH_KERNELS + (pallas_pme.FWD, pallas_pme.BWD)
+# kernel vs plain tolerances, relative to the largest magnitude of each plain
+# output: summation order differs (kernel 1: 8 slice partials; kernel 2:
+# atomics in a run-dependent order; kernel 4: 11 atom slices added in
+# order, against einsum's order; kernel 5: sums over x and (y,z) tiles) and
+# rsqrtf/expf differ in the last ulps
 TOLERANCE = {"nonbonded_tiles": 1e-4, "pme_spread": 1e-5,
-             "pme_gather": 1e-4}
+             "pme_gather": 1e-4, "spread_triple_fwd": 1e-5,
+             "spread_triple_bwd": 1e-5}
 
 
 class Deadline:
@@ -113,8 +134,10 @@ def phase_build(deadline) -> float:
 
 
 def kernel_inputs(device, n_waters) -> dict:
-    """Inputs of the three kernels at the main path's shapes, from the
-    water box's starting positions."""
+    """Inputs of the five kernels at the shapes of their paths, from the
+    water box's starting positions: kernels 1-3 as the main path calls
+    them, kernels 4-5 on the dense weight planes of those positions (N
+    unpadded) with a seeded cotangent dQ."""
     system, pos = tip3p_water_box(n_waters)
     box = torch.as_tensor(system.getDefaultPeriodicBoxVectors(),
                           dtype=torch.float32, device=device)
@@ -124,12 +147,21 @@ def kernel_inputs(device, n_waters) -> dict:
     if int(st["overflow"]):
         raise RuntimeError("candidate state overflowed at the start")
     binv = geom.box_inverse(box).reshape(9).contiguous()
+    a, wy, wz = pme_mod.dense_weights(posf, module.charge,
+                                      geom.box_inverse(box), module.grid,
+                                      pme_zslab.ORDER)
+    nx, ny, nz = module.grid
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    dq = torch.randn((nx, ny * nz), generator=gen, device=device)
     return {
         "tiles": (tile_pairs.sorted_positions(posf, box, st), st["par4"],
                   st["cand"], st["count"], st["words"],
                   tile_pairs.tile_consts(box, module.tile_scalars)),
         "pos": posf.contiguous(), "charge": module.charge, "binv": binv,
         "grid": module.grid, "module": module, "box": box,
+        "triple": (a.contiguous(), wy.contiguous(), wz.contiguous()),
+        "dq": dq,
     }
 
 
@@ -143,6 +175,7 @@ def _kernel_calls(inp):
         q_grid, inp["box"], grid, m.alpha, m.bsq_x, m.bsq_y, m.bsq_z)
     phi2 = (2.0 * phi).contiguous()
     mode = tile_pairs.MODE_EWALD
+    tr, dq = inp["triple"], inp["dq"]
     return {
         "nonbonded_tiles": (
             lambda: tile_pairs.nonbonded_tiles(*t, mode, m.use_switch),
@@ -153,7 +186,27 @@ def _kernel_calls(inp):
         "pme_gather": (
             lambda: pme_zslab.pme_gather(pos, q, phi2, binv, grid),
             lambda: pme_zslab.pme_gather_plain(pos, q, phi2, binv, grid)),
+        "spread_triple_fwd": (
+            lambda: pallas_pme.spread_triple_fwd(*tr),
+            lambda: pallas_pme.spread_triple_plain(*tr)),
+        "spread_triple_bwd": (
+            lambda: pallas_pme.spread_triple_bwd(dq, *tr),
+            lambda: pallas_pme.spread_triple_vjp_plain(dq, *tr)),
     }
+
+
+def _compare(got, want):
+    """(largest absolute error, largest plain value, largest error relative
+    to the largest value of its own output) over a kernel's outputs; the
+    relative error is inf when an error is not finite."""
+    if not isinstance(got, tuple):
+        got, want = (got,), (want,)
+    errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    scales = [float(w.abs().max()) for w in want]
+    rel = max(e / s for e, s in zip(errs, scales))
+    if not all(math.isfinite(e) for e in errs):
+        rel = math.inf
+    return max(errs), max(scales), rel
 
 
 def phase_kernels(device, inp, deadline) -> dict:
@@ -163,18 +216,57 @@ def phase_kernels(device, inp, deadline) -> dict:
         got = kernel()
         want = plain()
         _sync(device)
-        err = float((got - want).abs().max())
-        scale = float(want.abs().max())
-        ok = math.isfinite(err) and err <= TOLERANCE[name] * scale
-        print("kernel %-16s max_abs_err %.3e  rel %.3e  (tolerance %.0e of "
-              "max %.3e) %s" % (name, err, err / scale, TOLERANCE[name],
-                                scale, "ok" if ok else "MISS"))
+        err, scale, rel = _compare(got, want)
+        ok = rel <= TOLERANCE[name]
+        print("kernel %-17s max_abs_err %.3e  rel %.3e  (tolerance %.0e of "
+              "max %.3e) %s" % (name, err, rel, TOLERANCE[name], scale,
+                                "ok" if ok else "MISS"))
         if not ok:
             raise RuntimeError("kernel %s disagrees with its plain version"
                                % name)
         errors[name] = err
         deadline.check("kernels: %s" % name)
     return errors
+
+
+# (atoms, grid) beside the main path's for kernels 4-5: N a multiple of
+# 256 (the JAX kernels' padding) and not, non-cubic grids with axes below
+# and above one 64-wide tile, and fewer atoms than one forward step
+TRIPLE_SHAPES = ((24064, (56, 56, 56)), (300, (12, 10, 14)),
+                 (1000, (100, 20, 30)), (7, (6, 7, 9)))
+
+
+def phase_triple_shapes(device, deadline) -> None:
+    """Kernels 4-5 against their plain versions on seeded inputs at
+    TRIPLE_SHAPES (5 nonzero weights a row, as the spline gives); raises on
+    a miss."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(11)
+    for n, (nx, ny, nz) in TRIPLE_SHAPES:
+        planes = []
+        for width in (nx, ny, nz):
+            base = torch.randint(0, width, (n, 1), generator=gen,
+                                 device=device)
+            cols = torch.remainder(base + torch.arange(5, device=device),
+                                   width)
+            w = torch.rand((n, 5), generator=gen, device=device)
+            planes.append(torch.zeros((n, width), device=device)
+                          .scatter_add(1, cols, w))
+        dq = torch.randn((nx, ny * nz), generator=gen, device=device)
+        got = (pallas_pme.spread_triple_fwd(*planes),
+               *pallas_pme.spread_triple_bwd(dq, *planes))
+        want = (pallas_pme.spread_triple_plain(*planes),
+                *pallas_pme.spread_triple_vjp_plain(dq, *planes))
+        _sync(device)
+        rel = _compare(got, want)[2]
+        ok = rel <= TOLERANCE["spread_triple_fwd"]
+        print("kernels 4-5 at N = %d, grid %dx%dx%d: largest error %.3e of "
+              "the largest value %s" % (n, nx, ny, nz, rel,
+                                        "ok" if ok else "MISS"))
+        if not ok:
+            raise RuntimeError("spread_triple disagrees with its plain "
+                               "version at N = %d" % n)
+        deadline.check("kernels 4-5 at N = %d" % n)
 
 
 def _median_relative_error(forces, reference):
@@ -256,6 +348,119 @@ def phase_main_path(device, n_waters=N_WATERS, relax=RELAX,
             "escalations": ctx.escalation_count}
 
 
+class _Iterations(omm.MinimizationReporter):
+    """Counts the minimizer's iterations (it never stops a run: the
+    minimizer ignores a reporter's exceptions, so the deadline is checked
+    between calls instead)."""
+
+    def __init__(self):
+        self.count = 0
+
+    def report(self, iteration, x, grad, args):
+        self.count += 1
+        return False
+
+
+def _constraint_error(system, positions) -> float:
+    """Largest |r - d| / d over the System's constraints."""
+    cons = [system.getConstraintParameters(i)
+            for i in range(system.getNumConstraints())]
+    p1, p2, d = (np.asarray(c) for c in zip(*cons))
+    r = np.linalg.norm(positions[p1] - positions[p2], axis=1)
+    return float(np.max(np.abs(r - d) / d))
+
+
+def phase_minimize(device, n_waters=N_WATERS, calls=MINIMIZE_CALLS,
+                   iterations=MINIMIZE_ITERATIONS, deadline=None) -> dict:
+    """Minimize the water box from its lattice start on a Context of its
+    own (the default platform on a GPU, "CPU" otherwise) in `calls` calls
+    of LocalEnergyMinimizer.minimize with maxIterations=`iterations`,
+    checking `deadline` between calls. Then check at the final positions:
+    energy fell; constraints hold to twice the tolerance; the float32
+    objective's forces against the float64 objective's; the reciprocal
+    forces of the dense path (kernels 4-5, by autograd) against the z-slab
+    path's (kernels 2-3). Kernel launch counts are zeroed before the calls
+    and read right after them; the caller checks them."""
+    deadline = deadline or Deadline(math.inf)
+    platform = "CUDA" if device.type == "cuda" else "CPU"
+    system, positions = tip3p_water_box(n_waters)
+    integ = omm.LangevinMiddleIntegrator(300.0, FRICTION, DT_PS)
+    ctx = (omm.Context(system, integ) if platform == "CUDA"
+           else omm.Context(system, integ, platform))
+    ctx.setPositions(positions)
+    before = ctx.getState(getEnergy=True).getPotentialEnergy()
+    reporter = _Iterations()
+    for kern in KERNELS:
+        kern.launches = 0
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        omm.LocalEnergyMinimizer.minimize(ctx, MINIMIZE_TOLERANCE, iterations,
+                                          reporter)
+        deadline.check("minimization")
+    _sync(device)
+    elapsed = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in MINIMIZER_KERNELS}
+    evaluations = ctx.energy_evaluations
+    st = ctx.getState(getEnergy=True, getPositions=True)
+    after, x = st.getPotentialEnergy(), st.getPositions()
+    constraint_err = _constraint_error(system, x)
+    tol = integ.getConstraintTolerance()
+
+    e32, f32 = ctx._make_position_energy_fn()(x)
+    oracle = omm.Context(system, omm.LangevinMiddleIntegrator(
+        300.0, FRICTION, DT_PS), platform, {"Precision": "double"})
+    e64, f64 = oracle._make_position_energy_fn()(x)
+    del oracle
+    grad_err = _median_relative_error(f32, f64)
+    deadline.check("minimization: float64 objective")
+
+    m = ctx._nonbonded
+    box = torch.as_tensor(system.getDefaultPeriodicBoxVectors(),
+                          dtype=torch.float64, device=device)
+    posf = torch.as_tensor(x, dtype=torch.float32, device=device)
+    posg = posf.clone().requires_grad_()
+    bsq = (m.bsq_x, m.bsq_y, m.bsq_z)
+    e_dense = pme_mod.pme_reciprocal_energy(posg, m.charge, box, m.grid,
+                                            pme_zslab.ORDER, m.alpha, *bsq)
+    (g_dense,) = torch.autograd.grad(e_dense, posg)
+    e_slab, f_slab = pme_zslab.pme_recip_ef(posf, m.charge, box.float(),
+                                            m.grid, m.alpha, bsq)
+    recip_err = _median_relative_error(-g_dense.double().cpu().numpy(),
+                                       f_slab.double().cpu().numpy())
+
+    print("minimization: %d atoms, %d calls of %d iterations: %d iterations,"
+          " %d objective evaluations in %.2f s (%.2f ms each); energy %.3f "
+          "-> %.3f kJ/mol" % (system.getNumParticles(), calls, iterations,
+                              reporter.count, evaluations, elapsed,
+                              elapsed / max(evaluations, 1) * 1e3, before,
+                              after))
+    print("minimization: launches %s; largest relative constraint error "
+          "%.3e (bar %.0e); float32 vs float64 objective: median force "
+          "error %.3e (bar %.0e), energy %.6f vs %.6f; dense vs z-slab "
+          "reciprocal: median force difference %.3e (bar %.0e), energy "
+          "%.6f vs %.6f" % (
+              json.dumps(launches), constraint_err, 2 * tol, grad_err,
+              FORCE_ERR_BAR, e32, e64, recip_err, FORCE_ERR_BAR,
+              float(e_dense.detach()), float(e_slab)))
+    if not (math.isfinite(after) and after < before):
+        raise RuntimeError("minimization did not lower the energy: %.3f -> "
+                           "%.3f" % (before, after))
+    if not constraint_err < 2 * tol:
+        raise RuntimeError("constraint error %.3e after minimization"
+                           % constraint_err)
+    if not grad_err <= FORCE_ERR_BAR:
+        raise RuntimeError("float32 objective forces %.3e from float64"
+                           % grad_err)
+    if not recip_err <= FORCE_ERR_BAR:
+        raise RuntimeError("dense and z-slab reciprocal forces differ by "
+                           "%.3e" % recip_err)
+    return {"launches": launches, "iterations": reporter.count,
+            "evaluations": evaluations, "seconds": elapsed,
+            "energies": (before, after), "constraint_err": constraint_err,
+            "grad_err": grad_err, "recip_err": recip_err}
+
+
 def _time_ms(fn, device, reps=20, warmup=3) -> float:
     """Median milliseconds per call over `reps` calls timed one by one
     with CUDA events, after `warmup` calls. Each call is queued behind a
@@ -295,17 +500,41 @@ OPS_SPREAD = 5.0 + 25.0 + 125.0 + 125.0
 OPS_GATHER = 2 * (2 * 25 * 5 + 3 * 5 * 5 + 3 * 5) + 21.0
 
 
+def triple_ops(a, wy, wz) -> tuple[float, float, float, float]:
+    """(forward, backward) float operations that kernels 4 and 5 need on
+    these inputs, counting only the nonzero weights of each row (5 per axis
+    for order-5 splines), then the dense counts the kernels perform.
+    Forward, per atom: the ny_i nz_i products wy wz, then one FMA per
+    product with each nonzero a. Backward, per atom: the same wy wz
+    products; dA, an FMA of each against every dQ row (nx); U = a . dQ at
+    the entries dWy and dWz read (every y at a nonzero z and every z at a
+    nonzero y), an FMA per nonzero a; dWy and dWz, an FMA per entry read."""
+    nx, ny, nz = a.shape[1], wy.shape[1], wz.shape[1]
+    na = (a != 0).sum(dim=1).double()
+    my = (wy != 0).sum(dim=1).double()
+    mz = (wz != 0).sum(dim=1).double()
+    yz = my * mz
+    fwd = float((yz + 2.0 * na * yz).sum())
+    u_entries = ny * mz + nz * my - yz
+    bwd = float((yz + 2.0 * nx * yz + 2.0 * na * u_entries
+                 + 2.0 * (ny * mz + nz * my)).sum())
+    dense = float(a.shape[0] * nx * ny * nz)
+    return fwd, bwd, 2.0 * dense, 4.0 * dense
+
+
 def kernel_bounds(inp) -> dict:
     """{name: (bound ms, "bytes" or "operations")}: the larger of the bytes
     each function must move (each input read once, each output written
     once) over HBM bandwidth and the float operations it needs over the
     float32 peak. Kernel 1 counts the distinct pairs inside the cutoff that
-    these inputs have (each counted once, not from both atoms)."""
+    these inputs have (each counted once, not from both atoms); kernels 4
+    and 5 the nonzero weights (triple_ops)."""
     pos4, par4, cand, count, words, consts = inp["tiles"]
     n = inp["pos"].shape[0]
     nx, ny, nz = inp["grid"]
     g = nx * ny * nz
     _, inside = tile_pairs.count_tile_pairs(pos4, cand, count, words, consts)
+    t_ops = triple_ops(*inp["triple"])
     tiles_in = sum(t.numel() * t.element_size()
                    for t in (pos4, par4, cand, count, words, consts))
     tiles_out = 4 * pos4.numel()              # (n_pad, 4) float32: f, e
@@ -318,6 +547,10 @@ def kernel_bounds(inp) -> dict:
         # in: positions, charges, binv, the grid; out: forces (3 n)
         "pme_gather": (4 * (4 * n + 9 + g + 3 * n),
                        n * (3 * OPS_WEIGHTS_DW + OPS_GATHER)),
+        # in: a, wy, wz; out: Q
+        "spread_triple_fwd": (4 * (n * (nx + ny + nz) + g), t_ops[0]),
+        # in: dQ, a, wy, wz; out: dA, dWy, dWz
+        "spread_triple_bwd": (4 * (g + 2 * n * (nx + ny + nz)), t_ops[1]),
     }
     out = {}
     for name, (nbytes, flops) in work.items():
@@ -335,7 +568,24 @@ def phase_timing(device, inp, launches, errors, deadline) -> list:
                                        inp["binv"], inp["grid"])
     nx, ny, nz = inp["grid"]
     q_flat = torch.zeros(nx * ny * nz, dtype=torch.float32, device=device)
-    library = {"pme_spread": lambda: q_flat.zero_().index_add_(0, flat, val)}
+    # one PyTorch call for each of kernels 4-5 (TF32 is off): the einsum,
+    # and the backward of the einsum alone (its forward is run once here)
+    leaves = [t.detach().clone().requires_grad_() for t in inp["triple"]]
+    q_einsum = torch.einsum("ix,iy,iz->xyz", *leaves)
+    dq3 = inp["dq"].view(nx, ny, nz)
+    library = {
+        "pme_spread": lambda: q_flat.zero_().index_add_(0, flat, val),
+        "spread_triple_fwd": lambda: torch.einsum("ix,iy,iz->xyz",
+                                                  *inp["triple"]),
+        "spread_triple_bwd": lambda: torch.autograd.grad(
+            q_einsum, leaves, dq3, retain_graph=True),
+    }
+    fwd_ops, bwd_ops, fwd_dense, bwd_dense = triple_ops(*inp["triple"])
+    print("kernels 4-5 at N = %d: operations needed %.3e / %.3e, dense "
+          "operations performed %.3e / %.3e (%.3f / %.3f ms at the float32 "
+          "peak)" % (inp["triple"][0].shape[0], fwd_ops, bwd_ops, fwd_dense,
+                     bwd_dense, fwd_dense / PEAK_FP32_FLOPS * 1e3,
+                     bwd_dense / PEAK_FP32_FLOPS * 1e3))
     records = []
     for kern in KERNELS:
         kernel, plain = calls[kern.name]
@@ -359,6 +609,7 @@ def main() -> int:
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is "
                            "visible to torch")
     deadline = Deadline(BUDGET_S)
+    set_fp32_matmul_exact()
     device = torch.device("cuda", 0)
     info = phase_device(device)
     deadline.check("device")
@@ -366,14 +617,21 @@ def main() -> int:
     deadline.check("build")
     inp = kernel_inputs(device, N_WATERS)
     errors = phase_kernels(device, inp, deadline)
+    phase_triple_shapes(device, deadline)
     for kern in KERNELS:
         kern.launches = 0
     result = phase_main_path(device, deadline=deadline)
-    launches = {k.name: k.launches for k in KERNELS}
+    launches = {k.name: k.launches for k in MAIN_PATH_KERNELS}
     print("main path launches: %s" % json.dumps(launches))
     if min(launches.values()) <= 0:
         raise RuntimeError("a kernel of the main path never launched: %s"
                            % launches)
+    minimized = phase_minimize(device, deadline=deadline)
+    if min(minimized["launches"].values()) <= 0:
+        raise RuntimeError("a kernel of the minimizer path never launched: "
+                           "%s" % minimized["launches"])
+    for kern in (pallas_pme.FWD, pallas_pme.BWD):
+        launches[kern.name] = minimized["launches"][kern.name]
     records = phase_timing(device, inp, launches, errors, deadline)
     print("main path: %.2f ns/day on %s (%s), %d steps of %.3f ps" % (
         result["ns_day"], info["name"], info["smi"], PRODUCTION_STEPS,

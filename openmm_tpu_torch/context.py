@@ -7,6 +7,8 @@ moved more than skin/2 (the rebuild predicate). Steps run in chunks: when a
 chunk's candidate state overflowed its capacity (which poisoned its forces
 with NaN), the chunk is undone from a snapshot, the capacity grows by 1.4x
 and the chunk runs again, at most 6 times (ContextImpl.cpp:298-307).
+_make_position_energy_fn is the minimizer's objective (energy and forces
+by autograd at given positions).
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ class Context:
             platform = Platform.getPlatformByName(platform)
         self._device, self._precision = platform.resolve(properties)
         self._system = system
+        self._integrator = integrator
         n = system.getNumParticles()
         if n == 0:
             raise ValueError("Cannot create a Context for a System with no "
@@ -86,6 +89,7 @@ class Context:
                                      device=self._device)
         self.rebuild_count = 0
         self.escalation_count = 0
+        self.energy_evaluations = 0     # of _make_position_energy_fn
         self._deps = StepDeps(
             inv_masses=1.0 / self._masses,
             force_fn=self._forces_for_step,
@@ -122,18 +126,49 @@ class Context:
         self._refresh_tiles(pos)
         return self._nonbonded(pos, box, self._tiles)
 
+    def _make_position_energy_fn(self):
+        """(positions (n, 3) float64 numpy) -> (energy float, forces (n, 3)
+        float64 numpy): the potential energy at those positions and minus
+        its gradient by autograd, on this Context's device in its
+        precision, with its current box. Used by LocalEnergyMinimizer; the
+        Context's own state is not touched."""
+        module = self._nonbonded
+
+        def evaluate(positions):
+            pos = torch.as_tensor(np.asarray(positions, np.float64),
+                                  dtype=module.dtype, device=self._device)
+            pos.requires_grad_(True)
+            energy = module.potential_energy(pos, self._state["box"])
+            (grad,) = torch.autograd.grad(energy, pos)
+            self.energy_evaluations += 1
+            return float(energy.detach()), -grad.to(torch.float64).cpu().numpy()
+
+        return evaluate
+
     # -- accessors -----------------------------------------------------------
+    def getSystem(self):
+        return self._system
+
+    def getIntegrator(self):
+        return self._integrator
+
     def getStepCount(self) -> int:
         return self._state["step"]
+
+    def _set_position_tensor(self, pos) -> None:
+        """New positions: the candidate state built for the old ones is
+        dropped, so the next force evaluation rebuilds it."""
+        self._state["positions"] = pos
+        self._tiles = None
+        self._ref_pos = None
 
     def setPositions(self, positions) -> None:
         pos = np.asarray(positions, np.float64)
         if pos.shape != (self._n, 3):
             raise ValueError("setPositions: expected (%d, 3), got %s"
                              % (self._n, pos.shape))
-        self._state["positions"] = torch.as_tensor(
-            pos, dtype=torch.float64, device=self._device)
-        self._tiles = None
+        self._set_position_tensor(torch.as_tensor(
+            pos, dtype=torch.float64, device=self._device))
         self._positions_set = True
 
     def setVelocities(self, velocities) -> None:
@@ -158,8 +193,7 @@ class Context:
 
     def applyConstraints(self) -> None:
         pos = self._state["positions"]
-        self._state["positions"] = self._constrain_positions(pos, pos)[0]
-        self._tiles = None
+        self._set_position_tensor(self._constrain_positions(pos, pos)[0])
 
     # -- stepping ----------------------------------------------------------------
     def _snapshot(self):

@@ -8,7 +8,10 @@ tile sweep (kernel 1), the reciprocal space (kernels 2 and 3 around cuFFT),
 the self energy, the exceptions, the Ewald exclusion correction and the
 dispersion correction. An overflowing candidate state poisons energy AND
 forces with NaN: integrators read only forces, so a truncated pair list must
-never give a finite trajectory.
+never give a finite trajectory. `potential_energy` is the minimizer's
+objective: the same energy as a scalar that autograd differentiates, with
+the reciprocal space through the dense spread (kernels 4 and 5) as the JAX
+package's differentiated path has it (nonbonded.py reciprocal_energy).
 """
 from __future__ import annotations
 
@@ -162,9 +165,10 @@ class NonbondedForce:
                                         + 4.0 * sum3)
 
 
-def exception_ef(pos, idx, cp, sig, eps):
-    """Exception pair terms (no periodic images: exceptions ignore the
-    cutoff) as (energy, forces). idx (m, 2) long; per-pair parameters."""
+def _exception_terms(pos, idx, cp, sig, eps):
+    """Per exception pair (no periodic images: exceptions ignore the
+    cutoff): energy, dE/d(r^2) and the displacement. idx (m, 2) long;
+    per-pair parameters."""
     dr = pos[idx[:, 0]] - pos[idx[:, 1]]
     inv_r2 = 1.0 / (dr * dr).sum(dim=-1)
     s6 = (sig * sig * inv_r2) ** 3
@@ -172,13 +176,25 @@ def exception_ef(pos, idx, cp, sig, eps):
     e = 4.0 * eps * s6 * (s6 - 1.0) + ONE_4PI_EPS0 * cp * inv_r
     dedr2 = -12.0 * eps * s6 * (2.0 * s6 - 1.0) * inv_r2 \
         - 0.5 * ONE_4PI_EPS0 * cp * inv_r * inv_r2
+    return e, dedr2, dr
+
+
+def exception_ef(pos, idx, cp, sig, eps):
+    """Exception pair terms as (energy, forces)."""
+    e, dedr2, dr = _exception_terms(pos, idx, cp, sig, eps)
     return e.sum(dtype=torch.float64), _pair_forces(pos, idx, dedr2, dr)
 
 
-def exclusion_correction_ef(pos, box, idx, qq, alpha):
-    """Subtract erf(alpha r)/r for every excluded pair, whose interaction
-    the reciprocal sum contains but the direct sweep skips. qq holds
-    k_e q_i q_j per pair. Returns (energy, forces)."""
+def exception_energy(pos, idx, cp, sig, eps):
+    """Exception pair energy alone, differentiable in pos."""
+    return _exception_terms(pos, idx, cp, sig, eps)[0].sum(
+        dtype=torch.float64)
+
+
+def _exclusion_terms(pos, box, idx, qq, alpha):
+    """Per excluded pair: energy -qq erf(alpha r) / r (the interaction the
+    reciprocal sum contains but the direct sweep skips), dE/d(r^2) and the
+    minimum-image displacement. qq holds k_e q_i q_j per pair."""
     dr = geom.periodic_delta(pos[idx[:, 0]] - pos[idx[:, 1]], box.to(pos.dtype))
     r2 = (dr * dr).sum(dim=-1)
     r = torch.sqrt(r2)
@@ -187,8 +203,19 @@ def exclusion_correction_ef(pos, box, idx, qq, alpha):
     # dE/dr = qq (erf(ar)/r^2 - 2a/sqrt(pi) exp(-a^2 r^2) / r)
     de_dr = qq * (erf_ar / r2 - TWO_OVER_SQRT_PI * alpha
                   * torch.exp(-alpha * alpha * r2) / r)
-    return e.sum(dtype=torch.float64), _pair_forces(pos, idx,
-                                                    0.5 * de_dr / r, dr)
+    return e, 0.5 * de_dr / r, dr
+
+
+def exclusion_correction_ef(pos, box, idx, qq, alpha):
+    """The Ewald exclusion correction as (energy, forces)."""
+    e, dedr2, dr = _exclusion_terms(pos, box, idx, qq, alpha)
+    return e.sum(dtype=torch.float64), _pair_forces(pos, idx, dedr2, dr)
+
+
+def exclusion_correction_energy(pos, box, idx, qq, alpha):
+    """The Ewald exclusion correction alone, differentiable in pos."""
+    return _exclusion_terms(pos, box, idx, qq, alpha)[0].sum(
+        dtype=torch.float64)
 
 
 def _pair_forces(pos, idx, dedr2, dr):
@@ -261,13 +288,15 @@ class NonbondedModule(nn.Module):
         return tile_pairs.tile_budget(self.n, self.box_widths, self.cutoff,
                                       self.skin, self.capacity_scale)
 
-    def build_state(self, pos, box) -> dict:
-        """Candidate state at cutoff + skin for positions `pos`."""
+    def build_state(self, pos, box, reach=None) -> dict:
+        """Candidate state for positions `pos` with bricks that come within
+        `reach` (default cutoff + skin), at the skinned capacity."""
         b = self.budget()
         return tile_pairs.build_tile_state(
             pos.to(self.dtype), box, self.charge, self.sigma, self.epsilon,
-            self.exclusions, self.cutoff + self.skin, b["max_bricks"],
-            b["sort_cell"], b["exc_cap"])
+            self.exclusions,
+            self.cutoff + self.skin if reach is None else reach,
+            b["max_bricks"], b["sort_cell"], b["exc_cap"])
 
     def forward(self, pos, box, state=None):
         """(energy float64 scalar, forces (n, 3) in self.dtype). `state`
@@ -293,3 +322,30 @@ class NonbondedModule(nn.Module):
         forces = f + f_rec + f_exc + f_corr
         poison = torch.where(state["overflow"] > 0, math.nan, 0.0)
         return energy + poison, forces + poison.to(forces.dtype)
+
+    def potential_energy(self, pos, box) -> torch.Tensor:
+        """The potential energy as a float64 scalar that autograd
+        differentiates with respect to `pos` (the minimizer's objective):
+        the direct sweep through kernel 1 (TileEnergy) on a candidate state
+        built at the cutoff for these positions, the exceptions, the Ewald
+        exclusion correction, the self energy, the dispersion correction,
+        and the dense reciprocal energy through kernels 4 and 5. An
+        overflowing candidate state poisons it with NaN."""
+        posd = pos.to(self.dtype)
+        boxd = box.to(self.dtype)
+        state = self.build_state(posd.detach(), box, reach=self.cutoff)
+        consts = tile_pairs.tile_consts(boxd, self.tile_scalars)
+        e_dir = tile_pairs.TileEnergy.apply(
+            posd, boxd, state, consts, tile_pairs.MODE_EWALD,
+            self.use_switch, self.plain)
+        e_rec = pme_mod.pme_reciprocal_energy(
+            posd, self.charge, box, self.grid, pme_zslab.ORDER, self.alpha,
+            self.bsq_x, self.bsq_y, self.bsq_z, plain=self.plain)
+        e_exc = exception_energy(posd, self.exc_idx, self.exc_cp,
+                                 self.exc_sigma, self.exc_eps)
+        e_corr = exclusion_correction_energy(posd, boxd, self.exc_idx,
+                                             self.exc_qq, self.alpha)
+        box64 = box.to(torch.float64)
+        energy = (e_dir + e_rec + e_exc + e_corr + self.self_energy
+                  + self.disp_coeff / geom.box_volume(box64))
+        return energy + torch.where(state["overflow"] > 0, math.nan, 0.0)

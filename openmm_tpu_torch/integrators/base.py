@@ -36,11 +36,20 @@ class StepDeps:
 class Integrator:
     def __init__(self, stepSize: float):
         self._step_size = float(stepSize)
+        self._constraint_tol = 1e-5
         self._context = None
         self._seed = 0
 
     def setStepSize(self, size: float) -> None:
         self._step_size = float(size)
+
+    def getConstraintTolerance(self) -> float:
+        """Relative tolerance of constraints (SETTLE is exact; the
+        minimizer holds its penalty solution to twice this)."""
+        return self._constraint_tol
+
+    def setConstraintTolerance(self, tol: float) -> None:
+        self._constraint_tol = float(tol)
 
     def getRandomNumberSeed(self) -> int:
         return self._seed

@@ -20,6 +20,7 @@ import torch
 from .. import _build
 from ..constants import ONE_4PI_EPS0
 from . import geometry as geom
+from . import pme as pme_mod
 
 ORDER = 5
 
@@ -32,30 +33,13 @@ GATHER = _build.Kernel(
 
 
 def bspline_w_dw(t: torch.Tensor, order: int = ORDER):
-    """(weights, d weights / du), each (..., order), by the recursion of
-    the JAX module (the same one the CUDA kernels unroll)."""
-    zero = torch.zeros_like(t)
-    w = [1.0 - t, t] + [zero] * (order - 2)
-    for k in range(3, order):
-        div = 1.0 / (k - 1)
-        new = [None] * k
-        new[k - 1] = div * t * w[k - 2]
-        for j in range(1, k - 1):
-            new[k - 1 - j] = div * ((t + j) * w[k - 2 - j]
-                                    + (k - j - t) * w[k - 1 - j])
-        new[0] = div * (1.0 - t) * w[0]
-        w[:k] = new
-    dw = [(w[j - 1] if j >= 1 else zero) - (w[j] if j <= order - 2 else zero)
-          for j in range(order)]
-    k = order
-    div = 1.0 / (k - 1)
-    new = [None] * order
-    new[k - 1] = div * t * w[k - 2]
-    for j in range(1, k - 1):
-        new[k - 1 - j] = div * ((t + j) * w[k - 2 - j]
-                                + (k - j - t) * w[k - 1 - j])
-    new[0] = div * (1.0 - t) * w[0]
-    return torch.stack(new, dim=-1), torch.stack(dw, dim=-1)
+    """(weights, d weights / du), each (..., order): the weights of
+    pme.bspline_weights (the recursion the CUDA kernels unroll) and, from
+    the order - 1 weights, dM_n(u) = M_{n-1}(u) - M_{n-1}(u - 1)."""
+    lower = pme_mod.bspline_weights(t, order - 1)
+    zero = torch.zeros_like(lower[..., :1])
+    dw = torch.cat([zero, lower], dim=-1) - torch.cat([lower, zero], dim=-1)
+    return pme_mod.bspline_weights(t, order), dw
 
 
 def _grid_weights(pos, binv, grid):

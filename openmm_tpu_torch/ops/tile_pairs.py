@@ -347,3 +347,26 @@ def tile_energy_forces(pos, box, st, consts, mode, use_switch,
              consts, mode, use_switch)
     forces = out[st["inv_order"], :3][:pos.shape[0]]
     return 0.5 * out[:, 3].sum(dtype=torch.float64), forces
+
+
+class TileEnergy(torch.autograd.Function):
+    """The direct-space energy of tile_energy_forces as a float64 scalar
+    that autograd differentiates with respect to pos: the forward runs
+    kernel 1 once and keeps its analytic forces, the backward returns
+    -forces * grad_output, so no second pass through the kernel is needed.
+
+    TileEnergy.apply(pos, box, st, consts, mode, use_switch, plain)
+    """
+
+    @staticmethod
+    def forward(ctx, pos, box, st, consts, mode, use_switch, plain):
+        energy, forces = tile_energy_forces(pos, box, st, consts, mode,
+                                            use_switch, plain)
+        ctx.save_for_backward(forces)
+        return energy
+
+    @staticmethod
+    def backward(ctx, grad):
+        (forces,) = ctx.saved_tensors
+        return (-forces * grad.to(forces.dtype),
+                None, None, None, None, None, None)

@@ -1,18 +1,23 @@
-"""Where a step of the main path spends its time.
+"""Where a step of the main path, or an evaluation of the minimizer's
+objective, spends its time.
 
     python3 -m openmm_tpu_torch.profile_step [--steps 50] [--device cuda]
+    python3 -m openmm_tpu_torch.profile_step --minimizer [--evaluations 20]
 
-Builds the 24,000-atom TIP3P PME box, relaxes the lattice start briefly,
-then times `--steps` LangevinMiddle steps at 2 fs untraced and the same
-number again under torch.profiler (host and CUDA activity). Prints one JSON
-object: wall ms per step with and without the profiler, the host CPU time
-of this process per untraced step (near the wall time when the host is
-what holds the step back, well under it when the process waits for a CPU
-core or for the card), the rebuilds in the untraced window, device busy ms per
-step (the sum of kernel, copy and fill durations on the card), the device
-idle share against the untraced wall time, kernels launched per step, and
-the kernels that take the most device time. On a CPU device it reports host
-time only.
+Builds the 24,000-atom TIP3P PME box. By default it relaxes the lattice
+start briefly, then times `--steps` LangevinMiddle steps at 2 fs untraced
+and the same number again under torch.profiler (host and CUDA activity).
+With --minimizer it times `--evaluations` evaluations of the minimizer's
+objective (Context._make_position_energy_fn: energy and forces by autograd
+through kernels 1, 4 and 5) at the lattice start the same way. Prints one
+JSON object: wall ms per step (or evaluation) with and without the
+profiler, the host CPU time of this process per untraced unit (near the
+wall time when the host is what holds the work back, well under it when
+the process waits for a CPU core or for the card), for steps the rebuilds
+in the untraced window, device busy ms per unit (the sum of kernel, copy
+and fill durations on the card), the device idle share against the
+untraced wall time, kernels launched per unit, and the kernels that take
+the most device time. On a CPU device it reports host time only.
 """
 from __future__ import annotations
 
@@ -27,11 +32,61 @@ from . import Context, LangevinMiddleIntegrator
 from .models import tip3p_water_box
 
 
+def _timed(run, count, device):
+    """(wall ms, host CPU ms) per unit of run(), which does `count`."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0, c0 = time.perf_counter(), time.process_time()
+    run()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return ((time.perf_counter() - t0) / count * 1e3,
+            (time.process_time() - c0) / count * 1e3)
+
+
+def _window(run, count, device, unit, top) -> dict:
+    """Time run() untraced, then again under torch.profiler, and sum the
+    device time of the traced run by kernel."""
+    wall_ms, cpu_ms = _timed(run, count, device)
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        traced_ms = _timed(run, count, device)[0]
+    out = {"wall_ms_per_" + unit: wall_ms,
+           "host_cpu_ms_per_" + unit: cpu_ms,
+           "wall_ms_per_%s_traced" % unit: traced_ms}
+    on_card = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in on_card) / count / 1e3
+    if device.type == "cuda" and busy_ms > 0:
+        out["device_busy_ms_per_" + unit] = busy_ms
+        out["device_idle_share"] = 1.0 - busy_ms / wall_ms
+        out["kernels_per_" + unit] = sum(e.count for e in on_card) / count
+        out["top_kernels"] = [
+            [e.key[:90], e.count / count, e.self_device_time_total / count
+             / 1e3]
+            for e in sorted(on_card, key=lambda e: -e.self_device_time_total)
+            [:top]]
+    else:
+        out["device_busy_ms_per_" + unit] = "not measured"
+    return out
+
+
+def _context(device, system, integ):
+    return Context(system, integ, "CUDA" if device.type == "cuda" else "CPU")
+
+
+def _device_name(device):
+    return (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+
+
 def profile_steps(device, n_waters=8000, steps=50, top=12) -> dict:
     system, positions = tip3p_water_box(n_waters)
     integ = LangevinMiddleIntegrator(300.0, 50.0, 0.0005)
     integ.setRandomNumberSeed(3)
-    ctx = Context(system, integ, "CUDA" if device.type == "cuda" else "CPU")
+    ctx = _context(device, system, integ)
     ctx.setPositions(positions)
     ctx.applyConstraints()
     ctx.setVelocitiesToTemperature(300.0, randomSeed=1)
@@ -39,58 +94,55 @@ def profile_steps(device, n_waters=8000, steps=50, top=12) -> dict:
     integ.setStepSize(0.002)
     integ.setFriction(1.0)
     integ.step(20)
+    rebuilds = []
 
-    def timed_steps():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        t0, c0 = time.perf_counter(), time.process_time()
+    def run():
+        before = ctx.rebuild_count
         integ.step(steps)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        return ((time.perf_counter() - t0) / steps * 1e3,
-                (time.process_time() - c0) / steps * 1e3)
+        rebuilds.append(ctx.rebuild_count - before)
 
-    rebuilds = ctx.rebuild_count
-    wall_ms, cpu_ms = timed_steps()
-    rebuilds = ctx.rebuild_count - rebuilds
-    activities = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        traced_ms = timed_steps()[0]
-    out = {"device": (torch.cuda.get_device_name(device)
-                      if device.type == "cuda" else "cpu"),
-           "atoms": system.getNumParticles(), "steps": steps,
-           "rebuilds": rebuilds, "wall_ms_per_step": wall_ms,
-           "host_cpu_ms_per_step": cpu_ms,
-           "wall_ms_per_step_traced": traced_ms}
-    on_card = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in on_card) / steps / 1e3
-    if device.type == "cuda" and busy_ms > 0:
-        out["device_busy_ms_per_step"] = busy_ms
-        out["device_idle_share"] = 1.0 - busy_ms / wall_ms
-        out["kernels_per_step"] = sum(e.count for e in on_card) / steps
-        out["top_kernels"] = [
-            [e.key[:90], e.count / steps, e.self_device_time_total / steps
-             / 1e3]
-            for e in sorted(on_card, key=lambda e: -e.self_device_time_total)
-            [:top]]
-    else:
-        out["device_busy_ms_per_step"] = "not measured"
-    return out
+    window = _window(run, steps, device, "step", top)
+    return {"device": _device_name(device),
+            "atoms": system.getNumParticles(), "steps": steps,
+            "rebuilds": rebuilds[0], **window}
+
+
+def profile_objective(device, n_waters=8000, evaluations=20,
+                      top=12) -> dict:
+    system, positions = tip3p_water_box(n_waters)
+    ctx = _context(device, system,
+                   LangevinMiddleIntegrator(300.0, 1.0, 0.002))
+    ctx.setPositions(positions)
+    evaluate = ctx._make_position_energy_fn()
+    evaluate(positions)                     # builds the kernels
+
+    def run():
+        for _ in range(evaluations):
+            evaluate(positions)
+
+    window = _window(run, evaluations, device, "evaluation", top)
+    return {"device": _device_name(device),
+            "atoms": system.getNumParticles(), "evaluations": evaluations,
+            **window}
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--steps", type=int, default=50)
+    parser.add_argument("--minimizer", action="store_true",
+                        help="profile the minimizer's objective instead")
+    parser.add_argument("--evaluations", type=int, default=20)
     parser.add_argument("--waters", type=int, default=8000)
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args()
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is visible to torch")
-    print(json.dumps(profile_steps(device, args.waters, args.steps)))
+    if args.minimizer:
+        out = profile_objective(device, args.waters, args.evaluations)
+    else:
+        out = profile_steps(device, args.waters, args.steps)
+    print(json.dumps(out))
 
 
 if __name__ == "__main__":

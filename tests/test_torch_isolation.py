@@ -1,7 +1,7 @@
-"""The port stands alone: importing it (and chip_smoke.py) loads neither
-JAX nor openmm_tpu, its default platform is the GPU and raises without
-one, and chip_smoke.py refuses to run without a GPU or without the
-package beside it."""
+"""The port stands alone: importing any of its modules (and chip_smoke.py)
+loads neither JAX nor openmm_tpu, its default platform is the GPU and
+raises without one, and chip_smoke.py refuses to run without a GPU or
+without the package beside it."""
 import os
 import shutil
 import subprocess
@@ -31,7 +31,16 @@ def no_cuda():
 
 
 def test_import_loads_no_jax():
-    code = ("import sys, openmm_tpu_torch, chip_smoke\n"
+    """Every module of the package, whether __init__ imports it or not,
+    and chip_smoke.py."""
+    code = ("import importlib, pkgutil, sys\n"
+            "import openmm_tpu_torch, chip_smoke\n"
+            "names = [m.name for m in pkgutil.walk_packages(\n"
+            "    openmm_tpu_torch.__path__, 'openmm_tpu_torch.')]\n"
+            "for name in names:\n"
+            "    importlib.import_module(name)\n"
+            "assert {'openmm_tpu_torch.profile_step',\n"
+            "        'openmm_tpu_torch.ops.pallas_pme'} <= set(names), names\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', "
             "'openmm_tpu'))\n"
