@@ -4,8 +4,9 @@
 
 Builds the five CUDA kernels from csrc/ with one nvcc call, holds each
 kernel against its plain PyTorch version at the shapes of the paths that
-run it, then drives two paths through the port's public entry points and
-checks what comes out:
+run it (kernels 4-5 also on wider, dense and wide-ranging inputs), checks
+that kernels 2 and 4 give the same bits on a second call, then drives two
+paths through the port's public entry points and checks what comes out:
 
 - the main path: a 24,000-atom TIP3P PME box (8,000 rigid waters, 0.9 nm
   cutoff) relaxed and stepped under LangevinMiddle (kernels 1-3);
@@ -34,6 +35,7 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 import openmm_tpu_torch as omm
 from openmm_tpu_torch import _build
@@ -69,13 +71,19 @@ MAIN_PATH_KERNELS = (tile_pairs.TILES, pme_zslab.SPREAD, pme_zslab.GATHER)
 MINIMIZER_KERNELS = (tile_pairs.TILES, pallas_pme.FWD, pallas_pme.BWD)
 KERNELS = MAIN_PATH_KERNELS + (pallas_pme.FWD, pallas_pme.BWD)
 # kernel vs plain tolerances, relative to the largest magnitude of each plain
-# output: summation order differs (kernel 1: 8 slice partials; kernel 2:
-# atomics in a run-dependent order; kernel 4: 11 atom slices added in
-# order, against einsum's order; kernel 5: sums over x and (y,z) tiles) and
-# rsqrtf/expf differ in the last ulps
+# output: the plain versions sum in float32 in their own order (index_add_,
+# einsum), while kernels 2 and 4 add float64 products in 64-bit fixed point
+# (exact integer sums, each term rounded at 2^-62 of the bound n max_i
+# sum|terms_i|: ~1e-13 of a cell at 24,000 atoms), so they differ by the
+# plain version's own rounding; kernel 1 adds 8 slice partials in order,
+# kernel 5 sums over x and (y,z) tiles, and rsqrtf/expf differ in the last
+# ulps
 TOLERANCE = {"nonbonded_tiles": 1e-4, "pme_spread": 1e-5,
              "pme_gather": 1e-4, "spread_triple_fwd": 1e-5,
              "spread_triple_bwd": 1e-5}
+# the fixed-point spreads: their output must have the same bits on every
+# call, and their device time is printed by stage
+DETERMINISTIC = ("pme_spread", "spread_triple_fwd")
 
 
 class Deadline:
@@ -209,8 +217,17 @@ def _compare(got, want):
     return max(errs), max(scales), rel
 
 
+def _check_repeatable(name, first, again) -> None:
+    """Raises unless two calls on the same inputs gave the same bits."""
+    if not torch.equal(first, again):
+        raise RuntimeError("kernel %s gave other bits on a second call "
+                           "(largest difference %.3e)"
+                           % (name, float((first - again).abs().max())))
+
+
 def phase_kernels(device, inp, deadline) -> dict:
-    """Each kernel against its plain version; raises on a miss."""
+    """Each kernel against its plain version, and the DETERMINISTIC ones
+    against a second call of their own; raises on a miss."""
     errors = {}
     for name, (kernel, plain) in _kernel_calls(inp).items():
         got = kernel()
@@ -224,6 +241,9 @@ def phase_kernels(device, inp, deadline) -> dict:
         if not ok:
             raise RuntimeError("kernel %s disagrees with its plain version"
                                % name)
+        if name in DETERMINISTIC:
+            _check_repeatable(name, got, kernel())
+            print("kernel %-17s a second call gave the same bits" % name)
         errors[name] = err
         deadline.check("kernels: %s" % name)
     return errors
@@ -231,27 +251,49 @@ def phase_kernels(device, inp, deadline) -> dict:
 
 # (atoms, grid) beside the main path's for kernels 4-5: N a multiple of
 # 256 (the JAX kernels' padding) and not, non-cubic grids with axes below
-# and above one 64-wide tile, and fewer atoms than one forward step
+# and above one 64-wide tile and, at 144 x 20 x 160, two axes above the
+# 128 that one launch of kernel 5 takes, and fewer atoms than one warp
 TRIPLE_SHAPES = ((24064, (56, 56, 56)), (300, (12, 10, 14)),
-                 (1000, (100, 20, 30)), (7, (6, 7, 9)))
+                 (1000, (100, 20, 30)), (7, (6, 7, 9)),
+                 (256, (144, 20, 160)))
+# (planes, atoms, grid) of the other inputs kernels 4-5 take: every entry
+# nonzero, and spline supports whose weights span 1e-6 to 1e6
+TRIPLE_PLANES = (("dense", 64, (12, 10, 14)), ("wide", 1000, (56, 56, 56)))
+
+
+def _triple_planes(kind, n, grid, gen, device):
+    """Seeded (a, wy, wz): "spline" rows hold 5 nonzero weights at a
+    random base, wrapping round the edge, as the B-splines give; "wide"
+    the same with weights 10^U(-6, 6); "dense" rows are nonzero
+    everywhere (signed)."""
+    planes = []
+    for width in grid:
+        if kind == "dense":
+            w = torch.rand((n, width), generator=gen, device=device) + 0.05
+            sign = torch.randint(0, 2, (n, width), generator=gen,
+                                 device=device) * 2 - 1
+            planes.append(w * sign)
+            continue
+        base = torch.randint(0, width, (n, 1), generator=gen, device=device)
+        cols = torch.remainder(base + torch.arange(5, device=device), width)
+        w = torch.rand((n, 5), generator=gen, device=device)
+        if kind == "wide":
+            w = 10.0 ** (12.0 * w - 6.0)
+        planes.append(torch.zeros((n, width), device=device)
+                      .scatter_add(1, cols, w))
+    return planes
 
 
 def phase_triple_shapes(device, deadline) -> None:
-    """Kernels 4-5 against their plain versions on seeded inputs at
-    TRIPLE_SHAPES (5 nonzero weights a row, as the spline gives); raises on
-    a miss."""
+    """Kernels 4-5 against their plain versions on seeded inputs: spline
+    planes at TRIPLE_SHAPES and the other planes of TRIPLE_PLANES; kernel 4
+    also against a second call of its own. Raises on a miss."""
     gen = torch.Generator(device=device)
     gen.manual_seed(11)
-    for n, (nx, ny, nz) in TRIPLE_SHAPES:
-        planes = []
-        for width in (nx, ny, nz):
-            base = torch.randint(0, width, (n, 1), generator=gen,
-                                 device=device)
-            cols = torch.remainder(base + torch.arange(5, device=device),
-                                   width)
-            w = torch.rand((n, 5), generator=gen, device=device)
-            planes.append(torch.zeros((n, width), device=device)
-                          .scatter_add(1, cols, w))
+    cases = ([("spline", n, grid) for n, grid in TRIPLE_SHAPES]
+             + list(TRIPLE_PLANES))
+    for kind, n, (nx, ny, nz) in cases:
+        planes = _triple_planes(kind, n, (nx, ny, nz), gen, device)
         dq = torch.randn((nx, ny * nz), generator=gen, device=device)
         got = (pallas_pme.spread_triple_fwd(*planes),
                *pallas_pme.spread_triple_bwd(dq, *planes))
@@ -260,13 +302,15 @@ def phase_triple_shapes(device, deadline) -> None:
         _sync(device)
         rel = _compare(got, want)[2]
         ok = rel <= TOLERANCE["spread_triple_fwd"]
-        print("kernels 4-5 at N = %d, grid %dx%dx%d: largest error %.3e of "
-              "the largest value %s" % (n, nx, ny, nz, rel,
-                                        "ok" if ok else "MISS"))
+        print("kernels 4-5 on %s planes, N = %d, grid %dx%dx%d: largest "
+              "error %.3e of the largest value %s" % (
+                  kind, n, nx, ny, nz, rel, "ok" if ok else "MISS"))
         if not ok:
             raise RuntimeError("spread_triple disagrees with its plain "
-                               "version at N = %d" % n)
-        deadline.check("kernels 4-5 at N = %d" % n)
+                               "version on %s planes at N = %d" % (kind, n))
+        _check_repeatable("spread_triple_fwd", got[0],
+                          pallas_pme.spread_triple_fwd(*planes))
+        deadline.check("kernels 4-5 on %s planes at N = %d" % (kind, n))
 
 
 def _median_relative_error(forces, reference):
@@ -482,6 +526,22 @@ def _time_ms(fn, device, reps=20, warmup=3) -> float:
     return statistics.median(times)
 
 
+def _stages_ms(fn, device, reps=20) -> list:
+    """[(kernel or memset name, device ms per call)] of what fn launches,
+    from torch.profiler over `reps` calls, largest first."""
+    fn()
+    _sync(device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        _sync(device)
+    rows = [(e.key.replace("(anonymous namespace)::", "").split("(")[0]
+             .strip(), e.self_device_time_total / reps / 1e3)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sorted(rows, key=lambda r: -r[1])
+
+
 # float operations (an FMA counts 2) that each function needs, at least:
 # kernel 1, per distinct pair inside the cutoff: staged triclinic image and
 # r^2 (24), LJ (16), Ewald erfc and its force (29), the force applied to
@@ -590,6 +650,10 @@ def phase_timing(device, inp, launches, errors, deadline) -> list:
     for kern in KERNELS:
         kernel, plain = calls[kern.name]
         lib = library.get(kern.name)
+        if kern.name in DETERMINISTIC:
+            print("kernel %-17s device ms per call by stage: %s" % (
+                kern.name, ", ".join("%s %.4f" % r
+                                     for r in _stages_ms(kernel, device))))
         records.append({
             "name": kern.name, "route": "cuda", "source": kern.source,
             "replaces": kern.replaces, "launches": launches[kern.name],

@@ -24,6 +24,8 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 
+import torch
+
 PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "openmm_tpu_torch"
@@ -36,9 +38,10 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "omm_nonbonded_tiles": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _P, _P],
-    "omm_pme_spread": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "omm_pme_spread": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "omm_pme_gather": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
-    "omm_spread_triple_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    "omm_spread_triple_fwd": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
+                              _P],
     "omm_spread_triple_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
                               _P],
 }
@@ -52,6 +55,13 @@ class Kernel:
     source: str
     replaces: str
     launches: int = 0
+
+
+def fixed_accumulator(cells: int, device) -> torch.Tensor:
+    """Scratch of csrc/fixed_scatter.cuh for a grid of `cells` cells: one
+    int64 a cell and two more slots (the scale's max and a non-finite
+    flag). The kernels zero it themselves."""
+    return torch.empty(cells + 2, dtype=torch.int64, device=device)
 
 
 def sources() -> list[Path]:

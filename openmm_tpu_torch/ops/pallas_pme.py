@@ -7,8 +7,11 @@ Counterpart of openmm_tpu/ops/pallas_pme.py (the jax.custom_vjp
 spread_triple over _fwd_kernel and _bwd_kernel). The public layout is the
 JAX module's: a (N, nx) charge-scaled x-weights, wy (N, ny), wz (N, nz),
 and Q as (nx, ny*nz). Unlike the JAX function, N is any size: the kernels
-mask the ragged edge, so nothing is padded. The kernels compute in float32
-on the CUDA cores (the counterpart of Precision.HIGHEST).
+mask the ragged edge, so nothing is padded. Kernel 4 scatters the nonzero
+products of each atom's rows in 64-bit fixed point, so Q has the same bits
+on every call; kernel 5 computes the dense VJP in float32 on the CUDA
+cores (the counterpart of Precision.HIGHEST), one launch for grid axes up
+to BWD_AXIS and split_vjp's chunks for wider grids.
 """
 from __future__ import annotations
 
@@ -23,12 +26,8 @@ BWD = _build.Kernel(
     name="spread_triple_bwd", source="openmm_tpu_torch/csrc/spread_triple.cu",
     replaces="openmm_tpu/ops/pallas_pme.py:96")
 
-# largest grid axis the backward kernel's shared-memory layout takes
-MAX_AXIS = 128
-# the forward kernel's output tile edge and the block tiles it aims for per
-# SM when it splits the atom axis
-_TILE = 64
-_BLOCKS_PER_SM = 4
+# widest grid axis one launch of kernel 5 takes (its shared-memory layout)
+BWD_AXIS = 128
 
 
 def _check(a, wy, wz, dq=None):
@@ -69,12 +68,35 @@ def spread_triple_vjp_plain(dq, a, wy, wz):
             torch.einsum("xyz,ix,iy->iz", d, a, wy))
 
 
-def fwd_splits(n, nx, ny, nz, sm_count) -> int:
-    """How many slices kernel 4 cuts the atom axis into: enough block
-    tiles for _BLOCKS_PER_SM per SM, at least one 32-atom step each."""
-    tiles = -(-nx // _TILE) * -(-(ny * nz) // _TILE)
-    want = -(-_BLOCKS_PER_SM * sm_count // tiles)
-    return max(1, min(want, -(-n // 32)))
+def split_vjp(dq, a, wy, wz, vjp, chunk=BWD_AXIS):
+    """(dA, dWy, dWz) of the spread for a grid of any size, from `vjp`
+    calls on sub-grids with every axis at most `chunk` wide. dA's columns
+    of one x-chunk are a sum over the (y, z) chunks, dWy's over the (x, z)
+    chunks and dWz's over the (x, y) chunks, added in a fixed order. A
+    grid within `chunk` is one call on the inputs as they are."""
+    _, nx, ny, nz = _check(a, wy, wz, dq)
+    if max(nx, ny, nz) <= chunk:
+        return vjp(dq, a, wy, wz)
+
+    def pieces(size):
+        count = -(-size // chunk)
+        bounds = [size * k // count for k in range(count + 1)]
+        return [slice(lo, hi) for lo, hi in zip(bounds, bounds[1:])]
+
+    d = dq.view(nx, ny, nz)
+    da, dwy, dwz = (torch.zeros_like(t) for t in (a, wy, wz))
+    for xs in pieces(nx):
+        a_c = a[:, xs].contiguous()
+        for ys in pieces(ny):
+            wy_c = wy[:, ys].contiguous()
+            for zs in pieces(nz):
+                wz_c = wz[:, zs].contiguous()
+                d_c = d[xs, ys, zs].reshape(xs.stop - xs.start, -1)
+                ga, gy, gz = vjp(d_c.contiguous(), a_c, wy_c, wz_c)
+                da[:, xs] += ga
+                dwy[:, ys] += gy
+                dwz[:, zs] += gz
+    return da, dwy, dwz
 
 
 def spread_triple_fwd(a, wy, wz) -> torch.Tensor:
@@ -85,17 +107,18 @@ def spread_triple_fwd(a, wy, wz) -> torch.Tensor:
     if a.device.type == "cpu":
         return spread_triple_plain(a, wy, wz)
     _cuda_ready(a)
+    if nx * ny * nz >= 2 ** 31:
+        raise ValueError("spread_triple_fwd takes grids below 2^31 cells")
     dev = a.device
-    splits = fwd_splits(n, nx, ny, nz,
-                        torch.cuda.get_device_properties(dev)
-                        .multi_processor_count)
     out = torch.empty((nx, ny * nz), dtype=a.dtype, device=dev)
-    scratch = (torch.empty((splits, nx, ny * nz), dtype=a.dtype, device=dev)
-               if splits > 1 else out)
+    entries = torch.empty((n, nx + ny + nz, 2), dtype=torch.int32,
+                          device=dev)
+    counts = torch.empty((n, 3), dtype=torch.int32, device=dev)
+    acc = _build.fixed_accumulator(nx * ny * nz, dev)
     code = _build.library().omm_spread_triple_fwd(
-        a.data_ptr(), wy.data_ptr(), wz.data_ptr(), n, nx, ny, nz, splits,
-        scratch.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        a.data_ptr(), wy.data_ptr(), wz.data_ptr(), n, nx, ny, nz,
+        entries.data_ptr(), counts.data_ptr(), acc.data_ptr(),
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(code, FWD)
     FWD.launches += 1
     return out
@@ -103,15 +126,18 @@ def spread_triple_fwd(a, wy, wz) -> torch.Tensor:
 
 def spread_triple_bwd(dq, a, wy, wz):
     """Kernel 5: (dA (N, nx), dWy (N, ny), dWz (N, nz)) from the cotangent
-    dq (nx, ny*nz). A CUDA tensor runs the hand-written kernel (float32,
-    grid axes up to MAX_AXIS); a CPU tensor runs the plain version."""
-    n, nx, ny, nz = _check(a, wy, wz, dq)
+    dq (nx, ny*nz). A CUDA tensor runs the hand-written kernel (float32;
+    one launch for each split_vjp chunk of a grid wider than BWD_AXIS); a
+    CPU tensor runs the plain version."""
+    _check(a, wy, wz, dq)
     if a.device.type == "cpu":
         return spread_triple_vjp_plain(dq, a, wy, wz)
     _cuda_ready(a)
-    if max(nx, ny, nz) > MAX_AXIS:
-        raise ValueError("spread_triple_bwd takes grid axes up to %d, not "
-                         "(%d, %d, %d)" % (MAX_AXIS, nx, ny, nz))
+    return split_vjp(dq, a, wy, wz, _launch_bwd)
+
+
+def _launch_bwd(dq, a, wy, wz):
+    n, nx, ny, nz = _check(a, wy, wz, dq)
     da = torch.empty_like(a)
     dwy = torch.empty_like(wy)
     dwz = torch.empty_like(wz)

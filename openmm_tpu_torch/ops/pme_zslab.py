@@ -6,7 +6,8 @@ convolve_potential, _spread_kernel, _gather_kernel, pme_recip_ef). The JAX
 module keeps atoms z-sorted between neighbour rebuilds so that the TPU can
 spread and gather plane by plane with matmuls; that z-state, its drift
 margins and its span poison exist only to feed the TPU's matrix unit. Here
-the spread is an atomic scatter and the gather an indexed read, so the
+the spread is an atomic scatter (in 64-bit fixed point, so the grid has
+the same bits on every call) and the gather an indexed read, so the
 reciprocal space needs no persistent state at all. The grid layout is the
 JAX module's (nz, nx, ny); weight j of an atom on one axis belongs to grid
 index floor(u) + j - 4 (mod the grid size).
@@ -102,10 +103,11 @@ def pme_spread(pos, charge, binv, grid) -> torch.Tensor:
     if pos.device.type != "cuda" or pos.dtype != torch.float32:
         raise TypeError("the CUDA spread kernel takes float32 CUDA tensors")
     nx, ny, nz = grid
-    q = torch.zeros((nz, nx, ny), dtype=pos.dtype, device=pos.device)
+    q = torch.empty((nz, nx, ny), dtype=pos.dtype, device=pos.device)
+    acc = _build.fixed_accumulator(nx * ny * nz, pos.device)
     code = _build.library().omm_pme_spread(
         pos.data_ptr(), charge.data_ptr(), binv.data_ptr(), pos.shape[0],
-        nx, ny, nz, q.data_ptr(),
+        nx, ny, nz, acc.data_ptr(), q.data_ptr(),
         torch.cuda.current_stream(pos.device).cuda_stream)
     _build.check_launch(code, SPREAD)
     SPREAD.launches += 1

@@ -82,7 +82,7 @@ def _device_name(device):
             else "cpu")
 
 
-def profile_steps(device, n_waters=8000, steps=50, top=12) -> dict:
+def profile_steps(device, n_waters=8000, steps=50, top=20) -> dict:
     system, positions = tip3p_water_box(n_waters)
     integ = LangevinMiddleIntegrator(300.0, 50.0, 0.0005)
     integ.setRandomNumberSeed(3)
@@ -108,7 +108,7 @@ def profile_steps(device, n_waters=8000, steps=50, top=12) -> dict:
 
 
 def profile_objective(device, n_waters=8000, evaluations=20,
-                      top=12) -> dict:
+                      top=20) -> dict:
     system, positions = tip3p_water_box(n_waters)
     ctx = _context(device, system,
                    LangevinMiddleIntegrator(300.0, 1.0, 0.002))

@@ -14,6 +14,10 @@ import torch
 import openmm_tpu_torch as omm
 from openmm_tpu_torch.models import tip3p_water_box
 
+# one intra-op thread, as tests/torch_port_helpers.py sets: the runner's
+# worker processes would otherwise oversubscribe the cores
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

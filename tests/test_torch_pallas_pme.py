@@ -123,10 +123,50 @@ def test_wrappers_check_their_inputs(triple):
 
 
 def test_split_count_covers_the_card():
-    # 24,000 atoms on 56^3: 49 output tiles, 132 SMs -> 11 atom slices
-    assert pp.fwd_splits(24000, 56, 56, 56, 132) == 11
-    assert pp.fwd_splits(40, 56, 56, 56, 132) == 2     # >= 32 atoms each
-    assert pp.fwd_splits(1, 12, 10, 14, 132) == 1
+    """Kernel 5's launches per VJP: one for the main path's 56^3 grid (the
+    inputs passed as they are), and for wider grids one per chunk of at
+    most BWD_AXIS on every axis, the chunks tiling each axis."""
+    calls = []
+
+    def record(dq, a, wy, wz):
+        calls.append((dq, a, wy, wz))
+        return torch.zeros_like(a), torch.zeros_like(wy), torch.zeros_like(wz)
+
+    def run(n, grid):
+        calls.clear()
+        planes = [torch.zeros((n, g)) for g in grid]
+        dq = torch.zeros((grid[0], grid[1] * grid[2]))
+        pp.split_vjp(dq, *planes, record)
+        return planes, dq
+
+    planes, dq = run(3, (56, 56, 56))
+    assert len(calls) == 1 and calls[0][0] is dq and calls[0][1] is planes[0]
+    run(3, (144, 20, 160))
+    assert len(calls) == 2 * 1 * 2
+    assert sorted({c[1].shape[1] for c in calls}) == [72]
+    assert sorted({c[3].shape[1] for c in calls}) == [80]
+    run(3, (300, 129, 128))
+    assert len(calls) == 3 * 2 * 1
+    assert max(max(c[1].shape[1], c[2].shape[1], c[3].shape[1])
+               for c in calls) <= pp.BWD_AXIS
+
+
+@pytest.mark.parametrize("grid,chunk", [((144, 20, 160), pp.BWD_AXIS),
+                                        ((12, 10, 14), 4)])
+def test_split_vjp_matches_the_unsplit_vjp(grid, chunk):
+    """split_vjp with the plain VJP in the kernel's place, at an axis above
+    128 and with every axis cut in several chunks, against the plain VJP
+    of the whole grid; sums over the chunks are taken in another order, so
+    the bar is 2e-6 of each output's largest value."""
+    rng = np.random.RandomState(9)
+    n = 40
+    planes = [_t(rng.uniform(size=(n, g))) for g in grid]
+    dq = _t(rng.randn(grid[0], grid[1] * grid[2]))
+    want = pp.spread_triple_vjp_plain(dq, *planes)
+    got = pp.split_vjp(dq, *planes, pp.spread_triple_vjp_plain, chunk)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert _rel(g, w.numpy()) < 2e-6
 
 
 @pytest.fixture(scope="module")

@@ -22,6 +22,10 @@ from openmm_tpu_torch.ops import geometry as geom
 from openmm_tpu_torch.ops import pme as pme_mod
 from openmm_tpu_torch.ops import pme_zslab as zs
 
+# one intra-op thread, as tests/torch_port_helpers.py sets: the runner's
+# worker processes would otherwise oversubscribe the cores
+torch.set_num_threads(1)
+
 GRID = (24, 24, 24)
 ALPHA = 2.7
 BOX = 3.0

@@ -20,6 +20,10 @@ from openmm_tpu_torch.forces.nonbonded import NonbondedModule
 from openmm_tpu_torch.models import tip3p_water_box
 from openmm_tpu_torch.ops import tile_pairs as tp
 
+# one intra-op thread, as tests/torch_port_helpers.py sets: the runner's
+# worker processes would otherwise oversubscribe the cores
+torch.set_num_threads(1)
+
 ONE4PI = 138.93545764446428
 ALPHA = 3.12341
 CUTOFF = 0.7

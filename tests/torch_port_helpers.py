@@ -3,11 +3,18 @@
 The only place the two packages meet: system parameters cross from the JAX
 package's System (read through its getters) into the port as the plain
 numpy dict that openmm_tpu_torch.from_numpy takes.
+
+Importing it caps torch at one intra-op thread: the test runner starts
+several worker processes, and torch's default of a thread per core in each
+of them oversubscribes the cores many times over.
 """
 import numpy as np
+import torch
 
 from openmm_tpu import unit as u
 from openmm_tpu.forces import NonbondedForce
+
+torch.set_num_threads(1)
 
 _METHOD_NAMES = {NonbondedForce.NoCutoff: "NoCutoff",
                  NonbondedForce.CutoffNonPeriodic: "CutoffNonPeriodic",
