@@ -4,9 +4,11 @@
 
 Builds the five CUDA kernels from csrc/ with one nvcc call, holds each
 kernel against its plain PyTorch version at the shapes of the paths that
-run it (kernels 4-5 also on wider, dense and wide-ranging inputs), checks
-that kernels 2 and 4 give the same bits on a second call, then drives two
-paths through the port's public entry points and checks what comes out:
+run it (kernels 4-5 also on wider, dense and wide-ranging inputs, kernels
+1-3 also on the water box sheared into a reduced triclinic one), checks
+that kernels 1, 2, 4 and 5 give the same bits on a second call, then
+drives two paths through the port's public entry points and checks what
+comes out:
 
 - the main path: a 24,000-atom TIP3P PME box (8,000 rigid waters, 0.9 nm
   cutoff) relaxed and stepped under LangevinMiddle (kernels 1-3);
@@ -39,6 +41,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import openmm_tpu_torch as omm
 from openmm_tpu_torch import _build
+from openmm_tpu_torch.context import MAX_ESCALATIONS
 from openmm_tpu_torch.forces.nonbonded import NonbondedModule
 from openmm_tpu_torch.models import tip3p_water_box
 from openmm_tpu_torch.ops import geometry as geom
@@ -68,6 +71,7 @@ SLEEP_CYCLES = 2_000_000
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_S = 3.35e12
 MAIN_PATH_KERNELS = (tile_pairs.TILES, pme_zslab.SPREAD, pme_zslab.GATHER)
+MAIN_PATH_NAMES = tuple(k.name for k in MAIN_PATH_KERNELS)
 MINIMIZER_KERNELS = (tile_pairs.TILES, pallas_pme.FWD, pallas_pme.BWD)
 KERNELS = MAIN_PATH_KERNELS + (pallas_pme.FWD, pallas_pme.BWD)
 # kernel vs plain tolerances, relative to the largest magnitude of each plain
@@ -75,15 +79,19 @@ KERNELS = MAIN_PATH_KERNELS + (pallas_pme.FWD, pallas_pme.BWD)
 # einsum), while kernels 2 and 4 add float64 products in 64-bit fixed point
 # (exact integer sums, each term rounded at 2^-62 of the bound n max_i
 # sum|terms_i|: ~1e-13 of a cell at 24,000 atoms), so they differ by the
-# plain version's own rounding; kernel 1 adds 8 slice partials in order,
-# kernel 5 sums over x and (y,z) tiles, and rsqrtf/expf differ in the last
-# ulps
+# plain version's own rounding; kernel 1 adds each row atom's pairs in 32
+# lane sums and a shuffle tree, kernel 5 each output over the atom's
+# supports, and rsqrtf/expf differ in the last ulps
 TOLERANCE = {"nonbonded_tiles": 1e-4, "pme_spread": 1e-5,
              "pme_gather": 1e-4, "spread_triple_fwd": 1e-5,
              "spread_triple_bwd": 1e-5}
-# the fixed-point spreads: their output must have the same bits on every
-# call, and their device time is printed by stage
-DETERMINISTIC = ("pme_spread", "spread_triple_fwd")
+# kernels whose output must have the same bits on every call: the
+# fixed-point spreads, and the two that own each output (no atomics)
+DETERMINISTIC = ("nonbonded_tiles", "pme_spread", "spread_triple_fwd",
+                 "spread_triple_bwd")
+# the triclinic phase shears the box of edge L into a = (L, 0, 0),
+# b = (2L/7, L, 0), c = (-L/7, 2L/7, L), as tests/test_torch_triclinic.py
+SHEAR = ((0.0, 0.0, 0.0), (2.0 / 7.0, 0.0, 0.0), (-1.0 / 7.0, 2.0 / 7.0, 0.0))
 
 
 class Deadline:
@@ -141,17 +149,34 @@ def phase_build(deadline) -> float:
     return seconds
 
 
-def kernel_inputs(device, n_waters) -> dict:
-    """Inputs of the five kernels at the shapes of their paths, from the
-    water box's starting positions: kernels 1-3 as the main path calls
-    them, kernels 4-5 on the dense weight planes of those positions (N
-    unpadded) with a seeded cotangent dQ."""
+def water_box(n_waters, sheared=False):
+    """(system, positions) of the TIP3P box, its box sheared by SHEAR into a
+    reduced triclinic one when `sheared`."""
     system, pos = tip3p_water_box(n_waters)
+    if sheared:
+        box = np.asarray(system.getDefaultPeriodicBoxVectors())
+        system.setDefaultPeriodicBoxVectors(
+            *(box + box[0, 0] * np.asarray(SHEAR)))
+    return system, pos
+
+
+def kernel_inputs(device, n_waters, sheared=False) -> dict:
+    """Inputs of the five kernels at the shapes of their paths, from the
+    water box's starting positions (its box sheared when `sheared`):
+    kernels 1-3 as the main path calls them, kernels 4-5 on the dense
+    weight planes of those positions (N unpadded) with a seeded cotangent
+    dQ."""
+    system, pos = water_box(n_waters, sheared)
     box = torch.as_tensor(system.getDefaultPeriodicBoxVectors(),
                           dtype=torch.float32, device=device)
     module = NonbondedModule(system.getForce(0), box.cpu().numpy(), device)
     posf = torch.as_tensor(pos, dtype=torch.float32, device=device)
     st = module.build_state(posf, box)
+    for _ in range(MAX_ESCALATIONS):  # as a Context grows it on overflow
+        if not int(st["overflow"]):
+            break
+        module.capacity_scale *= 1.4
+        st = module.build_state(posf, box)
     if int(st["overflow"]):
         raise RuntimeError("candidate state overflowed at the start")
     binv = geom.box_inverse(box).reshape(9).contiguous()
@@ -219,28 +244,34 @@ def _compare(got, want):
 
 def _check_repeatable(name, first, again) -> None:
     """Raises unless two calls on the same inputs gave the same bits."""
-    if not torch.equal(first, again):
-        raise RuntimeError("kernel %s gave other bits on a second call "
-                           "(largest difference %.3e)"
-                           % (name, float((first - again).abs().max())))
+    if not isinstance(first, tuple):
+        first, again = (first,), (again,)
+    for f, g in zip(first, again):
+        if not torch.equal(f, g):
+            raise RuntimeError("kernel %s gave other bits on a second call "
+                               "(largest difference %.3e)"
+                               % (name, float((f - g).abs().max())))
 
 
-def phase_kernels(device, inp, deadline) -> dict:
-    """Each kernel against its plain version, and the DETERMINISTIC ones
-    against a second call of their own; raises on a miss."""
+def phase_kernels(device, inp, deadline, names=None, label="") -> dict:
+    """Each kernel (or those in `names`) against its plain version, and the
+    DETERMINISTIC ones against a second call of their own; raises on a
+    miss."""
     errors = {}
     for name, (kernel, plain) in _kernel_calls(inp).items():
+        if names is not None and name not in names:
+            continue
         got = kernel()
         want = plain()
         _sync(device)
         err, scale, rel = _compare(got, want)
         ok = rel <= TOLERANCE[name]
-        print("kernel %-17s max_abs_err %.3e  rel %.3e  (tolerance %.0e of "
-              "max %.3e) %s" % (name, err, rel, TOLERANCE[name], scale,
-                                "ok" if ok else "MISS"))
+        print("kernel %-17s%s max_abs_err %.3e  rel %.3e  (tolerance %.0e "
+              "of max %.3e) %s" % (name, label, err, rel, TOLERANCE[name],
+                                   scale, "ok" if ok else "MISS"))
         if not ok:
-            raise RuntimeError("kernel %s disagrees with its plain version"
-                               % name)
+            raise RuntimeError("kernel %s disagrees with its plain version%s"
+                               % (name, label))
         if name in DETERMINISTIC:
             _check_repeatable(name, got, kernel())
             print("kernel %-17s a second call gave the same bits" % name)
@@ -251,8 +282,8 @@ def phase_kernels(device, inp, deadline) -> dict:
 
 # (atoms, grid) beside the main path's for kernels 4-5: N a multiple of
 # 256 (the JAX kernels' padding) and not, non-cubic grids with axes below
-# and above one 64-wide tile and, at 144 x 20 x 160, two axes above the
-# 128 that one launch of kernel 5 takes, and fewer atoms than one warp
+# and above 32 and 64 entries and, at 144 x 20 x 160, two axes above 128
+# (kernel 5 takes every grid in one launch), and fewer atoms than one warp
 TRIPLE_SHAPES = ((24064, (56, 56, 56)), (300, (12, 10, 14)),
                  (1000, (100, 20, 30)), (7, (6, 7, 9)),
                  (256, (144, 20, 160)))
@@ -286,8 +317,9 @@ def _triple_planes(kind, n, grid, gen, device):
 
 def phase_triple_shapes(device, deadline) -> None:
     """Kernels 4-5 against their plain versions on seeded inputs: spline
-    planes at TRIPLE_SHAPES and the other planes of TRIPLE_PLANES; kernel 4
-    also against a second call of its own. Raises on a miss."""
+    planes at TRIPLE_SHAPES and the other planes of TRIPLE_PLANES; each
+    also against a second call of its own, and kernel 5 in one launch a
+    VJP. Raises on a miss."""
     gen = torch.Generator(device=device)
     gen.manual_seed(11)
     cases = ([("spline", n, grid) for n, grid in TRIPLE_SHAPES]
@@ -295,8 +327,10 @@ def phase_triple_shapes(device, deadline) -> None:
     for kind, n, (nx, ny, nz) in cases:
         planes = _triple_planes(kind, n, (nx, ny, nz), gen, device)
         dq = torch.randn((nx, ny * nz), generator=gen, device=device)
+        bwd_launches = pallas_pme.BWD.launches
         got = (pallas_pme.spread_triple_fwd(*planes),
                *pallas_pme.spread_triple_bwd(dq, *planes))
+        bwd_launches = pallas_pme.BWD.launches - bwd_launches
         want = (pallas_pme.spread_triple_plain(*planes),
                 *pallas_pme.spread_triple_vjp_plain(dq, *planes))
         _sync(device)
@@ -308,9 +342,55 @@ def phase_triple_shapes(device, deadline) -> None:
         if not ok:
             raise RuntimeError("spread_triple disagrees with its plain "
                                "version on %s planes at N = %d" % (kind, n))
+        if device.type == "cuda" and bwd_launches != 1:
+            raise RuntimeError("kernel 5 took %d launches for one VJP on "
+                               "%dx%dx%d" % (bwd_launches, nx, ny, nz))
         _check_repeatable("spread_triple_fwd", got[0],
                           pallas_pme.spread_triple_fwd(*planes))
+        _check_repeatable("spread_triple_bwd", got[1:],
+                          pallas_pme.spread_triple_bwd(dq, *planes))
         deadline.check("kernels 4-5 on %s planes at N = %d" % (kind, n))
+
+
+def phase_triclinic(device, n_waters=N_WATERS, deadline=None) -> dict:
+    """Kernels 1-3 on the water box sheared by SHEAR (their triclinic
+    minimum images and fractional coordinates) against their plain
+    versions, then the forces of a Context on that box (the default
+    platform on a GPU, "CPU" otherwise) against the float64 plain path.
+    Kernel comparisons only: no step is taken. Raises on a miss."""
+    deadline = deadline or Deadline(math.inf)
+    inp = kernel_inputs(device, n_waters, sheared=True)
+    errors = phase_kernels(device, inp, deadline, names=MAIN_PATH_NAMES,
+                           label=" (triclinic)")
+    platform = "CUDA" if device.type == "cuda" else "CPU"
+    system, positions = water_box(n_waters, sheared=True)
+    scale = inp["module"].capacity_scale
+    integ = omm.LangevinMiddleIntegrator(300.0, FRICTION, DT_PS)
+    ctx = (omm.Context(system, integ) if platform == "CUDA"
+           else omm.Context(system, integ, platform))
+    oracle = omm.Context(system, omm.LangevinMiddleIntegrator(
+        300.0, FRICTION, DT_PS), platform, {"Precision": "double"})
+    states = []
+    for c in (ctx, oracle):
+        # getState does not grow the capacity (nor does the JAX Context's):
+        # start at the scale the kernel inputs needed
+        c._nonbonded.capacity_scale = scale
+        c.setPositions(positions)
+        states.append(c.getState(getForces=True, getEnergy=True))
+    st, ref = states
+    del ctx, oracle
+    force_err = _median_relative_error(st.getForces(), ref.getForces())
+    print("triclinic box %s (capacity scale %.2f): median force error vs "
+          "float64 plain path %.3e (bar %.0e); energy %.6f vs %.6f kJ/mol" % (
+              np.array2string(np.asarray(system.getDefaultPeriodicBoxVectors()),
+                              precision=4, separator=",").replace("\n", ""),
+              scale, force_err, FORCE_ERR_BAR, st.getPotentialEnergy(),
+              ref.getPotentialEnergy()))
+    deadline.check("triclinic: float64 oracle")
+    if not force_err <= FORCE_ERR_BAR:
+        raise RuntimeError("triclinic median force error %.3e above %.0e"
+                           % (force_err, FORCE_ERR_BAR))
+    return {"errors": errors, "force_err": force_err}
 
 
 def _median_relative_error(forces, reference):
@@ -582,18 +662,19 @@ def triple_ops(a, wy, wz) -> tuple[float, float, float, float]:
     return fwd, bwd, 2.0 * dense, 4.0 * dense
 
 
-def kernel_bounds(inp) -> dict:
+def kernel_bounds(inp, tile_counts) -> dict:
     """{name: (bound ms, "bytes" or "operations")}: the larger of the bytes
     each function must move (each input read once, each output written
     once) over HBM bandwidth and the float operations it needs over the
     float32 peak. Kernel 1 counts the distinct pairs inside the cutoff that
-    these inputs have (each counted once, not from both atoms); kernels 4
-    and 5 the nonzero weights (triple_ops)."""
+    these inputs have (each counted once, not from both atoms; from
+    `tile_counts`, count_tile_pairs of inp["tiles"]); kernels 4 and 5 the
+    nonzero weights (triple_ops)."""
     pos4, par4, cand, count, words, consts = inp["tiles"]
     n = inp["pos"].shape[0]
     nx, ny, nz = inp["grid"]
     g = nx * ny * nz
-    _, inside = tile_pairs.count_tile_pairs(pos4, cand, count, words, consts)
+    inside = tile_counts["inside"]
     t_ops = triple_ops(*inp["triple"])
     tiles_in = sum(t.numel() * t.element_size()
                    for t in (pos4, par4, cand, count, words, consts))
@@ -621,9 +702,24 @@ def kernel_bounds(inp) -> dict:
     return out
 
 
-def phase_timing(device, inp, launches, errors, deadline) -> list:
+def tile_counts(inp) -> dict:
+    pos4, _, cand, count, words, consts = inp["tiles"]
+    return tile_pairs.count_tile_pairs(pos4, cand, count, words, consts)
+
+
+def tile_sweep_line(inp, c) -> str:
+    """Kernel 1's work on the main path's inputs (c = tile_counts(inp)):
+    a sweep of every candidate slot, and the culled one."""
+    return ("kernel nonbonded_tiles at %d atoms (full matrix): pair slots "
+            "visited %d before the cull, %d after; pairs inside the cutoff "
+            "%d; pair-term lane evaluations %d before, %d after" % (
+                inp["pos"].shape[0], c["slots"], c["visited"], c["inside"],
+                c["evaluated_before"], c["evaluated"]))
+
+
+def phase_timing(device, inp, counts, launches, errors, deadline) -> list:
     calls = _kernel_calls(inp)
-    bounds = kernel_bounds(inp)
+    bounds = kernel_bounds(inp, counts)
     flat, val = pme_zslab.spread_terms(inp["pos"], inp["charge"],
                                        inp["binv"], inp["grid"])
     nx, ny, nz = inp["grid"]
@@ -650,10 +746,9 @@ def phase_timing(device, inp, launches, errors, deadline) -> list:
     for kern in KERNELS:
         kernel, plain = calls[kern.name]
         lib = library.get(kern.name)
-        if kern.name in DETERMINISTIC:
-            print("kernel %-17s device ms per call by stage: %s" % (
-                kern.name, ", ".join("%s %.4f" % r
-                                     for r in _stages_ms(kernel, device))))
+        print("kernel %-17s device ms per call by stage: %s" % (
+            kern.name, ", ".join("%s %.4f" % r
+                                 for r in _stages_ms(kernel, device))))
         records.append({
             "name": kern.name, "route": "cuda", "source": kern.source,
             "replaces": kern.replaces, "launches": launches[kern.name],
@@ -682,6 +777,7 @@ def main() -> int:
     inp = kernel_inputs(device, N_WATERS)
     errors = phase_kernels(device, inp, deadline)
     phase_triple_shapes(device, deadline)
+    phase_triclinic(device, deadline=deadline)
     for kern in KERNELS:
         kern.launches = 0
     result = phase_main_path(device, deadline=deadline)
@@ -696,12 +792,14 @@ def main() -> int:
                            "%s" % minimized["launches"])
     for kern in (pallas_pme.FWD, pallas_pme.BWD):
         launches[kern.name] = minimized["launches"][kern.name]
-    records = phase_timing(device, inp, launches, errors, deadline)
+    counts = tile_counts(inp)
+    records = phase_timing(device, inp, counts, launches, errors, deadline)
     print("main path: %.2f ns/day on %s (%s), %d steps of %.3f ps" % (
         result["ns_day"], info["name"], info["smi"], PRODUCTION_STEPS,
         DT_PS))
     print("total %.1f s of the %.0f s budget" % (deadline.elapsed(),
                                                  BUDGET_S))
+    print(tile_sweep_line(inp, counts))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}))

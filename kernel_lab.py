@@ -1,0 +1,198 @@
+"""Times the port's kernels on one GPU, to compare designs.
+
+    python3 kernel_lab.py                      # this checkout's kernels
+    python3 kernel_lab.py --trees A B B A      # checkouts A and B in turns
+    python3 kernel_lab.py --variants           # edited copies of kernels 1, 5
+
+With no option it times the five kernels of this checkout at the main
+path's shapes (chip_smoke.kernel_inputs: 24,000 atoms, 56^3 grid) with
+chip_smoke._time_ms and prints one JSON line. --trees does the same for
+each checkout given, in the order given, each in a process of its own that
+imports that checkout's chip_smoke.py and package: give a parent checkout
+and this one in turns (parent, this, this, parent) to compare two commits
+on one card. --variants builds copies of kernels 1 and 5 with the source
+edits of VARIANTS (one nvcc process each, all started together) under
+build/kernel_lab/, holds each against the plain version and times it
+twice, in turns. It imports nothing of JAX or of openmm_tpu and needs a
+CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(REPO, "openmm_tpu_torch", "csrc")
+OUT = os.path.join(REPO, "build", "kernel_lab")
+
+_FLUSH = ("        add_pair(pr, qi, par[qj[lane]], qd[lane], &fx, &fy, &fz, "
+          "&e);\n")
+_BOUNDS = ("__global__ void __launch_bounds__(32 * kWarps)\n"
+           "nonbonded_tiles_kernel")
+_LOAD = "v[q][u] = live[u] && q0 + q < m ? col[o + 32 * u] : 0.0f;"
+# (source file, [(text, replacement)]) by name; each edit must match once
+VARIANTS = {
+    "tiles": ("nonbonded_tiles.cu", []),
+    "tiles, no pair terms": ("nonbonded_tiles.cu", [
+        (_FLUSH, "        fx += qd[lane].w;\n")]),
+    "tiles, no sweep": ("nonbonded_tiles.cu", [
+        ("    const int n_live = __popc(live);",
+         "    const int n_live = 0;\n    fx += __popc(live);")]),
+    "tiles, 5 blocks an SM": ("nonbonded_tiles.cu", [
+        (_BOUNDS, _BOUNDS.replace("kWarps)", "kWarps, 5)"))]),
+    "tiles, 16 warps a block": ("nonbonded_tiles.cu", [
+        ("constexpr int kWarps = 8; ", "constexpr int kWarps = 16; ")]),
+    "vjp": ("spread_triple.cu", []),
+    "vjp, loads past L1": ("spread_triple.cu", [
+        (_LOAD, _LOAD.replace("col[o + 32 * u]", "__ldcg(col + o + 32 * u)"))]),
+    "vjp, kOut 1": ("spread_triple.cu", [
+        ("constexpr int kOut = 2;", "constexpr int kOut = 1;")]),
+    "vjp, kUnroll 8": ("spread_triple.cu", [
+        ("constexpr int kUnroll = 16;", "constexpr int kUnroll = 8;")]),
+    "vjp, kUnroll 32": ("spread_triple.cu", [
+        ("constexpr int kUnroll = 16;", "constexpr int kUnroll = 32;")]),
+}
+
+
+def time_tree(tree: str) -> dict:
+    """{kernel: ms} of the checkout at `tree` (imported in this process)."""
+    sys.path.insert(0, tree)
+    import torch
+
+    import chip_smoke as cs
+    from openmm_tpu_torch.platform import set_fp32_matmul_exact
+    set_fp32_matmul_exact()
+    dev = torch.device("cuda", 0)
+    cs.phase_build(cs.Deadline(600.0))
+    calls = cs._kernel_calls(cs.kernel_inputs(dev, cs.N_WATERS))
+    return {name: cs._time_ms(kernel, dev)
+            for name, (kernel, _) in calls.items()}
+
+
+def _build_variants(nvcc_flags, find_nvcc) -> dict:
+    os.makedirs(OUT, exist_ok=True)
+    procs = {}
+    for k, (name, (source, edits)) in enumerate(VARIANTS.items()):
+        with open(os.path.join(CSRC, source)) as f:
+            text = f.read()
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise ValueError("variant %r: edit does not match once: %r"
+                                 % (name, old))
+            text = text.replace(old, new)
+        path = os.path.join(OUT, "v%d.cu" % k)
+        with open(path, "w") as f:
+            f.write(text)
+        procs[name] = (path[:-3] + ".so", subprocess.Popen(
+            [find_nvcc(), *nvcc_flags, "-I", CSRC, "-o", path[:-3] + ".so",
+             path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    built = {}
+    for name, (so, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError("variant %r failed to build:\n%s" % (name, log))
+        built[name] = so
+    return built
+
+
+def run_variants() -> list:
+    import torch
+
+    import chip_smoke as cs
+    from openmm_tpu_torch import _build
+    from openmm_tpu_torch.ops import pallas_pme, tile_pairs
+    from openmm_tpu_torch.platform import set_fp32_matmul_exact
+    set_fp32_matmul_exact()
+    dev = torch.device("cuda", 0)
+    libs = {}
+    for name, so in _build_variants(_build.NVCC_FLAGS,
+                                    _build.find_nvcc).items():
+        lib = ctypes.CDLL(so)
+        for fn, argtypes in _build._SIGNATURES.items():
+            if hasattr(lib, fn):
+                getattr(lib, fn).argtypes = argtypes
+        libs[name] = lib
+    inp = cs.kernel_inputs(dev, cs.N_WATERS)
+    pos4, par4, cand, count, words, consts = inp["tiles"]
+    switch = int(inp["module"].use_switch)
+    a, wy, wz = inp["triple"]
+    dq = inp["dq"]
+    n, nx, ny, nz = a.shape[0], a.shape[1], wy.shape[1], wz.shape[1]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    want = {"nonbonded_tiles.cu": tile_pairs.nonbonded_tiles_plain(
+                *inp["tiles"], tile_pairs.MODE_EWALD, switch),
+            "spread_triple.cu": pallas_pme.spread_triple_vjp_plain(
+                dq, a, wy, wz)}
+
+    def call(name):
+        lib = libs[name]
+        if VARIANTS[name][0] == "nonbonded_tiles.cu":
+            out = torch.empty_like(pos4)
+            bounds = torch.empty((count.shape[0], 2, 4), device=dev)
+            return (lambda: lib.omm_nonbonded_tiles(
+                pos4.data_ptr(), par4.data_ptr(), cand.data_ptr(),
+                count.data_ptr(), words.data_ptr(), consts.data_ptr(),
+                count.shape[0], cand.shape[1], words.shape[1],
+                tile_pairs.MODE_EWALD, switch, bounds.data_ptr(),
+                out.data_ptr(), stream)), lambda: out
+        outs = tuple(torch.empty_like(t) for t in (a, wy, wz))
+        entries = torch.empty((n, nx + ny + nz, 2), dtype=torch.int32,
+                              device=dev)
+        transposed = torch.empty((2, nx * ny * nz), device=dev)
+        return (lambda: lib.omm_spread_triple_bwd(
+            dq.data_ptr(), a.data_ptr(), wy.data_ptr(), wz.data_ptr(), n, nx,
+            ny, nz, entries.data_ptr(), transposed.data_ptr(),
+            *(o.data_ptr() for o in outs), stream)), lambda: outs
+
+    rows = []
+    for turn in range(2):
+        for name in VARIANTS:
+            run, result = call(name)
+            run()
+            torch.cuda.synchronize(dev)
+            rel = cs._compare(result(), want[VARIANTS[name][0]])[2]
+            rows.append({"variant": name, "turn": turn,
+                         "rel_err": rel, "ms": cs._time_ms(run, dev)})
+            print(json.dumps(rows[-1]))
+    return rows
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--trees", nargs="*")
+    parser.add_argument("--variants", action="store_true")
+    parser.add_argument("--one-tree", help=argparse.SUPPRESS)
+    args = parser.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        raise RuntimeError("kernel_lab.py needs a CUDA device")
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip())
+    if args.one_tree:
+        print(json.dumps({"tree": args.one_tree,
+                          "ms": time_tree(args.one_tree)}))
+    elif args.variants:
+        sys.path.insert(0, REPO)
+        run_variants()
+    else:
+        for tree in args.trees or [REPO]:
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--one-tree",
+                 os.path.abspath(tree)], capture_output=True, text=True,
+                cwd=os.path.abspath(tree))
+            if proc.returncode:
+                raise RuntimeError("timing %s failed:\n%s" % (tree,
+                                                             proc.stderr))
+            print(proc.stdout.strip().splitlines()[-1])
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

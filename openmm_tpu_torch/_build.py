@@ -43,7 +43,7 @@ _SIGNATURES = {
     "omm_spread_triple_fwd": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
                               _P],
     "omm_spread_triple_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
-                              _P],
+                              _P, _P, _P],
 }
 
 

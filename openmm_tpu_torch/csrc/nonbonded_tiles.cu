@@ -6,27 +6,53 @@
 // that XLA gathers every step, expands 16-bit exclusion words with a float
 // matmul and tests bits by float parity; none of that is needed here.
 //
-// Design: one block of 16 x 8 threads per 16-atom row brick. Thread (lane,
-// slice) owns row atom `lane` and walks candidate bricks slice, slice + 8,
-// ...; the candidate atoms are read BY INDEX from the sorted position array
-// (all 16 lanes of a slice read the same atom, one broadcast transaction),
-// so there is no per-step slab gather. The exclusion test is an integer
-// bit test on the word of (row atom, candidate brick). Every row atom sums
-// over all its candidates (full-matrix traversal, energy halved by the
-// caller), and the 8 slice partials are added in a fixed order through
-// shared memory: no atomics, so forces are bit-for-bit reproducible.
+// What bounds it on this card. The candidate state lists, per row brick,
+// the bricks whose bounding boxes came within cutoff + skin at the last
+// rebuild: ~2,900 pair slots a row atom at 24,000 atoms, of which ~10 % lie
+// inside the cutoff. A sweep that tests every slot pays for ~7e7 staged
+// minimum images, and one that runs the pair terms (LJ, erfc, exp: ~70
+// operations) where one lane of a warp hits runs them at a small fraction
+// of its lanes. The bound is the operations of the pairs inside the cutoff,
+// each counted once.
 //
-// Bound on this card: operations. About 1.1e8 pair slots a step at 24,000
-// atoms, ~40 float32 operations each with one expf and one rsqrtf, against
-// ~2 bytes of device traffic per slot (positions and parameters stay in L1
-// and L2). Only ~7 % of the slots lie inside the cutoff, so the kernel pays
-// mostly for the cull; a later pass can tighten it (warp-level pair lists).
+// Design: cull, then compact, then compute.
+//   1. brick_bounds_kernel: the bounding box (centre, half extent) of every
+//      brick at this step's positions, a half-warp a brick.
+//   2. nonbonded_tiles_kernel: one warp per row atom. Its lanes test 32 of
+//      the row brick's candidate bricks at a time against the atom: the
+//      staged minimum image of atom - centre, less the half extent on each
+//      axis, must come within the cutoff (plus 1e-3 nm of slack for
+//      rounding). Every pair the sweep would count passes: the image shift
+//      of a pair inside the cutoff equals that of its brick's centre once
+//      the half extent is within box/2 - cutoff on each axis, and a brick
+//      wider than that is always kept. The surviving bricks are compacted
+//      by ballot into a list in shared memory and swept two at a time (16
+//      lanes each, one coalesced float4 load a lane), in a loop with no
+//      divergent branch. The pairs inside the cutoff and not excluded (an
+//      integer bit test on the word of (row atom, candidate brick)) are
+//      ballot-compacted into a 64-entry queue in shared memory, and the
+//      pair terms run only on full warps of 32 queued pairs (and once on
+//      the remainder at the end). At 24,000 atoms this tests ~900 slots an
+//      atom instead of ~2,900, and runs the pair terms ~3.2x less often.
+// What bounds it now: the sweep's chain of dependent steps a round (list
+// entry, position, staged image, ballot, queue), at the 32 warps an SM its
+// 64 registers allow; forcing fewer registers spills and is slower.
+//
+// A lane adds the pairs that land in its queue slot, in queue order, and the
+// 32 lane sums are added by a fixed shuffle tree: every output is owned by
+// one warp and summed in one order, so forces are bit-for-bit reproducible
+// (no atomics). Every row atom sums over all its partners (full-matrix
+// traversal, energy halved by the caller), so each pair is computed twice:
+// the design can reach at most half the bound that counts each pair once.
 #include <cuda_runtime.h>
 
 namespace {
 
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kBrick = 16;
-constexpr int kSlices = 8;
+constexpr int kWarps = 8;            // row atoms (warps) per block
+constexpr int kQueue = 64;           // queued pairs a warp
+constexpr float kCullSlack = 1e-3f;  // nm
 
 // Hastings rational erfc (max error 1.5e-7), the form the JAX package's
 // float32 path and the Pallas kernel use; exp(-x^2) is shared with the force.
@@ -38,124 +64,233 @@ __device__ __forceinline__ float erfc_hastings(float x, float exp_x2) {
          t * exp_x2;
 }
 
+// The reduced triclinic box a = (ax, 0, 0), b = (bx, by, 0),
+// c = (cx, cy, cz) and the staged minimum image the sweep uses.
+struct Box {
+  float ax, bx, by, cx, cy, cz, inv_ax, inv_by, inv_cz;
+
+  __device__ __forceinline__ float3 image(float dx, float dy,
+                                          float dz) const {
+    const float sc = rintf(dz * inv_cz);
+    dx -= sc * cx;
+    dy -= sc * cy;
+    dz -= sc * cz;
+    const float sb = rintf(dy * inv_by);
+    dx -= sb * bx;
+    dy -= sb * by;
+    dx -= rintf(dx * inv_ax) * ax;
+    return make_float3(dx, dy, dz);
+  }
+};
+
+// bounds[2 b] = (centre, 0), bounds[2 b + 1] = (half extent, 0) of brick b.
+__global__ void brick_bounds_kernel(const float4* __restrict__ pos,
+                                    int n_bricks,
+                                    float4* __restrict__ bounds) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int b = t / kBrick;
+  const float4 p = pos[min(b, n_bricks - 1) * kBrick + t % kBrick];
+  float lx = p.x, ly = p.y, lz = p.z, hx = p.x, hy = p.y, hz = p.z;
+  for (int o = kBrick / 2; o > 0; o >>= 1) {
+    lx = fminf(lx, __shfl_xor_sync(kFull, lx, o, kBrick));
+    ly = fminf(ly, __shfl_xor_sync(kFull, ly, o, kBrick));
+    lz = fminf(lz, __shfl_xor_sync(kFull, lz, o, kBrick));
+    hx = fmaxf(hx, __shfl_xor_sync(kFull, hx, o, kBrick));
+    hy = fmaxf(hy, __shfl_xor_sync(kFull, hy, o, kBrick));
+    hz = fmaxf(hz, __shfl_xor_sync(kFull, hz, o, kBrick));
+  }
+  if (b < n_bricks && t % kBrick == 0) {
+    bounds[2 * b] =
+        make_float4(0.5f * (lx + hx), 0.5f * (ly + hy), 0.5f * (lz + hz), 0);
+    bounds[2 * b + 1] =
+        make_float4(0.5f * (hx - lx), 0.5f * (hy - ly), 0.5f * (hz - lz), 0);
+  }
+}
+
+struct Params {
+  float alpha, krf, crf, rs, inv_w;
+  int mode, use_switch;
+};
+
+// Adds the pair terms of row atom (pi, qi) and partner qj at displacement
+// d (r2 = |d|^2) to the lane's sums.
+__device__ __forceinline__ void add_pair(const Params& pr, float4 qi,
+                                         float4 qj, float4 d, float* fx,
+                                         float* fy, float* fz, float* e) {
+  const float two_over_sqrt_pi = 1.1283791670955126f;
+  const float r2s = fmaxf(d.w, 2e-6f);
+  const float inv_r = rsqrtf(r2s);
+  const float inv_r2 = inv_r * inv_r;
+  const float sig = qi.y + qj.y;
+  const float eps4 = qi.z * qj.z;
+  const float s2 = sig * sig * inv_r2;
+  const float s6 = s2 * s2 * s2;
+  const float es6 = eps4 * s6;
+  float de_lj = -3.0f * es6 * (2.0f * s6 - 1.0f) * inv_r2;
+  float e_lj = es6 * (s6 - 1.0f);
+  if (pr.use_switch) {
+    const float rr = r2s * inv_r;
+    const float t = fminf(fmaxf((rr - pr.rs) * pr.inv_w, 0.0f), 1.0f);
+    const float t2 = t * t;
+    const float sw = 1.0f - t2 * t * (10.0f - 15.0f * t + 6.0f * t2);
+    const float om = 1.0f - t;
+    const float dsw = (-30.0f * t2 * om * om * pr.inv_w) * (0.5f * inv_r);
+    de_lj = de_lj * sw + e_lj * dsw;
+    e_lj = e_lj * sw;
+  }
+  const float qq = qi.x * qj.x;
+  float de_c, e_c;
+  if (pr.mode == 0) {  // Ewald / PME direct space
+    const float ar = pr.alpha * (r2s * inv_r);
+    const float ex = expf(-ar * ar);
+    const float erfc_ar = erfc_hastings(ar, ex);
+    de_c = -qq * (erfc_ar * inv_r2 + two_over_sqrt_pi * pr.alpha * ex * inv_r) *
+           (0.5f * inv_r);
+    e_c = qq * inv_r * erfc_ar;
+  } else {  // reaction field
+    de_c = qq * (-0.5f * inv_r2 * inv_r + pr.krf);
+    e_c = qq * (inv_r + pr.krf * r2s - pr.crf);
+  }
+  const float dedr2 = de_lj + de_c;
+  *fx -= 2.0f * dedr2 * d.x;
+  *fy -= 2.0f * dedr2 * d.y;
+  *fz -= 2.0f * dedr2 * d.z;
+  *e += e_lj + e_c;
+}
+
 // consts: alpha, rc^2, krf, crf, ax, bx, by, cx, cy, cz, 1/ax, 1/by, 1/cz,
 //         switch distance, 1/(rc - switch distance), unused
-__global__ void __launch_bounds__(kBrick * kSlices)
+__global__ void __launch_bounds__(32 * kWarps)
 nonbonded_tiles_kernel(const float4* __restrict__ pos,
                        const float4* __restrict__ par,
                        const int* __restrict__ cand,
                        const int* __restrict__ count,
                        const int* __restrict__ words,
-                       const float* __restrict__ consts, int max_cand,
+                       const float* __restrict__ consts,
+                       const float4* __restrict__ bounds, int max_cand,
                        int exc_cap, int mode, int use_switch,
                        float4* __restrict__ out) {
-  const int r = blockIdx.x;
-  const int lane = threadIdx.x % kBrick;
-  const int slice = threadIdx.x / kBrick;
-  const int i = r * kBrick + lane;
+  __shared__ float4 queue_d[kWarps][kQueue];  // (dx, dy, dz, r^2)
+  __shared__ int queue_j[kWarps][kQueue];
+  __shared__ int kept_b[kWarps][32];        // a chunk's surviving bricks
+  __shared__ unsigned kept_w[kWarps][32];   // and their exclusion words
+  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
+  const int i = blockIdx.x * kWarps + warp;  // n_pad is a multiple of 16
+  const int r = i / kBrick;
+  float4* qd = queue_d[warp];
+  int* qj = queue_j[warp];
+  int* kb = kept_b[warp];
+  unsigned* kw = kept_w[warp];
+  const int l = lane % kBrick, half = lane / kBrick;
+  const unsigned below = (1u << lane) - 1u;
 
-  const float alpha = consts[0], rc2 = consts[1], krf = consts[2],
-              crf = consts[3];
-  const float ax = consts[4], bx = consts[5], by = consts[6], cx = consts[7],
-              cy = consts[8], cz = consts[9];
-  const float inv_ax = consts[10], inv_by = consts[11], inv_cz = consts[12];
-  const float rs = consts[13], inv_w = consts[14];
-  const float two_over_sqrt_pi = 1.1283791670955126f;
+  const float rc2 = consts[1];
+  const Box box{consts[4], consts[5], consts[6], consts[7], consts[8],
+                consts[9], consts[10], consts[11], consts[12]};
+  const Params pr{consts[0], consts[2], consts[3], consts[13], consts[14],
+                  mode, use_switch};
+  // a brick within these half extents takes its centre's image shift for
+  // every pair inside the cutoff; a wider one is never culled
+  const float rc = sqrtf(rc2);
+  const float lim_x = 0.5f * box.ax - rc - kCullSlack;
+  const float lim_y = 0.5f * box.by - rc - kCullSlack;
+  const float lim_z = 0.5f * box.cz - rc - kCullSlack;
+  const float reach2 = (rc + kCullSlack) * (rc + kCullSlack);
 
   const float4 pi = pos[i];
   const float4 qi = par[i];
   float fx = 0.f, fy = 0.f, fz = 0.f, e = 0.f;
+  int queued = 0;
   const int n_cand = count[r];
-  for (int k = slice; k < n_cand; k += kSlices) {
-    const int cb = cand[r * max_cand + k];
-    const unsigned int word =
-        k < exc_cap ? static_cast<unsigned int>(words[i * exc_cap + k]) : 0u;
-    for (int l = 0; l < kBrick; ++l) {
-      const int j = cb * kBrick + l;
+  for (int k0 = 0; k0 < n_cand; k0 += 32) {
+    const int k = k0 + lane;
+    int cb = 0;
+    unsigned word = 0u;
+    bool keep = false;
+    if (k < n_cand) {
+      cb = cand[r * max_cand + k];
+      const float4 c = bounds[2 * cb], h = bounds[2 * cb + 1];
+      const float3 d = box.image(pi.x - c.x, pi.y - c.y, pi.z - c.z);
+      const float gx = fmaxf(fabsf(d.x) - h.x, 0.0f);
+      const float gy = fmaxf(fabsf(d.y) - h.y, 0.0f);
+      const float gz = fmaxf(fabsf(d.z) - h.z, 0.0f);
+      // NaN keeps the brick, so a non-finite position poisons the forces
+      keep = !(gx * gx + gy * gy + gz * gz >= reach2) || h.x > lim_x ||
+             h.y > lim_y || h.z > lim_z;
+      if (k < exc_cap) word = static_cast<unsigned>(words[i * exc_cap + k]);
+    }
+    // the surviving bricks, compacted in order
+    const unsigned live = __ballot_sync(kFull, keep);
+    const int n_live = __popc(live);
+    if (keep) {
+      const int at = __popc(live & below);
+      kb[at] = cb;
+      kw[at] = word;
+    }
+    __syncwarp();
+    // two surviving bricks a round, 16 lanes each
+    for (int s0 = 0; s0 < n_live; s0 += 2) {
+      const int s = min(s0 + half, n_live - 1);
+      const int j = kb[s] * kBrick + l;
       const float4 pj = pos[j];
-      float dx = pi.x - pj.x, dy = pi.y - pj.y, dz = pi.z - pj.z;
-      const float sc = rintf(dz * inv_cz);
-      dx -= sc * cx;
-      dy -= sc * cy;
-      dz -= sc * cz;
-      const float sb = rintf(dy * inv_by);
-      dx -= sb * bx;
-      dy -= sb * by;
-      dx -= rintf(dx * inv_ax) * ax;
-      const float r2 = dx * dx + dy * dy + dz * dz;
-      if (r2 >= rc2 || ((word >> l) & 1u)) continue;
-      const float4 qj = par[j];
-      const float r2s = fmaxf(r2, 2e-6f);
-      const float inv_r = rsqrtf(r2s);
-      const float inv_r2 = inv_r * inv_r;
-      const float sig = qi.y + qj.y;
-      const float eps4 = qi.z * qj.z;
-      const float s2 = sig * sig * inv_r2;
-      const float s6 = s2 * s2 * s2;
-      const float es6 = eps4 * s6;
-      float de_lj = -3.0f * es6 * (2.0f * s6 - 1.0f) * inv_r2;
-      float e_lj = es6 * (s6 - 1.0f);
-      if (use_switch) {
-        const float rr = r2s * inv_r;
-        const float t = fminf(fmaxf((rr - rs) * inv_w, 0.0f), 1.0f);
-        const float t2 = t * t;
-        const float sw = 1.0f - t2 * t * (10.0f - 15.0f * t + 6.0f * t2);
-        const float om = 1.0f - t;
-        const float dsw = (-30.0f * t2 * om * om * inv_w) * (0.5f * inv_r);
-        de_lj = de_lj * sw + e_lj * dsw;
-        e_lj = e_lj * sw;
+      const float3 d = box.image(pi.x - pj.x, pi.y - pj.y, pi.z - pj.z);
+      const float4 dd =
+          make_float4(d.x, d.y, d.z, d.x * d.x + d.y * d.y + d.z * d.z);
+      const bool hit = s0 + half < n_live && !(dd.w >= rc2) &&
+                       !((kw[s] >> l) & 1u);
+      const unsigned hits = __ballot_sync(kFull, hit);
+      if (hit) {
+        const int slot = queued + __popc(hits & below);
+        qd[slot] = dd;
+        qj[slot] = j;
       }
-      const float qq = qi.x * qj.x;
-      float de_c, e_c;
-      if (mode == 0) {  // Ewald / PME direct space
-        const float ar = alpha * (r2s * inv_r);
-        const float ex = expf(-ar * ar);
-        const float erfc_ar = erfc_hastings(ar, ex);
-        de_c = -qq * (erfc_ar * inv_r2 + two_over_sqrt_pi * alpha * ex * inv_r) *
-               (0.5f * inv_r);
-        e_c = qq * inv_r * erfc_ar;
-      } else {  // reaction field
-        de_c = qq * (-0.5f * inv_r2 * inv_r + krf);
-        e_c = qq * (inv_r + krf * r2s - crf);
+      queued += __popc(hits);
+      if (queued >= 32) {
+        __syncwarp();
+        add_pair(pr, qi, par[qj[lane]], qd[lane], &fx, &fy, &fz, &e);
+        __syncwarp();  // every lane has read its slot
+        if (lane < queued - 32) {
+          qd[lane] = qd[32 + lane];
+          qj[lane] = qj[32 + lane];
+        }
+        queued -= 32;
+        __syncwarp();
       }
-      const float dedr2 = de_lj + de_c;
-      fx -= 2.0f * dedr2 * dx;
-      fy -= 2.0f * dedr2 * dy;
-      fz -= 2.0f * dedr2 * dz;
-      e += e_lj + e_c;
     }
+    __syncwarp();  // the compacted list is read before the next chunk's
   }
-  __shared__ float4 partial[kSlices][kBrick];
-  partial[slice][lane] = make_float4(fx, fy, fz, e);
-  __syncthreads();
-  if (slice == 0) {
-    float4 s = partial[0][lane];
-    for (int m = 1; m < kSlices; ++m) {
-      const float4 p = partial[m][lane];
-      s.x += p.x;
-      s.y += p.y;
-      s.z += p.z;
-      s.w += p.w;
-    }
-    out[i] = s;
+  __syncwarp();
+  if (lane < queued) add_pair(pr, qi, par[qj[lane]], qd[lane], &fx, &fy, &fz, &e);
+  for (int o = 16; o > 0; o >>= 1) {
+    fx += __shfl_xor_sync(kFull, fx, o);
+    fy += __shfl_xor_sync(kFull, fy, o);
+    fz += __shfl_xor_sync(kFull, fz, o);
+    e += __shfl_xor_sync(kFull, e, o);
   }
+  if (lane == 0) out[i] = make_float4(fx, fy, fz, e);
 }
 
 }  // namespace
 
+// Scratch: bounds (2 n_bricks float4).
 extern "C" int omm_nonbonded_tiles(const void* pos, const void* par,
                                    const void* cand, const void* count,
                                    const void* words, const void* consts,
                                    int n_bricks, int max_cand, int exc_cap,
-                                   int mode, int use_switch, void* out,
-                                   void* stream) {
+                                   int mode, int use_switch, void* bounds,
+                                   void* out, void* stream) {
   if (n_bricks > 0) {
-    nonbonded_tiles_kernel<<<n_bricks, kBrick * kSlices, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float4*>(pos), static_cast<const float4*>(par),
-        static_cast<const int*>(cand), static_cast<const int*>(count),
-        static_cast<const int*>(words), static_cast<const float*>(consts),
-        max_cand, exc_cap, mode, use_switch, static_cast<float4*>(out));
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const auto* p = static_cast<const float4*>(pos);
+    auto* bb = static_cast<float4*>(bounds);
+    const int threads = 256;
+    brick_bounds_kernel<<<(n_bricks * kBrick + threads - 1) / threads,
+                          threads, 0, s>>>(p, n_bricks, bb);
+    nonbonded_tiles_kernel<<<n_bricks * kBrick / kWarps, 32 * kWarps, 0, s>>>(
+        p, static_cast<const float4*>(par), static_cast<const int*>(cand),
+        static_cast<const int*>(count), static_cast<const int*>(words),
+        static_cast<const float*>(consts), bb, max_cand, exc_cap, mode,
+        use_switch, static_cast<float4*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,10 +3,9 @@
 // minimizer's objective runs).
 //
 //   forward   Q[x, (y,z)] = sum_i a[i,x] wy[i,y] wz[i,z]
-//   backward  dA[i,x]  = sum_(y,z) wy[i,y] wz[i,z] dQ[x,(y,z)]
-//             U[i,(y,z)] = sum_x a[i,x] dQ[x,(y,z)]   (never stored)
-//             dWy[i,y] = sum_z U[i,(y,z)] wz[i,z]
-//             dWz[i,z] = sum_y U[i,(y,z)] wy[i,y]
+//   backward  dA[i,x]  = sum_y wy[i,y] sum_z wz[i,z] dQ[x,y,z]
+//             dWy[i,y] = sum_x a[i,x] sum_z wz[i,z] dQ[x,y,z]
+//             dWz[i,z] = sum_x a[i,x] sum_y wy[i,y] dQ[x,y,z]
 //
 // Replaces: openmm_tpu/ops/pallas_pme.py:65 _fwd_kernel (pallas_call at
 // :141, launched from _spread_fwd_impl) and :96 _bwd_kernel (pallas_call
@@ -37,23 +36,31 @@
 // the integer sums do not depend on the order of the atomics, and the
 // scale is an order-free max, read from device memory (no host sync).
 //
-// Backward (kernel 5): still the dense work of the TPU kernel. What
-// carries over is what it keeps out of device memory: the outer product
-// C = wy (x) wz and U (each N x ny*nz floats; 301 MB at 24,000 atoms on a
-// 56^3 grid) live only in shared memory and registers. What does not carry
-// over are the Mosaic workarounds: the hi/lo bf16 one-hot expansion
-// matmuls and their selector inputs (a product wy*wz is exact here), the
-// transposed inputs, and the padding of N to the chunk (the kernel masks
-// the ragged edge itself). Every product and sum is a float32 FMA on the
-// CUDA cores, the counterpart of Precision.HIGHEST; no TF32 path is used.
-// It needs ~33 MB at 24,000 atoms (10 us at 3.35 TB/s) and does 1.75e10
-// float operations (0.26 ms at the 67 TFLOP/s float32 peak), so the
-// float32 pipe and shared-memory bandwidth bound it. Design against that:
-// register tiles of 4x4 outputs per thread over 64x64 block tiles staged
-// in shared memory; each block owns 64 atoms and walks the (y,z) axis in
-// tiles, so its output rows belong to it alone and it needs no atomics.
-// One launch takes grid axes up to 128 (its shared-memory layout); the
-// wrapper splits wider grids (ops/pallas_pme.py:split_vjp).
+// Backward (kernel 5): a sparse VJP. The TPU kernel did the dense work,
+// 64x64 tiles over every (atom, x, (y,z)): 1.75e10 operations at 24,000
+// atoms on 56^3, where the data need 2.2e8. Here the sums run over each
+// atom's supports only: with Sx, Sy, Sz the nonzero columns of its rows,
+// its dA row takes |Sy||Sz| nx FMAs, dWy |Sx||Sz| ny and dWz |Sx||Sy| nz
+// (4,200 an atom on 56^3 with 5-entry splines). The outputs are dense, as
+// the Function's contract and the JAX function's have them, and written in
+// full.
+//   1. transpose_dq_kernel writes dQ twice more, as (ny, nz, nx) and
+//      (nx, nz, ny), so that each output row reads dQ along its own axis.
+//   2. spread_vjp_kernel, one warp per atom, compacts the atom's three
+//      rows by ballot as stage 1 of the forward does (into its own stretch
+//      of scratch, so nothing is kept from the forward and
+//      spread_triple_bwd stands alone), then writes each output row with
+//      lanes over its entries: every load of dQ and every store is
+//      coalesced, and each lane keeps kUnroll kOut loads in flight.
+// A warp owns its atom's rows, so there are no atomics, and every sum is
+// taken in one fixed order in float32: the outputs have the same bits on
+// every call. A dense row is a support of its full width, so arbitrary
+// planes get the exact dense VJP. Nothing is sized by a grid axis: one
+// launch takes any grid below 2^31 cells.
+// What bounds it: the bytes are 16.8 MB of rows read and 16.8 MB of
+// outputs written (10 us at the H100's 3.35 TB/s), but each atom reads 75
+// strips of dQ (16.8 KB; ~0.4 GB in all at 24,000 atoms), which L1 and L2
+// serve: its time follows their hit rate and the loads in flight.
 #include <cuda_runtime.h>
 
 #include "fixed_scatter.cuh"
@@ -62,14 +69,11 @@ namespace {
 
 using fixed_scatter::kFull;
 
-constexpr int kThreads = 256;   // 16 x 16 threads, 4 x 4 outputs each
-constexpr int kTile = 64;       // block tile edge
-constexpr int kLd = kTile + 1;  // padded shared row: conflict-free columns
-constexpr int kBwdAtoms = 64;   // atoms owned by one backward block
-constexpr int kMaxAxis = 128;   // widest grid axis of one backward launch
-constexpr int kWarps = 8;       // atoms (warps) per forward block
+constexpr int kWarps = 8;       // atoms (warps) per block
 constexpr int kChunks = 4;      // row chunks of 32 a lane loads ahead
-static_assert(kThreads / kBwdAtoms == 4, "reduction groups are y%4, z%4");
+constexpr int kOut = 2;         // output entries of 32 a lane sums at once
+constexpr int kUnroll = 16;     // support pairs a lane loads at once
+constexpr int kTile = 32;       // transpose tile edge
 
 // Row entries a lane loads ahead: c0 + 32 k + lane for k < kChunks.
 __device__ __forceinline__ void load_chunks(const float* __restrict__ row,
@@ -84,8 +88,8 @@ __device__ __forceinline__ void load_chunks(const float* __restrict__ row,
 
 // Compact one row's nonzero entries, in index order, into out as
 // (index, float bits): the first kChunks chunks from `first` (loaded
-// ahead), the rest as they are loaded. Returns their count and sets *l1
-// to sum |v| (every lane gets the same value).
+// ahead), the rest as they are loaded. Returns their count and, unless l1
+// is null, sets *l1 to sum |v| (every lane gets the same value).
 __device__ __forceinline__ int compact_row(const float* __restrict__ row,
                                            int len, int lane,
                                            const float first[kChunks],
@@ -111,8 +115,10 @@ __device__ __forceinline__ int compact_row(const float* __restrict__ row,
       count += __popc(mask);
     }
   }
-  for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(kFull, sum, o);
-  *l1 = sum;
+  if (l1 != nullptr) {
+    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(kFull, sum, o);
+    *l1 = sum;
+  }
   return count;
 }
 
@@ -209,181 +215,140 @@ spread_scatter_kernel(const int2* __restrict__ entries,
   }
 }
 
-// Shared memory of one backward block, in floats.
-__host__ __device__ constexpr int odd(int v) { return v | 1; }
-
-template <int NXP>
-__host__ __device__ int bwd_smem_floats(int ny, int nz) {
-  return 2 * NXP * kLd + kTile * kLd + 2 * kBwdAtoms * (odd(ny) + odd(nz));
-}
-
-// 64 atoms per block. Shared memory: a^T (x-major), the dQ tile, the C
-// tile (reused for the U tile), the atoms' wy and wz rows and their dWy and
-// dWz accumulators (rows padded to an odd length). dA stays in registers.
-template <int NXP>
-__global__ void __launch_bounds__(kThreads)
-spread_triple_bwd_kernel(const float* __restrict__ dq,
-                         const float* __restrict__ a,
-                         const float* __restrict__ wy,
-                         const float* __restrict__ wz, int n, int nx, int ny,
-                         int nz, float* __restrict__ da,
-                         float* __restrict__ dwy, float* __restrict__ dwz) {
-  extern __shared__ float smem[];
-  constexpr int kXs = NXP / 16;          // dA columns per thread
-  const int ldy = odd(ny), ldz = odd(nz);
-  float* as = smem;                      // [NXP][kLd]: as[x][atom]
-  float* dqs = as + NXP * kLd;           // [NXP][kLd]: dqs[x][c]
-  float* cs = dqs + NXP * kLd;           // [kTile][kLd]: cs[c][atom]
-  float* us = cs;                        // [kBwdAtoms][kLd]: us[atom][c]
-  float* wys = cs + kTile * kLd;         // [kBwdAtoms][ldy]
-  float* wzs = wys + kBwdAtoms * ldy;    // [kBwdAtoms][ldz]
-  float* dwys = wzs + kBwdAtoms * ldz;   // [kBwdAtoms][ldy]
-  float* dwzs = dwys + kBwdAtoms * ldy;  // [kBwdAtoms][ldz]
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int i0 = blockIdx.x * kBwdAtoms;
-  const int yz_count = ny * nz;
-
-  for (int e = tid; e < kBwdAtoms * NXP; e += kThreads) {
-    const int k = e / NXP, x = e % NXP;
-    const int i = i0 + k;
-    as[x * kLd + k] = (i < n && x < nx) ? a[static_cast<long>(i) * nx + x]
-                                        : 0.0f;
+// Kernel 5, stage 1: two transposed copies of dQ (nx, ny, nz), so that
+// every output row reads dQ along its own axis: ta (ny, nz, nx) for dA and
+// ty (nx, nz, ny) for dWy (dWz reads dQ as it is). Blocks below tiles_a
+// transpose dQ as one (nx, ny nz) matrix into ta, the others each (ny, nz)
+// slab into ty; 32x32 tiles through shared memory, both sides coalesced.
+__global__ void __launch_bounds__(32 * kWarps)
+transpose_dq_kernel(const float* __restrict__ dq, int nx, int ny, int nz,
+                    int tiles_a, float* __restrict__ ta,
+                    float* __restrict__ ty) {
+  __shared__ float tile[kTile][kTile + 1];
+  int b = blockIdx.x;
+  const float* in = dq;
+  float* out = ta;
+  int rows = nx, cols = ny * nz;
+  if (b >= tiles_a) {
+    b -= tiles_a;
+    const int per_slab = ((ny + kTile - 1) / kTile) * ((nz + kTile - 1) / kTile);
+    const long slab = static_cast<long>(b / per_slab) * ny * nz;
+    b %= per_slab;
+    in = dq + slab;
+    out = ty + slab;
+    rows = ny;
+    cols = nz;
   }
-  for (int e = tid; e < kBwdAtoms * ny; e += kThreads) {
-    const int k = e / ny, y = e % ny;
-    const int i = i0 + k;
-    wys[k * ldy + y] = i < n ? wy[static_cast<long>(i) * ny + y] : 0.0f;
-    dwys[k * ldy + y] = 0.0f;
-  }
-  for (int e = tid; e < kBwdAtoms * nz; e += kThreads) {
-    const int k = e / nz, z = e % nz;
-    const int i = i0 + k;
-    wzs[k * ldz + z] = i < n ? wz[static_cast<long>(i) * nz + z] : 0.0f;
-    dwzs[k * ldz + z] = 0.0f;
-  }
-
-  float dacc[4][kXs];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < kXs; ++c) dacc[r][c] = 0.0f;
-  // reduction role: this thread owns dWy[ra][y] for y % 4 == rg and
-  // dWz[ra][z] for z % 4 == rg, so every sum has one owner and one order
-  const int ra = tid % kBwdAtoms, rg = tid / kBwdAtoms;
-
-  for (int yz0 = 0; yz0 < yz_count; yz0 += kTile) {
-    __syncthreads();  // staging done; the previous U tile fully reduced
-    for (int e = tid; e < NXP * kTile; e += kThreads) {
-      const int x = e / kTile, c = e % kTile;
-      const int yz = yz0 + c;
-      dqs[x * kLd + c] = (x < nx && yz < yz_count)
-                             ? dq[static_cast<long>(x) * yz_count + yz]
-                             : 0.0f;
-    }
-    for (int e = tid; e < kBwdAtoms * kTile; e += kThreads) {
-      const int k = e / kTile, c = e % kTile;
-      const int yz = yz0 + c;
-      float v = 0.0f;
-      if (yz < yz_count) {
-        const int y = yz / nz, z = yz - y * nz;
-        v = wys[k * ldy + y] * wzs[k * ldz + z];
-      }
-      cs[c * kLd + k] = v;
-    }
-    __syncthreads();
-
-    // U tile (atoms x columns) = a (atoms x x) . dQ tile (x x columns)
-    float u[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) u[r][c] = 0.0f;
-#pragma unroll 8
-    for (int x = 0; x < NXP; ++x) {
-      float ar[4], qr[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) ar[r] = as[x * kLd + ty + 16 * r];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) qr[c] = dqs[x * kLd + tx + 16 * c];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) u[r][c] = fmaf(ar[r], qr[c], u[r][c]);
-    }
-    // dA (atoms x x) += C tile (atoms x columns) . dQ tile^T
-#pragma unroll 4
-    for (int c = 0; c < kTile; ++c) {
-      float cr[4], qr[kXs];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) cr[r] = cs[c * kLd + ty + 16 * r];
-#pragma unroll
-      for (int j = 0; j < kXs; ++j) qr[j] = dqs[(tx + 16 * j) * kLd + c];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int j = 0; j < kXs; ++j)
-          dacc[r][j] = fmaf(cr[r], qr[j], dacc[r][j]);
-    }
-    __syncthreads();  // the C tile is read; its space takes the U tile
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        us[(ty + 16 * r) * kLd + tx + 16 * c] = u[r][c];
-    __syncthreads();
-
-    const int c_end = min(kTile, yz_count - yz0);
-    int y = yz0 / nz, z = yz0 - y * nz;
-    for (int c = 0; c < c_end; ++c) {
-      const float v = us[ra * kLd + c];
-      if ((y & 3) == rg) dwys[ra * ldy + y] += v * wzs[ra * ldz + z];
-      if ((z & 3) == rg) dwzs[ra * ldz + z] += v * wys[ra * ldy + y];
-      if (++z == nz) {
-        z = 0;
-        ++y;
-      }
+  const int tiles_c = (cols + kTile - 1) / kTile;
+  const int r0 = b / tiles_c * kTile, c0 = b % tiles_c * kTile;
+  const int lane = threadIdx.x & 31;
+  for (int k = threadIdx.x / 32; k < kTile; k += kWarps) {
+    if (r0 + k < rows && c0 + lane < cols) {
+      tile[k][lane] = in[static_cast<long>(r0 + k) * cols + c0 + lane];
     }
   }
   __syncthreads();
-
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = i0 + ty + 16 * r;
-#pragma unroll
-    for (int j = 0; j < kXs; ++j) {
-      const int x = tx + 16 * j;
-      if (i < n && x < nx) da[static_cast<long>(i) * nx + x] = dacc[r][j];
+  for (int k = threadIdx.x / 32; k < kTile; k += kWarps) {
+    if (c0 + k < cols && r0 + lane < rows) {
+      out[static_cast<long>(c0 + k) * rows + r0 + lane] = tile[lane][k];
     }
-  }
-  for (int e = tid; e < kBwdAtoms * ny; e += kThreads) {
-    const int k = e / ny, y = e % ny;
-    const int i = i0 + k;
-    if (i < n) dwy[static_cast<long>(i) * ny + y] = dwys[k * ldy + y];
-  }
-  for (int e = tid; e < kBwdAtoms * nz; e += kThreads) {
-    const int k = e / nz, z = e % nz;
-    const int i = i0 + k;
-    if (i < n) dwz[static_cast<long>(i) * nz + z] = dwzs[k * ldz + z];
   }
 }
 
-template <int NXP>
-cudaError_t launch_bwd(const float* dq, const float* a, const float* wy,
-                       const float* wz, int n, int nx, int ny, int nz,
-                       float* da, float* dwy, float* dwz,
-                       cudaStream_t stream) {
-  const int bytes = static_cast<int>(sizeof(float)) *
-                    bwd_smem_floats<NXP>(ny, nz);
-  cudaError_t err = cudaFuncSetAttribute(
-      spread_triple_bwd_kernel<NXP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  const int blocks = (n + kBwdAtoms - 1) / kBwdAtoms;
-  spread_triple_bwd_kernel<NXP><<<blocks, kThreads, bytes, stream>>>(
-      dq, a, wy, wz, n, nx, ny, nz, da, dwy, dwz);
-  return cudaGetLastError();
+// Kernel 5, one output row of one atom, all `len` entries:
+//   out[o] = sum_(k1, k2) v1[k1] v2[k2] t[s1[k1] st1 + s2[k2] st2 + o]
+// over the supports (s1, v1) and (s2, v2) of the atom's two other rows,
+// the pairs (k1, k2) taken in one fixed order. t holds the output's axis
+// fastest, so lanes over o (32 kOut at a time) read and write coalesced.
+// Each lane works out one pair's offset and weight, which are then
+// broadcast by shuffle, kUnroll pairs at a time: a lane has kUnroll kOut
+// loads in flight, which L2's latency needs.
+__device__ __forceinline__ void vjp_row(const float* __restrict__ t,
+                                        int st1, int st2, const int2* s1,
+                                        int c1, const int2* s2, int c2,
+                                        int len, int lane,
+                                        float* __restrict__ out) {
+  const int pairs = c1 * c2;
+  for (int o0 = 0; o0 < len; o0 += 32 * kOut) {
+    const float* col = t + o0 + lane;
+    bool live[kOut];
+    float acc[kOut];
+#pragma unroll
+    for (int u = 0; u < kOut; ++u) {
+      live[u] = o0 + 32 * u + lane < len;
+      acc[u] = 0.0f;
+    }
+    for (int p0 = 0; p0 < pairs; p0 += 32) {
+      int off = 0;
+      float w = 0.0f;
+      if (p0 + lane < pairs) {
+        const int k1 = (p0 + lane) / c2, k2 = p0 + lane - k1 * c2;
+        const int2 e1 = s1[k1], e2 = s2[k2];
+        off = e1.x * st1 + e2.x * st2;
+        w = __int_as_float(e1.y) * __int_as_float(e2.y);
+      }
+      const int m = min(32, pairs - p0);
+      for (int q0 = 0; q0 < m; q0 += kUnroll) {
+        float wq[kUnroll], v[kUnroll][kOut];
+#pragma unroll
+        for (int q = 0; q < kUnroll; ++q) {
+          const int o = __shfl_sync(kFull, off, (q0 + q) & 31);
+          wq[q] = __shfl_sync(kFull, w, (q0 + q) & 31);
+#pragma unroll
+          for (int u = 0; u < kOut; ++u) {
+            v[q][u] = live[u] && q0 + q < m ? col[o + 32 * u] : 0.0f;
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < kUnroll; ++q) {
+          if (q0 + q < m) {
+#pragma unroll
+            for (int u = 0; u < kOut; ++u) acc[u] = fmaf(wq[q], v[q][u], acc[u]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kOut; ++u) {
+      if (live[u]) out[o0 + 32 * u + lane] = acc[u];
+    }
+  }
+}
+
+// Kernel 5, stage 2, one warp per atom: its three supports by ballot
+// compaction into its own stretch of `entries` (read back by the same warp
+// only), then its rows of dA, dWy and dWz in full over those supports.
+// Each output row belongs to one warp: no atomics.
+__global__ void __launch_bounds__(32 * kWarps)
+spread_vjp_kernel(const float* __restrict__ dq, const float* __restrict__ ta,
+                  const float* __restrict__ ty, const float* __restrict__ a,
+                  const float* __restrict__ wy, const float* __restrict__ wz,
+                  int n, int nx, int ny, int nz, int2* __restrict__ entries,
+                  float* __restrict__ da, float* __restrict__ dwy,
+                  float* __restrict__ dwz) {
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * kWarps + threadIdx.x / 32;
+  if (i >= n) return;  // the whole warp
+  const float* ra = a + static_cast<long>(i) * nx;
+  const float* ry = wy + static_cast<long>(i) * ny;
+  const float* rz = wz + static_cast<long>(i) * nz;
+  float va[kChunks], vy[kChunks], vz[kChunks];
+  load_chunks(ra, nx, 0, lane, va);
+  load_chunks(ry, ny, 0, lane, vy);
+  load_chunks(rz, nz, 0, lane, vz);
+  int2* xs = entries + static_cast<long>(i) * (nx + ny + nz);
+  int2* ys = xs + nx;
+  int2* zs = ys + ny;
+  const int cx = compact_row(ra, nx, lane, va, xs, nullptr);
+  const int cy = compact_row(ry, ny, lane, vy, ys, nullptr);
+  const int cz = compact_row(rz, nz, lane, vz, zs, nullptr);
+  __syncwarp();  // the entries written by each lane are visible to all
+  vjp_row(ta, nz * nx, nx, ys, cy, zs, cz, nx, lane,
+          da + static_cast<long>(i) * nx);
+  vjp_row(ty, nz * ny, ny, xs, cx, zs, cz, ny, lane,
+          dwy + static_cast<long>(i) * ny);
+  vjp_row(dq, ny * nz, nz, xs, cx, ys, cy, nz, lane,
+          dwz + static_cast<long>(i) * nz);
 }
 
 }  // namespace
@@ -417,31 +382,30 @@ extern "C" int omm_spread_triple_fwd(const void* a, const void* wy,
       cells, count, n, static_cast<float*>(out), s));
 }
 
-// Backward: (dA, dWy, dWz) from dQ and the forward's inputs; each grid
-// axis at most kMaxAxis.
+// Backward: (dA, dWy, dWz) from dQ and the forward's inputs, for any
+// grid. Scratch: entries (n * (nx + ny + nz) int2), transposed (two grids,
+// 2 nx ny nz float).
 extern "C" int omm_spread_triple_bwd(const void* dq, const void* a,
                                      const void* wy, const void* wz, int n,
-                                     int nx, int ny, int nz, void* da,
-                                     void* dwy, void* dwz, void* stream) {
-  if (n <= 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* q = static_cast<const float*>(dq);
-  const auto* pa = static_cast<const float*>(a);
-  const auto* py = static_cast<const float*>(wy);
-  const auto* pz = static_cast<const float*>(wz);
-  auto* oa = static_cast<float*>(da);
-  auto* oy = static_cast<float*>(dwy);
-  auto* oz = static_cast<float*>(dwz);
-  if (ny > kMaxAxis || nz > kMaxAxis) {
-    return static_cast<int>(cudaErrorInvalidValue);
+                                     int nx, int ny, int nz, void* entries,
+                                     void* transposed, void* da, void* dwy,
+                                     void* dwz, void* stream) {
+  if (n > 0) {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const auto* q = static_cast<const float*>(dq);
+    auto* ta = static_cast<float*>(transposed);
+    auto* ty = ta + static_cast<long>(nx) * ny * nz;
+    const int tiles_a =
+        ((nx + kTile - 1) / kTile) * ((ny * nz + kTile - 1) / kTile);
+    const int tiles_y =
+        nx * ((ny + kTile - 1) / kTile) * ((nz + kTile - 1) / kTile);
+    transpose_dq_kernel<<<tiles_a + tiles_y, 32 * kWarps, 0, s>>>(
+        q, nx, ny, nz, tiles_a, ta, ty);
+    spread_vjp_kernel<<<(n + kWarps - 1) / kWarps, 32 * kWarps, 0, s>>>(
+        q, ta, ty, static_cast<const float*>(a),
+        static_cast<const float*>(wy), static_cast<const float*>(wz), n, nx,
+        ny, nz, static_cast<int2*>(entries), static_cast<float*>(da),
+        static_cast<float*>(dwy), static_cast<float*>(dwz));
   }
-  cudaError_t err;
-  if (nx <= 64) {
-    err = launch_bwd<64>(q, pa, py, pz, n, nx, ny, nz, oa, oy, oz, s);
-  } else if (nx <= kMaxAxis) {
-    err = launch_bwd<kMaxAxis>(q, pa, py, pz, n, nx, ny, nz, oa, oy, oz, s);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }

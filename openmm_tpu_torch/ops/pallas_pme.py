@@ -9,9 +9,10 @@ JAX module's: a (N, nx) charge-scaled x-weights, wy (N, ny), wz (N, nz),
 and Q as (nx, ny*nz). Unlike the JAX function, N is any size: the kernels
 mask the ragged edge, so nothing is padded. Kernel 4 scatters the nonzero
 products of each atom's rows in 64-bit fixed point, so Q has the same bits
-on every call; kernel 5 computes the dense VJP in float32 on the CUDA
-cores (the counterpart of Precision.HIGHEST), one launch for grid axes up
-to BWD_AXIS and split_vjp's chunks for wider grids.
+on every call; kernel 5 computes the dense VJP from each atom's supports
+in float32 (the counterpart of Precision.HIGHEST), one warp an atom and no
+atomics, so it too gives the same bits on every call. Each takes any grid
+below 2^31 cells in one call.
 """
 from __future__ import annotations
 
@@ -25,9 +26,6 @@ FWD = _build.Kernel(
 BWD = _build.Kernel(
     name="spread_triple_bwd", source="openmm_tpu_torch/csrc/spread_triple.cu",
     replaces="openmm_tpu/ops/pallas_pme.py:96")
-
-# widest grid axis one launch of kernel 5 takes (its shared-memory layout)
-BWD_AXIS = 128
 
 
 def _check(a, wy, wz, dq=None):
@@ -53,6 +51,12 @@ def _cuda_ready(t):
                         "tensors")
 
 
+def _check_grid(nx, ny, nz):
+    if nx * ny * nz >= 2 ** 31:
+        raise ValueError("the spread_triple kernels take grids below 2^31 "
+                         "cells")
+
+
 def spread_triple_plain(a, wy, wz) -> torch.Tensor:
     """Plain version of kernel 4: Q (nx, ny*nz)."""
     _, nx, ny, nz = _check(a, wy, wz)
@@ -68,37 +72,6 @@ def spread_triple_vjp_plain(dq, a, wy, wz):
             torch.einsum("xyz,ix,iy->iz", d, a, wy))
 
 
-def split_vjp(dq, a, wy, wz, vjp, chunk=BWD_AXIS):
-    """(dA, dWy, dWz) of the spread for a grid of any size, from `vjp`
-    calls on sub-grids with every axis at most `chunk` wide. dA's columns
-    of one x-chunk are a sum over the (y, z) chunks, dWy's over the (x, z)
-    chunks and dWz's over the (x, y) chunks, added in a fixed order. A
-    grid within `chunk` is one call on the inputs as they are."""
-    _, nx, ny, nz = _check(a, wy, wz, dq)
-    if max(nx, ny, nz) <= chunk:
-        return vjp(dq, a, wy, wz)
-
-    def pieces(size):
-        count = -(-size // chunk)
-        bounds = [size * k // count for k in range(count + 1)]
-        return [slice(lo, hi) for lo, hi in zip(bounds, bounds[1:])]
-
-    d = dq.view(nx, ny, nz)
-    da, dwy, dwz = (torch.zeros_like(t) for t in (a, wy, wz))
-    for xs in pieces(nx):
-        a_c = a[:, xs].contiguous()
-        for ys in pieces(ny):
-            wy_c = wy[:, ys].contiguous()
-            for zs in pieces(nz):
-                wz_c = wz[:, zs].contiguous()
-                d_c = d[xs, ys, zs].reshape(xs.stop - xs.start, -1)
-                ga, gy, gz = vjp(d_c.contiguous(), a_c, wy_c, wz_c)
-                da[:, xs] += ga
-                dwy[:, ys] += gy
-                dwz[:, zs] += gz
-    return da, dwy, dwz
-
-
 def spread_triple_fwd(a, wy, wz) -> torch.Tensor:
     """Kernel 4: Q (nx, ny*nz) = sum_i a[i,x] wy[i,y] wz[i,z]. A CUDA
     tensor runs the hand-written kernel (float32 only); a CPU tensor runs
@@ -107,8 +80,7 @@ def spread_triple_fwd(a, wy, wz) -> torch.Tensor:
     if a.device.type == "cpu":
         return spread_triple_plain(a, wy, wz)
     _cuda_ready(a)
-    if nx * ny * nz >= 2 ** 31:
-        raise ValueError("spread_triple_fwd takes grids below 2^31 cells")
+    _check_grid(nx, ny, nz)
     dev = a.device
     out = torch.empty((nx, ny * nz), dtype=a.dtype, device=dev)
     entries = torch.empty((n, nx + ny + nz, 2), dtype=torch.int32,
@@ -126,24 +98,25 @@ def spread_triple_fwd(a, wy, wz) -> torch.Tensor:
 
 def spread_triple_bwd(dq, a, wy, wz):
     """Kernel 5: (dA (N, nx), dWy (N, ny), dWz (N, nz)) from the cotangent
-    dq (nx, ny*nz). A CUDA tensor runs the hand-written kernel (float32;
-    one launch for each split_vjp chunk of a grid wider than BWD_AXIS); a
-    CPU tensor runs the plain version."""
-    _check(a, wy, wz, dq)
+    dq (nx, ny*nz), in one launch for any grid. A CUDA tensor runs the
+    hand-written kernel (float32 only); a CPU tensor runs the plain
+    version."""
+    n, nx, ny, nz = _check(a, wy, wz, dq)
     if a.device.type == "cpu":
         return spread_triple_vjp_plain(dq, a, wy, wz)
     _cuda_ready(a)
-    return split_vjp(dq, a, wy, wz, _launch_bwd)
-
-
-def _launch_bwd(dq, a, wy, wz):
-    n, nx, ny, nz = _check(a, wy, wz, dq)
+    _check_grid(nx, ny, nz)
     da = torch.empty_like(a)
     dwy = torch.empty_like(wy)
     dwz = torch.empty_like(wz)
+    entries = torch.empty((n, nx + ny + nz, 2), dtype=torch.int32,
+                          device=a.device)
+    transposed = torch.empty((2, nx * ny * nz), dtype=a.dtype,
+                             device=a.device)
     code = _build.library().omm_spread_triple_bwd(
         dq.data_ptr(), a.data_ptr(), wy.data_ptr(), wz.data_ptr(), n, nx, ny,
-        nz, da.data_ptr(), dwy.data_ptr(), dwz.data_ptr(),
+        nz, entries.data_ptr(), transposed.data_ptr(), da.data_ptr(),
+        dwy.data_ptr(), dwz.data_ptr(),
         torch.cuda.current_stream(a.device).cuda_stream)
     _build.check_launch(code, BWD)
     BWD.launches += 1

@@ -11,7 +11,10 @@ an atom has moved more than skin/2; a list that did not fit its capacity
 is reported as an overflow, which poisons the result with NaN. What does
 not carry over are the TPU workarounds: the per-step compacted candidate
 slabs (the kernel reads candidates by index), float-parity bit tests and
-one-hot matmuls (the exclusion test is an integer bit test).
+one-hot matmuls (the exclusion test is an integer bit test). At every call
+kernel 1 also culls, per row atom, the candidate bricks whose bounding
+boxes lie beyond the cutoff (cull_mask is the plain model of that cull);
+the cull drops no pair inside the cutoff, so the plain version needs none.
 
 Layout. `pos4` and `par4` are (n_pad, 4) float tensors in the sorted frame:
 (x, y, z, 0) and (sqrt(k_e) q, sigma / 2, 2 sqrt(eps), 0), so that the
@@ -205,8 +208,8 @@ def nonbonded_tiles(pos4, par4, cand, count, words, consts, mode,
                     use_switch) -> torch.Tensor:
     """Kernel 1: per sorted atom (fx, fy, fz, e) as an (n_pad, 4) tensor,
     e the atom's full (not halved) pair energy. A CUDA tensor runs the
-    hand-written kernel (float32 only); a CPU tensor runs the plain
-    version."""
+    hand-written kernel (float32 only: each brick's bounding box, then the
+    culled, compacted sweep); a CPU tensor runs the plain version."""
     _check_tile_args(pos4, par4, cand, count, words, consts, mode)
     if pos4.device.type == "cpu":
         return nonbonded_tiles_plain(pos4, par4, cand, count, words, consts,
@@ -214,16 +217,66 @@ def nonbonded_tiles(pos4, par4, cand, count, words, consts, mode,
     if pos4.device.type != "cuda" or pos4.dtype != torch.float32:
         raise TypeError("the CUDA tile kernel takes float32 CUDA tensors")
     out = torch.empty_like(pos4)
+    bounds = torch.empty((count.shape[0], 2, 4), dtype=pos4.dtype,
+                         device=pos4.device)
     lib = _build.library()
     stream = torch.cuda.current_stream(pos4.device).cuda_stream
     code = lib.omm_nonbonded_tiles(
         pos4.data_ptr(), par4.data_ptr(), cand.data_ptr(), count.data_ptr(),
         words.data_ptr(), consts.data_ptr(), count.shape[0], cand.shape[1],
-        words.shape[1], int(mode), int(bool(use_switch)), out.data_ptr(),
-        stream)
+        words.shape[1], int(mode), int(bool(use_switch)), bounds.data_ptr(),
+        out.data_ptr(), stream)
     _build.check_launch(code, TILES)
     TILES.launches += 1
     return out
+
+
+# slack of the kernel's brick cull (nm), against rounding
+CULL_SLACK = 1e-3
+
+
+def brick_bounds(pos4) -> torch.Tensor:
+    """(n_bricks, 2, 3): the centre and the half extent of each brick's
+    bounding box, as kernel 1 takes them at every call."""
+    p = pos4[:, :3].reshape(-1, BRICK, 3)
+    lo, hi = p.amin(dim=1), p.amax(dim=1)
+    return torch.stack([0.5 * (lo + hi), 0.5 * (hi - lo)], dim=1)
+
+
+def cull_mask(pos4, cand, count, consts) -> torch.Tensor:
+    """(n_pad, max_cand) bool: the live candidate bricks that kernel 1
+    sweeps for each row atom after its cull. A brick is kept when the
+    staged minimum image of (atom - centre), less the half extent on each
+    axis, comes within the cutoff (plus CULL_SLACK), or when its half
+    extent on some axis is above box/2 - cutoff - CULL_SLACK (there the
+    centre's image shift need not be its pairs'). The cull drops no pair
+    inside the cutoff."""
+    bounds = brick_bounds(pos4)
+    c = cand.long()
+    centre = bounds[c, 0].repeat_interleave(BRICK, dim=0)   # (n_pad, mc, 3)
+    half = bounds[c, 1].repeat_interleave(BRICK, dim=0)
+    d = pos4[:, None, :3] - centre
+    d = torch.stack(_staged_image(*d.unbind(-1), consts), dim=-1)
+    gap = torch.clamp(d.abs() - half, min=0.0)
+    rc = torch.sqrt(consts[1])
+    near = ~((gap * gap).sum(dim=-1) >= (rc + CULL_SLACK) ** 2)
+    diag = torch.stack([consts[4], consts[6], consts[9]])
+    wide = (half > 0.5 * diag - rc - CULL_SLACK).any(dim=-1)
+    live = torch.arange(cand.shape[1], device=pos4.device)[None] \
+        < count.long().repeat_interleave(BRICK)[:, None]
+    return (near | wide) & live
+
+
+def _staged_image(dx, dy, dz, consts):
+    """The staged minimum image of displacements (dx, dy, dz) in the
+    reduced triclinic box of consts, as kernel 1 takes it."""
+    ax, bx, by, cx, cy, cz, iax, iby, icz = consts[4:13]
+    sc = torch.round(dz * icz)
+    dx, dy, dz = dx - sc * cx, dy - sc * cy, dz - sc * cz
+    sb = torch.round(dy * iby)
+    dx, dy = dx - sb * bx, dy - sb * by
+    dx = dx - torch.round(dx * iax) * ax
+    return dx, dy, dz
 
 
 def _row_chunks(n_bricks, max_cand, budget=1 << 22):
@@ -247,12 +300,7 @@ def _chunk_pairs(pos4, cand, count, words, consts, r0, r1):
     dx = pi[:, :, None, 0] - pj[:, None, :, 0]
     dy = pi[:, :, None, 1] - pj[:, None, :, 1]
     dz = pi[:, :, None, 2] - pj[:, None, :, 2]
-    ax, bx, by, cx, cy, cz, iax, iby, icz = consts[4:13]
-    sc = torch.round(dz * icz)
-    dx, dy, dz = dx - sc * cx, dy - sc * cy, dz - sc * cz
-    sb = torch.round(dy * iby)
-    dx, dy = dx - sb * bx, dy - sb * by
-    dx = dx - torch.round(dx * iax) * ax
+    dx, dy, dz = _staged_image(dx, dy, dz, consts)
     r2 = dx * dx + dy * dy + dz * dz
     w = torch.zeros((rows, BRICK, mc), dtype=torch.int32, device=dev)
     w[:, :, :exc_cap] = words[r0 * BRICK:r1 * BRICK].view(rows, BRICK,
@@ -326,15 +374,38 @@ def nonbonded_tiles_plain(pos4, par4, cand, count, words, consts, mode,
     return out
 
 
-def count_tile_pairs(pos4, cand, count, words, consts) -> tuple[int, int]:
-    """(candidate pair slots, pairs inside the cutoff) that kernel 1 visits
-    for these inputs, full-matrix (each pair counted from both atoms)."""
+def count_tile_pairs(pos4, cand, count, words, consts) -> dict:
+    """What kernel 1 does on these inputs, full-matrix (each pair counted
+    from both atoms): "slots", the candidate pair slots (count x 16 x 16,
+    all of which a sweep without the cull tests); "visited", the slots of
+    the bricks that survive the cull, which kernel 1 tests; "inside", the
+    pairs inside the cutoff and not excluded; "evaluated_before", the lane
+    evaluations of the pair terms in a sweep without the cull or the queue
+    (a warp of 2 slices x 16 lanes over candidate slots, running the terms
+    for all 32 lanes whenever one lane hits); and "evaluated", those of
+    kernel 1 (full warps of 32 queued pairs, the last one of each row atom
+    padded)."""
+    nb = pos4.shape[0] // BRICK
+    mc = cand.shape[1]
     slots = int(count.long().sum()) * BRICK * BRICK
-    inside = 0
-    for r0, r1 in _row_chunks(pos4.shape[0] // BRICK, cand.shape[1]):
-        inside += int(_chunk_pairs(pos4, cand, count, words, consts,
-                                   r0, r1)[5].sum())
-    return slots, inside
+    visited = int(cull_mask(pos4, cand, count, consts).sum()) * BRICK
+    inside = before = 0
+    per_atom = torch.zeros(pos4.shape[0], dtype=torch.long,
+                           device=pos4.device)
+    steps = -(-mc // 8)
+    for r0, r1 in _row_chunks(nb, mc):
+        ok = _chunk_pairs(pos4, cand, count, words, consts, r0, r1)[5]
+        inside += int(ok.sum())
+        per_atom[r0 * BRICK:r1 * BRICK] = ok.sum(dim=-1).reshape(-1)
+        # candidate k = 8 t + slice; warp w holds slices 2w and 2w + 1
+        hit = torch.zeros((r1 - r0, BRICK, steps * 8, BRICK),
+                          dtype=torch.bool, device=pos4.device)
+        hit[:, :, :mc] = ok.view(r1 - r0, BRICK, mc, BRICK)
+        hit = hit.view(r1 - r0, BRICK, steps, 4, 2, BRICK)
+        before += 32 * int(hit.any(dim=4).any(dim=1).sum())
+    evaluated = 32 * int(((per_atom + 31) // 32).sum())
+    return {"slots": slots, "visited": visited, "inside": inside,
+            "evaluated_before": before, "evaluated": evaluated}
 
 
 def tile_energy_forces(pos, box, st, consts, mode, use_switch,

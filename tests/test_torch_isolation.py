@@ -1,5 +1,5 @@
-"""The port stands alone: importing any of its modules (and chip_smoke.py)
-loads neither JAX nor openmm_tpu, its default platform is the GPU and
+"""The port stands alone: importing any of its modules (and chip_smoke.py
+and kernel_lab.py) loads neither JAX nor openmm_tpu, its default platform is the GPU and
 raises without one, and chip_smoke.py refuses to run without a GPU or
 without the package beside it."""
 import os
@@ -36,9 +36,9 @@ def no_cuda():
 
 def test_import_loads_no_jax():
     """Every module of the package, whether __init__ imports it or not,
-    and chip_smoke.py."""
+    and chip_smoke.py and kernel_lab.py."""
     code = ("import importlib, pkgutil, sys\n"
-            "import openmm_tpu_torch, chip_smoke\n"
+            "import openmm_tpu_torch, chip_smoke, kernel_lab\n"
             "names = [m.name for m in pkgutil.walk_packages(\n"
             "    openmm_tpu_torch.__path__, 'openmm_tpu_torch.')]\n"
             "for name in names:\n"

@@ -122,51 +122,51 @@ def test_wrappers_check_their_inputs(triple):
         pp.spread_triple_bwd(torch.empty(dq.shape, device="meta"), *meta)
 
 
-def test_split_count_covers_the_card():
-    """Kernel 5's launches per VJP: one for the main path's 56^3 grid (the
-    inputs passed as they are), and for wider grids one per chunk of at
-    most BWD_AXIS on every axis, the chunks tiling each axis."""
-    calls = []
-
-    def record(dq, a, wy, wz):
-        calls.append((dq, a, wy, wz))
-        return torch.zeros_like(a), torch.zeros_like(wy), torch.zeros_like(wz)
-
-    def run(n, grid):
-        calls.clear()
-        planes = [torch.zeros((n, g)) for g in grid]
-        dq = torch.zeros((grid[0], grid[1] * grid[2]))
-        pp.split_vjp(dq, *planes, record)
-        return planes, dq
-
-    planes, dq = run(3, (56, 56, 56))
-    assert len(calls) == 1 and calls[0][0] is dq and calls[0][1] is planes[0]
-    run(3, (144, 20, 160))
-    assert len(calls) == 2 * 1 * 2
-    assert sorted({c[1].shape[1] for c in calls}) == [72]
-    assert sorted({c[3].shape[1] for c in calls}) == [80]
-    run(3, (300, 129, 128))
-    assert len(calls) == 3 * 2 * 1
-    assert max(max(c[1].shape[1], c[2].shape[1], c[3].shape[1])
-               for c in calls) <= pp.BWD_AXIS
+def _spline_planes(rng, n, grid, wrap):
+    """Rows of 5 nonzero weights at a random base, wrapping round the
+    grid's edge where the base is within 4 of it, as the B-splines give;
+    wrap=True puts every base there."""
+    planes = []
+    for width in grid:
+        lo = width - 4 if wrap else 0
+        base = rng.randint(lo, width, size=(n, 1))
+        cols = (base + np.arange(5)) % width
+        w = np.zeros((n, width), np.float32)
+        np.put_along_axis(w, cols, rng.uniform(0.05, 1.0, (n, 5)), axis=1)
+        planes.append(w)
+    return planes
 
 
-@pytest.mark.parametrize("grid,chunk", [((144, 20, 160), pp.BWD_AXIS),
-                                        ((12, 10, 14), 4)])
-def test_split_vjp_matches_the_unsplit_vjp(grid, chunk):
-    """split_vjp with the plain VJP in the kernel's place, at an axis above
-    128 and with every axis cut in several chunks, against the plain VJP
-    of the whole grid; sums over the chunks are taken in another order, so
-    the bar is 2e-6 of each output's largest value."""
-    rng = np.random.RandomState(9)
-    n = 40
-    planes = [_t(rng.uniform(size=(n, g))) for g in grid]
-    dq = _t(rng.randn(grid[0], grid[1] * grid[2]))
-    want = pp.spread_triple_vjp_plain(dq, *planes)
-    got = pp.split_vjp(dq, *planes, pp.spread_triple_vjp_plain, chunk)
-    for g, w in zip(got, want):
-        assert g.shape == w.shape
-        assert _rel(g, w.numpy()) < 2e-6
+@pytest.mark.parametrize("kind,grid", [("uniform", (12, 10, 14)),
+                                       ("spline", (144, 20, 160)),
+                                       ("wrapped", (12, 10, 14))])
+def test_vjp_matches_pallas_kernel_on_any_grid(kind, grid):
+    """Kernel 5 takes any grid in one launch. Its plain version, and the
+    Function's backward on the CPU, against the JAX spread_triple VJP run
+    by the Pallas interpreter: dense uniform planes, spline planes on a
+    grid with two axes above 128, and spline planes whose every support
+    wraps round the grid's edge; bar 2e-6 of each output's largest value,
+    as above."""
+    rng = np.random.RandomState(12)
+    n = 200
+    if kind == "uniform":
+        planes = [rng.uniform(size=(n, g)).astype(np.float32) for g in grid]
+    else:
+        planes = _spline_planes(rng, n, grid, wrap=kind == "wrapped")
+    dq = rng.randn(grid[0], grid[1] * grid[2]).astype(np.float32)
+    rows = -(-n // jpp.CHUNK) * jpp.CHUNK
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(jpp.spread_triple,
+                         *(jnp.asarray(_pad(x, rows)) for x in planes))
+        want = [np.asarray(g)[:n] for g in vjp(jnp.asarray(dq))]
+    plain = pp.spread_triple_vjp_plain(_t(dq), *map(_t, planes))
+    leaves = [_t(x).requires_grad_() for x in planes]
+    backward = torch.autograd.grad(pp.spread_triple(*leaves), leaves,
+                                   _t(dq))
+    for got in (plain, backward):
+        for g, w in zip(got, want):
+            assert g.shape == w.shape
+            assert _rel(g, w) < 2e-6
 
 
 @pytest.fixture(scope="module")
@@ -250,7 +250,9 @@ def test_chip_smoke_kernel_phase_on_cpu():
     errors = chip_smoke.phase_kernels(cpu, inp, chip_smoke.Deadline(1e9))
     assert set(errors) == {k.name for k in chip_smoke.KERNELS}
     chip_smoke.phase_triple_shapes(cpu, chip_smoke.Deadline(1e9))
-    bounds = chip_smoke.kernel_bounds(inp)
+    counts = chip_smoke.tile_counts(inp)
+    assert str(counts["visited"]) in chip_smoke.tile_sweep_line(inp, counts)
+    bounds = chip_smoke.kernel_bounds(inp, counts)
     fwd, bwd, fwd_dense, bwd_dense = chip_smoke.triple_ops(*inp["triple"])
     n = 3 * 343
     assert fwd == n * (25 + 2 * 125)         # 5 nonzero weights per axis

@@ -201,3 +201,46 @@ def test_context_grows_capacity_after_overflow():
     st = ctx.getState(getEnergy=True, getForces=True)
     assert np.isfinite(st.getPotentialEnergy())
     assert np.isfinite(st.getForces()).all()
+
+
+@pytest.mark.parametrize("sheared", [False, True], ids=["cubic", "triclinic"])
+def test_cull_keeps_every_pair_inside_the_cutoff(water, sheared):
+    """Kernel 1 sweeps only the candidate bricks that tp.cull_mask keeps
+    for each row atom. On a state built at cutoff + skin, at positions
+    that then moved by up to skin/2 (as between two rebuilds), every pair
+    that the plain version counts lies in a kept brick, on the cubic box
+    and on the reduced triclinic one of tests/test_torch_triclinic.py;
+    and the cull does drop slots."""
+    pos, box, q, sig, eps, pairs, n = water
+    if sheared:
+        edge = box[0, 0]
+        box = box + edge * np.array([[0, 0, 0], [2 / 7, 0, 0],
+                                     [-1 / 7, 2 / 7, 0]])
+    f32 = torch.float32
+    box_t = torch.as_tensor(box, dtype=f32)
+    excl = torch.as_tensor(jpairs.build_exclusion_table(n, pairs))
+    nb = tp.pad_to_block(n, tp.BRICK) // tp.BRICK
+    skin = 0.25
+    st = tp.build_tile_state(
+        torch.as_tensor(pos, dtype=f32), box_t,
+        torch.as_tensor(q, dtype=f32), torch.as_tensor(sig, dtype=f32),
+        torch.as_tensor(eps, dtype=f32), excl, CUTOFF + skin, nb, 0.5)
+    assert int(st["overflow"]) == 0
+    step = np.random.RandomState(6).uniform(-1, 1, pos.shape)
+    step *= 0.5 * skin / np.linalg.norm(step, axis=1, keepdims=True)
+    moved = torch.as_tensor(pos + 0.999 * step, dtype=f32)
+    pos4 = tp.sorted_positions(moved, box_t, st)
+    consts = tp.tile_consts(box_t, torch.tensor(
+        [ALPHA, CUTOFF ** 2, 0, 0, 0, 0], dtype=f32))
+    cand, count, words = st["cand"], st["count"], st["words"]
+    kept = tp.cull_mask(pos4, cand, count, consts)
+    mc = cand.shape[1]
+    for r0, r1 in tp._row_chunks(nb, mc):
+        ok = tp._chunk_pairs(pos4, cand, count, words, consts, r0, r1)[5]
+        hit = ok.view(r1 - r0, tp.BRICK, mc, tp.BRICK).any(dim=-1)
+        assert not (hit & ~kept[r0 * tp.BRICK:r1 * tp.BRICK]
+                    .view(r1 - r0, tp.BRICK, mc)).any()
+    c = tp.count_tile_pairs(pos4, cand, count, words, consts)
+    assert c["inside"] <= c["evaluated"] < c["inside"] + 32 * nb * tp.BRICK
+    assert c["inside"] <= c["visited"] < c["slots"]
+    assert c["evaluated_before"] > c["evaluated"]

@@ -80,3 +80,23 @@ def test_triclinic_box_differs_from_the_cubic_one(triclinic343):
     e_tri, _ = _port_state(system, pos, "double")
     e_cub, _ = _port_state(cubic_system, pos, "double")
     assert abs(e_tri - e_cub) > 1e-3 * abs(e_cub)
+
+
+def test_chip_smoke_triclinic_phase_on_cpu():
+    """The card's triclinic phase, rehearsed on the CPU at 343 waters:
+    chip_smoke.SHEAR gives the box of this file's fixture, and kernels 1-3
+    (their plain versions here) and the forces against the float64 plain
+    path pass its checks."""
+    import torch
+
+    import chip_smoke
+    system, _ = chip_smoke.water_box(N_SIDE ** 3, sheared=True)
+    edge = system.getDefaultPeriodicBoxVectors()[0][0]
+    s = edge / N_SIDE
+    np.testing.assert_allclose(
+        system.getDefaultPeriodicBoxVectors(),
+        [[edge, 0, 0], [2 * s, edge, 0], [-s, 2 * s, edge]], rtol=1e-15)
+    result = chip_smoke.phase_triclinic(torch.device("cpu"),
+                                        n_waters=N_SIDE ** 3)
+    assert set(result["errors"]) == set(chip_smoke.MAIN_PATH_NAMES)
+    assert result["force_err"] <= chip_smoke.FORCE_ERR_BAR
