@@ -6,7 +6,9 @@ Builds the five CUDA kernels from csrc/ with one nvcc call, holds each
 kernel against its plain PyTorch version at the shapes of the paths that
 run it (kernels 4-5 also on wider, dense and wide-ranging inputs, kernels
 1-3 also on the water box sheared into a reduced triclinic one), checks
-that kernels 1, 2, 4 and 5 give the same bits on a second call, then
+that every kernel gives the same bits on a second call, and that kernel 3
+gives the same bits in the direct space's spatial order (the main path's),
+in the user's order and in a random one; then it
 drives two paths through the port's public entry points and checks what
 comes out:
 
@@ -81,14 +83,15 @@ KERNELS = MAIN_PATH_KERNELS + (pallas_pme.FWD, pallas_pme.BWD)
 # sum|terms_i|: ~1e-13 of a cell at 24,000 atoms), so they differ by the
 # plain version's own rounding; kernel 1 adds each row atom's pairs in 32
 # lane sums and a shuffle tree, kernel 5 each output over the atom's
-# supports, and rsqrtf/expf differ in the last ulps
+# supports, kernel 3 each atom's 125 terms in its own fixed order, and
+# rsqrtf/expf differ in the last ulps
 TOLERANCE = {"nonbonded_tiles": 1e-4, "pme_spread": 1e-5,
-             "pme_gather": 1e-4, "spread_triple_fwd": 1e-5,
+             "pme_gather": 1e-5, "spread_triple_fwd": 1e-5,
              "spread_triple_bwd": 1e-5}
 # kernels whose output must have the same bits on every call: the
-# fixed-point spreads, and the two that own each output (no atomics)
-DETERMINISTIC = ("nonbonded_tiles", "pme_spread", "spread_triple_fwd",
-                 "spread_triple_bwd")
+# fixed-point spreads, and the three that own each output (no atomics)
+DETERMINISTIC = ("nonbonded_tiles", "pme_spread", "pme_gather",
+                 "spread_triple_fwd", "spread_triple_bwd")
 # the triclinic phase shears the box of edge L into a = (L, 0, 0),
 # b = (2L/7, L, 0), c = (-L/7, 2L/7, L), as tests/test_torch_triclinic.py
 SHEAR = ((0.0, 0.0, 0.0), (2.0 / 7.0, 0.0, 0.0), (-1.0 / 7.0, 2.0 / 7.0, 0.0))
@@ -163,9 +166,9 @@ def water_box(n_waters, sheared=False):
 def kernel_inputs(device, n_waters, sheared=False) -> dict:
     """Inputs of the five kernels at the shapes of their paths, from the
     water box's starting positions (its box sheared when `sheared`):
-    kernels 1-3 as the main path calls them, kernels 4-5 on the dense
-    weight planes of those positions (N unpadded) with a seeded cotangent
-    dQ."""
+    kernels 1-3 as the main path calls them (kernel 3 visiting the atoms in
+    the candidate state's order), kernels 4-5 on the dense weight planes
+    of those positions (N unpadded) with a seeded cotangent dQ."""
     system, pos = water_box(n_waters, sheared)
     box = torch.as_tensor(system.getDefaultPeriodicBoxVectors(),
                           dtype=torch.float32, device=device)
@@ -192,10 +195,21 @@ def kernel_inputs(device, n_waters, sheared=False) -> dict:
                   st["cand"], st["count"], st["words"],
                   tile_pairs.tile_consts(box, module.tile_scalars)),
         "pos": posf.contiguous(), "charge": module.charge, "binv": binv,
+        "order": st["order"][:posf.shape[0]],
         "grid": module.grid, "module": module, "box": box,
         "triple": (a.contiguous(), wy.contiguous(), wz.contiguous()),
         "dq": dq,
     }
+
+
+def potential_grid(inp) -> torch.Tensor:
+    """2*phi (nz, nx, ny), kernel 3's grid input, from the plain spread."""
+    pos, q, binv, grid = inp["pos"], inp["charge"], inp["binv"], inp["grid"]
+    m = inp["module"]
+    q_grid = pme_zslab.pme_spread_plain(pos, q, binv, grid)
+    phi, _ = pme_zslab.convolve_potential(
+        q_grid, inp["box"], grid, m.alpha, m.bsq_x, m.bsq_y, m.bsq_z)
+    return (2.0 * phi).contiguous()
 
 
 def _kernel_calls(inp):
@@ -203,10 +217,8 @@ def _kernel_calls(inp):
     t = inp["tiles"]
     pos, q, binv, grid = inp["pos"], inp["charge"], inp["binv"], inp["grid"]
     m = inp["module"]
-    q_grid = pme_zslab.pme_spread_plain(pos, q, binv, grid)
-    phi, _ = pme_zslab.convolve_potential(
-        q_grid, inp["box"], grid, m.alpha, m.bsq_x, m.bsq_y, m.bsq_z)
-    phi2 = (2.0 * phi).contiguous()
+    phi2 = potential_grid(inp)
+    order = inp["order"]
     mode = tile_pairs.MODE_EWALD
     tr, dq = inp["triple"], inp["dq"]
     return {
@@ -217,7 +229,7 @@ def _kernel_calls(inp):
             lambda: pme_zslab.pme_spread(pos, q, binv, grid),
             lambda: pme_zslab.pme_spread_plain(pos, q, binv, grid)),
         "pme_gather": (
-            lambda: pme_zslab.pme_gather(pos, q, phi2, binv, grid),
+            lambda: pme_zslab.pme_gather(pos, q, phi2, binv, grid, order),
             lambda: pme_zslab.pme_gather_plain(pos, q, phi2, binv, grid)),
         "spread_triple_fwd": (
             lambda: pallas_pme.spread_triple_fwd(*tr),
@@ -278,6 +290,39 @@ def phase_kernels(device, inp, deadline, names=None, label="") -> dict:
         errors[name] = err
         deadline.check("kernels: %s" % name)
     return errors
+
+
+def phase_gather_orders(device, inp, deadline, label="") -> dict:
+    """Kernel 3 in three visiting orders: the candidate state's (the main
+    path's), the user's and a seeded random permutation. Raises unless all
+    three give the same bits. Returns {order: device ms per call on a GPU,
+    else None}."""
+    pos, q, binv, grid = inp["pos"], inp["charge"], inp["binv"], inp["grid"]
+    phi2 = potential_grid(inp)
+    gen = torch.Generator()
+    gen.manual_seed(13)
+    orders = {"state": inp["order"], "user": None,
+              "random": torch.randperm(pos.shape[0], generator=gen).to(
+                  device)}
+    out, first = {}, None
+    for name, order in orders.items():
+        def call(order=order):
+            return pme_zslab.pme_gather(pos, q, phi2, binv, grid, order)
+        forces = call()
+        if first is None:
+            first = forces
+        elif not torch.equal(forces, first):
+            raise RuntimeError("kernel pme_gather%s gave other bits in the "
+                               "%s order than in the state's (largest "
+                               "difference %.3e)" % (label, name, float(
+                                   (forces - first).abs().max())))
+        out[name] = _time_ms(call, device) if device.type == "cuda" else None
+        print("kernel pme_gather%s in the %s order: the same bits as in the "
+              "state's order; %s ms" % (label, name, "not measured"
+                                        if out[name] is None
+                                        else "%.4f" % out[name]))
+        deadline.check("kernel 3 in the %s order" % name)
+    return out
 
 
 # (atoms, grid) beside the main path's for kernels 4-5: N a multiple of
@@ -362,6 +407,7 @@ def phase_triclinic(device, n_waters=N_WATERS, deadline=None) -> dict:
     inp = kernel_inputs(device, n_waters, sheared=True)
     errors = phase_kernels(device, inp, deadline, names=MAIN_PATH_NAMES,
                            label=" (triclinic)")
+    phase_gather_orders(device, inp, deadline, label=" (triclinic)")
     platform = "CUDA" if device.type == "cuda" else "CPU"
     system, positions = water_box(n_waters, sheared=True)
     scale = inp["module"].capacity_scale
@@ -685,7 +731,8 @@ def kernel_bounds(inp, tile_counts) -> dict:
         # in: positions (3 n), charges (n), binv; out: the grid
         "pme_spread": (4 * (4 * n + 9 + g),
                        n * (3 * OPS_WEIGHTS + OPS_SPREAD)),
-        # in: positions, charges, binv, the grid; out: forces (3 n)
+        # in: positions, charges, binv, the grid; out: forces (3 n) (the
+        # visiting order is a hint the function does not need: not counted)
         "pme_gather": (4 * (4 * n + 9 + g + 3 * n),
                        n * (3 * OPS_WEIGHTS_DW + OPS_GATHER)),
         # in: a, wy, wz; out: Q
@@ -776,6 +823,7 @@ def main() -> int:
     deadline.check("build")
     inp = kernel_inputs(device, N_WATERS)
     errors = phase_kernels(device, inp, deadline)
+    phase_gather_orders(device, inp, deadline)
     phase_triple_shapes(device, deadline)
     phase_triclinic(device, deadline=deadline)
     for kern in KERNELS:

@@ -2,19 +2,23 @@
 
     python3 kernel_lab.py                      # this checkout's kernels
     python3 kernel_lab.py --trees A B B A      # checkouts A and B in turns
-    python3 kernel_lab.py --variants           # edited copies of kernels 1, 5
+    python3 kernel_lab.py --variants [PREFIX]  # variants of kernels 1, 3, 5
 
 With no option it times the five kernels of this checkout at the main
 path's shapes (chip_smoke.kernel_inputs: 24,000 atoms, 56^3 grid) with
-chip_smoke._time_ms and prints one JSON line. --trees does the same for
-each checkout given, in the order given, each in a process of its own that
+chip_smoke._time_ms and prints one JSON line; where the checkout's kernel 3
+takes a visiting order, it is timed in the main path's order and, as
+"pme_gather, user order", without one. --trees does the same for each
+checkout given, in the order given, each in a process of its own that
 imports that checkout's chip_smoke.py and package: give a parent checkout
 and this one in turns (parent, this, this, parent) to compare two commits
-on one card. --variants builds copies of kernels 1 and 5 with the source
-edits of VARIANTS (one nvcc process each, all started together) under
-build/kernel_lab/, holds each against the plain version and times it
-twice, in turns. It imports nothing of JAX or of openmm_tpu and needs a
-CUDA device.
+on one card. --variants builds copies of kernels 1, 3 and 5 (those whose
+name starts with PREFIX, e.g. "gather") with the source edits of VARIANTS
+(one nvcc process for each distinct source, all started together) under
+build/kernel_lab/, launches kernel 3's copies in the main path's order
+unless the variant says otherwise, holds each against the plain version
+and times it twice, in turns. It imports nothing of JAX or of openmm_tpu
+and needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -34,7 +38,10 @@ _FLUSH = ("        add_pair(pr, qi, par[qj[lane]], qd[lane], &fx, &fy, &fz, "
 _BOUNDS = ("__global__ void __launch_bounds__(32 * kWarps)\n"
            "nonbonded_tiles_kernel")
 _LOAD = "v[q][u] = live[u] && q0 + q < m ? col[o + 32 * u] : 0.0f;"
-# (source file, [(text, replacement)]) by name; each edit must match once
+_BLOCK = "constexpr int kBlock = 32;"
+# (source file, [(text, replacement)]) by name; each edit must match once.
+# Kernel 3's variants named "..., user order" launch without a visiting
+# order.
 VARIANTS = {
     "tiles": ("nonbonded_tiles.cu", []),
     "tiles, no pair terms": ("nonbonded_tiles.cu", [
@@ -55,6 +62,16 @@ VARIANTS = {
         ("constexpr int kUnroll = 16;", "constexpr int kUnroll = 8;")]),
     "vjp, kUnroll 32": ("spread_triple.cu", [
         ("constexpr int kUnroll = 16;", "constexpr int kUnroll = 32;")]),
+    "gather": ("pme_gather.cu", []),
+    "gather, user order": ("pme_gather.cu", []),
+    "gather, 64 atoms a block": ("pme_gather.cu", [
+        (_BLOCK, _BLOCK.replace("32;", "64;"))]),
+    "gather, 128 atoms a block": ("pme_gather.cu", [
+        (_BLOCK, _BLOCK.replace("32;", "128;"))]),
+    "gather, 128 atoms a block, user order": ("pme_gather.cu", [
+        (_BLOCK, _BLOCK.replace("32;", "128;"))]),
+    "gather, empty kernel": ("pme_gather.cu", [
+        ("  if (k >= n) return;", "  if (n > 0) return;")]),
 }
 
 
@@ -68,15 +85,27 @@ def time_tree(tree: str) -> dict:
     set_fp32_matmul_exact()
     dev = torch.device("cuda", 0)
     cs.phase_build(cs.Deadline(600.0))
-    calls = cs._kernel_calls(cs.kernel_inputs(dev, cs.N_WATERS))
-    return {name: cs._time_ms(kernel, dev)
-            for name, (kernel, _) in calls.items()}
+    inp = cs.kernel_inputs(dev, cs.N_WATERS)
+    calls = cs._kernel_calls(inp)
+    times = {name: cs._time_ms(kernel, dev)
+             for name, (kernel, _) in calls.items()}
+    if "order" in inp:
+        from openmm_tpu_torch.ops import pme_zslab
+        phi2 = cs.potential_grid(inp)
+        times["pme_gather, user order"] = cs._time_ms(
+            lambda: pme_zslab.pme_gather(inp["pos"], inp["charge"], phi2,
+                                         inp["binv"], inp["grid"]), dev)
+    return times
 
 
-def _build_variants(nvcc_flags, find_nvcc) -> dict:
+def _build_variants(nvcc_flags, find_nvcc, prefix="") -> dict:
+    """{variant: path of its library} of the variants whose name starts
+    with `prefix`; variants with the same source text share one build."""
     os.makedirs(OUT, exist_ok=True)
-    procs = {}
-    for k, (name, (source, edits)) in enumerate(VARIANTS.items()):
+    libs, procs = {}, {}
+    for name, (source, edits) in VARIANTS.items():
+        if not name.startswith(prefix):
+            continue
         with open(os.path.join(CSRC, source)) as f:
             text = f.read()
         for old, new in edits:
@@ -84,34 +113,34 @@ def _build_variants(nvcc_flags, find_nvcc) -> dict:
                 raise ValueError("variant %r: edit does not match once: %r"
                                  % (name, old))
             text = text.replace(old, new)
-        path = os.path.join(OUT, "v%d.cu" % k)
-        with open(path, "w") as f:
-            f.write(text)
-        procs[name] = (path[:-3] + ".so", subprocess.Popen(
-            [find_nvcc(), *nvcc_flags, "-I", CSRC, "-o", path[:-3] + ".so",
-             path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
-    built = {}
-    for name, (so, proc) in procs.items():
+        if text not in procs:
+            path = os.path.join(OUT, "v%d.cu" % len(procs))
+            with open(path, "w") as f:
+                f.write(text)
+            procs[text] = (path[:-3] + ".so", name, subprocess.Popen(
+                [find_nvcc(), *nvcc_flags, "-I", CSRC, "-o",
+                 path[:-3] + ".so", path], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        libs[name] = procs[text][0]
+    for so, name, proc in procs.values():
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError("variant %r failed to build:\n%s" % (name, log))
-        built[name] = so
-    return built
+    return libs
 
 
-def run_variants() -> list:
+def run_variants(prefix="") -> list:
     import torch
 
     import chip_smoke as cs
     from openmm_tpu_torch import _build
-    from openmm_tpu_torch.ops import pallas_pme, tile_pairs
+    from openmm_tpu_torch.ops import pallas_pme, pme_zslab, tile_pairs
     from openmm_tpu_torch.platform import set_fp32_matmul_exact
     set_fp32_matmul_exact()
     dev = torch.device("cuda", 0)
     libs = {}
-    for name, so in _build_variants(_build.NVCC_FLAGS,
-                                    _build.find_nvcc).items():
+    for name, so in _build_variants(_build.NVCC_FLAGS, _build.find_nvcc,
+                                    prefix).items():
         lib = ctypes.CDLL(so)
         for fn, argtypes in _build._SIGNATURES.items():
             if hasattr(lib, fn):
@@ -124,13 +153,25 @@ def run_variants() -> list:
     dq = inp["dq"]
     n, nx, ny, nz = a.shape[0], a.shape[1], wy.shape[1], wz.shape[1]
     stream = torch.cuda.current_stream(dev).cuda_stream
+    pos, q, binv, order = inp["pos"], inp["charge"], inp["binv"], inp["order"]
+    phi2 = cs.potential_grid(inp)
+    gather = pme_zslab.pme_gather(pos, q, phi2, binv, inp["grid"], order)
     want = {"nonbonded_tiles.cu": tile_pairs.nonbonded_tiles_plain(
                 *inp["tiles"], tile_pairs.MODE_EWALD, switch),
+            "pme_gather.cu": pme_zslab.pme_gather_plain(pos, q, phi2, binv,
+                                                        inp["grid"]),
             "spread_triple.cu": pallas_pme.spread_triple_vjp_plain(
                 dq, a, wy, wz)}
 
     def call(name):
         lib = libs[name]
+        if VARIANTS[name][0] == "pme_gather.cu":
+            visit = None if name.endswith("user order") else order.data_ptr()
+            out = torch.empty_like(pos)
+            return (lambda: lib.omm_pme_gather(
+                pos.data_ptr(), q.data_ptr(), phi2.data_ptr(),
+                binv.data_ptr(), visit, pos.shape[0], nx, ny, nz,
+                out.data_ptr(), stream)), lambda: out
         if VARIANTS[name][0] == "nonbonded_tiles.cu":
             out = torch.empty_like(pos4)
             bounds = torch.empty((count.shape[0], 2, 4), device=dev)
@@ -151,21 +192,31 @@ def run_variants() -> list:
 
     rows = []
     for turn in range(2):
-        for name in VARIANTS:
+        for name in libs:
             run, result = call(name)
-            run()
+            code = run()
             torch.cuda.synchronize(dev)
-            rel = cs._compare(result(), want[VARIANTS[name][0]])[2]
-            rows.append({"variant": name, "turn": turn,
-                         "rel_err": rel, "ms": cs._time_ms(run, dev)})
-            print(json.dumps(rows[-1]))
+            if code:
+                raise RuntimeError("variant %r: CUDA error %d at launch"
+                                   % (name, code))
+            row = {"variant": name, "turn": turn,
+                   "rel_err": cs._compare(result(),
+                                          want[VARIANTS[name][0]])[2]}
+            if VARIANTS[name][0] == "pme_gather.cu":
+                # bits against kernel 3
+                row["same_bits"] = torch.equal(result(), gather)
+            row["ms"] = cs._time_ms(run, dev)
+            rows.append(row)
+            print(json.dumps(row))
     return rows
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--trees", nargs="*")
-    parser.add_argument("--variants", action="store_true")
+    parser.add_argument("--variants", nargs="?", const="", metavar="PREFIX",
+                        help="time the variants (those whose name starts "
+                        "with PREFIX)")
     parser.add_argument("--one-tree", help=argparse.SUPPRESS)
     args = parser.parse_args()
     import torch
@@ -178,9 +229,9 @@ def main() -> int:
     if args.one_tree:
         print(json.dumps({"tree": args.one_tree,
                           "ms": time_tree(args.one_tree)}))
-    elif args.variants:
+    elif args.variants is not None:
         sys.path.insert(0, REPO)
-        run_variants()
+        run_variants(args.variants)
     else:
         for tree in args.trees or [REPO]:
             proc = subprocess.run(

@@ -39,7 +39,7 @@ _SIGNATURES = {
     "omm_nonbonded_tiles": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _P, _P],
     "omm_pme_spread": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
-    "omm_pme_gather": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "omm_pme_gather": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "omm_spread_triple_fwd": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
                               _P],
     "omm_spread_triple_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,

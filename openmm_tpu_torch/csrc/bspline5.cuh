@@ -33,10 +33,11 @@ __device__ __forceinline__ void bspline5(float t, float w[5], float dw[5]) {
 
 // Fractional grid coordinate of one atom on one axis: base index and the
 // five weights (and derivatives). binv is the row-major inverse box. The
-// fractional coordinate is rounded after each product and sum, never
-// fused into an FMA, as the plain version (geometry.to_fractional) rounds
-// it: in a triclinic box u = n f amplifies a last-bit difference of f to
-// ~3e-6 of a cell at 56 cells, which moves the weights by as much.
+// fractional coordinate f and u = n f are rounded after each product and
+// sum, never fused into an FMA, as the plain version
+// (geometry.to_fractional) rounds them: in a triclinic box u = n f
+// amplifies a last-bit difference of f to ~3e-6 of a cell at 56 cells,
+// which moves the weights by as much.
 __device__ __forceinline__ void grid_axis(float x, float y, float z,
                                           const float* binv, int axis,
                                           int size, int* base, float w[5],
@@ -45,7 +46,7 @@ __device__ __forceinline__ void grid_axis(float x, float y, float z,
                                 __fmul_rn(y, binv[3 + axis])),
                       __fmul_rn(z, binv[6 + axis]));
   f -= floorf(f);
-  const float u = f * static_cast<float>(size);
+  const float u = __fmul_rn(f, static_cast<float>(size));
   const float b = floorf(u);
   *base = static_cast<int>(b);
   bspline5(u - b, w, dw);

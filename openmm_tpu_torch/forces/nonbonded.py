@@ -311,7 +311,8 @@ class NonbondedModule(nn.Module):
             self.use_switch, plain=self.plain)
         e_rec, f_rec = pme_zslab.pme_recip_ef(
             posd, self.charge, boxd, self.grid, self.alpha,
-            (self.bsq_x, self.bsq_y, self.bsq_z), plain=self.plain)
+            (self.bsq_x, self.bsq_y, self.bsq_z), plain=self.plain,
+            order=state["order"][:self.n])
         e_exc, f_exc = exception_ef(posd, self.exc_idx, self.exc_cp,
                                     self.exc_sigma, self.exc_eps)
         e_corr, f_corr = exclusion_correction_ef(posd, boxd, self.exc_idx,

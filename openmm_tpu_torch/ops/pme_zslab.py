@@ -8,9 +8,12 @@ spread and gather plane by plane with matmuls; that z-state, its drift
 margins and its span poison exist only to feed the TPU's matrix unit. Here
 the spread is an atomic scatter (in 64-bit fixed point, so the grid has
 the same bits on every call) and the gather an indexed read, so the
-reciprocal space needs no persistent state at all. The grid layout is the
-JAX module's (nz, nx, ny); weight j of an atom on one axis belongs to grid
-index floor(u) + j - 4 (mod the grid size).
+reciprocal space needs no persistent state of its own: the gather may
+visit the atoms in the direct space's spatial order (`order`), which the
+candidate state keeps anyway, so that the atoms of a warp of kernel 3 read
+nearby grid cells; the forces do not depend on the order. The grid layout
+is the JAX module's (nz, nx, ny); weight j of an atom on one axis belongs
+to grid index floor(u) + j - 4 (mod the grid size).
 """
 from __future__ import annotations
 
@@ -114,9 +117,27 @@ def pme_spread(pos, charge, binv, grid) -> torch.Tensor:
     return q
 
 
-def pme_gather_plain(pos, charge, phi2, binv, grid) -> torch.Tensor:
-    """Plain version of kernel 3: forces (n, 3) from 2*phi (nz, nx, ny)."""
+def _check_order(order, n, device):
+    """A visiting order is a contiguous int64 tensor of length n on the
+    positions' device. A CPU order is also checked to be a permutation of
+    0..n-1; a CUDA one is not (that would wait for the card), and the
+    rows of the atoms it does not name are left unwritten."""
+    if order is None:
+        return
+    if (order.shape != (n,) or order.dtype != torch.int64
+            or order.device != device or not order.is_contiguous()):
+        raise ValueError("order must be a contiguous int64 permutation of "
+                         "0..n-1 on the positions' device")
+    if device.type == "cpu" and not torch.equal(
+            torch.sort(order).values, torch.arange(n)):
+        raise ValueError("order is not a permutation of 0..n-1")
+
+
+def pme_gather_plain(pos, charge, phi2, binv, grid, order=None):
+    """Plain version of kernel 3: forces (n, 3) from 2*phi (nz, nx, ny).
+    `order` is checked but not read: the forces do not depend on it."""
     _check_pme_args(pos, charge, binv, phi2)
+    _check_order(order, pos.shape[0], pos.device)
     nx, ny, nz = grid
     idx, w, dw = _grid_weights(pos, binv, grid)
     v = phi2.reshape(-1)[_flat_index(idx, grid)]        # (n, jx, jy, jz)
@@ -129,13 +150,19 @@ def pme_gather_plain(pos, charge, phi2, binv, grid) -> torch.Tensor:
     return -charge[:, None] * (ga @ binv.view(3, 3).T)
 
 
-def pme_gather(pos, charge, phi2, binv, grid) -> torch.Tensor:
-    """Kernel 3: reciprocal-space forces (n, 3) from 2*phi. A CUDA tensor
+def pme_gather(pos, charge, phi2, binv, grid, order=None) -> torch.Tensor:
+    """Kernel 3: reciprocal-space forces (n, 3) from 2*phi. `order`, an
+    int64 permutation of 0..n-1 or None (the identity), is the order in
+    which the kernel's threads visit the atoms: in a spatial order the
+    atoms of a warp read nearby grid cells. The forces have the same bits
+    in any order; on the card, the rows of atoms that an order which is no
+    permutation leaves out are undefined (_check_order). A CUDA tensor
     runs the hand-written kernel (float32 only); a CPU tensor the plain
     version."""
     _check_pme_args(pos, charge, binv, phi2)
+    _check_order(order, pos.shape[0], pos.device)
     if pos.device.type == "cpu":
-        return pme_gather_plain(pos, charge, phi2, binv, grid)
+        return pme_gather_plain(pos, charge, phi2, binv, grid, order)
     if pos.device.type != "cuda" or pos.dtype != torch.float32:
         raise TypeError("the CUDA gather kernel takes float32 CUDA tensors")
     nx, ny, nz = grid
@@ -144,7 +171,8 @@ def pme_gather(pos, charge, phi2, binv, grid) -> torch.Tensor:
     forces = torch.empty_like(pos)
     code = _build.library().omm_pme_gather(
         pos.data_ptr(), charge.data_ptr(), phi2.data_ptr(), binv.data_ptr(),
-        pos.shape[0], nx, ny, nz, forces.data_ptr(),
+        None if order is None else order.data_ptr(), pos.shape[0], nx, ny,
+        nz, forces.data_ptr(),
         torch.cuda.current_stream(pos.device).cuda_stream)
     _build.check_launch(code, GATHER)
     GATHER.launches += 1
@@ -189,10 +217,12 @@ def convolve_potential(q_grid, box, grid, alpha, bsq_x, bsq_y, bsq_z):
     return phi, energy
 
 
-def pme_recip_ef(pos, charge, box, grid, alpha, bsq, plain=False):
+def pme_recip_ef(pos, charge, box, grid, alpha, bsq, plain=False,
+                 order=None):
     """Reciprocal-space PME (energy, forces (n, 3)) in pos.dtype.
     bsq = (bsq_x, bsq_y, bsq_z) tensors; plain=True runs the plain
-    versions of kernels 2 and 3 on any device (the float64 oracle)."""
+    versions of kernels 2 and 3 on any device (the float64 oracle);
+    `order` is kernel 3's visiting order (pme_gather)."""
     dt = pos.dtype
     binv = geom.box_inverse(box.to(dt)).reshape(9).contiguous()
     pos = pos.contiguous()
@@ -201,5 +231,6 @@ def pme_recip_ef(pos, charge, box, grid, alpha, bsq, plain=False):
                       else (pme_spread, pme_gather))
     q_grid = spread(pos, charge, binv, grid)
     phi, energy = convolve_potential(q_grid, box, grid, alpha, *bsq)
-    forces = gather(pos, charge, (2.0 * phi).contiguous(), binv, grid)
+    forces = gather(pos, charge, (2.0 * phi).contiguous(), binv, grid,
+                    order)
     return energy, forces

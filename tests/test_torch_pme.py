@@ -21,6 +21,7 @@ from openmm_tpu.ops import pme_zslab as jzs
 from openmm_tpu_torch.ops import geometry as geom
 from openmm_tpu_torch.ops import pme as pme_mod
 from openmm_tpu_torch.ops import pme_zslab as zs
+from openmm_tpu_torch.ops.pairs import spatial_sort_keys
 
 # one intra-op thread, as tests/torch_port_helpers.py sets: the runner's
 # worker processes would otherwise oversubscribe the cores
@@ -144,3 +145,64 @@ def test_kernel_wrappers_check_their_inputs(waters):
     with pytest.raises(ValueError):
         zs.pme_gather(_t(pos), _t(q, torch.float64),
                       torch.zeros(24, 24, 24), binv, GRID)
+
+
+def _visiting_order(pos, box, kind):
+    """Kernel 3's visiting order: the direct space's spatial sort (0.5 nm
+    sort cells) or a seeded random permutation, int64."""
+    n = pos.shape[0]
+    if kind == "random":
+        return torch.as_tensor(np.random.RandomState(4).permutation(n))
+    keys = spatial_sort_keys(_t(pos, torch.float64), _t(box, torch.float64),
+                             n, 0.5)
+    return torch.argsort(keys, stable=True)
+
+
+def test_recip_ef_in_a_spatial_order_matches_zslab_interpreter(waters):
+    """pme_recip_ef takes a visiting order, checks it and still matches
+    the JAX kernels. The plain version on the CPU does not read the order;
+    that the CUDA kernel gives the same bits in any order is checked on
+    the card (chip_smoke.phase_gather_orders)."""
+    pos, q, box, bsq = waters
+    e, f = zs.pme_recip_ef(_t(pos), _t(q), _t(box), GRID, ALPHA,
+                           [_t(b) for b in bsq],
+                           order=_visiting_order(pos, box, "spatial"))
+    cfg = jzs.zslab_config(pos.shape[0], GRID)
+    state = jzs.build_z_state(_j(pos), _j(box), _j(q), GRID, cfg)
+    je, jf = jzs.pme_recip_ef(_j(pos), _j(q), _j(box), GRID, 5, ALPHA,
+                              *(_j(b) for b in bsq), state, cfg,
+                              interpret=True)
+    jf = np.asarray(jf)
+    assert abs(float(e) - float(je)) < 2e-5 * abs(float(je))
+    assert np.abs(f.numpy() - jf).max() < 1e-4 * np.abs(jf).max()
+
+
+@pytest.mark.parametrize("kind", ["spatial", "random"])
+def test_recip_ef_float64_plain_in_any_order_matches_dense_gradient(waters,
+                                                                    kind):
+    """The float64 plain path with a visiting order (checked, not read)
+    against the dense gradient; the kernel's order invariance is checked
+    on the card (chip_smoke.phase_gather_orders)."""
+    pos, q, box, bsq = waters
+    f64 = torch.float64
+    e, f = zs.pme_recip_ef(_t(pos, f64), _t(q, f64), _t(box, f64), GRID,
+                           ALPHA, [_t(b, f64) for b in bsq], plain=True,
+                           order=_visiting_order(pos, box, kind))
+    je, jf = _dense_ef(pos, q, box, bsq, jnp.float64)
+    assert abs(float(e) - je) < 1e-10 * abs(je)
+    assert np.abs(f.numpy() - jf).max() < 1e-10 * np.abs(jf).max()
+
+
+def test_gather_checks_its_order(waters):
+    pos, q, box, _ = waters
+    binv = geom.box_inverse(_t(box)).reshape(9).contiguous()
+    phi2 = torch.zeros(24, 24, 24)
+    order = _visiting_order(pos, box, "random")
+    repeated = order.clone()
+    repeated[1] = repeated[0]
+    for bad in (order.to(torch.int32), order[:-1], order.view(-1, 1),
+                repeated, order + 1):
+        with pytest.raises(ValueError):
+            zs.pme_gather(_t(pos), _t(q), phi2, binv, GRID, bad)
+    got = zs.pme_gather(_t(pos), _t(q), phi2, binv, GRID, order)
+    assert got.shape == (pos.shape[0], 3) and zs.GATHER.launches == 0
