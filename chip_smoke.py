@@ -13,7 +13,14 @@ drives two paths through the port's public entry points and checks what
 comes out:
 
 - the main path: a 24,000-atom TIP3P PME box (8,000 rigid waters, 0.9 nm
-  cutoff) relaxed and stepped under LangevinMiddle (kernels 1-3);
+  cutoff) relaxed and stepped under LangevinMiddle (kernels 1-3), each
+  step a replay of the Context's captured step program (a CUDA graph
+  whose conditional node decides the candidate-state rebuild on the
+  card); the same production steps are then run again from a copied
+  snapshot through the eager loop the program replaced
+  (Context._step_eager), which must give the same bits, the same rebuild
+  steps and the same kernel launches, and a forced capacity overflow must
+  be undone and redone by both alike;
 - energy minimization of the same box from its lattice start with
   LocalEnergyMinimizer (kernel 1 and the dense PME spread, kernels 4-5),
   checked against the float64 objective and against the z-slab
@@ -43,6 +50,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import openmm_tpu_torch as omm
 from openmm_tpu_torch import _build
+from openmm_tpu_torch import step_program
 from openmm_tpu_torch.context import MAX_ESCALATIONS
 from openmm_tpu_torch.forces.nonbonded import NonbondedModule
 from openmm_tpu_torch.models import tip3p_water_box
@@ -60,6 +68,19 @@ DT_PS = 0.002
 FRICTION = 1.0
 PRODUCTION_STEPS = 200
 ENERGY_EVERY = 50
+# the step program against the eager loop: steps taken one a call (to
+# find the steps that rebuild), steps from a capacity scale too small for
+# the box (to force an escalation), and steps of a float64 Context
+REBUILD_STEPS = 60
+ESCALATION_SCALE = 0.5
+ESCALATION_STEPS = 20
+DOUBLE_WATERS = 512
+DOUBLE_STEPS = 10
+# float64 positions of the float64 Context after DOUBLE_STEPS steps, graph
+# against eager: its plain PME spread adds in float64 atomics, whose order
+# changes from run to run (each step's rounding, ~1e-16 relative, grown
+# over the steps)
+DOUBLE_POS_TOL = 1e-9
 FORCE_ERR_BAR = 1e-5
 # minimization: LocalEnergyMinimizer calls of MINIMIZE_ITERATIONS
 # iterations each (per penalty stage), the deadline checked between calls
@@ -488,34 +509,187 @@ def phase_main_path(device, n_waters=N_WATERS, relax=RELAX,
         raise RuntimeError("median force error %.3e above %.0e"
                            % (force_err, FORCE_ERR_BAR))
 
-    energies, elapsed, done = [st.getPotentialEnergy()], 0.0, 0
-    while done < steps:
-        n = min(energy_every, steps - done)
-        _sync(device)
-        t0 = time.perf_counter()
-        integ.step(n)
-        _sync(device)
-        elapsed += time.perf_counter() - t0
-        done += n
-        energies.append(ctx.getState(getEnergy=True).getPotentialEnergy())
-        deadline.check("main path: production")
+    start = ctx._snapshot()
+    run = _production(device, ctx, integ.step, st.getPotentialEnergy(),
+                      steps, energy_every, deadline)
     temperature = ctx.temperature()
-    ns_day = DT_PS * steps / elapsed * 86.4
     print("main path: %d atoms, %d relax + %d steps at %.3f ps; energies "
           "%s kJ/mol; T %.1f K; rebuilds %d, escalations %d" % (
               system.getNumParticles(), sum(r[2] for r in relax), steps,
-              DT_PS, " ".join("%.1f" % e for e in energies), temperature,
-              ctx.rebuild_count, ctx.escalation_count))
-    if not all(math.isfinite(e) for e in energies):
+              DT_PS, " ".join("%.1f" % e for e in run["energies"]),
+              temperature, ctx.rebuild_count, ctx.escalation_count))
+    if not all(math.isfinite(e) for e in run["energies"]):
         raise RuntimeError("a potential energy is not finite (NaN poison "
                            "or blow-up)")
     if not 200.0 <= temperature <= 450.0:
         raise RuntimeError("final temperature %.1f K outside 200-450 K"
                            % temperature)
-    return {"force_err": force_err, "energies": energies,
-            "temperature": temperature, "ns_day": ns_day,
+    return {"force_err": force_err, "energies": run["energies"],
+            "temperature": temperature, "ns_day": run["ns_day"],
             "rebuilds": ctx.rebuild_count,
-            "escalations": ctx.escalation_count}
+            "escalations": ctx.escalation_count, "production": run,
+            "context": ctx, "start": start, "steps": steps,
+            "energy_every": energy_every}
+
+
+def _production(device, ctx, step, energy, steps, energy_every,
+                deadline) -> dict:
+    """`steps` steps by step(n) (the Context's step program, or its eager
+    loop) in calls of `energy_every`, the potential energy read after each
+    call (`energy` before the first). Returns the energies, the rebuilds
+    since the start after each call, the final positions and velocities,
+    the launches of the main path's kernels, ns/day, and per step of the
+    calls: wall ms, host CPU ms (the process's, which counts the spin of
+    the host waiting on the card) and host issue ms (Context.issue_seconds:
+    the host's time up to each chunk's read, without that wait)."""
+    energies, rebuilds, r0 = [energy], [], ctx.rebuild_count
+    launches = [k.launches for k in MAIN_PATH_KERNELS]
+    issue0 = ctx.issue_seconds
+    wall = cpu = 0.0
+    done = 0
+    while done < steps:
+        n = min(energy_every, steps - done)
+        _sync(device)
+        t0, c0 = time.perf_counter(), time.process_time()
+        step(n)
+        _sync(device)
+        wall += time.perf_counter() - t0
+        cpu += time.process_time() - c0
+        done += n
+        energies.append(ctx.getState(getEnergy=True).getPotentialEnergy())
+        rebuilds.append(ctx.rebuild_count - r0)
+        deadline.check("main path: production")
+    return {"energies": energies, "rebuilds": rebuilds,
+            "positions": ctx._state["positions"].clone(),
+            "velocities": ctx._state["velocities"].clone(),
+            "launches": {k.name: k.launches - b
+                         for k, b in zip(MAIN_PATH_KERNELS, launches)},
+            "ns_day": DT_PS * steps / wall * 86.4,
+            "wall_ms_per_step": wall / steps * 1e3,
+            "host_cpu_ms_per_step": cpu / steps * 1e3,
+            "host_issue_ms_per_step": (ctx.issue_seconds - issue0) / steps
+            * 1e3}
+
+
+def _same_bits(what, got, want) -> None:
+    for name, g, w in zip(("positions", "velocities"), got, want):
+        if not torch.equal(g, w):
+            raise RuntimeError("%s: the step program's %s differ from the "
+                               "eager loop's by up to %.3e" % (
+                                   what, name, float((g - w).abs().max())))
+
+
+def phase_step_program(device, main, deadline=None,
+                       rebuild_steps=REBUILD_STEPS,
+                       escalation_scale=ESCALATION_SCALE,
+                       escalation_steps=ESCALATION_STEPS,
+                       double_waters=DOUBLE_WATERS,
+                       double_steps=DOUBLE_STEPS) -> dict:
+    """The step program against the eager loop it replaced, from the
+    snapshot phase_main_path took before its production steps: (1) the
+    same production steps through Context._step_eager, which must give
+    the same bits, energies, rebuilds and kernel launches; (2)
+    `rebuild_steps` steps one a call, whose rebuild steps must agree;
+    (3) `escalation_steps` steps from `escalation_scale` with no candidate
+    state, which must overflow, escalate and end in the same bits; (4) a
+    float64 Context of `double_waters` waters, `double_steps` steps, within
+    DOUBLE_POS_TOL. Raises on a miss."""
+    deadline = deadline or Deadline(math.inf)
+    ctx, start, graph = main["context"], main["start"], main["production"]
+    integ = ctx.getIntegrator()
+    ctx._restore(start)
+    eager = _production(device, ctx, ctx._step_eager, graph["energies"][0],
+                        main["steps"], main["energy_every"], deadline)
+    _same_bits("production", (graph["positions"], graph["velocities"]),
+               (eager["positions"], eager["velocities"]))
+    for name in ("energies", "rebuilds", "launches"):
+        if graph[name] != eager[name]:
+            raise RuntimeError("production: the step program's %s %s, the "
+                               "eager loop's %s" % (name, graph[name],
+                                                    eager[name]))
+    for path in ("graph", "eager"):
+        run = graph if path == "graph" else eager
+        print("step program: %s path %.2f ns/day; per step %.4f ms wall, "
+              "%.4f ms host issue, %.4f ms host CPU; launches %s" % (
+                  path, run["ns_day"], run["wall_ms_per_step"],
+                  run["host_issue_ms_per_step"], run["host_cpu_ms_per_step"],
+                  json.dumps(run["launches"])))
+    print("step program: capture of the main path's program %.3f s" % (
+        ctx._program().capture_seconds))
+    deadline.check("step program: eager production")
+
+    marks = {}
+    for path, step in (("graph", integ.step), ("eager", ctx._step_eager)):
+        ctx._restore(start)
+        r0, count = ctx.rebuild_count, []
+        for _ in range(rebuild_steps):
+            step(1)
+            count.append(ctx.rebuild_count - r0)
+        steps = [i + 1 for i in range(rebuild_steps)
+                 if count[i] > (count[i - 1] if i else 0)]
+        marks[path] = (steps, ctx._state["positions"].clone(),
+                       ctx._state["velocities"].clone())
+    if marks["graph"][0] != marks["eager"][0]:
+        raise RuntimeError("rebuild steps differ: graph %s, eager %s"
+                           % (marks["graph"][0], marks["eager"][0]))
+    _same_bits("one step a call", marks["graph"][1:], marks["eager"][1:])
+    print("step program: %d steps one a call, rebuilds at steps %s in both "
+          "paths, the same bits" % (rebuild_steps, marks["graph"][0]))
+    deadline.check("step program: rebuild steps")
+
+    scale = ctx._nonbonded.capacity_scale
+    escalated = {}
+    for path, step in (("graph", integ.step), ("eager", ctx._step_eager)):
+        ctx._restore(start)
+        ctx._tiles = ctx._ref_pos = None
+        ctx._nonbonded.capacity_scale = escalation_scale
+        e0 = ctx.escalation_count
+        step(escalation_steps)
+        escalated[path] = (ctx.escalation_count - e0,
+                           ctx._nonbonded.capacity_scale,
+                           ctx._state["positions"].clone(),
+                           ctx._state["velocities"].clone())
+    ctx._nonbonded.capacity_scale = scale
+    g, e = escalated["graph"], escalated["eager"]
+    if g[0] < 1 or g[:2] != e[:2]:
+        raise RuntimeError("escalation from capacity scale %.2f: graph %d "
+                           "escalations to %.3f, eager %d to %.3f" % (
+                               escalation_scale, g[0], g[1], e[0], e[1]))
+    _same_bits("escalation", g[2:], e[2:])
+    print("step program: from capacity scale %.2f, %d escalations to %.3f "
+          "in both paths, the same bits after %d steps" % (
+              escalation_scale, g[0], g[1], escalation_steps))
+    deadline.check("step program: escalation")
+
+    platform = "CUDA" if device.type == "cuda" else "CPU"
+    system, positions = tip3p_water_box(double_waters)
+    final = {}
+    for path in ("graph", "eager"):
+        integ64 = omm.LangevinMiddleIntegrator(300.0, FRICTION, DT_PS)
+        integ64.setRandomNumberSeed(5)
+        ctx64 = omm.Context(system, integ64, platform,
+                            {"Precision": "double"})
+        ctx64.setPositions(positions)
+        ctx64.applyConstraints()
+        ctx64.setVelocitiesToTemperature(300.0, randomSeed=2)
+        (integ64.step if path == "graph" else ctx64._step_eager)(
+            double_steps)
+        final[path] = ctx64.getState(getPositions=True).getPositions()
+        del ctx64
+    double_err = float(np.abs(final["graph"] - final["eager"]).max())
+    print("step program: float64 Context, %d atoms, %d steps: graph vs "
+          "eager positions within %.3e nm (bar %.0e)" % (
+              system.getNumParticles(), double_steps, double_err,
+              DOUBLE_POS_TOL))
+    if not double_err <= DOUBLE_POS_TOL:
+        raise RuntimeError("float64 Context: graph and eager positions "
+                           "differ by %.3e nm" % double_err)
+    deadline.check("step program: float64 Context")
+    print("step program: gating %s; ns/day %.2f (graph) vs %.2f (eager)" % (
+        step_program.GATING, graph["ns_day"], eager["ns_day"]))
+    return {"gating": step_program.GATING, "graph": graph, "eager": eager,
+            "rebuild_steps": marks["graph"][0], "escalations": g[0],
+            "double_err": double_err}
 
 
 class _Iterations(omm.MinimizationReporter):
@@ -834,6 +1008,9 @@ def main() -> int:
     if min(launches.values()) <= 0:
         raise RuntimeError("a kernel of the main path never launched: %s"
                            % launches)
+    ns_day = result["ns_day"]
+    phase_step_program(device, result, deadline)
+    del result
     minimized = phase_minimize(device, deadline=deadline)
     if min(minimized["launches"].values()) <= 0:
         raise RuntimeError("a kernel of the minimizer path never launched: "
@@ -842,9 +1019,10 @@ def main() -> int:
         launches[kern.name] = minimized["launches"][kern.name]
     counts = tile_counts(inp)
     records = phase_timing(device, inp, counts, launches, errors, deadline)
-    print("main path: %.2f ns/day on %s (%s), %d steps of %.3f ps" % (
-        result["ns_day"], info["name"], info["smi"], PRODUCTION_STEPS,
-        DT_PS))
+    print("main path: %.2f ns/day on %s (%s), %d steps of %.3f ps, "
+          "through the step program (gating %s)" % (
+              ns_day, info["name"], info["smi"], PRODUCTION_STEPS, DT_PS,
+              step_program.GATING))
     print("total %.1f s of the %.0f s budget" % (deadline.elapsed(),
                                                  BUDGET_S))
     print(tile_sweep_line(inp, counts))

@@ -44,17 +44,25 @@ _SIGNATURES = {
                               _P],
     "omm_spread_triple_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
                               _P, _P, _P],
+    "omm_graph_if": [_P, _P, _P],
 }
 
 
 @dataclass
 class Kernel:
     """One hand-written kernel: where it lives, what it replaces, and how
-    often its wrapper launched it (reset by callers that count a run)."""
+    often its wrapper launched it (reset by callers that count a run).
+    Every Kernel is listed in KERNELS."""
     name: str
     source: str
     replaces: str
     launches: int = 0
+
+    def __post_init__(self):
+        KERNELS.append(self)
+
+
+KERNELS: list[Kernel] = []
 
 
 def fixed_accumulator(cells: int, device) -> torch.Tensor:

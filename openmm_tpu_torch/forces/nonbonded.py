@@ -296,7 +296,7 @@ class NonbondedModule(nn.Module):
             pos.to(self.dtype), box, self.charge, self.sigma, self.epsilon,
             self.exclusions,
             self.cutoff + self.skin if reach is None else reach,
-            b["max_bricks"], b["sort_cell"], b["exc_cap"])
+            b["max_bricks"], b["sort_cell"], b["exc_cap"], self.box_widths)
 
     def forward(self, pos, box, state=None):
         """(energy float64 scalar, forces (n, 3) in self.dtype). `state`
@@ -309,10 +309,13 @@ class NonbondedModule(nn.Module):
         e_dir, f = tile_pairs.tile_energy_forces(
             posd, boxd, state, consts, tile_pairs.MODE_EWALD,
             self.use_switch, plain=self.plain)
+        # kernel 3's visiting order; the plain gather on the CPU reads none
+        # (it would only check its values, a host read in the step)
+        order = state["order"][:self.n] if posd.is_cuda else None
         e_rec, f_rec = pme_zslab.pme_recip_ef(
             posd, self.charge, boxd, self.grid, self.alpha,
             (self.bsq_x, self.bsq_y, self.bsq_z), plain=self.plain,
-            order=state["order"][:self.n])
+            order=order)
         e_exc, f_exc = exception_ef(posd, self.exc_idx, self.exc_cp,
                                     self.exc_sigma, self.exc_eps)
         e_corr, f_corr = exclusion_correction_ef(posd, boxd, self.exc_idx,

@@ -1,8 +1,14 @@
 """The Context-Integrator contract.
 
 Counterpart of openmm_tpu/integrators/base.py. A Context hands its
-integrator a StepDeps bundle; the integrator's step(state) advances the
-state dict {"positions", "velocities", "box", "time", "step"} by one step.
+integrator a StepDeps bundle; the step function the integrator makes from
+it, step(positions, velocities, box) -> (positions, velocities), advances
+the device state by one step, and the Context advances the time and the
+step count on the host. The integrator's parameters (_params: the step
+size first) reach the step as the device tensor deps.params, the
+counterpart of the JAX package's state["iparams"]: the Context writes them
+before it steps, so setStepSize and the like take effect at the next step
+without a new step program.
 
 Precision: positions and velocities are float64 tensors on the device. The
 JAX package carries float32 positions plus a float32 compensation plane
@@ -31,6 +37,7 @@ class StepDeps:
     # (pos, vel) -> vel with the constrained components removed
     apply_velocity_constraints: Callable
     generator: torch.Generator
+    params: torch.Tensor          # (len(_params()),) float64: _params()
 
 
 class Integrator:
@@ -39,6 +46,9 @@ class Integrator:
         self._constraint_tol = 1e-5
         self._context = None
         self._seed = 0
+
+    def getStepSize(self) -> float:
+        return self._step_size
 
     def setStepSize(self, size: float) -> None:
         self._step_size = float(size)
@@ -66,6 +76,10 @@ class Integrator:
         if self._context is not None and self._context is not context:
             raise RuntimeError("This Integrator is already bound to a context")
         self._context = context
+
+    def _params(self) -> tuple:
+        """The floats the step reads from deps.params, step size first."""
+        return (self._step_size,)
 
     def _make_step_fn(self, deps: StepDeps) -> Callable:
         raise NotImplementedError

@@ -9,8 +9,6 @@ reproduce the JAX package's jax.random stream.
 """
 from __future__ import annotations
 
-import math
-
 import torch
 
 from ..constants import BOLTZ
@@ -30,18 +28,20 @@ class LangevinMiddleIntegrator(Integrator):
     def setFriction(self, friction: float) -> None:
         self._friction = float(friction)
 
+    def _params(self) -> tuple:
+        return (self._step_size, self._friction, self._temperature)
+
     def _make_step_fn(self, deps: StepDeps):
         inv_m = deps.inv_masses[:, None]
         sqrt_inv_m = torch.sqrt(deps.inv_masses)[:, None]
+        dt, friction, temperature = deps.params.unbind()
 
-        def step(state):
-            # read every step, so setStepSize/setFriction take effect at once
-            dt = self._step_size
-            vscale = math.exp(-dt * self._friction)
-            noisescale = math.sqrt(BOLTZ * self._temperature
-                                   * (1.0 - vscale * vscale))
-            pos, vel = state["positions"], state["velocities"]
-            _, forces = deps.force_fn(pos, state["box"])
+        def step(pos, vel, box):
+            # device scalars, so new parameters need no new step program
+            vscale = torch.exp(-dt * friction)
+            noisescale = torch.sqrt(BOLTZ * temperature
+                                    * (1.0 - vscale * vscale))
+            _, forces = deps.force_fn(pos, box)
             v = vel + dt * forces.to(vel.dtype) * inv_m
             v = deps.apply_velocity_constraints(pos, v)
             xi = torch.randn(pos.shape, generator=deps.generator,
@@ -51,11 +51,6 @@ class LangevinMiddleIntegrator(Integrator):
             new_pos, corr = deps.apply_position_constraints_corr(pos, new_raw)
             if corr is not None:
                 v_o = v_o + corr / dt
-            state = dict(state)
-            state["positions"] = new_pos
-            state["velocities"] = v_o
-            state["time"] = state["time"] + dt
-            state["step"] = state["step"] + 1
-            return state
+            return new_pos, v_o
 
         return step

@@ -32,16 +32,20 @@ def build_exclusion_table(n_atoms: int, exclusion_pairs,
 
 
 def spatial_sort_keys(pos: torch.Tensor, box: torch.Tensor, n_real: int,
-                      cell_size: float) -> torch.Tensor:
+                      cell_size: float, widths=None) -> torch.Tensor:
     """Sort key that makes runs of atoms spatially compact: cells of half
     `cell_size` grouped into 2x2x2 bricks, bricks in snake order, cells in
-    a brick in Morton order. Padding atoms sort last."""
+    a brick in Morton order. Padding atoms sort last. The cell counts come
+    from `widths`, the box's diagonal as Python floats in box.dtype, so
+    that the key reads nothing back from the device; without them the
+    diagonal is read from `box` (a host read when box is on a card)."""
     n_pad = pos.shape[0]
     cell_size = 0.5 * cell_size
     wrapped = geom.wrap_into_box(pos, box)
-    box_d = box.diagonal().to(torch.float64).tolist()
+    if widths is None:
+        widths = box.diagonal().to(torch.float64).tolist()
     ncx, ncy, ncz = (2 * max(int(round(w / (2 * cell_size))), 1)
-                     for w in box_d)
+                     for w in widths)
 
     def cell(axis, nc):
         c = torch.floor(wrapped[:, axis] * (nc / box[axis, axis]))

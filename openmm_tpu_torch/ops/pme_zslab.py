@@ -51,13 +51,15 @@ def _grid_weights(pos, binv, grid):
     (n, 3, 5) on each axis (x, y, z)."""
     frac = geom.to_fractional(pos, binv.view(3, 3))
     frac = frac - torch.floor(frac)
-    sizes = torch.tensor(grid, dtype=pos.dtype, device=pos.device)
-    u = frac * sizes
+    # the grid sizes enter as Python numbers, never as a tensor copied from
+    # the host, so this runs inside a captured CUDA graph too
+    u = torch.stack([frac[:, a] * grid[a] for a in range(3)], dim=1)
     base = torch.floor(u)
     w, dw = bspline_w_dw(u - base)
     offs = torch.arange(ORDER, device=pos.device) - (ORDER - 1)
-    isz = torch.tensor(grid, device=pos.device)
-    idx = torch.remainder(base.long()[..., None] + offs, isz[:, None])
+    base = base.long()
+    idx = torch.stack([torch.remainder(base[:, a, None] + offs, grid[a])
+                       for a in range(3)], dim=1)
     return idx, w, dw
 
 
@@ -207,11 +209,11 @@ def convolve_potential(q_grid, box, grid, alpha, bsq_x, bsq_y, bsq_z):
     kt = ONE_4PI_EPS0 / (2.0 * math.pi * geom.box_volume(box.to(dt))) \
         * kern * b
     # the half spectrum holds each +-m pair once, except the my = 0 and
-    # (even ny) Nyquist planes, which are their own partners
-    mult = torch.full((ny // 2 + 1,), 2.0, dtype=dt, device=dev)
-    mult[0] = 1.0
-    if ny % 2 == 0:
-        mult[-1] = 1.0
+    # (even ny) Nyquist planes, which are their own partners (made on the
+    # device: a scalar stored from the host cannot be captured in a graph)
+    my_index = torch.arange(ny // 2 + 1, device=dev)
+    mult = torch.where((my_index == 0) | (2 * my_index == ny), 1.0,
+                       2.0).to(dt)
     energy = torch.sum(mult * kt * (f.real ** 2 + f.imag ** 2))
     phi = torch.fft.irfftn(kt * f, s=(nz, nx, ny)) * (nx * ny * nz)
     return phi, energy

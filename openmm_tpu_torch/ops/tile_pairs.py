@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from .. import _build
@@ -63,27 +64,34 @@ def tile_budget(n: int, box_widths, cutoff: float, skin: float,
 
 
 def build_tile_state(pos, box, charge, sigma, epsilon, exclusions, reach,
-                     max_bricks, sort_cell, exc_cap=EXC_SLOTS) -> dict:
+                     max_bricks, sort_cell, exc_cap=EXC_SLOTS,
+                     box_widths=None) -> dict:
     """Candidate state for kernel 1 at positions `pos` (n, 3).
 
     exclusions: (n, E) int tensor of excluded partners (-1 padded). The
-    state's float tensors take pos.dtype. Returns a dict of tensors on
-    pos.device; "overflow" counts candidates and exclusion slots that did
-    not fit (0 when the state is complete).
+    state's float tensors take pos.dtype. `box_widths`, the box's diagonal
+    as Python floats, fixes the sort cells; given, the build has static
+    shapes and reads nothing back from the device, so it can be captured
+    in a CUDA graph (without, the sort reads the diagonal from `box`).
+    Returns a dict of tensors on pos.device; "overflow" counts candidates
+    and exclusion slots that did not fit (0 when the state is complete).
     """
     dev, dt = pos.device, pos.dtype
     n = pos.shape[0]
     n_pad = pad_to_block(n, BRICK)
     nb = n_pad // BRICK
     boxd = box.to(dt)
+    if box_widths is not None and dt == torch.float32:
+        # the widths as boxd holds them
+        box_widths = [float(np.float32(w)) for w in box_widths]
     binv = geom.box_inverse(boxd)
     posf = torch.cat([pos, pos[:1].expand(n_pad - n, 3)])
     # wrap bookkeeping: pos = pos_w + W @ box with integer W
     wraps = torch.floor(geom.to_fractional(posf, binv))
     pos_w = posf - geom.from_fractional(wraps, boxd)
 
-    order = torch.argsort(spatial_sort_keys(pos_w, boxd, n, sort_cell),
-                          stable=True)
+    order = torch.argsort(spatial_sort_keys(pos_w, boxd, n, sort_cell,
+                                            box_widths), stable=True)
     inv_order = torch.argsort(order)
     pos_s = pos_w[order]
     w_s = wraps[order]
@@ -123,7 +131,10 @@ def build_tile_state(pos, box, charge, sigma, epsilon, exclusions, reach,
     row = (torch.arange(n_pad, device=dev) // BRICK)[:, None].expand_as(
         entries)
     carries = torch.zeros((nb, nb + 1), dtype=torch.bool, device=dev)
-    carries[row, e_brick] = True
+    # a device True: a stored Python True is a copy from the host, which a
+    # CUDA graph cannot capture
+    carries.index_put_((row, e_brick),
+                       torch.ones((), dtype=torch.bool, device=dev))
     has_excl = carries.gather(1, cand) & valid
     rank = torch.where(valid, torch.where(has_excl, 0, 1), 2)
     reorder = torch.argsort(rank, dim=1, stable=True)
@@ -138,9 +149,12 @@ def build_tile_state(pos, box, charge, sigma, epsilon, exclusions, reach,
     k = slot_of[row, e_brick]
     ok = (entries >= 0) & (k >= 0) & (k < excl_count[row])
     atom = torch.arange(n_pad, device=dev)[:, None].expand_as(entries)
+    # static shapes: an entry that sets no bit adds 0 to word 0 (the adds
+    # are integer adds of distinct bits, so the words are the same)
     words = torch.zeros(n_pad * exc_cap, dtype=torch.int32, device=dev)
-    words.index_add_(0, (atom * exc_cap + k)[ok],
-                     (1 << (entries % BRICK)).to(torch.int32)[ok])
+    words.index_add_(0, torch.where(ok, atom * exc_cap + k, 0).reshape(-1),
+                     torch.where(ok, 1 << (entries % BRICK), 0)
+                     .to(torch.int32).reshape(-1))
 
     def padded(x, fill):
         x = torch.cat([x.to(device=dev, dtype=dt),

@@ -5,19 +5,26 @@ objective, spends its time.
     python3 -m openmm_tpu_torch.profile_step --minimizer [--evaluations 20]
 
 Builds the 24,000-atom TIP3P PME box. By default it relaxes the lattice
-start briefly, then times `--steps` LangevinMiddle steps at 2 fs untraced
-and the same number again under torch.profiler (host and CUDA activity).
-With --minimizer it times `--evaluations` evaluations of the minimizer's
-objective (Context._make_position_energy_fn: energy and forces by autograd
-through kernels 1, 4 and 5) at the lattice start the same way. Prints one
-JSON object: wall ms per step (or evaluation) with and without the
-profiler, the host CPU time of this process per untraced unit (near the
-wall time when the host is what holds the work back, well under it when
-the process waits for a CPU core or for the card), for steps the rebuilds
-in the untraced window, device busy ms per unit (the sum of kernel, copy
-and fill durations on the card), the device idle share against the
-untraced wall time, kernels launched per unit, and the kernels that take
-the most device time. On a CPU device it reports host time only.
+start briefly, then, from one snapshot, times `--steps` LangevinMiddle
+steps at 2 fs twice: through the Context's step program ("graph": a
+replay of the captured CUDA graph a step) and through the eager loop it
+replaced ("eager": Context._step_eager), each untraced and then again
+under torch.profiler (host and CUDA activity). With --minimizer it times
+`--evaluations` evaluations of the minimizer's objective
+(Context._make_position_energy_fn: energy and forces by autograd through
+kernels 1, 4 and 5) at the lattice start the same way. Prints one JSON
+object: for each path (or the objective), wall ms per step (or
+evaluation) with and without the profiler, the host CPU time of this
+process per untraced unit (near the wall time when the host is what
+holds the work back or spins waiting for the card, well under it when
+the process waits for a CPU core), for steps the host's issue time per
+untraced step (Context.issue_seconds: up to each chunk's one read, so
+without the wait for the card) and the rebuilds in the untraced window,
+device busy ms per unit (the sum of kernel, copy and fill durations on
+the card), the device idle share against the untraced wall time,
+kernels run on the card per unit, the CUDA runtime calls the host made
+per unit (kernel launches, copies, graph launches), and the kernels that
+take the most device time. On a CPU device it reports host time only.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from . import Context, LangevinMiddleIntegrator
 from .models import tip3p_water_box
+from .step_program import GATING
 
 
 def _timed(run, count, device):
@@ -44,10 +52,13 @@ def _timed(run, count, device):
             (time.process_time() - c0) / count * 1e3)
 
 
-def _window(run, count, device, unit, top) -> dict:
+def _window(run, count, device, unit, top, issued=None) -> dict:
     """Time run() untraced, then again under torch.profiler, and sum the
-    device time of the traced run by kernel."""
+    device time of the traced run by kernel. issued(), where given, reads
+    the host seconds spent issuing the work (Context.issue_seconds)."""
+    issue0 = issued() if issued else 0.0
     wall_ms, cpu_ms = _timed(run, count, device)
+    issue_ms = ((issued() - issue0) / count * 1e3) if issued else None
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
@@ -56,6 +67,8 @@ def _window(run, count, device, unit, top) -> dict:
     out = {"wall_ms_per_" + unit: wall_ms,
            "host_cpu_ms_per_" + unit: cpu_ms,
            "wall_ms_per_%s_traced" % unit: traced_ms}
+    if issued:
+        out["host_issue_ms_per_" + unit] = issue_ms
     on_card = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in on_card) / count / 1e3
@@ -63,6 +76,12 @@ def _window(run, count, device, unit, top) -> dict:
         out["device_busy_ms_per_" + unit] = busy_ms
         out["device_idle_share"] = 1.0 - busy_ms / wall_ms
         out["kernels_per_" + unit] = sum(e.count for e in on_card) / count
+        calls = [e for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CPU
+                 and e.key.startswith("cu")]
+        out["runtime_calls_per_" + unit] = {
+            e.key: e.count / count
+            for e in sorted(calls, key=lambda e: -e.count)[:8]}
         out["top_kernels"] = [
             [e.key[:90], e.count / count, e.self_device_time_total / count
              / 1e3]
@@ -94,17 +113,23 @@ def profile_steps(device, n_waters=8000, steps=50, top=20) -> dict:
     integ.setStepSize(0.002)
     integ.setFriction(1.0)
     integ.step(20)
-    rebuilds = []
+    start = ctx._snapshot()
+    out = {"device": _device_name(device),
+           "atoms": system.getNumParticles(), "steps": steps,
+           "gating": GATING}
+    for path, step in (("graph", integ.step), ("eager", ctx._step_eager)):
+        ctx._restore(start)
+        rebuilds = []
 
-    def run():
-        before = ctx.rebuild_count
-        integ.step(steps)
-        rebuilds.append(ctx.rebuild_count - before)
+        def run(step=step, rebuilds=rebuilds):
+            before = ctx.rebuild_count
+            step(steps)
+            rebuilds.append(ctx.rebuild_count - before)
 
-    window = _window(run, steps, device, "step", top)
-    return {"device": _device_name(device),
-            "atoms": system.getNumParticles(), "steps": steps,
-            "rebuilds": rebuilds[0], **window}
+        window = _window(run, steps, device, "step", top,
+                         lambda: ctx.issue_seconds)
+        out[path] = {"rebuilds": rebuilds[0], **window}
+    return out
 
 
 def profile_objective(device, n_waters=8000, evaluations=20,
