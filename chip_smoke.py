@@ -24,7 +24,13 @@ comes out:
 - energy minimization of the same box from its lattice start with
   LocalEnergyMinimizer (kernel 1 and the dense PME spread, kernels 4-5),
   checked against the float64 objective and against the z-slab
-  reciprocal forces.
+  reciprocal forces;
+- the 32,512-atom POPC bilayer (amber14-lipid + TIP3P, PME at 0.9 nm,
+  HBonds: bonds, angles, torsions, 1-4 exceptions, a CMMotionRemover,
+  SETTLE and SHAKE): kernels 1-3 at its shapes (a 60 x 60 x 70 grid),
+  its float32 forces and per-group energies against float64, a minimize
+  call, then MD through the step program, replayed from a snapshot
+  through the eager loop for the same bits, with its ns/day.
 
 It imports nothing of JAX or of openmm_tpu.
 
@@ -53,7 +59,7 @@ from openmm_tpu_torch import _build
 from openmm_tpu_torch import step_program
 from openmm_tpu_torch.context import MAX_ESCALATIONS
 from openmm_tpu_torch.forces.nonbonded import NonbondedModule
-from openmm_tpu_torch.models import tip3p_water_box
+from openmm_tpu_torch.models import popc_bilayer, tip3p_water_box
 from openmm_tpu_torch.ops import geometry as geom
 from openmm_tpu_torch.ops import pallas_pme, pme_zslab, tile_pairs
 from openmm_tpu_torch.ops import pme as pme_mod
@@ -87,6 +93,23 @@ FORCE_ERR_BAR = 1e-5
 MINIMIZE_CALLS = 4
 MINIMIZE_ITERATIONS = 25
 MINIMIZE_TOLERANCE = 10.0       # kJ/mol/nm, the RMS gradient per particle
+# the POPC bilayer: the force group of each force (for the per-group
+# energies), its temperature, its steps before the production steps, its
+# minimize call's iterations a penalty stage, and its bars
+BILAYER_GROUPS = {"NonbondedForce": 0, "HarmonicBondForce": 1,
+                  "HarmonicAngleForce": 2, "PeriodicTorsionForce": 3,
+                  "CMMotionRemover": 4}
+BILAYER_TEMPERATURE = 303.15
+BILAYER_STEPS = 300
+BILAYER_MINIMIZE_ITERATIONS = 25
+GROUP_ENERGY_BAR = 1e-5
+CONSTRAINT_ERR_BAR = 1e-5
+# what the bilayer phase prints of each force
+COUNTED = {"NonbondedForce": "getNumExceptions",
+           "HarmonicBondForce": "getNumBonds",
+           "HarmonicAngleForce": "getNumAngles",
+           "PeriodicTorsionForce": "getNumTorsions",
+           "CMMotionRemover": "getFrequency"}
 # clock cycles the card sleeps before each timed call (~1 ms at 1.98 GHz)
 SLEEP_CYCLES = 2_000_000
 # peak rates of one H100 SXM (data sheet, dense): float32 outside the
@@ -184,16 +207,23 @@ def water_box(n_waters, sheared=False):
     return system, pos
 
 
-def kernel_inputs(device, n_waters, sheared=False) -> dict:
+def kernel_inputs(device, n_waters, sheared=False, system=None,
+                  positions=None) -> dict:
     """Inputs of the five kernels at the shapes of their paths, from the
-    water box's starting positions (its box sheared when `sheared`):
-    kernels 1-3 as the main path calls them (kernel 3 visiting the atoms in
-    the candidate state's order), kernels 4-5 on the dense weight planes
-    of those positions (N unpadded) with a seeded cotangent dQ."""
-    system, pos = water_box(n_waters, sheared)
+    water box's starting positions (its box sheared when `sheared`), or
+    from `system` at `positions`: kernels 1-3 as the main path calls them
+    (kernel 3 visiting the atoms in the candidate state's order), kernels
+    4-5 on the dense weight planes of those positions (N unpadded) with a
+    seeded cotangent dQ. The capacity grows, as a Context grows it, until
+    the candidate state holds every pair."""
+    if system is None:
+        system, positions = water_box(n_waters, sheared)
+    pos = positions
     box = torch.as_tensor(system.getDefaultPeriodicBoxVectors(),
                           dtype=torch.float32, device=device)
-    module = NonbondedModule(system.getForce(0), box.cpu().numpy(), device)
+    (nb,) = [f for f in system.getForces()
+             if isinstance(f, omm.NonbondedForce)]
+    module = NonbondedModule(nb, box.cpu().numpy(), device)
     posf = torch.as_tensor(pos, dtype=torch.float32, device=device)
     st = module.build_state(posf, box)
     for _ in range(MAX_ESCALATIONS):  # as a Context grows it on overflow
@@ -805,6 +835,177 @@ def phase_minimize(device, n_waters=N_WATERS, calls=MINIMIZE_CALLS,
             "grad_err": grad_err, "recip_err": recip_err}
 
 
+def phase_bilayer(device, deadline=None, bilayer=None,
+                  steps=BILAYER_STEPS, production=PRODUCTION_STEPS,
+                  energy_every=ENERGY_EVERY,
+                  minimize_iterations=BILAYER_MINIMIZE_ITERATIONS) -> dict:
+    """The POPC bilayer (popc_bilayer(), or `bilayer` = (system,
+    positions)) on a Context of its own (the default platform on a GPU,
+    "CPU" otherwise): kernels 1-3 against their plain versions at its
+    shapes; at the patch's coordinates the float32 forces and each force
+    group's energy against the float64 plain path; then, with the kernel
+    counts set to 0, applyConstraints and one minimize call of
+    `minimize_iterations` iterations, velocities at BILAYER_TEMPERATURE,
+    `steps` steps and `production` timed steps through the step program,
+    and the same production steps again from a snapshot through the eager
+    loop, which must give the same bits, energies, rebuilds and launches.
+    Raises on a miss."""
+    deadline = deadline or Deadline(math.inf)
+    platform = "CUDA" if device.type == "cuda" else "CPU"
+    system, positions = bilayer or popc_bilayer()
+    for force in system.getForces():
+        force.setForceGroup(BILAYER_GROUPS[type(force).__name__])
+    n = system.getNumParticles()
+    inp = kernel_inputs(device, 0, system=system, positions=positions)
+    grid = inp["grid"]
+    errors = phase_kernels(device, inp, deadline, names=MAIN_PATH_NAMES,
+                           label=" (bilayer)")
+    scale = inp["module"].capacity_scale
+    if device.type == "cuda":
+        calls = _kernel_calls(inp)
+        bounds = kernel_bounds(inp, tile_counts(inp))
+        for name in MAIN_PATH_NAMES:
+            print("kernel %-17s (bilayer) %.4f ms a call, bound %.5f ms (%s)"
+                  % (name, _time_ms(calls[name][0], device), *bounds[name]))
+        del calls
+        deadline.check("bilayer: kernel times")
+    del inp
+    integ = omm.LangevinMiddleIntegrator(BILAYER_TEMPERATURE, FRICTION,
+                                         DT_PS)
+    integ.setRandomNumberSeed(9)
+    ctx = (omm.Context(system, integ) if platform == "CUDA"
+           else omm.Context(system, integ, platform))
+    oracle = omm.Context(system, omm.LangevinMiddleIntegrator(
+        BILAYER_TEMPERATURE, FRICTION, DT_PS), platform,
+        {"Precision": "double"})
+    counts = {type(f).__name__: getattr(f, COUNTED[type(f).__name__])()
+              for f in system.getForces()}
+    print("bilayer: %d atoms, box %s nm, PME grid %s; terms %s (NonbondedForce"
+          ": exceptions, CMMotionRemover: frequency); constraints %d: "
+          "SETTLE %d / SHAKE %d / CCMA %d; capacity scale %.2f at the start"
+          % (n, np.array2string(np.diag(system.getDefaultPeriodicBoxVectors()),
+                                precision=4, separator=","),
+             "x".join(map(str, grid)), json.dumps(counts),
+             system.getNumConstraints(), *ctx.constraint_split, scale))
+    deadline.check("bilayer: set-up and kernels")
+
+    groups = sorted(set(BILAYER_GROUPS.values()))
+    energies = {}
+    for c in (ctx, oracle):
+        # getState does not grow the capacity: start at the kernels' scale
+        c._nonbonded.capacity_scale = scale
+        c.setPositions(positions)
+    st = ctx.getState(getForces=True, getEnergy=True)
+    ref = oracle.getState(getForces=True, getEnergy=True)
+    force_err = _median_relative_error(st.getForces(), ref.getForces())
+    for g in groups:
+        pair = [c.getState(getEnergy=True, groups={g}).getPotentialEnergy()
+                for c in (ctx, oracle)]
+        energies[g] = (*pair, abs(pair[0] - pair[1]) / max(abs(pair[1]),
+                                                          1e-300))
+    del oracle
+    print("bilayer: median force error vs float64 plain path %.3e (bar "
+          "%.0e); energy %.6f vs %.6f kJ/mol; by group (float32, float64, "
+          "relative error; bar %.0e): %s" % (
+              force_err, FORCE_ERR_BAR, st.getPotentialEnergy(),
+              ref.getPotentialEnergy(), GROUP_ENERGY_BAR,
+              "; ".join("%d: %.4f %.4f %.2e" % (g, *energies[g])
+                        for g in groups)))
+    if not force_err <= FORCE_ERR_BAR:
+        raise RuntimeError("bilayer: median force error %.3e above %.0e"
+                           % (force_err, FORCE_ERR_BAR))
+    for g, (e32, e64, rel) in energies.items():
+        if not (rel <= GROUP_ENERGY_BAR or e32 == e64):
+            raise RuntimeError("bilayer: group %d energy %.6f vs %.6f"
+                               % (g, e32, e64))
+    deadline.check("bilayer: float64 oracle")
+
+    for kern in KERNELS:
+        kern.launches = 0
+    ctx.applyConstraints()
+    before = ctx.getState(getEnergy=True).getPotentialEnergy()
+    reporter = _Iterations()
+    _sync(device)
+    t0 = time.perf_counter()
+    omm.LocalEnergyMinimizer.minimize(ctx, MINIMIZE_TOLERANCE,
+                                      minimize_iterations, reporter)
+    _sync(device)
+    minimize_s = time.perf_counter() - t0
+    st = ctx.getState(getEnergy=True, getPositions=True)
+    after = st.getPotentialEnergy()
+    minimized_err = _constraint_error(system, st.getPositions())
+    tol = integ.getConstraintTolerance()
+    print("bilayer: minimize (%d iterations a stage): %d iterations, %d "
+          "evaluations in %.2f s; energy %.3f -> %.3f kJ/mol; largest "
+          "relative constraint error %.3e (bar %.0e)" % (
+              minimize_iterations, reporter.count, ctx.energy_evaluations,
+              minimize_s, before, after, minimized_err, 2 * tol))
+    if not (math.isfinite(after) and after < before):
+        raise RuntimeError("bilayer: minimization did not lower the energy:"
+                           " %.3f -> %.3f" % (before, after))
+    if not minimized_err < 2 * tol:
+        raise RuntimeError("bilayer: constraint error %.3e after "
+                           "minimization" % minimized_err)
+    deadline.check("bilayer: minimization")
+
+    ctx.setVelocitiesToTemperature(BILAYER_TEMPERATURE, randomSeed=3)
+    for done in range(0, steps, energy_every):
+        integ.step(min(energy_every, steps - done))
+        deadline.check("bilayer: steps")
+    start = ctx._snapshot()
+    graph = _production(device, ctx, integ.step,
+                        ctx.getState(getEnergy=True).getPotentialEnergy(),
+                        production, energy_every, deadline)
+    temperature = ctx.temperature()
+    x = ctx.getState(getPositions=True).getPositions()
+    constraint_err = _constraint_error(system, x)
+    rebuilds, escalations = ctx.rebuild_count, ctx.escalation_count
+    ctx._restore(start)
+    eager = _production(device, ctx, ctx._step_eager, graph["energies"][0],
+                        production, energy_every, deadline)
+    launches = {k.name: k.launches for k in KERNELS}
+    _same_bits("bilayer production", (graph["positions"],
+                                      graph["velocities"]),
+               (eager["positions"], eager["velocities"]))
+    for name in ("energies", "rebuilds", "launches"):
+        if graph[name] != eager[name]:
+            raise RuntimeError("bilayer: the step program's %s %s, the eager "
+                               "loop's %s" % (name, graph[name], eager[name]))
+    print("bilayer: %d + %d steps at %.3f ps (friction %.1f/ps, %.2f K) "
+          "through the step program; energies %s kJ/mol; T %.2f K (dof 3n - "
+          "constraints - 3); rebuilds %d, escalations %d (capacity scale "
+          "%.2f); largest relative constraint error %.3e (bar %.0e)" % (
+              steps, production, DT_PS, FRICTION, BILAYER_TEMPERATURE,
+              " ".join("%.1f" % e for e in graph["energies"]), temperature,
+              rebuilds, escalations, ctx._nonbonded.capacity_scale,
+              constraint_err, CONSTRAINT_ERR_BAR))
+    print("bilayer: eager loop from the same snapshot: the same bits, "
+          "energies, rebuilds %s and launches %s; ns/day %.2f (graph) vs "
+          "%.2f (eager); per step %.4f ms wall, %.4f ms host issue (graph)"
+          % (graph["rebuilds"], json.dumps(graph["launches"]),
+             graph["ns_day"], eager["ns_day"], graph["wall_ms_per_step"],
+             graph["host_issue_ms_per_step"]))
+    print("bilayer path launches (minimize, steps, production, eager "
+          "replay): %s" % json.dumps(launches))
+    if not all(math.isfinite(e) for e in graph["energies"]):
+        raise RuntimeError("bilayer: a potential energy is not finite")
+    if not 250.0 <= temperature <= 360.0:
+        raise RuntimeError("bilayer: temperature %.2f K outside 250-360 K"
+                           % temperature)
+    if not constraint_err <= CONSTRAINT_ERR_BAR:
+        raise RuntimeError("bilayer: constraint error %.3e" % constraint_err)
+    if device.type == "cuda" and min(launches.values()) <= 0:
+        raise RuntimeError("bilayer: a kernel of its path never launched: %s"
+                           % launches)
+    deadline.check("bilayer: production")
+    return {"errors": errors, "force_err": force_err, "energies": energies,
+            "minimized": (before, after), "temperature": temperature,
+            "constraint_err": constraint_err, "graph": graph,
+            "eager": eager, "launches": launches, "rebuilds": rebuilds,
+            "escalations": escalations, "split": ctx.constraint_split,
+            "ns_day": graph["ns_day"]}
+
+
 def _time_ms(fn, device, reps=20, warmup=3) -> float:
     """Median milliseconds per call over `reps` calls timed one by one
     with CUDA events, after `warmup` calls. Each call is queued behind a
@@ -1017,12 +1218,18 @@ def main() -> int:
                            "%s" % minimized["launches"])
     for kern in (pallas_pme.FWD, pallas_pme.BWD):
         launches[kern.name] = minimized["launches"][kern.name]
+    bilayer = phase_bilayer(device, deadline)
     counts = tile_counts(inp)
     records = phase_timing(device, inp, counts, launches, errors, deadline)
     print("main path: %.2f ns/day on %s (%s), %d steps of %.3f ps, "
           "through the step program (gating %s)" % (
               ns_day, info["name"], info["smi"], PRODUCTION_STEPS, DT_PS,
               step_program.GATING))
+    print("bilayer: %.2f ns/day on %s (%s), %d atoms, %d steps of %.3f ps "
+          "through the step program" % (
+              bilayer["ns_day"], info["name"], info["smi"],
+              bilayer["graph"]["positions"].shape[0], PRODUCTION_STEPS,
+              DT_PS))
     print("total %.1f s of the %.0f s budget" % (deadline.elapsed(),
                                                  BUDGET_S))
     print(tile_sweep_line(inp, counts))

@@ -15,6 +15,13 @@ replaced, one launch at a time with the rebuild decided on the host: the
 reference that the tests and chip_smoke.py hold the program to.
 _make_position_energy_fn is the minimizer's objective (energy and forces
 by autograd at given positions).
+
+A System may hold at most one NonbondedForce (PME), any of the bonded
+forces (forces/bonded.py) and CMMotionRemovers (update hooks that the
+integrator runs at the top of each step); each force belongs to a force
+group, which getState(groups=...) selects. Constraints split into SETTLE
+water triangles, SHAKE-H star clusters and the rest (CCMA), applied in
+that order (ops/constraints.py).
 """
 from __future__ import annotations
 
@@ -24,9 +31,12 @@ import numpy as np
 import torch
 
 from .constants import BOLTZ
+from .forces.bonded import BONDED_FORCES, HarmonicAngleForce
+from .forces.cmmotion import CMMotionRemover
 from .forces.nonbonded import NonbondedForce, NonbondedModule
 from .integrators.base import StepDeps
-from .ops.constraints import Settle, partition_constraints
+from .ops.constraints import (CCMA, Settle, Shake, partition_constraints,
+                              partition_shake_clusters)
 from .ops.pairs import needs_rebuild
 from .platform import Platform, set_fp32_matmul_exact
 from .state import State
@@ -34,6 +44,17 @@ from .step_program import StepProgram
 
 STEP_CHUNK = 100
 MAX_ESCALATIONS = 6
+
+
+def _group_mask(groups) -> int:
+    """A force-group bit mask from an int mask (-1: all) or a collection
+    of group numbers."""
+    if isinstance(groups, (set, frozenset, list, tuple)):
+        mask = 0
+        for g in groups:
+            mask |= 1 << int(g)
+        return mask
+    return int(groups)
 
 
 class Context:
@@ -58,26 +79,44 @@ class Context:
                 "this slice of the port")
 
         forces = system.getForces()
-        if len(forces) != 1 or not isinstance(forces[0], NonbondedForce):
-            raise NotImplementedError(
-                "this slice of the port runs one NonbondedForce and nothing "
-                "else")
-        if forces[0].getNumParticles() != n:
-            raise ValueError("NonbondedForce must have the same number of "
-                             "particles as the System")
-        self._nonbonded = NonbondedModule(
-            forces[0], system.getDefaultPeriodicBoxVectors(), self._device,
-            self._precision)
+        for force in forces:
+            if not isinstance(force, (NonbondedForce, CMMotionRemover)
+                              + BONDED_FORCES):
+                raise NotImplementedError(
+                    "%s is not in this slice of the port"
+                    % type(force).__name__)
+        nonbonded = [f for f in forces if isinstance(f, NonbondedForce)]
+        if len(nonbonded) > 1:
+            raise NotImplementedError("more than one NonbondedForce")
+        self._nonbonded = None
+        if nonbonded:
+            if nonbonded[0].getNumParticles() != n:
+                raise ValueError("NonbondedForce must have the same number "
+                                 "of particles as the System")
+            self._nonbonded = NonbondedModule(
+                nonbonded[0], system.getDefaultPeriodicBoxVectors(),
+                self._device, self._precision)
+        self._bonded = [f._compile(n, self._device) for f in forces
+                        if isinstance(f, BONDED_FORCES)]
+        self._has_cm_remover = any(isinstance(f, CMMotionRemover)
+                                   for f in forces)
 
         constraints = [system.getConstraintParameters(i)
                        for i in range(system.getNumConstraints())]
         clusters, rest = partition_constraints(constraints, masses)
-        if rest:
-            raise NotImplementedError(
-                "%d constraints are not SETTLE water triangles; CCMA is not "
-                "in this slice of the port" % len(rest))
+        shake_clusters, ccma_cons = partition_shake_clusters(rest, masses)
+        angles = [f.getAngleParameters(i)[:4] for f in forces
+                  if isinstance(f, HarmonicAngleForce)
+                  for i in range(f.getNumAngles())]
         self._settle = (Settle(clusters, masses, self._device)
                         if clusters else None)
+        self._shake = (Shake(shake_clusters, masses, self._device)
+                       if shake_clusters else None)
+        self._ccma = (CCMA(ccma_cons, masses, angles, self._device)
+                      if ccma_cons else None)
+        # SETTLE waters, SHAKE clusters and CCMA constraints
+        self.constraint_split = (len(clusters), len(shake_clusters),
+                                 len(ccma_cons))
 
         f64 = dict(dtype=torch.float64, device=self._device)
         self._masses = torch.as_tensor(masses, **f64)
@@ -109,26 +148,43 @@ class Context:
             apply_position_constraints_corr=self._constrain_positions,
             apply_velocity_constraints=self._constrain_velocities,
             generator=self._generator,
-            params=torch.tensor(self._params_written, **f64))
+            params=torch.tensor(self._params_written, **f64),
+            step=torch.zeros((), dtype=torch.int64, device=self._device),
+            update_hooks=[f._make_hook(self._masses) for f in forces
+                          if isinstance(f, CMMotionRemover)])
         self._step_fn = integrator._make_step_fn(self._deps)
         self._programs = {}         # (capacity scale, box widths) -> program
         integrator._bind(self)
 
     # -- constraints -----------------------------------------------------
     def _constrain_positions(self, ref, new):
-        if self._settle is None:
-            return new, None
-        corr = self._settle.position_corrections(ref, new)
-        return new + corr, corr
+        """(constrained, corr): SETTLE, then SHAKE, then CCMA, with corr the
+        sum of their corrections, exactly zero off the constrained atoms
+        (None without constraints), as the JAX Context sums it
+        (apply_position_constraints_corr)."""
+        corr = None
+        if self._settle is not None:
+            corr = self._settle.position_corrections(ref, new)
+            new = new + corr
+        for stage in (self._shake, self._ccma):
+            if stage is not None:
+                out = stage.apply_positions(ref, new)
+                c = out - new
+                new = out
+                corr = c if corr is None else corr + c
+        return new, corr
 
     def _constrain_velocities(self, pos, vel):
-        if self._settle is None:
-            return vel
-        return self._settle.apply_velocities(pos, vel)
+        for stage in (self._settle, self._shake, self._ccma):
+            if stage is not None:
+                vel = stage.apply_velocities(pos, vel)
+        return vel
 
     # -- forces ------------------------------------------------------------
     def _refresh_tiles(self, pos):
         """Rebuild the candidate state when the predicate fires."""
+        if self._nonbonded is None:
+            return
         if self._tiles is None or bool(needs_rebuild(
                 pos, self._ref_pos, self._nonbonded.skin)):
             self._tiles = self._nonbonded.build_state(pos,
@@ -137,26 +193,52 @@ class Context:
             self._overflow = self._overflow + self._tiles["overflow"]
             self.rebuild_count += 1
 
-    def _forces_for_step(self, pos, box):
+    def _evaluate(self, pos, box, tiles, groups=-1):
+        """(energy float64 scalar, forces (n, 3) float64) of the forces in
+        `groups` (a bit mask) at `pos`, the nonbonded one through the
+        candidate state `tiles`; the forces add in the order of the
+        System's forces, the NonbondedForce first."""
+        parts = []
+        nb = self._nonbonded
+        if nb is not None and (groups >> nb.group) & 1:
+            parts.append(nb(pos, box, tiles))
+        parts += [b.ef(pos, box) for b in self._bonded
+                  if (groups >> b.group) & 1]
+        if not parts:
+            return (torch.zeros((), dtype=torch.float64, device=pos.device),
+                    torch.zeros(pos.shape, dtype=torch.float64,
+                                device=pos.device))
+        energy, forces = parts[0][0], parts[0][1].to(torch.float64)
+        for e, f in parts[1:]:
+            energy = energy + e
+            forces = forces + f.to(torch.float64)
+        return energy, forces
+
+    def _forces_for_step(self, pos, box, groups=-1):
         self._refresh_tiles(pos)
-        return self._nonbonded(pos, box, self._tiles)
+        return self._evaluate(pos, box, self._tiles, groups)
 
     def _make_position_energy_fn(self):
         """(positions (n, 3) float64 numpy) -> (energy float, forces (n, 3)
-        float64 numpy): the potential energy at those positions and minus
-        its gradient by autograd, on this Context's device in its
-        precision, with its current box. Used by LocalEnergyMinimizer; the
-        Context's own state is not touched."""
-        module = self._nonbonded
+        float64 numpy): the potential energy of every force at those
+        positions and minus its gradient by autograd, on this Context's
+        device in its precision (the bonded forces in float64), with its
+        current box. Used by LocalEnergyMinimizer; the Context's own state
+        is not touched."""
 
         def evaluate(positions):
             pos = torch.as_tensor(np.asarray(positions, np.float64),
-                                  dtype=module.dtype, device=self._device)
+                                  dtype=torch.float64, device=self._device)
             pos.requires_grad_(True)
-            energy = module.potential_energy(pos, self._state["box"])
+            box = self._state["box"]
+            energy = torch.zeros((), dtype=torch.float64, device=self._device)
+            if self._nonbonded is not None:
+                energy = self._nonbonded.potential_energy(pos, box)
+            for b in self._bonded:
+                energy = energy + b.energy(pos, box)
             (grad,) = torch.autograd.grad(energy, pos)
             self.energy_evaluations += 1
-            return float(energy.detach()), -grad.to(torch.float64).cpu().numpy()
+            return float(energy.detach()), -grad.cpu().numpy()
 
         return evaluate
 
@@ -178,7 +260,7 @@ class Context:
         self._ref_pos = None
 
     def setPositions(self, positions) -> None:
-        pos = np.asarray(positions, np.float64)
+        pos = np.array(positions, np.float64)
         if pos.shape != (self._n, 3):
             raise ValueError("setPositions: expected (%d, 3), got %s"
                              % (self._n, pos.shape))
@@ -187,7 +269,7 @@ class Context:
         self._positions_set = True
 
     def setVelocities(self, velocities) -> None:
-        vel = np.asarray(velocities, np.float64)
+        vel = np.array(velocities, np.float64)
         if vel.shape != (self._n, 3):
             raise ValueError("setVelocities: wrong shape")
         self._state["velocities"] = torch.as_tensor(
@@ -260,7 +342,8 @@ class Context:
 
     def _program(self) -> StepProgram:
         nb = self._nonbonded
-        key = (nb.capacity_scale, tuple(nb.box_widths))
+        key = (() if nb is None
+               else (nb.capacity_scale, tuple(nb.box_widths)))
         if key not in self._programs:
             self._programs[key] = StepProgram(self)
         return self._programs[key]
@@ -307,6 +390,7 @@ class Context:
             self._overflow = (self._tiles["overflow"].clone()
                               if self._tiles is not None
                               else torch.zeros_like(self._overflow))
+            self._deps.step.fill_(self._state["step"])
             state = self._state
             for _ in range(this):
                 state["positions"], state["velocities"] = self._step_fn(
@@ -320,19 +404,22 @@ class Context:
 
     # -- state -----------------------------------------------------------------
     def getState(self, getEnergy=False, getForces=False, getPositions=False,
-                 getVelocities=False) -> State:
+                 getVelocities=False, groups=-1) -> State:
+        """A State; energy and forces sum the forces in `groups`: a bit
+        mask (-1, the default: all) or a collection of group numbers."""
         s = self._state
         kw = {"time": s["time"], "step": s["step"],
               "box": s["box"].cpu().numpy()}
         if getEnergy or getForces:
             if not self._positions_set:
                 raise RuntimeError("Particle positions have not been set")
-            energy, forces = self._forces_for_step(s["positions"], s["box"])
+            energy, forces = self._forces_for_step(
+                s["positions"], s["box"], _group_mask(groups))
             if getEnergy:
                 kw["potential_energy"] = float(energy)
                 kw["kinetic_energy"] = self.kinetic_energy()
             if getForces:
-                kw["forces"] = forces.double().cpu().numpy()
+                kw["forces"] = forces.cpu().numpy()
         if getPositions:
             kw["positions"] = s["positions"].cpu().numpy()
         if getVelocities:
@@ -346,6 +433,10 @@ class Context:
 
     def temperature(self) -> float:
         """Instantaneous temperature from the kinetic energy, over the
-        3n - (constraints) degrees of freedom (no COM motion removal)."""
+        3n - (constraints) degrees of freedom, less 3 when a
+        CMMotionRemover holds the centre of mass still (as
+        StateDataReporter counts them)."""
         dof = 3 * self._n - self._system.getNumConstraints()
+        if self._has_cm_remover:
+            dof -= 3
         return 2.0 * self.kinetic_energy() / (dof * BOLTZ)

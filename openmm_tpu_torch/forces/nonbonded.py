@@ -26,13 +26,15 @@ from ..ops import geometry as geom
 from ..ops import pme as pme_mod
 from ..ops import pme_zslab
 from ..ops import tile_pairs
+from ..ops.accumulate import GatherSum
 from ..ops.pairs import build_exclusion_table
 from ..ops.tile_pairs import TWO_OVER_SQRT_PI
+from .base import Force
 
 NEIGHBOR_SKIN = 0.25     # nm; the JAX package's measured default
 
 
-class NonbondedForce:
+class NonbondedForce(Force):
     NoCutoff = 0
     CutoffNonPeriodic = 1
     CutoffPeriodic = 2
@@ -41,6 +43,7 @@ class NonbondedForce:
     LJPME = 5
 
     def __init__(self):
+        super().__init__()
         self._particles = []        # (charge, sigma, epsilon)
         self._exceptions = []       # (p1, p2, chargeProd, sigma, epsilon)
         self._exception_index = {}
@@ -179,12 +182,6 @@ def _exception_terms(pos, idx, cp, sig, eps):
     return e, dedr2, dr
 
 
-def exception_ef(pos, idx, cp, sig, eps):
-    """Exception pair terms as (energy, forces)."""
-    e, dedr2, dr = _exception_terms(pos, idx, cp, sig, eps)
-    return e.sum(dtype=torch.float64), _pair_forces(pos, idx, dedr2, dr)
-
-
 def exception_energy(pos, idx, cp, sig, eps):
     """Exception pair energy alone, differentiable in pos."""
     return _exception_terms(pos, idx, cp, sig, eps)[0].sum(
@@ -206,24 +203,23 @@ def _exclusion_terms(pos, box, idx, qq, alpha):
     return e, 0.5 * de_dr / r, dr
 
 
-def exclusion_correction_ef(pos, box, idx, qq, alpha):
-    """The Ewald exclusion correction as (energy, forces)."""
-    e, dedr2, dr = _exclusion_terms(pos, box, idx, qq, alpha)
-    return e.sum(dtype=torch.float64), _pair_forces(pos, idx, dedr2, dr)
-
-
 def exclusion_correction_energy(pos, box, idx, qq, alpha):
     """The Ewald exclusion correction alone, differentiable in pos."""
     return _exclusion_terms(pos, box, idx, qq, alpha)[0].sum(
         dtype=torch.float64)
 
 
-def _pair_forces(pos, idx, dedr2, dr):
-    f = -2.0 * dedr2[:, None] * dr
-    out = torch.zeros_like(pos)
-    out.index_add_(0, idx[:, 0], f)
-    out.index_add_(0, idx[:, 1], -f)
-    return out
+def exception_pairs_ef(pos, box, idx, cp, sig, eps, qq, alpha, gather):
+    """The exceptions and the Ewald exclusion correction over the same
+    pairs: (exception energy, correction energy, forces). Each atom's sum
+    of its pairs' forces is added by gathers in a fixed order (`gather`,
+    the GatherSum of idx; ops/accumulate.py): index_add_ adds in float
+    atomics on a card, whose order changes from run to run."""
+    e_exc, dedr2_exc, dr = _exception_terms(pos, idx, cp, sig, eps)
+    e_corr, dedr2_corr, dr_pbc = _exclusion_terms(pos, box, idx, qq, alpha)
+    f = -2.0 * (dedr2_exc[:, None] * dr + dedr2_corr[:, None] * dr_pbc)
+    return (e_exc.sum(dtype=torch.float64), e_corr.sum(dtype=torch.float64),
+            gather(torch.stack([f, -f], dim=1)))
 
 
 class NonbondedModule(nn.Module):
@@ -241,6 +237,8 @@ class NonbondedModule(nn.Module):
                 "this slice of the port runs NonbondedForce.PME only")
         n = force.getNumParticles()
         self.n = n
+        self.name = force.getName()
+        self.group = force.getForceGroup()
         self.plain = precision == "double"
         self.dtype = torch.float64 if self.plain else torch.float32
         box = np.asarray(box, np.float64)
@@ -274,6 +272,7 @@ class NonbondedModule(nn.Module):
         buf("exc_eps", ep[:, 2])
         buf("exc_qq", ONE_4PI_EPS0 * p[idx[:, 0], 0] * p[idx[:, 1], 0])
         buf("exclusions", build_exclusion_table(n, idx), torch.int32)
+        self.exc_gather = GatherSum(idx, n, device)
         md = pme_mod.make_pme_recip_data(self.grid, pme_zslab.ORDER)
         buf("bsq_x", md["bsq_x"])
         buf("bsq_y", md["bsq_y"])
@@ -316,14 +315,13 @@ class NonbondedModule(nn.Module):
             posd, self.charge, boxd, self.grid, self.alpha,
             (self.bsq_x, self.bsq_y, self.bsq_z), plain=self.plain,
             order=order)
-        e_exc, f_exc = exception_ef(posd, self.exc_idx, self.exc_cp,
-                                    self.exc_sigma, self.exc_eps)
-        e_corr, f_corr = exclusion_correction_ef(posd, boxd, self.exc_idx,
-                                                 self.exc_qq, self.alpha)
+        e_exc, e_corr, f_pairs = exception_pairs_ef(
+            posd, boxd, self.exc_idx, self.exc_cp, self.exc_sigma,
+            self.exc_eps, self.exc_qq, self.alpha, self.exc_gather)
         energy = (e_dir + e_rec.to(torch.float64) + e_exc + e_corr
                   + self.self_energy
                   + self.disp_coeff / geom.box_volume(box.to(torch.float64)))
-        forces = f + f_rec + f_exc + f_corr
+        forces = f + f_rec + f_pairs
         poison = torch.where(state["overflow"] > 0, math.nan, 0.0)
         return energy + poison, forces + poison.to(forces.dtype)
 

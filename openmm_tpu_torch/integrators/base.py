@@ -4,7 +4,11 @@ Counterpart of openmm_tpu/integrators/base.py. A Context hands its
 integrator a StepDeps bundle; the step function the integrator makes from
 it, step(positions, velocities, box) -> (positions, velocities), advances
 the device state by one step, and the Context advances the time and the
-step count on the host. The integrator's parameters (_params: the step
+step count on the host. The step also adds one to deps.step, the
+Context's step counter on the device, which the update hooks read (a
+captured step graph replays with the counter's address, so a host integer
+would be frozen at capture); the Context sets it from the host count
+before each chunk of steps. The integrator's parameters (_params: the step
 size first) reach the step as the device tensor deps.params, the
 counterpart of the JAX package's state["iparams"]: the Context writes them
 before it steps, so setStepSize and the like take effect at the next step
@@ -18,7 +22,7 @@ assignment) and forces are evaluated from its float32 image.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable
 
 import torch
@@ -38,6 +42,11 @@ class StepDeps:
     apply_velocity_constraints: Callable
     generator: torch.Generator
     params: torch.Tensor          # (len(_params()),) float64: _params()
+    # () int64 on the device: the steps completed before this one
+    step: torch.Tensor = None
+    # updateContextState hooks, hook(step, pos, vel) -> vel, run at the
+    # top of every step (the CMMotionRemover)
+    update_hooks: list = field(default_factory=list)
 
 
 class Integrator:

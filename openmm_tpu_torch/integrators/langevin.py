@@ -1,11 +1,12 @@
 """LangevinMiddleIntegrator: the LFMiddle (BAOAB) discretization.
 
 Counterpart of openmm_tpu/integrators/langevin.py (LangevinMiddleIntegrator,
-after langevinMiddle.cc): a full force kick, velocity constraints, half a
-drift, the Ornstein-Uhlenbeck step, half a drift, position constraints, and
-velocities corrected by the constraint correction alone (the round-5 drift
-fix). The noise comes from the Context's torch.Generator, so it does not
-reproduce the JAX package's jax.random stream.
+after langevinMiddle.cc): the update hooks (the CMMotionRemover), a full
+force kick, velocity constraints, half a drift, the Ornstein-Uhlenbeck
+step, half a drift, position constraints, and velocities corrected by the
+constraint correction alone (the round-5 drift fix). The noise comes from
+the Context's torch.Generator, so it does not reproduce the JAX package's
+jax.random stream.
 """
 from __future__ import annotations
 
@@ -41,6 +42,8 @@ class LangevinMiddleIntegrator(Integrator):
             vscale = torch.exp(-dt * friction)
             noisescale = torch.sqrt(BOLTZ * temperature
                                     * (1.0 - vscale * vscale))
+            for hook in deps.update_hooks:
+                vel = hook(deps.step, pos, vel)
             _, forces = deps.force_fn(pos, box)
             v = vel + dt * forces.to(vel.dtype) * inv_m
             v = deps.apply_velocity_constraints(pos, v)
@@ -51,6 +54,7 @@ class LangevinMiddleIntegrator(Integrator):
             new_pos, corr = deps.apply_position_constraints_corr(pos, new_raw)
             if corr is not None:
                 v_o = v_o + corr / dt
+            deps.step.add_(1)
             return new_pos, v_o
 
         return step

@@ -1,17 +1,43 @@
 """Programmatic system builders.
 
-Counterpart of openmm_tpu/models/builders.py: the same TIP3P water box,
-built with numpy from the same np.random.RandomState(jitter_seed) stream,
-so that the arrays are identical to the JAX builder's for the same seed.
+tip3p_water_box is the counterpart of openmm_tpu/models/builders.py: the
+same TIP3P water box, built with numpy from the same
+np.random.RandomState(jitter_seed) stream, so that the arrays are
+identical to the JAX builder's for the same seed.
+
+popc_bilayer is the pre-equilibrated POPC membrane patch that the JAX
+package's Modeller.addMembrane places (openmm_tpu/app/data/POPC.npz: 128
+POPC lipids and 5,120 TIP3P waters, 32,512 atoms) with the parameters of
+ForceField("amber14-lipid.json", "amber14-tip3p.json") at bench.py's
+settings (PME at 0.9 nm, HBonds constraints, a CMMotionRemover).
+data/popc_bilayer.npz holds the port's own copy of the coordinates and
+box, the template of each residue, and one template a molecule (a lipid,
+a water: masses, nonbonded parameters, bonds, angles, torsions,
+exceptions and constraints), which tests/torch_port_helpers.py made from
+the JAX ForceField and tests/test_torch_bilayer.py holds to it. No term
+crosses a residue, so the System is the templates replicated over the
+residues.
 """
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 
 from ..forces.nonbonded import NonbondedForce
-from ..system import System
+from ..system import System, from_numpy
+
+BILAYER_DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "data", "popc_bilayer.npz")
+TEMPLATES = ("lipid", "water")
+_ATOM_KEYS = ("masses", "charges", "sigma", "epsilon")
+# (atoms key, parameters key) of each term list of a template
+_TERM_KEYS = (("exception_pairs", "exception_params"),
+              ("constraint_pairs", "constraint_distances"),
+              ("bond_pairs", "bond_params"),
+              ("angle_triples", "angle_params"),
+              ("torsion_quads", "torsion_params"))
 
 # TIP3P parameters (tip3p.xml)
 TIP3P_O_CHARGE = -0.834
@@ -79,3 +105,47 @@ def tip3p_water_box(n_waters=216, cutoff=0.9, constraints=True,
                 rot = np.eye(3) + s * k + (1 - c) * (k @ k)
                 positions.append(ref @ rot.T + base)
     return system, np.concatenate(positions)
+
+
+def replicate_templates(data, residue_template) -> dict:
+    """The from_numpy dict of the residues whose templates (indices into
+    TEMPLATES) `residue_template` lists in order, from the template arrays
+    of `data` (the keys of popc_bilayer.npz): each residue's atoms follow
+    the last residue's, and its terms are its template's, moved to its
+    first atom, in the order of the residues."""
+    layout = np.asarray(residue_template, np.int64)
+    sizes = np.asarray([len(data[t + "_masses"]) for t in TEMPLATES])
+    offsets = np.concatenate([[0], np.cumsum(sizes[layout])[:-1]])
+    out = {key: np.concatenate([data[TEMPLATES[t] + "_" + key]
+                                for t in layout])
+           for key in _ATOM_KEYS}
+    for atoms_key, par_key in _TERM_KEYS:
+        atoms, pars, owner = [], [], []
+        for t, name in enumerate(TEMPLATES):
+            res = np.nonzero(layout == t)[0]
+            tmpl = data[name + "_" + atoms_key]
+            atoms.append((tmpl[None] + offsets[res, None, None])
+                         .reshape(-1, tmpl.shape[1]))
+            pars.append(np.tile(data[name + "_" + par_key],
+                                (len(res),) + (1,) * (data[
+                                    name + "_" + par_key].ndim - 1)))
+            owner.append(np.repeat(res, len(tmpl)))
+        order = np.argsort(np.concatenate(owner), kind="stable")
+        out[atoms_key] = np.concatenate(atoms)[order]
+        out[par_key] = np.concatenate(pars)[order]
+    for key in ("cutoff", "method", "ewald_tolerance",
+                "dispersion_correction", "switch_distance", "cmm_frequency"):
+        out[key] = data["nonbonded_" + key][()]
+    out["method"] = str(out["method"])
+    return out
+
+
+def popc_bilayer():
+    """The 32,512-atom POPC bilayer: (system, positions as an (n, 3)
+    float64 array in nm). The molecules are whole (positions unwrapped),
+    as the exceptions, computed without periodic images, need."""
+    with np.load(BILAYER_DATA) as f:
+        data = {k: f[k] for k in f.files}
+    params = replicate_templates(data, data["residue_template"])
+    params["box"] = np.diag(data["box"].astype(np.float64))
+    return from_numpy(params), data["positions"].astype(np.float64)

@@ -19,6 +19,48 @@ def periodic_delta(dr: torch.Tensor, box: torch.Tensor) -> torch.Tensor:
     return dr
 
 
+def delta(pos_i: torch.Tensor, pos_j: torch.Tensor,
+          box: torch.Tensor | None = None) -> torch.Tensor:
+    """pos_i - pos_j, at the minimum image when a box is given."""
+    dr = pos_i - pos_j
+    return dr if box is None else periodic_delta(dr, box)
+
+
+def bond_vectors(pos: torch.Tensor, idx: torch.Tensor,
+                 box: torch.Tensor | None = None) -> torch.Tensor:
+    """pos[idx[:, 0]] - pos[idx[:, 1]] for an (m, 2) index tensor."""
+    return delta(pos[idx[:, 0]], pos[idx[:, 1]], box)
+
+
+def distance(dr: torch.Tensor, eps: float = 1e-24) -> torch.Tensor:
+    """|dr| with its square clamped at eps, so that coincident points give
+    a zero gradient and not NaN."""
+    return torch.sqrt(torch.clamp((dr * dr).sum(dim=-1), min=eps))
+
+
+def angle_between(v1: torch.Tensor, v2: torch.Tensor) -> torch.Tensor:
+    """The angle between v1 and v2 as atan2(|v1 x v2|, v1 . v2)."""
+    cross = torch.linalg.cross(v1, v2)
+    return torch.atan2(torch.sqrt((cross * cross).sum(dim=-1)),
+                       (v1 * v2).sum(dim=-1))
+
+
+def dihedral_angle(r1, r2, r3, r4, box=None) -> torch.Tensor:
+    """The signed dihedral 1-2-3-4 as atan2((n1 x n2) . b2/|b2|, n1 . n2),
+    n1 = b1 x b2, n2 = b2 x b3 with b1 = r2 - r1, b2 = r3 - r2,
+    b3 = r4 - r3: the sign convention of the JAX package (and of
+    ReferenceBondIxn::getDihedralAngleBetweenThreeVectors)."""
+    b1 = delta(r2, r1, box)
+    b2 = delta(r3, r2, box)
+    b3 = delta(r4, r3, box)
+    n1 = torch.linalg.cross(b1, b2)
+    n2 = torch.linalg.cross(b2, b3)
+    b2n = b2 / torch.linalg.vector_norm(b2, dim=-1, keepdim=True)
+    x = (n1 * n2).sum(dim=-1)
+    y = (torch.linalg.cross(n1, n2) * b2n).sum(dim=-1)
+    return torch.atan2(y, x)
+
+
 def box_volume(box: torch.Tensor) -> torch.Tensor:
     return box[0, 0] * box[1, 1] * box[2, 2]
 

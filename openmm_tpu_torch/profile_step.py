@@ -2,17 +2,23 @@
 objective, spends its time.
 
     python3 -m openmm_tpu_torch.profile_step [--steps 50] [--device cuda]
+    python3 -m openmm_tpu_torch.profile_step --system bilayer [--steps 50]
     python3 -m openmm_tpu_torch.profile_step --minimizer [--evaluations 20]
+        [--system bilayer]
 
-Builds the 24,000-atom TIP3P PME box. By default it relaxes the lattice
-start briefly, then, from one snapshot, times `--steps` LangevinMiddle
-steps at 2 fs twice: through the Context's step program ("graph": a
-replay of the captured CUDA graph a step) and through the eager loop it
-replaced ("eager": Context._step_eager), each untraced and then again
-under torch.profiler (host and CUDA activity). With --minimizer it times
-`--evaluations` evaluations of the minimizer's objective
-(Context._make_position_energy_fn: energy and forces by autograd through
-kernels 1, 4 and 5) at the lattice start the same way. Prints one JSON
+Builds the 24,000-atom TIP3P PME box (--system water, the default) or
+the 32,512-atom POPC bilayer (--system bilayer: amber14-lipid + TIP3P,
+bonded forces, a CMMotionRemover, SETTLE and SHAKE). By default it
+relaxes the start briefly (the water box from its lattice, the bilayer
+after applyConstraints at 303.15 K), then, from one snapshot, times
+`--steps` LangevinMiddle steps at 2 fs twice: through the Context's step
+program ("graph": a replay of the captured CUDA graph a step) and through
+the eager loop it replaced ("eager": Context._step_eager), each untraced
+and then again under torch.profiler (host and CUDA activity). With
+--minimizer it times `--evaluations` evaluations of the minimizer's
+objective (Context._make_position_energy_fn: energy and forces by
+autograd through kernels 1, 4 and 5, and the bonded forces) at the
+starting positions the same way. Prints one JSON
 object: for each path (or the objective), wall ms per step (or
 evaluation) with and without the profiler, the host CPU time of this
 process per untraced unit (near the wall time when the host is what
@@ -36,7 +42,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from . import Context, LangevinMiddleIntegrator
-from .models import tip3p_water_box
+from .models import popc_bilayer, tip3p_water_box
 from .step_program import GATING
 
 
@@ -92,6 +98,13 @@ def _window(run, count, device, unit, top, issued=None) -> dict:
     return out
 
 
+def _system(name, n_waters):
+    """(system, positions, temperature K) of --system."""
+    if name == "bilayer":
+        return (*popc_bilayer(), 303.15)
+    return (*tip3p_water_box(n_waters), 300.0)
+
+
 def _context(device, system, integ):
     return Context(system, integ, "CUDA" if device.type == "cuda" else "CPU")
 
@@ -101,22 +114,23 @@ def _device_name(device):
             else "cpu")
 
 
-def profile_steps(device, n_waters=8000, steps=50, top=20) -> dict:
-    system, positions = tip3p_water_box(n_waters)
-    integ = LangevinMiddleIntegrator(300.0, 50.0, 0.0005)
+def profile_steps(device, n_waters=8000, steps=50, top=20,
+                  system_name="water") -> dict:
+    system, positions, temperature = _system(system_name, n_waters)
+    integ = LangevinMiddleIntegrator(temperature, 50.0, 0.0005)
     integ.setRandomNumberSeed(3)
     ctx = _context(device, system, integ)
     ctx.setPositions(positions)
     ctx.applyConstraints()
-    ctx.setVelocitiesToTemperature(300.0, randomSeed=1)
+    ctx.setVelocitiesToTemperature(temperature, randomSeed=1)
     integ.step(300)
     integ.setStepSize(0.002)
     integ.setFriction(1.0)
     integ.step(20)
     start = ctx._snapshot()
-    out = {"device": _device_name(device),
+    out = {"device": _device_name(device), "system": system_name,
            "atoms": system.getNumParticles(), "steps": steps,
-           "gating": GATING}
+           "gating": GATING, "escalations": ctx.escalation_count}
     for path, step in (("graph", integ.step), ("eager", ctx._step_eager)):
         ctx._restore(start)
         rebuilds = []
@@ -132,11 +146,11 @@ def profile_steps(device, n_waters=8000, steps=50, top=20) -> dict:
     return out
 
 
-def profile_objective(device, n_waters=8000, evaluations=20,
-                      top=20) -> dict:
-    system, positions = tip3p_water_box(n_waters)
+def profile_objective(device, n_waters=8000, evaluations=20, top=20,
+                      system_name="water") -> dict:
+    system, positions, temperature = _system(system_name, n_waters)
     ctx = _context(device, system,
-                   LangevinMiddleIntegrator(300.0, 1.0, 0.002))
+                   LangevinMiddleIntegrator(temperature, 1.0, 0.002))
     ctx.setPositions(positions)
     evaluate = ctx._make_position_energy_fn()
     evaluate(positions)                     # builds the kernels
@@ -146,7 +160,7 @@ def profile_objective(device, n_waters=8000, evaluations=20,
             evaluate(positions)
 
     window = _window(run, evaluations, device, "evaluation", top)
-    return {"device": _device_name(device),
+    return {"device": _device_name(device), "system": system_name,
             "atoms": system.getNumParticles(), "evaluations": evaluations,
             **window}
 
@@ -158,15 +172,21 @@ def main() -> None:
                         help="profile the minimizer's objective instead")
     parser.add_argument("--evaluations", type=int, default=20)
     parser.add_argument("--waters", type=int, default=8000)
+    parser.add_argument("--system", choices=("water", "bilayer"),
+                        default="water",
+                        help="the system whose MD step (or objective) is "
+                        "profiled")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args()
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is visible to torch")
     if args.minimizer:
-        out = profile_objective(device, args.waters, args.evaluations)
+        out = profile_objective(device, args.waters, args.evaluations,
+                                system_name=args.system)
     else:
-        out = profile_steps(device, args.waters, args.steps)
+        out = profile_steps(device, args.waters, args.steps,
+                            system_name=args.system)
     print(json.dumps(out))
 
 

@@ -49,8 +49,10 @@ class StepProgram:
         self.pos = state["positions"].clone()
         self.vel = state["velocities"].clone()
         self.ref_pos = torch.full_like(self.pos, math.inf)
+        self._nonbonded = context._nonbonded
         # buffers of the candidate state's shapes at this capacity
-        self.tiles = context._nonbonded.build_state(self.pos, self.box)
+        self.tiles = (None if self._nonbonded is None
+                      else self._nonbonded.build_state(self.pos, self.box))
         # [capacity overflow, rebuilds] of the chunk
         self.counters = torch.zeros(2, dtype=torch.int64,
                                     device=self.pos.device)
@@ -65,11 +67,11 @@ class StepProgram:
             self.capture_seconds = time.perf_counter() - t0
 
     def _forces(self, pos, box):
-        return self._ctx._nonbonded(pos, box, self.tiles)
+        return self._ctx._evaluate(pos, box, self.tiles)
 
     def rebuild(self) -> None:
         """Build a candidate state at the current positions and commit it."""
-        st = self._ctx._nonbonded.build_state(self.pos, self.box)
+        st = self._nonbonded.build_state(self.pos, self.box)
         for key, buf in self.tiles.items():
             buf.copy_(st[key])
         self.ref_pos.copy_(self.pos)
@@ -78,7 +80,8 @@ class StepProgram:
 
     def body(self, gate) -> None:
         """One MD step; gate(pred) runs rebuild() where pred holds."""
-        gate(needs_rebuild(self.pos, self.ref_pos, self._ctx._nonbonded.skin))
+        if self._nonbonded is not None:
+            gate(needs_rebuild(self.pos, self.ref_pos, self._nonbonded.skin))
         pos, vel = self._step_fn(self.pos, self.vel, self.box)
         self.pos.copy_(pos)
         self.vel.copy_(vel)
@@ -115,9 +118,10 @@ class StepProgram:
         torch.cuda.current_stream(dev).wait_stream(stream)
         gen.set_state(gen_state)
         warm = [k.launches for k in _build.KERNELS]
-        self._rebuild_graph = torch.cuda.CUDAGraph(keep_graph=True)
-        with torch.cuda.graph(self._rebuild_graph, stream=stream):
-            self.rebuild()
+        if self._nonbonded is not None:
+            self._rebuild_graph = torch.cuda.CUDAGraph(keep_graph=True)
+            with torch.cuda.graph(self._rebuild_graph, stream=stream):
+                self.rebuild()
         if [k.launches for k in _build.KERNELS] != warm:
             raise RuntimeError("a counted kernel launches under the rebuild "
                                "gate: its launches per replay are unknown")
@@ -136,14 +140,18 @@ class StepProgram:
         """Copy the Context's state into the buffers (where it is not
         already there) and start the chunk's counters: the overflow at that
         of the candidate state the chunk starts from, as the eager loop
-        does; no candidate state makes the first step rebuild."""
+        does; no candidate state makes the first step rebuild. The
+        Context's device step counter starts at its host count."""
         ctx = self._ctx
         state = ctx._state
         for buf, value in ((self.pos, state["positions"]),
                            (self.vel, state["velocities"])):
             if value is not buf:
                 buf.copy_(value)
+        ctx._deps.step.fill_(state["step"])
         self.counters.zero_()
+        if self._nonbonded is None:
+            return
         if ctx._tiles is None:
             self.ref_pos.fill_(math.inf)
             return

@@ -1,14 +1,18 @@
 """System: particles, masses, constraints, the periodic box and forces.
 
 Counterpart of openmm_tpu/system.py. This slice has no unit system: masses
-in amu, distances in nm. `from_numpy` and `to_numpy` carry the parameters of
-a System with one NonbondedForce across as plain numpy arrays, which is how
-the tests hand the same system to this package and to the JAX package.
+in amu, distances in nm, angles in rad. `from_numpy` and `to_numpy` carry
+the parameters of a System across as plain numpy arrays, which is how the
+tests hand the same system to this package and to the JAX package.
 """
 from __future__ import annotations
 
 import numpy as np
 
+from .forces.bonded import (CMAPTorsionForce, HarmonicAngleForce,
+                            HarmonicBondForce, PeriodicTorsionForce,
+                            RBTorsionForce)
+from .forces.cmmotion import CMMotionRemover
 from .forces.nonbonded import NonbondedForce
 
 _METHODS = {"NoCutoff": NonbondedForce.NoCutoff,
@@ -76,13 +80,42 @@ class System:
         return self._box.copy()
 
 
+# the forces from_numpy and to_numpy carry besides the NonbondedForce, at
+# most one of each kind: (kind, class, the methods that count, add and
+# read back its terms, its arrays' keys and widths: atoms and parameters
+# a term)
+_BONDED = (("bond", HarmonicBondForce,
+            ("getNumBonds", "addBond", "getBondParameters"),
+            "bond_pairs", 2, "bond_params", 2),
+           ("angle", HarmonicAngleForce,
+            ("getNumAngles", "addAngle", "getAngleParameters"),
+            "angle_triples", 3, "angle_params", 2),
+           ("torsion", PeriodicTorsionForce,
+            ("getNumTorsions", "addTorsion", "getTorsionParameters"),
+            "torsion_quads", 4, "torsion_params", 3),
+           ("rb", RBTorsionForce,
+            ("getNumTorsions", "addTorsion", "getTorsionParameters"),
+            "rb_quads", 4, "rb_params", 6))
+
+
 def from_numpy(params: dict) -> System:
-    """A System with one NonbondedForce from a dict of numpy arrays:
-    masses, charges, sigma, epsilon (n,); exception_pairs (m, 2) and
-    exception_params (m, 3) = (chargeProd, sigma, epsilon);
+    """A System from a dict of numpy arrays.
+
+    Always: masses, charges, sigma, epsilon (n,); exception_pairs (m, 2)
+    and exception_params (m, 3) = (chargeProd, sigma, epsilon);
     constraint_pairs (k, 2) and constraint_distances (k,); box (3, 3);
     cutoff, method (a NonbondedForce method name), ewald_tolerance,
-    dispersion_correction, switch_distance (negative: no switch)."""
+    dispersion_correction, switch_distance (negative: no switch), which
+    make one NonbondedForce.
+    Each present key adds a force: bond_pairs (m, 2) with bond_params
+    (length, k); angle_triples (m, 3) with angle_params (angle, k);
+    torsion_quads (m, 4) with torsion_params (periodicity, phase, k);
+    rb_quads (m, 4) with rb_params (c0..c5); cmap_sizes (maps,),
+    cmap_energies (the maps' energies one after another) and
+    cmap_torsions (m, 9) = (map, a1..a4, b1..b4); cmm_frequency (a
+    CMMotionRemover). force_groups maps a force's kind ("nonbonded",
+    "bond", "angle", "torsion", "rb", "cmap", "cmm") to its group where
+    that is not 0."""
     system = System()
     for m in np.asarray(params["masses"], np.float64):
         system.addParticle(m)
@@ -90,6 +123,7 @@ def from_numpy(params: dict) -> System:
                          np.asarray(params["constraint_distances"])):
         system.addConstraint(i, j, d)
     system.setDefaultPeriodicBoxVectors(*np.asarray(params["box"]))
+    groups = params.get("force_groups", {})
     nb = NonbondedForce()
     nb.setNonbondedMethod(_METHODS[params["method"]])
     nb.setCutoffDistance(params["cutoff"])
@@ -104,13 +138,42 @@ def from_numpy(params: dict) -> System:
             np.asarray(params["exception_pairs"]).reshape(-1, 2),
             np.asarray(params["exception_params"]).reshape(-1, 3)):
         nb.addException(i, j, cp, s, e)
+    nb.setForceGroup(groups.get("nonbonded", 0))
     system.addForce(nb)
+    for kind, cls, (_, add, _), atoms_key, n_atoms, par_key, n_par \
+            in _BONDED:
+        if atoms_key not in params:
+            continue
+        force = cls()
+        atoms = np.asarray(params[atoms_key]).reshape(-1, n_atoms)
+        par = np.asarray(params[par_key]).reshape(-1, n_par)
+        for a, p in zip(atoms, par):
+            getattr(force, add)(*(int(x) for x in a), *p)
+        force.setForceGroup(groups.get(kind, 0))
+        system.addForce(force)
+    if "cmap_torsions" in params:
+        cmap = CMAPTorsionForce()
+        energies = np.asarray(params["cmap_energies"], np.float64)
+        start = 0
+        for size in np.asarray(params["cmap_sizes"], np.int64):
+            cmap.addMap(int(size), energies[start:start + size * size])
+            start += size * size
+        for t in np.asarray(params["cmap_torsions"]).reshape(-1, 9):
+            cmap.addTorsion(*(int(x) for x in t))
+        cmap.setForceGroup(groups.get("cmap", 0))
+        system.addForce(cmap)
+    if "cmm_frequency" in params:
+        cmm = CMMotionRemover(int(params["cmm_frequency"]))
+        cmm.setForceGroup(groups.get("cmm", 0))
+        system.addForce(cmm)
     return system
 
 
 def to_numpy(system: System) -> dict:
-    """The inverse of from_numpy for a System with one NonbondedForce."""
-    (nb,) = [f for f in system.getForces() if isinstance(f, NonbondedForce)]
+    """The inverse of from_numpy for a System with one NonbondedForce and
+    at most one force of each other kind."""
+    forces = system.getForces()
+    (nb,) = [f for f in forces if isinstance(f, NonbondedForce)]
     part = np.asarray([nb.getParticleParameters(i)
                        for i in range(nb.getNumParticles())],
                       np.float64).reshape(-1, 3)
@@ -118,7 +181,7 @@ def to_numpy(system: System) -> dict:
     cons = [system.getConstraintParameters(i)
             for i in range(system.getNumConstraints())]
     method = {v: k for k, v in _METHODS.items()}[nb.getNonbondedMethod()]
-    return {
+    out = {
         "masses": np.asarray([system.getParticleMass(i) for i in
                               range(system.getNumParticles())], np.float64),
         "charges": part[:, 0], "sigma": part[:, 1], "epsilon": part[:, 2],
@@ -136,3 +199,35 @@ def to_numpy(system: System) -> dict:
         "switch_distance": (nb.getSwitchingDistance()
                             if nb.getUseSwitchingFunction() else -1.0),
     }
+    groups = {"nonbonded": nb.getForceGroup()}
+    for kind, cls, (count, _, get), atoms_key, n_atoms, par_key, n_par \
+            in _BONDED:
+        (force,) = [f for f in forces if type(f) is cls] or (None,)
+        if force is None:
+            continue
+        terms = [getattr(force, get)(i)
+                 for i in range(getattr(force, count)())]
+        out[atoms_key] = np.asarray([t[:n_atoms] for t in terms],
+                                    np.int64).reshape(-1, n_atoms)
+        out[par_key] = np.asarray([t[n_atoms:] for t in terms],
+                                  np.float64).reshape(-1, n_par)
+        groups[kind] = force.getForceGroup()
+    for force in forces:
+        if isinstance(force, CMAPTorsionForce):
+            maps = [force.getMapParameters(i)
+                    for i in range(force.getNumMaps())]
+            out["cmap_sizes"] = np.asarray([m[0] for m in maps], np.int64)
+            out["cmap_energies"] = np.asarray(
+                [e for m in maps for e in m[1]], np.float64)
+            out["cmap_torsions"] = np.asarray(
+                [force.getTorsionParameters(i)
+                 for i in range(force.getNumTorsions())],
+                np.int64).reshape(-1, 9)
+            groups["cmap"] = force.getForceGroup()
+        elif isinstance(force, CMMotionRemover):
+            out["cmm_frequency"] = force.getFrequency()
+            groups["cmm"] = force.getForceGroup()
+    groups = {k: g for k, g in groups.items() if g}
+    if groups:
+        out["force_groups"] = groups
+    return out

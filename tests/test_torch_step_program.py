@@ -11,7 +11,10 @@ from the generator. At zero friction it must match the JAX package's
 test_zero_friction_trajectory_matches_jax does, over a run with rebuilds
 (the bar and its reasoning are that test's: 1e-5 nm after 20 steps). And
 the step body must read nothing back from the device: run on fake tensors
-it raises at any .item(), bool(), .tolist() or data-dependent shape."""
+it raises at any .item(), bool(), .tolist() or data-dependent shape. The
+same holds on the cropped POPC bilayer of tests/test_torch_bilayer.py
+(2,296 atoms), whose step adds the bonded forces, SHAKE, CCMA and a
+CMMotionRemover."""
 import numpy as np
 import pytest
 import torch
@@ -25,7 +28,7 @@ import chip_smoke
 import openmm_tpu_torch as omm
 from openmm_tpu_torch import step_program
 from openmm_tpu_torch.models import tip3p_water_box
-from torch_port_helpers import system_params
+from torch_port_helpers import cropped_bilayer, system_params
 
 N_WATERS = 343
 
@@ -167,3 +170,68 @@ def test_chip_smoke_step_program_phase_on_cpu():
     assert out["double_err"] == 0.0          # the CPU adds in one order
     # CPU tensors take the plain versions: no kernel launched
     assert set(out["graph"]["launches"].values()) == {0}
+
+
+def _bilayer_context(cmm_frequency=3):
+    """A Context ("CPU", mixed) on the cropped POPC bilayer of
+    tests/test_torch_bilayer.py with every part of the bilayer's step and
+    CCMA besides: four heavy-atom bonds of the first lipid become
+    constraints too, which takes their carbons' hydrogens out of SHAKE
+    into CCMA. Constrained positions, velocities at 300 K."""
+    jsys, pos, _ = cropped_bilayer()
+    params = dict(system_params(jsys), cmm_frequency=cmm_frequency)
+    heavy = params["masses"] > 2.0
+    bonds, lengths = params["bond_pairs"], params["bond_params"][:, 0]
+    pick = np.nonzero(heavy[bonds].all(axis=1) & (bonds < 134).all(
+        axis=1))[0][:4]
+    params["constraint_pairs"] = np.concatenate(
+        [params["constraint_pairs"], bonds[pick]])
+    params["constraint_distances"] = np.concatenate(
+        [params["constraint_distances"], lengths[pick]])
+    integ = omm.LangevinMiddleIntegrator(300.0, 1.0, 0.002)
+    integ.setRandomNumberSeed(17)
+    ctx = omm.Context(omm.from_numpy(params), integ, "CPU")
+    settle, shake, ccma = ctx.constraint_split
+    assert settle > 0 and shake > 0 and ccma > 4
+    ctx.setPositions(pos)
+    ctx.applyConstraints()
+    ctx.setVelocitiesToTemperature(300.0, randomSeed=4)
+    return ctx, integ
+
+
+def test_bilayer_program_matches_eager_loop_bitwise():
+    """The bonded forces, SETTLE, SHAKE, CCMA and a CMMotionRemover of
+    frequency 3 on the cropped bilayer: 8 steps in one call through the
+    program, through the eager loop, and one a call through the program
+    (the device step counter set from the host each call), give the same
+    bits; the remover fires inside the chunk on steps 0, 3 and 6, so a
+    counter frozen in the chunk would change them."""
+    runs = []
+    for mode in ("program", "eager", "one a call"):
+        ctx, integ = _bilayer_context()
+        if mode == "program":
+            integ.step(8)
+        elif mode == "eager":
+            ctx._step_eager(8)
+        else:
+            for _ in range(8):
+                integ.step(1)
+        assert int(ctx._deps.step) == ctx.getStepCount() == 8
+        runs.append(_dynamic_state(ctx))
+    for other in runs[1:]:
+        for got, want in zip(runs[0], other):
+            if torch.is_tensor(got):
+                assert torch.equal(got, want)
+            else:
+                assert got == want
+
+
+def test_bilayer_step_body_reads_nothing_from_the_device():
+    """The step body of the cropped bilayer with CCMA and the remover on
+    fake tensors (the build run, as before a capture): no host read."""
+    ctx, integ = _bilayer_context()
+    integ.step(1)
+    program = ctx._program()
+    assert ctx._deps.update_hooks and ctx._ccma is not None
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        program.body(program.gate_always)

@@ -2,17 +2,29 @@
 
 The only place the two packages meet: system parameters cross from the JAX
 package's System (read through its getters) into the port as the plain
-numpy dict that openmm_tpu_torch.from_numpy takes.
+numpy dict that openmm_tpu_torch.from_numpy takes. The POPC bilayer's
+templates (openmm_tpu_torch/models/data/popc_bilayer.npz) are made here
+from the JAX package's ForceField:
+
+    python tests/torch_port_helpers.py
+
+writes that file anew.
 
 Importing it caps torch at one intra-op thread: the test runner starts
 several worker processes, and torch's default of a thread per core in each
 of them oversubscribes the cores many times over.
 """
+import os
+import sys
+
 import numpy as np
 import torch
 
 from openmm_tpu import unit as u
-from openmm_tpu.forces import NonbondedForce
+from openmm_tpu.forces import (CMAPTorsionForce, CMMotionRemover,
+                               HarmonicAngleForce, HarmonicBondForce,
+                               NonbondedForce, PeriodicTorsionForce,
+                               RBTorsionForce)
 
 torch.set_num_threads(1)
 
@@ -23,10 +35,23 @@ _METHOD_NAMES = {NonbondedForce.NoCutoff: "NoCutoff",
                  NonbondedForce.LJPME: "LJPME"}
 
 
+# (kind, JAX class, its term list, atoms a term, from_numpy's keys)
+_BONDED = (("bond", HarmonicBondForce, "_bonds", 2, "bond_pairs",
+            "bond_params"),
+           ("angle", HarmonicAngleForce, "_angles", 3, "angle_triples",
+            "angle_params"),
+           ("torsion", PeriodicTorsionForce, "_torsions", 4, "torsion_quads",
+            "torsion_params"),
+           ("rb", RBTorsionForce, "_torsions", 4, "rb_quads", "rb_params"))
+
+
 def system_params(system):
     """The from_numpy dict of a JAX-package System with one
-    NonbondedForce."""
-    (nb,) = [f for f in system.getForces() if isinstance(f, NonbondedForce)]
+    NonbondedForce and at most one force of each bonded kind and one
+    CMMotionRemover (the term lists hold plain floats in nm, rad and
+    kJ/mol)."""
+    forces = system.getForces()
+    (nb,) = [f for f in forces if isinstance(f, NonbondedForce)]
     n = system.getNumParticles()
     masses = np.array([u.strip(system.getParticleMass(i), u.dalton)
                        for i in range(n)], np.float64)
@@ -38,7 +63,7 @@ def system_params(system):
     box = np.array([u.strip(v, u.nanometer)
                     for v in system.getDefaultPeriodicBoxVectors()],
                    np.float64)
-    return {
+    out = {
         "masses": masses,
         "charges": part[:, 0], "sigma": part[:, 1], "epsilon": part[:, 2],
         "exception_pairs": np.array([e[:2] for e in exc],
@@ -59,6 +84,33 @@ def system_params(system):
                                           u.nanometer))
                             if nb.getUseSwitchingFunction() else -1.0),
     }
+    groups = {"nonbonded": nb.getForceGroup()}
+    for kind, cls, terms, k, atoms_key, par_key in _BONDED:
+        (force,) = [f for f in forces if type(f) is cls] or (None,)
+        if force is None:
+            continue
+        rows = getattr(force, terms)
+        out[atoms_key] = np.array([t[:k] for t in rows],
+                                  np.int64).reshape(len(rows), k)
+        out[par_key] = np.array([t[k:] for t in rows],
+                                np.float64).reshape(len(rows), -1)
+        groups[kind] = force.getForceGroup()
+    for force in forces:
+        if isinstance(force, CMAPTorsionForce):
+            out["cmap_sizes"] = np.array([m[0] for m in force._maps],
+                                         np.int64)
+            out["cmap_energies"] = np.array(
+                [e for m in force._maps for e in m[1]], np.float64)
+            out["cmap_torsions"] = np.array(force._torsions,
+                                            np.int64).reshape(-1, 9)
+            groups["cmap"] = force.getForceGroup()
+        elif isinstance(force, CMMotionRemover):
+            out["cmm_frequency"] = force.getFrequency()
+            groups["cmm"] = force.getForceGroup()
+    groups = {kind: g for kind, g in groups.items() if g}
+    if groups:
+        out["force_groups"] = groups
+    return out
 
 
 def median_relative_error(forces, reference):
@@ -68,3 +120,165 @@ def median_relative_error(forces, reference):
     norm = np.where(norm == 0.0, 1.0, norm)
     return float(np.median(np.linalg.norm(
         np.asarray(forces, np.float64) - ref, axis=1) / norm))
+
+
+# -- the POPC bilayer ---------------------------------------------------
+BILAYER_FORCEFIELD = ("amber14-lipid.json", "amber14-tip3p.json")
+BILAYER_DATA = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "openmm_tpu_torch", "models", "data",
+    "popc_bilayer.npz")
+
+
+def jax_bilayer_system(topology):
+    """The JAX ForceField's System for a topology cut from the POPC patch,
+    with bench.py's settings: PME at 0.9 nm, HBonds constraints."""
+    from openmm_tpu import app
+    ff = app.ForceField(*BILAYER_FORCEFIELD)
+    return ff.createSystem(topology, nonbondedMethod=app.PME,
+                           nonbondedCutoff=0.9 * u.nanometer,
+                           constraints=app.HBonds)
+
+
+def _sub_topology(top, pos, residues, box):
+    """A Topology of `residues` of `top` (bonds inside them kept) in a
+    box of widths `box`, and their positions (an (n, 3) array in nm)."""
+    from openmm_tpu import app
+    from openmm_tpu.vec3 import Vec3
+    new = app.Topology()
+    new.setPeriodicBoxVectors(u.Quantity(
+        (Vec3(box[0], 0, 0), Vec3(0, box[1], 0), Vec3(0, 0, box[2])),
+        u.nanometer))
+    chain = new.addChain("A")
+    amap, out = {}, []
+    for res in residues:
+        nr = new.addResidue(res.name, chain, res.id)
+        for a in res.atoms():
+            amap[a] = new.addAtom(a.name, a.element, nr)
+            out.append(pos[a.index])
+    for b in top.bonds():
+        if b[0] in amap and b[1] in amap:
+            new.addBond(amap[b[0]], amap[b[1]])
+    return new, np.asarray(out, np.float64)
+
+
+def bilayer_templates():
+    """The per-molecule templates of the POPC patch
+    (openmm_tpu/app/data/POPC.npz), from the JAX ForceField on a topology
+    of its first lipid and its first water: {"<template>_<key>": array}
+    with the template "lipid" or "water" and the keys of from_numpy's
+    per-atom arrays and term lists (term atoms counted from the
+    template's first atom), and "nonbonded_<key>" for the settings of the
+    NonbondedForce and the CMMotionRemover's frequency."""
+    from openmm_tpu.app.modeller import _load_membrane_patch
+    top, pos, box = _load_membrane_patch("POPC")
+    residues = list(top.residues())
+    lipid = next(r for r in residues if r.name != "HOH")
+    water = next(r for r in residues if r.name == "HOH")
+    sub, _ = _sub_topology(top, pos, (lipid, water), box)
+    params = system_params(jax_bilayer_system(sub))
+    n_lipid = len(list(lipid.atoms()))
+    spans = {"lipid": (0, n_lipid), "water": (n_lipid,
+                                              len(params["masses"]))}
+    out = {}
+    for name, (lo, hi) in spans.items():
+        for key in ("masses", "charges", "sigma", "epsilon"):
+            out["%s_%s" % (name, key)] = params[key][lo:hi]
+        for atoms_key, par_key in (
+                ("exception_pairs", "exception_params"),
+                ("constraint_pairs", "constraint_distances"),
+                ("bond_pairs", "bond_params"),
+                ("angle_triples", "angle_params"),
+                ("torsion_quads", "torsion_params")):
+            atoms = params[atoms_key]
+            inside = (atoms >= lo).all(axis=1) & (atoms < hi).all(axis=1)
+            assert (inside | (atoms < lo).all(axis=1)
+                    | (atoms >= hi).all(axis=1)).all(), atoms_key
+            out["%s_%s" % (name, atoms_key)] = atoms[inside] - lo
+            out["%s_%s" % (name, par_key)] = params[par_key][inside]
+    for key in ("cutoff", "method", "ewald_tolerance",
+                "dispersion_correction", "switch_distance", "cmm_frequency"):
+        out["nonbonded_" + key] = np.asarray(params[key])
+    return out
+
+
+def write_bilayer_data(path=BILAYER_DATA):
+    """popc_bilayer.npz: bilayer_templates(), the patch's coordinates and
+    box (a copy of openmm_tpu/app/data/POPC.npz's) and the template of
+    each residue in order (0 lipid, 1 water)."""
+    from openmm_tpu.app.modeller import _load_membrane_patch
+    patch = np.load(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "openmm_tpu", "app", "data",
+        "POPC.npz"))
+    top, _, _ = _load_membrane_patch("POPC")
+    layout = np.array([r.name == "HOH" for r in top.residues()], np.int8)
+    np.savez_compressed(path, positions=patch["positions"],
+                        box=patch["box_nm"], residue_template=layout,
+                        **bilayer_templates())
+
+
+if __name__ == "__main__":
+    write_bilayer_data(sys.argv[1] if len(sys.argv) > 1 else BILAYER_DATA)
+
+
+_CROPPED = {}
+# closest approach of two atoms of different residues that the cropped
+# bilayer keeps: a pair with a hydrogen (a water's hydrogen bond is ~0.18
+# nm), a pair of heavy atoms (a hydrogen-bonded O-O is ~0.27 nm)
+_CLASH_H, _CLASH_HEAVY = 0.15, 0.25
+
+
+def _cropped_patch(fraction):
+    """(Topology, positions (n, 3) nm, layout (0 lipid, 1 water)) of the
+    POPC patch's residues whose centre lies in the first `fraction` of x
+    and y, in a box of those widths (z kept). Cropping breaks the patch's
+    periodicity, so residues that clash through the new box are dropped
+    (the dynamics must start from a sane configuration): two residues
+    clash when two of their atoms come closer than _CLASH_H (with a
+    hydrogen) or _CLASH_HEAVY (heavy atoms); of a clashing pair with a
+    water the water goes, then the lipid with the most clashes left, until
+    none is left."""
+    from openmm_tpu.app.modeller import _load_membrane_patch
+    top, pos, box = _load_membrane_patch("POPC")
+    pos = np.asarray(pos, np.float64)
+    nbox = np.array([box[0] * fraction, box[1] * fraction, box[2]])
+    keep = []
+    for res in top.residues():
+        com = pos[[a.index for a in res.atoms()]].mean(axis=0)
+        if com[0] < nbox[0] and com[1] < nbox[1]:
+            keep.append(res)
+    atoms = [a for r in keep for a in r.atoms()]
+    owner = np.array([k for k, r in enumerate(keep) for _ in r.atoms()])
+    heavy = np.array([a.element.symbol != "H" for a in atoms])
+    p = pos[[a.index for a in atoms]]
+    d = p[:, None, :] - p[None]
+    d -= np.round(d / nbox) * nbox
+    limit = np.where(heavy[:, None] & heavy[None], _CLASH_HEAVY, _CLASH_H)
+    bad = ((d * d).sum(axis=-1) < limit * limit) & (owner[:, None]
+                                                     != owner[None])
+    i, j = np.nonzero(bad)
+    pairs = {(a, b) for a, b in zip(owner[i], owner[j]) if a < b}
+    water = [r.name == "HOH" for r in keep]
+    dropped = {b if water[b] else a for a, b in pairs if water[a] or water[b]}
+    pairs = {(a, b) for a, b in pairs if not {a, b} & dropped}
+    while pairs:
+        degree = {}
+        for a, b in pairs:
+            degree[a] = degree.get(a, 0) + 1
+            degree[b] = degree.get(b, 0) + 1
+        worst = max(sorted(degree), key=degree.get)
+        dropped.add(worst)
+        pairs = {(a, b) for a, b in pairs if worst not in (a, b)}
+    keep = [r for k, r in enumerate(keep) if k not in dropped]
+    sub, sub_pos = _sub_topology(top, pos, keep, nbox)
+    layout = np.array([r.name == "HOH" for r in keep], np.int8)
+    return sub, sub_pos, layout
+
+
+def cropped_bilayer(fraction=0.33):
+    """A corner of the POPC patch (_cropped_patch) built by the JAX
+    ForceField: (JAX System, positions (n, 3) in nm, the residues'
+    templates (0 lipid, 1 water)). Cached per process."""
+    if fraction not in _CROPPED:
+        top, positions, layout = _cropped_patch(fraction)
+        _CROPPED[fraction] = (jax_bilayer_system(top), positions, layout)
+    return _CROPPED[fraction]
