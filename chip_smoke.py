@@ -30,7 +30,16 @@ comes out:
   SETTLE and SHAKE): kernels 1-3 at its shapes (a 60 x 60 x 70 grid),
   its float32 forces and per-group energies against float64, a minimize
   call, then MD through the step program, replayed from a snapshot
-  through the eager loop for the same bits, with its ns/day.
+  through the eager loop for the same bits, with its ns/day;
+- constant pressure: the bilayer from its minimized state under
+  MonteCarloMembraneBarostat (1 bar, 0 bar nm, 303.15 K, XYIsotropic,
+  ZFree, an attempt every 25 steps), 500 steps through the step program
+  (each attempt under a second conditional node of the graph), the last
+  200 replayed through the eager loop for the same bits, box and
+  barostat statistics; the relaxed water box under MonteCarloBarostat
+  (1 bar, 300 K, 25) and under MonteCarloAnisotropicBarostat (frequency
+  5) the same way; each with its ns/day, attempts, acceptances, volume,
+  and its float32 forces at the final box against float64.
 
 It imports nothing of JAX or of openmm_tpu.
 
@@ -104,6 +113,24 @@ BILAYER_STEPS = 300
 BILAYER_MINIMIZE_ITERATIONS = 25
 GROUP_ENERGY_BAR = 1e-5
 CONSTRAINT_ERR_BAR = 1e-5
+# constant pressure: the barostats' settings (bar, bar nm, K), steps and
+# bars; the NPT phases read and print the box after every call of
+# NPT_FREQUENCY steps, one attempt a call on the bilayer and the water box
+NPT_PRESSURE = 1.0
+NPT_TENSION = 0.0
+NPT_FREQUENCY = 25
+NPT_BILAYER_STEPS = 500
+NPT_BILAYER_REPLAY = 200
+NPT_WATER_STEPS = 200
+NPT_WATER_REPLAY = 100
+ANISO_FREQUENCY = 5
+ANISO_STEPS = 100
+NPT_VOLUME_BAR = 0.03       # |V / V0 - 1| after the run
+# the bilayer's NVT and NPT step programs timed in turns, in one call each
+# of NPT_TURN_STEPS steps (4 attempts), in the order NPT_TURNS, with the
+# card's SM clock and power read before and after
+NPT_TURN_STEPS = 100
+NPT_TURNS = ("nvt", "npt", "npt", "nvt") * 2
 # what the bilayer phase prints of each force
 COUNTED = {"NonbondedForce": "getNumExceptions",
            "HarmonicBondForce": "getNumBonds",
@@ -567,12 +594,14 @@ def _production(device, ctx, step, energy, steps, energy_every,
     """`steps` steps by step(n) (the Context's step program, or its eager
     loop) in calls of `energy_every`, the potential energy read after each
     call (`energy` before the first). Returns the energies, the rebuilds
-    since the start after each call, the final positions and velocities,
+    since the start and the box after each call, the final positions,
+    velocities and barostat statistics,
     the launches of the main path's kernels, ns/day, and per step of the
     calls: wall ms, host CPU ms (the process's, which counts the spin of
     the host waiting on the card) and host issue ms (Context.issue_seconds:
     the host's time up to each chunk's read, without that wait)."""
     energies, rebuilds, r0 = [energy], [], ctx.rebuild_count
+    boxes = []
     launches = [k.launches for k in MAIN_PATH_KERNELS]
     issue0 = ctx.issue_seconds
     wall = cpu = 0.0
@@ -588,10 +617,13 @@ def _production(device, ctx, step, energy, steps, energy_every,
         done += n
         energies.append(ctx.getState(getEnergy=True).getPotentialEnergy())
         rebuilds.append(ctx.rebuild_count - r0)
+        boxes.append(tuple(ctx._box.flatten().tolist()))
         deadline.check("main path: production")
-    return {"energies": energies, "rebuilds": rebuilds,
+    return {"energies": energies, "rebuilds": rebuilds, "boxes": boxes,
             "positions": ctx._state["positions"].clone(),
             "velocities": ctx._state["velocities"].clone(),
+            "statistics": [t.clone() for b in ctx._barostats
+                           for t in b.statistics()],
             "launches": {k.name: k.launches - b
                          for k, b in zip(MAIN_PATH_KERNELS, launches)},
             "ns_day": DT_PS * steps / wall * 86.4,
@@ -933,7 +965,8 @@ def phase_bilayer(device, deadline=None, bilayer=None,
     minimize_s = time.perf_counter() - t0
     st = ctx.getState(getEnergy=True, getPositions=True)
     after = st.getPotentialEnergy()
-    minimized_err = _constraint_error(system, st.getPositions())
+    minimized = st.getPositions()
+    minimized_err = _constraint_error(system, minimized)
     tol = integ.getConstraintTolerance()
     print("bilayer: minimize (%d iterations a stage): %d iterations, %d "
           "evaluations in %.2f s; energy %.3f -> %.3f kJ/mol; largest "
@@ -1003,7 +1036,242 @@ def phase_bilayer(device, deadline=None, bilayer=None,
             "constraint_err": constraint_err, "graph": graph,
             "eager": eager, "launches": launches, "rebuilds": rebuilds,
             "escalations": escalations, "split": ctx.constraint_split,
-            "ns_day": graph["ns_day"]}
+            "ns_day": graph["ns_day"], "system": system,
+            "minimized_positions": minimized, "context": ctx,
+            "step": integ.step}
+
+
+def _same_npt(what, graph, eager) -> None:
+    """The box and the barostats' statistics of two runs, bit for bit."""
+    if graph["boxes"] != eager["boxes"]:
+        raise RuntimeError("%s: the step program's boxes %s, the eager "
+                           "loop's %s" % (what, graph["boxes"],
+                                          eager["boxes"]))
+    for g, e in zip(graph["statistics"], eager["statistics"]):
+        if not torch.equal(g, e):
+            raise RuntimeError("%s: the barostat's statistics differ: %s "
+                               "against %s" % (what, g.tolist(),
+                                               e.tolist()))
+
+
+def phase_npt(device, label, system, positions, barostat, temperature,
+              steps, replay, t_range, deadline=None, velocities=None,
+              seed=13) -> dict:
+    """`system` with `barostat` added on a Context of its own (the default
+    platform on a GPU, "CPU" otherwise) from `positions` (and `velocities`,
+    else constrained positions and velocities at `temperature`): with the
+    kernel counts set to 0, `steps` steps through the step program in
+    calls of the barostat's frequency (one attempt a call), the box read
+    after each call, the last `replay` of
+    them timed and then run again from a snapshot through the eager loop,
+    which must give the same bits, energies, rebuilds, launches, boxes
+    and barostat statistics. Then at the final box: the float32 forces
+    against a float64 Context given that box, the largest relative
+    constraint error, the temperature (within `t_range` K), the volume
+    against the start's. Raises on a miss; returns what it printed."""
+    deadline = deadline or Deadline(math.inf)
+    platform = "CUDA" if device.type == "cuda" else "CPU"
+    every = barostat.getFrequency()
+    system.addForce(barostat)
+    integ = omm.LangevinMiddleIntegrator(temperature, FRICTION, DT_PS)
+    integ.setRandomNumberSeed(seed)
+    ctx = (omm.Context(system, integ) if platform == "CUDA"
+           else omm.Context(system, integ, platform))
+    ctx.setPositions(positions)
+    if velocities is None:
+        ctx.applyConstraints()
+        ctx.setVelocitiesToTemperature(temperature, randomSeed=seed)
+    else:
+        ctx.setVelocities(velocities)
+    box0 = ctx.getState().getPeriodicBoxVectors()
+    for kern in KERNELS:
+        kern.launches = 0
+    energy = ctx.getState(getEnergy=True).getPotentialEnergy()
+    lead = _production(device, ctx, integ.step, energy, steps - replay,
+                       every, deadline) if steps > replay else None
+    start = ctx._snapshot()
+    graph = _production(device, ctx, integ.step,
+                        lead["energies"][-1] if lead else energy, replay,
+                        every, deadline)
+    launches = {k.name: k.launches for k in MAIN_PATH_KERNELS}
+    rebuilds, escalations = ctx.rebuild_count, ctx.escalation_count
+    st = ctx.getState(getPositions=True, getForces=True)
+    x, box = st.getPositions(), st.getPeriodicBoxVectors()
+    temperature_end = ctx.temperature()
+    constraint_err = _constraint_error(system, x)
+    ctx._restore(start)
+    eager = _production(device, ctx, ctx._step_eager, graph["energies"][0],
+                        replay, every, deadline)
+    _same_bits(label, (graph["positions"], graph["velocities"]),
+               (eager["positions"], eager["velocities"]))
+    _same_npt(label, graph, eager)
+    for name in ("energies", "rebuilds", "launches"):
+        if graph[name] != eager[name]:
+            raise RuntimeError("%s: the step program's %s %s, the eager "
+                               "loop's %s" % (label, name, graph[name],
+                                              eager[name]))
+    deadline.check(label + ": eager replay")
+    oracle = omm.Context(system, omm.LangevinMiddleIntegrator(
+        temperature, FRICTION, DT_PS), platform, {"Precision": "double"})
+    oracle.setPeriodicBoxVectors(*box)
+    oracle.setPositions(x)
+    force_err = _median_relative_error(
+        st.getForces(), oracle.getState(getForces=True).getForces())
+    del oracle
+    boxes = [tuple(np.asarray(box0).flatten())] + (
+        lead["boxes"] if lead else []) + graph["boxes"]
+    attempts = ctx._barostats[0].attempts_in(0, steps)
+    accepted = sum(a != b for a, b in zip(boxes, boxes[1:]))
+    volume = (abs(np.linalg.det(box)) / abs(np.linalg.det(box0)))
+    print("%s: %d atoms, %s every %d steps: %d steps through the step "
+          "program, %d attempts, %d moves accepted (box read every %d "
+          "steps); box %s -> %s nm, volume x %.6f (bar +-%.2f); rebuilds "
+          "%d, escalations %d; T %.2f K; largest relative constraint error "
+          "%.3e (bar %.0e); median force error at the final box vs float64 "
+          "%.3e (bar %.0e)" % (
+              label, system.getNumParticles(), type(barostat).__name__,
+              every, steps, attempts, accepted, every,
+              np.array2string(np.diag(box0), precision=6, separator=","),
+              np.array2string(np.diag(box), precision=6, separator=","),
+              volume, NPT_VOLUME_BAR, rebuilds, escalations,
+              temperature_end, constraint_err, CONSTRAINT_ERR_BAR,
+              force_err, FORCE_ERR_BAR))
+    print("%s: eager loop over the last %d steps from a snapshot: the same "
+          "bits, box, statistics, energies, rebuilds %s and launches %s; "
+          "ns/day %.2f (graph) vs %.2f (eager); per step %.4f ms wall, "
+          "%.4f ms host issue (graph); launches of the graph run %s" % (
+              label, replay, graph["rebuilds"],
+              json.dumps(graph["launches"]), graph["ns_day"],
+              eager["ns_day"], graph["wall_ms_per_step"],
+              graph["host_issue_ms_per_step"], json.dumps(launches)))
+    if accepted < 1:
+        raise RuntimeError("%s: no move accepted in %d attempts"
+                           % (label, attempts))
+    if not abs(volume - 1.0) <= NPT_VOLUME_BAR:
+        raise RuntimeError("%s: volume x %.4f" % (label, volume))
+    if not force_err <= FORCE_ERR_BAR:
+        raise RuntimeError("%s: median force error %.3e" % (label,
+                                                           force_err))
+    if not constraint_err <= CONSTRAINT_ERR_BAR:
+        raise RuntimeError("%s: constraint error %.3e"
+                           % (label, constraint_err))
+    if not t_range[0] <= temperature_end <= t_range[1]:
+        raise RuntimeError("%s: temperature %.2f K outside %.0f-%.0f K"
+                           % (label, temperature_end, *t_range))
+    if not all(math.isfinite(e) for e in graph["energies"]):
+        raise RuntimeError("%s: a potential energy is not finite" % label)
+    if device.type == "cuda" and min(launches.values()) <= 0:
+        raise RuntimeError("%s: a kernel of its path never launched: %s"
+                           % (label, launches))
+    deadline.check(label)
+    return {"ns_day": graph["ns_day"], "eager_ns_day": eager["ns_day"],
+            "attempts": attempts, "accepted": accepted, "volume": volume,
+            "boxes": (np.diag(box0), np.diag(box)), "force_err": force_err,
+            "constraint_err": constraint_err, "rebuilds": rebuilds,
+            "escalations": escalations, "temperature": temperature_end,
+            "launches": launches, "graph": graph, "eager": eager,
+            "context": ctx, "step": integ.step}
+
+
+def _clocks(device) -> str:
+    """The card's SM clock and power draw, as nvidia-smi reads them."""
+    if device.type != "cuda":
+        return "not read"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=30, check=True).stdout.strip().splitlines()[device.index or 0]
+
+
+def _in_turns(device, runs, steps, order, deadline) -> dict:
+    """Wall ms a step of each run's step(steps) call, runs[key] = (Context,
+    step), timed in `order`, each run continuing from where its last call
+    left it: {key: ([ms, ...], rebuilds over its calls, capacity scale)}."""
+    ms = {key: [] for key in runs}
+    r0 = {key: ctx.rebuild_count for key, (ctx, _) in runs.items()}
+    for key in order:
+        _sync(device)
+        t0 = time.perf_counter()
+        runs[key][1](steps)
+        _sync(device)
+        ms[key].append((time.perf_counter() - t0) / steps * 1e3)
+        deadline.check("npt bilayer: in turns")
+    return {key: (ms[key], ctx.rebuild_count - r0[key],
+                  ctx._nonbonded.capacity_scale)
+            for key, (ctx, _) in runs.items()}
+
+
+def phase_npt_bilayer(device, bilayer, deadline=None,
+                      steps=NPT_BILAYER_STEPS, replay=NPT_BILAYER_REPLAY,
+                      frequency=NPT_FREQUENCY,
+                      t_range=(250.0, 360.0), turn_steps=NPT_TURN_STEPS,
+                      turns=NPT_TURNS) -> dict:
+    """The bilayer phase's system from its minimized positions under
+    MonteCarloMembraneBarostat(NPT_PRESSURE, NPT_TENSION,
+    BILAYER_TEMPERATURE, XYIsotropic, ZFree, `frequency`); the final
+    temperature within `t_range` K. Then the bilayer phase's NVT step
+    program and this one, each in calls of `turn_steps` steps in the
+    order `turns`: the NPT cost a step against NVT in one process, on
+    equal calls, with the card's clock and power beside it."""
+    deadline = deadline or Deadline(math.inf)
+    barostat = omm.MonteCarloMembraneBarostat(
+        NPT_PRESSURE, NPT_TENSION, BILAYER_TEMPERATURE,
+        omm.MonteCarloMembraneBarostat.XYIsotropic,
+        omm.MonteCarloMembraneBarostat.ZFree, frequency)
+    out = phase_npt(device, "npt bilayer", bilayer["system"],
+                    bilayer["minimized_positions"], barostat,
+                    BILAYER_TEMPERATURE, steps, replay, t_range, deadline)
+    clocks = [_clocks(device)]
+    turns_out = _in_turns(device, {
+        "nvt": (bilayer["context"], bilayer["step"]),
+        "npt": (out["context"], out["step"])}, turn_steps, turns, deadline)
+    clocks.append(_clocks(device))
+    ms = {k: v[0] for k, v in turns_out.items()}
+    nvt, npt = (statistics.median(ms[k]) for k in ("nvt", "npt"))
+    print("npt bilayer in turns (%s, %d steps a call): wall ms a step NVT "
+          "%s, NPT %s; medians %.4f and %.4f ms, NPT +%.4f ms a step "
+          "(%.2f %%), ns/day %.2f NVT and %.2f NPT; rebuilds NVT %d, NPT "
+          "%d; capacity scale NVT %.2f, NPT %.2f; SM clock, power before "
+          "and after: %s; %s" % (
+              " ".join(turns), turn_steps,
+              " ".join("%.4f" % t for t in ms["nvt"]),
+              " ".join("%.4f" % t for t in ms["npt"]), nvt, npt, npt - nvt,
+              100.0 * (npt / nvt - 1.0), DT_PS / nvt * 86.4e3,
+              DT_PS / npt * 86.4e3, turns_out["nvt"][1],
+              turns_out["npt"][1], turns_out["nvt"][2],
+              turns_out["npt"][2], *clocks))
+    print("npt bilayer: %.2f ns/day at constant pressure against %.2f NVT "
+          "in this run's production windows (%.1f %% lower)" % (
+              out["ns_day"], bilayer["ns_day"],
+              100.0 * (1.0 - out["ns_day"] / bilayer["ns_day"])))
+    out["turns"] = {"ms": ms, "nvt_ms": nvt, "npt_ms": npt,
+                    "clocks": clocks}
+    return out
+
+
+def phase_npt_water(device, main, deadline=None, steps=NPT_WATER_STEPS,
+                    replay=NPT_WATER_REPLAY, frequency=NPT_FREQUENCY,
+                    aniso_steps=ANISO_STEPS,
+                    aniso_frequency=ANISO_FREQUENCY) -> tuple:
+    """The relaxed water box of phase_main_path (its final positions and
+    velocities) under MonteCarloBarostat(NPT_PRESSURE, 300 K,
+    `frequency`), then under MonteCarloAnisotropicBarostat (NPT_PRESSURE on
+    each axis, 300 K, every axis, `aniso_frequency`) for `aniso_steps`
+    steps, each on a fresh copy of the system."""
+    st = main["context"].getState(getPositions=True, getVelocities=True)
+    n_waters = st.getPositions().shape[0] // 3
+    runs = []
+    for label, barostat, n, m in (
+            ("npt water", omm.MonteCarloBarostat(NPT_PRESSURE, 300.0,
+                                                 frequency), steps, replay),
+            ("npt water aniso", omm.MonteCarloAnisotropicBarostat(
+                (NPT_PRESSURE,) * 3, 300.0, True, True, True,
+                aniso_frequency), aniso_steps, aniso_steps)):
+        system, _ = tip3p_water_box(n_waters)
+        runs.append(phase_npt(device, label, system, st.getPositions(),
+                              barostat, 300.0, n, m, (200.0, 450.0),
+                              deadline, velocities=st.getVelocities()))
+    return tuple(runs)
 
 
 def _time_ms(fn, device, reps=20, warmup=3) -> float:
@@ -1211,6 +1479,7 @@ def main() -> int:
                            % launches)
     ns_day = result["ns_day"]
     phase_step_program(device, result, deadline)
+    npt_water = phase_npt_water(device, result, deadline)
     del result
     minimized = phase_minimize(device, deadline=deadline)
     if min(minimized["launches"].values()) <= 0:
@@ -1219,6 +1488,7 @@ def main() -> int:
     for kern in (pallas_pme.FWD, pallas_pme.BWD):
         launches[kern.name] = minimized["launches"][kern.name]
     bilayer = phase_bilayer(device, deadline)
+    npt = phase_npt_bilayer(device, bilayer, deadline)
     counts = tile_counts(inp)
     records = phase_timing(device, inp, counts, launches, errors, deadline)
     print("main path: %.2f ns/day on %s (%s), %d steps of %.3f ps, "
@@ -1230,6 +1500,13 @@ def main() -> int:
               bilayer["ns_day"], info["name"], info["smi"],
               bilayer["graph"]["positions"].shape[0], PRODUCTION_STEPS,
               DT_PS))
+    print("npt bilayer: %.2f ns/day (NVT %.2f); in turns %.4f ms a step "
+          "(NVT %.4f) on %s (%s), %d attempts, %d accepted, volume x %.6f; "
+          "npt water %.2f ns/day, aniso %.2f ns/day" % (
+              npt["ns_day"], bilayer["ns_day"], npt["turns"]["npt_ms"],
+              npt["turns"]["nvt_ms"], info["name"], info["smi"],
+              npt["attempts"], npt["accepted"], npt["volume"],
+              npt_water[0]["ns_day"], npt_water[1]["ns_day"]))
     print("total %.1f s of the %.0f s budget" % (deadline.elapsed(),
                                                  BUDGET_S))
     print(tile_sweep_line(inp, counts))

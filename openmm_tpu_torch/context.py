@@ -17,11 +17,25 @@ _make_position_energy_fn is the minimizer's objective (energy and forces
 by autograd at given positions).
 
 A System may hold at most one NonbondedForce (PME), any of the bonded
-forces (forces/bonded.py) and CMMotionRemovers (update hooks that the
-integrator runs at the top of each step); each force belongs to a force
+forces (forces/bonded.py), CMMotionRemovers and Monte Carlo barostats
+(forces/barostats.py): update hooks that the integrator runs at the top
+of each step, in the System's force order. Each force belongs to a force
 group, which getState(groups=...) selects. Constraints split into SETTLE
 water triangles, SHAKE-H star clusters and the rest (CCMA), applied in
 that order (ops/constraints.py).
+
+The box is one float64 device tensor (3, 3), written in place
+(setPeriodicBoxVectors, a barostat's accepted move), that the Context and
+every step program share; the candidate state is rebuilt when the box
+differs from the box it was built for. PME's alpha and grid, the sort's
+cell counts and the candidate state's capacities stay those of the
+System's default box, as in OpenMM; a box that shrinks far enough to
+overflow them goes through the escalation. The global parameters the
+forces define (the barostats' pressure, tension and temperature) are one
+float64 device tensor too, so a new value needs no new program. The
+molecules (a union-find over the constraints and each force's
+_bonded_particles) are what the barostats scale and what
+getState(enforcePeriodicBox=True) wraps whole.
 """
 from __future__ import annotations
 
@@ -31,6 +45,7 @@ import numpy as np
 import torch
 
 from .constants import BOLTZ
+from .forces.barostats import BAROSTATS
 from .forces.bonded import BONDED_FORCES, HarmonicAngleForce
 from .forces.cmmotion import CMMotionRemover
 from .forces.nonbonded import NonbondedForce, NonbondedModule
@@ -41,9 +56,16 @@ from .ops.pairs import needs_rebuild
 from .platform import Platform, set_fp32_matmul_exact
 from .state import State
 from .step_program import StepProgram
+from .system import reduced_box
 
 STEP_CHUNK = 100
 MAX_ESCALATIONS = 6
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A numpy copy of a tensor: on the CPU .numpy() would share the
+    memory of a buffer that later steps write in place."""
+    return t.detach().to("cpu", copy=True).numpy()
 
 
 def _group_mask(groups) -> int:
@@ -78,10 +100,12 @@ class Context:
                 "massless particles (virtual sites, fixed atoms) are not in "
                 "this slice of the port")
 
-        forces = system.getForces()
+        # the forces at construction: a force added to the System later
+        # does not reach this Context's step programs
+        forces = self._forces = system.getForces()
         for force in forces:
             if not isinstance(force, (NonbondedForce, CMMotionRemover)
-                              + BONDED_FORCES):
+                              + BONDED_FORCES + BAROSTATS):
                 raise NotImplementedError(
                     "%s is not in this slice of the port"
                     % type(force).__name__)
@@ -120,6 +144,18 @@ class Context:
 
         f64 = dict(dtype=torch.float64, device=self._device)
         self._masses = torch.as_tensor(masses, **f64)
+        defaults = {}
+        for force in forces:
+            defaults.update(force._global_defaults())
+        self._gp_index = {name: i for i, name in enumerate(defaults)}
+        self._gp = torch.as_tensor(list(defaults.values()), **f64)
+        self._molecule_id, self._n_molecules = self._detect_molecules()
+        self._box = torch.as_tensor(system.getDefaultPeriodicBoxVectors(),
+                                    **f64)
+        # barostats that attempt moves (a frequency of 0 never does)
+        self._barostats = [f._compile(self) for f in forces
+                           if isinstance(f, BAROSTATS)
+                           and f.getFrequency() > 0]
         self._generator = torch.Generator(device=self._device)
         seed = integrator.getRandomNumberSeed() or int(
             np.random.randint(1, 2 ** 31 - 1))
@@ -127,12 +163,11 @@ class Context:
         self._state = {
             "positions": torch.zeros((n, 3), **f64),
             "velocities": torch.zeros((n, 3), **f64),
-            "box": torch.as_tensor(system.getDefaultPeriodicBoxVectors(),
-                                   **f64),
-            "time": 0.0, "step": 0}
+            "box": self._box, "time": 0.0, "step": 0}
         self._positions_set = False
         self._tiles = None          # candidate state of the direct space
         self._ref_pos = None        # positions at its build
+        self._ref_box = None        # and the box
         self._overflow = torch.zeros((), dtype=torch.int64,
                                      device=self._device)
         self.rebuild_count = 0
@@ -150,11 +185,108 @@ class Context:
             generator=self._generator,
             params=torch.tensor(self._params_written, **f64),
             step=torch.zeros((), dtype=torch.int64, device=self._device),
-            update_hooks=[f._make_hook(self._masses) for f in forces
-                          if isinstance(f, CMMotionRemover)])
+            update_hooks=self._make_hooks(self._attempt_eager))
         self._step_fn = integrator._make_step_fn(self._deps)
-        self._programs = {}         # (capacity scale, box widths) -> program
+        self._programs = {}         # capacity scale -> program
         integrator._bind(self)
+
+    def _detect_molecules(self):
+        """(molecule of each atom (n,) int64, count): a union-find over the
+        constraints and each force's _bonded_particles(), the molecules
+        numbered by the first appearance of their roots, as the JAX
+        Context numbers them (context.py _detect_molecules)."""
+        parent = list(range(self._n))
+
+        def find(x):
+            while parent[x] != x:
+                parent[x] = parent[parent[x]]
+                x = parent[x]
+            return x
+
+        def union(a, b):
+            ra, rb = find(a), find(b)
+            if ra != rb:
+                parent[ra] = rb
+
+        system = self._system
+        for i in range(system.getNumConstraints()):
+            p1, p2, _ = system.getConstraintParameters(i)
+            union(p1, p2)
+        for force in system.getForces():
+            for p1, p2 in force._bonded_particles():
+                union(p1, p2)
+        roots = {}
+        mol_id = np.zeros(self._n, np.int64)
+        for i in range(self._n):
+            mol_id[i] = roots.setdefault(find(i), len(roots))
+        return mol_id, len(roots)
+
+    # -- update hooks ------------------------------------------------------
+    def _make_hooks(self, attempt) -> list:
+        """The update hooks in the System's force order. A barostat's hook
+        draws its uniforms from the generator every step (a fixed count
+        a step, so a captured graph keeps its draws in step) and hands
+        them to attempt(k, step, pos, box, u) -> pos, which runs barostat
+        k's attempt on the steps it fires on."""
+        hooks, k = [], 0
+        for force in self._forces:
+            if isinstance(force, CMMotionRemover):
+                hooks.append(force._make_hook(self._masses))
+            elif isinstance(force, BAROSTATS) and force.getFrequency() > 0:
+                hooks.append(self._barostat_hook(k, attempt))
+                k += 1
+        return hooks
+
+    def _barostat_hook(self, k, attempt):
+        baro = self._barostats[k]
+
+        def hook(step, pos, vel, box):
+            u = baro.draw(self._generator, pos.device)
+            return attempt(k, step, pos, box, u), vel
+
+        return hook
+
+    def _trial_energy(self, pos, box):
+        """(potential energy of every force at `pos` in `box`, float64;
+        the overflow of the candidate state built for them): what a
+        barostat's attempt compares. The NonbondedForce's energy goes
+        through a candidate state built at the cutoff for these positions
+        and this box (NonbondedModule.forward: kernels 1-3), NaN when it
+        overflowed."""
+        energy = torch.zeros((), dtype=torch.float64, device=pos.device)
+        overflow = torch.zeros((), dtype=torch.int64, device=pos.device)
+        nb = self._nonbonded
+        if nb is not None:
+            st = nb.build_state(pos, box, reach=nb.cutoff)
+            energy = nb.forward(pos, box, st)[0]
+            overflow = st["overflow"]
+        for b in self._bonded:
+            energy = energy + b.energy(pos, box)
+        return energy, overflow
+
+    def _run_attempt(self, k, pos, box, u):
+        """Barostat k's attempt from the uniforms u: writes the box and the
+        statistics in place; returns (positions, overflow of its trial
+        states)."""
+        baro = self._barostats[k]
+        out = baro.attempt(pos, box, u, self._gp, self._trial_energy)
+        box.copy_(out["box"])
+        baro.store(out)
+        return out["positions"], out["overflow"]
+
+    def _attempt_eager(self, k, step, pos, box, u):
+        """The eager loop's gate: a host `if` on the host step count."""
+        if not self._barostats[k].fires_at(self._state["step"]):
+            return pos
+        pos, overflow = self._run_attempt(k, pos, box, u)
+        self._overflow = self._overflow + overflow
+        return pos
+
+    def _step_tensors(self) -> list:
+        """The device tensors a step writes in place that the programs
+        share: the box and every barostat's statistics."""
+        return [self._box] + [t for b in self._barostats
+                              for t in b.statistics()]
 
     # -- constraints -----------------------------------------------------
     def _constrain_positions(self, ref, new):
@@ -181,15 +313,16 @@ class Context:
         return vel
 
     # -- forces ------------------------------------------------------------
-    def _refresh_tiles(self, pos):
+    def _refresh_tiles(self, pos, box):
         """Rebuild the candidate state when the predicate fires."""
         if self._nonbonded is None:
             return
         if self._tiles is None or bool(needs_rebuild(
-                pos, self._ref_pos, self._nonbonded.skin)):
-            self._tiles = self._nonbonded.build_state(pos,
-                                                      self._state["box"])
+                pos, self._ref_pos, self._nonbonded.skin, box,
+                self._ref_box)):
+            self._tiles = self._nonbonded.build_state(pos, box)
             self._ref_pos = pos
+            self._ref_box = box.clone()
             self._overflow = self._overflow + self._tiles["overflow"]
             self.rebuild_count += 1
 
@@ -215,7 +348,7 @@ class Context:
         return energy, forces
 
     def _forces_for_step(self, pos, box, groups=-1):
-        self._refresh_tiles(pos)
+        self._refresh_tiles(pos, box)
         return self._evaluate(pos, box, self._tiles, groups)
 
     def _make_position_energy_fn(self):
@@ -251,6 +384,70 @@ class Context:
 
     def getStepCount(self) -> int:
         return self._state["step"]
+
+    def setStepCount(self, count) -> None:
+        self._state["step"] = int(count)
+
+    def getTime(self) -> float:
+        return self._state["time"]
+
+    def setTime(self, time) -> None:
+        self._state["time"] = float(time)
+
+    def getMolecules(self) -> list:
+        """The atoms of each molecule, molecules in the JAX Context's
+        order."""
+        out = [[] for _ in range(self._n_molecules)]
+        for atom, mol in enumerate(self._molecule_id):
+            out[mol].append(atom)
+        return out
+
+    def setPeriodicBoxVectors(self, a, b, c) -> None:
+        """Write a new box (reduced form) into the box tensor; the next
+        force evaluation rebuilds the candidate state for it. PME's alpha
+        and grid stay those of the System's default box."""
+        box = reduced_box(a, b, c)
+        nb = self._nonbonded
+        if nb is not None and nb.cutoff >= 0.5 * min(np.diag(box)):
+            raise ValueError("the cutoff must be below half the box width")
+        self._box.copy_(torch.as_tensor(box, dtype=torch.float64))
+
+    def getParameter(self, name) -> float:
+        if name not in self._gp_index:
+            raise ValueError("Called getParameter() with invalid parameter "
+                             "name: " + name)
+        return float(self._gp[self._gp_index[name]])
+
+    def getParameters(self) -> dict:
+        values = self._gp.tolist()
+        return {name: values[i] for name, i in self._gp_index.items()}
+
+    def setParameter(self, name, value) -> None:
+        """A new value for a global parameter, written into its device
+        scalar: the steps read it from there, so no program is rebuilt."""
+        if name not in self._gp_index:
+            raise ValueError("Called setParameter() with invalid parameter "
+                             "name: " + name)
+        self._gp[self._gp_index[name]] = float(value)
+
+    def setState(self, state) -> None:
+        """Restore the box, the time, the step count, and what the State
+        holds of positions, velocities and this Context's global
+        parameters (Context::setState)."""
+        if state.getPeriodicBoxVectors() is not None:
+            self.setPeriodicBoxVectors(*np.asarray(
+                state.getPeriodicBoxVectors()))
+        self.setTime(state.getTime())
+        self.setStepCount(state.getStepCount())
+        types = state.getDataTypes()
+        if types & State.Positions:
+            self.setPositions(state.getPositions())
+        if types & State.Velocities:
+            self.setVelocities(state.getVelocities())
+        if types & State.Parameters:
+            for name, value in state.getParameters().items():
+                if name in self._gp_index:
+                    self.setParameter(name, value)
 
     def _set_position_tensor(self, pos) -> None:
         """New positions: the candidate state built for the old ones is
@@ -295,21 +492,28 @@ class Context:
     # -- stepping ----------------------------------------------------------------
     def _snapshot(self):
         """A copy of what a step changes: the state's tensors, the candidate
-        state and its positions, and the generator. Copies, because a step
-        program updates its buffers in place."""
+        state with the positions and the box of its build, the generator,
+        and the tensors written in place (the box, the barostats'
+        statistics). Copies, because a step program updates its buffers
+        in place."""
         state = dict(self._state)
         for key in ("positions", "velocities"):
             state[key] = state[key].clone()
         tiles = (None if self._tiles is None else
                  {k: v.clone() for k, v in self._tiles.items()})
-        ref_pos = None if self._ref_pos is None else self._ref_pos.clone()
-        return state, self._generator.get_state(), tiles, ref_pos
+        refs = tuple(None if r is None else r.clone()
+                     for r in (self._ref_pos, self._ref_box))
+        shared = [t.clone() for t in self._step_tensors()]
+        return state, self._generator.get_state(), tiles, refs, shared
 
     def _restore(self, snap):
-        state, gen_state, tiles, ref_pos = snap
+        state, gen_state, tiles, refs, shared = snap
         self._state = dict(state)
         self._generator.set_state(gen_state)
-        self._tiles, self._ref_pos = tiles, ref_pos
+        self._tiles = tiles
+        self._ref_pos, self._ref_box = refs
+        for t, value in zip(self._step_tensors(), shared):
+            t.copy_(value)
 
     def _write_params(self) -> None:
         """The integrator's parameters into the step's device tensor, when
@@ -342,8 +546,7 @@ class Context:
 
     def _program(self) -> StepProgram:
         nb = self._nonbonded
-        key = (() if nb is None
-               else (nb.capacity_scale, tuple(nb.box_widths)))
+        key = () if nb is None else nb.capacity_scale
         if key not in self._programs:
             self._programs[key] = StepProgram(self)
         return self._programs[key]
@@ -404,12 +607,14 @@ class Context:
 
     # -- state -----------------------------------------------------------------
     def getState(self, getEnergy=False, getForces=False, getPositions=False,
-                 getVelocities=False, groups=-1) -> State:
+                 getVelocities=False, getParameters=False,
+                 enforcePeriodicBox=False, groups=-1) -> State:
         """A State; energy and forces sum the forces in `groups`: a bit
-        mask (-1, the default: all) or a collection of group numbers."""
+        mask (-1, the default: all) or a collection of group numbers.
+        enforcePeriodicBox wraps each molecule whole into the home box."""
         s = self._state
-        kw = {"time": s["time"], "step": s["step"],
-              "box": s["box"].cpu().numpy()}
+        box = _host(s["box"])
+        kw = {"time": s["time"], "step": s["step"], "box": box}
         if getEnergy or getForces:
             if not self._positions_set:
                 raise RuntimeError("Particle positions have not been set")
@@ -421,10 +626,33 @@ class Context:
             if getForces:
                 kw["forces"] = forces.cpu().numpy()
         if getPositions:
-            kw["positions"] = s["positions"].cpu().numpy()
+            pos = _host(s["positions"])
+            kw["positions"] = (self._wrap_positions(pos, box)
+                               if enforcePeriodicBox else pos)
         if getVelocities:
-            kw["velocities"] = s["velocities"].cpu().numpy()
+            kw["velocities"] = _host(s["velocities"])
+        if getParameters:
+            kw["parameters"] = self.getParameters()
         return State(**kw)
+
+    def _wrap_positions(self, pos, box):
+        """Each molecule shifted by box vectors so that its centre of mass
+        lies in the home box (Context.cpp:122-143, the JAX Context's
+        _wrap_positions)."""
+        mol = self._molecule_id
+        m = self._masses.cpu().numpy()
+        w = np.where(m == 0, 1e-10, m)
+        num = np.zeros((self._n_molecules, 3))
+        den = np.zeros(self._n_molecules)
+        np.add.at(num, mol, w[:, None] * pos)
+        np.add.at(den, mol, w)
+        center = num / den[:, None]
+        diff = np.zeros_like(center)
+        for axis in (2, 1, 0):
+            shift = np.floor(center[:, axis] / box[axis][axis])
+            center -= shift[:, None] * box[axis][None, :]
+            diff += shift[:, None] * box[axis][None, :]
+        return pos - diff[mol]
 
     def kinetic_energy(self) -> float:
         """0.5 sum m v^2 (LangevinMiddle reports on-step velocities)."""

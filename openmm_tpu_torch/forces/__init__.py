@@ -1,3 +1,5 @@
+from .barostats import (MonteCarloAnisotropicBarostat, MonteCarloBarostat,
+                        MonteCarloMembraneBarostat)
 from .base import Force
 from .bonded import (CMAPTorsionForce, HarmonicAngleForce, HarmonicBondForce,
                      PeriodicTorsionForce, RBTorsionForce)
@@ -5,5 +7,7 @@ from .cmmotion import CMMotionRemover
 from .nonbonded import NonbondedForce, NonbondedModule
 
 __all__ = ["CMAPTorsionForce", "CMMotionRemover", "Force",
-           "HarmonicAngleForce", "HarmonicBondForce", "NonbondedForce",
+           "HarmonicAngleForce", "HarmonicBondForce",
+           "MonteCarloAnisotropicBarostat", "MonteCarloBarostat",
+           "MonteCarloMembraneBarostat", "NonbondedForce",
            "NonbondedModule", "PeriodicTorsionForce", "RBTorsionForce"]

@@ -2,7 +2,9 @@
 
 Counterpart of openmm_tpu/forces/base.py (Force). A force belongs to a
 force group, 0 to 31; getState(groups=...) sums the energies and forces of
-the groups it names.
+the groups it names. A force names the particle pairs it binds into one
+molecule (_bonded_particles) and the global parameters it defines with
+their defaults (_global_defaults, the JAX CompiledForce.global_defaults).
 """
 from __future__ import annotations
 
@@ -25,3 +27,13 @@ class Force:
 
     def setName(self, name: str) -> None:
         self._name = str(name)
+
+    def _bonded_particles(self):
+        """Pairs that bind particles into one molecule (the Context's
+        molecule detection, ContextImpl.cpp:345-429)."""
+        return ()
+
+    def _global_defaults(self) -> dict:
+        """{name: default value} of the global parameters this force
+        defines; the Context keeps them as device scalars."""
+        return {}

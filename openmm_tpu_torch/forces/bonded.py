@@ -268,6 +268,9 @@ class HarmonicBondForce(Force, _PeriodicMixin):
         self._bonds[index] = (int(particle1), int(particle2), float(length),
                               float(k))
 
+    def _bonded_particles(self):
+        return [(b[0], b[1]) for b in self._bonds]
+
     def _compile(self, n_atoms, device) -> BondedModule:
         arr = np.asarray(self._bonds, np.float64).reshape(-1, 4)
         idx = arr[:, :2].astype(np.int64)
@@ -298,6 +301,10 @@ class HarmonicAngleForce(Force, _PeriodicMixin):
                            angle, k):
         self._angles[index] = (int(particle1), int(particle2),
                                int(particle3), float(angle), float(k))
+
+    def _bonded_particles(self):
+        return ([(a[0], a[1]) for a in self._angles]
+                + [(a[1], a[2]) for a in self._angles])
 
     def _compile(self, n_atoms, device) -> BondedModule:
         arr = np.asarray(self._angles, np.float64).reshape(-1, 5)
@@ -334,6 +341,10 @@ class PeriodicTorsionForce(Force, _PeriodicMixin):
                                  int(particle3), int(particle4),
                                  int(periodicity), float(phase), float(k))
 
+    def _bonded_particles(self):
+        return [pair for t in self._torsions
+                for pair in ((t[0], t[1]), (t[1], t[2]), (t[2], t[3]))]
+
     def _compile(self, n_atoms, device) -> BondedModule:
         arr = np.asarray(self._torsions, np.float64).reshape(-1, 7)
         idx = arr[:, :4].astype(np.int64)
@@ -369,6 +380,10 @@ class RBTorsionForce(Force, _PeriodicMixin):
                                  int(particle3), int(particle4),
                                  *(float(c) for c in (c0, c1, c2, c3, c4,
                                                       c5)))
+
+    def _bonded_particles(self):
+        return [pair for t in self._torsions
+                for pair in ((t[0], t[1]), (t[1], t[2]), (t[2], t[3]))]
 
     def _compile(self, n_atoms, device) -> BondedModule:
         arr = np.asarray(self._torsions, np.float64).reshape(-1, 10)
@@ -412,6 +427,11 @@ class CMAPTorsionForce(Force, _PeriodicMixin):
 
     def getTorsionParameters(self, index):
         return self._torsions[index]
+
+    def _bonded_particles(self):
+        return [pair for t in self._torsions
+                for pair in ((t[1], t[2]), (t[2], t[3]), (t[3], t[4]),
+                             (t[5], t[6]), (t[6], t[7]), (t[7], t[8]))]
 
     def _compile(self, n_atoms, device) -> BondedModule:
         arr = np.asarray(self._torsions, np.int64).reshape(-1, 9)

@@ -28,15 +28,16 @@ class CMMotionRemover(Force):
         self._frequency = int(frequency)
 
     def _make_hook(self, masses: torch.Tensor):
-        """hook(step, pos, vel) -> vel for float64 (n,) masses on the
-        Context's device; atoms without mass keep their velocities."""
+        """hook(step, pos, vel, box) -> (pos, vel) for float64 (n,) masses
+        on the Context's device; atoms without mass keep their
+        velocities."""
         freq = self._frequency
         total = masses.sum()
         moving = (masses != 0).to(masses.dtype)
 
-        def hook(step, pos, vel):
+        def hook(step, pos, vel, box):
             v_cm = (masses[:, None] * vel).sum(dim=0) / total
             fires = (torch.remainder(step, freq) == 0).to(vel.dtype)
-            return vel - (fires * moving)[:, None] * v_cm[None, :]
+            return pos, vel - (fires * moving)[:, None] * v_cm[None, :]
 
         return hook

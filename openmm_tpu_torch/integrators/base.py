@@ -8,7 +8,9 @@ step count on the host. The step also adds one to deps.step, the
 Context's step counter on the device, which the update hooks read (a
 captured step graph replays with the counter's address, so a host integer
 would be frozen at capture); the Context sets it from the host count
-before each chunk of steps. The integrator's parameters (_params: the step
+before each chunk of steps. The hooks run before the force evaluation,
+so the Context's rebuild decision, made inside force_fn, sees the
+positions and the box a barostat left. The integrator's parameters (_params: the step
 size first) reach the step as the device tensor deps.params, the
 counterpart of the JAX package's state["iparams"]: the Context writes them
 before it steps, so setStepSize and the like take effect at the next step
@@ -44,8 +46,10 @@ class StepDeps:
     params: torch.Tensor          # (len(_params()),) float64: _params()
     # () int64 on the device: the steps completed before this one
     step: torch.Tensor = None
-    # updateContextState hooks, hook(step, pos, vel) -> vel, run at the
-    # top of every step (the CMMotionRemover)
+    # updateContextState hooks, hook(step, pos, vel, box) -> (pos, vel),
+    # run at the top of every step in the System's force order: the
+    # CMMotionRemover changes the velocities, a barostat the positions
+    # and, in place, the box tensor
     update_hooks: list = field(default_factory=list)
 
 

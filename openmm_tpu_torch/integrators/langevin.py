@@ -1,7 +1,8 @@
 """LangevinMiddleIntegrator: the LFMiddle (BAOAB) discretization.
 
 Counterpart of openmm_tpu/integrators/langevin.py (LangevinMiddleIntegrator,
-after langevinMiddle.cc): the update hooks (the CMMotionRemover), a full
+after langevinMiddle.cc): the update hooks (the CMMotionRemover, the
+barostats), a full
 force kick, velocity constraints, half a drift, the Ornstein-Uhlenbeck
 step, half a drift, position constraints, and velocities corrected by the
 constraint correction alone (the round-5 drift fix). The noise comes from
@@ -43,7 +44,7 @@ class LangevinMiddleIntegrator(Integrator):
             noisescale = torch.sqrt(BOLTZ * temperature
                                     * (1.0 - vscale * vscale))
             for hook in deps.update_hooks:
-                vel = hook(deps.step, pos, vel)
+                pos, vel = hook(deps.step, pos, vel, box)
             _, forces = deps.force_fn(pos, box)
             v = vel + dt * forces.to(vel.dtype) * inv_m
             v = deps.apply_velocity_constraints(pos, v)

@@ -45,3 +45,40 @@ class GatherSum:
         sums = rows[self.table].sum(dim=1)
         out = rows.new_zeros((self.n, rows.shape[1]))
         return out.index_copy_(0, self.atoms, sums)
+
+
+class GroupSum:
+    """Sums (n, k) per-atom rows into (groups, k) by each atom's group (a
+    molecule), in a fixed order. The groups are bucketed by size, each
+    bucket's width the next power of two of its sizes, so the padding
+    stays under twice the atoms whatever the molecules (one protein of
+    thousands of atoms beside thousands of waters); a bucket is one gather
+    table of its groups' member atoms, in increasing order, padded with
+    a position that reads a zero row, and its rows are summed over the
+    table's columns. No float atomics: the same bits on every call."""
+
+    def __init__(self, group_id, n_groups: int, device):
+        group_id = np.asarray(group_id, np.int64)
+        self.n_groups = int(n_groups)
+        self.pad = group_id.size               # the zero row's position
+        self.group_id = torch.as_tensor(group_id, device=device)
+        sizes = np.bincount(group_id, minlength=self.n_groups)
+        order = np.argsort(group_id, kind="stable")
+        starts = np.cumsum(sizes) - sizes
+        width = 1 << np.ceil(np.log2(np.maximum(sizes, 1))).astype(np.int64)
+        self.buckets = []
+        for w in np.unique(width):
+            groups = np.nonzero(width == w)[0]
+            table = np.full((groups.size, int(w)), self.pad, np.int64)
+            for row, g in enumerate(groups):
+                table[row, :sizes[g]] = order[starts[g]:starts[g] + sizes[g]]
+            self.buckets.append((torch.as_tensor(groups, device=device),
+                                 torch.as_tensor(table, device=device)))
+
+    def __call__(self, rows: torch.Tensor) -> torch.Tensor:
+        """(groups, k) sums of the rows (n, k) of each group's atoms."""
+        rows = torch.cat([rows, rows.new_zeros((1, rows.shape[1]))])
+        out = rows.new_empty((self.n_groups, rows.shape[1]))
+        for groups, table in self.buckets:
+            out.index_copy_(0, groups, rows[table].sum(dim=1))
+        return out

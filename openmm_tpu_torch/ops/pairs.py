@@ -2,7 +2,8 @@
 exclusion table.
 
 Counterpart of openmm_tpu/ops/pairs.py (build_exclusion_table,
-spatial_sort_keys, needs_rebuild).
+spatial_sort_keys, needs_rebuild; the rebuild predicate here also
+fires on a change of the box).
 """
 from __future__ import annotations
 
@@ -64,8 +65,12 @@ def spatial_sort_keys(pos: torch.Tensor, box: torch.Tensor, n_real: int,
     return torch.where(pad, torch.iinfo(torch.int64).max, key)
 
 
-def needs_rebuild(pos: torch.Tensor, ref_pos: torch.Tensor,
-                  skin: float) -> torch.Tensor:
-    """True when any atom moved more than skin/2 since the last build."""
+def needs_rebuild(pos: torch.Tensor, ref_pos: torch.Tensor, skin: float,
+                  box: torch.Tensor, ref_box: torch.Tensor) -> torch.Tensor:
+    """True when any atom moved more than skin/2 since the last build, or
+    when the box differs from the box of that build: a candidate state
+    kept across a barostat's move could miss pairs without overflowing.
+    The JAX refresher tests displacement alone."""
     d = pos - ref_pos
-    return torch.max(torch.sum(d * d, dim=-1)) > (0.5 * skin) ** 2
+    moved = torch.max(torch.sum(d * d, dim=-1)) > (0.5 * skin) ** 2
+    return moved | torch.any(box != ref_box)

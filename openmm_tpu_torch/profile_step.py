@@ -3,6 +3,7 @@ objective, spends its time.
 
     python3 -m openmm_tpu_torch.profile_step [--steps 50] [--device cuda]
     python3 -m openmm_tpu_torch.profile_step --system bilayer [--steps 50]
+        [--barostat {none,iso,membrane}]
     python3 -m openmm_tpu_torch.profile_step --minimizer [--evaluations 20]
         [--system bilayer]
 
@@ -15,6 +16,16 @@ after applyConstraints at 303.15 K), then, from one snapshot, times
 program ("graph": a replay of the captured CUDA graph a step) and through
 the eager loop it replaced ("eager": Context._step_eager), each untraced
 and then again under torch.profiler (host and CUDA activity). With
+--barostat iso (MonteCarloBarostat) or membrane
+(MonteCarloMembraneBarostat, XYIsotropic, ZFree, no tension), both at 1
+bar and an attempt every 25 steps, the system runs at constant pressure
+(give --steps a multiple of 25 to weigh the attempts in); an "attempt"
+window times ATTEMPTS barostat attempts alone, launched eagerly from
+the snapshot's state without moving it (two candidate states and two
+energies each): device ms and kernels an attempt; and "ab" times the
+step program of the same system without the barostat (a Context of its
+own, started from the same state) against it in turns, NVT, NPT, NPT,
+NVT, `--steps` untraced steps each: the extra ms a step. With
 --minimizer it times `--evaluations` evaluations of the minimizer's
 objective (Context._make_position_energy_fn: energy and forces by
 autograd through kernels 1, 4 and 5, and the bonded forces) at the
@@ -41,9 +52,12 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from . import Context, LangevinMiddleIntegrator
+from . import (Context, LangevinMiddleIntegrator, MonteCarloBarostat,
+               MonteCarloMembraneBarostat)
 from .models import popc_bilayer, tip3p_water_box
 from .step_program import GATING
+
+ATTEMPTS = 10       # barostat attempts timed alone (--barostat)
 
 
 def _timed(run, count, device):
@@ -114,9 +128,23 @@ def _device_name(device):
             else "cpu")
 
 
+def _barostat(name, temperature):
+    """The --barostat force, or None."""
+    if name == "iso":
+        return MonteCarloBarostat(1.0, temperature, 25)
+    if name == "membrane":
+        return MonteCarloMembraneBarostat(
+            1.0, 0.0, temperature, MonteCarloMembraneBarostat.XYIsotropic,
+            MonteCarloMembraneBarostat.ZFree, 25)
+    return None
+
+
 def profile_steps(device, n_waters=8000, steps=50, top=20,
-                  system_name="water") -> dict:
+                  system_name="water", barostat="none") -> dict:
     system, positions, temperature = _system(system_name, n_waters)
+    force = _barostat(barostat, temperature)
+    if force is not None:
+        system.addForce(force)
     integ = LangevinMiddleIntegrator(temperature, 50.0, 0.0005)
     integ.setRandomNumberSeed(3)
     ctx = _context(device, system, integ)
@@ -129,8 +157,9 @@ def profile_steps(device, n_waters=8000, steps=50, top=20,
     integ.step(20)
     start = ctx._snapshot()
     out = {"device": _device_name(device), "system": system_name,
-           "atoms": system.getNumParticles(), "steps": steps,
-           "gating": GATING, "escalations": ctx.escalation_count}
+           "barostat": barostat, "atoms": system.getNumParticles(),
+           "steps": steps, "gating": GATING,
+           "escalations": ctx.escalation_count}
     for path, step in (("graph", integ.step), ("eager", ctx._step_eager)):
         ctx._restore(start)
         rebuilds = []
@@ -143,7 +172,39 @@ def profile_steps(device, n_waters=8000, steps=50, top=20,
         window = _window(run, steps, device, "step", top,
                          lambda: ctx.issue_seconds)
         out[path] = {"rebuilds": rebuilds[0], **window}
+    if force is not None:
+        ctx._restore(start)
+        out["ab"] = _nvt_against_npt(device, system_name, n_waters, ctx,
+                                     steps)
+        ctx._restore(start)
+        baro = ctx._barostats[0]
+        pos, box = ctx._state["positions"], ctx._box
+        u = baro.draw(ctx._generator, pos.device)
+
+        def attempt():
+            for _ in range(ATTEMPTS):
+                baro.attempt(pos, box, u, ctx._gp, ctx._trial_energy)
+
+        attempt()                       # cuFFT plans, the allocator
+        out["attempt"] = _window(attempt, ATTEMPTS, device, "attempt", top)
     return out
+
+
+def _nvt_against_npt(device, system_name, n_waters, ctx, steps) -> dict:
+    """Wall ms a step of `ctx`'s step program (NPT) and of a Context of
+    the same system without its barostat (NVT) from the same state, in
+    turns, each continuing from where its last window left it."""
+    system, _, temperature = _system(system_name, n_waters)
+    integ = LangevinMiddleIntegrator(temperature, 1.0, 0.002)
+    integ.setRandomNumberSeed(3)
+    twin = _context(device, system, integ)
+    twin.setState(ctx.getState(getPositions=True, getVelocities=True))
+    integ.step(steps)                   # the capture, out of the window
+    runs = {"nvt": integ.step, "npt": ctx.getIntegrator().step}
+    order = ("nvt", "npt", "npt", "nvt")
+    return {"order": order,
+            "wall_ms_per_step": [_timed(lambda: runs[k](steps), steps,
+                                        device)[0] for k in order]}
 
 
 def profile_objective(device, n_waters=8000, evaluations=20, top=20,
@@ -176,6 +237,11 @@ def main() -> None:
                         default="water",
                         help="the system whose MD step (or objective) is "
                         "profiled")
+    parser.add_argument("--barostat", choices=("none", "iso", "membrane"),
+                        default="none",
+                        help="run the MD step at constant pressure under "
+                        "this barostat (an attempt every 25 steps) and "
+                        "time its attempts alone")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args()
     device = torch.device(args.device)
@@ -186,7 +252,7 @@ def main() -> None:
                                 system_name=args.system)
     else:
         out = profile_steps(device, args.waters, args.steps,
-                            system_name=args.system)
+                            system_name=args.system, barostat=args.barostat)
     print(json.dumps(out))
 
 

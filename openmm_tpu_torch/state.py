@@ -1,14 +1,23 @@
 """State: a snapshot of a Context as float64 numpy arrays and floats.
 
-Counterpart of openmm_tpu/state.py, without units (nm, ps, kJ/mol).
+Counterpart of openmm_tpu/state.py, without units (nm, ps, kJ/mol): the
+time, the step count, the box, and what getState was asked for: positions,
+velocities, forces, energies and the global parameters.
 """
 from __future__ import annotations
 
 
 class State:
+    # data-type flags, matching State::DataType (State.h:62-71)
+    Positions = 1
+    Velocities = 2
+    Forces = 4
+    Energy = 8
+    Parameters = 16
+
     def __init__(self, time=0.0, step=0, box=None, positions=None,
                  velocities=None, forces=None, potential_energy=None,
-                 kinetic_energy=None):
+                 kinetic_energy=None, parameters=None):
         self._time = float(time)
         self._step = int(step)
         self._box = box
@@ -17,6 +26,7 @@ class State:
         self._forces = forces
         self._pe = potential_energy
         self._ke = kinetic_energy
+        self._parameters = parameters
 
     @staticmethod
     def _need(value, what):
@@ -47,3 +57,18 @@ class State:
 
     def getKineticEnergy(self) -> float:
         return self._need(self._ke, "energy")
+
+    def getParameters(self) -> dict:
+        return dict(self._need(self._parameters, "parameters"))
+
+    def getDataTypes(self) -> int:
+        """The flags of the data this State holds."""
+        held = ((self._positions, State.Positions),
+                (self._velocities, State.Velocities),
+                (self._forces, State.Forces), (self._ke, State.Energy),
+                (self._parameters, State.Parameters))
+        types = 0
+        for value, flag in held:
+            if value is not None:
+                types |= flag
+        return types

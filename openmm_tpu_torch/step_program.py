@@ -7,23 +7,31 @@ inside it, the overflow flag read by the host once a chunk).
 
 A StepProgram keeps what a step reads and writes in static buffers: the
 positions, the velocities, the candidate state of the direct space, the
-positions at its build, and two counters (the capacity overflow and the
-rebuilds of the chunk). `body(gate)` is one step: the rebuild predicate,
-the build and commit of a new candidate state under `gate`, then the
-integrator's step (forces through kernels 1-3, the FFT convolution, the
-exceptions and the exclusion correction; LangevinMiddle with SETTLE),
-written back into the buffers. The integrator's parameters are the
-Context's device tensor, so new ones need no new program.
+positions and the box at its build, each barostat's uniforms, and two
+counters (the capacity overflow and the rebuilds of the chunk); the box,
+the global parameters and the barostats' statistics are the Context's
+own tensors, written in place. `body(gate)` is one step, the integrator's
+(LangevinMiddle): the update hooks, where a barostat draws its uniforms
+and, under `gate`, runs its attempt (two candidate states and two
+energies through kernels 1-2, the Metropolis test by torch.where) on the
+steps it fires on; then, inside the force evaluation, the rebuild
+predicate (an atom moved more than skin/2, or the box changed) and the
+build and commit of a new candidate state under `gate`; the forces
+(kernels 1-3, the FFT convolution, the exceptions and the exclusion
+correction, the bonded forces); the constraints; all written back into
+the buffers. So the graph decides the rebuild after the hooks, on the
+steps the eager loop does. The integrator's parameters are the Context's
+device tensor, so new ones need no new program.
 
 On a CUDA device the program captures `body` once into a CUDA graph, and
-a step is one replay. The gate is a conditional IF node
-(csrc/graph_gate.cu) whose body is a separately captured build and
-commit: the card decides each step whether to rebuild, and the host reads
-nothing until the Context reads the counters at the end of the chunk. A
-capture that fails raises; there is no eager fallback. On the CPU the same
-body runs eagerly with the plain kernel versions, the gate a host `if`.
-The programs of a Context are cached by what fixes their shapes, the
-capacity scale and the box widths.
+a step is one replay. Each gate is a conditional IF node
+(csrc/graph_gate.cu) whose body is a separately captured graph (the
+build and commit; a barostat's attempt): the card decides each step
+whether to run it, and the host reads nothing until the Context reads the
+counters at the end of the chunk. A capture that fails raises; there is
+no eager fallback. On the CPU the same body runs eagerly with the plain
+kernel versions, the gate a host `if`. The programs of a Context are
+cached by what fixes their shapes, the capacity scale.
 """
 from __future__ import annotations
 
@@ -45,11 +53,22 @@ class StepProgram:
     def __init__(self, context):
         self._ctx = context
         state = context._state
-        self.box = state["box"]
+        self.box = context._box
         self.pos = state["positions"].clone()
         self.vel = state["velocities"].clone()
         self.ref_pos = torch.full_like(self.pos, math.inf)
+        self.ref_box = torch.full_like(self.box, math.inf)
         self._nonbonded = context._nonbonded
+        # each barostat's uniforms of the step, which its attempt reads
+        self.uniforms = [torch.zeros(b.n_uniforms, dtype=torch.float64,
+                                     device=self.pos.device)
+                         for b in context._barostats]
+        # the gated bodies: 0 the rebuild, 1 + k barostat k's attempt
+        self._bodies = [self.rebuild] + [
+            (lambda k=k: self.attempt(k))
+            for k in range(len(context._barostats))]
+        self._gate = self.gate_host
+        self._first_step = 0        # the step count at load()
         # buffers of the candidate state's shapes at this capacity
         self.tiles = (None if self._nonbonded is None
                       else self._nonbonded.build_state(self.pos, self.box))
@@ -57,9 +76,13 @@ class StepProgram:
         self.counters = torch.zeros(2, dtype=torch.int64,
                                     device=self.pos.device)
         self._step_fn = context._integrator._make_step_fn(
-            dataclasses.replace(context._deps, force_fn=self._forces))
+            dataclasses.replace(
+                context._deps, force_fn=self._forces,
+                update_hooks=context._make_hooks(self._attempt_gate)))
         self.graph = None
         self.launches = []      # (Kernel, its launches per replay)
+        # (Kernel, its launches per attempt) of each barostat
+        self.attempt_launches = [[] for _ in context._barostats]
         self.capture_seconds = 0.0  # warm-up, two captures, instantiation
         if self.pos.device.type == "cuda":
             t0 = time.perf_counter()
@@ -67,64 +90,109 @@ class StepProgram:
             self.capture_seconds = time.perf_counter() - t0
 
     def _forces(self, pos, box):
+        """The force evaluation of the step, after the hooks: the rebuild
+        gate first. `pos` is the positions buffer, which a barostat's
+        attempt wrote in place."""
+        if self._nonbonded is not None:
+            self._gate(needs_rebuild(pos, self.ref_pos, self._nonbonded.skin,
+                                     box, self.ref_box), 0)
         return self._ctx._evaluate(pos, box, self.tiles)
 
+    def _attempt_gate(self, k, step, pos, box, u):
+        """A barostat hook's gate: keep the step's uniforms, run attempt k
+        under the gate on the steps it fires on; the attempt moves the
+        positions buffer in place."""
+        self.uniforms[k].copy_(u)
+        self._gate(self._ctx._barostats[k].fires(step), 1 + k)
+        return self.pos
+
     def rebuild(self) -> None:
-        """Build a candidate state at the current positions and commit it."""
+        """Build a candidate state at the current positions and box and
+        commit it."""
         st = self._nonbonded.build_state(self.pos, self.box)
         for key, buf in self.tiles.items():
             buf.copy_(st[key])
         self.ref_pos.copy_(self.pos)
+        self.ref_box.copy_(self.box)
         self.counters[0].add_(st["overflow"])
         self.counters[1].add_(1)
 
+    def attempt(self, k) -> None:
+        """Barostat k's attempt from the buffered uniforms, written into
+        the positions buffer, the box and the statistics; its trial
+        states' overflow adds to the chunk's."""
+        pos, overflow = self._ctx._run_attempt(k, self.pos, self.box,
+                                               self.uniforms[k])
+        self.pos.copy_(pos)
+        self.counters[0].add_(overflow)
+
     def body(self, gate) -> None:
-        """One MD step; gate(pred) runs rebuild() where pred holds."""
-        if self._nonbonded is not None:
-            gate(needs_rebuild(self.pos, self.ref_pos, self._nonbonded.skin))
+        """One MD step; gate(pred, i) runs gated body i (0 the rebuild,
+        1 + k barostat k's attempt) where pred holds."""
+        self._gate = gate
         pos, vel = self._step_fn(self.pos, self.vel, self.box)
         self.pos.copy_(pos)
         self.vel.copy_(vel)
 
-    def gate_host(self, pred) -> None:
+    def gate_host(self, pred, i=0) -> None:
         """The CPU's gate: the predicate read on the host."""
         if bool(pred):
-            self.rebuild()
+            self._bodies[i]()
 
-    def gate_always(self, pred) -> None:
-        """Build whatever the predicate says (the warm-up before a capture
-        runs both sides of the gate)."""
-        self.rebuild()
+    def gate_always(self, pred, i=0) -> None:
+        """Run the body whatever the predicate says (the warm-up before a
+        capture runs both sides of every gate)."""
+        self._bodies[i]()
 
-    def _gate_node(self, pred) -> None:
+    def _gate_node(self, pred, i=0) -> None:
         code = _build.library().omm_graph_if(
-            pred.data_ptr(), self._rebuild_graph.raw_cuda_graph(),
+            pred.data_ptr(), self._body_graphs[i].raw_cuda_graph(),
             torch.cuda.current_stream(pred.device).cuda_stream)
         if code != 0:
             raise RuntimeError("graph_gate: CUDA error %d adding the "
-                               "rebuild's conditional node" % code)
+                               "conditional node of gated body %d"
+                               % (code, i))
 
     def _capture(self) -> None:
         dev = self.pos.device
-        gen = self._ctx._generator
+        ctx = self._ctx
+        gen = ctx._generator
         before = [k.launches for k in _build.KERNELS]
         gen_state = gen.get_state()
+        shared = [t.clone() for t in ctx._step_tensors()]
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
             # builds the kernel library, cuFFT's plans and the allocator's
             # blocks before capture; its step is undone by the next load()
+            # and by writing back the shared tensors it moved
             self.body(self.gate_always)
         torch.cuda.current_stream(dev).wait_stream(stream)
         gen.set_state(gen_state)
+        for t, value in zip(ctx._step_tensors(), shared):
+            t.copy_(value)
         warm = [k.launches for k in _build.KERNELS]
-        if self._nonbonded is not None:
-            self._rebuild_graph = torch.cuda.CUDAGraph(keep_graph=True)
-            with torch.cuda.graph(self._rebuild_graph, stream=stream):
-                self.rebuild()
-        if [k.launches for k in _build.KERNELS] != warm:
-            raise RuntimeError("a counted kernel launches under the rebuild "
-                               "gate: its launches per replay are unknown")
+        self._body_graphs = []
+        for i, fn in enumerate(self._bodies):
+            if i == 0 and self._nonbonded is None:
+                self._body_graphs.append(None)
+                continue
+            g = torch.cuda.CUDAGraph(keep_graph=True)
+            with torch.cuda.graph(g, stream=stream):
+                fn()
+            self._body_graphs.append(g)
+            counts = [k.launches - w
+                      for k, w in zip(_build.KERNELS, warm)]
+            for k, w in zip(_build.KERNELS, warm):
+                k.launches = w
+            if i == 0 and any(counts):
+                raise RuntimeError("a counted kernel launches under the "
+                                   "rebuild gate: its launches per replay "
+                                   "are unknown")
+            if i > 0:
+                # counted at capture, added per attempt by run()
+                self.attempt_launches[i - 1] = [
+                    (k, c) for k, c in zip(_build.KERNELS, counts) if c]
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(gen)
         with torch.cuda.graph(graph, stream=stream):
@@ -149,6 +217,7 @@ class StepProgram:
             if value is not buf:
                 buf.copy_(value)
         ctx._deps.step.fill_(state["step"])
+        self._first_step = state["step"]
         self.counters.zero_()
         if self._nonbonded is None:
             return
@@ -158,12 +227,16 @@ class StepProgram:
         if ctx._tiles is not self.tiles:
             for key, buf in self.tiles.items():
                 buf.copy_(ctx._tiles[key])
-        if ctx._ref_pos is not self.ref_pos:
-            self.ref_pos.copy_(ctx._ref_pos)
+        for buf, value in ((self.ref_pos, ctx._ref_pos),
+                           (self.ref_box, ctx._ref_box)):
+            if value is not buf:
+                buf.copy_(value)
         self.counters[0].copy_(self.tiles["overflow"])
 
     def run(self, steps: int) -> None:
-        """`steps` steps: graph replays on a card, the body on the CPU."""
+        """`steps` steps from the step count load() read: graph replays on
+        a card, the body on the CPU. The host knows how many of them
+        attempt a barostat move, so it counts the attempts' launches."""
         if self.graph is None:
             for _ in range(steps):
                 self.body(self.gate_host)
@@ -172,10 +245,17 @@ class StepProgram:
             self.graph.replay()
         for kern, per_replay in self.launches:
             kern.launches += per_replay * steps
+        for baro, launches in zip(self._ctx._barostats,
+                                  self.attempt_launches):
+            attempts = baro.attempts_in(self._first_step, steps)
+            for kern, per_attempt in launches:
+                kern.launches += per_attempt * attempts
 
     def store(self) -> None:
         """Point the Context's state at the buffers."""
         ctx = self._ctx
         ctx._state["positions"] = self.pos
         ctx._state["velocities"] = self.vel
-        ctx._tiles, ctx._ref_pos = self.tiles, self.ref_pos
+        if self._nonbonded is not None:
+            ctx._tiles, ctx._ref_pos = self.tiles, self.ref_pos
+            ctx._ref_box = self.ref_box

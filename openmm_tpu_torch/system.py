@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from .forces.barostats import (MonteCarloAnisotropicBarostat,
+                               MonteCarloBarostat, MonteCarloMembraneBarostat)
 from .forces.bonded import (CMAPTorsionForce, HarmonicAngleForce,
                             HarmonicBondForce, PeriodicTorsionForce,
                             RBTorsionForce)
@@ -20,6 +22,22 @@ _METHODS = {"NoCutoff": NonbondedForce.NoCutoff,
             "CutoffPeriodic": NonbondedForce.CutoffPeriodic,
             "Ewald": NonbondedForce.Ewald, "PME": NonbondedForce.PME,
             "LJPME": NonbondedForce.LJPME}
+
+
+def reduced_box(a, b, c) -> np.ndarray:
+    """The box vectors a, b, c as a (3, 3) float64 array, checked to be in
+    the reduced form OpenMM requires."""
+    box = np.asarray([a, b, c], np.float64)
+    if box[0, 1] or box[0, 2] or box[1, 2]:
+        raise ValueError("box vectors must be in reduced form: a along "
+                         "x, b in the x-y plane")
+    if min(box[0, 0], box[1, 1], box[2, 2]) <= 0:
+        raise ValueError("box vectors must have positive diagonals")
+    if (abs(box[1, 0]) > 0.5 * box[0, 0] + 1e-6
+            or abs(box[2, 0]) > 0.5 * box[0, 0] + 1e-6
+            or abs(box[2, 1]) > 0.5 * box[1, 1] + 1e-6):
+        raise ValueError("box vectors must be in reduced form")
+    return box
 
 
 class System:
@@ -64,17 +82,7 @@ class System:
         return list(self._forces)
 
     def setDefaultPeriodicBoxVectors(self, a, b, c) -> None:
-        box = np.asarray([a, b, c], np.float64)
-        if box[0, 1] or box[0, 2] or box[1, 2]:
-            raise ValueError("box vectors must be in reduced form: a along "
-                             "x, b in the x-y plane")
-        if min(box[0, 0], box[1, 1], box[2, 2]) <= 0:
-            raise ValueError("box vectors must have positive diagonals")
-        if (abs(box[1, 0]) > 0.5 * box[0, 0] + 1e-6
-                or abs(box[2, 0]) > 0.5 * box[0, 0] + 1e-6
-                or abs(box[2, 1]) > 0.5 * box[1, 1] + 1e-6):
-            raise ValueError("box vectors must be in reduced form")
-        self._box = box
+        self._box = reduced_box(a, b, c)
 
     def getDefaultPeriodicBoxVectors(self) -> np.ndarray:
         return self._box.copy()
@@ -113,9 +121,13 @@ def from_numpy(params: dict) -> System:
     rb_quads (m, 4) with rb_params (c0..c5); cmap_sizes (maps,),
     cmap_energies (the maps' energies one after another) and
     cmap_torsions (m, 9) = (map, a1..a4, b1..b4); cmm_frequency (a
-    CMMotionRemover). force_groups maps a force's kind ("nonbonded",
-    "bond", "angle", "torsion", "rb", "cmap", "cmm") to its group where
-    that is not 0."""
+    CMMotionRemover); barostat_kind ("iso", "aniso" or "membrane", a
+    barostat) with barostat_pressure (bar; three for "aniso"),
+    barostat_temperature (K), barostat_frequency, and for "aniso"
+    barostat_scale (three flags), for "membrane" barostat_tension (bar
+    nm), barostat_xymode and barostat_zmode. force_groups maps a force's
+    kind ("nonbonded", "bond", "angle", "torsion", "rb", "cmap", "cmm",
+    "barostat") to its group where that is not 0."""
     system = System()
     for m in np.asarray(params["masses"], np.float64):
         system.addParticle(m)
@@ -166,12 +178,53 @@ def from_numpy(params: dict) -> System:
         cmm = CMMotionRemover(int(params["cmm_frequency"]))
         cmm.setForceGroup(groups.get("cmm", 0))
         system.addForce(cmm)
+    if "barostat_kind" in params:
+        baro = _barostat(params)
+        baro.setForceGroup(groups.get("barostat", 0))
+        system.addForce(baro)
     return system
+
+
+def _barostat(params):
+    kind = str(params["barostat_kind"])
+    pressure = np.asarray(params["barostat_pressure"], np.float64)
+    temperature = float(params["barostat_temperature"])
+    frequency = int(params["barostat_frequency"])
+    if kind == "iso":
+        return MonteCarloBarostat(float(pressure), temperature, frequency)
+    if kind == "aniso":
+        return MonteCarloAnisotropicBarostat(
+            pressure, temperature,
+            *(bool(f) for f in params["barostat_scale"]), frequency)
+    return MonteCarloMembraneBarostat(
+        float(pressure), float(params["barostat_tension"]), temperature,
+        int(params["barostat_xymode"]), int(params["barostat_zmode"]),
+        frequency)
+
+
+def _barostat_params(force) -> dict:
+    """from_numpy's barostat keys of a barostat."""
+    out = {"barostat_pressure": np.asarray(force.getDefaultPressure(),
+                                           np.float64),
+           "barostat_temperature": force.getDefaultTemperature(),
+           "barostat_frequency": force.getFrequency()}
+    if isinstance(force, MonteCarloAnisotropicBarostat):
+        out["barostat_kind"] = "aniso"
+        out["barostat_scale"] = np.asarray(
+            [force.getScaleX(), force.getScaleY(), force.getScaleZ()])
+    elif isinstance(force, MonteCarloMembraneBarostat):
+        out["barostat_kind"] = "membrane"
+        out["barostat_tension"] = force.getDefaultSurfaceTension()
+        out["barostat_xymode"] = force.getXYMode()
+        out["barostat_zmode"] = force.getZMode()
+    else:
+        out["barostat_kind"] = "iso"
+    return out
 
 
 def to_numpy(system: System) -> dict:
     """The inverse of from_numpy for a System with one NonbondedForce and
-    at most one force of each other kind."""
+    at most one force of each other kind (one barostat)."""
     forces = system.getForces()
     (nb,) = [f for f in forces if isinstance(f, NonbondedForce)]
     part = np.asarray([nb.getParticleParameters(i)
@@ -227,6 +280,11 @@ def to_numpy(system: System) -> dict:
         elif isinstance(force, CMMotionRemover):
             out["cmm_frequency"] = force.getFrequency()
             groups["cmm"] = force.getForceGroup()
+        elif isinstance(force, (MonteCarloBarostat,
+                                MonteCarloAnisotropicBarostat,
+                                MonteCarloMembraneBarostat)):
+            out.update(_barostat_params(force))
+            groups["barostat"] = force.getForceGroup()
     groups = {k: g for k, g in groups.items() if g}
     if groups:
         out["force_groups"] = groups

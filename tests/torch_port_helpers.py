@@ -25,6 +25,9 @@ from openmm_tpu.forces import (CMAPTorsionForce, CMMotionRemover,
                                HarmonicAngleForce, HarmonicBondForce,
                                NonbondedForce, PeriodicTorsionForce,
                                RBTorsionForce)
+from openmm_tpu.forces.barostats import (MonteCarloAnisotropicBarostat,
+                                         MonteCarloBarostat,
+                                         MonteCarloMembraneBarostat)
 
 torch.set_num_threads(1)
 
@@ -47,9 +50,10 @@ _BONDED = (("bond", HarmonicBondForce, "_bonds", 2, "bond_pairs",
 
 def system_params(system):
     """The from_numpy dict of a JAX-package System with one
-    NonbondedForce and at most one force of each bonded kind and one
-    CMMotionRemover (the term lists hold plain floats in nm, rad and
-    kJ/mol)."""
+    NonbondedForce and at most one force of each bonded kind, one
+    CMMotionRemover and one Monte Carlo barostat (the term lists hold
+    plain floats in nm, rad and kJ/mol; the barostat's settings in bar,
+    bar nm and K)."""
     forces = system.getForces()
     (nb,) = [f for f in forces if isinstance(f, NonbondedForce)]
     n = system.getNumParticles()
@@ -107,9 +111,36 @@ def system_params(system):
         elif isinstance(force, CMMotionRemover):
             out["cmm_frequency"] = force.getFrequency()
             groups["cmm"] = force.getForceGroup()
+        elif isinstance(force, (MonteCarloBarostat,
+                                MonteCarloAnisotropicBarostat,
+                                MonteCarloMembraneBarostat)):
+            out.update(barostat_params(force))
+            groups["barostat"] = force.getForceGroup()
     groups = {kind: g for kind, g in groups.items() if g}
     if groups:
         out["force_groups"] = groups
+    return out
+
+
+def barostat_params(force):
+    """from_numpy's barostat keys of a JAX-package barostat."""
+    out = {"barostat_pressure": np.asarray(
+               u.strip(force.getDefaultPressure(), u.bar), np.float64),
+           "barostat_temperature": float(u.strip(
+               force.getDefaultTemperature(), u.kelvin)),
+           "barostat_frequency": force.getFrequency()}
+    if isinstance(force, MonteCarloAnisotropicBarostat):
+        out["barostat_kind"] = "aniso"
+        out["barostat_scale"] = np.array(
+            [force.getScaleX(), force.getScaleY(), force.getScaleZ()])
+    elif isinstance(force, MonteCarloMembraneBarostat):
+        out["barostat_kind"] = "membrane"
+        out["barostat_tension"] = float(u.strip(
+            force.getDefaultSurfaceTension(), u.bar * u.nanometer))
+        out["barostat_xymode"] = force.getXYMode()
+        out["barostat_zmode"] = force.getZMode()
+    else:
+        out["barostat_kind"] = "iso"
     return out
 
 
