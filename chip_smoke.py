@@ -4,8 +4,9 @@
 
 Builds the five CUDA kernels from csrc/ with one nvcc call, holds each
 kernel against its plain PyTorch version at the shapes of the paths that
-run it (kernels 4-5 also on wider, dense and wide-ranging inputs, kernels
-1-3 also on the water box sheared into a reduced triclinic one), checks
+run it (kernel 1 in both its modes, kernels 4-5 also on wider, dense and
+wide-ranging inputs, kernels 1-3 also on the water box sheared into a
+reduced triclinic one), checks
 that every kernel gives the same bits on a second call, and that kernel 3
 gives the same bits in the direct space's spatial order (the main path's),
 in the user's order and in a random one; then it
@@ -39,7 +40,18 @@ comes out:
   barostat statistics; the relaxed water box under MonteCarloBarostat
   (1 bar, 300 K, 25) and under MonteCarloAnisotropicBarostat (frequency
   5) the same way; each with its ns/day, attempts, acceptances, volume,
-  and its float32 forces at the final box against float64.
+  and its float32 forces at the final box against float64;
+- the other NonbondedForce methods (phase_method): the relaxed water box
+  and the minimized bilayer at the reference suite's rf settings
+  (CutoffPeriodic at 1.0 nm, reaction field: kernel 1 in MODE_RF against
+  its plain version at their shapes, the bilayer's group energies), a
+  droplet of the relaxed box (the waters within 2.5 nm of its centre, no
+  box) at NoCutoff and at CutoffNonPeriodic 2.0 nm (every pair, plain
+  PyTorch, as the JAX package runs them in plain XLA), and a 512-water
+  box at Ewald (kernel 1 in MODE_EWALD and the exact k-sum): each its
+  float32 forces against a float64 Context, steps through the step
+  program replayed through the eager loop for the same bits, its ms a
+  step and ns/day.
 
 It imports nothing of JAX or of openmm_tpu.
 
@@ -47,7 +59,8 @@ The script keeps to a budget of its own (BUDGET_S, build included) and exits
 non-zero, naming the phase, when that is exceeded or any phase fails. Its
 last line is {"ok": true, "device": {...}} and nothing else; the line before
 it is the per-kernel JSON record (launches on the path that runs the
-kernel, times, bounds).
+kernel, times, bounds; kernel 1's reaction-field mode as
+"nonbonded_tiles_rf", at the rf water box's shapes).
 Without a CUDA device it exits non-zero before printing any result.
 """
 from __future__ import annotations
@@ -68,7 +81,8 @@ from openmm_tpu_torch import _build
 from openmm_tpu_torch import step_program
 from openmm_tpu_torch.context import MAX_ESCALATIONS
 from openmm_tpu_torch.forces.nonbonded import NonbondedModule
-from openmm_tpu_torch.models import popc_bilayer, tip3p_water_box
+from openmm_tpu_torch.models import (popc_bilayer, tip3p_water_box,
+                                     water_droplet)
 from openmm_tpu_torch.ops import geometry as geom
 from openmm_tpu_torch.ops import pallas_pme, pme_zslab, tile_pairs
 from openmm_tpu_torch.ops import pme as pme_mod
@@ -131,6 +145,21 @@ NPT_VOLUME_BAR = 0.03       # |V / V0 - 1| after the run
 # card's SM clock and power read before and after
 NPT_TURN_STEPS = 100
 NPT_TURNS = ("nvt", "npt", "npt", "nvt") * 2
+# the other NonbondedForce methods: the reference suite's rf settings
+# (tools/bench_suite.py, dhfr_rf: CutoffPeriodic, 1.0 nm) on the relaxed
+# water box and the minimized bilayer, steps in all and replayed through
+# the eager loop; a droplet of the relaxed box (radius nm) at NoCutoff and
+# CutoffNonPeriodic (cutoff nm; dhfr_gbsa's), and a small Ewald box
+RF_CUTOFF = 1.0
+RF_STEPS = 200
+RF_REPLAY = 100
+DROPLET_RADIUS = 2.5
+DROPLET_CUTOFF = 2.0
+DROPLET_STEPS = 40
+DROPLET_REPLAY = 30
+EWALD_WATERS = 512
+EWALD_STEPS = 60
+EWALD_REPLAY = 50
 # what the bilayer phase prints of each force
 COUNTED = {"NonbondedForce": "getNumExceptions",
            "HarmonicBondForce": "getNumBonds",
@@ -236,13 +265,14 @@ def water_box(n_waters, sheared=False):
 
 def kernel_inputs(device, n_waters, sheared=False, system=None,
                   positions=None) -> dict:
-    """Inputs of the five kernels at the shapes of their paths, from the
-    water box's starting positions (its box sheared when `sheared`), or
-    from `system` at `positions`: kernels 1-3 as the main path calls them
-    (kernel 3 visiting the atoms in the candidate state's order), kernels
-    4-5 on the dense weight planes of those positions (N unpadded) with a
-    seeded cotangent dQ. The capacity grows, as a Context grows it, until
-    the candidate state holds every pair."""
+    """Inputs of the kernels at the shapes of their paths, from the water
+    box's starting positions (its box sheared when `sheared`), or from
+    `system` at `positions`: kernel 1 as the path calls it (in the mode of
+    the System's NonbondedForce) and, for PME, kernels 2-3 as the main
+    path calls them (kernel 3 visiting the atoms in the candidate state's
+    order) and kernels 4-5 on the dense weight planes of those positions
+    (N unpadded) with a seeded cotangent dQ. The capacity grows, as a
+    Context grows it, until the candidate state holds every pair."""
     if system is None:
         system, positions = water_box(n_waters, sheared)
     pos = positions
@@ -260,7 +290,15 @@ def kernel_inputs(device, n_waters, sheared=False, system=None,
         st = module.build_state(posf, box)
     if int(st["overflow"]):
         raise RuntimeError("candidate state overflowed at the start")
-    binv = geom.box_inverse(box).reshape(9).contiguous()
+    inp = {
+        "tiles": (tile_pairs.sorted_positions(posf, box, st), st["par4"],
+                  st["cand"], st["count"], st["words"],
+                  tile_pairs.tile_consts(box, module.tile_scalars)),
+        "pos": posf.contiguous(), "charge": module.charge,
+        "module": module, "box": box,
+    }
+    if module.method != omm.NonbondedForce.PME:
+        return inp
     a, wy, wz = pme_mod.dense_weights(posf, module.charge,
                                       geom.box_inverse(box), module.grid,
                                       pme_zslab.ORDER)
@@ -268,16 +306,13 @@ def kernel_inputs(device, n_waters, sheared=False, system=None,
     gen = torch.Generator(device=device)
     gen.manual_seed(5)
     dq = torch.randn((nx, ny * nz), generator=gen, device=device)
-    return {
-        "tiles": (tile_pairs.sorted_positions(posf, box, st), st["par4"],
-                  st["cand"], st["count"], st["words"],
-                  tile_pairs.tile_consts(box, module.tile_scalars)),
-        "pos": posf.contiguous(), "charge": module.charge, "binv": binv,
-        "order": st["order"][:posf.shape[0]],
-        "grid": module.grid, "module": module, "box": box,
+    inp.update({
+        "binv": geom.box_inverse(box).reshape(9).contiguous(),
+        "order": st["order"][:posf.shape[0]], "grid": module.grid,
         "triple": (a.contiguous(), wy.contiguous(), wz.contiguous()),
         "dq": dq,
-    }
+    })
+    return inp
 
 
 def potential_grid(inp) -> torch.Tensor:
@@ -291,18 +326,20 @@ def potential_grid(inp) -> torch.Tensor:
 
 
 def _kernel_calls(inp):
-    """{name: (kernel call, plain call)} on the same inputs."""
+    """{name: (kernel call, plain call)} on the same inputs: kernel 1 in
+    the mode of the inputs' module, and kernels 2-5 for PME inputs."""
     t = inp["tiles"]
-    pos, q, binv, grid = inp["pos"], inp["charge"], inp["binv"], inp["grid"]
     m = inp["module"]
+    calls = {"nonbonded_tiles": (
+        lambda: tile_pairs.nonbonded_tiles(*t, m.mode, m.use_switch),
+        lambda: tile_pairs.nonbonded_tiles_plain(*t, m.mode, m.use_switch))}
+    if "grid" not in inp:
+        return calls
+    pos, q, binv, grid = inp["pos"], inp["charge"], inp["binv"], inp["grid"]
     phi2 = potential_grid(inp)
     order = inp["order"]
-    mode = tile_pairs.MODE_EWALD
     tr, dq = inp["triple"], inp["dq"]
-    return {
-        "nonbonded_tiles": (
-            lambda: tile_pairs.nonbonded_tiles(*t, mode, m.use_switch),
-            lambda: tile_pairs.nonbonded_tiles_plain(*t, mode, m.use_switch)),
+    calls.update({
         "pme_spread": (
             lambda: pme_zslab.pme_spread(pos, q, binv, grid),
             lambda: pme_zslab.pme_spread_plain(pos, q, binv, grid)),
@@ -315,7 +352,8 @@ def _kernel_calls(inp):
         "spread_triple_bwd": (
             lambda: pallas_pme.spread_triple_bwd(dq, *tr),
             lambda: pallas_pme.spread_triple_vjp_plain(dq, *tr)),
-    }
+    })
+    return calls
 
 
 def _compare(got, want):
@@ -1274,6 +1312,231 @@ def phase_npt_water(device, main, deadline=None, steps=NPT_WATER_STEPS,
     return tuple(runs)
 
 
+def _kernel_record(device, inp, name, launches, err) -> dict:
+    """The kernels line's entry of kernel 1 on `inp` (its mode's inputs):
+    launches from its path's run, times and bound measured here."""
+    kernel, plain = _kernel_calls(inp)["nonbonded_tiles"]
+    bound = tile_bound(inp, tile_counts(inp))
+    src = tile_pairs.TILES
+    return {"name": name, "route": "cuda", "source": src.source,
+            "replaces": src.replaces, "launches": launches,
+            "max_abs_err": err,
+            "ms": _time_ms(kernel, device) if device.type == "cuda"
+            else None,
+            "plain_ms": _time_ms(plain, device) if device.type == "cuda"
+            else None,
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
+
+
+def phase_method(device, label, system, positions, temperature, steps,
+                 replay, t_range, deadline=None, velocities=None, seed=19,
+                 energy_every=ENERGY_EVERY, step_size=DT_PS,
+                 friction=FRICTION, groups=None, record=None) -> dict:
+    """`system` (any NonbondedForce method) on a Context of its own (the
+    default platform on a GPU, "CPU" otherwise) from `positions`: where
+    the force keeps a candidate state, kernel 1 in its mode against its
+    plain version at these shapes (and again for the same bits); the
+    float32 forces (and the energy of each force group in `groups`)
+    against a float64 Context; then, with the kernel counts set to 0,
+    `steps` steps of `step_size` ps at `friction` through the step
+    program (velocities `velocities`, else at `temperature`), the last
+    `replay` of them timed (the steps before them take the capture out of
+    the window) and run again from a snapshot through the eager loop,
+    which must give the same bits, energies, rebuilds and launches;
+    the constraint error and the temperature (within `t_range` K) at the
+    end. `record`, a kernels-line name, times kernel 1 for that line.
+    Raises on a miss; returns what it printed."""
+    deadline = deadline or Deadline(math.inf)
+    platform = "CUDA" if device.type == "cuda" else "CPU"
+    integ = omm.LangevinMiddleIntegrator(temperature, friction, step_size)
+    integ.setRandomNumberSeed(seed)
+    ctx = (omm.Context(system, integ) if platform == "CUDA"
+           else omm.Context(system, integ, platform))
+    n = system.getNumParticles()
+    out = {"label": label, "atoms": n, "tiled": ctx._candidates is not None}
+    scale = 1.0
+    if out["tiled"]:
+        inp = kernel_inputs(device, 0, system=system, positions=positions)
+        out["kernel_err"] = phase_kernels(
+            device, inp, deadline, names=("nonbonded_tiles",),
+            label=" (%s)" % label)["nonbonded_tiles"]
+        scale = inp["module"].capacity_scale
+    oracle = omm.Context(system, omm.LangevinMiddleIntegrator(
+        temperature, friction, step_size), platform, {"Precision": "double"})
+    for c in (ctx, oracle):
+        # getState does not grow the capacity: start at the kernel's scale
+        c._nonbonded.capacity_scale = scale
+        c.setPositions(positions)
+    st = ctx.getState(getForces=True, getEnergy=True)
+    ref = oracle.getState(getForces=True, getEnergy=True)
+    force_err = _median_relative_error(st.getForces(), ref.getForces())
+    energies = {}
+    for g in groups or ():
+        pair = [c.getState(getEnergy=True, groups={g}).getPotentialEnergy()
+                for c in (ctx, oracle)]
+        energies[g] = (*pair, abs(pair[0] - pair[1]) / max(abs(pair[1]),
+                                                          1e-300))
+    del oracle
+    print("%s: %d atoms, %s; median force error vs float64 %.3e (bar "
+          "%.0e); energy %.6f vs %.6f kJ/mol%s" % (
+              label, n, "kernel 1 on the candidate state" if out["tiled"]
+              else "every pair (no candidate state)", force_err,
+              FORCE_ERR_BAR, st.getPotentialEnergy(),
+              ref.getPotentialEnergy(),
+              "; by group (float32, float64, relative error; bar %.0e): %s"
+              % (GROUP_ENERGY_BAR, "; ".join(
+                  "%d: %.4f %.4f %.2e" % (g, *energies[g])
+                  for g in sorted(energies))) if energies else ""))
+    if not force_err <= FORCE_ERR_BAR:
+        raise RuntimeError("%s: median force error %.3e above %.0e"
+                           % (label, force_err, FORCE_ERR_BAR))
+    for g, (e32, e64, rel) in energies.items():
+        if not (rel <= GROUP_ENERGY_BAR or e32 == e64):
+            raise RuntimeError("%s: group %d energy %.6f vs %.6f"
+                               % (label, g, e32, e64))
+    deadline.check(label + ": float64 oracle")
+
+    if velocities is None:
+        ctx.applyConstraints()
+        ctx.setVelocitiesToTemperature(temperature, randomSeed=seed)
+    else:
+        ctx.setVelocities(velocities)
+    for kern in KERNELS:
+        kern.launches = 0
+    energy = ctx.getState(getEnergy=True).getPotentialEnergy()
+    lead = _production(device, ctx, integ.step, energy, steps - replay,
+                       energy_every, deadline) if steps > replay else None
+    start = ctx._snapshot()
+    graph = _production(device, ctx, integ.step,
+                        lead["energies"][-1] if lead else energy, replay,
+                        energy_every, deadline)
+    launches = {k.name: k.launches for k in KERNELS}
+    rebuilds, escalations = ctx.rebuild_count, ctx.escalation_count
+    temperature_end = ctx.temperature()
+    x = ctx.getState(getPositions=True).getPositions()
+    constraint_err = _constraint_error(system, x)
+    ctx._restore(start)
+    eager = _production(device, ctx, ctx._step_eager, graph["energies"][0],
+                        replay, energy_every, deadline)
+    _same_bits(label, (graph["positions"], graph["velocities"]),
+               (eager["positions"], eager["velocities"]))
+    for name in ("energies", "rebuilds", "launches"):
+        if graph[name] != eager[name]:
+            raise RuntimeError("%s: the step program's %s %s, the eager "
+                               "loop's %s" % (label, name, graph[name],
+                                              eager[name]))
+    print("%s: %d steps of %.4f ps (friction %.1f/ps) through the step "
+          "program, the last %d replayed through the eager loop from a "
+          "snapshot: the same bits, energies, rebuilds %s and launches %s; "
+          "energies %s kJ/mol; T %.2f K; rebuilds %d, escalations %d; "
+          "largest relative constraint error %.3e (bar %.0e); ns/day %.2f "
+          "(graph) vs %.2f (eager); per step %.4f ms wall (graph), %.4f ms "
+          "(eager); launches of the graph run %s" % (
+              label, steps, step_size, friction, replay, graph["rebuilds"],
+              json.dumps(graph["launches"]),
+              " ".join("%.1f" % e for e in graph["energies"]),
+              temperature_end, rebuilds, escalations, constraint_err,
+              CONSTRAINT_ERR_BAR, graph["ns_day"], eager["ns_day"],
+              graph["wall_ms_per_step"], eager["wall_ms_per_step"],
+              json.dumps(launches)))
+    if not all(math.isfinite(e) for e in graph["energies"]):
+        raise RuntimeError("%s: a potential energy is not finite" % label)
+    if not constraint_err <= CONSTRAINT_ERR_BAR:
+        raise RuntimeError("%s: constraint error %.3e"
+                           % (label, constraint_err))
+    if not t_range[0] <= temperature_end <= t_range[1]:
+        raise RuntimeError("%s: temperature %.2f K outside %.0f-%.0f K"
+                           % (label, temperature_end, *t_range))
+    if device.type == "cuda" and out["tiled"] \
+            and launches[tile_pairs.TILES.name] <= 0:
+        raise RuntimeError("%s: kernel 1 of its path never launched: %s"
+                           % (label, launches))
+    if out["tiled"] and record:
+        out["record"] = _kernel_record(device, inp, record,
+                                       launches[tile_pairs.TILES.name],
+                                       out["kernel_err"])
+    deadline.check(label)
+    out.update({"force_err": force_err, "energies": energies,
+                "ns_day": graph["ns_day"], "eager_ns_day": eager["ns_day"],
+                "ms_per_step": graph["wall_ms_per_step"],
+                "temperature": temperature_end,
+                "constraint_err": constraint_err, "rebuilds": rebuilds,
+                "escalations": escalations, "launches": launches,
+                "graph": graph, "eager": eager})
+    return out
+
+
+def phase_rf_water(device, main, deadline=None, steps=RF_STEPS,
+                   replay=RF_REPLAY) -> dict:
+    """The relaxed water box of phase_main_path (its final positions and
+    velocities) at the reference suite's rf settings: CutoffPeriodic at
+    RF_CUTOFF nm, reaction-field dielectric 78.3, dispersion correction,
+    300 K (phase_method)."""
+    st = main["context"].getState(getPositions=True, getVelocities=True)
+    system, _ = tip3p_water_box(
+        st.getPositions().shape[0] // 3,
+        nonbonded_method=omm.NonbondedForce.CutoffPeriodic, cutoff=RF_CUTOFF)
+    return phase_method(device, "rf water", system, st.getPositions(), 300.0,
+                        steps, replay, (200.0, 450.0), deadline,
+                        velocities=st.getVelocities(),
+                        record="nonbonded_tiles_rf")
+
+
+def phase_rf_bilayer(device, bilayer_positions, deadline=None,
+                     bilayer=None, steps=RF_STEPS, replay=RF_REPLAY,
+                     energy_every=ENERGY_EVERY) -> dict:
+    """The POPC bilayer (popc_bilayer(), or `bilayer` = (system,
+    positions)) at the minimized positions of phase_bilayer, at the rf
+    settings (CutoffPeriodic, RF_CUTOFF nm), its force groups as
+    BILAYER_GROUPS and each group's energy against float64, at
+    BILAYER_TEMPERATURE (phase_method)."""
+    system, _ = bilayer or popc_bilayer()
+    for force in system.getForces():
+        force.setForceGroup(BILAYER_GROUPS[type(force).__name__])
+        if isinstance(force, omm.NonbondedForce):
+            force.setNonbondedMethod(omm.NonbondedForce.CutoffPeriodic)
+            force.setCutoffDistance(RF_CUTOFF)
+    return phase_method(device, "rf bilayer", system, bilayer_positions,
+                        BILAYER_TEMPERATURE, steps, replay, (250.0, 360.0),
+                        deadline, energy_every=energy_every,
+                        groups=sorted(set(BILAYER_GROUPS.values())))
+
+
+def phase_nonperiodic(device, main, deadline=None, radius=DROPLET_RADIUS,
+                      steps=DROPLET_STEPS, replay=DROPLET_REPLAY) -> list:
+    """The waters of phase_main_path's relaxed box whose oxygens lie
+    within `radius` nm of its centre (water_droplet: no box), at NoCutoff
+    and at CutoffNonPeriodic DROPLET_CUTOFF nm, 300 K, at 0.5 fs steps
+    (an unrelaxed surface): phase_method for each."""
+    st = main["context"].getState(getPositions=True)
+    box = main["context"].getSystem().getDefaultPeriodicBoxVectors()
+    runs = []
+    for label, method in (("nocutoff droplet", omm.NonbondedForce.NoCutoff),
+                          ("cutoffnonperiodic droplet",
+                           omm.NonbondedForce.CutoffNonPeriodic)):
+        system, pos = water_droplet(st.getPositions(), box, radius, method,
+                                    DROPLET_CUTOFF)
+        runs.append(phase_method(device, label, system, pos, 300.0, steps,
+                                 replay, (100.0, 600.0), deadline,
+                                 energy_every=replay, step_size=0.0005))
+    return runs
+
+
+def phase_ewald(device, deadline=None, n_waters=EWALD_WATERS,
+                steps=EWALD_STEPS, replay=EWALD_REPLAY) -> dict:
+    """A box of `n_waters` waters at NonbondedForce.Ewald (0.9 nm): kernel
+    1 in MODE_EWALD and the exact k-sum, from the lattice start at 0.5 fs
+    and friction 50/ps, the first stage of the main path's relaxation
+    (phase_method). The lattice start heats the box, hence the wide
+    temperature band."""
+    system, positions = tip3p_water_box(
+        n_waters, nonbonded_method=omm.NonbondedForce.Ewald, cutoff=0.9)
+    return phase_method(device, "ewald water", system, positions, 300.0,
+                        steps, replay, (100.0, 800.0), deadline,
+                        energy_every=replay, step_size=0.0005,
+                        friction=50.0)
+
+
 def _time_ms(fn, device, reps=20, warmup=3) -> float:
     """Median milliseconds per call over `reps` calls timed one by one
     with CUDA events, after `warmup` calls. Each call is queued behind a
@@ -1314,8 +1577,10 @@ def _stages_ms(fn, device, reps=20) -> list:
 # float operations (an FMA counts 2) that each function needs, at least:
 # kernel 1, per distinct pair inside the cutoff: staged triclinic image and
 # r^2 (24), LJ (16), Ewald erfc and its force (29), the force applied to
-# both atoms and the energy summed (11)
+# both atoms and the energy summed (11); in MODE_RF the reaction field and
+# its force (qq, then 4 each: 9) in place of the Ewald terms
 OPS_PER_PAIR = 80.0
+OPS_PER_PAIR_RF = 60.0
 # kernels 2-3, per atom and axis: fractional coordinate, base and the
 # order-5 weights by recursion (55), with their derivatives (60)
 OPS_WEIGHTS, OPS_WEIGHTS_DW = 55.0, 60.0
@@ -1351,26 +1616,41 @@ def triple_ops(a, wy, wz) -> tuple[float, float, float, float]:
     return fwd, bwd, 2.0 * dense, 4.0 * dense
 
 
+def _bound(nbytes, flops) -> tuple:
+    """(bound ms, "bytes" or "operations"): the larger of `nbytes` over
+    HBM bandwidth and `flops` over the float32 peak."""
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def tile_bound(inp, tile_counts) -> tuple:
+    """Kernel 1's bound on inp["tiles"]: its inputs read once and its
+    output written once, and the operations of the distinct pairs inside
+    the cutoff that these inputs have (each counted once, not from both
+    atoms; from `tile_counts`, count_tile_pairs of the same inputs), for
+    the mode of the inputs' module."""
+    pos4, par4, cand, count, words, consts = inp["tiles"]
+    per_pair = (OPS_PER_PAIR if inp["module"].mode == tile_pairs.MODE_EWALD
+                else OPS_PER_PAIR_RF)
+    tiles_in = sum(t.numel() * t.element_size()
+                   for t in (pos4, par4, cand, count, words, consts))
+    tiles_out = 4 * pos4.numel()              # (n_pad, 4) float32: f, e
+    return _bound(tiles_in + tiles_out,
+                  per_pair * tile_counts["inside"] / 2)
+
+
 def kernel_bounds(inp, tile_counts) -> dict:
     """{name: (bound ms, "bytes" or "operations")}: the larger of the bytes
     each function must move (each input read once, each output written
     once) over HBM bandwidth and the float operations it needs over the
-    float32 peak. Kernel 1 counts the distinct pairs inside the cutoff that
-    these inputs have (each counted once, not from both atoms; from
-    `tile_counts`, count_tile_pairs of inp["tiles"]); kernels 4 and 5 the
+    float32 peak. Kernel 1 as tile_bound; kernels 4 and 5 count the
     nonzero weights (triple_ops)."""
-    pos4, par4, cand, count, words, consts = inp["tiles"]
     n = inp["pos"].shape[0]
     nx, ny, nz = inp["grid"]
     g = nx * ny * nz
-    inside = tile_counts["inside"]
     t_ops = triple_ops(*inp["triple"])
-    tiles_in = sum(t.numel() * t.element_size()
-                   for t in (pos4, par4, cand, count, words, consts))
-    tiles_out = 4 * pos4.numel()              # (n_pad, 4) float32: f, e
     work = {
-        "nonbonded_tiles": (tiles_in + tiles_out,
-                            OPS_PER_PAIR * inside / 2),
         # in: positions (3 n), charges (n), binv; out: the grid
         "pme_spread": (4 * (4 * n + 9 + g),
                        n * (3 * OPS_WEIGHTS + OPS_SPREAD)),
@@ -1383,12 +1663,9 @@ def kernel_bounds(inp, tile_counts) -> dict:
         # in: dQ, a, wy, wz; out: dA, dWy, dWz
         "spread_triple_bwd": (4 * (g + 2 * n * (nx + ny + nz)), t_ops[1]),
     }
-    out = {}
+    out = {"nonbonded_tiles": tile_bound(inp, tile_counts)}
     for name, (nbytes, flops) in work.items():
-        t_bytes = nbytes / PEAK_BYTES_S * 1e3
-        t_ops = flops / PEAK_FP32_FLOPS * 1e3
-        out[name] = ((t_bytes, "bytes") if t_bytes >= t_ops
-                     else (t_ops, "operations"))
+        out[name] = _bound(nbytes, flops)
     return out
 
 
@@ -1480,6 +1757,8 @@ def main() -> int:
     ns_day = result["ns_day"]
     phase_step_program(device, result, deadline)
     npt_water = phase_npt_water(device, result, deadline)
+    rf_water = phase_rf_water(device, result, deadline)
+    droplets = phase_nonperiodic(device, result, deadline)
     del result
     minimized = phase_minimize(device, deadline=deadline)
     if min(minimized["launches"].values()) <= 0:
@@ -1488,25 +1767,44 @@ def main() -> int:
     for kern in (pallas_pme.FWD, pallas_pme.BWD):
         launches[kern.name] = minimized["launches"][kern.name]
     bilayer = phase_bilayer(device, deadline)
+    bilayer_ns_day = bilayer["ns_day"]
     npt = phase_npt_bilayer(device, bilayer, deadline)
+    rf_bilayer = phase_rf_bilayer(device, bilayer["minimized_positions"],
+                                  deadline)
+    del bilayer, npt["context"], npt["step"]
+    ewald = phase_ewald(device, deadline)
     counts = tile_counts(inp)
     records = phase_timing(device, inp, counts, launches, errors, deadline)
+    records.append(rf_water["record"])
     print("main path: %.2f ns/day on %s (%s), %d steps of %.3f ps, "
           "through the step program (gating %s)" % (
               ns_day, info["name"], info["smi"], PRODUCTION_STEPS, DT_PS,
               step_program.GATING))
     print("bilayer: %.2f ns/day on %s (%s), %d atoms, %d steps of %.3f ps "
           "through the step program" % (
-              bilayer["ns_day"], info["name"], info["smi"],
-              bilayer["graph"]["positions"].shape[0], PRODUCTION_STEPS,
-              DT_PS))
+              bilayer_ns_day, info["name"], info["smi"],
+              rf_bilayer["atoms"], PRODUCTION_STEPS, DT_PS))
     print("npt bilayer: %.2f ns/day (NVT %.2f); in turns %.4f ms a step "
           "(NVT %.4f) on %s (%s), %d attempts, %d accepted, volume x %.6f; "
           "npt water %.2f ns/day, aniso %.2f ns/day" % (
-              npt["ns_day"], bilayer["ns_day"], npt["turns"]["npt_ms"],
+              npt["ns_day"], bilayer_ns_day, npt["turns"]["npt_ms"],
               npt["turns"]["nvt_ms"], info["name"], info["smi"],
               npt["attempts"], npt["accepted"], npt["volume"],
               npt_water[0]["ns_day"], npt_water[1]["ns_day"]))
+    print("rf (CutoffPeriodic %.1f nm, reaction field): water %.2f ns/day "
+          "(PME %.2f), bilayer %.2f ns/day (PME %.2f) on %s (%s); kernel 1 "
+          "in MODE_RF at %d atoms %.4f ms a call (bound %.5f ms), MODE_EWALD "
+          "at 0.9 nm %.4f ms" % (
+              RF_CUTOFF, rf_water["ns_day"], ns_day, rf_bilayer["ns_day"],
+              bilayer_ns_day, info["name"], info["smi"], rf_water["atoms"],
+              rf_water["record"]["ms"], rf_water["record"]["bound_ms"],
+              records[0]["ms"]))
+    print("other methods on %s (%s): %s" % (
+        info["name"], info["smi"], "; ".join(
+            "%s %d atoms %.4f ms a step (eager %.4f), force error %.3e" % (
+                r["label"], r["atoms"], r["ms_per_step"],
+                r["eager"]["wall_ms_per_step"], r["force_err"])
+            for r in droplets + [ewald])))
     print("total %.1f s of the %.0f s budget" % (deadline.elapsed(),
                                                  BUDGET_S))
     print(tile_sweep_line(inp, counts))

@@ -3,6 +3,7 @@
     python3 kernel_lab.py                      # this checkout's kernels
     python3 kernel_lab.py --trees A B B A      # checkouts A and B in turns
     python3 kernel_lab.py --variants [PREFIX]  # variants of kernels 1, 3, 5
+    python3 kernel_lab.py --minimize A B B A   # the minimizer, A and B
 
 With no option it times the five kernels of this checkout at the main
 path's shapes (chip_smoke.kernel_inputs: 24,000 atoms, 56^3 grid) with
@@ -17,8 +18,16 @@ name starts with PREFIX, e.g. "gather") with the source edits of VARIANTS
 (one nvcc process for each distinct source, all started together) under
 build/kernel_lab/, launches kernel 3's copies in the main path's order
 unless the variant says otherwise, holds each against the plain version
-and times it twice, in turns. It imports nothing of JAX or of openmm_tpu
-and needs a CUDA device.
+and times it twice, in turns. --minimize runs, for each checkout given
+and in a process of its own, the water box's minimization of
+chip_smoke.py (phase_minimize) and the POPC bilayer's (one minimize call
+after applyConstraints, as phase_bilayer makes it), and prints the
+iterations, objective evaluations and seconds of each: these counts
+follow every rounding of the objective, so checkouts that differ in one
+edit each tell which edit moves them. With --device cpu it runs the
+water box alone, at --waters, on the plain kernel versions. It imports
+nothing of JAX or of openmm_tpu and needs a CUDA device, but for
+--minimize --device cpu.
 """
 from __future__ import annotations
 
@@ -28,6 +37,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(REPO, "openmm_tpu_torch", "csrc")
@@ -96,6 +106,46 @@ def time_tree(tree: str) -> dict:
             lambda: pme_zslab.pme_gather(inp["pos"], inp["charge"], phi2,
                                          inp["binv"], inp["grid"]), dev)
     return times
+
+
+def minimize_tree(tree: str, device: str, n_waters: int) -> dict:
+    """Iterations, objective evaluations and seconds of the minimizations
+    of --minimize with the checkout at `tree` (imported in this process);
+    the bilayer on a CUDA device only."""
+    sys.path.insert(0, tree)
+    import torch
+
+    import chip_smoke as cs
+    import openmm_tpu_torch as omm
+    from openmm_tpu_torch.models import popc_bilayer
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        cs.phase_build(cs.Deadline(600.0))
+    water = cs.phase_minimize(dev, n_waters=n_waters)
+    keys = ("iterations", "evaluations", "seconds", "energies")
+    out = {"water": {k: water[k] for k in keys}}
+    if dev.type == "cuda":
+        system, positions = popc_bilayer()
+        ctx = omm.Context(system, omm.LangevinMiddleIntegrator(
+            cs.BILAYER_TEMPERATURE, cs.FRICTION, cs.DT_PS))
+        ctx.setPositions(positions)
+        ctx.applyConstraints()
+        before = ctx.getState(getEnergy=True).getPotentialEnergy()
+        evaluations = ctx.energy_evaluations
+        reporter = cs._Iterations()
+        cs._sync(dev)
+        t0 = time.perf_counter()
+        omm.LocalEnergyMinimizer.minimize(ctx, cs.MINIMIZE_TOLERANCE,
+                                          cs.BILAYER_MINIMIZE_ITERATIONS,
+                                          reporter)
+        cs._sync(dev)
+        seconds = time.perf_counter() - t0
+        after = ctx.getState(getEnergy=True).getPotentialEnergy()
+        out["bilayer"] = {
+            "iterations": reporter.count,
+            "evaluations": ctx.energy_evaluations - evaluations,
+            "seconds": seconds, "energies": (before, after)}
+    return out
 
 
 def _build_variants(nvcc_flags, find_nvcc, prefix="") -> dict:
@@ -217,27 +267,48 @@ def main() -> int:
     parser.add_argument("--variants", nargs="?", const="", metavar="PREFIX",
                         help="time the variants (those whose name starts "
                         "with PREFIX)")
+    parser.add_argument("--minimize", nargs="+", metavar="TREE",
+                        help="run the minimizations with each checkout")
+    parser.add_argument("--device", default="cuda",
+                        help="--minimize's device (cuda or cpu)")
+    parser.add_argument("--waters", type=int, default=None,
+                        help="--minimize's water box (chip_smoke.N_WATERS)")
     parser.add_argument("--one-tree", help=argparse.SUPPRESS)
     args = parser.parse_args()
     import torch
-    if not torch.cuda.is_available():
+    if args.device == "cpu" and args.minimize:
+        print("cpu, %d threads" % torch.get_num_threads())
+    elif not torch.cuda.is_available():
         raise RuntimeError("kernel_lab.py needs a CUDA device")
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip())
-    if args.one_tree:
+    else:
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip())
+    if args.one_tree and args.minimize:
+        print(json.dumps({"tree": args.one_tree, **minimize_tree(
+            args.one_tree, args.device, args.waters)}))
+    elif args.one_tree:
         print(json.dumps({"tree": args.one_tree,
                           "ms": time_tree(args.one_tree)}))
     elif args.variants is not None:
         sys.path.insert(0, REPO)
         run_variants(args.variants)
     else:
-        for tree in args.trees or [REPO]:
+        extra = []
+        if args.minimize:
+            waters = args.waters
+            if waters is None:
+                sys.path.insert(0, REPO)
+                import chip_smoke
+                waters = chip_smoke.N_WATERS
+            extra = ["--minimize", "-", "--device", args.device,
+                     "--waters", str(waters)]
+        for tree in args.minimize or args.trees or [REPO]:
             proc = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), "--one-tree",
-                 os.path.abspath(tree)], capture_output=True, text=True,
-                cwd=os.path.abspath(tree))
+                 os.path.abspath(tree)] + extra, capture_output=True,
+                text=True, cwd=os.path.abspath(tree))
             if proc.returncode:
                 raise RuntimeError("timing %s failed:\n%s" % (tree,
                                                              proc.stderr))

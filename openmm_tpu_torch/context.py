@@ -16,7 +16,8 @@ reference that the tests and chip_smoke.py hold the program to.
 _make_position_energy_fn is the minimizer's objective (energy and forces
 by autograd at given positions).
 
-A System may hold at most one NonbondedForce (PME), any of the bonded
+A System may hold at most one NonbondedForce (any method but LJPME:
+forces/nonbonded.py), any of the bonded
 forces (forces/bonded.py), CMMotionRemovers and Monte Carlo barostats
 (forces/barostats.py): update hooks that the integrator runs at the top
 of each step, in the System's force order. Each force belongs to a force
@@ -120,6 +121,10 @@ class Context:
             self._nonbonded = NonbondedModule(
                 nonbonded[0], system.getDefaultPeriodicBoxVectors(),
                 self._device, self._precision)
+        # the module whose direct space keeps a candidate state (None when
+        # every pair is computed: no rebuild, no overflow)
+        self._candidates = (self._nonbonded if self._nonbonded is not None
+                            and self._nonbonded.periodic else None)
         self._bonded = [f._compile(n, self._device) for f in forces
                         if isinstance(f, BONDED_FORCES)]
         self._has_cm_remover = any(isinstance(f, CMMotionRemover)
@@ -256,10 +261,12 @@ class Context:
         energy = torch.zeros((), dtype=torch.float64, device=pos.device)
         overflow = torch.zeros((), dtype=torch.int64, device=pos.device)
         nb = self._nonbonded
-        if nb is not None:
+        if self._candidates is not None:
             st = nb.build_state(pos, box, reach=nb.cutoff)
             energy = nb.forward(pos, box, st)[0]
             overflow = st["overflow"]
+        elif nb is not None:
+            energy = nb.forward(pos, box)[0]
         for b in self._bonded:
             energy = energy + b.energy(pos, box)
         return energy, overflow
@@ -315,12 +322,12 @@ class Context:
     # -- forces ------------------------------------------------------------
     def _refresh_tiles(self, pos, box):
         """Rebuild the candidate state when the predicate fires."""
-        if self._nonbonded is None:
+        nb = self._candidates
+        if nb is None:
             return
         if self._tiles is None or bool(needs_rebuild(
-                pos, self._ref_pos, self._nonbonded.skin, box,
-                self._ref_box)):
-            self._tiles = self._nonbonded.build_state(pos, box)
+                pos, self._ref_pos, nb.skin, box, self._ref_box)):
+            self._tiles = nb.build_state(pos, box)
             self._ref_pos = pos
             self._ref_box = box.clone()
             self._overflow = self._overflow + self._tiles["overflow"]
@@ -408,7 +415,8 @@ class Context:
         and grid stay those of the System's default box."""
         box = reduced_box(a, b, c)
         nb = self._nonbonded
-        if nb is not None and nb.cutoff >= 0.5 * min(np.diag(box)):
+        if nb is not None and nb.periodic \
+                and nb.cutoff >= 0.5 * min(np.diag(box)):
             raise ValueError("the cutoff must be below half the box width")
         self._box.copy_(torch.as_tensor(box, dtype=torch.float64))
 
@@ -539,13 +547,13 @@ class Context:
             raise RuntimeError("neighbour-list capacity escalation failed "
                                "to converge")
         self._restore(snap)
-        self._nonbonded.capacity_scale *= 1.4
+        self._candidates.capacity_scale *= 1.4
         self._tiles = None
         self.escalation_count += 1
         return tries
 
     def _program(self) -> StepProgram:
-        nb = self._nonbonded
+        nb = self._candidates
         key = () if nb is None else nb.capacity_scale
         if key not in self._programs:
             self._programs[key] = StepProgram(self)
@@ -611,7 +619,8 @@ class Context:
                  enforcePeriodicBox=False, groups=-1) -> State:
         """A State; energy and forces sum the forces in `groups`: a bit
         mask (-1, the default: all) or a collection of group numbers.
-        enforcePeriodicBox wraps each molecule whole into the home box."""
+        enforcePeriodicBox wraps each molecule whole into the home box
+        when the System uses periodic boundaries."""
         s = self._state
         box = _host(s["box"])
         kw = {"time": s["time"], "step": s["step"], "box": box}
@@ -627,8 +636,9 @@ class Context:
                 kw["forces"] = forces.cpu().numpy()
         if getPositions:
             pos = _host(s["positions"])
-            kw["positions"] = (self._wrap_positions(pos, box)
-                               if enforcePeriodicBox else pos)
+            kw["positions"] = (
+                self._wrap_positions(pos, box) if enforcePeriodicBox
+                and self._system.usesPeriodicBoundaryConditions() else pos)
         if getVelocities:
             kw["velocities"] = _host(s["velocities"])
         if getParameters:

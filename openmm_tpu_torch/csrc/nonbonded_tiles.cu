@@ -234,8 +234,16 @@ nonbonded_tiles_kernel(const float4* __restrict__ pos,
       const int j = kb[s] * kBrick + l;
       const float4 pj = pos[j];
       const float3 d = box.image(pi.x - pj.x, pi.y - pj.y, pi.z - pj.z);
-      const float4 dd =
-          make_float4(d.x, d.y, d.z, d.x * d.x + d.y * d.y + d.z * d.z);
+      // r^2 rounded product by product and sum by sum, as the plain
+      // version and the JAX package take it: the cutoff test r^2 < rc^2
+      // must decide each pair as they do. A contracted (FMA) r^2 moves
+      // pairs across the cutoff, where the reaction field's force is not
+      // zero (qq (1/rc^2 - 2 krf rc), ~0.9 kJ/mol/nm for an O-H pair at
+      // 1.0 nm): a whole pair's force of difference
+      const float4 dd = make_float4(
+          d.x, d.y, d.z,
+          __fadd_rn(__fadd_rn(__fmul_rn(d.x, d.x), __fmul_rn(d.y, d.y)),
+                    __fmul_rn(d.z, d.z)));
       const bool hit = s0 + half < n_live && !(dd.w >= rc2) &&
                        !((kw[s] >> l) & 1u);
       const unsigned hits = __ballot_sync(kFull, hit);

@@ -28,6 +28,9 @@ class Force:
     def setName(self, name: str) -> None:
         self._name = str(name)
 
+    def usesPeriodicBoundaryConditions(self) -> bool:
+        return False
+
     def _bonded_particles(self):
         """Pairs that bind particles into one molecule (the Context's
         molecule detection, ContextImpl.cpp:345-429)."""

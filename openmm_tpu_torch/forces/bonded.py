@@ -245,7 +245,7 @@ class BondedModule(nn.Module):
         return self._energy_fn(pos, *self.args, box=self._box(box))
 
 
-class HarmonicBondForce(Force, _PeriodicMixin):
+class HarmonicBondForce(_PeriodicMixin, Force):
     """E = (k/2)(r - r0)^2."""
 
     def __init__(self):
@@ -278,7 +278,7 @@ class HarmonicBondForce(Force, _PeriodicMixin):
                             bond_ef, bond_energy, device)
 
 
-class HarmonicAngleForce(Force, _PeriodicMixin):
+class HarmonicAngleForce(_PeriodicMixin, Force):
     """E = (k/2)(theta - theta0)^2."""
 
     def __init__(self):
@@ -313,7 +313,7 @@ class HarmonicAngleForce(Force, _PeriodicMixin):
                             angle_ef, angle_energy, device)
 
 
-class PeriodicTorsionForce(Force, _PeriodicMixin):
+class PeriodicTorsionForce(_PeriodicMixin, Force):
     """E = k (1 + cos(n phi - phase))."""
 
     def __init__(self):
@@ -353,7 +353,7 @@ class PeriodicTorsionForce(Force, _PeriodicMixin):
                             torsion_ef, torsion_energy, device)
 
 
-class RBTorsionForce(Force, _PeriodicMixin):
+class RBTorsionForce(_PeriodicMixin, Force):
     """Ryckaert-Bellemans: E = sum_n C_n cos(psi)^n, psi = phi - pi."""
 
     def __init__(self):
@@ -392,7 +392,7 @@ class RBTorsionForce(Force, _PeriodicMixin):
                             rb_energy, device)
 
 
-class CMAPTorsionForce(Force, _PeriodicMixin):
+class CMAPTorsionForce(_PeriodicMixin, Force):
     """A bicubic energy map over pairs of dihedrals (CMAPTorsionForce.h:
     element energy[i + size * j] of a map is E at angle1 = i 2pi/size,
     angle2 = j 2pi/size)."""

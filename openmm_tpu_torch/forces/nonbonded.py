@@ -23,6 +23,7 @@ from torch import nn
 
 from ..constants import ONE_4PI_EPS0
 from ..ops import geometry as geom
+from ..ops import pairs as pair_ops
 from ..ops import pme as pme_mod
 from ..ops import pme_zslab
 from ..ops import tile_pairs
@@ -51,8 +52,10 @@ class NonbondedForce(Force):
         self._cutoff = 1.0
         self._switching = False
         self._switch_dist = -1.0
+        self._rf_dielectric = 78.3
         self._ewald_tol = 5e-4
         self._dispersion_correction = True
+        self._exceptions_use_pbc = False
 
     def getNumParticles(self):
         return len(self._particles)
@@ -111,6 +114,12 @@ class NonbondedForce(Force):
     def setSwitchingDistance(self, distance):
         self._switch_dist = float(distance)
 
+    def getReactionFieldDielectric(self):
+        return self._rf_dielectric
+
+    def setReactionFieldDielectric(self, dielectric):
+        self._rf_dielectric = float(dielectric)
+
     def getEwaldErrorTolerance(self):
         return self._ewald_tol
 
@@ -123,6 +132,29 @@ class NonbondedForce(Force):
     def setUseDispersionCorrection(self, use):
         self._dispersion_correction = bool(use)
 
+    def getExceptionsUsePeriodicBoundaryConditions(self):
+        return self._exceptions_use_pbc
+
+    def setExceptionsUsePeriodicBoundaryConditions(self, flag):
+        self._exceptions_use_pbc = bool(flag)
+
+    def usesPeriodicBoundaryConditions(self):
+        return self._method in (NonbondedForce.CutoffPeriodic,
+                                NonbondedForce.Ewald, NonbondedForce.PME,
+                                NonbondedForce.LJPME)
+
+    def reaction_field_constants(self):
+        """(krf, crf) of the reaction field at the cutoff
+        (ReferenceLJCoulombIxn.cpp:78-79)."""
+        eps, rc = self._rf_dielectric, self._cutoff
+        return ((eps - 1.0) / (2.0 * eps + 1.0) / rc ** 3,
+                3.0 * eps / (2.0 * eps + 1.0) / rc)
+
+    def ewald_parameters(self, box_widths):
+        """(alpha, kmax per axis) of the exact Ewald sum."""
+        alpha = pme_mod.ewald_alpha(self._cutoff, self._ewald_tol)
+        return alpha, pme_mod.ewald_kmax(box_widths, alpha, self._ewald_tol)
+
     def pme_parameters(self, box_widths):
         """(alpha, (nx, ny, nz)) chosen from the cutoff and the tolerance."""
         alpha = pme_mod.ewald_alpha(self._cutoff, self._ewald_tol)
@@ -132,7 +164,10 @@ class NonbondedForce(Force):
     def dispersion_coefficient(self):
         """Long-range LJ correction: the energy adds coefficient / volume
         (NonbondedForceImpl::calcDispersionCorrection; the switched region
-        by 64-point Gauss-Legendre, as in the JAX package)."""
+        by 64-point Gauss-Legendre, as in the JAX package); 0 without
+        periodic boundaries."""
+        if not self.usesPeriodicBoundaryConditions():
+            return 0.0
         n = len(self._particles)
         classes = {}
         for _, s, e in self._particles:
@@ -168,11 +203,13 @@ class NonbondedForce(Force):
                                         + 4.0 * sum3)
 
 
-def _exception_terms(pos, idx, cp, sig, eps):
-    """Per exception pair (no periodic images: exceptions ignore the
-    cutoff): energy, dE/d(r^2) and the displacement. idx (m, 2) long;
-    per-pair parameters."""
-    dr = pos[idx[:, 0]] - pos[idx[:, 1]]
+def _exception_terms(pos, idx, cp, sig, eps, box=None):
+    """Per exception pair (exceptions ignore the cutoff; minimum images
+    only with a box, under setExceptionsUsePeriodicBoundaryConditions):
+    energy, dE/d(r^2) and the displacement. idx (m, 2) long; per-pair
+    parameters."""
+    dr = geom.bond_vectors(pos, idx, None if box is None
+                           else box.to(pos.dtype))
     inv_r2 = 1.0 / (dr * dr).sum(dim=-1)
     s6 = (sig * sig * inv_r2) ** 3
     inv_r = torch.sqrt(inv_r2)
@@ -182,9 +219,9 @@ def _exception_terms(pos, idx, cp, sig, eps):
     return e, dedr2, dr
 
 
-def exception_energy(pos, idx, cp, sig, eps):
+def exception_energy(pos, idx, cp, sig, eps, box=None):
     """Exception pair energy alone, differentiable in pos."""
-    return _exception_terms(pos, idx, cp, sig, eps)[0].sum(
+    return _exception_terms(pos, idx, cp, sig, eps, box)[0].sum(
         dtype=torch.float64)
 
 
@@ -209,51 +246,94 @@ def exclusion_correction_energy(pos, box, idx, qq, alpha):
         dtype=torch.float64)
 
 
-def exception_pairs_ef(pos, box, idx, cp, sig, eps, qq, alpha, gather):
-    """The exceptions and the Ewald exclusion correction over the same
-    pairs: (exception energy, correction energy, forces). Each atom's sum
-    of its pairs' forces is added by gathers in a fixed order (`gather`,
-    the GatherSum of idx; ops/accumulate.py): index_add_ adds in float
-    atomics on a card, whose order changes from run to run."""
-    e_exc, dedr2_exc, dr = _exception_terms(pos, idx, cp, sig, eps)
-    e_corr, dedr2_corr, dr_pbc = _exclusion_terms(pos, box, idx, qq, alpha)
-    f = -2.0 * (dedr2_exc[:, None] * dr + dedr2_corr[:, None] * dr_pbc)
-    return (e_exc.sum(dtype=torch.float64), e_corr.sum(dtype=torch.float64),
+def exception_pairs_ef(pos, box, idx, cp, sig, eps, qq, alpha, gather,
+                       exc_box=None):
+    """The exceptions and, for the Ewald family (alpha not None), the Ewald
+    exclusion correction over the same pairs: (exception energy,
+    correction energy, forces). exc_box: the box when the exceptions take
+    minimum images. Each atom's sum of its pairs' forces is added by
+    gathers in a fixed order (`gather`, the GatherSum of idx;
+    ops/accumulate.py): index_add_ adds in float atomics on a card, whose
+    order changes from run to run."""
+    e_exc, dedr2_exc, dr = _exception_terms(pos, idx, cp, sig, eps, exc_box)
+    f = dedr2_exc[:, None] * dr
+    e_corr = torch.zeros((), dtype=torch.float64, device=pos.device)
+    if alpha is not None:
+        e_c, dedr2_corr, dr_pbc = _exclusion_terms(pos, box, idx, qq, alpha)
+        e_corr = e_c.sum(dtype=torch.float64)
+        f = f + dedr2_corr[:, None] * dr_pbc
+    f = -2.0 * f
+    return (e_exc.sum(dtype=torch.float64), e_corr,
             gather(torch.stack([f, -f], dim=1)))
 
 
 class NonbondedModule(nn.Module):
-    """Energy and forces of one PME NonbondedForce on one device.
+    """Energy and forces of one NonbondedForce on one device, by method
+    (the JAX package's _compile):
+
+    - PME: kernel 1 in MODE_EWALD on the candidate state, the z-slab
+      reciprocal space (kernels 2 and 3 around cuFFT), the self energy,
+      the Ewald exclusion correction;
+    - Ewald: the same direct space, the exact k-sum (ops/pme.py);
+    - CutoffPeriodic: the reaction field, kernel 1 in MODE_RF;
+    - CutoffNonPeriodic: the reaction field without images;
+    - NoCutoff: plain Coulomb over every pair;
+
+    each with the exceptions and, with periodic boundaries, the dispersion
+    correction. The periodic methods keep the candidate state at every
+    size; the non-periodic ones run every pair
+    (ops/pairs.py:pair_energy_forces_n2), with no candidate state, rebuild
+    or overflow. (The JAX package takes its all-pairs path for periodic
+    systems below 1,024 atoms too, nonbonded.py:703: a choice of speed on
+    its device that does not change the result.) LJPME raises.
 
     precision "mixed": float32 through the kernel wrappers (the kernels on
     a CUDA device, their plain versions on the CPU). precision "double":
-    float64 through the plain versions on any device (the oracle).
+    float64 through the plain versions on any device (the oracle). The
+    Ewald k-sum is float64 in both.
     """
 
     def __init__(self, force: NonbondedForce, box, device, precision="mixed"):
         super().__init__()
-        if force.getNonbondedMethod() != NonbondedForce.PME:
+        method = force.getNonbondedMethod()
+        if method == NonbondedForce.LJPME:
             raise NotImplementedError(
-                "this slice of the port runs NonbondedForce.PME only")
+                "NonbondedForce.LJPME is not in this slice of the port")
         n = force.getNumParticles()
         self.n = n
         self.name = force.getName()
         self.group = force.getForceGroup()
+        self.method = method
         self.plain = precision == "double"
         self.dtype = torch.float64 if self.plain else torch.float32
         box = np.asarray(box, np.float64)
         widths = [box[0, 0], box[1, 1], box[2, 2]]
         self.cutoff = force.getCutoffDistance()
-        if self.cutoff >= 0.5 * min(widths):
+        self.periodic = force.usesPeriodicBoundaryConditions()
+        use_cutoff = method != NonbondedForce.NoCutoff
+        ewald_family = method in (NonbondedForce.Ewald, NonbondedForce.PME)
+        if self.periodic and self.cutoff >= 0.5 * min(widths):
             raise ValueError("the cutoff must be below half the box width")
+        self.mode = tile_pairs.MODE_EWALD if ewald_family \
+            else tile_pairs.MODE_RF
         self.skin = NEIGHBOR_SKIN
         self.box_widths = widths
         self.capacity_scale = 1.0
-        self.alpha, self.grid = force.pme_parameters(widths)
-        use_switch = force.getUseSwitchingFunction()
-        self.use_switch = bool(use_switch)
-        rs = force.getSwitchingDistance() if use_switch else 0.0
-        inv_w = 1.0 / (self.cutoff - rs) if use_switch else 0.0
+        self.use_switch = bool(force.getUseSwitchingFunction() and use_cutoff)
+        rs = force.getSwitchingDistance() if self.use_switch else 0.0
+        inv_w = 1.0 / (self.cutoff - rs) if self.use_switch else 0.0
+        self.alpha = None
+        krf = crf = 0.0
+        if method == NonbondedForce.PME:
+            self.alpha, self.grid = force.pme_parameters(widths)
+        elif method == NonbondedForce.Ewald:
+            self.alpha, self.kmax = force.ewald_parameters(widths)
+        elif use_cutoff:
+            krf, crf = force.reaction_field_constants()
+        self.terms = None if self.periodic else pair_ops.PairTerms(
+            coulomb="rf" if use_cutoff else "plain",
+            cutoff=self.cutoff if use_cutoff else None, krf=krf, crf=crf,
+            switch=(rs, inv_w) if self.use_switch else None)
 
         def buf(name, value, dtype=None):
             self.register_buffer(name, torch.as_tensor(
@@ -272,14 +352,20 @@ class NonbondedModule(nn.Module):
         buf("exc_eps", ep[:, 2])
         buf("exc_qq", ONE_4PI_EPS0 * p[idx[:, 0], 0] * p[idx[:, 1], 0])
         buf("exclusions", build_exclusion_table(n, idx), torch.int32)
+        self.exc_pbc = force.getExceptionsUsePeriodicBoundaryConditions()
         self.exc_gather = GatherSum(idx, n, device)
-        md = pme_mod.make_pme_recip_data(self.grid, pme_zslab.ORDER)
-        buf("bsq_x", md["bsq_x"])
-        buf("bsq_y", md["bsq_y"])
-        buf("bsq_z", md["bsq_z"])
-        buf("tile_scalars", [self.alpha, self.cutoff ** 2, 0.0, 0.0, rs,
-                             inv_w])
-        self.self_energy = pme_mod.ewald_self_energy(p[:, 0], self.alpha)
+        if method == NonbondedForce.PME:
+            md = pme_mod.make_pme_recip_data(self.grid, pme_zslab.ORDER)
+            buf("bsq_x", md["bsq_x"])
+            buf("bsq_y", md["bsq_y"])
+            buf("bsq_z", md["bsq_z"])
+        elif method == NonbondedForce.Ewald:
+            buf("ewald_m", pme_mod.ewald_m_vectors(self.kmax),
+                torch.float64)
+        buf("tile_scalars", [self.alpha or 0.0, self.cutoff ** 2, krf, crf,
+                             rs, inv_w])
+        self.self_energy = (pme_mod.ewald_self_energy(p[:, 0], self.alpha)
+                            if ewald_family else 0.0)
         self.disp_coeff = (force.dispersion_coefficient()
                            if force.getUseDispersionCorrection() else 0.0)
 
@@ -299,55 +385,87 @@ class NonbondedModule(nn.Module):
 
     def forward(self, pos, box, state=None):
         """(energy float64 scalar, forces (n, 3) in self.dtype). `state`
-        is a candidate state from build_state; None builds one here."""
-        if state is None:
-            state = self.build_state(pos, box)
+        is a candidate state from build_state; None builds one here (for
+        the periodic methods)."""
         posd = pos.to(self.dtype)
         boxd = box.to(self.dtype)
-        consts = tile_pairs.tile_consts(boxd, self.tile_scalars)
-        e_dir, f = tile_pairs.tile_energy_forces(
-            posd, boxd, state, consts, tile_pairs.MODE_EWALD,
-            self.use_switch, plain=self.plain)
-        # kernel 3's visiting order; the plain gather on the CPU reads none
-        # (it would only check its values, a host read in the step)
-        order = state["order"][:self.n] if posd.is_cuda else None
-        e_rec, f_rec = pme_zslab.pme_recip_ef(
-            posd, self.charge, boxd, self.grid, self.alpha,
-            (self.bsq_x, self.bsq_y, self.bsq_z), plain=self.plain,
-            order=order)
+        if self.periodic:
+            if state is None:
+                state = self.build_state(pos, box)
+            consts = tile_pairs.tile_consts(boxd, self.tile_scalars)
+            e_dir, f = tile_pairs.tile_energy_forces(
+                posd, boxd, state, consts, self.mode, self.use_switch,
+                plain=self.plain)
+        else:
+            e_dir, f = pair_ops.pair_energy_forces_n2(
+                posd, self.charge, self.sigma, self.epsilon,
+                self.exclusions, self.terms)
+        energy = e_dir
+        if self.method == NonbondedForce.PME:
+            # kernel 3's visiting order; the plain gather on the CPU reads
+            # none (it would only check its values, a host read in the step)
+            order = state["order"][:self.n] if posd.is_cuda else None
+            e_rec, f_rec = pme_zslab.pme_recip_ef(
+                posd, self.charge, boxd, self.grid, self.alpha,
+                (self.bsq_x, self.bsq_y, self.bsq_z), plain=self.plain,
+                order=order)
+            energy = energy + e_rec.to(torch.float64)
+            f = f + f_rec
+        elif self.method == NonbondedForce.Ewald:
+            e_rec, f_rec = pme_mod.ewald_reciprocal_ef(
+                pos, self.charge, box, self.ewald_m, self.alpha)
+            energy = energy + e_rec
+            f = f + f_rec.to(self.dtype)
         e_exc, e_corr, f_pairs = exception_pairs_ef(
             posd, boxd, self.exc_idx, self.exc_cp, self.exc_sigma,
-            self.exc_eps, self.exc_qq, self.alpha, self.exc_gather)
-        energy = (e_dir + e_rec.to(torch.float64) + e_exc + e_corr
-                  + self.self_energy
+            self.exc_eps, self.exc_qq, self.alpha, self.exc_gather,
+            boxd if self.exc_pbc else None)
+        energy = (energy + e_exc + e_corr + self.self_energy
                   + self.disp_coeff / geom.box_volume(box.to(torch.float64)))
-        forces = f + f_rec + f_pairs
+        forces = f + f_pairs
+        if not self.periodic:
+            return energy, forces
         poison = torch.where(state["overflow"] > 0, math.nan, 0.0)
         return energy + poison, forces + poison.to(forces.dtype)
 
     def potential_energy(self, pos, box) -> torch.Tensor:
         """The potential energy as a float64 scalar that autograd
         differentiates with respect to `pos` (the minimizer's objective):
-        the direct sweep through kernel 1 (TileEnergy) on a candidate state
-        built at the cutoff for these positions, the exceptions, the Ewald
-        exclusion correction, the self energy, the dispersion correction,
-        and the dense reciprocal energy through kernels 4 and 5. An
-        overflowing candidate state poisons it with NaN."""
+        the direct space through kernel 1 on a candidate state built at the
+        cutoff for these positions, or every pair (each through its analytic
+        forces: ops/pairs.py:AnalyticEnergy); the exceptions; for PME the
+        dense reciprocal energy through kernels 4 and 5, for Ewald the
+        k-sum, both with the exclusion correction and the self energy; the
+        dispersion correction. An overflowing candidate state poisons it
+        with NaN."""
         posd = pos.to(self.dtype)
         boxd = box.to(self.dtype)
-        state = self.build_state(posd.detach(), box, reach=self.cutoff)
-        consts = tile_pairs.tile_consts(boxd, self.tile_scalars)
-        e_dir = tile_pairs.TileEnergy.apply(
-            posd, boxd, state, consts, tile_pairs.MODE_EWALD,
-            self.use_switch, self.plain)
-        e_rec = pme_mod.pme_reciprocal_energy(
-            posd, self.charge, box, self.grid, pme_zslab.ORDER, self.alpha,
-            self.bsq_x, self.bsq_y, self.bsq_z, plain=self.plain)
-        e_exc = exception_energy(posd, self.exc_idx, self.exc_cp,
-                                 self.exc_sigma, self.exc_eps)
-        e_corr = exclusion_correction_energy(posd, boxd, self.exc_idx,
-                                             self.exc_qq, self.alpha)
-        box64 = box.to(torch.float64)
-        energy = (e_dir + e_rec + e_exc + e_corr + self.self_energy
-                  + self.disp_coeff / geom.box_volume(box64))
+        if self.periodic:
+            state = self.build_state(posd.detach(), box, reach=self.cutoff)
+            consts = tile_pairs.tile_consts(boxd, self.tile_scalars)
+            energy = pair_ops.AnalyticEnergy.apply(
+                tile_pairs.tile_energy_forces, posd, boxd, state, consts,
+                self.mode, self.use_switch, self.plain)
+        else:
+            energy = pair_ops.AnalyticEnergy.apply(
+                pair_ops.pair_energy_forces_n2, posd, self.charge,
+                self.sigma, self.epsilon, self.exclusions, self.terms)
+        if self.method == NonbondedForce.PME:
+            energy = energy + pme_mod.pme_reciprocal_energy(
+                posd, self.charge, box, self.grid, pme_zslab.ORDER,
+                self.alpha, self.bsq_x, self.bsq_y, self.bsq_z,
+                plain=self.plain)
+        elif self.method == NonbondedForce.Ewald:
+            energy = energy + pme_mod.ewald_reciprocal_energy(
+                pos, self.charge, box, self.ewald_m, self.alpha)
+        energy = energy + exception_energy(
+            posd, self.exc_idx, self.exc_cp, self.exc_sigma, self.exc_eps,
+            boxd if self.exc_pbc else None)
+        if self.alpha is not None:
+            energy = energy + exclusion_correction_energy(
+                posd, boxd, self.exc_idx, self.exc_qq, self.alpha)
+        energy = (energy + self.self_energy
+                  + self.disp_coeff / geom.box_volume(box.to(torch.float64)))
+        if not self.periodic:
+            return energy
         return energy + torch.where(state["overflow"] > 0, math.nan, 0.0)

@@ -1,3 +1,3 @@
-from .builders import popc_bilayer, tip3p_water_box
+from .builders import popc_bilayer, tip3p_water_box, water_droplet
 
-__all__ = ["popc_bilayer", "tip3p_water_box"]
+__all__ = ["popc_bilayer", "tip3p_water_box", "water_droplet"]

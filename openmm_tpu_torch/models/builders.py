@@ -3,7 +3,8 @@
 tip3p_water_box is the counterpart of openmm_tpu/models/builders.py: the
 same TIP3P water box, built with numpy from the same
 np.random.RandomState(jitter_seed) stream, so that the arrays are
-identical to the JAX builder's for the same seed.
+identical to the JAX builder's for the same seed. water_droplet carves a
+non-periodic droplet out of such a box.
 
 popc_bilayer is the pre-equilibrated POPC membrane patch that the JAX
 package's Modeller.addMembrane places (openmm_tpu/app/data/POPC.npz: 128
@@ -50,11 +51,31 @@ WATER_NUMBER_DENSITY = 33.37  # molecules / nm^3 at ~300 K
 O_MASS, H_MASS = 15.99943, 1.007947
 
 
-def tip3p_water_box(n_waters=216, cutoff=0.9, constraints=True,
-                    jitter_seed=1234):
-    """A cubic PME TIP3P box on a jittered lattice with random molecule
-    orientations at liquid density. The count is rounded up to a cube.
-    Returns (system, positions as an (n, 3) float64 array in nm)."""
+def _add_tip3p_water(system, nb, constraints):
+    """One TIP3P water's particles, parameters, exclusions and (when
+    `constraints`) its three rigid-water constraints."""
+    d_oh, theta = TIP3P_OH_DISTANCE, TIP3P_ANGLE
+    o = system.addParticle(O_MASS)
+    h1 = system.addParticle(H_MASS)
+    h2 = system.addParticle(H_MASS)
+    nb.addParticle(TIP3P_O_CHARGE, TIP3P_O_SIGMA, TIP3P_O_EPSILON)
+    nb.addParticle(TIP3P_H_CHARGE, 1.0, 0.0)
+    nb.addParticle(TIP3P_H_CHARGE, 1.0, 0.0)
+    nb.addException(o, h1, 0.0, 1.0, 0.0)
+    nb.addException(o, h2, 0.0, 1.0, 0.0)
+    nb.addException(h1, h2, 0.0, 1.0, 0.0)
+    if constraints:
+        system.addConstraint(o, h1, d_oh)
+        system.addConstraint(o, h2, d_oh)
+        system.addConstraint(h1, h2, 2.0 * d_oh * math.sin(0.5 * theta))
+
+
+def tip3p_water_box(n_waters=216, nonbonded_method=NonbondedForce.PME,
+                    cutoff=0.9, constraints=True, jitter_seed=1234):
+    """A cubic TIP3P box on a jittered lattice with random molecule
+    orientations at liquid density, its NonbondedForce of
+    `nonbonded_method` (PME by default). The count is rounded up to a
+    cube. Returns (system, positions as an (n, 3) float64 array in nm)."""
     n_side = int(round(n_waters ** (1.0 / 3.0)))
     while n_side ** 3 < n_waters:
         n_side += 1
@@ -66,13 +87,12 @@ def tip3p_water_box(n_waters=216, cutoff=0.9, constraints=True,
     system.setDefaultPeriodicBoxVectors([box_l, 0, 0], [0, box_l, 0],
                                         [0, 0, box_l])
     nb = NonbondedForce()
-    nb.setNonbondedMethod(NonbondedForce.PME)
+    nb.setNonbondedMethod(nonbonded_method)
     nb.setCutoffDistance(min(cutoff, 0.49 * box_l))
     nb.setUseDispersionCorrection(True)
     system.addForce(nb)
 
     d_oh, theta = TIP3P_OH_DISTANCE, TIP3P_ANGLE
-    d_hh = 2.0 * d_oh * math.sin(0.5 * theta)
     ref = np.array([[0.0, 0.0, 0.0], [d_oh, 0.0, 0.0],
                     [d_oh * math.cos(theta), d_oh * math.sin(theta), 0.0]])
     rng = np.random.RandomState(jitter_seed)
@@ -80,19 +100,7 @@ def tip3p_water_box(n_waters=216, cutoff=0.9, constraints=True,
     for ix in range(n_side):
         for iy in range(n_side):
             for iz in range(n_side):
-                o = system.addParticle(O_MASS)
-                h1 = system.addParticle(H_MASS)
-                h2 = system.addParticle(H_MASS)
-                nb.addParticle(TIP3P_O_CHARGE, TIP3P_O_SIGMA, TIP3P_O_EPSILON)
-                nb.addParticle(TIP3P_H_CHARGE, 1.0, 0.0)
-                nb.addParticle(TIP3P_H_CHARGE, 1.0, 0.0)
-                nb.addException(o, h1, 0.0, 1.0, 0.0)
-                nb.addException(o, h2, 0.0, 1.0, 0.0)
-                nb.addException(h1, h2, 0.0, 1.0, 0.0)
-                if constraints:
-                    system.addConstraint(o, h1, d_oh)
-                    system.addConstraint(o, h2, d_oh)
-                    system.addConstraint(h1, h2, d_hh)
+                _add_tip3p_water(system, nb, constraints)
                 base = (np.array([ix, iy, iz], float) + 0.5) * spacing \
                     + (rng.rand(3) - 0.5) * 0.02
                 axis = rng.randn(3)
@@ -105,6 +113,29 @@ def tip3p_water_box(n_waters=216, cutoff=0.9, constraints=True,
                 rot = np.eye(3) + s * k + (1 - c) * (k @ k)
                 positions.append(ref @ rot.T + base)
     return system, np.concatenate(positions)
+
+
+def water_droplet(positions, box, radius=2.5,
+                  nonbonded_method=NonbondedForce.CutoffNonPeriodic,
+                  cutoff=2.0):
+    """The waters of a TIP3P box (positions (n, 3) in O, H, H order, box
+    (3, 3) with a diagonal box) whose oxygens lie within `radius` nm of
+    the box's centre, each taken whole at the image of its oxygen nearest
+    the centre, as a non-periodic System of `nonbonded_method` (NoCutoff
+    or CutoffNonPeriodic at `cutoff`). Returns (system, positions)."""
+    pos = np.asarray(positions, np.float64).reshape(-1, 3, 3)
+    widths = np.diag(np.asarray(box, np.float64))
+    d = pos[:, 0] - 0.5 * widths
+    shift = widths * np.round(d / widths)
+    keep = np.linalg.norm(d - shift, axis=1) < radius
+    system = System()
+    nb = NonbondedForce()
+    nb.setNonbondedMethod(nonbonded_method)
+    nb.setCutoffDistance(cutoff)
+    system.addForce(nb)
+    for _ in range(int(keep.sum())):
+        _add_tip3p_water(system, nb, constraints=True)
+    return system, (pos[keep] - shift[keep, None]).reshape(-1, 3)
 
 
 def replicate_templates(data, residue_template) -> dict:

@@ -1,16 +1,30 @@
-"""Neighbour-list helpers: spatial sort keys, the rebuild predicate and the
-exclusion table.
+"""Neighbour-list helpers (spatial sort keys, the rebuild predicate, the
+exclusion table) and the all-pairs direct space.
 
 Counterpart of openmm_tpu/ops/pairs.py (build_exclusion_table,
 spatial_sort_keys, needs_rebuild; the rebuild predicate here also
-fires on a change of the box).
+fires on a change of the box; pair_energy_n2). The JAX pair_energy_n2
+sums a pair function over the unordered pairs of blocked tiles and takes
+forces by jax.grad. pair_energy_forces_n2 takes every atom's row of
+partners instead (each pair from both atoms, the energy halved), so that
+an atom's force is a dense sum over its own row: no scatter of forces,
+and no float atomics, which would change the bits from run to run on a
+card (the step program is held bit for bit against the eager loop).
 """
 from __future__ import annotations
+
+import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from ..constants import ONE_4PI_EPS0
 from . import geometry as geom
+
+TWO_OVER_SQRT_PI = 2.0 / math.sqrt(math.pi)
+# pair elements (row atoms x partners) a chunk of pair_energy_forces_n2
+N2_CHUNK = 1 << 22
 
 
 def pad_to_block(n: int, block: int) -> int:
@@ -74,3 +88,131 @@ def needs_rebuild(pos: torch.Tensor, ref_pos: torch.Tensor, skin: float,
     d = pos - ref_pos
     moved = torch.max(torch.sum(d * d, dim=-1)) > (0.5 * skin) ** 2
     return moved | torch.any(box != ref_box)
+
+
+class PairTerms(NamedTuple):
+    """What the all-pairs direct space of the non-periodic methods
+    computes. coulomb: "rf" (the reaction field, qq (1/r + krf r^2 - crf))
+    or "plain" (qq / r). cutoff None: every pair counts; else pairs at
+    r < cutoff. switch None, or the Lennard-Jones switch's (distance,
+    1 / (cutoff - distance))."""
+    coulomb: str
+    cutoff: float | None = None
+    krf: float = 0.0
+    crf: float = 0.0
+    switch: tuple | None = None
+
+
+def pair_terms(r2s, qq, sig, eps4, coulomb, alpha=0.0, krf=0.0, crf=0.0,
+               switch=None):
+    """(dE/d(r^2), E) of the Lennard-Jones and Coulomb terms of pairs at
+    r^2 = r2s (> 0): qq = k_e q_i q_j, sig = (sigma_i + sigma_j) / 2,
+    eps4 = 4 sqrt(eps_i eps_j), coulomb "ewald" (qq erfc(alpha r) / r,
+    kernel 1's MODE_EWALD) or as in PairTerms, switch as there (the
+    constants floats or 0-d tensors). In float32 erfc is the Hastings form
+    of the JAX float32 path and of kernel 1; in float64 the exact one."""
+    inv_r = torch.rsqrt(r2s)
+    inv_r2 = inv_r * inv_r
+    s2 = sig * sig * inv_r2
+    s6 = s2 * s2 * s2
+    es6 = eps4 * s6
+    de_lj = -3.0 * es6 * (2.0 * s6 - 1.0) * inv_r2
+    e_lj = es6 * (s6 - 1.0)
+    if switch is not None:
+        rs, inv_w = switch
+        t = torch.clamp((r2s * inv_r - rs) * inv_w, 0.0, 1.0)
+        t2 = t * t
+        sw = 1.0 - t2 * t * (10.0 - 15.0 * t + 6.0 * t2)
+        dsw = (-30.0 * t2 * (1.0 - t) ** 2 * inv_w) * (0.5 * inv_r)
+        de_lj = de_lj * sw + e_lj * dsw
+        e_lj = e_lj * sw
+    if coulomb == "ewald":
+        ar = alpha * (r2s * inv_r)
+        ex = torch.exp(-ar * ar)
+        if r2s.dtype == torch.float64:
+            erfc_ar = torch.special.erfc(ar)
+        else:
+            t = 1.0 / (1.0 + 0.3275911 * ar)
+            erfc_ar = (0.254829592 + (-0.284496736 + (
+                1.421413741 + (-1.453152027 + 1.061405429 * t) * t)
+                * t) * t) * t * ex
+        de_c = -qq * (erfc_ar * inv_r2
+                      + TWO_OVER_SQRT_PI * alpha * ex * inv_r) \
+            * (0.5 * inv_r)
+        e_c = qq * inv_r * erfc_ar
+    elif coulomb == "rf":
+        de_c = qq * (-0.5 * inv_r2 * inv_r + krf)
+        e_c = qq * (inv_r + krf * r2s - crf)
+    else:
+        de_c = -0.5 * qq * inv_r2 * inv_r
+        e_c = qq * inv_r
+    return de_lj + de_c, e_lj + e_c
+
+
+def _row_chunks(n: int, chunk: int = N2_CHUNK):
+    rows = max(1, chunk // max(n, 1))
+    for r0 in range(0, n, rows):
+        yield r0, min(n, r0 + rows)
+
+
+def pair_energy_forces_n2(pos, charge, sigma, epsilon, exclusions,
+                          terms: PairTerms):
+    """(energy float64 scalar, forces (n, 3) in pos.dtype) of the
+    Lennard-Jones and Coulomb terms over every pair of atoms that is not
+    excluded: exclusions (n, E) int of excluded partners, -1 padded. Rows
+    of atoms go in chunks against all n partners; each atom's force is its
+    row's sum (in float64), the energy half the sum of the rows
+    (pair_terms)."""
+    n = pos.shape[0]
+    dt = pos.dtype
+    dev = pos.device
+    qs = math.sqrt(ONE_4PI_EPS0) * charge.to(dt)
+    sh = 0.5 * sigma.to(dt)
+    es = 2.0 * torch.sqrt(epsilon.to(dt))
+    excl = torch.where(exclusions >= 0, exclusions.long(), n)
+    energy = torch.zeros((), dtype=torch.float64, device=dev)
+    forces = []
+    for r0, r1 in _row_chunks(n):
+        rows = r1 - r0
+        dr = pos[r0:r1, None, :] - pos[None, :, :]
+        r2 = (dr * dr).sum(dim=-1)
+        # the excluded partners and the atom itself
+        own = torch.arange(r0, r1, device=dev)[:, None]
+        skip = torch.zeros((rows, n + 1), dtype=torch.bool, device=dev)
+        skip.scatter_(1, torch.cat([excl[r0:r1], own], dim=1), True)
+        keep = ~skip[:, :n]
+        if terms.cutoff is not None:
+            keep = keep & (r2 < terms.cutoff * terms.cutoff)
+        de, e = pair_terms(torch.where(keep, r2, 1.0),
+                           qs[r0:r1, None] * qs[None, :],
+                           sh[r0:r1, None] + sh[None, :],
+                           es[r0:r1, None] * es[None, :], terms.coulomb,
+                           krf=terms.krf, crf=terms.crf, switch=terms.switch)
+        dedr2 = torch.where(keep, de, 0.0)
+        energy = energy + torch.where(keep, e, 0.0).sum(dtype=torch.float64)
+        forces.append((-2.0 * dedr2[..., None] * dr).sum(
+            dim=1, dtype=torch.float64).to(dt))
+    return 0.5 * energy, torch.cat(forces)
+
+
+class AnalyticEnergy(torch.autograd.Function):
+    """The energy of fn(pos, *args) -> (energy float64 scalar, forces) as
+    a scalar that autograd differentiates with respect to pos through the
+    forces fn returns: the backward is -forces * grad_output, so fn runs
+    once (the minimizer's objective).
+
+    AnalyticEnergy.apply(fn, pos, *args)
+    """
+
+    @staticmethod
+    def forward(ctx, fn, pos, *args):
+        energy, forces = fn(pos, *args)
+        ctx.save_for_backward(forces)
+        ctx.dtype, ctx.n_args = pos.dtype, len(args)
+        return energy
+
+    @staticmethod
+    def backward(ctx, grad):
+        (forces,) = ctx.saved_tensors
+        return (None, (-forces * grad.to(forces.dtype)).to(ctx.dtype)) \
+            + (None,) * ctx.n_args

@@ -1,9 +1,15 @@
-"""PME parameter selection, B-spline moduli, the Ewald self energy, and
-the differentiable dense reciprocal energy.
+"""PME parameter selection, B-spline moduli, the Ewald self energy, the
+differentiable dense reciprocal energy, and the exact Ewald k-sum.
 
 Counterpart of openmm_tpu/ops/pme.py. Host-side numpy: ewald_alpha,
-pme_grid_size, find_legal_fft_dim, make_pme_recip_data, ewald_self_energy
-(the formulas follow NonbondedForceImpl::calcPMEParameters). Torch:
+ewald_kmax, pme_grid_size, find_legal_fft_dim, make_pme_recip_data,
+ewald_self_energy (the formulas follow
+NonbondedForceImpl::calcEwaldParameters and calcPMEParameters). Torch:
+ewald_reciprocal_ef and ewald_reciprocal_energy, the structure-factor sum
+of NonbondedForce.Ewald in float64 (the JAX module pins its products to
+HIGHEST precision, since a truncated phase k.r of up to ~10^2 rad put the
+TPU's sum 1.4 % off; here no product of the sum goes through a tensor
+core); and
 bspline_weights, dense_weights, spread_charges_dense, _k_vectors and the
 Coulomb branch of pme_reciprocal_energy, which autograd differentiates (the
 minimizer's objective). The dense spread goes through ops/pallas_pme.py
@@ -20,12 +26,36 @@ import torch
 from ..constants import ONE_4PI_EPS0
 from . import geometry as geom
 from . import pallas_pme
+from .pairs import AnalyticEnergy
 
 SQRT_PI = math.sqrt(math.pi)
 
 
 def ewald_alpha(cutoff: float, tol: float) -> float:
     return (1.0 / cutoff) * math.sqrt(-math.log(2.0 * tol))
+
+
+def ewald_kmax(box_widths, alpha: float, tol: float) -> list:
+    """kmax per axis: the smallest k whose error estimate is within tol,
+    made odd (NonbondedForceImpl::calcEwaldParameters)."""
+    out = []
+    for width in box_widths:
+        def err(k):
+            temp = k * math.pi / (width * alpha)
+            return tol - 0.05 * math.sqrt(width * alpha) * k * math.exp(
+                -temp * temp)
+        k = 10
+        if err(k) > 0:
+            while err(k) > 0 and k > 0:
+                k -= 1
+            k += 1
+        else:
+            while err(k) < 0:
+                k += 1
+        if k % 2 == 0:
+            k += 1
+        out.append(k)
+    return out
 
 
 def find_legal_fft_dim(minimum: int) -> int:
@@ -175,3 +205,70 @@ def pme_reciprocal_energy(pos, charges, box, grid, order, alpha, bsq_x,
          * bsq_z.to(f64)[None, None, :])
     return ONE_4PI_EPS0 / (2.0 * math.pi * geom.box_volume(box64)) \
         * torch.sum(kern * b * sq)
+
+
+def ewald_m_vectors(kmax) -> np.ndarray:
+    """(K, 3) integer reciprocal indices of the symmetric k-box,
+    |m_axis| < kmax_axis, without m = 0, in the JAX module's order."""
+    axes = [np.arange(-(k - 1), k) for k in kmax]
+    m = np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1).reshape(-1, 3)
+    return m[np.any(m != 0, axis=1)].astype(np.float64)
+
+
+# (atoms x k-vectors) elements a chunk of the k-sum
+EWALD_CHUNK = 1 << 21
+
+
+def ewald_reciprocal_ef(pos, charges, box, m_vectors, alpha):
+    """The Ewald reciprocal energy and forces, float64:
+    E = k_e (2 pi / V) sum_k exp(-k^2 / 4 alpha^2) / k^2 |S(k)|^2 over the
+    k = 2 pi m box^-T of `m_vectors` (ewald_m_vectors), with
+    S(k) = sum_j q_j exp(i k.r_j), and
+    F_i = -2 k_e (2 pi / V) q_i sum_k w_k k (Im S cos k.r_i - Re S sin k.r_i).
+    Rows of atoms go in chunks through dense (atoms x k-vectors) products:
+    a first pass sums S, a second the forces. Every sum is a reduction
+    over a tensor axis, so the bits are the same on every call."""
+    f64 = torch.float64
+    pos = pos.to(f64)
+    q = charges.to(f64)
+    binv = geom.box_inverse(box.to(f64))
+    m = m_vectors.to(f64)
+    kvec = 2.0 * math.pi * (m[:, 0:1] * binv[:, 0] + m[:, 1:2] * binv[:, 1]
+                            + m[:, 2:3] * binv[:, 2])          # (K, 3)
+    k2 = (kvec * kvec).sum(dim=-1)
+    w = torch.exp(-k2 / (4.0 * alpha * alpha)) / k2
+    rows = max(1, EWALD_CHUNK // max(m.shape[0], 1))
+    chunks = [(r0, min(pos.shape[0], r0 + rows))
+              for r0 in range(0, pos.shape[0], rows)]
+
+    def phases(r0, r1):
+        p = pos[r0:r1]
+        theta = (p[:, 0:1] * kvec[:, 0] + p[:, 1:2] * kvec[:, 1]
+                 + p[:, 2:3] * kvec[:, 2])
+        return torch.cos(theta), torch.sin(theta)
+
+    s_re = torch.zeros_like(k2)
+    s_im = torch.zeros_like(k2)
+    for r0, r1 in chunks:
+        c, s = phases(r0, r1)
+        s_re = s_re + (q[r0:r1, None] * c).sum(dim=0)
+        s_im = s_im + (q[r0:r1, None] * s).sum(dim=0)
+    scale = ONE_4PI_EPS0 * 2.0 * math.pi / geom.box_volume(box.to(f64))
+    energy = scale * (w * (s_re * s_re + s_im * s_im)).sum()
+    a, b = w * s_im, w * s_re
+    forces = []
+    for r0, r1 in chunks:
+        c, s = phases(r0, r1)
+        g = c * a - s * b                                       # (rows, K)
+        f = torch.stack([(g * kvec[:, 0]).sum(dim=1),
+                         (g * kvec[:, 1]).sum(dim=1),
+                         (g * kvec[:, 2]).sum(dim=1)], dim=1)
+        forces.append(-2.0 * scale * q[r0:r1, None] * f)
+    return energy, torch.cat(forces)
+
+
+def ewald_reciprocal_energy(pos, charges, box, m_vectors, alpha):
+    """The Ewald reciprocal energy, differentiable in pos through the
+    forces of ewald_reciprocal_ef."""
+    return AnalyticEnergy.apply(ewald_reciprocal_ef, pos, charges, box,
+                                m_vectors, alpha)

@@ -35,7 +35,7 @@ import torch
 from .. import _build
 from ..constants import ONE_4PI_EPS0
 from . import geometry as geom
-from .pairs import pad_to_block, spatial_sort_keys
+from .pairs import pad_to_block, pair_terms, spatial_sort_keys
 
 BRICK = 16
 EXC_SLOTS = 32          # candidate slots that may carry exclusion bits
@@ -329,9 +329,10 @@ def _chunk_pairs(pos4, cand, count, words, consts, r0, r1):
 
 def nonbonded_tiles_plain(pos4, par4, cand, count, words, consts, mode,
                           use_switch) -> torch.Tensor:
-    """Plain PyTorch version of kernel 1 on the same inputs. In float32 it
-    repeats the kernel's arithmetic (Hastings erfc); in float64 it uses the
-    exact erfc and serves as the accuracy oracle."""
+    """Plain PyTorch version of kernel 1 on the same inputs (the pair terms
+    of ops/pairs.py:pair_terms). In float32 it repeats the kernel's
+    arithmetic (Hastings erfc); in float64 it uses the exact erfc and
+    serves as the accuracy oracle."""
     _check_tile_args(pos4, par4, cand, count, words, consts, mode)
     n_pad = pos4.shape[0]
     out = torch.zeros((n_pad, 4), dtype=pos4.dtype, device=pos4.device)
@@ -343,43 +344,13 @@ def nonbonded_tiles_plain(pos4, par4, cand, count, words, consts, mode,
         rows = r1 - r0
         qi = par4[r0 * BRICK:r1 * BRICK].view(rows, BRICK, 1, 4)
         qj = par4[cj][:, None]
-        r2s = torch.clamp(r2, min=2e-6)
-        inv_r = torch.rsqrt(r2s)
-        inv_r2 = inv_r * inv_r
-        sig = qi[..., 1] + qj[..., 1]
-        eps4 = qi[..., 2] * qj[..., 2]
-        s2 = sig * sig * inv_r2
-        s6 = s2 * s2 * s2
-        es6 = eps4 * s6
-        de_lj = -3.0 * es6 * (2.0 * s6 - 1.0) * inv_r2
-        e_lj = es6 * (s6 - 1.0)
-        if use_switch:
-            t = torch.clamp((r2s * inv_r - rs) * inv_w, 0.0, 1.0)
-            t2 = t * t
-            sw = 1.0 - t2 * t * (10.0 - 15.0 * t + 6.0 * t2)
-            dsw = (-30.0 * t2 * (1.0 - t) ** 2 * inv_w) * (0.5 * inv_r)
-            de_lj = de_lj * sw + e_lj * dsw
-            e_lj = e_lj * sw
-        qq = qi[..., 0] * qj[..., 0]
-        if mode == MODE_EWALD:
-            ar = alpha * (r2s * inv_r)
-            ex = torch.exp(-ar * ar)
-            if pos4.dtype == torch.float64:
-                erfc_ar = torch.special.erfc(ar)
-            else:
-                t = 1.0 / (1.0 + 0.3275911 * ar)
-                erfc_ar = (0.254829592 + (-0.284496736 + (
-                    1.421413741 + (-1.453152027 + 1.061405429 * t) * t)
-                    * t) * t) * t * ex
-            de_c = -qq * (erfc_ar * inv_r2
-                          + TWO_OVER_SQRT_PI * alpha * ex * inv_r) \
-                * (0.5 * inv_r)
-            e_c = qq * inv_r * erfc_ar
-        else:
-            de_c = qq * (-0.5 * inv_r2 * inv_r + krf)
-            e_c = qq * (inv_r + krf * r2s - crf)
-        dedr2 = torch.where(ok, de_lj + de_c, 0.0)
-        e = torch.where(ok, e_lj + e_c, 0.0)
+        de, e = pair_terms(
+            torch.clamp(r2, min=2e-6), qi[..., 0] * qj[..., 0],
+            qi[..., 1] + qj[..., 1], qi[..., 2] * qj[..., 2],
+            "ewald" if mode == MODE_EWALD else "rf", alpha, krf, crf,
+            (rs, inv_w) if use_switch else None)
+        dedr2 = torch.where(ok, de, 0.0)
+        e = torch.where(ok, e, 0.0)
         sl = slice(r0 * BRICK, r1 * BRICK)
         out[sl, 0] = (-2.0 * (dedr2 * dx).sum(dim=-1)).reshape(-1)
         out[sl, 1] = (-2.0 * (dedr2 * dy).sum(dim=-1)).reshape(-1)
@@ -432,26 +403,3 @@ def tile_energy_forces(pos, box, st, consts, mode, use_switch,
              consts, mode, use_switch)
     forces = out[st["inv_order"], :3][:pos.shape[0]]
     return 0.5 * out[:, 3].sum(dtype=torch.float64), forces
-
-
-class TileEnergy(torch.autograd.Function):
-    """The direct-space energy of tile_energy_forces as a float64 scalar
-    that autograd differentiates with respect to pos: the forward runs
-    kernel 1 once and keeps its analytic forces, the backward returns
-    -forces * grad_output, so no second pass through the kernel is needed.
-
-    TileEnergy.apply(pos, box, st, consts, mode, use_switch, plain)
-    """
-
-    @staticmethod
-    def forward(ctx, pos, box, st, consts, mode, use_switch, plain):
-        energy, forces = tile_energy_forces(pos, box, st, consts, mode,
-                                            use_switch, plain)
-        ctx.save_for_backward(forces)
-        return energy
-
-    @staticmethod
-    def backward(ctx, grad):
-        (forces,) = ctx.saved_tensors
-        return (-forces * grad.to(forces.dtype),
-                None, None, None, None, None, None)

@@ -6,10 +6,17 @@ objective, spends its time.
         [--barostat {none,iso,membrane}]
     python3 -m openmm_tpu_torch.profile_step --minimizer [--evaluations 20]
         [--system bilayer]
+    python3 -m openmm_tpu_torch.profile_step --method rf [--system bilayer]
+    python3 -m openmm_tpu_torch.profile_step --method ewald --waters 512
 
 Builds the 24,000-atom TIP3P PME box (--system water, the default) or
 the 32,512-atom POPC bilayer (--system bilayer: amber14-lipid + TIP3P,
-bonded forces, a CMMotionRemover, SETTLE and SHAKE). By default it
+bonded forces, a CMMotionRemover, SETTLE and SHAKE). --method picks the
+NonbondedForce's method: pme (the default, 0.9 nm), rf (CutoffPeriodic at
+1.0 nm, the reference suite's rf settings), ewald (0.9 nm; the water box
+only, whose size --waters sets), or nocutoff and cutoffnonperiodic (2.0
+nm) on the waters of the water box whose oxygens lie within 2.5 nm of its
+centre, a droplet without a box (water_droplet). By default it
 relaxes the start briefly (the water box from its lattice, the bilayer
 after applyConstraints at 303.15 K), then, from one snapshot, times
 `--steps` LangevinMiddle steps at 2 fs twice: through the Context's step
@@ -54,7 +61,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from . import (Context, LangevinMiddleIntegrator, MonteCarloBarostat,
                MonteCarloMembraneBarostat)
-from .models import popc_bilayer, tip3p_water_box
+from .forces.nonbonded import NonbondedForce
+from .models import popc_bilayer, tip3p_water_box, water_droplet
 from .step_program import GATING
 
 ATTEMPTS = 10       # barostat attempts timed alone (--barostat)
@@ -112,11 +120,34 @@ def _window(run, count, device, unit, top, issued=None) -> dict:
     return out
 
 
-def _system(name, n_waters):
-    """(system, positions, temperature K) of --system."""
+# --method: (NonbondedForce method, cutoff nm)
+METHODS = {"pme": (NonbondedForce.PME, 0.9),
+           "rf": (NonbondedForce.CutoffPeriodic, 1.0),
+           "ewald": (NonbondedForce.Ewald, 0.9),
+           "nocutoff": (NonbondedForce.NoCutoff, 2.0),
+           "cutoffnonperiodic": (NonbondedForce.CutoffNonPeriodic, 2.0)}
+DROPLET_RADIUS = 2.5
+
+
+def _system(name, n_waters, method="pme"):
+    """(system, positions, temperature K) of --system at --method."""
+    nb_method, cutoff = METHODS[method]
     if name == "bilayer":
-        return (*popc_bilayer(), 303.15)
-    return (*tip3p_water_box(n_waters), 300.0)
+        if method not in ("pme", "rf"):
+            raise ValueError("--method %s takes the water system" % method)
+        system, positions = popc_bilayer()
+        (nb,) = [f for f in system.getForces()
+                 if isinstance(f, NonbondedForce)]
+        nb.setNonbondedMethod(nb_method)
+        nb.setCutoffDistance(cutoff)
+        return system, positions, 303.15
+    if method in ("nocutoff", "cutoffnonperiodic"):
+        box, positions = tip3p_water_box(n_waters)
+        return (*water_droplet(positions,
+                               box.getDefaultPeriodicBoxVectors(),
+                               DROPLET_RADIUS, nb_method, cutoff), 300.0)
+    return (*tip3p_water_box(n_waters, nonbonded_method=nb_method,
+                             cutoff=cutoff), 300.0)
 
 
 def _context(device, system, integ):
@@ -140,8 +171,9 @@ def _barostat(name, temperature):
 
 
 def profile_steps(device, n_waters=8000, steps=50, top=20,
-                  system_name="water", barostat="none") -> dict:
-    system, positions, temperature = _system(system_name, n_waters)
+                  system_name="water", barostat="none",
+                  method="pme") -> dict:
+    system, positions, temperature = _system(system_name, n_waters, method)
     force = _barostat(barostat, temperature)
     if force is not None:
         system.addForce(force)
@@ -157,7 +189,8 @@ def profile_steps(device, n_waters=8000, steps=50, top=20,
     integ.step(20)
     start = ctx._snapshot()
     out = {"device": _device_name(device), "system": system_name,
-           "barostat": barostat, "atoms": system.getNumParticles(),
+           "method": method, "barostat": barostat,
+           "atoms": system.getNumParticles(),
            "steps": steps, "gating": GATING,
            "escalations": ctx.escalation_count}
     for path, step in (("graph", integ.step), ("eager", ctx._step_eager)):
@@ -175,7 +208,7 @@ def profile_steps(device, n_waters=8000, steps=50, top=20,
     if force is not None:
         ctx._restore(start)
         out["ab"] = _nvt_against_npt(device, system_name, n_waters, ctx,
-                                     steps)
+                                     steps, method)
         ctx._restore(start)
         baro = ctx._barostats[0]
         pos, box = ctx._state["positions"], ctx._box
@@ -190,11 +223,12 @@ def profile_steps(device, n_waters=8000, steps=50, top=20,
     return out
 
 
-def _nvt_against_npt(device, system_name, n_waters, ctx, steps) -> dict:
+def _nvt_against_npt(device, system_name, n_waters, ctx, steps,
+                     method) -> dict:
     """Wall ms a step of `ctx`'s step program (NPT) and of a Context of
     the same system without its barostat (NVT) from the same state, in
     turns, each continuing from where its last window left it."""
-    system, _, temperature = _system(system_name, n_waters)
+    system, _, temperature = _system(system_name, n_waters, method)
     integ = LangevinMiddleIntegrator(temperature, 1.0, 0.002)
     integ.setRandomNumberSeed(3)
     twin = _context(device, system, integ)
@@ -208,8 +242,8 @@ def _nvt_against_npt(device, system_name, n_waters, ctx, steps) -> dict:
 
 
 def profile_objective(device, n_waters=8000, evaluations=20, top=20,
-                      system_name="water") -> dict:
-    system, positions, temperature = _system(system_name, n_waters)
+                      system_name="water", method="pme") -> dict:
+    system, positions, temperature = _system(system_name, n_waters, method)
     ctx = _context(device, system,
                    LangevinMiddleIntegrator(temperature, 1.0, 0.002))
     ctx.setPositions(positions)
@@ -222,7 +256,8 @@ def profile_objective(device, n_waters=8000, evaluations=20, top=20,
 
     window = _window(run, evaluations, device, "evaluation", top)
     return {"device": _device_name(device), "system": system_name,
-            "atoms": system.getNumParticles(), "evaluations": evaluations,
+            "method": method, "atoms": system.getNumParticles(),
+            "evaluations": evaluations,
             **window}
 
 
@@ -237,6 +272,9 @@ def main() -> None:
                         default="water",
                         help="the system whose MD step (or objective) is "
                         "profiled")
+    parser.add_argument("--method", choices=tuple(METHODS), default="pme",
+                        help="the NonbondedForce's method (nocutoff and "
+                        "cutoffnonperiodic on a droplet of the water box)")
     parser.add_argument("--barostat", choices=("none", "iso", "membrane"),
                         default="none",
                         help="run the MD step at constant pressure under "
@@ -249,10 +287,11 @@ def main() -> None:
         raise RuntimeError("no CUDA device is visible to torch")
     if args.minimizer:
         out = profile_objective(device, args.waters, args.evaluations,
-                                system_name=args.system)
+                                system_name=args.system, method=args.method)
     else:
         out = profile_steps(device, args.waters, args.steps,
-                            system_name=args.system, barostat=args.barostat)
+                            system_name=args.system, barostat=args.barostat,
+                            method=args.method)
     print(json.dumps(out))
 
 

@@ -16,9 +16,11 @@ and, under `gate`, runs its attempt (two candidate states and two
 energies through kernels 1-2, the Metropolis test by torch.where) on the
 steps it fires on; then, inside the force evaluation, the rebuild
 predicate (an atom moved more than skin/2, or the box changed) and the
-build and commit of a new candidate state under `gate`; the forces
-(kernels 1-3, the FFT convolution, the exceptions and the exclusion
-correction, the bonded forces); the constraints; all written back into
+build and commit of a new candidate state under `gate` (where the
+NonbondedForce keeps one: a method that takes every pair has no gate);
+the forces (kernels 1-3, the FFT convolution, the exceptions and the
+exclusion correction, the bonded forces; by method, forces/nonbonded.py);
+the constraints; all written back into
 the buffers. So the graph decides the rebuild after the hooks, on the
 steps the eager loop does. The integrator's parameters are the Context's
 device tensor, so new ones need no new program.
@@ -58,7 +60,9 @@ class StepProgram:
         self.vel = state["velocities"].clone()
         self.ref_pos = torch.full_like(self.pos, math.inf)
         self.ref_box = torch.full_like(self.box, math.inf)
-        self._nonbonded = context._nonbonded
+        # the NonbondedModule that keeps a candidate state, or None (no
+        # NonbondedForce, or one whose direct space takes every pair)
+        self._candidates = context._candidates
         # each barostat's uniforms of the step, which its attempt reads
         self.uniforms = [torch.zeros(b.n_uniforms, dtype=torch.float64,
                                      device=self.pos.device)
@@ -70,8 +74,8 @@ class StepProgram:
         self._gate = self.gate_host
         self._first_step = 0        # the step count at load()
         # buffers of the candidate state's shapes at this capacity
-        self.tiles = (None if self._nonbonded is None
-                      else self._nonbonded.build_state(self.pos, self.box))
+        self.tiles = (None if self._candidates is None
+                      else self._candidates.build_state(self.pos, self.box))
         # [capacity overflow, rebuilds] of the chunk
         self.counters = torch.zeros(2, dtype=torch.int64,
                                     device=self.pos.device)
@@ -93,8 +97,8 @@ class StepProgram:
         """The force evaluation of the step, after the hooks: the rebuild
         gate first. `pos` is the positions buffer, which a barostat's
         attempt wrote in place."""
-        if self._nonbonded is not None:
-            self._gate(needs_rebuild(pos, self.ref_pos, self._nonbonded.skin,
+        if self._candidates is not None:
+            self._gate(needs_rebuild(pos, self.ref_pos, self._candidates.skin,
                                      box, self.ref_box), 0)
         return self._ctx._evaluate(pos, box, self.tiles)
 
@@ -109,7 +113,7 @@ class StepProgram:
     def rebuild(self) -> None:
         """Build a candidate state at the current positions and box and
         commit it."""
-        st = self._nonbonded.build_state(self.pos, self.box)
+        st = self._candidates.build_state(self.pos, self.box)
         for key, buf in self.tiles.items():
             buf.copy_(st[key])
         self.ref_pos.copy_(self.pos)
@@ -174,7 +178,7 @@ class StepProgram:
         warm = [k.launches for k in _build.KERNELS]
         self._body_graphs = []
         for i, fn in enumerate(self._bodies):
-            if i == 0 and self._nonbonded is None:
+            if i == 0 and self._candidates is None:
                 self._body_graphs.append(None)
                 continue
             g = torch.cuda.CUDAGraph(keep_graph=True)
@@ -219,7 +223,7 @@ class StepProgram:
         ctx._deps.step.fill_(state["step"])
         self._first_step = state["step"]
         self.counters.zero_()
-        if self._nonbonded is None:
+        if self._candidates is None:
             return
         if ctx._tiles is None:
             self.ref_pos.fill_(math.inf)
@@ -256,6 +260,6 @@ class StepProgram:
         ctx = self._ctx
         ctx._state["positions"] = self.pos
         ctx._state["velocities"] = self.vel
-        if self._nonbonded is not None:
+        if self._candidates is not None:
             ctx._tiles, ctx._ref_pos = self.tiles, self.ref_pos
             ctx._ref_box = self.ref_box

@@ -87,6 +87,9 @@ class System:
     def getDefaultPeriodicBoxVectors(self) -> np.ndarray:
         return self._box.copy()
 
+    def usesPeriodicBoundaryConditions(self) -> bool:
+        return any(f.usesPeriodicBoundaryConditions() for f in self._forces)
+
 
 # the forces from_numpy and to_numpy carry besides the NonbondedForce, at
 # most one of each kind: (kind, class, the methods that count, add and
@@ -114,7 +117,9 @@ def from_numpy(params: dict) -> System:
     constraint_pairs (k, 2) and constraint_distances (k,); box (3, 3);
     cutoff, method (a NonbondedForce method name), ewald_tolerance,
     dispersion_correction, switch_distance (negative: no switch), which
-    make one NonbondedForce.
+    make one NonbondedForce; optional rf_dielectric (the reaction field's,
+    78.3 when absent) and exceptions_use_pbc (False when absent), which
+    to_numpy writes only where they differ from those defaults.
     Each present key adds a force: bond_pairs (m, 2) with bond_params
     (length, k); angle_triples (m, 3) with angle_params (angle, k);
     torsion_quads (m, 4) with torsion_params (periodicity, phase, k);
@@ -144,6 +149,9 @@ def from_numpy(params: dict) -> System:
     if params["switch_distance"] >= 0:
         nb.setUseSwitchingFunction(True)
         nb.setSwitchingDistance(params["switch_distance"])
+    nb.setReactionFieldDielectric(params.get("rf_dielectric", 78.3))
+    nb.setExceptionsUsePeriodicBoundaryConditions(
+        bool(params.get("exceptions_use_pbc", False)))
     for q, s, e in zip(params["charges"], params["sigma"], params["epsilon"]):
         nb.addParticle(q, s, e)
     for (i, j), (cp, s, e) in zip(
@@ -252,6 +260,10 @@ def to_numpy(system: System) -> dict:
         "switch_distance": (nb.getSwitchingDistance()
                             if nb.getUseSwitchingFunction() else -1.0),
     }
+    if nb.getReactionFieldDielectric() != 78.3:
+        out["rf_dielectric"] = nb.getReactionFieldDielectric()
+    if nb.getExceptionsUsePeriodicBoundaryConditions():
+        out["exceptions_use_pbc"] = True
     groups = {"nonbonded": nb.getForceGroup()}
     for kind, cls, (count, _, get), atoms_key, n_atoms, par_key, n_par \
             in _BONDED:

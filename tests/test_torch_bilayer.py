@@ -284,3 +284,21 @@ def test_chip_smoke_bilayer_phase_on_cpu(bilayer):
     assert out["minimized"][1] < out["minimized"][0]
     # CPU tensors take the plain versions: no kernel launched
     assert set(out["launches"].values()) == {0}
+
+
+def test_chip_smoke_rf_bilayer_phase_on_cpu(bilayer):
+    """chip_smoke.py's rf bilayer phase (CutoffPeriodic at 1.0 nm, kernel
+    1 in MODE_RF on the candidate state), rehearsed on the cropped
+    bilayer with 2 + 2 steps: the forces and each group's energy against
+    float64, the program against the eager loop in bits."""
+    import torch
+
+    import chip_smoke
+    _, pos, _, params = bilayer
+    out = chip_smoke.phase_rf_bilayer(
+        torch.device("cpu"), pos, bilayer=(omm.from_numpy(params), pos),
+        steps=4, replay=2, energy_every=1)
+    assert out["tiled"] and out["force_err"] <= chip_smoke.FORCE_ERR_BAR
+    assert sorted(out["energies"]) == [0, 1, 2, 3, 4]
+    assert out["graph"]["energies"] == out["eager"]["energies"]
+    assert set(out["launches"].values()) == {0}

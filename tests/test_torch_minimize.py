@@ -1,7 +1,8 @@
 """Energy minimization of openmm_tpu_torch against openmm_tpu on a 343-water
 PME box (1,029 atoms, 20^3 grid): the objective (Context.
-_make_position_energy_fn, through TileEnergy and the dense PME), the
-vectorized constraint penalty, L-BFGS, and a whole short minimization.
+_make_position_energy_fn, through kernel 1's analytic forces and the dense
+PME), the vectorized constraint penalty, L-BFGS, and a whole short
+minimization.
 
 Tolerances: the port's float64 objective on the "CPU" platform evaluates
 the formulas of the JAX "Reference" platform (float64, dense pairs):

@@ -91,12 +91,38 @@ def test_zero_friction_trajectory_matches_jax(box343):
     assert np.abs(got - want).max() < 1e-5
 
 
-def test_chip_smoke_main_path_phase_on_cpu():
+@pytest.fixture(scope="module")
+def main_path():
     torch.manual_seed(0)
-    result = chip_smoke.phase_main_path(
+    return chip_smoke.phase_main_path(
         torch.device("cpu"), n_waters=343,
         relax=((0.0005, 50.0, 80), (0.001, 50.0, 60)), steps=20,
         energy_every=10)
+
+
+def test_chip_smoke_main_path_phase_on_cpu(main_path):
+    result = main_path
     assert result["force_err"] <= chip_smoke.FORCE_ERR_BAR
     assert len(result["energies"]) == 3
     assert result["rebuilds"] > 0 and result["escalations"] == 0
+
+
+def test_chip_smoke_method_phases_on_cpu(main_path):
+    """The phases of the other NonbondedForce methods from the rehearsed
+    main path: the relaxed box at the rf settings (kernel 1 in MODE_RF on
+    its candidate state), droplets of it at NoCutoff and
+    CutoffNonPeriodic (every pair), and an Ewald box."""
+    cpu = torch.device("cpu")
+    rf = chip_smoke.phase_rf_water(cpu, main_path, steps=8, replay=4)
+    assert rf["tiled"] and rf["force_err"] <= chip_smoke.FORCE_ERR_BAR
+    record = rf["record"]
+    assert record["name"] == "nonbonded_tiles_rf"
+    assert record["bound_ms"] > 0 and record["ms"] is None
+    # CPU tensors take the plain versions: no kernel launched
+    assert rf["launches"]["nonbonded_tiles"] == 0
+    droplets = chip_smoke.phase_nonperiodic(cpu, main_path, radius=0.8,
+                                            steps=3, replay=2)
+    assert [d["tiled"] for d in droplets] == [False, False]
+    assert all(d["force_err"] <= chip_smoke.FORCE_ERR_BAR for d in droplets)
+    ewald = chip_smoke.phase_ewald(cpu, n_waters=343, steps=3, replay=2)
+    assert ewald["tiled"] and ewald["force_err"] <= chip_smoke.FORCE_ERR_BAR

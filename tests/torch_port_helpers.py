@@ -88,6 +88,11 @@ def system_params(system):
                                           u.nanometer))
                             if nb.getUseSwitchingFunction() else -1.0),
     }
+    # the keys from_numpy reads only where they differ from its defaults
+    if nb.getReactionFieldDielectric() != 78.3:
+        out["rf_dielectric"] = nb.getReactionFieldDielectric()
+    if nb.getExceptionsUsePeriodicBoundaryConditions():
+        out["exceptions_use_pbc"] = True
     groups = {"nonbonded": nb.getForceGroup()}
     for kind, cls, terms, k, atoms_key, par_key in _BONDED:
         (force,) = [f for f in forces if type(f) is cls] or (None,)
