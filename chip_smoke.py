@@ -51,7 +51,23 @@ comes out:
   box at Ewald (kernel 1 in MODE_EWALD and the exact k-sum): each its
   float32 forces against a float64 Context, steps through the step
   program replayed through the eager loop for the same bits, its ms a
-  step and ns/day.
+  step and ns/day;
+- the other integrators on the relaxed water box (PME, kernels 1-3
+  counted; phase_integrators): Verlet at 1 fs for 3 ps with its NVE
+  drift (kT/dof/ns, gated at 0.2 as tests/test_nve_drift.py) and its
+  kinetic energy shifted by half a step and not; Verlet under an
+  AndersenThermostat (300 K, 10/ps) from 250 K, its mean temperature
+  over the last half of 500 steps within 270-330 K; leapfrog Langevin
+  (300 K, 1/ps, 2 fs) and Brownian (300 K, 100/ps, 0.5 fs); each then 50
+  steps from a snapshot through the step program and the eager loop,
+  equal in bits;
+- implicit solvent (phase_gbsa): a 2,546-atom cluster of 19 POPC lipids
+  at the reference suite's dhfr_gbsa settings (GBSAOBCForce and the
+  NonbondedForce at CutoffNonPeriodic 2.0 nm, every pair, plain PyTorch;
+  HBonds; LangevinMiddle at 300 K, 1/ps, 2 fs): its float32 forces and
+  group energies against float64, GB's analytic sweeps timed alone, a
+  minimize call, 300 relaxation steps and 100 more replayed through the
+  eager loop for the same bits, its ns/day.
 
 It imports nothing of JAX or of openmm_tpu.
 
@@ -81,7 +97,8 @@ from openmm_tpu_torch import _build
 from openmm_tpu_torch import step_program
 from openmm_tpu_torch.context import MAX_ESCALATIONS
 from openmm_tpu_torch.forces.nonbonded import NonbondedModule
-from openmm_tpu_torch.models import (popc_bilayer, tip3p_water_box,
+from openmm_tpu_torch.models import (builders, popc_bilayer,
+                                     popc_obc_cluster, tip3p_water_box,
                                      water_droplet)
 from openmm_tpu_torch.ops import geometry as geom
 from openmm_tpu_torch.ops import pallas_pme, pme_zslab, tile_pairs
@@ -160,6 +177,44 @@ DROPLET_REPLAY = 30
 EWALD_WATERS = 512
 EWALD_STEPS = 60
 EWALD_REPLAY = 50
+# implicit solvent (models.popc_obc_cluster: 19 lipids at the reference
+# suite's dhfr_gbsa settings, LangevinMiddle at 300 K, 1/ps, 2 fs): the
+# force group of each force, the minimize call's iterations a penalty
+# stage, the relaxation's steps and friction (the minimized start takes
+# the velocities' heat into its potential energy and regains it at the
+# rate of the friction), and the steps replayed through the eager loop
+GBSA_GROUPS = {"NonbondedForce": 0, "GBSAOBCForce": 1,
+               "HarmonicBondForce": 2, "HarmonicAngleForce": 2,
+               "PeriodicTorsionForce": 2, "CMMotionRemover": 3}
+GBSA_TEMPERATURE = 300.0
+GBSA_MINIMIZE_ITERATIONS = 25
+GBSA_STEPS = 300
+GBSA_RELAX_FRICTION = 10.0
+GBSA_REPLAY = 100
+# the other integrators on the relaxed water box (PME, kernels 1-3):
+# Verlet at 1 fs, its total energy read every DRIFT_EVERY steps over
+# VERLET_STEPS steps for the NVE drift, gated as tests/test_nve_drift.py
+# gates it (kT/dof/ns); Verlet under the Andersen thermostat from a start
+# at ANDERSEN_START K, the temperature read every ANDERSEN_EVERY steps
+# and its mean over the last half of the run within ANDERSEN_T_RANGE;
+# leapfrog Langevin at 2 fs and 1/ps; Brownian at 0.5 fs and 100/ps (a
+# hydrogen moves ~0.01 nm a step). Each run then replays
+# INTEGRATOR_REPLAY steps from a snapshot through the eager loop.
+VERLET_DT = 0.001
+VERLET_STEPS = 3000
+DRIFT_EVERY = 100
+DRIFT_GATE = 0.2
+ANDERSEN_TEMPERATURE = 300.0
+ANDERSEN_FREQUENCY = 10.0
+ANDERSEN_START = 250.0
+ANDERSEN_STEPS = 500
+ANDERSEN_EVERY = 25
+ANDERSEN_T_RANGE = (270.0, 330.0)
+LANGEVIN_STEPS = 200
+BROWNIAN_DT = 0.0005
+BROWNIAN_FRICTION = 100.0
+BROWNIAN_STEPS = 100
+INTEGRATOR_REPLAY = 50
 # what the bilayer phase prints of each force
 COUNTED = {"NonbondedForce": "getNumExceptions",
            "HarmonicBondForce": "getNumBonds",
@@ -628,10 +683,11 @@ def phase_main_path(device, n_waters=N_WATERS, relax=RELAX,
 
 
 def _production(device, ctx, step, energy, steps, energy_every,
-                deadline) -> dict:
+                deadline, read=None) -> dict:
     """`steps` steps by step(n) (the Context's step program, or its eager
-    loop) in calls of `energy_every`, the potential energy read after each
-    call (`energy` before the first). Returns the energies, the rebuilds
+    loop) in calls of `energy_every`, the potential energy (or read(ctx))
+    read after each call (`energy` before the first). Returns the
+    energies (or what read gave), the rebuilds
     since the start and the box after each call, the final positions,
     velocities and barostat statistics,
     the launches of the main path's kernels, ns/day, and per step of the
@@ -653,7 +709,8 @@ def _production(device, ctx, step, energy, steps, energy_every,
         wall += time.perf_counter() - t0
         cpu += time.process_time() - c0
         done += n
-        energies.append(ctx.getState(getEnergy=True).getPotentialEnergy())
+        energies.append(read(ctx) if read else
+                        ctx.getState(getEnergy=True).getPotentialEnergy())
         rebuilds.append(ctx.rebuild_count - r0)
         boxes.append(tuple(ctx._box.flatten().tolist()))
         deadline.check("main path: production")
@@ -664,7 +721,8 @@ def _production(device, ctx, step, energy, steps, energy_every,
                            for t in b.statistics()],
             "launches": {k.name: k.launches - b
                          for k, b in zip(MAIN_PATH_KERNELS, launches)},
-            "ns_day": DT_PS * steps / wall * 86.4,
+            "ns_day": ctx.getIntegrator().getStepSize() * steps / wall
+            * 86.4,
             "wall_ms_per_step": wall / steps * 1e3,
             "host_cpu_ms_per_step": cpu / steps * 1e3,
             "host_issue_ms_per_step": (ctx.issue_seconds - issue0) / steps
@@ -1537,6 +1595,331 @@ def phase_ewald(device, deadline=None, n_waters=EWALD_WATERS,
                         friction=50.0)
 
 
+def phase_gbsa(device, deadline=None, lipids=19, steps=GBSA_STEPS,
+               replay=GBSA_REPLAY, energy_every=ENERGY_EVERY,
+               minimize_iterations=GBSA_MINIMIZE_ITERATIONS) -> dict:
+    """The implicit-solvent cluster (popc_obc_cluster(lipids)) on a
+    Context of its own (the default platform on a GPU, "CPU" otherwise):
+    its float32 forces and the energy of each force group (nonbonded, GB,
+    bonded) against a float64 Context; GB's analytic sweeps alone timed
+    at this size (on a card); then applyConstraints, one minimize call of
+    `minimize_iterations` iterations a stage, velocities at 300 K, `steps`
+    steps through the step program at GBSA_RELAX_FRICTION, and `replay`
+    steps at the suite's 1/ps from a snapshot through the step program
+    and again through the eager loop, which must give the same bits and
+    energies. Gates: the force error, the group energies, the
+    temperature (250-360 K) and the constraint error at the end. Raises on
+    a miss."""
+    deadline = deadline or Deadline(math.inf)
+    platform = "CUDA" if device.type == "cuda" else "CPU"
+    system, positions = popc_obc_cluster(lipids)
+    for force in system.getForces():
+        force.setForceGroup(GBSA_GROUPS[type(force).__name__])
+    n = system.getNumParticles()
+    integ = omm.LangevinMiddleIntegrator(GBSA_TEMPERATURE,
+                                         GBSA_RELAX_FRICTION, DT_PS)
+    integ.setRandomNumberSeed(23)
+    ctx = (omm.Context(system, integ) if platform == "CUDA"
+           else omm.Context(system, integ, platform))
+    oracle = omm.Context(system, omm.LangevinMiddleIntegrator(
+        GBSA_TEMPERATURE, FRICTION, DT_PS), platform,
+        {"Precision": "double"})
+    for c in (ctx, oracle):
+        c.setPositions(positions)
+    st = ctx.getState(getForces=True, getEnergy=True)
+    ref = oracle.getState(getForces=True, getEnergy=True)
+    force_err = _median_relative_error(st.getForces(), ref.getForces())
+    energies = {}
+    for g in sorted(set(GBSA_GROUPS.values()) - {GBSA_GROUPS[
+            "CMMotionRemover"]}):
+        pair = [c.getState(getEnergy=True, groups={g}).getPotentialEnergy()
+                for c in (ctx, oracle)]
+        energies[g] = (*pair, abs(pair[0] - pair[1]) / max(abs(pair[1]),
+                                                          1e-300))
+    del oracle
+    print("gbsa: %d atoms (%d lipids), GBSAOBCForce and NonbondedForce at "
+          "CutoffNonPeriodic %.1f nm; constraints %d (SHAKE %d, CCMA %d); "
+          "median force error vs float64 %.3e (bar %.0e); energy %.6f vs "
+          "%.6f kJ/mol; by group (nonbonded 0, GB 1, bonded 2; float32, "
+          "float64, relative error; bar %.0e): %s" % (
+              n, lipids, builders.OBC_CUTOFF,
+              system.getNumConstraints(), *ctx.constraint_split[1:],
+              force_err, FORCE_ERR_BAR, st.getPotentialEnergy(),
+              ref.getPotentialEnergy(), GROUP_ENERGY_BAR,
+              "; ".join("%d: %.4f %.4f %.2e" % (g, *energies[g])
+                        for g in sorted(energies))))
+    if not force_err <= FORCE_ERR_BAR:
+        raise RuntimeError("gbsa: median force error %.3e above %.0e"
+                           % (force_err, FORCE_ERR_BAR))
+    for g, (e32, e64, rel) in energies.items():
+        if not rel <= GROUP_ENERGY_BAR:
+            raise RuntimeError("gbsa: group %d energy %.6f vs %.6f"
+                               % (g, e32, e64))
+    deadline.check("gbsa: float64 oracle")
+
+    sweeps_ms = None
+    if device.type == "cuda":
+        (gb,) = ctx._gb
+        pos, box = ctx._state["positions"], ctx._box
+        sweeps_ms = _time_ms(lambda: gb.ef(pos, box), device)
+        print("gbsa: GB's three analytic sweeps (energy and forces) at %d "
+              "atoms: %.4f ms a call" % (n, sweeps_ms))
+        deadline.check("gbsa: sweeps")
+
+    ctx.applyConstraints()
+    before = ctx.getState(getEnergy=True).getPotentialEnergy()
+    reporter = _Iterations()
+    _sync(device)
+    t0 = time.perf_counter()
+    omm.LocalEnergyMinimizer.minimize(ctx, MINIMIZE_TOLERANCE,
+                                      minimize_iterations, reporter)
+    _sync(device)
+    minimize_s = time.perf_counter() - t0
+    after = ctx.getState(getEnergy=True).getPotentialEnergy()
+    print("gbsa: minimize (%d iterations a stage): %d iterations, %d "
+          "evaluations in %.2f s; energy %.3f -> %.3f kJ/mol" % (
+              minimize_iterations, reporter.count, ctx.energy_evaluations,
+              minimize_s, before, after))
+    if not (math.isfinite(after) and after < before):
+        raise RuntimeError("gbsa: minimization did not lower the energy: "
+                           "%.3f -> %.3f" % (before, after))
+    deadline.check("gbsa: minimization")
+
+    ctx.setVelocitiesToTemperature(GBSA_TEMPERATURE, randomSeed=4)
+    for done in range(0, steps, energy_every):
+        integ.step(min(energy_every, steps - done))
+        deadline.check("gbsa: steps")
+    integ.setFriction(FRICTION)
+    start = ctx._snapshot()
+    graph = _production(device, ctx, integ.step,
+                        ctx.getState(getEnergy=True).getPotentialEnergy(),
+                        replay, energy_every, deadline)
+    temperature = ctx.temperature()
+    constraint_err = _constraint_error(
+        system, ctx.getState(getPositions=True).getPositions())
+    ctx._restore(start)
+    eager = _production(device, ctx, ctx._step_eager, graph["energies"][0],
+                        replay, energy_every, deadline)
+    _same_bits("gbsa", (graph["positions"], graph["velocities"]),
+               (eager["positions"], eager["velocities"]))
+    if graph["energies"] != eager["energies"]:
+        raise RuntimeError("gbsa: the step program's energies %s, the "
+                           "eager loop's %s" % (graph["energies"],
+                                                eager["energies"]))
+    print("gbsa: %d steps at %.1f/ps, then %d at %.3f ps (friction %.1f/ps, "
+          "%.1f K) through the step program, replayed through the eager "
+          "loop from a snapshot: the same bits and energies %s kJ/mol; T "
+          "%.2f K; largest relative constraint error %.3e (bar %.0e); "
+          "%.2f ns/day, %.4f ms a step (graph) vs %.4f (eager)" % (
+              steps, GBSA_RELAX_FRICTION, replay, DT_PS, FRICTION,
+              GBSA_TEMPERATURE,
+              " ".join("%.1f" % e for e in graph["energies"]), temperature,
+              constraint_err, CONSTRAINT_ERR_BAR, graph["ns_day"],
+              graph["wall_ms_per_step"], eager["wall_ms_per_step"]))
+    if not all(math.isfinite(e) for e in graph["energies"]):
+        raise RuntimeError("gbsa: a potential energy is not finite")
+    if not 250.0 <= temperature <= 360.0:
+        raise RuntimeError("gbsa: temperature %.2f K outside 250-360 K"
+                           % temperature)
+    if not constraint_err <= CONSTRAINT_ERR_BAR:
+        raise RuntimeError("gbsa: constraint error %.3e" % constraint_err)
+    deadline.check("gbsa")
+    return {"atoms": n, "force_err": force_err, "energies": energies,
+            "sweeps_ms": sweeps_ms, "minimized": (before, after),
+            "temperature": temperature, "constraint_err": constraint_err,
+            "ns_day": graph["ns_day"],
+            "ms_per_step": graph["wall_ms_per_step"],
+            "eager_ms_per_step": eager["wall_ms_per_step"]}
+
+
+def _total_energy(ctx) -> float:
+    st = ctx.getState(getEnergy=True)
+    return st.getPotentialEnergy() + st.getKineticEnergy()
+
+
+def _integrator_run(device, label, system, integ, state, steps, every,
+                    read, deadline, replay=INTEGRATOR_REPLAY,
+                    temperature=None) -> dict:
+    """`system` under `integ` on a Context of its own (the default
+    platform on a GPU, "CPU" otherwise) from the positions of `state` and
+    its velocities (or velocities at `temperature`): with the kernel
+    counts set to 0, `steps` steps through the step program in calls of
+    `every`, read(ctx) after each; then `replay` steps from a snapshot
+    through the step program and again through the eager loop, which must
+    give the same bits. Returns the readings, the run's launches of
+    kernels 1-3, ns/day and ms a step of the replay through the step
+    program (the run's first step captures the program), the constraint
+    error and the Context."""
+    platform = "CUDA" if device.type == "cuda" else "CPU"
+    ctx = (omm.Context(system, integ) if platform == "CUDA"
+           else omm.Context(system, integ, platform))
+    ctx.setPositions(state.getPositions())
+    if temperature is None:
+        ctx.setVelocities(state.getVelocities())
+    else:
+        ctx.setVelocitiesToTemperature(temperature, randomSeed=8)
+    for kern in KERNELS:
+        kern.launches = 0
+    run = _production(device, ctx, integ.step, read(ctx), steps, every,
+                      deadline, read)
+    launches = {k.name: k.launches for k in MAIN_PATH_KERNELS}
+    constraint_err = _constraint_error(
+        system, ctx.getState(getPositions=True).getPositions())
+    start = ctx._snapshot()
+    graph = _production(device, ctx, integ.step, 0.0, replay, replay,
+                        deadline)
+    ctx._restore(start)
+    eager = _production(device, ctx, ctx._step_eager, 0.0, replay, replay,
+                        deadline)
+    _same_bits(label, (graph["positions"], graph["velocities"]),
+               (eager["positions"], eager["velocities"]))
+    if graph["energies"] != eager["energies"] \
+            or graph["rebuilds"] != eager["rebuilds"]:
+        raise RuntimeError("%s: the step program's energies %s and rebuilds "
+                           "%s, the eager loop's %s and %s" % (
+                               label, graph["energies"], graph["rebuilds"],
+                               eager["energies"], eager["rebuilds"]))
+    if not all(math.isfinite(e) for e in run["energies"]
+               + graph["energies"]):
+        raise RuntimeError("%s: a reading is not finite: %s"
+                           % (label, run["energies"]))
+    if not constraint_err <= CONSTRAINT_ERR_BAR:
+        raise RuntimeError("%s: constraint error %.3e"
+                           % (label, constraint_err))
+    if device.type == "cuda" and min(launches.values()) <= 0:
+        raise RuntimeError("%s: a kernel of its path never launched: %s"
+                           % (label, launches))
+    deadline.check(label)
+    return {"readings": run["energies"], "launches": launches,
+            "ns_day": graph["ns_day"],
+            "ms_per_step": graph["wall_ms_per_step"],
+            "eager_ms_per_step": eager["wall_ms_per_step"],
+            "constraint_err": constraint_err, "context": ctx}
+
+
+def phase_integrators(device, main, deadline=None,
+                      verlet_steps=VERLET_STEPS, drift_every=DRIFT_EVERY,
+                      andersen_steps=ANDERSEN_STEPS,
+                      andersen_every=ANDERSEN_EVERY,
+                      langevin_steps=LANGEVIN_STEPS,
+                      brownian_steps=BROWNIAN_STEPS,
+                      replay=INTEGRATOR_REPLAY, drift_gate=DRIFT_GATE,
+                      andersen_range=ANDERSEN_T_RANGE) -> dict:
+    """The relaxed water box of phase_main_path (its final positions and
+    velocities; PME at 0.9 nm, kernels 1-3) under Verlet (1 fs; the NVE
+    drift in kT/dof/ns from a linear fit of the total energy, within
+    `drift_gate`; the shifted and the unshifted kinetic energy), Verlet
+    with an AndersenThermostat (300 K, 10/ps) from velocities at 250 K
+    (the mean temperature of the run's last half within
+    `andersen_range`; a rehearsal's few steps reach neither gate),
+    leapfrog Langevin (300 K, 1/ps, 2 fs; the temperature within the
+    main path's 200-450 K) and Brownian (300 K, 100/ps, 0.5 fs), each
+    through _integrator_run (launches, the eager loop's bits, the
+    constraint error). Raises on a miss."""
+    deadline = deadline or Deadline(math.inf)
+    state = main["context"].getState(getPositions=True, getVelocities=True)
+    n_waters = state.getPositions().shape[0] // 3
+
+    def box(thermostat=False):
+        system, _ = tip3p_water_box(n_waters)
+        if thermostat:
+            system.addForce(omm.AndersenThermostat(ANDERSEN_TEMPERATURE,
+                                                   ANDERSEN_FREQUENCY))
+        return system
+
+    out = {}
+    system = box()
+    verlet = _integrator_run(device, "verlet", system,
+                             omm.VerletIntegrator(VERLET_DT), state,
+                             verlet_steps, drift_every, _total_energy,
+                             deadline, replay)
+    ctx = verlet["context"]
+    n = system.getNumParticles()
+    dof = 3 * n - system.getNumConstraints()
+    kt = omm.BOLTZ * 300.0
+    times_ns = np.arange(len(verlet["readings"])) * drift_every \
+        * VERLET_DT / 1000.0
+    slope = np.polyfit(times_ns, np.asarray(verlet["readings"]), 1)[0]
+    drift = slope / (dof * kt)
+    v = ctx._state["velocities"]
+    unshifted = float(0.5 * torch.sum(ctx._masses[:, None] * v * v))
+    print("verlet: %d atoms, %d steps of %.3f ps (%.1f ps): total energy "
+          "%s kJ/mol (every %d steps); NVE drift %.4e kT/dof/ns (gate "
+          "|drift| < %.1f; dof %d, kT at 300 K; T %.2f K at the end); "
+          "kinetic energy %.3f kJ/mol "
+          "shifted by half a step, %.3f unshifted; %.2f ns/day, %.4f ms a "
+          "step; launches %s; %d steps replayed through the eager loop: "
+          "the same bits" % (
+              n, verlet_steps, VERLET_DT, verlet_steps * VERLET_DT,
+              " ".join("%.1f" % e for e in verlet["readings"][::5]),
+              drift_every, drift, drift_gate, dof, ctx.temperature(),
+              ctx.kinetic_energy(), unshifted, verlet["ns_day"],
+              verlet["ms_per_step"], json.dumps(verlet["launches"]),
+              replay))
+    if not abs(drift) < drift_gate:
+        raise RuntimeError("verlet: NVE drift %.4e kT/dof/ns" % drift)
+    out["verlet"] = dict(verlet, drift=drift, kinetic=(ctx.kinetic_energy(),
+                                                       unshifted))
+    del ctx, verlet["context"]
+
+    andersen = _integrator_run(
+        device, "andersen", box(thermostat=True),
+        omm.VerletIntegrator(VERLET_DT), state, andersen_steps,
+        andersen_every, lambda c: c.temperature(), deadline, replay,
+        temperature=ANDERSEN_START)
+    # the readings after the first half of the run
+    late = andersen["readings"][len(andersen["readings"]) // 2 + 1:]
+    mean_t = float(np.mean(late))
+    print("andersen: Verlet at %.3f ps with AndersenThermostat(%.0f K, "
+          "%.0f/ps) from %.0f K: T %s K (every %d steps), mean of the last "
+          "%d readings %.2f K (gate %.0f-%.0f K); %.2f ns/day; launches %s; "
+          "the eager loop's bits" % (
+              VERLET_DT, ANDERSEN_TEMPERATURE, ANDERSEN_FREQUENCY,
+              ANDERSEN_START, " ".join("%.1f" % t
+                                       for t in andersen["readings"]),
+              andersen_every, len(late), mean_t, *andersen_range,
+              andersen["ns_day"], json.dumps(andersen["launches"])))
+    if not andersen_range[0] <= mean_t <= andersen_range[1]:
+        raise RuntimeError("andersen: mean temperature %.2f K" % mean_t)
+    out["andersen"] = dict(andersen, mean_temperature=mean_t)
+    del andersen["context"]
+
+    langevin = _integrator_run(
+        device, "langevin", box(), omm.LangevinIntegrator(
+            300.0, FRICTION, DT_PS), state, langevin_steps,
+        ENERGY_EVERY, lambda c: c.getState(
+            getEnergy=True).getPotentialEnergy(), deadline, replay)
+    t_langevin = langevin["context"].temperature()
+    print("langevin: leapfrog Langevin (300 K, %.1f/ps, %.3f ps), %d "
+          "steps: energies %s kJ/mol; T %.2f K; %.2f ns/day; launches %s; "
+          "the eager loop's bits" % (
+              FRICTION, DT_PS, langevin_steps,
+              " ".join("%.1f" % e for e in langevin["readings"]),
+              t_langevin, langevin["ns_day"],
+              json.dumps(langevin["launches"])))
+    if not 200.0 <= t_langevin <= 450.0:
+        raise RuntimeError("langevin: temperature %.2f K outside 200-450 K"
+                           % t_langevin)
+    out["langevin"] = dict(langevin, temperature=t_langevin)
+    del langevin["context"]
+
+    brownian = _integrator_run(
+        device, "brownian", box(), omm.BrownianIntegrator(
+            300.0, BROWNIAN_FRICTION, BROWNIAN_DT), state, brownian_steps,
+        brownian_steps // 2, lambda c: c.getState(
+            getEnergy=True).getPotentialEnergy(), deadline, replay)
+    print("brownian: 300 K, %.0f/ps, %.4f ps, %d steps: energies %s "
+          "kJ/mol; largest relative constraint error %.3e (bar %.0e); %.2f "
+          "ns/day; launches %s; the eager loop's bits" % (
+              BROWNIAN_FRICTION, BROWNIAN_DT, brownian_steps,
+              " ".join("%.1f" % e for e in brownian["readings"]),
+              brownian["constraint_err"], CONSTRAINT_ERR_BAR,
+              brownian["ns_day"], json.dumps(brownian["launches"])))
+    out["brownian"] = brownian
+    del brownian["context"]
+    return out
+
+
 def _time_ms(fn, device, reps=20, warmup=3) -> float:
     """Median milliseconds per call over `reps` calls timed one by one
     with CUDA events, after `warmup` calls. Each call is queued behind a
@@ -1759,6 +2142,7 @@ def main() -> int:
     npt_water = phase_npt_water(device, result, deadline)
     rf_water = phase_rf_water(device, result, deadline)
     droplets = phase_nonperiodic(device, result, deadline)
+    integrators = phase_integrators(device, result, deadline)
     del result
     minimized = phase_minimize(device, deadline=deadline)
     if min(minimized["launches"].values()) <= 0:
@@ -1773,6 +2157,7 @@ def main() -> int:
                                   deadline)
     del bilayer, npt["context"], npt["step"]
     ewald = phase_ewald(device, deadline)
+    gbsa = phase_gbsa(device, deadline)
     counts = tile_counts(inp)
     records = phase_timing(device, inp, counts, launches, errors, deadline)
     records.append(rf_water["record"])
@@ -1805,6 +2190,21 @@ def main() -> int:
                 r["label"], r["atoms"], r["ms_per_step"],
                 r["eager"]["wall_ms_per_step"], r["force_err"])
             for r in droplets + [ewald])))
+    print("gbsa (%d-atom POPC cluster, OBC at CutoffNonPeriodic 2.0 nm) on "
+          "%s (%s): %.2f ns/day, %.4f ms a step (eager %.4f); GB's analytic "
+          "sweeps %.4f ms a call; median force error %.3e" % (
+              gbsa["atoms"], info["name"], info["smi"], gbsa["ns_day"],
+              gbsa["ms_per_step"], gbsa["eager_ms_per_step"],
+              gbsa["sweeps_ms"], gbsa["force_err"]))
+    print("integrators on the %d-atom water box on %s (%s): %s; NVE drift "
+          "%.4e kT/dof/ns; Andersen mean T %.2f K" % (
+              3 * N_WATERS, info["name"], info["smi"], "; ".join(
+                  "%s %.2f ns/day (%.4f ms a step, eager %.4f)" % (
+                      k, r["ns_day"], r["ms_per_step"],
+                      r["eager_ms_per_step"])
+                  for k, r in integrators.items()),
+              integrators["verlet"]["drift"],
+              integrators["andersen"]["mean_temperature"]))
     print("total %.1f s of the %.0f s budget" % (deadline.elapsed(),
                                                  BUDGET_S))
     print(tile_sweep_line(inp, counts))

@@ -17,13 +17,17 @@ _make_position_energy_fn is the minimizer's objective (energy and forces
 by autograd at given positions).
 
 A System may hold at most one NonbondedForce (any method but LJPME:
-forces/nonbonded.py), any of the bonded
-forces (forces/bonded.py), CMMotionRemovers and Monte Carlo barostats
-(forces/barostats.py): update hooks that the integrator runs at the top
-of each step, in the System's force order. Each force belongs to a force
-group, which getState(groups=...) selects. Constraints split into SETTLE
-water triangles, SHAKE-H star clusters and the rest (CCMA), applied in
-that order (ops/constraints.py).
+forces/nonbonded.py), GBSAOBCForces (forces/gbsa.py), any of the bonded
+forces (forces/bonded.py), CMMotionRemovers, Monte Carlo barostats
+(forces/barostats.py) and Andersen thermostats (forces/thermostats.py):
+the last three are update hooks that the integrator runs at the top of
+each step, in the System's force order. Each force belongs to a force
+group, which getState(groups=...) selects; a step evaluates the
+integrator's integration force groups only. Constraints split into
+SETTLE water triangles, SHAKE-H star clusters and the rest (CCMA),
+applied in that order (ops/constraints.py). A particle of mass 0 is
+fixed: the integrators never move it, it has no kinetic energy and no
+degrees of freedom, and no constraint may hold it.
 
 The box is one float64 device tensor (3, 3), written in place
 (setPeriodicBoxVectors, a barostat's accepted move), that the Context and
@@ -49,7 +53,9 @@ from .constants import BOLTZ
 from .forces.barostats import BAROSTATS
 from .forces.bonded import BONDED_FORCES, HarmonicAngleForce
 from .forces.cmmotion import CMMotionRemover
+from .forces.gbsa import GBSAOBCForce
 from .forces.nonbonded import NonbondedForce, NonbondedModule
+from .forces.thermostats import AndersenThermostat
 from .integrators.base import StepDeps
 from .ops.constraints import (CCMA, Settle, Shake, partition_constraints,
                               partition_shake_clusters)
@@ -67,6 +73,26 @@ def _host(t: torch.Tensor) -> np.ndarray:
     """A numpy copy of a tensor: on the CPU .numpy() would share the
     memory of a buffer that later steps write in place."""
     return t.detach().to("cpu", copy=True).numpy()
+
+
+def _first_members(n: int, pairs) -> np.ndarray:
+    """(n,) int64: for each of n items, the first item of its connected
+    component under `pairs` (a union-find)."""
+    parent = list(range(n))
+
+    def find(x):
+        while parent[x] != x:
+            parent[x] = parent[parent[x]]
+            x = parent[x]
+        return x
+
+    for a, b in pairs:
+        ra, rb = find(a), find(b)
+        if ra != rb:
+            parent[ra] = rb
+    first = {}
+    return np.asarray([first.setdefault(find(i), i) for i in range(n)],
+                      np.int64)
 
 
 def _group_mask(groups) -> int:
@@ -96,16 +122,23 @@ class Context:
                              "particles")
         self._n = n
         masses = np.asarray([system.getParticleMass(i) for i in range(n)])
-        if np.any(masses <= 0):
-            raise NotImplementedError(
-                "massless particles (virtual sites, fixed atoms) are not in "
-                "this slice of the port")
+        if np.any(masses < 0):
+            raise ValueError("a particle's mass must not be negative")
+        constraints = [system.getConstraintParameters(i)
+                       for i in range(system.getNumConstraints())]
+        for p1, p2, _ in constraints:
+            if masses[p1] == 0 or masses[p2] == 0:
+                raise NotImplementedError(
+                    "a constraint on a massless particle (%d-%d) is not in "
+                    "this slice of the port: SETTLE, SHAKE and CCMA divide "
+                    "by the masses" % (p1, p2))
 
         # the forces at construction: a force added to the System later
         # does not reach this Context's step programs
         forces = self._forces = system.getForces()
         for force in forces:
-            if not isinstance(force, (NonbondedForce, CMMotionRemover)
+            if not isinstance(force, (NonbondedForce, GBSAOBCForce,
+                                      CMMotionRemover, AndersenThermostat)
                               + BONDED_FORCES + BAROSTATS):
                 raise NotImplementedError(
                     "%s is not in this slice of the port"
@@ -125,13 +158,13 @@ class Context:
         # every pair is computed: no rebuild, no overflow)
         self._candidates = (self._nonbonded if self._nonbonded is not None
                             and self._nonbonded.periodic else None)
+        self._gb = [f._compile(n, self._device, self._precision)
+                    for f in forces if isinstance(f, GBSAOBCForce)]
         self._bonded = [f._compile(n, self._device) for f in forces
                         if isinstance(f, BONDED_FORCES)]
         self._has_cm_remover = any(isinstance(f, CMMotionRemover)
                                    for f in forces)
 
-        constraints = [system.getConstraintParameters(i)
-                       for i in range(system.getNumConstraints())]
         clusters, rest = partition_constraints(constraints, masses)
         shake_clusters, ccma_cons = partition_shake_clusters(rest, masses)
         angles = [f.getAngleParameters(i)[:4] for f in forces
@@ -149,6 +182,14 @@ class Context:
 
         f64 = dict(dtype=torch.float64, device=self._device)
         self._masses = torch.as_tensor(masses, **f64)
+        self._inv_masses = torch.as_tensor(
+            np.where(masses == 0, 0.0, 1.0 / np.where(masses == 0, 1.0,
+                                                      masses)), **f64)
+        self._n_massive = int(np.count_nonzero(masses))
+        # the first particle of each particle's constraint cluster
+        self._clusters = torch.as_tensor(
+            _first_members(n, [c[:2] for c in constraints]),
+            device=self._device)
         defaults = {}
         for force in forces:
             defaults.update(force._global_defaults())
@@ -182,49 +223,37 @@ class Context:
         # so without the wait for the card to finish the chunk
         self.issue_seconds = 0.0
         self._params_written = integrator._params()
+        self._params = torch.tensor(self._params_written, **f64)
         self._deps = StepDeps(
-            inv_masses=1.0 / self._masses,
-            force_fn=self._forces_for_step,
+            inv_masses=self._inv_masses,
+            moving=(self._inv_masses != 0)[:, None],
+            force_fn=self._integration_forces,
             apply_position_constraints_corr=self._constrain_positions,
             apply_velocity_constraints=self._constrain_velocities,
             generator=self._generator,
-            params=torch.tensor(self._params_written, **f64),
+            params=self._params,
             step=torch.zeros((), dtype=torch.int64, device=self._device),
             update_hooks=self._make_hooks(self._attempt_eager))
         self._step_fn = integrator._make_step_fn(self._deps)
-        self._programs = {}         # capacity scale -> program
+        # (capacity scale, integration groups) -> program
+        self._programs = {}
         integrator._bind(self)
 
     def _detect_molecules(self):
-        """(molecule of each atom (n,) int64, count): a union-find over the
-        constraints and each force's _bonded_particles(), the molecules
-        numbered by the first appearance of their roots, as the JAX
-        Context numbers them (context.py _detect_molecules)."""
-        parent = list(range(self._n))
-
-        def find(x):
-            while parent[x] != x:
-                parent[x] = parent[parent[x]]
-                x = parent[x]
-            return x
-
-        def union(a, b):
-            ra, rb = find(a), find(b)
-            if ra != rb:
-                parent[ra] = rb
-
+        """(molecule of each atom (n,) int64, count): the components of
+        the constraints and each force's _bonded_particles(), numbered in
+        the order of their first atoms, as the JAX Context numbers them
+        (context.py _detect_molecules)."""
         system = self._system
-        for i in range(system.getNumConstraints()):
-            p1, p2, _ = system.getConstraintParameters(i)
-            union(p1, p2)
+        pairs = [system.getConstraintParameters(i)[:2]
+                 for i in range(system.getNumConstraints())]
         for force in system.getForces():
-            for p1, p2 in force._bonded_particles():
-                union(p1, p2)
-        roots = {}
-        mol_id = np.zeros(self._n, np.int64)
-        for i in range(self._n):
-            mol_id[i] = roots.setdefault(find(i), len(roots))
-        return mol_id, len(roots)
+            pairs += list(force._bonded_particles())
+        first = _first_members(self._n, pairs)
+        numbers = {}
+        mol_id = np.asarray([numbers.setdefault(f, len(numbers))
+                             for f in first], np.int64)
+        return mol_id, len(numbers)
 
     # -- update hooks ------------------------------------------------------
     def _make_hooks(self, attempt) -> list:
@@ -232,11 +261,16 @@ class Context:
         draws its uniforms from the generator every step (a fixed count
         a step, so a captured graph keeps its draws in step) and hands
         them to attempt(k, step, pos, box, u) -> pos, which runs barostat
-        k's attempt on the steps it fires on."""
+        k's attempt on the steps it fires on; an Andersen thermostat's
+        draws its normals and uniforms every step too."""
         hooks, k = [], 0
         for force in self._forces:
             if isinstance(force, CMMotionRemover):
                 hooks.append(force._make_hook(self._masses))
+            elif isinstance(force, AndersenThermostat):
+                hooks.append(force._make_hook(
+                    self._inv_masses, self._clusters, self._generator,
+                    self._params, self._gp, self._gp_index))
             elif isinstance(force, BAROSTATS) and force.getFrequency() > 0:
                 hooks.append(self._barostat_hook(k, attempt))
                 k += 1
@@ -267,8 +301,8 @@ class Context:
             overflow = st["overflow"]
         elif nb is not None:
             energy = nb.forward(pos, box)[0]
-        for b in self._bonded:
-            energy = energy + b.energy(pos, box)
+        for m in self._gb + self._bonded:
+            energy = energy + m.energy(pos, box)
         return energy, overflow
 
     def _run_attempt(self, k, pos, box, u):
@@ -337,13 +371,14 @@ class Context:
         """(energy float64 scalar, forces (n, 3) float64) of the forces in
         `groups` (a bit mask) at `pos`, the nonbonded one through the
         candidate state `tiles`; the forces add in the order of the
-        System's forces, the NonbondedForce first."""
+        System's forces, the NonbondedForce first, then the
+        GBSAOBCForces."""
         parts = []
         nb = self._nonbonded
         if nb is not None and (groups >> nb.group) & 1:
             parts.append(nb(pos, box, tiles))
-        parts += [b.ef(pos, box) for b in self._bonded
-                  if (groups >> b.group) & 1]
+        parts += [m.ef(pos, box) for m in self._gb + self._bonded
+                  if (groups >> m.group) & 1]
         if not parts:
             return (torch.zeros((), dtype=torch.float64, device=pos.device),
                     torch.zeros(pos.shape, dtype=torch.float64,
@@ -357,6 +392,11 @@ class Context:
     def _forces_for_step(self, pos, box, groups=-1):
         self._refresh_tiles(pos, box)
         return self._evaluate(pos, box, self._tiles, groups)
+
+    def _integration_forces(self, pos, box):
+        """The eager loop's force evaluation: the integration groups."""
+        return self._forces_for_step(
+            pos, box, self._integrator.getIntegrationForceGroups())
 
     def _make_position_energy_fn(self):
         """(positions (n, 3) float64 numpy) -> (energy float, forces (n, 3)
@@ -374,8 +414,8 @@ class Context:
             energy = torch.zeros((), dtype=torch.float64, device=self._device)
             if self._nonbonded is not None:
                 energy = self._nonbonded.potential_energy(pos, box)
-            for b in self._bonded:
-                energy = energy + b.energy(pos, box)
+            for m in self._gb + self._bonded:
+                energy = energy + m.energy(pos, box)
             (grad,) = torch.autograd.grad(energy, pos)
             self.energy_evaluations += 1
             return float(energy.detach()), -grad.cpu().numpy()
@@ -482,11 +522,12 @@ class Context:
 
     def setVelocitiesToTemperature(self, temperature, randomSeed=None):
         """Maxwell-Boltzmann velocities at `temperature` K from a generator
-        seeded with randomSeed, then the velocity constraints."""
+        seeded with randomSeed (0 for a massless particle), then the
+        velocity constraints."""
         gen = torch.Generator(device=self._device)
         gen.manual_seed(int(randomSeed) if randomSeed is not None
                         else int(np.random.randint(1, 2 ** 31 - 1)))
-        sigma = torch.sqrt(BOLTZ * float(temperature) / self._masses)
+        sigma = torch.sqrt(BOLTZ * float(temperature) * self._inv_masses)
         v = sigma[:, None] * torch.randn((self._n, 3), generator=gen,
                                          dtype=torch.float64,
                                          device=self._device)
@@ -554,9 +595,10 @@ class Context:
 
     def _program(self) -> StepProgram:
         nb = self._candidates
-        key = () if nb is None else nb.capacity_scale
+        groups = self._integrator.getIntegrationForceGroups()
+        key = (None if nb is None else nb.capacity_scale, groups)
         if key not in self._programs:
-            self._programs[key] = StepProgram(self)
+            self._programs[key] = StepProgram(self, groups)
         return self._programs[key]
 
     def _step(self, n_steps: int) -> None:
@@ -619,8 +661,10 @@ class Context:
                  enforcePeriodicBox=False, groups=-1) -> State:
         """A State; energy and forces sum the forces in `groups`: a bit
         mask (-1, the default: all) or a collection of group numbers.
-        enforcePeriodicBox wraps each molecule whole into the home box
-        when the System uses periodic boundaries."""
+        The kinetic energy shifts the velocities by the integrator's
+        _kinetic_energy_shift with these forces, as the JAX Context
+        does. enforcePeriodicBox wraps each molecule whole into the home
+        box when the System uses periodic boundaries."""
         s = self._state
         box = _host(s["box"])
         kw = {"time": s["time"], "step": s["step"], "box": box}
@@ -631,7 +675,7 @@ class Context:
                 s["positions"], s["box"], _group_mask(groups))
             if getEnergy:
                 kw["potential_energy"] = float(energy)
-                kw["kinetic_energy"] = self.kinetic_energy()
+                kw["kinetic_energy"] = self.kinetic_energy(forces)
             if getForces:
                 kw["forces"] = forces.cpu().numpy()
         if getPositions:
@@ -664,17 +708,29 @@ class Context:
             diff += shift[:, None] * box[axis][None, :]
         return pos - diff[mol]
 
-    def kinetic_energy(self) -> float:
-        """0.5 sum m v^2 (LangevinMiddle reports on-step velocities)."""
+    def kinetic_energy(self, forces=None) -> float:
+        """0.5 sum m (v + s dt f / m)^2 with s the integrator's
+        _kinetic_energy_shift (0.5 for leapfrog velocities, 0 for
+        LangevinMiddle's and Brownian's) and f `forces`, (n, 3) float64
+        on the device; without them, the forces of every group where the
+        shift is not 0 (what getState(getEnergy=True) reports)."""
         v = self._state["velocities"]
+        shift = self._integrator._kinetic_energy_shift()
+        if shift != 0.0:
+            if forces is None:
+                forces = self._forces_for_step(self._state["positions"],
+                                               self._state["box"])[1]
+            v = v + (shift * self._integrator.getStepSize()) * forces \
+                * self._inv_masses[:, None]
         return float(0.5 * torch.sum(self._masses[:, None] * v * v))
 
     def temperature(self) -> float:
-        """Instantaneous temperature from the kinetic energy, over the
-        3n - (constraints) degrees of freedom, less 3 when a
+        """Instantaneous temperature from the kinetic energy
+        (kinetic_energy()), over three degrees of freedom for each
+        particle with mass, less the constraints, less 3 when a
         CMMotionRemover holds the centre of mass still (as
         StateDataReporter counts them)."""
-        dof = 3 * self._n - self._system.getNumConstraints()
+        dof = 3 * self._n_massive - self._system.getNumConstraints()
         if self._has_cm_remover:
             dof -= 3
         return 2.0 * self.kinetic_energy() / (dof * BOLTZ)

@@ -4,10 +4,13 @@ from .base import Force
 from .bonded import (CMAPTorsionForce, HarmonicAngleForce, HarmonicBondForce,
                      PeriodicTorsionForce, RBTorsionForce)
 from .cmmotion import CMMotionRemover
+from .gbsa import GBSAOBCForce
 from .nonbonded import NonbondedForce, NonbondedModule
+from .thermostats import AndersenThermostat
 
-__all__ = ["CMAPTorsionForce", "CMMotionRemover", "Force",
-           "HarmonicAngleForce", "HarmonicBondForce",
-           "MonteCarloAnisotropicBarostat", "MonteCarloBarostat",
-           "MonteCarloMembraneBarostat", "NonbondedForce",
-           "NonbondedModule", "PeriodicTorsionForce", "RBTorsionForce"]
+__all__ = ["AndersenThermostat", "CMAPTorsionForce", "CMMotionRemover",
+           "Force", "GBSAOBCForce", "HarmonicAngleForce",
+           "HarmonicBondForce", "MonteCarloAnisotropicBarostat",
+           "MonteCarloBarostat", "MonteCarloMembraneBarostat",
+           "NonbondedForce", "NonbondedModule", "PeriodicTorsionForce",
+           "RBTorsionForce"]

@@ -1,4 +1,7 @@
 from .base import Integrator, StepDeps
-from .langevin import LangevinMiddleIntegrator
+from .langevin import (BrownianIntegrator, LangevinIntegrator,
+                       LangevinMiddleIntegrator)
+from .verlet import VerletIntegrator
 
-__all__ = ["Integrator", "LangevinMiddleIntegrator", "StepDeps"]
+__all__ = ["BrownianIntegrator", "Integrator", "LangevinIntegrator",
+           "LangevinMiddleIntegrator", "StepDeps", "VerletIntegrator"]

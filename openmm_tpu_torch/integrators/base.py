@@ -14,7 +14,10 @@ positions and the box a barostat left. The integrator's parameters (_params: the
 size first) reach the step as the device tensor deps.params, the
 counterpart of the JAX package's state["iparams"]: the Context writes them
 before it steps, so setStepSize and the like take effect at the next step
-without a new step program.
+without a new step program. The force evaluation sums the integrator's
+integration force groups (getIntegrationForceGroups: a bit mask, -1 for
+all), and a massless particle never moves (deps.moving is False for it,
+its inverse mass 0).
 
 Precision: positions and velocities are float64 tensors on the device. The
 JAX package carries float32 positions plus a float32 compensation plane
@@ -33,8 +36,9 @@ import torch
 @dataclass
 class StepDeps:
     """What an integrator step needs from the Context."""
-    inv_masses: torch.Tensor      # (n,) float64
-    # force_fn(pos, box) -> (energy, forces)
+    inv_masses: torch.Tensor      # (n,) float64, 0 for a massless particle
+    moving: torch.Tensor          # (n, 1) bool: the particle has mass
+    # force_fn(pos, box) -> (energy, forces) of the integration groups
     force_fn: Callable
     # (ref, new) -> (constrained, corr) with constrained == new + corr and
     # corr exactly zero off the constrained atoms; corr is None without
@@ -57,6 +61,7 @@ class Integrator:
     def __init__(self, stepSize: float):
         self._step_size = float(stepSize)
         self._constraint_tol = 1e-5
+        self._force_groups = -1
         self._context = None
         self._seed = 0
 
@@ -73,6 +78,19 @@ class Integrator:
 
     def setConstraintTolerance(self, tol: float) -> None:
         self._constraint_tol = float(tol)
+
+    def getIntegrationForceGroups(self) -> int:
+        """The bit mask of the force groups a step integrates (-1: all)."""
+        return self._force_groups
+
+    def setIntegrationForceGroups(self, groups) -> None:
+        """A bit mask, or a collection of group numbers."""
+        if isinstance(groups, (set, frozenset, list, tuple)):
+            mask = 0
+            for g in groups:
+                mask |= 1 << int(g)
+            groups = mask
+        self._force_groups = int(groups)
 
     def getRandomNumberSeed(self) -> int:
         return self._seed
@@ -93,6 +111,13 @@ class Integrator:
     def _params(self) -> tuple:
         """The floats the step reads from deps.params, step size first."""
         return (self._step_size,)
+
+    def _kinetic_energy_shift(self) -> float:
+        """The shift s, in steps, of the reported kinetic energy
+        0.5 sum m (v + s dt f / m)^2 (Integrator.h computeKineticEnergy):
+        0.5 for leapfrog integrators, whose velocities lie half a step
+        behind the positions; 0 where they are on step."""
+        return 0.5
 
     def _make_step_fn(self, deps: StepDeps) -> Callable:
         raise NotImplementedError

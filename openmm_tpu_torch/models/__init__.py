@@ -1,3 +1,5 @@
-from .builders import popc_bilayer, tip3p_water_box, water_droplet
+from .builders import (popc_bilayer, popc_obc_cluster, tip3p_water_box,
+                       water_droplet)
 
-__all__ = ["popc_bilayer", "tip3p_water_box", "water_droplet"]
+__all__ = ["popc_bilayer", "popc_obc_cluster", "tip3p_water_box",
+           "water_droplet"]

@@ -18,6 +18,15 @@ exceptions and constraints), which tests/torch_port_helpers.py made from
 the JAX ForceField and tests/test_torch_bilayer.py holds to it. No term
 crosses a residue, so the System is the templates replicated over the
 residues.
+
+popc_obc_cluster is the in-repo stand-in for the reference suite's
+implicit-solvent configuration (tools/bench_suite.py dhfr_gbsa: 2,489
+atoms of DHFR, amber99sb + OBC, CutoffNonPeriodic at 2.0 nm, HBonds,
+LangevinMiddle at 300 K, 1/ps, 2 fs), whose structure is not in the
+repository: 19 lipids of the patch's upper leaflet (2,546 atoms) with the
+lipid template's amber14-lipid parameters, its OBC2 radii and screens
+(data/popc_bilayer.npz, from the JAX package's
+app/gbforces.py:standard_gb_parameters), and the suite's settings.
 """
 from __future__ import annotations
 
@@ -26,6 +35,7 @@ import os
 
 import numpy as np
 
+from ..forces.gbsa import GBSAOBCForce
 from ..forces.nonbonded import NonbondedForce
 from ..system import System, from_numpy
 
@@ -169,6 +179,60 @@ def replicate_templates(data, residue_template) -> dict:
         out[key] = data["nonbonded_" + key][()]
     out["method"] = str(out["method"])
     return out
+
+
+# the implicit-solvent cluster: lipids, the cutoff of both direct spaces
+# (nm), and the dielectrics of GBSAOBCForce (ForceField.createSystem's
+# defaults)
+OBC_CLUSTER_LIPIDS = 19
+OBC_CUTOFF = 2.0
+OBC_SOLUTE_DIELECTRIC = 1.0
+OBC_SOLVENT_DIELECTRIC = 78.5
+
+
+def popc_obc_cluster(lipids=OBC_CLUSTER_LIPIDS):
+    """A cluster of the POPC patch's lipids in implicit solvent: (system,
+    positions as an (n, 3) float64 array in nm).
+
+    The lipids: of the upper leaflet (the centre of mass's z above the
+    mean over all lipids), the `lipids` (19 by default) whose xy centres
+    of mass lie nearest the leaflet's mean xy (ties by index), whole, in
+    index order, at the patch's unwrapped positions. The forces: the
+    lipid template's bonds, angles, torsions and 1-4 exceptions; a
+    NonbondedForce at CutoffNonPeriodic OBC_CUTOFF nm whose reaction
+    field is off (dielectric 1.0: OpenMM's GB generators turn it off,
+    the GB term carries the solvent); a GBSAOBCForce at
+    CutoffNonPeriodic OBC_CUTOFF nm with the nonbonded charges, the
+    template's OBC2 radii and screens, solute 1.0, solvent 78.5 and the
+    default ACE surface energy; the template's HBonds constraints and
+    its CMMotionRemover. No box."""
+    with np.load(BILAYER_DATA) as f:
+        data = {k: f[k] for k in f.files}
+    size = len(data["lipid_masses"])
+    count = int(np.count_nonzero(data["residue_template"] == 0))
+    if data["residue_template"][:count].any():
+        raise ValueError("the patch's lipids must come first")
+    pos = data["positions"].astype(np.float64)
+    mol = pos[:count * size].reshape(count, size, 3)
+    m = data["lipid_masses"]
+    com = (m[None, :, None] * mol).sum(axis=1) / m.sum()
+    upper = np.nonzero(com[:, 2] > com[:, 2].mean())[0]
+    dist = np.linalg.norm(com[upper, :2] - com[upper, :2].mean(axis=0),
+                          axis=1)
+    chosen = np.sort(upper[np.lexsort((upper, dist))[:lipids]])
+    params = replicate_templates(data, np.zeros(chosen.size, np.int64))
+    n = chosen.size * size
+    params.update({
+        "method": "CutoffNonPeriodic", "cutoff": OBC_CUTOFF,
+        "rf_dielectric": 1.0, "box": np.diag([2.0, 2.0, 2.0]),
+        "gb_charges": params["charges"],
+        "gb_radii": np.tile(data["lipid_gb_radius"], chosen.size),
+        "gb_scales": np.tile(data["lipid_gb_screen"], chosen.size),
+        "gb_method": "CutoffNonPeriodic", "gb_cutoff": OBC_CUTOFF,
+        "gb_solute_dielectric": OBC_SOLUTE_DIELECTRIC,
+        "gb_solvent_dielectric": OBC_SOLVENT_DIELECTRIC,
+        "gb_surface_energy": GBSAOBCForce().getSurfaceAreaEnergy()})
+    return from_numpy(params), mol[chosen].reshape(n, 3)
 
 
 def popc_bilayer():

@@ -175,7 +175,10 @@ def pair_energy_forces_n2(pos, charge, sigma, epsilon, exclusions,
     for r0, r1 in _row_chunks(n):
         rows = r1 - r0
         dr = pos[r0:r1, None, :] - pos[None, :, :]
-        r2 = (dr * dr).sum(dim=-1)
+        # product by product and sum by sum, in every precision: a pair
+        # at the cutoff is decided the same way everywhere
+        dx, dy, dz = dr.unbind(-1)
+        r2 = dx * dx + dy * dy + dz * dz
         # the excluded partners and the atom itself
         own = torch.arange(r0, r1, device=dev)[:, None]
         skip = torch.zeros((rows, n + 1), dtype=torch.bool, device=dev)

@@ -8,10 +8,15 @@ objective, spends its time.
         [--system bilayer]
     python3 -m openmm_tpu_torch.profile_step --method rf [--system bilayer]
     python3 -m openmm_tpu_torch.profile_step --method ewald --waters 512
+    python3 -m openmm_tpu_torch.profile_step --system popc_obc
+    python3 -m openmm_tpu_torch.profile_step --integrator verlet
 
-Builds the 24,000-atom TIP3P PME box (--system water, the default) or
-the 32,512-atom POPC bilayer (--system bilayer: amber14-lipid + TIP3P,
-bonded forces, a CMMotionRemover, SETTLE and SHAKE). --method picks the
+Builds the 24,000-atom TIP3P PME box (--system water, the default), the
+32,512-atom POPC bilayer (--system bilayer: amber14-lipid + TIP3P,
+bonded forces, a CMMotionRemover, SETTLE and SHAKE) or the 2,546-atom
+POPC cluster in implicit solvent (--system popc_obc: the reference
+suite's dhfr_gbsa settings, GBSAOBCForce and the NonbondedForce at
+CutoffNonPeriodic 2.0 nm, every pair; it takes no --method). --method picks the
 NonbondedForce's method: pme (the default, 0.9 nm), rf (CutoffPeriodic at
 1.0 nm, the reference suite's rf settings), ewald (0.9 nm; the water box
 only, whose size --waters sets), or nocutoff and cutoffnonperiodic (2.0
@@ -22,7 +27,11 @@ after applyConstraints at 303.15 K), then, from one snapshot, times
 `--steps` LangevinMiddle steps at 2 fs twice: through the Context's step
 program ("graph": a replay of the captured CUDA graph a step) and through
 the eager loop it replaced ("eager": Context._step_eager), each untraced
-and then again under torch.profiler (host and CUDA activity). With
+and then again under torch.profiler (host and CUDA activity).
+--integrator times another integrator on a Context of its own, started
+from the relaxed state: verlet (1 fs), langevin (leapfrog, 1/ps, 2 fs),
+brownian (100/ps, 0.5 fs) or andersen (Verlet at 1 fs with an
+AndersenThermostat at 10/ps); not with --barostat. With
 --barostat iso (MonteCarloBarostat) or membrane
 (MonteCarloMembraneBarostat, XYIsotropic, ZFree, no tension), both at 1
 bar and an attempt every 25 steps, the system runs at constant pressure
@@ -59,10 +68,13 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from . import (Context, LangevinMiddleIntegrator, MonteCarloBarostat,
-               MonteCarloMembraneBarostat)
+from . import (AndersenThermostat, BrownianIntegrator, Context,
+               LangevinIntegrator, LangevinMiddleIntegrator,
+               MonteCarloBarostat, MonteCarloMembraneBarostat,
+               VerletIntegrator)
 from .forces.nonbonded import NonbondedForce
-from .models import popc_bilayer, tip3p_water_box, water_droplet
+from .models import (popc_bilayer, popc_obc_cluster, tip3p_water_box,
+                     water_droplet)
 from .step_program import GATING
 
 ATTEMPTS = 10       # barostat attempts timed alone (--barostat)
@@ -132,6 +144,10 @@ DROPLET_RADIUS = 2.5
 def _system(name, n_waters, method="pme"):
     """(system, positions, temperature K) of --system at --method."""
     nb_method, cutoff = METHODS[method]
+    if name == "popc_obc":
+        if method != "pme":
+            raise ValueError("--system popc_obc takes no --method")
+        return (*popc_obc_cluster(), 300.0)
     if name == "bilayer":
         if method not in ("pme", "rf"):
             raise ValueError("--method %s takes the water system" % method)
@@ -170,9 +186,23 @@ def _barostat(name, temperature):
     return None
 
 
+def _integrator(name, temperature):
+    """(the --integrator's integrator, whether the System takes an
+    AndersenThermostat)."""
+    if name == "verlet":
+        return VerletIntegrator(0.001), False
+    if name == "andersen":
+        return VerletIntegrator(0.001), True
+    if name == "langevin":
+        return LangevinIntegrator(temperature, 1.0, 0.002), False
+    return BrownianIntegrator(temperature, 100.0, 0.0005), False
+
+
 def profile_steps(device, n_waters=8000, steps=50, top=20,
                   system_name="water", barostat="none",
-                  method="pme") -> dict:
+                  method="pme", integrator="langevinmiddle") -> dict:
+    if barostat != "none" and integrator != "langevinmiddle":
+        raise ValueError("--integrator takes no --barostat")
     system, positions, temperature = _system(system_name, n_waters, method)
     force = _barostat(barostat, temperature)
     if force is not None:
@@ -187,9 +217,19 @@ def profile_steps(device, n_waters=8000, steps=50, top=20,
     integ.setStepSize(0.002)
     integ.setFriction(1.0)
     integ.step(20)
+    if integrator != "langevinmiddle":
+        system, _, _ = _system(system_name, n_waters, method)
+        integ, thermostat = _integrator(integrator, temperature)
+        if thermostat:
+            system.addForce(AndersenThermostat(temperature, 10.0))
+        integ.setRandomNumberSeed(3)
+        twin = _context(device, system, integ)
+        twin.setState(ctx.getState(getPositions=True, getVelocities=True))
+        ctx = twin
+        integ.step(20)                  # the capture, out of the window
     start = ctx._snapshot()
     out = {"device": _device_name(device), "system": system_name,
-           "method": method, "barostat": barostat,
+           "method": method, "barostat": barostat, "integrator": integrator,
            "atoms": system.getNumParticles(),
            "steps": steps, "gating": GATING,
            "escalations": ctx.escalation_count}
@@ -268,7 +308,7 @@ def main() -> None:
                         help="profile the minimizer's objective instead")
     parser.add_argument("--evaluations", type=int, default=20)
     parser.add_argument("--waters", type=int, default=8000)
-    parser.add_argument("--system", choices=("water", "bilayer"),
+    parser.add_argument("--system", choices=("water", "bilayer", "popc_obc"),
                         default="water",
                         help="the system whose MD step (or objective) is "
                         "profiled")
@@ -280,6 +320,10 @@ def main() -> None:
                         help="run the MD step at constant pressure under "
                         "this barostat (an attempt every 25 steps) and "
                         "time its attempts alone")
+    parser.add_argument("--integrator", default="langevinmiddle",
+                        choices=("langevinmiddle", "verlet", "langevin",
+                                 "brownian", "andersen"),
+                        help="the integrator whose step is profiled")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args()
     device = torch.device(args.device)
@@ -291,7 +335,7 @@ def main() -> None:
     else:
         out = profile_steps(device, args.waters, args.steps,
                             system_name=args.system, barostat=args.barostat,
-                            method=args.method)
+                            method=args.method, integrator=args.integrator)
     print(json.dumps(out))
 
 

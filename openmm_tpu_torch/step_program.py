@@ -11,10 +11,12 @@ positions and the box at its build, each barostat's uniforms, and two
 counters (the capacity overflow and the rebuilds of the chunk); the box,
 the global parameters and the barostats' statistics are the Context's
 own tensors, written in place. `body(gate)` is one step, the integrator's
-(LangevinMiddle): the update hooks, where a barostat draws its uniforms
-and, under `gate`, runs its attempt (two candidate states and two
-energies through kernels 1-2, the Metropolis test by torch.where) on the
-steps it fires on; then, inside the force evaluation, the rebuild
+(Verlet, the Langevin family): the update hooks, where a barostat draws
+its uniforms and, under `gate`, runs its attempt (two candidate states
+and two energies through kernels 1-2, the Metropolis test by
+torch.where) on the steps it fires on, and an Andersen thermostat
+redraws velocities (by torch.where, no gate); then, inside the force
+evaluation of the integration force groups, the rebuild
 predicate (an atom moved more than skin/2, or the box changed) and the
 build and commit of a new candidate state under `gate` (where the
 NonbondedForce keeps one: a method that takes every pair has no gate);
@@ -33,7 +35,8 @@ whether to run it, and the host reads nothing until the Context reads the
 counters at the end of the chunk. A capture that fails raises; there is
 no eager fallback. On the CPU the same body runs eagerly with the plain
 kernel versions, the gate a host `if`. The programs of a Context are
-cached by what fixes their shapes, the capacity scale.
+cached by what fixes their shapes, the capacity scale, and by the
+integration force groups they evaluate.
 """
 from __future__ import annotations
 
@@ -52,8 +55,9 @@ GATING = "(a) conditional IF node"
 
 
 class StepProgram:
-    def __init__(self, context):
+    def __init__(self, context, groups=-1):
         self._ctx = context
+        self._groups = groups       # the integration force groups' mask
         state = context._state
         self.box = context._box
         self.pos = state["positions"].clone()
@@ -100,7 +104,7 @@ class StepProgram:
         if self._candidates is not None:
             self._gate(needs_rebuild(pos, self.ref_pos, self._candidates.skin,
                                      box, self.ref_box), 0)
-        return self._ctx._evaluate(pos, box, self.tiles)
+        return self._ctx._evaluate(pos, box, self.tiles, self._groups)
 
     def _attempt_gate(self, k, step, pos, box, u):
         """A barostat hook's gate: keep the step's uniforms, run attempt k

@@ -15,13 +15,18 @@ from .forces.bonded import (CMAPTorsionForce, HarmonicAngleForce,
                             HarmonicBondForce, PeriodicTorsionForce,
                             RBTorsionForce)
 from .forces.cmmotion import CMMotionRemover
+from .forces.gbsa import GBSAOBCForce
 from .forces.nonbonded import NonbondedForce
+from .forces.thermostats import AndersenThermostat
 
 _METHODS = {"NoCutoff": NonbondedForce.NoCutoff,
             "CutoffNonPeriodic": NonbondedForce.CutoffNonPeriodic,
             "CutoffPeriodic": NonbondedForce.CutoffPeriodic,
             "Ewald": NonbondedForce.Ewald, "PME": NonbondedForce.PME,
             "LJPME": NonbondedForce.LJPME}
+_GB_METHODS = {"NoCutoff": GBSAOBCForce.NoCutoff,
+               "CutoffNonPeriodic": GBSAOBCForce.CutoffNonPeriodic,
+               "CutoffPeriodic": GBSAOBCForce.CutoffPeriodic}
 
 
 def reduced_box(a, b, c) -> np.ndarray:
@@ -112,7 +117,8 @@ _BONDED = (("bond", HarmonicBondForce,
 def from_numpy(params: dict) -> System:
     """A System from a dict of numpy arrays.
 
-    Always: masses, charges, sigma, epsilon (n,); exception_pairs (m, 2)
+    Always: masses (n,; 0 for a fixed particle), charges, sigma, epsilon
+    (n,); exception_pairs (m, 2)
     and exception_params (m, 3) = (chargeProd, sigma, epsilon);
     constraint_pairs (k, 2) and constraint_distances (k,); box (3, 3);
     cutoff, method (a NonbondedForce method name), ewald_tolerance,
@@ -125,14 +131,19 @@ def from_numpy(params: dict) -> System:
     torsion_quads (m, 4) with torsion_params (periodicity, phase, k);
     rb_quads (m, 4) with rb_params (c0..c5); cmap_sizes (maps,),
     cmap_energies (the maps' energies one after another) and
-    cmap_torsions (m, 9) = (map, a1..a4, b1..b4); cmm_frequency (a
+    cmap_torsions (m, 9) = (map, a1..a4, b1..b4); gb_charges, gb_radii
+    and gb_scales (n,) with gb_method (a GBSAOBCForce method name),
+    gb_cutoff, gb_solute_dielectric, gb_solvent_dielectric and
+    gb_surface_energy (kJ/mol/nm^2), a GBSAOBCForce; cmm_frequency (a
     CMMotionRemover); barostat_kind ("iso", "aniso" or "membrane", a
     barostat) with barostat_pressure (bar; three for "aniso"),
     barostat_temperature (K), barostat_frequency, and for "aniso"
     barostat_scale (three flags), for "membrane" barostat_tension (bar
-    nm), barostat_xymode and barostat_zmode. force_groups maps a force's
-    kind ("nonbonded", "bond", "angle", "torsion", "rb", "cmap", "cmm",
-    "barostat") to its group where that is not 0."""
+    nm), barostat_xymode and barostat_zmode; andersen_temperature (K),
+    andersen_frequency (1/ps) and andersen_seed, an AndersenThermostat.
+    The forces follow that order. force_groups maps a force's kind
+    ("nonbonded", "gbsa", "bond", "angle", "torsion", "rb", "cmap", "cmm",
+    "barostat", "andersen") to its group where that is not 0."""
     system = System()
     for m in np.asarray(params["masses"], np.float64):
         system.addParticle(m)
@@ -160,6 +171,18 @@ def from_numpy(params: dict) -> System:
         nb.addException(i, j, cp, s, e)
     nb.setForceGroup(groups.get("nonbonded", 0))
     system.addForce(nb)
+    if "gb_charges" in params:
+        gb = GBSAOBCForce()
+        gb.setNonbondedMethod(_GB_METHODS[str(params["gb_method"])])
+        gb.setCutoffDistance(params["gb_cutoff"])
+        gb.setSoluteDielectric(params["gb_solute_dielectric"])
+        gb.setSolventDielectric(params["gb_solvent_dielectric"])
+        gb.setSurfaceAreaEnergy(params["gb_surface_energy"])
+        for q, r, s in zip(params["gb_charges"], params["gb_radii"],
+                           params["gb_scales"]):
+            gb.addParticle(q, r, s)
+        gb.setForceGroup(groups.get("gbsa", 0))
+        system.addForce(gb)
     for kind, cls, (_, add, _), atoms_key, n_atoms, par_key, n_par \
             in _BONDED:
         if atoms_key not in params:
@@ -190,6 +213,12 @@ def from_numpy(params: dict) -> System:
         baro = _barostat(params)
         baro.setForceGroup(groups.get("barostat", 0))
         system.addForce(baro)
+    if "andersen_temperature" in params:
+        thermostat = AndersenThermostat(float(params["andersen_temperature"]),
+                                        float(params["andersen_frequency"]))
+        thermostat.setRandomNumberSeed(int(params.get("andersen_seed", 0)))
+        thermostat.setForceGroup(groups.get("andersen", 0))
+        system.addForce(thermostat)
     return system
 
 
@@ -230,9 +259,24 @@ def _barostat_params(force) -> dict:
     return out
 
 
+def _gb_params(force) -> dict:
+    """from_numpy's GBSAOBCForce keys of a GBSAOBCForce."""
+    p = np.asarray([force.getParticleParameters(i)
+                    for i in range(force.getNumParticles())],
+                   np.float64).reshape(-1, 3)
+    return {"gb_charges": p[:, 0], "gb_radii": p[:, 1], "gb_scales": p[:, 2],
+            "gb_method": {v: k for k, v in _GB_METHODS.items()}[
+                force.getNonbondedMethod()],
+            "gb_cutoff": force.getCutoffDistance(),
+            "gb_solute_dielectric": force.getSoluteDielectric(),
+            "gb_solvent_dielectric": force.getSolventDielectric(),
+            "gb_surface_energy": force.getSurfaceAreaEnergy()}
+
+
 def to_numpy(system: System) -> dict:
     """The inverse of from_numpy for a System with one NonbondedForce and
-    at most one force of each other kind (one barostat)."""
+    at most one force of each other kind (one barostat), which are in
+    from_numpy's order where the order matters (the update hooks)."""
     forces = system.getForces()
     (nb,) = [f for f in forces if isinstance(f, NonbondedForce)]
     part = np.asarray([nb.getParticleParameters(i)
@@ -289,6 +333,14 @@ def to_numpy(system: System) -> dict:
                  for i in range(force.getNumTorsions())],
                 np.int64).reshape(-1, 9)
             groups["cmap"] = force.getForceGroup()
+        elif isinstance(force, GBSAOBCForce):
+            out.update(_gb_params(force))
+            groups["gbsa"] = force.getForceGroup()
+        elif isinstance(force, AndersenThermostat):
+            out["andersen_temperature"] = force.getDefaultTemperature()
+            out["andersen_frequency"] = force.getDefaultCollisionFrequency()
+            out["andersen_seed"] = force.getRandomNumberSeed()
+            groups["andersen"] = force.getForceGroup()
         elif isinstance(force, CMMotionRemover):
             out["cmm_frequency"] = force.getFrequency()
             groups["cmm"] = force.getForceGroup()

@@ -12,6 +12,8 @@ positions and velocities must give the same positions; the two float32
 force paths differ by ~1e-6 relative each step, which a hot lattice start
 grows to a few 1e-6 nm over 20 steps, so the bar is 1e-5 nm against moves
 of ~1e-2 nm."""
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -126,3 +128,22 @@ def test_chip_smoke_method_phases_on_cpu(main_path):
     assert all(d["force_err"] <= chip_smoke.FORCE_ERR_BAR for d in droplets)
     ewald = chip_smoke.phase_ewald(cpu, n_waters=343, steps=3, replay=2)
     assert ewald["tiled"] and ewald["force_err"] <= chip_smoke.FORCE_ERR_BAR
+
+
+def test_chip_smoke_integrator_phase_on_cpu(main_path):
+    """phase_integrators from the rehearsed main path, a few steps of
+    each integrator: its readings, the eager loop's bits, the constraint
+    error. Its statistical gates (the NVE drift, the thermostat's mean
+    temperature) need the card's run lengths and are open here."""
+    out = chip_smoke.phase_integrators(
+        torch.device("cpu"), main_path, verlet_steps=20, drift_every=5,
+        andersen_steps=10, andersen_every=5, langevin_steps=6,
+        brownian_steps=4, replay=3, drift_gate=math.inf,
+        andersen_range=(0.0, math.inf))
+    assert sorted(out) == ["andersen", "brownian", "langevin", "verlet"]
+    assert len(out["verlet"]["readings"]) == 5
+    shifted, unshifted = out["verlet"]["kinetic"]
+    assert shifted != unshifted
+    # CPU tensors take the plain versions: no kernel launched
+    assert all(v == 0 for r in out.values()
+               for v in r["launches"].values())

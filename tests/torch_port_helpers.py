@@ -21,7 +21,9 @@ import numpy as np
 import torch
 
 from openmm_tpu import unit as u
-from openmm_tpu.forces import (CMAPTorsionForce, CMMotionRemover,
+import openmm_tpu as mm
+from openmm_tpu.forces import (AndersenThermostat, CMAPTorsionForce,
+                               CMMotionRemover, GBSAOBCForce,
                                HarmonicAngleForce, HarmonicBondForce,
                                NonbondedForce, PeriodicTorsionForce,
                                RBTorsionForce)
@@ -31,6 +33,9 @@ from openmm_tpu.forces.barostats import (MonteCarloAnisotropicBarostat,
 
 torch.set_num_threads(1)
 
+_GB_METHOD_NAMES = {GBSAOBCForce.NoCutoff: "NoCutoff",
+                    GBSAOBCForce.CutoffNonPeriodic: "CutoffNonPeriodic",
+                    GBSAOBCForce.CutoffPeriodic: "CutoffPeriodic"}
 _METHOD_NAMES = {NonbondedForce.NoCutoff: "NoCutoff",
                  NonbondedForce.CutoffNonPeriodic: "CutoffNonPeriodic",
                  NonbondedForce.CutoffPeriodic: "CutoffPeriodic",
@@ -51,9 +56,9 @@ _BONDED = (("bond", HarmonicBondForce, "_bonds", 2, "bond_pairs",
 def system_params(system):
     """The from_numpy dict of a JAX-package System with one
     NonbondedForce and at most one force of each bonded kind, one
-    CMMotionRemover and one Monte Carlo barostat (the term lists hold
-    plain floats in nm, rad and kJ/mol; the barostat's settings in bar,
-    bar nm and K)."""
+    GBSAOBCForce, one CMMotionRemover, one Monte Carlo barostat and one
+    AndersenThermostat (the term lists hold plain floats in nm, rad and
+    kJ/mol; the barostat's settings in bar, bar nm and K)."""
     forces = system.getForces()
     (nb,) = [f for f in forces if isinstance(f, NonbondedForce)]
     n = system.getNumParticles()
@@ -116,6 +121,16 @@ def system_params(system):
         elif isinstance(force, CMMotionRemover):
             out["cmm_frequency"] = force.getFrequency()
             groups["cmm"] = force.getForceGroup()
+        elif isinstance(force, GBSAOBCForce):
+            out.update(gb_params(force))
+            groups["gbsa"] = force.getForceGroup()
+        elif isinstance(force, AndersenThermostat):
+            out["andersen_temperature"] = float(u.strip(
+                force.getDefaultTemperature(), u.kelvin))
+            out["andersen_frequency"] = float(u.strip(
+                force.getDefaultCollisionFrequency(), u.picosecond ** -1))
+            out["andersen_seed"] = force.getRandomNumberSeed()
+            groups["andersen"] = force.getForceGroup()
         elif isinstance(force, (MonteCarloBarostat,
                                 MonteCarloAnisotropicBarostat,
                                 MonteCarloMembraneBarostat)):
@@ -125,6 +140,92 @@ def system_params(system):
     if groups:
         out["force_groups"] = groups
     return out
+
+
+def gb_params(force):
+    """from_numpy's GBSAOBCForce keys of a JAX-package GBSAOBCForce."""
+    p = np.array([[float(u.strip(x)) for x in
+                   force.getParticleParameters(i)]
+                  for i in range(force.getNumParticles())],
+                 np.float64).reshape(-1, 3)
+    return {"gb_charges": p[:, 0], "gb_radii": p[:, 1], "gb_scales": p[:, 2],
+            "gb_method": _GB_METHOD_NAMES[force.getNonbondedMethod()],
+            "gb_cutoff": float(u.strip(force.getCutoffDistance(),
+                                       u.nanometer)),
+            "gb_solute_dielectric": force.getSoluteDielectric(),
+            "gb_solvent_dielectric": force.getSolventDielectric(),
+            "gb_surface_energy": float(u.strip(
+                force.getSurfaceAreaEnergy(),
+                u.kilojoule_per_mole / u.nanometer ** 2))}
+
+
+def jax_system(params):
+    """The JAX-package System of a from_numpy dict with the keys of a
+    NonbondedForce, the bonded forces but CMAP, a GBSAOBCForce, a
+    CMMotionRemover and an AndersenThermostat, its forces in from_numpy's
+    order."""
+    system = mm.System()
+    for m in params["masses"]:
+        system.addParticle(float(m))
+    for (i, j), d in zip(np.asarray(params["constraint_pairs"]).reshape(
+            -1, 2), params["constraint_distances"]):
+        system.addConstraint(int(i), int(j), float(d))
+    box = np.asarray(params["box"], np.float64)
+    system.setDefaultPeriodicBoxVectors(*(mm.Vec3(*row) for row in box))
+    groups = params.get("force_groups", {})
+    nb = mm.NonbondedForce()
+    nb.setNonbondedMethod(getattr(mm.NonbondedForce, params["method"]))
+    nb.setCutoffDistance(params["cutoff"])
+    nb.setEwaldErrorTolerance(params["ewald_tolerance"])
+    nb.setUseDispersionCorrection(params["dispersion_correction"])
+    if params["switch_distance"] >= 0:
+        nb.setUseSwitchingFunction(True)
+        nb.setSwitchingDistance(params["switch_distance"])
+    nb.setReactionFieldDielectric(params.get("rf_dielectric", 78.3))
+    for q, s, e in zip(params["charges"], params["sigma"],
+                       params["epsilon"]):
+        nb.addParticle(float(q), float(s), float(e))
+    for (i, j), (cp, s, e) in zip(
+            np.asarray(params["exception_pairs"]).reshape(-1, 2),
+            np.asarray(params["exception_params"]).reshape(-1, 3)):
+        nb.addException(int(i), int(j), float(cp), float(s), float(e))
+    nb.setForceGroup(groups.get("nonbonded", 0))
+    system.addForce(nb)
+    if "gb_charges" in params:
+        gb = mm.GBSAOBCForce()
+        gb.setNonbondedMethod(getattr(mm.GBSAOBCForce, params["gb_method"]))
+        gb.setCutoffDistance(params["gb_cutoff"])
+        gb.setSoluteDielectric(params["gb_solute_dielectric"])
+        gb.setSolventDielectric(params["gb_solvent_dielectric"])
+        gb.setSurfaceAreaEnergy(params["gb_surface_energy"])
+        for q, r, s in zip(params["gb_charges"], params["gb_radii"],
+                           params["gb_scales"]):
+            gb.addParticle(float(q), float(r), float(s))
+        gb.setForceGroup(groups.get("gbsa", 0))
+        system.addForce(gb)
+    for kind, cls, terms, k, atoms_key, par_key in _BONDED:
+        if atoms_key not in params:
+            continue
+        force = cls()
+        add = force.addBond if cls is HarmonicBondForce else (
+            force.addAngle if cls is HarmonicAngleForce else force.addTorsion)
+        for atoms, p in zip(params[atoms_key], params[par_key]):
+            add(*(int(a) for a in atoms), *(
+                int(x) if cls is PeriodicTorsionForce and c == 0
+                else float(x) for c, x in enumerate(p)))
+        force.setForceGroup(groups.get(kind, 0))
+        system.addForce(force)
+    if "cmm_frequency" in params:
+        cmm = mm.CMMotionRemover(int(params["cmm_frequency"]))
+        cmm.setForceGroup(groups.get("cmm", 0))
+        system.addForce(cmm)
+    if "andersen_temperature" in params:
+        thermostat = mm.AndersenThermostat(
+            float(params["andersen_temperature"]),
+            float(params["andersen_frequency"]))
+        thermostat.setForceGroup(groups.get("andersen", 0))
+        system.addForce(thermostat)
+    return system
 
 
 def barostat_params(force):
@@ -203,8 +304,12 @@ def bilayer_templates():
     of its first lipid and its first water: {"<template>_<key>": array}
     with the template "lipid" or "water" and the keys of from_numpy's
     per-atom arrays and term lists (term atoms counted from the
-    template's first atom), and "nonbonded_<key>" for the settings of the
-    NonbondedForce and the CMMotionRemover's frequency."""
+    template's first atom), the lipid's OBC2 radii and screening factors
+    ("lipid_gb_radius", "lipid_gb_screen": mbondi2 radii and the OBC
+    screens, app/gbforces.py standard_gb_parameters), and
+    "nonbonded_<key>" for the settings of the NonbondedForce and the
+    CMMotionRemover's frequency."""
+    from openmm_tpu.app.gbforces import standard_gb_parameters
     from openmm_tpu.app.modeller import _load_membrane_patch
     top, pos, box = _load_membrane_patch("POPC")
     residues = list(top.residues())
@@ -231,6 +336,9 @@ def bilayer_templates():
                     | (atoms >= hi).all(axis=1)).all(), atoms_key
             out["%s_%s" % (name, atoms_key)] = atoms[inside] - lo
             out["%s_%s" % (name, par_key)] = params[par_key][inside]
+    gb = np.asarray(standard_gb_parameters("OBC2", sub),
+                    np.float64)[:n_lipid]
+    out["lipid_gb_radius"], out["lipid_gb_screen"] = gb[:, 0], gb[:, 1]
     for key in ("cutoff", "method", "ewald_tolerance",
                 "dispersion_correction", "switch_distance", "cmm_frequency"):
         out["nonbonded_" + key] = np.asarray(params[key])
