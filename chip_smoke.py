@@ -36,7 +36,7 @@ comes out:
   MonteCarloMembraneBarostat (1 bar, 0 bar nm, 303.15 K, XYIsotropic,
   ZFree, an attempt every 25 steps), 500 steps through the step program
   (each attempt under a second conditional node of the graph), the last
-  200 replayed through the eager loop for the same bits, box and
+  100 replayed through the eager loop for the same bits, box and
   barostat statistics; the relaxed water box under MonteCarloBarostat
   (1 bar, 300 K, 25) and under MonteCarloAnisotropicBarostat (frequency
   5) the same way; each with its ns/day, attempts, acceptances, volume,
@@ -58,7 +58,7 @@ comes out:
   kinetic energy shifted by half a step and not; Verlet under an
   AndersenThermostat (300 K, 10/ps) from 250 K, its mean temperature
   over the last half of 500 steps within 270-330 K; leapfrog Langevin
-  (300 K, 1/ps, 2 fs) and Brownian (300 K, 100/ps, 0.5 fs); each then 50
+  (300 K, 1/ps, 2 fs) and Brownian (300 K, 100/ps, 0.5 fs); each then 30
   steps from a snapshot through the step program and the eager loop,
   equal in bits;
 - implicit solvent (phase_gbsa): a 2,546-atom cluster of 19 POPC lipids
@@ -67,7 +67,23 @@ comes out:
   HBonds; LangevinMiddle at 300 K, 1/ps, 2 fs): its float32 forces and
   group energies against float64, GB's analytic sweeps timed alone, a
   minimize call, 300 relaxation steps and 100 more replayed through the
-  eager loop for the same bits, its ns/day.
+  eager loop for the same bits, its ns/day;
+- the integrators with control flow or state of their own: on the
+  relaxed water box a CustomIntegrator velocity Verlet at 1 fs for 2 ps
+  with a step counter, a kinetic-energy sum inside an if block every 10
+  steps and a while block of 3 passes (conditional IF and WHILE nodes of
+  the step graph; its drift gated at 0.2 kT/dof/ns, the sum against
+  Context.kinetic_energy() to 1e-9), NoseHooverIntegrator (300 K, 10/ps,
+  1 fs) from 250 K for 2,000 steps (the conserved quantity's drift, the
+  mean temperature within 270-330 K), VariableLangevin and VariableVerlet
+  at an error tolerance of 1e-3, 500 steps each (every step size in
+  (0, maximum], the clock equal to their sum), and a CompoundIntegrator
+  of LangevinMiddle and Verlet switched three times (the clock, one
+  capture a member); on the minimized bilayer MTSLangevinIntegrator with
+  the NonbondedForce in group 0 and the bonded forces in group 1 (kernel
+  1 once a step) and AMDForceGroupIntegrator on the torsions (the boost
+  active at every reading); each replays steps from a snapshot through
+  the eager loop for the same bits, integrator state and clock.
 
 It imports nothing of JAX or of openmm_tpu.
 
@@ -95,7 +111,7 @@ from torch.profiler import ProfilerActivity, profile
 import openmm_tpu_torch as omm
 from openmm_tpu_torch import _build
 from openmm_tpu_torch import step_program
-from openmm_tpu_torch.context import MAX_ESCALATIONS
+from openmm_tpu_torch.context import MAX_ESCALATIONS, STEP_CHUNK
 from openmm_tpu_torch.forces.nonbonded import NonbondedModule
 from openmm_tpu_torch.models import (builders, popc_bilayer,
                                      popc_obc_cluster, tip3p_water_box,
@@ -104,6 +120,7 @@ from openmm_tpu_torch.ops import geometry as geom
 from openmm_tpu_torch.ops import pallas_pme, pme_zslab, tile_pairs
 from openmm_tpu_torch.ops import pme as pme_mod
 from openmm_tpu_torch.platform import set_fp32_matmul_exact
+from openmm_tpu_torch.profile_step import custom_verlet
 
 BUDGET_S = 180.0
 N_WATERS = 8000
@@ -130,7 +147,7 @@ DOUBLE_POS_TOL = 1e-9
 FORCE_ERR_BAR = 1e-5
 # minimization: LocalEnergyMinimizer calls of MINIMIZE_ITERATIONS
 # iterations each (per penalty stage), the deadline checked between calls
-MINIMIZE_CALLS = 4
+MINIMIZE_CALLS = 2
 MINIMIZE_ITERATIONS = 25
 MINIMIZE_TOLERANCE = 10.0       # kJ/mol/nm, the RMS gradient per particle
 # the POPC bilayer: the force group of each force (for the per-group
@@ -151,7 +168,7 @@ NPT_PRESSURE = 1.0
 NPT_TENSION = 0.0
 NPT_FREQUENCY = 25
 NPT_BILAYER_STEPS = 500
-NPT_BILAYER_REPLAY = 200
+NPT_BILAYER_REPLAY = 100
 NPT_WATER_STEPS = 200
 NPT_WATER_REPLAY = 100
 ANISO_FREQUENCY = 5
@@ -169,7 +186,7 @@ NPT_TURNS = ("nvt", "npt", "npt", "nvt") * 2
 # CutoffNonPeriodic (cutoff nm; dhfr_gbsa's), and a small Ewald box
 RF_CUTOFF = 1.0
 RF_STEPS = 200
-RF_REPLAY = 100
+RF_REPLAY = 50
 DROPLET_RADIUS = 2.5
 DROPLET_CUTOFF = 2.0
 DROPLET_STEPS = 40
@@ -190,7 +207,7 @@ GBSA_TEMPERATURE = 300.0
 GBSA_MINIMIZE_ITERATIONS = 25
 GBSA_STEPS = 300
 GBSA_RELAX_FRICTION = 10.0
-GBSA_REPLAY = 100
+GBSA_REPLAY = 50
 # the other integrators on the relaxed water box (PME, kernels 1-3):
 # Verlet at 1 fs, its total energy read every DRIFT_EVERY steps over
 # VERLET_STEPS steps for the NVE drift, gated as tests/test_nve_drift.py
@@ -214,7 +231,45 @@ LANGEVIN_STEPS = 200
 BROWNIAN_DT = 0.0005
 BROWNIAN_FRICTION = 100.0
 BROWNIAN_STEPS = 100
-INTEGRATOR_REPLAY = 50
+INTEGRATOR_REPLAY = 30
+# the integrators written as programs or carrying state of their own, on
+# the relaxed water box (PME, kernels 1-3): a CustomIntegrator velocity
+# Verlet at VERLET_DT with a step counter, a kinetic-energy sum in an if
+# block every CUSTOM_SUM_EVERY steps and a while block of CUSTOM_LOOPS
+# passes, its total energy read every DRIFT_EVERY steps for the drift;
+# NoseHooverIntegrator (chain 3, MTS 3, YS 7) from NH_START K, its conserved
+# quantity read every NH_EVERY steps and held to NVE Verlet's energy from the
+# same start, its mean temperature over the last half within NH_T_RANGE;
+# VariableLangevin and VariableVerlet at VARIABLE_TOLERANCE, a step a call and
+# the device step size read after each; a CompoundIntegrator of LangevinMiddle
+# (2 fs) and Verlet (VERLET_DT), COMPOUND_STEPS steps a member, switched
+# COMPOUND_SWITCHES times. On the minimized bilayer: MTSLangevinIntegrator with
+# the NonbondedForce in group 0 and the bonded forces in group 1 (MTS_GROUPS:
+# the slow group once a step, the fast one twice), and AMDForceGroupIntegrator
+# on the torsions' group, alpha and the threshold above its start energy V0 set
+# from AMD_FRACTION |V0|.
+CUSTOM_STEPS = 2000
+CUSTOM_SUM_EVERY = 10
+CUSTOM_LOOPS = 3
+NH_TEMPERATURE = 300.0
+NH_FREQUENCY = 10.0
+NH_START = 250.0
+NH_STEPS = 2000
+NH_EVERY = 50
+NH_T_RANGE = (270.0, 330.0)
+VELOCITY_SEED = 8               # of the velocities drawn at a temperature
+VARIABLE_TOLERANCE = 1e-3
+VARIABLE_STEPS = 500
+VARIABLE_ENERGY_BAR = 0.02      # |E1 / E0 - 1| under VariableVerlet
+COMPOUND_STEPS = 100
+COMPOUND_SWITCHES = 3
+MTS_GROUPS = ((0, 1), (1, 2))
+MTS_STEPS = 300
+AMD_DT = 0.001
+AMD_STEPS = 200
+AMD_EVERY = 25
+AMD_FRACTION = 0.2
+BILAYER_T_RANGE = (250.0, 360.0)
 # what the bilayer phase prints of each force
 COUNTED = {"NonbondedForce": "getNumExceptions",
            "HarmonicBondForce": "getNumBonds",
@@ -259,6 +314,12 @@ class Deadline:
     def __init__(self, budget_s: float):
         self.t0 = time.perf_counter()
         self.budget_s = budget_s
+        self.laps = []      # (phase, seconds since the previous lap)
+
+    def lap(self, phase: str) -> None:
+        """Record the seconds `phase` took since the previous lap."""
+        done = sum(t for _, t in self.laps)
+        self.laps.append((phase, self.elapsed() - done))
 
     def elapsed(self) -> float:
         return time.perf_counter() - self.t0
@@ -693,8 +754,11 @@ def _production(device, ctx, step, energy, steps, energy_every,
     the launches of the main path's kernels, ns/day, and per step of the
     calls: wall ms, host CPU ms (the process's, which counts the spin of
     the host waiting on the card) and host issue ms (Context.issue_seconds:
-    the host's time up to each chunk's read, without that wait)."""
+    the host's time up to each chunk's read, without that wait). ns/day
+    is the simulated time the Context's clock advanced over the wall
+    time."""
     energies, rebuilds, r0 = [energy], [], ctx.rebuild_count
+    clock0 = ctx.getTime()
     boxes = []
     launches = [k.launches for k in MAIN_PATH_KERNELS]
     issue0 = ctx.issue_seconds
@@ -709,6 +773,7 @@ def _production(device, ctx, step, energy, steps, energy_every,
         wall += time.perf_counter() - t0
         cpu += time.process_time() - c0
         done += n
+        simulated = ctx.getTime() - clock0
         energies.append(read(ctx) if read else
                         ctx.getState(getEnergy=True).getPotentialEnergy())
         rebuilds.append(ctx.rebuild_count - r0)
@@ -721,8 +786,9 @@ def _production(device, ctx, step, energy, steps, energy_every,
                            for t in b.statistics()],
             "launches": {k.name: k.launches - b
                          for k, b in zip(MAIN_PATH_KERNELS, launches)},
-            "ns_day": ctx.getIntegrator().getStepSize() * steps / wall
-            * 86.4,
+            "ns_day": simulated / wall * 86.4,
+            "clock": ctx.getTime(),
+            "state": [t.clone() for t in ctx._step_tensors()],
             "wall_ms_per_step": wall / steps * 1e3,
             "host_cpu_ms_per_step": cpu / steps * 1e3,
             "host_issue_ms_per_step": (ctx.issue_seconds - issue0) / steps
@@ -735,6 +801,21 @@ def _same_bits(what, got, want) -> None:
             raise RuntimeError("%s: the step program's %s differ from the "
                                "eager loop's by up to %.3e" % (
                                    what, name, float((g - w).abs().max())))
+
+
+def _same_state(what, graph, eager) -> None:
+    """The shared tensors (the box, the clock, the parameters, the
+    barostats' statistics, the integrator's state) and the clock after
+    two runs: the same bits."""
+    for k, (g, e) in enumerate(zip(graph["state"], eager["state"])):
+        if not torch.equal(g, e):
+            raise RuntimeError("%s: shared tensor %d (of %d) of the step "
+                               "program differs from the eager loop's" % (
+                                   what, k, len(graph["state"])))
+    if graph["clock"] != eager["clock"]:
+        raise RuntimeError("%s: the clock reads %r after the step program, "
+                           "%r after the eager loop" % (
+                               what, graph["clock"], eager["clock"]))
 
 
 def phase_step_program(device, main, deadline=None,
@@ -1739,17 +1820,20 @@ def _total_energy(ctx) -> float:
 
 def _integrator_run(device, label, system, integ, state, steps, every,
                     read, deadline, replay=INTEGRATOR_REPLAY,
-                    temperature=None) -> dict:
+                    temperature=None, before=None, after=None) -> dict:
     """`system` under `integ` on a Context of its own (the default
     platform on a GPU, "CPU" otherwise) from the positions of `state` and
     its velocities (or velocities at `temperature`): with the kernel
     counts set to 0, `steps` steps through the step program in calls of
-    `every`, read(ctx) after each; then `replay` steps from a snapshot
-    through the step program and again through the eager loop, which must
-    give the same bits. Returns the readings, the run's launches of
-    kernels 1-3, ns/day and ms a step of the replay through the step
-    program (the run's first step captures the program), the constraint
-    error and the Context."""
+    `every`, read(ctx) after each (before(ctx) before the first, after(ctx)
+    after the last); then `replay` steps from a snapshot through the step
+    program and again through the eager loop, which must give the same
+    bits in the positions, the velocities, the Context's shared tensors
+    (the integrator's state among them) and the clock. Returns the
+    readings, what before and after gave, the run's launches of kernels
+    1-3, its escalations, ns/day and ms a step of the replay through the
+    step program (the run's first step captures the program), the
+    constraint error and the Context."""
     platform = "CUDA" if device.type == "cuda" else "CPU"
     ctx = (omm.Context(system, integ) if platform == "CUDA"
            else omm.Context(system, integ, platform))
@@ -1757,12 +1841,16 @@ def _integrator_run(device, label, system, integ, state, steps, every,
     if temperature is None:
         ctx.setVelocities(state.getVelocities())
     else:
-        ctx.setVelocitiesToTemperature(temperature, randomSeed=8)
+        ctx.setVelocitiesToTemperature(temperature, randomSeed=VELOCITY_SEED)
+    first = before(ctx) if before else None
     for kern in KERNELS:
         kern.launches = 0
+    e0 = ctx.escalation_count
     run = _production(device, ctx, integ.step, read(ctx), steps, every,
                       deadline, read)
     launches = {k.name: k.launches for k in MAIN_PATH_KERNELS}
+    escalations = ctx.escalation_count - e0
+    last = after(ctx) if after else None
     constraint_err = _constraint_error(
         system, ctx.getState(getPositions=True).getPositions())
     start = ctx._snapshot()
@@ -1773,6 +1861,7 @@ def _integrator_run(device, label, system, integ, state, steps, every,
                         deadline)
     _same_bits(label, (graph["positions"], graph["velocities"]),
                (eager["positions"], eager["velocities"]))
+    _same_state(label, graph, eager)
     if graph["energies"] != eager["energies"] \
             or graph["rebuilds"] != eager["rebuilds"]:
         raise RuntimeError("%s: the step program's energies %s and rebuilds "
@@ -1791,6 +1880,7 @@ def _integrator_run(device, label, system, integ, state, steps, every,
                            % (label, launches))
     deadline.check(label)
     return {"readings": run["energies"], "launches": launches,
+            "before": first, "after": last, "escalations": escalations,
             "ns_day": graph["ns_day"],
             "ms_per_step": graph["wall_ms_per_step"],
             "eager_ms_per_step": eager["wall_ms_per_step"],
@@ -1918,6 +2008,428 @@ def phase_integrators(device, main, deadline=None,
     out["brownian"] = brownian
     del brownian["context"]
     return out
+
+
+def _drift(readings, every, dt, dof, temperature=300.0) -> float:
+    """The slope of `readings` (kJ/mol, one every `every` steps of `dt`
+    ps) in kT/dof/ns."""
+    times_ns = np.arange(len(readings)) * every * dt / 1000.0
+    slope = np.polyfit(times_ns, np.asarray(readings), 1)[0]
+    return slope / (dof * omm.BOLTZ * temperature)
+
+
+def _water_state(main):
+    """(the relaxed water box's System, its final State, dof)."""
+    state = main["context"].getState(getPositions=True, getVelocities=True)
+    system, _ = tip3p_water_box(state.getPositions().shape[0] // 3)
+    return system, state, 3 * system.getNumParticles() \
+        - system.getNumConstraints()
+
+
+def phase_custom(device, main, deadline=None, steps=CUSTOM_STEPS,
+                 every=DRIFT_EVERY, replay=INTEGRATOR_REPLAY,
+                 drift_gate=DRIFT_GATE, verlet_ms=None) -> dict:
+    """The relaxed water box under custom_verlet() (profile_step.py)
+    through
+    _integrator_run: the total energy's drift within `drift_gate`
+    kT/dof/ns; after the run the counter equals the steps, the last
+    kinetic-energy sum (the run's last step fires it when `steps` is a
+    multiple of CUSTOM_SUM_EVERY) equals Context.kinetic_energy() to 1e-9
+    relative, and the while block made CUSTOM_LOOPS passes a step. The if
+    and while blocks are conditional nodes of the step's graph. Raises on
+    a miss."""
+    deadline = deadline or Deadline(math.inf)
+    system, state, dof = _water_state(main)
+    integ = custom_verlet(VERLET_DT, CUSTOM_SUM_EVERY, CUSTOM_LOOPS)
+
+    def after(ctx):
+        return {name: integ.getGlobalVariableByName(name)
+                for name in ("n", "ke", "passes")} | {
+            "kinetic": ctx.kinetic_energy()}
+
+    r = _integrator_run(device, "custom", system, integ, state, steps,
+                        every, _total_energy, deadline, replay, after=after)
+    drift = _drift(r["readings"], every, VERLET_DT, dof)
+    got = r["after"]
+    ke_err = abs(got["ke"] - got["kinetic"]) / got["kinetic"]
+    print("custom: CustomIntegrator velocity Verlet at %.3f ps, %d steps, "
+          "%d atoms: total energy %s kJ/mol (every %d steps); drift %.4e "
+          "kT/dof/ns (gate |d| < %.1f); counter %d, ComputeSum ke %.6f vs "
+          "kinetic_energy() %.6f kJ/mol (relative %.2e), while passes %d "
+          "(%d a step); %.2f ns/day, %.4f ms a step (built-in Verlet %s); "
+          "eager %.4f ms; launches %s; the eager loop's bits, variables "
+          "and clock" % (
+              VERLET_DT, steps, system.getNumParticles(), " ".join(
+                  "%.1f" % e for e in r["readings"][::5]), every, drift,
+              drift_gate, got["n"], got["ke"], got["kinetic"], ke_err,
+              got["passes"], CUSTOM_LOOPS, r["ns_day"], r["ms_per_step"],
+              "not run" if verlet_ms is None else "%.4f ms" % verlet_ms,
+              r["eager_ms_per_step"], json.dumps(r["launches"])))
+    if not abs(drift) < drift_gate:
+        raise RuntimeError("custom: drift %.4e kT/dof/ns" % drift)
+    if got["n"] != steps or got["passes"] != CUSTOM_LOOPS * steps:
+        raise RuntimeError("custom: counter %s, passes %s after %d steps"
+                           % (got["n"], got["passes"], steps))
+    if not ke_err <= 1e-9:
+        raise RuntimeError("custom: ComputeSum %.9f, kinetic energy %.9f"
+                           % (got["ke"], got["kinetic"]))
+    del r["context"]
+    return dict(r, drift=drift, ke_err=ke_err)
+
+
+def _nh_conserved(ctx, integ, dt) -> float:
+    """Potential + kinetic + computeHeatBathEnergy, the kinetic energy
+    shifted by half a step, 0.5 sum m (v + dt f / 2m)^2, as Verlet
+    reports it."""
+    st = ctx.getState(getEnergy=True, getForces=True)
+    forces = torch.as_tensor(st.getForces(), device=ctx._masses.device)
+    v = ctx._state["velocities"] + (0.5 * dt) * forces \
+        * ctx._inv_masses[:, None]
+    kinetic = float(0.5 * torch.sum(ctx._masses[:, None] * v * v))
+    return st.getPotentialEnergy() + kinetic + integ.computeHeatBathEnergy()
+
+
+def phase_nose_hoover(device, main, deadline=None, steps=NH_STEPS,
+                      every=NH_EVERY, replay=INTEGRATOR_REPLAY,
+                      drift_gate=DRIFT_GATE, t_range=NH_T_RANGE) -> dict:
+    """The relaxed water box under NoseHooverIntegrator(NH_TEMPERATURE,
+    NH_FREQUENCY, VERLET_DT) from velocities at NH_START K through
+    _integrator_run, its conserved quantity (_nh_conserved) read every
+    `every` steps; then NVE Verlet at VERLET_DT from the same positions
+    and velocities, its total energy read at the same times. From
+    velocities drawn afresh the energy of the step itself jumps over the
+    first few hundred fs and drifts while the box relaxes, with no
+    thermostat (Verlet as far as Nose-Hoover; nh_startup.py, PERF.md PR
+    14), so the gate holds the chains to what they add: the slope of the
+    conserved quantity less Verlet's energy, over the whole run, within
+    `drift_gate` kT/dof/ns. The mean temperature of the readings after
+    the first half lies within `t_range` (a rehearsal's few steps reach
+    neither gate). The kinetic energy is shifted by half a step because
+    the step kicks by a whole step before it drifts, as Verlet's does
+    (the integrator reports the unshifted one, as the JAX package's
+    does; ROADMAP, notes on the reference). Raises on a miss."""
+    deadline = deadline or Deadline(math.inf)
+    system, state, dof = _water_state(main)
+    integ = omm.NoseHooverIntegrator(NH_TEMPERATURE, NH_FREQUENCY,
+                                     VERLET_DT)
+    temperatures = []
+
+    def conserved(ctx):
+        temperatures.append(ctx.temperature())
+        return _nh_conserved(ctx, integ, VERLET_DT)
+
+    r = _integrator_run(device, "nose-hoover", system, integ, state, steps,
+                        every, conserved, deadline, replay,
+                        temperature=NH_START)
+    readings = r["readings"]
+    temperatures = temperatures[:len(readings)]
+    nve = omm.VerletIntegrator(VERLET_DT)
+    ctx = (omm.Context(system, nve) if device.type == "cuda"
+           else omm.Context(system, nve, "CPU"))
+    ctx.setPositions(state.getPositions())
+    ctx.setVelocitiesToTemperature(NH_START, randomSeed=VELOCITY_SEED)
+    verlet = [_total_energy(ctx)]
+    for _ in range(len(readings) - 1):
+        nve.step(every)
+        verlet.append(_total_energy(ctx))
+    del ctx
+    deadline.check("nose-hoover: Verlet from the same start")
+    settled = max(len(readings) // 4, 1)
+    jumps = [float(np.mean(e[1:settled + 1]) - e[0])
+             for e in (readings, verlet)]
+    thermostat = _drift([h - e for h, e in zip(readings, verlet)], every,
+                        VERLET_DT, dof)
+    whole = _drift(readings, every, VERLET_DT, dof)
+    after = _drift(readings[settled:], every, VERLET_DT, dof)
+    whole_nve = _drift(verlet, every, VERLET_DT, dof)
+    late = temperatures[len(temperatures) // 2 + 1:]
+    mean_t = float(np.mean(late))
+    print("nose-hoover: NoseHooverIntegrator(%.0f K, %.0f/ps, %.3f ps; chain "
+          "3, MTS 3, YS 7) from %.0f K, %d steps: conserved %s kJ/mol "
+          "(every %d steps), NVE Verlet from the same start %s; start-up "
+          "jump (mean of the first %d steps less the start) %.1f kJ/mol, "
+          "Verlet %.1f; drift %.4e kT/dof/ns (after step %d %.4e), Verlet "
+          "%.4e; the chains' share (conserved less Verlet) %.4e kT/dof/ns "
+          "(gate |d| < %.1f); T %s K, mean of the last %d readings %.2f K "
+          "(gate %.0f-%.0f K); heat bath %.3f kJ/mol; %.2f ns/day, %.4f ms "
+          "a step, eager %.4f ms; launches %s; the eager loop's bits, chains "
+          "and clock" % (
+              NH_TEMPERATURE, NH_FREQUENCY, VERLET_DT, NH_START, steps,
+              " ".join("%.1f" % e for e in readings[::4]), every,
+              " ".join("%.1f" % e for e in verlet[::4]), settled * every,
+              jumps[0], jumps[1], whole, settled * every, after, whole_nve,
+              thermostat, drift_gate,
+              " ".join("%.1f" % t for t in temperatures[::4]), len(late),
+              mean_t, *t_range, integ.computeHeatBathEnergy(), r["ns_day"],
+              r["ms_per_step"], r["eager_ms_per_step"],
+              json.dumps(r["launches"])))
+    if not abs(thermostat) < drift_gate:
+        raise RuntimeError("nose-hoover: the chains' drift %.4e kT/dof/ns"
+                           % thermostat)
+    if not t_range[0] <= mean_t <= t_range[1]:
+        raise RuntimeError("nose-hoover: mean temperature %.2f K" % mean_t)
+    del r["context"]
+    return dict(r, drift=whole, thermostat=thermostat, jumps=jumps,
+                verlet_drift=whole_nve, mean_temperature=mean_t)
+
+
+def phase_variable(device, main, deadline=None, steps=VARIABLE_STEPS,
+                   replay=INTEGRATOR_REPLAY,
+                   energy_bar=VARIABLE_ENERGY_BAR) -> dict:
+    """The relaxed water box under VariableLangevinIntegrator(300 K, 1/ps,
+    VARIABLE_TOLERANCE) and VariableVerletIntegrator(VARIABLE_TOLERANCE),
+    `steps` steps each, one a call, the step size read after each: every
+    step size lies in (0, maximum], the clock equals the host's sum of
+    them, Langevin's temperature lies within 200-450 K and Verlet's total
+    energy changes by less than `energy_bar` relative. Raises on a
+    miss."""
+    deadline = deadline or Deadline(math.inf)
+    system, state, _ = _water_state(main)
+    out = {}
+    for label, integ in (
+            ("variable langevin", omm.VariableLangevinIntegrator(
+                300.0, FRICTION, VARIABLE_TOLERANCE)),
+            ("variable verlet", omm.VariableVerletIntegrator(
+                VARIABLE_TOLERANCE))):
+        r = _integrator_run(
+            device, label, system, integ, state, steps, 1,
+            lambda c: c.getIntegrator().getStepSize(), deadline, replay,
+            before=_total_energy, after=lambda c: (
+                c.getTime(), c.temperature(), _total_energy(c)))
+        dts = r["readings"][1:]
+        clock, temperature, energy = r["after"]
+        total = 0.0
+        for dt in dts:
+            total = total + dt
+        change = abs(energy / r["before"] - 1.0)
+        print("%s: %d steps, error tolerance %.0e: step size mean %.6f ps, "
+              "min %.6f, max %.6f (maximum %.1f); clock %.9f ps, sum of the "
+              "step sizes %.9f; T %.2f K; total energy %.1f -> %.1f kJ/mol "
+              "(%.3f %%); %.2f ns/day, %.4f ms a step, eager %.4f ms; "
+              "launches %s; the eager loop's bits, step size and clock" % (
+                  label, steps, VARIABLE_TOLERANCE, float(np.mean(dts)),
+                  min(dts), max(dts), integ.getMaximumStepSize(), clock,
+                  total, temperature, r["before"], energy, 100.0 * change,
+                  r["ns_day"], r["ms_per_step"], r["eager_ms_per_step"],
+                  json.dumps(r["launches"])))
+        if not all(0.0 < dt <= integ.getMaximumStepSize() for dt in dts):
+            raise RuntimeError("%s: a step size outside (0, %.1f]: %s" % (
+                label, integ.getMaximumStepSize(), dts))
+        if clock != total:
+            raise RuntimeError("%s: the clock reads %r, the step sizes sum "
+                               "to %r" % (label, clock, total))
+        if label.endswith("langevin") and not 200.0 <= temperature <= 450.0:
+            raise RuntimeError("%s: temperature %.2f K" % (label,
+                                                            temperature))
+        if label.endswith("verlet") and not change < energy_bar:
+            raise RuntimeError("%s: total energy changed by %.3f %%"
+                               % (label, 100.0 * change))
+        del r["context"]
+        out[label] = dict(r, mean_dt=float(np.mean(dts)), clock=clock,
+                          temperature=temperature, energy_change=change)
+    return out
+
+
+def _captures(ctx) -> int:
+    return sum(p.graph is not None for p in ctx._programs.values())
+
+
+def phase_compound(device, main, deadline=None, steps=COMPOUND_STEPS,
+                   switches=COMPOUND_SWITCHES,
+                   replay=INTEGRATOR_REPLAY) -> dict:
+    """The relaxed water box under CompoundIntegrator(LangevinMiddle 300 K
+    1/ps 2 fs, Verlet VERLET_DT): `steps` steps with member 0, then with
+    member 1, switched `switches` times; the clock reads the host's sum of
+    the members' step sizes, each member's program is captured once (no
+    capture after the first switch back), kernels 1-3 launch; then
+    `replay` steps across a switch from a snapshot through the step
+    programs and the eager loop, with the same bits, shared tensors and
+    clock. Raises on a miss."""
+    deadline = deadline or Deadline(math.inf)
+    system, state, _ = _water_state(main)
+    integ = omm.CompoundIntegrator()
+    integ.addIntegrator(omm.LangevinMiddleIntegrator(300.0, FRICTION, DT_PS))
+    integ.addIntegrator(omm.VerletIntegrator(VERLET_DT))
+    integ.setRandomNumberSeed(13)
+    ctx = (omm.Context(system, integ) if device.type == "cuda"
+           else omm.Context(system, integ, "CPU"))
+    ctx.setPositions(state.getPositions())
+    ctx.setVelocities(state.getVelocities())
+    for kern in KERNELS:
+        kern.launches = 0
+    want, wall, captures, energies = 0.0, {0: 0.0, 1: 0.0}, [], []
+    for segment in range(switches + 1):
+        member = segment % 2
+        integ.setCurrentIntegrator(member)
+        run = _production(device, ctx, integ.step, 0.0, steps, steps,
+                          deadline)
+        energies += run["energies"][1:]
+        wall[member] += run["wall_ms_per_step"] * steps
+        for _ in range(steps):
+            want = want + integ.getStepSize()
+        captures.append(_captures(ctx))
+    launches = {k.name: k.launches for k in MAIN_PATH_KERNELS}
+    clock = ctx.getTime()
+    temperature = ctx.temperature()
+    constraint_err = _constraint_error(
+        system, ctx.getState(getPositions=True).getPositions())
+    start = ctx._snapshot()
+    runs = {}
+    for path in ("graph", "eager"):
+        ctx._restore(start)
+        integ.setCurrentIntegrator(0)
+        step = integ.step if path == "graph" else ctx._step_eager
+        _production(device, ctx, step, 0.0, replay // 2, replay, deadline)
+        integ.setCurrentIntegrator(1)
+        runs[path] = _production(device, ctx, step, 0.0, replay - replay // 2,
+                                 replay, deadline)
+    _same_bits("compound", (runs["graph"]["positions"],
+                            runs["graph"]["velocities"]),
+               (runs["eager"]["positions"], runs["eager"]["velocities"]))
+    _same_state("compound", runs["graph"], runs["eager"])
+    ms = {m: wall[m] / (steps * ((switches + 2 - m) // 2)) for m in wall}
+    print("compound: CompoundIntegrator(LangevinMiddle 300 K %.1f/ps %.3f "
+          "ps, Verlet %.3f ps), %d steps a member, %d switches: clock "
+          "%.9f ps (host sum %.9f); programs captured after each segment "
+          "%s; energies %s kJ/mol; T %.2f K; largest relative constraint "
+          "error %.3e; ms a step LangevinMiddle %.4f, Verlet %.4f; "
+          "launches %s; %d steps across a switch replayed through the "
+          "eager loop: the same bits, shared tensors and clock" % (
+              FRICTION, DT_PS, VERLET_DT, steps, switches, clock, want,
+              captures, " ".join("%.1f" % e for e in energies), temperature,
+              constraint_err, ms[0], ms[1], json.dumps(launches), replay))
+    if clock != want or abs(clock - steps * (DT_PS + VERLET_DT)
+                            * (switches + 1) / 2) > 1e-9:
+        raise RuntimeError("compound: the clock reads %r, the step sizes "
+                           "sum to %r" % (clock, want))
+    if device.type == "cuda" and (captures[1] != 2 or captures[-1] != 2):
+        raise RuntimeError("compound: programs captured %s (one a member "
+                           "wanted)" % captures)
+    if device.type == "cuda" and min(launches.values()) <= 0:
+        raise RuntimeError("compound: a kernel of its path never launched: "
+                           "%s" % launches)
+    if not 200.0 <= temperature <= 450.0:
+        raise RuntimeError("compound: temperature %.2f K" % temperature)
+    if not all(math.isfinite(e) for e in energies):
+        raise RuntimeError("compound: an energy is not finite: %s"
+                           % energies)
+    if not constraint_err <= CONSTRAINT_ERR_BAR:
+        raise RuntimeError("compound: constraint error %.3e"
+                           % constraint_err)
+    deadline.check("compound")
+    return {"clock": clock, "captures": captures, "ms": ms,
+            "launches": launches, "temperature": temperature}
+
+
+def phase_mts_bilayer(device, bilayer, deadline=None, steps=MTS_STEPS,
+                      replay=INTEGRATOR_REPLAY,
+                      t_range=BILAYER_T_RANGE) -> dict:
+    """The bilayer phase's system (from the bilayer Context's last state)
+    with the NonbondedForce in group 0 and the bonded forces in group 1,
+    under MTSLangevinIntegrator(BILAYER_TEMPERATURE, FRICTION, DT_PS,
+    MTS_GROUPS) through _integrator_run, read by temperature (which
+    evaluates no force): the final temperature within `t_range`, and
+    kernel 1 launched once a step and once more for the first step's
+    start (the slow group is not evaluated twice at one position). Raises
+    on a miss."""
+    deadline = deadline or Deadline(math.inf)
+    system = bilayer["system"]
+    state = bilayer["context"].getState(getPositions=True,
+                                        getVelocities=True)
+    groups = {f: f.getForceGroup() for f in system.getForces()}
+    for f in system.getForces():
+        if type(f).__name__ != "CMMotionRemover":
+            f.setForceGroup(0 if type(f).__name__ == "NonbondedForce"
+                            else 1)
+    integ = omm.MTSLangevinIntegrator(BILAYER_TEMPERATURE, FRICTION, DT_PS,
+                                      MTS_GROUPS)
+    integ.setRandomNumberSeed(21)
+    try:
+        r = _integrator_run(device, "mts bilayer", system, integ, state,
+                            steps, ENERGY_EVERY, lambda c: c.temperature(),
+                            deadline, replay)
+    finally:
+        for f, g in groups.items():
+            f.setForceGroup(g)
+    temperature = r["readings"][-1]
+    tiles = r["launches"][tile_pairs.TILES.name]
+    want = steps + 1
+    print("mts bilayer: MTSLangevinIntegrator(%.2f K, %.1f/ps, %.3f ps, %s; "
+          "NonbondedForce group 0, bonded group 1), %d steps: T %s K; "
+          "kernel 1 launched %d times (%d steps + the first step's start; "
+          "%d escalations); %.2f ns/day, %.4f ms a step (LangevinMiddle "
+          "%.4f ms in the bilayer phase), eager %.4f ms; launches %s; the "
+          "eager loop's bits, variables and clock" % (
+              BILAYER_TEMPERATURE, FRICTION, DT_PS, list(MTS_GROUPS), steps,
+              " ".join("%.1f" % t for t in r["readings"]), tiles, steps,
+              r["escalations"], r["ns_day"], r["ms_per_step"],
+              bilayer["graph"]["wall_ms_per_step"], r["eager_ms_per_step"],
+              json.dumps(r["launches"])))
+    if not t_range[0] <= temperature <= t_range[1]:
+        raise RuntimeError("mts bilayer: temperature %.2f K" % temperature)
+    if device.type == "cuda" and not (
+            tiles == want if r["escalations"] == 0
+            else want <= tiles <= want + STEP_CHUNK * r["escalations"]):
+        raise RuntimeError("mts bilayer: kernel 1 launched %d times in %d "
+                           "steps" % (tiles, steps))
+    del r["context"]
+    return dict(r, temperature=temperature, tiles=tiles)
+
+
+def phase_amd_bilayer(device, bilayer, deadline=None, steps=AMD_STEPS,
+                      every=AMD_EVERY, replay=INTEGRATOR_REPLAY,
+                      fraction=AMD_FRACTION,
+                      t_range=BILAYER_T_RANGE) -> dict:
+    """The bilayer phase's system (from the bilayer Context's last state)
+    under AMDForceGroupIntegrator(AMD_DT, g, alpha, E) on the torsions'
+    group g (BILAYER_GROUPS), E = V0 + `fraction` |V0| and alpha =
+    `fraction` |V0| from the torsion energy V0 at the start, through
+    _integrator_run, read by the torsion energy: the boost active at
+    every reading (below E), getEffectiveEnergy above the plain energy at
+    the end, the final temperature within `t_range`. Raises on a miss."""
+    deadline = deadline or Deadline(math.inf)
+    system = bilayer["system"]
+    g = BILAYER_GROUPS["PeriodicTorsionForce"]
+    ctx0 = bilayer["context"]
+    state = ctx0.getState(getPositions=True, getVelocities=True)
+    v0 = ctx0.getState(getEnergy=True, groups={g}).getPotentialEnergy()
+    threshold = v0 + fraction * abs(v0)
+    alpha = fraction * abs(v0)
+    integ = omm.AMDForceGroupIntegrator(AMD_DT, g, alpha, threshold)
+
+    def after(ctx):
+        total = ctx.getState(getEnergy=True).getPotentialEnergy()
+        group = ctx.getState(getEnergy=True, groups={g}).getPotentialEnergy()
+        return {"total": total, "group": group,
+                "effective": integ.getEffectiveEnergy(total, group),
+                "temperature": ctx.temperature()}
+
+    r = _integrator_run(device, "amd bilayer", system, integ, state, steps,
+                        every, lambda c: c.getState(
+                            getEnergy=True, groups={g}).getPotentialEnergy(),
+                        deadline, replay, after=after)
+    got = r["after"]
+    print("amd bilayer: AMDForceGroupIntegrator(%.3f ps, group %d, alpha "
+          "%.2f, E %.2f kJ/mol; V0 %.2f), %d steps: torsion energy %s "
+          "kJ/mol (every %d steps); at the end total %.2f, effective %.2f "
+          "kJ/mol, T %.2f K; %.2f ns/day, %.4f ms a step, eager %.4f ms; "
+          "launches %s; the eager loop's bits, variables and clock" % (
+              AMD_DT, g, alpha, threshold, v0, steps, " ".join(
+                  "%.1f" % e for e in r["readings"]), every, got["total"],
+              got["effective"], got["temperature"], r["ns_day"],
+              r["ms_per_step"], r["eager_ms_per_step"],
+              json.dumps(r["launches"])))
+    if not all(e < threshold for e in r["readings"]):
+        raise RuntimeError("amd bilayer: a torsion energy at or above E %.2f:"
+                           " %s" % (threshold, r["readings"]))
+    if not got["effective"] > got["total"]:
+        raise RuntimeError("amd bilayer: effective energy %.3f, plain %.3f"
+                           % (got["effective"], got["total"]))
+    if not t_range[0] <= got["temperature"] <= t_range[1]:
+        raise RuntimeError("amd bilayer: temperature %.2f K"
+                           % got["temperature"])
+    del r["context"]
+    return dict(r, threshold=threshold, alpha=alpha, v0=v0, **got)
 
 
 def _time_ms(fn, device, reps=20, warmup=3) -> float:
@@ -2124,11 +2636,13 @@ def main() -> int:
     deadline.check("device")
     phase_build(deadline)
     deadline.check("build")
+    deadline.lap("device, build")
     inp = kernel_inputs(device, N_WATERS)
     errors = phase_kernels(device, inp, deadline)
     phase_gather_orders(device, inp, deadline)
     phase_triple_shapes(device, deadline)
     phase_triclinic(device, deadline=deadline)
+    deadline.lap("kernels, triclinic")
     for kern in KERNELS:
         kern.launches = 0
     result = phase_main_path(device, deadline=deadline)
@@ -2138,11 +2652,26 @@ def main() -> int:
         raise RuntimeError("a kernel of the main path never launched: %s"
                            % launches)
     ns_day = result["ns_day"]
+    deadline.lap("main path")
     phase_step_program(device, result, deadline)
+    deadline.lap("step program")
     npt_water = phase_npt_water(device, result, deadline)
+    deadline.lap("npt water")
     rf_water = phase_rf_water(device, result, deadline)
+    deadline.lap("rf water")
     droplets = phase_nonperiodic(device, result, deadline)
+    deadline.lap("droplets")
     integrators = phase_integrators(device, result, deadline)
+    deadline.lap("integrators")
+    custom = phase_custom(device, result, deadline,
+                          verlet_ms=integrators["verlet"]["ms_per_step"])
+    deadline.lap("custom")
+    nose_hoover = phase_nose_hoover(device, result, deadline)
+    deadline.lap("nose-hoover")
+    variable = phase_variable(device, result, deadline)
+    deadline.lap("variable")
+    compound = phase_compound(device, result, deadline)
+    deadline.lap("compound")
     del result
     minimized = phase_minimize(device, deadline=deadline)
     if min(minimized["launches"].values()) <= 0:
@@ -2150,17 +2679,29 @@ def main() -> int:
                            "%s" % minimized["launches"])
     for kern in (pallas_pme.FWD, pallas_pme.BWD):
         launches[kern.name] = minimized["launches"][kern.name]
+    deadline.lap("minimize")
     bilayer = phase_bilayer(device, deadline)
     bilayer_ns_day = bilayer["ns_day"]
+    deadline.lap("bilayer")
+    mts = phase_mts_bilayer(device, bilayer, deadline)
+    deadline.lap("mts")
+    amd = phase_amd_bilayer(device, bilayer, deadline)
+    deadline.lap("amd")
     npt = phase_npt_bilayer(device, bilayer, deadline)
+    deadline.lap("npt bilayer")
     rf_bilayer = phase_rf_bilayer(device, bilayer["minimized_positions"],
                                   deadline)
+    deadline.lap("rf bilayer")
+    bilayer_ms = bilayer["graph"]["wall_ms_per_step"]
     del bilayer, npt["context"], npt["step"]
     ewald = phase_ewald(device, deadline)
+    deadline.lap("ewald")
     gbsa = phase_gbsa(device, deadline)
+    deadline.lap("gbsa")
     counts = tile_counts(inp)
     records = phase_timing(device, inp, counts, launches, errors, deadline)
     records.append(rf_water["record"])
+    deadline.lap("timing")
     print("main path: %.2f ns/day on %s (%s), %d steps of %.3f ps, "
           "through the step program (gating %s)" % (
               ns_day, info["name"], info["smi"], PRODUCTION_STEPS, DT_PS,
@@ -2205,6 +2746,35 @@ def main() -> int:
                   for k, r in integrators.items()),
               integrators["verlet"]["drift"],
               integrators["andersen"]["mean_temperature"]))
+    print("custom and stateful integrators on the %d-atom water box on %s "
+          "(%s): custom Verlet %.2f ns/day (%.4f ms a step, built-in Verlet "
+          "%.4f), drift %.4e kT/dof/ns; Nose-Hoover %.2f ns/day (%.4f ms), "
+          "drift %.4e (the chains' share %.4e), mean T %.2f K; variable "
+          "Langevin %.2f ns/day (%.4f ms, mean dt %.6f ps), variable Verlet "
+          "%.2f ns/day (%.4f ms, mean dt %.6f ps); compound %.4f and %.4f ms "
+          "a step, captures %s" % (
+              3 * N_WATERS, info["name"], info["smi"], custom["ns_day"],
+              custom["ms_per_step"], integrators["verlet"]["ms_per_step"],
+              custom["drift"], nose_hoover["ns_day"],
+              nose_hoover["ms_per_step"], nose_hoover["drift"],
+              nose_hoover["thermostat"],
+              nose_hoover["mean_temperature"],
+              variable["variable langevin"]["ns_day"],
+              variable["variable langevin"]["ms_per_step"],
+              variable["variable langevin"]["mean_dt"],
+              variable["variable verlet"]["ns_day"],
+              variable["variable verlet"]["ms_per_step"],
+              variable["variable verlet"]["mean_dt"], compound["ms"][0],
+              compound["ms"][1], compound["captures"]))
+    print("bilayer MTS and aMD on %s (%s): MTSLangevin %.2f ns/day (%.4f ms "
+          "a step, LangevinMiddle %.4f), kernel 1 %d launches in %d steps; "
+          "AMDForceGroup %.2f ns/day (%.4f ms a step), effective %.2f vs "
+          "%.2f kJ/mol" % (
+              info["name"], info["smi"], mts["ns_day"], mts["ms_per_step"],
+              bilayer_ms, mts["tiles"], MTS_STEPS, amd["ns_day"],
+              amd["ms_per_step"], amd["effective"], amd["total"]))
+    print("seconds by phase: %s" % ", ".join(
+        "%s %.1f" % lap for lap in deadline.laps))
     print("total %.1f s of the %.0f s budget" % (deadline.elapsed(),
                                                  BUDGET_S))
     print(tile_sweep_line(inp, counts))

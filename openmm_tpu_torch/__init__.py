@@ -6,8 +6,10 @@ against; nothing here imports it or JAX. It runs MD: NonbondedForce
 solvent (GBSAOBCForce), the bonded forces, a CMMotionRemover, the Monte
 Carlo barostats (isotropic, anisotropic, membrane) and the Andersen
 thermostat, SETTLE, SHAKE and CCMA constraints and fixed (massless)
-particles, under LangevinMiddle, leapfrog Langevin, Verlet or Brownian
-dynamics, through three hand-written CUDA kernels (csrc/), and energy
+particles, under LangevinMiddle, leapfrog Langevin, Verlet, Brownian,
+Nose-Hoover, variable-step, multiple-time-step (MTS) or accelerated (aMD)
+dynamics, a CustomIntegrator program or a CompoundIntegrator of these,
+through three hand-written CUDA kernels (csrc/), and energy
 minimization (LocalEnergyMinimizer) through the differentiable dense PME
 and two more. Numbers are plain floats in nm, ps, amu, kJ/mol and e.
 """
@@ -18,20 +20,30 @@ from .forces import (AndersenThermostat, CMAPTorsionForce, CMMotionRemover,
                      HarmonicBondForce, MonteCarloAnisotropicBarostat,
                      MonteCarloBarostat, MonteCarloMembraneBarostat,
                      NonbondedForce, PeriodicTorsionForce, RBTorsionForce)
-from .integrators import (BrownianIntegrator, LangevinIntegrator,
-                          LangevinMiddleIntegrator, VerletIntegrator)
+from .integrators import (AMDForceGroupIntegrator, AMDIntegrator,
+                          BrownianIntegrator, CompoundIntegrator,
+                          CustomIntegrator, DualAMDIntegrator,
+                          LangevinIntegrator, LangevinMiddleIntegrator,
+                          MTSIntegrator, MTSLangevinIntegrator,
+                          NoseHooverChain, NoseHooverIntegrator,
+                          VariableLangevinIntegrator,
+                          VariableVerletIntegrator, VerletIntegrator)
 from .minimize import LocalEnergyMinimizer, MinimizationReporter
 from .platform import Platform
 from .state import State
 from .system import System, from_numpy, to_numpy
 
-__all__ = ["AndersenThermostat", "BOLTZ", "BrownianIntegrator",
-           "CMAPTorsionForce", "CMMotionRemover", "Context", "Force",
+__all__ = ["AMDForceGroupIntegrator", "AMDIntegrator",
+           "AndersenThermostat", "BOLTZ", "BrownianIntegrator",
+           "CMAPTorsionForce", "CMMotionRemover", "CompoundIntegrator",
+           "Context", "CustomIntegrator", "DualAMDIntegrator", "Force",
            "GBSAOBCForce", "HarmonicAngleForce", "HarmonicBondForce",
            "LangevinIntegrator", "LangevinMiddleIntegrator",
-           "LocalEnergyMinimizer",
+           "LocalEnergyMinimizer", "MTSIntegrator", "MTSLangevinIntegrator",
            "MinimizationReporter", "MonteCarloAnisotropicBarostat",
            "MonteCarloBarostat", "MonteCarloMembraneBarostat",
-           "NonbondedForce", "ONE_4PI_EPS0",
-           "PeriodicTorsionForce", "Platform", "RBTorsionForce", "State",
-           "System", "VerletIntegrator", "from_numpy", "to_numpy"]
+           "NonbondedForce", "NoseHooverChain", "NoseHooverIntegrator",
+           "ONE_4PI_EPS0", "PeriodicTorsionForce", "Platform",
+           "RBTorsionForce", "State", "System",
+           "VariableLangevinIntegrator", "VariableVerletIntegrator",
+           "VerletIntegrator", "from_numpy", "to_numpy"]

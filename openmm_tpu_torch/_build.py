@@ -44,7 +44,8 @@ _SIGNATURES = {
                               _P],
     "omm_spread_triple_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
                               _P, _P, _P],
-    "omm_graph_if": [_P, _P, _P],
+    "omm_graph_body_begin": [_P, _I, _P, _P, _P],
+    "omm_graph_body_end": [_P, _I, ctypes.c_ulonglong, _P],
 }
 
 

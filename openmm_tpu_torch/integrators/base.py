@@ -3,8 +3,8 @@
 Counterpart of openmm_tpu/integrators/base.py. A Context hands its
 integrator a StepDeps bundle; the step function the integrator makes from
 it, step(positions, velocities, box) -> (positions, velocities), advances
-the device state by one step, and the Context advances the time and the
-step count on the host. The step also adds one to deps.step, the
+the device state by one step, and the Context advances the step count on
+the host and the time on the device. The step also adds one to deps.step, the
 Context's step counter on the device, which the update hooks read (a
 captured step graph replays with the counter's address, so a host integer
 would be frozen at capture); the Context sets it from the host count
@@ -17,7 +17,21 @@ before it steps, so setStepSize and the like take effect at the next step
 without a new step program. The force evaluation sums the integrator's
 integration force groups (getIntegrationForceGroups: a bit mask, -1 for
 all), and a massless particle never moves (deps.moving is False for it,
-its inverse mass 0).
+its inverse mass 0). deps.forces_by_groups evaluates any other mask (a
+CustomIntegrator's f0..f31, MTS, aMD), the rebuild gate included.
+
+The time is a float64 device scalar that the Context advances after each
+step by deps.params[0], the step size the step used: a variable-step
+integrator writes its new step size there in place. State of the
+integrator's own (Nose-Hoover chains, a CustomIntegrator's variables) is
+a set of device tensors that _init_state allocates when the Context binds
+and the step writes in place; _state_tensors lists them, so that a
+snapshot, an undone chunk and the warm-up before a capture copy them
+back. Control flow that depends on device values goes through
+deps.branch(pred, body), which runs body() where the device bool pred
+holds, and deps.loop(cond, body), which runs body() while the device bool
+that cond() returns holds: host `if` and `while` in the eager loop,
+conditional IF and WHILE nodes in a captured step (step_program.py).
 
 Precision: positions and velocities are float64 tensors on the device. The
 JAX package carries float32 positions plus a float32 compensation plane
@@ -55,6 +69,13 @@ class StepDeps:
     # CMMotionRemover changes the velocities, a barostat the positions
     # and, in place, the box tensor
     update_hooks: list = field(default_factory=list)
+    # (pos, box, mask) -> (energy, forces) of the force groups in the bit
+    # mask `mask` (-1: all)
+    forces_by_groups: Callable = None
+    # branch(pred, body): body() where the device bool pred holds
+    branch: Callable = None
+    # loop(cond, body): body() while the device bool cond() holds
+    loop: Callable = None
 
 
 class Integrator:
@@ -111,6 +132,36 @@ class Integrator:
     def _params(self) -> tuple:
         """The floats the step reads from deps.params, step size first."""
         return (self._step_size,)
+
+    def _dt_index(self) -> int:
+        """Where the step size of the next step lies in deps.params."""
+        return 0
+
+    def _program_key(self):
+        """What besides the shapes and the integration groups selects a
+        step function (a CompoundIntegrator's current member)."""
+        return None
+
+    def _init_state(self, deps: StepDeps) -> None:
+        """Allocate the device tensors of the integrator's own state."""
+
+    def _state_tensors(self) -> list:
+        """The device tensors of the integrator's own state, which its
+        step writes in place."""
+        return []
+
+    def _kinetic_energy_requires_force(self) -> bool:
+        return self._kinetic_energy_shift() != 0.0
+
+    def _kinetic_energy(self, ctx, forces, dt) -> torch.Tensor:
+        """0.5 sum m (v + s dt f / m)^2 with s the _kinetic_energy_shift,
+        dt the step size on the device and f `forces` (used where s is
+        not 0)."""
+        v = ctx._state["velocities"]
+        shift = self._kinetic_energy_shift()
+        if shift != 0.0:
+            v = v + (shift * dt) * forces * ctx._inv_masses[:, None]
+        return 0.5 * torch.sum(ctx._masses[:, None] * v * v)
 
     def _kinetic_energy_shift(self) -> float:
         """The shift s, in steps, of the reported kinetic energy

@@ -10,6 +10,8 @@ objective, spends its time.
     python3 -m openmm_tpu_torch.profile_step --method ewald --waters 512
     python3 -m openmm_tpu_torch.profile_step --system popc_obc
     python3 -m openmm_tpu_torch.profile_step --integrator verlet
+    python3 -m openmm_tpu_torch.profile_step --integrator custom_verlet
+    python3 -m openmm_tpu_torch.profile_step --system bilayer --integrator mts
 
 Builds the 24,000-atom TIP3P PME box (--system water, the default), the
 32,512-atom POPC bilayer (--system bilayer: amber14-lipid + TIP3P,
@@ -30,8 +32,17 @@ the eager loop it replaced ("eager": Context._step_eager), each untraced
 and then again under torch.profiler (host and CUDA activity).
 --integrator times another integrator on a Context of its own, started
 from the relaxed state: verlet (1 fs), langevin (leapfrog, 1/ps, 2 fs),
-brownian (100/ps, 0.5 fs) or andersen (Verlet at 1 fs with an
-AndersenThermostat at 10/ps); not with --barostat. With
+brownian (100/ps, 0.5 fs), andersen (Verlet at 1 fs with an
+AndersenThermostat at 10/ps), custom_verlet (custom_verlet(): a
+CustomIntegrator velocity Verlet at 1 fs with an if and a while block),
+nose_hoover (10/ps, 1 fs; chain 3, MTS 3, YS 7), variable_langevin (1/ps,
+error tolerance 1e-3), compound (a CompoundIntegrator of LangevinMiddle
+at 2 fs and Verlet at 1 fs, both captured, Verlet's step timed), and on
+the bilayer mts (MTSLangevinIntegrator, 1/ps, 2 fs, the NonbondedForce
+in group 0 and the bonded forces in group 1, [(0, 1), (1, 2)]) and amd
+(AMDForceGroupIntegrator at 1 fs on the torsions, in a group of their
+own, alpha and E above their start energy V0 by 0.2 |V0|); not with
+--barostat. With
 --barostat iso (MonteCarloBarostat) or membrane
 (MonteCarloMembraneBarostat, XYIsotropic, ZFree, no tension), both at 1
 bar and an attempt every 25 steps, the system runs at constant pressure
@@ -68,10 +79,13 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from . import (AndersenThermostat, BrownianIntegrator, Context,
-               LangevinIntegrator, LangevinMiddleIntegrator,
-               MonteCarloBarostat, MonteCarloMembraneBarostat,
-               VerletIntegrator)
+from . import (AMDForceGroupIntegrator, AndersenThermostat,
+               BrownianIntegrator, CompoundIntegrator, Context,
+               CustomIntegrator, LangevinIntegrator,
+               LangevinMiddleIntegrator, MonteCarloBarostat,
+               MonteCarloMembraneBarostat, MTSLangevinIntegrator,
+               NoseHooverIntegrator, PeriodicTorsionForce,
+               VariableLangevinIntegrator, VerletIntegrator)
 from .forces.nonbonded import NonbondedForce
 from .models import (popc_bilayer, popc_obc_cluster, tip3p_water_box,
                      water_droplet)
@@ -186,15 +200,75 @@ def _barostat(name, temperature):
     return None
 
 
-def _integrator(name, temperature):
+def custom_verlet(dt=0.001, sum_every=10, loops=3):
+    """A velocity Verlet written as a CustomIntegrator (half kick; drift;
+    x1 = x; constrain positions; half kick plus (x - x1)/dt; constrain
+    velocities), with a step counter n, the kinetic energy summed into ke
+    inside an if block every `sum_every` steps, and a while block of
+    `loops` passes that adds one to `passes` each."""
+    integ = CustomIntegrator(dt)
+    for name in ("n", "k", "ke", "j", "passes"):
+        integ.addGlobalVariable(name, 0.0)
+    integ.addPerDofVariable("x1", 0.0)
+    integ.addUpdateContextState()
+    integ.addComputePerDof("v", "v+0.5*dt*f/m")
+    integ.addComputePerDof("x", "x+dt*v")
+    integ.addComputePerDof("x1", "x")
+    integ.addConstrainPositions()
+    integ.addComputePerDof("v", "v+0.5*dt*f/m+(x-x1)/dt")
+    integ.addConstrainVelocities()
+    integ.addComputeGlobal("n", "n+1")
+    integ.addComputeGlobal("k", "k+1")
+    integ.beginIfBlock("k >= %d" % sum_every)
+    integ.addComputeSum("ke", "m*v*v/2")
+    integ.addComputeGlobal("k", "0")
+    integ.endBlock()
+    integ.addComputeGlobal("j", "0")
+    integ.beginWhileBlock("j < %d" % loops)
+    integ.addComputeGlobal("passes", "passes+1")
+    integ.addComputeGlobal("j", "j+1")
+    integ.endBlock()
+    return integ
+
+
+BILAYER_INTEGRATORS = ("mts", "amd")
+
+
+def _integrator(name, temperature, system, ctx):
     """(the --integrator's integrator, whether the System takes an
-    AndersenThermostat)."""
+    AndersenThermostat). mts and amd set the force groups of `system`;
+    amd reads the torsions' start energy from `ctx`."""
+    if name in BILAYER_INTEGRATORS:
+        kind = NonbondedForce if name == "mts" else PeriodicTorsionForce
+        for force in system.getForces():
+            force.setForceGroup(
+                int(isinstance(force, kind) == (name == "amd")))
+        if name == "mts":
+            return MTSLangevinIntegrator(temperature, 1.0, 0.002,
+                                         [(0, 1), (1, 2)]), False
+        probe = _context(ctx._device, system, VerletIntegrator(0.001))
+        probe.setPositions(ctx.getState(getPositions=True).getPositions())
+        v0 = probe.getState(getEnergy=True, groups={1}).getPotentialEnergy()
+        return AMDForceGroupIntegrator(0.001, 1, 0.2 * abs(v0),
+                                       v0 + 0.2 * abs(v0)), False
     if name == "verlet":
         return VerletIntegrator(0.001), False
     if name == "andersen":
         return VerletIntegrator(0.001), True
     if name == "langevin":
         return LangevinIntegrator(temperature, 1.0, 0.002), False
+    if name == "custom_verlet":
+        return custom_verlet(), False
+    if name == "nose_hoover":
+        return NoseHooverIntegrator(temperature, 10.0, 0.001), False
+    if name == "variable_langevin":
+        return VariableLangevinIntegrator(temperature, 1.0, 1e-3), False
+    if name == "compound":
+        integ = CompoundIntegrator()
+        integ.addIntegrator(LangevinMiddleIntegrator(temperature, 1.0,
+                                                     0.002))
+        integ.addIntegrator(VerletIntegrator(0.001))
+        return integ, False
     return BrownianIntegrator(temperature, 100.0, 0.0005), False
 
 
@@ -203,6 +277,9 @@ def profile_steps(device, n_waters=8000, steps=50, top=20,
                   method="pme", integrator="langevinmiddle") -> dict:
     if barostat != "none" and integrator != "langevinmiddle":
         raise ValueError("--integrator takes no --barostat")
+    if integrator in BILAYER_INTEGRATORS and system_name != "bilayer":
+        raise ValueError("--integrator %s takes --system bilayer"
+                         % integrator)
     system, positions, temperature = _system(system_name, n_waters, method)
     force = _barostat(barostat, temperature)
     if force is not None:
@@ -219,7 +296,8 @@ def profile_steps(device, n_waters=8000, steps=50, top=20,
     integ.step(20)
     if integrator != "langevinmiddle":
         system, _, _ = _system(system_name, n_waters, method)
-        integ, thermostat = _integrator(integrator, temperature)
+        integ, thermostat = _integrator(integrator, temperature, system,
+                                        ctx)
         if thermostat:
             system.addForce(AndersenThermostat(temperature, 10.0))
         integ.setRandomNumberSeed(3)
@@ -227,6 +305,9 @@ def profile_steps(device, n_waters=8000, steps=50, top=20,
         twin.setState(ctx.getState(getPositions=True, getVelocities=True))
         ctx = twin
         integ.step(20)                  # the capture, out of the window
+        if integrator == "compound":
+            integ.setCurrentIntegrator(1)
+            integ.step(20)
     start = ctx._snapshot()
     out = {"device": _device_name(device), "system": system_name,
            "method": method, "barostat": barostat, "integrator": integrator,
@@ -322,7 +403,9 @@ def main() -> None:
                         "time its attempts alone")
     parser.add_argument("--integrator", default="langevinmiddle",
                         choices=("langevinmiddle", "verlet", "langevin",
-                                 "brownian", "andersen"),
+                                 "brownian", "andersen", "custom_verlet",
+                                 "nose_hoover", "variable_langevin",
+                                 "compound") + BILAYER_INTEGRATORS,
                         help="the integrator whose step is profiled")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args()

@@ -302,3 +302,34 @@ def test_chip_smoke_rf_bilayer_phase_on_cpu(bilayer):
     assert sorted(out["energies"]) == [0, 1, 2, 3, 4]
     assert out["graph"]["energies"] == out["eager"]["energies"]
     assert set(out["launches"].values()) == {0}
+
+
+def test_chip_smoke_mts_and_amd_bilayer_phases_on_cpu(bilayer):
+    """chip_smoke.py's MTS and aMD phases on the cropped bilayer, 2 steps
+    each from a hot start: the temperatures, the aMD boost at every
+    reading, the eager loop's bits with the variables and the clock."""
+    import math
+
+    import torch
+
+    import chip_smoke
+    _, pos, _, params = bilayer
+    system = omm.from_numpy(params)
+    for force in system.getForces():
+        force.setForceGroup(chip_smoke.BILAYER_GROUPS[type(force).__name__])
+    ctx = omm.Context(system, omm.VerletIntegrator(0.001), "CPU")
+    ctx.setPositions(pos)
+    ctx.setVelocitiesToTemperature(chip_smoke.BILAYER_TEMPERATURE,
+                                   randomSeed=4)
+    state = {"system": system, "context": ctx,
+             "graph": {"wall_ms_per_step": 0.0}}
+    cpu = torch.device("cpu")
+    mts = chip_smoke.phase_mts_bilayer(cpu, state, steps=2, replay=2,
+                                       t_range=(0.0, math.inf))
+    assert mts["tiles"] == 0
+    assert [f.getForceGroup() for f in system.getForces()] == [
+        chip_smoke.BILAYER_GROUPS[type(f).__name__]
+        for f in system.getForces()]
+    amd = chip_smoke.phase_amd_bilayer(cpu, state, steps=2, every=1,
+                                       replay=2, t_range=(0.0, math.inf))
+    assert amd["effective"] > amd["total"]

@@ -147,3 +147,30 @@ def test_chip_smoke_integrator_phase_on_cpu(main_path):
     # CPU tensors take the plain versions: no kernel launched
     assert all(v == 0 for r in out.values()
                for v in r["launches"].values())
+
+
+def test_chip_smoke_custom_and_stateful_phases_on_cpu(main_path):
+    """The phases of the CustomIntegrator velocity Verlet (its if and
+    while blocks), Nose-Hoover, the variable-step pair and the
+    CompoundIntegrator from the rehearsed main path, a few steps each:
+    their readings and counters, the clock against the step sizes, the
+    eager loop's bits with the integrators' state and the clock. The
+    statistical gates need the card's run lengths and are open here."""
+    cpu = torch.device("cpu")
+    custom = chip_smoke.phase_custom(cpu, main_path, steps=20, every=5,
+                                     replay=3, drift_gate=math.inf)
+    assert len(custom["readings"]) == 5 and custom["ke_err"] <= 1e-9
+    nh = chip_smoke.phase_nose_hoover(cpu, main_path, steps=6, every=3,
+                                      replay=2, drift_gate=math.inf,
+                                      t_range=(0.0, math.inf))
+    assert len(nh["readings"]) == 3
+    variable = chip_smoke.phase_variable(cpu, main_path, steps=4, replay=2,
+                                         energy_bar=math.inf)
+    assert all(r["mean_dt"] > 0 for r in variable.values())
+    compound = chip_smoke.phase_compound(cpu, main_path, steps=3,
+                                         switches=1, replay=4)
+    assert compound["clock"] == pytest.approx(
+        3 * (chip_smoke.DT_PS + chip_smoke.VERLET_DT))
+    # CPU tensors take the plain versions: no kernel launched
+    for r in (custom, nh, *variable.values(), compound):
+        assert set(r["launches"].values()) == {0}

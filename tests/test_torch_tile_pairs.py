@@ -6,7 +6,8 @@ water-like system of 1,104 atoms: the Pallas tile kernel in interpret mode
 without the LJ switch. All three run float32 with the Hastings erfc;
 summation orders differ, so energies agree to 1e-5 relative and forces to
 1e-4 of the largest force. A forced capacity overflow must poison the
-energy and every force with NaN, and a Context must grow its capacity."""
+energy and every force with NaN, and a Context must grow its capacity,
+in a step and in a reading between steps."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -244,3 +245,27 @@ def test_cull_keeps_every_pair_inside_the_cutoff(water, sheared):
     assert c["inside"] <= c["evaluated"] < c["inside"] + 32 * nb * tp.BRICK
     assert c["inside"] <= c["visited"] < c["slots"]
     assert c["evaluated_before"] > c["evaluated"]
+
+
+def test_reading_grows_capacity_after_overflow():
+    """A reading whose rebuild overflows (here the first, before any
+    step) grows the capacity and reports what a Context built at a
+    sufficient capacity reports, never the NaN poison."""
+    system, pos = tip3p_water_box(125)
+    readings = []
+    for scale in (None, 0.1):
+        integ = omm.VerletIntegrator(0.001)
+        ctx = omm.Context(system, integ, "CPU")
+        if scale is not None:
+            ctx._nonbonded.capacity_scale = scale
+        ctx.setPositions(pos)
+        ctx.setVelocitiesToTemperature(300.0, randomSeed=2)
+        t = ctx.temperature()
+        st = ctx.getState(getEnergy=True, getForces=True)
+        readings.append((ctx.escalation_count, t, st.getPotentialEnergy(),
+                         st.getKineticEnergy(), st.getForces()))
+    (e0, t0, u0, k0, f0), (e1, t1, u1, k1, f1) = readings
+    assert e0 == 0 and e1 > 0
+    assert np.isfinite([t1, u1, k1]).all() and np.isfinite(f1).all()
+    np.testing.assert_allclose([t1, u1, k1], [t0, u0, k0], rtol=1e-9)
+    np.testing.assert_allclose(f1, f0, rtol=0, atol=1e-9 * np.abs(f0).max())

@@ -426,3 +426,37 @@ def cropped_bilayer(fraction=0.33):
         top, positions, layout = _cropped_patch(fraction)
         _CROPPED[fraction] = (jax_bilayer_system(top), positions, layout)
     return _CROPPED[fraction]
+
+
+ANCHORS = 4
+
+
+def anchored_droplet():
+    """(from_numpy dict, positions, velocities) of the droplet of
+    tests/test_torch_integrators.py: the waters of a 64-water box within
+    0.6 nm of its centre (SETTLE, the reaction field over every pair at
+    CutoffNonPeriodic 1.0 nm), and ANCHORS massless particles 0.05 nm from
+    the first oxygens, each tied to its oxygen by a bond of 0.05 nm;
+    Maxwell-Boltzmann velocities at 300 K from a numpy seed, 0 for the
+    anchors."""
+    import openmm_tpu_torch as omm
+    from openmm_tpu_torch.models import tip3p_water_box, water_droplet
+
+    box_sys, box_pos = tip3p_water_box(64)
+    system, pos = water_droplet(
+        box_pos, box_sys.getDefaultPeriodicBoxVectors(), radius=0.6,
+        cutoff=1.0)
+    params = omm.to_numpy(system)
+    n = len(params["masses"])
+    oxygens = 3 * np.arange(ANCHORS)
+    params["masses"] = np.concatenate([params["masses"], np.zeros(ANCHORS)])
+    for key, fill in (("charges", 0.0), ("sigma", 1.0), ("epsilon", 0.0)):
+        params[key] = np.concatenate([params[key], np.full(ANCHORS, fill)])
+    params["bond_pairs"] = np.stack([oxygens, n + np.arange(ANCHORS)], 1)
+    params["bond_params"] = np.tile([[0.05, 5000.0]], (ANCHORS, 1))
+    pos = np.concatenate([pos, pos[oxygens] + [0.05, 0.0, 0.0]])
+    rng = np.random.RandomState(5)
+    m = params["masses"]
+    sigma = np.sqrt(omm.BOLTZ * 300.0 / np.where(m == 0, 1.0, m))
+    vel = rng.randn(*pos.shape) * np.where(m == 0, 0.0, sigma)[:, None]
+    return params, pos, vel
