@@ -83,7 +83,23 @@ comes out:
   the NonbondedForce in group 0 and the bonded forces in group 1 (kernel
   1 once a step) and AMDForceGroupIntegrator on the torsions (the boost
   active at every reading); each replays steps from a snapshot through
-  the eager loop for the same bits, integrator state and clock.
+  the eager loop for the same bits, integrator state and clock;
+- PR 15: the minimized bilayer at LJPME (phase_ljpme_bilayer: kernel 1
+  in MODE_LJPME against its plain version in float32 and in float64,
+  kernels 2-3 on the dispersion grid with c6 weights, the group
+  energies with the reciprocal space in a group of its own, one minimize
+  call through kernels 1, 4 and 5, MD replayed eagerly for the same
+  bits); 8,000 TIP4P-Ew waters (32,000 particles, the M sites virtual;
+  phase_tip4pew) relaxed from the lattice, every site on its weighted
+  parents, then under MTSLangevin at 4 fs with the reciprocal space the
+  slow group (phase_mts_tip4pew: kernels 2-3 once an outer step, kernel
+  1 twice); the relaxed water box with 64 waters decoupled by a global
+  parameter's offsets (phase_offsets: setParameter at three lambdas in
+  one step program, the energy against float64 and against the
+  parameters built in, updateParametersInContext against a fresh
+  Context); and checkpoints (phase_checkpoint: a reloaded run, in the
+  same and in a second Context, gives the uninterrupted run's bits;
+  reinitialize keeps the state).
 
 It imports nothing of JAX or of openmm_tpu.
 
@@ -92,7 +108,10 @@ non-zero, naming the phase, when that is exceeded or any phase fails. Its
 last line is {"ok": true, "device": {...}} and nothing else; the line before
 it is the per-kernel JSON record (launches on the path that runs the
 kernel, times, bounds; kernel 1's reaction-field mode as
-"nonbonded_tiles_rf", at the rf water box's shapes).
+"nonbonded_tiles_rf", at the rf water box's shapes; its LJPME mode and
+kernels 2-3 on the dispersion grid as "nonbonded_tiles_ljpme",
+"pme_spread_dispersion" and "pme_gather_dispersion", at the LJPME
+bilayer's shapes).
 Without a CUDA device it exits non-zero before printing any result.
 """
 from __future__ import annotations
@@ -115,7 +134,7 @@ from openmm_tpu_torch.context import MAX_ESCALATIONS, STEP_CHUNK
 from openmm_tpu_torch.forces.nonbonded import NonbondedModule
 from openmm_tpu_torch.models import (builders, popc_bilayer,
                                      popc_obc_cluster, tip3p_water_box,
-                                     water_droplet)
+                                     tip4pew_water_box, water_droplet)
 from openmm_tpu_torch.ops import geometry as geom
 from openmm_tpu_torch.ops import pallas_pme, pme_zslab, tile_pairs
 from openmm_tpu_torch.ops import pme as pme_mod
@@ -147,8 +166,8 @@ DOUBLE_POS_TOL = 1e-9
 FORCE_ERR_BAR = 1e-5
 # minimization: LocalEnergyMinimizer calls of MINIMIZE_ITERATIONS
 # iterations each (per penalty stage), the deadline checked between calls
-MINIMIZE_CALLS = 2
-MINIMIZE_ITERATIONS = 25
+MINIMIZE_CALLS = 1
+MINIMIZE_ITERATIONS = 15
 MINIMIZE_TOLERANCE = 10.0       # kJ/mol/nm, the RMS gradient per particle
 # the POPC bilayer: the force group of each force (for the per-group
 # energies), its temperature, its steps before the production steps, its
@@ -158,7 +177,8 @@ BILAYER_GROUPS = {"NonbondedForce": 0, "HarmonicBondForce": 1,
                   "CMMotionRemover": 4}
 BILAYER_TEMPERATURE = 303.15
 BILAYER_STEPS = 300
-BILAYER_MINIMIZE_ITERATIONS = 25
+BILAYER_PRODUCTION = 100        # timed, then replayed through the eager loop
+BILAYER_MINIMIZE_ITERATIONS = 15
 GROUP_ENERGY_BAR = 1e-5
 CONSTRAINT_ERR_BAR = 1e-5
 # constant pressure: the barostats' settings (bar, bar nm, K), steps and
@@ -178,7 +198,7 @@ NPT_VOLUME_BAR = 0.03       # |V / V0 - 1| after the run
 # of NPT_TURN_STEPS steps (4 attempts), in the order NPT_TURNS, with the
 # card's SM clock and power read before and after
 NPT_TURN_STEPS = 100
-NPT_TURNS = ("nvt", "npt", "npt", "nvt") * 2
+NPT_TURNS = ("nvt", "npt", "npt", "nvt")
 # the other NonbondedForce methods: the reference suite's rf settings
 # (tools/bench_suite.py, dhfr_rf: CutoffPeriodic, 1.0 nm) on the relaxed
 # water box and the minimized bilayer, steps in all and replayed through
@@ -205,7 +225,7 @@ GBSA_GROUPS = {"NonbondedForce": 0, "GBSAOBCForce": 1,
                "PeriodicTorsionForce": 2, "CMMotionRemover": 3}
 GBSA_TEMPERATURE = 300.0
 GBSA_MINIMIZE_ITERATIONS = 25
-GBSA_STEPS = 300
+GBSA_STEPS = 200
 GBSA_RELAX_FRICTION = 10.0
 GBSA_REPLAY = 50
 # the other integrators on the relaxed water box (PME, kernels 1-3):
@@ -270,6 +290,41 @@ AMD_STEPS = 200
 AMD_EVERY = 25
 AMD_FRACTION = 0.2
 BILAYER_T_RANGE = (250.0, 360.0)
+# PR 15: the bilayer at LJPME (from the bilayer phase's minimized state;
+# the NonbondedForce's reciprocal space in a group of its own for the
+# energies by group), the TIP4P-Ew box relaxed from its lattice, then under
+# MTS with the reciprocal space slow; parameter offsets and
+# updateParametersInContext on the relaxed water box; checkpoints
+LJPME_RECIP_GROUP = 5
+LJPME_STEPS = 150
+LJPME_REPLAY = 30
+LJPME_MINIMIZE_ITERATIONS = 5
+# 0.3 ps after fresh velocities at 303.15 K on a minimized structure: half
+# the kinetic energy flows into the potential first (248.25 K in a chip
+# run of 150 steps), hence a lower bound below BILAYER_T_RANGE's
+LJPME_T_RANGE = (200.0, 360.0)
+LJPME_KERNELS = ("nonbonded_tiles", "pme_spread_dispersion",
+                 "pme_gather_dispersion")
+# kernel 1's MODE_LJPME (float32) against its plain version in float64 on
+# the same inputs: the median over atoms of the relative force error (the
+# force error bar of the float32 path), the largest error against the
+# largest force (kernel 1's tolerance against its float32 plain version)
+LJPME_F64_MEDIAN_BAR = 1e-5
+LJPME_F64_MAX_BAR = 1e-4
+TIP4PEW_WATERS = 8000
+TIP4PEW_RELAX = RELAX
+TIP4PEW_STEPS = 150
+TIP4PEW_REPLAY = 50
+SITE_BAR = 1e-6                 # nm: a site from its weighted parents
+MTS_TIP4PEW_DT = 0.004
+MTS_TIP4PEW_GROUPS = ((1, 1), (0, 2))
+MTS_TIP4PEW_STEPS = 100
+MTS_T_RANGE = (250.0, 360.0)
+OFFSET_WATERS = 64
+OFFSET_LAMBDAS = (1.0, 0.5, 0.0)
+OFFSET_CHUNK = 50
+OFFSET_BUILT_IN_BAR = 1e-6      # relative, against the parameters built in
+CHECKPOINT_STEPS = 100
 # what the bilayer phase prints of each force
 COUNTED = {"NonbondedForce": "getNumExceptions",
            "HarmonicBondForce": "getNumBonds",
@@ -278,6 +333,8 @@ COUNTED = {"NonbondedForce": "getNumExceptions",
            "CMMotionRemover": "getFrequency"}
 # clock cycles the card sleeps before each timed call (~1 ms at 1.98 GHz)
 SLEEP_CYCLES = 2_000_000
+# calls timed of a kernel's plain version (a reference, 1-105 ms a call)
+PLAIN_REPS = 5
 # peak rates of one H100 SXM (data sheet, dense): float32 outside the
 # tensor cores, and HBM bandwidth
 PEAK_FP32_FLOPS = 67e12
@@ -297,11 +354,15 @@ KERNELS = MAIN_PATH_KERNELS + (pallas_pme.FWD, pallas_pme.BWD)
 # rsqrtf/expf differ in the last ulps
 TOLERANCE = {"nonbonded_tiles": 1e-4, "pme_spread": 1e-5,
              "pme_gather": 1e-5, "spread_triple_fwd": 1e-5,
-             "spread_triple_bwd": 1e-5}
+             "spread_triple_bwd": 1e-5, "pme_spread_dispersion": 1e-5,
+             "pme_gather_dispersion": 1e-5}
 # kernels whose output must have the same bits on every call: the
 # fixed-point spreads, and the three that own each output (no atomics)
 DETERMINISTIC = ("nonbonded_tiles", "pme_spread", "pme_gather",
-                 "spread_triple_fwd", "spread_triple_bwd")
+                 "spread_triple_fwd", "spread_triple_bwd",
+                 "pme_spread_dispersion", "pme_gather_dispersion")
+DISPERSION_KERNELS = (pme_zslab.SPREAD_DISPERSION,
+                      pme_zslab.GATHER_DISPERSION)
 # the triclinic phase shears the box of edge L into a = (L, 0, 0),
 # b = (2L/7, L, 0), c = (-L/7, 2L/7, L), as tests/test_torch_triclinic.py
 SHEAR = ((0.0, 0.0, 0.0), (2.0 / 7.0, 0.0, 0.0), (-1.0 / 7.0, 2.0 / 7.0, 0.0))
@@ -413,8 +474,13 @@ def kernel_inputs(device, n_waters, sheared=False, system=None,
         "pos": posf.contiguous(), "charge": module.charge,
         "module": module, "box": box,
     }
-    if module.method != omm.NonbondedForce.PME:
+    if module.method not in (omm.NonbondedForce.PME,
+                             omm.NonbondedForce.LJPME):
         return inp
+    if module.ljpme:
+        inp["disp"] = {"c6": (2.0 * torch.sqrt(module.epsilon)
+                              * module.sigma ** 3).contiguous(),
+                       "grid": module.lj_grid}
     a, wy, wz = pme_mod.dense_weights(posf, module.charge,
                                       geom.box_inverse(box), module.grid,
                                       pme_zslab.ORDER)
@@ -431,13 +497,20 @@ def kernel_inputs(device, n_waters, sheared=False, system=None,
     return inp
 
 
-def potential_grid(inp) -> torch.Tensor:
-    """2*phi (nz, nx, ny), kernel 3's grid input, from the plain spread."""
-    pos, q, binv, grid = inp["pos"], inp["charge"], inp["binv"], inp["grid"]
+def potential_grid(inp, dispersion=False) -> torch.Tensor:
+    """2*phi (nz, nx, ny), kernel 3's grid input, from the plain spread
+    (of the dispersion grid's c6 weights when `dispersion`)."""
     m = inp["module"]
+    pos, binv = inp["pos"], inp["binv"]
+    if dispersion:
+        q, grid = inp["disp"]["c6"], inp["disp"]["grid"]
+        alpha, bsq = m.lj_alpha, (m.bsq_x_lj, m.bsq_y_lj, m.bsq_z_lj)
+    else:
+        q, grid = inp["charge"], inp["grid"]
+        alpha, bsq = m.alpha, (m.bsq_x, m.bsq_y, m.bsq_z)
     q_grid = pme_zslab.pme_spread_plain(pos, q, binv, grid)
-    phi, _ = pme_zslab.convolve_potential(
-        q_grid, inp["box"], grid, m.alpha, m.bsq_x, m.bsq_y, m.bsq_z)
+    phi, _ = pme_zslab.convolve_potential(q_grid, inp["box"], grid, alpha,
+                                          *bsq, dispersion=dispersion)
     return (2.0 * phi).contiguous()
 
 
@@ -468,6 +541,22 @@ def _kernel_calls(inp):
         "spread_triple_bwd": (
             lambda: pallas_pme.spread_triple_bwd(dq, *tr),
             lambda: pallas_pme.spread_triple_vjp_plain(dq, *tr)),
+    })
+    if "disp" not in inp:
+        return calls
+    c6, lj_grid = inp["disp"]["c6"], inp["disp"]["grid"]
+    phi2_lj = potential_grid(inp, dispersion=True)
+    calls.update({
+        "pme_spread_dispersion": (
+            lambda: pme_zslab.pme_spread(
+                pos, c6, binv, lj_grid, counter=pme_zslab.SPREAD_DISPERSION),
+            lambda: pme_zslab.pme_spread_plain(pos, c6, binv, lj_grid)),
+        "pme_gather_dispersion": (
+            lambda: pme_zslab.pme_gather(
+                pos, c6, phi2_lj, binv, lj_grid, order,
+                counter=pme_zslab.GATHER_DISPERSION),
+            lambda: pme_zslab.pme_gather_plain(pos, c6, phi2_lj, binv,
+                                               lj_grid)),
     })
     return calls
 
@@ -760,7 +849,8 @@ def _production(device, ctx, step, energy, steps, energy_every,
     energies, rebuilds, r0 = [energy], [], ctx.rebuild_count
     clock0 = ctx.getTime()
     boxes = []
-    launches = [k.launches for k in MAIN_PATH_KERNELS]
+    kernels = MAIN_PATH_KERNELS + DISPERSION_KERNELS
+    launches = [k.launches for k in kernels]
     issue0 = ctx.issue_seconds
     wall = cpu = 0.0
     done = 0
@@ -785,7 +875,8 @@ def _production(device, ctx, step, energy, steps, energy_every,
             "statistics": [t.clone() for b in ctx._barostats
                            for t in b.statistics()],
             "launches": {k.name: k.launches - b
-                         for k, b in zip(MAIN_PATH_KERNELS, launches)},
+                         for k, b in zip(kernels, launches)
+                         if k in MAIN_PATH_KERNELS or k.launches != b},
             "ns_day": simulated / wall * 86.4,
             "clock": ctx.getTime(),
             "state": [t.clone() for t in ctx._step_tensors()],
@@ -1045,7 +1136,7 @@ def phase_minimize(device, n_waters=N_WATERS, calls=MINIMIZE_CALLS,
 
 
 def phase_bilayer(device, deadline=None, bilayer=None,
-                  steps=BILAYER_STEPS, production=PRODUCTION_STEPS,
+                  steps=BILAYER_STEPS, production=BILAYER_PRODUCTION,
                   energy_every=ENERGY_EVERY,
                   minimize_iterations=BILAYER_MINIMIZE_ITERATIONS) -> dict:
     """The POPC bilayer (popc_bilayer(), or `bilayer` = (system,
@@ -1451,26 +1542,43 @@ def phase_npt_water(device, main, deadline=None, steps=NPT_WATER_STEPS,
     return tuple(runs)
 
 
-def _kernel_record(device, inp, name, launches, err) -> dict:
-    """The kernels line's entry of kernel 1 on `inp` (its mode's inputs):
-    launches from its path's run, times and bound measured here."""
-    kernel, plain = _kernel_calls(inp)["nonbonded_tiles"]
-    bound = tile_bound(inp, tile_counts(inp))
-    src = tile_pairs.TILES
-    return {"name": name, "route": "cuda", "source": src.source,
-            "replaces": src.replaces, "launches": launches,
+def _kernel_record(device, inp, name, launches, err,
+                   kern=tile_pairs.TILES) -> dict:
+    """The kernels line's entry of kernel `kern` (kernel 1 by default, or
+    a dispersion-grid kernel) on `inp` (its path's inputs), named `name`:
+    launches from its path's run, times and bound measured here; for the
+    dispersion spread, the library time of index_add_ of its terms."""
+    kernel, plain = _kernel_calls(inp)[kern.name]
+    bound = (tile_bound(inp, tile_counts(inp)) if kern is tile_pairs.TILES
+             else kernel_bounds(inp, None)[kern.name])
+    library = None
+    if kern is pme_zslab.SPREAD_DISPERSION:
+        grid = inp["disp"]["grid"]
+        flat, val = pme_zslab.spread_terms(inp["pos"], inp["disp"]["c6"],
+                                           inp["binv"], grid)
+        q_flat = torch.zeros(math.prod(grid), dtype=torch.float32,
+                             device=device)
+
+        def library():
+            return q_flat.zero_().index_add_(0, flat, val)
+    cuda = device.type == "cuda"
+    return {"name": name, "route": "cuda", "source": kern.source,
+            "replaces": kern.replaces, "launches": launches,
             "max_abs_err": err,
-            "ms": _time_ms(kernel, device) if device.type == "cuda"
-            else None,
-            "plain_ms": _time_ms(plain, device) if device.type == "cuda"
-            else None,
-            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
+            "ms": _time_ms(kernel, device) if cuda else None,
+            "plain_ms": (_time_ms(plain, device, PLAIN_REPS, 1) if cuda
+                         else None),
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": (_time_ms(library, device)
+                           if cuda and library else None)}
 
 
 def phase_method(device, label, system, positions, temperature, steps,
                  replay, t_range, deadline=None, velocities=None, seed=19,
                  energy_every=ENERGY_EVERY, step_size=DT_PS,
-                 friction=FRICTION, groups=None, record=None) -> dict:
+                 friction=FRICTION, groups=None, record=None,
+                 minimize_iterations=0, kernel_names=("nonbonded_tiles",),
+                 check=None, relax=()) -> dict:
     """`system` (any NonbondedForce method) on a Context of its own (the
     default platform on a GPU, "CPU" otherwise) from `positions`: where
     the force keeps a candidate state, kernel 1 in its mode against its
@@ -1484,6 +1592,12 @@ def phase_method(device, label, system, positions, temperature, steps,
     which must give the same bits, energies, rebuilds and launches;
     the constraint error and the temperature (within `t_range` K) at the
     end. `record`, a kernels-line name, times kernel 1 for that line.
+    kernel_names: the kernels held against their plain versions (those of
+    _kernel_calls). minimize_iterations > 0: one minimize call of that
+    many iterations before the velocities (kernels 1, 4 and 5 counted).
+    check(ctx), where given, runs after the steps (a gate of the caller).
+    relax: stages (step size, friction, steps) run after the velocities
+    and before the counted steps (a start from a lattice).
     Raises on a miss; returns what it printed."""
     deadline = deadline or Deadline(math.inf)
     platform = "CUDA" if device.type == "cuda" else "CPU"
@@ -1496,9 +1610,11 @@ def phase_method(device, label, system, positions, temperature, steps,
     scale = 1.0
     if out["tiled"]:
         inp = kernel_inputs(device, 0, system=system, positions=positions)
-        out["kernel_err"] = phase_kernels(
-            device, inp, deadline, names=("nonbonded_tiles",),
-            label=" (%s)" % label)["nonbonded_tiles"]
+        out["kernel_errs"] = phase_kernels(
+            device, inp, deadline, names=kernel_names,
+            label=" (%s)" % label)
+        out["kernel_err"] = out["kernel_errs"]["nonbonded_tiles"]
+        out["inputs"] = inp
         scale = inp["module"].capacity_scale
     oracle = omm.Context(system, omm.LangevinMiddleIntegrator(
         temperature, friction, step_size), platform, {"Precision": "double"})
@@ -1535,12 +1651,47 @@ def phase_method(device, label, system, positions, temperature, steps,
                                % (label, g, e32, e64))
     deadline.check(label + ": float64 oracle")
 
+    if minimize_iterations:
+        for kern in _build.KERNELS:
+            kern.launches = 0
+        ctx.applyConstraints()
+        before = ctx.getState(getEnergy=True).getPotentialEnergy()
+        reporter = _Iterations()
+        t0 = time.perf_counter()
+        omm.LocalEnergyMinimizer.minimize(ctx, MINIMIZE_TOLERANCE,
+                                          minimize_iterations, reporter)
+        _sync(device)
+        after = ctx.getState(getEnergy=True).getPotentialEnergy()
+        out["minimize"] = {
+            "iterations": reporter.count, "energies": (before, after),
+            "seconds": time.perf_counter() - t0,
+            "launches": {k.name: k.launches for k in MINIMIZER_KERNELS}}
+        print("%s: minimize (%d iterations a stage): %d iterations in %.2f "
+              "s; energy %.3f -> %.3f kJ/mol; launches %s" % (
+                  label, minimize_iterations, reporter.count,
+                  out["minimize"]["seconds"], before, after,
+                  json.dumps(out["minimize"]["launches"])))
+        if not (math.isfinite(after) and after < before):
+            raise RuntimeError("%s: minimization did not lower the energy"
+                               % label)
+        if device.type == "cuda" and min(
+                out["minimize"]["launches"].values()) <= 0:
+            raise RuntimeError("%s: a kernel of the minimizer never "
+                               "launched: %s" % (label, out["minimize"]))
+        deadline.check(label + ": minimization")
     if velocities is None:
         ctx.applyConstraints()
         ctx.setVelocitiesToTemperature(temperature, randomSeed=seed)
     else:
         ctx.setVelocities(velocities)
-    for kern in KERNELS:
+    for dt, gamma, count in relax:
+        integ.setStepSize(dt)
+        integ.setFriction(gamma)
+        integ.step(count)
+        deadline.check(label + ": relaxation")
+    integ.setStepSize(step_size)
+    integ.setFriction(friction)
+    for kern in _build.KERNELS:
         kern.launches = 0
     energy = ctx.getState(getEnergy=True).getPotentialEnergy()
     lead = _production(device, ctx, integ.step, energy, steps - replay,
@@ -1549,9 +1700,12 @@ def phase_method(device, label, system, positions, temperature, steps,
     graph = _production(device, ctx, integ.step,
                         lead["energies"][-1] if lead else energy, replay,
                         energy_every, deadline)
-    launches = {k.name: k.launches for k in KERNELS}
+    launches = {k.name: k.launches for k in _build.KERNELS if k.launches}
+    launches.setdefault(tile_pairs.TILES.name, 0)
     rebuilds, escalations = ctx.rebuild_count, ctx.escalation_count
     temperature_end = ctx.temperature()
+    if check is not None:
+        out["check"] = check(ctx)
     x = ctx.getState(getPositions=True).getPositions()
     constraint_err = _constraint_error(system, x)
     ctx._restore(start)
@@ -2432,6 +2586,397 @@ def phase_amd_bilayer(device, bilayer, deadline=None, steps=AMD_STEPS,
     return dict(r, threshold=threshold, alpha=alpha, v0=v0, **got)
 
 
+def _ljpme_float64_check(inp) -> dict:
+    """Kernel 1's MODE_LJPME (on the card, float32) against its plain
+    version in float64 on the same inputs (positions, parameters and
+    constants cast up): the median over atoms of the relative force
+    error and the largest error against the largest force. The direct
+    space's share 1 - e^-x (1 + x + x^2/2) cancels in float32 at small x
+    (ops/pairs.py:dispersion_complement), which this check bounds."""
+    pos4, par4, cand, count, words, consts = inp["tiles"]
+    got = tile_pairs.nonbonded_tiles(pos4, par4, cand, count, words,
+                                     consts, tile_pairs.MODE_LJPME, False)
+    want = tile_pairs.nonbonded_tiles_plain(
+        pos4.double(), par4.double(), cand, count, words, consts.double(),
+        tile_pairs.MODE_LJPME, False)
+    f, f64 = got[:, :3].double(), want[:, :3]
+    norm = torch.linalg.norm(f64, dim=1)
+    live = norm > 0
+    rel = torch.linalg.norm(f - f64, dim=1)[live] / norm[live]
+    return {"median": float(rel.median()),
+            "max": float((f - f64).abs().max() / f64.abs().max())}
+
+
+def phase_ljpme_bilayer(device, bilayer, deadline=None, steps=LJPME_STEPS,
+                        replay=LJPME_REPLAY,
+                        iterations=LJPME_MINIMIZE_ITERATIONS,
+                        t_range=LJPME_T_RANGE) -> dict:
+    """The bilayer phase's system at LJPME (0.9 nm, tolerance 5e-4), its
+    reciprocal space in group LJPME_RECIP_GROUP, from the bilayer phase's
+    minimized positions (phase_method): kernel 1 in MODE_LJPME and
+    kernels 2-3 on the dispersion grid against their plain versions, and
+    kernel 1 against its float64 plain version; each group's energy and
+    the float32 forces against a float64 Context; one minimize call
+    (kernels 1, 4 and 5); MD at BILAYER_TEMPERATURE through the step
+    program replayed through the eager loop for the same bits; the
+    kernels-line entries of the three. Restores the System's settings."""
+    system = bilayer["system"]
+    (nb,) = [f for f in system.getForces()
+             if isinstance(f, omm.NonbondedForce)]
+    try:
+        nb.setNonbondedMethod(omm.NonbondedForce.LJPME)
+        nb.setReciprocalSpaceForceGroup(LJPME_RECIP_GROUP)
+        groups = sorted(set(BILAYER_GROUPS.values()) | {LJPME_RECIP_GROUP})
+        out = phase_method(device, "ljpme bilayer", system,
+                           bilayer["minimized_positions"],
+                           BILAYER_TEMPERATURE, steps, replay,
+                           t_range, deadline, groups=groups,
+                           record="nonbonded_tiles_ljpme",
+                           minimize_iterations=iterations,
+                           kernel_names=LJPME_KERNELS)
+    finally:
+        nb.setNonbondedMethod(omm.NonbondedForce.PME)
+        nb.setReciprocalSpaceForceGroup(-1)
+    inp = out["inputs"]
+    if device.type == "cuda":
+        f64 = _ljpme_float64_check(inp)
+        print("ljpme bilayer: kernel 1 MODE_LJPME against its float64 plain "
+              "version: median relative force error %.3e (bar %.0e), "
+              "largest error %.3e of the largest force (bar %.0e)" % (
+                  f64["median"], LJPME_F64_MEDIAN_BAR, f64["max"],
+                  LJPME_F64_MAX_BAR))
+        if not (f64["median"] <= LJPME_F64_MEDIAN_BAR
+                and f64["max"] <= LJPME_F64_MAX_BAR):
+            raise RuntimeError("ljpme bilayer: kernel 1 MODE_LJPME misses "
+                               "its float64 plain version: %s" % f64)
+        out["float64"] = f64
+        for kern in DISPERSION_KERNELS:
+            if out["launches"].get(kern.name, 0) <= 0:
+                raise RuntimeError("ljpme bilayer: %s never launched on "
+                                   "its path: %s" % (kern.name,
+                                                     out["launches"]))
+        out["records"] = [out["record"]] + [
+            _kernel_record(device, inp, kern.name,
+                           out["launches"][kern.name],
+                           out["kernel_errs"][kern.name], kern=kern)
+            for kern in DISPERSION_KERNELS]
+    del out["inputs"]
+    return out
+
+
+def _site_error(ctx) -> float:
+    """Largest distance (nm) of a TIP4P-Ew M site from the weighted
+    average of its water's O, H1 and H2."""
+    w = ctx.getState(getPositions=True).getPositions().reshape(-1, 4, 3)
+    m = np.einsum("k,wkd->wd", builders.TIP4PEW_M_WEIGHTS, w[:, :3])
+    return float(np.linalg.norm(w[:, 3] - m, axis=1).max())
+
+
+def phase_tip4pew(device, deadline=None, n_waters=TIP4PEW_WATERS,
+                  steps=TIP4PEW_STEPS, replay=TIP4PEW_REPLAY,
+                  relax=TIP4PEW_RELAX) -> dict:
+    """`n_waters` TIP4P-Ew waters (tip4pew_water_box: four particles a
+    water, the M sites virtual; PME 0.9 nm, rigid) through phase_method:
+    kernels 1-3 against their plain versions, the float32 forces against
+    float64 at the lattice start, relaxed by `relax`, then LangevinMiddle
+    300 K, 1/ps, 2 fs through the step program replayed through the eager
+    loop for the same bits; every site within SITE_BAR nm of its weighted
+    parents at the end."""
+    system, positions = tip4pew_water_box(n_waters)
+    sites = {}
+
+    def check(ctx):
+        sites["err"] = _site_error(ctx)
+        sites["state"] = ctx.getState(getPositions=True, getVelocities=True)
+        if not sites["err"] <= SITE_BAR:
+            raise RuntimeError("tip4pew: a site lies %.3e nm from its "
+                               "parents' average" % sites["err"])
+        return sites["err"]
+
+    out = phase_method(device, "tip4pew water", system, positions, 300.0,
+                       steps, replay, (200.0, 450.0), deadline,
+                       kernel_names=MAIN_PATH_NAMES, check=check,
+                       relax=relax)
+    del out["inputs"]
+    print("tip4pew water: %d particles (%d sites); largest site error %.3e "
+          "nm (bar %.0e)" % (system.getNumParticles(), n_waters,
+                             sites["err"], SITE_BAR))
+    out.update(system=system, site_err=sites["err"],
+               final_state=sites["state"])
+    return out
+
+
+def phase_mts_tip4pew(device, tip4pew, deadline=None,
+                      steps=MTS_TIP4PEW_STEPS, replay=INTEGRATOR_REPLAY,
+                      t_range=MTS_T_RANGE) -> dict:
+    """The TIP4P-Ew box from the end of phase_tip4pew under
+    MTSLangevinIntegrator(300 K, 1/ps, MTS_TIP4PEW_DT, MTS_TIP4PEW_GROUPS)
+    with the NonbondedForce's reciprocal space in group 1, the rest in
+    group 0 (_integrator_run): the reciprocal space once an outer step
+    (kernels 2 and 3 `steps` + 1 times: the first step's start too),
+    the direct space twice (kernel 1 2 `steps` + 1 times), a chunk redone
+    after an escalation counted apart; the final temperature within
+    `t_range`; the eager loop's bits. Restores the reciprocal group."""
+    deadline = deadline or Deadline(math.inf)
+    system = tip4pew["system"]
+    (nb,) = system.getForces()
+    state = tip4pew["final_state"]
+    integ = omm.MTSLangevinIntegrator(300.0, FRICTION, MTS_TIP4PEW_DT,
+                                      MTS_TIP4PEW_GROUPS)
+    integ.setRandomNumberSeed(23)
+    nb.setReciprocalSpaceForceGroup(1)
+    try:
+        r = _integrator_run(device, "mts tip4pew", system, integ, state,
+                            steps, ENERGY_EVERY, lambda c: c.temperature(),
+                            deadline, replay, after=_site_error)
+    finally:
+        nb.setReciprocalSpaceForceGroup(-1)
+    temperature = r["readings"][-1]
+    want = {tile_pairs.TILES.name: 2 * steps + 1,
+            pme_zslab.SPREAD.name: steps + 1,
+            pme_zslab.GATHER.name: steps + 1}
+    redone = {k: r["launches"][k] - w for k, w in want.items()}
+    print("mts tip4pew: MTSLangevinIntegrator(300 K, %.1f/ps, %.3f ps, %s; "
+          "reciprocal space group 1, the rest group 0), %d steps: T %s K; "
+          "launches %s (wanted %s; redone after %d escalations %s); "
+          "largest site error %.3e nm; %.2f ns/day, %.4f ms a step, eager "
+          "%.4f ms; the eager loop's bits, variables and clock" % (
+              FRICTION, MTS_TIP4PEW_DT, list(MTS_TIP4PEW_GROUPS), steps,
+              " ".join("%.1f" % t for t in r["readings"]),
+              json.dumps(r["launches"]), json.dumps(want), r["escalations"],
+              json.dumps(redone), r["after"], r["ns_day"],
+              r["ms_per_step"], r["eager_ms_per_step"]))
+    if not t_range[0] <= temperature <= t_range[1]:
+        raise RuntimeError("mts tip4pew: temperature %.2f K" % temperature)
+    if not r["after"] <= SITE_BAR:
+        raise RuntimeError("mts tip4pew: site error %.3e nm" % r["after"])
+    if device.type == "cuda":
+        limit = (2 * STEP_CHUNK + 1) * r["escalations"]
+        for k, extra in redone.items():
+            if not (extra == 0 if r["escalations"] == 0
+                    else 0 <= extra <= limit):
+                raise RuntimeError("mts tip4pew: %s launched %d times in "
+                                   "%d steps (wanted %d)" % (
+                                       k, r["launches"][k], steps, want[k]))
+    del r["context"]
+    return dict(r, temperature=temperature, want=want, redone=redone)
+
+
+def _without_dispersion_correction(ctx, energy) -> float:
+    """`energy` of `ctx` less its NonbondedForce's dispersion correction
+    at its box: under offsets the correction takes the parameters at the
+    global parameters' defaults (as OpenMM and the JAX package take it),
+    a Context with the parameters built in takes them as they are."""
+    box = ctx.getState().getPeriodicBoxVectors()
+    return energy - float(ctx._nonbonded.disp_coeff) / float(
+        np.linalg.det(np.asarray(box)))
+
+
+def _decouple(nb, atoms):
+    """Charges and epsilons of `atoms` to 0, each brought back by a
+    particle offset of the global parameter "lambda" (default 1)."""
+    nb.addGlobalParameter("lambda", 1.0)
+    for i in atoms:
+        q, sigma, eps = nb.getParticleParameters(i)
+        nb.setParticleParameters(i, 0.0, sigma, 0.0)
+        nb.addParticleParameterOffset("lambda", i, q, 0.0, eps)
+
+
+def phase_offsets(device, main, deadline=None, waters=OFFSET_WATERS,
+                  lambdas=OFFSET_LAMBDAS, chunk=OFFSET_CHUNK) -> dict:
+    """The relaxed water box of phase_main_path (its final positions and
+    velocities) with a global parameter "lambda" whose particle offsets
+    take the first `waters` waters' charges and epsilons to 0 at lambda
+    0: `chunk` steps at each of `lambdas` set by setParameter through one
+    step program (no capture after the first), each main-path kernel
+    launched at least once a step by those steps alone (the counts are
+    zeroed before each step call and read after it); at each, the energy
+    against a float64 Context and against a Context with those
+    parameters built in; then updateParametersInContext on the next
+    `waters` waters' charges (halved): the energy of a fresh Context and
+    no new capture; the last chunk replayed through the eager loop for the
+    same bits. The comparison with the parameters built in leaves out the
+    dispersion correction (_without_dispersion_correction). Returns the
+    Context (phase_checkpoint goes on with it)."""
+    deadline = deadline or Deadline(math.inf)
+    platform = "CUDA" if device.type == "cuda" else "CPU"
+    st = main["context"].getState(getPositions=True, getVelocities=True)
+    n_waters = st.getPositions().shape[0] // 3
+    system, _ = tip3p_water_box(n_waters)
+    (nb,) = system.getForces()
+    _decouple(nb, range(3 * waters))
+    built, _ = tip3p_water_box(n_waters)
+    (nb_built,) = built.getForces()
+    integ = omm.LangevinMiddleIntegrator(300.0, FRICTION, DT_PS)
+    integ.setRandomNumberSeed(29)
+    ctx = (omm.Context(system, integ) if platform == "CUDA"
+           else omm.Context(system, integ, platform))
+    ctx.setPositions(st.getPositions())
+    ctx.setVelocities(st.getVelocities())
+    oracle = omm.Context(system, omm.LangevinMiddleIntegrator(
+        300.0, FRICTION, DT_PS), platform, {"Precision": "double"})
+    launches = dict.fromkeys(MAIN_PATH_NAMES, 0)
+    rows, captures = [], []
+    for lam in lambdas:
+        ctx.setParameter("lambda", lam)
+        for kern in _build.KERNELS:
+            kern.launches = 0
+        integ.step(chunk)
+        for kern in MAIN_PATH_KERNELS:
+            launches[kern.name] += kern.launches
+        captures.append(_captures(ctx))
+        pos = ctx.getState(getPositions=True).getPositions()
+        e32 = ctx.getState(getEnergy=True).getPotentialEnergy()
+        oracle.setPositions(pos)
+        oracle.setParameter("lambda", lam)
+        e64 = oracle.getState(getEnergy=True).getPotentialEnergy()
+        for i in range(3 * waters):
+            q, sigma, eps = nb_built.getParticleParameters(i)
+            _, _, q1, _, e1 = nb.getParticleParameterOffset(i)
+            nb_built.setParticleParameters(i, lam * q1, sigma, lam * e1)
+        twin = (omm.Context(built, omm.LangevinMiddleIntegrator(
+            300.0, FRICTION, DT_PS)) if platform == "CUDA"
+            else omm.Context(built, omm.LangevinMiddleIntegrator(
+                300.0, FRICTION, DT_PS), platform))
+        twin.setPositions(pos)
+        e_built = _without_dispersion_correction(
+            twin, twin.getState(getEnergy=True).getPotentialEnergy())
+        del twin
+        rows.append((lam, e32, e64, _without_dispersion_correction(ctx, e32),
+                     e_built))
+        deadline.check("offsets: lambda %.2f" % lam)
+    for i in range(3 * waters, 6 * waters):
+        q, sigma, eps = nb.getParticleParameters(i)
+        nb.setParticleParameters(i, 0.5 * q, sigma, eps)
+    nb.updateParametersInContext(ctx)
+    start = ctx._snapshot()
+    graph = _production(device, ctx, integ.step, 0.0, chunk, chunk,
+                        deadline)
+    after_update = _captures(ctx)
+    ctx._restore(start)
+    eager = _production(device, ctx, ctx._step_eager, 0.0, chunk, chunk,
+                        deadline)
+    _same_bits("offsets", (graph["positions"], graph["velocities"]),
+               (eager["positions"], eager["velocities"]))
+    _same_state("offsets", graph, eager)
+    e_now = ctx.getState(getEnergy=True).getPotentialEnergy()
+    fresh = (omm.Context(system, omm.LangevinMiddleIntegrator(
+        300.0, FRICTION, DT_PS)) if platform == "CUDA"
+        else omm.Context(system, omm.LangevinMiddleIntegrator(
+            300.0, FRICTION, DT_PS), platform))
+    fresh.setPositions(ctx.getState(getPositions=True).getPositions())
+    fresh.setParameter("lambda", lambdas[-1])
+    e_fresh = fresh.getState(getEnergy=True).getPotentialEnergy()
+    del fresh, oracle
+    print("offsets: %d waters decoupled by lambda; %s; programs captured "
+          "after each chunk %s, after updateParametersInContext on %d "
+          "other waters %d; energy %.6f, a fresh Context's %.6f kJ/mol; %d "
+          "steps replayed through the eager loop: the same bits; launches "
+          "%s" % (waters, "; ".join(
+              "lambda %.2f: %.6f (float64 %.6f; less the dispersion "
+              "correction %.6f, with the parameters built in %.6f)" % r
+              for r in rows), captures, waters, after_update, e_now,
+              e_fresh, chunk, json.dumps(launches)))
+    for lam, e32, e64, e_direct, e_built in rows:
+        if not abs(e32 - e64) <= GROUP_ENERGY_BAR * abs(e64):
+            raise RuntimeError("offsets: at lambda %.2f the energy %.6f, "
+                               "float64 %.6f" % (lam, e32, e64))
+        if not abs(e_direct - e_built) <= OFFSET_BUILT_IN_BAR * abs(
+                e_built):
+            raise RuntimeError("offsets: at lambda %.2f the energy less "
+                               "its dispersion correction %.6f, built in "
+                               "%.6f" % (lam, e_direct, e_built))
+    if not abs(e_now - e_fresh) <= OFFSET_BUILT_IN_BAR * abs(e_fresh):
+        raise RuntimeError("offsets: after the update %.6f, a fresh "
+                           "Context %.6f" % (e_now, e_fresh))
+    if abs(rows[0][1] - rows[-1][1]) <= 1.0:
+        raise RuntimeError("offsets: lambda moved the energy by less than "
+                           "1 kJ/mol")
+    if device.type == "cuda":
+        if len(set(captures + [after_update])) != 1 or captures[0] != 1:
+            raise RuntimeError("offsets: programs captured %s, %d after "
+                               "the update (one wanted)"
+                               % (captures, after_update))
+        steps = chunk * len(lambdas)
+        if min(launches.values()) < steps:
+            raise RuntimeError("offsets: in %d steps a kernel launched "
+                               "fewer times than once a step: %s"
+                               % (steps, launches))
+    deadline.check("offsets")
+    return {"rows": rows, "captures": captures, "context": ctx,
+            "system": system, "update": (e_now, e_fresh),
+            "ms_per_step": graph["wall_ms_per_step"],
+            "ns_day": graph["ns_day"]}
+
+
+def phase_checkpoint(device, offsets, deadline=None,
+                     steps=CHECKPOINT_STEPS) -> dict:
+    """On the Context phase_offsets leaves: createCheckpoint, `steps`
+    steps, loadCheckpoint, the same steps again: the same bits
+    (positions, velocities, clock, step count, the Context's shared
+    tensors); the checkpoint in a second Context of the same System, the
+    same steps: the same bits again; reinitialize(preserveState=True)
+    keeps the state."""
+    deadline = deadline or Deadline(math.inf)
+    ctx, system = offsets["context"], offsets["system"]
+    integ = ctx.getIntegrator()
+
+    def bits(c):
+        st = c.getState(getPositions=True, getVelocities=True,
+                        getParameters=True)
+        return {"positions": st.getPositions(),
+                "velocities": st.getVelocities(), "time": c.getTime(),
+                "step": c.getStepCount(), "parameters": st.getParameters(),
+                "shared": [t.cpu().clone() for t in c._step_tensors()]}
+
+    def same(what, a, b):
+        for key in ("positions", "velocities"):
+            if not np.array_equal(a[key], b[key]):
+                raise RuntimeError("checkpoint: %s: %s differ by up to "
+                                   "%.3e" % (what, key,
+                                             np.abs(a[key] - b[key]).max()))
+        for key in ("time", "step", "parameters"):
+            if a[key] != b[key]:
+                raise RuntimeError("checkpoint: %s: %s %r against %r"
+                                   % (what, key, a[key], b[key]))
+        if not all(torch.equal(x, y) for x, y in zip(a["shared"],
+                                                     b["shared"])):
+            raise RuntimeError("checkpoint: %s: a shared tensor differs"
+                               % what)
+
+    t0 = time.perf_counter()
+    checkpoint = ctx.createCheckpoint()
+    create_s = time.perf_counter() - t0
+    integ.step(steps)
+    want = bits(ctx)
+    t0 = time.perf_counter()
+    ctx.loadCheckpoint(checkpoint)
+    load_s = time.perf_counter() - t0
+    integ.step(steps)
+    same("reloaded", bits(ctx), want)
+    deadline.check("checkpoint: reload")
+    twin_integ = omm.LangevinMiddleIntegrator(300.0, FRICTION, DT_PS)
+    twin = (omm.Context(system, twin_integ) if device.type == "cuda"
+            else omm.Context(system, twin_integ, "CPU"))
+    twin.loadCheckpoint(checkpoint)
+    twin_integ.step(steps)
+    same("a second Context", bits(twin), want)
+    del twin
+    deadline.check("checkpoint: second Context")
+    before = bits(ctx)
+    ctx.reinitialize(preserveState=True)
+    same("reinitialize(preserveState=True)", bits(ctx), before)
+    print("checkpoint: %.1f MB, created in %.3f s, loaded in %.3f s; %d "
+          "steps after loading it, in the same Context and in a second "
+          "one, give the uninterrupted run's bits (positions, velocities, "
+          "clock, step count, shared tensors); reinitialize(preserveState"
+          "=True) keeps the state" % (len(checkpoint) / 1e6, create_s,
+                                      load_s, steps))
+    deadline.check("checkpoint")
+    return {"bytes": len(checkpoint), "create_s": create_s,
+            "load_s": load_s}
+
+
 def _time_ms(fn, device, reps=20, warmup=3) -> float:
     """Median milliseconds per call over `reps` calls timed one by one
     with CUDA events, after `warmup` calls. Each call is queued behind a
@@ -2476,6 +3021,10 @@ def _stages_ms(fn, device, reps=20) -> list:
 # its force (qq, then 4 each: 9) in place of the Ewald terms
 OPS_PER_PAIR = 80.0
 OPS_PER_PAIR_RF = 60.0
+# in MODE_LJPME, per pair besides OPS_PER_PAIR: x = alpha_LJ^2 r^2 (1),
+# e^-x (4), the complement's polynomial (5), g and h (6), its coefficient,
+# energy and force (8), the two shifts (9)
+OPS_PER_PAIR_LJPME = OPS_PER_PAIR + 33.0
 # kernels 2-3, per atom and axis: fractional coordinate, base and the
 # order-5 weights by recursion (55), with their derivatives (60)
 OPS_WEIGHTS, OPS_WEIGHTS_DW = 55.0, 60.0
@@ -2526,8 +3075,10 @@ def tile_bound(inp, tile_counts) -> tuple:
     atoms; from `tile_counts`, count_tile_pairs of the same inputs), for
     the mode of the inputs' module."""
     pos4, par4, cand, count, words, consts = inp["tiles"]
-    per_pair = (OPS_PER_PAIR if inp["module"].mode == tile_pairs.MODE_EWALD
-                else OPS_PER_PAIR_RF)
+    per_pair = {tile_pairs.MODE_EWALD: OPS_PER_PAIR,
+                tile_pairs.MODE_RF: OPS_PER_PAIR_RF,
+                tile_pairs.MODE_LJPME: OPS_PER_PAIR_LJPME}[
+                    inp["module"].mode]
     tiles_in = sum(t.numel() * t.element_size()
                    for t in (pos4, par4, cand, count, words, consts))
     tiles_out = 4 * pos4.numel()              # (n_pad, 4) float32: f, e
@@ -2545,7 +3096,13 @@ def kernel_bounds(inp, tile_counts) -> dict:
     nx, ny, nz = inp["grid"]
     g = nx * ny * nz
     t_ops = triple_ops(*inp["triple"])
+    g_lj = math.prod(inp["disp"]["grid"]) if "disp" in inp else 0
     work = {
+        # kernels 2-3 on the dispersion grid: as below, c6 for the charges
+        "pme_spread_dispersion": (4 * (4 * n + 9 + g_lj),
+                                  n * (3 * OPS_WEIGHTS + OPS_SPREAD)),
+        "pme_gather_dispersion": (4 * (4 * n + 9 + g_lj + 3 * n),
+                                  n * (3 * OPS_WEIGHTS_DW + OPS_GATHER)),
         # in: positions (3 n), charges (n), binv; out: the grid
         "pme_spread": (4 * (4 * n + 9 + g),
                        n * (3 * OPS_WEIGHTS + OPS_SPREAD)),
@@ -2558,7 +3115,8 @@ def kernel_bounds(inp, tile_counts) -> dict:
         # in: dQ, a, wy, wz; out: dA, dWy, dWz
         "spread_triple_bwd": (4 * (g + 2 * n * (nx + ny + nz)), t_ops[1]),
     }
-    out = {"nonbonded_tiles": tile_bound(inp, tile_counts)}
+    out = ({} if tile_counts is None
+           else {"nonbonded_tiles": tile_bound(inp, tile_counts)})
     for name, (nbytes, flops) in work.items():
         out[name] = _bound(nbytes, flops)
     return out
@@ -2616,7 +3174,7 @@ def phase_timing(device, inp, counts, launches, errors, deadline) -> list:
             "replaces": kern.replaces, "launches": launches[kern.name],
             "max_abs_err": errors[kern.name],
             "ms": _time_ms(kernel, device),
-            "plain_ms": _time_ms(plain, device),
+            "plain_ms": _time_ms(plain, device, PLAIN_REPS, 1),
             "bound_ms": bounds[kern.name][0],
             "bound_by": bounds[kern.name][1],
             "library_ms": _time_ms(lib, device) if lib else None,
@@ -2630,6 +3188,16 @@ def main() -> int:
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is "
                            "visible to torch")
     deadline = Deadline(BUDGET_S)
+    try:
+        return _main(deadline)
+    except BaseException:
+        print("seconds by phase before the failure: %s; %.1f s in all" % (
+            ", ".join("%s %.1f" % lap for lap in deadline.laps),
+            deadline.elapsed()))
+        raise
+
+
+def _main(deadline) -> int:
     set_fp32_matmul_exact()
     device = torch.device("cuda", 0)
     info = phase_device(device)
@@ -2672,7 +3240,11 @@ def main() -> int:
     deadline.lap("variable")
     compound = phase_compound(device, result, deadline)
     deadline.lap("compound")
-    del result
+    offsets = phase_offsets(device, result, deadline)
+    deadline.lap("offsets")
+    checkpoint = phase_checkpoint(device, offsets, deadline)
+    deadline.lap("checkpoint")
+    del result, offsets["context"]
     minimized = phase_minimize(device, deadline=deadline)
     if min(minimized["launches"].values()) <= 0:
         raise RuntimeError("a kernel of the minimizer path never launched: "
@@ -2687,6 +3259,8 @@ def main() -> int:
     deadline.lap("mts")
     amd = phase_amd_bilayer(device, bilayer, deadline)
     deadline.lap("amd")
+    ljpme = phase_ljpme_bilayer(device, bilayer, deadline)
+    deadline.lap("ljpme bilayer")
     npt = phase_npt_bilayer(device, bilayer, deadline)
     deadline.lap("npt bilayer")
     rf_bilayer = phase_rf_bilayer(device, bilayer["minimized_positions"],
@@ -2698,9 +3272,15 @@ def main() -> int:
     deadline.lap("ewald")
     gbsa = phase_gbsa(device, deadline)
     deadline.lap("gbsa")
+    tip4pew = phase_tip4pew(device, deadline)
+    deadline.lap("tip4pew")
+    mts_tip4pew = phase_mts_tip4pew(device, tip4pew, deadline)
+    deadline.lap("mts tip4pew")
+    del tip4pew["system"], tip4pew["final_state"]
     counts = tile_counts(inp)
     records = phase_timing(device, inp, counts, launches, errors, deadline)
     records.append(rf_water["record"])
+    records += ljpme["records"]
     deadline.lap("timing")
     print("main path: %.2f ns/day on %s (%s), %d steps of %.3f ps, "
           "through the step program (gating %s)" % (
@@ -2709,7 +3289,7 @@ def main() -> int:
     print("bilayer: %.2f ns/day on %s (%s), %d atoms, %d steps of %.3f ps "
           "through the step program" % (
               bilayer_ns_day, info["name"], info["smi"],
-              rf_bilayer["atoms"], PRODUCTION_STEPS, DT_PS))
+              rf_bilayer["atoms"], BILAYER_PRODUCTION, DT_PS))
     print("npt bilayer: %.2f ns/day (NVT %.2f); in turns %.4f ms a step "
           "(NVT %.4f) on %s (%s), %d attempts, %d accepted, volume x %.6f; "
           "npt water %.2f ns/day, aniso %.2f ns/day" % (
@@ -2773,6 +3353,32 @@ def main() -> int:
               info["name"], info["smi"], mts["ns_day"], mts["ms_per_step"],
               bilayer_ms, mts["tiles"], MTS_STEPS, amd["ns_day"],
               amd["ms_per_step"], amd["effective"], amd["total"]))
+    print("ljpme bilayer (LJPME 0.9 nm) on %s (%s): %.2f ns/day, %.4f ms "
+          "a step (PME %.4f); median force error %.3e; kernel 1 MODE_LJPME "
+          "%.4f ms a call (bound %.5f), dispersion spread %.4f, gather "
+          "%.4f ms" % (
+              info["name"], info["smi"], ljpme["ns_day"],
+              ljpme["ms_per_step"], bilayer_ms, ljpme["force_err"],
+              ljpme["records"][0]["ms"], ljpme["records"][0]["bound_ms"],
+              ljpme["records"][1]["ms"], ljpme["records"][2]["ms"]))
+    print("tip4pew water (%d particles, PME 0.9 nm) on %s (%s): %.2f "
+          "ns/day, %.4f ms a step (eager %.4f); force error %.3e; site "
+          "error %.3e nm; MTS (4 fs, reciprocal space slow) %.2f ns/day, "
+          "%.4f ms a step, launches %s" % (
+              4 * TIP4PEW_WATERS, info["name"], info["smi"],
+              tip4pew["ns_day"], tip4pew["ms_per_step"],
+              tip4pew["eager"]["wall_ms_per_step"], tip4pew["force_err"],
+              tip4pew["site_err"], mts_tip4pew["ns_day"],
+              mts_tip4pew["ms_per_step"],
+              json.dumps(mts_tip4pew["launches"])))
+    print("offsets and checkpoints on the water box: %s; update %.6f vs a "
+          "fresh Context %.6f kJ/mol; %.2f ns/day with offsets (%.4f ms a "
+          "step); checkpoint %.1f MB" % (
+              "; ".join("lambda %.2f %.6f (float64 %.6f; less the "
+                        "dispersion correction %.6f, built in %.6f)" % r
+                        for r in offsets["rows"]), *offsets["update"],
+              offsets["ns_day"], offsets["ms_per_step"],
+              checkpoint["bytes"] / 1e6))
     print("seconds by phase: %s" % ", ".join(
         "%s %.1f" % lap for lap in deadline.laps))
     print("total %.1f s of the %.0f s budget" % (deadline.elapsed(),

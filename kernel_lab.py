@@ -14,7 +14,8 @@ checkout given, in the order given, each in a process of its own that
 imports that checkout's chip_smoke.py and package: give a parent checkout
 and this one in turns (parent, this, this, parent) to compare two commits
 on one card. --variants builds copies of kernels 1, 3 and 5 (those whose
-name starts with PREFIX, e.g. "gather") with the source edits of VARIANTS
+name starts with PREFIX, e.g. "gather"; "ljpme" for kernel 1's MODE_LJPME
+on the water box at LJPME) with the source edits of VARIANTS
 (one nvcc process for each distinct source, all started together) under
 build/kernel_lab/, launches kernel 3's copies in the main path's order
 unless the variant says otherwise, holds each against the plain version
@@ -43,8 +44,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(REPO, "openmm_tpu_torch", "csrc")
 OUT = os.path.join(REPO, "build", "kernel_lab")
 
-_FLUSH = ("        add_pair(pr, qi, par[qj[lane]], qd[lane], &fx, &fy, &fz, "
-          "&e);\n")
+_FLUSH = ("        add_pair<Ljpme>(pr, qi, par[qj[lane]], qd[lane], &fx, &fy, "
+          "&fz, &e);\n")
 _BOUNDS = ("__global__ void __launch_bounds__(32 * kWarps)\n"
            "nonbonded_tiles_kernel")
 _LOAD = "v[q][u] = live[u] && q0 + q < m ? col[o + 32 * u] : 0.0f;"
@@ -63,6 +64,8 @@ VARIANTS = {
         (_BOUNDS, _BOUNDS.replace("kWarps)", "kWarps, 5)"))]),
     "tiles, 16 warps a block": ("nonbonded_tiles.cu", [
         ("constexpr int kWarps = 8; ", "constexpr int kWarps = 16; ")]),
+    # kernel 1 in MODE_LJPME (the water box at LJPME)
+    "ljpme": ("nonbonded_tiles.cu", []),
     "vjp": ("spread_triple.cu", []),
     "vjp, loads past L1": ("spread_triple.cu", [
         (_LOAD, _LOAD.replace("col[o + 32 * u]", "__ldcg(col + o + 32 * u)"))]),
@@ -197,7 +200,6 @@ def run_variants(prefix="") -> list:
                 getattr(lib, fn).argtypes = argtypes
         libs[name] = lib
     inp = cs.kernel_inputs(dev, cs.N_WATERS)
-    pos4, par4, cand, count, words, consts = inp["tiles"]
     switch = int(inp["module"].use_switch)
     a, wy, wz = inp["triple"]
     dq = inp["dq"]
@@ -206,8 +208,20 @@ def run_variants(prefix="") -> list:
     pos, q, binv, order = inp["pos"], inp["charge"], inp["binv"], inp["order"]
     phi2 = cs.potential_grid(inp)
     gather = pme_zslab.pme_gather(pos, q, phi2, binv, inp["grid"], order)
+    ljpme = None
+    if any(name.startswith("ljpme") for name in libs):
+        from openmm_tpu_torch.forces.nonbonded import NonbondedForce
+        system, positions = cs.water_box(cs.N_WATERS)
+        system.getForces()[0].setNonbondedMethod(NonbondedForce.LJPME)
+        ljpme = cs.kernel_inputs(dev, 0, system=system, positions=positions)
     want = {"nonbonded_tiles.cu": tile_pairs.nonbonded_tiles_plain(
                 *inp["tiles"], tile_pairs.MODE_EWALD, switch),
+            # MODE_LJPME against its plain version in float64
+            "ljpme": None if ljpme is None
+            else tile_pairs.nonbonded_tiles_plain(
+                *(t.double() if t.is_floating_point() else t
+                  for t in ljpme["tiles"]), tile_pairs.MODE_LJPME,
+                0).float(),
             "pme_gather.cu": pme_zslab.pme_gather_plain(pos, q, phi2, binv,
                                                         inp["grid"]),
             "spread_triple.cu": pallas_pme.spread_triple_vjp_plain(
@@ -223,13 +237,14 @@ def run_variants(prefix="") -> list:
                 binv.data_ptr(), visit, pos.shape[0], nx, ny, nz,
                 out.data_ptr(), stream)), lambda: out
         if VARIANTS[name][0] == "nonbonded_tiles.cu":
-            out = torch.empty_like(pos4)
-            bounds = torch.empty((count.shape[0], 2, 4), device=dev)
+            lj = name.startswith("ljpme")
+            t = ljpme["tiles"] if lj else inp["tiles"]
+            mode = tile_pairs.MODE_LJPME if lj else tile_pairs.MODE_EWALD
+            out = torch.empty_like(t[0])
+            bounds = torch.empty((t[3].shape[0], 2, 4), device=dev)
             return (lambda: lib.omm_nonbonded_tiles(
-                pos4.data_ptr(), par4.data_ptr(), cand.data_ptr(),
-                count.data_ptr(), words.data_ptr(), consts.data_ptr(),
-                count.shape[0], cand.shape[1], words.shape[1],
-                tile_pairs.MODE_EWALD, switch, bounds.data_ptr(),
+                *(x.data_ptr() for x in t), t[3].shape[0], t[2].shape[1],
+                t[4].shape[1], mode, 0 if lj else switch, bounds.data_ptr(),
                 out.data_ptr(), stream)), lambda: out
         outs = tuple(torch.empty_like(t) for t in (a, wy, wz))
         entries = torch.empty((n, nx + ny + nz, 2), dtype=torch.int32,
@@ -249,9 +264,9 @@ def run_variants(prefix="") -> list:
             if code:
                 raise RuntimeError("variant %r: CUDA error %d at launch"
                                    % (name, code))
+            key = "ljpme" if name.startswith("ljpme") else VARIANTS[name][0]
             row = {"variant": name, "turn": turn,
-                   "rel_err": cs._compare(result(),
-                                          want[VARIANTS[name][0]])[2]}
+                   "rel_err": cs._compare(result(), want[key])[2]}
             if VARIANTS[name][0] == "pme_gather.cu":
                 # bits against kernel 3
                 row["same_bits"] = torch.equal(result(), gather)

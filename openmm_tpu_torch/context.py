@@ -19,8 +19,9 @@ reference that the tests and chip_smoke.py hold the program to.
 _make_position_energy_fn is the minimizer's objective (energy and forces
 by autograd at given positions).
 
-A System may hold at most one NonbondedForce (any method but LJPME:
-forces/nonbonded.py), GBSAOBCForces (forces/gbsa.py), any of the bonded
+A System may hold at most one NonbondedForce (any method, with global
+parameters and offsets: forces/nonbonded.py), GBSAOBCForces
+(forces/gbsa.py), any of the bonded
 forces (forces/bonded.py), CMMotionRemovers, Monte Carlo barostats
 (forces/barostats.py) and Andersen thermostats (forces/thermostats.py):
 the last three are update hooks that the integrator runs at the top of
@@ -30,7 +31,19 @@ integrator's integration force groups only. Constraints split into
 SETTLE water triangles, SHAKE-H star clusters and the rest (CCMA),
 applied in that order (ops/constraints.py). A particle of mass 0 is
 fixed: the integrators never move it, it has no kinetic energy and no
-degrees of freedom, and no constraint may hold it.
+degrees of freedom, and no constraint may hold it. A virtual site
+(System.setVirtualSite) must be massless: its position is computed from
+its parents (ops/vsites.py) in setPositions, applyConstraints,
+computeVirtualSites, after a barostat's move and after each position
+update of every integrator (StepDeps.compute_vsites), and each force
+evaluation spreads its force onto its parents; a site belongs to its
+parents' molecule.
+
+updateParametersInContext writes a force's new parameters into the
+modules' device buffers in place (no step program is captured again) and
+drops the candidate state, whose parameters it baked. createCheckpoint
+holds what a snapshot holds, as the bytes of an npz archive (no pickle),
+so that loadCheckpoint continues bit for bit.
 
 The box is one float64 device tensor (3, 3), written in place
 (setPeriodicBoxVectors, a barostat's accepted move), that the Context and
@@ -52,6 +65,7 @@ parameters (_step_tensors).
 """
 from __future__ import annotations
 
+import io
 import time
 
 import numpy as np
@@ -68,6 +82,7 @@ from .integrators.base import StepDeps
 from .ops.constraints import (CCMA, Settle, Shake, partition_constraints,
                               partition_shake_clusters)
 from .ops.pairs import needs_rebuild
+from .ops.vsites import VirtualSites
 from .platform import Platform, set_fp32_matmul_exact
 from .state import State
 from .step_program import StepProgram, branch_host, loop_host
@@ -75,6 +90,7 @@ from .system import reduced_box
 
 STEP_CHUNK = 100
 MAX_ESCALATIONS = 6
+CHECKPOINT_MAGIC = "OMMTORCH1"
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -121,6 +137,7 @@ class Context:
             platform = Platform.getDefaultPlatform()
         elif isinstance(platform, str):
             platform = Platform.getPlatformByName(platform)
+        self._platform, self._properties = platform, properties
         self._device, self._precision = platform.resolve(properties)
         self._system = system
         self._integrator = integrator
@@ -132,6 +149,10 @@ class Context:
         masses = np.asarray([system.getParticleMass(i) for i in range(n)])
         if np.any(masses < 0):
             raise ValueError("a particle's mass must not be negative")
+        for index in system._vsites:
+            if masses[index] != 0.0:
+                raise ValueError("Virtual site at index %d must have mass 0"
+                                 % index)
         constraints = [system.getConstraintParameters(i)
                        for i in range(system.getNumConstraints())]
         for p1, p2, _ in constraints:
@@ -154,6 +175,12 @@ class Context:
         nonbonded = [f for f in forces if isinstance(f, NonbondedForce)]
         if len(nonbonded) > 1:
             raise NotImplementedError("more than one NonbondedForce")
+        f64 = dict(dtype=torch.float64, device=self._device)
+        defaults = {}
+        for force in forces:
+            defaults.update(force._global_defaults())
+        self._gp_index = {name: i for i, name in enumerate(defaults)}
+        self._gp = torch.as_tensor(list(defaults.values()), **f64)
         self._nonbonded = None
         if nonbonded:
             if nonbonded[0].getNumParticles() != n:
@@ -161,15 +188,24 @@ class Context:
                                  "of particles as the System")
             self._nonbonded = NonbondedModule(
                 nonbonded[0], system.getDefaultPeriodicBoxVectors(),
-                self._device, self._precision)
+                self._device, self._precision, self._gp, self._gp_index)
         # the module whose direct space keeps a candidate state (None when
-        # every pair is computed: no rebuild, no overflow)
+        # every pair is computed, or there is no direct space: no rebuild,
+        # no overflow)
         self._candidates = (self._nonbonded if self._nonbonded is not None
-                            and self._nonbonded.periodic else None)
+                            and self._nonbonded.periodic
+                            and self._nonbonded.has_direct else None)
+        gb_forces = [f for f in forces if isinstance(f, GBSAOBCForce)]
+        bonded_forces = [f for f in forces if isinstance(f, BONDED_FORCES)]
         self._gb = [f._compile(n, self._device, self._precision)
-                    for f in forces if isinstance(f, GBSAOBCForce)]
-        self._bonded = [f._compile(n, self._device) for f in forces
-                        if isinstance(f, BONDED_FORCES)]
+                    for f in gb_forces]
+        self._bonded = [f._compile(n, self._device) for f in bonded_forces]
+        # each force's compiled module, for updateParametersInContext
+        self._modules = dict(zip(
+            map(id, nonbonded + gb_forces + bonded_forces),
+            [self._nonbonded] * len(nonbonded) + self._gb + self._bonded))
+        self._vsites = (VirtualSites(system, self._device)
+                        if system._vsites else None)
         self._has_cm_remover = any(isinstance(f, CMMotionRemover)
                                    for f in forces)
 
@@ -188,7 +224,6 @@ class Context:
         self.constraint_split = (len(clusters), len(shake_clusters),
                                  len(ccma_cons))
 
-        f64 = dict(dtype=torch.float64, device=self._device)
         self._masses = torch.as_tensor(masses, **f64)
         self._inv_masses = torch.as_tensor(
             np.where(masses == 0, 0.0, 1.0 / np.where(masses == 0, 1.0,
@@ -198,11 +233,6 @@ class Context:
         self._clusters = torch.as_tensor(
             _first_members(n, [c[:2] for c in constraints]),
             device=self._device)
-        defaults = {}
-        for force in forces:
-            defaults.update(force._global_defaults())
-        self._gp_index = {name: i for i, name in enumerate(defaults)}
-        self._gp = torch.as_tensor(list(defaults.values()), **f64)
         self._molecule_id, self._n_molecules = self._detect_molecules()
         self._box = torch.as_tensor(system.getDefaultPeriodicBoxVectors(),
                                     **f64)
@@ -246,7 +276,8 @@ class Context:
             step=torch.zeros((), dtype=torch.int64, device=self._device),
             update_hooks=self._make_hooks(self._attempt_eager),
             forces_by_groups=self._forces_for_step,
-            branch=branch_host, loop=loop_host)
+            branch=branch_host, loop=loop_host,
+            compute_vsites=self._compute_vsites)
         integrator._bind(self)
         integrator._init_state(self._deps)
         # the eager loop's step functions, by the integrator's program key
@@ -262,6 +293,8 @@ class Context:
         system = self._system
         pairs = [system.getConstraintParameters(i)[:2]
                  for i in range(system.getNumConstraints())]
+        pairs += [(index, p) for index, site in system._vsites.items()
+                  for p in site._particles]
         for force in system.getForces():
             pairs += list(force._bonded_particles())
         first = _first_members(self._n, pairs)
@@ -328,7 +361,7 @@ class Context:
         out = baro.attempt(pos, box, u, self._gp, self._trial_energy)
         box.copy_(out["box"])
         baro.store(out)
-        return out["positions"], out["overflow"]
+        return self._compute_vsites(out["positions"]), out["overflow"]
 
     def _attempt_eager(self, k, step, pos, box, u):
         """The eager loop's gate: a host `if` on the host step count."""
@@ -347,7 +380,11 @@ class Context:
                 + [t for b in self._barostats for t in b.statistics()]
                 + self._integrator._state_tensors())
 
-    # -- constraints -----------------------------------------------------
+    # -- constraints and virtual sites -------------------------------------
+    def _compute_vsites(self, pos):
+        """pos with the virtual sites' rows computed from their parents."""
+        return pos if self._vsites is None else self._vsites.compute(pos)
+
     def _constrain_positions(self, ref, new):
         """(constrained, corr): SETTLE, then SHAKE, then CCMA, with corr the
         sum of their corrections, exactly zero off the constrained atoms
@@ -394,8 +431,8 @@ class Context:
         GBSAOBCForces."""
         parts = []
         nb = self._nonbonded
-        if nb is not None and (groups >> nb.group) & 1:
-            parts.append(nb(pos, box, tiles))
+        if nb is not None and nb.active(groups):
+            parts.append(nb(pos, box, tiles, groups))
         parts += [m.ef(pos, box) for m in self._gb + self._bonded
                   if (groups >> m.group) & 1]
         if not parts:
@@ -406,6 +443,8 @@ class Context:
         for e, f in parts[1:]:
             energy = energy + e
             forces = forces + f.to(torch.float64)
+        if self._vsites is not None:
+            forces = self._vsites.distribute(pos, forces)
         return energy, forces
 
     def _forces_for_step(self, pos, box, groups=-1):
@@ -439,16 +478,18 @@ class Context:
         is not touched."""
 
         def evaluate(positions):
-            pos = torch.as_tensor(np.asarray(positions, np.float64),
-                                  dtype=torch.float64, device=self._device)
-            pos.requires_grad_(True)
+            x = torch.as_tensor(np.asarray(positions, np.float64),
+                                dtype=torch.float64, device=self._device)
+            x.requires_grad_(True)
+            # the sites from their parents: autograd spreads their forces
+            pos = self._compute_vsites(x)
             box = self._state["box"]
             energy = torch.zeros((), dtype=torch.float64, device=self._device)
             if self._nonbonded is not None:
                 energy = self._nonbonded.potential_energy(pos, box)
             for m in self._gb + self._bonded:
                 energy = energy + m.energy(pos, box)
-            (grad,) = torch.autograd.grad(energy, pos)
+            (grad,) = torch.autograd.grad(energy, x)
             self.energy_evaluations += 1
             return float(energy.detach()), -grad.cpu().numpy()
 
@@ -541,8 +582,8 @@ class Context:
         if pos.shape != (self._n, 3):
             raise ValueError("setPositions: expected (%d, 3), got %s"
                              % (self._n, pos.shape))
-        self._set_position_tensor(torch.as_tensor(
-            pos, dtype=torch.float64, device=self._device))
+        self._set_position_tensor(self._compute_vsites(torch.as_tensor(
+            pos, dtype=torch.float64, device=self._device)))
         self._positions_set = True
 
     def setVelocities(self, velocities) -> None:
@@ -568,7 +609,39 @@ class Context:
 
     def applyConstraints(self) -> None:
         pos = self._state["positions"]
-        self._set_position_tensor(self._constrain_positions(pos, pos)[0])
+        self._set_position_tensor(self._compute_vsites(
+            self._constrain_positions(pos, pos)[0]))
+
+    def applyVelocityConstraints(self) -> None:
+        """Remove the velocities' components along the constraints."""
+        self._state["velocities"] = self._constrain_velocities(
+            self._state["positions"], self._state["velocities"])
+
+    def computeVirtualSites(self) -> None:
+        """Set the virtual sites' positions from their parents'."""
+        self._set_position_tensor(self._compute_vsites(
+            self._state["positions"]))
+
+    # -- parameters in the Context -------------------------------------------
+    def _nonbonded_module(self, force):
+        module = self._modules.get(id(force))
+        if module is None or module is not self._nonbonded:
+            raise ValueError("the force is not this Context's "
+                             "NonbondedForce")
+        return module
+
+    def _update_force_parameters(self, force) -> None:
+        """A force's updateParametersInContext: its module's buffers
+        rewritten in place, and the candidate state, which may hold the
+        old parameters, dropped so that the next evaluation rebuilds it
+        (as the JAX Context sets ref_pos to inf)."""
+        module = self._modules.get(id(force))
+        if module is None:
+            raise ValueError("updateParametersInContext: the force is not "
+                             "part of this Context's System")
+        module.update(force)
+        self._tiles = None
+        self._ref_pos = None
 
     # -- stepping ----------------------------------------------------------------
     def _snapshot(self):
@@ -606,6 +679,115 @@ class Context:
         self._ref_pos, self._ref_box = refs
         for t, value in zip(self._step_tensors(), shared):
             t.copy_(value)
+
+    # -- checkpoints ---------------------------------------------------------
+    def createCheckpoint(self) -> bytes:
+        """The Context's state as bytes: an npz archive (no pickle) of
+        what a snapshot holds (_snapshot: positions, velocities, the step
+        count, the generator, the candidate state with the positions and
+        the box of its build, the step tensors: box, clock, integrator
+        parameters, barostat statistics, integrator state; the capacity
+        scale) and the global parameters, headed by the port's magic and
+        the particle count."""
+        state, gen, tiles, refs, shared, written, scale = self._snapshot()
+        arrays = {
+            "header": np.asarray([CHECKPOINT_MAGIC, str(self._n),
+                                  str(len(shared)), str(tiles is not None)]),
+            "positions": _host(state["positions"]),
+            "velocities": _host(state["velocities"]),
+            "step": np.asarray(state["step"], np.int64),
+            "generator": gen.numpy(),
+            "params_written": np.asarray(written, np.float64),
+            "capacity_scale": np.asarray(np.nan if scale is None else scale),
+            "global_parameters": _host(self._gp),
+        }
+        for i, t in enumerate(shared):
+            arrays["shared_%d" % i] = _host(t)
+        if tiles is not None:
+            arrays.update({"tiles_" + k: _host(v) for k, v in tiles.items()})
+            arrays["ref_pos"], arrays["ref_box"] = (_host(r) for r in refs)
+        buf = io.BytesIO()
+        np.savez(buf, **arrays)
+        return buf.getvalue()
+
+    def loadCheckpoint(self, checkpoint: bytes) -> None:
+        """Restore a createCheckpoint of a Context of the same System:
+        the run continues bit for bit. Raises ValueError on bytes that are
+        no such checkpoint, or whose particle count or tensors' shapes do
+        not match this Context's."""
+        try:
+            data = np.load(io.BytesIO(checkpoint), allow_pickle=False)
+        except Exception as err:
+            raise ValueError("Invalid checkpoint data") from err
+        with data:
+            if "header" not in data.files \
+                    or str(data["header"][0]) != CHECKPOINT_MAGIC:
+                raise ValueError("Invalid checkpoint data")
+            header = data["header"]
+            if int(header[1]) != self._n:
+                raise ValueError("Checkpoint has wrong number of particles")
+            shared_now = self._step_tensors()
+            if int(header[2]) != len(shared_now):
+                raise ValueError("Checkpoint does not match this Context's "
+                                 "structure")
+            arrays = {k: data[k] for k in data.files}
+        dev = self._device
+
+        def tensor(key, like):
+            value = arrays[key]
+            if tuple(value.shape) != tuple(like.shape):
+                raise ValueError("Checkpoint entry %s has shape %s, this "
+                                 "Context %s" % (key, value.shape,
+                                                 tuple(like.shape)))
+            return torch.as_tensor(value, dtype=like.dtype, device=dev)
+
+        like = torch.empty((self._n, 3), dtype=torch.float64)
+        state = dict(self._state)
+        state["positions"] = tensor("positions", like)
+        state["velocities"] = tensor("velocities", like)
+        state["step"] = int(arrays["step"])
+        shared = [tensor("shared_%d" % i, t)
+                  for i, t in enumerate(shared_now)]
+        gp = tensor("global_parameters", self._gp)
+        tiles = refs = None
+        scale = float(arrays["capacity_scale"])
+        if header[3] == "True":
+            if self._candidates is None:
+                raise ValueError("Checkpoint holds a candidate state this "
+                                 "Context has none of")
+            tiles = {k[len("tiles_"):]: torch.as_tensor(v, device=dev)
+                     for k, v in arrays.items() if k.startswith("tiles_")}
+            refs = (torch.as_tensor(arrays["ref_pos"], device=dev),
+                    torch.as_tensor(arrays["ref_box"], device=dev))
+        else:
+            refs = (None, None)
+        self._restore((state, torch.as_tensor(arrays["generator"]), tiles,
+                       refs, shared,
+                       tuple(float(x) for x in arrays["params_written"]),
+                       None if np.isnan(scale) else scale))
+        self._gp.copy_(gp)
+        self._positions_set = True
+
+    def reinitialize(self, preserveState=False) -> None:
+        """Build the Context anew from its System (forces changed since
+        are taken up); with preserveState the state is restored, from a
+        checkpoint where the structure allows, else positions, velocities,
+        box, clock, step count and global parameters."""
+        checkpoint = state = None
+        if preserveState:
+            checkpoint = self.createCheckpoint()
+            state = self.getState(getPositions=True, getVelocities=True,
+                                  getParameters=True)
+        integrator = self._integrator
+        integrator._context = None
+        self.__init__(self._system, integrator, self._platform,
+                      self._properties)
+        if checkpoint is None:
+            return
+        try:
+            self.loadCheckpoint(checkpoint)
+        except ValueError:
+            self.setState(state)
 
     def _write_params(self) -> None:
         """The integrator's parameters into the step's device tensor, when

@@ -1,5 +1,6 @@
 // Direct-space nonbonded energy and analytic forces over 16-atom row bricks
-// and their candidate bricks (kernel 1 of the PME water-box path).
+// and their candidate bricks (kernel 1 of the PME water-box path; its
+// modes: Ewald/PME, the reaction field, and LJPME).
 //
 // Replaces: openmm_tpu/ops/pallas_pairs.py _kernel_body + _tile_compute
 // (launched by eval_tiles). The Pallas kernel reads compacted candidate slabs
@@ -108,12 +109,35 @@ __global__ void brick_bounds_kernel(const float4* __restrict__ pos,
 }
 
 struct Params {
-  float alpha, krf, crf, rs, inv_w;
+  float alpha, krf, crf, rs, inv_w, inv_cut6;
   int mode, use_switch;
 };
 
+// The modes (ops/tile_pairs.py MODE_*). LJPME's terms live in an
+// instantiation of their own (Ljpme = true), so the main path's kernel
+// carries none of their code; the Ewald and reaction-field modes share
+// the other one and branch at run time: an instantiation of the Ewald
+// mode alone, the reaction field compiled out, is scheduled otherwise
+// and ran 15 % slower (0.1415 against 0.1232 ms at 24,000 atoms on an
+// H100 80GB HBM3 at 700 W, kernel_lab.py variants).
+constexpr int kModeEwald = 0, kModeRf = 1, kModeLjpme = 2;
+
+// LJPME's share of c6/r^6 left to the direct space and the factor its
+// derivative takes, at x = (alpha_LJ r)^2: g = 1 - e^-x (1 + x + x^2/2),
+// h = g - e^-x x^3/6 (ops/pairs.py:dispersion_complement). Both cancel at
+// small x, but their error stays that of float32 on 1, so c6/r^6 g errs
+// by no more than the Lennard-Jones terms' own rounding.
+__device__ __forceinline__ void dispersion_complement(float x, float* g,
+                                                      float* h) {
+  const float ex = expf(-x);
+  const float p = 1.0f + x + 0.5f * x * x;
+  *g = 1.0f - ex * p;
+  *h = 1.0f - ex * (p + x * x * x * (1.0f / 6.0f));
+}
+
 // Adds the pair terms of row atom (pi, qi) and partner qj at displacement
 // d (r2 = |d|^2) to the lane's sums.
+template <bool Ljpme>
 __device__ __forceinline__ void add_pair(const Params& pr, float4 qi,
                                          float4 qj, float4 d, float* fx,
                                          float* fy, float* fz, float* e) {
@@ -138,9 +162,23 @@ __device__ __forceinline__ void add_pair(const Params& pr, float4 qi,
     de_lj = de_lj * sw + e_lj * dsw;
     e_lj = e_lj * sw;
   }
+  if constexpr (Ljpme) {
+    // the dispersion grid's complement c6g g / r^6 (krf holds alpha_LJ^2)
+    // and the energy-only shifts at the cutoff (crf holds the grid
+    // complement's; the Lennard-Jones one is 4 eps s6c (1 - s6c))
+    const float c6g = qi.w * qj.w;
+    float g, h;
+    dispersion_complement(pr.krf * r2s, &g, &h);
+    const float coef = c6g * inv_r2 * inv_r2 * inv_r2;
+    e_lj += coef * g;
+    de_lj -= 3.0f * coef * h * inv_r2;
+    const float sig2 = sig * sig;
+    const float s6c = sig2 * sig2 * sig2 * pr.inv_cut6;
+    e_lj += eps4 * s6c * (1.0f - s6c) + pr.crf * c6g;
+  }
   const float qq = qi.x * qj.x;
   float de_c, e_c;
-  if (pr.mode == 0) {  // Ewald / PME direct space
+  if (pr.mode != kModeRf) {  // Ewald direct space
     const float ar = pr.alpha * (r2s * inv_r);
     const float ex = expf(-ar * ar);
     const float erfc_ar = erfc_hastings(ar, ex);
@@ -159,7 +197,8 @@ __device__ __forceinline__ void add_pair(const Params& pr, float4 qi,
 }
 
 // consts: alpha, rc^2, krf, crf, ax, bx, by, cx, cy, cz, 1/ax, 1/by, 1/cz,
-//         switch distance, 1/(rc - switch distance), unused
+//         switch distance, 1/(rc - switch distance), 1/rc^6 (LJPME; else 0)
+template <bool Ljpme>
 __global__ void __launch_bounds__(32 * kWarps)
 nonbonded_tiles_kernel(const float4* __restrict__ pos,
                        const float4* __restrict__ par,
@@ -188,7 +227,7 @@ nonbonded_tiles_kernel(const float4* __restrict__ pos,
   const Box box{consts[4], consts[5], consts[6], consts[7], consts[8],
                 consts[9], consts[10], consts[11], consts[12]};
   const Params pr{consts[0], consts[2], consts[3], consts[13], consts[14],
-                  mode, use_switch};
+                  consts[15], mode, use_switch};
   // a brick within these half extents takes its centre's image shift for
   // every pair inside the cutoff; a wider one is never culled
   const float rc = sqrtf(rc2);
@@ -255,7 +294,7 @@ nonbonded_tiles_kernel(const float4* __restrict__ pos,
       queued += __popc(hits);
       if (queued >= 32) {
         __syncwarp();
-        add_pair(pr, qi, par[qj[lane]], qd[lane], &fx, &fy, &fz, &e);
+        add_pair<Ljpme>(pr, qi, par[qj[lane]], qd[lane], &fx, &fy, &fz, &e);
         __syncwarp();  // every lane has read its slot
         if (lane < queued - 32) {
           qd[lane] = qd[32 + lane];
@@ -268,7 +307,9 @@ nonbonded_tiles_kernel(const float4* __restrict__ pos,
     __syncwarp();  // the compacted list is read before the next chunk's
   }
   __syncwarp();
-  if (lane < queued) add_pair(pr, qi, par[qj[lane]], qd[lane], &fx, &fy, &fz, &e);
+  if (lane < queued) {
+    add_pair<Ljpme>(pr, qi, par[qj[lane]], qd[lane], &fx, &fy, &fz, &e);
+  }
   for (int o = 16; o > 0; o >>= 1) {
     fx += __shfl_xor_sync(kFull, fx, o);
     fy += __shfl_xor_sync(kFull, fy, o);
@@ -294,7 +335,12 @@ extern "C" int omm_nonbonded_tiles(const void* pos, const void* par,
     const int threads = 256;
     brick_bounds_kernel<<<(n_bricks * kBrick + threads - 1) / threads,
                           threads, 0, s>>>(p, n_bricks, bb);
-    nonbonded_tiles_kernel<<<n_bricks * kBrick / kWarps, 32 * kWarps, 0, s>>>(
+    if (mode < kModeEwald || mode > kModeLjpme) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    auto* kernel = mode == kModeLjpme ? nonbonded_tiles_kernel<true>
+                                      : nonbonded_tiles_kernel<false>;
+    kernel<<<n_bricks * kBrick / kWarps, 32 * kWarps, 0, s>>>(
         p, static_cast<const float4*>(par), static_cast<const int*>(cand),
         static_cast<const int*>(count), static_cast<const int*>(words),
         static_cast<const float*>(consts), bb, max_cand, exc_cap, mode,

@@ -37,6 +37,11 @@ class _PeriodicMixin:
     def setUsesPeriodicBoundaryConditions(self, periodic: bool) -> None:
         self._periodic = bool(periodic)
 
+    def updateParametersInContext(self, context) -> None:
+        """Copy the terms' parameters into the Context in place (the
+        terms' count and particles must be those it was built with)."""
+        context._update_force_parameters(self)
+
     def usesPeriodicBoundaryConditions(self) -> bool:
         return self._periodic
 
@@ -243,6 +248,22 @@ class BondedModule(nn.Module):
         if self.empty:
             return pos.new_zeros(())
         return self._energy_fn(pos, *self.args, box=self._box(box))
+
+    def update(self, force) -> None:
+        """updateParametersInContext: the force's current parameters
+        written into the term tensors in place; raises when its terms'
+        count or particles changed."""
+        fresh = force._compile(self.n, "cpu")
+        for old, new in zip(self.args, fresh.args):
+            if old.shape != new.shape or (
+                    old.dtype == torch.int64
+                    and not torch.equal(old.cpu(), new)):
+                raise ValueError("updateParametersInContext: the number of "
+                                 "terms of %s or their particles have "
+                                 "changed" % self.name)
+        for old, new in zip(self.args, fresh.args):
+            if old.dtype != torch.int64:
+                old.copy_(new)
 
 
 class HarmonicBondForce(_PeriodicMixin, Force):

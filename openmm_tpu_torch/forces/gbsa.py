@@ -85,6 +85,10 @@ class GBSAOBCForce(Force):
     def usesPeriodicBoundaryConditions(self):
         return self._method == GBSAOBCForce.CutoffPeriodic
 
+    def updateParametersInContext(self, context):
+        """Copy the particles' parameters into the Context in place."""
+        context._update_force_parameters(self)
+
     def _compile(self, n, device, precision="mixed"):
         if len(self._particles) != n:
             raise ValueError("GBSAOBCForce must have the same number of "
@@ -111,6 +115,18 @@ class GBSAModule:
         p = torch.as_tensor(np.asarray(force._particles, np.float64)
                             .reshape(-1, 3), device=device)
         self.charge, self.radius, self.scale = p.unbind(1)
+
+    def update(self, force) -> None:
+        """updateParametersInContext: the charges, radii and scales
+        written in place."""
+        if force.getNumParticles() != self.charge.shape[0]:
+            raise ValueError("updateParametersInContext: the number of "
+                             "particles has changed")
+        p = torch.as_tensor(np.asarray(force._particles, np.float64)
+                            .reshape(-1, 3))
+        for t, new in zip((self.charge, self.radius, self.scale),
+                          p.unbind(1)):
+            t.copy_(new)
 
     def _args(self, pos, box):
         return (pos.to(self.dtype), self.charge, self.radius, self.scale,

@@ -47,6 +47,11 @@ from typing import Callable
 import torch
 
 
+def no_vsites(pos):
+    """StepDeps.compute_vsites of a System without virtual sites."""
+    return pos
+
+
 @dataclass
 class StepDeps:
     """What an integrator step needs from the Context."""
@@ -76,6 +81,10 @@ class StepDeps:
     branch: Callable = None
     # loop(cond, body): body() while the device bool cond() holds
     loop: Callable = None
+    # pos -> pos with the virtual sites' rows computed from their parents:
+    # every step calls it after each position update (the identity when
+    # the System has no sites)
+    compute_vsites: Callable = no_vsites
 
 
 class Integrator:

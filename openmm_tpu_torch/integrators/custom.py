@@ -561,7 +561,8 @@ class _Step:
                 self._invalidate()
             return
         if kind == ConstrainPositions:
-            x.copy_(deps.apply_position_constraints_corr(integ._xref, x)[0])
+            x.copy_(deps.compute_vsites(
+                deps.apply_position_constraints_corr(integ._xref, x)[0]))
             integ._xref.copy_(x)
             self._invalidate()
             return
@@ -579,7 +580,7 @@ class _Step:
             self._assign(self._global_target(var), val)
             return
         if var == "x":
-            x.copy_(torch.where(self.moving, val, x))
+            x.copy_(deps.compute_vsites(torch.where(self.moving, val, x)))
             self._invalidate()
         elif var == "v":
             v.copy_(torch.where(self.moving, val, v))

@@ -82,6 +82,7 @@ class LangevinMiddleIntegrator(_Stochastic):
                               * xi, v)
             new_raw = pos + torch.where(moving, 0.5 * dt * (v + v_o), 0.0)
             new_pos, corr = deps.apply_position_constraints_corr(pos, new_raw)
+            new_pos = deps.compute_vsites(new_pos)
             if corr is not None:
                 v_o = v_o + corr / dt
             deps.step.add_(1)
@@ -112,6 +113,7 @@ class LangevinIntegrator(_Stochastic):
                  + noisescale * sqrt_inv_m * xi)
             new_raw = pos + torch.where(moving, v * dt, 0.0)
             new_pos, corr = deps.apply_position_constraints_corr(pos, new_raw)
+            new_pos = deps.compute_vsites(new_pos)
             if corr is not None:
                 v = v + corr / dt
             deps.step.add_(1)
@@ -141,6 +143,7 @@ class BrownianIntegrator(_Stochastic):
                      + noise_amp * sqrt_inv_m * xi)
             new_raw = pos + torch.where(moving, delta, 0.0)
             new_pos, corr = deps.apply_position_constraints_corr(pos, new_raw)
+            new_pos = deps.compute_vsites(new_pos)
             if corr is not None:
                 delta = delta + corr
             deps.step.add_(1)

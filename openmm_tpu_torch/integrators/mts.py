@@ -2,8 +2,9 @@
 
 Counterpart of openmm_tpu/integrators/mts.py (after OpenMM's
 mtsintegrator.py): force groups evaluated at different frequencies,
-groups = [(force group, substeps), ...] sorted by group as the JAX package
-sorts them, each group's substeps a multiple of the previous one's; the
+groups = [(force group, substeps), ...] sorted by substeps as OpenMM sorts
+them (_sorted_groups), each group's substeps a multiple of the previous
+one's; the
 innermost loop moves the positions. [(0, 1), (1, 2)] kicks with group 0
 once a step and with group 1 twice. The CustomIntegrator's force cache
 evaluates a group once for each position it is read at: group 0 once a
@@ -16,9 +17,15 @@ from .custom import CustomIntegrator
 
 
 def _sorted_groups(groups):
+    """The groups from the slowest (fewest substeps) to the fastest, as
+    OpenMM's mtsintegrator.py orders them; among equal substeps by group
+    number. Wherever the JAX package's order (by group number) is valid
+    it is this one; [(1, 1), (0, 2)] (the reciprocal space in group 1,
+    the slow one) it refuses, OpenMM and the port take it."""
     if len(groups) == 0:
         raise ValueError("No force groups specified")
-    return sorted((int(g), int(n)) for g, n in groups)
+    return sorted(((int(g), int(n)) for g, n in groups),
+                  key=lambda gn: (gn[1], gn[0]))
 
 
 def _check_ratio(substeps, parent_substeps):

@@ -389,6 +389,7 @@ class NoseHooverIntegrator(Integrator):
             delta = delta + 0.5 * dt * v
             new_raw = pos + torch.where(moving, delta, 0.0)
             new_pos, corr = deps.apply_position_constraints_corr(pos, new_raw)
+            new_pos = deps.compute_vsites(new_pos)
             if corr is not None:
                 v = v + torch.where(moving, corr / dt, 0.0)
             deps.step.add_(1)

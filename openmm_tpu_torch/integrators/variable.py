@@ -89,6 +89,7 @@ class _Variable(Integrator):
     def _finish(deps, pos, vel, v, dt):
         new_raw = pos + torch.where(deps.moving, v * dt, 0.0)
         new_pos, corr = deps.apply_position_constraints_corr(pos, new_raw)
+        new_pos = deps.compute_vsites(new_pos)
         if corr is not None:
             v = v + corr / dt
         deps.step.add_(1)

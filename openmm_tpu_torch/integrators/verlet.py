@@ -30,6 +30,7 @@ class VerletIntegrator(Integrator):
             v = vel + dt * forces.to(vel.dtype) * inv_m
             new_raw = pos + torch.where(moving, v * dt, 0.0)
             new_pos, corr = deps.apply_position_constraints_corr(pos, new_raw)
+            new_pos = deps.compute_vsites(new_pos)
             if corr is not None:
                 v = v + corr / dt
             deps.step.add_(1)

@@ -4,7 +4,10 @@ tip3p_water_box is the counterpart of openmm_tpu/models/builders.py: the
 same TIP3P water box, built with numpy from the same
 np.random.RandomState(jitter_seed) stream, so that the arrays are
 identical to the JAX builder's for the same seed. water_droplet carves a
-non-periodic droplet out of such a box.
+non-periodic droplet out of such a box. tip4pew_water_box is the same
+lattice and stream with TIP4P-Ew waters (the JAX package's
+ForceField("tip4pew.json") after Modeller.convertWater("tip4pew"): the HOH
+geometry is TIP3P's, the M site a ThreeParticleAverageSite).
 
 popc_bilayer is the pre-equilibrated POPC membrane patch that the JAX
 package's Modeller.addMembrane places (openmm_tpu/app/data/POPC.npz: 128
@@ -37,7 +40,7 @@ import numpy as np
 
 from ..forces.gbsa import GBSAOBCForce
 from ..forces.nonbonded import NonbondedForce
-from ..system import System, from_numpy
+from ..system import System, ThreeParticleAverageSite, from_numpy
 
 BILAYER_DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "data", "popc_bilayer.npz")
@@ -59,6 +62,15 @@ TIP3P_OH_DISTANCE = 0.09572
 TIP3P_ANGLE = 104.52 * math.pi / 180.0
 WATER_NUMBER_DENSITY = 33.37  # molecules / nm^3 at ~300 K
 O_MASS, H_MASS = 15.99943, 1.007947
+
+# TIP4P-Ew parameters (tip4pew.xml): the charge sits on the massless M
+# site, the weighted average of O, H1 and H2
+TIP4PEW_O_SIGMA = 0.316435
+TIP4PEW_O_EPSILON = 0.680946
+TIP4PEW_H_CHARGE = 0.52422
+TIP4PEW_M_CHARGE = -1.04844
+TIP4PEW_M_WEIGHTS = (0.786646558, 0.106676721, 0.106676721)
+TIP4PEW_ANGLE = 1.82421813418     # rad, tip4pew.xml's (TIP3P's to 2e-12)
 
 
 def _add_tip3p_water(system, nb, constraints):
@@ -123,6 +135,57 @@ def tip3p_water_box(n_waters=216, nonbonded_method=NonbondedForce.PME,
                 rot = np.eye(3) + s * k + (1 - c) * (k @ k)
                 positions.append(ref @ rot.T + base)
     return system, np.concatenate(positions)
+
+
+def _add_tip4pew_water(system, nb, constraints):
+    """One TIP4P-Ew water (O, H1, H2, M): its particles, parameters, M
+    site, the exclusions of every pair of its four particles (in the JAX
+    ForceField's order) and, when `constraints`, its three rigid-water
+    constraints."""
+    o = system.addParticle(O_MASS)
+    h1 = system.addParticle(H_MASS)
+    h2 = system.addParticle(H_MASS)
+    m = system.addParticle(0.0)
+    nb.addParticle(0.0, TIP4PEW_O_SIGMA, TIP4PEW_O_EPSILON)
+    nb.addParticle(TIP4PEW_H_CHARGE, 1.0, 0.0)
+    nb.addParticle(TIP4PEW_H_CHARGE, 1.0, 0.0)
+    nb.addParticle(TIP4PEW_M_CHARGE, 1.0, 0.0)
+    system.setVirtualSite(m, ThreeParticleAverageSite(o, h1, h2,
+                                                      *TIP4PEW_M_WEIGHTS))
+    for a, b in ((o, h1), (o, h2), (o, m), (h1, h2), (h1, m), (h2, m)):
+        nb.addException(a, b, 0.0, 1.0, 0.0)
+    if constraints:
+        d_oh, theta = TIP3P_OH_DISTANCE, TIP4PEW_ANGLE
+        system.addConstraint(o, h1, d_oh)
+        system.addConstraint(o, h2, d_oh)
+        system.addConstraint(h1, h2, 2.0 * d_oh * math.sin(0.5 * theta))
+
+
+def tip4pew_water_box(n_waters=216, nonbonded_method=NonbondedForce.PME,
+                      cutoff=0.9, constraints=True, jitter_seed=1234):
+    """tip3p_water_box's lattice, orientations and RandomState stream with
+    TIP4P-Ew waters: four particles a water (O, H1, H2 and the massless M
+    site at the weighted average TIP4PEW_M_WEIGHTS of O, H1 and H2).
+    Returns (system, positions as an (n, 3) float64 array in nm, the M
+    sites computed from their waters)."""
+    tip3p, pos3 = tip3p_water_box(n_waters, nonbonded_method, cutoff,
+                                  constraints, jitter_seed)
+    (nb3,) = tip3p.getForces()
+    count = tip3p.getNumParticles() // 3
+    system = System()
+    system.setDefaultPeriodicBoxVectors(
+        *tip3p.getDefaultPeriodicBoxVectors())
+    nb = NonbondedForce()
+    nb.setNonbondedMethod(nonbonded_method)
+    nb.setCutoffDistance(nb3.getCutoffDistance())
+    nb.setUseDispersionCorrection(True)
+    system.addForce(nb)
+    for _ in range(count):
+        _add_tip4pew_water(system, nb, constraints)
+    water = pos3.reshape(count, 3, 3)
+    site = np.einsum("k,wkd->wd", np.asarray(TIP4PEW_M_WEIGHTS), water)
+    return system, np.concatenate([water, site[:, None]], axis=1).reshape(
+        -1, 3)
 
 
 def water_droplet(positions, box, radius=2.5,

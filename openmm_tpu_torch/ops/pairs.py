@@ -103,14 +103,31 @@ class PairTerms(NamedTuple):
     switch: tuple | None = None
 
 
+def dispersion_complement(x):
+    """(g, h) at x = (alpha_LJ r)^2 >= 0: g = 1 - e^-x (1 + x + x^2/2),
+    the share of c6/r^6 that the dispersion grid leaves to the direct
+    space, and h = g - e^-x x^3/6, which its derivative takes
+    (d/d(r^2) of c6 g / r^6 = -3 c6 h / r^8), in the direct form of the
+    JAX package and of kernel 1's MODE_LJPME. Both cancel at small x, but
+    their absolute error stays that of x.dtype on 1."""
+    ex = torch.exp(-x)
+    p = 1.0 + x + 0.5 * x * x
+    return 1.0 - ex * p, 1.0 - ex * (p + x * x * x * (1.0 / 6.0))
+
+
 def pair_terms(r2s, qq, sig, eps4, coulomb, alpha=0.0, krf=0.0, crf=0.0,
-               switch=None):
+               switch=None, ljpme=None):
     """(dE/d(r^2), E) of the Lennard-Jones and Coulomb terms of pairs at
     r^2 = r2s (> 0): qq = k_e q_i q_j, sig = (sigma_i + sigma_j) / 2,
     eps4 = 4 sqrt(eps_i eps_j), coulomb "ewald" (qq erfc(alpha r) / r,
     kernel 1's MODE_EWALD) or as in PairTerms, switch as there (the
     constants floats or 0-d tensors). In float32 erfc is the Hastings form
-    of the JAX float32 path and of kernel 1; in float64 the exact one."""
+    of the JAX float32 path and of kernel 1; in float64 the exact one.
+    ljpme = (c6g, alpha_LJ^2, shift, 1 / rc^6) adds LJPME's terms to the
+    Lennard-Jones part (after the switch, JAX nonbonded.py:663-676): the
+    dispersion grid's complement c6g / r^6 g(alpha_LJ^2 r^2) with its
+    force, and the energy-only shifts 4 eps (sig^6 / rc^6)(1 - sig^6 /
+    rc^6) + shift c6g (kernel 1's MODE_LJPME)."""
     inv_r = torch.rsqrt(r2s)
     inv_r2 = inv_r * inv_r
     s2 = sig * sig * inv_r2
@@ -126,6 +143,15 @@ def pair_terms(r2s, qq, sig, eps4, coulomb, alpha=0.0, krf=0.0, crf=0.0,
         dsw = (-30.0 * t2 * (1.0 - t) ** 2 * inv_w) * (0.5 * inv_r)
         de_lj = de_lj * sw + e_lj * dsw
         e_lj = e_lj * sw
+    if ljpme is not None:
+        c6g, alpha2, shift, inv_cut6 = ljpme
+        g, h = dispersion_complement(alpha2 * r2s)
+        coef = c6g * inv_r2 * inv_r2 * inv_r2
+        e_lj = e_lj + coef * g
+        de_lj = de_lj - 3.0 * coef * h * inv_r2
+        sig2 = sig * sig
+        sig6c = sig2 * sig2 * sig2 * inv_cut6
+        e_lj = e_lj + eps4 * sig6c * (1.0 - sig6c) + shift * c6g
     if coulomb == "ewald":
         ar = alpha * (r2s * inv_r)
         ex = torch.exp(-ar * ar)

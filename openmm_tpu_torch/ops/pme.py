@@ -10,11 +10,13 @@ of NonbondedForce.Ewald in float64 (the JAX module pins its products to
 HIGHEST precision, since a truncated phase k.r of up to ~10^2 rad put the
 TPU's sum 1.4 % off; here no product of the sum goes through a tensor
 core); and
-bspline_weights, dense_weights, spread_charges_dense, _k_vectors and the
-Coulomb branch of pme_reciprocal_energy, which autograd differentiates (the
-minimizer's objective). The dense spread goes through ops/pallas_pme.py
-(kernels 4 and 5); where the JAX module takes |F(Q)|^2 by matmul DFTs, a
-TPU workaround, this module calls torch.fft (cuFFT on the card).
+bspline_weights, dense_weights, spread_charges_dense, _k_vectors and
+pme_reciprocal_energy (the Coulomb grid, and LJPME's dispersion grid
+with coulomb=False), which autograd differentiates (the minimizer's
+objective); dispersion_self_energy, LJPME's self term. The dense spread
+goes through ops/pallas_pme.py (kernels 4 and 5); where the JAX module
+takes |F(Q)|^2 by matmul DFTs, a TPU workaround, this module calls
+torch.fft (cuFFT on the card).
 """
 from __future__ import annotations
 
@@ -71,8 +73,11 @@ def find_legal_fft_dim(minimum: int) -> int:
         n += 1
 
 
-def pme_grid_size(box_widths, alpha: float, tol: float):
-    sizes = [max(int(math.ceil(2 * alpha * w / (3 * tol ** 0.2))), 6)
+def pme_grid_size(box_widths, alpha: float, tol: float, lj=False):
+    """The grid of NonbondedForceImpl::calcPMEParameters; lj=True the
+    dispersion grid's (half as fine for the same alpha)."""
+    factor = 1.0 if lj else 2.0
+    sizes = [max(int(math.ceil(factor * alpha * w / (3 * tol ** 0.2))), 6)
              for w in box_widths]
     return [find_legal_fft_dim(s) for s in sizes]
 
@@ -115,6 +120,12 @@ def ewald_self_energy(charges: np.ndarray, alpha: float) -> float:
     """The Ewald self term, -k_e alpha / sqrt(pi) sum q^2 (constant)."""
     q = np.asarray(charges, np.float64)
     return float(-ONE_4PI_EPS0 * alpha / SQRT_PI * np.sum(q * q))
+
+
+def dispersion_self_energy(c6s: np.ndarray, alpha: float) -> float:
+    """LJPME's self term, alpha^6 / 12 sum c6_i^2 (JAX pme.py:516-520)."""
+    c6 = np.asarray(c6s, np.float64)
+    return float(alpha ** 6 / 12.0 * np.sum(c6 * c6))
 
 
 def bspline_weights(t: torch.Tensor, order: int) -> torch.Tensor:
@@ -182,13 +193,30 @@ def _k_vectors(grid, box_inv, dtype):
             + mz[None, None, :, None] * bi[:, 2])
 
 
+def dispersion_green(m2, alpha, vol):
+    """LJPME's dispersion kernel with its prefactor at |m|^2 = m2 (JAX
+    pme.py:455-476, after pme.cc:396-431): -(pi sqrt(pi) / 6 V) [2 pi^3
+    sqrt(pi) |m|^3 erfc(pi |m| / alpha) + e^-(pi |m| / alpha)^2 (alpha^3
+    - 2 alpha pi^2 |m|^2)], the m = 0 term (alpha^3) included."""
+    m_abs = torch.sqrt(m2)
+    b = math.pi * m_abs / alpha
+    eterm = (2.0 * math.pi ** 3 * SQRT_PI * torch.special.erfc(b) * m_abs
+             * m2 + torch.exp(-b * b) * (alpha ** 3 - 2.0 * alpha
+                                         * math.pi ** 2 * m2))
+    return -0.5 * (2.0 * math.pi / 6.0) * SQRT_PI / vol * eterm
+
+
 def pme_reciprocal_energy(pos, charges, box, grid, order, alpha, bsq_x,
-                          bsq_y, bsq_z, plain=False) -> torch.Tensor:
-    """Coulomb reciprocal-space PME energy as a float64 scalar that
-    autograd differentiates with respect to pos:
+                          bsq_y, bsq_z, plain=False,
+                          coulomb=True) -> torch.Tensor:
+    """Reciprocal-space PME energy as a float64 scalar that autograd
+    differentiates with respect to pos. Coulomb:
     E = k_e / (2 pi V) sum_{m != 0} exp(-pi^2 m^2 / alpha^2) / m^2 B(m)
-    |F(Q)(m)|^2. The grid and its FFT take pos.dtype; the sum over the
-    spectrum is taken in float64. `plain` as in spread_charges_dense."""
+    |F(Q)(m)|^2. coulomb=False: LJPME's dispersion energy of the grid of
+    c6 weights `charges`, sum_m (m = 0 included) of the dispersion kernel
+    (dispersion_green) B(m) |F(Q)(m)|^2. The
+    grid and its FFT take pos.dtype; the sum over the spectrum is taken in
+    float64. `plain` as in spread_charges_dense."""
     f64 = torch.float64
     box64 = box.to(f64)
     q = spread_charges_dense(pos, charges,
@@ -198,11 +226,14 @@ def pme_reciprocal_energy(pos, charges, box, grid, order, alpha, bsq_x,
     sq = (fq.real * fq.real + fq.imag * fq.imag).to(f64)
     kv = _k_vectors(grid, geom.box_inverse(box64), f64)
     m2 = (kv * kv).sum(dim=-1)
+    b = (bsq_x.to(f64)[:, None, None] * bsq_y.to(f64)[None, :, None]
+         * bsq_z.to(f64)[None, None, :])
+    if not coulomb:
+        return torch.sum(dispersion_green(m2, alpha, geom.box_volume(box64))
+                         * b * sq)
     m2_safe = torch.where(m2 > 0, m2, 1.0)
     kern = torch.where(m2 > 0, torch.exp(-(math.pi ** 2) * m2_safe
                                          / alpha ** 2) / m2_safe, 0.0)
-    b = (bsq_x.to(f64)[:, None, None] * bsq_y.to(f64)[None, :, None]
-         * bsq_z.to(f64)[None, None, :])
     return ONE_4PI_EPS0 / (2.0 * math.pi * geom.box_volume(box64)) \
         * torch.sum(kern * b * sq)
 

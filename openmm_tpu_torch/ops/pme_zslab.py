@@ -14,9 +14,18 @@ candidate state keeps anyway, so that the atoms of a warp of kernel 3 read
 nearby grid cells; the forces do not depend on the order. The grid layout
 is the JAX module's (nz, nx, ny); weight j of an atom on one axis belongs
 to grid index floor(u) + j - 4 (mod the grid size).
+
+LJPME's dispersion grid goes through the same two kernels with c6 weights
+in place of the charges (the energy is a quadratic form of the grid in
+both, so the gather's -w dphi/dr is the force either way; kernel 2 takes
+its fixed-point scale from the weights' bound at every call), and its own
+influence function (convolve_potential, dispersion=True: JAX pme.py
+:455-476). Their launches there count apart (SPREAD_DISPERSION,
+GATHER_DISPERSION).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -34,6 +43,13 @@ SPREAD = _build.Kernel(
 GATHER = _build.Kernel(
     name="pme_gather", source="openmm_tpu_torch/csrc/pme_gather.cu",
     replaces="openmm_tpu/ops/pme_zslab.py:315")
+# the same kernels on LJPME's dispersion grid, counted apart
+SPREAD_DISPERSION = _build.Kernel(
+    name="pme_spread_dispersion", source=SPREAD.source,
+    replaces=SPREAD.replaces)
+GATHER_DISPERSION = _build.Kernel(
+    name="pme_gather_dispersion", source=GATHER.source,
+    replaces=GATHER.replaces)
 
 
 def bspline_w_dw(t: torch.Tensor, order: int = ORDER):
@@ -98,10 +114,12 @@ def pme_spread_plain(pos, charge, binv, grid) -> torch.Tensor:
     return q.index_add_(0, flat, val).view(nz, nx, ny)
 
 
-def pme_spread(pos, charge, binv, grid) -> torch.Tensor:
+def pme_spread(pos, charge, binv, grid, counter=SPREAD) -> torch.Tensor:
     """Kernel 2. pos (n, 3), charge (n,), binv the row-major (9,) inverse
     box; returns the (nz, nx, ny) charge grid. A CUDA tensor runs the
-    hand-written kernel (float32 only); a CPU tensor the plain version."""
+    hand-written kernel (float32 only); a CPU tensor the plain version.
+    `counter` counts the launch (SPREAD_DISPERSION on the dispersion
+    grid)."""
     _check_pme_args(pos, charge, binv)
     if pos.device.type == "cpu":
         return pme_spread_plain(pos, charge, binv, grid)
@@ -114,8 +132,8 @@ def pme_spread(pos, charge, binv, grid) -> torch.Tensor:
         pos.data_ptr(), charge.data_ptr(), binv.data_ptr(), pos.shape[0],
         nx, ny, nz, acc.data_ptr(), q.data_ptr(),
         torch.cuda.current_stream(pos.device).cuda_stream)
-    _build.check_launch(code, SPREAD)
-    SPREAD.launches += 1
+    _build.check_launch(code, counter)
+    counter.launches += 1
     return q
 
 
@@ -152,7 +170,8 @@ def pme_gather_plain(pos, charge, phi2, binv, grid, order=None):
     return -charge[:, None] * (ga @ binv.view(3, 3).T)
 
 
-def pme_gather(pos, charge, phi2, binv, grid, order=None) -> torch.Tensor:
+def pme_gather(pos, charge, phi2, binv, grid, order=None,
+               counter=GATHER) -> torch.Tensor:
     """Kernel 3: reciprocal-space forces (n, 3) from 2*phi. `order`, an
     int64 permutation of 0..n-1 or None (the identity), is the order in
     which the kernel's threads visit the atoms: in a spatial order the
@@ -160,7 +179,7 @@ def pme_gather(pos, charge, phi2, binv, grid, order=None) -> torch.Tensor:
     in any order; on the card, the rows of atoms that an order which is no
     permutation leaves out are undefined (_check_order). A CUDA tensor
     runs the hand-written kernel (float32 only); a CPU tensor the plain
-    version."""
+    version. `counter` as in pme_spread."""
     _check_pme_args(pos, charge, binv, phi2)
     _check_order(order, pos.shape[0], pos.device)
     if pos.device.type == "cpu":
@@ -176,18 +195,21 @@ def pme_gather(pos, charge, phi2, binv, grid, order=None) -> torch.Tensor:
         None if order is None else order.data_ptr(), pos.shape[0], nx, ny,
         nz, forces.data_ptr(),
         torch.cuda.current_stream(pos.device).cuda_stream)
-    _build.check_launch(code, GATHER)
-    GATHER.launches += 1
+    _build.check_launch(code, counter)
+    counter.launches += 1
     return forces
 
 
-def convolve_potential(q_grid, box, grid, alpha, bsq_x, bsq_y, bsq_z):
+def convolve_potential(q_grid, box, grid, alpha, bsq_x, bsq_y, bsq_z,
+                       dispersion=False):
     """(phi, energy) of the (nz, nx, ny) charge grid on cuFFT (torch.fft).
 
     energy = sum_m Kt(m) |F(m)|^2 over the full spectrum, Kt folding the
     Ewald Green's function, the B-spline moduli and k_e / (2 pi V). phi is
     the UNNORMALIZED inverse transform of Kt F (no 1/G^3), so dE/dQ = 2 phi
-    feeds the force interpolation directly.
+    feeds the force interpolation directly. dispersion=True: the grid holds
+    c6 weights and Kt is LJPME's dispersion kernel (pme.dispersion_green),
+    its m = 0 term included.
     """
     nx, ny, nz = grid
     dt = q_grid.dtype
@@ -201,13 +223,17 @@ def convolve_potential(q_grid, box, grid, alpha, bsq_x, bsq_y, bsq_z):
           + mx[None, :, None, None] * bi[:, 0]
           + my[None, None, :, None] * bi[:, 1])
     m2 = (kv * kv).sum(dim=-1)
-    m2_safe = torch.where(m2 > 0, m2, 1.0)
-    kern = torch.where(m2 > 0, torch.exp(-(math.pi ** 2) * m2_safe
-                                         / alpha ** 2) / m2_safe, 0.0)
     b = (bsq_z[:, None, None] * bsq_x[None, :, None]
          * bsq_y[None, None, :ny // 2 + 1]).to(dt)
-    kt = ONE_4PI_EPS0 / (2.0 * math.pi * geom.box_volume(box.to(dt))) \
-        * kern * b
+    if dispersion:
+        kt = pme_mod.dispersion_green(m2, alpha,
+                                      geom.box_volume(box.to(dt))) * b
+    else:
+        m2_safe = torch.where(m2 > 0, m2, 1.0)
+        kern = torch.where(m2 > 0, torch.exp(-(math.pi ** 2) * m2_safe
+                                             / alpha ** 2) / m2_safe, 0.0)
+        kt = ONE_4PI_EPS0 / (2.0 * math.pi * geom.box_volume(box.to(dt))) \
+            * kern * b
     # the half spectrum holds each +-m pair once, except the my = 0 and
     # (even ny) Nyquist planes, which are their own partners (made on the
     # device: a scalar stored from the host cannot be captured in a graph)
@@ -220,19 +246,27 @@ def convolve_potential(q_grid, box, grid, alpha, bsq_x, bsq_y, bsq_z):
 
 
 def pme_recip_ef(pos, charge, box, grid, alpha, bsq, plain=False,
-                 order=None):
+                 order=None, dispersion=False):
     """Reciprocal-space PME (energy, forces (n, 3)) in pos.dtype.
     bsq = (bsq_x, bsq_y, bsq_z) tensors; plain=True runs the plain
     versions of kernels 2 and 3 on any device (the float64 oracle);
-    `order` is kernel 3's visiting order (pme_gather)."""
+    `order` is kernel 3's visiting order (pme_gather). dispersion=True:
+    LJPME's dispersion grid, `charge` the c6 weights, the launches counted
+    as SPREAD_DISPERSION and GATHER_DISPERSION."""
     dt = pos.dtype
     binv = geom.box_inverse(box.to(dt)).reshape(9).contiguous()
     pos = pos.contiguous()
     charge = charge.to(dt).contiguous()
-    spread, gather = ((pme_spread_plain, pme_gather_plain) if plain
-                      else (pme_spread, pme_gather))
+    if plain:
+        spread, gather = pme_spread_plain, pme_gather_plain
+    elif dispersion:
+        spread = functools.partial(pme_spread, counter=SPREAD_DISPERSION)
+        gather = functools.partial(pme_gather, counter=GATHER_DISPERSION)
+    else:
+        spread, gather = pme_spread, pme_gather
     q_grid = spread(pos, charge, binv, grid)
-    phi, energy = convolve_potential(q_grid, box, grid, alpha, *bsq)
+    phi, energy = convolve_potential(q_grid, box, grid, alpha, *bsq,
+                                     dispersion=dispersion)
     forces = gather(pos, charge, (2.0 * phi).contiguous(), binv, grid,
                     order)
     return energy, forces

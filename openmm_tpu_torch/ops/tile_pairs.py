@@ -17,8 +17,10 @@ boxes lie beyond the cutoff (cull_mask is the plain model of that cull);
 the cull drops no pair inside the cutoff, so the plain version needs none.
 
 Layout. `pos4` and `par4` are (n_pad, 4) float tensors in the sorted frame:
-(x, y, z, 0) and (sqrt(k_e) q, sigma / 2, 2 sqrt(eps), 0), so that the
-Lorentz-Berthelot mixing of a pair is one add and one multiply. `cand` is
+(x, y, z, 0) and (sqrt(k_e) q, sigma / 2, 2 sqrt(eps), c6), so that the
+Lorentz-Berthelot mixing of a pair is one add and one multiply; c6 =
+2 sqrt(eps) sigma^3, whose product over a pair is LJPME's geometric
+coefficient, is 0 but in MODE_LJPME. `cand` is
 (n_bricks, max_cand) int32, ordered per row [exclusion-carrying | plain |
 unused]; `count` is the number of live candidates per row; `words` is
 (n_pad, exc_cap) int32 with bit l of words[i, k] set when row atom i must
@@ -39,7 +41,7 @@ from .pairs import pad_to_block, pair_terms, spatial_sort_keys
 
 BRICK = 16
 EXC_SLOTS = 32          # candidate slots that may carry exclusion bits
-MODE_EWALD, MODE_RF = 0, 1
+MODE_EWALD, MODE_RF, MODE_LJPME = 0, 1, 2
 TWO_OVER_SQRT_PI = 2.0 / math.sqrt(math.pi)
 
 TILES = _build.Kernel(
@@ -63,9 +65,30 @@ def tile_budget(n: int, box_widths, cutoff: float, skin: float,
             "exc_cap": min(max_bricks, int(EXC_SLOTS * scale))}
 
 
+def tile_params(charge, sigma, epsilon, order, c6=False) -> torch.Tensor:
+    """par4 (n_pad, 4) in the sorted frame of `order` from the (n,)
+    particle parameters (padding atoms: no charge, sigma 1, eps 0); its
+    fourth slot c6 = 2 sqrt(eps) sigma^3 when `c6`, else 0."""
+    n_pad = order.shape[0]
+    n = charge.shape[0]
+    dev, dt = charge.device, charge.dtype
+
+    def padded(x, fill):
+        x = torch.cat([x.to(device=dev, dtype=dt),
+                       torch.full((n_pad - n,), fill, dtype=dt, device=dev)])
+        return x[order]
+
+    sig = padded(sigma, 1.0)
+    es = 2.0 * torch.sqrt(padded(epsilon, 0.0))
+    fourth = (es * sig ** 3 if c6
+              else torch.zeros(n_pad, dtype=dt, device=dev))
+    return torch.stack([math.sqrt(ONE_4PI_EPS0) * padded(charge, 0.0),
+                        0.5 * sig, es, fourth], dim=1).contiguous()
+
+
 def build_tile_state(pos, box, charge, sigma, epsilon, exclusions, reach,
                      max_bricks, sort_cell, exc_cap=EXC_SLOTS,
-                     box_widths=None) -> dict:
+                     box_widths=None, c6=False) -> dict:
     """Candidate state for kernel 1 at positions `pos` (n, 3).
 
     exclusions: (n, E) int tensor of excluded partners (-1 padded). The
@@ -75,6 +98,7 @@ def build_tile_state(pos, box, charge, sigma, epsilon, exclusions, reach,
     in a CUDA graph (without, the sort reads the diagonal from `box`).
     Returns a dict of tensors on pos.device; "overflow" counts candidates
     and exclusion slots that did not fit (0 when the state is complete).
+    `c6`: par4 carries LJPME's c6 (tile_params).
     """
     dev, dt = pos.device, pos.dtype
     n = pos.shape[0]
@@ -156,17 +180,10 @@ def build_tile_state(pos, box, charge, sigma, epsilon, exclusions, reach,
                      torch.where(ok, 1 << (entries % BRICK), 0)
                      .to(torch.int32).reshape(-1))
 
-    def padded(x, fill):
-        x = torch.cat([x.to(device=dev, dtype=dt),
-                       torch.full((n_pad - n,), fill, dtype=dt, device=dev)])
-        return x[order]
-
-    par4 = torch.stack([math.sqrt(ONE_4PI_EPS0) * padded(charge, 0.0),
-                        0.5 * padded(sigma, 1.0),
-                        2.0 * torch.sqrt(padded(epsilon, 0.0)),
-                        torch.zeros(n_pad, dtype=dt, device=dev)], dim=1)
+    par4 = tile_params(charge.to(dt), sigma.to(dt), epsilon.to(dt), order,
+                       c6)
     return {"order": order, "inv_order": inv_order, "wraps": w_s,
-            "par4": par4.contiguous(),
+            "par4": par4,
             "cand": cand.to(torch.int32).contiguous(),
             "count": count.to(torch.int32).contiguous(),
             "words": words.view(n_pad, exc_cap),
@@ -189,17 +206,20 @@ def sorted_positions(pos, box, st) -> torch.Tensor:
 
 def tile_consts(box, scalars) -> torch.Tensor:
     """The kernel's 16 constants: scalars = (alpha, cutoff^2, krf, crf,
-    switch distance, 1/(cutoff - switch distance)) as a tensor."""
+    switch distance, 1/(cutoff - switch distance)) as a tensor, and in
+    MODE_LJPME a seventh, 1 / cutoff^6, in the last slot (krf and crf then
+    hold alpha_LJ^2 and the dispersion shift: forces/nonbonded.py)."""
     b = box.to(scalars.dtype)
     diag = torch.stack([b[0, 0], b[1, 1], b[2, 2]])
+    tail = (scalars[6:7] if scalars.shape[0] > 6
+            else torch.zeros(1, dtype=b.dtype, device=b.device))
     return torch.cat([scalars[:4], b[0, :1], b[1, :2], b[2, :3],
-                      1.0 / diag, scalars[4:6],
-                      torch.zeros(1, dtype=b.dtype, device=b.device)])
+                      1.0 / diag, scalars[4:6], tail])
 
 
 def _check_tile_args(pos4, par4, cand, count, words, consts, mode):
-    if mode not in (MODE_EWALD, MODE_RF):
-        raise ValueError("mode must be MODE_EWALD or MODE_RF")
+    if mode not in (MODE_EWALD, MODE_RF, MODE_LJPME):
+        raise ValueError("mode must be MODE_EWALD, MODE_RF or MODE_LJPME")
     n_pad = pos4.shape[0]
     if n_pad % BRICK or pos4.shape != (n_pad, 4) or par4.shape != (n_pad, 4):
         raise ValueError("pos4/par4 must be (n_pad, 4) with n_pad % 16 == 0")
@@ -344,11 +364,14 @@ def nonbonded_tiles_plain(pos4, par4, cand, count, words, consts, mode,
         rows = r1 - r0
         qi = par4[r0 * BRICK:r1 * BRICK].view(rows, BRICK, 1, 4)
         qj = par4[cj][:, None]
+        # MODE_LJPME: krf and crf hold alpha_LJ^2 and the shift
+        ljpme = ((qi[..., 3] * qj[..., 3], krf, crf, consts[15])
+                 if mode == MODE_LJPME else None)
         de, e = pair_terms(
             torch.clamp(r2, min=2e-6), qi[..., 0] * qj[..., 0],
             qi[..., 1] + qj[..., 1], qi[..., 2] * qj[..., 2],
-            "ewald" if mode == MODE_EWALD else "rf", alpha, krf, crf,
-            (rs, inv_w) if use_switch else None)
+            "rf" if mode == MODE_RF else "ewald", alpha, krf, crf,
+            (rs, inv_w) if use_switch else None, ljpme)
         dedr2 = torch.where(ok, de, 0.0)
         e = torch.where(ok, e, 0.0)
         sl = slice(r0 * BRICK, r1 * BRICK)
@@ -394,12 +417,14 @@ def count_tile_pairs(pos4, cand, count, words, consts) -> dict:
 
 
 def tile_energy_forces(pos, box, st, consts, mode, use_switch,
-                       plain=False):
+                       plain=False, par4=None):
     """(energy, forces (n, 3)) of the direct-space sweep on state `st`.
-    plain=True runs the plain version on any device (the float64 oracle)."""
+    plain=True runs the plain version on any device (the float64 oracle).
+    par4: parameters in the state's frame in place of those of its build
+    (tile_params of the effective parameters under offsets)."""
     pos4 = sorted_positions(pos, box, st)
     fn = nonbonded_tiles_plain if plain else nonbonded_tiles
-    out = fn(pos4, st["par4"], st["cand"], st["count"], st["words"],
-             consts, mode, use_switch)
+    out = fn(pos4, st["par4"] if par4 is None else par4, st["cand"],
+             st["count"], st["words"], consts, mode, use_switch)
     forces = out[st["inv_order"], :3][:pos.shape[0]]
     return 0.5 * out[:, 3].sum(dtype=torch.float64), forces

@@ -7,6 +7,8 @@ objective, spends its time.
     python3 -m openmm_tpu_torch.profile_step --minimizer [--evaluations 20]
         [--system bilayer]
     python3 -m openmm_tpu_torch.profile_step --method rf [--system bilayer]
+    python3 -m openmm_tpu_torch.profile_step --method ljpme --system bilayer
+    python3 -m openmm_tpu_torch.profile_step --system tip4pew
     python3 -m openmm_tpu_torch.profile_step --method ewald --waters 512
     python3 -m openmm_tpu_torch.profile_step --system popc_obc
     python3 -m openmm_tpu_torch.profile_step --integrator verlet
@@ -18,9 +20,12 @@ Builds the 24,000-atom TIP3P PME box (--system water, the default), the
 bonded forces, a CMMotionRemover, SETTLE and SHAKE) or the 2,546-atom
 POPC cluster in implicit solvent (--system popc_obc: the reference
 suite's dhfr_gbsa settings, GBSAOBCForce and the NonbondedForce at
-CutoffNonPeriodic 2.0 nm, every pair; it takes no --method). --method picks the
+CutoffNonPeriodic 2.0 nm, every pair; it takes no --method), or --waters
+TIP4P-Ew waters (--system tip4pew, four particles a water, the M site a
+virtual site). --method picks the
 NonbondedForce's method: pme (the default, 0.9 nm), rf (CutoffPeriodic at
-1.0 nm, the reference suite's rf settings), ewald (0.9 nm; the water box
+1.0 nm, the reference suite's rf settings), ljpme (0.9 nm, the dispersion
+grid beside the Coulomb one), ewald (0.9 nm; the water box
 only, whose size --waters sets), or nocutoff and cutoffnonperiodic (2.0
 nm) on the waters of the water box whose oxygens lie within 2.5 nm of its
 centre, a droplet without a box (water_droplet). By default it
@@ -88,7 +93,7 @@ from . import (AMDForceGroupIntegrator, AndersenThermostat,
                VariableLangevinIntegrator, VerletIntegrator)
 from .forces.nonbonded import NonbondedForce
 from .models import (popc_bilayer, popc_obc_cluster, tip3p_water_box,
-                     water_droplet)
+                     tip4pew_water_box, water_droplet)
 from .step_program import GATING
 
 ATTEMPTS = 10       # barostat attempts timed alone (--barostat)
@@ -149,6 +154,7 @@ def _window(run, count, device, unit, top, issued=None) -> dict:
 # --method: (NonbondedForce method, cutoff nm)
 METHODS = {"pme": (NonbondedForce.PME, 0.9),
            "rf": (NonbondedForce.CutoffPeriodic, 1.0),
+           "ljpme": (NonbondedForce.LJPME, 0.9),
            "ewald": (NonbondedForce.Ewald, 0.9),
            "nocutoff": (NonbondedForce.NoCutoff, 2.0),
            "cutoffnonperiodic": (NonbondedForce.CutoffNonPeriodic, 2.0)}
@@ -162,8 +168,13 @@ def _system(name, n_waters, method="pme"):
         if method != "pme":
             raise ValueError("--system popc_obc takes no --method")
         return (*popc_obc_cluster(), 300.0)
+    if name == "tip4pew":
+        if method not in ("pme", "ljpme"):
+            raise ValueError("--system tip4pew takes pme or ljpme")
+        return (*tip4pew_water_box(n_waters, nonbonded_method=nb_method,
+                                   cutoff=cutoff), 300.0)
     if name == "bilayer":
-        if method not in ("pme", "rf"):
+        if method not in ("pme", "rf", "ljpme"):
             raise ValueError("--method %s takes the water system" % method)
         system, positions = popc_bilayer()
         (nb,) = [f for f in system.getForces()
@@ -389,7 +400,8 @@ def main() -> None:
                         help="profile the minimizer's objective instead")
     parser.add_argument("--evaluations", type=int, default=20)
     parser.add_argument("--waters", type=int, default=8000)
-    parser.add_argument("--system", choices=("water", "bilayer", "popc_obc"),
+    parser.add_argument("--system", choices=("water", "bilayer", "popc_obc",
+                                             "tip4pew"),
                         default="water",
                         help="the system whose MD step (or objective) is "
                         "profiled")

@@ -1,9 +1,15 @@
-"""System: particles, masses, constraints, the periodic box and forces.
+"""System: particles, masses, constraints, the periodic box, forces and
+virtual sites.
 
 Counterpart of openmm_tpu/system.py. This slice has no unit system: masses
 in amu, distances in nm, angles in rad. `from_numpy` and `to_numpy` carry
 the parameters of a System across as plain numpy arrays, which is how the
 tests hand the same system to this package and to the JAX package.
+
+A virtual site is a massless particle whose position follows from other
+particles (VirtualSite.h): the weighted average of two or three, an
+out-of-plane combination, or a point in a local frame. ops/vsites.py
+computes the positions and spreads a site's force onto its parents.
 """
 from __future__ import annotations
 
@@ -29,6 +35,89 @@ _GB_METHODS = {"NoCutoff": GBSAOBCForce.NoCutoff,
                "CutoffPeriodic": GBSAOBCForce.CutoffPeriodic}
 
 
+class VirtualSite:
+    """A particle whose position is computed from other particles."""
+
+    def getNumParticles(self) -> int:
+        return len(self._particles)
+
+    def getParticle(self, index: int) -> int:
+        return self._particles[index]
+
+
+class TwoParticleAverageSite(VirtualSite):
+    """r = w1 r1 + w2 r2."""
+
+    def __init__(self, particle1, particle2, weight1, weight2):
+        self._particles = [int(particle1), int(particle2)]
+        self.weights = [float(weight1), float(weight2)]
+
+    def getWeight(self, index: int) -> float:
+        return self.weights[index]
+
+
+class ThreeParticleAverageSite(VirtualSite):
+    """r = w1 r1 + w2 r2 + w3 r3."""
+
+    def __init__(self, particle1, particle2, particle3, weight1, weight2,
+                 weight3):
+        self._particles = [int(particle1), int(particle2), int(particle3)]
+        self.weights = [float(weight1), float(weight2), float(weight3)]
+
+    def getWeight(self, index: int) -> float:
+        return self.weights[index]
+
+
+class OutOfPlaneSite(VirtualSite):
+    """r = r1 + w12 r12 + w13 r13 + wcross (r12 x r13), rij = rj - ri."""
+
+    def __init__(self, particle1, particle2, particle3, weight12, weight13,
+                 weightCross):
+        self._particles = [int(particle1), int(particle2), int(particle3)]
+        self.weight12 = float(weight12)
+        self.weight13 = float(weight13)
+        self.weightCross = float(weightCross)
+
+    def getWeight12(self) -> float:
+        return self.weight12
+
+    def getWeight13(self) -> float:
+        return self.weight13
+
+    def getWeightCross(self) -> float:
+        return self.weightCross
+
+
+class LocalCoordinatesSite(VirtualSite):
+    """r = origin + p.x xhat + p.y yhat + p.z zhat: origin, x and y
+    directions weighted sums of the particles, zhat along x cross y,
+    yhat = zhat x xhat (VirtualSite.h LocalCoordinatesSite)."""
+
+    def __init__(self, particles, originWeights, xWeights, yWeights,
+                 localPosition):
+        if not (len(particles) == len(originWeights) == len(xWeights)
+                == len(yWeights)):
+            raise ValueError("LocalCoordinatesSite: weight lists must match "
+                             "particles")
+        self._particles = [int(p) for p in particles]
+        self.originWeights = [float(w) for w in originWeights]
+        self.xWeights = [float(w) for w in xWeights]
+        self.yWeights = [float(w) for w in yWeights]
+        self.localPosition = tuple(float(x) for x in localPosition)
+
+    def getOriginWeights(self):
+        return self.originWeights
+
+    def getXWeights(self):
+        return self.xWeights
+
+    def getYWeights(self):
+        return self.yWeights
+
+    def getLocalPosition(self):
+        return self.localPosition
+
+
 def reduced_box(a, b, c) -> np.ndarray:
     """The box vectors a, b, c as a (3, 3) float64 array, checked to be in
     the reduced form OpenMM requires."""
@@ -50,6 +139,7 @@ class System:
         self._masses = []
         self._constraints = []      # (p1, p2, distance)
         self._forces = []
+        self._vsites = {}           # particle -> VirtualSite
         self._box = np.diag([2.0, 2.0, 2.0])
 
     def getNumParticles(self) -> int:
@@ -61,6 +151,20 @@ class System:
 
     def getParticleMass(self, index: int) -> float:
         return self._masses[index]
+
+    def setParticleMass(self, index: int, mass: float) -> None:
+        self._masses[index] = float(mass)
+
+    def setVirtualSite(self, index: int, virtualSite) -> None:
+        self._vsites[int(index)] = virtualSite
+
+    def isVirtualSite(self, index: int) -> bool:
+        return index in self._vsites
+
+    def getVirtualSite(self, index: int):
+        if index not in self._vsites:
+            raise ValueError("particle %d is not a virtual site" % index)
+        return self._vsites[index]
 
     def getNumConstraints(self) -> int:
         return len(self._constraints)
@@ -143,7 +247,18 @@ def from_numpy(params: dict) -> System:
     andersen_frequency (1/ps) and andersen_seed, an AndersenThermostat.
     The forces follow that order. force_groups maps a force's kind
     ("nonbonded", "gbsa", "bond", "angle", "torsion", "rb", "cmap", "cmm",
-    "barostat", "andersen") to its group where that is not 0."""
+    "barostat", "andersen") to its group where that is not 0.
+    Optional keys of the NonbondedForce, each written by to_numpy only
+    where it differs from the default: pme_parameters and
+    ljpme_parameters (alpha, nx, ny, nz), reciprocal_group,
+    include_direct, global_parameters [(name, default)],
+    particle_offsets [(parameter, particle, charge, sigma and epsilon
+    scales)] and exception_offsets [(parameter, exception, chargeProd,
+    sigma and epsilon scales)]. vsites: [(particle, kind, parents,
+    weights)] with kind "average2", "average3" (weights w_i),
+    "outofplane" (w12, w13, wcross) or "local" (the origin, x and y
+    weights of each parent one list after another, then the local
+    position)."""
     system = System()
     for m in np.asarray(params["masses"], np.float64):
         system.addParticle(m)
@@ -169,6 +284,20 @@ def from_numpy(params: dict) -> System:
             np.asarray(params["exception_pairs"]).reshape(-1, 2),
             np.asarray(params["exception_params"]).reshape(-1, 3)):
         nb.addException(i, j, cp, s, e)
+    if "pme_parameters" in params:
+        nb.setPMEParameters(*params["pme_parameters"])
+    if "ljpme_parameters" in params:
+        nb.setLJPMEParameters(*params["ljpme_parameters"])
+    nb.setReciprocalSpaceForceGroup(params.get("reciprocal_group", -1))
+    nb.setIncludeDirectSpace(params.get("include_direct", True))
+    for name, default in params.get("global_parameters", ()):
+        nb.addGlobalParameter(name, default)
+    for offset in params.get("particle_offsets", ()):
+        nb.addParticleParameterOffset(*offset)
+    for offset in params.get("exception_offsets", ()):
+        nb.addExceptionParameterOffset(*offset)
+    for site in params.get("vsites", ()):
+        system.setVirtualSite(site[0], _make_vsite(*site[1:]))
     nb.setForceGroup(groups.get("nonbonded", 0))
     system.addForce(nb)
     if "gb_charges" in params:
@@ -220,6 +349,33 @@ def from_numpy(params: dict) -> System:
         thermostat.setForceGroup(groups.get("andersen", 0))
         system.addForce(thermostat)
     return system
+
+
+def _make_vsite(kind, parents, weights):
+    if kind == "average2":
+        return TwoParticleAverageSite(*parents, *weights)
+    if kind == "average3":
+        return ThreeParticleAverageSite(*parents, *weights)
+    if kind == "outofplane":
+        return OutOfPlaneSite(*parents, *weights)
+    k = len(parents)
+    return LocalCoordinatesSite(parents, weights[:k], weights[k:2 * k],
+                                weights[2 * k:3 * k], weights[3 * k:])
+
+
+def _vsite_entry(index, site) -> tuple:
+    """from_numpy's vsites entry of one site."""
+    parents = tuple(site._particles)
+    if isinstance(site, TwoParticleAverageSite):
+        return (index, "average2", parents, tuple(site.weights))
+    if isinstance(site, ThreeParticleAverageSite):
+        return (index, "average3", parents, tuple(site.weights))
+    if isinstance(site, OutOfPlaneSite):
+        return (index, "outofplane", parents,
+                (site.weight12, site.weight13, site.weightCross))
+    return (index, "local", parents,
+            tuple(site.originWeights) + tuple(site.xWeights)
+            + tuple(site.yWeights) + tuple(site.localPosition))
 
 
 def _barostat(params):
@@ -308,6 +464,22 @@ def to_numpy(system: System) -> dict:
         out["rf_dielectric"] = nb.getReactionFieldDielectric()
     if nb.getExceptionsUsePeriodicBoundaryConditions():
         out["exceptions_use_pbc"] = True
+    if nb.getPMEParameters()[0] != 0.0:
+        out["pme_parameters"] = nb.getPMEParameters()
+    if nb.getLJPMEParameters()[0] != 0.0:
+        out["ljpme_parameters"] = nb.getLJPMEParameters()
+    if nb.getReciprocalSpaceForceGroup() != -1:
+        out["reciprocal_group"] = nb.getReciprocalSpaceForceGroup()
+    if not nb.getIncludeDirectSpace():
+        out["include_direct"] = False
+    for key, items in (("global_parameters", nb._global_params),
+                       ("particle_offsets", nb._particle_offsets),
+                       ("exception_offsets", nb._exception_offsets)):
+        if items:
+            out[key] = list(items)
+    if system._vsites:
+        out["vsites"] = [_vsite_entry(i, site)
+                         for i, site in sorted(system._vsites.items())]
     groups = {"nonbonded": nb.getForceGroup()}
     for kind, cls, (count, _, get), atoms_key, n_atoms, par_key, n_par \
             in _BONDED:

@@ -408,14 +408,17 @@ def test_minimize_matches_jax_reference_at_rf(systems, name):
 
 
 def test_method_bookkeeping(systems):
-    """LJPME still raises; the dispersion correction and the wrap of
+    """An LJPME Context builds, is periodic and has no dispersion
+    correction; the dispersion correction and the wrap of
     getState(enforcePeriodicBox=True) need periodic boundaries; the new
     settings round-trip through to_numpy and from_numpy."""
     params, pos = _case(systems, "nocutoff")
-    system = omm.from_numpy(dict(params, method="LJPME"))
-    with pytest.raises(NotImplementedError, match="LJPME"):
-        omm.Context(system, omm.LangevinMiddleIntegrator(300, 1, 0.002),
-                    "CPU")
+    system = omm.from_numpy(dict(params, method="LJPME", cutoff=0.9))
+    ctx = omm.Context(system, omm.LangevinMiddleIntegrator(300, 1, 0.002),
+                      "CPU")
+    assert system.usesPeriodicBoundaryConditions()
+    assert ctx._nonbonded.periodic and ctx._candidates is ctx._nonbonded
+    assert float(ctx._nonbonded.disp_coeff) == 0.0
     for method, periodic in (("NoCutoff", False),
                              ("CutoffNonPeriodic", False),
                              ("CutoffPeriodic", True), ("Ewald", True)):

@@ -98,6 +98,22 @@ def system_params(system):
         out["rf_dielectric"] = nb.getReactionFieldDielectric()
     if nb.getExceptionsUsePeriodicBoundaryConditions():
         out["exceptions_use_pbc"] = True
+    if nb.getPMEParameters()[0] != 0.0:
+        out["pme_parameters"] = tuple(nb.getPMEParameters())
+    if nb.getLJPMEParameters()[0] != 0.0:
+        out["ljpme_parameters"] = tuple(nb.getLJPMEParameters())
+    if nb.getReciprocalSpaceForceGroup() != -1:
+        out["reciprocal_group"] = nb.getReciprocalSpaceForceGroup()
+    if not nb.getIncludeDirectSpace():
+        out["include_direct"] = False
+    for key, items in (("global_parameters", nb._global_params),
+                       ("particle_offsets", nb._particle_offsets),
+                       ("exception_offsets", nb._exception_offsets)):
+        if items:
+            out[key] = list(items)
+    if system._vsites:
+        out["vsites"] = [vsite_entry(i, site)
+                         for i, site in sorted(system._vsites.items())]
     groups = {"nonbonded": nb.getForceGroup()}
     for kind, cls, terms, k, atoms_key, par_key in _BONDED:
         (force,) = [f for f in forces if type(f) is cls] or (None,)
@@ -142,6 +158,42 @@ def system_params(system):
     return out
 
 
+def vsite_entry(index, site):
+    """from_numpy's vsites entry of a JAX-package virtual site."""
+    from openmm_tpu.system import (OutOfPlaneSite, ThreeParticleAverageSite,
+                                   TwoParticleAverageSite)
+    parents = tuple(int(p) for p in site._particles)
+    if isinstance(site, TwoParticleAverageSite):
+        return (index, "average2", parents, tuple(site.weights))
+    if isinstance(site, ThreeParticleAverageSite):
+        return (index, "average3", parents, tuple(site.weights))
+    if isinstance(site, OutOfPlaneSite):
+        return (index, "outofplane", parents,
+                (site.weight12, site.weight13, site.weightCross))
+    return (index, "local", parents,
+            tuple(site.originWeights) + tuple(site.xWeights)
+            + tuple(site.yWeights) + tuple(float(x)
+                                           for x in site.localPosition))
+
+
+def jax_vsite(kind, parents, weights):
+    """The JAX-package virtual site of a from_numpy vsites entry."""
+    from openmm_tpu.system import (LocalCoordinatesSite, OutOfPlaneSite,
+                                   ThreeParticleAverageSite,
+                                   TwoParticleAverageSite)
+    parents = [int(p) for p in parents]
+    if kind == "average2":
+        return TwoParticleAverageSite(*parents, *weights)
+    if kind == "average3":
+        return ThreeParticleAverageSite(*parents, *weights)
+    if kind == "outofplane":
+        return OutOfPlaneSite(*parents, *weights)
+    k = len(parents)
+    return LocalCoordinatesSite(parents, weights[:k], weights[k:2 * k],
+                                weights[2 * k:3 * k],
+                                mm.Vec3(*weights[3 * k:]))
+
+
 def gb_params(force):
     """from_numpy's GBSAOBCForce keys of a JAX-package GBSAOBCForce."""
     p = np.array([[float(u.strip(x)) for x in
@@ -161,7 +213,9 @@ def gb_params(force):
 
 def jax_system(params):
     """The JAX-package System of a from_numpy dict with the keys of a
-    NonbondedForce, the bonded forces but CMAP, a GBSAOBCForce, a
+    NonbondedForce (with its optional keys: PME and LJPME parameters, the
+    reciprocal group, include_direct, global parameters and offsets),
+    virtual sites, the bonded forces but CMAP, a GBSAOBCForce, a
     CMMotionRemover and an AndersenThermostat, its forces in from_numpy's
     order."""
     system = mm.System()
@@ -189,6 +243,20 @@ def jax_system(params):
             np.asarray(params["exception_pairs"]).reshape(-1, 2),
             np.asarray(params["exception_params"]).reshape(-1, 3)):
         nb.addException(int(i), int(j), float(cp), float(s), float(e))
+    if "pme_parameters" in params:
+        nb.setPMEParameters(*params["pme_parameters"])
+    if "ljpme_parameters" in params:
+        nb.setLJPMEParameters(*params["ljpme_parameters"])
+    nb.setReciprocalSpaceForceGroup(params.get("reciprocal_group", -1))
+    nb.setIncludeDirectSpace(params.get("include_direct", True))
+    for name, default in params.get("global_parameters", ()):
+        nb.addGlobalParameter(name, default)
+    for offset in params.get("particle_offsets", ()):
+        nb.addParticleParameterOffset(*offset)
+    for offset in params.get("exception_offsets", ()):
+        nb.addExceptionParameterOffset(*offset)
+    for index, kind, parents, weights in params.get("vsites", ()):
+        system.setVirtualSite(int(index), jax_vsite(kind, parents, weights))
     nb.setForceGroup(groups.get("nonbonded", 0))
     system.addForce(nb)
     if "gb_charges" in params:
