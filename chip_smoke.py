@@ -36,7 +36,7 @@ comes out:
   MonteCarloMembraneBarostat (1 bar, 0 bar nm, 303.15 K, XYIsotropic,
   ZFree, an attempt every 25 steps), 500 steps through the step program
   (each attempt under a second conditional node of the graph), the last
-  100 replayed through the eager loop for the same bits, box and
+  50 replayed through the eager loop for the same bits, box and
   barostat statistics; the relaxed water box under MonteCarloBarostat
   (1 bar, 300 K, 25) and under MonteCarloAnisotropicBarostat (frequency
   5) the same way; each with its ns/day, attempts, acceptances, volume,
@@ -66,7 +66,7 @@ comes out:
   NonbondedForce at CutoffNonPeriodic 2.0 nm, every pair, plain PyTorch;
   HBonds; LangevinMiddle at 300 K, 1/ps, 2 fs): its float32 forces and
   group energies against float64, GB's analytic sweeps timed alone, a
-  minimize call, 300 relaxation steps and 100 more replayed through the
+  minimize call, 200 relaxation steps and 25 more replayed through the
   eager loop for the same bits, its ns/day;
 - the integrators with control flow or state of their own: on the
   relaxed water box a CustomIntegrator velocity Verlet at 1 fs for 2 ps
@@ -99,7 +99,22 @@ comes out:
   parameters built in, updateParametersInContext against a fresh
   Context); and checkpoints (phase_checkpoint: a reloaded run, in the
   same and in a second Context, gives the uninterrupted run's bits;
-  reinitialize keeps the state).
+  reinitialize keeps the state);
+- the custom forces: the relaxed water box as an alchemical run
+  (phase_alchemical: models.alchemical_water_box, 64 solute waters, the
+  soft-core CustomNonbondedForce over (solute, solvent) and three more
+  custom forces; a minimize call through kernels 1, 4 and 5; steps at
+  three (lambda_sterics, lambda_electrostatics) through one step
+  program, kernels 1-3 once a step; each custom group's float32 energy
+  against float64 and dE/dlambda_sterics against central differences of
+  float64 energies; updateParametersInContext without a capture; the
+  eager loop's bits); a CustomIntegrator drawing inside a while block
+  (phase_while_draws: the eager loop's bits); the bilayer's bonds,
+  angles and torsions as custom twins (phase_custom_bilayer: float64
+  energies and forces against the standard forces within 1e-10, the
+  torsions' CustomCompoundBondForce against the CustomTorsionForce, 50
+  steps with the eager loop's bits); tabulated functions on the card
+  against the CPU (phase_tables).
 
 It imports nothing of JAX or of openmm_tpu.
 
@@ -132,9 +147,14 @@ from openmm_tpu_torch import _build
 from openmm_tpu_torch import step_program
 from openmm_tpu_torch.context import MAX_ESCALATIONS, STEP_CHUNK
 from openmm_tpu_torch.forces.nonbonded import NonbondedModule
-from openmm_tpu_torch.models import (builders, popc_bilayer,
-                                     popc_obc_cluster, tip3p_water_box,
-                                     tip4pew_water_box, water_droplet)
+from openmm_tpu_torch.models import (alchemical_water_box, builders,
+                                     popc_bilayer, popc_obc_cluster,
+                                     tip3p_water_box, tip4pew_water_box,
+                                     water_droplet)
+from openmm_tpu_torch.models.builders import (ALCHEMICAL_GROUPS,
+                                              TWIN_GROUPS,
+                                              TWIN_INTEGRATION_GROUPS,
+                                              custom_twins)
 from openmm_tpu_torch.ops import geometry as geom
 from openmm_tpu_torch.ops import pallas_pme, pme_zslab, tile_pairs
 from openmm_tpu_torch.ops import pme as pme_mod
@@ -177,7 +197,7 @@ BILAYER_GROUPS = {"NonbondedForce": 0, "HarmonicBondForce": 1,
                   "CMMotionRemover": 4}
 BILAYER_TEMPERATURE = 303.15
 BILAYER_STEPS = 300
-BILAYER_PRODUCTION = 100        # timed, then replayed through the eager loop
+BILAYER_PRODUCTION = 50         # timed, then replayed through the eager loop
 BILAYER_MINIMIZE_ITERATIONS = 15
 GROUP_ENERGY_BAR = 1e-5
 CONSTRAINT_ERR_BAR = 1e-5
@@ -188,9 +208,9 @@ NPT_PRESSURE = 1.0
 NPT_TENSION = 0.0
 NPT_FREQUENCY = 25
 NPT_BILAYER_STEPS = 500
-NPT_BILAYER_REPLAY = 100
+NPT_BILAYER_REPLAY = 50
 NPT_WATER_STEPS = 200
-NPT_WATER_REPLAY = 100
+NPT_WATER_REPLAY = 50
 ANISO_FREQUENCY = 5
 ANISO_STEPS = 100
 NPT_VOLUME_BAR = 0.03       # |V / V0 - 1| after the run
@@ -206,7 +226,7 @@ NPT_TURNS = ("nvt", "npt", "npt", "nvt")
 # CutoffNonPeriodic (cutoff nm; dhfr_gbsa's), and a small Ewald box
 RF_CUTOFF = 1.0
 RF_STEPS = 200
-RF_REPLAY = 50
+RF_REPLAY = 25
 DROPLET_RADIUS = 2.5
 DROPLET_CUTOFF = 2.0
 DROPLET_STEPS = 40
@@ -227,7 +247,7 @@ GBSA_TEMPERATURE = 300.0
 GBSA_MINIMIZE_ITERATIONS = 25
 GBSA_STEPS = 200
 GBSA_RELAX_FRICTION = 10.0
-GBSA_REPLAY = 50
+GBSA_REPLAY = 25
 # the other integrators on the relaxed water box (PME, kernels 1-3):
 # Verlet at 1 fs, its total energy read every DRIFT_EVERY steps over
 # VERLET_STEPS steps for the NVE drift, gated as tests/test_nve_drift.py
@@ -314,7 +334,7 @@ LJPME_F64_MAX_BAR = 1e-4
 TIP4PEW_WATERS = 8000
 TIP4PEW_RELAX = RELAX
 TIP4PEW_STEPS = 150
-TIP4PEW_REPLAY = 50
+TIP4PEW_REPLAY = 25
 SITE_BAR = 1e-6                 # nm: a site from its weighted parents
 MTS_TIP4PEW_DT = 0.004
 MTS_TIP4PEW_GROUPS = ((1, 1), (0, 2))
@@ -325,6 +345,26 @@ OFFSET_LAMBDAS = (1.0, 0.5, 0.0)
 OFFSET_CHUNK = 50
 OFFSET_BUILT_IN_BAR = 1e-6      # relative, against the parameters built in
 CHECKPOINT_STEPS = 100
+# the alchemical water box (models.alchemical_water_box), the custom twins
+# of the bilayer's bonded forces, the tables, the draws inside a while block
+ALCHEMICAL_SOLUTE = 64
+# (lambda_sterics, lambda_electrostatics) in turn: the solute's charges
+# are off wherever its sterics are softened (its oxygens would fuse with
+# the solvent's hydrogens otherwise), as an alchemical protocol takes them
+ALCHEMICAL_LAMBDAS = ((1.0, 1.0), (0.5, 0.0), (0.2, 0.0))
+ALCHEMICAL_CHUNK = 30           # steps at each lambda
+ALCHEMICAL_REPLAY = 20
+ALCHEMICAL_MINIMIZE_ITERATIONS = 10
+ALCHEMICAL_T_RANGE = (200.0, 450.0)
+ALCHEMICAL_H = 1e-4             # the central difference's step in lambda
+ALCHEMICAL_DERIV_BAR = 1e-4     # relative, dE/dlambda against it
+TWIN_BAR = 1e-10                # float64 twins against the standard forces
+TWIN_STEPS = 50
+TWIN_REPLAY = 20
+TABLE_ATOMS = 2000              # atoms of the tables' synthetic dihedrals
+TABLE_BAR = 1e-12               # the card's float64 against the CPU's
+WHILE_DRAW_PASSES = 2
+WHILE_DRAW_STEPS = 20
 # what the bilayer phase prints of each force
 COUNTED = {"NonbondedForce": "getNumExceptions",
            "HarmonicBondForce": "getNumBonds",
@@ -2977,6 +3017,436 @@ def phase_checkpoint(device, offsets, deadline=None,
             "load_s": load_s}
 
 
+# -- the custom forces ----------------------------------------------------
+def _group_energies(ctx, groups) -> dict:
+    return {g: ctx.getState(getEnergy=True, groups={g}).getPotentialEnergy()
+            for g in groups}
+
+
+def _close_energy(got, want, bar) -> bool:
+    """|got - want| within `bar` of |want|, an energy of exactly 0 (a
+    flat-bottom restraint inside its bottom) only by itself."""
+    return abs(got - want) <= bar * abs(want)
+
+
+def _central_difference(ctx, name, value, group, h=ALCHEMICAL_H) -> float:
+    """(E(value + h) - E(value - h)) / 2h of force group `group` of the
+    float64 Context `ctx`, its parameter left at `value`."""
+    e = []
+    for x in (value + h, value - h):
+        ctx.setParameter(name, x)
+        e.append(ctx.getState(getEnergy=True,
+                              groups={group}).getPotentialEnergy())
+    ctx.setParameter(name, value)
+    return (e[0] - e[1]) / (2.0 * h)
+
+
+def phase_alchemical(device, main, deadline=None, solute=ALCHEMICAL_SOLUTE,
+                     lambdas=ALCHEMICAL_LAMBDAS, chunk=ALCHEMICAL_CHUNK,
+                     replay=ALCHEMICAL_REPLAY,
+                     iterations=ALCHEMICAL_MINIMIZE_ITERATIONS,
+                     t_range=ALCHEMICAL_T_RANGE) -> dict:
+    """models.alchemical_water_box over the relaxed water box of
+    phase_main_path (its final positions and velocities), its first
+    `solute` waters the solute: the NonbondedForce's charges by offsets of
+    lambda_electrostatics, the soft-core CustomNonbondedForce of
+    lambda_sterics over (solute, solvent) with dE/dlambda_sterics
+    requested, the solute's Lennard-Jones CustomBondForce, a flat-bottom
+    CustomExternalForce and a CustomCentroidBondForce. One minimize call
+    of `iterations` iterations through kernels 1, 4 and 5, in which the
+    energy falls; then at each (lambda_sterics, lambda_electrostatics) of
+    `lambdas` (setParameter, one step program: no capture after the
+    first), `chunk` steps with kernels 1-3
+    launched once a step (counts zeroed before each chunk), each custom
+    force group's float32 energy against a float64 Context within
+    GROUP_ENERGY_BAR, and dE/dlambda_sterics (float32 pairs) against a
+    central difference of float64 energies within ALCHEMICAL_DERIV_BAR;
+    updateParametersInContext on the soft-core's solute epsilons (no
+    capture, the energies again); `replay` steps from a snapshot through
+    the step program and the eager loop: the same bits; the temperature
+    within `t_range`, the constraint error within CONSTRAINT_ERR_BAR.
+    Raises on a miss."""
+    deadline = deadline or Deadline(math.inf)
+    cuda = device.type == "cuda"
+    st = main["context"].getState(getPositions=True, getVelocities=True)
+    n_waters = st.getPositions().shape[0] // 3
+    system, _ = alchemical_water_box(n_waters, solute)
+    groups = sorted(ALCHEMICAL_GROUPS.values())
+    soft = system.getForces()[1]
+    integ = omm.LangevinMiddleIntegrator(300.0, FRICTION, DT_PS)
+    integ.setRandomNumberSeed(31)
+    ctx = (omm.Context(system, integ) if cuda
+           else omm.Context(system, integ, "CPU"))
+    ctx.setPositions(st.getPositions())
+    ctx.setVelocities(st.getVelocities())
+    oracle = omm.Context(system, omm.VerletIntegrator(0.001),
+                         "CUDA" if cuda else "CPU", {"Precision": "double"})
+    before = ctx.getState(getEnergy=True).getPotentialEnergy()
+    for kern in KERNELS:
+        kern.launches = 0
+    omm.LocalEnergyMinimizer.minimize(ctx, MINIMIZE_TOLERANCE, iterations)
+    minimizer = {k.name: k.launches for k in MINIMIZER_KERNELS}
+    after = ctx.getState(getEnergy=True).getPotentialEnergy()
+    deadline.check("alchemical: minimize")
+    rows, captures, ms = [], [], []
+    launches = dict.fromkeys(MAIN_PATH_NAMES, 0)
+    escalations = ctx.escalation_count
+    for lam, lam_elec in lambdas:
+        ctx.setParameter("lambda_sterics", lam)
+        ctx.setParameter("lambda_electrostatics", lam_elec)
+        for kern in KERNELS:
+            kern.launches = 0
+        _sync(device)
+        t0 = time.perf_counter()
+        integ.step(chunk)
+        _sync(device)
+        ms.append((time.perf_counter() - t0) / chunk * 1e3)
+        for kern in MAIN_PATH_KERNELS:
+            launches[kern.name] += kern.launches
+        captures.append(_captures(ctx))
+        pos = ctx.getState(getPositions=True).getPositions()
+        oracle.setPositions(pos)
+        oracle.setParameter("lambda_sterics", lam)
+        oracle.setParameter("lambda_electrostatics", lam_elec)
+        e32 = _group_energies(ctx, groups)
+        e64 = _group_energies(oracle, groups)
+        d32 = ctx.getState(getParameterDerivatives=True).\
+            getEnergyParameterDerivatives()["lambda_sterics"]
+        d64 = oracle.getState(getParameterDerivatives=True).\
+            getEnergyParameterDerivatives()["lambda_sterics"]
+        fd = _central_difference(oracle, "lambda_sterics", lam,
+                                 ALCHEMICAL_GROUPS["CustomNonbondedForce"])
+        soft_group = ALCHEMICAL_GROUPS["CustomNonbondedForce"]
+        rows.append({"lambda": lam, "lambda_elec": lam_elec, "e32": e32,
+                     "e64": e64, "d32": d32, "d64": d64, "fd": fd,
+                     "displacement_errors": _displacement_errors(
+                         ctx, oracle, e64[soft_group])})
+        deadline.check("alchemical: lambda %.2f" % lam)
+    for i in range(soft.getNumParticles()):
+        if i < 3 * solute:
+            sigma, eps = soft.getParticleParameters(i)
+            soft.setParticleParameters(i, [sigma, 0.9 * eps])
+    soft.updateParametersInContext(ctx)
+    soft.updateParametersInContext(oracle)
+    integ.step(chunk)
+    after_update = _captures(ctx)
+    pos = ctx.getState(getPositions=True).getPositions()
+    oracle.setPositions(pos)
+    update = (_group_energies(ctx, groups), _group_energies(oracle, groups))
+    times = _custom_times(device, ctx)
+    start = ctx._snapshot()
+    graph = _production(device, ctx, integ.step, 0.0, replay, replay,
+                        deadline)
+    ctx._restore(start)
+    eager = _production(device, ctx, ctx._step_eager, 0.0, replay, replay,
+                        deadline)
+    _same_bits("alchemical", (graph["positions"], graph["velocities"]),
+               (eager["positions"], eager["velocities"]))
+    _same_state("alchemical", graph, eager)
+    temperature = ctx.temperature()
+    constraint_err = _constraint_error(
+        system, ctx.getState(getPositions=True).getPositions())
+    escalations = ctx.escalation_count - escalations
+    del oracle
+    print("alchemical: %d atoms, %d solute waters (soft-core over %d x %d "
+          "pairs); minimize %d iterations: %.3f -> %.3f kJ/mol, launches %s;"
+          " %s; captures %s, %d after updateParametersInContext; %.4f ms a "
+          "step at each lambda %s; T %.2f K; constraint error %.3e; the "
+          "eager loop's bits over %d steps; launches %s in %d steps (%d "
+          "escalations); each custom force's ef alone, ms a call: %s" % (
+              system.getNumParticles(), solute, 3 * solute,
+              system.getNumParticles() - 3 * solute, iterations, before,
+              after, json.dumps(minimizer), "; ".join(
+                  "lambda %.2f (electrostatics %.1f): group energies "
+                  "float32 %s float64 %s, dE/dlambda %.6f (float64 %.6f, "
+                  "central difference %.6f), the soft-core energy's error "
+                  "with float64 displacements %.3e (float32 ones: %.3e)" % (
+                      r["lambda"], r["lambda_elec"], _fmt(r["e32"]),
+                      _fmt(r["e64"]), r["d32"], r["d64"], r["fd"],
+                      *r["displacement_errors"])
+                  for r in rows),
+              captures, after_update, ms[0], " ".join(
+                  "%.4f" % m for m in ms), temperature, constraint_err,
+              replay, json.dumps(launches), chunk * len(lambdas),
+              escalations, ", ".join(
+                  "%s %s" % (k, "not measured" if t is None else "%.4f" % t)
+                  for k, t in times.items())))
+    for r in rows + [{"lambda": "after update", "e32": update[0],
+                      "e64": update[1]}]:
+        for g in groups:
+            if not _close_energy(r["e32"][g], r["e64"][g], GROUP_ENERGY_BAR):
+                raise RuntimeError("alchemical: at lambda %s group %d "
+                                   "float32 %.6f, float64 %.6f" % (
+                                       r["lambda"], g, r["e32"][g],
+                                       r["e64"][g]))
+    for r in rows:
+        if not abs(r["d32"] - r["fd"]) <= ALCHEMICAL_DERIV_BAR * abs(
+                r["fd"]):
+            raise RuntimeError("alchemical: at lambda %.2f dE/dlambda %.6f, "
+                               "central difference %.6f" % (
+                                   r["lambda"], r["d32"], r["fd"]))
+    if not (math.isfinite(after) and after < before):
+        raise RuntimeError("alchemical: minimization %.3f -> %.3f"
+                           % (before, after))
+    if not t_range[0] <= temperature <= t_range[1]:
+        raise RuntimeError("alchemical: temperature %.2f K" % temperature)
+    if not constraint_err <= CONSTRAINT_ERR_BAR:
+        raise RuntimeError("alchemical: constraint error %.3e"
+                           % constraint_err)
+    if cuda:
+        steps = chunk * len(lambdas)
+        if len(set(captures + [after_update])) != 1 or captures[0] != 1:
+            raise RuntimeError("alchemical: programs captured %s, %d after "
+                               "the update (one wanted)"
+                               % (captures, after_update))
+        if any(not (n == steps if escalations == 0
+                    else steps <= n <= steps + STEP_CHUNK * escalations)
+               for n in launches.values()):
+            raise RuntimeError("alchemical: launches %s in %d steps (%d "
+                               "escalations)" % (launches, steps,
+                                                 escalations))
+        if min(minimizer.values()) <= 0:
+            raise RuntimeError("alchemical: the minimizer's kernels %s"
+                               % minimizer)
+    deadline.check("alchemical")
+    return {"rows": rows, "ms_per_step": ms, "temperature": temperature,
+            "times": times, "captures": captures,
+            "minimized": (before, after),
+            "launches": launches, "minimizer": minimizer,
+            "eager_ms_per_step": eager["wall_ms_per_step"],
+            "graph_ms_per_step": graph["wall_ms_per_step"]}
+
+
+def _float32_sweep(ctx):
+    """The soft-core sweep of the alchemical Context `ctx` at its state
+    with float32 displacements (the port takes them in float64): a
+    callable."""
+    soft = ctx._custom[0]
+    pos, box = ctx._state["positions"], ctx._state["box"]
+    fn32 = soft._pair_fn(soft._fn, soft._globals(torch.float32))
+    return lambda: soft.sweep(pos.float(), box.float(), fn32, soft.cutoff,
+                              0, torch.float32)
+
+
+def _displacement_errors(ctx, oracle, e64) -> tuple:
+    """The soft-core energy's relative error against its float64 value
+    e64 (the float64 Context `oracle`'s, set alike), with float64 and with
+    float32 displacements."""
+    pos, box = ctx._state["positions"], ctx._state["box"]
+    got = (float(ctx._custom[0].ef(pos, box)[0]),
+           float(_float32_sweep(ctx)()[0]))
+    return tuple(abs(e - e64) / abs(e64) for e in got)
+
+
+def _custom_times(device, ctx) -> dict:
+    """Each custom force's ef alone at the Context's state, and the
+    soft-core sweep with float32 displacements, ms a call (_time_ms); on
+    the CPU None (not measured)."""
+    pos, box = ctx._state["positions"], ctx._state["box"]
+
+    def timed(fn):
+        return _time_ms(fn, device) if device.type == "cuda" else None
+
+    out = {m.name: timed(lambda m=m: m.ef(pos, box)) for m in ctx._custom}
+    out["sweep, float32 displacements"] = timed(_float32_sweep(ctx))
+    return out
+
+
+def _fmt(energies) -> str:
+    return "{%s}" % ", ".join("%d: %.6f" % kv for kv in energies.items())
+
+
+def _twin_reading(device, forces, positions, box) -> dict:
+    """{group: (energy, forces)} of a float64 Context (the default
+    platform on a GPU, "CPU" otherwise) of a System that holds only
+    `forces` and no constraints, at `positions` in `box`."""
+    system = omm.System()
+    for _ in range(positions.shape[0]):
+        system.addParticle(1.0)
+    system.setDefaultPeriodicBoxVectors(*box)
+    for force in forces:
+        system.addForce(force)
+    ctx = omm.Context(system, omm.VerletIntegrator(0.001),
+                      "CUDA" if device.type == "cuda" else "CPU",
+                      {"Precision": "double"})
+    ctx.setPositions(positions)
+    out = {}
+    for force in forces:
+        g = force.getForceGroup()
+        st = ctx.getState(getEnergy=True, getForces=True, groups={g})
+        out[g] = (st.getPotentialEnergy(), st.getForces())
+    return out
+
+
+def _relative(got, want) -> tuple:
+    """(energy relative error, largest force error over the largest
+    force)."""
+    return (abs(got[0] - want[0]) / abs(want[0]),
+            float(np.abs(got[1] - want[1]).max() / np.abs(want[1]).max()))
+
+
+def phase_custom_bilayer(device, bilayer, deadline=None, steps=TWIN_STEPS,
+                         replay=TWIN_REPLAY,
+                         t_range=BILAYER_T_RANGE) -> dict:
+    """The bilayer phase's system with its bonds, angles and torsions as
+    custom twins (models.builders.custom_twins): at the bilayer Context's
+    last positions,
+    each twin's float64 energy and forces against its standard force's
+    within TWIN_BAR (relative; forces against the largest), the
+    CustomCompoundBondForce's against the CustomTorsionForce's; then
+    `steps` steps through the step program with the twins (the compound
+    force read, not integrated), `replay` of them replayed through the
+    eager loop for the same bits, the temperature within `t_range`. Raises
+    on a miss."""
+    deadline = deadline or Deadline(math.inf)
+    system = bilayer["system"]
+    state = bilayer["context"].getState(getPositions=True,
+                                        getVelocities=True)
+    twin, pairs = custom_twins(system)
+    pos, box = state.getPositions(), state.getPeriodicBoxVectors()
+    standard = [pairs[k][0] for k in ("CustomBondForce", "CustomAngleForce",
+                                      "CustomTorsionForce")]
+    groups = {f: f.getForceGroup() for f in standard}
+    for k, f in zip(("CustomBondForce", "CustomAngleForce",
+                     "CustomTorsionForce"), standard):
+        f.setForceGroup(TWIN_GROUPS[k])
+    try:
+        want = _twin_reading(device, standard, pos, box)
+    finally:
+        for f, g in groups.items():
+            f.setForceGroup(g)
+    got = _twin_reading(device, [t for _, t in pairs.values()], pos, box)
+    errors = {k: _relative(got[TWIN_GROUPS[k]], want[TWIN_GROUPS[k]])
+              for k in ("CustomBondForce", "CustomAngleForce",
+                        "CustomTorsionForce")}
+    errors["CustomCompoundBondForce"] = _relative(
+        got[TWIN_GROUPS["CustomCompoundBondForce"]],
+        got[TWIN_GROUPS["CustomTorsionForce"]])
+    deadline.check("custom bilayer: reading")
+    integ = omm.LangevinMiddleIntegrator(BILAYER_TEMPERATURE, FRICTION,
+                                         DT_PS)
+    integ.setIntegrationForceGroups(TWIN_INTEGRATION_GROUPS)
+    integ.setRandomNumberSeed(41)
+    r = _integrator_run(device, "custom bilayer", twin, integ, state, steps,
+                        steps, lambda c: c.temperature(), deadline, replay)
+    temperature = r["readings"][-1]
+    print("custom bilayer: %d atoms; twins against the standard forces "
+          "(float64; energy, largest force error over the largest force): "
+          "%s; %d steps through the step program: T %.2f K, %.2f ns/day, "
+          "%.4f ms a step (eager %.4f; the bilayer phase %.4f), launches "
+          "%s; the eager loop's bits over %d steps" % (
+              twin.getNumParticles(), "; ".join(
+                  "%s %.3e %.3e" % (k, *e) for k, e in errors.items()),
+              steps, temperature, r["ns_day"], r["ms_per_step"],
+              r["eager_ms_per_step"],
+              bilayer["graph"]["wall_ms_per_step"],
+              json.dumps(r["launches"]), replay))
+    for k, e in errors.items():
+        if not max(e) <= TWIN_BAR:
+            raise RuntimeError("custom bilayer: %s differs by %.3e (energy) "
+                               "and %.3e (forces)" % (k, *e))
+    if not t_range[0] <= temperature <= t_range[1]:
+        raise RuntimeError("custom bilayer: temperature %.2f K"
+                           % temperature)
+    del r["context"]
+    return dict(r, errors=errors, temperature=temperature)
+
+
+def phase_tables(device, positions, box, deadline=None) -> dict:
+    """A CustomCompoundBondForce over synthetic dihedral pairs of the first
+    atoms at `positions` (periodic Continuous2DFunction of
+    dihedral(p1,p2,p3,p4) and dihedral(p2,p3,p4,p1)) plus Discrete1D, 2D
+    and 3D tables read at per-bond indices, in float64 on `device` against
+    the same port code on the CPU: energy and forces within TABLE_BAR.
+    Raises on a miss."""
+    deadline = deadline or Deadline(math.inf)
+    rng = np.random.RandomState(17)
+    grid = rng.randn(24, 24)
+    grid[-1, :] = grid[0, :]
+    grid[:, -1] = grid[:, 0]
+    force = omm.CustomCompoundBondForce(
+        4, "cmap(dihedral(p1,p2,p3,p4), dihedral(p2,p3,p4,p1))"
+        " + d1(i) + d2(i, j) + d3(i, j, k)")
+    force.addTabulatedFunction("cmap", omm.Continuous2DFunction(
+        24, 24, list(grid.ravel(order="F")), -math.pi, math.pi, -math.pi,
+        math.pi, True))
+    force.addTabulatedFunction("d1", omm.Discrete1DFunction(
+        list(rng.randn(6))))
+    force.addTabulatedFunction("d2", omm.Discrete2DFunction(
+        6, 5, list(rng.randn(30))))
+    force.addTabulatedFunction("d3", omm.Discrete3DFunction(
+        6, 5, 4, list(rng.randn(120))))
+    for name in "ijk":
+        force.addPerBondParameter(name)
+    n = min(positions.shape[0], TABLE_ATOMS)
+    for a in range(0, n - 3, 2):
+        force.addBond([a, a + 1, a + 2, a + 3],
+                      [a % 6, (a // 6) % 5, (a // 30) % 4])
+    pos = positions[:n]
+    got = _twin_reading(device, [force], pos, box)[0]
+    want = _twin_reading(torch.device("cpu"), [force], pos, box)[0]
+    err = _relative(got, want)
+    print("tables: %d bonds of a periodic Continuous2DFunction of two "
+          "dihedrals and Discrete1D/2D/3D tables on %s against the CPU: "
+          "energy %.3e, forces %.3e (bar %.0e)" % (
+              force.getNumBonds(), device.type, *err, TABLE_BAR))
+    if not max(err) <= TABLE_BAR:
+        raise RuntimeError("tables: the card's energy and forces differ by "
+                           "%.3e and %.3e from the CPU's" % err)
+    deadline.check("tables")
+    return {"errors": err, "bonds": force.getNumBonds()}
+
+
+def while_draws_program(dt=VERLET_DT, passes=WHILE_DRAW_PASSES):
+    """Velocity Verlet whose while block of `passes` passes kicks the
+    velocities by 1e-6 * gaussian and draws a global uniform each pass."""
+    integ = omm.CustomIntegrator(dt)
+    for name in ("i", "usum"):
+        integ.addGlobalVariable(name, 0.0)
+    integ.addPerDofVariable("x1", 0.0)
+    integ.addUpdateContextState()
+    integ.addComputePerDof("v", "v+0.5*dt*f/m")
+    integ.addComputePerDof("x", "x+dt*v")
+    integ.addComputePerDof("x1", "x")
+    integ.addConstrainPositions()
+    integ.addComputePerDof("v", "v+0.5*dt*f/m+(x-x1)/dt")
+    integ.addComputeGlobal("i", "0")
+    integ.beginWhileBlock("i < %d" % passes)
+    integ.addComputePerDof("v", "v+1e-6*gaussian")
+    integ.addComputeGlobal("usum", "usum+uniform")
+    integ.addComputeGlobal("i", "i+1")
+    integ.endBlock()
+    integ.addConstrainVelocities()
+    return integ
+
+
+def phase_while_draws(device, main, deadline=None, steps=WHILE_DRAW_STEPS,
+                      replay=WHILE_DRAW_STEPS) -> dict:
+    """The relaxed water box under while_draws_program() through
+    _integrator_run (the while block a WHILE node of the graph, its draws
+    counter-hashed from a seed a step): the step program against the
+    eager loop in bits; the uniforms' mean within 5 standard errors of
+    1/2. Raises on a miss."""
+    deadline = deadline or Deadline(math.inf)
+    system, state, _ = _water_state(main)
+    integ = while_draws_program()
+    r = _integrator_run(device, "while draws", system, integ, state, steps,
+                        steps, lambda c: c.temperature(), deadline, replay,
+                        after=lambda c: integ.getGlobalVariableByName(
+                            "usum"))
+    draws = steps * WHILE_DRAW_PASSES
+    mean = r["after"] / draws
+    print("while draws: %d steps of %d passes drawing inside a while block: "
+          "the uniforms' mean %.4f; T %.2f K; %.4f ms a step (eager %.4f); "
+          "the eager loop's bits over %d steps" % (
+              steps, WHILE_DRAW_PASSES, mean, r["readings"][-1],
+              r["ms_per_step"], r["eager_ms_per_step"], replay))
+    if not abs(mean - 0.5) <= 5.0 * math.sqrt(1.0 / 12.0 / draws):
+        raise RuntimeError("while draws: the uniforms' mean %.4f" % mean)
+    del r["context"]
+    return dict(r, mean=mean)
+
+
 def _time_ms(fn, device, reps=20, warmup=3) -> float:
     """Median milliseconds per call over `reps` calls timed one by one
     with CUDA events, after `warmup` calls. Each call is queued behind a
@@ -3244,6 +3714,10 @@ def _main(deadline) -> int:
     deadline.lap("offsets")
     checkpoint = phase_checkpoint(device, offsets, deadline)
     deadline.lap("checkpoint")
+    alchemical = phase_alchemical(device, result, deadline)
+    deadline.lap("alchemical")
+    while_draws = phase_while_draws(device, result, deadline)
+    deadline.lap("while draws")
     del result, offsets["context"]
     minimized = phase_minimize(device, deadline=deadline)
     if min(minimized["launches"].values()) <= 0:
@@ -3261,6 +3735,12 @@ def _main(deadline) -> int:
     deadline.lap("amd")
     ljpme = phase_ljpme_bilayer(device, bilayer, deadline)
     deadline.lap("ljpme bilayer")
+    custom_bilayer = phase_custom_bilayer(device, bilayer, deadline)
+    deadline.lap("custom bilayer")
+    last = bilayer["context"].getState(getPositions=True)
+    tables = phase_tables(device, last.getPositions(),
+                          last.getPeriodicBoxVectors(), deadline)
+    deadline.lap("tables")
     npt = phase_npt_bilayer(device, bilayer, deadline)
     deadline.lap("npt bilayer")
     rf_bilayer = phase_rf_bilayer(device, bilayer["minimized_positions"],
@@ -3379,6 +3859,20 @@ def _main(deadline) -> int:
                         for r in offsets["rows"]), *offsets["update"],
               offsets["ns_day"], offsets["ms_per_step"],
               checkpoint["bytes"] / 1e6))
+    print("custom forces on %s (%s): alchemical water box %.4f ms a step "
+          "at (lambda_sterics, lambda_electrostatics) %s (offsets alone "
+          "%.4f ms), dE/dlambda against "
+          "central differences %s; custom-twin bilayer %.4f ms a step "
+          "(standard forces %.4f ms), twins' errors %s; tables on the card "
+          "against the CPU %.3e %.3e; while-block draws' mean %.4f" % (
+              info["name"], info["smi"], alchemical["ms_per_step"][-1],
+              list(ALCHEMICAL_LAMBDAS), offsets["ms_per_step"],
+              " ".join("%.2e" % (abs(r["d32"] - r["fd"]) / abs(r["fd"]))
+                       for r in alchemical["rows"]),
+              custom_bilayer["ms_per_step"], bilayer_ms, " ".join(
+                  "%s %.2e" % (k, max(e))
+                  for k, e in custom_bilayer["errors"].items()),
+              *tables["errors"], while_draws["mean"]))
     print("seconds by phase: %s" % ", ".join(
         "%s %.1f" % lap for lap in deadline.laps))
     print("total %.1f s of the %.0f s budget" % (deadline.elapsed(),

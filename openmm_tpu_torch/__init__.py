@@ -11,6 +11,9 @@ thermostat, SETTLE, SHAKE and CCMA constraints and fixed (massless)
 particles, under LangevinMiddle, leapfrog Langevin, Verlet, Brownian,
 Nose-Hoover, variable-step, multiple-time-step (MTS) or accelerated (aMD)
 dynamics, a CustomIntegrator program or a CompoundIntegrator of these,
+the custom forces (External, Bond, Angle, Torsion, Nonbonded, CompoundBond,
+CentroidBond) with tabulated functions and energy parameter derivatives
+from symbolic derivatives,
 through three hand-written CUDA kernels (csrc/), and energy
 minimization (LocalEnergyMinimizer) through the differentiable dense PME
 and two more; Context.updateParametersInContext, createCheckpoint and
@@ -19,8 +22,12 @@ loadCheckpoint. Numbers are plain floats in nm, ps, amu, kJ/mol and e.
 from .constants import BOLTZ, ONE_4PI_EPS0
 from .context import Context
 from .forces import (AndersenThermostat, CMAPTorsionForce, CMMotionRemover,
-                     Force, GBSAOBCForce, HarmonicAngleForce,
-                     HarmonicBondForce, MonteCarloAnisotropicBarostat,
+                     CustomAngleForce, CustomBondForce,
+                     CustomCentroidBondForce, CustomCompoundBondForce,
+                     CustomExternalForce, CustomNonbondedForce,
+                     CustomTorsionForce, Force, GBSAOBCForce,
+                     HarmonicAngleForce, HarmonicBondForce,
+                     MonteCarloAnisotropicBarostat,
                      MonteCarloBarostat, MonteCarloMembraneBarostat,
                      NonbondedForce, PeriodicTorsionForce, RBTorsionForce)
 from .integrators import (AMDForceGroupIntegrator, AMDIntegrator,
@@ -34,6 +41,9 @@ from .integrators import (AMDForceGroupIntegrator, AMDIntegrator,
 from .minimize import LocalEnergyMinimizer, MinimizationReporter
 from .platform import Platform
 from .state import State
+from .tabulated import (Continuous1DFunction, Continuous2DFunction,
+                        Continuous3DFunction, Discrete1DFunction,
+                        Discrete2DFunction, Discrete3DFunction)
 from .system import (LocalCoordinatesSite, OutOfPlaneSite, System,
                      ThreeParticleAverageSite, TwoParticleAverageSite,
                      VirtualSite, from_numpy, to_numpy)
@@ -41,7 +51,13 @@ from .system import (LocalCoordinatesSite, OutOfPlaneSite, System,
 __all__ = ["AMDForceGroupIntegrator", "AMDIntegrator",
            "AndersenThermostat", "BOLTZ", "BrownianIntegrator",
            "CMAPTorsionForce", "CMMotionRemover", "CompoundIntegrator",
-           "Context", "CustomIntegrator", "DualAMDIntegrator", "Force",
+           "Context", "Continuous1DFunction", "Continuous2DFunction",
+           "Continuous3DFunction", "CustomAngleForce", "CustomBondForce",
+           "CustomCentroidBondForce", "CustomCompoundBondForce",
+           "CustomExternalForce", "CustomIntegrator",
+           "CustomNonbondedForce", "CustomTorsionForce",
+           "Discrete1DFunction", "Discrete2DFunction",
+           "Discrete3DFunction", "DualAMDIntegrator", "Force",
            "GBSAOBCForce", "HarmonicAngleForce", "HarmonicBondForce",
            "LangevinIntegrator", "LangevinMiddleIntegrator",
            "LocalCoordinatesSite", "LocalEnergyMinimizer", "MTSIntegrator", "MTSLangevinIntegrator",

@@ -17,21 +17,30 @@ _step_eager is the eager loop the program
 replaced, one launch at a time with the rebuild decided on the host: the
 reference that the tests and chip_smoke.py hold the program to.
 _make_position_energy_fn is the minimizer's objective (energy and forces
-by autograd at given positions).
+by autograd at given positions). getState(getParameterDerivatives=True)
+gives dE/dparameter of the parameters the custom forces request
+(addEnergyParameterDerivative), summed over the custom forces in the
+groups asked for, from their symbolic derivatives, between steps: the
+step computes none. A derivative of a parameter that a NonbondedForce's
+offsets also use is not in this slice of the port (the Context refuses
+it): the JAX package takes it by jax.grad through the offsets
+(openmm_tpu/forces/nonbonded.py:545-557), and the port's direct space is
+differentiable in the positions only.
 
-A System may hold at most one NonbondedForce (any method, with global
-parameters and offsets: forces/nonbonded.py), GBSAOBCForces
-(forces/gbsa.py), any of the bonded
-forces (forces/bonded.py), CMMotionRemovers, Monte Carlo barostats
-(forces/barostats.py) and Andersen thermostats (forces/thermostats.py):
-the last three are update hooks that the integrator runs at the top of
-each step, in the System's force order. Each force belongs to a force
-group, which getState(groups=...) selects; a step evaluates the
-integrator's integration force groups only. Constraints split into
-SETTLE water triangles, SHAKE-H star clusters and the rest (CCMA),
-applied in that order (ops/constraints.py). A particle of mass 0 is
-fixed: the integrators never move it, it has no kinetic energy and no
-degrees of freedom, and no constraint may hold it. A virtual site
+A System may hold NonbondedForces (any method, with global parameters and
+offsets: forces/nonbonded.py; each its own module, those that keep a
+candidate state rebuilt together under one predicate: CandidateSet),
+GBSAOBCForces (forces/gbsa.py), any of the bonded forces
+(forces/bonded.py), the custom forces (forces/custom.py), CMMotionRemovers,
+Monte Carlo barostats (forces/barostats.py) and Andersen thermostats
+(forces/thermostats.py): the last three are update hooks that the
+integrator runs at the top of each step, in the System's force order.
+Each force belongs to a force group, which getState(groups=...) selects;
+a step evaluates the integrator's integration force groups only.
+Constraints split into SETTLE water triangles, SHAKE-H star clusters and
+the rest (CCMA), applied in that order (ops/constraints.py). A particle
+of mass 0 is fixed: the integrators never move it, it has no kinetic
+energy and no degrees of freedom, and no constraint may hold it. A virtual site
 (System.setVirtualSite) must be massless: its position is computed from
 its parents (ops/vsites.py) in setPositions, applyConstraints,
 computeVirtualSites, after a barostat's move and after each position
@@ -75,8 +84,9 @@ from .constants import BOLTZ
 from .forces.barostats import BAROSTATS
 from .forces.bonded import BONDED_FORCES, HarmonicAngleForce
 from .forces.cmmotion import CMMotionRemover
+from .forces.custom import CUSTOM_FORCES
 from .forces.gbsa import GBSAOBCForce
-from .forces.nonbonded import NonbondedForce, NonbondedModule
+from .forces.nonbonded import CandidateSet, NonbondedForce, NonbondedModule
 from .forces.thermostats import AndersenThermostat
 from .integrators.base import StepDeps
 from .ops.constraints import (CCMA, Settle, Shake, partition_constraints,
@@ -168,42 +178,56 @@ class Context:
         for force in forces:
             if not isinstance(force, (NonbondedForce, GBSAOBCForce,
                                       CMMotionRemover, AndersenThermostat)
-                              + BONDED_FORCES + BAROSTATS):
+                              + BONDED_FORCES + BAROSTATS + CUSTOM_FORCES):
                 raise NotImplementedError(
                     "%s is not in this slice of the port"
                     % type(force).__name__)
         nonbonded = [f for f in forces if isinstance(f, NonbondedForce)]
-        if len(nonbonded) > 1:
-            raise NotImplementedError("more than one NonbondedForce")
+        custom_forces = [f for f in forces if isinstance(f, CUSTOM_FORCES)]
         f64 = dict(dtype=torch.float64, device=self._device)
         defaults = {}
         for force in forces:
             defaults.update(force._global_defaults())
         self._gp_index = {name: i for i, name in enumerate(defaults)}
         self._gp = torch.as_tensor(list(defaults.values()), **f64)
-        self._nonbonded = None
-        if nonbonded:
-            if nonbonded[0].getNumParticles() != n:
+        # the parameters whose energy derivatives getState reports
+        self._deriv_names = sorted({name for f in custom_forces
+                                    for name in f._deriv_requests})
+        for force in nonbonded:
+            if force.getNumParticles() != n:
                 raise ValueError("NonbondedForce must have the same number "
                                  "of particles as the System")
-            self._nonbonded = NonbondedModule(
-                nonbonded[0], system.getDefaultPeriodicBoxVectors(),
-                self._device, self._precision, self._gp, self._gp_index)
-        # the module whose direct space keeps a candidate state (None when
-        # every pair is computed, or there is no direct space: no rebuild,
-        # no overflow)
-        self._candidates = (self._nonbonded if self._nonbonded is not None
-                            and self._nonbonded.periodic
-                            and self._nonbonded.has_direct else None)
+            offset_names = {o[0] for o in force._particle_offsets
+                            + force._exception_offsets}
+            shared = offset_names & set(self._deriv_names)
+            if shared:
+                raise NotImplementedError(
+                    "the energy derivative of %s, which a NonbondedForce's "
+                    "parameter offsets use, is not in this slice of the "
+                    "port (openmm_tpu/forces/nonbonded.py:545-557 takes it "
+                    "by jax.grad)" % ", ".join(sorted(shared)))
+        self._nonbondeds = [NonbondedModule(
+            force, system.getDefaultPeriodicBoxVectors(), self._device,
+            self._precision, self._gp, self._gp_index) for force in nonbonded]
+        self._nonbonded = self._nonbondeds[0] if nonbonded else None
+        # the modules whose direct space keeps a candidate state (none
+        # when every pair is computed, or there is no direct space: no
+        # rebuild, no overflow): one module itself, several a CandidateSet
+        tiled = [m for m in self._nonbondeds if m.periodic and m.has_direct]
+        self._candidates = (None if not tiled else tiled[0]
+                            if len(tiled) == 1 else CandidateSet(tiled))
         gb_forces = [f for f in forces if isinstance(f, GBSAOBCForce)]
         bonded_forces = [f for f in forces if isinstance(f, BONDED_FORCES)]
         self._gb = [f._compile(n, self._device, self._precision)
                     for f in gb_forces]
         self._bonded = [f._compile(n, self._device) for f in bonded_forces]
+        # the custom forces read the masses (a centroid's weights)
+        self._masses = torch.as_tensor(masses, **f64)
+        self._custom = [f._compile(self) for f in custom_forces]
         # each force's compiled module, for updateParametersInContext
         self._modules = dict(zip(
-            map(id, nonbonded + gb_forces + bonded_forces),
-            [self._nonbonded] * len(nonbonded) + self._gb + self._bonded))
+            map(id, nonbonded + gb_forces + bonded_forces + custom_forces),
+            self._nonbondeds + self._gb + self._bonded + self._custom))
         self._vsites = (VirtualSites(system, self._device)
                         if system._vsites else None)
         self._has_cm_remover = any(isinstance(f, CMMotionRemover)
@@ -224,7 +248,6 @@ class Context:
         self.constraint_split = (len(clusters), len(shake_clusters),
                                  len(ccma_cons))
 
-        self._masses = torch.as_tensor(masses, **f64)
         self._inv_masses = torch.as_tensor(
             np.where(masses == 0, 0.0, 1.0 / np.where(masses == 0, 1.0,
                                                       masses)), **f64)
@@ -342,14 +365,14 @@ class Context:
         overflowed."""
         energy = torch.zeros((), dtype=torch.float64, device=pos.device)
         overflow = torch.zeros((), dtype=torch.int64, device=pos.device)
-        nb = self._nonbonded
-        if self._candidates is not None:
-            st = nb.build_state(pos, box, reach=nb.cutoff)
-            energy = nb.forward(pos, box, st)[0]
-            overflow = st["overflow"]
-        elif nb is not None:
-            energy = nb.forward(pos, box)[0]
-        for m in self._gb + self._bonded:
+        for nb in self._nonbondeds:
+            if nb.periodic and nb.has_direct:
+                st = nb.build_state(pos, box, reach=nb.cutoff)
+                energy = energy + nb.forward(pos, box, st)[0]
+                overflow = overflow + st["overflow"]
+            else:
+                energy = energy + nb.forward(pos, box)[0]
+        for m in self._gb + self._bonded + self._custom:
             energy = energy + m.energy(pos, box)
         return energy, overflow
 
@@ -429,12 +452,10 @@ class Context:
         candidate state `tiles`; the forces add in the order of the
         System's forces, the NonbondedForce first, then the
         GBSAOBCForces."""
-        parts = []
-        nb = self._nonbonded
-        if nb is not None and nb.active(groups):
-            parts.append(nb(pos, box, tiles, groups))
+        parts = [nb(pos, box, self._module_state(nb, tiles), groups)
+                 for nb in self._nonbondeds if nb.active(groups)]
         parts += [m.ef(pos, box) for m in self._gb + self._bonded
-                  if (groups >> m.group) & 1]
+                  + self._custom if (groups >> m.group) & 1]
         if not parts:
             return (torch.zeros((), dtype=torch.float64, device=pos.device),
                     torch.zeros(pos.shape, dtype=torch.float64,
@@ -446,6 +467,13 @@ class Context:
         if self._vsites is not None:
             forces = self._vsites.distribute(pos, forces)
         return energy, forces
+
+    def _module_state(self, nb, tiles):
+        """The candidate state of NonbondedModule nb within `tiles` (None
+        for a module that keeps none)."""
+        if isinstance(self._candidates, CandidateSet):
+            return self._candidates.module_state(nb, tiles)
+        return tiles if nb is self._candidates else None
 
     def _forces_for_step(self, pos, box, groups=-1):
         self._refresh_tiles(pos, box)
@@ -485,9 +513,9 @@ class Context:
             pos = self._compute_vsites(x)
             box = self._state["box"]
             energy = torch.zeros((), dtype=torch.float64, device=self._device)
-            if self._nonbonded is not None:
-                energy = self._nonbonded.potential_energy(pos, box)
-            for m in self._gb + self._bonded:
+            for nb in self._nonbondeds:
+                energy = energy + nb.potential_energy(pos, box)
+            for m in self._gb + self._bonded + self._custom:
                 energy = energy + m.energy(pos, box)
             (grad,) = torch.autograd.grad(energy, x)
             self.energy_evaluations += 1
@@ -527,10 +555,10 @@ class Context:
         force evaluation rebuilds the candidate state for it. PME's alpha
         and grid stay those of the System's default box."""
         box = reduced_box(a, b, c)
-        nb = self._nonbonded
-        if nb is not None and nb.periodic \
-                and nb.cutoff >= 0.5 * min(np.diag(box)):
-            raise ValueError("the cutoff must be below half the box width")
+        for nb in self._nonbondeds:
+            if nb.periodic and nb.cutoff >= 0.5 * min(np.diag(box)):
+                raise ValueError("the cutoff must be below half the box "
+                                 "width")
         self._box.copy_(torch.as_tensor(box, dtype=torch.float64))
 
     def getParameter(self, name) -> float:
@@ -625,9 +653,9 @@ class Context:
     # -- parameters in the Context -------------------------------------------
     def _nonbonded_module(self, force):
         module = self._modules.get(id(force))
-        if module is None or module is not self._nonbonded:
-            raise ValueError("the force is not this Context's "
-                             "NonbondedForce")
+        if module is None or module not in self._nonbondeds:
+            raise ValueError("the force is not a NonbondedForce of this "
+                             "Context")
         return module
 
     def _update_force_parameters(self, force) -> None:
@@ -895,9 +923,11 @@ class Context:
     # -- state -----------------------------------------------------------------
     def getState(self, getEnergy=False, getForces=False, getPositions=False,
                  getVelocities=False, getParameters=False,
-                 enforcePeriodicBox=False, groups=-1) -> State:
-        """A State; energy and forces sum the forces in `groups`: a bit
-        mask (-1, the default: all) or a collection of group numbers.
+                 enforcePeriodicBox=False, groups=-1,
+                 getParameterDerivatives=False) -> State:
+        """A State; energy, forces and parameter derivatives sum the forces
+        in `groups`: a bit mask (-1, the default: all) or a collection of
+        group numbers.
         The kinetic energy shifts the velocities by the integrator's
         _kinetic_energy_shift with these forces, as the JAX Context
         does. enforcePeriodicBox wraps each molecule whole into the home
@@ -923,7 +953,23 @@ class Context:
             kw["velocities"] = _host(s["velocities"])
         if getParameters:
             kw["parameters"] = self.getParameters()
+        if getParameterDerivatives:
+            if not self._positions_set:
+                raise RuntimeError("Particle positions have not been set")
+            kw["parameter_derivatives"] = self._parameter_derivatives(
+                _group_mask(groups))
         return State(**kw)
+
+    def _parameter_derivatives(self, groups) -> dict:
+        """{name: dE/dname} of the requested parameters, summed over the
+        custom forces in `groups` (0 where none reads the parameter)."""
+        pos, box = self._state["positions"], self._state["box"]
+        totals = {name: 0.0 for name in self._deriv_names}
+        for m in self._custom:
+            if (groups >> m.group) & 1:
+                for name, value in m.parameter_derivatives(pos, box).items():
+                    totals[name] += float(value)
+        return totals
 
     def _wrap_positions(self, pos, box):
         """Each molecule shifted by box vectors so that its centre of mass

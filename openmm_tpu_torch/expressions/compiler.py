@@ -11,6 +11,15 @@ numbers alone folds on the host (math), so an expression evaluates to a
 float or to a tensor and never reads a tensor back. A name that is neither
 a function of the set nor one the caller supplies raises
 NotImplementedError when the expression is compiled.
+
+compile_energy_derivatives compiles an energy with its partial
+derivatives (derivatives.py, symbolic, as OpenMM's Lepton takes them): one
+call evaluates the energy and every partial, each distinct subtree once
+(a cache keyed on the subtree's structure), so the derivative of a
+soft-core energy reuses the energy's x. A supplied function with partials
+is a Function: value(*args), and both(*args) -> (value, the list of its
+partials in its arguments), which a call whose partials the derivatives
+need takes, once.
 """
 from __future__ import annotations
 
@@ -18,6 +27,7 @@ import math
 
 import torch
 
+from .derivatives import differentiate, inline
 from .parser import ExpressionError, parse_expression, variables_in
 
 
@@ -140,6 +150,10 @@ def _emit(ast, env, defs, functions, stack):
                                   % (name, len(args)))
     a = _emit(ast[1], env, defs, functions, stack)
     b = _emit(ast[2], env, defs, functions, stack)
+    return _binary_op(kind, a, b)
+
+
+def _binary_op(kind, a, b):
     if kind == "+":
         return a + b
     if kind == "-":
@@ -218,3 +232,108 @@ def expression_variables(text) -> set:
     """The free variables of an expression, its definitions substituted."""
     main, defs = parse_expression(text)
     return variables_in(main, defs)
+
+
+class Function:
+    """A function the caller supplies, with its partial derivatives:
+    value(*args) -> tensor and both(*args) -> (tensor, [d/d arg_k])."""
+
+    def __init__(self, value, both):
+        self.value = value
+        self.both = both
+
+    def __call__(self, *args):
+        return self.value(*args)
+
+
+_MISSING = object()
+
+
+def evaluate(ast, env, functions, cache, paired=frozenset()):
+    """The value of an inlined (tuple) AST, each distinct subtree computed
+    once per `cache` (a dict the caller owns for one set of inputs); the
+    calls in `paired` ((name, argument ASTs) of a Function whose partials
+    will be asked for) take value and partials in one both() call."""
+    hit = cache.get(ast, _MISSING)
+    if hit is not _MISSING:
+        return hit
+    kind = ast[0]
+    if kind == "num":
+        out = ast[1]
+    elif kind == "var":
+        if ast[1] not in env:
+            raise ExpressionError("unknown variable %r" % ast[1])
+        out = env[ast[1]]
+    elif kind == "neg":
+        out = -evaluate(ast[1], env, functions, cache, paired)
+    elif kind == "call":
+        name = ast[1]
+        args = [evaluate(a, env, functions, cache, paired) for a in ast[2]]
+        if (name, ast[2]) in paired:
+            out, cache[("grad", name, ast[2])] = functions[name].both(*args)
+        elif name in functions:
+            out = functions[name](*args)
+        else:
+            out = {1: _FUNCS_1, 2: _FUNCS_2, 3: _FUNCS_3}[len(args)][name](
+                *args)
+    elif kind == "dcall":
+        _, name, k, arg_asts = ast
+        key = ("grad", name, arg_asts)
+        grads = cache.get(key, _MISSING)
+        if grads is _MISSING:
+            fn = functions.get(name)
+            if not isinstance(fn, Function):
+                raise NotImplementedError(
+                    "the function %r has no derivatives" % name)
+            grads = fn.both(*(evaluate(a, env, functions, cache, paired)
+                              for a in arg_asts))[1]
+            cache[key] = grads
+        out = grads[k]
+    else:
+        out = _binary_op(kind,
+                         evaluate(ast[1], env, functions, cache, paired),
+                         evaluate(ast[2], env, functions, cache, paired))
+    cache[ast] = out
+    return out
+
+
+def parse_inlined(text, functions=None):
+    """The main expression of `text` with its definitions substituted, as
+    a tuple AST; a call of an unknown function raises
+    NotImplementedError."""
+    main, defs = _parse_checked(text, functions or {})
+    return inline(main, defs)
+
+
+def compile_energy_derivatives(text, wrt, functions=None, ast=None):
+    """Compile into fn(env) -> (energy, [d energy / d name for name in
+    wrt]), each a tensor or a float (0.0 where the energy does not depend
+    on the name). `ast`: the inlined AST to compile in place of `text`'s
+    (a force that took its geometry calls out of it)."""
+    functions = functions or {}
+    main = parse_inlined(text, functions) if ast is None else ast
+    partials = [differentiate(main, name) for name in wrt]
+    paired = frozenset(_dcalls(partials))
+
+    def fn(env):
+        cache = {}
+        value = evaluate(main, env, functions, cache, paired)
+        return value, [evaluate(p, env, functions, cache, paired)
+                       for p in partials]
+
+    return fn
+
+
+def _dcalls(asts):
+    """(name, argument ASTs) of every supplied function's partial in
+    `asts`."""
+    for ast in asts:
+        kind = ast[0]
+        if kind == "dcall":
+            yield ast[1], ast[3]
+        elif kind == "call":
+            yield from _dcalls(ast[2])
+        elif kind == "neg":
+            yield from _dcalls([ast[1]])
+        elif kind not in ("num", "var"):
+            yield from _dcalls([ast[1], ast[2]])

@@ -100,10 +100,22 @@ def _dihedral(pos, quad, box):
                                pos[quad[:, 2]], pos[quad[:, 3]], box)
 
 
-def _dihedral_gradient(pos, quad, box):
-    """(phi, dphi/dr (m, 4, 3)) of the dihedrals quad (Blondel & Karplus
-    1996, written in b1 = r2 - r1, b2 = r3 - r2, b3 = r4 - r3)."""
-    r1, r2, r3, r4 = (pos[quad[:, a]] for a in range(4))
+def angle_gradient(v1, v2):
+    """(theta, dtheta/dv1, dtheta/dv2) of the angle between v1 and v2 (the
+    formulas of angle_ef, a straight angle with no gradient rather than
+    0/0)."""
+    c = torch.linalg.cross(v1, v2)
+    cn = torch.sqrt((c * c).sum(dim=-1))
+    theta = torch.atan2(cn, (v1 * v2).sum(dim=-1))
+    inv = 1.0 / torch.clamp(cn, min=1e-30)
+    g1 = (inv / (v1 * v1).sum(dim=-1))[:, None] * torch.linalg.cross(v1, c)
+    g2 = -(inv / (v2 * v2).sum(dim=-1))[:, None] * torch.linalg.cross(v2, c)
+    return theta, g1, g2
+
+
+def dihedral_gradient(r1, r2, r3, r4, box):
+    """(phi, dphi/dr (m, 4, 3)) of the dihedrals r1-r2-r3-r4 (Blondel &
+    Karplus 1996, written in b1 = r2 - r1, b2 = r3 - r2, b3 = r4 - r3)."""
     b1 = geom.delta(r2, r1, box)
     b2 = geom.delta(r3, r2, box)
     b3 = geom.delta(r4, r3, box)
@@ -121,6 +133,11 @@ def _dihedral_gradient(pos, quad, box):
     g2 = -g1 - s * g1 + t * g4
     g3 = s * g1 - t * g4 - g4
     return phi, torch.stack([g1, g2, g3, g4], dim=1)
+
+
+def _dihedral_gradient(pos, quad, box):
+    """(phi, dphi/dr (m, 4, 3)) of the dihedrals quad."""
+    return dihedral_gradient(*(pos[quad[:, a]] for a in range(4)), box)
 
 
 def torsion_energy(pos, idx, periodicity, phase, k, box=None):

@@ -937,6 +937,48 @@ class NonbondedModule(nn.Module):
         return energy + torch.where(state["overflow"] > 0, math.nan, 0.0)
 
 
+class CandidateSet:
+    """The NonbondedModules of a System, more than one, that keep a
+    candidate state: built together at one rebuild predicate (positions
+    and box of the last build, the smallest skin), as one state whose keys
+    carry each module's prefix ("m<k>_"), its "overflow" the sum of
+    theirs, so that the Context, the step program's one gate, the
+    escalation and the checkpoints handle it as one module's. The JAX
+    package keeps a refresher for each force (context.py:384-394)."""
+
+    def __init__(self, modules):
+        self.modules = list(modules)
+        self.skin = min(m.skin for m in self.modules)
+
+    @property
+    def capacity_scale(self) -> float:
+        return self.modules[0].capacity_scale
+
+    @capacity_scale.setter
+    def capacity_scale(self, value) -> None:
+        for m in self.modules:
+            m.capacity_scale = value
+
+    def build_state(self, pos, box) -> dict:
+        out, overflow = {}, None
+        for k, m in enumerate(self.modules):
+            st = m.build_state(pos, box)
+            out.update({"m%d_%s" % (k, key): v for key, v in st.items()})
+            overflow = (st["overflow"] if overflow is None
+                        else overflow + st["overflow"])
+        out["overflow"] = overflow
+        return out
+
+    def module_state(self, module, state):
+        """The part of `state` that belongs to `module` (None for a module
+        not in the set)."""
+        if module not in self.modules:
+            return None
+        prefix = "m%d_" % self.modules.index(module)
+        return {key[len(prefix):]: v for key, v in state.items()
+                if key.startswith(prefix)}
+
+
 def _c6(sigma, epsilon):
     """The geometric dispersion coefficient of each particle, c6_i =
     2 sqrt(eps_i) sigma_i^3 (so that c6_i c6_j = 4 sqrt(eps_i eps_j)

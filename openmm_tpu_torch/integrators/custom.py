@@ -39,7 +39,18 @@ Random numbers come from the Context's generator, one draw per operation
 that names uniform or gaussian (per DOF, or one number for a global).
 A draw inside an if block is made before the block, whether it runs or
 not, so that a step draws a fixed count and the captured graph and the
-eager loop draw the same numbers; a while block may not draw.
+eager loop draw the same numbers. A while block runs a count of times
+that only the card knows, and a draw from the generator inside a
+captured body would repeat the same numbers at every pass (the graph
+fixes its offsets at capture). So a program that draws inside a while
+block takes one seed a step from the generator, at the step's start, and
+every draw inside a while block (its body or its condition) advances a
+device counter and hashes (seed, counter, element) into its numbers
+(_hashed: 53-bit uniforms, gaussians by Box-Muller): the same arithmetic
+on the device in the eager loop and in the graph, so their bits agree,
+and a new counter value for every draw of the step. The JAX package
+threads its key through the loop (openmm_tpu/integrators/custom.py
+:446-462).
 """
 from __future__ import annotations
 
@@ -68,6 +79,32 @@ _COND_RE = re.compile(r"^(.*?)(<=|>=|!=|=|<|>)(.*)$")
 _COMPARE = {"=": operator.eq, "!=": operator.ne, "<": operator.lt,
             "<=": operator.le, ">": operator.gt, ">=": operator.ge}
 _RANDOM = ("gaussian", "uniform")
+_M32 = 0xFFFFFFFF
+
+
+def _mix(x):
+    """A 32-bit integer hash of int64 values in [0, 2^32) (every product
+    stays below 2^63)."""
+    x = (((x >> 16) ^ x) * 0x45D9F3B) & _M32
+    x = (((x >> 16) ^ x) * 0x45D9F3B) & _M32
+    return (x >> 16) ^ x
+
+
+def _hashed(seed, counter, shape, gaussian, device):
+    """float64 numbers of `shape` from the int64 device scalars seed and
+    counter: uniforms in [0, 1) of 53 bits, or gaussians by Box-Muller."""
+    numel = 1
+    for d in shape:
+        numel *= d
+    count = 2 * numel if gaussian else numel
+    key = _mix((_mix(seed & _M32) ^ (counter & _M32)) & _M32)
+    h = _mix(key ^ _mix(torch.arange(2 * count, device=device)))
+    u = ((h[0::2] >> 6) * (1 << 27) + (h[1::2] >> 5)).to(torch.float64) \
+        * 2.0 ** -53
+    if gaussian:
+        u = (torch.sqrt(-2.0 * torch.log(1.0 - u[:numel]))
+             * torch.cos((2.0 * np.pi) * u[numel:]))
+    return u.reshape(shape)
 
 
 def _group_of(name):
@@ -298,12 +335,12 @@ class CustomIntegrator(Integrator):
             if unknown:
                 raise ExpressionError("unknown variable %s in %r" % (
                     ", ".join(sorted(unknown)), expr.text))
-        for node in self._walk(self._tree_nodes, "while"):
-            for expr in self._exprs([node]):
-                if expr.randoms:
-                    raise NotImplementedError(
-                        "a random number (%s) inside a while block: the "
-                        "port draws a fixed count a step" % expr.text)
+        # [seed, counter] of the draws inside while blocks
+        self._loop_rng = None
+        if any(expr.randoms
+               for node in self._walk(self._tree_nodes, "while")
+               for expr in self._exprs([node])):
+            self._loop_rng = torch.zeros(2, dtype=torch.int64, device=dev)
         self._globals = torch.tensor([v for _, v in self._global_vars],
                                      **f64)
         self._perdof = {}
@@ -338,7 +375,8 @@ class CustomIntegrator(Integrator):
             return []
         return ([self._globals] + list(self._perdof.values())
                 + [self._xref] + self._fbuf + self._ebuf + self._fpos
-                + self._fbox + self._fgp)
+                + self._fbox + self._fgp
+                + ([] if self._loop_rng is None else [self._loop_rng]))
 
     # -- kinetic energy ------------------------------------------------------
     def _kinetic_energy_shift(self) -> float:
@@ -405,6 +443,7 @@ class _Step:
         self.trace = _Trace()
         self.box = None
         self.randoms = {}           # id(_Expr) -> drawn numbers
+        self.in_loop = 0            # the depth of while blocks being walked
 
     def __call__(self, pos, vel, box):
         integ = self.integ
@@ -415,6 +454,13 @@ class _Step:
         self.box = box
         self.trace = _Trace()
         self.randoms = {}
+        rng = integ._loop_rng
+        if rng is not None:
+            # the step's seed of the draws inside while blocks
+            rng[0].copy_(torch.randint(
+                0, 2 ** 31 - 1, (), generator=self.deps.generator,
+                device=rng.device))
+            rng[1].zero_()
         self._nodes(integ._tree_nodes, top=True)
         self.deps.step.add_(1)
         return x.clone(), v.clone()
@@ -469,10 +515,25 @@ class _Step:
                            device=deps.inv_masses.device)
         return out
 
+    def _loop_draw(self, expr, perdof):
+        """The random numbers `expr` names inside a while block: each a
+        new counter value hashed with the step's seed."""
+        rng = self.integ._loop_rng
+        shape = (self.n, 3) if perdof else ()
+        out = {}
+        for name in expr.randoms:
+            rng[1].add_(1)
+            out[name] = _hashed(rng[0], rng[1], shape, name == "gaussian",
+                                rng.device)
+        return out
+
     def _predraw(self, nodes):
         """Draw, before a block, the random numbers its operations and
-        the conditions of its inner blocks name."""
+        the conditions of its inner if blocks name (a while block's come
+        from _loop_draw)."""
         for node in nodes:
+            if node[0] == "while":
+                continue
             if node[0] == "op":
                 exprs = [(node[3], node[1] != ComputeGlobal)]
             else:
@@ -493,7 +554,8 @@ class _Step:
             else:
                 env["energy%d" % g], env["f%d" % g] = e, f
         if expr.randoms:
-            env.update(self._draw(expr, perdof) if top
+            env.update(self._loop_draw(expr, perdof) if self.in_loop
+                       else self._draw(expr, perdof) if top
                        else self.randoms[id(expr)])
         return expr.fn(env)
 
@@ -536,11 +598,19 @@ class _Step:
     def _while(self, node, top):
         _, cond, children = node
 
+        def inside(fn):
+            self.in_loop += 1
+            try:
+                return fn()
+            finally:
+                self.in_loop -= 1
+
         def body():
             self.trace = _Trace()
-            self._nodes(children, False)
+            inside(lambda: self._nodes(children, False))
 
-        self.deps.loop(lambda: self._condition(cond, False), body)
+        self.deps.loop(lambda: inside(lambda: self._condition(cond, False)),
+                       body)
         self.trace = _Trace()
 
     def _op(self, node, top):

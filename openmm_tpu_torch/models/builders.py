@@ -30,6 +30,19 @@ repository: 19 lipids of the patch's upper leaflet (2,546 atoms) with the
 lipid template's amber14-lipid parameters, its OBC2 radii and screens
 (data/popc_bilayer.npz, from the JAX package's
 app/gbforces.py:standard_gb_parameters), and the suite's settings.
+
+alchemical_water_box is the water box with its first waters as the
+solute of an alchemical free-energy run, in the form that OpenMM's
+alchemy tools (openmmtools.alchemy) give such a system: the solute's
+charges follow a global parameter lambda_electrostatics through particle
+offsets of the NonbondedForce, its Lennard-Jones interactions with the
+solvent a soft-core CustomNonbondedForce of lambda_sterics (one
+interaction group, solute against solvent, with the derivative dE/dlambda
+requested), the solute's own Lennard-Jones pairs a CustomBondForce, and
+two restraints: a flat-bottom CustomExternalForce on the solute's oxygens
+and a harmonic CustomCentroidBondForce between the centroids of the
+solute's two halves. custom_twins rewrites a System's bonds, angles and
+torsions as custom forces of the same terms (the bilayer's twins).
 """
 from __future__ import annotations
 
@@ -38,6 +51,10 @@ import os
 
 import numpy as np
 
+from ..forces.custom import (CustomAngleForce, CustomBondForce,
+                             CustomCentroidBondForce,
+                             CustomCompoundBondForce, CustomExternalForce,
+                             CustomNonbondedForce, CustomTorsionForce)
 from ..forces.gbsa import GBSAOBCForce
 from ..forces.nonbonded import NonbondedForce
 from ..system import System, ThreeParticleAverageSite, from_numpy
@@ -307,3 +324,161 @@ def popc_bilayer():
     params = replicate_templates(data, data["residue_template"])
     params["box"] = np.diag(data["box"].astype(np.float64))
     return from_numpy(params), data["positions"].astype(np.float64)
+
+
+SOFTCORE = ("4*epsilon*lambda_sterics*(1/x^2-1/x); "
+            "x=(r/sigma)^6+0.5*(1-lambda_sterics); sigma=0.5*(sigma1+sigma2); "
+            "epsilon=sqrt(epsilon1*epsilon2)")
+# the alchemical box's force groups: the NonbondedForce in 0
+ALCHEMICAL_GROUPS = {"CustomNonbondedForce": 1, "CustomBondForce": 2,
+                     "CustomExternalForce": 3, "CustomCentroidBondForce": 4}
+RESTRAINT_K = 1000.0        # kJ/mol/nm^2, the flat bottom's
+RESTRAINT_D0 = 0.3          # nm, the flat bottom's radius
+CENTROID_K = 100.0          # kJ/mol/nm^2
+
+
+def alchemical_water_box(n_waters=8000, n_solute=64, cutoff=0.9):
+    """tip3p_water_box(n_waters) (PME at `cutoff`) with its first n_solute
+    waters as an alchemical solute (the module's docstring): the
+    NonbondedForce keeps the solute's charges through offsets of
+    lambda_electrostatics (base charge 0) and its epsilon at 0; the
+    soft-core SOFTCORE at CutoffPeriodic `cutoff` over (solute, solvent),
+    with the NonbondedForce's exclusions; the solute's oxygen pairs by
+    plain Lennard-Jones (periodic); k max(0, d - d0)^2 on each solute
+    oxygen's distance from its start; (k/2)(d - d0)^2 on the distance of
+    the centroids (mass weights) of the solute's two halves from its
+    start. Each custom force in its group of ALCHEMICAL_GROUPS. Returns
+    (system, positions)."""
+    system, positions = tip3p_water_box(n_waters, cutoff=cutoff)
+    (nb,) = system.getForces()
+    n = system.getNumParticles()
+    solute = list(range(3 * n_solute))
+    solvent = list(range(3 * n_solute, n))
+    base = [nb.getParticleParameters(i) for i in range(n)]
+    nb.addGlobalParameter("lambda_electrostatics", 1.0)
+    for i in solute:
+        q, sigma, _ = base[i]
+        nb.setParticleParameters(i, 0.0, sigma, 0.0)
+        nb.addParticleParameterOffset("lambda_electrostatics", i, q, 0.0,
+                                      0.0)
+    box = system.getDefaultPeriodicBoxVectors()
+
+    soft = CustomNonbondedForce(SOFTCORE)
+    soft.addGlobalParameter("lambda_sterics", 1.0)
+    soft.addEnergyParameterDerivative("lambda_sterics")
+    soft.addPerParticleParameter("sigma")
+    soft.addPerParticleParameter("epsilon")
+    for _, sigma, eps in base:
+        soft.addParticle([sigma, eps])
+    soft.setNonbondedMethod(CustomNonbondedForce.CutoffPeriodic)
+    soft.setCutoffDistance(nb.getCutoffDistance())
+    for k in range(nb.getNumExceptions()):
+        soft.addExclusion(*nb.getExceptionParameters(k)[:2])
+    soft.addInteractionGroup(solute, solvent)
+
+    oxygens = solute[::3]
+    lj = CustomBondForce("4*epsilon*((sigma/r)^12-(sigma/r)^6)")
+    lj.addPerBondParameter("sigma")
+    lj.addPerBondParameter("epsilon")
+    for a, i in enumerate(oxygens):
+        for j in oxygens[a + 1:]:
+            lj.addBond(i, j, [0.5 * (base[i][1] + base[j][1]),
+                              math.sqrt(base[i][2] * base[j][2])])
+    lj.setUsesPeriodicBoundaryConditions(True)
+
+    restraint = CustomExternalForce(
+        "k_restraint*max(0, periodicdistance(x,y,z,x0,y0,z0)-d0_restraint)^2")
+    restraint.addGlobalParameter("k_restraint", RESTRAINT_K)
+    restraint.addGlobalParameter("d0_restraint", RESTRAINT_D0)
+    for name in ("x0", "y0", "z0"):
+        restraint.addPerParticleParameter(name)
+    for i in oxygens:
+        restraint.addParticle(i, list(positions[i]))
+
+    centroid = CustomCentroidBondForce(
+        2, "0.5*k_centroid*(distance(g1,g2)-r0)^2")
+    centroid.addGlobalParameter("k_centroid", CENTROID_K)
+    centroid.addPerBondParameter("r0")
+    half = len(solute) // 2 // 3 * 3
+    halves = (solute[:half], solute[half:])
+    masses = np.asarray([system.getParticleMass(i) for i in range(n)])
+    for atoms in halves:
+        centroid.addGroup(atoms)
+    d = np.subtract(*(np.average(positions[list(a)], axis=0,
+                                 weights=masses[list(a)]) for a in halves))
+    widths = np.diag(box)
+    d -= widths * np.round(d / widths)
+    centroid.addBond([0, 1], [float(np.linalg.norm(d))])
+    centroid.setUsesPeriodicBoundaryConditions(True)
+
+    for force in (soft, lj, restraint, centroid):
+        force.setForceGroup(ALCHEMICAL_GROUPS[type(force).__name__])
+        system.addForce(force)
+    return system, positions
+
+
+# the twins' force groups; the torsions' compound twin is read, not
+# integrated
+TWIN_GROUPS = {"CustomBondForce": 1, "CustomAngleForce": 2,
+               "CustomTorsionForce": 3, "CustomCompoundBondForce": 5}
+TWIN_INTEGRATION_GROUPS = (0, 1, 2, 3)
+
+
+def custom_twins(system):
+    """A System of `system`'s particles, constraints and box with its
+    other forces (the same objects) and each of its HarmonicBond,
+    HarmonicAngle and PeriodicTorsion forces replaced by a custom twin of
+    the same terms, plus the torsions once more as a
+    CustomCompoundBondForce over dihedral(p1,p2,p3,p4); the twins in
+    TWIN_GROUPS (integrate TWIN_INTEGRATION_GROUPS, or the torsions count
+    twice). Returns (twin system, {twin kind: (standard force, twin)})."""
+    twin = System()
+    for i in range(system.getNumParticles()):
+        twin.addParticle(system.getParticleMass(i))
+    for i in range(system.getNumConstraints()):
+        twin.addConstraint(*system.getConstraintParameters(i))
+    twin.setDefaultPeriodicBoxVectors(*system.getDefaultPeriodicBoxVectors())
+    for index, site in system._vsites.items():
+        twin.setVirtualSite(index, site)
+    pairs = {}
+    for force in system.getForces():
+        kind = type(force).__name__
+        if kind == "HarmonicBondForce":
+            t = CustomBondForce("0.5*k*(r-r0)^2")
+            for name in ("r0", "k"):
+                t.addPerBondParameter(name)
+            for i in range(force.getNumBonds()):
+                a, b, r0, k = force.getBondParameters(i)
+                t.addBond(a, b, [r0, k])
+        elif kind == "HarmonicAngleForce":
+            t = CustomAngleForce("0.5*k*(theta-theta0)^2")
+            for name in ("theta0", "k"):
+                t.addPerAngleParameter(name)
+            for i in range(force.getNumAngles()):
+                a, b, c, theta0, k = force.getAngleParameters(i)
+                t.addAngle(a, b, c, [theta0, k])
+        elif kind == "PeriodicTorsionForce":
+            t = CustomTorsionForce("k*(1+cos(n*theta-phase))")
+            compound = CustomCompoundBondForce(
+                4, "k*(1+cos(n*dihedral(p1,p2,p3,p4)-phase))")
+            for name in ("n", "phase", "k"):
+                t.addPerTorsionParameter(name)
+                compound.addPerBondParameter(name)
+            for i in range(force.getNumTorsions()):
+                a, b, c, d, n, phase, k = force.getTorsionParameters(i)
+                t.addTorsion(a, b, c, d, [n, phase, k])
+                compound.addBond([a, b, c, d], [n, phase, k])
+            compound.setForceGroup(TWIN_GROUPS["CustomCompoundBondForce"])
+            pairs["CustomCompoundBondForce"] = (force, compound)
+        else:
+            twin.addForce(force)
+            continue
+        periodic = force.usesPeriodicBoundaryConditions()
+        t.setUsesPeriodicBoundaryConditions(periodic)
+        if kind == "PeriodicTorsionForce":
+            compound.setUsesPeriodicBoundaryConditions(periodic)
+        t.setForceGroup(TWIN_GROUPS[type(t).__name__])
+        pairs[type(t).__name__] = (force, t)
+        twin.addForce(t)
+    twin.addForce(pairs["CustomCompoundBondForce"][1])
+    return twin, pairs

@@ -14,6 +14,8 @@ objective, spends its time.
     python3 -m openmm_tpu_torch.profile_step --integrator verlet
     python3 -m openmm_tpu_torch.profile_step --integrator custom_verlet
     python3 -m openmm_tpu_torch.profile_step --system bilayer --integrator mts
+    python3 -m openmm_tpu_torch.profile_step --system alchemical
+    python3 -m openmm_tpu_torch.profile_step --system custom_bilayer
 
 Builds the 24,000-atom TIP3P PME box (--system water, the default), the
 32,512-atom POPC bilayer (--system bilayer: amber14-lipid + TIP3P,
@@ -22,7 +24,12 @@ POPC cluster in implicit solvent (--system popc_obc: the reference
 suite's dhfr_gbsa settings, GBSAOBCForce and the NonbondedForce at
 CutoffNonPeriodic 2.0 nm, every pair; it takes no --method), or --waters
 TIP4P-Ew waters (--system tip4pew, four particles a water, the M site a
-virtual site). --method picks the
+virtual site), the water box as an alchemical run (--system alchemical:
+models.alchemical_water_box, 64 solute waters, the soft-core
+CustomNonbondedForce and three more custom forces) or the bilayer with
+its bonds, angles and torsions as custom forces (--system custom_bilayer:
+models.builders.custom_twins, the torsions' compound twin read but not
+integrated). --method picks the
 NonbondedForce's method: pme (the default, 0.9 nm), rf (CutoffPeriodic at
 1.0 nm, the reference suite's rf settings), ljpme (0.9 nm, the dispersion
 grid beside the Coulomb one), ewald (0.9 nm; the water box
@@ -92,8 +99,9 @@ from . import (AMDForceGroupIntegrator, AndersenThermostat,
                NoseHooverIntegrator, PeriodicTorsionForce,
                VariableLangevinIntegrator, VerletIntegrator)
 from .forces.nonbonded import NonbondedForce
-from .models import (popc_bilayer, popc_obc_cluster, tip3p_water_box,
-                     tip4pew_water_box, water_droplet)
+from .models import (alchemical_water_box, popc_bilayer, popc_obc_cluster,
+                     tip3p_water_box, tip4pew_water_box, water_droplet)
+from .models.builders import TWIN_INTEGRATION_GROUPS, custom_twins
 from .step_program import GATING
 
 ATTEMPTS = 10       # barostat attempts timed alone (--barostat)
@@ -173,6 +181,13 @@ def _system(name, n_waters, method="pme"):
             raise ValueError("--system tip4pew takes pme or ljpme")
         return (*tip4pew_water_box(n_waters, nonbonded_method=nb_method,
                                    cutoff=cutoff), 300.0)
+    if name in ("alchemical", "custom_bilayer") and method != "pme":
+        raise ValueError("--system %s takes no --method" % name)
+    if name == "alchemical":
+        return (*alchemical_water_box(n_waters), 300.0)
+    if name == "custom_bilayer":
+        system, positions = popc_bilayer()
+        return custom_twins(system)[0], positions, 303.15
     if name == "bilayer":
         if method not in ("pme", "rf", "ljpme"):
             raise ValueError("--method %s takes the water system" % method)
@@ -297,6 +312,8 @@ def profile_steps(device, n_waters=8000, steps=50, top=20,
         system.addForce(force)
     integ = LangevinMiddleIntegrator(temperature, 50.0, 0.0005)
     integ.setRandomNumberSeed(3)
+    if system_name == "custom_bilayer":
+        integ.setIntegrationForceGroups(TWIN_INTEGRATION_GROUPS)
     ctx = _context(device, system, integ)
     ctx.setPositions(positions)
     ctx.applyConstraints()
@@ -401,7 +418,8 @@ def main() -> None:
     parser.add_argument("--evaluations", type=int, default=20)
     parser.add_argument("--waters", type=int, default=8000)
     parser.add_argument("--system", choices=("water", "bilayer", "popc_obc",
-                                             "tip4pew"),
+                                             "tip4pew", "alchemical",
+                                             "custom_bilayer"),
                         default="water",
                         help="the system whose MD step (or objective) is "
                         "profiled")

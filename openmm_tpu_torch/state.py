@@ -2,7 +2,8 @@
 
 Counterpart of openmm_tpu/state.py, without units (nm, ps, kJ/mol): the
 time, the step count, the box, and what getState was asked for: positions,
-velocities, forces, energies and the global parameters.
+velocities, forces, energies, the global parameters and the energy
+parameter derivatives.
 """
 from __future__ import annotations
 
@@ -14,10 +15,12 @@ class State:
     Forces = 4
     Energy = 8
     Parameters = 16
+    ParameterDerivatives = 32
 
     def __init__(self, time=0.0, step=0, box=None, positions=None,
                  velocities=None, forces=None, potential_energy=None,
-                 kinetic_energy=None, parameters=None):
+                 kinetic_energy=None, parameters=None,
+                 parameter_derivatives=None):
         self._time = float(time)
         self._step = int(step)
         self._box = box
@@ -27,6 +30,7 @@ class State:
         self._pe = potential_energy
         self._ke = kinetic_energy
         self._parameters = parameters
+        self._derivatives = parameter_derivatives
 
     @staticmethod
     def _need(value, what):
@@ -61,12 +65,18 @@ class State:
     def getParameters(self) -> dict:
         return dict(self._need(self._parameters, "parameters"))
 
+    def getEnergyParameterDerivatives(self) -> dict:
+        """{parameter: dE/dparameter} of the parameters the forces
+        requested (addEnergyParameterDerivative)."""
+        return dict(self._need(self._derivatives, "parameter derivatives"))
+
     def getDataTypes(self) -> int:
         """The flags of the data this State holds."""
         held = ((self._positions, State.Positions),
                 (self._velocities, State.Velocities),
                 (self._forces, State.Forces), (self._ke, State.Energy),
-                (self._parameters, State.Parameters))
+                (self._parameters, State.Parameters),
+                (self._derivatives, State.ParameterDerivatives))
         types = 0
         for value, flag in held:
             if value is not None:

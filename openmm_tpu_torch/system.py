@@ -21,9 +21,13 @@ from .forces.bonded import (CMAPTorsionForce, HarmonicAngleForce,
                             HarmonicBondForce, PeriodicTorsionForce,
                             RBTorsionForce)
 from .forces.cmmotion import CMMotionRemover
+from .forces.custom import (CUSTOM_FORCES, CustomCentroidBondForce,
+                            CustomCompoundBondForce, CustomExternalForce,
+                            CustomNonbondedForce)
 from .forces.gbsa import GBSAOBCForce
 from .forces.nonbonded import NonbondedForce
 from .forces.thermostats import AndersenThermostat
+from .tabulated import TABULATED_FUNCTIONS
 
 _METHODS = {"NoCutoff": NonbondedForce.NoCutoff,
             "CutoffNonPeriodic": NonbondedForce.CutoffNonPeriodic,
@@ -258,7 +262,10 @@ def from_numpy(params: dict) -> System:
     weights)] with kind "average2", "average3" (weights w_i),
     "outofplane" (w12, w13, wcross) or "local" (the origin, x and y
     weights of each parent one list after another, then the local
-    position)."""
+    position). extra_nonbonded: a list of dicts with the NonbondedForce
+    keys above (and "group"), one more NonbondedForce each, added after
+    the first. custom_forces: a list of custom_spec dicts, one custom
+    force each, added last in their order."""
     system = System()
     for m in np.asarray(params["masses"], np.float64):
         system.addParticle(m)
@@ -267,6 +274,19 @@ def from_numpy(params: dict) -> System:
         system.addConstraint(i, j, d)
     system.setDefaultPeriodicBoxVectors(*np.asarray(params["box"]))
     groups = params.get("force_groups", {})
+    for site in params.get("vsites", ()):
+        system.setVirtualSite(site[0], _make_vsite(*site[1:]))
+    system.addForce(_nonbonded(params, groups.get("nonbonded", 0)))
+    for extra in params.get("extra_nonbonded", ()):
+        system.addForce(_nonbonded(extra, extra.get("group", 0)))
+    _add_other_forces(system, params, groups)
+    for spec in params.get("custom_forces", ()):
+        system.addForce(custom_force(spec))
+    return system
+
+
+def _nonbonded(params, group) -> NonbondedForce:
+    """A NonbondedForce from from_numpy's NonbondedForce keys."""
     nb = NonbondedForce()
     nb.setNonbondedMethod(_METHODS[params["method"]])
     nb.setCutoffDistance(params["cutoff"])
@@ -296,10 +316,13 @@ def from_numpy(params: dict) -> System:
         nb.addParticleParameterOffset(*offset)
     for offset in params.get("exception_offsets", ()):
         nb.addExceptionParameterOffset(*offset)
-    for site in params.get("vsites", ()):
-        system.setVirtualSite(site[0], _make_vsite(*site[1:]))
-    nb.setForceGroup(groups.get("nonbonded", 0))
-    system.addForce(nb)
+    nb.setForceGroup(group)
+    return nb
+
+
+def _add_other_forces(system, params, groups) -> None:
+    """The forces of from_numpy's keys after the NonbondedForces, in its
+    order."""
     if "gb_charges" in params:
         gb = GBSAOBCForce()
         gb.setNonbondedMethod(_GB_METHODS[str(params["gb_method"])])
@@ -348,7 +371,121 @@ def from_numpy(params: dict) -> System:
         thermostat.setRandomNumberSeed(int(params.get("andersen_seed", 0)))
         thermostat.setForceGroup(groups.get("andersen", 0))
         system.addForce(thermostat)
-    return system
+
+
+def _function_spec(name, fn) -> tuple:
+    """(name, class name, constructor arguments, periodic) of a tabulated
+    function."""
+    args = fn.getFunctionParameters()
+    kind = type(fn).__name__
+    if kind == "Discrete1DFunction":
+        args = (args,)
+    return (name, kind, tuple(args), fn.getPeriodic())
+
+
+def make_function(kind, args, periodic):
+    """A tabulated function of this package from _function_spec's parts."""
+    cls = TABULATED_FUNCTIONS[kind]
+    return cls(*args, periodic) if kind.startswith("Continuous") \
+        else cls(*args)
+
+
+def custom_spec(force) -> dict:
+    """A custom force as plain data: kind (the class name), energy,
+    group, globals [(name, default)], derivatives, functions [(name,
+    class name, constructor arguments, periodic)], parameters (the
+    per-term or per-particle names), terms [(atoms, parameters)] (atoms
+    empty for CustomNonbondedForce's particles), periodic; with the
+    kind's own keys: particles_per_bond, groups_per_bond and groups
+    [(particles, weights or None)], and CustomNonbondedForce's method,
+    cutoff, switch_distance (negative: none), long_range_correction,
+    exclusions and interaction_groups."""
+    kind = type(force).__name__
+    spec = {"kind": kind, "energy": force.getEnergyFunction(),
+            "group": force.getForceGroup(),
+            "globals": list(force._global_params),
+            "derivatives": list(force._deriv_requests),
+            "functions": [_function_spec(name, fn)
+                          for name, fn in force._functions],
+            "periodic": force.usesPeriodicBoundaryConditions()}
+    if isinstance(force, CustomNonbondedForce):
+        spec.update(parameters=list(force._per_particle),
+                    terms=[((), list(p)) for p in force._particles],
+                    method=force.getNonbondedMethod(),
+                    cutoff=force.getCutoffDistance(),
+                    switch_distance=(force.getSwitchingDistance()
+                                     if force.getUseSwitchingFunction()
+                                     else -1.0),
+                    long_range_correction=force.getUseLongRangeCorrection(),
+                    exclusions=list(force._exclusions),
+                    interaction_groups=list(force._groups))
+        return spec
+    if isinstance(force, CustomExternalForce):
+        spec.update(parameters=list(force._per_particle),
+                    terms=[((t[0],), list(t[1])) for t in force._terms])
+        return spec
+    spec.update(parameters=list(force._per_term),
+                terms=[(tuple(a), list(p)) for a, p in force._terms])
+    if isinstance(force, CustomCompoundBondForce):
+        spec["particles_per_bond"] = force._n_atoms
+    elif isinstance(force, CustomCentroidBondForce):
+        spec["groups_per_bond"] = force._n_groups
+        spec["groups"] = [(tuple(p), None if w is None else list(w))
+                          for p, w in force._groups]
+    return spec
+
+
+def custom_force(spec):
+    """The custom force of a custom_spec dict."""
+    kind = spec["kind"]
+    cls = {c.__name__: c for c in CUSTOM_FORCES}[kind]
+    if kind == "CustomCompoundBondForce":
+        force = cls(spec["particles_per_bond"], spec["energy"])
+    elif kind == "CustomCentroidBondForce":
+        force = cls(spec["groups_per_bond"], spec["energy"])
+        for particles, weights in spec["groups"]:
+            force.addGroup(particles, weights)
+    else:
+        force = cls(spec["energy"])
+    for name, default in spec.get("globals", ()):
+        force.addGlobalParameter(name, default)
+    for name in spec.get("derivatives", ()):
+        force.addEnergyParameterDerivative(name)
+    for name, fkind, args, periodic in spec.get("functions", ()):
+        force.addTabulatedFunction(name, make_function(fkind, args,
+                                                       periodic))
+    per = ("addPerParticleParameter"
+           if kind in ("CustomNonbondedForce", "CustomExternalForce")
+           else "addPerBondParameter" if kind in (
+               "CustomBondForce", "CustomCompoundBondForce",
+               "CustomCentroidBondForce")
+           else "addPer%sParameter" % kind[len("Custom"):-len("Force")])
+    for name in spec.get("parameters", ()):
+        getattr(force, per)(name)
+    add = {"CustomNonbondedForce": lambda a, p: force.addParticle(p),
+           "CustomExternalForce": lambda a, p: force.addParticle(a[0], p),
+           "CustomBondForce": lambda a, p: force.addBond(*a, p),
+           "CustomAngleForce": lambda a, p: force.addAngle(*a, p),
+           "CustomTorsionForce": lambda a, p: force.addTorsion(*a, p),
+           "CustomCompoundBondForce": lambda a, p: force.addBond(a, p),
+           "CustomCentroidBondForce": lambda a, p: force.addBond(a, p)}[kind]
+    for atoms, p in spec["terms"]:
+        add(atoms, p)
+    if kind == "CustomNonbondedForce":
+        force.setNonbondedMethod(spec["method"])
+        force.setCutoffDistance(spec["cutoff"])
+        if spec["switch_distance"] >= 0:
+            force.setUseSwitchingFunction(True)
+            force.setSwitchingDistance(spec["switch_distance"])
+        force.setUseLongRangeCorrection(spec["long_range_correction"])
+        for i, j in spec["exclusions"]:
+            force.addExclusion(i, j)
+        for set1, set2 in spec["interaction_groups"]:
+            force.addInteractionGroup(set1, set2)
+    elif kind != "CustomExternalForce":
+        force.setUsesPeriodicBoundaryConditions(spec["periodic"])
+    force.setForceGroup(spec.get("group", 0))
+    return force
 
 
 def _make_vsite(kind, parents, weights):
@@ -430,30 +567,54 @@ def _gb_params(force) -> dict:
 
 
 def to_numpy(system: System) -> dict:
-    """The inverse of from_numpy for a System with one NonbondedForce and
-    at most one force of each other kind (one barostat), which are in
-    from_numpy's order where the order matters (the update hooks)."""
+    """The inverse of from_numpy for a System with NonbondedForces, at
+    most one force of each other standard kind (one barostat) and custom
+    forces, which are in from_numpy's order where the order matters (the
+    update hooks)."""
     forces = system.getForces()
-    (nb,) = [f for f in forces if isinstance(f, NonbondedForce)]
+    nb, *extra = [f for f in forces if isinstance(f, NonbondedForce)]
+    cons = [system.getConstraintParameters(i)
+            for i in range(system.getNumConstraints())]
+    out = {
+        "masses": np.asarray([system.getParticleMass(i) for i in
+                              range(system.getNumParticles())], np.float64),
+        "constraint_pairs": np.asarray([c[:2] for c in cons],
+                                       np.int64).reshape(-1, 2),
+        "constraint_distances": np.asarray([c[2] for c in cons], np.float64),
+        "box": system.getDefaultPeriodicBoxVectors(),
+    }
+    out.update(_nonbonded_params(nb))
+    if extra:
+        out["extra_nonbonded"] = [dict(_nonbonded_params(f),
+                                       group=f.getForceGroup())
+                                  for f in extra]
+    custom = [custom_spec(f) for f in forces if isinstance(f, CUSTOM_FORCES)]
+    if custom:
+        out["custom_forces"] = custom
+    if system._vsites:
+        out["vsites"] = [_vsite_entry(i, site)
+                         for i, site in sorted(system._vsites.items())]
+    groups = {"nonbonded": nb.getForceGroup()}
+    _other_params(forces, out, groups)
+    groups = {k: g for k, g in groups.items() if g}
+    if groups:
+        out["force_groups"] = groups
+    return out
+
+
+def _nonbonded_params(nb) -> dict:
+    """from_numpy's NonbondedForce keys of a NonbondedForce."""
     part = np.asarray([nb.getParticleParameters(i)
                        for i in range(nb.getNumParticles())],
                       np.float64).reshape(-1, 3)
     exc = [nb.getExceptionParameters(i) for i in range(nb.getNumExceptions())]
-    cons = [system.getConstraintParameters(i)
-            for i in range(system.getNumConstraints())]
     method = {v: k for k, v in _METHODS.items()}[nb.getNonbondedMethod()]
     out = {
-        "masses": np.asarray([system.getParticleMass(i) for i in
-                              range(system.getNumParticles())], np.float64),
         "charges": part[:, 0], "sigma": part[:, 1], "epsilon": part[:, 2],
         "exception_pairs": np.asarray([e[:2] for e in exc],
                                       np.int64).reshape(-1, 2),
         "exception_params": np.asarray([e[2:] for e in exc],
                                        np.float64).reshape(-1, 3),
-        "constraint_pairs": np.asarray([c[:2] for c in cons],
-                                       np.int64).reshape(-1, 2),
-        "constraint_distances": np.asarray([c[2] for c in cons], np.float64),
-        "box": system.getDefaultPeriodicBoxVectors(),
         "cutoff": nb.getCutoffDistance(), "method": method,
         "ewald_tolerance": nb.getEwaldErrorTolerance(),
         "dispersion_correction": nb.getUseDispersionCorrection(),
@@ -477,10 +638,12 @@ def to_numpy(system: System) -> dict:
                        ("exception_offsets", nb._exception_offsets)):
         if items:
             out[key] = list(items)
-    if system._vsites:
-        out["vsites"] = [_vsite_entry(i, site)
-                         for i, site in sorted(system._vsites.items())]
-    groups = {"nonbonded": nb.getForceGroup()}
+    return out
+
+
+def _other_params(forces, out, groups) -> None:
+    """from_numpy's keys of the forces other than the NonbondedForces and
+    the custom forces, into `out`, their groups into `groups`."""
     for kind, cls, (count, _, get), atoms_key, n_atoms, par_key, n_par \
             in _BONDED:
         (force,) = [f for f in forces if type(f) is cls] or (None,)
@@ -521,7 +684,3 @@ def to_numpy(system: System) -> dict:
                                 MonteCarloMembraneBarostat)):
             out.update(_barostat_params(force))
             groups["barostat"] = force.getForceGroup()
-    groups = {k: g for k, g in groups.items() if g}
-    if groups:
-        out["force_groups"] = groups
-    return out

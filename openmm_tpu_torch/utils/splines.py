@@ -1,13 +1,60 @@
-"""Periodic cubic splines and the bicubic coefficients of a CMAP map.
+"""Cubic splines (natural and periodic) and bicubic coefficients: of a
+CMAP map and of a tabulated function's grid.
 
-Counterpart of openmm_tpu/utils/splines.py (periodic_spline,
-spline_first_derivatives, bicubic_coefficients_periodic): host-side numpy
-set-up math, the same arithmetic as the JAX package's, so a map gives the
-same coefficients in both packages.
+Counterpart of openmm_tpu/utils/splines.py (natural_spline,
+_solve_tridiag, periodic_spline, spline_first_derivatives,
+bicubic_coefficients_periodic, bicubic_coefficients_from_derivatives):
+host-side numpy set-up math, the same arithmetic as the JAX package's, so
+a map or a table gives the same coefficients in both packages.
 """
 from __future__ import annotations
 
 import numpy as np
+
+
+def natural_spline(x, y):
+    """Second derivatives of the natural cubic spline through (x, y)."""
+    x = np.asarray(x, dtype=np.float64)
+    y = np.asarray(y, dtype=np.float64)
+    n = len(x)
+    if n < 2:
+        raise ValueError("spline requires at least two points")
+    if n == 2:
+        return np.zeros(n)
+    h = np.diff(x)
+    # the tridiagonal system of the interior second derivatives
+    a = np.zeros(n - 2)
+    b = np.zeros(n - 2)
+    c = np.zeros(n - 2)
+    d = np.zeros(n - 2)
+    for i in range(1, n - 1):
+        a[i - 1] = h[i - 1]
+        b[i - 1] = 2.0 * (h[i - 1] + h[i])
+        c[i - 1] = h[i]
+        d[i - 1] = 6.0 * ((y[i + 1] - y[i]) / h[i]
+                          - (y[i] - y[i - 1]) / h[i - 1])
+    deriv2 = np.zeros(n)
+    deriv2[1:-1] = _solve_tridiag(a, b, c, d)
+    return deriv2
+
+
+def _solve_tridiag(a, b, c, d):
+    """The solution of the tridiagonal system with sub-diagonal a,
+    diagonal b and super-diagonal c (Thomas algorithm)."""
+    n = len(d)
+    cp = np.zeros(n)
+    dp = np.zeros(n)
+    cp[0] = c[0] / b[0]
+    dp[0] = d[0] / b[0]
+    for i in range(1, n):
+        mdiv = b[i] - a[i] * cp[i - 1]
+        cp[i] = c[i] / mdiv
+        dp[i] = (d[i] - a[i] * dp[i - 1]) / mdiv
+    x = np.zeros(n)
+    x[-1] = dp[-1]
+    for i in range(n - 2, -1, -1):
+        x[i] = dp[i] - cp[i] * x[i + 1]
+    return x
 
 
 def periodic_spline(x, y):
@@ -120,3 +167,21 @@ def bicubic_coefficients_periodic(grid):
                           corners(fxy)], axis=-1)
     coeffs = vec @ _BICUBIC_INV.T
     return coeffs.reshape(size, size, 4, 4)
+
+
+def bicubic_coefficients_from_derivatives(f, fx, fy, fxy):
+    """Per-cell bicubic coefficients (nx-1, ny-1, 4, 4) from the values
+    and partial derivatives at the grid nodes, all in cell-local units (fx
+    times the cell width, and so on). Not periodic: the last row and
+    column only bound the last cells."""
+    f = np.asarray(f, np.float64)
+    nx, ny = f.shape
+
+    def corners(a):
+        return np.stack([a[:-1, :-1], a[1:, :-1], a[1:, 1:], a[:-1, 1:]],
+                        axis=-1)
+
+    vec = np.concatenate([corners(f), corners(fx), corners(fy),
+                          corners(fxy)], axis=-1)
+    coeffs = vec @ _BICUBIC_INV.T
+    return coeffs.reshape(nx - 1, ny - 1, 4, 4)

@@ -54,19 +54,16 @@ _BONDED = (("bond", HarmonicBondForce, "_bonds", 2, "bond_pairs",
 
 
 def system_params(system):
-    """The from_numpy dict of a JAX-package System with one
-    NonbondedForce and at most one force of each bonded kind, one
-    GBSAOBCForce, one CMMotionRemover, one Monte Carlo barostat and one
-    AndersenThermostat (the term lists hold plain floats in nm, rad and
-    kJ/mol; the barostat's settings in bar, bar nm and K)."""
+    """The from_numpy dict of a JAX-package System with NonbondedForces, at
+    most one force of each bonded kind, one GBSAOBCForce, one
+    CMMotionRemover, one Monte Carlo barostat, one AndersenThermostat and
+    custom forces (the term lists hold plain floats in nm, rad and kJ/mol;
+    the barostat's settings in bar, bar nm and K)."""
     forces = system.getForces()
-    (nb,) = [f for f in forces if isinstance(f, NonbondedForce)]
+    nb, *extra = [f for f in forces if isinstance(f, NonbondedForce)]
     n = system.getNumParticles()
     masses = np.array([u.strip(system.getParticleMass(i), u.dalton)
                        for i in range(n)], np.float64)
-    part = np.array([[float(u.strip(x)) for x in nb.getParticleParameters(i)]
-                     for i in range(nb.getNumParticles())], np.float64)
-    exc = [nb.getExceptionParameters(i) for i in range(nb.getNumExceptions())]
     cons = [system.getConstraintParameters(i)
             for i in range(system.getNumConstraints())]
     box = np.array([u.strip(v, u.nanometer)
@@ -74,17 +71,44 @@ def system_params(system):
                    np.float64)
     out = {
         "masses": masses,
+        "constraint_pairs": np.array([c[:2] for c in cons],
+                                     np.int64).reshape(-1, 2),
+        "constraint_distances": np.array(
+            [float(u.strip(c[2], u.nanometer)) for c in cons], np.float64),
+        "box": box,
+    }
+    out.update(_nonbonded_params(nb))
+    if extra:
+        out["extra_nonbonded"] = [dict(_nonbonded_params(f),
+                                       group=f.getForceGroup())
+                                  for f in extra]
+    custom = [custom_spec(f) for f in forces
+              if type(f).__name__ in CUSTOM_KINDS]
+    if custom:
+        out["custom_forces"] = custom
+    if system._vsites:
+        out["vsites"] = [vsite_entry(i, site)
+                         for i, site in sorted(system._vsites.items())]
+    groups = {"nonbonded": nb.getForceGroup()}
+    _other_params(forces, out, groups)
+    groups = {kind: g for kind, g in groups.items() if g}
+    if groups:
+        out["force_groups"] = groups
+    return out
+
+
+def _nonbonded_params(nb):
+    """from_numpy's NonbondedForce keys of a JAX-package NonbondedForce."""
+    part = np.array([[float(u.strip(x)) for x in nb.getParticleParameters(i)]
+                     for i in range(nb.getNumParticles())], np.float64)
+    exc = [nb.getExceptionParameters(i) for i in range(nb.getNumExceptions())]
+    out = {
         "charges": part[:, 0], "sigma": part[:, 1], "epsilon": part[:, 2],
         "exception_pairs": np.array([e[:2] for e in exc],
                                     np.int64).reshape(-1, 2),
         "exception_params": np.array(
             [[float(u.strip(x)) for x in e[2:]] for e in exc],
             np.float64).reshape(-1, 3),
-        "constraint_pairs": np.array([c[:2] for c in cons],
-                                     np.int64).reshape(-1, 2),
-        "constraint_distances": np.array(
-            [float(u.strip(c[2], u.nanometer)) for c in cons], np.float64),
-        "box": box,
         "cutoff": float(u.strip(nb.getCutoffDistance(), u.nanometer)),
         "method": _METHOD_NAMES[nb.getNonbondedMethod()],
         "ewald_tolerance": nb.getEwaldErrorTolerance(),
@@ -111,10 +135,12 @@ def system_params(system):
                        ("exception_offsets", nb._exception_offsets)):
         if items:
             out[key] = list(items)
-    if system._vsites:
-        out["vsites"] = [vsite_entry(i, site)
-                         for i, site in sorted(system._vsites.items())]
-    groups = {"nonbonded": nb.getForceGroup()}
+    return out
+
+
+def _other_params(forces, out, groups):
+    """from_numpy's keys of the standard forces besides the
+    NonbondedForces, into `out`, their groups into `groups`."""
     for kind, cls, terms, k, atoms_key, par_key in _BONDED:
         (force,) = [f for f in forces if type(f) is cls] or (None,)
         if force is None:
@@ -152,10 +178,114 @@ def system_params(system):
                                 MonteCarloMembraneBarostat)):
             out.update(barostat_params(force))
             groups["barostat"] = force.getForceGroup()
-    groups = {kind: g for kind, g in groups.items() if g}
-    if groups:
-        out["force_groups"] = groups
-    return out
+
+
+CUSTOM_KINDS = ("CustomExternalForce", "CustomBondForce", "CustomAngleForce",
+                "CustomTorsionForce", "CustomNonbondedForce",
+                "CustomCompoundBondForce", "CustomCentroidBondForce")
+
+
+def custom_spec(force):
+    """The from_numpy custom_forces entry (openmm_tpu_torch.system
+    custom_spec) of a JAX-package custom force."""
+    kind = type(force).__name__
+    functions = []
+    for name, fn in force._functions:
+        args = fn.getFunctionParameters()
+        fkind = type(fn).__name__
+        functions.append((name, fkind, (args,) if fkind ==
+                          "Discrete1DFunction" else tuple(args),
+                          fn.getPeriodic()))
+    spec = {"kind": kind, "energy": force.getEnergyFunction(),
+            "group": force.getForceGroup(),
+            "globals": list(force._global_params),
+            "derivatives": list(force._deriv_requests),
+            "functions": functions,
+            "periodic": bool(force.usesPeriodicBoundaryConditions())}
+    if kind == "CustomNonbondedForce":
+        spec.update(parameters=list(force._per_particle),
+                    terms=[((), list(p)) for p in force._particles],
+                    method=force._method, cutoff=force._cutoff,
+                    switch_distance=(force._switch_dist if force._switching
+                                     else -1.0),
+                    long_range_correction=force._lrc,
+                    exclusions=list(force._exclusions),
+                    interaction_groups=list(force._groups))
+    elif kind == "CustomExternalForce":
+        spec.update(parameters=list(force._per_particle),
+                    terms=[((t[0],), list(t[1])) for t in force._terms])
+    else:
+        spec.update(parameters=list(force._per_term),
+                    terms=[(tuple(a), list(p)) for a, p in force._terms])
+        if kind == "CustomCompoundBondForce":
+            spec["particles_per_bond"] = force._n_atoms
+        elif kind == "CustomCentroidBondForce":
+            spec["groups_per_bond"] = force._n_groups
+            spec["groups"] = [(tuple(p), None if w is None else list(w))
+                              for p, w in force._groups]
+    return spec
+
+
+def jax_custom_force(spec):
+    """The JAX-package custom force of a custom_spec dict."""
+    from openmm_tpu import tabulated
+    from openmm_tpu.forces import custom
+    kind = spec["kind"]
+    cls = getattr(custom, kind)
+    if kind == "CustomCompoundBondForce":
+        force = cls(spec["particles_per_bond"], spec["energy"])
+    elif kind == "CustomCentroidBondForce":
+        force = cls(spec["groups_per_bond"], spec["energy"])
+        for particles, weights in spec["groups"]:
+            force.addGroup(list(particles), weights)
+    else:
+        force = cls(spec["energy"])
+    for name, default in spec.get("globals", ()):
+        force.addGlobalParameter(name, default)
+    for name in spec.get("derivatives", ()):
+        force.addEnergyParameterDerivative(name)
+    for name, fkind, args, periodic in spec.get("functions", ()):
+        fcls = getattr(tabulated, fkind)
+        force.addTabulatedFunction(name, fcls(*args, periodic)
+                                   if fkind.startswith("Continuous")
+                                   else fcls(*args))
+    for name in spec.get("parameters", ()):
+        if kind in ("CustomNonbondedForce", "CustomExternalForce"):
+            force.addPerParticleParameter(name)
+        elif kind == "CustomAngleForce":
+            force.addPerAngleParameter(name)
+        elif kind == "CustomTorsionForce":
+            force.addPerTorsionParameter(name)
+        else:
+            force.addPerBondParameter(name)
+    for atoms, p in spec["terms"]:
+        if kind == "CustomNonbondedForce":
+            force.addParticle(p)
+        elif kind == "CustomExternalForce":
+            force.addParticle(atoms[0], p)
+        elif kind == "CustomBondForce":
+            force.addBond(*atoms, p)
+        elif kind == "CustomAngleForce":
+            force.addAngle(*atoms, p)
+        elif kind == "CustomTorsionForce":
+            force.addTorsion(*atoms, p)
+        else:
+            force.addBond(list(atoms), p)
+    if kind == "CustomNonbondedForce":
+        force.setNonbondedMethod(spec["method"])
+        force.setCutoffDistance(spec["cutoff"])
+        if spec["switch_distance"] >= 0:
+            force.setUseSwitchingFunction(True)
+            force.setSwitchingDistance(spec["switch_distance"])
+        force.setUseLongRangeCorrection(spec["long_range_correction"])
+        for i, j in spec["exclusions"]:
+            force.addExclusion(i, j)
+        for set1, set2 in spec["interaction_groups"]:
+            force.addInteractionGroup(set1, set2)
+    elif kind != "CustomExternalForce":
+        force.setUsesPeriodicBoundaryConditions(spec["periodic"])
+    force.setForceGroup(spec.get("group", 0))
+    return force
 
 
 def vsite_entry(index, site):
@@ -227,6 +357,20 @@ def jax_system(params):
     box = np.asarray(params["box"], np.float64)
     system.setDefaultPeriodicBoxVectors(*(mm.Vec3(*row) for row in box))
     groups = params.get("force_groups", {})
+    for index, kind, parents, weights in params.get("vsites", ()):
+        system.setVirtualSite(int(index), jax_vsite(kind, parents, weights))
+    system.addForce(_jax_nonbonded(params, groups.get("nonbonded", 0)))
+    for extra in params.get("extra_nonbonded", ()):
+        system.addForce(_jax_nonbonded(extra, extra.get("group", 0)))
+    _jax_other_forces(system, params, groups)
+    for spec in params.get("custom_forces", ()):
+        system.addForce(jax_custom_force(spec))
+    return system
+
+
+def _jax_nonbonded(params, group):
+    """The JAX-package NonbondedForce of from_numpy's NonbondedForce
+    keys."""
     nb = mm.NonbondedForce()
     nb.setNonbondedMethod(getattr(mm.NonbondedForce, params["method"]))
     nb.setCutoffDistance(params["cutoff"])
@@ -255,10 +399,12 @@ def jax_system(params):
         nb.addParticleParameterOffset(*offset)
     for offset in params.get("exception_offsets", ()):
         nb.addExceptionParameterOffset(*offset)
-    for index, kind, parents, weights in params.get("vsites", ()):
-        system.setVirtualSite(int(index), jax_vsite(kind, parents, weights))
-    nb.setForceGroup(groups.get("nonbonded", 0))
-    system.addForce(nb)
+    nb.setForceGroup(group)
+    return nb
+
+
+def _jax_other_forces(system, params, groups):
+    """The JAX-package forces of the keys after the NonbondedForces."""
     if "gb_charges" in params:
         gb = mm.GBSAOBCForce()
         gb.setNonbondedMethod(getattr(mm.GBSAOBCForce, params["gb_method"]))
@@ -293,7 +439,6 @@ def jax_system(params):
             float(params["andersen_frequency"]))
         thermostat.setForceGroup(groups.get("andersen", 0))
         system.addForce(thermostat)
-    return system
 
 
 def barostat_params(force):
