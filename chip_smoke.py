@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py
 
-Builds the five CUDA kernels from csrc/ with one nvcc call, holds each
+Builds the five CUDA kernels from csrc/ (an nvcc a source, in parallel),
+holds each
 kernel against its plain PyTorch version at the shapes of the paths that
 run it (kernel 1 in both its modes, kernels 4-5 also on wider, dense and
 wide-ranging inputs, kernels 1-3 also on the water box sheared into a
@@ -114,7 +115,23 @@ comes out:
   energies and forces against the standard forces within 1e-10, the
   torsions' CustomCompoundBondForce against the CustomTorsionForce, 50
   steps with the eager loop's bits); tabulated functions on the card
-  against the CPU (phase_tables).
+  against the CPU (phase_tables);
+- the rest of the custom forces: the alchemical box's
+  dE/dlambda_electrostatics (the
+  NonbondedForce's offsets: kernel 1's derivative instantiation against
+  its plain version, kernel 2 on the charges and their derivatives)
+  against central differences; the GB recipes (phase_customgb: the OBC2
+  recipe against GBSAOBCForce in float64, then GBn2 on the 2,546-atom
+  cluster: float32 against float64, a minimize call, 200 steps with the
+  eager loop's bits, GB's share of the step); the bilayer under an RMSD
+  restraint (phase_rmsd_cv: CustomCVForce over an RMSDForce of the
+  lipids' heavy atoms, against numpy's Kabsch and a central difference,
+  r0 steered between chunks without a capture, the eager loop's bits, ms
+  a step against the plain bilayer in turns); and hydrogen bonds over 512
+  waters, Axilrod-Teller on 256 argon atoms and a Gay-Berne fluid of 128
+  ellipsoids (phase_more_custom: ef on the card against the CPU's
+  float64, NVE drift, the eager loop's bits). The kernels are built with
+  one nvcc a source, all at once, and one link.
 
 It imports nothing of JAX or of openmm_tpu.
 
@@ -126,7 +143,8 @@ kernel, times, bounds; kernel 1's reaction-field mode as
 "nonbonded_tiles_rf", at the rf water box's shapes; its LJPME mode and
 kernels 2-3 on the dispersion grid as "nonbonded_tiles_ljpme",
 "pme_spread_dispersion" and "pme_gather_dispersion", at the LJPME
-bilayer's shapes).
+bilayer's shapes; kernel 1's derivative instantiation as
+"nonbonded_tiles_deriv", at the alchemical box's shapes).
 Without a CUDA device it exits non-zero before printing any result.
 """
 from __future__ import annotations
@@ -187,7 +205,7 @@ FORCE_ERR_BAR = 1e-5
 # minimization: LocalEnergyMinimizer calls of MINIMIZE_ITERATIONS
 # iterations each (per penalty stage), the deadline checked between calls
 MINIMIZE_CALLS = 1
-MINIMIZE_ITERATIONS = 15
+MINIMIZE_ITERATIONS = 10
 MINIMIZE_TOLERANCE = 10.0       # kJ/mol/nm, the RMS gradient per particle
 # the POPC bilayer: the force group of each force (for the per-group
 # energies), its temperature, its steps before the production steps, its
@@ -196,9 +214,9 @@ BILAYER_GROUPS = {"NonbondedForce": 0, "HarmonicBondForce": 1,
                   "HarmonicAngleForce": 2, "PeriodicTorsionForce": 3,
                   "CMMotionRemover": 4}
 BILAYER_TEMPERATURE = 303.15
-BILAYER_STEPS = 300
-BILAYER_PRODUCTION = 50         # timed, then replayed through the eager loop
-BILAYER_MINIMIZE_ITERATIONS = 15
+BILAYER_STEPS = 200
+BILAYER_PRODUCTION = 30         # timed, then replayed through the eager loop
+BILAYER_MINIMIZE_ITERATIONS = 8
 GROUP_ENERGY_BAR = 1e-5
 CONSTRAINT_ERR_BAR = 1e-5
 # constant pressure: the barostats' settings (bar, bar nm, K), steps and
@@ -207,7 +225,7 @@ CONSTRAINT_ERR_BAR = 1e-5
 NPT_PRESSURE = 1.0
 NPT_TENSION = 0.0
 NPT_FREQUENCY = 25
-NPT_BILAYER_STEPS = 500
+NPT_BILAYER_STEPS = 300
 NPT_BILAYER_REPLAY = 50
 NPT_WATER_STEPS = 200
 NPT_WATER_REPLAY = 50
@@ -217,7 +235,7 @@ NPT_VOLUME_BAR = 0.03       # |V / V0 - 1| after the run
 # the bilayer's NVT and NPT step programs timed in turns, in one call each
 # of NPT_TURN_STEPS steps (4 attempts), in the order NPT_TURNS, with the
 # card's SM clock and power read before and after
-NPT_TURN_STEPS = 100
+NPT_TURN_STEPS = 50
 NPT_TURNS = ("nvt", "npt", "npt", "nvt")
 # the other NonbondedForce methods: the reference suite's rf settings
 # (tools/bench_suite.py, dhfr_rf: CutoffPeriodic, 1.0 nm) on the relaxed
@@ -244,8 +262,8 @@ GBSA_GROUPS = {"NonbondedForce": 0, "GBSAOBCForce": 1,
                "HarmonicBondForce": 2, "HarmonicAngleForce": 2,
                "PeriodicTorsionForce": 2, "CMMotionRemover": 3}
 GBSA_TEMPERATURE = 300.0
-GBSA_MINIMIZE_ITERATIONS = 25
-GBSA_STEPS = 200
+GBSA_MINIMIZE_ITERATIONS = 10
+GBSA_STEPS = 100
 GBSA_RELAX_FRICTION = 10.0
 GBSA_REPLAY = 25
 # the other integrators on the relaxed water box (PME, kernels 1-3):
@@ -258,7 +276,7 @@ GBSA_REPLAY = 25
 # hydrogen moves ~0.01 nm a step). Each run then replays
 # INTEGRATOR_REPLAY steps from a snapshot through the eager loop.
 VERLET_DT = 0.001
-VERLET_STEPS = 3000
+VERLET_STEPS = 1200
 DRIFT_EVERY = 100
 DRIFT_GATE = 0.2
 ANDERSEN_TEMPERATURE = 300.0
@@ -294,7 +312,7 @@ CUSTOM_LOOPS = 3
 NH_TEMPERATURE = 300.0
 NH_FREQUENCY = 10.0
 NH_START = 250.0
-NH_STEPS = 2000
+NH_STEPS = 700
 NH_EVERY = 50
 NH_T_RANGE = (270.0, 330.0)
 VELOCITY_SEED = 8               # of the velocities drawn at a temperature
@@ -316,7 +334,7 @@ BILAYER_T_RANGE = (250.0, 360.0)
 # MTS with the reciprocal space slow; parameter offsets and
 # updateParametersInContext on the relaxed water box; checkpoints
 LJPME_RECIP_GROUP = 5
-LJPME_STEPS = 150
+LJPME_STEPS = 100
 LJPME_REPLAY = 30
 LJPME_MINIMIZE_ITERATIONS = 5
 # 0.3 ps after fresh velocities at 303.15 K on a minimized structure: half
@@ -366,6 +384,38 @@ TABLE_BAR = 1e-12               # the card's float64 against the CPU's
 WHILE_DRAW_PASSES = 2
 WHILE_DRAW_STEPS = 20
 # what the bilayer phase prints of each force
+# the Amber GB recipes (phase_customgb), the RMSD restraint
+# (phase_rmsd_cv), the other custom forces (phase_more_custom) and the
+# offsets' electrostatic derivative (phase_alchemical)
+GB_MODEL = "GBn2"
+GB_STEPS = 200
+GB_REPLAY = 10
+GB_MINIMIZE_ITERATIONS = 10
+# the OBC2 recipe against GBSAOBCForce, float64, relative: the recipe's
+# Coulomb constant 138.935485 against the port's 138.9354576 (2.0e-7)
+RECIPE_BAR = 1e-6
+GB_T_RANGE = (250.0, 360.0)
+RMSD_K = 2000.0                 # kJ/mol/nm^2
+RMSD_STEER = 0.01               # nm that r0 rises between chunks
+RMSD_CHUNK = 50
+RMSD_CHUNKS = 2
+RMSD_REPLAY = 10
+RMSD_TURN_STEPS = 50
+RMSD_H = 1e-4                  # nm, the central difference's step
+RMSD_FD_BAR = 1e-5              # of the largest force, float64: the
+# msd is a difference of sums of squares ~1e4 times its size, so the float64
+# energy's rounding puts the central difference's floor at ~1e-6 (CPU)
+RMSD_KABSCH_BAR = 1e-9          # relative, the card's CV against numpy
+HBOND_WATERS = 512
+ARGON_ATOMS = 256
+GAYBERNE_ELLIPSOIDS = 128
+MORE_DT = 0.0005
+MORE_STEPS = 300
+ARGON_STEPS = 150               # its 2.76M triples cost 12 ms a step
+MORE_EVERY = 25
+MORE_REPLAY = 10
+MORE_BAR = 1e-10                # the card's float64 ef against the CPU's
+DERIV_OPS_PER_PAIR = 75.0       # kernel 1's derivative instantiation
 COUNTED = {"NonbondedForce": "getNumExceptions",
            "HarmonicBondForce": "getNumBonds",
            "HarmonicAngleForce": "getNumAngles",
@@ -374,7 +424,7 @@ COUNTED = {"NonbondedForce": "getNumExceptions",
 # clock cycles the card sleeps before each timed call (~1 ms at 1.98 GHz)
 SLEEP_CYCLES = 2_000_000
 # calls timed of a kernel's plain version (a reference, 1-105 ms a call)
-PLAIN_REPS = 5
+PLAIN_REPS = 3
 # peak rates of one H100 SXM (data sheet, dense): float32 outside the
 # tensor cores, and HBM bandwidth
 PEAK_FP32_FLOPS = 67e12
@@ -462,7 +512,8 @@ def phase_build(deadline) -> float:
         raise deadline.exceeded("build (nvcc)") from None
     regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
     (_build.BUILD_DIR / "ptxas.log").write_text(log)
-    print("build: one nvcc call, %.1f s -> %s" % (seconds, path.name))
+    print("build: one nvcc a source, all at once, then one link: %.1f s -> "
+          "%s" % (seconds, path.name))
     for line in regs:
         print("  ptxas: %s" % line[:110])
     _build.library()
@@ -3041,6 +3092,63 @@ def _central_difference(ctx, name, value, group, h=ALCHEMICAL_H) -> float:
     return (e[0] - e[1]) / (2.0 * h)
 
 
+def _deriv_record(device, ctx, name, launches) -> dict:
+    """The kernels line's entry of kernel 1's derivative instantiation on
+    the Context's state (its candidate state, the effective parameters
+    and their derivatives in `name`), held against its plain version:
+    raises beyond TOLERANCE["nonbonded_tiles"] of its largest value or
+    on other bits a second call; times, bound (the candidate state's and
+    par4's bytes, the derivative's operations of the pairs inside the
+    cutoff) and launches from the path's run."""
+    nb = ctx._nonbonded
+    tiles = ctx._current_tiles()
+    pos, box = ctx._state["positions"], ctx._state["box"]
+    boxd = box.to(nb.dtype)
+    params = nb.particle_params()
+    k = nb.gp_index[name]
+    dq, dsig, deps = nb._offset_derivs(k, nb.p_off_param, nb.p_off_scale,
+                                        nb.p_off).unbind(1)
+    order = tiles["order"]
+    args = (tile_pairs.sorted_positions(pos.to(nb.dtype), boxd, tiles),
+            tile_pairs.tile_params(*params, order, c6=nb.ljpme),
+            tile_pairs.tile_param_derivs(*params, dq, dsig, deps, order,
+                                         c6=nb.ljpme),
+            tiles["cand"], tiles["count"], tiles["words"],
+            tile_pairs.tile_consts(boxd, nb.tile_scalars), nb.mode,
+            nb.use_switch)
+    saved = tile_pairs.TILES_DERIV.launches
+
+    def kernel():
+        return tile_pairs.nonbonded_tiles_deriv(*args)
+
+    def plain():
+        return tile_pairs.nonbonded_tiles_deriv_plain(*args)
+
+    got, want = kernel(), plain()
+    if device.type == "cuda":
+        _check_repeatable("nonbonded_tiles_deriv", got, kernel())
+    err, scale, rel = _compare(got, want)
+    if not rel <= TOLERANCE["nonbonded_tiles"]:
+        raise RuntimeError("kernel nonbonded_tiles_deriv: error %.3e of its "
+                           "largest value %.3e" % (rel, scale))
+    inputs = sum(t.numel() * t.element_size() for t in args[:7])
+    counts = tile_pairs.count_tile_pairs(args[0], *args[3:7])
+    bound = _bound(inputs + 4 * args[0].numel(),
+                   DERIV_OPS_PER_PAIR * counts["inside"] / 2)
+    cuda = device.type == "cuda"
+    record = {"name": "nonbonded_tiles_deriv", "route": "cuda",
+              "source": tile_pairs.TILES_DERIV.source,
+              "replaces": tile_pairs.TILES_DERIV.replaces,
+              "launches": launches, "max_abs_err": err,
+              "ms": _time_ms(kernel, device) if cuda else None,
+              "plain_ms": (_time_ms(plain, device, PLAIN_REPS, 1) if cuda
+                           else None),
+              "bound_ms": bound[0], "bound_by": bound[1],
+              "library_ms": None}
+    tile_pairs.TILES_DERIV.launches = saved
+    return record
+
+
 def phase_alchemical(device, main, deadline=None, solute=ALCHEMICAL_SOLUTE,
                      lambdas=ALCHEMICAL_LAMBDAS, chunk=ALCHEMICAL_CHUNK,
                      replay=ALCHEMICAL_REPLAY,
@@ -3061,7 +3169,14 @@ def phase_alchemical(device, main, deadline=None, solute=ALCHEMICAL_SOLUTE,
     force group's float32 energy against a float64 Context within
     GROUP_ENERGY_BAR, and dE/dlambda_sterics (float32 pairs) against a
     central difference of float64 energies within ALCHEMICAL_DERIV_BAR;
-    updateParametersInContext on the soft-core's solute epsilons (no
+    dE/dlambda_electrostatics (the NonbondedForce's offsets: kernel 1's
+    derivative instantiation, kernel 2 on the charges and on their
+    derivatives) of the NonbondedForce's group against a central
+    difference of float64 energies within ALCHEMICAL_DERIV_BAR, the
+    derivative reading timed; kernel 1's derivative instantiation
+    against its plain version, its launches in those readings
+    (_deriv_record); updateParametersInContext on the soft-core's solute
+    epsilons (no
     capture, the energies again); `replay` steps from a snapshot through
     the step program and the eager loop: the same bits; the temperature
     within `t_range`, the constraint error within CONSTRAINT_ERR_BAR.
@@ -3088,8 +3203,9 @@ def phase_alchemical(device, main, deadline=None, solute=ALCHEMICAL_SOLUTE,
     minimizer = {k.name: k.launches for k in MINIMIZER_KERNELS}
     after = ctx.getState(getEnergy=True).getPotentialEnergy()
     deadline.check("alchemical: minimize")
-    rows, captures, ms = [], [], []
+    rows, captures, ms, read_ms = [], [], [], []
     launches = dict.fromkeys(MAIN_PATH_NAMES, 0)
+    deriv_launches = 0
     escalations = ctx.escalation_count
     for lam, lam_elec in lambdas:
         ctx.setParameter("lambda_sterics", lam)
@@ -3116,9 +3232,19 @@ def phase_alchemical(device, main, deadline=None, solute=ALCHEMICAL_SOLUTE,
             getEnergyParameterDerivatives()["lambda_sterics"]
         fd = _central_difference(oracle, "lambda_sterics", lam,
                                  ALCHEMICAL_GROUPS["CustomNonbondedForce"])
+        tile_pairs.TILES_DERIV.launches = 0
+        _sync(device)
+        t0 = time.perf_counter()
+        d_elec = ctx.getState(getParameterDerivatives=True, groups={0}).\
+            getEnergyParameterDerivatives()["lambda_electrostatics"]
+        read_ms.append((time.perf_counter() - t0) * 1e3)
+        deriv_launches += tile_pairs.TILES_DERIV.launches
+        fd_elec = _central_difference(oracle, "lambda_electrostatics",
+                                      lam_elec, 0)
         soft_group = ALCHEMICAL_GROUPS["CustomNonbondedForce"]
         rows.append({"lambda": lam, "lambda_elec": lam_elec, "e32": e32,
                      "e64": e64, "d32": d32, "d64": d64, "fd": fd,
+                     "d_elec": d_elec, "fd_elec": fd_elec,
                      "displacement_errors": _displacement_errors(
                          ctx, oracle, e64[soft_group])})
         deadline.check("alchemical: lambda %.2f" % lam)
@@ -3126,6 +3252,8 @@ def phase_alchemical(device, main, deadline=None, solute=ALCHEMICAL_SOLUTE,
         if i < 3 * solute:
             sigma, eps = soft.getParticleParameters(i)
             soft.setParticleParameters(i, [sigma, 0.9 * eps])
+    record = _deriv_record(device, ctx, "lambda_electrostatics",
+                           deriv_launches)
     soft.updateParametersInContext(ctx)
     soft.updateParametersInContext(oracle)
     integ.step(chunk)
@@ -3171,6 +3299,16 @@ def phase_alchemical(device, main, deadline=None, solute=ALCHEMICAL_SOLUTE,
               escalations, ", ".join(
                   "%s %s" % (k, "not measured" if t is None else "%.4f" % t)
                   for k, t in times.items())))
+    print("alchemical: dE/dlambda_electrostatics of the NonbondedForce's "
+          "group (its offsets) %s against central differences of float64 "
+          "energies; a derivative reading %s ms; kernel 1's derivative "
+          "instantiation %d launches, %s ms a call (plain %s, bound %.5f "
+          "ms, %s), largest error against its plain version %.3e" % (
+              " ".join("%.6f (%.6f)" % (r["d_elec"], r["fd_elec"])
+                       for r in rows),
+              " ".join("%.3f" % m for m in read_ms), deriv_launches,
+              record["ms"], record["plain_ms"], record["bound_ms"],
+              record["bound_by"], record["max_abs_err"]))
     for r in rows + [{"lambda": "after update", "e32": update[0],
                       "e64": update[1]}]:
         for g in groups:
@@ -3185,6 +3323,16 @@ def phase_alchemical(device, main, deadline=None, solute=ALCHEMICAL_SOLUTE,
             raise RuntimeError("alchemical: at lambda %.2f dE/dlambda %.6f, "
                                "central difference %.6f" % (
                                    r["lambda"], r["d32"], r["fd"]))
+        if not abs(r["d_elec"] - r["fd_elec"]) <= ALCHEMICAL_DERIV_BAR * abs(
+                r["fd_elec"]):
+            raise RuntimeError("alchemical: at lambda_electrostatics %.2f "
+                               "dE/dlambda %.6f, central difference %.6f" % (
+                                   r["lambda_elec"], r["d_elec"],
+                                   r["fd_elec"]))
+    if cuda and deriv_launches < len(lambdas):
+        raise RuntimeError("alchemical: kernel 1's derivative instantiation "
+                           "launched %d times in %d readings"
+                           % (deriv_launches, len(lambdas)))
     if not (math.isfinite(after) and after < before):
         raise RuntimeError("alchemical: minimization %.3f -> %.3f"
                            % (before, after))
@@ -3213,6 +3361,7 @@ def phase_alchemical(device, main, deadline=None, solute=ALCHEMICAL_SOLUTE,
             "times": times, "captures": captures,
             "minimized": (before, after),
             "launches": launches, "minimizer": minimizer,
+            "deriv_record": record, "read_ms": read_ms,
             "eager_ms_per_step": eager["wall_ms_per_step"],
             "graph_ms_per_step": graph["wall_ms_per_step"]}
 
@@ -3445,6 +3594,492 @@ def phase_while_draws(device, main, deadline=None, steps=WHILE_DRAW_STEPS,
         raise RuntimeError("while draws: the uniforms' mean %.4f" % mean)
     del r["context"]
     return dict(r, mean=mean)
+
+
+def _platform_context(device, system, integ, precision=None):
+    """A Context on the default platform on a GPU ("CPU" otherwise), in
+    `precision` ("double") or the default one."""
+    props = {"Precision": precision} if precision else None
+    if device.type == "cuda":
+        return omm.Context(system, integ, "CUDA", props)
+    return omm.Context(system, integ, "CPU", props)
+
+
+def phase_customgb(device, deadline=None, lipids=19, model=GB_MODEL,
+                   steps=GB_STEPS, replay=GB_REPLAY,
+                   iterations=GB_MINIMIZE_ITERATIONS,
+                   t_range=GB_T_RANGE) -> dict:
+    """The Amber GB recipes (app/gbforces.py) on popc_obc_cluster's
+    lipids. (1) The OBC2 recipe's CustomGBForce against the port's
+    GBSAOBCForce on the cluster, float64: the GB group's energy and forces
+    within RECIPE_BAR. (2) models.popc_gb_cluster(model): its float32
+    forces against float64 (median relative error within FORCE_ERR_BAR)
+    and each group's energy within GROUP_ENERGY_BAR; GB's three sweeps
+    timed alone (its share of the step); one minimize call of `iterations`
+    iterations (the energy falls); `steps` LangevinMiddle steps at 300 K,
+    2 fs, 1/ps, with HBonds, through the step program (ms a step, the
+    temperature within `t_range`, the constraint error); `replay` steps
+    from a snapshot through the step program and the eager loop: the same
+    bits and energies. Raises on a miss."""
+    deadline = deadline or Deadline(math.inf)
+    groups = {"NonbondedForce": 0, "CustomGBForce": 1, "GBSAOBCForce": 1,
+              "HarmonicBondForce": 2, "HarmonicAngleForce": 2,
+              "PeriodicTorsionForce": 2, "CMMotionRemover": 2}
+    obc, positions = popc_obc_cluster(lipids)
+    recipe, _ = builders.popc_gb_cluster("OBC2", lipids)
+    readings = []
+    for system in (obc, recipe):
+        for force in system.getForces():
+            force.setForceGroup(groups[type(force).__name__])
+        c = _platform_context(device, system, omm.VerletIntegrator(0.001),
+                              "double")
+        c.setPositions(positions)
+        st = c.getState(getEnergy=True, getForces=True, groups={1})
+        readings.append((st.getPotentialEnergy(), st.getForces()))
+        del c
+    (e_obc, f_obc), (e_rec, f_rec) = readings
+    recipe_err = (abs(e_rec - e_obc) / abs(e_obc),
+                  float(np.abs(f_rec - f_obc).max() / np.abs(f_obc).max()))
+    deadline.check("customgb: OBC2 recipe")
+
+    system, positions = builders.popc_gb_cluster(model, lipids)
+    for force in system.getForces():
+        force.setForceGroup(groups[type(force).__name__])
+    n = system.getNumParticles()
+    integ = omm.LangevinMiddleIntegrator(300.0, FRICTION, DT_PS)
+    integ.setRandomNumberSeed(37)
+    ctx = _platform_context(device, system, integ)
+    oracle = _platform_context(device, system, omm.VerletIntegrator(0.001),
+                               "double")
+    for c in (ctx, oracle):
+        c.setPositions(positions)
+    force_err = _median_relative_error(
+        ctx.getState(getForces=True).getForces(),
+        oracle.getState(getForces=True).getForces())
+    energies = {g: (ctx.getState(getEnergy=True, groups={g})
+                    .getPotentialEnergy(),
+                    oracle.getState(getEnergy=True, groups={g})
+                    .getPotentialEnergy()) for g in (0, 1, 2)}
+    del oracle
+    (gb,) = ctx._custom
+    sweeps_ms = None
+    if device.type == "cuda":
+        pos, box = ctx._state["positions"], ctx._box
+        sweeps_ms = _time_ms(lambda: gb.ef(pos, box), device, reps=5,
+                             warmup=1)
+    deadline.check("customgb: float64 oracle")
+    ctx.applyConstraints()
+    before = ctx.getState(getEnergy=True).getPotentialEnergy()
+    omm.LocalEnergyMinimizer.minimize(ctx, MINIMIZE_TOLERANCE, iterations)
+    after = ctx.getState(getEnergy=True).getPotentialEnergy()
+    deadline.check("customgb: minimize")
+    ctx.setVelocitiesToTemperature(300.0, randomSeed=6)
+    run = _production(device, ctx, integ.step,
+                      ctx.getState(getEnergy=True).getPotentialEnergy(),
+                      steps, steps, deadline)
+    temperature = ctx.temperature()
+    constraint_err = _constraint_error(
+        system, ctx.getState(getPositions=True).getPositions())
+    start = ctx._snapshot()
+    graph = _production(device, ctx, integ.step, 0.0, replay, replay,
+                        deadline)
+    ctx._restore(start)
+    eager = _production(device, ctx, ctx._step_eager, 0.0, replay, replay,
+                        deadline)
+    _same_bits("customgb", (graph["positions"], graph["velocities"]),
+               (eager["positions"], eager["velocities"]))
+    if graph["energies"] != eager["energies"]:
+        raise RuntimeError("customgb: the step program's energies %s, the "
+                           "eager loop's %s" % (graph["energies"],
+                                                eager["energies"]))
+    ms = run["wall_ms_per_step"]
+    print("customgb: the OBC2 recipe against GBSAOBCForce (float64, %d "
+          "atoms): energy %.6f vs %.6f kJ/mol, relative %.3e, forces %.3e of "
+          "the largest (bar %.0e); %s on the cluster: %d atoms, median "
+          "force error %.3e (bar %.0e), group energies (float32, float64) "
+          "%s; minimize %.3f -> %.3f kJ/mol; %d steps through the step "
+          "program %.4f ms a step (%.2f ns/day), GB's three sweeps %s ms a "
+          "call (%s of the step); T %.2f K; constraint error %.3e; %d "
+          "steps replayed through the eager loop (%.4f ms a step): the same "
+          "bits" % (
+              len(positions), e_rec, e_obc, *recipe_err, RECIPE_BAR, model,
+              n, force_err, FORCE_ERR_BAR, "; ".join(
+                  "%d: %.4f %.4f" % (g, *e) for g, e in energies.items()),
+              before, after, steps, ms, run["ns_day"],
+              "not measured" if sweeps_ms is None else "%.4f" % sweeps_ms,
+              "not measured" if sweeps_ms is None
+              else "%.1f%%" % (100.0 * sweeps_ms / ms), temperature,
+              constraint_err, replay, eager["wall_ms_per_step"]))
+    if not max(recipe_err) <= RECIPE_BAR:
+        raise RuntimeError("customgb: the OBC2 recipe differs from "
+                           "GBSAOBCForce by %.3e, %.3e" % recipe_err)
+    if not force_err <= FORCE_ERR_BAR:
+        raise RuntimeError("customgb: median force error %.3e" % force_err)
+    for g, (e32, e64) in energies.items():
+        if not _close_energy(e32, e64, GROUP_ENERGY_BAR):
+            raise RuntimeError("customgb: group %d energy %.6f vs %.6f"
+                               % (g, e32, e64))
+    if not (math.isfinite(after) and after < before):
+        raise RuntimeError("customgb: minimization %.3f -> %.3f"
+                           % (before, after))
+    if not all(math.isfinite(e) for e in run["energies"]):
+        raise RuntimeError("customgb: a potential energy is not finite")
+    if not t_range[0] <= temperature <= t_range[1]:
+        raise RuntimeError("customgb: temperature %.2f K" % temperature)
+    if not constraint_err <= CONSTRAINT_ERR_BAR:
+        raise RuntimeError("customgb: constraint error %.3e"
+                           % constraint_err)
+    deadline.check("customgb")
+    return {"atoms": n, "recipe_err": recipe_err, "force_err": force_err,
+            "energies": energies, "minimized": (before, after),
+            "ms_per_step": ms, "ns_day": run["ns_day"],
+            "sweeps_ms": sweeps_ms, "temperature": temperature,
+            "eager_ms_per_step": eager["wall_ms_per_step"]}
+
+
+def _kabsch_rmsd(x, y) -> float:
+    """The RMSD of x from y after the optimal rotation (numpy SVD)."""
+    x = x - x.mean(axis=0)
+    y = y - y.mean(axis=0)
+    v, sv, wt = np.linalg.svd(x.T @ y)
+    sv[-1] *= np.sign(np.linalg.det(v @ wt))
+    return float(np.sqrt(max((np.sum(x * x) + np.sum(y * y)
+                              - 2.0 * sv.sum()) / len(x), 0.0)))
+
+
+def phase_rmsd_cv(device, bilayer, deadline=None, k=RMSD_K,
+                  steer=RMSD_STEER, chunk=RMSD_CHUNK, chunks=RMSD_CHUNKS,
+                  replay=RMSD_REPLAY, turn_steps=RMSD_TURN_STEPS,
+                  t_range=BILAYER_T_RANGE) -> dict:
+    """The bilayer of phase_bilayer with an RMSD restraint:
+    CustomCVForce("0.5*k*(rmsd-r0)^2") over an RMSDForce of the lipids'
+    heavy atoms (mass above 2 amu) whose reference is the minimized
+    bilayer, r0 at half the RMSD of the bilayer's last positions, in a group of
+    its own, on a Context of its own from phase_bilayer's last state (the
+    force is taken out of the shared System once that Context is built).
+    Checks: getCollectiveVariableValues against a host numpy Kabsch RMSD
+    (RMSD_KABSCH_BAR); the CV's forces on three coordinates against a
+    float64 central difference of the CV's energy (RMSD_FD_BAR of the
+    largest force); `chunks` chunks of `chunk` steps with r0 raised by
+    `steer` (setParameter) between them, through one step program (no
+    capture after the first), each main-path kernel launched at least
+    once a step by those steps alone (the counts zeroed before each chunk
+    and read after it); `replay` steps from a snapshot through the
+    step program and the eager loop: the same bits; the temperature and
+    the constraint error; ms a step against the plain bilayer's Context in
+    turns (plain, cv, cv, plain). Raises on a miss."""
+    deadline = deadline or Deadline(math.inf)
+    system = bilayer["system"]
+    base_ctx = bilayer["context"]
+    st = base_ctx.getState(getPositions=True, getVelocities=True)
+    masses = np.asarray([system.getParticleMass(i)
+                         for i in range(system.getNumParticles())])
+    # the lipids: the molecules larger than a water
+    heavy = sorted(i for mol in base_ctx.getMolecules() if len(mol) > 3
+                   for i in mol if masses[i] > 2.0)
+    reference = np.asarray(bilayer["minimized_positions"], np.float64)
+    pos = st.getPositions()
+    # r0 below the RMSD of the last positions, so that the restraint pulls
+    r0 = 0.5 * _kabsch_rmsd(pos[heavy], reference[heavy])
+    rmsd = omm.RMSDForce(reference, heavy)
+    cv = omm.CustomCVForce("0.5*k*(rmsd-r0)^2")
+    cv.addGlobalParameter("k", k)
+    cv.addGlobalParameter("r0", r0)
+    cv.addCollectiveVariable("rmsd", rmsd)
+    cv.setForceGroup(6)
+    system.addForce(cv)
+    integ = omm.LangevinMiddleIntegrator(BILAYER_TEMPERATURE, FRICTION,
+                                         DT_PS)
+    integ.setRandomNumberSeed(41)
+    try:
+        ctx = _platform_context(device, system, integ)
+    finally:
+        # the other bilayer phases build their Contexts from this System
+        system._forces.remove(cv)
+    ctx.setPositions(pos)
+    ctx.setVelocities(st.getVelocities())
+    values = cv.getCollectiveVariableValues(ctx)
+    kabsch = _kabsch_rmsd(pos[heavy], reference[heavy])
+    # the CV's forces against a float64 central difference of its energy
+    (module,) = ctx._custom
+    x = ctx._state["positions"].clone()
+    box = ctx._box
+    forces = module.ef(x, box)[1]
+    fd_err = 0.0
+    scale = float(forces.abs().max())
+    for atom, axis in ((heavy[0], 0), (heavy[len(heavy) // 2], 1),
+                       (heavy[-1], 2)):
+        e = []
+        for h in (RMSD_H, -RMSD_H):
+            y = x.clone()
+            y[atom, axis] += h
+            e.append(float(module.ef(y, box)[0]))
+        fd = -(e[0] - e[1]) / (2.0 * RMSD_H)
+        fd_err = max(fd_err, abs(float(forces[atom, axis]) - fd) / scale)
+    deadline.check("rmsd cv: checks")
+    captures, readings = [], []
+    launches = dict.fromkeys(MAIN_PATH_NAMES, 0)
+    for c in range(chunks):
+        ctx.setParameter("r0", r0 + c * steer)
+        for kern in _build.KERNELS:
+            kern.launches = 0
+        integ.step(chunk)
+        for kern in MAIN_PATH_KERNELS:
+            launches[kern.name] += kern.launches
+        captures.append(_captures(ctx))
+        readings.append(cv.getCollectiveVariableValues(ctx)[0])
+    deadline.check("rmsd cv: steps")
+    start = ctx._snapshot()
+    graph = _production(device, ctx, integ.step, 0.0, replay, replay,
+                        deadline)
+    ctx._restore(start)
+    eager = _production(device, ctx, ctx._step_eager, 0.0, replay, replay,
+                        deadline)
+    _same_bits("rmsd cv", (graph["positions"], graph["velocities"]),
+               (eager["positions"], eager["velocities"]))
+    _same_state("rmsd cv", graph, eager)
+    temperature = ctx.temperature()
+    constraint_err = _constraint_error(
+        system, ctx.getState(getPositions=True).getPositions())
+    turns = _in_turns(device, {"plain": (base_ctx, bilayer["step"]),
+                               "cv": (ctx, integ.step)}, turn_steps,
+                      ("plain", "cv", "cv", "plain"), deadline)
+    ms = {key: statistics.mean(v[0]) for key, v in turns.items()}
+    print("rmsd cv: CustomCVForce 0.5*k*(rmsd-r0)^2 (k %.0f) over an "
+          "RMSDForce of %d lipid heavy atoms on the %d-atom bilayer: RMSD "
+          "%.9f nm on the card, %.9f by numpy Kabsch; forces against a "
+          "float64 central difference %.3e of the largest (bar %.0e); r0 "
+          "steered %s nm, the RMSD read %s; captures %s; %d steps replayed "
+          "through the eager loop: the same bits; T %.2f K; constraint "
+          "error %.3e; in turns %.4f ms a step (plain bilayer %.4f); "
+          "launches in the %d steered steps %s" % (
+              k, len(heavy), system.getNumParticles(), values[0], kabsch,
+              fd_err, RMSD_FD_BAR, " ".join(
+                  "%.4f" % (r0 + c * steer) for c in range(chunks)),
+              " ".join("%.4f" % r for r in readings), captures, replay,
+              temperature, constraint_err, ms["cv"], ms["plain"],
+              chunk * chunks, json.dumps(launches)))
+    if not abs(values[0] - kabsch) <= RMSD_KABSCH_BAR * kabsch:
+        raise RuntimeError("rmsd cv: RMSD %.9f, numpy Kabsch %.9f"
+                           % (values[0], kabsch))
+    if not fd_err <= RMSD_FD_BAR:
+        raise RuntimeError("rmsd cv: forces off a central difference by "
+                           "%.3e" % fd_err)
+    if device.type == "cuda":
+        if len(set(captures)) != 1:
+            raise RuntimeError("rmsd cv: programs captured %s" % captures)
+        if min(launches.values()) < chunk * chunks:
+            raise RuntimeError("rmsd cv: in %d steps a kernel launched "
+                               "fewer times than once a step: %s"
+                               % (chunk * chunks, launches))
+    if not t_range[0] <= temperature <= t_range[1]:
+        raise RuntimeError("rmsd cv: temperature %.2f K" % temperature)
+    if not constraint_err <= CONSTRAINT_ERR_BAR:
+        raise RuntimeError("rmsd cv: constraint error %.3e" % constraint_err)
+    deadline.check("rmsd cv")
+    return {"atoms": len(heavy), "rmsd": values[0], "kabsch": kabsch,
+            "fd_err": fd_err, "ms": ms, "temperature": temperature,
+            "readings": readings, "launches": launches}
+
+
+def _argon_cluster(n, seed=12):
+    """(from_numpy dict, positions) of n argon atoms on a simple cubic
+    lattice at 0.37 nm, each moved by up to 0.01 nm along each axis (drawn
+    with `seed`), Lennard-Jones (NoCutoff) and, added by the caller,
+    Axilrod-Teller."""
+    side = int(math.ceil(n ** (1.0 / 3.0)))
+    grid = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"),
+                    axis=-1).reshape(-1, 3)[:n]
+    rng = np.random.RandomState(seed)
+    pos = 0.37 * grid + rng.uniform(-0.01, 0.01, (n, 3))
+    params = _bare_params(n, 39.948)
+    params["sigma"][:] = 0.34
+    params["epsilon"][:] = 0.996
+    return params, pos
+
+
+def _bare_params(n, mass):
+    """from_numpy keys of n particles of `mass` with a NoCutoff
+    NonbondedForce of no charges and no Lennard-Jones."""
+    return {"masses": np.full(n, float(mass)), "charges": np.zeros(n),
+            "sigma": np.full(n, 0.3), "epsilon": np.zeros(n),
+            "exception_pairs": np.zeros((0, 2), np.int64),
+            "exception_params": np.zeros((0, 3)),
+            "constraint_pairs": np.zeros((0, 2), np.int64),
+            "constraint_distances": np.zeros(0),
+            "box": np.diag([10.0] * 3), "cutoff": 1.0,
+            "method": "NoCutoff", "ewald_tolerance": 5e-4,
+            "dispersion_correction": False, "switch_distance": -1.0}
+
+
+def more_custom_systems(hbond_waters=HBOND_WATERS, argon=ARGON_ATOMS,
+                        ellipsoids=GAYBERNE_ELLIPSOIDS, water_positions=None,
+                        argon_seed=12):
+    """{label: (from_numpy dict, positions, temperature K, NVE steps)} of
+    phase_more_custom's three systems, the custom force in group 1 of
+    each: hydrogen bonds between
+    `hydrogen_waters` rigid TIP3P waters (the first waters of
+    `water_positions`, or of a fresh box; each hydrogen a donor, each
+    oxygen an acceptor, one water's own pairs excluded; a Gaussian well of
+    5 kJ/mol at 0.19 nm from donor to acceptor times the cosine squared of
+    the donor angle; NoCutoff);
+    Axilrod-Teller (C 1e-4 kJ/mol nm^9) on `argon` argon atoms (with their
+    Lennard-Jones; NoCutoff; _argon_cluster with `argon_seed`), at 100 K; a Gay-Berne fluid of `ellipsoids` ellipsoids, each with an
+    x and a y frame particle held by stiff harmonic bonds and an angle
+    (NoCutoff)."""
+    out = {}
+    system, pos = tip3p_water_box(hbond_waters)
+    params = omm.to_numpy(system)
+    if water_positions is not None:
+        pos = np.asarray(water_positions)
+    n = 3 * hbond_waters
+    hb = _bare_params(n, 1.0)
+    hb["masses"] = params["masses"][:n]
+    inside = (params["constraint_pairs"] < n).all(axis=1)
+    hb["constraint_pairs"] = params["constraint_pairs"][inside]
+    hb["constraint_distances"] = params["constraint_distances"][inside]
+    pos = pos[:n]
+    hb["custom_forces"] = [{
+        "kind": "CustomHbondForce", "group": 1,
+        "energy": "-e_hb*exp(-((distance(a1,d1)-r0)/w_hb)^2)"
+                  "*cos(angle(a1,d1,d2))^2",
+        "globals": [("e_hb", 5.0), ("w_hb", 0.05)], "derivatives": [],
+        "functions": [],
+        "periodic": False, "donor_parameters": [],
+        "acceptor_parameters": ["r0"],
+        "donors": [((3 * w + h, 3 * w, -1), []) for w in range(hbond_waters)
+                   for h in (1, 2)],
+        "acceptors": [((3 * w, 3 * w + 1, 3 * w + 2), [0.19])
+                      for w in range(hbond_waters)],
+        "exclusions": [(2 * w + h, w) for w in range(hbond_waters)
+                       for h in (0, 1)],
+        "method": 0, "cutoff": 1.0}]
+    out["hbond"] = (hb, pos, 300.0, MORE_STEPS)
+    ar, ar_pos = _argon_cluster(argon, argon_seed)
+    ar["custom_forces"] = [{
+        "kind": "CustomManyParticleForce", "group": 1,
+        "energy": "C*(1+3*cos(t1)*cos(t2)*cos(t3))/(r12*r13*r23)^3;"
+                  "t1=angle(p2,p1,p3); t2=angle(p1,p2,p3);"
+                  "t3=angle(p1,p3,p2); r12=distance(p1,p2);"
+                  "r13=distance(p1,p3); r23=distance(p2,p3)",
+        "globals": [("C", 1e-4)], "derivatives": [], "functions": [],
+        "periodic": False, "particles_per_set": 3, "parameters": [],
+        "particles": [([], 0)] * argon, "type_filters": [],
+        "permutation_mode": 0, "exclusions": [], "method": 0,
+        "cutoff": 1.0}]
+    out["axilrod-teller"] = (ar, ar_pos, 100.0, ARGON_STEPS)
+    side = int(math.ceil(ellipsoids ** (1.0 / 3.0)))
+    rng = np.random.RandomState(14)
+    gpos, particles, bonds, angles = [], [], [], []
+    for k in range(ellipsoids):
+        centre = 0.9 * np.asarray([k % side, (k // side) % side,
+                                   k // side // side], np.float64)
+        centre = centre + rng.uniform(-0.05, 0.05, 3)
+        i = len(gpos)
+        gpos += [centre, centre + [0.1, 0.0, 0.0], centre + [0.0, 0.1, 0.0]]
+        particles += [[0.35, 1.0, i + 1, i + 2, 0.7, 0.35, 0.35,
+                       1.0, 1.0, 0.5],
+                      [0.1, 0.0, -1, -1, 0.1, 0.1, 0.1, 1, 1, 1],
+                      [0.1, 0.0, -1, -1, 0.1, 0.1, 0.1, 1, 1, 1]]
+        bonds += [(i, i + 1), (i, i + 2)]
+        angles.append((i + 1, i, i + 2))
+    gbp = _bare_params(len(gpos), 20.0)
+    gbp.update({"bond_pairs": np.asarray(bonds),
+                "bond_params": np.tile([0.1, 50000.0], (len(bonds), 1)),
+                "angle_triples": np.asarray(angles),
+                "angle_params": np.tile([math.pi / 2, 500.0],
+                                        (len(angles), 1))})
+    gbp["custom_forces"] = [{
+        "kind": "GayBerneForce", "group": 1, "particles": particles,
+        "exceptions": [], "method": 0, "cutoff": 1.0,
+        "switch_distance": -1.0}]
+    out["gay-berne"] = (gbp, np.asarray(gpos), 300.0, MORE_STEPS)
+    return out
+
+
+def phase_more_custom(device, main=None, deadline=None, systems=None,
+                      steps=None, every=MORE_EVERY, replay=MORE_REPLAY,
+                      dt=MORE_DT, gate=DRIFT_GATE,
+                      seed=VELOCITY_SEED) -> dict:
+    """CustomHbondForce, CustomManyParticleForce and GayBerneForce on
+    more_custom_systems (the hydrogen-bond waters at the relaxed water
+    box's positions): each system's custom force's ef (float64) on the
+    card against its float64 evaluation on the CPU (MORE_BAR, energy
+    relative and forces of the largest) and timed alone; then the
+    system's NVE steps (or `steps`) of `dt` of Verlet through the step
+    program from velocities at the system's temperature drawn with `seed`
+    (the total energy read every `every` steps: its drift within `gate`
+    kT/dof/ns); `replay` steps from a snapshot through the step program
+    and the eager loop: the same bits. Raises on a miss."""
+    deadline = deadline or Deadline(math.inf)
+    if systems is None:
+        water = (None if main is None else main["context"].getState(
+            getPositions=True).getPositions())
+        systems = more_custom_systems(water_positions=water)
+    out = {}
+    for label, (params, pos, temperature, nve) in systems.items():
+        nve = steps or nve
+        system = omm.from_numpy(params)
+        integ = omm.VerletIntegrator(dt)
+        ctx = _platform_context(device, system, integ)
+        ctx.setPositions(pos)
+        cpu = omm.Context(omm.from_numpy(params), omm.VerletIntegrator(dt),
+                          "CPU", {"Precision": "double"})
+        cpu.setPositions(pos)
+        (module,) = ctx._custom
+        (cpu_module,) = cpu._custom
+        x = ctx._state["positions"]
+        e_card, f_card = module.ef(x, ctx._box)
+        e_cpu, f_cpu = cpu_module.ef(cpu._state["positions"], cpu._box)
+        f_card = f_card.cpu()
+        err = (abs(float(e_card) - float(e_cpu)) / abs(float(e_cpu)),
+               float((f_card - f_cpu).abs().max() / f_cpu.abs().max()))
+        del cpu
+        ef_ms = (_time_ms(lambda: module.ef(x, ctx._box), device, reps=5,
+                          warmup=1) if device.type == "cuda" else None)
+        deadline.check("more custom: %s ef" % label)
+        ctx.applyConstraints()
+        ctx.setVelocitiesToTemperature(temperature, randomSeed=seed)
+        run = _production(device, ctx, integ.step, _total_energy(ctx),
+                          nve, every, deadline, read=_total_energy)
+        dof = 3 * system.getNumParticles() - system.getNumConstraints()
+        drift = _drift(run["energies"], every, dt, dof, temperature)
+        start = ctx._snapshot()
+        graph = _production(device, ctx, integ.step, 0.0, replay, replay,
+                            deadline)
+        ctx._restore(start)
+        eager = _production(device, ctx, ctx._step_eager, 0.0, replay,
+                            replay, deadline)
+        _same_bits("more custom: " + label,
+                   (graph["positions"], graph["velocities"]),
+                   (eager["positions"], eager["velocities"]))
+        out[label] = {"particles": system.getNumParticles(),
+                      "terms": module.m if hasattr(module, "m")
+                      else module.pairs.shape[0], "err": err,
+                      "ef_ms": ef_ms, "drift": drift,
+                      "energies": run["energies"], "dof": dof,
+                      "ms_per_step": run["wall_ms_per_step"],
+                      "energy": float(e_cpu)}
+        print("more custom: %s, %d particles, %d terms: ef on the card "
+              "against the CPU's float64 %.3e (energy) %.3e (forces; bar "
+              "%.0e), %s ms a call; NVE Verlet %d steps of %.4f ps %.4f ms "
+              "a step, drift %.4e kT/dof/ns (gate %.1f); %d steps replayed "
+              "through the eager loop: the same bits" % (
+                  label, out[label]["particles"], out[label]["terms"],
+                  *err, MORE_BAR, "not measured" if ef_ms is None
+                  else "%.4f" % ef_ms, nve, dt,
+                  run["wall_ms_per_step"], drift, gate, replay))
+        if not max(err) <= MORE_BAR:
+            raise RuntimeError("more custom: %s ef off the CPU's by %.3e, "
+                               "%.3e" % (label, *err))
+        if not all(math.isfinite(e) for e in run["energies"]):
+            raise RuntimeError("more custom: %s energy not finite" % label)
+        if not abs(drift) < gate:
+            raise RuntimeError("more custom: %s drift %.4e kT/dof/ns"
+                               % (label, drift))
+        del ctx
+        deadline.check("more custom: %s" % label)
+    return out
 
 
 def _time_ms(fn, device, reps=20, warmup=3) -> float:
@@ -3718,6 +4353,8 @@ def _main(deadline) -> int:
     deadline.lap("alchemical")
     while_draws = phase_while_draws(device, result, deadline)
     deadline.lap("while draws")
+    more_custom = phase_more_custom(device, result, deadline)
+    deadline.lap("more custom")
     del result, offsets["context"]
     minimized = phase_minimize(device, deadline=deadline)
     if min(minimized["launches"].values()) <= 0:
@@ -3737,6 +4374,8 @@ def _main(deadline) -> int:
     deadline.lap("ljpme bilayer")
     custom_bilayer = phase_custom_bilayer(device, bilayer, deadline)
     deadline.lap("custom bilayer")
+    rmsd_cv = phase_rmsd_cv(device, bilayer, deadline)
+    deadline.lap("rmsd cv")
     last = bilayer["context"].getState(getPositions=True)
     tables = phase_tables(device, last.getPositions(),
                           last.getPeriodicBoxVectors(), deadline)
@@ -3752,6 +4391,8 @@ def _main(deadline) -> int:
     deadline.lap("ewald")
     gbsa = phase_gbsa(device, deadline)
     deadline.lap("gbsa")
+    customgb = phase_customgb(device, deadline)
+    deadline.lap("customgb")
     tip4pew = phase_tip4pew(device, deadline)
     deadline.lap("tip4pew")
     mts_tip4pew = phase_mts_tip4pew(device, tip4pew, deadline)
@@ -3761,6 +4402,7 @@ def _main(deadline) -> int:
     records = phase_timing(device, inp, counts, launches, errors, deadline)
     records.append(rf_water["record"])
     records += ljpme["records"]
+    records.append(alchemical["deriv_record"])
     deadline.lap("timing")
     print("main path: %.2f ns/day on %s (%s), %d steps of %.3f ps, "
           "through the step program (gating %s)" % (
@@ -3873,6 +4515,20 @@ def _main(deadline) -> int:
                   "%s %.2e" % (k, max(e))
                   for k, e in custom_bilayer["errors"].items()),
               *tables["errors"], while_draws["mean"]))
+    print("GB recipes, RMSD restraint, offsets' derivative, dense custom "
+          "forces on %s (%s): GBn2 cluster (%d atoms) %.4f ms a step (%.2f "
+          "ns/day), GB's sweeps %s ms; RMSD-restrained bilayer %.4f ms a "
+          "step (plain %.4f in the same turns); dE/dlambda_electrostatics "
+          "reading %s ms, kernel 1's derivative instantiation %.4f ms; %s" % (
+              info["name"], info["smi"], customgb["atoms"],
+              customgb["ms_per_step"], customgb["ns_day"],
+              customgb["sweeps_ms"], rmsd_cv["ms"]["cv"],
+              rmsd_cv["ms"]["plain"], " ".join(
+                  "%.3f" % m for m in alchemical["read_ms"]),
+              alchemical["deriv_record"]["ms"], "; ".join(
+                  "%s %.4f ms a step (ef %s ms)" % (
+                      k, r["ms_per_step"], r["ef_ms"])
+                  for k, r in more_custom.items())))
     print("seconds by phase: %s" % ", ".join(
         "%s %.1f" % lap for lap in deadline.laps))
     print("total %.1f s of the %.0f s budget" % (deadline.elapsed(),

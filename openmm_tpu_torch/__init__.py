@@ -12,8 +12,10 @@ particles, under LangevinMiddle, leapfrog Langevin, Verlet, Brownian,
 Nose-Hoover, variable-step, multiple-time-step (MTS) or accelerated (aMD)
 dynamics, a CustomIntegrator program or a CompoundIntegrator of these,
 the custom forces (External, Bond, Angle, Torsion, Nonbonded, CompoundBond,
-CentroidBond) with tabulated functions and energy parameter derivatives
-from symbolic derivatives,
+CentroidBond, GB with the Amber GB recipes of app.gbforces, CV, Hbond,
+ManyParticle) with tabulated functions and energy parameter derivatives
+from symbolic derivatives (of NonbondedForce offsets too), RMSDForce and
+GayBerneForce,
 through three hand-written CUDA kernels (csrc/), and energy
 minimization (LocalEnergyMinimizer) through the differentiable dense PME
 and two more; Context.updateParametersInContext, createCheckpoint and
@@ -22,14 +24,16 @@ loadCheckpoint. Numbers are plain floats in nm, ps, amu, kJ/mol and e.
 from .constants import BOLTZ, ONE_4PI_EPS0
 from .context import Context
 from .forces import (AndersenThermostat, CMAPTorsionForce, CMMotionRemover,
-                     CustomAngleForce, CustomBondForce,
+                     CustomAngleForce, CustomBondForce, CustomCVForce,
                      CustomCentroidBondForce, CustomCompoundBondForce,
-                     CustomExternalForce, CustomNonbondedForce,
-                     CustomTorsionForce, Force, GBSAOBCForce,
+                     CustomExternalForce, CustomGBForce, CustomHbondForce,
+                     CustomManyParticleForce, CustomNonbondedForce,
+                     CustomTorsionForce, Force, GayBerneForce, GBSAOBCForce,
                      HarmonicAngleForce, HarmonicBondForce,
                      MonteCarloAnisotropicBarostat,
                      MonteCarloBarostat, MonteCarloMembraneBarostat,
-                     NonbondedForce, PeriodicTorsionForce, RBTorsionForce)
+                     NonbondedForce, PeriodicTorsionForce, RBTorsionForce,
+                     RMSDForce)
 from .integrators import (AMDForceGroupIntegrator, AMDIntegrator,
                           BrownianIntegrator, CompoundIntegrator,
                           CustomIntegrator, DualAMDIntegrator,
@@ -53,9 +57,11 @@ __all__ = ["AMDForceGroupIntegrator", "AMDIntegrator",
            "CMAPTorsionForce", "CMMotionRemover", "CompoundIntegrator",
            "Context", "Continuous1DFunction", "Continuous2DFunction",
            "Continuous3DFunction", "CustomAngleForce", "CustomBondForce",
-           "CustomCentroidBondForce", "CustomCompoundBondForce",
-           "CustomExternalForce", "CustomIntegrator",
-           "CustomNonbondedForce", "CustomTorsionForce",
+           "CustomCVForce", "CustomCentroidBondForce",
+           "CustomCompoundBondForce", "CustomExternalForce",
+           "CustomGBForce", "CustomHbondForce", "CustomIntegrator",
+           "CustomManyParticleForce", "CustomNonbondedForce",
+           "CustomTorsionForce", "GayBerneForce", "RMSDForce",
            "Discrete1DFunction", "Discrete2DFunction",
            "Discrete3DFunction", "DualAMDIntegrator", "Force",
            "GBSAOBCForce", "HarmonicAngleForce", "HarmonicBondForce",

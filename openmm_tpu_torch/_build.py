@@ -1,11 +1,13 @@
 """Build and load the package's CUDA kernels.
 
-All sources under csrc/ are compiled by ONE nvcc call into a shared library
-with a plain C interface, loaded with ctypes: no PyTorch headers are
-included, so the build takes seconds. The library lands in
-build/openmm_tpu_torch/ beside the package, named by a hash of the sources;
-a build writes a private temporary file and renames it into place, so no
-lock file is ever read or written.
+Each source under csrc/ is compiled by an nvcc process of its own, all
+started together, into an object file, and one more nvcc call links the
+objects into a shared library with a plain C interface, loaded with
+ctypes: no PyTorch headers are included, so the build takes seconds. The
+library lands in build/openmm_tpu_torch/ beside the package, named by a
+hash of the sources; a build writes into a private temporary directory
+and renames the library into place, so no lock file is ever read or
+written.
 
 Each C entry point takes raw device pointers and the CUDA stream as
 c_void_p, launches on that stream and returns cudaGetLastError(); the
@@ -30,14 +32,16 @@ PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "openmm_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+              "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "omm_nonbonded_tiles": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                            _P, _P],
+                            _P, _P, _P],
+    "omm_nonbonded_tiles_deriv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                  _I, _I, _P, _P, _P],
     "omm_pme_spread": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "omm_pme_gather": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "omm_spread_triple_fwd": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
@@ -78,7 +82,7 @@ def sources() -> list[Path]:
 
 
 def _source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for path in sorted(CSRC.iterdir()):
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -106,29 +110,45 @@ def library_path() -> Path:
 
 
 def build(timeout: float = 600.0) -> tuple[Path, float, str]:
-    """Compile the kernels if the library for these sources is missing.
-    Returns (path, seconds spent in nvcc, nvcc's ptxas report). nvcc is
-    killed after `timeout` seconds (subprocess.TimeoutExpired)."""
+    """Compile the kernels if the library for these sources is missing:
+    one nvcc process a source, all at once, then one link. Returns (path,
+    seconds spent in nvcc, nvcc's ptxas report). Every nvcc is killed
+    after `timeout` seconds in all (subprocess.TimeoutExpired)."""
     path = library_path()
     if path.is_file():
         return path, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-           *map(str, sources())]
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=timeout)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objects = [os.path.join(tmp, src.stem + ".o") for src in sources()]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", obj, str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources(), objects)]
+        logs = []
+        try:
+            for src, proc in zip(sources(), procs):
+                left = max(timeout - (time.perf_counter() - t0), 0.1)
+                out, _ = proc.communicate(timeout=left)
+                logs.append(out)
+                if proc.returncode != 0:
+                    raise RuntimeError("nvcc failed on %s (%d):\n%s" % (
+                        src.name, proc.returncode, out))
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        lib = os.path.join(tmp, path.name)
+        left = max(timeout - (time.perf_counter() - t0), 0.1)
+        proc = subprocess.run([nvcc, *LINK_FLAGS, "-o", lib, *objects],
+                              capture_output=True, text=True, timeout=left)
         if proc.returncode != 0:
-            raise RuntimeError("nvcc failed (%d):\n%s%s" % (
+            raise RuntimeError("nvcc failed to link (%d):\n%s%s" % (
                 proc.returncode, proc.stdout, proc.stderr))
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return path, time.perf_counter() - t0, proc.stdout + proc.stderr
+        os.replace(lib, path)
+    return path, time.perf_counter() - t0, "".join(logs)
 
 
 @functools.cache

@@ -19,13 +19,15 @@ reference that the tests and chip_smoke.py hold the program to.
 _make_position_energy_fn is the minimizer's objective (energy and forces
 by autograd at given positions). getState(getParameterDerivatives=True)
 gives dE/dparameter of the parameters the custom forces request
-(addEnergyParameterDerivative), summed over the custom forces in the
-groups asked for, from their symbolic derivatives, between steps: the
-step computes none. A derivative of a parameter that a NonbondedForce's
-offsets also use is not in this slice of the port (the Context refuses
-it): the JAX package takes it by jax.grad through the offsets
-(openmm_tpu/forces/nonbonded.py:545-557), and the port's direct space is
-differentiable in the positions only.
+(addEnergyParameterDerivative), summed over the forces in the groups
+asked for, between steps (the step computes none): the custom forces'
+from their symbolic derivatives, and, for a parameter that a
+NonbondedForce's offsets also read, the NonbondedForce's through the
+offsets (NonbondedModule.parameter_derivatives: kernel 1's derivative
+instantiation on the candidate state, closed forms for the exceptions,
+the exclusion correction and the self energies, the reciprocal space
+as a bilinear form of the charges), as the JAX package's jax.grad
+through its offsets (openmm_tpu/forces/nonbonded.py:541-562) gives it.
 
 A System may hold NonbondedForces (any method, with global parameters and
 offsets: forces/nonbonded.py; each its own module, those that keep a
@@ -81,12 +83,13 @@ import numpy as np
 import torch
 
 from .constants import BOLTZ
+from .forces import MODULE_FORCES
 from .forces.barostats import BAROSTATS
 from .forces.bonded import BONDED_FORCES, HarmonicAngleForce
 from .forces.cmmotion import CMMotionRemover
-from .forces.custom import CUSTOM_FORCES
 from .forces.gbsa import GBSAOBCForce
-from .forces.nonbonded import CandidateSet, NonbondedForce, NonbondedModule
+from .forces.nonbonded import (CandidateSet, NonbondedForce,
+                               NonbondedModule, NonbondedVariable)
 from .forces.thermostats import AndersenThermostat
 from .integrators.base import StepDeps
 from .ops.constraints import (CCMA, Settle, Shake, partition_constraints,
@@ -110,23 +113,20 @@ def _host(t: torch.Tensor) -> np.ndarray:
 
 
 def _first_members(n: int, pairs) -> np.ndarray:
-    """(n,) int64: for each of n items, the first item of its connected
-    component under `pairs` (a union-find)."""
-    parent = list(range(n))
-
-    def find(x):
-        while parent[x] != x:
-            parent[x] = parent[parent[x]]
-            x = parent[x]
-        return x
-
-    for a, b in pairs:
-        ra, rb = find(a), find(b)
-        if ra != rb:
-            parent[ra] = rb
-    first = {}
-    return np.asarray([first.setdefault(find(i), i) for i in range(n)],
-                      np.int64)
+    """(n,) int64: for each of n items, the first (lowest) item of its
+    connected component under `pairs`: each item's label lowered to its
+    pair partners' and then to its label's label until nothing moves."""
+    first = np.arange(n, dtype=np.int64)
+    a, b = np.asarray(pairs, np.int64).reshape(-1, 2).T
+    while True:
+        low = np.minimum(first[a], first[b])
+        new = first.copy()
+        np.minimum.at(new, a, low)
+        np.minimum.at(new, b, low)
+        new = new[new]
+        if np.array_equal(new, first):
+            return first
+        first = new
 
 
 def _group_mask(groups) -> int:
@@ -178,12 +178,12 @@ class Context:
         for force in forces:
             if not isinstance(force, (NonbondedForce, GBSAOBCForce,
                                       CMMotionRemover, AndersenThermostat)
-                              + BONDED_FORCES + BAROSTATS + CUSTOM_FORCES):
+                              + BONDED_FORCES + BAROSTATS + MODULE_FORCES):
                 raise NotImplementedError(
                     "%s is not in this slice of the port"
                     % type(force).__name__)
         nonbonded = [f for f in forces if isinstance(f, NonbondedForce)]
-        custom_forces = [f for f in forces if isinstance(f, CUSTOM_FORCES)]
+        custom_forces = [f for f in forces if isinstance(f, MODULE_FORCES)]
         f64 = dict(dtype=torch.float64, device=self._device)
         defaults = {}
         for force in forces:
@@ -192,20 +192,12 @@ class Context:
         self._gp = torch.as_tensor(list(defaults.values()), **f64)
         # the parameters whose energy derivatives getState reports
         self._deriv_names = sorted({name for f in custom_forces
-                                    for name in f._deriv_requests})
+                                    for name in getattr(
+                                        f, "_deriv_requests", ())})
         for force in nonbonded:
             if force.getNumParticles() != n:
                 raise ValueError("NonbondedForce must have the same number "
                                  "of particles as the System")
-            offset_names = {o[0] for o in force._particle_offsets
-                            + force._exception_offsets}
-            shared = offset_names & set(self._deriv_names)
-            if shared:
-                raise NotImplementedError(
-                    "the energy derivative of %s, which a NonbondedForce's "
-                    "parameter offsets use, is not in this slice of the "
-                    "port (openmm_tpu/forces/nonbonded.py:545-557 takes it "
-                    "by jax.grad)" % ", ".join(sorted(shared)))
         self._nonbondeds = [NonbondedModule(
             force, system.getDefaultPeriodicBoxVectors(), self._device,
             self._precision, self._gp, self._gp_index) for force in nonbonded]
@@ -218,12 +210,11 @@ class Context:
                             if len(tiled) == 1 else CandidateSet(tiled))
         gb_forces = [f for f in forces if isinstance(f, GBSAOBCForce)]
         bonded_forces = [f for f in forces if isinstance(f, BONDED_FORCES)]
-        self._gb = [f._compile(n, self._device, self._precision)
-                    for f in gb_forces]
-        self._bonded = [f._compile(n, self._device) for f in bonded_forces]
         # the custom forces read the masses (a centroid's weights)
         self._masses = torch.as_tensor(masses, **f64)
-        self._custom = [f._compile(self) for f in custom_forces]
+        self._gb = [self._compile_module(f) for f in gb_forces]
+        self._bonded = [self._compile_module(f) for f in bonded_forces]
+        self._custom = [self._compile_module(f) for f in custom_forces]
         # each force's compiled module, for updateParametersInContext
         self._modules = dict(zip(
             map(id, nonbonded + gb_forces + bonded_forces + custom_forces),
@@ -307,6 +298,32 @@ class Context:
         self._eager_fns = {}
         # (capacity scale, integration groups, program key) -> program
         self._programs = {}
+
+    def _compile_module(self, force):
+        """The compiled module of a GBSAOBCForce, a bonded force or a force
+        of MODULE_FORCES, for the Context's force lists or for a
+        collective variable of a CustomCVForce, which the Context keeps
+        out of them; a CV may also be a NonbondedForce without periodic
+        boundaries. Each has ef, energy and update; the custom kinds also
+        parameter_derivatives."""
+        if isinstance(force, MODULE_FORCES):
+            return force._compile(self)
+        if isinstance(force, GBSAOBCForce):
+            return force._compile(self._n, self._device, self._precision)
+        if isinstance(force, BONDED_FORCES):
+            return force._compile(self._n, self._device)
+        if isinstance(force, NonbondedForce):
+            if force.usesPeriodicBoundaryConditions():
+                raise NotImplementedError(
+                    "a NonbondedForce with periodic boundaries as a "
+                    "collective variable needs a candidate state of its "
+                    "own, which this slice of the port does not build")
+            return NonbondedVariable(NonbondedModule(
+                force, self._system.getDefaultPeriodicBoxVectors(),
+                self._device, self._precision, self._gp, self._gp_index))
+        raise NotImplementedError("%s as a collective variable is not in "
+                                  "this slice of the port"
+                                  % type(force).__name__)
 
     def _detect_molecules(self):
         """(molecule of each atom (n,) int64, count): the components of
@@ -479,18 +496,25 @@ class Context:
         self._refresh_tiles(pos, box)
         return self._evaluate(pos, box, self._tiles, groups)
 
-    def _forces_now(self, groups=-1):
-        """The forces in `groups` at the current state, for a reading
-        between steps: a candidate state that overflows its capacity
-        grows it and is built again (the retry of _step), where a step's
-        evaluation would be poisoned with NaN."""
+    def _current_tiles(self):
+        """The candidate state at the current state, for a reading between
+        steps: one that overflows its capacity grows it and is built
+        again (the retry of _step), where a step's evaluation would be
+        poisoned with NaN."""
         pos, box = self._state["positions"], self._state["box"]
         tries = 0
         self._refresh_tiles(pos, box)
         while self._tiles is not None and int(self._tiles["overflow"]) > 0:
             tries = self._grow_capacity(tries)
             self._refresh_tiles(pos, box)
-        return self._evaluate(pos, box, self._tiles, groups)
+        return self._tiles
+
+    def _forces_now(self, groups=-1):
+        """The forces in `groups` at the current state, for a reading
+        between steps (_current_tiles)."""
+        tiles = self._current_tiles()
+        return self._evaluate(self._state["positions"], self._state["box"],
+                              tiles, groups)
 
     def _integration_forces(self, pos, box):
         """The eager loop's force evaluation: the integration groups."""
@@ -962,12 +986,23 @@ class Context:
 
     def _parameter_derivatives(self, groups) -> dict:
         """{name: dE/dname} of the requested parameters, summed over the
-        custom forces in `groups` (0 where none reads the parameter)."""
+        custom forces and, through their offsets, the NonbondedForces in
+        `groups` (0 where none reads the parameter)."""
         pos, box = self._state["positions"], self._state["box"]
         totals = {name: 0.0 for name in self._deriv_names}
         for m in self._custom:
             if (groups >> m.group) & 1:
                 for name, value in m.parameter_derivatives(pos, box).items():
+                    totals[name] += float(value)
+        offsets = [nb for nb in self._nonbondeds
+                   if nb.offset_names & set(self._deriv_names)
+                   and nb.active(groups)]
+        if offsets:
+            tiles = self._current_tiles()
+            for nb in offsets:
+                for name, value in nb.parameter_derivatives(
+                        pos, box, self._module_state(nb, tiles), groups,
+                        self._deriv_names).items():
                     totals[name] += float(value)
         return totals
 

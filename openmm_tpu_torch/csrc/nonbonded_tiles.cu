@@ -1,6 +1,8 @@
 // Direct-space nonbonded energy and analytic forces over 16-atom row bricks
 // and their candidate bricks (kernel 1 of the PME water-box path; its
-// modes: Ewald/PME, the reaction field, and LJPME).
+// modes: Ewald/PME, the reaction field, and LJPME), and, in instantiations
+// of their own, the derivative of the energy in a global parameter that
+// parameter offsets move the charges, sigmas and epsilons by.
 //
 // Replaces: openmm_tpu/ops/pallas_pairs.py _kernel_body + _tile_compute
 // (launched by eval_tiles). The Pallas kernel reads compacted candidate slabs
@@ -196,12 +198,65 @@ __device__ __forceinline__ void add_pair(const Params& pr, float4 qi,
   *e += e_lj + e_c;
 }
 
+// The derivative instantiations (Deriv = true) sweep the same pairs and
+// add, in place of a pair's energy and force, the derivative of its energy
+// in a global parameter lambda at fixed positions, from par and dpar, the
+// parameters' derivatives in lambda in par's layout: dE/dqq dqq + dE/dsig
+// dsig + dE/deps4 deps4 (+ dE/dc6g dc6g for LJPME), dqq = dq_i q_j + q_i
+// dq_j and so on. They run between steps only; the energy-and-force
+// instantiations carry none of their code.
+template <bool Ljpme>
+__device__ __forceinline__ void add_pair_deriv(const Params& pr, float4 qi,
+                                               float4 dqi, float4 qj,
+                                               float4 dqj, float4 d,
+                                               float* acc) {
+  const float r2s = fmaxf(d.w, 2e-6f);
+  const float inv_r = rsqrtf(r2s);
+  const float inv_r2 = inv_r * inv_r;
+  const float sig = qi.y + qj.y;
+  const float dsig = dqi.y + dqj.y;
+  const float eps4 = qi.z * qj.z;
+  const float deps4 = dqi.z * qj.z + qi.z * dqj.z;
+  const float s2 = sig * sig * inv_r2;
+  const float s6 = s2 * s2 * s2;
+  // a pair whose sigma no offset moves takes no 0 / 0 at sigma 0
+  const float dsig_sig = dsig != 0.0f ? dsig / sig : 0.0f;
+  float d_lj = deps4 * s6 * (s6 - 1.0f) +
+               eps4 * 6.0f * s6 * (2.0f * s6 - 1.0f) * dsig_sig;
+  if (pr.use_switch) {
+    const float rr = r2s * inv_r;
+    const float t = fminf(fmaxf((rr - pr.rs) * pr.inv_w, 0.0f), 1.0f);
+    const float t2 = t * t;
+    d_lj *= 1.0f - t2 * t * (10.0f - 15.0f * t + 6.0f * t2);
+  }
+  if constexpr (Ljpme) {
+    const float dc6g = dqi.w * qj.w + qi.w * dqj.w;
+    float g, h;
+    dispersion_complement(pr.krf * r2s, &g, &h);
+    d_lj += dc6g * (inv_r2 * inv_r2 * inv_r2 * g + pr.crf);
+    const float sig2 = sig * sig;
+    const float s6c = sig2 * sig2 * sig2 * pr.inv_cut6;
+    d_lj += deps4 * s6c * (1.0f - s6c) +
+            eps4 * (6.0f * s6c - 12.0f * s6c * s6c) * dsig_sig;
+  }
+  const float dqq = dqi.x * qj.x + qi.x * dqj.x;
+  float e_c;
+  if (pr.mode != kModeRf) {
+    const float ar = pr.alpha * (r2s * inv_r);
+    e_c = inv_r * erfc_hastings(ar, expf(-ar * ar));
+  } else {
+    e_c = inv_r + pr.krf * r2s - pr.crf;
+  }
+  *acc += d_lj + dqq * e_c;
+}
+
 // consts: alpha, rc^2, krf, crf, ax, bx, by, cx, cy, cz, 1/ax, 1/by, 1/cz,
 //         switch distance, 1/(rc - switch distance), 1/rc^6 (LJPME; else 0)
-template <bool Ljpme>
+template <bool Ljpme, bool Deriv>
 __global__ void __launch_bounds__(32 * kWarps)
 nonbonded_tiles_kernel(const float4* __restrict__ pos,
                        const float4* __restrict__ par,
+                       const float4* __restrict__ dpar,
                        const int* __restrict__ cand,
                        const int* __restrict__ count,
                        const int* __restrict__ words,
@@ -238,6 +293,8 @@ nonbonded_tiles_kernel(const float4* __restrict__ pos,
 
   const float4 pi = pos[i];
   const float4 qi = par[i];
+  float4 dqi;
+  if constexpr (Deriv) dqi = dpar[i];
   float fx = 0.f, fy = 0.f, fz = 0.f, e = 0.f;
   int queued = 0;
   const int n_cand = count[r];
@@ -294,7 +351,13 @@ nonbonded_tiles_kernel(const float4* __restrict__ pos,
       queued += __popc(hits);
       if (queued >= 32) {
         __syncwarp();
-        add_pair<Ljpme>(pr, qi, par[qj[lane]], qd[lane], &fx, &fy, &fz, &e);
+        if constexpr (Deriv) {
+          add_pair_deriv<Ljpme>(pr, qi, dqi, par[qj[lane]], dpar[qj[lane]],
+                                qd[lane], &e);
+        } else {
+          add_pair<Ljpme>(pr, qi, par[qj[lane]], qd[lane], &fx, &fy, &fz,
+                          &e);
+        }
         __syncwarp();  // every lane has read its slot
         if (lane < queued - 32) {
           qd[lane] = qd[32 + lane];
@@ -308,7 +371,12 @@ nonbonded_tiles_kernel(const float4* __restrict__ pos,
   }
   __syncwarp();
   if (lane < queued) {
-    add_pair<Ljpme>(pr, qi, par[qj[lane]], qd[lane], &fx, &fy, &fz, &e);
+    if constexpr (Deriv) {
+      add_pair_deriv<Ljpme>(pr, qi, dqi, par[qj[lane]], dpar[qj[lane]],
+                            qd[lane], &e);
+    } else {
+      add_pair<Ljpme>(pr, qi, par[qj[lane]], qd[lane], &fx, &fy, &fz, &e);
+    }
   }
   for (int o = 16; o > 0; o >>= 1) {
     fx += __shfl_xor_sync(kFull, fx, o);
@@ -321,13 +389,14 @@ nonbonded_tiles_kernel(const float4* __restrict__ pos,
 
 }  // namespace
 
-// Scratch: bounds (2 n_bricks float4).
-extern "C" int omm_nonbonded_tiles(const void* pos, const void* par,
-                                   const void* cand, const void* count,
-                                   const void* words, const void* consts,
-                                   int n_bricks, int max_cand, int exc_cap,
-                                   int mode, int use_switch, void* bounds,
-                                   void* out, void* stream) {
+namespace {
+
+template <bool Deriv>
+int launch_tiles(const void* pos, const void* par, const void* dpar,
+                 const void* cand, const void* count, const void* words,
+                 const void* consts, int n_bricks, int max_cand, int exc_cap,
+                 int mode, int use_switch, void* bounds, void* out,
+                 void* stream) {
   if (n_bricks > 0) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     const auto* p = static_cast<const float4*>(pos);
@@ -338,13 +407,38 @@ extern "C" int omm_nonbonded_tiles(const void* pos, const void* par,
     if (mode < kModeEwald || mode > kModeLjpme) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    auto* kernel = mode == kModeLjpme ? nonbonded_tiles_kernel<true>
-                                      : nonbonded_tiles_kernel<false>;
+    auto* kernel = mode == kModeLjpme ? nonbonded_tiles_kernel<true, Deriv>
+                                      : nonbonded_tiles_kernel<false, Deriv>;
     kernel<<<n_bricks * kBrick / kWarps, 32 * kWarps, 0, s>>>(
-        p, static_cast<const float4*>(par), static_cast<const int*>(cand),
-        static_cast<const int*>(count), static_cast<const int*>(words),
-        static_cast<const float*>(consts), bb, max_cand, exc_cap, mode,
-        use_switch, static_cast<float4*>(out));
+        p, static_cast<const float4*>(par), static_cast<const float4*>(dpar),
+        static_cast<const int*>(cand), static_cast<const int*>(count),
+        static_cast<const int*>(words), static_cast<const float*>(consts),
+        bb, max_cand, exc_cap, mode, use_switch, static_cast<float4*>(out));
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Scratch: bounds (2 n_bricks float4).
+extern "C" int omm_nonbonded_tiles(const void* pos, const void* par,
+                                   const void* cand, const void* count,
+                                   const void* words, const void* consts,
+                                   int n_bricks, int max_cand, int exc_cap,
+                                   int mode, int use_switch, void* bounds,
+                                   void* out, void* stream) {
+  return launch_tiles<false>(pos, par, nullptr, cand, count, words, consts,
+                             n_bricks, max_cand, exc_cap, mode, use_switch,
+                             bounds, out, stream);
+}
+
+// out[i].w: row atom i's sum of dE/dlambda over its partners (x, y, z 0).
+extern "C" int omm_nonbonded_tiles_deriv(
+    const void* pos, const void* par, const void* dpar, const void* cand,
+    const void* count, const void* words, const void* consts, int n_bricks,
+    int max_cand, int exc_cap, int mode, int use_switch, void* bounds,
+    void* out, void* stream) {
+  return launch_tiles<true>(pos, par, dpar, cand, count, words, consts,
+                            n_bricks, max_cand, exc_cap, mode, use_switch,
+                            bounds, out, stream);
 }

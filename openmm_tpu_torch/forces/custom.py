@@ -303,12 +303,22 @@ class TermModule(CustomModule):
         fn = self._fn_d if with_derivs else self._fn
         e, partials = fn(env)
         like = self.par.new_zeros(self.m)
-        energy = _full(e, like).sum()
+        mask = self._mask(pos, box)
+
+        def full(x):
+            x = _full(x, like)
+            return x if mask is None else torch.where(mask, x, 0.0)
+
+        energy = full(e).sum()
         nc = len(self.coords)
-        contrib = self._chain(pos, box,
-                              [_full(p, like) for p in partials[:nc]])
-        derivs = [_full(p, like).sum() for p in partials[nc:]]
+        contrib = self._chain(pos, box, [full(p) for p in partials[:nc]])
+        derivs = [full(p).sum() for p in partials[nc:]]
         return energy, self.gather(contrib), derivs
+
+    def _mask(self, pos, box):
+        """(terms,) bool of the terms that count at `pos` (a cutoff), or
+        None: all."""
+        return None
 
     def update(self, force) -> None:
         idx, params = force._terms_arrays()
@@ -362,14 +372,17 @@ class _BondedModule(TermModule):
 
 
 class _PointsModule(TermModule):
-    """CustomCompoundBond (points p1..pN, the particles) and
-    CustomCentroidBond (points g1..gN, the groups' centroids): the
-    geometry calls of points taken out of the expression as variables
-    whose gradients in the points are written by hand, and the scalar
-    coordinates x1..zN."""
+    """Terms over points, the expression reading the geometry calls
+    distance, angle and dihedral of them (taken out of the expression as
+    variables whose gradients in the points are written by hand) and,
+    with `scalar_coords`, each point's coordinates x1..zN:
+    CustomCompoundBond (points p1..pN, the particles), CustomCentroidBond
+    (g1..gN, the groups' centroids), CustomHbond (d1..d3, a1..a3) and
+    CustomManyParticle (p1..pN). `names`: the per-term parameters (the
+    force's per-term parameter names by default)."""
 
-    def __init__(self, force, ctx, idx, params, n_points, prefix,
-                 gather_idx=None):
+    def __init__(self, force, ctx, idx, params, points, gather_idx=None,
+                 names=None, scalar_coords=True):
         functions = force._tables(F64, ctx._device)
         self.periodic = force.usesPeriodicBoundaryConditions()
         functions.update(_point_functions(
@@ -379,25 +392,36 @@ class _PointsModule(TermModule):
             parse_inlined(force.getEnergyFunction(),
                           dict(functions, **dict.fromkeys(GEOMETRY))),
             GEOMETRY)
+        points = list(points)
         self.calls = []
         for var, name, args in calls:
-            pts = []
-            for a in args:
-                k = (int(a[1][len(prefix):]) - 1
-                     if a[0] == "var" and a[1].startswith(prefix)
-                     and a[1][len(prefix):].isdigit() else -1)
-                if not 0 <= k < n_points:
-                    raise ValueError("the arguments of %s() must be %s1..%s%d"
-                                     % (name, prefix, prefix, n_points))
-                pts.append(k)
-            self.calls.append((var, name, pts))
-        coords = ["%s%d" % (c, k + 1) for k in range(n_points)
-                  for c in "xyz"]
+            if not all(a[0] == "var" and a[1] in points for a in args):
+                raise ValueError("the arguments of %s() must be among %s"
+                                 % (name, ", ".join(points)))
+            self.calls.append((var, name, [points.index(a[1])
+                                           for a in args]))
+        n_points = len(points)
+        coords = (["%s%d" % (c, k + 1) for k in range(n_points)
+                   for c in "xyz"] if scalar_coords else [])
         self.n_points = n_points
-        super().__init__(force, ctx, idx, params, force._per_term,
+        # the points whose forces the gather takes: without scalar
+        # coordinates only those the geometry calls read (an unused slot
+        # of a CustomHbondForce, -1, would otherwise gather every term
+        # onto particle 0)
+        self.used = (list(range(n_points)) if scalar_coords else
+                     sorted({k for _, _, which in self.calls for k in which}))
+        if gather_idx is None:
+            gather_idx = np.asarray(idx)[:, self.used]
+        super().__init__(force, ctx, idx, params,
+                         force._per_term if names is None else names,
                          coords + [v for v, _, _ in self.calls], functions,
                          ast=ast, gather_idx=gather_idx)
         self.coords_xyz = len(coords)
+        # a device index (a list would be copied from the host at every
+        # call, which a CUDA graph cannot capture); None: every point
+        self.register_buffer("used_idx", None if len(self.used) == n_points
+                             else torch.as_tensor(self.used,
+                                                  device=ctx._device))
 
     def _points(self, pos):
         """(terms, n_points, 3) positions of each term's points."""
@@ -407,9 +431,10 @@ class _PointsModule(TermModule):
         box = box.to(F64) if self.periodic else None
         pts = self._points(pos)
         env = {}
-        for k in range(self.n_points):
-            for c, axis in zip("xyz", range(3)):
-                env["%s%d" % (c, k + 1)] = pts[:, k, axis]
+        if self.coords_xyz:
+            for k in range(self.n_points):
+                for c, axis in zip("xyz", range(3)):
+                    env["%s%d" % (c, k + 1)] = pts[:, k, axis]
         self._grads = []
         for var, name, which in self.calls:
             value, grads = _GEOMETRY_FNS[name](*(pts[:, k] for k in which),
@@ -419,14 +444,18 @@ class _PointsModule(TermModule):
         return env
 
     def _chain(self, pos, box, partials):
-        return self._point_forces(partials)
+        f = self._point_forces(partials)
+        return f if self.used_idx is None else f[:, self.used_idx]
 
     def _point_forces(self, partials):
         """(terms, n_points, 3) minus the energy's gradient in the
         points."""
         nxyz = self.coords_xyz
-        f = -torch.stack(partials[:nxyz], dim=-1).reshape(
-            -1, self.n_points, 3)
+        if nxyz:
+            f = -torch.stack(partials[:nxyz], dim=-1).reshape(
+                -1, self.n_points, 3)
+        else:
+            f = self.par.new_zeros((self.m, self.n_points, 3))
         for p, (which, grads) in zip(partials[nxyz:], self._grads):
             for k, g in zip(which, grads):
                 f[:, k] = f[:, k] - p[:, None] * g
@@ -436,7 +465,8 @@ class _PointsModule(TermModule):
 class _CompoundModule(_PointsModule):
     def __init__(self, force, ctx):
         idx, params = force._terms_arrays()
-        super().__init__(force, ctx, idx, params, force._n_atoms, "p")
+        super().__init__(force, ctx, idx, params,
+                         ["p%d" % (k + 1) for k in range(force._n_atoms)])
 
     def _points(self, pos):
         return pos[self.idx]
@@ -464,7 +494,8 @@ class _CentroidModule(_PointsModule):
             members[g, :k] = particles
             members[g, k:] = particles[0]
             weights[g, :k] = w / w.sum()
-        super().__init__(force, ctx, idx, params, force._n_groups, "g",
+        super().__init__(force, ctx, idx, params,
+                         ["g%d" % (k + 1) for k in range(force._n_groups)],
                          gather_idx=members)
         dev = ctx._device
         self.register_buffer("members", torch.as_tensor(members,

@@ -647,6 +647,10 @@ class NonbondedModule(nn.Module):
         # global parameters and offsets
         self.gp = gp
         names = dict(gp_index or {})
+        self.gp_index = names
+        # the global parameters the offsets read
+        self.offset_names = {o[0] for o in force._particle_offsets
+                             + force._exception_offsets}
         p_off = _offset_table(force._particle_offsets, names, n, "particle")
         e_off = _offset_table(force._exception_offsets, names, len(exc),
                               "exception")
@@ -937,6 +941,132 @@ class NonbondedModule(nn.Module):
         return energy + torch.where(state["overflow"] > 0, math.nan, 0.0)
 
 
+    # -- energy parameter derivatives (between steps) ------------------------
+    def _offset_derivs(self, index, param, scale, gather):
+        """(count, 3) d(charge or chargeProd, sigma, epsilon)/dlambda of
+        each target for the global parameter at `index`: the sums of the
+        scales of its offsets."""
+        pick = (param == index).to(self.dtype)
+        return gather((pick[:, None] * scale)[:, None, :])
+
+    def parameter_derivatives(self, pos, box, state=None, groups=-1,
+                              names=None) -> dict:
+        """{name: dE/dname (float64)} of the parts of this force in the
+        group mask `groups` for each global parameter of `names` (default:
+        all) that its offsets read, at fixed positions: the direct sweep
+        (kernel 1's derivative instantiation on the candidate state
+        `state`, or every pair), the exceptions and the Ewald exclusion
+        correction in closed form, the reciprocal space (kernel 2 on the
+        charges and on their derivatives, bilinear: no gather) and the self
+        energies. The dispersion correction takes the parameters at their
+        defaults (as the JAX package does) and so adds nothing."""
+        wanted = [n for n in (self.offset_names if names is None else names)
+                  if n in self.offset_names]
+        if not wanted:
+            return {}
+        posd = pos.to(self.dtype)
+        boxd = box.to(self.dtype)
+        direct = self.has_direct and (groups >> self.group) & 1
+        recip = self.has_recip and (groups >> self.recip_group) & 1
+        params = self.particle_params()
+        exc = self.exception_params()
+        q, sig, eps = params
+        zeros_n = torch.zeros((self.n, 3), dtype=self.dtype,
+                              device=pos.device)
+        zeros_e = torch.zeros((self.exc_idx.shape[0], 3), dtype=self.dtype,
+                              device=pos.device)
+        out = {}
+        for name in wanted:
+            k = self.gp_index[name]
+            dp = (zeros_n if self.p_off is None else self._offset_derivs(
+                k, self.p_off_param, self.p_off_scale, self.p_off))
+            de = (zeros_e if self.e_off is None else self._offset_derivs(
+                k, self.e_off_param, self.e_off_scale, self.e_off))
+            dq, dsig, deps = dp.unbind(1)
+            total = torch.zeros((), dtype=torch.float64, device=pos.device)
+            if direct:
+                total = total + self._direct_deriv(posd, boxd, state, params,
+                                                   (dq, dsig, deps))
+                total = total + self._pairs_deriv(posd, boxd, params, exc,
+                                                  (dq, dsig, deps),
+                                                  de.unbind(1))
+            if recip:
+                total = total + self._recip_deriv(pos, posd, box, boxd,
+                                                  params, (dq, dsig, deps))
+            out[name] = total
+        return out
+
+    def _direct_deriv(self, posd, boxd, state, params, dparams):
+        if not self.periodic:
+            return pair_ops.pair_param_derivative_n2(
+                posd, params, dparams, self.exclusions, self.terms)
+        if state is None:
+            state = self.build_state(posd, boxd)
+        order = state["order"]
+        par4 = tile_pairs.tile_params(*params, order, c6=self.ljpme)
+        dpar4 = tile_pairs.tile_param_derivs(*params, *dparams, order,
+                                             c6=self.ljpme)
+        consts = tile_pairs.tile_consts(boxd, self.tile_scalars)
+        value = tile_pairs.tile_param_derivative(
+            posd, boxd, state, consts, self.mode, self.use_switch, par4,
+            dpar4, plain=self.plain)
+        return value + torch.where(state["overflow"] > 0, math.nan, 0.0)
+
+    def _pairs_deriv(self, posd, boxd, params, exc, dparams, dexc):
+        """The exceptions' and the exclusion correction's dE/dlambda."""
+        cp, esig, eeps = exc
+        dcp, desig, deeps = dexc
+        dr = geom.bond_vectors(posd, self.exc_idx,
+                               boxd if self.exc_pbc else None)
+        inv_r2 = 1.0 / (dr * dr).sum(dim=-1)
+        s6 = (esig * esig * inv_r2) ** 3
+        d = (4.0 * deeps * s6 * (s6 - 1.0)
+             + torch.where(desig != 0, 24.0 * eeps * s6 * (2.0 * s6 - 1.0)
+                           * desig / esig, 0.0)
+             + ONE_4PI_EPS0 * dcp * torch.sqrt(inv_r2))
+        total = d.sum(dtype=torch.float64)
+        if self.alpha is None:
+            return total
+        q, sig, eps = params
+        dq, dsig, deps = dparams
+        i, j = self.exc_idx[:, 0], self.exc_idx[:, 1]
+        dr = geom.periodic_delta(posd[i] - posd[j], boxd)
+        r2 = (dr * dr).sum(dim=-1)
+        r = torch.sqrt(r2)
+        dqq = ONE_4PI_EPS0 * (dq[i] * q[j] + q[i] * dq[j])
+        d = -dqq * torch.special.erf(self.alpha * r) / r
+        if self.ljpme:
+            c6, dc6 = _c6(sig, eps), _dc6(sig, eps, dsig, deps)
+            g, _ = dispersion_complement(self.tile_scalars[2] * r2)
+            inv_r2 = 1.0 / r2
+            d = d + (dc6[i] * c6[j] + c6[i] * dc6[j]) \
+                * inv_r2 * inv_r2 * inv_r2 * g
+        return total + d.sum(dtype=torch.float64)
+
+    def _recip_deriv(self, pos, posd, box, boxd, params, dparams):
+        """The reciprocal space's and the self energies' dE/dlambda."""
+        q, sig, eps = params
+        dq, dsig, deps = dparams
+        q64, dq64 = q.to(torch.float64), dq.to(torch.float64)
+        total = -2.0 * ONE_4PI_EPS0 * self.alpha / pme_mod.SQRT_PI * (
+            q64 * dq64).sum()
+        if self.method == NonbondedForce.Ewald:
+            return total + pme_mod.ewald_reciprocal_deriv(
+                pos, q, dq, box, self.ewald_m, self.alpha)
+        total = total + pme_zslab.pme_recip_deriv(
+            posd, q, dq, boxd, self.grid, self.alpha,
+            (self.bsq_x, self.bsq_y, self.bsq_z), plain=self.plain)
+        if self.ljpme:
+            c6, dc6 = _c6(sig, eps), _dc6(sig, eps, dsig, deps)
+            total = total + pme_zslab.pme_recip_deriv(
+                posd, c6, dc6, boxd, self.lj_grid, self.lj_alpha,
+                (self.bsq_x_lj, self.bsq_y_lj, self.bsq_z_lj),
+                plain=self.plain, dispersion=True)
+            total = total + self.lj_alpha ** 6 / 6.0 * (
+                c6.to(torch.float64) * dc6.to(torch.float64)).sum()
+        return total
+
+
 class CandidateSet:
     """The NonbondedModules of a System, more than one, that keep a
     candidate state: built together at one rebuild predicate (positions
@@ -979,6 +1109,14 @@ class CandidateSet:
                 if key.startswith(prefix)}
 
 
+def _dc6(sigma, epsilon, dsigma, depsilon):
+    """d c6_i / dlambda of _c6 (torch), 0 where epsilon is 0."""
+    positive = epsilon > 0
+    root = torch.sqrt(torch.where(positive, epsilon, 1.0))
+    return torch.where(positive, depsilon / root * sigma ** 3
+                       + 6.0 * root * sigma * sigma * dsigma, 0.0)
+
+
 def _c6(sigma, epsilon):
     """The geometric dispersion coefficient of each particle, c6_i =
     2 sqrt(eps_i) sigma_i^3 (so that c6_i c6_j = 4 sqrt(eps_i eps_j)
@@ -986,3 +1124,26 @@ def _c6(sigma, epsilon):
     if torch.is_tensor(sigma):
         return 2.0 * torch.sqrt(epsilon) * sigma ** 3
     return 2.0 * np.sqrt(epsilon) * np.asarray(sigma) ** 3
+
+
+class NonbondedVariable:
+    """A NonbondedForce without periodic boundaries (every pair, no
+    candidate state) as a CustomCVForce's collective variable: the
+    CustomModule contract over NonbondedModule."""
+
+    def __init__(self, module: NonbondedModule):
+        self.module = module
+        self.name, self.group = module.name, module.group
+
+    def ef(self, pos, box):
+        energy, forces = self.module(pos, box)
+        return energy, forces.to(torch.float64)
+
+    def energy(self, pos, box):
+        return self.module.potential_energy(pos, box)
+
+    def parameter_derivatives(self, pos, box) -> dict:
+        return self.module.parameter_derivatives(pos, box)
+
+    def update(self, force) -> None:
+        self.module.update(force)

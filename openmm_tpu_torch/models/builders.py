@@ -30,6 +30,8 @@ repository: 19 lipids of the patch's upper leaflet (2,546 atoms) with the
 lipid template's amber14-lipid parameters, its OBC2 radii and screens
 (data/popc_bilayer.npz, from the JAX package's
 app/gbforces.py:standard_gb_parameters), and the suite's settings.
+popc_gb_cluster is the same cluster under an Amber GB recipe
+(CustomGBForce; GBn2 by default, the model Amber recommends).
 
 alchemical_water_box is the water box with its first waters as the
 solute of an alchemical free-energy run, in the form that OpenMM's
@@ -270,22 +272,9 @@ OBC_SOLUTE_DIELECTRIC = 1.0
 OBC_SOLVENT_DIELECTRIC = 78.5
 
 
-def popc_obc_cluster(lipids=OBC_CLUSTER_LIPIDS):
-    """A cluster of the POPC patch's lipids in implicit solvent: (system,
-    positions as an (n, 3) float64 array in nm).
-
-    The lipids: of the upper leaflet (the centre of mass's z above the
-    mean over all lipids), the `lipids` (19 by default) whose xy centres
-    of mass lie nearest the leaflet's mean xy (ties by index), whole, in
-    index order, at the patch's unwrapped positions. The forces: the
-    lipid template's bonds, angles, torsions and 1-4 exceptions; a
-    NonbondedForce at CutoffNonPeriodic OBC_CUTOFF nm whose reaction
-    field is off (dielectric 1.0: OpenMM's GB generators turn it off,
-    the GB term carries the solvent); a GBSAOBCForce at
-    CutoffNonPeriodic OBC_CUTOFF nm with the nonbonded charges, the
-    template's OBC2 radii and screens, solute 1.0, solvent 78.5 and the
-    default ACE surface energy; the template's HBonds constraints and
-    its CMMotionRemover. No box."""
+def _cluster(lipids):
+    """(from_numpy dict without a GB force, positions, the template data)
+    of popc_obc_cluster's lipids."""
     with np.load(BILAYER_DATA) as f:
         data = {k: f[k] for k in f.files}
     size = len(data["lipid_masses"])
@@ -302,17 +291,81 @@ def popc_obc_cluster(lipids=OBC_CLUSTER_LIPIDS):
     chosen = np.sort(upper[np.lexsort((upper, dist))[:lipids]])
     params = replicate_templates(data, np.zeros(chosen.size, np.int64))
     n = chosen.size * size
+    params.update({"method": "CutoffNonPeriodic", "cutoff": OBC_CUTOFF,
+                   "rf_dielectric": 1.0, "box": np.diag([2.0, 2.0, 2.0])})
+    return params, mol[chosen].reshape(n, 3), data
+
+
+def popc_obc_cluster(lipids=OBC_CLUSTER_LIPIDS):
+    """A cluster of the POPC patch's lipids in implicit solvent: (system,
+    positions as an (n, 3) float64 array in nm).
+
+    The lipids: of the upper leaflet (the centre of mass's z above the
+    mean over all lipids), the `lipids` (19 by default) whose xy centres
+    of mass lie nearest the leaflet's mean xy (ties by index), whole, in
+    index order, at the patch's unwrapped positions. The forces: the
+    lipid template's bonds, angles, torsions and 1-4 exceptions; a
+    NonbondedForce at CutoffNonPeriodic OBC_CUTOFF nm whose reaction
+    field is off (dielectric 1.0: OpenMM's GB generators turn it off,
+    the GB term carries the solvent); a GBSAOBCForce at
+    CutoffNonPeriodic OBC_CUTOFF nm with the nonbonded charges, the
+    template's OBC2 radii and screens, solute 1.0, solvent 78.5 and the
+    default ACE surface energy; the template's HBonds constraints and
+    its CMMotionRemover. No box."""
+    params, pos, data = _cluster(lipids)
+    copies = len(pos) // len(data["lipid_masses"])
     params.update({
-        "method": "CutoffNonPeriodic", "cutoff": OBC_CUTOFF,
-        "rf_dielectric": 1.0, "box": np.diag([2.0, 2.0, 2.0]),
         "gb_charges": params["charges"],
-        "gb_radii": np.tile(data["lipid_gb_radius"], chosen.size),
-        "gb_scales": np.tile(data["lipid_gb_screen"], chosen.size),
+        "gb_radii": np.tile(data["lipid_gb_radius"], copies),
+        "gb_scales": np.tile(data["lipid_gb_screen"], copies),
         "gb_method": "CutoffNonPeriodic", "gb_cutoff": OBC_CUTOFF,
         "gb_solute_dielectric": OBC_SOLUTE_DIELECTRIC,
         "gb_solvent_dielectric": OBC_SOLVENT_DIELECTRIC,
         "gb_surface_energy": GBSAOBCForce().getSurfaceAreaEnergy()})
-    return from_numpy(params), mol[chosen].reshape(n, 3)
+    return from_numpy(params), pos
+
+
+# element symbols by rounded mass (amu) in the lipid template
+_ELEMENTS = {1: "H", 12: "C", 14: "N", 16: "O", 31: "P"}
+
+
+def lipid_elements(data) -> tuple[list, list]:
+    """(element symbol of each lipid template atom, that of its first
+    bonded partner or None), elements from the masses and partners from
+    the template's bonds and its constraints (the bonds to hydrogens)."""
+    elements = [_ELEMENTS[int(round(m))] for m in data["lipid_masses"]]
+    partners = [None] * len(elements)
+    for a, b in np.concatenate([data["lipid_bond_pairs"],
+                                data["lipid_constraint_pairs"]]):
+        for i, j in ((a, b), (b, a)):
+            if partners[i] is None:
+                partners[i] = elements[j]
+    return elements, partners
+
+
+def popc_gb_cluster(model="GBn2", lipids=OBC_CLUSTER_LIPIDS):
+    """popc_obc_cluster's lipids, forces and settings with the GBSAOBCForce
+    replaced by the CustomGBForce of an Amber GB recipe
+    (app/gbforces.py build_gb_force: "HCT", "OBC1", "OBC2", "GBn" or
+    "GBn2"): the recipe's radii, screens and (GBn2) alpha, beta and gamma
+    from each atom's element and its hydrogen's bonded partner, solute
+    1.0, solvent 78.5, the ACE surface term, CutoffNonPeriodic at
+    OBC_CUTOFF nm."""
+    from ..app.gbforces import build_gb_force, gb_parameters
+    from ..forces.customgb import CustomGBForce
+    params, pos, data = _cluster(lipids)
+    copies = len(pos) // len(data["lipid_masses"])
+    elements, partners = lipid_elements(data)
+    system = from_numpy(params)
+    gb = build_gb_force(model, params["charges"],
+                        gb_parameters(model, elements * copies,
+                                      partners * copies),
+                        OBC_SOLVENT_DIELECTRIC, OBC_SOLUTE_DIELECTRIC,
+                        SA="ACE", cutoff=OBC_CUTOFF)
+    gb.setNonbondedMethod(CustomGBForce.CutoffNonPeriodic)
+    gb.setCutoffDistance(OBC_CUTOFF)
+    system.addForce(gb)
+    return system, pos
 
 
 def popc_bilayer():
@@ -343,7 +396,8 @@ def alchemical_water_box(n_waters=8000, n_solute=64, cutoff=0.9):
     NonbondedForce keeps the solute's charges through offsets of
     lambda_electrostatics (base charge 0) and its epsilon at 0; the
     soft-core SOFTCORE at CutoffPeriodic `cutoff` over (solute, solvent),
-    with the NonbondedForce's exclusions; the solute's oxygen pairs by
+    with the NonbondedForce's exclusions, requesting dE/dlambda_sterics
+    and dE/dlambda_electrostatics; the solute's oxygen pairs by
     plain Lennard-Jones (periodic); k max(0, d - d0)^2 on each solute
     oxygen's distance from its start; (k/2)(d - d0)^2 on the distance of
     the centroids (mass weights) of the solute's two halves from its
@@ -366,6 +420,11 @@ def alchemical_water_box(n_waters=8000, n_solute=64, cutoff=0.9):
     soft = CustomNonbondedForce(SOFTCORE)
     soft.addGlobalParameter("lambda_sterics", 1.0)
     soft.addEnergyParameterDerivative("lambda_sterics")
+    # the alchemical region's force requests the electrostatic derivative
+    # too, which the NonbondedForce's offsets give (Context
+    # _parameter_derivatives)
+    soft.addGlobalParameter("lambda_electrostatics", 1.0)
+    soft.addEnergyParameterDerivative("lambda_electrostatics")
     soft.addPerParticleParameter("sigma")
     soft.addPerParticleParameter("epsilon")
     for _, sigma, eps in base:

@@ -33,53 +33,46 @@ from .accumulate import GatherSum
 
 def partition_constraints(constraints, masses):
     """Split (i, j, d) constraints into SETTLE clusters (centre, h1, h2,
-    d(centre, h), d(h, h)) and the remaining constraints."""
-    n_cons = len(constraints)
+    d(centre, h), d(h, h)) and the remaining constraints. A cluster is a
+    triangle of three constraints whose atoms carry no other constraint,
+    with a centre whose two distances and whose partners' masses are
+    equal (tried in the order i, j, k of the triangle's first
+    constraint)."""
+    masses = np.asarray(masses, np.float64).tolist()
     by_atom = {}
     for ci, (i, j, _) in enumerate(constraints):
         by_atom.setdefault(i, []).append(ci)
         by_atom.setdefault(j, []).append(ci)
-    used = [False] * n_cons
+    used = [False] * len(constraints)
     settle = []
 
-    def partners(atom, skip):
-        out = {}
-        for c in by_atom.get(atom, []):
-            if not used[c] and c != skip:
-                a, b, _ = constraints[c]
-                out[a if b == atom else b] = c
-        return out
+    def other(atom, ci):
+        """The constraint of `atom` (which has two) other than ci, and
+        that constraint's other atom."""
+        c1, c2 = by_atom[atom]
+        c = c2 if c1 == ci else c1
+        a, b, _ = constraints[c]
+        return c, b if a == atom else a
 
-    for ci in range(n_cons):
-        if used[ci]:
+    for ci, (i, j, d) in enumerate(constraints):
+        if (used[ci] or i == j or len(by_atom[i]) != 2
+                or len(by_atom[j]) != 2):
             continue
-        i, j, d = constraints[ci]
-        partners_i, partners_j = partners(i, ci), partners(j, ci)
-        for k in sorted(set(partners_i) & set(partners_j)):
-            c_ik, c_jk = partners_i[k], partners_j[k]
-            tri = {tuple(sorted((i, j))): d,
-                   tuple(sorted((i, k))): constraints[c_ik][2],
-                   tuple(sorted((j, k))): constraints[c_jk][2]}
-
-            def dist(a, b):
-                return tri[tuple(sorted((a, b)))]
-
-            if any(not used[c] and c not in (ci, c_ik, c_jk)
-                   for a in (i, j, k) for c in by_atom.get(a, [])):
-                continue
-            placed = False
-            for centre, o1, o2 in ((i, j, k), (j, i, k), (k, i, j)):
-                if (abs(dist(centre, o1) - dist(centre, o2)) < 1e-10
-                        and abs(masses[o1] - masses[o2]) < 1e-10
-                        and masses[centre] > 0 and masses[o1] > 0):
-                    settle.append((centre, o1, o2, dist(centre, o1),
-                                   dist(o1, o2)))
-                    used[ci] = used[c_ik] = used[c_jk] = True
-                    placed = True
-                    break
-            if placed:
+        c_ik, k = other(i, ci)
+        c_jk, k_j = other(j, ci)
+        if k != k_j or k in (i, j) or len(by_atom[k]) != 2:
+            continue
+        d_ik, d_jk = constraints[c_ik][2], constraints[c_jk][2]
+        # (centre, o1, o2, d(centre, o1), d(centre, o2), d(o1, o2))
+        for centre, o1, o2, d1, d2, d12 in ((i, j, k, d, d_ik, d_jk),
+                                            (j, i, k, d, d_jk, d_ik),
+                                            (k, i, j, d_ik, d_jk, d)):
+            if (abs(d1 - d2) < 1e-10 and abs(masses[o1] - masses[o2]) < 1e-10
+                    and masses[centre] > 0 and masses[o1] > 0):
+                settle.append((centre, o1, o2, d1, d12))
+                used[ci] = used[c_ik] = used[c_jk] = True
                 break
-    rest = [constraints[c] for c in range(n_cons) if not used[c]]
+    rest = [c for c, u in zip(constraints, used) if not u]
     return settle, rest
 
 

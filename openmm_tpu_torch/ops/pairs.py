@@ -33,16 +33,20 @@ def pad_to_block(n: int, block: int) -> int:
 
 def build_exclusion_table(n_atoms: int, exclusion_pairs,
                           pad_multiple: int = 2) -> np.ndarray:
-    """(n_atoms, E) int32 per-atom excluded partners, -1 padded."""
-    excl = [[] for _ in range(n_atoms)]
-    for i, j in exclusion_pairs:
-        excl[int(i)].append(int(j))
-        excl[int(j)].append(int(i))
-    max_e = max((len(e) for e in excl), default=0)
+    """(n_atoms, E) int32 per-atom excluded partners in ascending order,
+    -1 padded."""
+    pairs = np.asarray(exclusion_pairs, np.int64).reshape(-1, 2)
+    rows = np.concatenate([pairs[:, 0], pairs[:, 1]])
+    cols = np.concatenate([pairs[:, 1], pairs[:, 0]])
+    order = np.lexsort((cols, rows))
+    rows, cols = rows[order], cols[order]
+    counts = np.bincount(rows, minlength=n_atoms)
+    max_e = int(counts.max(initial=0))
     max_e = max(1, ((max_e + pad_multiple - 1) // pad_multiple) * pad_multiple)
     table = np.full((n_atoms, max_e), -1, dtype=np.int32)
-    for i, e in enumerate(excl):
-        table[i, :len(e)] = sorted(e)
+    # each partner's slot: its place among its row's partners
+    slots = np.arange(len(rows)) - (np.cumsum(counts) - counts)[rows]
+    table[rows, slots] = cols
     return table
 
 
@@ -173,6 +177,96 @@ def pair_terms(r2s, qq, sig, eps4, coulomb, alpha=0.0, krf=0.0, crf=0.0,
         de_c = -0.5 * qq * inv_r2 * inv_r
         e_c = qq * inv_r
     return de_lj + de_c, e_lj + e_c
+
+
+def pair_param_derivative(r2s, qq, dqq, sig, dsig, eps4, deps4, coulomb,
+                          alpha=0.0, krf=0.0, crf=0.0, switch=None,
+                          ljpme=None):
+    """dE/dlambda of pair_terms' pairs, given each pair's parameters and
+    their derivatives in a global parameter lambda: dqq = d(qq)/dlambda,
+    dsig, deps4 likewise; ljpme = (c6g, dc6g, alpha_LJ^2, shift, 1/rc^6).
+    dE/dlambda = dE/dqq dqq + dE/dsig dsig + dE/deps4 deps4 (+ dE/dc6g
+    dc6g) at fixed r, in pair_terms' forms (the switch scales the
+    Lennard-Jones part before LJPME's terms are added)."""
+    inv_r = torch.rsqrt(r2s)
+    inv_r2 = inv_r * inv_r
+    s2 = sig * sig * inv_r2
+    s6 = s2 * s2 * s2
+    # a pair whose sigma no offset moves takes no 0 / 0 at sigma 0
+    dsig_sig = torch.where(dsig != 0, dsig / sig, 0.0)
+    d_lj = (deps4 * s6 * (s6 - 1.0)
+            + eps4 * 6.0 * s6 * (2.0 * s6 - 1.0) * dsig_sig)
+    if switch is not None:
+        rs, inv_w = switch
+        t = torch.clamp((r2s * inv_r - rs) * inv_w, 0.0, 1.0)
+        t2 = t * t
+        d_lj = d_lj * (1.0 - t2 * t * (10.0 - 15.0 * t + 6.0 * t2))
+    if ljpme is not None:
+        c6g, dc6g, alpha2, shift, inv_cut6 = ljpme
+        g, _ = dispersion_complement(alpha2 * r2s)
+        d_lj = d_lj + dc6g * (inv_r2 * inv_r2 * inv_r2 * g + shift)
+        sig2 = sig * sig
+        sig6c = sig2 * sig2 * sig2 * inv_cut6
+        d_lj = d_lj + deps4 * sig6c * (1.0 - sig6c) + eps4 * (
+            6.0 * sig6c - 12.0 * sig6c * sig6c) * dsig_sig
+    if coulomb == "ewald":
+        ar = alpha * (r2s * inv_r)
+        if r2s.dtype == torch.float64:
+            erfc_ar = torch.special.erfc(ar)
+        else:
+            t = 1.0 / (1.0 + 0.3275911 * ar)
+            erfc_ar = (0.254829592 + (-0.284496736 + (
+                1.421413741 + (-1.453152027 + 1.061405429 * t) * t)
+                * t) * t) * t * torch.exp(-ar * ar)
+        e_c = inv_r * erfc_ar
+    elif coulomb == "rf":
+        e_c = inv_r + krf * r2s - crf
+    else:
+        e_c = inv_r
+    return d_lj + dqq * e_c
+
+
+def pair_param_derivative_n2(pos, params, dparams, exclusions,
+                             terms: PairTerms):
+    """dE/dlambda (float64 scalar) of pair_energy_forces_n2's energy, given
+    the (charge, sigma, epsilon) (n,) of each atom and their derivatives
+    in lambda; every pair counted once."""
+    n = pos.shape[0]
+    dt = pos.dtype
+    dev = pos.device
+    (q, sg, ep), (dq, dsg, dep) = ([x.to(dt) for x in params],
+                                   [x.to(dt) for x in dparams])
+    k = math.sqrt(ONE_4PI_EPS0)
+    qs, dqs = k * q, k * dq
+    sh, dsh = 0.5 * sg, 0.5 * dsg
+    es = 2.0 * torch.sqrt(ep)
+    des = torch.where(ep > 0, dep / torch.sqrt(torch.where(ep > 0, ep, 1.0)),
+                      0.0)
+    excl = torch.where(exclusions >= 0, exclusions.long(), n)
+    total = torch.zeros((), dtype=torch.float64, device=dev)
+    for r0, r1 in _row_chunks(n):
+        rows = r1 - r0
+        dr = pos[r0:r1, None, :] - pos[None, :, :]
+        dx, dy, dz = dr.unbind(-1)
+        r2 = dx * dx + dy * dy + dz * dz
+        own = torch.arange(r0, r1, device=dev)[:, None]
+        skip = torch.zeros((rows, n + 1), dtype=torch.bool, device=dev)
+        skip.scatter_(1, torch.cat([excl[r0:r1], own], dim=1), True)
+        keep = ~skip[:, :n]
+        if terms.cutoff is not None:
+            keep = keep & (r2 < terms.cutoff * terms.cutoff)
+        row, col = slice(r0, r1), slice(None)
+        d = pair_param_derivative(
+            torch.where(keep, r2, 1.0),
+            qs[row, None] * qs[None, col],
+            dqs[row, None] * qs[None, col] + qs[row, None] * dqs[None, col],
+            sh[row, None] + sh[None, col], dsh[row, None] + dsh[None, col],
+            es[row, None] * es[None, col],
+            des[row, None] * es[None, col] + es[row, None] * des[None, col],
+            terms.coulomb, krf=terms.krf, crf=terms.crf,
+            switch=terms.switch)
+        total = total + torch.where(keep, d, 0.0).sum(dtype=torch.float64)
+    return 0.5 * total
 
 
 def _row_chunks(n: int, chunk: int = N2_CHUNK):

@@ -298,6 +298,35 @@ def ewald_reciprocal_ef(pos, charges, box, m_vectors, alpha):
     return energy, torch.cat(forces)
 
 
+def ewald_reciprocal_deriv(pos, charges, dcharges, box, m_vectors, alpha):
+    """dE/dlambda of ewald_reciprocal_ef's energy at fixed positions,
+    given the charges' derivatives in lambda: 2 k_e (2 pi / V) sum_k w_k
+    Re(S(k) conj(dS(k))), float64."""
+    f64 = torch.float64
+    pos = pos.to(f64)
+    q = charges.to(f64)
+    dq = dcharges.to(f64)
+    binv = geom.box_inverse(box.to(f64))
+    m = m_vectors.to(f64)
+    kvec = 2.0 * math.pi * (m[:, 0:1] * binv[:, 0] + m[:, 1:2] * binv[:, 1]
+                            + m[:, 2:3] * binv[:, 2])
+    k2 = (kvec * kvec).sum(dim=-1)
+    w = torch.exp(-k2 / (4.0 * alpha * alpha)) / k2
+    rows = max(1, EWALD_CHUNK // max(m.shape[0], 1))
+    s = torch.zeros((4, k2.shape[0]), dtype=f64, device=pos.device)
+    for r0 in range(0, pos.shape[0], rows):
+        p = pos[r0:r0 + rows]
+        theta = (p[:, 0:1] * kvec[:, 0] + p[:, 1:2] * kvec[:, 1]
+                 + p[:, 2:3] * kvec[:, 2])
+        c, sn = torch.cos(theta), torch.sin(theta)
+        s = s + torch.stack([(q[r0:r0 + rows, None] * c).sum(dim=0),
+                             (q[r0:r0 + rows, None] * sn).sum(dim=0),
+                             (dq[r0:r0 + rows, None] * c).sum(dim=0),
+                             (dq[r0:r0 + rows, None] * sn).sum(dim=0)])
+    scale = ONE_4PI_EPS0 * 2.0 * math.pi / geom.box_volume(box.to(f64))
+    return 2.0 * scale * (w * (s[0] * s[2] + s[1] * s[3])).sum()
+
+
 def ewald_reciprocal_energy(pos, charges, box, m_vectors, alpha):
     """The Ewald reciprocal energy, differentiable in pos through the
     forces of ewald_reciprocal_ef."""

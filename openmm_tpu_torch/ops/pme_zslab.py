@@ -200,22 +200,14 @@ def pme_gather(pos, charge, phi2, binv, grid, order=None,
     return forces
 
 
-def convolve_potential(q_grid, box, grid, alpha, bsq_x, bsq_y, bsq_z,
-                       dispersion=False):
-    """(phi, energy) of the (nz, nx, ny) charge grid on cuFFT (torch.fft).
-
-    energy = sum_m Kt(m) |F(m)|^2 over the full spectrum, Kt folding the
-    Ewald Green's function, the B-spline moduli and k_e / (2 pi V). phi is
-    the UNNORMALIZED inverse transform of Kt F (no 1/G^3), so dE/dQ = 2 phi
-    feeds the force interpolation directly. dispersion=True: the grid holds
-    c6 weights and Kt is LJPME's dispersion kernel (pme.dispersion_green),
-    its m = 0 term included.
-    """
+def _influence(box, grid, alpha, bsq_x, bsq_y, bsq_z, dt, dev,
+               dispersion=False):
+    """(Kt, mult) on the half spectrum (nz, nx, ny//2+1): the influence
+    function (the Ewald Green's function, or LJPME's dispersion kernel,
+    with the B-spline moduli and the prefactor) and each bin's count of
+    the full spectrum."""
     nx, ny, nz = grid
-    dt = q_grid.dtype
-    dev = q_grid.device
     bi = geom.box_inverse(box.to(dt))
-    f = torch.fft.rfftn(q_grid)                          # (nz, nx, ny//2+1)
     mz = torch.fft.fftfreq(nz, 1.0 / nz, dtype=dt, device=dev)
     mx = torch.fft.fftfreq(nx, 1.0 / nx, dtype=dt, device=dev)
     my = torch.fft.rfftfreq(ny, 1.0 / ny, dtype=dt, device=dev)
@@ -240,9 +232,53 @@ def convolve_potential(q_grid, box, grid, alpha, bsq_x, bsq_y, bsq_z,
     my_index = torch.arange(ny // 2 + 1, device=dev)
     mult = torch.where((my_index == 0) | (2 * my_index == ny), 1.0,
                        2.0).to(dt)
+    return kt, mult
+
+
+def convolve_potential(q_grid, box, grid, alpha, bsq_x, bsq_y, bsq_z,
+                       dispersion=False):
+    """(phi, energy) of the (nz, nx, ny) charge grid on cuFFT (torch.fft).
+
+    energy = sum_m Kt(m) |F(m)|^2 over the full spectrum, Kt folding the
+    Ewald Green's function, the B-spline moduli and k_e / (2 pi V). phi is
+    the UNNORMALIZED inverse transform of Kt F (no 1/G^3), so dE/dQ = 2 phi
+    feeds the force interpolation directly. dispersion=True: the grid holds
+    c6 weights and Kt is LJPME's dispersion kernel (pme.dispersion_green),
+    its m = 0 term included.
+    """
+    nx, ny, nz = grid
+    f = torch.fft.rfftn(q_grid)                          # (nz, nx, ny//2+1)
+    kt, mult = _influence(box, grid, alpha, bsq_x, bsq_y, bsq_z,
+                          q_grid.dtype, q_grid.device, dispersion)
     energy = torch.sum(mult * kt * (f.real ** 2 + f.imag ** 2))
     phi = torch.fft.irfftn(kt * f, s=(nz, nx, ny)) * (nx * ny * nz)
     return phi, energy
+
+
+def pme_recip_deriv(pos, charge, dcharge, box, grid, alpha, bsq,
+                    plain=False, dispersion=False):
+    """dE/dlambda of pme_recip_ef's energy at fixed positions, given the
+    weights' derivatives `dcharge` in lambda. The energy is bilinear in
+    the weights, so dE/dlambda = 2 sum_m Kt(m) Re(F(m) conj(dF(m))) with
+    F and dF the transforms of the grids of the charges and of their
+    derivatives: kernel 2 twice (plain=True: its plain version) and two
+    FFTs, no gather. float64 sum."""
+    dt = pos.dtype
+    binv = geom.box_inverse(box.to(dt)).reshape(9).contiguous()
+    pos = pos.contiguous()
+    if plain:
+        spread = pme_spread_plain
+    elif dispersion:
+        spread = functools.partial(pme_spread, counter=SPREAD_DISPERSION)
+    else:
+        spread = pme_spread
+    f = torch.fft.rfftn(spread(pos, charge.to(dt).contiguous(), binv, grid))
+    df = torch.fft.rfftn(spread(pos, dcharge.to(dt).contiguous(), binv,
+                                grid))
+    kt, mult = _influence(box, grid, alpha, *bsq, dt, pos.device,
+                          dispersion)
+    cross = f.real * df.real + f.imag * df.imag
+    return 2.0 * torch.sum((mult * kt * cross).to(torch.float64))
 
 
 def pme_recip_ef(pos, charge, box, grid, alpha, bsq, plain=False,

@@ -37,7 +37,8 @@ import torch
 from .. import _build
 from ..constants import ONE_4PI_EPS0
 from . import geometry as geom
-from .pairs import pad_to_block, pair_terms, spatial_sort_keys
+from .pairs import (pad_to_block, pair_param_derivative, pair_terms,
+                    spatial_sort_keys)
 
 BRICK = 16
 EXC_SLOTS = 32          # candidate slots that may carry exclusion bits
@@ -47,6 +48,11 @@ TWO_OVER_SQRT_PI = 2.0 / math.sqrt(math.pi)
 TILES = _build.Kernel(
     name="nonbonded_tiles", source="openmm_tpu_torch/csrc/nonbonded_tiles.cu",
     replaces="openmm_tpu/ops/pallas_pairs.py:541")
+# kernel 1's derivative instantiation: dE/dlambda of a global parameter
+# that offsets move the parameters by (between steps only)
+TILES_DERIV = _build.Kernel(
+    name="nonbonded_tiles_deriv", source=TILES.source,
+    replaces=TILES.replaces)
 
 
 def tile_budget(n: int, box_widths, cutoff: float, skin: float,
@@ -84,6 +90,34 @@ def tile_params(charge, sigma, epsilon, order, c6=False) -> torch.Tensor:
               else torch.zeros(n_pad, dtype=dt, device=dev))
     return torch.stack([math.sqrt(ONE_4PI_EPS0) * padded(charge, 0.0),
                         0.5 * sig, es, fourth], dim=1).contiguous()
+
+
+def tile_param_derivs(charge, sigma, epsilon, dcharge, dsigma, depsilon,
+                      order, c6=False) -> torch.Tensor:
+    """dpar4 (n_pad, 4): the derivatives in a global parameter lambda of
+    tile_params' columns, from the particles' parameters and their
+    derivatives (n,): sqrt(k_e) dq, dsigma / 2, d(2 sqrt(eps)) =
+    deps / sqrt(eps) (0 where eps is 0) and, when `c6`, d(2 sqrt(eps)
+    sigma^3); padding atoms 0."""
+    n_pad = order.shape[0]
+    n = charge.shape[0]
+    dev, dt = charge.device, charge.dtype
+
+    def padded(x):
+        x = torch.cat([x.to(device=dev, dtype=dt),
+                       torch.zeros(n_pad - n, dtype=dt, device=dev)])
+        return x[order]
+
+    eps = padded(epsilon)
+    positive = eps > 0
+    root = torch.sqrt(torch.where(positive, eps, 1.0))
+    des = torch.where(positive, padded(depsilon) / root, 0.0)
+    es = torch.where(positive, 2.0 * root, 0.0)
+    sig, dsig = padded(sigma), padded(dsigma)
+    fourth = (des * sig ** 3 + 3.0 * es * sig * sig * dsig if c6
+              else torch.zeros(n_pad, dtype=dt, device=dev))
+    return torch.stack([math.sqrt(ONE_4PI_EPS0) * padded(dcharge),
+                        0.5 * dsig, des, fourth], dim=1).contiguous()
 
 
 def build_tile_state(pos, box, charge, sigma, epsilon, exclusions, reach,
@@ -263,6 +297,86 @@ def nonbonded_tiles(pos4, par4, cand, count, words, consts, mode,
     _build.check_launch(code, TILES)
     TILES.launches += 1
     return out
+
+
+def nonbonded_tiles_deriv(pos4, par4, dpar4, cand, count, words, consts,
+                          mode, use_switch) -> torch.Tensor:
+    """Kernel 1's derivative instantiation: per sorted atom the sum over
+    its partners inside the cutoff of the pair energy's derivative in a
+    global parameter lambda, at fixed positions, as an (n_pad,) tensor
+    (full, not halved): dE/dqq dqq + dE/dsig dsig + dE/deps4 deps4 (+
+    dE/dc6g dc6g in MODE_LJPME), from par4 and its derivative dpar4
+    (tile_param_derivs). A CUDA tensor runs the hand-written kernel
+    (float32 only; each output owned by one warp, its partial sums added
+    in a fixed order); a CPU tensor runs the plain version."""
+    _check_tile_args(pos4, par4, cand, count, words, consts, mode)
+    if dpar4.shape != par4.shape or dpar4.dtype != par4.dtype \
+            or dpar4.device != par4.device or not dpar4.is_contiguous():
+        raise ValueError("dpar4 must be a contiguous tensor like par4")
+    if pos4.device.type == "cpu":
+        return nonbonded_tiles_deriv_plain(pos4, par4, dpar4, cand, count,
+                                           words, consts, mode, use_switch)
+    if pos4.device.type != "cuda" or pos4.dtype != torch.float32:
+        raise TypeError("the CUDA tile kernel takes float32 CUDA tensors")
+    out = torch.empty_like(pos4)
+    bounds = torch.empty((count.shape[0], 2, 4), dtype=pos4.dtype,
+                         device=pos4.device)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(pos4.device).cuda_stream
+    code = lib.omm_nonbonded_tiles_deriv(
+        pos4.data_ptr(), par4.data_ptr(), dpar4.data_ptr(), cand.data_ptr(),
+        count.data_ptr(), words.data_ptr(), consts.data_ptr(),
+        count.shape[0], cand.shape[1], words.shape[1], int(mode),
+        int(bool(use_switch)), bounds.data_ptr(), out.data_ptr(), stream)
+    _build.check_launch(code, TILES_DERIV)
+    TILES_DERIV.launches += 1
+    return out[:, 3]
+
+
+def nonbonded_tiles_deriv_plain(pos4, par4, dpar4, cand, count, words,
+                                consts, mode, use_switch) -> torch.Tensor:
+    """Plain PyTorch version of nonbonded_tiles_deriv (ops/pairs.py
+    pair_param_derivative on the pairs of nonbonded_tiles_plain)."""
+    _check_tile_args(pos4, par4, cand, count, words, consts, mode)
+    n_pad = pos4.shape[0]
+    out = torch.zeros(n_pad, dtype=pos4.dtype, device=pos4.device)
+    alpha, _, krf, crf = consts[0:4]
+    rs, inv_w = consts[13], consts[14]
+    for r0, r1 in _row_chunks(n_pad // BRICK, cand.shape[1]):
+        cj, _, _, _, r2, ok = _chunk_pairs(pos4, cand, count, words,
+                                           consts, r0, r1)
+        rows = r1 - r0
+        qi = par4[r0 * BRICK:r1 * BRICK].view(rows, BRICK, 1, 4)
+        dqi = dpar4[r0 * BRICK:r1 * BRICK].view(rows, BRICK, 1, 4)
+        qj = par4[cj][:, None]
+        dqj = dpar4[cj][:, None]
+
+        def mixed(k):
+            return dqi[..., k] * qj[..., k] + qi[..., k] * dqj[..., k]
+
+        ljpme = ((qi[..., 3] * qj[..., 3], mixed(3), krf, crf, consts[15])
+                 if mode == MODE_LJPME else None)
+        d = pair_param_derivative(
+            torch.clamp(r2, min=2e-6), qi[..., 0] * qj[..., 0], mixed(0),
+            qi[..., 1] + qj[..., 1], dqi[..., 1] + dqj[..., 1],
+            qi[..., 2] * qj[..., 2], mixed(2),
+            "rf" if mode == MODE_RF else "ewald", alpha, krf, crf,
+            (rs, inv_w) if use_switch else None, ljpme)
+        out[r0 * BRICK:r1 * BRICK] = torch.where(ok, d, 0.0).sum(
+            dim=-1).reshape(-1)
+    return out
+
+
+def tile_param_derivative(pos, box, st, consts, mode, use_switch, par4,
+                          dpar4, plain=False) -> torch.Tensor:
+    """dE/dlambda (float64 scalar) of the direct-space sweep on state
+    `st` with parameters par4 and their derivative dpar4 (both in the
+    state's frame); plain=True runs the plain version on any device."""
+    pos4 = sorted_positions(pos, box, st)
+    fn = nonbonded_tiles_deriv_plain if plain else nonbonded_tiles_deriv
+    out = fn(pos4, par4, dpar4, st["cand"], st["count"], st["words"],
+             consts, mode, use_switch)
+    return 0.5 * out.sum(dtype=torch.float64)
 
 
 # slack of the kernel's brick cull (nm), against rounding

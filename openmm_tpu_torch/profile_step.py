@@ -16,6 +16,8 @@ objective, spends its time.
     python3 -m openmm_tpu_torch.profile_step --system bilayer --integrator mts
     python3 -m openmm_tpu_torch.profile_step --system alchemical
     python3 -m openmm_tpu_torch.profile_step --system custom_bilayer
+    python3 -m openmm_tpu_torch.profile_step --system popc_gb
+    python3 -m openmm_tpu_torch.profile_step --system rmsd_bilayer
 
 Builds the 24,000-atom TIP3P PME box (--system water, the default), the
 32,512-atom POPC bilayer (--system bilayer: amber14-lipid + TIP3P,
@@ -29,7 +31,11 @@ models.alchemical_water_box, 64 solute waters, the soft-core
 CustomNonbondedForce and three more custom forces) or the bilayer with
 its bonds, angles and torsions as custom forces (--system custom_bilayer:
 models.builders.custom_twins, the torsions' compound twin read but not
-integrated). --method picks the
+integrated), the implicit-solvent cluster under the GBn2 recipe
+(--system popc_gb: models.popc_gb_cluster, a CustomGBForce) or the
+bilayer with an RMSD restraint on its lipids' heavy atoms (--system
+rmsd_bilayer: a CustomCVForce over an RMSDForce, rmsd_restrained).
+--method picks the
 NonbondedForce's method: pme (the default, 0.9 nm), rf (CutoffPeriodic at
 1.0 nm, the reference suite's rf settings), ljpme (0.9 nm, the dispersion
 grid beside the Coulomb one), ewald (0.9 nm; the water box
@@ -88,6 +94,7 @@ import argparse
 import json
 import time
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -97,10 +104,12 @@ from . import (AMDForceGroupIntegrator, AndersenThermostat,
                LangevinMiddleIntegrator, MonteCarloBarostat,
                MonteCarloMembraneBarostat, MTSLangevinIntegrator,
                NoseHooverIntegrator, PeriodicTorsionForce,
-               VariableLangevinIntegrator, VerletIntegrator)
+               VariableLangevinIntegrator, VerletIntegrator, CustomCVForce,
+               RMSDForce)
 from .forces.nonbonded import NonbondedForce
-from .models import (alchemical_water_box, popc_bilayer, popc_obc_cluster,
-                     tip3p_water_box, tip4pew_water_box, water_droplet)
+from .models import (alchemical_water_box, popc_bilayer, popc_gb_cluster,
+                     popc_obc_cluster, tip3p_water_box, tip4pew_water_box,
+                     water_droplet)
 from .models.builders import TWIN_INTEGRATION_GROUPS, custom_twins
 from .step_program import GATING
 
@@ -172,22 +181,27 @@ DROPLET_RADIUS = 2.5
 def _system(name, n_waters, method="pme"):
     """(system, positions, temperature K) of --system at --method."""
     nb_method, cutoff = METHODS[method]
-    if name == "popc_obc":
+    if name in ("popc_obc", "popc_gb"):
         if method != "pme":
-            raise ValueError("--system popc_obc takes no --method")
-        return (*popc_obc_cluster(), 300.0)
+            raise ValueError("--system %s takes no --method" % name)
+        cluster = popc_obc_cluster if name == "popc_obc" else popc_gb_cluster
+        return (*cluster(), 300.0)
     if name == "tip4pew":
         if method not in ("pme", "ljpme"):
             raise ValueError("--system tip4pew takes pme or ljpme")
         return (*tip4pew_water_box(n_waters, nonbonded_method=nb_method,
                                    cutoff=cutoff), 300.0)
-    if name in ("alchemical", "custom_bilayer") and method != "pme":
+    if name in ("alchemical", "custom_bilayer", "rmsd_bilayer") \
+            and method != "pme":
         raise ValueError("--system %s takes no --method" % name)
     if name == "alchemical":
         return (*alchemical_water_box(n_waters), 300.0)
     if name == "custom_bilayer":
         system, positions = popc_bilayer()
         return custom_twins(system)[0], positions, 303.15
+    if name == "rmsd_bilayer":
+        system, positions = popc_bilayer()
+        return rmsd_restrained(system, positions), positions, 303.15
     if name == "bilayer":
         if method not in ("pme", "rf", "ljpme"):
             raise ValueError("--method %s takes the water system" % method)
@@ -204,6 +218,26 @@ def _system(name, n_waters, method="pme"):
                                DROPLET_RADIUS, nb_method, cutoff), 300.0)
     return (*tip3p_water_box(n_waters, nonbonded_method=nb_method,
                              cutoff=cutoff), 300.0)
+
+
+def rmsd_restrained(system, positions, k=2000.0, r0=0.05):
+    """`system` with CustomCVForce("0.5*k*(rmsd-r0)^2") over an RMSDForce
+    of the heavy atoms (above 2 amu) of its molecules larger than a
+    water, the reference `positions`, in force group 6."""
+    masses = np.asarray([system.getParticleMass(i)
+                         for i in range(system.getNumParticles())])
+    probe = Context(system, LangevinMiddleIntegrator(300.0, 1.0, 0.002),
+                    "CPU")
+    heavy = sorted(i for mol in probe.getMolecules() if len(mol) > 3
+                   for i in mol if masses[i] > 2.0)
+    del probe
+    cv = CustomCVForce("0.5*k*(rmsd-r0)^2")
+    cv.addGlobalParameter("k", k)
+    cv.addGlobalParameter("r0", r0)
+    cv.addCollectiveVariable("rmsd", RMSDForce(positions, heavy))
+    cv.setForceGroup(6)
+    system.addForce(cv)
+    return system
 
 
 def _context(device, system, integ):
@@ -418,8 +452,9 @@ def main() -> None:
     parser.add_argument("--evaluations", type=int, default=20)
     parser.add_argument("--waters", type=int, default=8000)
     parser.add_argument("--system", choices=("water", "bilayer", "popc_obc",
-                                             "tip4pew", "alchemical",
-                                             "custom_bilayer"),
+                                             "popc_gb", "tip4pew",
+                                             "alchemical", "custom_bilayer",
+                                             "rmsd_bilayer"),
                         default="water",
                         help="the system whose MD step (or objective) is "
                         "profiled")

@@ -21,9 +21,15 @@ from .forces.bonded import (CMAPTorsionForce, HarmonicAngleForce,
                             HarmonicBondForce, PeriodicTorsionForce,
                             RBTorsionForce)
 from .forces.cmmotion import CMMotionRemover
-from .forces.custom import (CUSTOM_FORCES, CustomCentroidBondForce,
-                            CustomCompoundBondForce, CustomExternalForce,
-                            CustomNonbondedForce)
+from .forces import MODULE_FORCES
+from .forces.custom import (CustomCentroidBondForce, CustomCompoundBondForce,
+                            CustomExternalForce, CustomNonbondedForce)
+from .forces.customcv import CustomCVForce
+from .forces.customgb import CustomGBForce
+from .forces.customhbond import CustomHbondForce
+from .forces.custommanyparticle import CustomManyParticleForce
+from .forces.gayberne import GayBerneForce
+from .forces.rmsd import RMSDForce
 from .forces.gbsa import GBSAOBCForce
 from .forces.nonbonded import NonbondedForce
 from .forces.thermostats import AndersenThermostat
@@ -391,23 +397,75 @@ def make_function(kind, args, periodic):
 
 
 def custom_spec(force) -> dict:
-    """A custom force as plain data: kind (the class name), energy,
-    group, globals [(name, default)], derivatives, functions [(name,
-    class name, constructor arguments, periodic)], parameters (the
-    per-term or per-particle names), terms [(atoms, parameters)] (atoms
-    empty for CustomNonbondedForce's particles), periodic; with the
-    kind's own keys: particles_per_bond, groups_per_bond and groups
-    [(particles, weights or None)], and CustomNonbondedForce's method,
-    cutoff, switch_distance (negative: none), long_range_correction,
-    exclusions and interaction_groups."""
+    """A force of MODULE_FORCES as plain data: kind (the class name) and
+    group; RMSDForce its reference and particles; GayBerneForce its
+    particles, exceptions, method, cutoff and switch_distance (negative:
+    none); every other kind energy, globals [(name, default)],
+    derivatives, functions [(name, class name, constructor arguments,
+    periodic)] and periodic, with the kind's own keys: parameters (the
+    per-term or per-particle names) and terms [(atoms, parameters)]
+    (atoms empty for the per-particle kinds), particles_per_bond,
+    groups_per_bond and groups [(particles, weights or None)];
+    CustomNonbondedForce's method, cutoff, switch_distance,
+    long_range_correction, exclusions and interaction_groups;
+    CustomGBForce's values [(name, expression, type)], energy_terms
+    [(expression, type)], exclusions, method and cutoff; CustomHbondForce's
+    donor_parameters, acceptor_parameters, donors and acceptors [(three
+    particles, parameters)], exclusions, method and cutoff;
+    CustomManyParticleForce's particles_per_set, parameters, particles
+    [(parameters, type)], type_filters [(slot, types)],
+    permutation_mode, exclusions, method and cutoff; CustomCVForce's
+    variables [(name, force_spec of its force)]."""
     kind = type(force).__name__
-    spec = {"kind": kind, "energy": force.getEnergyFunction(),
-            "group": force.getForceGroup(),
-            "globals": list(force._global_params),
-            "derivatives": list(force._deriv_requests),
-            "functions": [_function_spec(name, fn)
-                          for name, fn in force._functions],
-            "periodic": force.usesPeriodicBoundaryConditions()}
+    spec = {"kind": kind, "group": force.getForceGroup()}
+    if isinstance(force, RMSDForce):
+        spec.update(reference=force.getReferencePositions().tolist(),
+                    particles=force.getParticles())
+        return spec
+    if isinstance(force, GayBerneForce):
+        spec.update(particles=list(force._particles),
+                    exceptions=list(force._exceptions),
+                    method=force.getNonbondedMethod(),
+                    cutoff=force.getCutoffDistance(),
+                    switch_distance=(force.getSwitchingDistance()
+                                     if force.getUseSwitchingFunction()
+                                     else -1.0))
+        return spec
+    spec.update({"energy": force.getEnergyFunction(),
+                 "globals": list(force._global_params),
+                 "derivatives": list(force._deriv_requests),
+                 "functions": [_function_spec(name, fn)
+                               for name, fn in force._functions],
+                 "periodic": force.usesPeriodicBoundaryConditions()})
+    if isinstance(force, CustomCVForce):
+        spec["variables"] = [(name, force_spec(f)) for name, f in force._cvs]
+        return spec
+    if isinstance(force, (CustomGBForce, CustomHbondForce,
+                          CustomManyParticleForce)):
+        spec.update(exclusions=list(force._exclusions),
+                    method=force.getNonbondedMethod(),
+                    cutoff=force.getCutoffDistance())
+    if isinstance(force, CustomGBForce):
+        spec.update(parameters=list(force._per_particle),
+                    terms=[((), list(p)) for p in force._particles],
+                    values=list(force._values),
+                    energy_terms=list(force._energy_terms))
+        return spec
+    if isinstance(force, CustomHbondForce):
+        spec.update(donor_parameters=list(force._per_donor),
+                    acceptor_parameters=list(force._per_acceptor),
+                    donors=[(tuple(a), list(p)) for a, p in force._donors],
+                    acceptors=[(tuple(a), list(p))
+                               for a, p in force._acceptors])
+        return spec
+    if isinstance(force, CustomManyParticleForce):
+        spec.update(particles_per_set=force.getNumParticlesPerSet(),
+                    parameters=list(force._per_particle),
+                    particles=[(list(p), t) for p, t in force._particles],
+                    type_filters=[(slot, sorted(types)) for slot, types
+                                  in sorted(force._type_filters.items())],
+                    permutation_mode=force.getPermutationMode())
+        return spec
     if isinstance(force, CustomNonbondedForce):
         spec.update(parameters=list(force._per_particle),
                     terms=[((), list(p)) for p in force._particles],
@@ -435,10 +493,91 @@ def custom_spec(force) -> dict:
     return spec
 
 
+def _common_custom(force, spec) -> None:
+    """The keys every expression-driven kind shares, onto `force`."""
+    for name, default in spec.get("globals", ()):
+        force.addGlobalParameter(name, default)
+    for name in spec.get("derivatives", ()):
+        force.addEnergyParameterDerivative(name)
+    for name, fkind, args, periodic in spec.get("functions", ()):
+        force.addTabulatedFunction(name, make_function(fkind, args,
+                                                       periodic))
+
+
+def _pair_method(force, spec) -> None:
+    force.setNonbondedMethod(spec["method"])
+    force.setCutoffDistance(spec["cutoff"])
+    for i, j in spec.get("exclusions", ()):
+        force.addExclusion(i, j)
+
+
 def custom_force(spec):
-    """The custom force of a custom_spec dict."""
+    """The force of a custom_spec dict."""
     kind = spec["kind"]
-    cls = {c.__name__: c for c in CUSTOM_FORCES}[kind]
+    if kind == "RMSDForce":
+        force = RMSDForce(spec["reference"], spec["particles"])
+    elif kind == "GayBerneForce":
+        force = GayBerneForce()
+        for p in spec["particles"]:
+            force.addParticle(*p)
+        for e in spec["exceptions"]:
+            force.addException(*e)
+        force.setNonbondedMethod(spec["method"])
+        force.setCutoffDistance(spec["cutoff"])
+        if spec["switch_distance"] >= 0:
+            force.setUseSwitchingFunction(True)
+            force.setSwitchingDistance(spec["switch_distance"])
+    elif kind == "CustomCVForce":
+        force = CustomCVForce(spec["energy"])
+        _common_custom(force, spec)
+        for name, inner in spec["variables"]:
+            force.addCollectiveVariable(name, make_force(inner))
+    elif kind == "CustomGBForce":
+        force = CustomGBForce()
+        _common_custom(force, spec)
+        for name in spec["parameters"]:
+            force.addPerParticleParameter(name)
+        for _, p in spec["terms"]:
+            force.addParticle(p)
+        for value in spec["values"]:
+            force.addComputedValue(*value)
+        for term in spec["energy_terms"]:
+            force.addEnergyTerm(*term)
+        _pair_method(force, spec)
+    elif kind == "CustomHbondForce":
+        force = CustomHbondForce(spec["energy"])
+        _common_custom(force, spec)
+        for name in spec["donor_parameters"]:
+            force.addPerDonorParameter(name)
+        for name in spec["acceptor_parameters"]:
+            force.addPerAcceptorParameter(name)
+        for atoms, p in spec["donors"]:
+            force.addDonor(*atoms, p)
+        for atoms, p in spec["acceptors"]:
+            force.addAcceptor(*atoms, p)
+        _pair_method(force, spec)
+    elif kind == "CustomManyParticleForce":
+        force = CustomManyParticleForce(spec["particles_per_set"],
+                                        spec["energy"])
+        _common_custom(force, spec)
+        for name in spec["parameters"]:
+            force.addPerParticleParameter(name)
+        for p, t in spec["particles"]:
+            force.addParticle(p, t)
+        for slot, types in spec["type_filters"]:
+            force.setTypeFilter(slot, types)
+        force.setPermutationMode(spec["permutation_mode"])
+        _pair_method(force, spec)
+    else:
+        force = _expression_force(spec)
+    force.setForceGroup(spec.get("group", 0))
+    return force
+
+
+def _expression_force(spec):
+    """The force of a custom_spec dict of forces/custom.py's kinds."""
+    kind = spec["kind"]
+    cls = {c.__name__: c for c in MODULE_FORCES}[kind]
     if kind == "CustomCompoundBondForce":
         force = cls(spec["particles_per_bond"], spec["energy"])
     elif kind == "CustomCentroidBondForce":
@@ -447,13 +586,7 @@ def custom_force(spec):
             force.addGroup(particles, weights)
     else:
         force = cls(spec["energy"])
-    for name, default in spec.get("globals", ()):
-        force.addGlobalParameter(name, default)
-    for name in spec.get("derivatives", ()):
-        force.addEnergyParameterDerivative(name)
-    for name, fkind, args, periodic in spec.get("functions", ()):
-        force.addTabulatedFunction(name, make_function(fkind, args,
-                                                       periodic))
+    _common_custom(force, spec)
     per = ("addPerParticleParameter"
            if kind in ("CustomNonbondedForce", "CustomExternalForce")
            else "addPerBondParameter" if kind in (
@@ -484,7 +617,39 @@ def custom_force(spec):
             force.addInteractionGroup(set1, set2)
     elif kind != "CustomExternalForce":
         force.setUsesPeriodicBoundaryConditions(spec["periodic"])
-    force.setForceGroup(spec.get("group", 0))
+    return force
+
+
+def force_spec(force) -> dict:
+    """Any force a CustomCVForce may take as a variable, as plain data:
+    custom_spec for MODULE_FORCES; for a NonbondedForce, a GBSAOBCForce or
+    a bonded force of from_numpy its kind, group and from_numpy's keys
+    (without the group keys)."""
+    if isinstance(force, MODULE_FORCES):
+        return custom_spec(force)
+    spec = {"kind": type(force).__name__, "group": force.getForceGroup()}
+    if isinstance(force, NonbondedForce):
+        spec.update(_nonbonded_params(force))
+    elif isinstance(force, GBSAOBCForce):
+        spec.update(_gb_params(force))
+    else:
+        out = {}
+        _other_params([force], out, {})
+        spec.update(out)
+    return spec
+
+
+def make_force(spec):
+    """The force of a force_spec dict."""
+    kind = spec["kind"]
+    if kind in {c.__name__ for c in MODULE_FORCES}:
+        return custom_force(spec)
+    if kind == "NonbondedForce":
+        return _nonbonded(spec, spec["group"])
+    system = System()
+    _add_other_forces(system, spec, {})
+    (force,) = system.getForces()
+    force.setForceGroup(spec["group"])
     return force
 
 
@@ -588,7 +753,7 @@ def to_numpy(system: System) -> dict:
         out["extra_nonbonded"] = [dict(_nonbonded_params(f),
                                        group=f.getForceGroup())
                                   for f in extra]
-    custom = [custom_spec(f) for f in forces if isinstance(f, CUSTOM_FORCES)]
+    custom = [custom_spec(f) for f in forces if isinstance(f, MODULE_FORCES)]
     if custom:
         out["custom_forces"] = custom
     if system._vsites:

@@ -17,8 +17,9 @@ parameter derivatives (1e-9 relative) are held against the JAX
 "Reference" platform, in float64; then updateParametersInContext, the
 pair sweep's rules (no groups, overlapping groups), ten steps at 0 K (1e-9
 nm), the minimizer's objective, the float32 pairs, the step program
-against the eager loop, from_numpy/to_numpy, and the refusal of a
-derivative of a parameter that NonbondedForce offsets use.
+against the eager loop, from_numpy/to_numpy, and a derivative of a
+parameter that NonbondedForce offsets use (served since the offsets'
+derivative was ported).
 """
 import copy
 
@@ -401,8 +402,11 @@ def test_from_numpy_round_trip(case):
 
 
 def test_derivative_of_an_offset_parameter_raises():
-    """dE/dlambda where lambda also drives NonbondedForce offsets: the JAX
-    package differentiates through the offsets, the port refuses."""
+    """dE/dlambda where lambda also drives NonbondedForce offsets: the port
+    serves it (the offsets' part from NonbondedModule.parameter_derivatives;
+    tests/test_torch_offset_derivatives.py holds it to the JAX package),
+    here against a central difference of float64 energies; an unknown
+    parameter still raises."""
     params, pos = _waters(16)
     params["global_parameters"] = [("lambda", 1.0)]
     params["particle_offsets"] = [("lambda", 0, -0.8, 0.0, 0.0)]
@@ -412,13 +416,19 @@ def test_derivative_of_an_offset_parameter_raises():
     spec["energy"] = "lambda*eps*(r-sig)^2"
     spec["functions"] = []
     spec["derivatives"] = ["lambda"]
+    spec["group"] = 0
     params["custom_forces"] = [spec]
-    with pytest.raises(NotImplementedError, match="nonbonded.py:545-557"):
-        _context(params, pos)
-    spec = copy.deepcopy(spec)
-    spec["derivatives"] = []
-    params["custom_forces"] = [spec]
-    _context(params, pos)
+    ctx = _context(params, pos)
+    ctx.setParameter("lambda", 0.7)
+    got = ctx.getState(getParameterDerivatives=True)\
+        .getEnergyParameterDerivatives()["lambda"]
+    e = []
+    for lam in (0.7 + 1e-5, 0.7 - 1e-5):
+        ctx.setParameter("lambda", lam)
+        e.append(ctx.getState(getEnergy=True).getPotentialEnergy())
+    want = (e[0] - e[1]) / 2e-5
+    assert abs(want) > 1.0
+    assert abs(got - want) <= 1e-6 * abs(want)
     with pytest.raises(ValueError, match="unknown global parameter"):
         omm.CustomBondForce("r").addEnergyParameterDerivative("nope")
 

@@ -36,9 +36,10 @@ def no_cuda():
 
 def test_import_loads_no_jax():
     """Every module of the package, whether __init__ imports it or not,
-    and chip_smoke.py, kernel_lab.py and nh_startup.py."""
+    and chip_smoke.py, kernel_lab.py, nh_startup.py and nve_drift.py."""
     code = ("import importlib, pkgutil, sys\n"
-            "import openmm_tpu_torch, chip_smoke, kernel_lab, nh_startup\n"
+            "import openmm_tpu_torch, chip_smoke, kernel_lab, nh_startup, "
+            "nve_drift\n"
             "names = [m.name for m in pkgutil.walk_packages(\n"
             "    openmm_tpu_torch.__path__, 'openmm_tpu_torch.')]\n"
             "for name in names:\n"

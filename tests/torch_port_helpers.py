@@ -182,13 +182,13 @@ def _other_params(forces, out, groups):
 
 CUSTOM_KINDS = ("CustomExternalForce", "CustomBondForce", "CustomAngleForce",
                 "CustomTorsionForce", "CustomNonbondedForce",
-                "CustomCompoundBondForce", "CustomCentroidBondForce")
+                "CustomCompoundBondForce", "CustomCentroidBondForce",
+                "CustomGBForce", "CustomCVForce", "RMSDForce",
+                "CustomHbondForce", "CustomManyParticleForce",
+                "GayBerneForce")
 
 
-def custom_spec(force):
-    """The from_numpy custom_forces entry (openmm_tpu_torch.system
-    custom_spec) of a JAX-package custom force."""
-    kind = type(force).__name__
+def _functions(force):
     functions = []
     for name, fn in force._functions:
         args = fn.getFunctionParameters()
@@ -196,13 +196,57 @@ def custom_spec(force):
         functions.append((name, fkind, (args,) if fkind ==
                           "Discrete1DFunction" else tuple(args),
                           fn.getPeriodic()))
-    spec = {"kind": kind, "energy": force.getEnergyFunction(),
-            "group": force.getForceGroup(),
-            "globals": list(force._global_params),
-            "derivatives": list(force._deriv_requests),
-            "functions": functions,
-            "periodic": bool(force.usesPeriodicBoundaryConditions())}
-    if kind == "CustomNonbondedForce":
+    return functions
+
+
+def custom_spec(force):
+    """The from_numpy custom_forces entry (openmm_tpu_torch.system
+    custom_spec) of a JAX-package force of CUSTOM_KINDS."""
+    kind = type(force).__name__
+    spec = {"kind": kind, "group": force.getForceGroup()}
+    if kind == "RMSDForce":
+        spec.update(reference=np.asarray(force._ref).tolist(),
+                    particles=list(force._particles))
+        return spec
+    if kind == "GayBerneForce":
+        spec.update(particles=list(force._particles),
+                    exceptions=list(force._exceptions),
+                    method=force._method, cutoff=force._cutoff,
+                    switch_distance=(force._switch_dist if force._switching
+                                     else -1.0))
+        return spec
+    spec.update({"energy": force.getEnergyFunction(),
+                 "globals": list(force._global_params),
+                 "derivatives": list(force._deriv_requests),
+                 "functions": _functions(force),
+                 "periodic": bool(force.usesPeriodicBoundaryConditions())})
+    if kind == "CustomCVForce":
+        spec["variables"] = [(name, force_spec(f)) for name, f in force._cvs]
+    elif kind == "CustomGBForce":
+        spec.update(parameters=list(force._per_particle),
+                    terms=[((), list(p)) for p in force._particles],
+                    values=list(force._values),
+                    energy_terms=list(force._energy_terms),
+                    exclusions=list(force._exclusions),
+                    method=force._method, cutoff=force._cutoff)
+    elif kind == "CustomHbondForce":
+        spec.update(donor_parameters=list(force._per_donor),
+                    acceptor_parameters=list(force._per_acceptor),
+                    donors=[(tuple(a), list(p)) for a, p in force._donors],
+                    acceptors=[(tuple(a), list(p))
+                               for a, p in force._acceptors],
+                    exclusions=list(force._exclusions),
+                    method=force._method, cutoff=force._cutoff)
+    elif kind == "CustomManyParticleForce":
+        spec.update(particles_per_set=force._n_per_set,
+                    parameters=list(force._per_particle),
+                    particles=[(list(p), t) for p, t in force._particles],
+                    type_filters=[(slot, sorted(types)) for slot, types
+                                  in sorted(force._type_filters.items())],
+                    permutation_mode=force._mode,
+                    exclusions=list(force._exclusions),
+                    method=force._method, cutoff=force._cutoff)
+    elif kind == "CustomNonbondedForce":
         spec.update(parameters=list(force._per_particle),
                     terms=[((), list(p)) for p in force._particles],
                     method=force._method, cutoff=force._cutoff,
@@ -226,20 +270,40 @@ def custom_spec(force):
     return spec
 
 
-def jax_custom_force(spec):
-    """The JAX-package custom force of a custom_spec dict."""
-    from openmm_tpu import tabulated
-    from openmm_tpu.forces import custom
-    kind = spec["kind"]
-    cls = getattr(custom, kind)
-    if kind == "CustomCompoundBondForce":
-        force = cls(spec["particles_per_bond"], spec["energy"])
-    elif kind == "CustomCentroidBondForce":
-        force = cls(spec["groups_per_bond"], spec["energy"])
-        for particles, weights in spec["groups"]:
-            force.addGroup(list(particles), weights)
+def force_spec(force):
+    """openmm_tpu_torch.system.force_spec of a JAX-package force: a CV's
+    variable."""
+    kind = type(force).__name__
+    if kind in CUSTOM_KINDS:
+        return custom_spec(force)
+    spec = {"kind": kind, "group": force.getForceGroup()}
+    if isinstance(force, NonbondedForce):
+        spec.update(_nonbonded_params(force))
+    elif isinstance(force, GBSAOBCForce):
+        spec.update(gb_params(force))
     else:
-        force = cls(spec["energy"])
+        out = {}
+        _other_params([force], out, {})
+        spec.update(out)
+    return spec
+
+
+def jax_force(spec):
+    """The JAX-package force of a force_spec dict."""
+    kind = spec["kind"]
+    if kind in CUSTOM_KINDS:
+        return jax_custom_force(spec)
+    if kind == "NonbondedForce":
+        return _jax_nonbonded(spec, spec["group"])
+    system = mm.System()
+    _jax_other_forces(system, spec, {})
+    (force,) = system.getForces()
+    force.setForceGroup(spec["group"])
+    return force
+
+
+def _jax_common(force, spec):
+    from openmm_tpu import tabulated
     for name, default in spec.get("globals", ()):
         force.addGlobalParameter(name, default)
     for name in spec.get("derivatives", ()):
@@ -249,41 +313,121 @@ def jax_custom_force(spec):
         force.addTabulatedFunction(name, fcls(*args, periodic)
                                    if fkind.startswith("Continuous")
                                    else fcls(*args))
-    for name in spec.get("parameters", ()):
-        if kind in ("CustomNonbondedForce", "CustomExternalForce"):
-            force.addPerParticleParameter(name)
-        elif kind == "CustomAngleForce":
-            force.addPerAngleParameter(name)
-        elif kind == "CustomTorsionForce":
-            force.addPerTorsionParameter(name)
-        else:
-            force.addPerBondParameter(name)
-    for atoms, p in spec["terms"]:
-        if kind == "CustomNonbondedForce":
-            force.addParticle(p)
-        elif kind == "CustomExternalForce":
-            force.addParticle(atoms[0], p)
-        elif kind == "CustomBondForce":
-            force.addBond(*atoms, p)
-        elif kind == "CustomAngleForce":
-            force.addAngle(*atoms, p)
-        elif kind == "CustomTorsionForce":
-            force.addTorsion(*atoms, p)
-        else:
-            force.addBond(list(atoms), p)
-    if kind == "CustomNonbondedForce":
+
+
+def _jax_pair_method(force, spec):
+    force.setNonbondedMethod(spec["method"])
+    force.setCutoffDistance(spec["cutoff"])
+    for i, j in spec.get("exclusions", ()):
+        force.addExclusion(i, j)
+
+
+def jax_custom_force(spec):
+    """The JAX-package force of a custom_spec dict."""
+    from openmm_tpu import forces
+    from openmm_tpu.forces import custom
+    kind = spec["kind"]
+    if kind == "RMSDForce":
+        force = forces.RMSDForce(np.asarray(spec["reference"]),
+                                 spec["particles"])
+    elif kind == "GayBerneForce":
+        force = forces.GayBerneForce()
+        for p in spec["particles"]:
+            force.addParticle(*p)
+        for e in spec["exceptions"]:
+            force.addException(*e)
         force.setNonbondedMethod(spec["method"])
         force.setCutoffDistance(spec["cutoff"])
         if spec["switch_distance"] >= 0:
             force.setUseSwitchingFunction(True)
             force.setSwitchingDistance(spec["switch_distance"])
-        force.setUseLongRangeCorrection(spec["long_range_correction"])
-        for i, j in spec["exclusions"]:
-            force.addExclusion(i, j)
-        for set1, set2 in spec["interaction_groups"]:
-            force.addInteractionGroup(set1, set2)
-    elif kind != "CustomExternalForce":
-        force.setUsesPeriodicBoundaryConditions(spec["periodic"])
+    elif kind == "CustomCVForce":
+        force = forces.CustomCVForce(spec["energy"])
+        _jax_common(force, spec)
+        for name, inner in spec["variables"]:
+            force.addCollectiveVariable(name, jax_force(inner))
+    elif kind == "CustomGBForce":
+        force = forces.CustomGBForce()
+        _jax_common(force, spec)
+        for name in spec["parameters"]:
+            force.addPerParticleParameter(name)
+        for _, p in spec["terms"]:
+            force.addParticle(p)
+        for value in spec["values"]:
+            force.addComputedValue(*value)
+        for term in spec["energy_terms"]:
+            force.addEnergyTerm(*term)
+        _jax_pair_method(force, spec)
+    elif kind == "CustomHbondForce":
+        force = forces.CustomHbondForce(spec["energy"])
+        _jax_common(force, spec)
+        for name in spec["donor_parameters"]:
+            force.addPerDonorParameter(name)
+        for name in spec["acceptor_parameters"]:
+            force.addPerAcceptorParameter(name)
+        for atoms, p in spec["donors"]:
+            force.addDonor(*atoms, p)
+        for atoms, p in spec["acceptors"]:
+            force.addAcceptor(*atoms, p)
+        _jax_pair_method(force, spec)
+    elif kind == "CustomManyParticleForce":
+        force = forces.CustomManyParticleForce(spec["particles_per_set"],
+                                               spec["energy"])
+        _jax_common(force, spec)
+        for name in spec["parameters"]:
+            force.addPerParticleParameter(name)
+        for p, t in spec["particles"]:
+            force.addParticle(p, t)
+        for slot, types in spec["type_filters"]:
+            force.setTypeFilter(slot, types)
+        force.setPermutationMode(spec["permutation_mode"])
+        _jax_pair_method(force, spec)
+    else:
+        cls = getattr(custom, kind)
+        if kind == "CustomCompoundBondForce":
+            force = cls(spec["particles_per_bond"], spec["energy"])
+        elif kind == "CustomCentroidBondForce":
+            force = cls(spec["groups_per_bond"], spec["energy"])
+            for particles, weights in spec["groups"]:
+                force.addGroup(list(particles), weights)
+        else:
+            force = cls(spec["energy"])
+        _jax_common(force, spec)
+        for name in spec.get("parameters", ()):
+            if kind in ("CustomNonbondedForce", "CustomExternalForce"):
+                force.addPerParticleParameter(name)
+            elif kind == "CustomAngleForce":
+                force.addPerAngleParameter(name)
+            elif kind == "CustomTorsionForce":
+                force.addPerTorsionParameter(name)
+            else:
+                force.addPerBondParameter(name)
+        for atoms, p in spec["terms"]:
+            if kind == "CustomNonbondedForce":
+                force.addParticle(p)
+            elif kind == "CustomExternalForce":
+                force.addParticle(atoms[0], p)
+            elif kind == "CustomBondForce":
+                force.addBond(*atoms, p)
+            elif kind == "CustomAngleForce":
+                force.addAngle(*atoms, p)
+            elif kind == "CustomTorsionForce":
+                force.addTorsion(*atoms, p)
+            else:
+                force.addBond(list(atoms), p)
+        if kind == "CustomNonbondedForce":
+            force.setNonbondedMethod(spec["method"])
+            force.setCutoffDistance(spec["cutoff"])
+            if spec["switch_distance"] >= 0:
+                force.setUseSwitchingFunction(True)
+                force.setSwitchingDistance(spec["switch_distance"])
+            force.setUseLongRangeCorrection(spec["long_range_correction"])
+            for i, j in spec["exclusions"]:
+                force.addExclusion(i, j)
+            for set1, set2 in spec["interaction_groups"]:
+                force.addInteractionGroup(set1, set2)
+        elif kind != "CustomExternalForce":
+            force.setUsesPeriodicBoundaryConditions(spec["periodic"])
     force.setForceGroup(spec.get("group", 0))
     return force
 
