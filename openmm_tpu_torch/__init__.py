@@ -19,8 +19,13 @@ GayBerneForce,
 through three hand-written CUDA kernels (csrc/), and energy
 minimization (LocalEnergyMinimizer) through the differentiable dense PME
 and two more; Context.updateParametersInContext, createCheckpoint and
-loadCheckpoint. Numbers are plain floats in nm, ps, amu, kJ/mol and e.
+loadCheckpoint. Getters return plain floats and numpy arrays in nm, ps,
+amu, kJ/mol and e; setters also take Quantities (openmm_tpu_torch.unit),
+which they strip to those units. The app layer (openmm_tpu_torch.app:
+PDBFile, ForceField, Simulation, reporters) builds and drives Systems as
+OpenMM's does.
 """
+from . import unit
 from .constants import BOLTZ, ONE_4PI_EPS0
 from .context import Context
 from .forces import (AndersenThermostat, CMAPTorsionForce, CMMotionRemover,
@@ -51,6 +56,7 @@ from .tabulated import (Continuous1DFunction, Continuous2DFunction,
 from .system import (LocalCoordinatesSite, OutOfPlaneSite, System,
                      ThreeParticleAverageSite, TwoParticleAverageSite,
                      VirtualSite, from_numpy, to_numpy)
+from .vec3 import Vec3
 
 __all__ = ["AMDForceGroupIntegrator", "AMDIntegrator",
            "AndersenThermostat", "BOLTZ", "BrownianIntegrator",
@@ -74,4 +80,5 @@ __all__ = ["AMDForceGroupIntegrator", "AMDIntegrator",
            "Platform", "RBTorsionForce", "State", "System",
            "ThreeParticleAverageSite", "TwoParticleAverageSite",
            "VariableLangevinIntegrator", "VariableVerletIntegrator",
-           "VerletIntegrator", "VirtualSite", "from_numpy", "to_numpy"]
+           "Vec3", "VerletIntegrator", "VirtualSite", "from_numpy",
+           "to_numpy", "unit"]

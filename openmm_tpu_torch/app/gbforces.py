@@ -6,10 +6,10 @@ The port's own copy of openmm_tpu/app/gbforces.py (after OpenMM's
 app/internal/customgbforces.py): the radius sets (Bondi and the mbondi
 family), the screening factors, GBn2's alpha, beta and gamma, the GBn
 neck tables (data/gbn_neck_tables.json, Mongan et al. 2006) and
-build_gb_force with the JAX signature. The port has no Topology yet, so
-the radius rules take each atom's element symbol and the symbol of its
-first bonded partner (None: none) in place of one; the JAX package's
-standard_gb_parameters(model, topology) waits for the port's app layer.
+build_gb_force with the JAX signature. gb_parameters takes each atom's
+element symbol and the symbol of its first bonded partner (None: none);
+standard_gb_parameters(model, topology) reads those from a Topology, as
+the JAX package's does.
 
 Every model shares one pipeline: a pairwise descreening integral I, an
 effective Born radius B = 1/(1/rho - f(I)), and the GB energy over B.
@@ -128,6 +128,33 @@ def gb_parameters(model, elements, partners, nucleic=None,
             out.append([r, sc[2]] + list(_GBN2_ABG.get(
                 e or "", _GBN2_ABG_DEFAULT)))
     return out
+
+
+_NUCLEIC_RESIDUES = frozenset(["A", "C", "G", "U", "DA", "DC", "DG", "DT"])
+
+
+def standard_gb_parameters(model, topology):
+    """Per-atom [radius, screen] (GBn2: [radius, screen, alpha, beta,
+    gamma]) of a GB model from the Topology alone
+    (openmm_tpu/app/gbforces.py:133): each atom's element, the element of
+    its first bonded partner in the Topology's bond order, whether its
+    residue is a nucleic acid's, and ARG's HH and HE hydrogens."""
+    first = {}
+    for a1, a2 in topology.bonds():
+        first.setdefault(a1, a2)
+        first.setdefault(a2, a1)
+    atoms = list(topology.atoms())
+
+    def symbol(atom):
+        return atom.element.symbol if atom is not None and atom.element \
+            else ""
+
+    return gb_parameters(
+        model, [symbol(a) for a in atoms],
+        [symbol(first.get(a)) for a in atoms],
+        [a.residue.name in _NUCLEIC_RESIDUES for a in atoms],
+        [i for i, a in enumerate(atoms) if a.residue.name == "ARG"
+         and (a.name.startswith("HH") or a.name.startswith("HE"))])
 
 
 _I_HCT = ("select(step(r+sr2-or1),"

@@ -82,6 +82,7 @@ import time
 import numpy as np
 import torch
 
+from . import unit as u
 from .constants import BOLTZ
 from .forces import MODULE_FORCES
 from .forces.barostats import BAROSTATS
@@ -564,7 +565,7 @@ class Context:
         return float(self._time)
 
     def setTime(self, time) -> None:
-        self._time.fill_(float(time))
+        self._time.fill_(float(u.strip(time, u.picosecond)))
 
     def getMolecules(self) -> list:
         """The atoms of each molecule, molecules in the JAX Context's
@@ -578,7 +579,7 @@ class Context:
         """Write a new box (reduced form) into the box tensor; the next
         force evaluation rebuilds the candidate state for it. PME's alpha
         and grid stay those of the System's default box."""
-        box = reduced_box(a, b, c)
+        box = reduced_box(*(u.strip(v, u.nanometer) for v in (a, b, c)))
         for nb in self._nonbondeds:
             if nb.periodic and nb.cutoff >= 0.5 * min(np.diag(box)):
                 raise ValueError("the cutoff must be below half the box "
@@ -601,7 +602,7 @@ class Context:
         if name not in self._gp_index:
             raise ValueError("Called setParameter() with invalid parameter "
                              "name: " + name)
-        self._gp[self._gp_index[name]] = float(value)
+        self._gp[self._gp_index[name]] = float(u.strip(value))
 
     def setState(self, state) -> None:
         """Restore the box, the time, the step count, and what the State
@@ -630,7 +631,7 @@ class Context:
         self._ref_pos = None
 
     def setPositions(self, positions) -> None:
-        pos = np.array(positions, np.float64)
+        pos = np.array(u.strip(positions, u.nanometer), np.float64)
         if pos.shape != (self._n, 3):
             raise ValueError("setPositions: expected (%d, 3), got %s"
                              % (self._n, pos.shape))
@@ -639,7 +640,8 @@ class Context:
         self._positions_set = True
 
     def setVelocities(self, velocities) -> None:
-        vel = np.array(velocities, np.float64)
+        vel = np.array(u.strip(velocities, u.nanometer / u.picosecond),
+                       np.float64)
         if vel.shape != (self._n, 3):
             raise ValueError("setVelocities: wrong shape")
         self._state["velocities"] = torch.as_tensor(
@@ -652,7 +654,8 @@ class Context:
         gen = torch.Generator(device=self._device)
         gen.manual_seed(int(randomSeed) if randomSeed is not None
                         else int(np.random.randint(1, 2 ** 31 - 1)))
-        sigma = torch.sqrt(BOLTZ * float(temperature) * self._inv_masses)
+        sigma = torch.sqrt(BOLTZ * float(u.strip(temperature, u.kelvin))
+                           * self._inv_masses)
         v = sigma[:, None] * torch.randn((self._n, 3), generator=gen,
                                          dtype=torch.float64,
                                          device=self._device)
@@ -1039,13 +1042,15 @@ class Context:
         return float(integ._kinetic_energy(self, forces,
                                            self._step_size_tensor()))
 
-    def temperature(self) -> float:
-        """Instantaneous temperature from the kinetic energy
-        (kinetic_energy()), over three degrees of freedom for each
-        particle with mass, less the constraints, less 3 when a
-        CMMotionRemover holds the centre of mass still (as
+    def degrees_of_freedom(self) -> int:
+        """Three for each particle with mass, less the constraints, less 3
+        when a CMMotionRemover holds the centre of mass still (as
         StateDataReporter counts them)."""
         dof = 3 * self._n_massive - self._system.getNumConstraints()
-        if self._has_cm_remover:
-            dof -= 3
-        return 2.0 * self.kinetic_energy() / (dof * BOLTZ)
+        return dof - 3 if self._has_cm_remover else dof
+
+    def temperature(self) -> float:
+        """Instantaneous temperature from the kinetic energy
+        (kinetic_energy()) over degrees_of_freedom()."""
+        return 2.0 * self.kinetic_energy() / (self.degrees_of_freedom()
+                                              * BOLTZ)

@@ -24,9 +24,15 @@ from __future__ import annotations
 
 import torch
 
+from .. import unit as u
 from ..constants import AVOGADRO, BOLTZ
 from ..ops.accumulate import GroupSum
 from .base import Force
+
+_NM = u.nanometer
+_K = u.kelvin
+_BAR = u.bar
+_BAR_NM = _BAR * _NM
 
 PRESSURE_UNIT_FACTOR = AVOGADRO * 1e-25     # bar -> kJ/mol/nm^3
 F64 = torch.float64
@@ -52,7 +58,7 @@ class _BarostatBase(Force):
         return self._temperature
 
     def setDefaultTemperature(self, temp) -> None:
-        self._temperature = float(temp)
+        self._temperature = float(u.strip(temp, _K))
 
     def getRandomNumberSeed(self) -> int:
         return self._seed
@@ -81,8 +87,8 @@ class MonteCarloBarostat(_BarostatBase):
 
     def __init__(self, defaultPressure, defaultTemperature, frequency=25):
         super().__init__()
-        self._pressure = float(defaultPressure)
-        self._temperature = float(defaultTemperature)
+        self._pressure = float(u.strip(defaultPressure, _BAR))
+        self._temperature = float(u.strip(defaultTemperature, _K))
         self._frequency = int(frequency)
         self._seed = 0
 
@@ -90,7 +96,7 @@ class MonteCarloBarostat(_BarostatBase):
         return self._pressure
 
     def setDefaultPressure(self, pressure) -> None:
-        self._pressure = float(pressure)
+        self._pressure = float(u.strip(pressure, _BAR))
 
     def _global_defaults(self) -> dict:
         return {self.Pressure(): self._pressure,
@@ -121,8 +127,8 @@ class MonteCarloAnisotropicBarostat(_BarostatBase):
     def __init__(self, defaultPressure, defaultTemperature, scaleX=True,
                  scaleY=True, scaleZ=True, frequency=25):
         super().__init__()
-        self._pressure = [float(p) for p in defaultPressure]
-        self._temperature = float(defaultTemperature)
+        self._pressure = [float(u.strip(p, _BAR)) for p in defaultPressure]
+        self._temperature = float(u.strip(defaultTemperature, _K))
         self._scale = [bool(scaleX), bool(scaleY), bool(scaleZ)]
         self._frequency = int(frequency)
         self._seed = 0
@@ -133,7 +139,7 @@ class MonteCarloAnisotropicBarostat(_BarostatBase):
         return tuple(self._pressure)
 
     def setDefaultPressure(self, pressure) -> None:
-        self._pressure = [float(p) for p in pressure]
+        self._pressure = [float(u.strip(p, _BAR)) for p in pressure]
 
     def getScaleX(self) -> bool:
         return self._scale[0]
@@ -180,9 +186,9 @@ class MonteCarloMembraneBarostat(_BarostatBase):
     def __init__(self, defaultPressure, defaultSurfaceTension,
                  defaultTemperature, xymode=0, zmode=0, frequency=25):
         super().__init__()
-        self._pressure = float(defaultPressure)
-        self._tension = float(defaultSurfaceTension)
-        self._temperature = float(defaultTemperature)
+        self._pressure = float(u.strip(defaultPressure, _BAR))
+        self._tension = float(u.strip(defaultSurfaceTension, _BAR_NM))
+        self._temperature = float(u.strip(defaultTemperature, _K))
         self._xymode = int(xymode)
         self._zmode = int(zmode)
         self._frequency = int(frequency)

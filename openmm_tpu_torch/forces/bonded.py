@@ -25,10 +25,17 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import unit as u
 from ..ops import geometry as geom
 from ..ops.accumulate import GatherSum
 from ..utils.splines import bicubic_coefficients_periodic
 from .base import Force
+
+_E = u.kilojoule_per_mole
+_NM = u.nanometer
+_RAD = u.radian
+_E_PER_NM2 = _E / _NM ** 2
+_E_PER_RAD2 = _E / _RAD ** 2
 
 F64 = torch.float64
 
@@ -295,16 +302,18 @@ class HarmonicBondForce(_PeriodicMixin, Force):
         return len(self._bonds)
 
     def addBond(self, particle1, particle2, length, k) -> int:
-        self._bonds.append((int(particle1), int(particle2), float(length),
-                            float(k)))
+        self._bonds.append((int(particle1), int(particle2),
+                            float(u.strip(length, _NM)),
+                            float(u.strip(k, _E_PER_NM2))))
         return len(self._bonds) - 1
 
     def getBondParameters(self, index):
         return self._bonds[index]
 
     def setBondParameters(self, index, particle1, particle2, length, k):
-        self._bonds[index] = (int(particle1), int(particle2), float(length),
-                              float(k))
+        self._bonds[index] = (int(particle1), int(particle2),
+                              float(u.strip(length, _NM)),
+                              float(u.strip(k, _E_PER_NM2)))
 
     def _bonded_particles(self):
         return [(b[0], b[1]) for b in self._bonds]
@@ -329,7 +338,8 @@ class HarmonicAngleForce(_PeriodicMixin, Force):
 
     def addAngle(self, particle1, particle2, particle3, angle, k) -> int:
         self._angles.append((int(particle1), int(particle2), int(particle3),
-                             float(angle), float(k)))
+                             float(u.strip(angle, _RAD)),
+                             float(u.strip(k, _E_PER_RAD2))))
         return len(self._angles) - 1
 
     def getAngleParameters(self, index):
@@ -338,7 +348,8 @@ class HarmonicAngleForce(_PeriodicMixin, Force):
     def setAngleParameters(self, index, particle1, particle2, particle3,
                            angle, k):
         self._angles[index] = (int(particle1), int(particle2),
-                               int(particle3), float(angle), float(k))
+                               int(particle3), float(u.strip(angle, _RAD)),
+                               float(u.strip(k, _E_PER_RAD2)))
 
     def _bonded_particles(self):
         return ([(a[0], a[1]) for a in self._angles]
@@ -367,7 +378,8 @@ class PeriodicTorsionForce(_PeriodicMixin, Force):
                    periodicity, phase, k) -> int:
         self._torsions.append((int(particle1), int(particle2),
                                int(particle3), int(particle4),
-                               int(periodicity), float(phase), float(k)))
+                               int(periodicity), float(u.strip(phase, _RAD)),
+                               float(u.strip(k, _E))))
         return len(self._torsions) - 1
 
     def getTorsionParameters(self, index):
@@ -377,7 +389,9 @@ class PeriodicTorsionForce(_PeriodicMixin, Force):
                              particle4, periodicity, phase, k):
         self._torsions[index] = (int(particle1), int(particle2),
                                  int(particle3), int(particle4),
-                                 int(periodicity), float(phase), float(k))
+                                 int(periodicity),
+                                 float(u.strip(phase, _RAD)),
+                                 float(u.strip(k, _E)))
 
     def _bonded_particles(self):
         return [pair for t in self._torsions
@@ -406,7 +420,8 @@ class RBTorsionForce(_PeriodicMixin, Force):
                    c0, c1, c2, c3, c4, c5) -> int:
         self._torsions.append((int(particle1), int(particle2),
                                int(particle3), int(particle4),
-                               *(float(c) for c in (c0, c1, c2, c3, c4, c5))))
+                               *(float(u.strip(c, _E))
+                                 for c in (c0, c1, c2, c3, c4, c5))))
         return len(self._torsions) - 1
 
     def getTorsionParameters(self, index):
@@ -416,8 +431,8 @@ class RBTorsionForce(_PeriodicMixin, Force):
                              particle4, c0, c1, c2, c3, c4, c5):
         self._torsions[index] = (int(particle1), int(particle2),
                                  int(particle3), int(particle4),
-                                 *(float(c) for c in (c0, c1, c2, c3, c4,
-                                                      c5)))
+                                 *(float(u.strip(c, _E))
+                                   for c in (c0, c1, c2, c3, c4, c5)))
 
     def _bonded_particles(self):
         return [pair for t in self._torsions
@@ -448,7 +463,7 @@ class CMAPTorsionForce(_PeriodicMixin, Force):
         return len(self._torsions)
 
     def addMap(self, size, energy) -> int:
-        energy = [float(e) for e in energy]
+        energy = [float(u.strip(e, _E)) for e in energy]
         if len(energy) != size * size:
             raise ValueError("CMAP energy array must have size*size "
                              "elements")

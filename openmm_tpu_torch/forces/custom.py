@@ -38,6 +38,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import unit as u
 from ..expressions import (Function, compile_energy_derivatives,
                            compile_energy_expression, parse_inlined)
 from ..expressions.derivatives import free_variables, replace_calls
@@ -72,7 +73,7 @@ class _CustomMixin:
         return len(self._global_params)
 
     def addGlobalParameter(self, name, defaultValue) -> int:
-        self._global_params.append((str(name), float(defaultValue)))
+        self._global_params.append((str(name), float(u.strip(defaultValue))))
         return len(self._global_params) - 1
 
     def getGlobalParameterName(self, index) -> str:
@@ -87,7 +88,7 @@ class _CustomMixin:
 
     def setGlobalParameterDefaultValue(self, index, value) -> None:
         self._global_params[index] = (self._global_params[index][0],
-                                      float(value))
+                                      float(u.strip(value)))
 
     def getNumEnergyParameterDerivatives(self) -> int:
         return len(self._deriv_requests)
@@ -615,14 +616,16 @@ class CustomExternalForce(_CustomMixin, Force):
         return len(self._terms)
 
     def addParticle(self, particle, parameters=()) -> int:
-        self._terms.append((int(particle), [float(p) for p in parameters]))
+        self._terms.append((int(particle),
+                            [float(u.strip(p)) for p in parameters]))
         return len(self._terms) - 1
 
     def getParticleParameters(self, index):
         return self._terms[index]
 
     def setParticleParameters(self, index, particle, parameters=()) -> None:
-        self._terms[index] = (int(particle), [float(p) for p in parameters])
+        self._terms[index] = (int(particle),
+                              [float(u.strip(p)) for p in parameters])
 
     def _terms_arrays(self):
         idx = np.asarray([t[0] for t in self._terms], np.int64).reshape(-1, 1)
@@ -650,7 +653,7 @@ class _CustomBondedBase(_CustomMixin, _PeriodicFlagMixin, Force):
 
     def _add_term(self, atoms, parameters) -> int:
         self._terms.append((tuple(int(a) for a in atoms),
-                            [float(p) for p in parameters]))
+                            [float(u.strip(p)) for p in parameters]))
         return len(self._terms) - 1
 
     def _bonded_particles(self):
@@ -693,7 +696,7 @@ class CustomBondForce(_CustomBondedBase):
     def setBondParameters(self, index, particle1, particle2,
                           parameters=()) -> None:
         self._terms[index] = ((int(particle1), int(particle2)),
-                              [float(p) for p in parameters])
+                              [float(u.strip(p)) for p in parameters])
 
 
 class CustomAngleForce(_CustomBondedBase):
@@ -722,7 +725,7 @@ class CustomAngleForce(_CustomBondedBase):
 
     def setAngleParameters(self, index, p1, p2, p3, parameters=()) -> None:
         self._terms[index] = ((int(p1), int(p2), int(p3)),
-                              [float(p) for p in parameters])
+                              [float(u.strip(p)) for p in parameters])
 
 
 class CustomTorsionForce(_CustomBondedBase):
@@ -752,7 +755,7 @@ class CustomTorsionForce(_CustomBondedBase):
     def setTorsionParameters(self, index, p1, p2, p3, p4,
                              parameters=()) -> None:
         self._terms[index] = ((int(p1), int(p2), int(p3), int(p4)),
-                              [float(p) for p in parameters])
+                              [float(u.strip(p)) for p in parameters])
 
 
 class CustomNonbondedForce(_CustomMixin, Force):
@@ -791,14 +794,14 @@ class CustomNonbondedForce(_CustomMixin, Force):
         return len(self._particles)
 
     def addParticle(self, parameters=()) -> int:
-        self._particles.append([float(p) for p in parameters])
+        self._particles.append([float(u.strip(p)) for p in parameters])
         return len(self._particles) - 1
 
     def getParticleParameters(self, index):
         return list(self._particles[index])
 
     def setParticleParameters(self, index, parameters=()) -> None:
-        self._particles[index] = [float(p) for p in parameters]
+        self._particles[index] = [float(u.strip(p)) for p in parameters]
 
     def getNumExclusions(self) -> int:
         return len(self._exclusions)
@@ -842,7 +845,7 @@ class CustomNonbondedForce(_CustomMixin, Force):
         return self._cutoff
 
     def setCutoffDistance(self, distance) -> None:
-        self._cutoff = float(distance)
+        self._cutoff = float(u.strip(distance, u.nanometer))
 
     def getUseSwitchingFunction(self) -> bool:
         return self._switching
@@ -854,7 +857,7 @@ class CustomNonbondedForce(_CustomMixin, Force):
         return self._switch_dist
 
     def setSwitchingDistance(self, distance) -> None:
-        self._switch_dist = float(distance)
+        self._switch_dist = float(u.strip(distance, u.nanometer))
 
     def getUseLongRangeCorrection(self) -> bool:
         return self._lrc
@@ -967,7 +970,7 @@ class CustomCompoundBondForce(_CustomMixin, _PeriodicFlagMixin, Force):
         if len(particles) != self._n_atoms:
             raise ValueError("wrong number of particles in bond")
         self._terms.append((tuple(int(p) for p in particles),
-                            [float(p) for p in parameters]))
+                            [float(u.strip(p)) for p in parameters]))
         return len(self._terms) - 1
 
     def getBondParameters(self, index):
@@ -976,7 +979,7 @@ class CustomCompoundBondForce(_CustomMixin, _PeriodicFlagMixin, Force):
 
     def setBondParameters(self, index, particles, parameters=()) -> None:
         self._terms[index] = (tuple(int(p) for p in particles),
-                              [float(p) for p in parameters])
+                              [float(u.strip(p)) for p in parameters])
 
     def _bonded_particles(self):
         return [(atoms[i], atoms[i + 1]) for atoms, _ in self._terms
@@ -1042,7 +1045,7 @@ class CustomCentroidBondForce(_CustomMixin, _PeriodicFlagMixin, Force):
         if len(groups) != self._n_groups:
             raise ValueError("wrong number of groups in bond")
         self._terms.append((tuple(int(g) for g in groups),
-                            [float(p) for p in parameters]))
+                            [float(u.strip(p)) for p in parameters]))
         return len(self._terms) - 1
 
     def getBondParameters(self, index):
@@ -1051,7 +1054,7 @@ class CustomCentroidBondForce(_CustomMixin, _PeriodicFlagMixin, Force):
 
     def setBondParameters(self, index, groups, parameters=()) -> None:
         self._terms[index] = (tuple(int(g) for g in groups),
-                              [float(p) for p in parameters])
+                              [float(u.strip(p)) for p in parameters])
 
     def _bonded_particles(self):
         out = []

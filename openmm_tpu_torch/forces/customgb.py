@@ -34,6 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import unit as u
 from ..expressions import compile_energy_derivatives, parse_inlined
 from ..expressions.derivatives import free_variables
 from ..ops import geometry as geom
@@ -79,14 +80,14 @@ class CustomGBForce(_CustomMixin, Force):
         return len(self._particles)
 
     def addParticle(self, parameters=()) -> int:
-        self._particles.append([float(p) for p in parameters])
+        self._particles.append([float(u.strip(p)) for p in parameters])
         return len(self._particles) - 1
 
     def getParticleParameters(self, index):
         return list(self._particles[index])
 
     def setParticleParameters(self, index, parameters=()) -> None:
-        self._particles[index] = [float(p) for p in parameters]
+        self._particles[index] = [float(u.strip(p)) for p in parameters]
 
     def getNumComputedValues(self) -> int:
         return len(self._values)
@@ -139,7 +140,7 @@ class CustomGBForce(_CustomMixin, Force):
         return self._cutoff
 
     def setCutoffDistance(self, distance) -> None:
-        self._cutoff = float(distance)
+        self._cutoff = float(u.strip(distance, u.nanometer))
 
     def usesPeriodicBoundaryConditions(self) -> bool:
         return self._method == CustomGBForce.CutoffPeriodic

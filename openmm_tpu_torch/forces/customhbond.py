@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import unit as u
 from ..ops import geometry as geom
 from .base import Force
 from .custom import _CustomMixin, _params, _PointsModule
@@ -68,7 +69,7 @@ class CustomHbondForce(_CustomMixin, Force):
 
     def addDonor(self, d1, d2, d3, parameters=()) -> int:
         self._donors.append(((int(d1), int(d2), int(d3)),
-                             [float(p) for p in parameters]))
+                             [float(u.strip(p)) for p in parameters]))
         return len(self._donors) - 1
 
     def getDonorParameters(self, index):
@@ -77,14 +78,14 @@ class CustomHbondForce(_CustomMixin, Force):
 
     def setDonorParameters(self, index, d1, d2, d3, parameters=()) -> None:
         self._donors[index] = ((int(d1), int(d2), int(d3)),
-                               [float(p) for p in parameters])
+                               [float(u.strip(p)) for p in parameters])
 
     def getNumAcceptors(self) -> int:
         return len(self._acceptors)
 
     def addAcceptor(self, a1, a2, a3, parameters=()) -> int:
         self._acceptors.append(((int(a1), int(a2), int(a3)),
-                                [float(p) for p in parameters]))
+                                [float(u.strip(p)) for p in parameters]))
         return len(self._acceptors) - 1
 
     def getAcceptorParameters(self, index):
@@ -94,7 +95,7 @@ class CustomHbondForce(_CustomMixin, Force):
     def setAcceptorParameters(self, index, a1, a2, a3,
                               parameters=()) -> None:
         self._acceptors[index] = ((int(a1), int(a2), int(a3)),
-                                  [float(p) for p in parameters])
+                                  [float(u.strip(p)) for p in parameters])
 
     def getNumExclusions(self) -> int:
         return len(self._exclusions)
@@ -119,7 +120,7 @@ class CustomHbondForce(_CustomMixin, Force):
         return self._cutoff
 
     def setCutoffDistance(self, distance) -> None:
-        self._cutoff = float(distance)
+        self._cutoff = float(u.strip(distance, u.nanometer))
 
     def usesPeriodicBoundaryConditions(self) -> bool:
         return self._method == CustomHbondForce.CutoffPeriodic

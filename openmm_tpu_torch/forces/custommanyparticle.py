@@ -22,6 +22,7 @@ import math
 import numpy as np
 import torch
 
+from .. import unit as u
 from ..ops import geometry as geom
 from .base import Force
 from .custom import _CustomMixin, _params, _PointsModule
@@ -66,7 +67,8 @@ class CustomManyParticleForce(_CustomMixin, Force):
         return len(self._particles)
 
     def addParticle(self, parameters=(), type=0) -> int:  # noqa: A002
-        self._particles.append(([float(p) for p in parameters], int(type)))
+        self._particles.append(([float(u.strip(p)) for p in parameters],
+                                int(type)))
         return len(self._particles) - 1
 
     def getParticleParameters(self, index):
@@ -75,7 +77,8 @@ class CustomManyParticleForce(_CustomMixin, Force):
 
     def setParticleParameters(self, index, parameters=(),
                               type=0) -> None:  # noqa: A002
-        self._particles[index] = ([float(p) for p in parameters], int(type))
+        self._particles[index] = ([float(u.strip(p)) for p in parameters],
+                                  int(type))
 
     def getTypeFilter(self, index):
         return sorted(self._type_filters.get(index, set()))
@@ -133,7 +136,7 @@ class CustomManyParticleForce(_CustomMixin, Force):
         return self._cutoff
 
     def setCutoffDistance(self, distance) -> None:
-        self._cutoff = float(distance)
+        self._cutoff = float(u.strip(distance, u.nanometer))
 
     def usesPeriodicBoundaryConditions(self) -> bool:
         return self._method == CustomManyParticleForce.CutoffPeriodic

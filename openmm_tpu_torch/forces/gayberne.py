@@ -31,10 +31,14 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import unit as u
 from ..ops import geometry as geom
 from ..ops.accumulate import GatherSum
 from ..ops.pairs import AnalyticEnergy
 from .base import Force
+
+_E = u.kilojoule_per_mole
+_NM = u.nanometer
 
 F64 = torch.float64
 
@@ -83,9 +87,11 @@ class GayBerneForce(Force):
 
     def addParticle(self, sigma, epsilon, xparticle, yparticle, sx, sy, sz,
                     ex, ey, ez) -> int:
-        self._particles.append((float(sigma), float(epsilon), int(xparticle),
-                                int(yparticle), float(sx), float(sy),
-                                float(sz), float(ex), float(ey), float(ez)))
+        self._particles.append((
+            float(u.strip(sigma, _NM)), float(u.strip(epsilon, _E)),
+            int(xparticle), int(yparticle), float(u.strip(sx, _NM)),
+            float(u.strip(sy, _NM)), float(u.strip(sz, _NM)), float(ex),
+            float(ey), float(ez)))
         return len(self._particles) - 1
 
     def getParticleParameters(self, index):
@@ -93,10 +99,11 @@ class GayBerneForce(Force):
 
     def setParticleParameters(self, index, sigma, epsilon, xparticle,
                               yparticle, sx, sy, sz, ex, ey, ez) -> None:
-        self._particles[index] = (float(sigma), float(epsilon),
-                                  int(xparticle), int(yparticle), float(sx),
-                                  float(sy), float(sz), float(ex), float(ey),
-                                  float(ez))
+        self._particles[index] = (
+            float(u.strip(sigma, _NM)), float(u.strip(epsilon, _E)),
+            int(xparticle), int(yparticle), float(u.strip(sx, _NM)),
+            float(u.strip(sy, _NM)), float(u.strip(sz, _NM)), float(ex),
+            float(ey), float(ez))
 
     def getNumExceptions(self) -> int:
         return len(self._exceptions)
@@ -106,8 +113,8 @@ class GayBerneForce(Force):
         key = (min(particle1, particle2), max(particle1, particle2))
         if key in self._exception_index and not replace:
             raise ValueError("GayBerneForce: duplicate exception")
-        entry = (int(particle1), int(particle2), float(sigma),
-                 float(epsilon))
+        entry = (int(particle1), int(particle2), float(u.strip(sigma, _NM)),
+                 float(u.strip(epsilon, _E)))
         if key in self._exception_index:
             self._exceptions[self._exception_index[key]] = entry
             return self._exception_index[key]
@@ -121,7 +128,8 @@ class GayBerneForce(Force):
     def setExceptionParameters(self, index, particle1, particle2, sigma,
                                epsilon) -> None:
         self._exceptions[index] = (int(particle1), int(particle2),
-                                   float(sigma), float(epsilon))
+                                   float(u.strip(sigma, _NM)),
+                                   float(u.strip(epsilon, _E)))
 
     def getNonbondedMethod(self) -> int:
         return self._method
@@ -133,7 +141,7 @@ class GayBerneForce(Force):
         return self._cutoff
 
     def setCutoffDistance(self, distance) -> None:
-        self._cutoff = float(distance)
+        self._cutoff = float(u.strip(distance, _NM))
 
     def getUseSwitchingFunction(self) -> bool:
         return self._switching
@@ -145,7 +153,7 @@ class GayBerneForce(Force):
         return self._switch_dist
 
     def setSwitchingDistance(self, distance) -> None:
-        self._switch_dist = float(distance)
+        self._switch_dist = float(u.strip(distance, _NM))
 
     def usesPeriodicBoundaryConditions(self) -> bool:
         return self._method == GayBerneForce.CutoffPeriodic

@@ -16,8 +16,14 @@ import math
 import numpy as np
 import torch
 
+from .. import unit as u
 from ..ops import gbsa as gb_ops
 from .base import Force
+
+_E = u.kilojoule_per_mole
+_Q = u.elementary_charge
+_NM = u.nanometer
+_E_PER_NM2 = _E / _NM ** 2
 
 
 class GBSAOBCForce(Force):
@@ -38,7 +44,8 @@ class GBSAOBCForce(Force):
         return len(self._particles)
 
     def addParticle(self, charge, radius, scalingFactor):
-        self._particles.append((float(charge), float(radius),
+        self._particles.append((float(u.strip(charge, _Q)),
+                                float(u.strip(radius, _NM)),
                                 float(scalingFactor)))
         return len(self._particles) - 1
 
@@ -46,7 +53,8 @@ class GBSAOBCForce(Force):
         return self._particles[index]
 
     def setParticleParameters(self, index, charge, radius, scalingFactor):
-        self._particles[index] = (float(charge), float(radius),
+        self._particles[index] = (float(u.strip(charge, _Q)),
+                                  float(u.strip(radius, _NM)),
                                   float(scalingFactor))
 
     def getSolventDielectric(self):
@@ -66,7 +74,7 @@ class GBSAOBCForce(Force):
         return self._surface_energy
 
     def setSurfaceAreaEnergy(self, energy):
-        self._surface_energy = float(energy)
+        self._surface_energy = float(u.strip(energy, _E_PER_NM2))
 
     def getNonbondedMethod(self):
         return self._method
@@ -80,7 +88,7 @@ class GBSAOBCForce(Force):
         return self._cutoff
 
     def setCutoffDistance(self, distance):
-        self._cutoff = float(distance)
+        self._cutoff = float(u.strip(distance, _NM))
 
     def usesPeriodicBoundaryConditions(self):
         return self._method == GBSAOBCForce.CutoffPeriodic

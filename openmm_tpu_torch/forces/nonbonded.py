@@ -38,6 +38,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import unit as u
 from ..constants import ONE_4PI_EPS0
 from ..ops import geometry as geom
 from ..ops import pairs as pair_ops
@@ -48,6 +49,12 @@ from ..ops.accumulate import GatherSum
 from ..ops.pairs import build_exclusion_table, dispersion_complement
 from ..ops.tile_pairs import TWO_OVER_SQRT_PI
 from .base import Force
+
+_E = u.kilojoule_per_mole
+_Q = u.elementary_charge
+_NM = u.nanometer
+_Q2 = _Q ** 2
+_PER_NM = _NM ** -1
 
 NEIGHBOR_SKIN = 0.25     # nm; the JAX package's measured default
 
@@ -89,15 +96,18 @@ class NonbondedForce(Force):
         return len(self._particles)
 
     def addParticle(self, charge, sigma, epsilon):
-        self._particles.append((float(charge), float(sigma), float(epsilon)))
+        self._particles.append((float(u.strip(charge, _Q)),
+                                float(u.strip(sigma, _NM)),
+                                float(u.strip(epsilon, _E))))
         return len(self._particles) - 1
 
     def getParticleParameters(self, index):
         return self._particles[index]
 
     def setParticleParameters(self, index, charge, sigma, epsilon):
-        self._particles[index] = (float(charge), float(sigma),
-                                  float(epsilon))
+        self._particles[index] = (float(u.strip(charge, _Q)),
+                                  float(u.strip(sigma, _NM)),
+                                  float(u.strip(epsilon, _E)))
 
     def getNumExceptions(self):
         return len(self._exceptions)
@@ -106,7 +116,8 @@ class NonbondedForce(Force):
                      replace=False):
         p1, p2 = int(particle1), int(particle2)
         key = (min(p1, p2), max(p1, p2))
-        entry = (p1, p2, float(chargeProd), float(sigma), float(epsilon))
+        entry = (p1, p2, float(u.strip(chargeProd, _Q2)),
+                 float(u.strip(sigma, _NM)), float(u.strip(epsilon, _E)))
         if key in self._exception_index:
             if not replace:
                 raise ValueError("NonbondedForce: multiple exceptions for "
@@ -125,8 +136,9 @@ class NonbondedForce(Force):
         old = self._exceptions[index]
         p1, p2 = int(particle1), int(particle2)
         del self._exception_index[(min(old[0], old[1]), max(old[0], old[1]))]
-        self._exceptions[index] = (p1, p2, float(chargeProd), float(sigma),
-                                   float(epsilon))
+        self._exceptions[index] = (p1, p2, float(u.strip(chargeProd, _Q2)),
+                                   float(u.strip(sigma, _NM)),
+                                   float(u.strip(epsilon, _E)))
         self._exception_index[(min(p1, p2), max(p1, p2))] = index
 
     def createExceptionsFromBonds(self, bonds, coulomb14Scale, lj14Scale):
@@ -177,7 +189,7 @@ class NonbondedForce(Force):
         return self._cutoff
 
     def setCutoffDistance(self, distance):
-        self._cutoff = float(distance)
+        self._cutoff = float(u.strip(distance, _NM))
 
     def getUseSwitchingFunction(self):
         return self._switching
@@ -189,7 +201,7 @@ class NonbondedForce(Force):
         return self._switch_dist
 
     def setSwitchingDistance(self, distance):
-        self._switch_dist = float(distance)
+        self._switch_dist = float(u.strip(distance, _NM))
 
     def getReactionFieldDielectric(self):
         return self._rf_dielectric
@@ -209,14 +221,14 @@ class NonbondedForce(Force):
     def setPMEParameters(self, alpha, nx, ny, nz):
         """alpha 0 (the default) chooses alpha and the grid from the cutoff
         and the tolerance."""
-        self._alpha = float(alpha)
+        self._alpha = float(u.strip(alpha, _PER_NM))
         self._grid = (int(nx), int(ny), int(nz))
 
     def getLJPMEParameters(self):
         return (self._lj_alpha, *self._lj_grid)
 
     def setLJPMEParameters(self, alpha, nx, ny, nz):
-        self._lj_alpha = float(alpha)
+        self._lj_alpha = float(u.strip(alpha, _PER_NM))
         self._lj_grid = (int(nx), int(ny), int(nz))
 
     def getPMEParametersInContext(self, context):
@@ -261,7 +273,7 @@ class NonbondedForce(Force):
         return len(self._global_params)
 
     def addGlobalParameter(self, name, defaultValue):
-        self._global_params.append((str(name), float(defaultValue)))
+        self._global_params.append((str(name), float(u.strip(defaultValue))))
         return len(self._global_params) - 1
 
     def getGlobalParameterName(self, index):
@@ -276,7 +288,7 @@ class NonbondedForce(Force):
 
     def setGlobalParameterDefaultValue(self, index, defaultValue):
         self._global_params[index] = (self._global_params[index][0],
-                                      float(defaultValue))
+                                      float(u.strip(defaultValue)))
 
     def getNumParticleParameterOffsets(self):
         return len(self._particle_offsets)

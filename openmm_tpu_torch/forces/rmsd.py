@@ -26,6 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import unit as u
 from ..ops.accumulate import GatherSum
 from ..ops.pairs import AnalyticEnergy
 from .base import Force
@@ -87,7 +88,8 @@ class RMSDForce(Force):
         return self._ref.copy()
 
     def setReferencePositions(self, positions) -> None:
-        self._ref = np.array(positions, np.float64).reshape(-1, 3)
+        self._ref = np.array(u.strip(positions, u.nanometer),
+                             np.float64).reshape(-1, 3)
 
     def getParticles(self):
         return list(self._particles)

@@ -27,8 +27,12 @@ from __future__ import annotations
 
 import torch
 
+from .. import unit as u
 from ..constants import BOLTZ
 from .base import Force
+
+_K = u.kelvin
+_PER_PS = u.picosecond ** -1
 
 
 class AndersenThermostat(Force):
@@ -42,21 +46,21 @@ class AndersenThermostat(Force):
 
     def __init__(self, defaultTemperature, defaultCollisionFrequency):
         super().__init__()
-        self._temperature = float(defaultTemperature)
-        self._frequency = float(defaultCollisionFrequency)
+        self._temperature = float(u.strip(defaultTemperature, _K))
+        self._frequency = float(u.strip(defaultCollisionFrequency, _PER_PS))
         self._seed = 0
 
     def getDefaultTemperature(self) -> float:
         return self._temperature
 
     def setDefaultTemperature(self, temperature) -> None:
-        self._temperature = float(temperature)
+        self._temperature = float(u.strip(temperature, _K))
 
     def getDefaultCollisionFrequency(self) -> float:
         return self._frequency
 
     def setDefaultCollisionFrequency(self, frequency) -> None:
-        self._frequency = float(frequency)
+        self._frequency = float(u.strip(frequency, _PER_PS))
 
     def getRandomNumberSeed(self) -> int:
         return self._seed

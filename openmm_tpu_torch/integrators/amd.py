@@ -8,7 +8,10 @@ energy, DualAMDIntegrator both. Energies in kJ/mol.
 """
 from __future__ import annotations
 
+from .. import unit as u
 from .custom import CustomIntegrator
+
+_E = u.kilojoule_per_mole
 
 
 def _boost(energy, alpha, E):
@@ -55,7 +58,7 @@ class AMDIntegrator(_AMD):
 
     def getEffectiveEnergy(self, energy) -> float:
         """The boosted energy of a potential energy `energy`."""
-        energy = float(energy)
+        energy = float(u.strip(energy, _E))
         return energy + _boost(energy, self.getAlpha(), self.getE())
 
 
@@ -88,8 +91,9 @@ class AMDForceGroupIntegrator(_AMD):
 
     def getEffectiveEnergy(self, totalEnergy, groupEnergy) -> float:
         """The total energy with the group's boost."""
-        return float(totalEnergy) + _boost(
-            float(groupEnergy), self.getAlphaGroup(), self.getEGroup())
+        return float(u.strip(totalEnergy, _E)) + _boost(
+            float(u.strip(groupEnergy, _E)), self.getAlphaGroup(),
+            self.getEGroup())
 
 
 class DualAMDIntegrator(_AMD):
@@ -116,7 +120,8 @@ class DualAMDIntegrator(_AMD):
 
     def getEffectiveEnergy(self, totalEnergy, groupEnergy) -> float:
         """The total energy with both boosts."""
-        total, group = float(totalEnergy), float(groupEnergy)
+        total = float(u.strip(totalEnergy, _E))
+        group = float(u.strip(groupEnergy, _E))
         alpha_t = self.getGlobalVariableByName("alphaTotal")
         e_t = self.getGlobalVariableByName("ETotal")
         alpha_g = self.getGlobalVariableByName("alphaGroup")

@@ -46,6 +46,8 @@ from typing import Callable
 
 import torch
 
+from .. import unit as u
+
 
 def no_vsites(pos):
     """StepDeps.compute_vsites of a System without virtual sites."""
@@ -89,7 +91,7 @@ class StepDeps:
 
 class Integrator:
     def __init__(self, stepSize: float):
-        self._step_size = float(stepSize)
+        self._step_size = float(u.strip(stepSize, u.picosecond))
         self._constraint_tol = 1e-5
         self._force_groups = -1
         self._context = None
@@ -99,7 +101,7 @@ class Integrator:
         return self._step_size
 
     def setStepSize(self, size: float) -> None:
-        self._step_size = float(size)
+        self._step_size = float(u.strip(size, u.picosecond))
 
     def getConstraintTolerance(self) -> float:
         """Relative tolerance of constraints (SETTLE is exact; the

@@ -60,6 +60,7 @@ import re
 import numpy as np
 import torch
 
+from .. import unit as u
 from ..expressions import compile_energy_expression, expression_variables
 from ..expressions.parser import ExpressionError
 from .base import Integrator, StepDeps
@@ -154,7 +155,7 @@ class CustomIntegrator(Integrator):
         if self._context is not None:
             raise RuntimeError("variables must be added before the "
                                "integrator is bound to a Context")
-        self._global_vars.append([str(name), float(initialValue)])
+        self._global_vars.append([str(name), float(u.strip(initialValue))])
         return len(self._global_vars) - 1
 
     def getGlobalVariableName(self, index) -> str:
@@ -175,9 +176,9 @@ class CustomIntegrator(Integrator):
         return self.getGlobalVariable(self._global_index(name))
 
     def setGlobalVariable(self, index, value) -> None:
-        self._global_vars[index][1] = float(value)
+        self._global_vars[index][1] = float(u.strip(value))
         if self._globals is not None:
-            self._globals[index].fill_(float(value))
+            self._globals[index].fill_(float(u.strip(value)))
 
     def setGlobalVariableByName(self, name, value) -> None:
         self.setGlobalVariable(self._global_index(name), value)
@@ -189,7 +190,7 @@ class CustomIntegrator(Integrator):
         if self._context is not None:
             raise RuntimeError("variables must be added before the "
                                "integrator is bound to a Context")
-        self._perdof_vars.append([str(name), float(initialValue)])
+        self._perdof_vars.append([str(name), float(u.strip(initialValue))])
         return len(self._perdof_vars) - 1
 
     def getPerDofVariableName(self, index) -> str:
@@ -215,7 +216,7 @@ class CustomIntegrator(Integrator):
 
     def setPerDofVariable(self, index, values) -> None:
         name = self._perdof_vars[index][0]
-        arr = np.array(values, np.float64)
+        arr = np.array(u.strip(values), np.float64)
         if name in self._perdof:
             self._perdof[name].copy_(torch.as_tensor(arr).reshape(
                 self._perdof[name].shape))

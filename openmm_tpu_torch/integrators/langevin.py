@@ -25,28 +25,32 @@ from __future__ import annotations
 
 import torch
 
+from .. import unit as u
 from ..constants import BOLTZ
 from .base import Integrator, StepDeps
+
+_K = u.kelvin
+_PER_PS = u.picosecond ** -1
 
 
 class _Stochastic(Integrator):
     def __init__(self, temperature: float, frictionCoeff: float,
                  stepSize: float):
         super().__init__(stepSize)
-        self._temperature = float(temperature)
-        self._friction = float(frictionCoeff)
+        self._temperature = float(u.strip(temperature, _K))
+        self._friction = float(u.strip(frictionCoeff, _PER_PS))
 
     def getTemperature(self) -> float:
         return self._temperature
 
     def setTemperature(self, temperature: float) -> None:
-        self._temperature = float(temperature)
+        self._temperature = float(u.strip(temperature, _K))
 
     def getFriction(self) -> float:
         return self._friction
 
     def setFriction(self, friction: float) -> None:
-        self._friction = float(friction)
+        self._friction = float(u.strip(friction, _PER_PS))
 
     def _params(self) -> tuple:
         return (self._step_size, self._friction, self._temperature)

@@ -12,8 +12,12 @@ step, from the step's end to the next step's start.
 """
 from __future__ import annotations
 
+from .. import unit as u
 from ..constants import BOLTZ
 from .custom import CustomIntegrator
+
+_K = u.kelvin
+_PER_PS = u.picosecond ** -1
 
 
 def _sorted_groups(groups):
@@ -70,8 +74,8 @@ class MTSLangevinIntegrator(CustomIntegrator):
         super().__init__(dt)
         groups = _sorted_groups(groups)
         self._mts_groups = groups
-        self._temperature = float(temperature)
-        self._friction = float(friction)
+        self._temperature = float(u.strip(temperature, _K))
+        self._friction = float(u.strip(friction, _PER_PS))
         self.addGlobalVariable("a", 0.0)
         self.addGlobalVariable("b", 0.0)
         self.addGlobalVariable("kT", BOLTZ * self._temperature)

@@ -25,8 +25,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import unit as u
 from ..constants import BOLTZ
 from .base import Integrator, StepDeps
+
+_K = u.kelvin
+_PER_PS = u.picosecond ** -1
 
 _YS_WEIGHTS = {
     1: [1.0],
@@ -92,10 +96,11 @@ class NoseHooverChain:
             self._d = {
                 "particles": [int(p) for p in thermostatedAtoms],
                 "pairs": [(int(a), int(b)) for a, b in thermostatedPairs],
-                "temperature": float(temperature),
-                "frequency": float(collisionFrequency),
-                "rel_temperature": float(relativeTemperature),
-                "rel_frequency": float(relativeCollisionFrequency),
+                "temperature": float(u.strip(temperature, _K)),
+                "frequency": float(u.strip(collisionFrequency, _PER_PS)),
+                "rel_temperature": float(u.strip(relativeTemperature, _K)),
+                "rel_frequency": float(u.strip(relativeCollisionFrequency,
+                                               _PER_PS)),
                 "chain_length": int(chainLength),
                 "n_mts": int(numMTS),
                 "n_ys": int(numYoshidaSuzuki)}
@@ -106,25 +111,25 @@ class NoseHooverChain:
         return self._d["temperature"]
 
     def setTemperature(self, temperature) -> None:
-        self._d["temperature"] = float(temperature)
+        self._d["temperature"] = float(u.strip(temperature, _K))
 
     def getRelativeTemperature(self) -> float:
         return self._d["rel_temperature"]
 
     def setRelativeTemperature(self, temperature) -> None:
-        self._d["rel_temperature"] = float(temperature)
+        self._d["rel_temperature"] = float(u.strip(temperature, _K))
 
     def getCollisionFrequency(self) -> float:
         return self._d["frequency"]
 
     def setCollisionFrequency(self, frequency) -> None:
-        self._d["frequency"] = float(frequency)
+        self._d["frequency"] = float(u.strip(frequency, _PER_PS))
 
     def getRelativeCollisionFrequency(self) -> float:
         return self._d["rel_frequency"]
 
     def setRelativeCollisionFrequency(self, frequency) -> None:
-        self._d["rel_frequency"] = float(frequency)
+        self._d["rel_frequency"] = float(u.strip(frequency, _PER_PS))
 
     def getNumDegreesOfFreedom(self) -> int:
         return self._d["num_dofs"]
@@ -196,10 +201,11 @@ class NoseHooverIntegrator(Integrator):
         self._thermostats.append({
             "particles": [int(p) for p in thermostatedParticles],
             "pairs": [(int(a), int(b)) for a, b in thermostatedPairs],
-            "temperature": float(temperature),
-            "frequency": float(collisionFrequency),
-            "rel_temperature": float(relativeTemperature),
-            "rel_frequency": float(relativeCollisionFrequency),
+            "temperature": float(u.strip(temperature, _K)),
+            "frequency": float(u.strip(collisionFrequency, _PER_PS)),
+            "rel_temperature": float(u.strip(relativeTemperature, _K)),
+            "rel_frequency": float(u.strip(relativeCollisionFrequency,
+                                           _PER_PS)),
             "chain_length": int(chainLength),
             "n_mts": int(numMTS),
             "n_ys": int(numYoshidaSuzuki),
@@ -224,25 +230,28 @@ class NoseHooverIntegrator(Integrator):
         return self._thermostats[chainID]["temperature"]
 
     def setTemperature(self, temp, chainID=0) -> None:
-        self._thermostats[chainID]["temperature"] = float(temp)
+        self._thermostats[chainID]["temperature"] = float(u.strip(temp, _K))
 
     def getRelativeTemperature(self, chainID=0) -> float:
         return self._thermostats[chainID]["rel_temperature"]
 
     def setRelativeTemperature(self, temp, chainID=0) -> None:
-        self._thermostats[chainID]["rel_temperature"] = float(temp)
+        self._thermostats[chainID]["rel_temperature"] = float(
+            u.strip(temp, _K))
 
     def getCollisionFrequency(self, chainID=0) -> float:
         return self._thermostats[chainID]["frequency"]
 
     def setCollisionFrequency(self, freq, chainID=0) -> None:
-        self._thermostats[chainID]["frequency"] = float(freq)
+        self._thermostats[chainID]["frequency"] = float(
+            u.strip(freq, _PER_PS))
 
     def getRelativeCollisionFrequency(self, chainID=0) -> float:
         return self._thermostats[chainID]["rel_frequency"]
 
     def setRelativeCollisionFrequency(self, freq, chainID=0) -> None:
-        self._thermostats[chainID]["rel_frequency"] = float(freq)
+        self._thermostats[chainID]["rel_frequency"] = float(
+            u.strip(freq, _PER_PS))
 
     def _chain_dof(self, i, relative=False) -> float:
         """The JAX package's _chain_dof: 3 a pair for a relative chain;

@@ -22,9 +22,13 @@ from __future__ import annotations
 
 import torch
 
+from .. import unit as u
 from ..constants import BOLTZ
 from .base import Integrator, StepDeps
 from .langevin import _noise
+
+_K = u.kelvin
+_PER_PS = u.picosecond ** -1
 
 
 def _select_step_size(forces, inv_m, old_dt, error_tol, max_dt):
@@ -56,7 +60,7 @@ class _Variable(Integrator):
         return self._max_step_size
 
     def setMaximumStepSize(self, size) -> None:
-        self._max_step_size = float(size)
+        self._max_step_size = float(u.strip(size, u.picosecond))
 
     def getStepSize(self) -> float:
         """The step size of the last step (the host's value before the
@@ -117,20 +121,20 @@ class VariableVerletIntegrator(_Variable):
 class VariableLangevinIntegrator(_Variable):
     def __init__(self, temperature, frictionCoeff, errorTol):
         super().__init__(errorTol)
-        self._temperature = float(temperature)
-        self._friction = float(frictionCoeff)
+        self._temperature = float(u.strip(temperature, _K))
+        self._friction = float(u.strip(frictionCoeff, _PER_PS))
 
     def getTemperature(self) -> float:
         return self._temperature
 
     def setTemperature(self, temperature) -> None:
-        self._temperature = float(temperature)
+        self._temperature = float(u.strip(temperature, _K))
 
     def getFriction(self) -> float:
         return self._friction
 
     def setFriction(self, friction) -> None:
-        self._friction = float(friction)
+        self._friction = float(u.strip(friction, _PER_PS))
 
     def _params(self) -> tuple:
         return (self._step_size, self._friction, self._temperature,

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from . import unit as u
+
 
 class LocalEnergyMinimizer:
     @staticmethod
@@ -24,7 +26,8 @@ class LocalEnergyMinimizer:
         RMS gradient per particle (kJ/mol/nm) at which L-BFGS stops;
         maxIterations: iterations per penalty stage, 0 for 10 * n;
         reporter: a MinimizationReporter, called once per iteration."""
-        tolerance = float(tolerance)
+        tolerance = float(u.strip(tolerance,
+                                  u.kilojoule_per_mole / u.nanometer))
         system = context.getSystem()
         n = system.getNumParticles()
         cons = [system.getConstraintParameters(i)

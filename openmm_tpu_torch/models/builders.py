@@ -66,7 +66,7 @@ BILAYER_DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 TEMPLATES = ("lipid", "water")
 _ATOM_KEYS = ("masses", "charges", "sigma", "epsilon")
 # (atoms key, parameters key) of each term list of a template
-_TERM_KEYS = (("exception_pairs", "exception_params"),
+TERM_KEYS = (("exception_pairs", "exception_params"),
               ("constraint_pairs", "constraint_distances"),
               ("bond_pairs", "bond_params"),
               ("angle_triples", "angle_params"),
@@ -242,7 +242,7 @@ def replicate_templates(data, residue_template) -> dict:
     out = {key: np.concatenate([data[TEMPLATES[t] + "_" + key]
                                 for t in layout])
            for key in _ATOM_KEYS}
-    for atoms_key, par_key in _TERM_KEYS:
+    for atoms_key, par_key in TERM_KEYS:
         atoms, pars, owner = [], [], []
         for t, name in enumerate(TEMPLATES):
             res = np.nonzero(layout == t)[0]

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from . import unit as u
 from .forces.barostats import (MonteCarloAnisotropicBarostat,
                                MonteCarloBarostat, MonteCarloMembraneBarostat)
 from .forces.bonded import (CMAPTorsionForce, HarmonicAngleForce,
@@ -113,7 +114,8 @@ class LocalCoordinatesSite(VirtualSite):
         self.originWeights = [float(w) for w in originWeights]
         self.xWeights = [float(w) for w in xWeights]
         self.yWeights = [float(w) for w in yWeights]
-        self.localPosition = tuple(float(x) for x in localPosition)
+        self.localPosition = tuple(
+            float(x) for x in u.strip(localPosition, u.nanometer))
 
     def getOriginWeights(self):
         return self.originWeights
@@ -156,14 +158,14 @@ class System:
         return len(self._masses)
 
     def addParticle(self, mass: float) -> int:
-        self._masses.append(float(mass))
+        self._masses.append(float(u.strip(mass, u.dalton)))
         return len(self._masses) - 1
 
     def getParticleMass(self, index: int) -> float:
         return self._masses[index]
 
     def setParticleMass(self, index: int, mass: float) -> None:
-        self._masses[index] = float(mass)
+        self._masses[index] = float(u.strip(mass, u.dalton))
 
     def setVirtualSite(self, index: int, virtualSite) -> None:
         self._vsites[int(index)] = virtualSite
@@ -181,7 +183,7 @@ class System:
 
     def addConstraint(self, particle1, particle2, distance) -> int:
         self._constraints.append((int(particle1), int(particle2),
-                                  float(distance)))
+                                  float(u.strip(distance, u.nanometer))))
         return len(self._constraints) - 1
 
     def getConstraintParameters(self, index: int):
@@ -201,7 +203,7 @@ class System:
         return list(self._forces)
 
     def setDefaultPeriodicBoxVectors(self, a, b, c) -> None:
-        self._box = reduced_box(a, b, c)
+        self._box = reduced_box(*(u.strip(v, u.nanometer) for v in (a, b, c)))
 
     def getDefaultPeriodicBoxVectors(self) -> np.ndarray:
         return self._box.copy()

@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import unit as u
 from .expressions.compiler import Function
 from .utils.splines import (bicubic_coefficients_from_derivatives,
                             natural_spline, periodic_spline,
@@ -65,14 +66,14 @@ class TabulatedFunction:
 
 class Continuous1DFunction(TabulatedFunction):
     def __init__(self, values, min, max, periodic=False):  # noqa: A002
-        values = [float(v) for v in values]
+        values = [float(u.strip(v)) for v in values]
         if len(values) < 2:
             raise ValueError("Continuous1DFunction needs >= 2 values")
         if periodic and abs(values[0] - values[-1]) > 1e-10:
             raise ValueError("periodic function must have matching "
                              "endpoints")
         self._values = values
-        self._min, self._max = float(min), float(max)
+        self._min, self._max = float(u.strip(min)), float(u.strip(max))
         self._periodic = bool(periodic)
         self._update_count = 0
 
@@ -80,8 +81,8 @@ class Continuous1DFunction(TabulatedFunction):
         return list(self._values), self._min, self._max
 
     def setFunctionParameters(self, values, min, max):  # noqa: A002
-        self._values = [float(v) for v in values]
-        self._min, self._max = float(min), float(max)
+        self._values = [float(u.strip(v)) for v in values]
+        self._min, self._max = float(u.strip(min)), float(u.strip(max))
         self._update_count += 1
 
     def Copy(self):
@@ -197,13 +198,13 @@ def _first_derivatives(a, axis, periodic):
 class Continuous2DFunction(_GridFunction):
     def __init__(self, xsize, ysize, values, xmin, xmax, ymin, ymax,
                  periodic=False):
-        values = [float(v) for v in values]
+        values = [float(u.strip(v)) for v in values]
         if len(values) != xsize * ysize:
             raise ValueError("values must have xsize*ysize elements")
         self._xsize, self._ysize = int(xsize), int(ysize)
         self._values = values
-        self._xmin, self._xmax = float(xmin), float(xmax)
-        self._ymin, self._ymax = float(ymin), float(ymax)
+        self._xmin, self._xmax = float(u.strip(xmin)), float(u.strip(xmax))
+        self._ymin, self._ymax = float(u.strip(ymin)), float(u.strip(ymax))
         self._periodic = bool(periodic)
         self._update_count = getattr(self, "_update_count", 0)
 
@@ -272,13 +273,13 @@ def _tricubic_solver_matrix():
 class Continuous3DFunction(_GridFunction):
     def __init__(self, xsize, ysize, zsize, values, xmin, xmax, ymin, ymax,
                  zmin, zmax, periodic=False):
-        values = [float(v) for v in values]
+        values = [float(u.strip(v)) for v in values]
         if len(values) != xsize * ysize * zsize:
             raise ValueError("values must have xsize*ysize*zsize elements")
         self._sizes = (int(xsize), int(ysize), int(zsize))
         self._values = values
-        self._lims = tuple(float(v) for v in (xmin, xmax, ymin, ymax, zmin,
-                                              zmax))
+        self._lims = tuple(float(u.strip(v)) for v in (xmin, xmax, ymin,
+                                                       ymax, zmin, zmax))
         self._periodic = bool(periodic)
         self._update_count = getattr(self, "_update_count", 0)
 
@@ -353,7 +354,7 @@ class _DiscreteFunction(TabulatedFunction):
 
 class Discrete1DFunction(_DiscreteFunction):
     def __init__(self, values):
-        self._values = [float(v) for v in values]
+        self._values = [float(u.strip(v)) for v in values]
         self._update_count = getattr(self, "_update_count", 0)
 
     def _table_sizes(self):
@@ -372,7 +373,7 @@ class Discrete1DFunction(_DiscreteFunction):
 
 class Discrete2DFunction(_DiscreteFunction):
     def __init__(self, xsize, ysize, values):
-        values = [float(v) for v in values]
+        values = [float(u.strip(v)) for v in values]
         if len(values) != xsize * ysize:
             raise ValueError("values must have xsize*ysize elements")
         self._sizes = (int(xsize), int(ysize))
@@ -395,7 +396,7 @@ class Discrete2DFunction(_DiscreteFunction):
 
 class Discrete3DFunction(_DiscreteFunction):
     def __init__(self, xsize, ysize, zsize, values):
-        values = [float(v) for v in values]
+        values = [float(u.strip(v)) for v in values]
         if len(values) != xsize * ysize * zsize:
             raise ValueError("values must have xsize*ysize*zsize elements")
         self._sizes = (int(xsize), int(ysize), int(zsize))

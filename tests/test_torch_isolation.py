@@ -83,3 +83,43 @@ def test_platforms_and_precision():
     with pytest.raises(ValueError):
         omm.Platform.getPlatformByName("Reference")
     assert np.isclose(omm.BOLTZ, 0.00831446261815324)
+
+
+def test_app_reads_only_its_own_data():
+    """ForceField, Topology.createStandardBonds, the patch loader and
+    PDBFile open files under openmm_tpu_torch/app/data/ only, never under
+    the JAX package's openmm_tpu/; a file the port does not ship raises
+    though the JAX package has it."""
+    code = ("import os, sys\n"
+            "opened = []\n"
+            "sys.addaudithook(lambda event, args: opened.append(str(args[0]))"
+            " if event == 'open' and isinstance(args[0], str) else None)\n"
+            "import io\n"
+            "from openmm_tpu_torch import app\n"
+            "from openmm_tpu_torch.app.modeller import "
+            "_load_membrane_patch\n"
+            "ff = app.ForceField('amber14-all.json', 'amber14-tip3p.json')\n"
+            "top, pos, box = _load_membrane_patch('POPC')\n"
+            "bare = app.Topology()\n"
+            "res = bare.addResidue('HOH', bare.addChain())\n"
+            "for name, el in (('O', 'O'), ('H1', 'H'), ('H2', 'H')):\n"
+            "    bare.addAtom(name, app.Element.getBySymbol(el), res)\n"
+            "bare.createStandardBonds()\n"
+            "assert len(list(bare.bonds())) == 2\n"
+            "try:\n"
+            "    app.ForceField('amoeba2013.json')\n"
+            "    raise SystemExit('amoeba2013.json was found')\n"
+            "except Exception as e:\n"
+            "    assert 'not found' in str(e), e\n"
+            "jax_dir = os.path.join(os.getcwd(), 'openmm_tpu') + os.sep\n"
+            "data_dir = os.path.join(os.getcwd(), 'openmm_tpu_torch', 'app',"
+            " 'data') + os.sep\n"
+            "bad = [p for p in opened if os.path.abspath(p).startswith("
+            "jax_dir)]\n"
+            "assert not bad, bad\n"
+            "ours = {os.path.basename(p) for p in opened\n"
+            "        if os.path.abspath(p).startswith(data_dir)}\n"
+            "assert {'amber14-all.json', 'amber14-tip3p.json', 'POPC.npz',\n"
+            "        'residue_bonds.json', 'residues.xml'} <= ours, ours\n")
+    proc = _run(code, REPO, "-c")
+    assert proc.returncode == 0, proc.stderr

@@ -99,16 +99,16 @@ def system_params(system):
 
 def _nonbonded_params(nb):
     """from_numpy's NonbondedForce keys of a JAX-package NonbondedForce."""
-    part = np.array([[float(u.strip(x)) for x in nb.getParticleParameters(i)]
-                     for i in range(nb.getNumParticles())], np.float64)
-    exc = [nb.getExceptionParameters(i) for i in range(nb.getNumExceptions())]
+    # the term lists the getters wrap in Quantities (e, nm, kJ/mol), read
+    # as they are: stripping each Quantity costs seconds on a protein
+    part = np.array(nb._particles, np.float64).reshape(-1, 3)
+    exc = nb._exceptions
     out = {
         "charges": part[:, 0], "sigma": part[:, 1], "epsilon": part[:, 2],
         "exception_pairs": np.array([e[:2] for e in exc],
                                     np.int64).reshape(-1, 2),
-        "exception_params": np.array(
-            [[float(u.strip(x)) for x in e[2:]] for e in exc],
-            np.float64).reshape(-1, 3),
+        "exception_params": np.array([e[2:] for e in exc],
+                                     np.float64).reshape(-1, 3),
         "cutoff": float(u.strip(nb.getCutoffDistance(), u.nanometer)),
         "method": _METHOD_NAMES[nb.getNonbondedMethod()],
         "ewald_tolerance": nb.getEwaldErrorTolerance(),
@@ -817,3 +817,82 @@ def anchored_droplet():
     sigma = np.sqrt(omm.BOLTZ * 300.0 / np.where(m == 0, 1.0, m))
     vel = rng.randn(*pos.shape) * np.where(m == 0, 0.0, sigma)[:, None]
     return params, pos, vel
+
+
+# -- the app layer ------------------------------------------------------
+def port_topology(top):
+    """The port's Topology of a JAX-package Topology: the same chains,
+    residues, atoms (names, elements, ids) and bonds in the same order,
+    and the same box."""
+    from openmm_tpu_torch import app as papp
+    from openmm_tpu_torch import unit as pu
+    from openmm_tpu_torch.vec3 import Vec3 as PVec3
+    new = papp.Topology()
+    atoms = {}
+    for chain in top.chains():
+        c = new.addChain(chain.id)
+        for res in chain.residues():
+            r = new.addResidue(res.name, c, res.id, res.insertionCode)
+            for a in res.atoms():
+                el = (papp.Element.getBySymbol(a.element.symbol)
+                      if a.element is not None else None)
+                atoms[a] = new.addAtom(a.name, el, r, a.id)
+    for b in top.bonds():
+        new.addBond(atoms[b[0]], atoms[b[1]])
+    box = top.getPeriodicBoxVectors()
+    if box is not None:
+        new.setPeriodicBoxVectors(pu.Quantity(
+            tuple(PVec3(*v) for v in box.value_in_unit(u.nanometer)),
+            pu.nanometer))
+    return new
+
+
+def template_topology(ff, chains, box=None):
+    """A JAX-package Topology of residues copied from the templates of the
+    JAX ForceField `ff`: `chains` is a list of chains, each a list of
+    template names; within a chain an atom C of a residue is bonded to the
+    atom N of the next where both templates have an external bond there
+    (a peptide). No coordinates are needed to build a System. `box`: a
+    cubic box width in nm, or None."""
+    from openmm_tpu import app
+    from openmm_tpu.vec3 import Vec3
+    top = app.Topology()
+    for names in chains:
+        chain = top.addChain()
+        prev = None
+        for name in names:
+            t = ff._templates[name]
+            res = top.addResidue(name, chain)
+            added = [top.addAtom(a.name, a.element, res) for a in t.atoms]
+            for i, j in t.bonds:
+                top.addBond(added[i], added[j])
+            ext = {t.atoms[i].name: added[i] for i in t.externalBonds}
+            if prev is not None and "N" in ext:
+                top.addBond(prev, ext["N"])
+            prev = ext.get("C")
+    if box is not None:
+        top.setPeriodicBoxVectors(u.Quantity(
+            (Vec3(box, 0, 0), Vec3(0, box, 0), Vec3(0, 0, box)),
+            u.nanometer))
+    return top
+
+
+def assert_same_params(got, want, path="system"):
+    """Exact equality of two from_numpy dicts (arrays, numbers, strings,
+    and the lists and dicts of custom forces), naming the first key that
+    differs."""
+    if isinstance(want, dict):
+        assert isinstance(got, dict) and sorted(got) == sorted(want), \
+            (path, sorted(got), sorted(want))
+        for key in want:
+            assert_same_params(got[key], want[key], "%s[%r]" % (path, key))
+    elif isinstance(want, (list, tuple)) and not all(
+            isinstance(w, (int, float, np.number)) for w in want):
+        assert len(got) == len(want), (path, len(got), len(want))
+        for k, (g, w) in enumerate(zip(got, want)):
+            assert_same_params(g, w, "%s[%d]" % (path, k))
+    elif isinstance(want, (np.ndarray, list, tuple)):
+        g, w = np.asarray(got), np.asarray(want)
+        assert g.shape == w.shape and np.array_equal(g, w), path
+    else:
+        assert got == want, (path, got, want)
