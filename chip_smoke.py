@@ -193,6 +193,7 @@ from openmm_tpu_torch.ops import pallas_pme, pme_zslab, tile_pairs
 from openmm_tpu_torch.ops import pme as pme_mod
 from openmm_tpu_torch.platform import set_fp32_matmul_exact
 from openmm_tpu_torch.profile_step import custom_verlet
+from openmm_tpu_torch.unit import plain as in_md
 
 BUDGET_S = 180.0
 N_WATERS = 8000
@@ -220,7 +221,7 @@ FORCE_ERR_BAR = 1e-5
 # minimization: LocalEnergyMinimizer calls of MINIMIZE_ITERATIONS
 # iterations each (per penalty stage), the deadline checked between calls
 MINIMIZE_CALLS = 1
-MINIMIZE_ITERATIONS = 10
+MINIMIZE_ITERATIONS = 6
 MINIMIZE_TOLERANCE = 10.0       # kJ/mol/nm, the RMS gradient per particle
 # the POPC bilayer: the force group of each force (for the per-group
 # energies), its temperature, its steps before the production steps, its
@@ -231,7 +232,7 @@ BILAYER_GROUPS = {"NonbondedForce": 0, "HarmonicBondForce": 1,
 BILAYER_TEMPERATURE = 303.15
 BILAYER_STEPS = 100
 BILAYER_PRODUCTION = 30         # timed, then replayed through the eager loop
-BILAYER_MINIMIZE_ITERATIONS = 8
+BILAYER_MINIMIZE_ITERATIONS = 4
 GROUP_ENERGY_BAR = 1e-5
 CONSTRAINT_ERR_BAR = 1e-5
 # the app layer's path: the POPC patch through PDBFile, ForceField and
@@ -240,24 +241,55 @@ APP_FORCEFIELD = ("amber14-lipid.json", "amber14-tip3p.json")
 APP_CUTOFF = 0.9                # nm
 APP_TEMPERATURE = 300.0         # K
 APP_T_BAND = 15.0               # K about APP_TEMPERATURE at the last report
-APP_MINIMIZE_ITERATIONS = 5
-APP_STEPS = 200
+APP_MINIMIZE_ITERATIONS = 3
+APP_STEPS = 100
 APP_REPORT_EVERY = 50
 APP_ENERGY_BAR = 1e-6           # relative, the two Systems' energies
 APP_FORCE_BAR = 1e-6            # the median relative force difference
 APP_BOX_BAR = 5e-5              # nm, half the PDB's 0.001 A
-APP_TURN_STEPS = 50
+APP_TURN_STEPS = 25
 APP_TURNS = ("simulation", "plain", "plain", "simulation")
+# phase_modeller_membrane: the helix of helix_residues through
+# Modeller.addHydrogens and addMembrane("POPC"), then a Simulation with
+# reporters and Metadynamics on the helix's depth
+MEMBRANE_FORCEFIELD = ("amber14-all.json", "amber14-tip3p.json")
+MEMBRANE_PADDING = 1.0          # nm
+MEMBRANE_IONIC = 0.15           # molar
+MEMBRANE_RELAX = 6              # addMembrane's _relax_iterations (50 by
+                                # default): 6 rounds of 20 steps
+MEMBRANE_MINIMIZE_ITERATIONS = 3
+MEMBRANE_STEPS = 300            # under Metadynamics
+MEMBRANE_PLAIN_STEPS = 50       # timed without it, the reporters on
+MEMBRANE_REPORT_EVERY = 50
+MEMBRANE_FRICTION = 5.0         # 1/ps: the freshly built membrane, its
+                                # energy minimized, takes its kinetic
+                                # energy's share back within the run
+META_FREQUENCY = 50             # steps between depositions
+META_HEIGHT = 1.0               # kJ/mol
+META_BIAS_FACTOR = 10.0
+META_WIDTH = 0.05               # nm
+META_RANGE = (-1.5, 1.5)        # nm, the CV's grid
+META_CV_BAR = 1e-6              # nm, the CV against numpy's centroids
+META_GRID_BAR = 1e-9            # kJ/mol, the bias grid against numpy's sum
+META_ENERGY_BAR = 1e-6          # relative, group 31 against the table
+PDBX_BAR = 0.5e-5               # nm, half the file's 0.0001 A
+# phase_gromacs_water: the water box as .gro and an SPC/E .top
+GROMACS_STEPS = 100
+GROMACS_T_RANGE = (200.0, 450.0)
+# phase_tempering: simulated tempering on the relaxed GROMACS water box
+TEMPERING_RUNGS = (300.0, 330.0, 4)     # min K, max K, rungs
+TEMPERING_INTERVAL = 25
+TEMPERING_STEPS = 300
 # constant pressure: the barostats' settings (bar, bar nm, K), steps and
 # bars; the NPT phases read and print the box after every call of
 # NPT_FREQUENCY steps, one attempt a call on the bilayer and the water box
 NPT_PRESSURE = 1.0
 NPT_TENSION = 0.0
 NPT_FREQUENCY = 25
-NPT_BILAYER_STEPS = 300
+NPT_BILAYER_STEPS = 200
 NPT_BILAYER_REPLAY = 25
 NPT_WATER_STEPS = 200
-NPT_WATER_REPLAY = 50
+NPT_WATER_REPLAY = 25
 ANISO_FREQUENCY = 5
 ANISO_STEPS = 100
 NPT_VOLUME_BAR = 0.03       # |V / V0 - 1| after the run
@@ -273,14 +305,14 @@ NPT_TURNS = ("nvt", "npt", "npt", "nvt")
 # CutoffNonPeriodic (cutoff nm; dhfr_gbsa's), and a small Ewald box
 RF_CUTOFF = 1.0
 RF_STEPS = 200
-RF_REPLAY = 15
+RF_REPLAY = 10
 DROPLET_RADIUS = 2.5
 DROPLET_CUTOFF = 2.0
 DROPLET_STEPS = 40
-DROPLET_REPLAY = 30
+DROPLET_REPLAY = 10
 EWALD_WATERS = 512
 EWALD_STEPS = 60
-EWALD_REPLAY = 50
+EWALD_REPLAY = 20
 # implicit solvent (models.popc_obc_cluster: 19 lipids at the reference
 # suite's dhfr_gbsa settings, LangevinMiddle at 300 K, 1/ps, 2 fs): the
 # force group of each force, the minimize call's iterations a penalty
@@ -291,10 +323,10 @@ GBSA_GROUPS = {"NonbondedForce": 0, "GBSAOBCForce": 1,
                "HarmonicBondForce": 2, "HarmonicAngleForce": 2,
                "PeriodicTorsionForce": 2, "CMMotionRemover": 3}
 GBSA_TEMPERATURE = 300.0
-GBSA_MINIMIZE_ITERATIONS = 10
+GBSA_MINIMIZE_ITERATIONS = 5
 GBSA_STEPS = 100
 GBSA_RELAX_FRICTION = 10.0
-GBSA_REPLAY = 25
+GBSA_REPLAY = 10
 # the other integrators on the relaxed water box (PME, kernels 1-3):
 # Verlet at 1 fs, its total energy read every DRIFT_EVERY steps over
 # VERLET_STEPS steps for the NVE drift, gated as tests/test_nve_drift.py
@@ -305,20 +337,20 @@ GBSA_REPLAY = 25
 # hydrogen moves ~0.01 nm a step). Each run then replays
 # INTEGRATOR_REPLAY steps from a snapshot through the eager loop.
 VERLET_DT = 0.001
-VERLET_STEPS = 1200
+VERLET_STEPS = 800
 DRIFT_EVERY = 100
 DRIFT_GATE = 0.2
 ANDERSEN_TEMPERATURE = 300.0
 ANDERSEN_FREQUENCY = 10.0
 ANDERSEN_START = 250.0
-ANDERSEN_STEPS = 500
+ANDERSEN_STEPS = 400
 ANDERSEN_EVERY = 25
 ANDERSEN_T_RANGE = (270.0, 330.0)
 LANGEVIN_STEPS = 200
 BROWNIAN_DT = 0.0005
 BROWNIAN_FRICTION = 100.0
 BROWNIAN_STEPS = 100
-INTEGRATOR_REPLAY = 15
+INTEGRATOR_REPLAY = 10
 # the integrators written as programs or carrying state of their own, on
 # the relaxed water box (PME, kernels 1-3): a CustomIntegrator velocity
 # Verlet at VERLET_DT with a step counter, a kinetic-energy sum in an if
@@ -351,9 +383,9 @@ VARIABLE_ENERGY_BAR = 0.02      # |E1 / E0 - 1| under VariableVerlet
 COMPOUND_STEPS = 100
 COMPOUND_SWITCHES = 3
 MTS_GROUPS = ((0, 1), (1, 2))
-MTS_STEPS = 300
+MTS_STEPS = 150
 AMD_DT = 0.001
-AMD_STEPS = 200
+AMD_STEPS = 120
 AMD_EVERY = 25
 AMD_FRACTION = 0.2
 BILAYER_T_RANGE = (250.0, 360.0)
@@ -364,8 +396,8 @@ BILAYER_T_RANGE = (250.0, 360.0)
 # updateParametersInContext on the relaxed water box; checkpoints
 LJPME_RECIP_GROUP = 5
 LJPME_STEPS = 100
-LJPME_REPLAY = 15
-LJPME_MINIMIZE_ITERATIONS = 5
+LJPME_REPLAY = 10
+LJPME_MINIMIZE_ITERATIONS = 3
 # 0.3 ps after fresh velocities at 303.15 K on a minimized structure: half
 # the kinetic energy flows into the potential first (248.25 K in a chip
 # run of 150 steps), hence a lower bound below BILAYER_T_RANGE's
@@ -400,8 +432,8 @@ ALCHEMICAL_SOLUTE = 64
 # the solvent's hydrogens otherwise), as an alchemical protocol takes them
 ALCHEMICAL_LAMBDAS = ((1.0, 1.0), (0.5, 0.0), (0.2, 0.0))
 ALCHEMICAL_CHUNK = 30           # steps at each lambda
-ALCHEMICAL_REPLAY = 20
-ALCHEMICAL_MINIMIZE_ITERATIONS = 10
+ALCHEMICAL_REPLAY = 10
+ALCHEMICAL_MINIMIZE_ITERATIONS = 5
 ALCHEMICAL_T_RANGE = (200.0, 450.0)
 ALCHEMICAL_H = 1e-4             # the central difference's step in lambda
 ALCHEMICAL_DERIV_BAR = 1e-4     # relative, dE/dlambda against it
@@ -419,7 +451,7 @@ WHILE_DRAW_STEPS = 20
 GB_MODEL = "GBn2"
 GB_STEPS = 100
 GB_REPLAY = 10
-GB_MINIMIZE_ITERATIONS = 10
+GB_MINIMIZE_ITERATIONS = 5
 # the OBC2 recipe against GBSAOBCForce, float64, relative: the recipe's
 # Coulomb constant 138.935485 against the port's 138.9354576 (2.0e-7)
 RECIPE_BAR = 1e-6
@@ -440,7 +472,8 @@ ARGON_ATOMS = 256
 GAYBERNE_ELLIPSOIDS = 128
 MORE_DT = 0.0005
 MORE_STEPS = 200
-ARGON_STEPS = 100               # its 2.76M triples cost 12 ms a step
+ARGON_STEPS = 60                # its 2.76M triples cost 12 ms a step (H100
+                                # 80GB HBM3, 700 W)
 MORE_EVERY = 25
 MORE_REPLAY = 10
 MORE_BAR = 1e-10                # the card's float64 ef against the CPU's
@@ -554,7 +587,7 @@ def water_box(n_waters, sheared=False):
     reduced triclinic one when `sheared`."""
     system, pos = tip3p_water_box(n_waters)
     if sheared:
-        box = np.asarray(system.getDefaultPeriodicBoxVectors())
+        box = np.asarray(in_md(system.getDefaultPeriodicBoxVectors()))
         system.setDefaultPeriodicBoxVectors(
             *(box + box[0, 0] * np.asarray(SHEAR)))
     return system, pos
@@ -573,7 +606,7 @@ def kernel_inputs(device, n_waters, sheared=False, system=None,
     if system is None:
         system, positions = water_box(n_waters, sheared)
     pos = positions
-    box = torch.as_tensor(system.getDefaultPeriodicBoxVectors(),
+    box = torch.as_tensor(in_md(system.getDefaultPeriodicBoxVectors()),
                           dtype=torch.float32, device=device)
     (nb,) = [f for f in system.getForces()
              if isinstance(f, omm.NonbondedForce)]
@@ -866,13 +899,15 @@ def phase_triclinic(device, n_waters=N_WATERS, deadline=None) -> dict:
         states.append(c.getState(getForces=True, getEnergy=True))
     st, ref = states
     del ctx, oracle
-    force_err = _median_relative_error(st.getForces(), ref.getForces())
+    force_err = _median_relative_error(in_md(st.getForces(asNumpy=True)),
+                                       in_md(ref.getForces(asNumpy=True)))
     print("triclinic box %s (capacity scale %.2f): median force error vs "
           "float64 plain path %.3e (bar %.0e); energy %.6f vs %.6f kJ/mol" % (
-              np.array2string(np.asarray(system.getDefaultPeriodicBoxVectors()),
+              np.array2string(np.asarray(in_md(
+                  system.getDefaultPeriodicBoxVectors())),
                               precision=4, separator=",").replace("\n", ""),
-              scale, force_err, FORCE_ERR_BAR, st.getPotentialEnergy(),
-              ref.getPotentialEnergy()))
+              scale, force_err, FORCE_ERR_BAR, in_md(st.getPotentialEnergy()),
+              in_md(ref.getPotentialEnergy())))
     deadline.check("triclinic: float64 oracle")
     if not force_err <= FORCE_ERR_BAR:
         raise RuntimeError("triclinic median force error %.3e above %.0e"
@@ -916,13 +951,14 @@ def phase_main_path(device, n_waters=N_WATERS, relax=RELAX,
     st = ctx.getState(getForces=True, getPositions=True, getEnergy=True)
     oracle = omm.Context(system, omm.LangevinMiddleIntegrator(
         300.0, FRICTION, DT_PS), platform, {"Precision": "double"})
-    oracle.setPositions(st.getPositions())
+    oracle.setPositions(in_md(st.getPositions(asNumpy=True)))
     ref = oracle.getState(getForces=True, getEnergy=True)
-    force_err = _median_relative_error(st.getForces(), ref.getForces())
+    force_err = _median_relative_error(in_md(st.getForces(asNumpy=True)),
+                                       in_md(ref.getForces(asNumpy=True)))
     print("main path: median force error vs float64 plain path %.3e "
           "(bar %.0e); energy %.6f vs %.6f kJ/mol" % (
-              force_err, FORCE_ERR_BAR, st.getPotentialEnergy(),
-              ref.getPotentialEnergy()))
+              force_err, FORCE_ERR_BAR, in_md(st.getPotentialEnergy()),
+              in_md(ref.getPotentialEnergy())))
     del oracle
     deadline.check("main path: float64 oracle")
     if not force_err <= FORCE_ERR_BAR:
@@ -930,7 +966,7 @@ def phase_main_path(device, n_waters=N_WATERS, relax=RELAX,
                            % (force_err, FORCE_ERR_BAR))
 
     start = ctx._snapshot()
-    run = _production(device, ctx, integ.step, st.getPotentialEnergy(),
+    run = _production(device, ctx, integ.step, in_md(st.getPotentialEnergy()),
                       steps, energy_every, deadline)
     temperature = ctx.temperature()
     print("main path: %d atoms, %d relax + %d steps at %.3f ps; energies "
@@ -967,7 +1003,7 @@ def _production(device, ctx, step, energy, steps, energy_every,
     is the simulated time the Context's clock advanced over the wall
     time."""
     energies, rebuilds, r0 = [energy], [], ctx.rebuild_count
-    clock0 = ctx.getTime()
+    clock0 = in_md(ctx.getTime())
     boxes = []
     kernels = MAIN_PATH_KERNELS + DISPERSION_KERNELS
     launches = [k.launches for k in kernels]
@@ -983,9 +1019,10 @@ def _production(device, ctx, step, energy, steps, energy_every,
         wall += time.perf_counter() - t0
         cpu += time.process_time() - c0
         done += n
-        simulated = ctx.getTime() - clock0
+        simulated = in_md(ctx.getTime()) - clock0
         energies.append(read(ctx) if read else
-                        ctx.getState(getEnergy=True).getPotentialEnergy())
+                        in_md(ctx.getState(
+                            getEnergy=True).getPotentialEnergy()))
         rebuilds.append(ctx.rebuild_count - r0)
         boxes.append(tuple(ctx._box.flatten().tolist()))
         deadline.check("main path: production")
@@ -998,7 +1035,7 @@ def _production(device, ctx, step, energy, steps, energy_every,
                          for k, b in zip(kernels, launches)
                          if k in MAIN_PATH_KERNELS or k.launches != b},
             "ns_day": simulated / wall * 86.4,
-            "clock": ctx.getTime(),
+            "clock": in_md(ctx.getTime()),
             "state": [t.clone() for t in ctx._step_tensors()],
             "wall_ms_per_step": wall / steps * 1e3,
             "host_cpu_ms_per_step": cpu / steps * 1e3,
@@ -1124,7 +1161,8 @@ def phase_step_program(device, main, deadline=None,
         ctx64.setVelocitiesToTemperature(300.0, randomSeed=2)
         (integ64.step if path == "graph" else ctx64._step_eager)(
             double_steps)
-        final[path] = ctx64.getState(getPositions=True).getPositions()
+        final[path] = in_md(ctx64.getState(getPositions=True).getPositions(
+            asNumpy=True))
         del ctx64
     double_err = float(np.abs(final["graph"] - final["eager"]).max())
     print("step program: float64 Context, %d atoms, %d steps: graph vs "
@@ -1157,7 +1195,7 @@ class _Iterations(omm.MinimizationReporter):
 
 def _constraint_error(system, positions) -> float:
     """Largest |r - d| / d over the System's constraints."""
-    cons = [system.getConstraintParameters(i)
+    cons = [in_md(system.getConstraintParameters(i))
             for i in range(system.getNumConstraints())]
     p1, p2, d = (np.asarray(c) for c in zip(*cons))
     r = np.linalg.norm(positions[p1] - positions[p2], axis=1)
@@ -1182,7 +1220,7 @@ def phase_minimize(device, n_waters=N_WATERS, calls=MINIMIZE_CALLS,
     ctx = (omm.Context(system, integ) if platform == "CUDA"
            else omm.Context(system, integ, platform))
     ctx.setPositions(positions)
-    before = ctx.getState(getEnergy=True).getPotentialEnergy()
+    before = in_md(ctx.getState(getEnergy=True).getPotentialEnergy())
     reporter = _Iterations()
     for kern in KERNELS:
         kern.launches = 0
@@ -1197,7 +1235,8 @@ def phase_minimize(device, n_waters=N_WATERS, calls=MINIMIZE_CALLS,
     launches = {k.name: k.launches for k in MINIMIZER_KERNELS}
     evaluations = ctx.energy_evaluations
     st = ctx.getState(getEnergy=True, getPositions=True)
-    after, x = st.getPotentialEnergy(), st.getPositions()
+    after, x = in_md(st.getPotentialEnergy()), in_md(st.getPositions(
+        asNumpy=True))
     constraint_err = _constraint_error(system, x)
     tol = integ.getConstraintTolerance()
 
@@ -1210,7 +1249,7 @@ def phase_minimize(device, n_waters=N_WATERS, calls=MINIMIZE_CALLS,
     deadline.check("minimization: float64 objective")
 
     m = ctx._nonbonded
-    box = torch.as_tensor(system.getDefaultPeriodicBoxVectors(),
+    box = torch.as_tensor(in_md(system.getDefaultPeriodicBoxVectors()),
                           dtype=torch.float64, device=device)
     posf = torch.as_tensor(x, dtype=torch.float32, device=device)
     posg = posf.clone().requires_grad_()
@@ -1303,7 +1342,9 @@ def phase_bilayer(device, deadline=None, bilayer=None,
     print("bilayer: %d atoms, box %s nm, PME grid %s; terms %s (NonbondedForce"
           ": exceptions, CMMotionRemover: frequency); constraints %d: "
           "SETTLE %d / SHAKE %d / CCMA %d; capacity scale %.2f at the start"
-          % (n, np.array2string(np.diag(system.getDefaultPeriodicBoxVectors()),
+          % (n,
+             np.array2string(np.diag(in_md(
+                 system.getDefaultPeriodicBoxVectors())),
                                 precision=4, separator=","),
              "x".join(map(str, grid)), json.dumps(counts),
              system.getNumConstraints(), *ctx.constraint_split, scale))
@@ -1317,9 +1358,11 @@ def phase_bilayer(device, deadline=None, bilayer=None,
         c.setPositions(positions)
     st = ctx.getState(getForces=True, getEnergy=True)
     ref = oracle.getState(getForces=True, getEnergy=True)
-    force_err = _median_relative_error(st.getForces(), ref.getForces())
+    force_err = _median_relative_error(in_md(st.getForces(asNumpy=True)),
+                                       in_md(ref.getForces(asNumpy=True)))
     for g in groups:
-        pair = [c.getState(getEnergy=True, groups={g}).getPotentialEnergy()
+        pair = [in_md(c.getState(getEnergy=True,
+                                 groups={g}).getPotentialEnergy())
                 for c in (ctx, oracle)]
         energies[g] = (*pair, abs(pair[0] - pair[1]) / max(abs(pair[1]),
                                                           1e-300))
@@ -1327,8 +1370,8 @@ def phase_bilayer(device, deadline=None, bilayer=None,
     print("bilayer: median force error vs float64 plain path %.3e (bar "
           "%.0e); energy %.6f vs %.6f kJ/mol; by group (float32, float64, "
           "relative error; bar %.0e): %s" % (
-              force_err, FORCE_ERR_BAR, st.getPotentialEnergy(),
-              ref.getPotentialEnergy(), GROUP_ENERGY_BAR,
+              force_err, FORCE_ERR_BAR, in_md(st.getPotentialEnergy()),
+              in_md(ref.getPotentialEnergy()), GROUP_ENERGY_BAR,
               "; ".join("%d: %.4f %.4f %.2e" % (g, *energies[g])
                         for g in groups)))
     if not force_err <= FORCE_ERR_BAR:
@@ -1343,7 +1386,7 @@ def phase_bilayer(device, deadline=None, bilayer=None,
     for kern in KERNELS:
         kern.launches = 0
     ctx.applyConstraints()
-    before = ctx.getState(getEnergy=True).getPotentialEnergy()
+    before = in_md(ctx.getState(getEnergy=True).getPotentialEnergy())
     reporter = _Iterations()
     _sync(device)
     t0 = time.perf_counter()
@@ -1352,8 +1395,8 @@ def phase_bilayer(device, deadline=None, bilayer=None,
     _sync(device)
     minimize_s = time.perf_counter() - t0
     st = ctx.getState(getEnergy=True, getPositions=True)
-    after = st.getPotentialEnergy()
-    minimized = st.getPositions()
+    after = in_md(st.getPotentialEnergy())
+    minimized = in_md(st.getPositions(asNumpy=True))
     minimized_err = _constraint_error(system, minimized)
     tol = integ.getConstraintTolerance()
     print("bilayer: minimize (%d iterations a stage): %d iterations, %d "
@@ -1375,10 +1418,11 @@ def phase_bilayer(device, deadline=None, bilayer=None,
         deadline.check("bilayer: steps")
     start = ctx._snapshot()
     graph = _production(device, ctx, integ.step,
-                        ctx.getState(getEnergy=True).getPotentialEnergy(),
+                        in_md(ctx.getState(
+                            getEnergy=True).getPotentialEnergy()),
                         production, energy_every, deadline)
     temperature = ctx.temperature()
-    x = ctx.getState(getPositions=True).getPositions()
+    x = in_md(ctx.getState(getPositions=True).getPositions(asNumpy=True))
     constraint_err = _constraint_error(system, x)
     rebuilds, escalations = ctx.rebuild_count, ctx.escalation_count
     ctx._restore(start)
@@ -1469,6 +1513,111 @@ def gate_same_system(system, reference) -> list:
             raise RuntimeError("app bilayer: %s differs from the reference's"
                                % key)
     return reordered
+
+
+# the transmembrane helix of phase_modeller_membrane: ACE-(ALA)n-NME as
+# an ideal alpha helix, heavy atoms only, from internal coordinates
+HELIX_ALANINES = 20
+HELIX_PHI, HELIX_PSI, HELIX_OMEGA = -57.0, -47.0, 180.0     # degrees
+# bond lengths (nm) and angles (degrees) of the backbone (Engh and Huber)
+_N_CA, _CA_C, _C_N, _C_O, _CA_CB = 0.1458, 0.1525, 0.1329, 0.1231, 0.1530
+_N_CA_C, _CA_C_N, _C_N_CA, _N_C_O, _N_CA_CB = 111.2, 116.2, 121.7, 122.7, \
+    110.5
+_CHI_CB = -122.6    # dihedral C-N-CA-CB of an L residue
+
+
+def _place(a, b, c, bond, angle, torsion) -> np.ndarray:
+    """The atom d bonded to c at `bond`, with the angle b-c-d `angle` and
+    the dihedral a-b-c-d `torsion` (degrees; the natural extension of the
+    reference frame)."""
+    angle, torsion = math.radians(angle), math.radians(torsion)
+    bc = (c - b) / np.linalg.norm(c - b)
+    n = np.cross(b - a, bc)
+    n /= np.linalg.norm(n)
+    m = np.cross(n, bc)
+    return c + bond * (-math.cos(angle) * bc
+                       + math.sin(angle) * math.cos(torsion) * m
+                       + math.sin(angle) * math.sin(torsion) * n)
+
+
+def dihedral(a, b, c, d) -> float:
+    """The dihedral a-b-c-d in degrees (IUPAC sign)."""
+    b0, b1, b2 = a - b, c - b, d - c
+    b1 = b1 / np.linalg.norm(b1)
+    v = b0 - np.dot(b0, b1) * b1
+    w = b2 - np.dot(b2, b1) * b1
+    return math.degrees(math.atan2(np.dot(np.cross(b1, v), w),
+                                   np.dot(v, w)))
+
+
+def helix_residues(n_ala=HELIX_ALANINES) -> list:
+    """[(residue name, [(atom name, element, xyz nm)])] of ACE-(ALA)n-NME
+    as an ideal alpha helix (phi HELIX_PHI, psi HELIX_PSI, omega
+    HELIX_OMEGA), heavy atoms only, its axis along z through the origin."""
+    # the backbone trace: ACE's CH3 and C, then N, CA, C of each alanine,
+    # then NME's N and CH3
+    ch3 = np.zeros(3)
+    c0 = np.array([_CA_C, 0.0, 0.0])
+    n1 = c0 + _C_N * np.array([-math.cos(math.radians(_CA_C_N)),
+                               math.sin(math.radians(_CA_C_N)), 0.0])
+    trace = [ch3, c0, n1]
+    # each next atom: (bond, angle at its neighbour, dihedral)
+    for _ in range(n_ala):
+        trace.append(_place(trace[-3], trace[-2], trace[-1], _N_CA, _C_N_CA,
+                            HELIX_OMEGA))
+        trace.append(_place(trace[-3], trace[-2], trace[-1], _CA_C,
+                            _N_CA_C, HELIX_PHI))
+        trace.append(_place(trace[-3], trace[-2], trace[-1], _C_N, _CA_C_N,
+                            HELIX_PSI))
+    trace.append(_place(trace[-3], trace[-2], trace[-1], _N_CA, _C_N_CA,
+                        HELIX_OMEGA))
+    # O of each carbonyl cis to the next residue's CA (a trans peptide)
+    carbonyl = [(3 * k + 1, 3 * k + 2, 3 * k + 3) for k in range(n_ala + 1)]
+    oxygens = [_place(trace[ca_next], trace[n_next], trace[c], _C_O,
+                      _N_C_O, 0.0) for c, n_next, ca_next in carbonyl]
+    residues = [("ACE", [("CH3", "C", trace[0]), ("C", "C", trace[1]),
+                         ("O", "O", oxygens[0])])]
+    for k in range(n_ala):
+        n, ca, c = trace[3 * k + 2], trace[3 * k + 3], trace[3 * k + 4]
+        cb = _place(c, n, ca, _CA_CB, _N_CA_CB, _CHI_CB)
+        residues.append(("ALA", [("N", "N", n), ("CA", "C", ca),
+                                 ("C", "C", c), ("O", "O", oxygens[k + 1]),
+                                 ("CB", "C", cb)]))
+    residues.append(("NME", [("N", "N", trace[-2]),
+                             ("CH3", "C", trace[-1])]))
+    # the axis: the CA trace's principal direction, turned onto z
+    cas = np.asarray([atoms[1][2] for name, atoms in residues[1:-1]])
+    centre = cas.mean(axis=0)
+    _, _, vt = np.linalg.svd(cas - centre)
+    axis = vt[0] if vt[0][2] >= 0 else -vt[0]
+    x = np.cross(axis, [0.0, 0.0, 1.0])
+    if np.linalg.norm(x) < 1e-12:
+        rot = np.eye(3)
+    else:
+        x /= np.linalg.norm(x)
+        y = np.cross(axis, x)
+        rot = np.stack([x, y, axis])    # rows: the new x, y, z
+    return [(name, [(a, el, rot @ (xyz - centre)) for a, el, xyz in atoms])
+            for name, atoms in residues]
+
+
+def helix_pdb_text(n_ala=HELIX_ALANINES) -> str:
+    """The helix of helix_residues as PDB text, written by the port's
+    PDBFile (bonds from the standard residue table)."""
+    from openmm_tpu_torch.app import Element, PDBFile, Topology
+    top = Topology()
+    chain = top.addChain("A")
+    positions = []
+    for name, atoms in helix_residues(n_ala):
+        res = top.addResidue(name, chain)
+        for atom, symbol, xyz in atoms:
+            top.addAtom(atom, Element.getBySymbol(symbol), res)
+            positions.append(omm.Vec3(*xyz))
+    top.createStandardBonds()
+    text = io.StringIO()
+    PDBFile.writeFile(top, omm.unit.Quantity(positions, omm.unit.nanometer),
+                      text)
+    return text.getvalue()
 
 
 def read_dcd(path, n_atoms) -> np.ndarray:
@@ -1570,13 +1719,16 @@ def phase_app_bilayer(device, deadline=None, patch=None, reference=None,
             ctx.setPositions(pdb_pos)
         got, want = (c.getState(getEnergy=True, getForces=True)
                      for c in (sim.context, plain))
-        e_rel = abs(got.getPotentialEnergy() - want.getPotentialEnergy()) \
-            / abs(want.getPotentialEnergy())
-        f_err = _median_relative_error(got.getForces(), want.getForces())
+        e_rel = abs(in_md(got.getPotentialEnergy()) - in_md(
+            want.getPotentialEnergy())) \
+            / abs(in_md(want.getPotentialEnergy()))
+        f_err = _median_relative_error(in_md(got.getForces(asNumpy=True)),
+                                       in_md(want.getForces(asNumpy=True)))
         print("app bilayer: at the PDB's positions energy %.6f vs %.6f "
               "kJ/mol (relative %.3e, bar %.0e), median relative force "
               "difference %.3e (bar %.0e)" % (
-                  got.getPotentialEnergy(), want.getPotentialEnergy(),
+                  in_md(got.getPotentialEnergy()), in_md(
+                      want.getPotentialEnergy()),
                   e_rel, APP_ENERGY_BAR, f_err, APP_FORCE_BAR))
         if not (e_rel <= APP_ENERGY_BAR and f_err <= APP_FORCE_BAR):
             raise RuntimeError("app bilayer: the ForceField System's energy "
@@ -1608,8 +1760,9 @@ def phase_app_bilayer(device, deadline=None, patch=None, reference=None,
         _sync(device)
         steps_s = time.perf_counter() - t0
         step_launches = {k.name: k.launches for k in KERNELS}
-        final = sim.context.getState(getPositions=True,
-                                     enforcePeriodicBox=True).getPositions()
+        final = in_md(sim.context.getState(getPositions=True,
+                                     enforcePeriodicBox=True).getPositions(
+                                         asNumpy=True))
         frames = read_dcd(dcd_path, n)
         deadline.check("app bilayer: steps")
     lines = log.getvalue().splitlines()
@@ -1671,6 +1824,595 @@ def phase_app_bilayer(device, deadline=None, patch=None, reference=None,
             "step_launches": step_launches, "ms": ms}
 
 
+def _centroid_z(positions, atoms) -> float:
+    return float(np.mean(positions[np.asarray(atoms), 2]))
+
+
+def _bias_by_numpy(deposits, width, lo, hi, grid_width) -> np.ndarray:
+    """The sum of the deposited Gaussians, height h at CV value x each,
+    on the grid of grid_width points over [lo, hi]."""
+    grid = np.linspace(lo, hi, grid_width)
+    out = np.zeros(grid_width)
+    for x, h in deposits:
+        out += h * np.exp(-0.5 * ((x - grid) / width) ** 2)
+    return out
+
+
+def phase_modeller_membrane(device, deadline=None, n_ala=HELIX_ALANINES,
+                            relax=MEMBRANE_RELAX, patch=None,
+                            padding=MEMBRANE_PADDING, ionic=MEMBRANE_IONIC,
+                            minimize_iterations=MEMBRANE_MINIMIZE_ITERATIONS,
+                            steps=MEMBRANE_STEPS,
+                            plain_steps=MEMBRANE_PLAIN_STEPS,
+                            report_every=MEMBRANE_REPORT_EVERY,
+                            frequency=META_FREQUENCY,
+                            t_band=APP_T_BAND) -> dict:
+    """A transmembrane helix built as users build it: ACE-(ALA)n-NME
+    (helix_pdb_text, heavy atoms) read with PDBFile, Modeller.addHydrogens
+    (ForceField(*MEMBRANE_FORCEFIELD); the new hydrogens relaxed with the
+    heavy atoms massless, gated not to move), addMembrane(lipidType="POPC"
+    (or `patch`, an object with topology and positions), minimumPadding,
+    ionicStrength, _relax_iterations=`relax`: kernel 1's RF mode; one
+    capture for all the rounds and a candidate rebuild after each round's
+    setPositions, gated), createSystem(PME 0.9 nm, HBonds), and a
+    Simulation under LangevinMiddle (300 K, 1/ps, 2 fs) on the default
+    platform: minimizeEnergy (kernels 1, 4, 5), `plain_steps` timed steps
+    with a StateDataReporter and a PDBxReporter, then Metadynamics on the
+    z distance between the helix's centroid and that of the lipids'
+    phosphorus atoms (a CustomCentroidBondForce), a deposition every
+    `frequency` steps over `steps` steps. Gates: finite reported
+    energies, the last report's temperature within `t_band` K of
+    APP_TEMPERATURE, the constraints within CONSTRAINT_ERR_BAR, the PDBx's
+    last model read back with PDBxFile within PDBX_BAR of the positions,
+    the CV within META_CV_BAR of numpy's centroids, the bias grid within
+    META_GRID_BAR of numpy's sum of the deposited Gaussians, the bias
+    energy (force group 31) within META_ENERGY_BAR of the table's natural
+    spline (scipy) at the CV, and on a card every kernel launched. Raises
+    on a miss."""
+    import os
+    import tempfile
+
+    from scipy.interpolate import CubicSpline
+
+    from openmm_tpu_torch import app
+    from openmm_tpu_torch import unit as u
+
+    deadline = deadline or Deadline(math.inf)
+    platform = (None if device.type == "cuda"
+                else omm.Platform.getPlatformByName("CPU"))
+    forcefield = app.ForceField(*MEMBRANE_FORCEFIELD)
+    pdb = app.PDBFile(io.StringIO(helix_pdb_text(n_ala)))
+    modeller = app.Modeller(pdb.topology, pdb.positions)
+    heavy_before = in_md(modeller.getPositions())
+    t0 = time.perf_counter()
+    variants = modeller.addHydrogens(forcefield, platform=platform)
+    hydrogens_s = time.perf_counter() - t0
+    after = in_md(modeller.getPositions())
+    heavy = [a.index for a in modeller.topology.atoms()
+             if a.element.symbol != "H"]
+    moved = float(np.abs(after[heavy] - heavy_before).max())
+    n_helix = modeller.topology.getNumAtoms()
+    if moved != 0.0 or any(v is not None for v in variants):
+        raise RuntimeError("modeller membrane: addHydrogens moved a heavy "
+                           "atom by %.3e nm or changed a variant %s"
+                           % (moved, variants))
+    deadline.check("modeller membrane: addHydrogens")
+
+    made = []
+    init = omm.Context.__init__
+
+    def recording_init(ctx, *args, **kwargs):
+        init(ctx, *args, **kwargs)
+        made.append(ctx)
+
+    for kern in KERNELS:
+        kern.launches = 0
+    omm.Context.__init__ = recording_init
+    t0 = time.perf_counter()
+    try:
+        modeller.addMembrane(forcefield, lipidType=patch or "POPC",
+                             minimumPadding=padding * u.nanometer,
+                             ionicStrength=ionic * u.molar,
+                             _relax_iterations=relax, platform=platform)
+        _sync(device)
+    finally:
+        omm.Context.__init__ = init
+    membrane_s = time.perf_counter() - t0
+    membrane_launches = {k.name: k.launches for k in KERNELS}
+    (relax_ctx,) = made
+    captures, rebuilds = _captures(relax_ctx), relax_ctx.rebuild_count
+    escalations = relax_ctx.escalation_count
+    del made, relax_ctx
+    top = modeller.topology
+    names = [r.name for r in top.residues()]
+    n = top.getNumAtoms()
+    print("modeller membrane: ACE-(ALA)%d-NME, %d atoms with hydrogens "
+          "(addHydrogens %.2f s, heavy atoms moved %.1e nm); addMembrane("
+          "POPC, %.1f nm padding, %.2f M, %d relaxation rounds) %.2f s: %d "
+          "atoms, %d lipids, %d waters, %d Na+, %d Cl-; relaxation captures "
+          "%d (capacity escalations %d), candidate rebuilds %d, launches "
+          "%s" % (
+              n_ala, n_helix, hydrogens_s, moved, padding, ionic, relax,
+              membrane_s, n, names.count("POP"), names.count("HOH"),
+              names.count("NA"), names.count("CL"), captures, escalations,
+              rebuilds, json.dumps(membrane_launches)))
+    # one program a capacity: a round's setPositions drops the candidate
+    # state (a rebuild) and replays the program it has
+    if device.type == "cuda" and relax and not \
+            1 <= captures <= 1 + escalations:
+        raise RuntimeError("modeller membrane: the relaxation captured %d "
+                           "graphs in %d rounds with %d escalations"
+                           % (captures, relax, escalations))
+    if relax and rebuilds < relax:
+        raise RuntimeError("modeller membrane: %d candidate rebuilds in %d "
+                           "rounds after setPositions" % (rebuilds, relax))
+    deadline.check("modeller membrane: addMembrane")
+
+    t0 = time.perf_counter()
+    system = forcefield.createSystem(
+        top, nonbondedMethod=app.PME, nonbondedCutoff=APP_CUTOFF * u.nanometer,
+        constraints=app.HBonds)
+    create_s = time.perf_counter() - t0
+    helix_atoms = list(range(n_helix))
+    phosphorus = [a.index for a in top.atoms()
+                  if a.residue.name == "POP" and a.element.symbol == "P"]
+    cv = omm.CustomCentroidBondForce(2, "z1-z2")
+    cv.addGroup(helix_atoms, [1.0] * len(helix_atoms))
+    cv.addGroup(phosphorus, [1.0] * len(phosphorus))
+    cv.addBond([0, 1])
+    lo, hi = META_RANGE
+    variable = app.BiasVariable(cv, lo * u.nanometer, hi * u.nanometer,
+                                META_WIDTH * u.nanometer)
+    meta = app.Metadynamics(system, [variable], APP_TEMPERATURE * u.kelvin,
+                            META_BIAS_FACTOR,
+                            META_HEIGHT * u.kilojoules_per_mole, frequency)
+    deposits = []
+    add_gaussian = meta._addGaussian
+
+    def recording_gaussian(position, height, context):
+        t0 = time.perf_counter()
+        deposits.append((float(position[0]),
+                         float(u.strip(height, u.kilojoule_per_mole))))
+        add_gaussian(position, height, context)
+        _sync(device)
+        deposit_s.append(time.perf_counter() - t0)
+
+    meta._addGaussian = recording_gaussian
+    # a deposition's host work: the CV's value, the bias energy (group
+    # 31) and the Gaussian with the table's update in the Context
+    deposit_s = []
+    read_cv = meta._force.getCollectiveVariableValues
+
+    def timed_cv(context):
+        t0 = time.perf_counter()
+        out = read_cv(context)
+        deposit_s.append(time.perf_counter() - t0)
+        return out
+
+    meta._force.getCollectiveVariableValues = timed_cv
+    integ = omm.LangevinMiddleIntegrator(
+        APP_TEMPERATURE * u.kelvin, MEMBRANE_FRICTION / u.picosecond,
+        DT_PS * u.picoseconds)
+    integ.setRandomNumberSeed(13)
+    sim = app.Simulation(top, system, integ, platform)
+    sim.context.setPositions(modeller.positions)
+    get_state = sim.context.getState
+
+    def timed_state(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = get_state(*args, **kwargs)
+        if kwargs.get("groups") == {31}:
+            deposit_s.append(time.perf_counter() - t0)
+        return out
+
+    sim.context.getState = timed_state
+    for kern in KERNELS:
+        kern.launches = 0
+    t0 = time.perf_counter()
+    sim.minimizeEnergy(MINIMIZE_TOLERANCE, minimize_iterations)
+    _sync(device)
+    minimize_s = time.perf_counter() - t0
+    minimize_launches = {k.name: k.launches for k in KERNELS}
+    sim.context.setVelocitiesToTemperature(APP_TEMPERATURE * u.kelvin,
+                                           VELOCITY_SEED)
+    deadline.check("modeller membrane: minimize")
+    with tempfile.TemporaryDirectory() as tmp:
+        log = io.StringIO()
+        cif = os.path.join(tmp, "membrane.cif")
+        sim.reporters.append(app.StateDataReporter(
+            log, report_every, step=True, potentialEnergy=True,
+            kineticEnergy=True, temperature=True))
+        sim.reporters.append(app.PDBxReporter(cif, plain_steps + steps))
+        for kern in KERNELS:
+            kern.launches = 0
+        sim.step(1)                      # the capture, untimed
+        _sync(device)
+        t0 = time.perf_counter()
+        sim.step(plain_steps - 1)
+        _sync(device)
+        plain_s = time.perf_counter() - t0
+        deadline.check("modeller membrane: steps")
+        t0 = time.perf_counter()
+        meta.step(sim, steps)
+        _sync(device)
+        meta_s = time.perf_counter() - t0
+        sim.context.getState = get_state
+        step_launches = {k.name: k.launches for k in KERNELS}
+        state = sim.context.getState(getPositions=True, getEnergy=True,
+                                     groups={31})
+        wrapped = in_md(sim.context.getState(
+            getPositions=True, enforcePeriodicBox=True).getPositions(
+                asNumpy=True))
+        del sim.reporters[:]
+        frames = app.PDBxFile(cif)
+        cif_pos = in_md(frames.getPositions(
+            asNumpy=True, frame=frames.getNumFrames() - 1))
+    deadline.check("modeller membrane: metadynamics")
+    positions = in_md(state.getPositions(asNumpy=True))
+    lines = log.getvalue().splitlines()
+    header = [h.strip('"') for h in lines[0][2:].split('","')]
+    rows = [dict(zip(header, line.split(","))) for line in lines[1:]]
+    energies = [float(r["Potential Energy (kJ/mole)"]) for r in rows]
+    temperature = float(rows[-1]["Temperature (K)"])
+    constraint_err = _constraint_error(system, positions)
+    pdbx_err = float(np.abs(cif_pos - wrapped).max())
+    cv_value = meta.getCollectiveVariables(sim)[0]
+    cv_numpy = _centroid_z(positions, helix_atoms) - _centroid_z(
+        positions, phosphorus)
+    grid = _bias_by_numpy(deposits, META_WIDTH, lo, hi, variable.gridWidth)
+    grid_err = float(np.abs(grid - meta._totalBias).max())
+    e31 = in_md(state.getPotentialEnergy())
+    table = float(CubicSpline(np.linspace(lo, hi, variable.gridWidth),
+                              meta._totalBias, bc_type="natural")(cv_value))
+    e31_rel = abs(e31 - table) / max(abs(table), 1e-30)
+    ms_plain = plain_s / (plain_steps - 1) * 1e3
+    per_deposit_ms = sum(deposit_s) / max(len(deposits), 1) * 1e3
+    print("modeller membrane: createSystem(PME %.1f nm, HBonds) %.2f s on "
+          "the host; minimizeEnergy(maxIterations=%d) %.2f s, launches %s; "
+          "%.4f ms a step with a StateDataReporter and a PDBxReporter; "
+          "Metadynamics (CV z(helix) - z(%d P), %d depositions) %.2f s for "
+          "%d steps, %.2f ms a deposition (the CV, the bias energy, the "
+          "Gaussian and the table's update); launches in "
+          "the steps %s" % (
+              APP_CUTOFF, create_s, minimize_iterations, minimize_s,
+              json.dumps(minimize_launches), ms_plain, len(phosphorus),
+              len(deposits), meta_s, steps, per_deposit_ms,
+              json.dumps(step_launches)))
+    print("modeller membrane: reported energies %s kJ/mol, temperature "
+          "%.2f K at step %s; constraint error %.3e (bar %.0e); PDBx last "
+          "model %.3e nm from the positions (bar %.1e); CV %.9f nm vs numpy "
+          "%.9f (bar %.0e); bias grid %.3e from numpy's Gaussians (bar "
+          "%.0e), max %.4f kJ/mol; group 31 energy %.9f vs the table's "
+          "spline %.9f (relative %.3e, bar %.0e); deposits %s" % (
+              " ".join("%.1f" % e for e in energies), temperature,
+              rows[-1]["Step"], constraint_err, CONSTRAINT_ERR_BAR,
+              pdbx_err, PDBX_BAR, cv_value, cv_numpy, META_CV_BAR, grid_err,
+              META_GRID_BAR, float(meta._totalBias.max()), e31, table,
+              e31_rel, META_ENERGY_BAR,
+              " ".join("(%.4f, %.4f)" % d for d in deposits)))
+    if not all(math.isfinite(e) for e in energies) or \
+            len(energies) != (plain_steps + steps) // report_every:
+        raise RuntimeError("modeller membrane: reported energies %s"
+                           % energies)
+    if not abs(temperature - APP_TEMPERATURE) <= t_band:
+        raise RuntimeError("modeller membrane: temperature %.2f K outside "
+                           "%.0f +- %.0f K" % (temperature, APP_TEMPERATURE,
+                                               t_band))
+    if not constraint_err <= CONSTRAINT_ERR_BAR:
+        raise RuntimeError("modeller membrane: constraint error %.3e"
+                           % constraint_err)
+    if not pdbx_err <= PDBX_BAR * (1 + 1e-6):
+        raise RuntimeError("modeller membrane: the PDBx model is %.3e nm "
+                           "off" % pdbx_err)
+    if not abs(cv_value - cv_numpy) <= META_CV_BAR:
+        raise RuntimeError("modeller membrane: CV %.9f vs numpy %.9f"
+                           % (cv_value, cv_numpy))
+    if len(deposits) != steps // frequency or not grid_err <= META_GRID_BAR:
+        raise RuntimeError("modeller membrane: %d deposits, the bias grid "
+                           "%.3e off" % (len(deposits), grid_err))
+    if not e31_rel <= META_ENERGY_BAR:
+        raise RuntimeError("modeller membrane: bias energy %.9f vs the "
+                           "table's %.9f" % (e31, table))
+    if device.type == "cuda":
+        missing = [k.name for k in (tile_pairs.TILES,)
+                   if membrane_launches[k.name] <= 0]
+        missing += [k.name for k in MINIMIZER_KERNELS
+                    if minimize_launches[k.name] <= 0]
+        missing += [name for name in MAIN_PATH_NAMES
+                    if step_launches[name] <= 0]
+        if missing:
+            raise RuntimeError("modeller membrane: kernels %s of its path "
+                               "never launched" % missing)
+    return {"atoms": n, "lipids": names.count("POP"),
+            "ions": (names.count("NA"), names.count("CL")),
+            "hydrogens_s": hydrogens_s, "membrane_s": membrane_s,
+            "create_s": create_s, "captures": captures,
+            "escalations": escalations, "rebuilds": rebuilds,
+            "membrane_launches": membrane_launches,
+            "minimize_launches": minimize_launches,
+            "step_launches": step_launches, "ms_per_step": ms_plain,
+            "meta_s": meta_s, "per_deposit_ms": per_deposit_ms,
+            "deposits": len(deposits), "temperature": temperature,
+            "constraint_err": constraint_err, "pdbx_err": pdbx_err,
+            "cv_err": abs(cv_value - cv_numpy), "grid_err": grid_err,
+            "e31_rel": e31_rel}
+
+
+SPCE_TOP = """[ defaults ]
+1 2 yes 0.5 0.8333
+
+[ atomtypes ]
+OW  15.9994 -0.8476 A 0.316557 0.650194
+HW  1.008    0.4238 A 0.0      0.0
+
+[ moleculetype ]
+SOL 2
+
+[ atoms ]
+1 OW 1 SOL OW 1 -0.8476 15.9994
+2 HW 1 SOL HW1 1 0.4238 1.008
+3 HW 1 SOL HW2 1 0.4238 1.008
+
+[ settles ]
+1 1 0.1 0.16330
+
+[ exclusions ]
+1 2 3
+2 1 3
+3 1 2
+
+[ system ]
+SPC/E water
+
+[ molecules ]
+SOL %d
+"""
+
+
+def water_gro_text(positions, box) -> str:
+    """A water box (positions (3n, 3) nm in O, H, H order, cubic box
+    width) as .gro text (GROMACS fixed columns, 0.001 nm)."""
+    lines = ["SPC/E water", "%5d" % len(positions)]
+    for k, p in enumerate(positions):
+        lines.append("%5d%-5s%5s%5d%8.3f%8.3f%8.3f" % (
+            (k // 3 + 1) % 100000, "SOL", ("OW", "HW1", "HW2")[k % 3],
+            (k + 1) % 100000, p[0], p[1], p[2]))
+    lines.append("%10.5f%10.5f%10.5f" % (box, box, box))
+    return "\n".join(lines) + "\n"
+
+
+def phase_gromacs_water(device, main, deadline=None, steps=GROMACS_STEPS,
+                        t_range=GROMACS_T_RANGE) -> dict:
+    """The main path's water box as a GROMACS user brings it: .gro text of
+    its positions and a .top that defines SPC/E inline (a moleculetype SOL
+    with settles, `n` molecules), read with GromacsGroFile and
+    GromacsTopFile, createSystem(PME, 0.9 nm), a Simulation under
+    LangevinMiddle (300 K, 1/ps, 2 fs): applyConstraints, velocities at
+    300 K, `steps` steps (kernels 1-3). Gates: finite energies, the
+    temperature within `t_range`, the forces against the float64 path
+    (median relative error FORCE_ERR_BAR). Returns the Simulation for
+    phase_tempering."""
+    import os
+    import tempfile
+
+    from openmm_tpu_torch import app
+    from openmm_tpu_torch import unit as u
+
+    deadline = deadline or Deadline(math.inf)
+    platform = (None if device.type == "cuda"
+                else omm.Platform.getPlatformByName("CPU"))
+    state = main["context"].getState(getPositions=True,
+                                     enforcePeriodicBox=True)
+    positions = in_md(state.getPositions(asNumpy=True))
+    box = float(in_md(state.getPeriodicBoxVectors(asNumpy=True))[0][0])
+    n = len(positions) // 3
+    with tempfile.TemporaryDirectory() as tmp:
+        gro_path = os.path.join(tmp, "water.gro")
+        top_path = os.path.join(tmp, "water.top")
+        with open(gro_path, "w") as f:
+            f.write(water_gro_text(positions, box))
+        with open(top_path, "w") as f:
+            f.write(SPCE_TOP % n)
+        t0 = time.perf_counter()
+        gro = app.GromacsGroFile(gro_path)
+        top = app.GromacsTopFile(
+            top_path, periodicBoxVectors=gro.getPeriodicBoxVectors())
+        system = top.createSystem(nonbondedMethod=app.PME,
+                                  nonbondedCutoff=0.9 * u.nanometer)
+        create_s = time.perf_counter() - t0
+    integ = omm.LangevinMiddleIntegrator(300.0 * u.kelvin, 1 / u.picosecond,
+                                         DT_PS * u.picoseconds)
+    integ.setRandomNumberSeed(17)
+    sim = app.Simulation(top.topology, system, integ, platform)
+    sim.context.setPositions(gro.getPositions())
+    sim.context.applyConstraints()
+    sim.context.setVelocitiesToTemperature(300.0 * u.kelvin, VELOCITY_SEED)
+    for kern in KERNELS:
+        kern.launches = 0
+    _sync(device)
+    t0 = time.perf_counter()
+    sim.step(steps)
+    _sync(device)
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    launches = {k.name: k.launches for k in MAIN_PATH_KERNELS}
+    st = sim.context.getState(getEnergy=True, getForces=True,
+                              getPositions=True)
+    pos = in_md(st.getPositions(asNumpy=True))
+    oracle = omm.Context(system, omm.VerletIntegrator(0.001),
+                         omm.Platform.getPlatformByName(
+                             "CUDA" if device.type == "cuda" else "CPU"),
+                         {"Precision": "double"})
+    oracle.setPositions(pos)
+    ref = oracle.getState(getForces=True, getEnergy=True)
+    force_err = _median_relative_error(in_md(st.getForces(asNumpy=True)),
+                                       in_md(ref.getForces(asNumpy=True)))
+    del oracle
+    energy = in_md(st.getPotentialEnergy())
+    temperature = sim.context.temperature()
+    print("gromacs water: %d SPC/E waters from .gro and .top text, "
+          "GromacsTopFile.createSystem(PME 0.9 nm) %.2f s on the host, %d "
+          "constraints; %d steps %.4f ms a step, launches %s; energy %.3f "
+          "kJ/mol, temperature %.2f K; median force error vs the float64 "
+          "path %.3e (bar %.0e)" % (
+              n, create_s, system.getNumConstraints(), steps, ms,
+              json.dumps(launches), energy, temperature, force_err,
+              FORCE_ERR_BAR))
+    if not math.isfinite(energy) or not t_range[0] <= temperature \
+            <= t_range[1]:
+        raise RuntimeError("gromacs water: energy %.3f, temperature %.2f K"
+                           % (energy, temperature))
+    if not force_err <= FORCE_ERR_BAR:
+        raise RuntimeError("gromacs water: force error %.3e" % force_err)
+    if device.type == "cuda" and min(launches.values()) <= 0:
+        raise RuntimeError("gromacs water: a kernel never launched: %s"
+                           % launches)
+    deadline.check("gromacs water")
+    return {"simulation": sim, "create_s": create_s, "ms_per_step": ms,
+            "force_err": force_err, "temperature": temperature,
+            "launches": launches}
+
+
+def phase_tempering(device, gromacs, deadline=None,
+                    rungs=TEMPERING_RUNGS, interval=TEMPERING_INTERVAL,
+                    steps=TEMPERING_STEPS) -> dict:
+    """SimulatedTempering on the relaxed GROMACS water box: `rungs` (min K,
+    max K, count) geometric, weights balancing the rungs at the box's
+    energy before each interval, a temperature change attempted every
+    `interval` steps over `steps` steps. Gates: after every attempt the
+    integrator's temperature is the current rung, and the steps that
+    follow run at it (the step's device parameters hold it); no capture
+    beyond the Simulation's first. Raises on a miss."""
+    from openmm_tpu_torch import app
+
+    deadline = deadline or Deadline(math.inf)
+    sim = gromacs["simulation"]
+    ctx, integ = sim.context, sim.integrator
+    captures0 = _captures(ctx)
+    t_lo, t_hi, count = rungs
+    ladder = [t_lo * math.exp(k * math.log(t_hi / t_lo) / (count - 1))
+              for k in range(count)]
+
+    def balanced():
+        """Weights that make every rung equally likely at the box's energy
+        now: 24,000 atoms' energy otherwise keeps the walk at the coldest
+        rung for thousands of attempts (the adaptive weights move by 1 a
+        visit), so each attempt weighs the energy's change over its
+        interval."""
+        energy = in_md(ctx.getState(getEnergy=True).getPotentialEnergy())
+        return [energy / (omm.BOLTZ * t) for t in ladder]
+
+    # attempts at the ends of this phase's intervals
+    sim.step(-sim.currentStep % interval)
+    np.random.seed(5)
+    tempering = app.SimulatedTempering(
+        sim, numTemperatures=count, minTemperature=t_lo,
+        maxTemperature=t_hi, tempChangeInterval=interval,
+        weights=balanced())
+    visited, misses = [], []
+    t0 = time.perf_counter()
+    for _ in range(steps // interval):
+        before = tempering.currentTemperature
+        tempering._weights = balanced()
+        tempering.step(interval)
+        # the chunk just run read its temperature from the step's device
+        # parameters: the rung current before this attempt
+        used = float(ctx._deps.params[2])
+        now = in_md(integ.getTemperature())
+        visited.append(tempering.currentTemperature)
+        if abs(used - ladder[before]) > 1e-9 or \
+                abs(now - ladder[tempering.currentTemperature]) > 1e-9:
+            misses.append((before, used, tempering.currentTemperature, now))
+        deadline.check("tempering")
+    _sync(device)
+    seconds = time.perf_counter() - t0
+    captures = _captures(ctx) - captures0
+    print("tempering: SimulatedTempering over %s K on the %d-atom GROMACS "
+          "water box, an attempt every %d steps, %d steps in %.2f s; rungs "
+          "visited %s; weights %s; new captures %d" % (
+              " ".join("%.2f" % t for t in ladder), ctx._n, interval, steps,
+              seconds, visited, " ".join("%.3f" % w
+                                         for w in tempering.weights),
+              captures))
+    if misses:
+        raise RuntimeError("tempering: the temperature did not follow the "
+                           "rungs: %s" % misses)
+    if device.type == "cuda" and captures != 0:
+        raise RuntimeError("tempering: %d new captures" % captures)
+    return {"visited": visited, "captures": captures, "seconds": seconds}
+
+
+EXAMPLES = ("HelloArgon.py", "HelloWaterBox.py")
+
+
+def start_examples(examples=EXAMPLES) -> tuple:
+    """(start time, {name: process}) of examples/HelloArgon.py and
+    HelloWaterBox.py with openmm_tpu replaced by openmm_tpu_torch, each in
+    its own process on the default platform (the card), all at once, once
+    the kernels are built (their library is loaded, not built again)."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = {}
+    t0 = time.perf_counter()
+    for name in examples:
+        with open(os.path.join(root, "examples", name)) as f:
+            text = f.read().replace("openmm_tpu", "openmm_tpu_torch")
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-c", text], cwd=root, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+    return t0, procs
+
+
+def phase_examples(device, deadline=None, started=None) -> dict:
+    """Waits for the examples' processes (start_examples, started here
+    unless `started`). Gates: exit 0, the frames' and energies' numbers
+    finite, on the card. Raises on a miss."""
+    import re
+
+    deadline = deadline or Deadline(math.inf)
+    t0, procs = started or start_examples()
+    out = {}
+    try:
+        for name, proc in procs.items():
+            stdout, stderr = proc.communicate(
+                timeout=max(deadline.remaining(), 1.0))
+            out[name] = (proc.returncode, stdout, stderr)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    seconds = time.perf_counter() - t0
+    summary = {}
+    for name, (code, stdout, stderr) in out.items():
+        coords = [float(v) for line in stdout.splitlines()
+                  if line.startswith(("ATOM", "HETATM"))
+                  for v in (line[30:38], line[38:46], line[46:54])]
+        energies = [float(v) for v in re.findall(r"E_total=\s*(\S+)",
+                                                 stderr)]
+        frames = stdout.count("ENDMDL")
+        platform = re.findall(r"Using platform (\S+)", stderr)
+        summary[name] = (code, frames, energies, platform)
+        ok = code == 0 and frames > 0 and coords and all(
+            math.isfinite(v) for v in coords + energies)
+        if not ok:
+            raise RuntimeError("examples: %s exited %s with %d frames; "
+                               "stderr %s" % (name, code, frames,
+                                              stderr[-2000:]))
+    print("examples (openmm_tpu -> openmm_tpu_torch, each in its own "
+          "process, %.2f s together): %s" % (seconds, "; ".join(
+              "%s exit %d, platform %s, %d frames%s" % (
+                  name, code, ",".join(plat), frames,
+                  (", E_total %s kJ/mol" % " ".join(
+                      "%.3f" % e for e in (energies[0], energies[-1])))
+                  if energies else "")
+              for name, (code, frames, energies, plat) in summary.items())))
+    if device.type == "cuda" and any(plat != ["CUDA"] for _, _, _, plat
+                                     in summary.values()):
+        raise RuntimeError("examples: not on the card: %s" % summary)
+    return {"seconds": seconds, "summary": summary}
+
+
 def _same_npt(what, graph, eager) -> None:
     """The box and the barostats' statistics of two runs, bit for bit."""
     if graph["boxes"] != eager["boxes"]:
@@ -1713,10 +2455,10 @@ def phase_npt(device, label, system, positions, barostat, temperature,
         ctx.setVelocitiesToTemperature(temperature, randomSeed=seed)
     else:
         ctx.setVelocities(velocities)
-    box0 = ctx.getState().getPeriodicBoxVectors()
+    box0 = in_md(ctx.getState().getPeriodicBoxVectors(asNumpy=True))
     for kern in KERNELS:
         kern.launches = 0
-    energy = ctx.getState(getEnergy=True).getPotentialEnergy()
+    energy = in_md(ctx.getState(getEnergy=True).getPotentialEnergy())
     lead = _production(device, ctx, integ.step, energy, steps - replay,
                        every, deadline) if steps > replay else None
     start = ctx._snapshot()
@@ -1726,7 +2468,8 @@ def phase_npt(device, label, system, positions, barostat, temperature,
     launches = {k.name: k.launches for k in MAIN_PATH_KERNELS}
     rebuilds, escalations = ctx.rebuild_count, ctx.escalation_count
     st = ctx.getState(getPositions=True, getForces=True)
-    x, box = st.getPositions(), st.getPeriodicBoxVectors()
+    x, box = in_md(st.getPositions(asNumpy=True)), in_md(
+        st.getPeriodicBoxVectors(asNumpy=True))
     temperature_end = ctx.temperature()
     constraint_err = _constraint_error(system, x)
     ctx._restore(start)
@@ -1746,7 +2489,8 @@ def phase_npt(device, label, system, positions, barostat, temperature,
     oracle.setPeriodicBoxVectors(*box)
     oracle.setPositions(x)
     force_err = _median_relative_error(
-        st.getForces(), oracle.getState(getForces=True).getForces())
+        in_md(st.getForces(asNumpy=True)), in_md(oracle.getState(
+            getForces=True).getForces(asNumpy=True)))
     del oracle
     boxes = [tuple(np.asarray(box0).flatten())] + (
         lead["boxes"] if lead else []) + graph["boxes"]
@@ -1890,7 +2634,7 @@ def phase_npt_water(device, main, deadline=None, steps=NPT_WATER_STEPS,
     each axis, 300 K, every axis, `aniso_frequency`) for `aniso_steps`
     steps, each on a fresh copy of the system."""
     st = main["context"].getState(getPositions=True, getVelocities=True)
-    n_waters = st.getPositions().shape[0] // 3
+    n_waters = in_md(st.getPositions(asNumpy=True)).shape[0] // 3
     runs = []
     for label, barostat, n, m in (
             ("npt water", omm.MonteCarloBarostat(NPT_PRESSURE, 300.0,
@@ -1899,9 +2643,11 @@ def phase_npt_water(device, main, deadline=None, steps=NPT_WATER_STEPS,
                 (NPT_PRESSURE,) * 3, 300.0, True, True, True,
                 aniso_frequency), aniso_steps, aniso_steps)):
         system, _ = tip3p_water_box(n_waters)
-        runs.append(phase_npt(device, label, system, st.getPositions(),
+        runs.append(phase_npt(device, label, system,
+                              in_md(st.getPositions(asNumpy=True)),
                               barostat, 300.0, n, m, (200.0, 450.0),
-                              deadline, velocities=st.getVelocities()))
+                              deadline, velocities=in_md(st.getVelocities(
+                                  asNumpy=True))))
     return tuple(runs)
 
 
@@ -1987,10 +2733,12 @@ def phase_method(device, label, system, positions, temperature, steps,
         c.setPositions(positions)
     st = ctx.getState(getForces=True, getEnergy=True)
     ref = oracle.getState(getForces=True, getEnergy=True)
-    force_err = _median_relative_error(st.getForces(), ref.getForces())
+    force_err = _median_relative_error(in_md(st.getForces(asNumpy=True)),
+                                       in_md(ref.getForces(asNumpy=True)))
     energies = {}
     for g in groups or ():
-        pair = [c.getState(getEnergy=True, groups={g}).getPotentialEnergy()
+        pair = [in_md(c.getState(getEnergy=True,
+                                 groups={g}).getPotentialEnergy())
                 for c in (ctx, oracle)]
         energies[g] = (*pair, abs(pair[0] - pair[1]) / max(abs(pair[1]),
                                                           1e-300))
@@ -1999,8 +2747,8 @@ def phase_method(device, label, system, positions, temperature, steps,
           "%.0e); energy %.6f vs %.6f kJ/mol%s" % (
               label, n, "kernel 1 on the candidate state" if out["tiled"]
               else "every pair (no candidate state)", force_err,
-              FORCE_ERR_BAR, st.getPotentialEnergy(),
-              ref.getPotentialEnergy(),
+              FORCE_ERR_BAR, in_md(st.getPotentialEnergy()),
+              in_md(ref.getPotentialEnergy()),
               "; by group (float32, float64, relative error; bar %.0e): %s"
               % (GROUP_ENERGY_BAR, "; ".join(
                   "%d: %.4f %.4f %.2e" % (g, *energies[g])
@@ -2018,13 +2766,13 @@ def phase_method(device, label, system, positions, temperature, steps,
         for kern in _build.KERNELS:
             kern.launches = 0
         ctx.applyConstraints()
-        before = ctx.getState(getEnergy=True).getPotentialEnergy()
+        before = in_md(ctx.getState(getEnergy=True).getPotentialEnergy())
         reporter = _Iterations()
         t0 = time.perf_counter()
         omm.LocalEnergyMinimizer.minimize(ctx, MINIMIZE_TOLERANCE,
                                           minimize_iterations, reporter)
         _sync(device)
-        after = ctx.getState(getEnergy=True).getPotentialEnergy()
+        after = in_md(ctx.getState(getEnergy=True).getPotentialEnergy())
         out["minimize"] = {
             "iterations": reporter.count, "energies": (before, after),
             "seconds": time.perf_counter() - t0,
@@ -2056,7 +2804,7 @@ def phase_method(device, label, system, positions, temperature, steps,
     integ.setFriction(friction)
     for kern in _build.KERNELS:
         kern.launches = 0
-    energy = ctx.getState(getEnergy=True).getPotentialEnergy()
+    energy = in_md(ctx.getState(getEnergy=True).getPotentialEnergy())
     lead = _production(device, ctx, integ.step, energy, steps - replay,
                        energy_every, deadline) if steps > replay else None
     start = ctx._snapshot()
@@ -2069,7 +2817,7 @@ def phase_method(device, label, system, positions, temperature, steps,
     temperature_end = ctx.temperature()
     if check is not None:
         out["check"] = check(ctx)
-    x = ctx.getState(getPositions=True).getPositions()
+    x = in_md(ctx.getState(getPositions=True).getPositions(asNumpy=True))
     constraint_err = _constraint_error(system, x)
     ctx._restore(start)
     eager = _production(device, ctx, ctx._step_eager, graph["energies"][0],
@@ -2130,11 +2878,12 @@ def phase_rf_water(device, main, deadline=None, steps=RF_STEPS,
     300 K (phase_method)."""
     st = main["context"].getState(getPositions=True, getVelocities=True)
     system, _ = tip3p_water_box(
-        st.getPositions().shape[0] // 3,
+        in_md(st.getPositions(asNumpy=True)).shape[0] // 3,
         nonbonded_method=omm.NonbondedForce.CutoffPeriodic, cutoff=RF_CUTOFF)
-    return phase_method(device, "rf water", system, st.getPositions(), 300.0,
+    return phase_method(device, "rf water", system,
+                        in_md(st.getPositions(asNumpy=True)), 300.0,
                         steps, replay, (200.0, 450.0), deadline,
-                        velocities=st.getVelocities(),
+                        velocities=in_md(st.getVelocities(asNumpy=True)),
                         record="nonbonded_tiles_rf")
 
 
@@ -2165,12 +2914,13 @@ def phase_nonperiodic(device, main, deadline=None, radius=DROPLET_RADIUS,
     and at CutoffNonPeriodic DROPLET_CUTOFF nm, 300 K, at 0.5 fs steps
     (an unrelaxed surface): phase_method for each."""
     st = main["context"].getState(getPositions=True)
-    box = main["context"].getSystem().getDefaultPeriodicBoxVectors()
+    box = in_md(main["context"].getSystem().getDefaultPeriodicBoxVectors())
     runs = []
     for label, method in (("nocutoff droplet", omm.NonbondedForce.NoCutoff),
                           ("cutoffnonperiodic droplet",
                            omm.NonbondedForce.CutoffNonPeriodic)):
-        system, pos = water_droplet(st.getPositions(), box, radius, method,
+        system, pos = water_droplet(in_md(st.getPositions(asNumpy=True)), box,
+                                    radius, method,
                                     DROPLET_CUTOFF)
         runs.append(phase_method(device, label, system, pos, 300.0, steps,
                                  replay, (100.0, 600.0), deadline,
@@ -2226,11 +2976,13 @@ def phase_gbsa(device, deadline=None, lipids=19, steps=GBSA_STEPS,
         c.setPositions(positions)
     st = ctx.getState(getForces=True, getEnergy=True)
     ref = oracle.getState(getForces=True, getEnergy=True)
-    force_err = _median_relative_error(st.getForces(), ref.getForces())
+    force_err = _median_relative_error(in_md(st.getForces(asNumpy=True)),
+                                       in_md(ref.getForces(asNumpy=True)))
     energies = {}
     for g in sorted(set(GBSA_GROUPS.values()) - {GBSA_GROUPS[
             "CMMotionRemover"]}):
-        pair = [c.getState(getEnergy=True, groups={g}).getPotentialEnergy()
+        pair = [in_md(c.getState(getEnergy=True,
+                                 groups={g}).getPotentialEnergy())
                 for c in (ctx, oracle)]
         energies[g] = (*pair, abs(pair[0] - pair[1]) / max(abs(pair[1]),
                                                           1e-300))
@@ -2242,8 +2994,8 @@ def phase_gbsa(device, deadline=None, lipids=19, steps=GBSA_STEPS,
           "float64, relative error; bar %.0e): %s" % (
               n, lipids, builders.OBC_CUTOFF,
               system.getNumConstraints(), *ctx.constraint_split[1:],
-              force_err, FORCE_ERR_BAR, st.getPotentialEnergy(),
-              ref.getPotentialEnergy(), GROUP_ENERGY_BAR,
+              force_err, FORCE_ERR_BAR, in_md(st.getPotentialEnergy()),
+              in_md(ref.getPotentialEnergy()), GROUP_ENERGY_BAR,
               "; ".join("%d: %.4f %.4f %.2e" % (g, *energies[g])
                         for g in sorted(energies))))
     if not force_err <= FORCE_ERR_BAR:
@@ -2265,7 +3017,7 @@ def phase_gbsa(device, deadline=None, lipids=19, steps=GBSA_STEPS,
         deadline.check("gbsa: sweeps")
 
     ctx.applyConstraints()
-    before = ctx.getState(getEnergy=True).getPotentialEnergy()
+    before = in_md(ctx.getState(getEnergy=True).getPotentialEnergy())
     reporter = _Iterations()
     _sync(device)
     t0 = time.perf_counter()
@@ -2273,7 +3025,7 @@ def phase_gbsa(device, deadline=None, lipids=19, steps=GBSA_STEPS,
                                       minimize_iterations, reporter)
     _sync(device)
     minimize_s = time.perf_counter() - t0
-    after = ctx.getState(getEnergy=True).getPotentialEnergy()
+    after = in_md(ctx.getState(getEnergy=True).getPotentialEnergy())
     print("gbsa: minimize (%d iterations a stage): %d iterations, %d "
           "evaluations in %.2f s; energy %.3f -> %.3f kJ/mol" % (
               minimize_iterations, reporter.count, ctx.energy_evaluations,
@@ -2290,11 +3042,13 @@ def phase_gbsa(device, deadline=None, lipids=19, steps=GBSA_STEPS,
     integ.setFriction(FRICTION)
     start = ctx._snapshot()
     graph = _production(device, ctx, integ.step,
-                        ctx.getState(getEnergy=True).getPotentialEnergy(),
+                        in_md(ctx.getState(
+                            getEnergy=True).getPotentialEnergy()),
                         replay, energy_every, deadline)
     temperature = ctx.temperature()
     constraint_err = _constraint_error(
-        system, ctx.getState(getPositions=True).getPositions())
+        system, in_md(ctx.getState(getPositions=True).getPositions(
+            asNumpy=True)))
     ctx._restore(start)
     eager = _production(device, ctx, ctx._step_eager, graph["energies"][0],
                         replay, energy_every, deadline)
@@ -2332,7 +3086,7 @@ def phase_gbsa(device, deadline=None, lipids=19, steps=GBSA_STEPS,
 
 def _total_energy(ctx) -> float:
     st = ctx.getState(getEnergy=True)
-    return st.getPotentialEnergy() + st.getKineticEnergy()
+    return in_md(st.getPotentialEnergy()) + in_md(st.getKineticEnergy())
 
 
 def _integrator_run(device, label, system, integ, state, steps, every,
@@ -2354,9 +3108,9 @@ def _integrator_run(device, label, system, integ, state, steps, every,
     platform = "CUDA" if device.type == "cuda" else "CPU"
     ctx = (omm.Context(system, integ) if platform == "CUDA"
            else omm.Context(system, integ, platform))
-    ctx.setPositions(state.getPositions())
+    ctx.setPositions(in_md(state.getPositions(asNumpy=True)))
     if temperature is None:
-        ctx.setVelocities(state.getVelocities())
+        ctx.setVelocities(in_md(state.getVelocities(asNumpy=True)))
     else:
         ctx.setVelocitiesToTemperature(temperature, randomSeed=VELOCITY_SEED)
     first = before(ctx) if before else None
@@ -2369,7 +3123,8 @@ def _integrator_run(device, label, system, integ, state, steps, every,
     escalations = ctx.escalation_count - e0
     last = after(ctx) if after else None
     constraint_err = _constraint_error(
-        system, ctx.getState(getPositions=True).getPositions())
+        system, in_md(ctx.getState(getPositions=True).getPositions(
+            asNumpy=True)))
     start = ctx._snapshot()
     graph = _production(device, ctx, integ.step, 0.0, replay, replay,
                         deadline)
@@ -2425,7 +3180,7 @@ def phase_integrators(device, main, deadline=None,
     constraint error). Raises on a miss."""
     deadline = deadline or Deadline(math.inf)
     state = main["context"].getState(getPositions=True, getVelocities=True)
-    n_waters = state.getPositions().shape[0] // 3
+    n_waters = in_md(state.getPositions(asNumpy=True)).shape[0] // 3
 
     def box(thermostat=False):
         system, _ = tip3p_water_box(n_waters)
@@ -2494,8 +3249,8 @@ def phase_integrators(device, main, deadline=None,
     langevin = _integrator_run(
         device, "langevin", box(), omm.LangevinIntegrator(
             300.0, FRICTION, DT_PS), state, langevin_steps,
-        ENERGY_EVERY, lambda c: c.getState(
-            getEnergy=True).getPotentialEnergy(), deadline, replay)
+        ENERGY_EVERY, lambda c: in_md(c.getState(
+            getEnergy=True).getPotentialEnergy()), deadline, replay)
     t_langevin = langevin["context"].temperature()
     print("langevin: leapfrog Langevin (300 K, %.1f/ps, %.3f ps), %d "
           "steps: energies %s kJ/mol; T %.2f K; %.2f ns/day; launches %s; "
@@ -2513,8 +3268,8 @@ def phase_integrators(device, main, deadline=None,
     brownian = _integrator_run(
         device, "brownian", box(), omm.BrownianIntegrator(
             300.0, BROWNIAN_FRICTION, BROWNIAN_DT), state, brownian_steps,
-        brownian_steps // 2, lambda c: c.getState(
-            getEnergy=True).getPotentialEnergy(), deadline, replay)
+        brownian_steps // 2, lambda c: in_md(c.getState(
+            getEnergy=True).getPotentialEnergy()), deadline, replay)
     print("brownian: 300 K, %.0f/ps, %.4f ps, %d steps: energies %s "
           "kJ/mol; largest relative constraint error %.3e (bar %.0e); %.2f "
           "ns/day; launches %s; the eager loop's bits" % (
@@ -2538,7 +3293,8 @@ def _drift(readings, every, dt, dof, temperature=300.0) -> float:
 def _water_state(main):
     """(the relaxed water box's System, its final State, dof)."""
     state = main["context"].getState(getPositions=True, getVelocities=True)
-    system, _ = tip3p_water_box(state.getPositions().shape[0] // 3)
+    n_atoms = in_md(state.getPositions(asNumpy=True)).shape[0]
+    system, _ = tip3p_water_box(n_atoms // 3)
     return system, state, 3 * system.getNumParticles() \
         - system.getNumConstraints()
 
@@ -2599,11 +3355,13 @@ def _nh_conserved(ctx, integ, dt) -> float:
     shifted by half a step, 0.5 sum m (v + dt f / 2m)^2, as Verlet
     reports it."""
     st = ctx.getState(getEnergy=True, getForces=True)
-    forces = torch.as_tensor(st.getForces(), device=ctx._masses.device)
+    forces = torch.as_tensor(in_md(st.getForces(asNumpy=True)),
+                             device=ctx._masses.device)
     v = ctx._state["velocities"] + (0.5 * dt) * forces \
         * ctx._inv_masses[:, None]
     kinetic = float(0.5 * torch.sum(ctx._masses[:, None] * v * v))
-    return st.getPotentialEnergy() + kinetic + integ.computeHeatBathEnergy()
+    return in_md(
+        st.getPotentialEnergy()) + kinetic + integ.computeHeatBathEnergy()
 
 
 def phase_nose_hoover(device, main, deadline=None, steps=NH_STEPS,
@@ -2643,7 +3401,7 @@ def phase_nose_hoover(device, main, deadline=None, steps=NH_STEPS,
     nve = omm.VerletIntegrator(VERLET_DT)
     ctx = (omm.Context(system, nve) if device.type == "cuda"
            else omm.Context(system, nve, "CPU"))
-    ctx.setPositions(state.getPositions())
+    ctx.setPositions(in_md(state.getPositions(asNumpy=True)))
     ctx.setVelocitiesToTemperature(NH_START, randomSeed=VELOCITY_SEED)
     verlet = [_total_energy(ctx)]
     for _ in range(len(readings) - 1):
@@ -2710,9 +3468,9 @@ def phase_variable(device, main, deadline=None, steps=VARIABLE_STEPS,
                 VARIABLE_TOLERANCE))):
         r = _integrator_run(
             device, label, system, integ, state, steps, 1,
-            lambda c: c.getIntegrator().getStepSize(), deadline, replay,
+            lambda c: in_md(c.getIntegrator().getStepSize()), deadline, replay,
             before=_total_energy, after=lambda c: (
-                c.getTime(), c.temperature(), _total_energy(c)))
+                in_md(c.getTime()), c.temperature(), _total_energy(c)))
         dts = r["readings"][1:]
         clock, temperature, energy = r["after"]
         total = 0.0
@@ -2725,13 +3483,14 @@ def phase_variable(device, main, deadline=None, steps=VARIABLE_STEPS,
               "(%.3f %%); %.2f ns/day, %.4f ms a step, eager %.4f ms; "
               "launches %s; the eager loop's bits, step size and clock" % (
                   label, steps, VARIABLE_TOLERANCE, float(np.mean(dts)),
-                  min(dts), max(dts), integ.getMaximumStepSize(), clock,
+                  min(dts), max(dts), in_md(integ.getMaximumStepSize()), clock,
                   total, temperature, r["before"], energy, 100.0 * change,
                   r["ns_day"], r["ms_per_step"], r["eager_ms_per_step"],
                   json.dumps(r["launches"])))
-        if not all(0.0 < dt <= integ.getMaximumStepSize() for dt in dts):
+        if not all(0.0 < dt <= in_md(
+            integ.getMaximumStepSize()) for dt in dts):
             raise RuntimeError("%s: a step size outside (0, %.1f]: %s" % (
-                label, integ.getMaximumStepSize(), dts))
+                label, in_md(integ.getMaximumStepSize()), dts))
         if clock != total:
             raise RuntimeError("%s: the clock reads %r, the step sizes sum "
                                "to %r" % (label, clock, total))
@@ -2770,8 +3529,8 @@ def phase_compound(device, main, deadline=None, steps=COMPOUND_STEPS,
     integ.setRandomNumberSeed(13)
     ctx = (omm.Context(system, integ) if device.type == "cuda"
            else omm.Context(system, integ, "CPU"))
-    ctx.setPositions(state.getPositions())
-    ctx.setVelocities(state.getVelocities())
+    ctx.setPositions(in_md(state.getPositions(asNumpy=True)))
+    ctx.setVelocities(in_md(state.getVelocities(asNumpy=True)))
     for kern in KERNELS:
         kern.launches = 0
     want, wall, captures, energies = 0.0, {0: 0.0, 1: 0.0}, [], []
@@ -2783,13 +3542,14 @@ def phase_compound(device, main, deadline=None, steps=COMPOUND_STEPS,
         energies += run["energies"][1:]
         wall[member] += run["wall_ms_per_step"] * steps
         for _ in range(steps):
-            want = want + integ.getStepSize()
+            want = want + in_md(integ.getStepSize())
         captures.append(_captures(ctx))
     launches = {k.name: k.launches for k in MAIN_PATH_KERNELS}
-    clock = ctx.getTime()
+    clock = in_md(ctx.getTime())
     temperature = ctx.temperature()
     constraint_err = _constraint_error(
-        system, ctx.getState(getPositions=True).getPositions())
+        system, in_md(ctx.getState(getPositions=True).getPositions(
+            asNumpy=True)))
     start = ctx._snapshot()
     runs = {}
     for path in ("graph", "eager"):
@@ -2909,21 +3669,22 @@ def phase_amd_bilayer(device, bilayer, deadline=None, steps=AMD_STEPS,
     g = BILAYER_GROUPS["PeriodicTorsionForce"]
     ctx0 = bilayer["context"]
     state = ctx0.getState(getPositions=True, getVelocities=True)
-    v0 = ctx0.getState(getEnergy=True, groups={g}).getPotentialEnergy()
+    v0 = in_md(ctx0.getState(getEnergy=True, groups={g}).getPotentialEnergy())
     threshold = v0 + fraction * abs(v0)
     alpha = fraction * abs(v0)
     integ = omm.AMDForceGroupIntegrator(AMD_DT, g, alpha, threshold)
 
     def after(ctx):
-        total = ctx.getState(getEnergy=True).getPotentialEnergy()
-        group = ctx.getState(getEnergy=True, groups={g}).getPotentialEnergy()
+        total = in_md(ctx.getState(getEnergy=True).getPotentialEnergy())
+        group = in_md(ctx.getState(getEnergy=True,
+                                   groups={g}).getPotentialEnergy())
         return {"total": total, "group": group,
-                "effective": integ.getEffectiveEnergy(total, group),
+                "effective": in_md(integ.getEffectiveEnergy(total, group)),
                 "temperature": ctx.temperature()}
 
     r = _integrator_run(device, "amd bilayer", system, integ, state, steps,
-                        every, lambda c: c.getState(
-                            getEnergy=True, groups={g}).getPotentialEnergy(),
+                        every, lambda c: in_md(c.getState(
+                            getEnergy=True, groups={g}).getPotentialEnergy()),
                         deadline, replay, after=after)
     got = r["after"]
     print("amd bilayer: AMDForceGroupIntegrator(%.3f ps, group %d, alpha "
@@ -3030,7 +3791,8 @@ def phase_ljpme_bilayer(device, bilayer, deadline=None, steps=LJPME_STEPS,
 def _site_error(ctx) -> float:
     """Largest distance (nm) of a TIP4P-Ew M site from the weighted
     average of its water's O, H1 and H2."""
-    w = ctx.getState(getPositions=True).getPositions().reshape(-1, 4, 3)
+    w = in_md(ctx.getState(getPositions=True).getPositions(
+        asNumpy=True)).reshape(-1, 4, 3)
     m = np.einsum("k,wkd->wd", builders.TIP4PEW_M_WEIGHTS, w[:, :3])
     return float(np.linalg.norm(w[:, 3] - m, axis=1).max())
 
@@ -3130,7 +3892,7 @@ def _without_dispersion_correction(ctx, energy) -> float:
     at its box: under offsets the correction takes the parameters at the
     global parameters' defaults (as OpenMM and the JAX package take it),
     a Context with the parameters built in takes them as they are."""
-    box = ctx.getState().getPeriodicBoxVectors()
+    box = in_md(ctx.getState().getPeriodicBoxVectors(asNumpy=True))
     return energy - float(ctx._nonbonded.disp_coeff) / float(
         np.linalg.det(np.asarray(box)))
 
@@ -3140,7 +3902,7 @@ def _decouple(nb, atoms):
     particle offset of the global parameter "lambda" (default 1)."""
     nb.addGlobalParameter("lambda", 1.0)
     for i in atoms:
-        q, sigma, eps = nb.getParticleParameters(i)
+        q, sigma, eps = in_md(nb.getParticleParameters(i))
         nb.setParticleParameters(i, 0.0, sigma, 0.0)
         nb.addParticleParameterOffset("lambda", i, q, 0.0, eps)
 
@@ -3164,7 +3926,7 @@ def phase_offsets(device, main, deadline=None, waters=OFFSET_WATERS,
     deadline = deadline or Deadline(math.inf)
     platform = "CUDA" if device.type == "cuda" else "CPU"
     st = main["context"].getState(getPositions=True, getVelocities=True)
-    n_waters = st.getPositions().shape[0] // 3
+    n_waters = in_md(st.getPositions(asNumpy=True)).shape[0] // 3
     system, _ = tip3p_water_box(n_waters)
     (nb,) = system.getForces()
     _decouple(nb, range(3 * waters))
@@ -3174,8 +3936,8 @@ def phase_offsets(device, main, deadline=None, waters=OFFSET_WATERS,
     integ.setRandomNumberSeed(29)
     ctx = (omm.Context(system, integ) if platform == "CUDA"
            else omm.Context(system, integ, platform))
-    ctx.setPositions(st.getPositions())
-    ctx.setVelocities(st.getVelocities())
+    ctx.setPositions(in_md(st.getPositions(asNumpy=True)))
+    ctx.setVelocities(in_md(st.getVelocities(asNumpy=True)))
     oracle = omm.Context(system, omm.LangevinMiddleIntegrator(
         300.0, FRICTION, DT_PS), platform, {"Precision": "double"})
     launches = dict.fromkeys(MAIN_PATH_NAMES, 0)
@@ -3188,13 +3950,13 @@ def phase_offsets(device, main, deadline=None, waters=OFFSET_WATERS,
         for kern in MAIN_PATH_KERNELS:
             launches[kern.name] += kern.launches
         captures.append(_captures(ctx))
-        pos = ctx.getState(getPositions=True).getPositions()
-        e32 = ctx.getState(getEnergy=True).getPotentialEnergy()
+        pos = in_md(ctx.getState(getPositions=True).getPositions(asNumpy=True))
+        e32 = in_md(ctx.getState(getEnergy=True).getPotentialEnergy())
         oracle.setPositions(pos)
         oracle.setParameter("lambda", lam)
-        e64 = oracle.getState(getEnergy=True).getPotentialEnergy()
+        e64 = in_md(oracle.getState(getEnergy=True).getPotentialEnergy())
         for i in range(3 * waters):
-            q, sigma, eps = nb_built.getParticleParameters(i)
+            q, sigma, eps = in_md(nb_built.getParticleParameters(i))
             _, _, q1, _, e1 = nb.getParticleParameterOffset(i)
             nb_built.setParticleParameters(i, lam * q1, sigma, lam * e1)
         twin = (omm.Context(built, omm.LangevinMiddleIntegrator(
@@ -3203,13 +3965,13 @@ def phase_offsets(device, main, deadline=None, waters=OFFSET_WATERS,
                 300.0, FRICTION, DT_PS), platform))
         twin.setPositions(pos)
         e_built = _without_dispersion_correction(
-            twin, twin.getState(getEnergy=True).getPotentialEnergy())
+            twin, in_md(twin.getState(getEnergy=True).getPotentialEnergy()))
         del twin
         rows.append((lam, e32, e64, _without_dispersion_correction(ctx, e32),
                      e_built))
         deadline.check("offsets: lambda %.2f" % lam)
     for i in range(3 * waters, 6 * waters):
-        q, sigma, eps = nb.getParticleParameters(i)
+        q, sigma, eps = in_md(nb.getParticleParameters(i))
         nb.setParticleParameters(i, 0.5 * q, sigma, eps)
     nb.updateParametersInContext(ctx)
     start = ctx._snapshot()
@@ -3222,14 +3984,15 @@ def phase_offsets(device, main, deadline=None, waters=OFFSET_WATERS,
     _same_bits("offsets", (graph["positions"], graph["velocities"]),
                (eager["positions"], eager["velocities"]))
     _same_state("offsets", graph, eager)
-    e_now = ctx.getState(getEnergy=True).getPotentialEnergy()
+    e_now = in_md(ctx.getState(getEnergy=True).getPotentialEnergy())
     fresh = (omm.Context(system, omm.LangevinMiddleIntegrator(
         300.0, FRICTION, DT_PS)) if platform == "CUDA"
         else omm.Context(system, omm.LangevinMiddleIntegrator(
             300.0, FRICTION, DT_PS), platform))
-    fresh.setPositions(ctx.getState(getPositions=True).getPositions())
+    fresh.setPositions(in_md(ctx.getState(getPositions=True).getPositions(
+        asNumpy=True)))
     fresh.setParameter("lambda", lambdas[-1])
-    e_fresh = fresh.getState(getEnergy=True).getPotentialEnergy()
+    e_fresh = in_md(fresh.getState(getEnergy=True).getPotentialEnergy())
     del fresh, oracle
     print("offsets: %d waters decoupled by lambda; %s; programs captured "
           "after each chunk %s, after updateParametersInContext on %d "
@@ -3287,8 +4050,9 @@ def phase_checkpoint(device, offsets, deadline=None,
     def bits(c):
         st = c.getState(getPositions=True, getVelocities=True,
                         getParameters=True)
-        return {"positions": st.getPositions(),
-                "velocities": st.getVelocities(), "time": c.getTime(),
+        return {"positions": in_md(st.getPositions(asNumpy=True)),
+                "velocities": in_md(st.getVelocities(
+                    asNumpy=True)), "time": in_md(c.getTime()),
                 "step": c.getStepCount(), "parameters": st.getParameters(),
                 "shared": [t.cpu().clone() for t in c._step_tensors()]}
 
@@ -3342,7 +4106,8 @@ def phase_checkpoint(device, offsets, deadline=None,
 
 # -- the custom forces ----------------------------------------------------
 def _group_energies(ctx, groups) -> dict:
-    return {g: ctx.getState(getEnergy=True, groups={g}).getPotentialEnergy()
+    return {g: in_md(ctx.getState(getEnergy=True,
+                                  groups={g}).getPotentialEnergy())
             for g in groups}
 
 
@@ -3358,8 +4123,8 @@ def _central_difference(ctx, name, value, group, h=ALCHEMICAL_H) -> float:
     e = []
     for x in (value + h, value - h):
         ctx.setParameter(name, x)
-        e.append(ctx.getState(getEnergy=True,
-                              groups={group}).getPotentialEnergy())
+        e.append(in_md(ctx.getState(getEnergy=True,
+                              groups={group}).getPotentialEnergy()))
     ctx.setParameter(name, value)
     return (e[0] - e[1]) / (2.0 * h)
 
@@ -3456,7 +4221,7 @@ def phase_alchemical(device, main, deadline=None, solute=ALCHEMICAL_SOLUTE,
     deadline = deadline or Deadline(math.inf)
     cuda = device.type == "cuda"
     st = main["context"].getState(getPositions=True, getVelocities=True)
-    n_waters = st.getPositions().shape[0] // 3
+    n_waters = in_md(st.getPositions(asNumpy=True)).shape[0] // 3
     system, _ = alchemical_water_box(n_waters, solute)
     groups = sorted(ALCHEMICAL_GROUPS.values())
     soft = system.getForces()[1]
@@ -3464,16 +4229,16 @@ def phase_alchemical(device, main, deadline=None, solute=ALCHEMICAL_SOLUTE,
     integ.setRandomNumberSeed(31)
     ctx = (omm.Context(system, integ) if cuda
            else omm.Context(system, integ, "CPU"))
-    ctx.setPositions(st.getPositions())
-    ctx.setVelocities(st.getVelocities())
+    ctx.setPositions(in_md(st.getPositions(asNumpy=True)))
+    ctx.setVelocities(in_md(st.getVelocities(asNumpy=True)))
     oracle = omm.Context(system, omm.VerletIntegrator(0.001),
                          "CUDA" if cuda else "CPU", {"Precision": "double"})
-    before = ctx.getState(getEnergy=True).getPotentialEnergy()
+    before = in_md(ctx.getState(getEnergy=True).getPotentialEnergy())
     for kern in KERNELS:
         kern.launches = 0
     omm.LocalEnergyMinimizer.minimize(ctx, MINIMIZE_TOLERANCE, iterations)
     minimizer = {k.name: k.launches for k in MINIMIZER_KERNELS}
-    after = ctx.getState(getEnergy=True).getPotentialEnergy()
+    after = in_md(ctx.getState(getEnergy=True).getPotentialEnergy())
     deadline.check("alchemical: minimize")
     rows, captures, ms, read_ms = [], [], [], []
     launches = dict.fromkeys(MAIN_PATH_NAMES, 0)
@@ -3492,7 +4257,7 @@ def phase_alchemical(device, main, deadline=None, solute=ALCHEMICAL_SOLUTE,
         for kern in MAIN_PATH_KERNELS:
             launches[kern.name] += kern.launches
         captures.append(_captures(ctx))
-        pos = ctx.getState(getPositions=True).getPositions()
+        pos = in_md(ctx.getState(getPositions=True).getPositions(asNumpy=True))
         oracle.setPositions(pos)
         oracle.setParameter("lambda_sterics", lam)
         oracle.setParameter("lambda_electrostatics", lam_elec)
@@ -3522,7 +4287,7 @@ def phase_alchemical(device, main, deadline=None, solute=ALCHEMICAL_SOLUTE,
         deadline.check("alchemical: lambda %.2f" % lam)
     for i in range(soft.getNumParticles()):
         if i < 3 * solute:
-            sigma, eps = soft.getParticleParameters(i)
+            sigma, eps = in_md(soft.getParticleParameters(i))
             soft.setParticleParameters(i, [sigma, 0.9 * eps])
     record = _deriv_record(device, ctx, "lambda_electrostatics",
                            deriv_launches)
@@ -3530,7 +4295,7 @@ def phase_alchemical(device, main, deadline=None, solute=ALCHEMICAL_SOLUTE,
     soft.updateParametersInContext(oracle)
     integ.step(chunk)
     after_update = _captures(ctx)
-    pos = ctx.getState(getPositions=True).getPositions()
+    pos = in_md(ctx.getState(getPositions=True).getPositions(asNumpy=True))
     oracle.setPositions(pos)
     update = (_group_energies(ctx, groups), _group_energies(oracle, groups))
     times = _custom_times(device, ctx)
@@ -3545,7 +4310,8 @@ def phase_alchemical(device, main, deadline=None, solute=ALCHEMICAL_SOLUTE,
     _same_state("alchemical", graph, eager)
     temperature = ctx.temperature()
     constraint_err = _constraint_error(
-        system, ctx.getState(getPositions=True).getPositions())
+        system, in_md(ctx.getState(getPositions=True).getPositions(
+            asNumpy=True)))
     escalations = ctx.escalation_count - escalations
     del oracle
     print("alchemical: %d atoms, %d solute waters (soft-core over %d x %d "
@@ -3695,7 +4461,8 @@ def _twin_reading(device, forces, positions, box) -> dict:
     for force in forces:
         g = force.getForceGroup()
         st = ctx.getState(getEnergy=True, getForces=True, groups={g})
-        out[g] = (st.getPotentialEnergy(), st.getForces())
+        out[g] = (in_md(st.getPotentialEnergy()),
+                  in_md(st.getForces(asNumpy=True)))
     return out
 
 
@@ -3724,7 +4491,8 @@ def phase_custom_bilayer(device, bilayer, deadline=None, steps=TWIN_STEPS,
     state = bilayer["context"].getState(getPositions=True,
                                         getVelocities=True)
     twin, pairs = custom_twins(system)
-    pos, box = state.getPositions(), state.getPeriodicBoxVectors()
+    pos, box = in_md(state.getPositions(asNumpy=True)), in_md(
+        state.getPeriodicBoxVectors(asNumpy=True))
     standard = [pairs[k][0] for k in ("CustomBondForce", "CustomAngleForce",
                                       "CustomTorsionForce")]
     groups = {f: f.getForceGroup() for f in standard}
@@ -3907,7 +4675,8 @@ def phase_customgb(device, deadline=None, lipids=19, model=GB_MODEL,
                               "double")
         c.setPositions(positions)
         st = c.getState(getEnergy=True, getForces=True, groups={1})
-        readings.append((st.getPotentialEnergy(), st.getForces()))
+        readings.append((in_md(st.getPotentialEnergy()),
+                         in_md(st.getForces(asNumpy=True))))
         del c
     (e_obc, f_obc), (e_rec, f_rec) = readings
     recipe_err = (abs(e_rec - e_obc) / abs(e_obc),
@@ -3926,12 +4695,12 @@ def phase_customgb(device, deadline=None, lipids=19, model=GB_MODEL,
     for c in (ctx, oracle):
         c.setPositions(positions)
     force_err = _median_relative_error(
-        ctx.getState(getForces=True).getForces(),
-        oracle.getState(getForces=True).getForces())
-    energies = {g: (ctx.getState(getEnergy=True, groups={g})
-                    .getPotentialEnergy(),
-                    oracle.getState(getEnergy=True, groups={g})
-                    .getPotentialEnergy()) for g in (0, 1, 2)}
+        in_md(ctx.getState(getForces=True).getForces(asNumpy=True)),
+        in_md(oracle.getState(getForces=True).getForces(asNumpy=True)))
+    energies = {g: (in_md(ctx.getState(getEnergy=True, groups={g})
+                    .getPotentialEnergy()),
+                    in_md(oracle.getState(getEnergy=True, groups={g})
+                    .getPotentialEnergy())) for g in (0, 1, 2)}
     del oracle
     (gb,) = ctx._custom
     sweeps_ms = None
@@ -3941,17 +4710,18 @@ def phase_customgb(device, deadline=None, lipids=19, model=GB_MODEL,
                              warmup=1)
     deadline.check("customgb: float64 oracle")
     ctx.applyConstraints()
-    before = ctx.getState(getEnergy=True).getPotentialEnergy()
+    before = in_md(ctx.getState(getEnergy=True).getPotentialEnergy())
     omm.LocalEnergyMinimizer.minimize(ctx, MINIMIZE_TOLERANCE, iterations)
-    after = ctx.getState(getEnergy=True).getPotentialEnergy()
+    after = in_md(ctx.getState(getEnergy=True).getPotentialEnergy())
     deadline.check("customgb: minimize")
     ctx.setVelocitiesToTemperature(300.0, randomSeed=6)
     run = _production(device, ctx, integ.step,
-                      ctx.getState(getEnergy=True).getPotentialEnergy(),
+                      in_md(ctx.getState(getEnergy=True).getPotentialEnergy()),
                       steps, steps, deadline)
     temperature = ctx.temperature()
     constraint_err = _constraint_error(
-        system, ctx.getState(getPositions=True).getPositions())
+        system, in_md(ctx.getState(getPositions=True).getPositions(
+            asNumpy=True)))
     start = ctx._snapshot()
     graph = _production(device, ctx, integ.step, 0.0, replay, replay,
                         deadline)
@@ -4044,13 +4814,13 @@ def phase_rmsd_cv(device, bilayer, deadline=None, k=RMSD_K,
     system = bilayer["system"]
     base_ctx = bilayer["context"]
     st = base_ctx.getState(getPositions=True, getVelocities=True)
-    masses = np.asarray([system.getParticleMass(i)
+    masses = np.asarray([in_md(system.getParticleMass(i))
                          for i in range(system.getNumParticles())])
     # the lipids: the molecules larger than a water
     heavy = sorted(i for mol in base_ctx.getMolecules() if len(mol) > 3
                    for i in mol if masses[i] > 2.0)
     reference = np.asarray(bilayer["minimized_positions"], np.float64)
-    pos = st.getPositions()
+    pos = in_md(st.getPositions(asNumpy=True))
     # r0 below the RMSD of the last positions, so that the restraint pulls
     r0 = 0.5 * _kabsch_rmsd(pos[heavy], reference[heavy])
     rmsd = omm.RMSDForce(reference, heavy)
@@ -4069,7 +4839,7 @@ def phase_rmsd_cv(device, bilayer, deadline=None, k=RMSD_K,
         # the other bilayer phases build their Contexts from this System
         system._forces.remove(cv)
     ctx.setPositions(pos)
-    ctx.setVelocities(st.getVelocities())
+    ctx.setVelocities(in_md(st.getVelocities(asNumpy=True)))
     values = cv.getCollectiveVariableValues(ctx)
     kabsch = _kabsch_rmsd(pos[heavy], reference[heavy])
     # the CV's forces against a float64 central difference of its energy
@@ -4112,7 +4882,8 @@ def phase_rmsd_cv(device, bilayer, deadline=None, k=RMSD_K,
     _same_state("rmsd cv", graph, eager)
     temperature = ctx.temperature()
     constraint_err = _constraint_error(
-        system, ctx.getState(getPositions=True).getPositions())
+        system, in_md(ctx.getState(getPositions=True).getPositions(
+            asNumpy=True)))
     turns = _in_turns(device, {"plain": (base_ctx, bilayer["step"]),
                                "cv": (ctx, integ.step)}, turn_steps,
                       ("plain", "cv", "cv", "plain"), deadline)
@@ -4285,8 +5056,8 @@ def phase_more_custom(device, main=None, deadline=None, systems=None,
     and the eager loop: the same bits. Raises on a miss."""
     deadline = deadline or Deadline(math.inf)
     if systems is None:
-        water = (None if main is None else main["context"].getState(
-            getPositions=True).getPositions())
+        water = (None if main is None else in_md(main["context"].getState(
+            getPositions=True).getPositions(asNumpy=True)))
         systems = more_custom_systems(water_positions=water)
     out = {}
     for label, (params, pos, temperature, nve) in systems.items():
@@ -4593,6 +5364,11 @@ def _main(deadline) -> int:
     phase_build(deadline)
     deadline.check("build")
     deadline.lap("device, build")
+    # the examples' processes start up (imports and a CUDA context, 5-8 s
+    # each on an H100 80GB HBM3 at 700 W) beside the kernel phases, which
+    # gate bits and tolerances only: they are done before the main path's
+    # timed steps
+    examples = start_examples()
     inp = kernel_inputs(device, N_WATERS)
     errors = phase_kernels(device, inp, deadline)
     phase_gather_orders(device, inp, deadline)
@@ -4600,6 +5376,8 @@ def _main(deadline) -> int:
     phase_triclinic(device, deadline=deadline)
     warm.join()
     deadline.lap("kernels, triclinic")
+    examples = phase_examples(device, deadline, examples)
+    deadline.lap("examples")
     for kern in KERNELS:
         kern.launches = 0
     result = phase_main_path(device, deadline=deadline)
@@ -4639,6 +5417,13 @@ def _main(deadline) -> int:
     deadline.lap("while draws")
     more_custom = phase_more_custom(device, result, deadline)
     deadline.lap("more custom")
+    gromacs = phase_gromacs_water(device, result, deadline)
+    deadline.lap("gromacs water")
+    tempering = phase_tempering(device, gromacs, deadline)
+    deadline.lap("tempering")
+    del gromacs["simulation"]
+    membrane = phase_modeller_membrane(device, deadline)
+    deadline.lap("modeller membrane")
     del result, offsets["context"]
     minimized = phase_minimize(device, deadline=deadline)
     if min(minimized["launches"].values()) <= 0:
@@ -4666,8 +5451,9 @@ def _main(deadline) -> int:
     rmsd_cv = phase_rmsd_cv(device, bilayer, deadline)
     deadline.lap("rmsd cv")
     last = bilayer["context"].getState(getPositions=True)
-    tables = phase_tables(device, last.getPositions(),
-                          last.getPeriodicBoxVectors(), deadline)
+    tables = phase_tables(device, in_md(last.getPositions(asNumpy=True)),
+                          in_md(last.getPeriodicBoxVectors(
+                              asNumpy=True)), deadline)
     deadline.lap("tables")
     npt = phase_npt_bilayer(device, bilayer, deadline)
     deadline.lap("npt bilayer")
@@ -4826,6 +5612,22 @@ def _main(deadline) -> int:
               rf_bilayer["atoms"], info["name"], info["smi"],
               app_bilayer["create_s"], app_bilayer["ms"]["simulation"],
               app_bilayer["ms"]["plain"]))
+    print("app layer remainder on %s (%s): helix in POPC through Modeller "
+          "%d atoms (%d lipids, %d Na+, %d Cl-), addHydrogens %.2f s, "
+          "addMembrane %.2f s (relaxation captures %d, rebuilds %d), "
+          "createSystem %.2f s on the host; %.4f ms a step with a "
+          "StateDataReporter and a PDBxReporter, Metadynamics %.2f ms a "
+          "deposition; GROMACS water createSystem %.2f s, "
+          "%.4f ms a step; tempering rungs %s, new captures %d; examples "
+          "%.2f s" % (
+              info["name"], info["smi"], membrane["atoms"],
+              membrane["lipids"], *membrane["ions"], membrane["hydrogens_s"],
+              membrane["membrane_s"], membrane["captures"],
+              membrane["rebuilds"], membrane["create_s"],
+              membrane["ms_per_step"], membrane["per_deposit_ms"],
+              gromacs["create_s"], gromacs["ms_per_step"],
+              tempering["visited"], tempering["captures"],
+              examples["seconds"]))
     print("seconds by phase: %s" % ", ".join(
         "%s %.1f" % lap for lap in deadline.laps))
     print("total %.1f s of the %.0f s budget" % (deadline.elapsed(),

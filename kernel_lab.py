@@ -39,6 +39,7 @@ import os
 import subprocess
 import sys
 import time
+from openmm_tpu_torch.unit import plain
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(REPO, "openmm_tpu_torch", "csrc")
@@ -133,7 +134,7 @@ def minimize_tree(tree: str, device: str, n_waters: int) -> dict:
             cs.BILAYER_TEMPERATURE, cs.FRICTION, cs.DT_PS))
         ctx.setPositions(positions)
         ctx.applyConstraints()
-        before = ctx.getState(getEnergy=True).getPotentialEnergy()
+        before = plain(ctx.getState(getEnergy=True).getPotentialEnergy())
         evaluations = ctx.energy_evaluations
         reporter = cs._Iterations()
         cs._sync(dev)
@@ -143,7 +144,7 @@ def minimize_tree(tree: str, device: str, n_waters: int) -> dict:
                                           reporter)
         cs._sync(dev)
         seconds = time.perf_counter() - t0
-        after = ctx.getState(getEnergy=True).getPotentialEnergy()
+        after = plain(ctx.getState(getEnergy=True).getPotentialEnergy())
         out["bilayer"] = {
             "iterations": reporter.count,
             "evaluations": ctx.energy_evaluations - evaluations,

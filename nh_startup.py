@@ -24,6 +24,7 @@ import torch
 
 import chip_smoke as cs
 import openmm_tpu_torch as omm
+from openmm_tpu_torch.unit import plain
 
 SPAN_FS = 1000
 EVERY_FS = 50
@@ -32,7 +33,7 @@ STARTUP_FS = 500
 
 def run(system, state, integ, dt, bath) -> dict:
     ctx = omm.Context(system, integ)
-    ctx.setPositions(state.getPositions())
+    ctx.setPositions(plain(state.getPositions(asNumpy=True)))
     ctx.setVelocitiesToTemperature(cs.NH_START, randomSeed=cs.VELOCITY_SEED)
     every = round(EVERY_FS / (dt * 1000.0))
     readings, baths, temperatures = [], [], []

@@ -25,6 +25,7 @@ import torch
 
 import chip_smoke as cs
 import openmm_tpu_torch as omm
+from openmm_tpu_torch.unit import plain
 
 SEEDS = ((cs.VELOCITY_SEED, 12), (9, 13), (10, 14))
 SPAN_PS = 0.3
@@ -47,7 +48,8 @@ def main() -> int:
     cs.phase_device(device)
     cs.phase_build(cs.Deadline(cs.BUDGET_S))
     main_path = cs.phase_main_path(device)
-    water = main_path["context"].getState(getPositions=True).getPositions()
+    water = plain(main_path["context"].getState(
+        getPositions=True).getPositions(asNumpy=True))
     for v_seed, l_seed in SEEDS:
         systems = cs.more_custom_systems(water_positions=water,
                                          argon_seed=l_seed)

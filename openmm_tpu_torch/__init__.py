@@ -19,11 +19,14 @@ GayBerneForce,
 through three hand-written CUDA kernels (csrc/), and energy
 minimization (LocalEnergyMinimizer) through the differentiable dense PME
 and two more; Context.updateParametersInContext, createCheckpoint and
-loadCheckpoint. Getters return plain floats and numpy arrays in nm, ps,
-amu, kJ/mol and e; setters also take Quantities (openmm_tpu_torch.unit),
-which they strip to those units. The app layer (openmm_tpu_torch.app:
-PDBFile, ForceField, Simulation, reporters) builds and drives Systems as
-OpenMM's does.
+loadCheckpoint. Getters return what the JAX package's return:
+Quantities (openmm_tpu_torch.unit) in nm, ps, amu, kJ/mol, e, rad, K and
+bar, or plain values; setters take Quantities or plain numbers in those
+units. The app layer (openmm_tpu_torch.app: PDBFile, PDBxFile,
+ForceField, Modeller, the Amber, CHARMM, GROMACS and DMS readers,
+Simulation, reporters, Metadynamics, SimulatedTempering) builds and
+drives Systems as OpenMM's does; `python -m
+openmm_tpu_torch.testInstallation` checks an installation.
 """
 from . import unit
 from .constants import BOLTZ, ONE_4PI_EPS0
@@ -57,6 +60,7 @@ from .system import (LocalCoordinatesSite, OutOfPlaneSite, System,
                      ThreeParticleAverageSite, TwoParticleAverageSite,
                      VirtualSite, from_numpy, to_numpy)
 from .vec3 import Vec3
+from .version import version as __version__
 
 __all__ = ["AMDForceGroupIntegrator", "AMDIntegrator",
            "AndersenThermostat", "BOLTZ", "BrownianIntegrator",

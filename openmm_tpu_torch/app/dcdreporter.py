@@ -3,8 +3,7 @@ unit-cell records, DCDReporter writes one a report.
 
 The port's copy of openmm_tpu/app/dcdreporter.py (after OpenMM's
 wrappers/python/openmm/app/dcdfile.py and dcdreporter.py): the same bytes
-as the JAX package's but for the date in the header. Positions and box
-come from the port's plain State, in nm.
+as the JAX package's but for the date in the header.
 """
 from __future__ import annotations
 
@@ -107,8 +106,8 @@ class DCDReporter(object):
                                 simulation.currentStep, self._reportInterval,
                                 self._append)
         self._dcd.writeModel(
-            state.getPositions(),
-            periodicBoxVectors=state.getPeriodicBoxVectors())
+            state.getPositions(asNumpy=True),
+            periodicBoxVectors=state.getPeriodicBoxVectors(asNumpy=True))
 
     def __del__(self):
         try:

@@ -936,8 +936,12 @@ class ForceField(object):
             return None
 
         bond_r0 = {}
+        bond_found = {}         # each type pair looked up once
         for (i, j) in bonds:
-            found = lookup_pair(self._bond_gen, type_of(i), type_of(j))
+            types = (type_of(i), type_of(j))
+            if types not in bond_found:
+                bond_found[types] = lookup_pair(self._bond_gen, *types)
+            found = bond_found[types]
             if found is None:
                 continue
             length, k = found
@@ -1160,12 +1164,12 @@ class ForceField(object):
                 if hi == hj:
                     continue
                 h, heavy = (i, j) if hi else (j, i)
-                if sys.getParticleMass(heavy) <= h_mass:
+                heavy_mass = u.strip(sys.getParticleMass(heavy), u.dalton)
+                if heavy_mass <= h_mass:
                     continue
-                transfer = h_mass - sys.getParticleMass(h)
+                transfer = h_mass - u.strip(sys.getParticleMass(h), u.dalton)
                 if transfer != 0:
-                    sys.setParticleMass(
-                        heavy, sys.getParticleMass(heavy) - transfer)
+                    sys.setParticleMass(heavy, heavy_mass - transfer)
                     sys.setParticleMass(h, h_mass)
 
         if removeCMMotion:

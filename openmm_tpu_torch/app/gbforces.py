@@ -22,6 +22,7 @@ import json
 import math
 import os
 
+from .. import unit as u
 from ..forces.customgb import CustomGBForce
 from ..tabulated import Discrete2DFunction
 
@@ -300,5 +301,47 @@ def build_gb_force(model, charges, gb_params, solventDielectric=78.5,
 def compute_kappa(saltConc, solventDielectric=78.5, temperature=298.15):
     """The Debye screening kappa (1/nm) of a salt concentration in mol/L,
     with Amber's ion-exclusion factor 0.73."""
-    return 7.3 * 50.33355 * math.sqrt(float(saltConc) / solventDielectric
-                                      / float(temperature))
+    saltConc = float(u.strip(saltConc, u.mole / u.liter))
+    temperature = float(u.strip(temperature, u.kelvin))
+    return 7.3 * 50.33355 * math.sqrt(saltConc / solventDielectric
+                                      / temperature)
+
+
+def add_implicit_solvent(system, topology, model, charges, radii=None,
+                         screens=None, solventDielectric=78.5,
+                         soluteDielectric=1.0, SA=None, cutoff=None,
+                         kappa=0.0):
+    """Attach the GB force for `model` to `system` (the file readers'
+    implicit solvent, as the JAX package's add_implicit_solvent):
+    radii and screens override the standard tables (a prmtop's RADII and
+    SCREEN; screens count for HCT and OBC only, GBn and GBn2 keep their
+    refit screens, as sander and pmemd do). OBC2 without salt is a
+    GBSAOBCForce, every other model build_gb_force's CustomGBForce."""
+    from ..forces.gbsa import GBSAOBCForce
+    params = standard_gb_parameters(model, topology)
+    if radii is not None:
+        for p, r in zip(params, radii):
+            p[0] = float(r)
+    if screens is not None and model in ("HCT", "OBC1", "OBC2"):
+        for p, s in zip(params, screens):
+            p[1] = float(s)
+    if model == "OBC2" and kappa == 0.0:
+        gb = GBSAOBCForce()
+        gb.setSoluteDielectric(soluteDielectric)
+        gb.setSolventDielectric(solventDielectric)
+        if SA is None:
+            gb.setSurfaceAreaEnergy(0)
+        for q, p in zip(charges, params):
+            gb.addParticle(q, p[0], p[1])
+        if cutoff is not None:
+            gb.setNonbondedMethod(GBSAOBCForce.CutoffNonPeriodic)
+            gb.setCutoffDistance(cutoff)
+        system.addForce(gb)
+        return gb
+    gb = build_gb_force(model, charges, params, solventDielectric,
+                        soluteDielectric, SA, cutoff, kappa)
+    if cutoff is not None:
+        gb.setNonbondedMethod(CustomGBForce.CutoffNonPeriodic)
+        gb.setCutoffDistance(cutoff)
+    system.addForce(gb)
+    return gb

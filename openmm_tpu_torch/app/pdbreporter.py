@@ -1,6 +1,5 @@
 """PDBReporter: a PDB trajectory, one MODEL a report (the port's copy of
-openmm_tpu/app/pdbreporter.py, after OpenMM's app/pdbreporter.py).
-Positions come from the port's plain State, in nm."""
+openmm_tpu/app/pdbreporter.py, after OpenMM's app/pdbreporter.py)."""
 from __future__ import annotations
 
 from .pdbfile import PDBFile
@@ -23,7 +22,8 @@ class PDBReporter(object):
             PDBFile.writeHeader(simulation.topology, self._out)
             self._topology = simulation.topology
             self._nextModel += 1
-        PDBFile.writeModel(simulation.topology, state.getPositions(),
+        PDBFile.writeModel(simulation.topology,
+                           state.getPositions(asNumpy=True),
                            self._out, self._nextModel)
         self._nextModel += 1
         try:

@@ -3,7 +3,7 @@ density, speed and remaining time as delimited text.
 
 The port's copy of openmm_tpu/app/statedatareporter.py (after OpenMM's
 wrappers/python/openmm/app/statedatareporter.py:59-60): the same header
-and columns, read from the port's plain State (ps, kJ/mol, nm). The
+and columns, read from the State's Quantities. The
 temperature counts the degrees of freedom as the port's Context does
 (Context.degrees_of_freedom: three for each particle with mass, less the
 constraints, less three with a CMMotionRemover).
@@ -11,8 +11,6 @@ constraints, less three with a CMMotionRemover).
 from __future__ import annotations
 
 import time
-
-import numpy as np
 
 from .. import unit as u
 from ..constants import BOLTZ
@@ -81,8 +79,9 @@ class StateDataReporter(object):
             if self._systemMass is not None:
                 self._totalMass = float(u.strip(self._systemMass, u.dalton))
             else:
-                self._totalMass = sum(system.getParticleMass(i) for i in
-                                      range(system.getNumParticles()))
+                self._totalMass = sum(system.getParticleMass(i)._value
+                                      for i in range(
+                                          system.getNumParticles()))
 
     def _constructHeaders(self):
         headers = []
@@ -121,27 +120,27 @@ class StateDataReporter(object):
         if self._step:
             values.append(simulation.currentStep)
         if self._time:
-            values.append(round(state.getTime(), 4))
+            values.append(round(state.getTime()._value, 4))
         if self._potentialEnergy:
-            values.append(round(state.getPotentialEnergy(), 6))
+            values.append(round(state.getPotentialEnergy()._value, 6))
         if self._kineticEnergy:
-            values.append(round(state.getKineticEnergy(), 6))
+            values.append(round(state.getKineticEnergy()._value, 6))
         if self._totalEnergy:
-            values.append(round(state.getPotentialEnergy()
-                                + state.getKineticEnergy(), 6))
+            values.append(round(state.getPotentialEnergy()._value
+                                + state.getKineticEnergy()._value, 6))
         if self._temperature:
-            ke = state.getKineticEnergy()
+            ke = state.getKineticEnergy()._value
             values.append(round(2.0 * ke / (self._dof * BOLTZ), 2))
         if self._volume:
-            values.append(round(_volume(state), 4))
+            values.append(round(state.getPeriodicBoxVolume()._value, 4))
         if self._density:
-            vol = _volume(state)  # nm^3
+            vol = state.getPeriodicBoxVolume()._value  # nm^3
             # g/mL = (amu -> g via 1/NA) / (nm^3 -> mL via 1e-21)
             values.append(round(self._totalMass / vol * 1.66053906660e-3, 5))
         if self._speed or self._remainingTime or self._elapsedTime:
             elapsed_clock = clock - self._initialClockTime
-            elapsed_sim = 1e-3 * (state.getTime()
-                                  - self._initialSimulationTime)  # ns
+            elapsed_sim = (state.getTime() - self._initialSimulationTime
+                           ).value_in_unit(u.nanosecond)
         if self._speed:
             if elapsed_clock > 0:
                 values.append("%.3g" % (elapsed_sim / elapsed_clock * 86400))
@@ -166,9 +165,3 @@ class StateDataReporter(object):
     def __del__(self):
         if getattr(self, "_openedFile", False):
             self._out.close()
-
-
-def _volume(state):
-    """The State's box volume, nm^3."""
-    return float(abs(np.linalg.det(np.asarray(
-        state.getPeriodicBoxVectors(), np.float64))))

@@ -157,15 +157,14 @@ class Context:
             raise ValueError("Cannot create a Context for a System with no "
                              "particles")
         self._n = n
-        masses = np.asarray([system.getParticleMass(i) for i in range(n)])
+        masses = np.asarray(system._masses, np.float64)
         if np.any(masses < 0):
             raise ValueError("a particle's mass must not be negative")
         for index in system._vsites:
             if masses[index] != 0.0:
                 raise ValueError("Virtual site at index %d must have mass 0"
                                  % index)
-        constraints = [system.getConstraintParameters(i)
-                       for i in range(system.getNumConstraints())]
+        constraints = list(system._constraints)
         for p1, p2, _ in constraints:
             if masses[p1] == 0 or masses[p2] == 0:
                 raise NotImplementedError(
@@ -200,7 +199,7 @@ class Context:
                 raise ValueError("NonbondedForce must have the same number "
                                  "of particles as the System")
         self._nonbondeds = [NonbondedModule(
-            force, system.getDefaultPeriodicBoxVectors(), self._device,
+            force, system._box.copy(), self._device,
             self._precision, self._gp, self._gp_index) for force in nonbonded]
         self._nonbonded = self._nonbondeds[0] if nonbonded else None
         # the modules whose direct space keeps a candidate state (none
@@ -227,9 +226,8 @@ class Context:
 
         clusters, rest = partition_constraints(constraints, masses)
         shake_clusters, ccma_cons = partition_shake_clusters(rest, masses)
-        angles = [f.getAngleParameters(i)[:4] for f in forces
-                  if isinstance(f, HarmonicAngleForce)
-                  for i in range(f.getNumAngles())]
+        angles = [a[:4] for f in forces
+                  if isinstance(f, HarmonicAngleForce) for a in f._angles]
         self._settle = (Settle(clusters, masses, self._device)
                         if clusters else None)
         self._shake = (Shake(shake_clusters, masses, self._device)
@@ -249,8 +247,7 @@ class Context:
             _first_members(n, [c[:2] for c in constraints]),
             device=self._device)
         self._molecule_id, self._n_molecules = self._detect_molecules()
-        self._box = torch.as_tensor(system.getDefaultPeriodicBoxVectors(),
-                                    **f64)
+        self._box = torch.as_tensor(system._box.copy(), **f64)
         # barostats that attempt moves (a frequency of 0 never does)
         self._barostats = [f._compile(self) for f in forces
                            if isinstance(f, BAROSTATS)
@@ -320,7 +317,7 @@ class Context:
                     "collective variable needs a candidate state of its "
                     "own, which this slice of the port does not build")
             return NonbondedVariable(NonbondedModule(
-                force, self._system.getDefaultPeriodicBoxVectors(),
+                force, self._system._box.copy(),
                 self._device, self._precision, self._gp, self._gp_index))
         raise NotImplementedError("%s as a collective variable is not in "
                                   "this slice of the port"
@@ -332,8 +329,7 @@ class Context:
         the order of their first atoms, as the JAX Context numbers them
         (context.py _detect_molecules)."""
         system = self._system
-        pairs = [system.getConstraintParameters(i)[:2]
-                 for i in range(system.getNumConstraints())]
+        pairs = [c[:2] for c in system._constraints]
         pairs += [(index, p) for index, site in system._vsites.items()
                   for p in site._particles]
         for force in system.getForces():
@@ -555,14 +551,17 @@ class Context:
     def getIntegrator(self):
         return self._integrator
 
+    def getPlatform(self):
+        return self._platform
+
     def getStepCount(self) -> int:
         return self._state["step"]
 
     def setStepCount(self, count) -> None:
         self._state["step"] = int(count)
 
-    def getTime(self) -> float:
-        return float(self._time)
+    def getTime(self):
+        return u.Quantity(float(self._time), u.picosecond)
 
     def setTime(self, time) -> None:
         self._time.fill_(float(u.strip(time, u.picosecond)))
@@ -608,16 +607,14 @@ class Context:
         """Restore the box, the time, the step count, and what the State
         holds of positions, velocities and this Context's global
         parameters (Context::setState)."""
-        if state.getPeriodicBoxVectors() is not None:
-            self.setPeriodicBoxVectors(*np.asarray(
-                state.getPeriodicBoxVectors()))
+        self.setPeriodicBoxVectors(*state.getPeriodicBoxVectors(asNumpy=True))
         self.setTime(state.getTime())
         self.setStepCount(state.getStepCount())
         types = state.getDataTypes()
         if types & State.Positions:
-            self.setPositions(state.getPositions())
+            self.setPositions(state.getPositions(asNumpy=True))
         if types & State.Velocities:
-            self.setVelocities(state.getVelocities())
+            self.setVelocities(state.getVelocities(asNumpy=True))
         if types & State.Parameters:
             for name, value in state.getParameters().items():
                 if name in self._gp_index:
@@ -961,7 +958,7 @@ class Context:
         box when the System uses periodic boundaries."""
         s = self._state
         box = _host(s["box"])
-        kw = {"time": self.getTime(), "step": s["step"], "box": box}
+        kw = {"time": float(self._time), "step": s["step"], "box": box}
         if getEnergy or getForces:
             if not self._positions_set:
                 raise RuntimeError("Particle positions have not been set")

@@ -27,6 +27,7 @@ import torch
 from .. import unit as u
 from ..constants import AVOGADRO, BOLTZ
 from ..ops.accumulate import GroupSum
+from ..vec3 import Vec3
 from .base import Force
 
 _NM = u.nanometer
@@ -54,8 +55,8 @@ class _BarostatBase(Force):
     def setFrequency(self, freq) -> None:
         self._frequency = int(freq)
 
-    def getDefaultTemperature(self) -> float:
-        return self._temperature
+    def getDefaultTemperature(self):
+        return u.Quantity(self._temperature, _K)
 
     def setDefaultTemperature(self, temp) -> None:
         self._temperature = float(u.strip(temp, _K))
@@ -92,8 +93,8 @@ class MonteCarloBarostat(_BarostatBase):
         self._frequency = int(frequency)
         self._seed = 0
 
-    def getDefaultPressure(self) -> float:
-        return self._pressure
+    def getDefaultPressure(self):
+        return u.Quantity(self._pressure, _BAR)
 
     def setDefaultPressure(self, pressure) -> None:
         self._pressure = float(u.strip(pressure, _BAR))
@@ -135,8 +136,8 @@ class MonteCarloAnisotropicBarostat(_BarostatBase):
         if not any(self._scale):
             raise ValueError("No axes are being scaled")
 
-    def getDefaultPressure(self) -> tuple:
-        return tuple(self._pressure)
+    def getDefaultPressure(self):
+        return u.Quantity(Vec3(*self._pressure), _BAR)
 
     def setDefaultPressure(self, pressure) -> None:
         self._pressure = [float(u.strip(p, _BAR)) for p in pressure]
@@ -194,11 +195,11 @@ class MonteCarloMembraneBarostat(_BarostatBase):
         self._frequency = int(frequency)
         self._seed = 0
 
-    def getDefaultPressure(self) -> float:
-        return self._pressure
+    def getDefaultPressure(self):
+        return u.Quantity(self._pressure, _BAR)
 
-    def getDefaultSurfaceTension(self) -> float:
-        return self._tension
+    def getDefaultSurfaceTension(self):
+        return u.Quantity(self._tension, _BAR_NM)
 
     def getXYMode(self) -> int:
         return self._xymode
@@ -230,7 +231,7 @@ class BarostatModule:
         # the attempt's uniforms: the slot (not for the isotropic
         # barostat), the volume change, the Metropolis test
         self.n_uniforms = 2 if self.slots == 1 else 3
-        box = context._system.getDefaultPeriodicBoxVectors()
+        box = context._system._box.copy()
         vol = float(box[0][0] * box[1][1] * box[2][2])
         self.volume_scale = torch.full((self.slots,), 0.01 * vol, dtype=F64,
                                        device=dev)

@@ -308,7 +308,8 @@ class HarmonicBondForce(_PeriodicMixin, Force):
         return len(self._bonds) - 1
 
     def getBondParameters(self, index):
-        return self._bonds[index]
+        p1, p2, r0, k = self._bonds[index]
+        return p1, p2, u.Quantity(r0, _NM), u.Quantity(k, _E_PER_NM2)
 
     def setBondParameters(self, index, particle1, particle2, length, k):
         self._bonds[index] = (int(particle1), int(particle2),
@@ -343,7 +344,8 @@ class HarmonicAngleForce(_PeriodicMixin, Force):
         return len(self._angles) - 1
 
     def getAngleParameters(self, index):
-        return self._angles[index]
+        p1, p2, p3, a, k = self._angles[index]
+        return p1, p2, p3, u.Quantity(a, _RAD), u.Quantity(k, _E_PER_RAD2)
 
     def setAngleParameters(self, index, particle1, particle2, particle3,
                            angle, k):
@@ -383,7 +385,9 @@ class PeriodicTorsionForce(_PeriodicMixin, Force):
         return len(self._torsions) - 1
 
     def getTorsionParameters(self, index):
-        return self._torsions[index]
+        t = self._torsions[index]
+        return (t[0], t[1], t[2], t[3], t[4], u.Quantity(t[5], _RAD),
+                u.Quantity(t[6], _E))
 
     def setTorsionParameters(self, index, particle1, particle2, particle3,
                              particle4, periodicity, phase, k):
@@ -425,7 +429,9 @@ class RBTorsionForce(_PeriodicMixin, Force):
         return len(self._torsions) - 1
 
     def getTorsionParameters(self, index):
-        return self._torsions[index]
+        t = self._torsions[index]
+        return (t[0], t[1], t[2], t[3],
+                *[u.Quantity(c, _E) for c in t[4:10]])
 
     def setTorsionParameters(self, index, particle1, particle2, particle3,
                              particle4, c0, c1, c2, c3, c4, c5):
@@ -471,7 +477,8 @@ class CMAPTorsionForce(_PeriodicMixin, Force):
         return len(self._maps) - 1
 
     def getMapParameters(self, index):
-        return self._maps[index]
+        size, energy = self._maps[index]
+        return size, u.Quantity(list(energy), _E)
 
     def addTorsion(self, map, a1, a2, a3, a4, b1, b2, b3, b4) -> int:  # noqa: A002
         self._torsions.append(tuple(int(x) for x in

@@ -539,8 +539,8 @@ class CustomNonbondedModule(CustomModule):
         method = force.getNonbondedMethod()
         self.periodic = method == CustomNonbondedForce.CutoffPeriodic
         self.cutoff = (None if method == CustomNonbondedForce.NoCutoff
-                       else force.getCutoffDistance())
-        self.switch = (force.getSwitchingDistance()
+                       else force._cutoff)
+        self.switch = (force._switch_dist
                        if force.getUseSwitchingFunction()
                        and self.cutoff is not None else None)
         self.use_lrc = force.getUseLongRangeCorrection() and self.periodic
@@ -841,8 +841,8 @@ class CustomNonbondedForce(_CustomMixin, Force):
     def setNonbondedMethod(self, method) -> None:
         self._method = int(method)
 
-    def getCutoffDistance(self) -> float:
-        return self._cutoff
+    def getCutoffDistance(self):
+        return u.Quantity(self._cutoff, u.nanometer)
 
     def setCutoffDistance(self, distance) -> None:
         self._cutoff = float(u.strip(distance, u.nanometer))
@@ -853,8 +853,8 @@ class CustomNonbondedForce(_CustomMixin, Force):
     def setUseSwitchingFunction(self, use) -> None:
         self._switching = bool(use)
 
-    def getSwitchingDistance(self) -> float:
-        return self._switch_dist
+    def getSwitchingDistance(self):
+        return u.Quantity(self._switch_dist, u.nanometer)
 
     def setSwitchingDistance(self, distance) -> None:
         self._switch_dist = float(u.strip(distance, u.nanometer))

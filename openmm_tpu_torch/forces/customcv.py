@@ -24,6 +24,7 @@ from torch import nn
 
 from ..expressions import compile_energy_derivatives
 from ..ops.pairs import AnalyticEnergy
+from ..tabulated import refresh
 from .base import Force
 from .custom import _CustomMixin
 
@@ -90,6 +91,7 @@ class CustomCVModule(nn.Module):
         self.cv_names = [name for name, _ in force._cvs]
         self.cvs = [ctx._compile_module(f) for _, f in force._cvs]
         functions = force._tables(F64, ctx._device)
+        self.tables = functions
         text = force.getEnergyFunction()
         self.derivs = tuple(ctx._deriv_names)
         self._fn = compile_energy_derivatives(text, self.cv_names,
@@ -132,6 +134,10 @@ class CustomCVModule(nn.Module):
         return out
 
     def update(self, force) -> None:
+        """The variables' parameters and the tabulated functions' values,
+        in place (metadynamics rewrites its bias table every deposition)."""
         for m, (_, f) in zip(self.cvs, force._cvs):
             m.update(f)
+        for name, table in force._functions:
+            refresh(self.tables[name], table)
 

@@ -136,8 +136,8 @@ class CustomGBForce(_CustomMixin, Force):
     def setNonbondedMethod(self, method) -> None:
         self._method = int(method)
 
-    def getCutoffDistance(self) -> float:
-        return self._cutoff
+    def getCutoffDistance(self):
+        return u.Quantity(self._cutoff, u.nanometer)
 
     def setCutoffDistance(self, distance) -> None:
         self._cutoff = float(u.strip(distance, u.nanometer))
@@ -203,7 +203,7 @@ class CustomGBModule(CustomModule):
         method = force.getNonbondedMethod()
         self.periodic = method == CustomGBForce.CutoffPeriodic
         self.cutoff = (None if method == CustomGBForce.NoCutoff
-                       else force.getCutoffDistance())
+                       else force._cutoff)
         table = build_exclusion_table(n, force._exclusions)
         self.has_exclusions = bool(np.any(table >= 0))
         self.register_buffer("exclusions", torch.as_tensor(

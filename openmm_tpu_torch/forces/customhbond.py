@@ -116,8 +116,8 @@ class CustomHbondForce(_CustomMixin, Force):
     def setNonbondedMethod(self, method) -> None:
         self._method = int(method)
 
-    def getCutoffDistance(self) -> float:
-        return self._cutoff
+    def getCutoffDistance(self):
+        return u.Quantity(self._cutoff, u.nanometer)
 
     def setCutoffDistance(self, distance) -> None:
         self._cutoff = float(u.strip(distance, u.nanometer))
@@ -162,7 +162,7 @@ class _HbondModule(_PointsModule):
                          scalar_coords=False)
         self.cutoff = (None if force.getNonbondedMethod()
                        == CustomHbondForce.NoCutoff
-                       else force.getCutoffDistance())
+                       else force._cutoff)
 
     def _points(self, pos):
         return pos[self.idx]

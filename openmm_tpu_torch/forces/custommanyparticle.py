@@ -132,8 +132,8 @@ class CustomManyParticleForce(_CustomMixin, Force):
     def setNonbondedMethod(self, method) -> None:
         self._method = int(method)
 
-    def getCutoffDistance(self) -> float:
-        return self._cutoff
+    def getCutoffDistance(self):
+        return u.Quantity(self._cutoff, u.nanometer)
 
     def setCutoffDistance(self, distance) -> None:
         self._cutoff = float(u.strip(distance, u.nanometer))
@@ -241,7 +241,7 @@ class _ManyParticleModule(_PointsModule):
                                 for s in range(k)])
         self.cutoff = (None if force.getNonbondedMethod()
                        == CustomManyParticleForce.NoCutoff
-                       else force.getCutoffDistance())
+                       else force._cutoff)
 
     def _points(self, pos):
         return pos[self.idx]

@@ -137,8 +137,8 @@ class GayBerneForce(Force):
     def setNonbondedMethod(self, method) -> None:
         self._method = int(method)
 
-    def getCutoffDistance(self) -> float:
-        return self._cutoff
+    def getCutoffDistance(self):
+        return u.Quantity(self._cutoff, u.nanometer)
 
     def setCutoffDistance(self, distance) -> None:
         self._cutoff = float(u.strip(distance, _NM))
@@ -149,8 +149,8 @@ class GayBerneForce(Force):
     def setUseSwitchingFunction(self, use) -> None:
         self._switching = bool(use)
 
-    def getSwitchingDistance(self) -> float:
-        return self._switch_dist
+    def getSwitchingDistance(self):
+        return u.Quantity(self._switch_dist, u.nanometer)
 
     def setSwitchingDistance(self, distance) -> None:
         self._switch_dist = float(u.strip(distance, _NM))
@@ -196,8 +196,8 @@ class GayBerneModule(nn.Module):
         self.periodic = force.usesPeriodicBoundaryConditions()
         method = force.getNonbondedMethod()
         self.cutoff = (None if method == GayBerneForce.NoCutoff
-                       else force.getCutoffDistance())
-        self.switch = (force.getSwitchingDistance()
+                       else force._cutoff)
+        self.switch = (force._switch_dist
                        if force.getUseSwitchingFunction()
                        and self.cutoff is not None else None)
         # every pair once: i < j but the exceptions, then the exceptions

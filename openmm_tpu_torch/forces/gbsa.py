@@ -50,7 +50,8 @@ class GBSAOBCForce(Force):
         return len(self._particles) - 1
 
     def getParticleParameters(self, index):
-        return self._particles[index]
+        c, r, s = self._particles[index]
+        return u.Quantity(c, _Q), u.Quantity(r, _NM), s
 
     def setParticleParameters(self, index, charge, radius, scalingFactor):
         self._particles[index] = (float(u.strip(charge, _Q)),
@@ -71,7 +72,7 @@ class GBSAOBCForce(Force):
 
     def getSurfaceAreaEnergy(self):
         """kJ/mol/nm^2; the ACE term is 4 pi times it."""
-        return self._surface_energy
+        return u.Quantity(self._surface_energy, _E_PER_NM2)
 
     def setSurfaceAreaEnergy(self, energy):
         self._surface_energy = float(u.strip(energy, _E_PER_NM2))
@@ -85,7 +86,7 @@ class GBSAOBCForce(Force):
         self._method = int(method)
 
     def getCutoffDistance(self):
-        return self._cutoff
+        return u.Quantity(self._cutoff, _NM)
 
     def setCutoffDistance(self, distance):
         self._cutoff = float(u.strip(distance, _NM))
@@ -117,9 +118,9 @@ class GBSAModule:
         self.periodic = force.usesPeriodicBoundaryConditions()
         self.terms = gb_ops.gb_terms(
             force.getSoluteDielectric(), force.getSolventDielectric(),
-            force.getSurfaceAreaEnergy(),
+            force._surface_energy,
             None if force.getNonbondedMethod() == GBSAOBCForce.NoCutoff
-            else force.getCutoffDistance())
+            else force._cutoff)
         p = torch.as_tensor(np.asarray(force._particles, np.float64)
                             .reshape(-1, 3), device=device)
         self.charge, self.radius, self.scale = p.unbind(1)

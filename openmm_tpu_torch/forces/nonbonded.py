@@ -102,7 +102,8 @@ class NonbondedForce(Force):
         return len(self._particles) - 1
 
     def getParticleParameters(self, index):
-        return self._particles[index]
+        c, s, e = self._particles[index]
+        return u.Quantity(c, _Q), u.Quantity(s, _NM), u.Quantity(e, _E)
 
     def setParticleParameters(self, index, charge, sigma, epsilon):
         self._particles[index] = (float(u.strip(charge, _Q)),
@@ -129,7 +130,9 @@ class NonbondedForce(Force):
         return len(self._exceptions) - 1
 
     def getExceptionParameters(self, index):
-        return self._exceptions[index]
+        p1, p2, cp, s, e = self._exceptions[index]
+        return (p1, p2, u.Quantity(cp, _Q2), u.Quantity(s, _NM),
+                u.Quantity(e, _E))
 
     def setExceptionParameters(self, index, particle1, particle2, chargeProd,
                                sigma, epsilon):
@@ -168,14 +171,26 @@ class NonbondedForce(Force):
                         key = (min(p1, p2), max(p1, p2))
                         if key not in exclusions:
                             pairs14.add(key)
+        # addException(..., replace=True) of each, written out: a membrane
+        # has ~70,000
+        exceptions, index = self._exceptions, self._exception_index
+
+        def put(key, entry):
+            k = index.get(key)
+            if k is None:
+                index[key] = len(exceptions)
+                exceptions.append(entry)
+            else:
+                exceptions[k] = entry
+
         for p1, p2 in sorted(exclusions):
-            self.addException(p1, p2, 0.0, 1.0, 0.0, True)
+            put((p1, p2), (p1, p2, 0.0, 1.0, 0.0))
         for p1, p2 in sorted(pairs14):
             c1, s1, e1 = self._particles[p1]
             c2, s2, e2 = self._particles[p2]
-            self.addException(p1, p2, coulomb14Scale * c1 * c2,
-                              0.5 * (s1 + s2),
-                              lj14Scale * math.sqrt(e1 * e2), True)
+            put((p1, p2), (p1, p2, float(coulomb14Scale * c1 * c2),
+                           0.5 * (s1 + s2),
+                           float(lj14Scale * math.sqrt(e1 * e2))))
 
     def getNonbondedMethod(self):
         return self._method
@@ -186,7 +201,7 @@ class NonbondedForce(Force):
         self._method = int(method)
 
     def getCutoffDistance(self):
-        return self._cutoff
+        return u.Quantity(self._cutoff, _NM)
 
     def setCutoffDistance(self, distance):
         self._cutoff = float(u.strip(distance, _NM))
@@ -198,7 +213,7 @@ class NonbondedForce(Force):
         self._switching = bool(use)
 
     def getSwitchingDistance(self):
-        return self._switch_dist
+        return u.Quantity(self._switch_dist, _NM)
 
     def setSwitchingDistance(self, distance):
         self._switch_dist = float(u.strip(distance, _NM))
@@ -560,7 +575,7 @@ class NonbondedModule(nn.Module):
         self.dtype = torch.float64 if self.plain else torch.float32
         box = np.asarray(box, np.float64)
         widths = [box[0, 0], box[1, 1], box[2, 2]]
-        self.cutoff = force.getCutoffDistance()
+        self.cutoff = force._cutoff
         self.periodic = force.usesPeriodicBoundaryConditions()
         use_cutoff = method != NonbondedForce.NoCutoff
         self.ljpme = method == NonbondedForce.LJPME
@@ -584,7 +599,7 @@ class NonbondedModule(nn.Module):
         self.box_widths = widths
         self.capacity_scale = 1.0
         self.use_switch = bool(force.getUseSwitchingFunction() and use_cutoff)
-        rs = force.getSwitchingDistance() if self.use_switch else 0.0
+        rs = force._switch_dist if self.use_switch else 0.0
         inv_w = 1.0 / (self.cutoff - rs) if self.use_switch else 0.0
         self.alpha = None
         self.grid = (0, 0, 0)

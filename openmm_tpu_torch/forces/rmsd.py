@@ -29,6 +29,7 @@ from torch import nn
 from .. import unit as u
 from ..ops.accumulate import GatherSum
 from ..ops.pairs import AnalyticEnergy
+from ..vec3 import Vec3
 from .base import Force
 
 F64 = torch.float64
@@ -85,7 +86,8 @@ class RMSDForce(Force):
         self._particles = [int(p) for p in particles]
 
     def getReferencePositions(self):
-        return self._ref.copy()
+        return u.Quantity([Vec3(*r) for r in self._ref.tolist()],
+                          u.nanometer)
 
     def setReferencePositions(self, positions) -> None:
         self._ref = np.array(u.strip(positions, u.nanometer),

@@ -50,14 +50,14 @@ class AndersenThermostat(Force):
         self._frequency = float(u.strip(defaultCollisionFrequency, _PER_PS))
         self._seed = 0
 
-    def getDefaultTemperature(self) -> float:
-        return self._temperature
+    def getDefaultTemperature(self):
+        return u.Quantity(self._temperature, _K)
 
     def setDefaultTemperature(self, temperature) -> None:
         self._temperature = float(u.strip(temperature, _K))
 
-    def getDefaultCollisionFrequency(self) -> float:
-        return self._frequency
+    def getDefaultCollisionFrequency(self):
+        return u.Quantity(self._frequency, _PER_PS)
 
     def setDefaultCollisionFrequency(self, frequency) -> None:
         self._frequency = float(u.strip(frequency, _PER_PS))

@@ -44,22 +44,24 @@ class AMDIntegrator(_AMD):
             "fprime=f*((1-modify) + modify*(alpha/(alpha+E-energy))^2); "
             "modify=step(E-energy)")
 
-    def getAlpha(self) -> float:
-        return self.getGlobalVariableByName("alpha")
+    def getAlpha(self):
+        return u.Quantity(self.getGlobalVariableByName("alpha"), _E)
 
     def setAlpha(self, alpha) -> None:
         self.setGlobalVariableByName("alpha", alpha)
 
-    def getE(self) -> float:
-        return self.getGlobalVariableByName("E")
+    def getE(self):
+        return u.Quantity(self.getGlobalVariableByName("E"), _E)
 
     def setE(self, E) -> None:
         self.setGlobalVariableByName("E", E)
 
-    def getEffectiveEnergy(self, energy) -> float:
+    def getEffectiveEnergy(self, energy):
         """The boosted energy of a potential energy `energy`."""
         energy = float(u.strip(energy, _E))
-        return energy + _boost(energy, self.getAlpha(), self.getE())
+        return u.Quantity(energy + _boost(
+            energy, self.getGlobalVariableByName("alpha"),
+            self.getGlobalVariableByName("E")), _E)
 
 
 class AMDForceGroupIntegrator(_AMD):
@@ -77,23 +79,24 @@ class AMDForceGroupIntegrator(_AMD):
             "(alphaGroup+EGroup-energy%d))^2); "
             "fother=f-fg; fg=f%d; modify=step(EGroup-energy%d)" % (g, g, g))
 
-    def getAlphaGroup(self) -> float:
-        return self.getGlobalVariableByName("alphaGroup")
+    def getAlphaGroup(self):
+        return u.Quantity(self.getGlobalVariableByName("alphaGroup"), _E)
 
     def setAlphaGroup(self, alpha) -> None:
         self.setGlobalVariableByName("alphaGroup", alpha)
 
-    def getEGroup(self) -> float:
-        return self.getGlobalVariableByName("EGroup")
+    def getEGroup(self):
+        return u.Quantity(self.getGlobalVariableByName("EGroup"), _E)
 
     def setEGroup(self, E) -> None:
         self.setGlobalVariableByName("EGroup", E)
 
-    def getEffectiveEnergy(self, totalEnergy, groupEnergy) -> float:
+    def getEffectiveEnergy(self, totalEnergy, groupEnergy):
         """The total energy with the group's boost."""
-        return float(u.strip(totalEnergy, _E)) + _boost(
-            float(u.strip(groupEnergy, _E)), self.getAlphaGroup(),
-            self.getEGroup())
+        return u.Quantity(float(u.strip(totalEnergy, _E)) + _boost(
+            float(u.strip(groupEnergy, _E)),
+            self.getGlobalVariableByName("alphaGroup"),
+            self.getGlobalVariableByName("EGroup")), _E)
 
 
 class DualAMDIntegrator(_AMD):
@@ -118,7 +121,7 @@ class DualAMDIntegrator(_AMD):
             "modifyTotal=step(ETotal-energy); "
             "modifyGroup=step(EGroup-energy%d)" % (g, g, g))
 
-    def getEffectiveEnergy(self, totalEnergy, groupEnergy) -> float:
+    def getEffectiveEnergy(self, totalEnergy, groupEnergy):
         """The total energy with both boosts."""
         total = float(u.strip(totalEnergy, _E))
         group = float(u.strip(groupEnergy, _E))
@@ -126,5 +129,5 @@ class DualAMDIntegrator(_AMD):
         e_t = self.getGlobalVariableByName("ETotal")
         alpha_g = self.getGlobalVariableByName("alphaGroup")
         e_g = self.getGlobalVariableByName("EGroup")
-        return total + _boost(total, alpha_t, e_t) \
-            + _boost(group, alpha_g, e_g)
+        return u.Quantity(total + _boost(total, alpha_t, e_t)
+                          + _boost(group, alpha_g, e_g), _E)

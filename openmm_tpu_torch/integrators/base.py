@@ -97,8 +97,8 @@ class Integrator:
         self._context = None
         self._seed = 0
 
-    def getStepSize(self) -> float:
-        return self._step_size
+    def getStepSize(self):
+        return u.Quantity(self._step_size, u.picosecond)
 
     def setStepSize(self, size: float) -> None:
         self._step_size = float(u.strip(size, u.picosecond))

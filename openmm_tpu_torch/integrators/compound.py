@@ -47,7 +47,7 @@ class CompoundIntegrator(Integrator):
     def _member(self):
         return self._integrators[self._current]
 
-    def getStepSize(self) -> float:
+    def getStepSize(self):
         return self._member().getStepSize()
 
     def setStepSize(self, size) -> None:

@@ -40,14 +40,14 @@ class _Stochastic(Integrator):
         self._temperature = float(u.strip(temperature, _K))
         self._friction = float(u.strip(frictionCoeff, _PER_PS))
 
-    def getTemperature(self) -> float:
-        return self._temperature
+    def getTemperature(self):
+        return u.Quantity(self._temperature, _K)
 
     def setTemperature(self, temperature: float) -> None:
         self._temperature = float(u.strip(temperature, _K))
 
-    def getFriction(self) -> float:
-        return self._friction
+    def getFriction(self):
+        return u.Quantity(self._friction, _PER_PS)
 
     def setFriction(self, friction: float) -> None:
         self._friction = float(u.strip(friction, _PER_PS))

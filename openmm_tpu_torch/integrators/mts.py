@@ -88,11 +88,11 @@ class MTSLangevinIntegrator(CustomIntegrator):
         self._create_substeps(1, groups)
         self.addConstrainVelocities()
 
-    def getTemperature(self) -> float:
-        return self._temperature
+    def getTemperature(self):
+        return u.Quantity(self._temperature, _K)
 
-    def getFriction(self) -> float:
-        return self._friction
+    def getFriction(self):
+        return u.Quantity(self._friction, _PER_PS)
 
     def _create_substeps(self, parent_substeps, groups):
         group, substeps = groups[0]

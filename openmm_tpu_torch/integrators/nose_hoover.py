@@ -107,26 +107,26 @@ class NoseHooverChain:
         self._d.setdefault("num_dofs", int(numDOFs) if numDOFs else 0)
         self._d.setdefault("chain_id", int(chainID) if chainID else 0)
 
-    def getTemperature(self) -> float:
-        return self._d["temperature"]
+    def getTemperature(self):
+        return u.Quantity(self._d["temperature"], _K)
 
     def setTemperature(self, temperature) -> None:
         self._d["temperature"] = float(u.strip(temperature, _K))
 
-    def getRelativeTemperature(self) -> float:
-        return self._d["rel_temperature"]
+    def getRelativeTemperature(self):
+        return u.Quantity(self._d["rel_temperature"], _K)
 
     def setRelativeTemperature(self, temperature) -> None:
         self._d["rel_temperature"] = float(u.strip(temperature, _K))
 
-    def getCollisionFrequency(self) -> float:
-        return self._d["frequency"]
+    def getCollisionFrequency(self):
+        return u.Quantity(self._d["frequency"], _PER_PS)
 
     def setCollisionFrequency(self, frequency) -> None:
         self._d["frequency"] = float(u.strip(frequency, _PER_PS))
 
-    def getRelativeCollisionFrequency(self) -> float:
-        return self._d["rel_frequency"]
+    def getRelativeCollisionFrequency(self):
+        return u.Quantity(self._d["rel_frequency"], _PER_PS)
 
     def setRelativeCollisionFrequency(self, frequency) -> None:
         self._d["rel_frequency"] = float(u.strip(frequency, _PER_PS))
@@ -226,28 +226,28 @@ class NoseHooverIntegrator(Integrator):
         return any(th["particles"] or th["pairs"]
                    for th in self._thermostats)
 
-    def getTemperature(self, chainID=0) -> float:
-        return self._thermostats[chainID]["temperature"]
+    def getTemperature(self, chainID=0):
+        return u.Quantity(self._thermostats[chainID]["temperature"], _K)
 
     def setTemperature(self, temp, chainID=0) -> None:
         self._thermostats[chainID]["temperature"] = float(u.strip(temp, _K))
 
-    def getRelativeTemperature(self, chainID=0) -> float:
-        return self._thermostats[chainID]["rel_temperature"]
+    def getRelativeTemperature(self, chainID=0):
+        return u.Quantity(self._thermostats[chainID]["rel_temperature"], _K)
 
     def setRelativeTemperature(self, temp, chainID=0) -> None:
         self._thermostats[chainID]["rel_temperature"] = float(
             u.strip(temp, _K))
 
-    def getCollisionFrequency(self, chainID=0) -> float:
-        return self._thermostats[chainID]["frequency"]
+    def getCollisionFrequency(self, chainID=0):
+        return u.Quantity(self._thermostats[chainID]["frequency"], _PER_PS)
 
     def setCollisionFrequency(self, freq, chainID=0) -> None:
         self._thermostats[chainID]["frequency"] = float(
             u.strip(freq, _PER_PS))
 
-    def getRelativeCollisionFrequency(self, chainID=0) -> float:
-        return self._thermostats[chainID]["rel_frequency"]
+    def getRelativeCollisionFrequency(self, chainID=0):
+        return u.Quantity(self._thermostats[chainID]["rel_frequency"], _PER_PS)
 
     def setRelativeCollisionFrequency(self, freq, chainID=0) -> None:
         self._thermostats[chainID]["rel_frequency"] = float(

@@ -56,18 +56,18 @@ class _Variable(Integrator):
     def setErrorTolerance(self, tol) -> None:
         self._error_tol = float(tol)
 
-    def getMaximumStepSize(self) -> float:
-        return self._max_step_size
+    def getMaximumStepSize(self):
+        return u.Quantity(self._max_step_size, u.picosecond)
 
     def setMaximumStepSize(self, size) -> None:
         self._max_step_size = float(u.strip(size, u.picosecond))
 
-    def getStepSize(self) -> float:
+    def getStepSize(self):
         """The step size of the last step (the host's value before the
         first)."""
         if self._dt is None:
-            return self._step_size
-        return float(self._dt)
+            return u.Quantity(self._step_size, u.picosecond)
+        return u.Quantity(float(self._dt), u.picosecond)
 
     def _init_state(self, deps: StepDeps) -> None:
         self._dt = deps.params[0]
@@ -124,14 +124,14 @@ class VariableLangevinIntegrator(_Variable):
         self._temperature = float(u.strip(temperature, _K))
         self._friction = float(u.strip(frictionCoeff, _PER_PS))
 
-    def getTemperature(self) -> float:
-        return self._temperature
+    def getTemperature(self):
+        return u.Quantity(self._temperature, _K)
 
     def setTemperature(self, temperature) -> None:
         self._temperature = float(u.strip(temperature, _K))
 
-    def getFriction(self) -> float:
-        return self._friction
+    def getFriction(self):
+        return u.Quantity(self._friction, _PER_PS)
 
     def setFriction(self, friction) -> None:
         self._friction = float(u.strip(friction, _PER_PS))

@@ -30,18 +30,17 @@ class LocalEnergyMinimizer:
                                   u.kilojoule_per_mole / u.nanometer))
         system = context.getSystem()
         n = system.getNumParticles()
-        cons = [system.getConstraintParameters(i)
-                for i in range(system.getNumConstraints())]
+        cons = list(system._constraints)
         p1 = np.array([c[0] for c in cons], np.int64)
         p2 = np.array([c[1] for c in cons], np.int64)
         dist = np.array([c[2] for c in cons], np.float64)
         tol_c = context.getIntegrator().getConstraintTolerance()
         working_tol = max(tolerance, 1e-4)
         k_penalty = 100.0 / max(tol_c, 1e-10)
-        free = np.array([system.getParticleMass(i) > 0 for i in range(n)])
+        free = np.asarray(system._masses) > 0
 
-        x0 = np.asarray(context.getState(getPositions=True).getPositions(),
-                        np.float64)
+        x0 = context.getState(getPositions=True).getPositions(
+            asNumpy=True)._value
         eval_fn = context._make_position_energy_fn()
 
         def objective(x):

@@ -53,6 +53,7 @@ import os
 
 import numpy as np
 
+from .. import unit as u
 from ..forces.custom import (CustomAngleForce, CustomBondForce,
                              CustomCentroidBondForce,
                              CustomCompoundBondForce, CustomExternalForce,
@@ -193,10 +194,10 @@ def tip4pew_water_box(n_waters=216, nonbonded_method=NonbondedForce.PME,
     count = tip3p.getNumParticles() // 3
     system = System()
     system.setDefaultPeriodicBoxVectors(
-        *tip3p.getDefaultPeriodicBoxVectors())
+        *u.plain(tip3p.getDefaultPeriodicBoxVectors()))
     nb = NonbondedForce()
     nb.setNonbondedMethod(nonbonded_method)
-    nb.setCutoffDistance(nb3.getCutoffDistance())
+    nb.setCutoffDistance(u.plain(nb3.getCutoffDistance()))
     nb.setUseDispersionCorrection(True)
     system.addForce(nb)
     for _ in range(count):
@@ -321,7 +322,7 @@ def popc_obc_cluster(lipids=OBC_CLUSTER_LIPIDS):
         "gb_method": "CutoffNonPeriodic", "gb_cutoff": OBC_CUTOFF,
         "gb_solute_dielectric": OBC_SOLUTE_DIELECTRIC,
         "gb_solvent_dielectric": OBC_SOLVENT_DIELECTRIC,
-        "gb_surface_energy": GBSAOBCForce().getSurfaceAreaEnergy()})
+        "gb_surface_energy": u.plain(GBSAOBCForce().getSurfaceAreaEnergy())})
     return from_numpy(params), pos
 
 
@@ -408,14 +409,14 @@ def alchemical_water_box(n_waters=8000, n_solute=64, cutoff=0.9):
     n = system.getNumParticles()
     solute = list(range(3 * n_solute))
     solvent = list(range(3 * n_solute, n))
-    base = [nb.getParticleParameters(i) for i in range(n)]
+    base = [u.plain(nb.getParticleParameters(i)) for i in range(n)]
     nb.addGlobalParameter("lambda_electrostatics", 1.0)
     for i in solute:
         q, sigma, _ = base[i]
         nb.setParticleParameters(i, 0.0, sigma, 0.0)
         nb.addParticleParameterOffset("lambda_electrostatics", i, q, 0.0,
                                       0.0)
-    box = system.getDefaultPeriodicBoxVectors()
+    box = u.plain(system.getDefaultPeriodicBoxVectors())
 
     soft = CustomNonbondedForce(SOFTCORE)
     soft.addGlobalParameter("lambda_sterics", 1.0)
@@ -430,9 +431,9 @@ def alchemical_water_box(n_waters=8000, n_solute=64, cutoff=0.9):
     for _, sigma, eps in base:
         soft.addParticle([sigma, eps])
     soft.setNonbondedMethod(CustomNonbondedForce.CutoffPeriodic)
-    soft.setCutoffDistance(nb.getCutoffDistance())
+    soft.setCutoffDistance(u.plain(nb.getCutoffDistance()))
     for k in range(nb.getNumExceptions()):
-        soft.addExclusion(*nb.getExceptionParameters(k)[:2])
+        soft.addExclusion(*u.plain(nb.getExceptionParameters(k))[:2])
     soft.addInteractionGroup(solute, solvent)
 
     oxygens = solute[::3]
@@ -460,7 +461,7 @@ def alchemical_water_box(n_waters=8000, n_solute=64, cutoff=0.9):
     centroid.addPerBondParameter("r0")
     half = len(solute) // 2 // 3 * 3
     halves = (solute[:half], solute[half:])
-    masses = np.asarray([system.getParticleMass(i) for i in range(n)])
+    masses = np.asarray([u.plain(system.getParticleMass(i)) for i in range(n)])
     for atoms in halves:
         centroid.addGroup(atoms)
     d = np.subtract(*(np.average(positions[list(a)], axis=0,
@@ -493,10 +494,11 @@ def custom_twins(system):
     twice). Returns (twin system, {twin kind: (standard force, twin)})."""
     twin = System()
     for i in range(system.getNumParticles()):
-        twin.addParticle(system.getParticleMass(i))
+        twin.addParticle(u.plain(system.getParticleMass(i)))
     for i in range(system.getNumConstraints()):
-        twin.addConstraint(*system.getConstraintParameters(i))
-    twin.setDefaultPeriodicBoxVectors(*system.getDefaultPeriodicBoxVectors())
+        twin.addConstraint(*u.plain(system.getConstraintParameters(i)))
+    twin.setDefaultPeriodicBoxVectors(*u.plain(
+        system.getDefaultPeriodicBoxVectors()))
     for index, site in system._vsites.items():
         twin.setVirtualSite(index, site)
     pairs = {}
@@ -507,14 +509,14 @@ def custom_twins(system):
             for name in ("r0", "k"):
                 t.addPerBondParameter(name)
             for i in range(force.getNumBonds()):
-                a, b, r0, k = force.getBondParameters(i)
+                a, b, r0, k = u.plain(force.getBondParameters(i))
                 t.addBond(a, b, [r0, k])
         elif kind == "HarmonicAngleForce":
             t = CustomAngleForce("0.5*k*(theta-theta0)^2")
             for name in ("theta0", "k"):
                 t.addPerAngleParameter(name)
             for i in range(force.getNumAngles()):
-                a, b, c, theta0, k = force.getAngleParameters(i)
+                a, b, c, theta0, k = u.plain(force.getAngleParameters(i))
                 t.addAngle(a, b, c, [theta0, k])
         elif kind == "PeriodicTorsionForce":
             t = CustomTorsionForce("k*(1+cos(n*theta-phase))")
@@ -524,7 +526,8 @@ def custom_twins(system):
                 t.addPerTorsionParameter(name)
                 compound.addPerBondParameter(name)
             for i in range(force.getNumTorsions()):
-                a, b, c, d, n, phase, k = force.getTorsionParameters(i)
+                a, b, c, d, n, phase, k = u.plain(force.getTorsionParameters(
+                    i))
                 t.addTorsion(a, b, c, d, [n, phase, k])
                 compound.addBond([a, b, c, d], [n, phase, k])
             compound.setForceGroup(TWIN_GROUPS["CustomCompoundBondForce"])

@@ -29,6 +29,21 @@ class Platform:
     def getName(self) -> str:
         return self._name
 
+    def getSpeed(self) -> float:
+        return 100.0 if self._device_type == "cuda" else 10.0
+
+    def getPropertyNames(self) -> list:
+        return list(self._defaults)
+
+    def getPropertyDefaultValue(self, prop) -> str:
+        if prop not in self._defaults:
+            raise ValueError("unknown platform property: %s" % prop)
+        return self._defaults[prop]
+
+    def getPropertyValue(self, context, prop) -> str:
+        return str((context._properties or {}).get(
+            prop, self.getPropertyDefaultValue(prop)))
+
     def resolve(self, properties=None):
         """(device, precision) for a Context built with `properties`."""
         props = dict(self._defaults)
@@ -61,6 +76,29 @@ class Platform:
     @staticmethod
     def getDefaultPlatform() -> "Platform":
         return _REGISTRY["CUDA"]
+
+    @staticmethod
+    def getNumPlatforms() -> int:
+        return len(_REGISTRY)
+
+    @staticmethod
+    def getPlatform(index_or_name) -> "Platform":
+        if isinstance(index_or_name, int):
+            return list(_REGISTRY.values())[index_or_name]
+        return Platform.getPlatformByName(index_or_name)
+
+    @staticmethod
+    def getOpenMMVersion() -> str:
+        from .version import short_version
+        return short_version
+
+    @staticmethod
+    def getDefaultPluginsDirectory() -> str:
+        return ""
+
+    @staticmethod
+    def getPluginLoadFailures() -> list:
+        return []
 
 
 _REGISTRY = {"CUDA": Platform("CUDA", "cuda"), "CPU": Platform("CPU", "cpu")}

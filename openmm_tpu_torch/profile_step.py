@@ -106,6 +106,7 @@ from . import (AMDForceGroupIntegrator, AndersenThermostat,
                NoseHooverIntegrator, PeriodicTorsionForce,
                VariableLangevinIntegrator, VerletIntegrator, CustomCVForce,
                RMSDForce)
+from . import unit as u
 from .forces.nonbonded import NonbondedForce
 from .models import (alchemical_water_box, popc_bilayer, popc_gb_cluster,
                      popc_obc_cluster, tip3p_water_box, tip4pew_water_box,
@@ -214,7 +215,7 @@ def _system(name, n_waters, method="pme"):
     if method in ("nocutoff", "cutoffnonperiodic"):
         box, positions = tip3p_water_box(n_waters)
         return (*water_droplet(positions,
-                               box.getDefaultPeriodicBoxVectors(),
+                               u.plain(box.getDefaultPeriodicBoxVectors()),
                                DROPLET_RADIUS, nb_method, cutoff), 300.0)
     return (*tip3p_water_box(n_waters, nonbonded_method=nb_method,
                              cutoff=cutoff), 300.0)
@@ -224,7 +225,7 @@ def rmsd_restrained(system, positions, k=2000.0, r0=0.05):
     """`system` with CustomCVForce("0.5*k*(rmsd-r0)^2") over an RMSDForce
     of the heavy atoms (above 2 amu) of its molecules larger than a
     water, the reference `positions`, in force group 6."""
-    masses = np.asarray([system.getParticleMass(i)
+    masses = np.asarray([u.plain(system.getParticleMass(i))
                          for i in range(system.getNumParticles())])
     probe = Context(system, LangevinMiddleIntegrator(300.0, 1.0, 0.002),
                     "CPU")
@@ -307,8 +308,10 @@ def _integrator(name, temperature, system, ctx):
             return MTSLangevinIntegrator(temperature, 1.0, 0.002,
                                          [(0, 1), (1, 2)]), False
         probe = _context(ctx._device, system, VerletIntegrator(0.001))
-        probe.setPositions(ctx.getState(getPositions=True).getPositions())
-        v0 = probe.getState(getEnergy=True, groups={1}).getPotentialEnergy()
+        probe.setPositions(u.plain(ctx.getState(
+            getPositions=True).getPositions(asNumpy=True)))
+        v0 = u.plain(probe.getState(getEnergy=True,
+                                    groups={1}).getPotentialEnergy())
         return AMDForceGroupIntegrator(0.001, 1, 0.2 * abs(v0),
                                        v0 + 0.2 * abs(v0)), False
     if name == "verlet":

@@ -1,11 +1,19 @@
-"""State: a snapshot of a Context as float64 numpy arrays and floats.
+"""State: a snapshot of a Context.
 
-Counterpart of openmm_tpu/state.py, without units (nm, ps, kJ/mol): the
-time, the step count, the box, and what getState was asked for: positions,
-velocities, forces, energies, the global parameters and the energy
-parameter derivatives.
+Counterpart of openmm_tpu/state.py. The data are held as float64 numpy
+arrays and floats in MD units (nm, ps, kJ/mol); the accessors return
+Quantities as the JAX State's do, and getPositions, getVelocities and
+getForces return a list of Vec3s, or with asNumpy=True an array, in a
+Quantity. The time, the step count, the box and what getState was asked
+for: positions, velocities, forces, energies, the global parameters and
+the energy parameter derivatives.
 """
 from __future__ import annotations
+
+import numpy as np
+
+from . import unit as u
+from .vec3 import Vec3
 
 
 class State:
@@ -16,6 +24,7 @@ class State:
     Energy = 8
     Parameters = 16
     ParameterDerivatives = 32
+    IntegratorParameters = 64
 
     def __init__(self, time=0.0, step=0, box=None, positions=None,
                  velocities=None, forces=None, potential_energy=None,
@@ -38,29 +47,48 @@ class State:
             raise ValueError("%s was not requested in getState" % what)
         return value
 
-    def getTime(self) -> float:
-        return self._time
+    def getTime(self):
+        return u.Quantity(self._time, u.picosecond)
 
     def getStepCount(self) -> int:
         return self._step
 
-    def getPeriodicBoxVectors(self):
-        return self._box
+    def getPeriodicBoxVectors(self, asNumpy=False):
+        box = np.asarray(self._need(self._box, "the box"), np.float64)
+        if asNumpy:
+            return u.Quantity(box, u.nanometer)
+        return tuple(Vec3(*row) for row in box.tolist()) * u.nanometer
 
-    def getPositions(self):
-        return self._need(self._positions, "positions")
+    def getPeriodicBoxVolume(self):
+        box = np.asarray(self._need(self._box, "the box"), np.float64)
+        return u.Quantity(float(abs(np.linalg.det(box))), u.nanometer ** 3)
 
-    def getVelocities(self):
-        return self._need(self._velocities, "velocities")
+    @staticmethod
+    def _vectors(values, unit, asNumpy):
+        if asNumpy:
+            return u.Quantity(np.asarray(values), unit)
+        return u.Quantity([Vec3(*row) for row in np.asarray(values).tolist()],
+                          unit)
 
-    def getForces(self):
-        return self._need(self._forces, "forces")
+    def getPositions(self, asNumpy=False):
+        return self._vectors(self._need(self._positions, "positions"),
+                             u.nanometer, asNumpy)
 
-    def getPotentialEnergy(self) -> float:
-        return self._need(self._pe, "energy")
+    def getVelocities(self, asNumpy=False):
+        return self._vectors(self._need(self._velocities, "velocities"),
+                             u.nanometer / u.picosecond, asNumpy)
 
-    def getKineticEnergy(self) -> float:
-        return self._need(self._ke, "energy")
+    def getForces(self, asNumpy=False):
+        return self._vectors(self._need(self._forces, "forces"),
+                             u.kilojoule_per_mole / u.nanometer, asNumpy)
+
+    def getPotentialEnergy(self):
+        return u.Quantity(float(self._need(self._pe, "energy")),
+                          u.kilojoule_per_mole)
+
+    def getKineticEnergy(self):
+        return u.Quantity(float(self._need(self._ke, "energy")),
+                          u.kilojoule_per_mole)
 
     def getParameters(self) -> dict:
         return dict(self._need(self._parameters, "parameters"))
@@ -69,6 +97,12 @@ class State:
         """{parameter: dE/dparameter} of the parameters the forces
         requested (addEnergyParameterDerivative)."""
         return dict(self._need(self._derivatives, "parameter derivatives"))
+
+    def getIntegratorParameters(self) -> dict:
+        """The port's integrators keep no parameters apart from the
+        Context's; the State holds none (the JAX State raises alike when
+        none were requested)."""
+        raise ValueError("integrator parameters were not requested")
 
     def getDataTypes(self) -> int:
         """The flags of the data this State holds."""

@@ -35,6 +35,7 @@ from .forces.gbsa import GBSAOBCForce
 from .forces.nonbonded import NonbondedForce
 from .forces.thermostats import AndersenThermostat
 from .tabulated import TABULATED_FUNCTIONS
+from .vec3 import Vec3
 
 _METHODS = {"NoCutoff": NonbondedForce.NoCutoff,
             "CutoffNonPeriodic": NonbondedForce.CutoffNonPeriodic,
@@ -114,8 +115,8 @@ class LocalCoordinatesSite(VirtualSite):
         self.originWeights = [float(w) for w in originWeights]
         self.xWeights = [float(w) for w in xWeights]
         self.yWeights = [float(w) for w in yWeights]
-        self.localPosition = tuple(
-            float(x) for x in u.strip(localPosition, u.nanometer))
+        self.localPosition = Vec3(
+            *(float(x) for x in u.strip(localPosition, u.nanometer)))
 
     def getOriginWeights(self):
         return self.originWeights
@@ -161,8 +162,8 @@ class System:
         self._masses.append(float(u.strip(mass, u.dalton)))
         return len(self._masses) - 1
 
-    def getParticleMass(self, index: int) -> float:
-        return self._masses[index]
+    def getParticleMass(self, index: int):
+        return u.Quantity(self._masses[index], u.dalton)
 
     def setParticleMass(self, index: int, mass: float) -> None:
         self._masses[index] = float(u.strip(mass, u.dalton))
@@ -187,7 +188,8 @@ class System:
         return len(self._constraints) - 1
 
     def getConstraintParameters(self, index: int):
-        return self._constraints[index]
+        p1, p2, d = self._constraints[index]
+        return p1, p2, u.Quantity(d, u.nanometer)
 
     def addForce(self, force) -> int:
         self._forces.append(force)
@@ -205,8 +207,9 @@ class System:
     def setDefaultPeriodicBoxVectors(self, a, b, c) -> None:
         self._box = reduced_box(*(u.strip(v, u.nanometer) for v in (a, b, c)))
 
-    def getDefaultPeriodicBoxVectors(self) -> np.ndarray:
-        return self._box.copy()
+    def getDefaultPeriodicBoxVectors(self):
+        return tuple(u.Quantity(Vec3(*row), u.nanometer)
+                     for row in self._box.tolist())
 
     def usesPeriodicBoundaryConditions(self) -> bool:
         return any(f.usesPeriodicBoundaryConditions() for f in self._forces)
@@ -421,15 +424,15 @@ def custom_spec(force) -> dict:
     kind = type(force).__name__
     spec = {"kind": kind, "group": force.getForceGroup()}
     if isinstance(force, RMSDForce):
-        spec.update(reference=force.getReferencePositions().tolist(),
+        spec.update(reference=u.plain(force.getReferencePositions()).tolist(),
                     particles=force.getParticles())
         return spec
     if isinstance(force, GayBerneForce):
         spec.update(particles=list(force._particles),
                     exceptions=list(force._exceptions),
                     method=force.getNonbondedMethod(),
-                    cutoff=force.getCutoffDistance(),
-                    switch_distance=(force.getSwitchingDistance()
+                    cutoff=u.plain(force.getCutoffDistance()),
+                    switch_distance=(u.plain(force.getSwitchingDistance())
                                      if force.getUseSwitchingFunction()
                                      else -1.0))
         return spec
@@ -446,7 +449,7 @@ def custom_spec(force) -> dict:
                           CustomManyParticleForce)):
         spec.update(exclusions=list(force._exclusions),
                     method=force.getNonbondedMethod(),
-                    cutoff=force.getCutoffDistance())
+                    cutoff=u.plain(force.getCutoffDistance()))
     if isinstance(force, CustomGBForce):
         spec.update(parameters=list(force._per_particle),
                     terms=[((), list(p)) for p in force._particles],
@@ -472,8 +475,8 @@ def custom_spec(force) -> dict:
         spec.update(parameters=list(force._per_particle),
                     terms=[((), list(p)) for p in force._particles],
                     method=force.getNonbondedMethod(),
-                    cutoff=force.getCutoffDistance(),
-                    switch_distance=(force.getSwitchingDistance()
+                    cutoff=u.plain(force.getCutoffDistance()),
+                    switch_distance=(u.plain(force.getSwitchingDistance())
                                      if force.getUseSwitchingFunction()
                                      else -1.0),
                     long_range_correction=force.getUseLongRangeCorrection(),
@@ -701,9 +704,9 @@ def _barostat(params):
 
 def _barostat_params(force) -> dict:
     """from_numpy's barostat keys of a barostat."""
-    out = {"barostat_pressure": np.asarray(force.getDefaultPressure(),
+    out = {"barostat_pressure": np.asarray(u.plain(force.getDefaultPressure()),
                                            np.float64),
-           "barostat_temperature": force.getDefaultTemperature(),
+           "barostat_temperature": u.plain(force.getDefaultTemperature()),
            "barostat_frequency": force.getFrequency()}
     if isinstance(force, MonteCarloAnisotropicBarostat):
         out["barostat_kind"] = "aniso"
@@ -711,7 +714,7 @@ def _barostat_params(force) -> dict:
             [force.getScaleX(), force.getScaleY(), force.getScaleZ()])
     elif isinstance(force, MonteCarloMembraneBarostat):
         out["barostat_kind"] = "membrane"
-        out["barostat_tension"] = force.getDefaultSurfaceTension()
+        out["barostat_tension"] = u.plain(force.getDefaultSurfaceTension())
         out["barostat_xymode"] = force.getXYMode()
         out["barostat_zmode"] = force.getZMode()
     else:
@@ -721,16 +724,16 @@ def _barostat_params(force) -> dict:
 
 def _gb_params(force) -> dict:
     """from_numpy's GBSAOBCForce keys of a GBSAOBCForce."""
-    p = np.asarray([force.getParticleParameters(i)
+    p = np.asarray([u.plain(force.getParticleParameters(i))
                     for i in range(force.getNumParticles())],
                    np.float64).reshape(-1, 3)
     return {"gb_charges": p[:, 0], "gb_radii": p[:, 1], "gb_scales": p[:, 2],
             "gb_method": {v: k for k, v in _GB_METHODS.items()}[
                 force.getNonbondedMethod()],
-            "gb_cutoff": force.getCutoffDistance(),
+            "gb_cutoff": u.plain(force.getCutoffDistance()),
             "gb_solute_dielectric": force.getSoluteDielectric(),
             "gb_solvent_dielectric": force.getSolventDielectric(),
-            "gb_surface_energy": force.getSurfaceAreaEnergy()}
+            "gb_surface_energy": u.plain(force.getSurfaceAreaEnergy())}
 
 
 def to_numpy(system: System) -> dict:
@@ -740,15 +743,15 @@ def to_numpy(system: System) -> dict:
     update hooks)."""
     forces = system.getForces()
     nb, *extra = [f for f in forces if isinstance(f, NonbondedForce)]
-    cons = [system.getConstraintParameters(i)
+    cons = [u.plain(system.getConstraintParameters(i))
             for i in range(system.getNumConstraints())]
     out = {
-        "masses": np.asarray([system.getParticleMass(i) for i in
+        "masses": np.asarray([u.plain(system.getParticleMass(i)) for i in
                               range(system.getNumParticles())], np.float64),
         "constraint_pairs": np.asarray([c[:2] for c in cons],
                                        np.int64).reshape(-1, 2),
         "constraint_distances": np.asarray([c[2] for c in cons], np.float64),
-        "box": system.getDefaultPeriodicBoxVectors(),
+        "box": u.plain(system.getDefaultPeriodicBoxVectors()),
     }
     out.update(_nonbonded_params(nb))
     if extra:
@@ -771,10 +774,11 @@ def to_numpy(system: System) -> dict:
 
 def _nonbonded_params(nb) -> dict:
     """from_numpy's NonbondedForce keys of a NonbondedForce."""
-    part = np.asarray([nb.getParticleParameters(i)
+    part = np.asarray([u.plain(nb.getParticleParameters(i))
                        for i in range(nb.getNumParticles())],
                       np.float64).reshape(-1, 3)
-    exc = [nb.getExceptionParameters(i) for i in range(nb.getNumExceptions())]
+    exc = [u.plain(nb.getExceptionParameters(i)) for i in range(
+        nb.getNumExceptions())]
     method = {v: k for k, v in _METHODS.items()}[nb.getNonbondedMethod()]
     out = {
         "charges": part[:, 0], "sigma": part[:, 1], "epsilon": part[:, 2],
@@ -782,10 +786,10 @@ def _nonbonded_params(nb) -> dict:
                                       np.int64).reshape(-1, 2),
         "exception_params": np.asarray([e[2:] for e in exc],
                                        np.float64).reshape(-1, 3),
-        "cutoff": nb.getCutoffDistance(), "method": method,
+        "cutoff": u.plain(nb.getCutoffDistance()), "method": method,
         "ewald_tolerance": nb.getEwaldErrorTolerance(),
         "dispersion_correction": nb.getUseDispersionCorrection(),
-        "switch_distance": (nb.getSwitchingDistance()
+        "switch_distance": (u.plain(nb.getSwitchingDistance())
                             if nb.getUseSwitchingFunction() else -1.0),
     }
     if nb.getReactionFieldDielectric() != 78.3:
@@ -816,7 +820,7 @@ def _other_params(forces, out, groups) -> None:
         (force,) = [f for f in forces if type(f) is cls] or (None,)
         if force is None:
             continue
-        terms = [getattr(force, get)(i)
+        terms = [u.plain(getattr(force, get)(i))
                  for i in range(getattr(force, count)())]
         out[atoms_key] = np.asarray([t[:n_atoms] for t in terms],
                                     np.int64).reshape(-1, n_atoms)
@@ -825,13 +829,13 @@ def _other_params(forces, out, groups) -> None:
         groups[kind] = force.getForceGroup()
     for force in forces:
         if isinstance(force, CMAPTorsionForce):
-            maps = [force.getMapParameters(i)
+            maps = [u.plain(force.getMapParameters(i))
                     for i in range(force.getNumMaps())]
             out["cmap_sizes"] = np.asarray([m[0] for m in maps], np.int64)
             out["cmap_energies"] = np.asarray(
                 [e for m in maps for e in m[1]], np.float64)
             out["cmap_torsions"] = np.asarray(
-                [force.getTorsionParameters(i)
+                [u.plain(force.getTorsionParameters(i))
                  for i in range(force.getNumTorsions())],
                 np.int64).reshape(-1, 9)
             groups["cmap"] = force.getForceGroup()
@@ -839,8 +843,10 @@ def _other_params(forces, out, groups) -> None:
             out.update(_gb_params(force))
             groups["gbsa"] = force.getForceGroup()
         elif isinstance(force, AndersenThermostat):
-            out["andersen_temperature"] = force.getDefaultTemperature()
-            out["andersen_frequency"] = force.getDefaultCollisionFrequency()
+            out["andersen_temperature"] = u.plain(
+                force.getDefaultTemperature())
+            out["andersen_frequency"] = u.plain(
+                force.getDefaultCollisionFrequency())
             out["andersen_seed"] = force.getRandomNumberSeed()
             groups["andersen"] = force.getForceGroup()
         elif isinstance(force, CMMotionRemover):

@@ -47,6 +47,36 @@ def _cell(x, lo, h, n):
     return i.long(), (x - lo) / h - i
 
 
+def _at(table, *index):
+    """table[index] for index tensors of one shape, 0-d included: a 0-d
+    index tensor would be read on the host (as a Python int), which a CUDA
+    graph's capture forbids, so the indices go in flattened."""
+    shape = index[0].shape
+    flat = tuple(i.reshape(-1) for i in index)
+    return table[flat].reshape(shape + table.shape[len(index):])
+
+
+def _updatable(fn, tensors, key):
+    """`fn` with the device tensors its closures read and the shape of its
+    table (sizes and ranges), for refresh()."""
+    fn.tensors, fn.key = tensors, key
+    return fn
+
+
+def refresh(fn, table) -> None:
+    """Write `table`'s current values into `fn`, the Function compiled from
+    it, in place: a captured CUDA graph reads the same tensors, so the
+    next replay evaluates the new table with no new capture. A table whose
+    size or range changed cannot be written in place and raises."""
+    dtype, device = fn.tensors[0].dtype, fn.tensors[0].device
+    new = table._compile(dtype, device)
+    if new.key != fn.key:
+        raise ValueError("updateParametersInContext: the size or range of "
+                         "a tabulated function has changed")
+    for old, values in zip(fn.tensors, new.tensors):
+        old.copy_(values)
+
+
 def _powers(t):
     return torch.stack([torch.ones_like(t), t, t * t, t * t * t], dim=-1)
 
@@ -111,8 +141,9 @@ class Continuous1DFunction(TabulatedFunction):
             return inside, i.long(), a, b
 
         def spline(inside, i, a, b):
-            val = (a * y[i] + b * y[i + 1]
-                   + ((a * a * a - a) * d2[i] + (b * b * b - b) * d2[i + 1])
+            val = (a * _at(y, i) + b * _at(y, i + 1)
+                   + ((a * a * a - a) * _at(d2, i)
+                      + (b * b * b - b) * _at(d2, i + 1))
                    * (h * h) / 6.0)
             return torch.where(inside, val, 0.0)
 
@@ -121,13 +152,14 @@ class Continuous1DFunction(TabulatedFunction):
 
         def both(x):
             inside, i, a, b = cell(x)
-            d = ((y[i + 1] - y[i]) / h
-                 + ((1.0 - 3.0 * a * a) * d2[i] + (3.0 * b * b - 1.0)
-                    * d2[i + 1]) * (h / 6.0))
+            d = ((_at(y, i + 1) - _at(y, i)) / h
+                 + ((1.0 - 3.0 * a * a) * _at(d2, i) + (3.0 * b * b - 1.0)
+                    * _at(d2, i + 1)) * (h / 6.0))
             return (spline(inside, i, a, b),
                     [torch.where(inside, d, 0.0)])
 
-        return Function(value, both)
+        return _updatable(Function(value, both), (y, d2),
+                          (n, lo, hi, periodic))
 
 
 class _GridFunction(TabulatedFunction):
@@ -156,7 +188,7 @@ class _GridFunction(TabulatedFunction):
                              sizes[k])
                 cells.append(i)
                 ts.append(t)
-            return inside, coeffs[tuple(cells)], ts
+            return inside, _at(coeffs, *cells), ts
 
         def contract(c, rows):
             if dims == 2:
@@ -179,7 +211,8 @@ class _GridFunction(TabulatedFunction):
                                        / widths[k], 0.0))
             return torch.where(inside, contract(c, rows), 0.0), out
 
-        return Function(value, both)
+        return _updatable(Function(value, both), (coeffs,),
+                          (tuple(lims), tuple(sizes), periodic))
 
 
 def _first_derivatives(a, axis, periodic):
@@ -343,13 +376,13 @@ class _DiscreteFunction(TabulatedFunction):
                          for x, size in zip(xs, sizes)), xs[0]
 
         def value(*args):
-            return table[index(args)[0]]
+            return _at(table, *index(args)[0])
 
         def both(*args):
             cells, x = index(args)
-            return table[cells], [torch.zeros_like(x) for _ in sizes]
+            return _at(table, *cells), [torch.zeros_like(x) for _ in sizes]
 
-        return Function(value, both)
+        return _updatable(Function(value, both), (table,), tuple(sizes))
 
 
 class Discrete1DFunction(_DiscreteFunction):

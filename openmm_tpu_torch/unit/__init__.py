@@ -634,4 +634,28 @@ def strip(value, unit=None):
     return value
 
 
-__all__ += ["strip"]
+def plain(value):
+    """`value` as a caller in plain numbers wants it: every Quantity in it
+    replaced by its number in the unit it carries (the getters' units: nm,
+    ps, K, kJ/mol, amu, e, rad, bar), a list or tuple of vectors
+    (positions, box vectors) as an (n, 3) float64 array, a tuple of
+    parameters as a tuple of plain numbers. Values without units pass
+    unchanged. To read a Quantity in a unit of one's choosing, use
+    strip."""
+    if value.__class__ in _PLAIN:
+        return value
+    if isinstance(value, Quantity):
+        value = value._value
+    if isinstance(value, (list, tuple)) and value:
+        if all(isinstance(v, Quantity) and isinstance(v._value, tuple)
+               for v in value):
+            value = [v._value for v in value]
+        if all(isinstance(v, tuple) and len(v) == 3 for v in value):
+            return _np.asarray(value, _np.float64)
+        if isinstance(value, tuple):
+            return tuple(plain(v) for v in value)
+        return [plain(v) for v in value]
+    return value
+
+
+__all__ += ["strip", "plain"]

@@ -22,6 +22,7 @@ from openmm_tpu_torch.app.modeller import _load_membrane_patch as port_patch
 from test_torch_forcefield import PEPTIDE
 from torch_port_helpers import _cropped_patch, port_topology, \
     template_topology
+from openmm_tpu_torch.unit import plain
 
 
 def _structure(top):

@@ -42,6 +42,7 @@ from openmm_tpu_torch.forces.barostats import (PRESSURE_UNIT_FACTOR,
                                                scale_molecules)
 from torch_port_helpers import (barostat_params, cropped_bilayer,
                                 system_params)
+from openmm_tpu_torch.unit import plain
 
 N_WATERS = 216
 
@@ -364,13 +365,13 @@ def test_set_box_matches_jax_reference(water):
     e_ref = jst.getPotentialEnergy()._value
     f_ref = np.asarray(jst.getForces(asNumpy=True)._value)
     ctx = _port_context(params, pos)
-    e_old = ctx.getState(getEnergy=True).getPotentialEnergy()
+    e_old = plain(ctx.getState(getEnergy=True).getPotentialEnergy())
     ctx.setPeriodicBoxVectors(*box)
     st = ctx.getState(getEnergy=True, getForces=True)
-    assert np.array_equal(st.getPeriodicBoxVectors(), box)
-    assert abs(st.getPotentialEnergy() - e_ref) < 1e-10 * abs(e_ref)
-    assert np.abs(st.getForces() - f_ref).max() < 1e-10 * np.abs(
-        f_ref).max()
+    assert np.array_equal(plain(st.getPeriodicBoxVectors(asNumpy=True)), box)
+    assert abs(plain(st.getPotentialEnergy()) - e_ref) < 1e-10 * abs(e_ref)
+    f = plain(st.getForces(asNumpy=True))
+    assert np.abs(f - f_ref).max() < 1e-10 * np.abs(f_ref).max()
     assert abs(e_old - e_ref) > 1.0             # the box did matter
     with pytest.raises(ValueError):
         ctx.setPeriodicBoxVectors([1.0, 0, 0], [0, 2.5, 0], [0, 0, 2.5])
@@ -388,7 +389,7 @@ def test_set_state_and_parameters_round_trip(water):
     with pytest.raises(ValueError, match="invalid parameter name"):
         ctx.setParameter("nope", 1.0)
     ctx.setTime(1.25)
-    assert ctx.getTime() == 1.25
+    assert plain(ctx.getTime()) == 1.25
     st = ctx.getState(getPositions=True, getVelocities=True,
                       getParameters=True)
     assert st.getDataTypes() == (omm.State.Positions | omm.State.Velocities
@@ -397,15 +398,17 @@ def test_set_state_and_parameters_round_trip(water):
     other.setState(st)
     st2 = other.getState(getPositions=True, getVelocities=True,
                          getParameters=True, getEnergy=True)
-    assert np.array_equal(st2.getPositions(), st.getPositions())
-    assert np.array_equal(st2.getVelocities(), st.getVelocities())
-    assert np.array_equal(st2.getPeriodicBoxVectors(),
-                          st.getPeriodicBoxVectors())
+    assert np.array_equal(plain(st2.getPositions(asNumpy=True)),
+                          plain(st.getPositions(asNumpy=True)))
+    assert np.array_equal(plain(st2.getVelocities(asNumpy=True)),
+                          plain(st.getVelocities(asNumpy=True)))
+    assert np.array_equal(plain(st2.getPeriodicBoxVectors(asNumpy=True)),
+                          plain(st.getPeriodicBoxVectors(asNumpy=True)))
     assert st2.getParameters() == st.getParameters()
-    assert (st2.getTime(), st2.getStepCount()) == (1.25, 6)
+    assert (plain(st2.getTime()), st2.getStepCount()) == (1.25, 6)
     # float32 forces through another candidate state: other rounding
-    assert st2.getPotentialEnergy() == pytest.approx(
-        ctx.getState(getEnergy=True).getPotentialEnergy(), rel=1e-6)
+    assert plain(st2.getPotentialEnergy()) == pytest.approx(
+        plain(ctx.getState(getEnergy=True).getPotentialEnergy()), rel=1e-6)
     other.setStepCount(11)
     assert other.getStepCount() == 11
 
@@ -421,12 +424,12 @@ def test_enforce_periodic_box_matches_jax(bilayer):
     shift = rng.randint(-2, 3, size=(len(ctx.getMolecules()), 3)) * 0.5
     moved = pos + (shift @ box)[ctx._molecule_id]
     ctx.setPositions(moved)
-    got = ctx.getState(getPositions=True,
-                       enforcePeriodicBox=True).getPositions()
+    got = plain(ctx.getState(getPositions=True,
+                       enforcePeriodicBox=True).getPositions(asNumpy=True))
     want = jctx._wrap_positions(moved, box)
     assert np.abs(got - want).max() < 1e-12
     assert np.abs(got - moved).max() > 1.0          # something wrapped
-    raw = ctx.getState(getPositions=True).getPositions()
+    raw = plain(ctx.getState(getPositions=True).getPositions(asNumpy=True))
     assert np.array_equal(raw, moved)
 
 

@@ -38,6 +38,7 @@ from openmm_tpu_torch.ops.constraints import (partition_constraints,
 from torch_port_helpers import (BILAYER_DATA, bilayer_templates,
                                 cropped_bilayer, median_relative_error,
                                 system_params)
+from openmm_tpu_torch.unit import plain
 
 # force groups of the comparison: bonds, angles, torsions, nonbonded, the
 # remover (no energy)
@@ -99,8 +100,8 @@ def test_full_bilayer_has_the_forcefield_counts():
     assert counts["NonbondedForce"].getNumExceptions() == 110720
     assert counts["CMMotionRemover"].getFrequency() == 1
     assert system.getNumConstraints() == 25856
-    masses = [system.getParticleMass(i) for i in range(32512)]
-    cons = [system.getConstraintParameters(i) for i in range(25856)]
+    masses = [plain(system.getParticleMass(i)) for i in range(32512)]
+    cons = [plain(system.getConstraintParameters(i)) for i in range(25856)]
     settle, rest = partition_constraints(cons, masses)
     shake, ccma = partition_shake_clusters(rest, masses)
     assert (len(settle), len(shake), len(ccma)) == (5120, 5120, 0)
@@ -147,8 +148,8 @@ def test_double_energy_and_forces_by_group_match_reference(bilayer, group):
     ctx = _port_context(params, "double")
     ctx.setPositions(pos)
     st = ctx.getState(getEnergy=True, getForces=True, groups=groups)
-    assert abs(st.getPotentialEnergy() - e_ref) <= 1e-9 * abs(e_ref)
-    assert np.abs(st.getForces() - f_ref).max() <= \
+    assert abs(plain(st.getPotentialEnergy()) - e_ref) <= 1e-9 * abs(e_ref)
+    assert np.abs(plain(st.getForces(asNumpy=True)) - f_ref).max() <= \
         1e-9 * np.abs(f_ref).max()
 
 
@@ -162,10 +163,10 @@ def test_mixed_forces_match_reference_and_cpu(bilayer):
         jctx.setPositions(pos)
         ref = jctx.getState(getEnergy=True, getForces=True)
         e_ref = ref.getPotentialEnergy()._value
-        err = median_relative_error(st.getForces(),
+        err = median_relative_error(plain(st.getForces(asNumpy=True)),
                                     _jax_array(ref.getForces(asNumpy=True)))
         assert err <= 1e-5, (platform, err)
-        assert abs(st.getPotentialEnergy() - e_ref) <= 1e-5 * abs(e_ref)
+        assert abs(plain(st.getPotentialEnergy()) - e_ref) <= 1e-5 * abs(e_ref)
 
 
 def _start(jsys, pos, params):
@@ -199,7 +200,7 @@ def test_ten_steps_at_zero_kelvin_match_reference(bilayer):
     ctx.setPositions(start)
     ctx.setVelocities(vel)
     integ.step(10)
-    got = ctx.getState(getPositions=True).getPositions()
+    got = plain(ctx.getState(getPositions=True).getPositions(asNumpy=True))
     assert len(ctx._programs) == 1
     assert np.abs(want - start).max() > 5e-2           # the atoms moved
     assert np.abs(got - want).max() <= 1e-9
@@ -229,8 +230,8 @@ def test_cm_motion_remover_fires_on_the_jax_steps(bilayer):
     readers = {
         "jax": (jctx, jint.step, lambda: _jax_array(jctx.getState(
             getVelocities=True).getVelocities(asNumpy=True))),
-        "port": (ctx, integ.step, lambda: ctx.getState(
-            getVelocities=True).getVelocities())}
+        "port": (ctx, integ.step, lambda: plain(ctx.getState(
+            getVelocities=True).getVelocities(asNumpy=True)))}
     fired = {"jax": [], "port": []}
     for c, _, _ in readers.values():
         c.setPositions(start)

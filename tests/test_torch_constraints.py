@@ -23,6 +23,7 @@ from openmm_tpu.ops import constraints as jcons
 import openmm_tpu_torch as omm
 from openmm_tpu_torch.ops import constraints as tcons
 from torch_port_helpers import median_relative_error  # noqa: F401  (threads)
+from openmm_tpu_torch.unit import plain
 
 TOL = 1e-12
 CPU = torch.device("cpu")
@@ -223,8 +224,10 @@ def test_system_without_nonbonded_steps_through_the_program():
         runs.append(ctx.getState(getPositions=True,
                                  getVelocities=True))
     (got, want) = runs
-    np.testing.assert_array_equal(got.getPositions(), want.getPositions())
-    np.testing.assert_array_equal(got.getVelocities(), want.getVelocities())
-    x = got.getPositions()
+    np.testing.assert_array_equal(plain(got.getPositions(asNumpy=True)),
+                                  plain(want.getPositions(asNumpy=True)))
+    np.testing.assert_array_equal(plain(got.getVelocities(asNumpy=True)),
+                                  plain(want.getVelocities(asNumpy=True)))
+    x = plain(got.getPositions(asNumpy=True))
     err = max(abs(np.linalg.norm(x[i] - x[j]) - d) / d for i, j, d in cons)
     assert err < 1e-5

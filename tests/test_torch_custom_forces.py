@@ -34,6 +34,7 @@ import openmm_tpu_torch as omm
 from openmm_tpu_torch.models import tip3p_water_box
 from openmm_tpu_torch.models.builders import SOFTCORE
 from torch_port_helpers import jax_system, median_relative_error
+from openmm_tpu_torch.unit import plain
 
 WATERS = 128
 E_TOL = 1e-10           # energies, relative
@@ -171,7 +172,7 @@ def _reading(ctx, group):
     st = ctx.getState(getEnergy=True, getForces=True,
                       getParameterDerivatives=True,
                       groups=group if isinstance(group, set) else {group})
-    return (st.getPotentialEnergy(), st.getForces(),
+    return (plain(st.getPotentialEnergy()), plain(st.getForces(asNumpy=True)),
             st.getEnergyParameterDerivatives())
 
 
@@ -225,29 +226,29 @@ def _change(c, force, kind):
     of their global parameter through Context c)."""
     if kind == "CustomNonbondedForce":
         for i in range(0, force.getNumParticles(), 7):
-            p = force.getParticleParameters(i)
+            p = plain(force.getParticleParameters(i))
             force.setParticleParameters(i, [p[0] * 1.05, p[1] * 0.9])
     elif kind == "CustomExternalForce":
         for i in range(force.getNumParticles()):
-            atom, p = force.getParticleParameters(i)
+            atom, p = plain(force.getParticleParameters(i))
             force.setParticleParameters(i, atom, [x + 0.03 for x in p])
     elif kind == "CustomCentroidBondForce":
-        groups, p = force.getBondParameters(0)
+        groups, p = plain(force.getBondParameters(0))
         force.setBondParameters(0, groups, [p[0] * 1.5])
     elif kind == "CustomCompoundBondForce":
         for i in range(force.getNumBonds()):
-            atoms, p = force.getBondParameters(i)
+            atoms, p = plain(force.getBondParameters(i))
             force.setBondParameters(i, atoms, [p[0] * 3.0])
     elif kind == "CustomAngleForce":
         for i in range(force.getNumAngles()):
-            *atoms, p = force.getAngleParameters(i)
+            *atoms, p = plain(force.getAngleParameters(i))
             force.setAngleParameters(i, *atoms, [p[0] * 2, p[1] - 0.1])
     elif kind == "CustomTorsionForce":
         force.setGlobalParameterDefaultValue(0, 3.0)
         c.setParameter("kt", 3.0)
     else:
         for i in range(force.getNumBonds()):
-            a, b, p = force.getBondParameters(i)
+            a, b, p = plain(force.getBondParameters(i))
             force.setBondParameters(i, a, b, [p[0] * 1.1, p[1] * 0.5])
 
 
@@ -338,7 +339,7 @@ def test_ten_steps_at_zero_kelvin_match_jax_reference(case):
     ctx = _context(params, start, integrator=integ)
     ctx.setVelocities(vel)
     integ.step(10)
-    got = ctx.getState(getPositions=True).getPositions()
+    got = plain(ctx.getState(getPositions=True).getPositions(asNumpy=True))
     assert np.abs(want - start).max() > 1e-3
     assert np.abs(got - want).max() <= POS_TOL
 
@@ -361,8 +362,10 @@ def test_float32_pairs_and_step_program_against_eager_loop(case):
     integ.setRandomNumberSeed(5)
     ctx = _context(params, pos, precision="mixed", integrator=integ)
     for g in range(1, 8):
-        f32 = ctx.getState(getForces=True, groups={g}).getForces()
-        f64 = ctx64.getState(getForces=True, groups={g}).getForces()
+        f32 = plain(ctx.getState(getForces=True,
+                                 groups={g}).getForces(asNumpy=True))
+        f64 = plain(ctx64.getState(getForces=True,
+                                   groups={g}).getForces(asNumpy=True))
         assert median_relative_error(f32[np.abs(f64).sum(1) > 0],
                                      f64[np.abs(f64).sum(1) > 0]) <= 1e-5
     ctx.applyConstraints()
@@ -373,8 +376,10 @@ def test_float32_pairs_and_step_program_against_eager_loop(case):
     ctx._restore(snap)
     ctx._step_eager(6)
     b = ctx.getState(getPositions=True, getVelocities=True)
-    assert np.array_equal(a.getPositions(), b.getPositions())
-    assert np.array_equal(a.getVelocities(), b.getVelocities())
+    assert np.array_equal(plain(a.getPositions(asNumpy=True)),
+                          plain(b.getPositions(asNumpy=True)))
+    assert np.array_equal(plain(a.getVelocities(asNumpy=True)),
+                          plain(b.getVelocities(asNumpy=True)))
 
 
 def test_from_numpy_round_trip(case):
@@ -425,7 +430,7 @@ def test_derivative_of_an_offset_parameter_raises():
     e = []
     for lam in (0.7 + 1e-5, 0.7 - 1e-5):
         ctx.setParameter("lambda", lam)
-        e.append(ctx.getState(getEnergy=True).getPotentialEnergy())
+        e.append(plain(ctx.getState(getEnergy=True).getPotentialEnergy()))
     want = (e[0] - e[1]) / 2e-5
     assert abs(want) > 1.0
     assert abs(got - want) <= 1e-6 * abs(want)
@@ -472,8 +477,8 @@ def test_alchemical_box_builder():
         e = []
         for h in (1e-4, -1e-4):
             ctx.setParameter("lambda_sterics", lam + h)
-            e.append(ctx.getState(getEnergy=True,
-                                  groups={1}).getPotentialEnergy())
+            e.append(plain(ctx.getState(getEnergy=True,
+                                  groups={1}).getPotentialEnergy()))
         want = (e[0] - e[1]) / 2e-4
         assert abs(d["lambda_sterics"] - want) <= 1e-6 * abs(want)
 
@@ -525,6 +530,8 @@ def test_chip_smoke_custom_phases_on_cpu():
         chip_smoke.BILAYER_GROUPS[type(f).__name__]
         for f in bsys.getForces()]
     last = bctx.getState(getPositions=True)
-    tables = chip_smoke.phase_tables(cpu, last.getPositions(),
-                                     last.getPeriodicBoxVectors())
+    tables = chip_smoke.phase_tables(cpu,
+                                     plain(last.getPositions(asNumpy=True)),
+                                     plain(last.getPeriodicBoxVectors(
+                                         asNumpy=True)))
     assert tables["errors"] == (0.0, 0.0)

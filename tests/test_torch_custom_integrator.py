@@ -26,6 +26,7 @@ import openmm_tpu as mm
 import openmm_tpu_torch as omm
 from openmm_tpu_torch.models import tip3p_water_box
 from torch_port_helpers import ANCHORS, anchored_droplet, jax_system
+from openmm_tpu_torch.unit import plain
 
 STEPS = 25
 
@@ -65,7 +66,8 @@ def _start_energies(params, pos):
     ctx = omm.Context(omm.from_numpy(params), omm.VerletIntegrator(0.001),
                       "CPU", {"Precision": "double"})
     ctx.setPositions(pos)
-    return tuple(ctx.getState(getEnergy=True, groups=g).getPotentialEnergy()
+    return tuple(plain(ctx.getState(getEnergy=True,
+                                    groups=g).getPotentialEnergy())
                  for g in (-1, {0}, {1}))
 
 
@@ -134,25 +136,25 @@ def test_trajectory_matches_jax_reference(droplet, name):
     ctx.setVelocities(vel)
     integ.step(STEPS)
     st = ctx.getState(getPositions=True, getEnergy=True)
-    got = st.getPositions()
+    got = plain(st.getPositions(asNumpy=True))
     assert np.abs(want - start).max() > 1e-3       # the atoms did move
     assert np.abs(got - want).max() < 1e-9
     assert np.array_equal(got[-ANCHORS:], start[-ANCHORS:])
     ke = jst.getKineticEnergy()._value
-    assert abs(st.getKineticEnergy() - ke) < 1e-9 * abs(ke)
+    assert abs(plain(st.getKineticEnergy()) - ke) < 1e-9 * abs(ke)
     if name.startswith("amd") or name == "dual_amd":
         # the boost was active: the effective energy exceeds the plain one
-        energy = st.getPotentialEnergy()
+        energy = plain(st.getPotentialEnergy())
         if name == "amd_group":
-            boosted = integ.getEffectiveEnergy(
-                energy, ctx.getState(getEnergy=True, groups={0})
-                .getPotentialEnergy())
+            boosted = plain(integ.getEffectiveEnergy(
+                energy, plain(ctx.getState(getEnergy=True, groups={0})
+                .getPotentialEnergy())))
         elif name == "dual_amd":
-            boosted = integ.getEffectiveEnergy(
-                energy, ctx.getState(getEnergy=True, groups={1})
-                .getPotentialEnergy())
+            boosted = plain(integ.getEffectiveEnergy(
+                energy, plain(ctx.getState(getEnergy=True, groups={1})
+                .getPotentialEnergy())))
         else:
-            boosted = integ.getEffectiveEnergy(energy)
+            boosted = plain(integ.getEffectiveEnergy(energy))
         assert boosted > energy
 
 
@@ -196,10 +198,10 @@ def test_compound_switch_matches_jax_reference(droplet, name):
     jvel = np.asarray(jst.getVelocities(asNumpy=True)._value)
     st = ctx.getState(getPositions=True, getVelocities=True, getEnergy=True)
     assert np.abs(want - start).max() > 1e-3
-    assert np.abs(st.getPositions() - want).max() < 1e-9
-    assert np.abs(st.getVelocities() - jvel).max() < 1e-9
+    assert np.abs(plain(st.getPositions(asNumpy=True)) - want).max() < 1e-9
+    assert np.abs(plain(st.getVelocities(asNumpy=True)) - jvel).max() < 1e-9
     ke = 0.5 * np.sum(params["masses"][:, None] * jvel * jvel)
-    assert abs(st.getKineticEnergy() - ke) < 1e-9 * abs(ke)
+    assert abs(plain(st.getKineticEnergy()) - ke) < 1e-9 * abs(ke)
 
 
 def _pairs(mod):
@@ -240,7 +242,7 @@ def test_mts_langevin_without_constraints_matches_jax_reference():
     ctx.setPositions(pos)
     ctx.setVelocities(vel)
     integ.step(STEPS)
-    got = ctx.getState(getPositions=True).getPositions()
+    got = plain(ctx.getState(getPositions=True).getPositions(asNumpy=True))
     assert np.abs(want - pos).max() > 1e-3
     assert np.abs(got - want).max() < 1e-9
 
@@ -346,8 +348,8 @@ def test_compute_sum_is_the_kinetic_energy(droplet):
     integ.step(5)
     ke = integ.getGlobalVariableByName("ke")
     assert ke == pytest.approx(ctx.kinetic_energy(), rel=1e-12)
-    assert ke == pytest.approx(ctx.getState(getEnergy=True)
-                               .getKineticEnergy(), rel=1e-12)
+    assert ke == pytest.approx(plain(ctx.getState(getEnergy=True)
+                               .getKineticEnergy()), rel=1e-12)
 
 
 def test_variables_set_and_read_back(droplet):
@@ -478,7 +480,7 @@ def test_program_matches_eager_loop_bitwise(name):
         assert torch.equal(graph._state[key], eager._state[key])
     for a, b in zip(graph._step_tensors(), eager._step_tensors()):
         assert torch.equal(a, b)
-    assert graph.getTime() == eager.getTime() > 0
+    assert plain(graph.getTime()) == plain(eager.getTime()) > 0
     integ = graph.getIntegrator()
     if name == "blocks":
         assert integ.getGlobalVariableByName("n") == 12.0

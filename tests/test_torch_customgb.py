@@ -35,6 +35,7 @@ import openmm_tpu_torch as omm
 from openmm_tpu_torch.app import gbforces
 from openmm_tpu_torch.models import builders, popc_obc_cluster
 from torch_port_helpers import jax_custom_force, jax_system
+from openmm_tpu_torch.unit import plain
 
 E_TOL = 1e-10
 F_TOL = 1e-9
@@ -104,7 +105,7 @@ def _readings(ctx, jctx, groups=(GB_GROUP,)):
                       getParameterDerivatives=True, groups=set(groups))
     jst = jctx.getState(getEnergy=True, getForces=True,
                         getParameterDerivatives=True, groups=set(groups))
-    return ((st.getPotentialEnergy(), st.getForces(),
+    return ((plain(st.getPotentialEnergy()), plain(st.getForces(asNumpy=True)),
              st.getEnergyParameterDerivatives()),
             (float(u.strip(jst.getPotentialEnergy())),
              np.asarray(u.strip(jst.getForces(asNumpy=True))),
@@ -315,7 +316,7 @@ def test_update_parameters_in_context(cluster):
     ctx.setPositions(pos)
     for c, force in ((ctx, ours), (jctx, theirs)):
         for i in range(0, force.getNumParticles(), 5):
-            p = list(force.getParticleParameters(i))
+            p = list(plain(force.getParticleParameters(i)))
             p[0] = -0.5 * p[0] + 0.1
             force.setParticleParameters(i, p)
         force.updateParametersInContext(c)
@@ -346,7 +347,7 @@ def test_ten_steps_at_zero_kelvin_match_jax_reference(cluster):
     ctx.getIntegrator().step(10)
     want = np.asarray(u.strip(jctx.getState(getPositions=True)
                               .getPositions(asNumpy=True)))
-    got = ctx.getState(getPositions=True).getPositions()
+    got = plain(ctx.getState(getPositions=True).getPositions(asNumpy=True))
     assert np.abs(want - start).max() > 1e-3
     assert np.abs(got - want).max() <= POS_TOL
 

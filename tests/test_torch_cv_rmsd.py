@@ -31,6 +31,7 @@ from openmm_tpu import unit as u
 import openmm_tpu_torch as omm
 from openmm_tpu_torch.forces.rmsd import RMSDModule
 from torch_port_helpers import jax_system
+from openmm_tpu_torch.unit import plain
 
 E_TOL = 1e-10
 F_TOL = 1e-9
@@ -120,7 +121,8 @@ def _reading(ctx, group, jax=False):
     st = ctx.getState(getEnergy=True, getForces=True,
                       getParameterDerivatives=True, groups={group})
     if not jax:
-        return (st.getPotentialEnergy(), st.getForces(),
+        return (plain(st.getPotentialEnergy()),
+                plain(st.getForces(asNumpy=True)),
                 st.getEnergyParameterDerivatives())
     return (float(u.strip(st.getPotentialEnergy())),
             np.asarray(u.strip(st.getForces(asNumpy=True))),
@@ -212,7 +214,7 @@ def test_ten_steps_at_zero_kelvin_match_jax_reference(case):
     jctx.getIntegrator().step(10)
     want = np.asarray(u.strip(jctx.getState(getPositions=True)
                               .getPositions(asNumpy=True)))
-    got = ctx.getState(getPositions=True).getPositions()
+    got = plain(ctx.getState(getPositions=True).getPositions(asNumpy=True))
     assert np.abs(want - pos).max() > 1e-3
     assert np.abs(got - want).max() <= POS_TOL
 
@@ -306,7 +308,8 @@ def test_chip_smoke_rmsd_cv_phase_on_cpu():
     ctx.setPositions(pos)
     ctx.applyConstraints()
     ctx.setVelocitiesToTemperature(300.0, randomSeed=4)
-    minimized = ctx.getState(getPositions=True).getPositions()
+    minimized = plain(ctx.getState(getPositions=True).getPositions(
+        asNumpy=True))
     integ.step(3)
     forces = len(system.getForces())
     out = chip_smoke.phase_rmsd_cv(

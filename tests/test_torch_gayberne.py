@@ -24,6 +24,7 @@ from openmm_tpu import unit as u
 
 import openmm_tpu_torch as omm
 from torch_port_helpers import jax_system
+from openmm_tpu_torch.unit import plain
 
 E_TOL = 1e-10
 F_TOL = 1e-9
@@ -88,7 +89,7 @@ def _contexts(params, pos, integrators=None):
 def _close(ctx, jctx):
     st = ctx.getState(getEnergy=True, getForces=True, groups={1})
     jst = jctx.getState(getEnergy=True, getForces=True, groups={1})
-    e, f = st.getPotentialEnergy(), st.getForces()
+    e, f = plain(st.getPotentialEnergy()), plain(st.getForces(asNumpy=True))
     e_ref = float(u.strip(jst.getPotentialEnergy()))
     f_ref = np.asarray(u.strip(jst.getForces(asNumpy=True)))
     assert abs(e_ref) > 1e-3
@@ -117,7 +118,8 @@ def test_spheres_are_lennard_jones():
                           {"Precision": "double"})
         ctx.setPositions(pos)
         st = ctx.getState(getEnergy=True, getForces=True)
-        readings.append((st.getPotentialEnergy(), st.getForces()))
+        readings.append((plain(st.getPotentialEnergy()),
+                         plain(st.getForces(asNumpy=True))))
     (e1, f1), (e2, f2) = readings
     assert abs(e1 - e2) <= E_TOL * abs(e1)
     assert np.abs(f1 - f2).max() <= F_TOL * np.abs(f1).max()
@@ -156,7 +158,7 @@ def test_ten_steps_at_zero_kelvin_match_jax_reference():
     jctx.getIntegrator().step(10)
     want = np.asarray(u.strip(jctx.getState(getPositions=True)
                               .getPositions(asNumpy=True)))
-    got = ctx.getState(getPositions=True).getPositions()
+    got = plain(ctx.getState(getPositions=True).getPositions(asNumpy=True))
     assert np.abs(want - pos).max() > 1e-3
     assert np.abs(got - want).max() <= POS_TOL
 
@@ -174,7 +176,7 @@ def test_update_parameters_in_context():
     for c in (ctx, jctx):
         (force,) = [f for f in c.getSystem().getForces()
                     if type(f).__name__ == "GayBerneForce"]
-        p = list(force.getParticleParameters(0))
+        p = list(plain(force.getParticleParameters(0)))
         p[1], p[4] = 1.2, 0.55
         force.setParticleParameters(0, *p)
         force.updateParametersInContext(c)

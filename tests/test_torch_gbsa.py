@@ -36,6 +36,7 @@ from openmm_tpu_torch.models import popc_obc_cluster
 from openmm_tpu_torch.ops import gbsa as gb_ops
 from torch_port_helpers import (_sub_topology, jax_system,
                                 median_relative_error)
+from openmm_tpu_torch.unit import plain
 
 GB = omm.GBSAOBCForce
 # method: (cutoff nm, box widths nm)
@@ -132,7 +133,7 @@ def test_single_ion_closed_form(precision):
     q, r, s = 1.0, 0.15, 0.8
     ctx = _port_gb_context("NoCutoff", np.zeros((1, 3)), [q], [r], [s],
                            precision)
-    e = ctx.getState(getEnergy=True).getPotentialEnergy()
+    e = plain(ctx.getState(getEnergy=True).getPotentialEnergy())
     born = r - 0.009
     pre = -ONE_4PI_EPS0 * (1.0 / 1.0 - 1.0 / 78.3)
     want = 0.5 * pre * q * q / born + 28.3919551 * (r + 0.14) ** 2 \
@@ -146,14 +147,16 @@ def test_random_case_matches_jax_platforms(method):
     e_ref, f_ref = _jax_gb_state(method, *case, "Reference")
     ctx = _port_gb_context(method, *case, "double")
     st = ctx.getState(getEnergy=True, getForces=True)
-    assert abs(st.getPotentialEnergy() - e_ref) < 1e-10 * abs(e_ref)
-    assert np.abs(st.getForces() - f_ref).max() < 1e-9
+    assert abs(plain(st.getPotentialEnergy()) - e_ref) < 1e-10 * abs(e_ref)
+    assert np.abs(plain(st.getForces(asNumpy=True)) - f_ref).max() < 1e-9
     e_cpu, f_cpu = _jax_gb_state(method, *case, "CPU")
     st32 = _port_gb_context(method, *case, "mixed").getState(
         getEnergy=True, getForces=True)
-    assert median_relative_error(st32.getForces(), f_cpu) <= 1e-5
-    assert median_relative_error(st32.getForces(), f_ref) <= 1e-5
-    assert abs(st32.getPotentialEnergy() - e_ref) < 1e-5 * abs(e_ref)
+    assert median_relative_error(plain(st32.getForces(asNumpy=True)),
+                                 f_cpu) <= 1e-5
+    assert median_relative_error(plain(st32.getForces(asNumpy=True)),
+                                 f_ref) <= 1e-5
+    assert abs(plain(st32.getPotentialEnergy()) - e_ref) < 1e-5 * abs(e_ref)
 
 
 def _autograd_against_analytic(module, pos, box):
@@ -231,8 +234,8 @@ def test_cluster_matches_jax_reference_and_autograd(cluster3):
                       {"Precision": "double"})
     ctx.setPositions(pos)
     got = ctx.getState(getEnergy=True, getForces=True)
-    assert abs(got.getPotentialEnergy() - e_ref) < 1e-10 * abs(e_ref)
-    assert np.abs(got.getForces() - f_ref).max() \
+    assert abs(plain(got.getPotentialEnergy()) - e_ref) < 1e-10 * abs(e_ref)
+    assert np.abs(plain(got.getForces(asNumpy=True)) - f_ref).max() \
         < 1e-9 * np.abs(f_ref).max()
     (module,) = ctx._gb
     _autograd_against_analytic(module, pos, ctx._box)
@@ -260,7 +263,7 @@ def test_zero_friction_steps_match_jax_reference(cluster3):
     ctx.setPositions(start)
     ctx.setVelocities(vel)
     integ.step(10)
-    got = ctx.getState(getPositions=True).getPositions()
+    got = plain(ctx.getState(getPositions=True).getPositions(asNumpy=True))
     assert np.abs(want - start).max() > 1e-3       # the atoms did move
     assert np.abs(got - want).max() < 1e-9
 

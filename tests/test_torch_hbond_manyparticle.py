@@ -33,6 +33,7 @@ from openmm_tpu import unit as u
 import openmm_tpu_torch as omm
 from openmm_tpu_torch.models import tip3p_water_box
 from torch_port_helpers import jax_custom_force, jax_system
+from openmm_tpu_torch.unit import plain
 
 E_TOL = 1e-10
 F_TOL = 1e-9
@@ -117,7 +118,8 @@ def _close(ctx, jctx, group=1):
                       getParameterDerivatives=True, groups={group})
     jst = jctx.getState(getEnergy=True, getForces=True,
                         getParameterDerivatives=True, groups={group})
-    e, f, d = (st.getPotentialEnergy(), st.getForces(),
+    e, f, d = (plain(st.getPotentialEnergy()),
+               plain(st.getForces(asNumpy=True)),
                st.getEnergyParameterDerivatives())
     e_ref = float(u.strip(jst.getPotentialEnergy()))
     f_ref = np.asarray(u.strip(jst.getForces(asNumpy=True)))
@@ -231,7 +233,7 @@ def test_ten_steps_at_zero_kelvin_match_jax_reference(which):
     jctx.getIntegrator().step(10)
     want = np.asarray(u.strip(jctx.getState(getPositions=True)
                               .getPositions(asNumpy=True)))
-    got = ctx.getState(getPositions=True).getPositions()
+    got = plain(ctx.getState(getPositions=True).getPositions(asNumpy=True))
     assert np.abs(want - pos).max() > 1e-3
     assert np.abs(got - want).max() <= POS_TOL
 

@@ -23,6 +23,7 @@ import openmm_tpu as mm
 import openmm_tpu_torch as omm
 from openmm_tpu_torch.models import tip3p_water_box, water_droplet
 from torch_port_helpers import jax_system
+from openmm_tpu_torch.unit import plain
 
 NB = omm.NonbondedForce
 ANCHORS = 4
@@ -56,7 +57,7 @@ def droplet():
     300 K, 0 for the anchors."""
     box_sys, box_pos = tip3p_water_box(64)
     system, pos = water_droplet(
-        box_pos, box_sys.getDefaultPeriodicBoxVectors(), radius=0.6,
+        box_pos, plain(box_sys.getDefaultPeriodicBoxVectors()), radius=0.6,
         cutoff=1.0)
     params = omm.to_numpy(system)
     n = len(params["masses"])
@@ -101,13 +102,13 @@ def test_trajectory_matches_jax_reference(droplet, name):
     want = np.asarray(jst.getPositions(asNumpy=True)._value)
     ctx = _port_run(params, start, vel, _make(port_cls, setting, dt), STEPS)
     st = ctx.getState(getPositions=True, getEnergy=True)
-    got = st.getPositions()
+    got = plain(st.getPositions(asNumpy=True))
     assert np.abs(want - start).max() > 1e-3       # the atoms did move
     assert np.abs(got - want).max() < 1e-9
     # the anchors stay where they were put
     assert np.array_equal(got[-ANCHORS:], start[-ANCHORS:])
     ke = jst.getKineticEnergy()._value
-    assert abs(st.getKineticEnergy() - ke) < 1e-9 * abs(ke)
+    assert abs(plain(st.getKineticEnergy()) - ke) < 1e-9 * abs(ke)
 
 
 def test_shifted_kinetic_energy(droplet):
@@ -123,25 +124,26 @@ def test_shifted_kinetic_energy(droplet):
                           0.0),
                          (omm.BrownianIntegrator(300.0, 100.0, 0.001), 0.0)):
         ctx = _port_run(params, pos, vel, integ, 3)
-        v = ctx.getState(getVelocities=True).getVelocities()
+        v = plain(ctx.getState(getVelocities=True).getVelocities(asNumpy=True))
         for groups in (-1, {0}):
             st = ctx.getState(getEnergy=True, getForces=True, groups=groups)
-            w = v + shift * 0.001 * st.getForces() * inv_m[:, None]
+            f = plain(st.getForces(asNumpy=True))
+            w = v + shift * 0.001 * f * inv_m[:, None]
             want = 0.5 * np.sum(m[:, None] * w * w)
-            assert abs(st.getKineticEnergy() - want) < 1e-12 * want
+            assert abs(plain(st.getKineticEnergy()) - want) < 1e-12 * want
         assert ctx.kinetic_energy() == pytest.approx(
-            ctx.getState(getEnergy=True).getKineticEnergy(), rel=1e-15)
+            plain(ctx.getState(getEnergy=True).getKineticEnergy()), rel=1e-15)
 
 
 def test_time_and_step_count(droplet):
     params, pos, vel = droplet
     integ = omm.VerletIntegrator(0.002)
     ctx = _port_run(params, pos, vel, integ, 25, precision="mixed")
-    assert abs(ctx.getTime() - 0.05) < 1e-10
+    assert abs(plain(ctx.getTime()) - 0.05) < 1e-10
     assert ctx.getState().getStepCount() == 25
     integ.setStepSize(0.001)
     integ.step(10)
-    assert abs(ctx.getTime() - 0.06) < 1e-10
+    assert abs(plain(ctx.getTime()) - 0.06) < 1e-10
     assert ctx.getStepCount() == 35
 
 
@@ -168,20 +170,20 @@ def test_integration_force_groups():
     ctx.setPositions([[0, 0, 0], [2, 0, 0]])
     integ.step(10)
     st = ctx.getState(getVelocities=True, getEnergy=True)
-    assert np.abs(st.getVelocities()).max() < 1e-12
-    assert st.getPotentialEnergy() == pytest.approx(50.0)
+    assert np.abs(plain(st.getVelocities(asNumpy=True))).max() < 1e-12
+    assert plain(st.getPotentialEnergy()) == pytest.approx(50.0)
     integ.setIntegrationForceGroups(-1)
     integ.step(10)
-    assert np.abs(ctx.getState(getVelocities=True)
-                  .getVelocities()).max() > 0.1
+    assert np.abs(plain(ctx.getState(getVelocities=True)
+                  .getVelocities(asNumpy=True))).max() > 0.1
     assert len(ctx._programs) == 2
     eager = omm.VerletIntegrator(0.001)
     eager.setIntegrationForceGroups({0})
     ectx = omm.Context(_pair_with_bond(1), eager, "CPU")
     ectx.setPositions([[0, 0, 0], [2, 0, 0]])
     ectx._step_eager(10)
-    assert np.abs(ectx.getState(getVelocities=True)
-                  .getVelocities()).max() < 1e-12
+    assert np.abs(plain(ectx.getState(getVelocities=True)
+                  .getVelocities(asNumpy=True))).max() < 1e-12
 
 
 def test_andersen_at_zero_frequency_is_verlet(droplet):
@@ -257,7 +259,7 @@ def _mean_kinetic_energy(integ, system, pos, temperature):
     kes = []
     for _ in range(60):
         integ.step(20)
-        kes.append(ctx.getState(getEnergy=True).getKineticEnergy())
+        kes.append(plain(ctx.getState(getEnergy=True).getKineticEnergy()))
     return np.mean(kes), ctx
 
 
@@ -270,7 +272,7 @@ def test_langevin_temperature_with_anchors(cls):
                                         system, pos, temperature)
     expected = 0.5 * 3 * n * omm.BOLTZ * temperature
     assert abs(mean_ke - expected) / expected < 0.12, (mean_ke, expected)
-    got = ctx.getState(getPositions=True).getPositions()
+    got = plain(ctx.getState(getPositions=True).getPositions(asNumpy=True))
     assert np.array_equal(got[n:], pos[n:])
 
 
@@ -283,8 +285,8 @@ def test_andersen_temperature_with_anchors():
     expected = 0.5 * 3 * n * omm.BOLTZ * temperature
     assert abs(mean_ke - expected) / expected < 0.12, (mean_ke, expected)
     # massless particles never collide
-    assert np.abs(ctx.getState(getVelocities=True)
-                  .getVelocities()[n:]).max() == 0.0
+    assert np.abs(plain(ctx.getState(getVelocities=True)
+                  .getVelocities(asNumpy=True))[n:]).max() == 0.0
     ctx.setParameter(omm.AndersenThermostat.Temperature(), 100.0)
     assert ctx.getParameters() == {"AndersenTemperature": 100.0,
                                    "AndersenCollisionFrequency": 50.0}
@@ -331,7 +333,7 @@ def test_massless_particles_and_degrees_of_freedom(droplet):
                       "CPU")
     ctx.setPositions(pos)
     ctx.setVelocitiesToTemperature(300.0, randomSeed=2)
-    v = ctx.getState(getVelocities=True).getVelocities()
+    v = plain(ctx.getState(getVelocities=True).getVelocities(asNumpy=True))
     assert np.all(v[-ANCHORS:] == 0.0) and np.all(v[:-ANCHORS] != 0.0)
     n_massive = len(params["masses"]) - ANCHORS
     dof = 3 * n_massive - len(params["constraint_distances"])

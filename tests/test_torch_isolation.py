@@ -123,3 +123,49 @@ def test_app_reads_only_its_own_data():
             "        'residue_bonds.json', 'residues.xml'} <= ours, ours\n")
     proc = _run(code, REPO, "-c")
     assert proc.returncode == 0, proc.stderr
+
+
+def test_app_layer_remainder_reads_only_its_own_data():
+    """Modeller's hydrogen templates and the seven lipid patches come from
+    openmm_tpu_torch/app/data/; the readers, metadynamics, simulated
+    tempering, testInstallation and version load no JAX."""
+    code = ("import os, sys\n"
+            "opened = []\n"
+            "sys.addaudithook(lambda event, args: opened.append(str(args[0]))"
+            " if event == 'open' and isinstance(args[0], str) else None)\n"
+            "from openmm_tpu_torch import app, testInstallation, version\n"
+            "from openmm_tpu_torch.app.modeller import Modeller, "
+            "_load_membrane_patch\n"
+            "for name in ('AmberPrmtopFile', 'AmberInpcrdFile', "
+            "'CharmmPsfFile', 'CharmmParameterSet', 'CharmmCrdFile', "
+            "'GromacsGroFile', 'GromacsTopFile', 'PDBxFile', 'PDBxReporter', "
+            "'DesmondDMSFile', 'Metadynamics', 'BiasVariable', "
+            "'SimulatedTempering', 'Modeller'):\n"
+            "    assert hasattr(app, name), name\n"
+            "assert Modeller._load_hydrogen_defs()['ALA']\n"
+            "for lipid in ('DLPC', 'DLPE', 'DMPC', 'DOPC', 'DPPC', 'POPC', "
+            "'POPE'):\n"
+            "    _load_membrane_patch(lipid)\n"
+            "jax_dir = os.path.join(os.getcwd(), 'openmm_tpu') + os.sep\n"
+            "bad = [p for p in opened if os.path.abspath(p).startswith("
+            "jax_dir)]\n"
+            "assert not bad, bad\n"
+            "ours = {os.path.basename(p) for p in opened}\n"
+            "assert {'hydrogen_defs.json', 'DLPC.npz', 'POPE.npz'} <= ours\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', "
+            "'openmm_tpu'))\n"
+            "assert not bad, bad\n")
+    proc = _run(code, REPO, "-c")
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_test_installation_runs_without_a_card(no_cuda):
+    """python -m openmm_tpu_torch.testInstallation: the CUDA platform
+    reports its error, the CPU one its forces against the float64 path,
+    within the tolerance."""
+    proc = _run("openmm_tpu_torch.testInstallation", REPO, "-m")
+    assert proc.returncode == 0, proc.stderr
+    assert "2 CPU - Successfully computed forces" in proc.stdout
+    assert "1 CUDA - Error computing forces" in proc.stdout
+    assert "All differences are within tolerance." in proc.stdout

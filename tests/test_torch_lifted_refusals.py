@@ -26,6 +26,7 @@ import openmm_tpu_torch as omm
 from openmm_tpu_torch.integrators.custom import _hashed
 from openmm_tpu_torch.models import tip3p_water_box
 from torch_port_helpers import jax_system
+from openmm_tpu_torch.unit import plain
 
 TOL = 1e-10
 
@@ -72,8 +73,8 @@ def test_two_nonbonded_forces_against_jax_reference(method):
         e_ref = float(u.strip(st.getPotentialEnergy()))
         f_ref = np.asarray(u.strip(st.getForces(asNumpy=True)))
         got = ctx.getState(getEnergy=True, getForces=True, groups=groups)
-        assert abs(got.getPotentialEnergy() - e_ref) <= TOL * abs(e_ref)
-        assert np.abs(got.getForces() - f_ref).max() <= \
+        assert abs(plain(got.getPotentialEnergy()) - e_ref) <= TOL * abs(e_ref)
+        assert np.abs(plain(got.getForces(asNumpy=True)) - f_ref).max() <= \
             TOL * np.abs(f_ref).max()
 
 
@@ -96,11 +97,13 @@ def test_two_nonbonded_forces_step_program_and_escalation():
     ctx._restore(snap)
     ctx._step_eager(8)
     b = ctx.getState(getPositions=True, getVelocities=True)
-    assert np.array_equal(a.getPositions(), b.getPositions())
-    assert np.array_equal(a.getVelocities(), b.getVelocities())
+    assert np.array_equal(plain(a.getPositions(asNumpy=True)),
+                          plain(b.getPositions(asNumpy=True)))
+    assert np.array_equal(plain(a.getVelocities(asNumpy=True)),
+                          plain(b.getVelocities(asNumpy=True)))
     assert ctx._candidates.capacity_scale == scale
     assert all(m.capacity_scale == scale for m in ctx._candidates.modules)
-    e = ctx.getState(getEnergy=True).getPotentialEnergy()
+    e = plain(ctx.getState(getEnergy=True).getPotentialEnergy())
     assert np.isfinite(e)
 
 
@@ -161,15 +164,16 @@ def test_sites_on_sites_against_jax():
     want = np.asarray(make_vsite_updater(jax_system(params), jnp.float64)(
         jnp.asarray(shaken)))
     ctx = _context(params, shaken)
-    got = ctx.getState(getPositions=True).getPositions()
+    got = plain(ctx.getState(getPositions=True).getPositions(asNumpy=True))
     assert np.abs(got - want).max() <= 1e-14
     st = _jax_context(params, want).getState(getEnergy=True, getForces=True)
     e_ref = float(u.strip(st.getPotentialEnergy()))
     f_ref = np.asarray(u.strip(st.getForces(asNumpy=True)))
     out = ctx.getState(getEnergy=True, getForces=True)
-    assert abs(out.getPotentialEnergy() - e_ref) <= TOL * abs(e_ref)
-    assert np.abs(out.getForces() - f_ref).max() <= TOL * np.abs(f_ref).max()
-    assert not out.getForces()[params["masses"] == 0].any()
+    assert abs(plain(out.getPotentialEnergy()) - e_ref) <= TOL * abs(e_ref)
+    f = plain(out.getForces(asNumpy=True))
+    assert np.abs(f - f_ref).max() <= TOL * np.abs(f_ref).max()
+    assert not plain(out.getForces(asNumpy=True))[params["masses"] == 0].any()
 
 
 def test_a_site_on_a_later_family_is_refused():
@@ -226,8 +230,10 @@ def test_draws_inside_a_while_block():
     ctx._restore(snap)
     ctx._step_eager(40)
     b = ctx.getState(getPositions=True, getVelocities=True)
-    assert np.array_equal(a.getPositions(), b.getPositions())
-    assert np.array_equal(a.getVelocities(), b.getVelocities())
+    assert np.array_equal(plain(a.getPositions(asNumpy=True)),
+                          plain(b.getPositions(asNumpy=True)))
+    assert np.array_equal(plain(a.getVelocities(asNumpy=True)),
+                          plain(b.getVelocities(asNumpy=True)))
     assert integ.getGlobalVariableByName("usum") == usum
     assert np.array_equal(integ.getPerDofVariableByName("gsum"), sums[0])
     draws = 40 * 3

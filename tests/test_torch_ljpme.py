@@ -34,6 +34,7 @@ from openmm_tpu_torch.ops import pme as pme_mod
 from openmm_tpu_torch.ops import pme_zslab, tile_pairs
 from torch_port_helpers import (cropped_bilayer, jax_system,
                                 median_relative_error, system_params)
+from openmm_tpu_torch.unit import plain
 
 LJPME = omm.NonbondedForce.LJPME
 TOL64 = 1e-10
@@ -54,7 +55,7 @@ def _state(system, pos, precision):
                       {"Precision": precision})
     ctx.setPositions(pos)
     st = ctx.getState(getEnergy=True, getForces=True)
-    return st.getPotentialEnergy(), st.getForces()
+    return plain(st.getPotentialEnergy()), plain(st.getForces(asNumpy=True))
 
 
 @pytest.fixture(scope="module")
@@ -68,7 +69,7 @@ def test_dispersion_grid_matches_jax(box512):
     convolution) and the dense energy with its autograd against JAX's
     pme_reciprocal_energy(coulomb=False) and its jax.grad, float64."""
     system, pos, _ = box512
-    box = np.asarray(system.getDefaultPeriodicBoxVectors())
+    box = np.asarray(plain(system.getDefaultPeriodicBoxVectors()))
     (nb,) = system.getForces()
     module = NonbondedModule(nb, box, "cpu", "double")
     alpha, grid = module.lj_alpha, module.lj_grid
@@ -151,7 +152,7 @@ def test_kernel1_plain_ljpme_mode(box512):
     """Kernel 1's plain MODE_LJPME on the candidate state: float64 against
     the all-pairs formulas of the JAX package, float32 against float64."""
     system, pos, params = box512
-    box = np.asarray(system.getDefaultPeriodicBoxVectors())
+    box = np.asarray(plain(system.getDefaultPeriodicBoxVectors()))
     (nb,) = system.getForces()
     out = {}
     for precision in ("double", "mixed"):
@@ -166,7 +167,7 @@ def test_kernel1_plain_ljpme_mode(box512):
             plain=True)
     e_ref, f_ref = _jax_direct_ljpme(
         pos, box, params["charges"], params["sigma"], params["epsilon"],
-        params["exception_pairs"], nb.getCutoffDistance(), module.alpha,
+        params["exception_pairs"], plain(nb.getCutoffDistance()), module.alpha,
         module.lj_alpha)
     e64, f64 = (float(out["double"][0]), out["double"][1].numpy())
     assert abs(e64 - e_ref) <= TOL64 * abs(e_ref)
@@ -249,7 +250,7 @@ def test_minimization_and_steps_against_jax_reference():
     ctx = omm.Context(system, integ, "CPU", {"Precision": "double"})
     ctx.setPositions(pos)
     omm.LocalEnergyMinimizer.minimize(ctx, 10.0, 5)
-    got = ctx.getState(getPositions=True).getPositions()
+    got = plain(ctx.getState(getPositions=True).getPositions(asNumpy=True))
     assert np.abs(got - want).max() <= 1e-9
     vel = np.random.RandomState(2).randn(*pos.shape) * 0.3
     jctx.setVelocities(vel)
@@ -261,7 +262,7 @@ def test_minimization_and_steps_against_jax_reference():
     integ.step(10)
     want = np.asarray(u.strip(jctx.getState(getPositions=True)
                               .getPositions(asNumpy=True)))
-    got = ctx.getState(getPositions=True).getPositions()
+    got = plain(ctx.getState(getPositions=True).getPositions(asNumpy=True))
     assert np.abs(want - pos).max() > 1e-3
     assert np.abs(got - want).max() <= 1e-9
 
@@ -298,7 +299,7 @@ def test_dispersion_energy_matches_a_direct_lattice_sum():
     ctx = omm.Context(omm.from_numpy(params), omm.VerletIntegrator(0.001),
                       "CPU", {"Precision": "double"})
     ctx.setPositions(pos)
-    energy = ctx.getState(getEnergy=True).getPotentialEnergy()
+    energy = plain(ctx.getState(getEnergy=True).getPotentialEnergy())
     d = ox[:, None] - ox[None]
     d -= np.round(d / width) * width
     pairs = (np.count_nonzero((d * d).sum(-1) < rc * rc) - len(ox)) / 2
@@ -317,11 +318,11 @@ def test_method_constants():
     pme_grid_size(lj=True)); no dispersion correction under LJPME."""
     system, _ = tip3p_water_box(512, nonbonded_method=LJPME)
     (nb,) = system.getForces()
-    widths = np.diag(system.getDefaultPeriodicBoxVectors())
+    widths = np.diag(plain(system.getDefaultPeriodicBoxVectors()))
     alpha = pme_mod.ewald_alpha(0.9, 5e-4)
     assert pme_mod.pme_grid_size(widths, alpha, 5e-4, lj=True) == \
         jpme.pme_grid_size(widths, alpha, 5e-4, lj=True)
-    module = NonbondedModule(nb, system.getDefaultPeriodicBoxVectors(),
+    module = NonbondedModule(nb, plain(system.getDefaultPeriodicBoxVectors()),
                              "cpu")
     assert float(module.disp_coeff) == 0.0
     assert module.mode == tile_pairs.MODE_LJPME

@@ -26,6 +26,7 @@ from openmm_tpu.models import tip3p_water_box as jax_water_box
 import openmm_tpu_torch as omm
 from openmm_tpu_torch import minimize as tmin
 from torch_port_helpers import median_relative_error, system_params
+from openmm_tpu_torch.unit import plain
 
 
 @pytest.fixture(scope="module")
@@ -72,7 +73,8 @@ def test_objective_matches_jax_reference(box343):
         assert median_relative_error(f, jf) <= 1e-5
     assert ctx64.energy_evaluations == ctx32.energy_evaluations == 2
     # the objective leaves the Context's own positions alone
-    assert np.array_equal(ctx64.getState(getPositions=True).getPositions(),
+    assert np.array_equal(plain(ctx64.getState(
+        getPositions=True).getPositions(asNumpy=True)),
                           pos)
 
 
@@ -93,7 +95,7 @@ def test_penalty_matches_per_constraint_loop(box343):
     _, pos, system = box343
     rng = np.random.RandomState(2)
     x = pos + rng.uniform(-0.003, 0.003, pos.shape)
-    cons = [system.getConstraintParameters(i)
+    cons = [plain(system.getConstraintParameters(i))
             for i in range(system.getNumConstraints())]
     p1, p2, d = (np.array(c) for c in zip(*cons))
     g0 = rng.randn(*pos.shape)
@@ -139,8 +141,8 @@ def test_minimize_matches_jax_reference(box343):
     ctx = _context(system, pos, "double")
     rep = _Iterates()
     omm.LocalEnergyMinimizer.minimize(ctx, 10.0, 5, rep)
-    got = ctx.getState(getPositions=True).getPositions()
-    e_got = ctx.getState(getEnergy=True).getPotentialEnergy()
+    got = plain(ctx.getState(getPositions=True).getPositions(asNumpy=True))
+    e_got = plain(ctx.getState(getEnergy=True).getPotentialEnergy())
     assert len(rep.x) == len(jrep.x) > 5      # penalty stages escalated
     assert np.abs(got - want).max() < 1e-10
     assert abs(e_got - e_want) < 1e-10 * abs(e_want)
@@ -152,7 +154,7 @@ def test_minimize_lowers_energy_and_keeps_constraints(box343):
     assert ctx.getSystem() is system
     integ = ctx.getIntegrator()
     assert integ.getConstraintTolerance() == 1e-5
-    before = ctx.getState(getEnergy=True).getPotentialEnergy()
+    before = plain(ctx.getState(getEnergy=True).getPotentialEnergy())
 
     class Raises(omm.MinimizationReporter):
         calls = 0
@@ -165,11 +167,11 @@ def test_minimize_lowers_energy_and_keeps_constraints(box343):
     assert Raises.calls >= 20 and ctx.energy_evaluations > Raises.calls
     assert ctx._tiles is None             # built for the old positions
     st = ctx.getState(getEnergy=True, getPositions=True)
-    after = st.getPotentialEnergy()
+    after = plain(st.getPotentialEnergy())
     assert np.isfinite(after) and after < before - 100.0
-    x = st.getPositions()
+    x = plain(st.getPositions(asNumpy=True))
     for i in range(system.getNumConstraints()):
-        p1, p2, d = system.getConstraintParameters(i)
+        p1, p2, d = plain(system.getConstraintParameters(i))
         r = np.linalg.norm(x[p1] - x[p2])
         assert abs(r - d) / d < 2 * integ.getConstraintTolerance()
 

@@ -38,6 +38,7 @@ from openmm_tpu_torch.ops import pairs as tpairs
 from openmm_tpu_torch.ops import pme as tpme
 from openmm_tpu_torch.ops import tile_pairs
 from torch_port_helpers import median_relative_error
+from openmm_tpu_torch.unit import plain
 
 NB = omm.NonbondedForce
 # (system, method, cutoff nm, switching distance (negative: none),
@@ -118,7 +119,8 @@ def systems():
                       "CPU", {"Precision": "double"})
     ctx.setPositions(drop_pos)
     omm.LocalEnergyMinimizer.minimize(ctx, 10.0, 20)
-    drop_pos = ctx.getState(getPositions=True).getPositions()
+    drop_pos = plain(ctx.getState(getPositions=True).getPositions(
+        asNumpy=True))
     small_sys, small_pos = tip3p_water_box(216)
     return {"box": (params, box_pos),
             "droplet": (omm.to_numpy(drop_sys), drop_pos),
@@ -155,7 +157,8 @@ def _port_context(params, pos, precision, integ=None):
 def _port_state(params, pos, precision):
     ctx = _port_context(params, pos, precision)
     st = ctx.getState(getEnergy=True, getForces=True)
-    return st.getPotentialEnergy(), st.getForces(), ctx
+    return plain(st.getPotentialEnergy()), plain(st.getForces(
+        asNumpy=True)), ctx
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -311,11 +314,15 @@ def test_cutoff_reaction_field(precision):
     crf = (1.0 / cutoff) * 3 * eps_solv / (2 * eps_solv + 1)
     expected = ONE_4PI_EPS0 * (0.5 + krf * 4.0 - crf)
     st = ctx.getState(getEnergy=True, getForces=True)
-    assert abs(st.getPotentialEnergy() - expected) < 1e-5 * abs(expected)
+    assert abs(plain(st.getPotentialEnergy()) - expected) < 1e-5 * abs(
+        expected)
     force = ONE_4PI_EPS0 * (1.0 / 4.0 - 2.0 * krf * 2.0)
-    assert abs(st.getForces()[1, 0] - force) < 1e-5 * abs(force)
+    assert abs(plain(st.getForces(asNumpy=True))[1,
+                                                 0] - force) < 1e-5 * abs(
+                                                     force)
     ctx.setPositions([[0, 0, 0], [3.5, 0, 0]])
-    assert abs(ctx.getState(getEnergy=True).getPotentialEnergy()) < 1e-10
+    assert abs(plain(ctx.getState(
+        getEnergy=True).getPotentialEnergy())) < 1e-10
 
 
 def _zero_friction_run(params, pos, steps, jax_ctx_platform="Reference"):
@@ -337,7 +344,7 @@ def _zero_friction_run(params, pos, steps, jax_ctx_platform="Reference"):
     ctx = _port_context(params, start, "mixed", integ)
     ctx.setVelocities(vel)
     integ.step(steps)
-    got = ctx.getState(getPositions=True).getPositions()
+    got = plain(ctx.getState(getPositions=True).getPositions(asNumpy=True))
     return start, want, got
 
 
@@ -401,8 +408,8 @@ def test_minimize_matches_jax_reference_at_rf(systems, name):
     e_want = jctx.getState(getEnergy=True).getPotentialEnergy()._value
     ctx = _port_context(params, pos, "double")
     omm.LocalEnergyMinimizer.minimize(ctx, 10.0, 5)
-    got = ctx.getState(getPositions=True).getPositions()
-    e_got = ctx.getState(getEnergy=True).getPotentialEnergy()
+    got = plain(ctx.getState(getPositions=True).getPositions(asNumpy=True))
+    e_got = plain(ctx.getState(getEnergy=True).getPotentialEnergy())
     assert np.abs(got - want).max() < 1e-10
     assert abs(e_got - e_want) < 1e-10 * abs(e_want)
 
@@ -428,8 +435,8 @@ def test_method_bookkeeping(systems):
         assert (nb.dispersion_coefficient() != 0.0) == periodic
     far = pos + 10.0                   # every molecule out of the box
     ctx = _port_context(params, far, "double")
-    got = ctx.getState(getPositions=True,
-                       enforcePeriodicBox=True).getPositions()
+    got = plain(ctx.getState(getPositions=True,
+                       enforcePeriodicBox=True).getPositions(asNumpy=True))
     assert np.array_equal(got, far)
     extra = dict(params, rf_dielectric=5.0, exceptions_use_pbc=True)
     back = omm.to_numpy(omm.from_numpy(extra))
@@ -442,7 +449,7 @@ def test_module_dispatch():
     method takes, and that a non-periodic cutoff ignores the box."""
     system, _ = tip3p_water_box(27)
     (nb,) = system.getForces()
-    box = system.getDefaultPeriodicBoxVectors()
+    box = plain(system.getDefaultPeriodicBoxVectors())
     # (all-pairs Coulomb or None: the candidate state, kernel 1's mode,
     #  reciprocal space)
     expect = {NB.NoCutoff: ("plain", None, None),
@@ -479,7 +486,7 @@ def test_tile_budget_holds_at_1nm():
     for system, pos in (popc_bilayer(), tip3p_water_box(8000)):
         (nb,) = [f for f in system.getForces()
                  if isinstance(f, omm.NonbondedForce)]
-        box = torch.as_tensor(system.getDefaultPeriodicBoxVectors(),
+        box = torch.as_tensor(plain(system.getDefaultPeriodicBoxVectors()),
                               dtype=torch.float32)
         for method, cutoff in ((NB.CutoffPeriodic, 1.0), (NB.PME, 0.9)):
             nb.setNonbondedMethod(method)

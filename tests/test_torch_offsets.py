@@ -18,6 +18,7 @@ from openmm_tpu import unit as u
 import openmm_tpu_torch as omm
 from openmm_tpu_torch.models import tip3p_water_box
 from torch_port_helpers import jax_system, median_relative_error
+from openmm_tpu_torch.unit import plain
 
 N_WATERS = 64
 DECOUPLED = 4           # waters whose parameters follow lambda
@@ -64,7 +65,7 @@ def _jax_state(params, pos, platform="Reference", values=None,
 
 def _torch_state(context, groups=-1):
     st = context.getState(getEnergy=True, getForces=True, groups=groups)
-    return st.getPotentialEnergy(), st.getForces()
+    return plain(st.getPotentialEnergy()), plain(st.getForces(asNumpy=True))
 
 
 def _context(params, pos, precision="double", integrator=None):
@@ -161,9 +162,10 @@ def test_set_parameter_in_the_step_program_needs_no_new_program():
 
 
 def _plain(values):
-    """A getter's values as plain numbers (the JAX package's carry
-    units)."""
-    return [v if isinstance(v, int) else float(u.strip(v)) for v in values]
+    """A getter's values as plain numbers (both packages' carry units:
+    the port's strip through plain, the JAX package's through u.strip)."""
+    return [v if isinstance(v, int) else float(u.strip(v))
+            for v in plain(values)]
 
 
 def _update_nonbonded(force):
@@ -247,13 +249,14 @@ def _bonded_params():
 
 _CHANGES = {
     "HarmonicBondForce": lambda f: f.setBondParameters(
-        2, *f.getBondParameters(2)[:2], 0.16, 2.5e5),
+        2, *plain(f.getBondParameters(2))[:2], 0.16, 2.5e5),
     "HarmonicAngleForce": lambda f: f.setAngleParameters(
-        1, *f.getAngleParameters(1)[:3], 2.0, 300.0),
+        1, *plain(f.getAngleParameters(1))[:3], 2.0, 300.0),
     "PeriodicTorsionForce": lambda f: f.setTorsionParameters(
-        0, *f.getTorsionParameters(0)[:4], 2, 0.3, 2.0),
+        0, *plain(f.getTorsionParameters(0))[:4], 2, 0.3, 2.0),
     "RBTorsionForce": lambda f: f.setTorsionParameters(
-        1, *f.getTorsionParameters(1)[:4], 0.5, 0.1, 0.2, -0.1, 0.0, 0.3),
+        1, *plain(f.getTorsionParameters(1))[:4], 0.5, 0.1, 0.2, -0.1,
+        0.0, 0.3),
     "GBSAOBCForce": lambda f: f.setParticleParameters(
         3, _plain(f.getParticleParameters(3))[0] * 0.5, 0.15, 0.7),
 }
@@ -294,7 +297,7 @@ def test_update_refuses_changed_exceptions_and_terms():
     ctx2 = omm.Context(system, omm.VerletIntegrator(0.001), "CPU")
     (nb,) = [f for f in system.getForces()
              if isinstance(f, omm.NonbondedForce)]
-    p1, p2, cp, s, e = nb.getExceptionParameters(0)
+    p1, p2, cp, s, e = plain(nb.getExceptionParameters(0))
     nb.setExceptionParameters(0, p1, p2 + 2, cp, s, e)
     with pytest.raises(ValueError, match="exceptions"):
         nb.updateParametersInContext(ctx2)

@@ -31,6 +31,7 @@ from openmm_tpu_torch import app as papp
 from openmm_tpu_torch import unit as pu
 from openmm_tpu_torch.models import tip3p_water_box
 from torch_port_helpers import port_topology
+from openmm_tpu_torch.unit import plain
 
 WATERS = 216
 STEPS = 20
@@ -77,7 +78,7 @@ def runs(tmp_path_factory):
     jsys, jpos = jax_water_box(WATERS)
     psys, ppos = tip3p_water_box(WATERS)
     np.testing.assert_array_equal(np.asarray(jpos, np.float64), ppos)
-    jtop = _water_topology(WATERS, psys.getDefaultPeriodicBoxVectors())
+    jtop = _water_topology(WATERS, plain(psys.getDefaultPeriodicBoxVectors()))
     jsim = japp.Simulation(jtop, jsys, mm.VerletIntegrator(0.001),
                            mm.Platform.getPlatformByName("Reference"))
     jsim.context.setPositions(jpos)
@@ -90,7 +91,8 @@ def runs(tmp_path_factory):
                           app.DCDReporter(dcd, INTERVAL),
                           app.PDBReporter(pdb, INTERVAL)]
         sim.step(STEPS)
-        pos = sim.context.getState(getPositions=True).getPositions()
+        pos = plain(sim.context.getState(getPositions=True).getPositions(
+            asNumpy=True))
         sim.reporters.clear()
         gc.collect()    # the reporters close their files when collected
         with open(dcd, "rb") as f:
@@ -133,7 +135,7 @@ def test_pdb_trajectory_matches_jax(runs):
 
 def test_checkpoint_continues_bitwise(tmp_path):
     system, pos = tip3p_water_box(27)
-    jtop = _water_topology(27, system.getDefaultPeriodicBoxVectors())
+    jtop = _water_topology(27, plain(system.getDefaultPeriodicBoxVectors()))
     top = port_topology(jtop)
     sim = _port_simulation(top, system, pos)
     sim.context.setVelocitiesToTemperature(300 * pu.kelvin, 7)
@@ -149,16 +151,17 @@ def test_checkpoint_continues_bitwise(tmp_path):
     assert again.currentStep == 10
     again.step(10)
     got = again.context.getState(getPositions=True, getVelocities=True)
-    np.testing.assert_array_equal(got.getPositions(), want.getPositions())
-    np.testing.assert_array_equal(got.getVelocities(),
-                                  want.getVelocities())
+    np.testing.assert_array_equal(plain(got.getPositions(asNumpy=True)),
+                                  plain(want.getPositions(asNumpy=True)))
+    np.testing.assert_array_equal(plain(got.getVelocities(asNumpy=True)),
+                                  plain(want.getVelocities(asNumpy=True)))
     assert again.currentStep == sim.currentStep == 20
 
 
 def test_refusals(tmp_path):
     system, pos = tip3p_water_box(27)
     top = port_topology(_water_topology(
-        27, system.getDefaultPeriodicBoxVectors()))
+        27, plain(system.getDefaultPeriodicBoxVectors())))
     cpu = omm.Platform.getPlatformByName("CPU")
     with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
         papp.Simulation(top, "system.xml", omm.VerletIntegrator(0.001),
@@ -189,7 +192,7 @@ def test_run_for_clock_time_saves_checkpoints(tmp_path):
     steps, and leaves a checkpoint that loads back to its step count."""
     system, pos = tip3p_water_box(27)
     top = port_topology(_water_topology(
-        27, system.getDefaultPeriodicBoxVectors()))
+        27, plain(system.getDefaultPeriodicBoxVectors())))
     sim = _port_simulation(top, system, pos)
     path = str(tmp_path / "clock.chk")
     sim.runForClockTime(0.5 * pu.seconds, checkpointFile=path,

@@ -24,6 +24,7 @@ from openmm_tpu.models import tip3p_water_box as jax_water_box
 import chip_smoke
 import openmm_tpu_torch as omm
 from torch_port_helpers import median_relative_error, system_params
+from openmm_tpu_torch.unit import plain
 
 
 @pytest.fixture(scope="module")
@@ -47,7 +48,7 @@ def _port_state(system, pos, precision):
                       "CPU", {"Precision": precision})
     ctx.setPositions(pos)
     st = ctx.getState(getEnergy=True, getForces=True)
-    return st.getPotentialEnergy(), st.getForces()
+    return plain(st.getPotentialEnergy()), plain(st.getForces(asNumpy=True))
 
 
 def test_energy_and_forces_match_jax_platforms(box343):
@@ -88,7 +89,7 @@ def test_zero_friction_trajectory_matches_jax(box343):
     ctx.setPositions(start)
     ctx.setVelocities(vel)
     integ.step(20)
-    got = ctx.getState(getPositions=True).getPositions()
+    got = plain(ctx.getState(getPositions=True).getPositions(asNumpy=True))
     assert np.abs(want - start).max() > 1e-3       # the atoms did move
     assert np.abs(got - want).max() < 1e-5
 
@@ -174,3 +175,17 @@ def test_chip_smoke_custom_and_stateful_phases_on_cpu(main_path):
     # CPU tensors take the plain versions: no kernel launched
     for r in (custom, nh, *variable.values(), compound):
         assert set(r["launches"].values()) == {0}
+
+
+def test_chip_smoke_gromacs_and_tempering_phases_on_cpu(main_path):
+    """phase_gromacs_water (the relaxed box as .gro and an SPC/E .top,
+    its forces against the float64 path) and phase_tempering (the
+    integrator's temperature and the steps' device parameters follow the
+    rungs) on the rehearsed main path."""
+    cpu = torch.device("cpu")
+    gromacs = chip_smoke.phase_gromacs_water(cpu, main_path, steps=10)
+    assert gromacs["force_err"] <= chip_smoke.FORCE_ERR_BAR
+    assert gromacs["simulation"].system.getNumConstraints() == \
+        3 * main_path["context"].getSystem().getNumParticles() // 3
+    tempering = chip_smoke.phase_tempering(cpu, gromacs, steps=50)
+    assert len(tempering["visited"]) == 2

@@ -1,0 +1,426 @@
+"""The port's getters return what the JAX package's return: a Quantity in
+the same unit, or a plain value of the same kind.
+
+Each shared class is built the same way in both packages, given one term
+where it takes terms, and every public getter that needs no argument or
+takes an index is called on both; the results are compared by type, unit
+and value (1e-12).
+"""
+import math
+
+import numpy as np
+import pytest
+
+import openmm_tpu as J
+import openmm_tpu_torch as T
+from openmm_tpu import unit as ju
+from openmm_tpu_torch import unit as tu
+
+import torch_port_helpers  # noqa: F401  (one torch thread)
+
+# Getters that are not part of the comparison, each with its reason.
+_SKIP = {
+    # the JAX integrators' internal draw (deps, key, temperature)
+    "getVelocitiesForTemperature",
+    # the platform and plugin registry: compared in test_platform_getters
+    "getPlatform", "getPlatformByName", "getDefaultPlatform",
+}
+
+
+def _build(pkg, name):
+    """An instance of class `name` from package `pkg`, built the same way
+    in both packages."""
+    C = getattr(pkg, name)
+    if name == "System":
+        s = C()
+        s.addParticle(12.0)
+        s.addParticle(1.008)
+        s.addConstraint(0, 1, 0.1)
+        s.setDefaultPeriodicBoxVectors(pkg.Vec3(2, 0, 0), pkg.Vec3(0, 2, 0),
+                                       pkg.Vec3(0, 0, 2))
+        return s
+    if name == "HarmonicBondForce":
+        f = C()
+        f.addBond(0, 1, 0.1, 1000.0)
+        return f
+    if name == "HarmonicAngleForce":
+        f = C()
+        f.addAngle(0, 1, 2, 1.9, 300.0)
+        return f
+    if name == "PeriodicTorsionForce":
+        f = C()
+        f.addTorsion(0, 1, 2, 3, 2, 0.5, 4.0)
+        return f
+    if name == "RBTorsionForce":
+        f = C()
+        f.addTorsion(0, 1, 2, 3, 1.0, 2.0, 3.0, 4.0, 5.0, 6.0)
+        return f
+    if name == "CMAPTorsionForce":
+        f = C()
+        f.addMap(4, list(np.linspace(0.0, 1.5, 16)))
+        f.addTorsion(0, 0, 1, 2, 3, 1, 2, 3, 4)
+        return f
+    if name == "NonbondedForce":
+        f = C()
+        f.addParticle(0.5, 0.3, 0.6)
+        f.addParticle(-0.5, 0.25, 0.4)
+        f.addException(0, 1, 0.1, 0.28, 0.2)
+        f.setNonbondedMethod(C.PME)
+        f.setCutoffDistance(0.9)
+        f.setSwitchingDistance(0.8)
+        f.setPMEParameters(3.2, 20, 21, 22)
+        f.addGlobalParameter("lam", 1.0)
+        f.addParticleParameterOffset("lam", 0, 0.1, 0.0, 0.0)
+        f.addExceptionParameterOffset("lam", 0, 0.05, 0.0, 0.0)
+        return f
+    if name == "CMMotionRemover":
+        return C(7)
+    if name == "AndersenThermostat":
+        return C(300.0, 2.0)
+    if name == "MonteCarloBarostat":
+        return C(1.0, 300.0, 25)
+    if name == "MonteCarloAnisotropicBarostat":
+        return C(pkg.Vec3(1.0, 2.0, 3.0), 300.0, True, False, True, 10)
+    if name == "MonteCarloMembraneBarostat":
+        return C(1.0, 20.0, 310.0, 0, 0, 15)
+    if name == "CustomExternalForce":
+        f = C("k*x^2")
+        f.addGlobalParameter("k", 2.0)
+        f.addPerParticleParameter("x0")
+        f.addParticle(0, [0.5])
+        return f
+    if name == "CustomBondForce":
+        f = C("k*(r-r0)^2")
+        f.addPerBondParameter("k")
+        f.addPerBondParameter("r0")
+        f.addBond(0, 1, [100.0, 0.1])
+        return f
+    if name == "CustomAngleForce":
+        f = C("k*(theta-t0)^2")
+        f.addPerAngleParameter("k")
+        f.addPerAngleParameter("t0")
+        f.addAngle(0, 1, 2, [100.0, 1.9])
+        return f
+    if name == "CustomTorsionForce":
+        f = C("k*(1+cos(theta))")
+        f.addPerTorsionParameter("k")
+        f.addTorsion(0, 1, 2, 3, [3.0])
+        return f
+    if name == "CustomNonbondedForce":
+        f = C("a*r")
+        f.addPerParticleParameter("a")
+        f.addParticle([1.0])
+        f.addParticle([2.0])
+        f.addExclusion(0, 1)
+        f.setNonbondedMethod(C.CutoffPeriodic)
+        f.setCutoffDistance(1.1)
+        f.setUseSwitchingFunction(True)
+        f.setSwitchingDistance(1.0)
+        f.addInteractionGroup([0], [1])
+        f.addTabulatedFunction("tab", pkg.Continuous1DFunction(
+            [0.0, 1.0, 4.0, 9.0], 0.0, 3.0))
+        return f
+    if name == "CustomCompoundBondForce":
+        f = C(2, "k*distance(p1,p2)")
+        f.addPerBondParameter("k")
+        f.addBond([0, 1], [3.0])
+        return f
+    if name == "CustomCentroidBondForce":
+        f = C(2, "k*distance(g1,g2)")
+        f.addPerBondParameter("k")
+        f.addGroup([0, 1], [1.0, 2.0])
+        f.addGroup([2, 3])
+        f.addBond([0, 1], [3.0])
+        return f
+    if name == "CustomGBForce":
+        f = C()
+        f.addPerParticleParameter("q")
+        f.addComputedValue("B", "r", C.ParticlePair)
+        f.addEnergyTerm("q*B", C.SingleParticle)
+        f.addParticle([0.5])
+        f.setCutoffDistance(1.2)
+        return f
+    if name == "CustomHbondForce":
+        f = C("k*distance(d1,a1)")
+        f.addGlobalParameter("k", 1.0)
+        f.addDonor(0, 1, -1, [])
+        f.addAcceptor(2, -1, -1, [])
+        f.setCutoffDistance(1.3)
+        return f
+    if name == "CustomCVForce":
+        f = C("2*b")
+        b = pkg.CustomBondForce("r")
+        b.addBond(0, 1, [])
+        f.addCollectiveVariable("b", b)
+        return f
+    if name == "GBSAOBCForce":
+        f = C()
+        f.addParticle(0.5, 0.15, 0.8)
+        f.setCutoffDistance(1.4)
+        return f
+    if name == "RMSDForce":
+        return C([pkg.Vec3(0, 0, 0), pkg.Vec3(0.1, 0, 0),
+                  pkg.Vec3(0, 0.2, 0)], [0, 1, 2])
+    if name == "GayBerneForce":
+        f = C()
+        f.addParticle(0.3, 0.5, 1, 2, 0.3, 0.2, 0.1, 1.0, 0.9, 0.8)
+        f.addParticle(0.3, 0.5, -1, -1, 0.3, 0.3, 0.3, 1.0, 1.0, 1.0)
+        f.addException(0, 1, 0.25, 0.4)
+        f.setCutoffDistance(1.5)
+        f.setSwitchingDistance(1.2)
+        return f
+    if name == "CustomManyParticleForce":
+        f = C(3, "k*distance(p1,p2)")
+        f.addGlobalParameter("k", 1.0)
+        f.addParticle([], 0)
+        f.setCutoffDistance(1.6)
+        return f
+    if name == "Continuous1DFunction":
+        return C([0.0, 1.0, 4.0], 0.0, 2.0)
+    if name == "Continuous2DFunction":
+        return C(2, 2, [0.0, 1.0, 2.0, 3.0], 0.0, 1.0, 0.0, 1.0)
+    if name == "Continuous3DFunction":
+        return C(2, 2, 2, list(range(8)), 0.0, 1.0, 0.0, 1.0, 0.0, 1.0)
+    if name == "Discrete1DFunction":
+        return C([1.0, 2.0])
+    if name == "Discrete2DFunction":
+        return C(2, 1, [1.0, 2.0])
+    if name == "Discrete3DFunction":
+        return C(1, 1, 2, [1.0, 2.0])
+    if name == "VerletIntegrator":
+        return C(0.002)
+    if name in ("LangevinIntegrator", "LangevinMiddleIntegrator",
+                "BrownianIntegrator"):
+        return C(310.0, 2.0, 0.002)
+    if name == "VariableVerletIntegrator":
+        i = C(0.001)
+        i.setMaximumStepSize(0.004)
+        return i
+    if name == "VariableLangevinIntegrator":
+        i = C(305.0, 1.5, 0.001)
+        i.setMaximumStepSize(0.003)
+        return i
+    if name == "NoseHooverIntegrator":
+        i = C(300.0, 10.0, 0.002)
+        return i
+    if name == "NoseHooverChain":
+        return C(300.0, 310.0, 10.0, 20.0, 6, 3, 3, 7, 0, [0, 1], [])
+    if name == "CustomIntegrator":
+        i = C(0.002)
+        i.addGlobalVariable("g", 1.5)
+        i.addPerDofVariable("v2", 0.0)
+        i.addComputePerDof("x", "x+dt*v")
+        return i
+    if name == "CompoundIntegrator":
+        i = C()
+        i.addIntegrator(pkg.VerletIntegrator(0.002))
+        i.addIntegrator(pkg.LangevinIntegrator(300.0, 1.0, 0.001))
+        return i
+    if name == "MTSIntegrator":
+        return C(0.004, [(0, 1), (1, 2)])
+    if name == "MTSLangevinIntegrator":
+        return C(300.0, 1.0, 0.004, [(0, 1), (1, 2)])
+    if name == "AMDIntegrator":
+        return C(0.002, 10.0, -100.0)
+    if name == "AMDForceGroupIntegrator":
+        return C(0.002, 1, 10.0, -100.0)
+    if name == "DualAMDIntegrator":
+        return C(0.002, 1, 10.0, -100.0, 5.0, -50.0)
+    if name == "TwoParticleAverageSite":
+        return C(0, 1, 0.3, 0.7)
+    if name == "ThreeParticleAverageSite":
+        return C(0, 1, 2, 0.2, 0.3, 0.5)
+    if name == "OutOfPlaneSite":
+        return C(0, 1, 2, 0.2, 0.3, 0.5)
+    if name == "LocalCoordinatesSite":
+        return C([0, 1, 2], [1.0, 0.0, 0.0], [-1.0, 1.0, 0.0],
+                 [-1.0, 0.0, 1.0], pkg.Vec3(0.1, 0.05, 0.0))
+    raise KeyError(name)
+
+
+CLASSES = [
+    "System", "HarmonicBondForce", "HarmonicAngleForce",
+    "PeriodicTorsionForce", "RBTorsionForce", "CMAPTorsionForce",
+    "NonbondedForce", "CMMotionRemover", "AndersenThermostat",
+    "MonteCarloBarostat", "MonteCarloAnisotropicBarostat",
+    "MonteCarloMembraneBarostat", "CustomExternalForce", "CustomBondForce",
+    "CustomAngleForce", "CustomTorsionForce", "CustomNonbondedForce",
+    "CustomCompoundBondForce", "CustomCentroidBondForce", "CustomGBForce",
+    "CustomHbondForce", "CustomCVForce", "GBSAOBCForce", "RMSDForce",
+    "GayBerneForce", "CustomManyParticleForce", "Continuous1DFunction",
+    "Continuous2DFunction", "Continuous3DFunction", "Discrete1DFunction",
+    "Discrete2DFunction", "Discrete3DFunction", "VerletIntegrator",
+    "LangevinIntegrator", "LangevinMiddleIntegrator", "BrownianIntegrator",
+    "VariableVerletIntegrator", "VariableLangevinIntegrator",
+    "NoseHooverIntegrator", "NoseHooverChain", "CustomIntegrator",
+    "CompoundIntegrator",
+    "MTSIntegrator", "MTSLangevinIntegrator", "AMDIntegrator",
+    "AMDForceGroupIntegrator", "DualAMDIntegrator",
+    "TwoParticleAverageSite", "ThreeParticleAverageSite", "OutOfPlaneSite",
+    "LocalCoordinatesSite",
+]
+
+
+def _call(obj, name):
+    """The getter's result with no argument, else with index 0, else
+    None when neither call applies (a getter of a name, a chain ID)."""
+    method = getattr(obj, name)
+    for args in ((), (0,)):
+        try:
+            return ("ok", method(*args))
+        except TypeError:
+            continue
+        except Exception as exc:  # noqa: BLE001 - compared as outcomes
+            return ("raised", type(exc).__name__)
+    return None
+
+
+def _same(got, want, where):
+    """Raise unless `got` (port) is `want` (JAX) by type, unit and value."""
+    if isinstance(want, ju.Quantity):
+        assert isinstance(got, tu.Quantity), \
+            "%s: %r is not a Quantity" % (where, got)
+        assert str(got.unit) == str(want.unit), \
+            "%s: unit %s, JAX %s" % (where, got.unit, want.unit)
+        _same(got._value, want._value, where)
+        return
+    assert not isinstance(got, tu.Quantity), \
+        "%s: %r is a Quantity, JAX gives %r" % (where, got, want)
+    if isinstance(want, (J.Vec3, T.Vec3)) or type(want).__name__ == "Vec3":
+        assert type(got).__name__ == "Vec3", where
+        np.testing.assert_allclose(tuple(got), tuple(want), rtol=1e-12,
+                                   atol=1e-12, err_msg=where)
+        return
+    if isinstance(want, (list, tuple)):
+        assert isinstance(got, (list, tuple)), \
+            "%s: %r is not a sequence" % (where, got)
+        assert len(got) == len(want), where
+        for k, (g, w) in enumerate(zip(got, want)):
+            _same(g, w, "%s[%d]" % (where, k))
+        return
+    if isinstance(want, np.ndarray):
+        np.testing.assert_allclose(np.asarray(got, np.float64),
+                                   np.asarray(want, np.float64),
+                                   rtol=1e-12, atol=1e-12, err_msg=where)
+        return
+    if isinstance(want, bool) or isinstance(got, bool):
+        assert bool(got) == bool(want), where
+        return
+    if isinstance(want, (int, float, np.floating, np.integer)):
+        assert isinstance(got, (int, float, np.floating, np.integer)), \
+            "%s: %r against %r" % (where, got, want)
+        if math.isinf(float(want)):
+            assert float(got) == float(want), where
+        else:
+            assert abs(float(got) - float(want)) <= 1e-12 * max(
+                1.0, abs(float(want))), "%s: %r against %r" % (where, got,
+                                                               want)
+        return
+    if isinstance(want, str) or want is None:
+        assert got == want, "%s: %r against %r" % (where, got, want)
+        return
+    # objects (a force of a CV, a tabulated function): the same class
+    assert type(got).__name__ == type(want).__name__, \
+        "%s: %s against %s" % (where, type(got).__name__,
+                               type(want).__name__)
+
+
+@pytest.mark.parametrize("name", CLASSES)
+def test_getters_match(name):
+    jobj, tobj = _build(J, name), _build(T, name)
+    compared = 0
+    for getter in sorted(m for m in dir(jobj) if m.startswith("get")):
+        if getter in _SKIP or not callable(getattr(jobj, getter)):
+            continue
+        assert hasattr(tobj, getter), "%s.%s is missing" % (name, getter)
+        want = _call(jobj, getter)
+        if want is None or want[0] == "raised":
+            continue
+        got = _call(tobj, getter)
+        assert got is not None and got[0] == "ok", \
+            "%s.%s: %r" % (name, getter, got)
+        _same(got[1], want[1], "%s.%s" % (name, getter))
+        compared += 1
+    assert compared > 0
+
+
+def _water_pair(pkg, platform):
+    system = pkg.System()
+    for m in (15.999, 1.008, 1.008):
+        system.addParticle(m)
+    nb = pkg.NonbondedForce()
+    for q in (-0.834, 0.417, 0.417):
+        nb.addParticle(q, 0.3, 0.5)
+    nb.addException(0, 1, 0.0, 0.1, 0.0)
+    nb.addException(0, 2, 0.0, 0.1, 0.0)
+    nb.addException(1, 2, 0.0, 0.1, 0.0)
+    bonds = pkg.HarmonicBondForce()
+    bonds.addBond(0, 1, 0.09572, 4.6e5)
+    bonds.addBond(0, 2, 0.09572, 4.6e5)
+    system.addForce(nb)
+    system.addForce(bonds)
+    integ = pkg.VerletIntegrator(0.001)
+    ctx = pkg.Context(system, integ, pkg.Platform.getPlatformByName(platform))
+    ctx.setPositions([pkg.Vec3(0, 0, 0), pkg.Vec3(0.1, 0, 0),
+                      pkg.Vec3(-0.03, 0.09, 0.01)])
+    ctx.setVelocities([pkg.Vec3(0.1, 0.2, 0.3), pkg.Vec3(-0.1, 0, 0),
+                       pkg.Vec3(0, 0.4, -0.2)])
+    integ.step(3)
+    return ctx
+
+
+def test_state_getters_match():
+    jctx = _water_pair(J, "Reference")
+    tctx = _water_pair(T, "CPU")
+    flags = dict(getPositions=True, getVelocities=True, getForces=True,
+                 getEnergy=True, getParameters=True)
+    js, ts = jctx.getState(**flags), tctx.getState(**flags)
+    for getter in ("getTime", "getStepCount", "getPeriodicBoxVectors",
+                   "getPeriodicBoxVolume", "getKineticEnergy",
+                   "getParameters", "getDataTypes"):
+        want = getattr(js, getter)()
+        got = getattr(ts, getter)()
+        if getter in ("getKineticEnergy",):
+            assert isinstance(got, tu.Quantity)
+            assert str(got.unit) == str(want.unit)
+            assert abs(got._value - want._value) <= 1e-9 * abs(want._value)
+            continue
+        _same(got, want, "State." + getter)
+    got = ts.getPotentialEnergy()
+    want = js.getPotentialEnergy()
+    assert isinstance(got, tu.Quantity) and str(got.unit) == str(want.unit)
+    assert abs(got._value - want._value) <= 1e-9 * abs(want._value)
+    for getter, tol in (("getPositions", 1e-12), ("getVelocities", 1e-9),
+                        ("getForces", 1e-7)):
+        for as_numpy in (False, True):
+            want = getattr(js, getter)(asNumpy=as_numpy)
+            got = getattr(ts, getter)(asNumpy=as_numpy)
+            assert isinstance(got, tu.Quantity)
+            assert str(got.unit) == str(want.unit)
+            assert type(got._value).__name__ == type(want._value).__name__
+            if not as_numpy:
+                assert type(got._value[0]).__name__ == "Vec3"
+            np.testing.assert_allclose(
+                np.asarray([tuple(v) for v in got._value]),
+                np.asarray([tuple(v) for v in want._value]),
+                rtol=tol, atol=tol * 10)
+    for getter in ("getTime", "getStepCount", "getParameters"):
+        _same(getattr(tctx, getter)(), getattr(jctx, getter)(),
+              "Context." + getter)
+    _same(tctx.getIntegrator().getStepSize(),
+          jctx.getIntegrator().getStepSize(), "Integrator.getStepSize")
+
+
+def test_platform_getters():
+    for name in ("CPU",):
+        jp = J.Platform.getPlatformByName(name)
+        tp = T.Platform.getPlatformByName(name)
+        assert tp.getName() == jp.getName()
+        assert "Precision" in tp.getPropertyNames()
+        assert tp.getPropertyDefaultValue("Precision") == \
+            jp.getPropertyDefaultValue("Precision")
+    assert T.Platform.getNumPlatforms() == 2
+    assert [T.Platform.getPlatform(i).getName() for i in range(2)] == \
+        ["CUDA", "CPU"]
+    assert isinstance(T.Platform.getOpenMMVersion(), str)
+    assert T.Platform.getPluginLoadFailures() == []

@@ -20,6 +20,7 @@ import openmm_tpu_torch as omm
 from openmm_tpu_torch.forces.nonbonded import NonbondedModule
 from openmm_tpu_torch.models import tip3p_water_box
 from openmm_tpu_torch.ops import tile_pairs as tp
+from openmm_tpu_torch.unit import plain
 
 # one intra-op thread, as tests/torch_port_helpers.py sets: the runner's
 # worker processes would otherwise oversubscribe the cores
@@ -176,10 +177,10 @@ def test_kernel_wrapper_on_cpu_is_the_plain_version(water):
 def test_overflow_poisons_energy_and_forces():
     system, pos = tip3p_water_box(125)
     module = NonbondedModule(system.getForce(0),
-                             system.getDefaultPeriodicBoxVectors(),
+                             plain(system.getDefaultPeriodicBoxVectors()),
                              torch.device("cpu"))
     pos_t = torch.as_tensor(pos)
-    box_t = torch.as_tensor(system.getDefaultPeriodicBoxVectors())
+    box_t = torch.as_tensor(plain(system.getDefaultPeriodicBoxVectors()))
     e, f = module(pos_t, box_t)
     assert np.isfinite(float(e)) and torch.isfinite(f).all()
     module.capacity_scale = 0.05
@@ -200,8 +201,8 @@ def test_context_grows_capacity_after_overflow():
     integ.step(3)
     assert ctx.escalation_count > 0 and ctx.getStepCount() == 3
     st = ctx.getState(getEnergy=True, getForces=True)
-    assert np.isfinite(st.getPotentialEnergy())
-    assert np.isfinite(st.getForces()).all()
+    assert np.isfinite(plain(st.getPotentialEnergy()))
+    assert np.isfinite(plain(st.getForces(asNumpy=True))).all()
 
 
 @pytest.mark.parametrize("sheared", [False, True], ids=["cubic", "triclinic"])
@@ -262,8 +263,10 @@ def test_reading_grows_capacity_after_overflow():
         ctx.setVelocitiesToTemperature(300.0, randomSeed=2)
         t = ctx.temperature()
         st = ctx.getState(getEnergy=True, getForces=True)
-        readings.append((ctx.escalation_count, t, st.getPotentialEnergy(),
-                         st.getKineticEnergy(), st.getForces()))
+        readings.append((ctx.escalation_count, t,
+                         plain(st.getPotentialEnergy()),
+                         plain(st.getKineticEnergy()), plain(st.getForces(
+                             asNumpy=True))))
     (e0, t0, u0, k0, f0), (e1, t1, u1, k1, f1) = readings
     assert e0 == 0 and e1 > 0
     assert np.isfinite([t1, u1, k1]).all() and np.isfinite(f1).all()

@@ -20,6 +20,7 @@ from openmm_tpu.models import tip3p_water_box as jax_water_box
 
 import openmm_tpu_torch as omm
 from torch_port_helpers import median_relative_error, system_params
+from openmm_tpu_torch.unit import plain
 
 N_SIDE = 7
 
@@ -52,7 +53,7 @@ def _port_state(system, pos, precision):
                       "CPU", {"Precision": precision})
     ctx.setPositions(pos)
     st = ctx.getState(getEnergy=True, getForces=True)
-    return st.getPotentialEnergy(), st.getForces()
+    return plain(st.getPotentialEnergy()), plain(st.getForces(asNumpy=True))
 
 
 @pytest.mark.parametrize("precision", ["mixed", "double"])
@@ -91,10 +92,10 @@ def test_chip_smoke_triclinic_phase_on_cpu():
 
     import chip_smoke
     system, _ = chip_smoke.water_box(N_SIDE ** 3, sheared=True)
-    edge = system.getDefaultPeriodicBoxVectors()[0][0]
+    edge = plain(system.getDefaultPeriodicBoxVectors())[0][0]
     s = edge / N_SIDE
     np.testing.assert_allclose(
-        system.getDefaultPeriodicBoxVectors(),
+        plain(system.getDefaultPeriodicBoxVectors()),
         [[edge, 0, 0], [2 * s, edge, 0], [-s, 2 * s, edge]], rtol=1e-15)
     result = chip_smoke.phase_triclinic(torch.device("cpu"),
                                         n_waters=N_SIDE ** 3)

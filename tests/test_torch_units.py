@@ -12,6 +12,7 @@ from openmm_tpu.vec3 import Vec3 as JVec3
 import openmm_tpu_torch as omm
 from openmm_tpu_torch import unit as pu
 from openmm_tpu_torch.vec3 import Vec3 as PVec3
+from openmm_tpu_torch.unit import plain
 
 
 def _plain(x):
@@ -118,31 +119,31 @@ def test_setters_strip_quantities():
     system.setDefaultPeriodicBoxVectors(
         *pu.Quantity((PVec3(30.0, 0, 0), PVec3(0, 30.0, 0),
                       PVec3(0, 0, 30.0)), pu.angstrom))
-    assert system.getParticleMass(0) == 15.999
-    assert system.getParticleMass(1) == 1.008
-    assert math.isclose(system.getConstraintParameters(0)[2], 0.09572)
-    assert np.allclose(system.getDefaultPeriodicBoxVectors(),
+    assert plain(system.getParticleMass(0)) == 15.999
+    assert plain(system.getParticleMass(1)) == 1.008
+    assert math.isclose(plain(system.getConstraintParameters(0))[2], 0.09572)
+    assert np.allclose(plain(system.getDefaultPeriodicBoxVectors()),
                        3.0 * np.eye(3))
     nb = omm.NonbondedForce()
     nb.addParticle(-0.834 * pu.elementary_charge, 3.15 * pu.angstrom,
                    0.152 * pu.kilocalorie_per_mole)
     nb.setCutoffDistance(9.0 * pu.angstrom)
-    q, sig, eps = nb.getParticleParameters(0)
+    q, sig, eps = plain(nb.getParticleParameters(0))
     assert (q, math.isclose(sig, 0.315), math.isclose(eps, 0.152 * 4.184)) \
         == (-0.834, True, True)
-    assert math.isclose(nb.getCutoffDistance(), 0.9)
+    assert math.isclose(plain(nb.getCutoffDistance()), 0.9)
     bond = omm.HarmonicBondForce()
     bond.addBond(0, 1, 1.0 * pu.angstrom,
                  100.0 * pu.kilocalorie_per_mole / pu.angstrom ** 2)
-    assert np.allclose(bond.getBondParameters(0)[2:], (0.1, 41840.0))
+    assert np.allclose(plain(bond.getBondParameters(0))[2:], (0.1, 41840.0))
     integ = omm.LangevinMiddleIntegrator(300 * pu.kelvin, 1 / pu.picosecond,
                                          2.0 * pu.femtosecond)
-    assert (integ.getTemperature(), integ.getFriction(),
-            integ.getStepSize()) == (300.0, 1.0, 0.002)
+    assert (plain(integ.getTemperature()), plain(integ.getFriction()),
+            plain(integ.getStepSize())) == (300.0, 1.0, 0.002)
     integ.setStepSize(0.001)
-    assert integ.getStepSize() == 0.001
+    assert plain(integ.getStepSize()) == 0.001
     # 1/picosecond is a bare Unit, which strips as one of it
-    assert omm.LangevinIntegrator(300.0, 1 / pu.picosecond,
-                                  0.002).getFriction() == 1.0
+    assert plain(omm.LangevinIntegrator(300.0, 1 / pu.picosecond,
+                                  0.002).getFriction()) == 1.0
     with pytest.raises(TypeError):
         nb.setCutoffDistance(1.0 * pu.picosecond)

@@ -24,6 +24,7 @@ from openmm_tpu.vec3 import Vec3
 import openmm_tpu_torch as omm
 from openmm_tpu_torch.models import builders, tip4pew_water_box
 from torch_port_helpers import jax_system, median_relative_error, system_params
+from openmm_tpu_torch.unit import plain
 
 TOL = 1e-10
 
@@ -81,7 +82,8 @@ def _sites_system():
     ctx = omm.Context(system, omm.VerletIntegrator(0.001), "CPU",
                       {"Precision": "double"})
     ctx.setPositions(np.concatenate([pos, np.zeros((len(sites), 3))]))
-    return params, ctx.getState(getPositions=True).getPositions()
+    return params, plain(ctx.getState(getPositions=True).getPositions(
+        asNumpy=True))
 
 
 @pytest.fixture(scope="module")
@@ -98,7 +100,7 @@ def test_site_positions_match_make_vsite_updater(sites):
     ctx = omm.Context(omm.from_numpy(params), omm.VerletIntegrator(0.001),
                       "CPU", {"Precision": "double"})
     ctx.setPositions(shaken)
-    got = ctx.getState(getPositions=True).getPositions()
+    got = plain(ctx.getState(getPositions=True).getPositions(asNumpy=True))
     assert np.abs(got - want).max() <= 1e-14
     # the parents stay where they were put
     parents = np.asarray(params["masses"]) > 0
@@ -126,16 +128,16 @@ def test_force_spread_matches_jax_grad(sites):
                       "CPU", {"Precision": "double"})
     ctx.setPositions(pos)
     got = ctx.getState(getEnergy=True, getForces=True)
-    assert abs(got.getPotentialEnergy() - e_ref) <= TOL * abs(e_ref)
-    assert np.abs(got.getForces() - f_ref).max() <= \
+    assert abs(plain(got.getPotentialEnergy()) - e_ref) <= TOL * abs(e_ref)
+    assert np.abs(plain(got.getForces(asNumpy=True)) - f_ref).max() <= \
         TOL * np.abs(f_ref).max()
     sites_rows = np.asarray(params["masses"]) == 0
-    assert not got.getForces()[sites_rows].any()
+    assert not plain(got.getForces(asNumpy=True))[sites_rows].any()
     # and in float32 (mixed), the median relative error bar
     ctx32 = omm.Context(omm.from_numpy(params), omm.VerletIntegrator(0.001),
                         "CPU")
     ctx32.setPositions(pos)
-    f32 = ctx32.getState(getForces=True).getForces()
+    f32 = plain(ctx32.getState(getForces=True).getForces(asNumpy=True))
     parents = ~sites_rows
     assert median_relative_error(f32[parents], f_ref[parents]) <= 1e-5
 
@@ -230,7 +232,7 @@ def test_ten_steps_of_tip4pew_match_jax_reference():
     ctx.setPositions(start)
     ctx.setVelocities(vel)
     integ.step(10)
-    got = ctx.getState(getPositions=True).getPositions()
+    got = plain(ctx.getState(getPositions=True).getPositions(asNumpy=True))
     assert np.abs(want - start).max() > 1e-3
     assert np.abs(got - want).max() <= 1e-9
     w = got.reshape(-1, 4, 3)
@@ -258,7 +260,8 @@ def test_every_integrator_keeps_the_sites_on_their_parents():
         ctx.applyConstraints()
         ctx.setVelocitiesToTemperature(300, randomSeed=1)
         integ.step(5)
-        w = ctx.getState(getPositions=True).getPositions().reshape(-1, 4, 3)
+        w = plain(ctx.getState(getPositions=True).getPositions(
+            asNumpy=True)).reshape(-1, 4, 3)
         m = np.einsum("k,wkd->wd", builders.TIP4PEW_M_WEIGHTS, w[:, :3])
         assert np.abs(w[:, 3] - m).max() <= 1e-12, type(integ).__name__
 
@@ -270,7 +273,7 @@ def test_molecules_and_degrees_of_freedom_count_sites_right():
     assert molecules == [[4 * w + k for k in range(4)] for w in range(8)]
     ctx.setPositions(pos)
     ctx.setVelocitiesToTemperature(300, randomSeed=1)
-    vel = ctx.getState(getVelocities=True).getVelocities()
+    vel = plain(ctx.getState(getVelocities=True).getVelocities(asNumpy=True))
     assert not vel[3::4].any()
     # 8 waters: 3 massive particles less 3 constraints each
     ke = ctx.kinetic_energy()

@@ -10,6 +10,10 @@ from the JAX package's ForceField:
 
 writes that file anew.
 
+The port's getters return Quantities, as the JAX package's do; the tests
+read them in MD units through `plain` (openmm_tpu_torch.unit.plain: a
+Quantity stripped to MD units, vectors as a float64 array).
+
 Importing it caps torch at one intra-op thread: the test runner starts
 several worker processes, and torch's default of a thread per core in each
 of them oversubscribes the cores many times over.
@@ -30,6 +34,8 @@ from openmm_tpu.forces import (AndersenThermostat, CMAPTorsionForce,
 from openmm_tpu.forces.barostats import (MonteCarloAnisotropicBarostat,
                                          MonteCarloBarostat,
                                          MonteCarloMembraneBarostat)
+
+from openmm_tpu_torch.unit import plain
 
 torch.set_num_threads(1)
 
@@ -801,7 +807,7 @@ def anchored_droplet():
 
     box_sys, box_pos = tip3p_water_box(64)
     system, pos = water_droplet(
-        box_pos, box_sys.getDefaultPeriodicBoxVectors(), radius=0.6,
+        box_pos, plain(box_sys.getDefaultPeriodicBoxVectors()), radius=0.6,
         cutoff=1.0)
     params = omm.to_numpy(system)
     n = len(params["masses"])
