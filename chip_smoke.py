@@ -144,7 +144,23 @@ comes out:
   back to the final positions; ms a step through Simulation against the
   plain models.popc_bilayer() Context in turns. The later bilayer phases
   take the ForceField's System, the rf bilayer the reference one. The
-  kernels are built with one nvcc a source, all at once, and one link.
+  kernels are built with one nvcc a source, all at once, and one link;
+- the AMOEBA family: the slice's path at full size (phase_amoeba_pme:
+  ACE-(ALA)20-NME through PDBFile and Modeller.addHydrogens/addSolvent in
+  a 6.5 nm cube, ~24,000 atoms, DHFR's size; ForceField("amoeba2013.json")
+  .createSystem(PME 0.7 nm, vdwCutoff 0.9 nm, mutual polarization) with
+  the AMOEBA forces in group 1; minimizeEnergy; float32 forces and group
+  energies against float64; kernels 4-5 at its shapes against their
+  plain versions, first and second order; MTSLangevin (2 fs, [(0, 2),
+  (1, 1)]) through the step program, kernels 4-5 launched, the eager
+  loop's bits, the SCF's residual and the peak memory), generalized
+  Kirkwood on ACE-(ALA)247-NME (phase_amoeba_gk, amoebagk's ~2,490
+  atoms) and HIPPO on a 512-water cluster (phase_hippo), each against
+  float64 and a few steps (GK's through the eager loop). The peptide's
+  build, minimization and relaxation, GK and HIPPO run in children
+  forked at the start (fork_helper), beside the build, the kernel
+  phases, the examples and phase_modeller_membrane's build, which time
+  no device work.
 
 It imports nothing of JAX or of openmm_tpu.
 
@@ -162,6 +178,7 @@ Without a CUDA device it exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import atexit
 import importlib
 import io
 import json
@@ -171,6 +188,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -202,16 +220,16 @@ N_WATERS = 8000
 RELAX = ((0.0005, 50.0, 300), (0.001, 20.0, 200))
 DT_PS = 0.002
 FRICTION = 1.0
-PRODUCTION_STEPS = 200
+PRODUCTION_STEPS = 100
 ENERGY_EVERY = 50
 # the step program against the eager loop: steps taken one a call (to
 # find the steps that rebuild), steps from a capacity scale too small for
 # the box (to force an escalation), and steps of a float64 Context
-REBUILD_STEPS = 60
+REBUILD_STEPS = 30
 ESCALATION_SCALE = 0.5
-ESCALATION_STEPS = 20
+ESCALATION_STEPS = 10
 DOUBLE_WATERS = 512
-DOUBLE_STEPS = 10
+DOUBLE_STEPS = 5
 # float64 positions of the float64 Context after DOUBLE_STEPS steps, graph
 # against eager: its plain PME spread adds in float64 atomics, whose order
 # changes from run to run (each step's rounding, ~1e-16 relative, grown
@@ -247,7 +265,7 @@ APP_REPORT_EVERY = 50
 APP_ENERGY_BAR = 1e-6           # relative, the two Systems' energies
 APP_FORCE_BAR = 1e-6            # the median relative force difference
 APP_BOX_BAR = 5e-5              # nm, half the PDB's 0.001 A
-APP_TURN_STEPS = 25
+APP_TURN_STEPS = 10
 APP_TURNS = ("simulation", "plain", "plain", "simulation")
 # phase_modeller_membrane: the helix of helix_residues through
 # Modeller.addHydrogens and addMembrane("POPC"), then a Simulation with
@@ -259,7 +277,7 @@ MEMBRANE_RELAX = 6              # addMembrane's _relax_iterations (50 by
                                 # default): 6 rounds of 20 steps
 MEMBRANE_MINIMIZE_ITERATIONS = 3
 MEMBRANE_STEPS = 300            # under Metadynamics
-MEMBRANE_PLAIN_STEPS = 50       # timed without it, the reporters on
+MEMBRANE_PLAIN_STEPS = 25       # timed without it, the reporters on
 MEMBRANE_REPORT_EVERY = 50
 MEMBRANE_FRICTION = 5.0         # 1/ps: the freshly built membrane, its
                                 # energy minimized, takes its kinetic
@@ -274,29 +292,29 @@ META_GRID_BAR = 1e-9            # kJ/mol, the bias grid against numpy's sum
 META_ENERGY_BAR = 1e-6          # relative, group 31 against the table
 PDBX_BAR = 0.5e-5               # nm, half the file's 0.0001 A
 # phase_gromacs_water: the water box as .gro and an SPC/E .top
-GROMACS_STEPS = 100
+GROMACS_STEPS = 50
 GROMACS_T_RANGE = (200.0, 450.0)
 # phase_tempering: simulated tempering on the relaxed GROMACS water box
 TEMPERING_RUNGS = (300.0, 330.0, 4)     # min K, max K, rungs
 TEMPERING_INTERVAL = 25
-TEMPERING_STEPS = 300
+TEMPERING_STEPS = 150
 # constant pressure: the barostats' settings (bar, bar nm, K), steps and
 # bars; the NPT phases read and print the box after every call of
 # NPT_FREQUENCY steps, one attempt a call on the bilayer and the water box
 NPT_PRESSURE = 1.0
 NPT_TENSION = 0.0
 NPT_FREQUENCY = 25
-NPT_BILAYER_STEPS = 200
-NPT_BILAYER_REPLAY = 25
-NPT_WATER_STEPS = 200
-NPT_WATER_REPLAY = 25
+NPT_BILAYER_STEPS = 100
+NPT_BILAYER_REPLAY = 10
+NPT_WATER_STEPS = 100
+NPT_WATER_REPLAY = 10
 ANISO_FREQUENCY = 5
-ANISO_STEPS = 100
+ANISO_STEPS = 50
 NPT_VOLUME_BAR = 0.03       # |V / V0 - 1| after the run
 # the bilayer's NVT and NPT step programs timed in turns, in one call each
 # of NPT_TURN_STEPS steps (4 attempts), in the order NPT_TURNS, with the
 # card's SM clock and power read before and after
-NPT_TURN_STEPS = 50
+NPT_TURN_STEPS = 25
 NPT_TURNS = ("nvt", "npt", "npt", "nvt")
 # the other NonbondedForce methods: the reference suite's rf settings
 # (tools/bench_suite.py, dhfr_rf: CutoffPeriodic, 1.0 nm) on the relaxed
@@ -304,15 +322,15 @@ NPT_TURNS = ("nvt", "npt", "npt", "nvt")
 # the eager loop; a droplet of the relaxed box (radius nm) at NoCutoff and
 # CutoffNonPeriodic (cutoff nm; dhfr_gbsa's), and a small Ewald box
 RF_CUTOFF = 1.0
-RF_STEPS = 200
-RF_REPLAY = 10
+RF_STEPS = 100
+RF_REPLAY = 5
 DROPLET_RADIUS = 2.5
 DROPLET_CUTOFF = 2.0
 DROPLET_STEPS = 40
-DROPLET_REPLAY = 10
+DROPLET_REPLAY = 5
 EWALD_WATERS = 512
 EWALD_STEPS = 60
-EWALD_REPLAY = 20
+EWALD_REPLAY = 10
 # implicit solvent (models.popc_obc_cluster: 19 lipids at the reference
 # suite's dhfr_gbsa settings, LangevinMiddle at 300 K, 1/ps, 2 fs): the
 # force group of each force, the minimize call's iterations a penalty
@@ -326,7 +344,7 @@ GBSA_TEMPERATURE = 300.0
 GBSA_MINIMIZE_ITERATIONS = 5
 GBSA_STEPS = 100
 GBSA_RELAX_FRICTION = 10.0
-GBSA_REPLAY = 10
+GBSA_REPLAY = 5
 # the other integrators on the relaxed water box (PME, kernels 1-3):
 # Verlet at 1 fs, its total energy read every DRIFT_EVERY steps over
 # VERLET_STEPS steps for the NVE drift, gated as tests/test_nve_drift.py
@@ -346,11 +364,11 @@ ANDERSEN_START = 250.0
 ANDERSEN_STEPS = 400
 ANDERSEN_EVERY = 25
 ANDERSEN_T_RANGE = (270.0, 330.0)
-LANGEVIN_STEPS = 200
+LANGEVIN_STEPS = 100
 BROWNIAN_DT = 0.0005
 BROWNIAN_FRICTION = 100.0
-BROWNIAN_STEPS = 100
-INTEGRATOR_REPLAY = 10
+BROWNIAN_STEPS = 50
+INTEGRATOR_REPLAY = 5
 # the integrators written as programs or carrying state of their own, on
 # the relaxed water box (PME, kernels 1-3): a CustomIntegrator velocity
 # Verlet at VERLET_DT with a step counter, a kinetic-energy sum in an if
@@ -378,14 +396,14 @@ NH_EVERY = 50
 NH_T_RANGE = (270.0, 330.0)
 VELOCITY_SEED = 8               # of the velocities drawn at a temperature
 VARIABLE_TOLERANCE = 1e-3
-VARIABLE_STEPS = 500
+VARIABLE_STEPS = 250
 VARIABLE_ENERGY_BAR = 0.02      # |E1 / E0 - 1| under VariableVerlet
-COMPOUND_STEPS = 100
+COMPOUND_STEPS = 50
 COMPOUND_SWITCHES = 3
 MTS_GROUPS = ((0, 1), (1, 2))
-MTS_STEPS = 150
+MTS_STEPS = 75
 AMD_DT = 0.001
-AMD_STEPS = 120
+AMD_STEPS = 60
 AMD_EVERY = 25
 AMD_FRACTION = 0.2
 BILAYER_T_RANGE = (250.0, 360.0)
@@ -395,8 +413,8 @@ BILAYER_T_RANGE = (250.0, 360.0)
 # MTS with the reciprocal space slow; parameter offsets and
 # updateParametersInContext on the relaxed water box; checkpoints
 LJPME_RECIP_GROUP = 5
-LJPME_STEPS = 100
-LJPME_REPLAY = 10
+LJPME_STEPS = 50
+LJPME_REPLAY = 5
 LJPME_MINIMIZE_ITERATIONS = 3
 # 0.3 ps after fresh velocities at 303.15 K on a minimized structure: half
 # the kinetic energy flows into the potential first (248.25 K in a chip
@@ -413,7 +431,7 @@ LJPME_F64_MAX_BAR = 1e-4
 TIP4PEW_WATERS = 8000
 TIP4PEW_RELAX = RELAX
 TIP4PEW_STEPS = 150
-TIP4PEW_REPLAY = 25
+TIP4PEW_REPLAY = 10
 SITE_BAR = 1e-6                 # nm: a site from its weighted parents
 MTS_TIP4PEW_DT = 0.004
 MTS_TIP4PEW_GROUPS = ((1, 1), (0, 2))
@@ -421,9 +439,9 @@ MTS_TIP4PEW_STEPS = 100
 MTS_T_RANGE = (250.0, 360.0)
 OFFSET_WATERS = 64
 OFFSET_LAMBDAS = (1.0, 0.5, 0.0)
-OFFSET_CHUNK = 50
+OFFSET_CHUNK = 25
 OFFSET_BUILT_IN_BAR = 1e-6      # relative, against the parameters built in
-CHECKPOINT_STEPS = 100
+CHECKPOINT_STEPS = 50
 # the alchemical water box (models.alchemical_water_box), the custom twins
 # of the bilayer's bonded forces, the tables, the draws inside a while block
 ALCHEMICAL_SOLUTE = 64
@@ -431,15 +449,15 @@ ALCHEMICAL_SOLUTE = 64
 # are off wherever its sterics are softened (its oxygens would fuse with
 # the solvent's hydrogens otherwise), as an alchemical protocol takes them
 ALCHEMICAL_LAMBDAS = ((1.0, 1.0), (0.5, 0.0), (0.2, 0.0))
-ALCHEMICAL_CHUNK = 30           # steps at each lambda
-ALCHEMICAL_REPLAY = 10
+ALCHEMICAL_CHUNK = 15           # steps at each lambda
+ALCHEMICAL_REPLAY = 5
 ALCHEMICAL_MINIMIZE_ITERATIONS = 5
 ALCHEMICAL_T_RANGE = (200.0, 450.0)
 ALCHEMICAL_H = 1e-4             # the central difference's step in lambda
 ALCHEMICAL_DERIV_BAR = 1e-4     # relative, dE/dlambda against it
 TWIN_BAR = 1e-10                # float64 twins against the standard forces
-TWIN_STEPS = 50
-TWIN_REPLAY = 10
+TWIN_STEPS = 25
+TWIN_REPLAY = 5
 TABLE_ATOMS = 2000              # atoms of the tables' synthetic dihedrals
 TABLE_BAR = 1e-12               # the card's float64 against the CPU's
 WHILE_DRAW_PASSES = 2
@@ -450,7 +468,7 @@ WHILE_DRAW_STEPS = 20
 # offsets' electrostatic derivative (phase_alchemical)
 GB_MODEL = "GBn2"
 GB_STEPS = 100
-GB_REPLAY = 10
+GB_REPLAY = 5
 GB_MINIMIZE_ITERATIONS = 5
 # the OBC2 recipe against GBSAOBCForce, float64, relative: the recipe's
 # Coulomb constant 138.935485 against the port's 138.9354576 (2.0e-7)
@@ -460,8 +478,8 @@ RMSD_K = 2000.0                 # kJ/mol/nm^2
 RMSD_STEER = 0.01               # nm that r0 rises between chunks
 RMSD_CHUNK = 50
 RMSD_CHUNKS = 2
-RMSD_REPLAY = 10
-RMSD_TURN_STEPS = 50
+RMSD_REPLAY = 5
+RMSD_TURN_STEPS = 25
 RMSD_H = 1e-4                  # nm, the central difference's step
 RMSD_FD_BAR = 1e-5              # of the largest force, float64: the
 # msd is a difference of sums of squares ~1e4 times its size, so the float64
@@ -475,7 +493,7 @@ MORE_STEPS = 200
 ARGON_STEPS = 60                # its 2.76M triples cost 12 ms a step (H100
                                 # 80GB HBM3, 700 W)
 MORE_EVERY = 25
-MORE_REPLAY = 10
+MORE_REPLAY = 5
 MORE_BAR = 1e-10                # the card's float64 ef against the CPU's
 DERIV_OPS_PER_PAIR = 75.0       # kernel 1's derivative instantiation
 COUNTED = {"NonbondedForce": "getNumExceptions",
@@ -1642,12 +1660,55 @@ def read_dcd(path, n_atoms) -> np.ndarray:
     return out
 
 
+def app_bilayer_build(patch=None, reference=None) -> dict:
+    """phase_app_bilayer's host work: the patch written with
+    PDBFile.writeFile and read back, its System from
+    ForceField(*APP_FORCEFIELD).createSystem(PME, APP_CUTOFF nm, HBonds)
+    gated equal to models.popc_bilayer()'s (or `reference`'s); the
+    topology, positions, Systems and seconds, for the phase."""
+    import os
+    import tempfile
+
+    from openmm_tpu_torch import app
+    from openmm_tpu_torch import unit as u
+    from openmm_tpu_torch.app.modeller import _load_membrane_patch
+
+    top, pos = patch or _load_membrane_patch("POPC")[:2]
+    ref_system, _ = reference or popc_bilayer()
+    with tempfile.TemporaryDirectory() as tmp:
+        pdb_path = os.path.join(tmp, "bilayer.pdb")
+        t0 = time.perf_counter()
+        app.PDBFile.writeFile(top, u.Quantity(pos, u.nanometer), pdb_path)
+        pdb = app.PDBFile(pdb_path)
+        pdb_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    forcefield = app.ForceField(*APP_FORCEFIELD)
+    system = forcefield.createSystem(
+        pdb.topology, nonbondedMethod=app.PME,
+        nonbondedCutoff=APP_CUTOFF * u.nanometer, constraints=app.HBonds)
+    create_s = time.perf_counter() - t0
+    return {"topology": pdb.topology, "positions": pdb.positions,
+            "system": system, "reference": ref_system, "pdb_s": pdb_s,
+            "create_s": create_s,
+            "reordered": gate_same_system(system, ref_system)}
+
+
+def write_app_build(path) -> None:
+    """app_bilayer_build and more_custom_references pickled to `path` (a
+    process of its own that sees no card, beside the kernel phases)."""
+    import pickle
+    out = (app_bilayer_build(), more_custom_references())
+    with open(path, "wb") as f:
+        pickle.dump(out, f)
+
+
 def phase_app_bilayer(device, deadline=None, patch=None, reference=None,
                       steps=APP_STEPS, report_every=APP_REPORT_EVERY,
                       minimize_iterations=APP_MINIMIZE_ITERATIONS,
                       turn_steps=APP_TURN_STEPS, turns=APP_TURNS,
                       t_band=APP_T_BAND,
-                      minimize_tolerance=MINIMIZE_TOLERANCE) -> dict:
+                      minimize_tolerance=MINIMIZE_TOLERANCE,
+                      built=None) -> dict:
     """The POPC bilayer through the app layer, as a user builds it: the
     patch (app.modeller._load_membrane_patch("POPC"), or `patch` =
     (Topology, positions in nm)) written with PDBFile.writeFile to a
@@ -1668,32 +1729,25 @@ def phase_app_bilayer(device, deadline=None, patch=None, reference=None,
     float32 rounding. Last, Simulation.step (reporters included) against
     the reference's plain Context, `turn_steps` steps a call in the order
     `turns`. Raises on a miss; returns the System, the PDB's positions and
-    the reference System for the later bilayer phases."""
+    the reference System for the later bilayer phases. `built`:
+    app_bilayer_build's result (made beside the kernel phases, in
+    write_app_build's process); without, it is made here."""
     import os
     import tempfile
 
     from openmm_tpu_torch import app
     from openmm_tpu_torch import unit as u
-    from openmm_tpu_torch.app.modeller import _load_membrane_patch
 
     deadline = deadline or Deadline(math.inf)
     platform = (None if device.type == "cuda"
                 else omm.Platform.getPlatformByName("CPU"))
-    top, pos = patch or _load_membrane_patch("POPC")[:2]
-    ref_system, _ = reference or popc_bilayer()
+    built = built or app_bilayer_build(patch, reference)
+    system, ref_system = built["system"], built["reference"]
+    pdb = types.SimpleNamespace(topology=built["topology"],
+                                positions=built["positions"])
+    pdb_s, create_s = built["pdb_s"], built["create_s"]
+    reordered = built["reordered"]
     with tempfile.TemporaryDirectory() as tmp:
-        pdb_path = os.path.join(tmp, "bilayer.pdb")
-        t0 = time.perf_counter()
-        app.PDBFile.writeFile(top, u.Quantity(pos, u.nanometer), pdb_path)
-        pdb = app.PDBFile(pdb_path)
-        pdb_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        forcefield = app.ForceField(*APP_FORCEFIELD)
-        system = forcefield.createSystem(
-            pdb.topology, nonbondedMethod=app.PME,
-            nonbondedCutoff=APP_CUTOFF * u.nanometer, constraints=app.HBonds)
-        create_s = time.perf_counter() - t0
-        reordered = gate_same_system(system, ref_system)
         n = system.getNumParticles()
         print("app bilayer: %d atoms; PDBFile write and read %.2f s, "
               "ForceField(%s).createSystem %.2f s on the host; the System "
@@ -1702,8 +1756,8 @@ def phase_app_bilayer(device, deadline=None, patch=None, reference=None,
                                  create_s, reordered or "none"))
         deadline.check("app bilayer: createSystem")
 
-        pdb_pos = np.asarray(pdb.getPositions(asNumpy=True).value_in_unit(
-            u.nanometer), np.float64)
+        pdb_pos = np.asarray(u.strip(pdb.positions, u.nanometer),
+                             np.float64)
         integ = omm.LangevinMiddleIntegrator(
             APP_TEMPERATURE * u.kelvin, 1 / u.picosecond,
             DT_PS * u.picoseconds)
@@ -1838,42 +1892,18 @@ def _bias_by_numpy(deposits, width, lo, hi, grid_width) -> np.ndarray:
     return out
 
 
-def phase_modeller_membrane(device, deadline=None, n_ala=HELIX_ALANINES,
+def modeller_membrane_build(device, deadline=None, n_ala=HELIX_ALANINES,
                             relax=MEMBRANE_RELAX, patch=None,
-                            padding=MEMBRANE_PADDING, ionic=MEMBRANE_IONIC,
-                            minimize_iterations=MEMBRANE_MINIMIZE_ITERATIONS,
-                            steps=MEMBRANE_STEPS,
-                            plain_steps=MEMBRANE_PLAIN_STEPS,
-                            report_every=MEMBRANE_REPORT_EVERY,
-                            frequency=META_FREQUENCY,
-                            t_band=APP_T_BAND) -> dict:
-    """A transmembrane helix built as users build it: ACE-(ALA)n-NME
-    (helix_pdb_text, heavy atoms) read with PDBFile, Modeller.addHydrogens
-    (ForceField(*MEMBRANE_FORCEFIELD); the new hydrogens relaxed with the
-    heavy atoms massless, gated not to move), addMembrane(lipidType="POPC"
-    (or `patch`, an object with topology and positions), minimumPadding,
-    ionicStrength, _relax_iterations=`relax`: kernel 1's RF mode; one
-    capture for all the rounds and a candidate rebuild after each round's
-    setPositions, gated), createSystem(PME 0.9 nm, HBonds), and a
-    Simulation under LangevinMiddle (300 K, 1/ps, 2 fs) on the default
-    platform: minimizeEnergy (kernels 1, 4, 5), `plain_steps` timed steps
-    with a StateDataReporter and a PDBxReporter, then Metadynamics on the
-    z distance between the helix's centroid and that of the lipids'
-    phosphorus atoms (a CustomCentroidBondForce), a deposition every
-    `frequency` steps over `steps` steps. Gates: finite reported
-    energies, the last report's temperature within `t_band` K of
-    APP_TEMPERATURE, the constraints within CONSTRAINT_ERR_BAR, the PDBx's
-    last model read back with PDBxFile within PDBX_BAR of the positions,
-    the CV within META_CV_BAR of numpy's centroids, the bias grid within
-    META_GRID_BAR of numpy's sum of the deposited Gaussians, the bias
-    energy (force group 31) within META_ENERGY_BAR of the table's natural
-    spline (scipy) at the CV, and on a card every kernel launched. Raises
-    on a miss."""
-    import os
-    import tempfile
-
-    from scipy.interpolate import CubicSpline
-
+                            padding=MEMBRANE_PADDING,
+                            ionic=MEMBRANE_IONIC) -> dict:
+    """phase_modeller_membrane's build: ACE-(ALA)n-NME through PDBFile,
+    Modeller.addHydrogens (gated not to move a heavy atom),
+    addMembrane (its relaxation's captures and rebuilds gated) and
+    createSystem(PME 0.9 nm, HBonds). It times no device work, so
+    _main runs it beside the helper processes. Returns what the phase
+    reads: the topology, positions and System, the helix's
+    atom count, the host seconds and the relaxation's counts and
+    launches. Raises on a miss."""
     from openmm_tpu_torch import app
     from openmm_tpu_torch import unit as u
 
@@ -1953,6 +1983,65 @@ def phase_modeller_membrane(device, deadline=None, n_ala=HELIX_ALANINES,
         top, nonbondedMethod=app.PME, nonbondedCutoff=APP_CUTOFF * u.nanometer,
         constraints=app.HBonds)
     create_s = time.perf_counter() - t0
+    deadline.check("modeller membrane: createSystem")
+    return {"topology": top, "positions": modeller.positions,
+            "system": system, "n_helix": n_helix,
+            "hydrogens_s": hydrogens_s, "membrane_s": membrane_s,
+            "create_s": create_s, "captures": captures,
+            "escalations": escalations, "rebuilds": rebuilds,
+            "membrane_launches": membrane_launches}
+
+
+def phase_modeller_membrane(device, deadline=None, n_ala=HELIX_ALANINES,
+                            relax=MEMBRANE_RELAX, patch=None,
+                            padding=MEMBRANE_PADDING, ionic=MEMBRANE_IONIC,
+                            minimize_iterations=MEMBRANE_MINIMIZE_ITERATIONS,
+                            steps=MEMBRANE_STEPS,
+                            plain_steps=MEMBRANE_PLAIN_STEPS,
+                            report_every=MEMBRANE_REPORT_EVERY,
+                            frequency=META_FREQUENCY,
+                            t_band=APP_T_BAND, built=None) -> dict:
+    """A transmembrane helix built as users build it: ACE-(ALA)n-NME
+    (helix_pdb_text, heavy atoms) read with PDBFile, Modeller.addHydrogens
+    (ForceField(*MEMBRANE_FORCEFIELD); the new hydrogens relaxed with the
+    heavy atoms massless, gated not to move), addMembrane(lipidType="POPC"
+    (or `patch`, an object with topology and positions), minimumPadding,
+    ionicStrength, _relax_iterations=`relax`: kernel 1's RF mode; one
+    capture for all the rounds and a candidate rebuild after each round's
+    setPositions, gated), createSystem(PME 0.9 nm, HBonds), and a
+    Simulation under LangevinMiddle (300 K, 1/ps, 2 fs) on the default
+    platform: minimizeEnergy (kernels 1, 4, 5), `plain_steps` timed steps
+    with a StateDataReporter and a PDBxReporter, then Metadynamics on the
+    z distance between the helix's centroid and that of the lipids'
+    phosphorus atoms (a CustomCentroidBondForce), a deposition every
+    `frequency` steps over `steps` steps. Gates: finite reported
+    energies, the last report's temperature within `t_band` K of
+    APP_TEMPERATURE, the constraints within CONSTRAINT_ERR_BAR, the PDBx's
+    last model read back with PDBxFile within PDBX_BAR of the positions,
+    the CV within META_CV_BAR of numpy's centroids, the bias grid within
+    META_GRID_BAR of numpy's sum of the deposited Gaussians, the bias
+    energy (force group 31) within META_ENERGY_BAR of the table's natural
+    spline (scipy) at the CV, and on a card every kernel launched.
+    `built`: modeller_membrane_build's result (made here without).
+    Raises on a miss."""
+    import os
+    import tempfile
+
+    from scipy.interpolate import CubicSpline
+
+    from openmm_tpu_torch import app
+    from openmm_tpu_torch import unit as u
+
+    deadline = deadline or Deadline(math.inf)
+    platform = (None if device.type == "cuda"
+                else omm.Platform.getPlatformByName("CPU"))
+    if built is None:
+        built = modeller_membrane_build(device, deadline, n_ala, relax,
+                                        patch, padding, ionic)
+    top, system = built["topology"], built["system"]
+    n_helix, n = built["n_helix"], top.getNumAtoms()
+    names = [r.name for r in top.residues()]
+    membrane_launches = built["membrane_launches"]
     helix_atoms = list(range(n_helix))
     phosphorus = [a.index for a in top.atoms()
                   if a.residue.name == "POP" and a.element.symbol == "P"]
@@ -1995,7 +2084,7 @@ def phase_modeller_membrane(device, deadline=None, n_ala=HELIX_ALANINES,
         DT_PS * u.picoseconds)
     integ.setRandomNumberSeed(13)
     sim = app.Simulation(top, system, integ, platform)
-    sim.context.setPositions(modeller.positions)
+    sim.context.setPositions(built["positions"])
     get_state = sim.context.getState
 
     def timed_state(*args, **kwargs):
@@ -2074,7 +2163,8 @@ def phase_modeller_membrane(device, deadline=None, n_ala=HELIX_ALANINES,
           "%d steps, %.2f ms a deposition (the CV, the bias energy, the "
           "Gaussian and the table's update); launches in "
           "the steps %s" % (
-              APP_CUTOFF, create_s, minimize_iterations, minimize_s,
+              APP_CUTOFF, built["create_s"], minimize_iterations,
+              minimize_s,
               json.dumps(minimize_launches), ms_plain, len(phosphorus),
               len(deposits), meta_s, steps, per_deposit_ms,
               json.dumps(step_launches)))
@@ -2125,9 +2215,11 @@ def phase_modeller_membrane(device, deadline=None, n_ala=HELIX_ALANINES,
                                "never launched" % missing)
     return {"atoms": n, "lipids": names.count("POP"),
             "ions": (names.count("NA"), names.count("CL")),
-            "hydrogens_s": hydrogens_s, "membrane_s": membrane_s,
-            "create_s": create_s, "captures": captures,
-            "escalations": escalations, "rebuilds": rebuilds,
+            "hydrogens_s": built["hydrogens_s"],
+            "membrane_s": built["membrane_s"],
+            "create_s": built["create_s"], "captures": built["captures"],
+            "escalations": built["escalations"],
+            "rebuilds": built["rebuilds"],
             "membrane_launches": membrane_launches,
             "minimize_launches": minimize_launches,
             "step_launches": step_launches, "ms_per_step": ms_plain,
@@ -2342,14 +2434,30 @@ def phase_tempering(device, gromacs, deadline=None,
 
 
 EXAMPLES = ("HelloArgon.py", "HelloWaterBox.py")
+# niceness added to the forked children off the critical path (GK, HIPPO,
+# the examples): the AMOEBA preparation and the script itself get the
+# card host's cores first
+NICE = 10
+# the cyclic garbage collector's thresholds while the children run: the
+# host builds (Modeller, createSystem) spent a quarter of their time in
+# full collections of a heap that the imports had filled
+GC_WINDOW_THRESHOLDS = (50000, 20, 10)
+
+
+def _exec_example(name, text) -> None:
+    """An example's text run as a script's __main__."""
+    exec(compile(text, name, "exec"), {"__name__": "__main__"})
 
 
 def start_examples(examples=EXAMPLES) -> tuple:
     """(start time, {name: process}) of examples/HelloArgon.py and
     HelloWaterBox.py with openmm_tpu replaced by openmm_tpu_torch, each in
-    its own process on the default platform (the card), all at once, once
-    the kernels are built (their library is loaded, not built again)."""
+    a Forked child of its own on the default platform (the card), all at
+    once, at niceness NICE: forked before the script touches the card,
+    they load the kernel library of the script's build (not built
+    again). Killed at exit if not joined."""
     import os
+    import tempfile
 
     root = os.path.dirname(os.path.abspath(__file__))
     procs = {}
@@ -2357,9 +2465,9 @@ def start_examples(examples=EXAMPLES) -> tuple:
     for name in examples:
         with open(os.path.join(root, "examples", name)) as f:
             text = f.read().replace("openmm_tpu", "openmm_tpu_torch")
-        procs[name] = subprocess.Popen(
-            [sys.executable, "-c", text], cwd=root, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True)
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_example_")
+        procs[name] = Forked(tmp, _exec_example, name, text, nice=NICE)
+        atexit.register(_stop_helper, procs[name], tmp)
     return t0, procs
 
 
@@ -5040,10 +5148,27 @@ def more_custom_systems(hbond_waters=HBOND_WATERS, argon=ARGON_ATOMS,
     return out
 
 
+def more_custom_references(labels=("axilrod-teller", "gay-berne")) -> dict:
+    """{label: (energy, forces)} of phase_more_custom's CPU float64
+    evaluations of the systems in `labels` (those whose positions do not
+    come from the water box's run)."""
+    out = {}
+    for label, (params, pos, _, _) in more_custom_systems().items():
+        if label not in labels:
+            continue
+        cpu = omm.Context(omm.from_numpy(params), omm.VerletIntegrator(
+            MORE_DT), "CPU", {"Precision": "double"})
+        cpu.setPositions(pos)
+        (module,) = cpu._custom
+        e, f = module.ef(cpu._state["positions"], cpu._box)
+        out[label] = (float(e), f.clone())
+    return out
+
+
 def phase_more_custom(device, main=None, deadline=None, systems=None,
                       steps=None, every=MORE_EVERY, replay=MORE_REPLAY,
                       dt=MORE_DT, gate=DRIFT_GATE,
-                      seed=VELOCITY_SEED) -> dict:
+                      seed=VELOCITY_SEED, references=None) -> dict:
     """CustomHbondForce, CustomManyParticleForce and GayBerneForce on
     more_custom_systems (the hydrogen-bond waters at the relaxed water
     box's positions): each system's custom force's ef (float64) on the
@@ -5053,7 +5178,9 @@ def phase_more_custom(device, main=None, deadline=None, systems=None,
     program from velocities at the system's temperature drawn with `seed`
     (the total energy read every `every` steps: its drift within `gate`
     kT/dof/ns); `replay` steps from a snapshot through the step program
-    and the eager loop: the same bits. Raises on a miss."""
+    and the eager loop: the same bits. `references`: CPU evaluations
+    made beforehand (more_custom_references, in write_app_build's
+    process). Raises on a miss."""
     deadline = deadline or Deadline(math.inf)
     if systems is None:
         water = (None if main is None else in_md(main["context"].getState(
@@ -5066,18 +5193,22 @@ def phase_more_custom(device, main=None, deadline=None, systems=None,
         integ = omm.VerletIntegrator(dt)
         ctx = _platform_context(device, system, integ)
         ctx.setPositions(pos)
-        cpu = omm.Context(omm.from_numpy(params), omm.VerletIntegrator(dt),
-                          "CPU", {"Precision": "double"})
-        cpu.setPositions(pos)
         (module,) = ctx._custom
-        (cpu_module,) = cpu._custom
         x = ctx._state["positions"]
         e_card, f_card = module.ef(x, ctx._box)
-        e_cpu, f_cpu = cpu_module.ef(cpu._state["positions"], cpu._box)
+        if references and label in references:
+            e_cpu, f_cpu = references[label]
+        else:
+            cpu = omm.Context(omm.from_numpy(params),
+                              omm.VerletIntegrator(dt), "CPU",
+                              {"Precision": "double"})
+            cpu.setPositions(pos)
+            (cpu_module,) = cpu._custom
+            e_cpu, f_cpu = cpu_module.ef(cpu._state["positions"], cpu._box)
+            del cpu
         f_card = f_card.cpu()
         err = (abs(float(e_card) - float(e_cpu)) / abs(float(e_cpu)),
                float((f_card - f_cpu).abs().max() / f_cpu.abs().max()))
-        del cpu
         ef_ms = (_time_ms(lambda: module.ef(x, ctx._box), device, reps=5,
                           warmup=1) if device.type == "cuda" else None)
         deadline.check("more custom: %s ef" % label)
@@ -5123,6 +5254,794 @@ def phase_more_custom(device, main=None, deadline=None, systems=None,
         del ctx
         deadline.check("more custom: %s" % label)
     return out
+
+
+# the AMOEBA phases (phase_amoeba_pme, phase_amoeba_gk, phase_hippo)
+AMOEBA_FILES = ("amoeba2013.json",)
+AMOEBA_GK_FILES = ("amoeba2013.json", "amoeba2013_gk.json")
+AMOEBA_BUILD_FORCEFIELD = ("amber14-all.json", "amber14-tip3p.json")
+AMOEBA_BOX = 6.5                # nm: ~24,000 atoms, DHFR's size
+AMOEBA_CUTOFF = 0.7             # nm, the multipoles' real space
+AMOEBA_VDW_CUTOFF = 0.9         # nm
+AMOEBA_EPSILON = 1e-5
+AMOEBA_TEMPERATURE = 300.0
+AMOEBA_MTS = ((0, 2), (1, 1))
+# the forces of the slow group, as OpenMM's benchmark.py sets them for
+# amoebapme and amoebagk
+AMOEBA_SLOW = ("AmoebaMultipoleForce", "AmoebaVdwForce",
+               "AmoebaGeneralizedKirkwoodForce", "AmoebaWcaDispersionForce")
+# the lattice start's relaxation: (step ps, friction 1/ps, steps) of
+# LangevinMiddle with Extrapolated polarization, as the water box's RELAX
+AMOEBA_RELAX = (0.001, 100.0, 60)
+AMOEBA_MINIMIZE_ITERATIONS = 2
+AMOEBA_STEPS = 8
+AMOEBA_REPLAY = 2
+AMOEBA_T_RANGE = (250.0, 360.0)
+AMOEBA_ENERGY_BAR = 1e-5        # relative, each group's energy
+SECOND_ORDER_TOL = 1e-5         # kernel 5's VJP against autograd's
+GK_ALANINES = 247               # ~2,490 atoms, amoebagk's DHFR size
+GK_STEPS = 2
+HIPPO_WATERS = 512
+HIPPO_DT = 0.0005
+HIPPO_STEPS = 3
+
+
+def _release(device) -> None:
+    """Collect the Contexts of the phases that returned and free their
+    captured graphs' memory (the AMOEBA steps keep autograd's tensors in
+    the graph's pool: ~12 GB at 24,000 atoms, more for GK's dense
+    tensors) before the next phase."""
+    import gc
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _amoeba_groups(system) -> None:
+    for f in system.getForces():
+        if type(f).__name__ in AMOEBA_SLOW:
+            f.setForceGroup(1)
+
+
+def _helix_modeller(n_ala, platform, box=None):
+    """ACE-(ALA)n-NME from helix_pdb_text through PDBFile and Modeller:
+    addHydrogens with AMOEBA_BUILD_FORCEFIELD, and with `box` addSolvent
+    in a cube of that edge: (modeller, seconds)."""
+    from openmm_tpu_torch import app
+    from openmm_tpu_torch import unit as u
+    t0 = time.perf_counter()
+    ff = app.ForceField(*AMOEBA_BUILD_FORCEFIELD)
+    pdb = app.PDBFile(io.StringIO(helix_pdb_text(n_ala)))
+    modeller = app.Modeller(pdb.topology, pdb.positions)
+    modeller.addHydrogens(ff, platform=platform)
+    if box is not None:
+        modeller.addSolvent(ff, boxSize=omm.Vec3(box, box, box)
+                            * u.nanometer)
+    return modeller, time.perf_counter() - t0
+
+
+def _amoeba_pme_system(n_ala, box, platform):
+    """(modeller, System with the AMOEBA forces in group 1, Modeller s,
+    createSystem s) of phase_amoeba_pme's peptide in water."""
+    from openmm_tpu_torch import app
+    from openmm_tpu_torch import unit as u
+    modeller, build_s = _helix_modeller(n_ala, platform, box)
+    ff = app.ForceField(*AMOEBA_FILES)
+    t0 = time.perf_counter()
+    system = ff.createSystem(
+        modeller.topology, nonbondedMethod=app.PME,
+        nonbondedCutoff=AMOEBA_CUTOFF * u.nanometer,
+        vdwCutoff=AMOEBA_VDW_CUTOFF, polarization="mutual",
+        mutualInducedTargetEpsilon=AMOEBA_EPSILON, constraints=None)
+    create_s = time.perf_counter() - t0
+    _amoeba_groups(system)
+    return modeller, system, build_s, create_s
+
+
+def _amoeba_gk_system(n_ala, platform):
+    """(modeller, System, Modeller s, createSystem s) of phase_amoeba_gk's
+    peptide with generalized Kirkwood."""
+    from openmm_tpu_torch import app
+    modeller, build_s = _helix_modeller(n_ala, platform)
+    ff = app.ForceField(*AMOEBA_GK_FILES)
+    t0 = time.perf_counter()
+    system = ff.createSystem(modeller.topology, nonbondedMethod=app.NoCutoff,
+                             polarization="mutual", constraints=None)
+    create_s = time.perf_counter() - t0
+    _amoeba_groups(system)
+    return modeller, system, build_s, create_s
+
+
+def write_amoeba_gk(path) -> None:
+    """phase_amoeba_gk on the card, its result pickled to `path`: a
+    forked helper (fork_helper)."""
+    import pickle
+    t0 = since_start()
+    set_fp32_matmul_exact()
+    device = torch.device("cuda", 0)
+    out = phase_amoeba_gk(device)
+    with open(path, "wb") as f:
+        pickle.dump(out, f)
+    print("helper write_amoeba_gk: %.1f to %.1f s of the script's clock, "
+          "peak device memory reserved %.1f GB" % (
+              t0, since_start(),
+              torch.cuda.max_memory_reserved(device) / 1e9))
+
+
+def write_hippo(path) -> None:
+    """phase_hippo on the card, its result pickled to `path`: a forked
+    helper (fork_helper)."""
+    import pickle
+    t0 = since_start()
+    set_fp32_matmul_exact()
+    device = torch.device("cuda", 0)
+    out = phase_hippo(device)
+    with open(path, "wb") as f:
+        pickle.dump(out, f)
+    print("helper write_hippo: %.1f to %.1f s of the script's clock, peak "
+          "device memory reserved %.1f GB" % (
+              t0, since_start(),
+              torch.cuda.max_memory_reserved(device) / 1e9))
+
+
+def write_amoeba_prep(path) -> None:
+    """phase_amoeba_pme's System built (Modeller, createSystem), minimized
+    and relaxed on the card (_amoeba_pme_prepare), pickled to `path` as
+    (topology, positions, System, Modeller s, createSystem s, the
+    preparation's result): a forked helper (fork_helper)."""
+    import pickle
+    t0 = since_start()
+    set_fp32_matmul_exact()
+    device = torch.device("cuda", 0)
+    modeller, system, build_s, create_s = _amoeba_pme_system(
+        HELIX_ALANINES, AMOEBA_BOX, None)
+    prep = _amoeba_pme_prepare(device, modeller, system,
+                               AMOEBA_MINIMIZE_ITERATIONS, AMOEBA_RELAX)
+    with open(path, "wb") as f:
+        pickle.dump((modeller.topology, modeller.positions, system, build_s,
+                     create_s, prep), f)
+    print("helper write_amoeba_prep: %.1f to %.1f s of the script's clock, "
+          "peak device memory reserved %.1f GB" % (
+              t0, since_start(),
+              torch.cuda.max_memory_reserved(device) / 1e9))
+
+
+def since_start() -> float:
+    """Seconds since the script started (main() sets CHIP_SMOKE_EPOCH; the
+    helper processes inherit it), to place a helper's milestones on the
+    script's clock."""
+    import os
+    epoch = os.environ.get("CHIP_SMOKE_EPOCH")
+    return time.time() - float(epoch) if epoch else math.nan
+
+
+def _await_build(timeout: float = 600.0) -> tuple:
+    """_build.build in a forked child: waits for the kernel library that
+    the script's own build renames into place, and never runs nvcc."""
+    path = _build.library_path()
+    t0 = time.perf_counter()
+    while not path.is_file():
+        if time.perf_counter() - t0 > timeout:
+            raise RuntimeError("no kernel library at %s after %.0f s"
+                               % (path, timeout))
+        time.sleep(0.05)
+    return path, 0.0, ""
+
+
+def _run_forked(out, err, threads, nice, fn, args) -> None:
+    """A forked child's body: its standard output and error into the
+    files `out` and `err`, the kernel library awaited (_await_build), its
+    intra-op threads and niceness set, then fn(*args)."""
+    import os
+    for name, fd in ((out, 1), (err, 2)):
+        f = os.open(name, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+        os.dup2(f, fd)
+        os.close(f)
+    _build.build = _await_build
+    if threads:
+        torch.set_num_threads(threads)
+    if nice:
+        os.nice(nice)
+    fn(*args)
+
+
+class Forked:
+    """fn(*args) in a child forked from this process, with the part of
+    subprocess.Popen's interface the script uses (communicate, poll,
+    returncode, kill, wait). The child inherits the imported modules (a
+    fresh interpreter spent ~9 s importing them on the card's host beside
+    the build), so it must be forked before this process touches the
+    card; it loads the library of the script's build. Its standard output
+    and error go to files in `directory`; `threads` intra-op threads
+    (0: torch's default) and `nice` added to its niceness (the children
+    off the critical path yield the host's cores to it)."""
+
+    def __init__(self, directory, fn, *args, threads=0, nice=0):
+        import multiprocessing
+        import os
+        self.out = os.path.join(directory, "stdout")
+        self.err = os.path.join(directory, "stderr")
+        sys.stdout.flush()
+        sys.stderr.flush()
+        self.proc = multiprocessing.get_context("fork").Process(
+            target=_run_forked, args=(self.out, self.err, threads, nice, fn,
+                                      args))
+        self.proc.start()
+
+    @property
+    def returncode(self):
+        return self.proc.exitcode
+
+    def poll(self):
+        return self.proc.exitcode
+
+    def communicate(self, timeout=None):
+        self.proc.join(timeout)
+        if self.proc.exitcode is None:
+            raise subprocess.TimeoutExpired("forked %s" % self.proc.name,
+                                            timeout)
+        texts = []
+        for name in (self.out, self.err):
+            with open(name) as f:
+                texts.append(f.read())
+        return tuple(texts)
+
+    def kill(self):
+        self.proc.kill()
+
+    def wait(self):
+        self.proc.join()
+
+
+def fork_helper(fn, nice=0) -> list:
+    """[process, pickle path, its directory]: fn(path) in a Forked child
+    with one intra-op thread (it shares the card host's cores with the
+    script and the examples) and `nice`: write_amoeba_gk,
+    write_amoeba_prep and write_hippo, forked before the script touches
+    the card and run beside the build, the kernel phases, the membrane's
+    build and the examples, which time no device work. Killed at exit if
+    not joined."""
+    import os
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_%s_" % fn.__name__)
+    path = os.path.join(tmp, "result.pickle")
+    proc = Forked(tmp, fn, path, threads=1, nice=nice)
+    atexit.register(_stop_helper, proc, tmp)
+    return [proc, path, tmp]
+
+
+def start_helper(name) -> list:
+    """[process, pickle path, its directory]: chip_smoke.<name>(path) in a
+    process of its own that sees no card, started after the script has
+    touched the card (a forked child then could not use CUDA):
+    write_app_build (host work: the app bilayer's build, more
+    custom's CPU references), beside the phases after the join, off the
+    critical path (a thread slowed the phases by its share of the
+    interpreter)."""
+    import os
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_%s_" % name)
+    path = os.path.join(tmp, "result.pickle")
+    # one intra-op thread: the processes share the card host's cores with
+    # the script and the examples
+    code = ("import sys; sys.path.insert(0, %r); import torch; "
+            "torch.set_num_threads(1); import chip_smoke; "
+            "chip_smoke.%s(%r)" % (root, name, path))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=root, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    atexit.register(_stop_helper, proc, tmp)
+    return [proc, path, tmp]
+
+
+def _stop_helper(proc, tmp) -> None:
+    """At exit: a helper not joined (the script failed first) is killed
+    and its directory removed."""
+    import shutil
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def join_helper(started, label) -> tuple:
+    """(what the helper of fork_helper or start_helper pickled, seconds
+    waited): the process waited for, its output printed, its result
+    read; raises, naming `label`, with its error output if it failed."""
+    import pickle
+    import shutil
+    proc, path, tmp = started
+    t0 = time.perf_counter()
+    out, err = proc.communicate()
+    wait_s = time.perf_counter() - t0
+    if out:
+        print(out, end="")
+    if proc.returncode != 0:
+        raise RuntimeError("%s failed (exit %d): %s" % (
+            label, proc.returncode, err[-3000:]))
+    with open(path, "rb") as f:
+        result = pickle.load(f)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return result, wait_s
+
+
+def _force_check(label, ctx, system, platform, groups=(0, 1)) -> dict:
+    """The Context's float32 forces and group energies against a float64
+    Context (Precision "double": the plain versions) at its positions:
+    the median relative force error and each group's relative energy
+    error (the last group's the total less the others'), gated at
+    FORCE_ERR_BAR and AMOEBA_ENERGY_BAR."""
+    st = ctx.getState(getForces=True, getPositions=True, getEnergy=True)
+    props = {"Precision": "double"}
+    oracle = (omm.Context(system, omm.VerletIntegrator(0.001),
+                          omm.Platform.getPlatformByName(platform), props))
+    oracle.setPositions(in_md(st.getPositions(asNumpy=True)))
+    ref = oracle.getState(getForces=True, getEnergy=True)
+    err = _median_relative_error(in_md(st.getForces(asNumpy=True)),
+                                 in_md(ref.getForces(asNumpy=True)))
+    # each Context evaluates the slow group once: its energy is the total
+    # less the other groups'
+    total = (in_md(st.getPotentialEnergy()), in_md(ref.getPotentialEnergy()))
+    energies, rest = {}, [0.0, 0.0]
+    for g in groups[:-1]:
+        got = in_md(ctx.getState(getEnergy=True, groups={g})
+                    .getPotentialEnergy())
+        want = in_md(oracle.getState(getEnergy=True, groups={g})
+                     .getPotentialEnergy())
+        rest = [rest[0] + got, rest[1] + want]
+        energies[g] = (got, want, abs(got - want) / max(abs(want), 1e-30))
+    got, want = total[0] - rest[0], total[1] - rest[1]
+    energies[groups[-1]] = (got, want,
+                            abs(got - want) / max(abs(want), 1e-30))
+    del oracle
+    print("%s: median force error vs float64 %.3e (bar %.0e); group "
+          "energies %s" % (label, err, FORCE_ERR_BAR, "; ".join(
+              "%d: %.6f vs %.6f kJ/mol (rel %.2e)" % (g, *e)
+              for g, e in energies.items())))
+    if not err <= FORCE_ERR_BAR:
+        raise RuntimeError("%s: median force error %.3e above %.0e"
+                           % (label, err, FORCE_ERR_BAR))
+    for g, e in energies.items():
+        if not e[2] <= AMOEBA_ENERGY_BAR:
+            raise RuntimeError("%s: group %d energy %.6f vs float64 %.6f"
+                               % (label, g, e[0], e[1]))
+    return {"force_err": err, "energies": energies}
+
+
+def _multipole_module(ctx):
+    from openmm_tpu_torch.forces.amoeba import AmoebaMultipoleModule
+    (module,) = [m for m in ctx._custom
+                 if isinstance(m, AmoebaMultipoleModule)]
+    return module
+
+
+def amoeba_triple_inputs(ctx, seed=13) -> dict:
+    """Kernels 4-5 at the shapes of the AMOEBA PME path of `ctx`: the
+    SCF's reciprocal dipole field, one spread of 3N rows (mu's three
+    fractional components on Wx, dWy, dWz planes) and the gather of the
+    potential grid phi through (Wx, Wy, Wz), at the Context's positions;
+    mu and phi seeded."""
+    module = _multipole_module(ctx)
+    pos = ctx._state["positions"].to(torch.float64)
+    route, jac, green = module._recip_setup(pos, ctx._state["box"])
+    planes = route.planes
+    gen = torch.Generator(device=pos.device)
+    gen.manual_seed(seed)
+    n = pos.shape[0]
+    (wx, dwx, _), (wy, dwy, _), (wz, dwz, _) = planes
+    mu = 1e-3 * torch.randn((n, 3), generator=gen, dtype=torch.float64,
+                            device=pos.device)
+    muf = (mu[:, :, None] * jac[None]).sum(dim=1).float()
+    rows_a = torch.cat([muf[:, 0:1] * dwx, muf[:, 1:2] * wx,
+                        muf[:, 2:3] * wx]).contiguous()
+    rows_y = torch.cat([wy, dwy, wy]).contiguous()
+    rows_z = torch.cat([wz, wz, dwz]).contiguous()
+    q = pallas_pme.spread_triple_plain(rows_a, rows_y, rows_z)
+    phi = pme_mod.recip_potential(q, green, module.grid).contiguous()
+    return {"grid": module.grid, "fwd": (rows_a, rows_y, rows_z),
+            "bwd": (phi, wx.contiguous(), wy.contiguous(), wz.contiguous())}
+
+
+def phase_amoeba_kernels(device, tri, deadline) -> dict:
+    """Kernels 4 and 5 at the AMOEBA shapes (amoeba_triple_inputs) against
+    their plain versions, and kernel 5's VJP (_SpreadTripleVJP's backward:
+    kernel 4 on 3N rows and kernel 5 on 3N rows) against torch.autograd
+    of the plain einsum VJP in float64, with seeded cotangents. Returns
+    the largest absolute errors; raises on a miss."""
+    errors = {}
+    fwd, bwd = tri["fwd"], tri["bwd"]
+    for name, got, want in (
+            ("spread_triple_fwd", lambda: pallas_pme.spread_triple_fwd(*fwd),
+             lambda: pallas_pme.spread_triple_plain(*fwd)),
+            ("spread_triple_bwd", lambda: pallas_pme.spread_triple_bwd(*bwd),
+             lambda: pallas_pme.spread_triple_vjp_plain(*bwd))):
+        g, w = got(), want()
+        _sync(device)
+        err, scale, rel = _compare(g, w)
+        print("amoeba kernel %-17s N = %d grid %s: max_abs_err %.3e rel "
+              "%.3e (tolerance %.0e) %s" % (
+                  name, fwd[0].shape[0] if name.endswith("fwd")
+                  else bwd[1].shape[0], "x".join(map(str, tri["grid"])),
+                  err, rel, TOLERANCE[name],
+                  "ok" if rel <= TOLERANCE[name] else "MISS"))
+        if not rel <= TOLERANCE[name]:
+            raise RuntimeError("amoeba: kernel %s disagrees with its plain "
+                               "version" % name)
+        _check_repeatable(name, g, got())
+        errors[name] = err
+    gen = torch.Generator(device=device)
+    gen.manual_seed(17)
+    cot = [torch.randn(t.shape, generator=gen, device=device)
+           for t in (bwd[1], bwd[2], bwd[3])]
+
+    def second(inputs, vjp):
+        leaves = [t.detach().clone().requires_grad_() for t in inputs]
+        out = vjp(*leaves)
+        loss = sum((o * c.to(o.dtype)).sum() for o, c in zip(out, cot))
+        return torch.autograd.grad(loss, leaves)
+
+    got = second(bwd, pallas_pme.spread_triple_vjp)
+    want = second([t.double() for t in bwd], lambda *x: (
+        torch.einsum("xyz,iy,iz->ix", x[0].reshape(tri["grid"]), x[2], x[3]),
+        torch.einsum("xyz,ix,iz->iy", x[0].reshape(tri["grid"]), x[1], x[3]),
+        torch.einsum("xyz,ix,iy->iz", x[0].reshape(tri["grid"]), x[1],
+                     x[2])))
+    _sync(device)
+    err, scale, rel = _compare(got, tuple(w.float() for w in want))
+    print("amoeba kernels 4-5 second order (kernel 5's VJP in dq, a, wy, "
+          "wz) against autograd of the float64 einsum: max_abs_err %.3e "
+          "rel %.3e (tolerance %.0e) %s" % (
+              err, rel, SECOND_ORDER_TOL,
+              "ok" if rel <= SECOND_ORDER_TOL else "MISS"))
+    if not rel <= SECOND_ORDER_TOL:
+        raise RuntimeError("amoeba: kernel 5's VJP disagrees with autograd "
+                           "of the plain einsum")
+    errors["second_order"] = err
+    deadline.check("amoeba kernels")
+    return errors
+
+
+def amoeba_kernel_records(device, tri, launches, errors) -> list:
+    """The kernels line's entries of kernels 4-5 at the AMOEBA shapes:
+    launches from the AMOEBA PME run, times and bounds measured here, the
+    einsum and its backward as the library calls."""
+    fwd, bwd = tri["fwd"], tri["bwd"]
+    nx, ny, nz = tri["grid"]
+    g = nx * ny * nz
+    f_ops = triple_ops(*fwd)[0]
+    b_ops = triple_ops(*bwd[1:])[1]
+    n3, n = fwd[0].shape[0], bwd[1].shape[0]
+    leaves = [t.detach().clone().requires_grad_() for t in bwd[1:]]
+    q_einsum = torch.einsum("ix,iy,iz->xyz", *leaves)
+    dq3 = bwd[0].view(nx, ny, nz)
+    rows = []
+    for kern, call, plain, lib, nbytes, flops in (
+            (pallas_pme.FWD, lambda: pallas_pme.spread_triple_fwd(*fwd),
+             lambda: pallas_pme.spread_triple_plain(*fwd),
+             lambda: torch.einsum("ix,iy,iz->xyz", *fwd),
+             4 * (n3 * (nx + ny + nz) + g), f_ops),
+            (pallas_pme.BWD, lambda: pallas_pme.spread_triple_bwd(*bwd),
+             lambda: pallas_pme.spread_triple_vjp_plain(*bwd),
+             lambda: torch.autograd.grad(q_einsum, leaves, dq3,
+                                         retain_graph=True),
+             4 * (g + 2 * n * (nx + ny + nz)), b_ops)):
+        bound = _bound(nbytes, flops)
+        cuda = device.type == "cuda"
+        rows.append({
+            "name": kern.name + "_amoeba", "route": "cuda",
+            "source": kern.source, "replaces": kern.replaces,
+            "launches": launches[kern.name], "max_abs_err": errors[kern.name],
+            "ms": _time_ms(call, device) if cuda else None,
+            "plain_ms": (_time_ms(plain, device, PLAIN_REPS, 1) if cuda
+                         else None),
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": _time_ms(lib, device) if cuda else None})
+    return rows
+
+
+def _md_replay(device, label, ctx, step, replay, deadline) -> dict:
+    """`replay` steps from a snapshot through the step program, then the
+    same through the eager loop: the same bits in the positions, the
+    velocities (so in the energies they give), the shared tensors and the
+    clock. Returns the step program's run."""
+    start = ctx._snapshot()
+
+    def read(c):
+        # the temperature: an energy reading is a whole AMOEBA evaluation
+        return c.temperature()
+
+    graph = _production(device, ctx, step, 0.0, replay, replay, deadline,
+                        read)
+    ctx._restore(start)
+    eager = _production(device, ctx, ctx._step_eager, 0.0, replay, replay,
+                        deadline, read)
+    _same_bits(label, (graph["positions"], graph["velocities"]),
+               (eager["positions"], eager["velocities"]))
+    _same_state(label, graph, eager)
+    return dict(graph, eager_ms=eager["wall_ms_per_step"])
+
+
+def _amoeba_relax(system, positions, platform, relax=AMOEBA_RELAX):
+    """(seconds, (positions, velocities, temperature)) after relax[2]
+    LangevinMiddle
+    steps of relax[0] ps at friction relax[1] from `positions` at
+    AMOEBA_TEMPERATURE, the System's multipoles at Extrapolated
+    polarization for them (three dipole fields a step where Mutual takes
+    60; restored after): the relaxation of a lattice start, whose random
+    water orientations release ~40 kJ/mol a water as they order."""
+    from openmm_tpu_torch.forces.amoeba import AmoebaMultipoleForce
+    (mp,) = [f for f in system.getForces()
+             if isinstance(f, AmoebaMultipoleForce)]
+    kind = mp.getPolarizationType()
+    mp.setPolarizationType(AmoebaMultipoleForce.Extrapolated)
+    t0 = time.perf_counter()
+    try:
+        integ = omm.LangevinMiddleIntegrator(AMOEBA_TEMPERATURE, relax[1],
+                                             relax[0])
+        integ.setRandomNumberSeed(29)
+        ctx = (omm.Context(system, integ) if platform is None
+               else omm.Context(system, integ, platform))
+        ctx.setPositions(positions)
+        ctx.setVelocitiesToTemperature(AMOEBA_TEMPERATURE,
+                                       randomSeed=VELOCITY_SEED)
+        integ.step(relax[2])
+        st = ctx.getState(getPositions=True, getVelocities=True)
+        out = (in_md(st.getPositions(asNumpy=True)),
+               in_md(st.getVelocities(asNumpy=True)), ctx.temperature())
+        del ctx
+    finally:
+        mp.setPolarizationType(kind)
+    return time.perf_counter() - t0, out
+
+
+def _amoeba_pme_prepare(device, modeller, system, minimize_iterations,
+                        relax, deadline=None) -> dict:
+    """phase_amoeba_pme's start on `device`: a Simulation under the MD's
+    integrator, minimizeEnergy (the energy must fall; raises), then the
+    lattice start relaxed (_amoeba_relax). Returns the energies before
+    and after, the seconds, and the relaxed positions, velocities and
+    temperature for the MD. (The float64 check stays in the phase: in
+    this process, beside GK's capture in another, it ran the card out of
+    memory.)"""
+    from openmm_tpu_torch import app
+    deadline = deadline or Deadline(math.inf)
+    platform = (None if device.type == "cuda"
+                else omm.Platform.getPlatformByName("CPU"))
+    integ = omm.MTSLangevinIntegrator(AMOEBA_TEMPERATURE, FRICTION, DT_PS,
+                                      AMOEBA_MTS)
+    sim = app.Simulation(modeller.topology, system, integ, platform)
+    ctx = sim.context
+    ctx.setPositions(modeller.positions)
+    e0 = in_md(ctx.getState(getEnergy=True).getPotentialEnergy())
+    t0 = time.perf_counter()
+    sim.minimizeEnergy(maxIterations=minimize_iterations)
+    _sync(device)
+    minimize_s = time.perf_counter() - t0
+    e1 = in_md(ctx.getState(getEnergy=True).getPotentialEnergy())
+    print("amoeba pme: minimizeEnergy(maxIterations=%d) %.6f -> %.6f "
+          "kJ/mol in %.2f s" % (minimize_iterations, e0, e1, minimize_s))
+    if not (math.isfinite(e1) and e1 < e0):
+        raise RuntimeError("amoeba pme: the minimizer did not lower the "
+                           "energy (%.6f -> %.6f)" % (e0, e1))
+    deadline.check("amoeba pme: minimize")
+    minimized = in_md(ctx.getState(getPositions=True).getPositions(
+        asNumpy=True))
+    # the minimizer's cached blocks freed before the relaxation's capture
+    # (beside GK's capture in another process on the card)
+    del sim, ctx
+    _release(device)
+    # the lattice start's ordering, thermalised, for the MD
+    relax_s, relaxed = _amoeba_relax(system, minimized, platform, relax)
+    print("amoeba pme: relaxed by %d LangevinMiddle steps of %.4f ps at "
+          "%.0f/ps with Extrapolated polarization in %.2f s; T %.1f K "
+          "after" % (relax[2], relax[0], relax[1], relax_s, relaxed[2]))
+    deadline.check("amoeba pme: relaxation")
+    return {"e0": e0, "e1": e1, "minimize_s": minimize_s,
+            "relax_s": relax_s, "positions": relaxed[0],
+            "velocities": relaxed[1], "temperature": relaxed[2]}
+
+
+def phase_amoeba_pme(device, deadline=None, n_ala=HELIX_ALANINES,
+                     box=AMOEBA_BOX, relax=AMOEBA_RELAX,
+                     minimize_iterations=AMOEBA_MINIMIZE_ITERATIONS,
+                     steps=AMOEBA_STEPS, replay=AMOEBA_REPLAY,
+                     t_range=AMOEBA_T_RANGE, prepared=None) -> dict:
+    """The slice's path at full size: ACE-(ALA)n-NME (helix_pdb_text)
+    through PDBFile and Modeller (addHydrogens, addSolvent in a cube of
+    `box` nm with AMOEBA_BUILD_FORCEFIELD), the System from
+    ForceField("amoeba2013.json").createSystem(PME, 0.7 nm, vdwCutoff 0.9
+    nm, mutual polarization, mutualInducedTargetEpsilon 1e-5, no
+    constraints; host seconds printed) with the AMOEBA forces in group 1,
+    a Simulation under MTSLangevin (300 K, 1/ps, 2 fs, [(0, 2), (1, 1)])
+    on the default platform: minimizeEnergy (the energy must fall), the
+    lattice start relaxed (_amoeba_relax: positions and velocities for
+    the MD; both _amoeba_pme_prepare), the float32 forces and group
+    energies against float64 (_force_check), kernels 4-5 at this
+    system's shapes and the second
+    order (phase_amoeba_kernels), then `steps` steps through the step
+    program with the kernel counts set to 0 (kernels 4 and 5 must
+    launch), the temperature within `t_range`, and `replay` steps through
+    the step program and the eager loop for the same bits. Prints ms a
+    step, ns/day, launches a step, the SCF's residual and the peak device
+    memory. `prepared`: join_helper's result of
+    fork_helper(write_amoeba_prep), which built, minimized and relaxed it
+    beside the kernel phases; without, that is done here.
+    Raises on a miss."""
+    from openmm_tpu_torch import app
+    deadline = deadline or Deadline(math.inf)
+    cuda = device.type == "cuda"
+    platform = None if cuda else omm.Platform.getPlatformByName("CPU")
+    if prepared is None:
+        modeller, system, build_s, create_s = _amoeba_pme_system(
+            n_ala, box, platform)
+        prep = _amoeba_pme_prepare(device, modeller, system,
+                                   minimize_iterations, relax, deadline)
+        wait_s = 0.0
+    else:
+        (top, pos, system, build_s, create_s, prep), wait_s = prepared
+        modeller = types.SimpleNamespace(topology=top, positions=pos)
+    n = system.getNumParticles()
+    print("amoeba pme: %d atoms (ACE-(ALA)%d-NME in %d waters, %.1f nm "
+          "box): Modeller %.2f s, createSystem %.2f s on the host (%.2f s "
+          "waited for them and the minimization); forces %s" % (
+              n, n_ala, sum(r.name == "HOH"
+                            for r in modeller.topology.residues()), box,
+              build_s, create_s, wait_s, ", ".join(
+                      "%s(%d)" % (type(f).__name__, f.getForceGroup())
+                      for f in system.getForces())))
+    deadline.check("amoeba pme: preparation")
+    integ = omm.MTSLangevinIntegrator(AMOEBA_TEMPERATURE, FRICTION, DT_PS,
+                                      AMOEBA_MTS)
+    integ.setRandomNumberSeed(31)
+    sim = app.Simulation(modeller.topology, system, integ, platform)
+    ctx = sim.context
+    ctx.setPositions(prep["positions"])
+    ctx.setVelocities(prep["velocities"])
+    marks = [time.perf_counter()]
+    check = _force_check("amoeba pme", ctx, system,
+                         "CUDA" if cuda else "CPU")
+    deadline.check("amoeba pme: float64 check")
+    marks.append(time.perf_counter())
+    tri = amoeba_triple_inputs(ctx)
+    errors = phase_amoeba_kernels(device, tri, deadline)
+    marks.append(time.perf_counter())
+    for kern in KERNELS:
+        kern.launches = 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    run = _production(device, ctx, integ.step, ctx.temperature(), steps,
+                      steps, deadline, read=lambda c: c.temperature())
+    launches = {k.name: k.launches for k in (pallas_pme.FWD, pallas_pme.BWD)}
+    peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+    temperature = run["energies"][-1]
+    print("amoeba pme: %d steps, T %s K; kernels 4-5 launches %s (%.1f and "
+          "%.1f a step); peak device memory %.2f GB" % (
+              steps, " ".join("%.1f" % t for t in run["energies"]),
+              json.dumps(launches), launches[pallas_pme.FWD.name] / steps,
+              launches[pallas_pme.BWD.name] / steps, peak / 1e9))
+    if cuda and min(launches.values()) <= 0:
+        raise RuntimeError("amoeba pme: kernels 4-5 never launched: %s"
+                           % launches)
+    if not t_range[0] <= temperature <= t_range[1]:
+        raise RuntimeError("amoeba pme: temperature %.2f K outside %s"
+                           % (temperature, t_range))
+    marks.append(time.perf_counter())
+    graph = _md_replay(device, "amoeba pme", ctx, integ.step, replay,
+                       deadline)
+    marks.append(time.perf_counter())
+    module = _multipole_module(ctx)
+    state = ctx._module_state(module.pair_set, ctx._current_tiles())
+    residual = module.scf_residual(ctx._state["positions"],
+                                   ctx._state["box"], state)
+    print("amoeba pme: %.4f ms a step (eager %.4f), %.3f ns/day on the "
+          "step program; SCF residual |mu - alpha (E + T mu)| %.3e at the "
+          "last step; the eager loop's bits" % (
+              graph["wall_ms_per_step"], graph["eager_ms"], graph["ns_day"],
+              residual))
+    records = amoeba_kernel_records(device, tri, launches, errors)
+    marks.append(time.perf_counter())
+    print("amoeba pme: seconds for the float64 check %.1f, the kernel "
+          "checks %.1f, the %d steps (the capture included) %.1f, the "
+          "replays %.1f, the SCF residual and the kernel timing %.1f" % (
+              *np.diff(marks[:3]), steps, *np.diff(marks[2:])))
+    deadline.check("amoeba pme")
+    return {"atoms": n, "build_s": build_s, "create_s": create_s,
+            "minimize": (prep["e0"], prep["e1"], prep["minimize_s"]),
+            "check": check,
+            "launches": launches, "temperature": temperature,
+            "ms_per_step": graph["wall_ms_per_step"],
+            "eager_ms": graph["eager_ms"], "ns_day": graph["ns_day"],
+            "residual": residual, "peak_bytes": peak, "records": records,
+            "steps": steps}
+
+
+def phase_amoeba_gk(device, deadline=None, n_ala=GK_ALANINES,
+                    steps=GK_STEPS) -> dict:
+    """AMOEBA with generalized Kirkwood at amoebagk's size:
+    ACE-(ALA)n-NME (Modeller.addHydrogens) with ForceField(
+    "amoeba2013.json", "amoeba2013_gk.json"), NoCutoff, mutual
+    polarization; the float32 Context's forces and group energies against
+    float64 (_force_check), then `steps` steps under MTSLangevin with the
+    AMOEBA forces in group 1 through the eager loop (Context._step_eager:
+    the step program's capture of this dense step reserves most of the
+    card's 80 GB, which the forked helpers beside it do not leave), a
+    finite temperature after, the peak device memory printed. Raises on a
+    miss."""
+    from openmm_tpu_torch import app
+    deadline = deadline or Deadline(math.inf)
+    cuda = device.type == "cuda"
+    platform = None if cuda else omm.Platform.getPlatformByName("CPU")
+    modeller, system, build_s, create_s = _amoeba_gk_system(n_ala, platform)
+    integ = omm.MTSLangevinIntegrator(AMOEBA_TEMPERATURE, FRICTION, DT_PS,
+                                      AMOEBA_MTS)
+    integ.setRandomNumberSeed(37)
+    sim = app.Simulation(modeller.topology, system, integ, platform)
+    ctx = sim.context
+    ctx.setPositions(modeller.positions)
+    deadline.check("amoeba gk: build")
+    t0 = time.perf_counter()
+    check = _force_check("amoeba gk", ctx, system, "CUDA" if cuda else "CPU")
+    check_s = time.perf_counter() - t0
+    ctx.setVelocitiesToTemperature(AMOEBA_TEMPERATURE,
+                                   randomSeed=VELOCITY_SEED)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    # the temperature after the steps: an energy reading is a whole GK
+    # evaluation, which the float64 check above has made
+    run = _production(device, ctx, ctx._step_eager, 0.0, steps, steps,
+                      deadline, lambda c: c.temperature())
+    peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+    n = system.getNumParticles()
+    print("amoeba gk: %d atoms (ACE-(ALA)%d-NME), Modeller %.2f s, "
+          "createSystem %.2f s, the float64 check %.2f s; %d steps through "
+          "the eager loop, T %.2f K after, %.4f ms a step, peak device "
+          "memory %.2f GB" % (
+              n, n_ala, build_s, create_s, check_s, steps,
+              run["energies"][-1], run["wall_ms_per_step"], peak / 1e9))
+    if not math.isfinite(run["energies"][-1]):
+        raise RuntimeError("amoeba gk: the temperature is not finite")
+    deadline.check("amoeba gk")
+    return {"atoms": n, "check": check,
+            "ms_per_step": run["wall_ms_per_step"], "create_s": create_s,
+            "peak_bytes": peak}
+
+
+def phase_hippo(device, deadline=None, n_waters=HIPPO_WATERS,
+                steps=HIPPO_STEPS) -> dict:
+    """HippoNonbondedForce at NoCutoff on a cluster of `n_waters` flexible
+    waters built through the API (models.hippo_water_cluster, the
+    parameters of OpenMM's HIPPO water test): the float32 Context's forces
+    against float64 (_force_check), then `steps` LangevinMiddle steps at
+    HIPPO_DT, finite energies. Raises on a miss."""
+    from openmm_tpu_torch.models import hippo_water_cluster
+    deadline = deadline or Deadline(math.inf)
+    cuda = device.type == "cuda"
+    system, positions = hippo_water_cluster(n_waters)
+    integ = omm.LangevinMiddleIntegrator(AMOEBA_TEMPERATURE, FRICTION,
+                                         HIPPO_DT)
+    integ.setRandomNumberSeed(41)
+    ctx = (omm.Context(system, integ) if cuda else omm.Context(
+        system, integ, omm.Platform.getPlatformByName("CPU")))
+    ctx.setPositions(positions)
+    check = _force_check("hippo", ctx, system, "CUDA" if cuda else "CPU",
+                         groups=(0,))
+    ctx.setVelocitiesToTemperature(AMOEBA_TEMPERATURE,
+                                   randomSeed=VELOCITY_SEED)
+    run = _production(device, ctx, integ.step, 0.0, steps, steps, deadline)
+    print("hippo: %d waters, %d steps of %.4f ps, energies %s kJ/mol, %.4f "
+          "ms a step (the first step's capture included)" % (
+              system.getNumParticles() // 3, steps, HIPPO_DT,
+              " ".join("%.2f" % e for e in run["energies"][1:]),
+              run["wall_ms_per_step"]))
+    if not all(math.isfinite(e) for e in run["energies"][1:]):
+        raise RuntimeError("hippo: an energy is not finite")
+    deadline.check("hippo")
+    return {"atoms": system.getNumParticles(), "check": check,
+            "ms_per_step": run["wall_ms_per_step"]}
 
 
 def _time_ms(fn, device, reps=20, warmup=3) -> float:
@@ -5335,12 +6254,30 @@ def phase_timing(device, inp, counts, launches, errors, deadline) -> list:
 
 
 def main() -> int:
+    import gc
+    import os
+    deadline = Deadline(BUDGET_S)
+    os.environ["CHIP_SMOKE_EPOCH"] = repr(time.time())
+    # the imports' objects out of every later collection, and fewer
+    # collections until the children are joined (they inherit both)
+    gc.collect()
+    gc.freeze()
+    thresholds = gc.get_threshold()
+    gc.set_threshold(*GC_WINDOW_THRESHOLDS)
+    # forked before anything here touches the card (the availability
+    # check below initialises CUDA, which a forked child then cannot
+    # use): the AMOEBA peptide's build, minimization and relaxation, GK,
+    # HIPPO and the examples, beside the build, the kernel phases and the
+    # membrane's build, which time no device work. Without a card they
+    # fail, and are killed at exit.
+    forked = (fork_helper(write_amoeba_prep),
+              fork_helper(write_amoeba_gk, NICE),
+              fork_helper(write_hippo, NICE), start_examples())
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is "
                            "visible to torch")
-    deadline = Deadline(BUDGET_S)
     try:
-        return _main(deadline)
+        return _main(deadline, forked, thresholds)
     except BaseException:
         print("seconds by phase before the failure: %s; %.1f s in all" % (
             ", ".join("%s %.1f" % lap for lap in deadline.laps),
@@ -5348,7 +6285,9 @@ def main() -> int:
         raise
 
 
-def _main(deadline) -> int:
+def _main(deadline, forked, thresholds) -> int:
+    import gc
+    amoeba_prep, amoeba_gk, hippo, examples = forked
     set_fp32_matmul_exact()
     device = torch.device("cuda", 0)
     info = phase_device(device)
@@ -5364,11 +6303,6 @@ def _main(deadline) -> int:
     phase_build(deadline)
     deadline.check("build")
     deadline.lap("device, build")
-    # the examples' processes start up (imports and a CUDA context, 5-8 s
-    # each on an H100 80GB HBM3 at 700 W) beside the kernel phases, which
-    # gate bits and tolerances only: they are done before the main path's
-    # timed steps
-    examples = start_examples()
     inp = kernel_inputs(device, N_WATERS)
     errors = phase_kernels(device, inp, deadline)
     phase_gather_orders(device, inp, deadline)
@@ -5376,8 +6310,31 @@ def _main(deadline) -> int:
     phase_triclinic(device, deadline=deadline)
     warm.join()
     deadline.lap("kernels, triclinic")
+    # after the import thread's end: the relaxation captures a graph
+    _release(device)
+    membrane_built = modeller_membrane_build(device, deadline)
+    _release(device)
+    print("script: %.1f s of its clock before the helpers' join, peak "
+          "device memory reserved %.1f GB" % (
+              since_start(), torch.cuda.max_memory_reserved(device) / 1e9))
+    deadline.lap("modeller membrane's build")
     examples = phase_examples(device, deadline, examples)
     deadline.lap("examples")
+    amoeba_prep = join_helper(amoeba_prep, "amoeba pme's preparation")
+    amoeba_gk, gk_wait = join_helper(amoeba_gk, "amoeba gk")
+    hippo, hippo_wait = join_helper(hippo, "hippo")
+    # the collector's own thresholds for the phases that follow (their
+    # Contexts' device memory is freed by collections), the objects alive
+    # now (the helpers' results, the kernel inputs) out of them
+    gc.set_threshold(*thresholds)
+    gc.collect()
+    gc.freeze()
+    deadline.lap("amoeba pme preparation, amoeba gk, hippo (%.1f s "
+                 "waited)" % (amoeba_prep[1] + gk_wait + hippo_wait))
+    # host work beside the phases that follow (it uses no card): the app
+    # bilayer's PDB, createSystem and gate, and more custom's CPU float64
+    # references
+    app_build = start_helper("write_app_build")
     for kern in KERNELS:
         kern.launches = 0
     result = phase_main_path(device, deadline=deadline)
@@ -5415,14 +6372,20 @@ def _main(deadline) -> int:
     deadline.lap("alchemical")
     while_draws = phase_while_draws(device, result, deadline)
     deadline.lap("while draws")
-    more_custom = phase_more_custom(device, result, deadline)
+    (app_build, more_refs), app_wait = join_helper(
+        app_build, "app bilayer: its build; more custom: its references")
+    deadline.lap("host build (%.1f s waited)" % app_wait)
+    more_custom = phase_more_custom(device, result, deadline,
+                                    references=more_refs)
     deadline.lap("more custom")
     gromacs = phase_gromacs_water(device, result, deadline)
     deadline.lap("gromacs water")
     tempering = phase_tempering(device, gromacs, deadline)
     deadline.lap("tempering")
     del gromacs["simulation"]
-    membrane = phase_modeller_membrane(device, deadline)
+    membrane = phase_modeller_membrane(device, deadline,
+                                       built=membrane_built)
+    del membrane_built
     deadline.lap("modeller membrane")
     del result, offsets["context"]
     minimized = phase_minimize(device, deadline=deadline)
@@ -5432,7 +6395,7 @@ def _main(deadline) -> int:
     for kern in (pallas_pme.FWD, pallas_pme.BWD):
         launches[kern.name] = minimized["launches"][kern.name]
     deadline.lap("minimize")
-    app_bilayer = phase_app_bilayer(device, deadline)
+    app_bilayer = phase_app_bilayer(device, deadline, built=app_build)
     deadline.lap("app bilayer")
     # the later bilayer phases take the ForceField's System, which the app
     # phase has shown equal to models.popc_bilayer()'s
@@ -5474,11 +6437,16 @@ def _main(deadline) -> int:
     mts_tip4pew = phase_mts_tip4pew(device, tip4pew, deadline)
     deadline.lap("mts tip4pew")
     del tip4pew["system"], tip4pew["final_state"]
+    _release(device)
+    amoeba = phase_amoeba_pme(device, deadline, prepared=amoeba_prep)
+    _release(device)
+    deadline.lap("amoeba pme")
     counts = tile_counts(inp)
     records = phase_timing(device, inp, counts, launches, errors, deadline)
     records.append(rf_water["record"])
     records += ljpme["records"]
     records.append(alchemical["deriv_record"])
+    records += amoeba["records"]
     deadline.lap("timing")
     print("main path: %.2f ns/day on %s (%s), %d steps of %.3f ps, "
           "through the step program (gating %s)" % (
@@ -5628,6 +6596,24 @@ def _main(deadline) -> int:
               gromacs["create_s"], gromacs["ms_per_step"],
               tempering["visited"], tempering["captures"],
               examples["seconds"]))
+    print("AMOEBA on %s (%s): PME peptide in water (%d atoms, "
+          "amoeba2013.json, PME 0.7 nm, vdW 0.9 nm, mutual, MTSLangevin 2 "
+          "fs [(0, 2), (1, 1)]) createSystem %.2f s on the host, %.4f ms a "
+          "step (eager %.4f), %.3f ns/day, kernels 4-5 %.1f and %.1f "
+          "launches a step, SCF residual %.3e, peak device memory %.2f GB, "
+          "median force error %.3e; GK (%d atoms) %.4f ms a step through "
+          "the eager loop, peak %.2f GB, force error %.3e; HIPPO (%d atoms) "
+          "%.4f ms a step, force error %.3e" % (
+              info["name"], info["smi"], amoeba["atoms"], amoeba["create_s"],
+              amoeba["ms_per_step"], amoeba["eager_ms"], amoeba["ns_day"],
+              amoeba["launches"][pallas_pme.FWD.name] / amoeba["steps"],
+              amoeba["launches"][pallas_pme.BWD.name] / amoeba["steps"],
+              amoeba["residual"], amoeba["peak_bytes"] / 1e9,
+              amoeba["check"]["force_err"], amoeba_gk["atoms"],
+              amoeba_gk["ms_per_step"], amoeba_gk["peak_bytes"] / 1e9,
+              amoeba_gk["check"]["force_err"],
+              hippo["atoms"], hippo["ms_per_step"],
+              hippo["check"]["force_err"]))
     print("seconds by phase: %s" % ", ".join(
         "%s %.1f" % lap for lap in deadline.laps))
     print("total %.1f s of the %.0f s budget" % (deadline.elapsed(),

@@ -14,8 +14,10 @@ dynamics, a CustomIntegrator program or a CompoundIntegrator of these,
 the custom forces (External, Bond, Angle, Torsion, Nonbonded, CompoundBond,
 CentroidBond, GB with the Amber GB recipes of app.gbforces, CV, Hbond,
 ManyParticle) with tabulated functions and energy parameter derivatives
-from symbolic derivatives (of NonbondedForce offsets too), RMSDForce and
-GayBerneForce,
+from symbolic derivatives (of NonbondedForce offsets too), RMSDForce,
+GayBerneForce, the AMOEBA forces (vdW, multipoles with induced dipoles at
+NoCutoff and PME, generalized Kirkwood, torsion-torsion, WCA dispersion)
+and HippoNonbondedForce,
 through three hand-written CUDA kernels (csrc/), and energy
 minimization (LocalEnergyMinimizer) through the differentiable dense PME
 and two more; Context.updateParametersInContext, createCheckpoint and
@@ -31,14 +33,16 @@ openmm_tpu_torch.testInstallation` checks an installation.
 from . import unit
 from .constants import BOLTZ, ONE_4PI_EPS0
 from .context import Context
-from .forces import (AndersenThermostat, CMAPTorsionForce, CMMotionRemover,
+from .forces import (AmoebaGeneralizedKirkwoodForce, AmoebaMultipoleForce,
+                     AmoebaTorsionTorsionForce, AmoebaVdwForce,
+                     AmoebaWcaDispersionForce, AndersenThermostat, CMAPTorsionForce, CMMotionRemover,
                      CustomAngleForce, CustomBondForce, CustomCVForce,
                      CustomCentroidBondForce, CustomCompoundBondForce,
                      CustomExternalForce, CustomGBForce, CustomHbondForce,
                      CustomManyParticleForce, CustomNonbondedForce,
                      CustomTorsionForce, Force, GayBerneForce, GBSAOBCForce,
                      HarmonicAngleForce, HarmonicBondForce,
-                     MonteCarloAnisotropicBarostat,
+                     HippoNonbondedForce, MonteCarloAnisotropicBarostat,
                      MonteCarloBarostat, MonteCarloMembraneBarostat,
                      NonbondedForce, PeriodicTorsionForce, RBTorsionForce,
                      RMSDForce)
@@ -63,6 +67,9 @@ from .vec3 import Vec3
 from .version import version as __version__
 
 __all__ = ["AMDForceGroupIntegrator", "AMDIntegrator",
+           "AmoebaGeneralizedKirkwoodForce", "AmoebaMultipoleForce",
+           "AmoebaTorsionTorsionForce", "AmoebaVdwForce",
+           "AmoebaWcaDispersionForce", "HippoNonbondedForce",
            "AndersenThermostat", "BOLTZ", "BrownianIntegrator",
            "CMAPTorsionForce", "CMMotionRemover", "CompoundIntegrator",
            "Context", "Continuous1DFunction", "Continuous2DFunction",

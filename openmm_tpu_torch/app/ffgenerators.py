@@ -9,12 +9,10 @@ parameter tables and later adds Forces to the System being built.
 Registered here: CMAPTorsionForce (forcefield.py:2399), LennardJonesForce
 with NBFIX (forcefield.py:2672), CustomBond/Angle/Torsion/Nonbonded
 (forcefield.py:2773-2964), CustomGB/Hbond/ManyParticle
-(forcefield.py:3024-3294), and AmoebaUreyBradleyForce
-(openmm_tpu/app/ffgenerators_amoeba.py:584-626: a HarmonicBondForce on the
-1-3 atoms, which the CHARMM waters use). The DrudeForce section and the
-other AMOEBA sections (openmm_tpu/app/ffgenerators_amoeba.py) need forces
-the port has not got: parse_section raises NotImplementedError for them
-rather than load a file without them.
+(forcefield.py:3024-3294); the AMOEBA family (Urey-Bradley, which the
+CHARMM waters use too, among them) in ffgenerators_amoeba.py. The
+DrudeForce section needs a force the port has not got: parse_section
+raises NotImplementedError for it rather than load a file without it.
 """
 from __future__ import annotations
 
@@ -29,16 +27,17 @@ PARSERS = {}
 
 
 def parse_section(element, ff):
-    """Hand a force-field section to its generator's parser. A section of
-    the Drude or AMOEBA force fields raises; a tag no generator knows is
-    left alone, as in the JAX package."""
+    """Hand a force-field section to its generator's parser (the AMOEBA
+    sections' in ffgenerators_amoeba.py). A section of the Drude force
+    fields raises; a tag no generator knows is left alone, as in the JAX
+    package."""
     tag = element.tag
     if tag in PARSERS:
         PARSERS[tag](element, ff)
-    elif tag == "DrudeForce" or tag.startswith("Amoeba"):
+    elif tag == "DrudeForce":
         raise NotImplementedError(
-            "the <%s> section needs the Drude and AMOEBA forces, which the "
-            "port has not got yet (ROADMAP item 7, plugins)" % tag)
+            "the <%s> section needs the Drude force, which the port has not "
+            "got yet (ROADMAP item 7, plugins)" % tag)
 
 
 def _f(x):
@@ -902,48 +901,4 @@ class CustomManyParticleGenerator(object):
 PARSERS["CustomManyParticleForce"] = CustomManyParticleGenerator.parseElement
 
 
-# ------------------------------------------------------- Urey-Bradley
-class AmoebaUreyBradleyGenerator(object):
-    """<AmoebaUreyBradleyForce> -> HarmonicBondForce on the 1-3 atoms of
-    matching angles (forcefield.py:5622;
-    openmm_tpu/app/ffgenerators_amoeba.py:584-626)."""
-
-    def __init__(self):
-        self.entries = []
-        self.by_center = defaultdict(list)
-
-    @staticmethod
-    def parseElement(element, ff):
-        gen = AmoebaUreyBradleyGenerator()
-        ff.registerGenerator(gen)
-        for ub in element.findall("UreyBradley"):
-            types = ff._findAtomTypes(ub.attrib, 3)
-            if None in types:
-                continue
-            idx = len(gen.entries)
-            gen.entries.append((types[0], types[1], types[2],
-                                float(ub.attrib["d"]),
-                                float(ub.attrib["k"])))
-            for t in types[1]:
-                gen.by_center[t].append(idx)
-
-    def createForce(self, sys, data, nonbondedMethod, nonbondedCutoff, args):
-        existing = [f for f in sys.getForces()
-                    if type(f) is mmforces.HarmonicBondForce]
-        force = existing[0] if existing else mmforces.HarmonicBondForce()
-        if not existing:
-            sys.addForce(force)
-        for (angle, constrained) in zip(data.angles,
-                                        data.isAngleConstrained):
-            if constrained and not args.get("flexibleConstraints"):
-                continue
-            ts = [data.atomType[data.atoms[angle[j]]] for j in range(3)]
-            for i in self.by_center.get(ts[1], ()):
-                (s1, s2, s3, d, k) = self.entries[i]
-                if (ts[0] in s1 and ts[1] in s2 and ts[2] in s3) or \
-                        (ts[2] in s1 and ts[1] in s2 and ts[0] in s3):
-                    force.addBond(angle[0], angle[2], d, 2 * k)
-                    break
-
-
-PARSERS["AmoebaUreyBradleyForce"] = AmoebaUreyBradleyGenerator.parseElement
+from . import ffgenerators_amoeba  # noqa: E402,F401  (registers its parsers)

@@ -93,6 +93,7 @@ from .forces.nonbonded import (CandidateSet, NonbondedForce,
                                NonbondedModule, NonbondedVariable)
 from .forces.thermostats import AndersenThermostat
 from .integrators.base import StepDeps
+from .ops.amoeba_pairs import AmoebaPairs
 from .ops.constraints import (CCMA, Settle, Shake, partition_constraints,
                               partition_shake_clusters)
 from .ops.pairs import needs_rebuild
@@ -202,19 +203,25 @@ class Context:
             force, system._box.copy(), self._device,
             self._precision, self._gp, self._gp_index) for force in nonbonded]
         self._nonbonded = self._nonbondeds[0] if nonbonded else None
-        # the modules whose direct space keeps a candidate state (none
-        # when every pair is computed, or there is no direct space: no
-        # rebuild, no overflow): one module itself, several a CandidateSet
-        tiled = [m for m in self._nonbondeds if m.periodic and m.has_direct]
-        self._candidates = (None if not tiled else tiled[0]
-                            if len(tiled) == 1 else CandidateSet(tiled))
         gb_forces = [f for f in forces if isinstance(f, GBSAOBCForce)]
         bonded_forces = [f for f in forces if isinstance(f, BONDED_FORCES)]
         # the custom forces read the masses (a centroid's weights)
         self._masses = torch.as_tensor(masses, **f64)
         self._gb = [self._compile_module(f) for f in gb_forces]
         self._bonded = [self._compile_module(f) for f in bonded_forces]
+        # the pair lists of the periodic AMOEBA forces, made by the first
+        # module that asks (_amoeba_pair_set)
+        self._amoeba_pairs = None
         self._custom = [self._compile_module(f) for f in custom_forces]
+        # the modules whose direct space keeps a candidate state (none
+        # when every pair is computed, or there is no direct space: no
+        # rebuild, no overflow), and the AMOEBA pair lists: one itself,
+        # several a CandidateSet
+        tiled = [m for m in self._nonbondeds if m.periodic and m.has_direct]
+        if self._amoeba_pairs is not None:
+            tiled.append(self._amoeba_pairs)
+        self._candidates = (None if not tiled else tiled[0]
+                            if len(tiled) == 1 else CandidateSet(tiled))
         # each force's compiled module, for updateParametersInContext
         self._modules = dict(zip(
             map(id, nonbonded + gb_forces + bonded_forces + custom_forces),
@@ -322,6 +329,15 @@ class Context:
         raise NotImplementedError("%s as a collective variable is not in "
                                   "this slice of the port"
                                   % type(force).__name__)
+
+    def _amoeba_pair_set(self):
+        """The AmoebaPairs of this Context (ops/amoeba_pairs.py), which
+        the periodic AMOEBA modules ask their cutoffs of; the rebuild gate
+        builds it with the NonbondedForces' candidate states."""
+        if self._amoeba_pairs is None:
+            self._amoeba_pairs = AmoebaPairs(self._n, self._system._box,
+                                             self._device)
+        return self._amoeba_pairs
 
     def _detect_molecules(self):
         """(molecule of each atom (n,) int64, count): the components of
@@ -469,7 +485,10 @@ class Context:
         parts = [nb(pos, box, self._module_state(nb, tiles), groups)
                  for nb in self._nonbondeds if nb.active(groups)]
         parts += [m.ef(pos, box) for m in self._gb + self._bonded
-                  + self._custom if (groups >> m.group) & 1]
+                  if (groups >> m.group) & 1]
+        parts += [m.ef(pos, box) if getattr(m, "pair_set", None) is None
+                  else m.ef(pos, box, self._module_state(m.pair_set, tiles))
+                  for m in self._custom if (groups >> m.group) & 1]
         if not parts:
             return (torch.zeros((), dtype=torch.float64, device=pos.device),
                     torch.zeros(pos.shape, dtype=torch.float64,

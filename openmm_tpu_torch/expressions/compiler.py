@@ -305,6 +305,12 @@ def parse_inlined(text, functions=None):
     return inline(main, defs)
 
 
+# the symbolic partials of each (inlined AST, names) compiled in this
+# process: a force field's long expressions (AMOEBA's bonded terms) are
+# differentiated once, not again for every Context built from them
+_PARTIALS = {}
+
+
 def compile_energy_derivatives(text, wrt, functions=None, ast=None):
     """Compile into fn(env) -> (energy, [d energy / d name for name in
     wrt]), each a tensor or a float (0.0 where the energy does not depend
@@ -312,8 +318,11 @@ def compile_energy_derivatives(text, wrt, functions=None, ast=None):
     (a force that took its geometry calls out of it)."""
     functions = functions or {}
     main = parse_inlined(text, functions) if ast is None else ast
-    partials = [differentiate(main, name) for name in wrt]
-    paired = frozenset(_dcalls(partials))
+    key = (main, tuple(wrt))
+    if key not in _PARTIALS:
+        partials = [differentiate(main, name) for name in wrt]
+        _PARTIALS[key] = (partials, frozenset(_dcalls(partials)))
+    partials, paired = _PARTIALS[key]
 
     def fn(env):
         cache = {}

@@ -1,3 +1,6 @@
+from .amoeba import (AMOEBA_FORCES, AmoebaGeneralizedKirkwoodForce,
+                     AmoebaMultipoleForce, AmoebaTorsionTorsionForce,
+                     AmoebaVdwForce, AmoebaWcaDispersionForce)
 from .barostats import (MonteCarloAnisotropicBarostat, MonteCarloBarostat,
                         MonteCarloMembraneBarostat)
 from .base import Force
@@ -14,6 +17,7 @@ from .customhbond import CustomHbondForce
 from .custommanyparticle import CustomManyParticleForce
 from .gayberne import GayBerneForce
 from .gbsa import GBSAOBCForce
+from .hippo import HippoNonbondedForce
 from .nonbonded import NonbondedForce, NonbondedModule
 from .rmsd import RMSDForce
 from .thermostats import AndersenThermostat
@@ -23,14 +27,18 @@ from .thermostats import AndersenThermostat
 # parameter_derivatives, update)
 MODULE_FORCES = (CUSTOM_FORCES + (CustomGBForce, CustomCVForce, RMSDForce,
                                   CustomHbondForce, CustomManyParticleForce,
-                                  GayBerneForce))
+                                  GayBerneForce) + AMOEBA_FORCES
+                 + (HippoNonbondedForce,))
 
-__all__ = ["AndersenThermostat", "CMAPTorsionForce", "CMMotionRemover",
+__all__ = ["AmoebaGeneralizedKirkwoodForce", "AmoebaMultipoleForce",
+           "AmoebaTorsionTorsionForce", "AmoebaVdwForce",
+           "AmoebaWcaDispersionForce", "AndersenThermostat", "CMAPTorsionForce", "CMMotionRemover",
            "CustomAngleForce", "CustomBondForce", "CustomCVForce",
            "CustomCentroidBondForce", "CustomCompoundBondForce",
            "CustomExternalForce", "CustomGBForce", "CustomHbondForce",
            "CustomManyParticleForce", "CustomNonbondedForce",
            "CustomTorsionForce", "Force", "GBSAOBCForce", "GayBerneForce",
+           "HippoNonbondedForce",
            "MODULE_FORCES", "RMSDForce", "HarmonicAngleForce", "HarmonicBondForce",
            "MonteCarloAnisotropicBarostat",
            "MonteCarloBarostat", "MonteCarloMembraneBarostat",

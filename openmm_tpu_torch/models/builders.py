@@ -544,3 +544,70 @@ def custom_twins(system):
         twin.addForce(t)
     twin.addForce(pairs["CustomCompoundBondForce"][1])
     return twin, pairs
+
+
+def _hippo_water(hippo, mol):
+    """The three particles and three exceptions of one HIPPO water, with
+    the parameters of OpenMM's TestHippoNonbondedForce.h testWaterDimer
+    (in OpenMM's units: Tinker's bohr and kcal scaled)."""
+    from ..forces.hippo import HippoNonbondedForce as H
+    bohr = 0.52917720859
+    ds = 0.1 * bohr
+    qs = 0.01 * bohr * bohr / 3.0
+    c6s = math.sqrt(4.184) * 0.001
+    ps = math.sqrt(4.184 * 0.1)
+    o = 3 * mol
+    hippo.addParticle(
+        -0.38280, [0.0, 0.0, ds * 0.05477],
+        [qs * 0.69866, 0.0, 0.0, 0.0, qs * -0.60471, 0.0, 0.0, 0.0,
+         qs * -0.09395], 6.0, 10 * 4.7075, 4.184 * 1326.0, 10 * 40.0,
+        c6s * 18.7737, ps * 2.7104, -2.4233, 10 * 4.3097, 0.001 * 0.795,
+        H.Bisector, o + 1, o + 2, -1)
+    for h in (1, 2):
+        hippo.addParticle(
+            0.19140, [0.0, 0.0, ds * -0.20097],
+            [qs * 0.03881, 0.0, 0.0, 0.0, qs * 0.02214, 0.0, 0.0, 0.0,
+             qs * -0.06095], 1.0, 10 * 4.7909, 0.0, 10 * 3.5582,
+            c6s * 4.5670, ps * 2.0037, -0.8086, 10 * 4.6450, 0.001 * 0.341,
+            H.ZThenX, o, o + (2 if h == 1 else 1), -1)
+    hippo.addException(o, o + 1, 0.0, 0.0, 0.2, 0.0, 0.0, 0.0)
+    hippo.addException(o, o + 2, 0.0, 0.0, 0.2, 0.0, 0.0, 0.0)
+    hippo.addException(o + 1, o + 2, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0)
+
+
+def hippo_water_cluster(n_waters=500, seed=3):
+    """A cluster of n_waters HIPPO waters (HippoNonbondedForce, NoCutoff;
+    flexible waters held by harmonic O-H bonds and H-O-H angles) on a
+    jittered cubic lattice at liquid density with random orientations:
+    (system, positions (n, 3) float64 nm). The count is rounded up to a
+    cube."""
+    from ..forces.bonded import HarmonicAngleForce, HarmonicBondForce
+    from ..forces.hippo import HippoNonbondedForce
+    n_side = int(math.ceil(n_waters ** (1.0 / 3.0) - 1e-9))
+    n_waters = n_side ** 3
+    spacing = (1.0 / WATER_NUMBER_DENSITY) ** (1.0 / 3.0)
+    system = System()
+    hippo = HippoNonbondedForce()
+    hippo.setExtrapolationCoefficients([0.042, 0.635, 0.414])
+    bonds, angles = HarmonicBondForce(), HarmonicAngleForce()
+    d_oh, theta = TIP3P_OH_DISTANCE, TIP3P_ANGLE
+    ref = np.array([[0.0, 0.0, 0.0], [d_oh, 0.0, 0.0],
+                    [d_oh * math.cos(theta), d_oh * math.sin(theta), 0.0]])
+    rng = np.random.RandomState(seed)
+    positions = []
+    for mol in range(n_waters):
+        for mass in (15.995, 1.008, 1.008):
+            system.addParticle(mass)
+        _hippo_water(hippo, mol)
+        o = 3 * mol
+        bonds.addBond(o, o + 1, d_oh, 4.0e5)
+        bonds.addBond(o, o + 2, d_oh, 4.0e5)
+        angles.addAngle(o + 1, o, o + 2, theta, 400.0)
+        ix, iy, iz = np.unravel_index(mol, (n_side,) * 3)
+        base = (np.array([ix, iy, iz], float) + 0.5) * spacing \
+            + (rng.rand(3) - 0.5) * 0.02
+        q, _ = np.linalg.qr(rng.randn(3, 3))
+        positions.extend(base + ref @ q.T)
+    for force in (hippo, bonds, angles):
+        system.addForce(force)
+    return system, np.asarray(positions, np.float64)

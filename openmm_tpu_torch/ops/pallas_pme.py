@@ -1,7 +1,9 @@
 """The dense charge spread as one triple contraction: kernels 4
 (`spread_triple_fwd`) and 5 (`spread_triple_bwd`), their plain versions,
-and the autograd Function `spread_triple` whose forward and backward they
-are.
+the autograd Function `spread_triple` whose forward and backward they
+are, and `spread_triple_vjp`, kernel 5 as a function that autograd
+differentiates again through kernels 4 and 5 (the second derivatives of
+the AMOEBA reciprocal space, whose dipole field is itself a gradient).
 
 Counterpart of openmm_tpu/ops/pallas_pme.py (the jax.custom_vjp
 spread_triple over _fwd_kernel and _bwd_kernel). The public layout is the
@@ -131,11 +133,54 @@ class _SpreadTriple(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dq):
-        return spread_triple_bwd(dq.contiguous(), *ctx.saved_tensors)
+        return spread_triple_vjp(dq, *ctx.saved_tensors)
+
+
+class _SpreadTripleVJP(torch.autograd.Function):
+    """Kernel 5 as a function of (dq, a, wy, wz), differentiable again.
+    Its outputs dA = einsum("xyz,iy,iz->ix"), dWy and dWz are trilinear in
+    (dq, rows of a, wy, wz), so the VJP of a cotangent (gA, gWy, gWz) is
+    kernel 4 in dq, sum_i spread of (gA, wy, wz), (a, gWy, wz) and
+    (a, wy, gWz), and kernel 5 again in a, wy and wz: dWy and dWz of
+    (gA, wy, wz), dA and dWz of (a, gWy, wz), dA and dWy of (a, wy, gWz).
+    The three spreads go as one launch of kernel 4 over 3N rows, the three
+    VJPs as one launch of kernel 5; both are the differentiable functions
+    again, so every order of derivative runs on kernels 4 and 5."""
+
+    @staticmethod
+    def forward(ctx, dq, a, wy, wz):
+        ctx.save_for_backward(dq, a, wy, wz)
+        return spread_triple_bwd(dq, a, wy, wz)
+
+    @staticmethod
+    def backward(ctx, ga, gwy, gwz):
+        dq, a, wy, wz = ctx.saved_tensors
+        n = a.shape[0]
+        ga = torch.zeros_like(a) if ga is None else ga
+        gwy = torch.zeros_like(wy) if gwy is None else gwy
+        gwz = torch.zeros_like(wz) if gwz is None else gwz
+        rows_a = torch.cat([ga, a, a])
+        rows_y = torch.cat([wy, gwy, wy])
+        rows_z = torch.cat([wz, wz, gwz])
+        ddq = (spread_triple(rows_a, rows_y, rows_z)
+               if ctx.needs_input_grad[0] else None)
+        x, y, z = spread_triple_vjp(dq, rows_a, rows_y, rows_z)
+        return (ddq, x[n:2 * n] + x[2 * n:], y[:n] + y[2 * n:],
+                z[:n] + z[n:2 * n])
 
 
 def spread_triple(a, wy, wz) -> torch.Tensor:
     """Q[x, (y,z)] = sum_i a[i,x] wy[i,y] wz[i,z] as (nx, ny*nz),
-    differentiable in a, wy and wz: kernel 4 forward, kernel 5 backward."""
+    differentiable in a, wy and wz to any order: kernel 4 forward, kernel
+    5 backward (spread_triple_vjp)."""
     return _SpreadTriple.apply(a.contiguous(), wy.contiguous(),
                                wz.contiguous())
+
+
+def spread_triple_vjp(dq, a, wy, wz):
+    """Kernel 5's (dA, dWy, dWz) for the cotangent dq (nx, ny*nz),
+    differentiable in dq, a, wy and wz to any order (_SpreadTripleVJP):
+    the backward of spread_triple, and the gather of a potential grid
+    through derivative weights (the AMOEBA dipole fields)."""
+    return _SpreadTripleVJP.apply(dq.contiguous(), a.contiguous(),
+                                  wy.contiguous(), wz.contiguous())

@@ -13,7 +13,10 @@ core); and
 bspline_weights, dense_weights, spread_charges_dense, _k_vectors and
 pme_reciprocal_energy (the Coulomb grid, and LJPME's dispersion grid
 with coulomb=False), which autograd differentiates (the minimizer's
-objective); dispersion_self_energy, LJPME's self term. The dense spread
+objective); dispersion_self_energy, LJPME's self term. For the AMOEBA
+multipole PME: make_pme_recip_data(zeta=True), bspline_w_dw_d2w,
+dense_axis_weights, recip_energy_from_grid and recip_potential (the
+potential grid of an arbitrary charge grid). The dense spread
 goes through ops/pallas_pme.py (kernels 4 and 5); where the JAX module
 takes |F(Q)|^2 by matmul DFTs, a TPU workaround, this module calls
 torch.fft (cuFFT on the card).
@@ -110,9 +113,37 @@ def bspline_moduli(grid_size: int, order: int) -> np.ndarray:
     return bsq
 
 
-def make_pme_recip_data(grid, order: int) -> dict:
-    """Per-axis moduli {"bsq_x", "bsq_y", "bsq_z"} as float64 numpy."""
-    return {key: bspline_moduli(g, order)
+def zeta_correction(size: int, order: int, jcut: int = 50) -> np.ndarray:
+    """TINKER's optimal influence-function factor zeta(k)^2 of one axis
+    (JAX pme.py _zeta_correction, after
+    AmoebaReferenceMultipoleForce.cpp:5049-5076): dividing the moduli by
+    it cancels the leading aliasing error of derivative spreads."""
+    zeta2 = np.ones(size)
+    for i in range(1, size + 1):
+        k = i - 1
+        if i > size // 2:
+            k -= size
+        if k == 0:
+            continue
+        factor = math.pi * k / size
+        sum1 = sum2 = 1.0
+        for j in range(1, jcut + 1):
+            arg = factor / (factor + math.pi * j)
+            sum1 += arg ** order
+            sum2 += arg ** (2 * order)
+        for j in range(1, jcut + 1):
+            arg = factor / (factor - math.pi * j)
+            sum1 += arg ** order
+            sum2 += arg ** (2 * order)
+        zeta2[i - 1] = (sum2 / sum1) ** 2
+    return zeta2
+
+
+def make_pme_recip_data(grid, order: int, zeta: bool = False) -> dict:
+    """Per-axis moduli {"bsq_x", "bsq_y", "bsq_z"} as float64 numpy; with
+    `zeta` divided by zeta_correction (the AMOEBA multipole PME)."""
+    return {key: bspline_moduli(g, order) / (zeta_correction(g, order)
+                                              if zeta else 1.0)
             for key, g in zip(("bsq_x", "bsq_y", "bsq_z"), grid)}
 
 
@@ -332,3 +363,86 @@ def ewald_reciprocal_energy(pos, charges, box, m_vectors, alpha):
     forces of ewald_reciprocal_ef."""
     return AnalyticEnergy.apply(ewald_reciprocal_ef, pos, charges, box,
                                 m_vectors, alpha)
+
+
+def bspline_w_dw_d2w(t: torch.Tensor, order: int):
+    """(M, dM/du, d2M/du2) weight stacks (..., order) in the grid-point
+    convention of bspline_weights (weight j at floor(u) + j - (order-1)),
+    by dM_n(u) = M_{n-1}(u) - M_{n-1}(u-1) and d2M_n(u) = M_{n-2}(u) -
+    2 M_{n-2}(u-1) + M_{n-2}(u-2) (JAX pme.py bspline_w_dw_d2w)."""
+    zeros = torch.zeros_like(t)
+    w = [1.0 - t, t] + [zeros] * (order - 2)
+    w2 = w3 = None
+    for k in range(3, order + 1):
+        if k == order - 1:
+            w2 = list(w)
+        if k == order:
+            w3 = list(w)
+        div = 1.0 / (k - 1)
+        new = list(w)
+        new[k - 1] = div * t * w[k - 2]
+        for j in range(1, k - 1):
+            new[k - 1 - j] = div * ((t + j) * w[k - 2 - j]
+                                    + (k - j - t) * w[k - 1 - j])
+        new[0] = div * (1.0 - t) * w[0]
+        w = new
+    w3 = w3 or [zeros] * order
+    w2 = w2 or [zeros] * order
+
+    def at(lst, j, width):
+        return lst[j] if 0 <= j <= width else zeros
+
+    dw = [at(w3, j - 1, order - 2) - at(w3, j, order - 2)
+          for j in range(order)]
+    d2w = [at(w2, j - 2, order - 3) - 2.0 * at(w2, j - 1, order - 3)
+           + at(w2, j, order - 3) for j in range(order)]
+    return (torch.stack(w, dim=-1), torch.stack(dw, dim=-1),
+            torch.stack(d2w, dim=-1))
+
+
+def dense_axis_weights(w, base, offs_minus: int, n_axis: int):
+    """(N, order) spline weights as dense (N, n_axis) planes at grid
+    points (base + j - offs_minus) mod n_axis (JAX pme.py
+    dense_axis_weights); weights that land on one point add."""
+    order = w.shape[-1]
+    g = torch.remainder(base[:, None] + torch.arange(
+        order, device=w.device) - offs_minus, n_axis)
+    plane = torch.zeros((w.shape[0], n_axis), dtype=w.dtype, device=w.device)
+    return plane.scatter_add(1, g, w)
+
+
+def recip_green(grid, box, alpha) -> torch.Tensor:
+    """k_e / (2 pi V) exp(-pi^2 m^2 / alpha^2) / m^2 on every FFT bin (0
+    at m = 0), float64: the Coulomb kernel of recip_energy_from_grid
+    without the moduli."""
+    f64 = torch.float64
+    box64 = box.to(f64)
+    kv = _k_vectors(grid, geom.box_inverse(box64), f64)
+    m2 = (kv * kv).sum(dim=-1)
+    m2_safe = torch.where(m2 > 0, m2, 1.0)
+    kern = torch.where(m2 > 0, torch.exp(-(math.pi ** 2) * m2_safe
+                                         / alpha ** 2) / m2_safe, 0.0)
+    return ONE_4PI_EPS0 / (2.0 * math.pi * geom.box_volume(box64)) * kern
+
+
+def recip_energy_from_grid(q, box, grid, alpha, bsq_x, bsq_y, bsq_z):
+    """The Coulomb reciprocal energy (float64) of an arbitrary real
+    (nx, ny, nz) grid, k_e / (2 pi V) sum_{m != 0} exp(-pi^2 m^2 /
+    alpha^2) / m^2 B(m) |F(q)(m)|^2 (JAX pme.py recip_energy_from_grid;
+    torch.fft where the JAX module takes matmul DFTs)."""
+    f64 = torch.float64
+    fq = torch.fft.fftn(q.reshape(grid))
+    sq = (fq.real * fq.real + fq.imag * fq.imag).to(f64)
+    b = (bsq_x.to(f64)[:, None, None] * bsq_y.to(f64)[None, :, None]
+         * bsq_z.to(f64)[None, None, :])
+    return torch.sum(recip_green(grid, box, alpha) * b * sq)
+
+
+def recip_potential(q, green_b, grid):
+    """The potential grid phi = dE/dq of recip_energy_from_grid, given
+    its kernel with the moduli (recip_green * B) : 2 N Re(ifft(G B
+    fft(q))), in q's dtype, as (nx, ny*nz)."""
+    n_cells = grid[0] * grid[1] * grid[2]
+    fq = torch.fft.fftn(q.reshape(grid))
+    phi = torch.fft.ifftn(fq * green_b.to(q.dtype)).real
+    return (2.0 * n_cells) * phi.reshape(grid[0], grid[1] * grid[2])

@@ -13,9 +13,12 @@ computes the positions and spreads a site's force onto its parents.
 """
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 
 from . import unit as u
+from .forces.amoeba import AMOEBA_FORCES, AmoebaTorsionTorsionForce
 from .forces.barostats import (MonteCarloAnisotropicBarostat,
                                MonteCarloBarostat, MonteCarloMembraneBarostat)
 from .forces.bonded import (CMAPTorsionForce, HarmonicAngleForce,
@@ -32,6 +35,7 @@ from .forces.custommanyparticle import CustomManyParticleForce
 from .forces.gayberne import GayBerneForce
 from .forces.rmsd import RMSDForce
 from .forces.gbsa import GBSAOBCForce
+from .forces.hippo import HippoNonbondedForce
 from .forces.nonbonded import NonbondedForce
 from .forces.thermostats import AndersenThermostat
 from .tabulated import TABULATED_FUNCTIONS
@@ -236,8 +240,8 @@ _BONDED = (("bond", HarmonicBondForce,
 def from_numpy(params: dict) -> System:
     """A System from a dict of numpy arrays.
 
-    Always: masses (n,; 0 for a fixed particle), charges, sigma, epsilon
-    (n,); exception_pairs (m, 2)
+    Always: masses (n,; 0 for a fixed particle); with charges, sigma,
+    epsilon (n,) a NonbondedForce of: exception_pairs (m, 2)
     and exception_params (m, 3) = (chargeProd, sigma, epsilon);
     constraint_pairs (k, 2) and constraint_distances (k,); box (3, 3);
     cutoff, method (a NonbondedForce method name), ewald_tolerance,
@@ -275,8 +279,9 @@ def from_numpy(params: dict) -> System:
     weights of each parent one list after another, then the local
     position). extra_nonbonded: a list of dicts with the NonbondedForce
     keys above (and "group"), one more NonbondedForce each, added after
-    the first. custom_forces: a list of custom_spec dicts, one custom
-    force each, added last in their order."""
+    the first. custom_forces: a list of custom_spec dicts, one force of
+    MODULE_FORCES each (the custom forces, the AMOEBA forces and
+    HippoNonbondedForce), added last in their order."""
     system = System()
     for m in np.asarray(params["masses"], np.float64):
         system.addParticle(m)
@@ -287,7 +292,8 @@ def from_numpy(params: dict) -> System:
     groups = params.get("force_groups", {})
     for site in params.get("vsites", ()):
         system.setVirtualSite(site[0], _make_vsite(*site[1:]))
-    system.addForce(_nonbonded(params, groups.get("nonbonded", 0)))
+    if "charges" in params:
+        system.addForce(_nonbonded(params, groups.get("nonbonded", 0)))
     for extra in params.get("extra_nonbonded", ()):
         system.addForce(_nonbonded(extra, extra.get("group", 0)))
     _add_other_forces(system, params, groups)
@@ -420,9 +426,12 @@ def custom_spec(force) -> dict:
     CustomManyParticleForce's particles_per_set, parameters, particles
     [(parameters, type)], type_filters [(slot, types)],
     permutation_mode, exclusions, method and cutoff; CustomCVForce's
-    variables [(name, force_spec of its force)]."""
+    variables [(name, force_spec of its force)]; the AMOEBA forces and
+    HippoNonbondedForce their state (state_spec)."""
     kind = type(force).__name__
     spec = {"kind": kind, "group": force.getForceGroup()}
+    if isinstance(force, STATE_FORCES):
+        return state_spec(force)
     if isinstance(force, RMSDForce):
         spec.update(reference=u.plain(force.getReferencePositions()).tolist(),
                     particles=force.getParticles())
@@ -516,9 +525,40 @@ def _pair_method(force, spec) -> None:
         force.addExclusion(i, j)
 
 
+STATE_FORCES = AMOEBA_FORCES + (HippoNonbondedForce,)
+
+
+def state_spec(force) -> dict:
+    """An AMOEBA force or a HippoNonbondedForce as plain data: kind,
+    group and "state", its attributes (particles with their multipoles,
+    frames and polarities, covalent maps and polarization groups,
+    exclusions and exceptions, methods and settings), which the JAX
+    package's class of that name keeps under the same names; a
+    torsion-torsion force its grids as given ("grids")."""
+    state = {k: copy.deepcopy(v) for k, v in vars(force).items()
+             if k not in ("_force_group", "_name", "_grids")}
+    spec = {"kind": type(force).__name__, "group": force.getForceGroup(),
+            "state": state}
+    if isinstance(force, AmoebaTorsionTorsionForce):
+        spec["grids"] = [np.asarray(g["raw"], np.float64).tolist()
+                         for g in force._grids]
+    return spec
+
+
+def _state_force(spec):
+    force = {c.__name__: c for c in STATE_FORCES}[spec["kind"]]()
+    force.__dict__.update(copy.deepcopy(spec["state"]))
+    for index, grid in enumerate(spec.get("grids", ())):
+        force.setTorsionTorsionGrid(index, grid)
+    force.setForceGroup(spec["group"])
+    return force
+
+
 def custom_force(spec):
     """The force of a custom_spec dict."""
     kind = spec["kind"]
+    if kind in {c.__name__ for c in STATE_FORCES}:
+        return _state_force(spec)
     if kind == "RMSDForce":
         force = RMSDForce(spec["reference"], spec["particles"])
     elif kind == "GayBerneForce":
@@ -742,7 +782,8 @@ def to_numpy(system: System) -> dict:
     forces, which are in from_numpy's order where the order matters (the
     update hooks)."""
     forces = system.getForces()
-    nb, *extra = [f for f in forces if isinstance(f, NonbondedForce)]
+    nb, *extra = [f for f in forces if isinstance(f, NonbondedForce)] \
+        or [None]
     cons = [u.plain(system.getConstraintParameters(i))
             for i in range(system.getNumConstraints())]
     out = {
@@ -753,7 +794,8 @@ def to_numpy(system: System) -> dict:
         "constraint_distances": np.asarray([c[2] for c in cons], np.float64),
         "box": u.plain(system.getDefaultPeriodicBoxVectors()),
     }
-    out.update(_nonbonded_params(nb))
+    if nb is not None:
+        out.update(_nonbonded_params(nb))
     if extra:
         out["extra_nonbonded"] = [dict(_nonbonded_params(f),
                                        group=f.getForceGroup())
@@ -764,7 +806,7 @@ def to_numpy(system: System) -> dict:
     if system._vsites:
         out["vsites"] = [_vsite_entry(i, site)
                          for i, site in sorted(system._vsites.items())]
-    groups = {"nonbonded": nb.getForceGroup()}
+    groups = {"nonbonded": 0 if nb is None else nb.getForceGroup()}
     _other_params(forces, out, groups)
     groups = {k: g for k, g in groups.items() if g}
     if groups:

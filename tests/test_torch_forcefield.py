@@ -10,6 +10,7 @@ and more. The cropped bilayer's System then gives the JAX "Reference"
 platform's energy and forces on the port's "CPU" platform in double
 precision. A Drude or AMOEBA section raises instead of loading a file
 without it."""
+import functools
 import os
 
 import numpy as np
@@ -147,7 +148,7 @@ def _pair(files, jtop, **kw):
 
 
 def _jax_arg(v):
-    if isinstance(v, str):
+    if isinstance(v, str) and hasattr(japp, v):
         return getattr(japp, v)
     if isinstance(v, tuple):
         return v[0] * getattr(ju, v[1])
@@ -155,7 +156,7 @@ def _jax_arg(v):
 
 
 def _port_arg(v):
-    if isinstance(v, str):
+    if isinstance(v, str) and hasattr(papp, v):
         return getattr(papp, v)
     if isinstance(v, tuple):
         return v[0] * getattr(pu, v[1])
@@ -168,7 +169,8 @@ def _peptide_with_water(water_file, n_waters=4):
 
 
 # (force-field files, topology builder, createSystem settings): a string
-# value names the app singleton, a tuple (value, unit name) a Quantity
+# value names the app singleton (or is itself where the app has no such
+# name), a tuple (value, unit name) a Quantity
 CASES = {
     "amber14_tip3p_pme_hbonds": (
         ("amber14-all.json", "amber14-tip3p.json"),
@@ -328,8 +330,7 @@ def test_registered_template_generator(tmp_path):
     assert calls == ["UNK"]
 
 
-@pytest.mark.parametrize("name", ["charmm_polar_2019.json", "swm4ndp.json",
-                                  "amoeba2013.json", "iamoeba.json"])
+@pytest.mark.parametrize("name", ["charmm_polar_2019.json", "swm4ndp.json"])
 def test_drude_and_amoeba_files_are_not_in_the_port(name):
     """The port ships none of these files, and a name it lacks is never
     looked up in the JAX package's data."""
@@ -341,9 +342,7 @@ def test_drude_and_amoeba_files_are_not_in_the_port(name):
 
 @pytest.mark.parametrize("section", [
     '<DrudeForce><Particle type1="A" type2="A" charge="-1" '
-    'polarizability="0.001" thole="1.3"/></DrudeForce>',
-    '<AmoebaBondForce bond-cubic="-25.5" bond-quartic="379.3125"/>',
-    '<AmoebaMultipoleForce direct11Scale="0.0"/>'])
+    'polarizability="0.001" thole="1.3"/></DrudeForce>'])
 def test_drude_and_amoeba_sections_raise(tmp_path, section):
     text = CUSTOM_XML.replace("</ForceField>", section + "</ForceField>")
     with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
@@ -416,4 +415,82 @@ def test_patched_templates_match_jax(tmp_path):
             jtop.addBond(a, b)
     psys, jsys = _pair((path,), jtop, constraints="HBonds")
     assert psys.getNumParticles() == 7
+    assert_same_params(omm.to_numpy(psys), system_params(jsys))
+
+
+# ---------------------------------------------------------------- AMOEBA
+def _amoeba_water_box(n_side=3, file="amoeba2013.json"):
+    """(JAX Topology, positions): n_side^3 waters (residue HOH of `file`)
+    on a jittered lattice at liquid density, in their periodic box."""
+    from openmm_tpu_torch.models import hippo_water_cluster
+    _, pos = hippo_water_cluster(n_side ** 3)
+    edge = n_side * (1.0 / 33.37) ** (1.0 / 3.0)
+    ff = japp.ForceField(file)
+    # the cluster's waters are O, H, H: in the template's atom order
+    symbols = [a.element.symbol for a in ff._templates["HOH"].atoms]
+    order = [0 if s == "O" else 1 + symbols[:k].count("H")
+             for k, s in enumerate(symbols)]
+    pos = pos.reshape(-1, 3, 3)[:, order].reshape(-1, 3)
+    return template_topology(ff, [["HOH"]] * n_side ** 3, edge), pos
+
+
+@functools.lru_cache(maxsize=None)
+def _amoeba_helix(n_ala=2):
+    """(JAX Topology, positions) of ACE-(ALA)n-NME built by the port's
+    Modeller (chip_smoke.helix_pdb_text, addHydrogens on the CPU), written
+    as a PDB by the port and read by the JAX package."""
+    import io
+    import chip_smoke
+    pdb = papp.PDBFile(io.StringIO(chip_smoke.helix_pdb_text(n_ala)))
+    modeller = papp.Modeller(pdb.topology, pdb.positions)
+    modeller.addHydrogens(papp.ForceField("amber14-all.json"),
+                          platform=omm.Platform.getPlatformByName("CPU"))
+    text = io.StringIO()
+    papp.PDBFile.writeFile(modeller.topology, modeller.positions, text)
+    # the JAX reader adds the standard bonds to the CONECT records' (so
+    # each twice): it reads the file without them
+    lines = [ln for ln in text.getvalue().splitlines()
+             if not ln.startswith("CONECT")]
+    jpdb = japp.PDBFile(io.StringIO("\n".join(lines) + "\n"))
+    return jpdb.topology, plain(modeller.positions)
+
+
+AMOEBA_CASES = {
+    "water_pme": (("amoeba2013.json",), _amoeba_water_box,
+                  dict(nonbondedMethod="PME",
+                       nonbondedCutoff=(0.45, "nanometer"), vdwCutoff=0.45,
+                       polarization="mutual",
+                       mutualInducedTargetEpsilon=1e-5)),
+    "helix_nocutoff_direct": (("amoeba2013.json",), _amoeba_helix,
+                              dict(nonbondedMethod="NoCutoff",
+                                   polarization="direct")),
+    "helix_gk": (("amoeba2013.json", "amoeba2013_gk.json"), _amoeba_helix,
+                 dict(nonbondedMethod="NoCutoff", polarization="mutual")),
+}
+
+
+@pytest.mark.parametrize("case", sorted(AMOEBA_CASES))
+def test_amoeba_forcefield_matches_jax(case):
+    """ForceField(amoeba files).createSystem in the port and in the JAX
+    package: the same System, force by force and parameter by parameter,
+    and its energy (1e-9 relative) and forces (1e-8 of the largest) on
+    float64 against the JAX "Reference" platform (the JAX vdW twin with
+    OpenMM's cubic mean, torch_port_helpers.jax_openmm_vdw)."""
+    from torch_port_helpers import assert_close_to_jax, port_against_jax
+    files, build, settings = AMOEBA_CASES[case]
+    jtop, pos = build()
+    psys, jsys = _pair(files, jtop, **settings)
+    assert {type(f).__name__ for f in psys.getForces()} >= {
+        "AmoebaVdwForce", "AmoebaMultipoleForce"}
+    assert_same_params(omm.to_numpy(psys), system_params(jsys))
+    assert_close_to_jax(port_against_jax(jsys, pos), 1e-9, 1e-8, case)
+
+
+def test_iamoeba_forcefield_matches_jax():
+    """iamoeba.json (its hydrogens carry no vdW: sigma and epsilon 0,
+    whose pairs both packages' cubic mean turns into NaN) gives the same
+    System in both packages."""
+    jtop, _ = _amoeba_water_box(file="iamoeba.json")
+    psys, jsys = _pair(("iamoeba.json",), jtop, nonbondedMethod="PME",
+                       nonbondedCutoff=(0.45, "nanometer"), vdwCutoff=0.45)
     assert_same_params(omm.to_numpy(psys), system_params(jsys))

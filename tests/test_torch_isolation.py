@@ -107,8 +107,8 @@ def test_app_reads_only_its_own_data():
             "bare.createStandardBonds()\n"
             "assert len(list(bare.bonds())) == 2\n"
             "try:\n"
-            "    app.ForceField('amoeba2013.json')\n"
-            "    raise SystemExit('amoeba2013.json was found')\n"
+            "    app.ForceField('swm4ndp.json')\n"
+            "    raise SystemExit('swm4ndp.json was found')\n"
             "except Exception as e:\n"
             "    assert 'not found' in str(e), e\n"
             "jax_dir = os.path.join(os.getcwd(), 'openmm_tpu') + os.sep\n"

@@ -21,6 +21,8 @@ of them oversubscribes the cores many times over.
 import os
 import sys
 
+import copy
+
 import numpy as np
 import torch
 
@@ -60,13 +62,14 @@ _BONDED = (("bond", HarmonicBondForce, "_bonds", 2, "bond_pairs",
 
 
 def system_params(system):
-    """The from_numpy dict of a JAX-package System with NonbondedForces, at
-    most one force of each bonded kind, one GBSAOBCForce, one
+    """The from_numpy dict of a JAX-package System with NonbondedForces (or
+    none), at most one force of each bonded kind, one GBSAOBCForce, one
     CMMotionRemover, one Monte Carlo barostat, one AndersenThermostat and
     custom forces (the term lists hold plain floats in nm, rad and kJ/mol;
     the barostat's settings in bar, bar nm and K)."""
     forces = system.getForces()
-    nb, *extra = [f for f in forces if isinstance(f, NonbondedForce)]
+    nb, *extra = [f for f in forces if isinstance(f, NonbondedForce)] \
+        or [None]
     n = system.getNumParticles()
     masses = np.array([u.strip(system.getParticleMass(i), u.dalton)
                        for i in range(n)], np.float64)
@@ -83,7 +86,8 @@ def system_params(system):
             [float(u.strip(c[2], u.nanometer)) for c in cons], np.float64),
         "box": box,
     }
-    out.update(_nonbonded_params(nb))
+    if nb is not None:
+        out.update(_nonbonded_params(nb))
     if extra:
         out["extra_nonbonded"] = [dict(_nonbonded_params(f),
                                        group=f.getForceGroup())
@@ -95,7 +99,7 @@ def system_params(system):
     if system._vsites:
         out["vsites"] = [vsite_entry(i, site)
                          for i, site in sorted(system._vsites.items())]
-    groups = {"nonbonded": nb.getForceGroup()}
+    groups = {"nonbonded": 0 if nb is None else nb.getForceGroup()}
     _other_params(forces, out, groups)
     groups = {kind: g for kind, g in groups.items() if g}
     if groups:
@@ -154,8 +158,9 @@ def _other_params(forces, out, groups):
         rows = getattr(force, terms)
         out[atoms_key] = np.array([t[:k] for t in rows],
                                   np.int64).reshape(len(rows), k)
+        n_par = {"bond": 2, "angle": 2, "torsion": 3, "rb": 6}[kind]
         out[par_key] = np.array([t[k:] for t in rows],
-                                np.float64).reshape(len(rows), -1)
+                                np.float64).reshape(len(rows), n_par)
         groups[kind] = force.getForceGroup()
     for force in forces:
         if isinstance(force, CMAPTorsionForce):
@@ -186,12 +191,17 @@ def _other_params(forces, out, groups):
             groups["barostat"] = force.getForceGroup()
 
 
+# forces that travel as their attributes (openmm_tpu_torch.system
+# state_spec): the AMOEBA forces and HippoNonbondedForce
+STATE_KINDS = ("AmoebaVdwForce", "AmoebaMultipoleForce",
+               "AmoebaTorsionTorsionForce", "AmoebaGeneralizedKirkwoodForce",
+               "AmoebaWcaDispersionForce", "HippoNonbondedForce")
 CUSTOM_KINDS = ("CustomExternalForce", "CustomBondForce", "CustomAngleForce",
                 "CustomTorsionForce", "CustomNonbondedForce",
                 "CustomCompoundBondForce", "CustomCentroidBondForce",
                 "CustomGBForce", "CustomCVForce", "RMSDForce",
                 "CustomHbondForce", "CustomManyParticleForce",
-                "GayBerneForce")
+                "GayBerneForce") + STATE_KINDS
 
 
 def _functions(force):
@@ -210,6 +220,13 @@ def custom_spec(force):
     custom_spec) of a JAX-package force of CUSTOM_KINDS."""
     kind = type(force).__name__
     spec = {"kind": kind, "group": force.getForceGroup()}
+    if kind in STATE_KINDS:
+        spec["state"] = {k: copy.deepcopy(v) for k, v in vars(force).items()
+                         if k not in ("_force_group", "_name", "_grids")}
+        if kind == "AmoebaTorsionTorsionForce":
+            spec["grids"] = [np.asarray(g["raw"], np.float64).tolist()
+                             for g in force._grids]
+        return spec
     if kind == "RMSDForce":
         spec.update(reference=np.asarray(force._ref).tolist(),
                     particles=list(force._particles))
@@ -333,6 +350,13 @@ def jax_custom_force(spec):
     from openmm_tpu import forces
     from openmm_tpu.forces import custom
     kind = spec["kind"]
+    if kind in STATE_KINDS:
+        force = getattr(forces, kind)()
+        force.__dict__.update(copy.deepcopy(spec["state"]))
+        for index, grid in enumerate(spec.get("grids", ())):
+            force.setTorsionTorsionGrid(index, grid)
+        force.setForceGroup(spec["group"])
+        return force
     if kind == "RMSDForce":
         force = forces.RMSDForce(np.asarray(spec["reference"]),
                                  spec["particles"])
@@ -509,7 +533,8 @@ def jax_system(params):
     groups = params.get("force_groups", {})
     for index, kind, parents, weights in params.get("vsites", ()):
         system.setVirtualSite(int(index), jax_vsite(kind, parents, weights))
-    system.addForce(_jax_nonbonded(params, groups.get("nonbonded", 0)))
+    if "charges" in params:
+        system.addForce(_jax_nonbonded(params, groups.get("nonbonded", 0)))
     for extra in params.get("extra_nonbonded", ()):
         system.addForce(_jax_nonbonded(extra, extra.get("group", 0)))
     _jax_other_forces(system, params, groups)
@@ -902,3 +927,53 @@ def assert_same_params(got, want, path="system"):
         assert g.shape == w.shape and np.array_equal(g, w), path
     else:
         assert got == want, (path, got, want)
+
+
+def jax_openmm_vdw(system):
+    """The JAX-package System `system` with the sigmas of each
+    AmoebaVdwForce under the CUBIC-MEAN rule doubled, in place: the JAX
+    force's cubic mean (s_i^3 + s_j^3) / (s_i^2 + s_j^2) leaves out
+    OpenMM's factor 2 (AmoebaReferenceVdwForce.cpp
+    cubicMeanSigmaCombiningRule), which the port keeps, so with doubled
+    sigmas the JAX force computes the port's (and OpenMM's) energy.
+    Returns the System."""
+    for f in system.getForces():
+        if type(f).__name__ == "AmoebaVdwForce" \
+                and f.getSigmaCombiningRule().upper() == "CUBIC-MEAN":
+            f._particles = [(p, 2.0 * s, e, r) for p, s, e, r in f._particles]
+    return system
+
+
+def port_against_jax(system, positions, groups=-1, jax_system_=None):
+    """(port energy, JAX energy, port forces, JAX forces) of the JAX-package
+    System `system` (with jax_openmm_vdw applied to the JAX side: pass
+    the JAX twin as `jax_system_` to override) at `positions`: the port's
+    from_numpy System on a float64 CPU Context, the JAX twin on a
+    "Reference" Context."""
+    import openmm_tpu_torch as omm
+    port = omm.from_numpy(system_params(system))
+    twin = jax_system_ if jax_system_ is not None else \
+        jax_openmm_vdw(jax_system(system_params(system)))
+    ctx = omm.Context(port, omm.VerletIntegrator(0.001),
+                      omm.Platform.getPlatformByName("CPU"),
+                      {"Precision": "double"})
+    ctx.setPositions(np.asarray(positions, np.float64))
+    st = ctx.getState(getEnergy=True, getForces=True, groups=groups)
+    jctx = mm.Context(twin, mm.VerletIntegrator(0.001),
+                      mm.Platform.getPlatformByName("Reference"))
+    jctx.setPositions([mm.Vec3(*p) for p in np.asarray(positions)])
+    jst = jctx.getState(getEnergy=True, getForces=True, groups=groups)
+    return (plain(st.getPotentialEnergy()),
+            float(jst.getPotentialEnergy()._value),
+            plain(st.getForces(asNumpy=True)),
+            np.asarray(jst.getForces(asNumpy=True)._value, np.float64))
+
+
+def assert_close_to_jax(result, e_tol=1e-9, f_tol=1e-8, what=""):
+    """Energy within e_tol (relative) and every force component within
+    f_tol of the largest JAX force."""
+    e, je, f, jf = result
+    assert abs(e - je) <= e_tol * max(abs(je), 1e-12), (what, e, je)
+    scale = np.abs(jf).max()
+    assert np.abs(f - jf).max() <= f_tol * scale, \
+        (what, np.abs(f - jf).max(), scale)
