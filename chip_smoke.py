@@ -160,7 +160,23 @@ comes out:
   build, minimization and relaxation, GK and HIPPO run in children
   forked at the start (fork_helper), beside the build, the kernel
   phases, the examples and phase_modeller_membrane's build, which time
-  no device work.
+  no device work;
+- Drude and RPMD: kernels 1-3 at the shapes of a SWM4-NDP box built as
+  users build it (Modeller.addSolvent and addExtraParticles with
+  ForceField("swm4ndp.json"), PME 0.9 nm, rigid water; ~24,000
+  particles, each Drude on its oxygen, those pairs excluded at r = 0);
+  the box minimized, its float32 forces and group energies against
+  float64, DrudeLangevin (300 K, 1/ps, 1 K, 20/ps, 1 fs) through the
+  step program with the eager loop's bits, its two temperatures gated,
+  DrudeSCF (kernel 1 thirteen times a step) and DrudeNoseHoover steps
+  (phase_drude); 216 flexible TIP3P waters under RPMDIntegrator (32
+  copies, 298 K, 1/ps, 0.25 fs, the reciprocal space contracted to 4):
+  the centroid's temperature and the ring polymers' spread gated, the
+  eager loop's bits, then RPMDMonteCarloBarostat, every copy moved by its
+  centroid's offset (phase_rpmd). Both paths, their Systems' builds
+  included, run in children forked at the start (write_drude,
+  write_rpmd) and joined before the timing; each path's kernel launches
+  go into the kernels line (launches_new_paths).
 
 It imports nothing of JAX or of openmm_tpu.
 
@@ -198,6 +214,7 @@ from openmm_tpu_torch import _build
 from openmm_tpu_torch import step_program
 from openmm_tpu_torch.context import MAX_ESCALATIONS, STEP_CHUNK
 from openmm_tpu_torch.forces.nonbonded import NonbondedModule
+from openmm_tpu_torch.integrators.drude import SCF_ITERATIONS
 from openmm_tpu_torch.models import (alchemical_water_box, builders,
                                      popc_bilayer, popc_obc_cluster,
                                      tip3p_water_box, tip4pew_water_box,
@@ -396,12 +413,12 @@ NH_EVERY = 50
 NH_T_RANGE = (270.0, 330.0)
 VELOCITY_SEED = 8               # of the velocities drawn at a temperature
 VARIABLE_TOLERANCE = 1e-3
-VARIABLE_STEPS = 250
+VARIABLE_STEPS = 150
 VARIABLE_ENERGY_BAR = 0.02      # |E1 / E0 - 1| under VariableVerlet
 COMPOUND_STEPS = 50
 COMPOUND_SWITCHES = 3
 MTS_GROUPS = ((0, 1), (1, 2))
-MTS_STEPS = 75
+MTS_STEPS = 50
 AMD_DT = 0.001
 AMD_STEPS = 60
 AMD_EVERY = 25
@@ -413,8 +430,8 @@ BILAYER_T_RANGE = (250.0, 360.0)
 # MTS with the reciprocal space slow; parameter offsets and
 # updateParametersInContext on the relaxed water box; checkpoints
 LJPME_RECIP_GROUP = 5
-LJPME_STEPS = 50
-LJPME_REPLAY = 5
+LJPME_STEPS = 25
+LJPME_REPLAY = 2
 LJPME_MINIMIZE_ITERATIONS = 3
 # 0.3 ps after fresh velocities at 303.15 K on a minimized structure: half
 # the kinetic energy flows into the potential first (248.25 K in a chip
@@ -612,7 +629,7 @@ def water_box(n_waters, sheared=False):
 
 
 def kernel_inputs(device, n_waters, sheared=False, system=None,
-                  positions=None) -> dict:
+                  positions=None, fine=False) -> dict:
     """Inputs of the kernels at the shapes of their paths, from the water
     box's starting positions (its box sheared when `sheared`), or from
     `system` at `positions`: kernel 1 as the path calls it (in the mode of
@@ -620,7 +637,9 @@ def kernel_inputs(device, n_waters, sheared=False, system=None,
     path calls them (kernel 3 visiting the atoms in the candidate state's
     order) and kernels 4-5 on the dense weight planes of those positions
     (N unpadded) with a seeded cotangent dQ. The capacity grows, as a
-    Context grows it, until the candidate state holds every pair."""
+    Context grows it, until the candidate state holds every pair. `fine`:
+    kernel 1 on the positions as float32 pairs (pos_lo), as a Context of
+    a System with Drude particles calls it."""
     if system is None:
         system, positions = water_box(n_waters, sheared)
     pos = positions
@@ -638,12 +657,15 @@ def kernel_inputs(device, n_waters, sheared=False, system=None,
         st = module.build_state(posf, box)
     if int(st["overflow"]):
         raise RuntimeError("candidate state overflowed at the start")
+    pos4, pos_lo = (tile_pairs.sorted_positions_fine(
+        torch.as_tensor(pos, dtype=torch.float64, device=device),
+        box.to(torch.float64), st) if fine else
+        (tile_pairs.sorted_positions(posf, box, st), None))
     inp = {
-        "tiles": (tile_pairs.sorted_positions(posf, box, st), st["par4"],
-                  st["cand"], st["count"], st["words"],
+        "tiles": (pos4, st["par4"], st["cand"], st["count"], st["words"],
                   tile_pairs.tile_consts(box, module.tile_scalars)),
         "pos": posf.contiguous(), "charge": module.charge,
-        "module": module, "box": box,
+        "module": module, "box": box, "pos_lo": pos_lo,
     }
     if module.method not in (omm.NonbondedForce.PME,
                              omm.NonbondedForce.LJPME):
@@ -690,9 +712,11 @@ def _kernel_calls(inp):
     the mode of the inputs' module, and kernels 2-5 for PME inputs."""
     t = inp["tiles"]
     m = inp["module"]
+    lo = inp.get("pos_lo")
     calls = {"nonbonded_tiles": (
-        lambda: tile_pairs.nonbonded_tiles(*t, m.mode, m.use_switch),
-        lambda: tile_pairs.nonbonded_tiles_plain(*t, m.mode, m.use_switch))}
+        lambda: tile_pairs.nonbonded_tiles(*t, m.mode, m.use_switch, lo),
+        lambda: tile_pairs.nonbonded_tiles_plain(*t, m.mode, m.use_switch,
+                                                 lo))}
     if "grid" not in inp:
         return calls
     pos, q, binv, grid = inp["pos"], inp["charge"], inp["binv"], inp["grid"]
@@ -5274,8 +5298,8 @@ AMOEBA_SLOW = ("AmoebaMultipoleForce", "AmoebaVdwForce",
 # LangevinMiddle with Extrapolated polarization, as the water box's RELAX
 AMOEBA_RELAX = (0.001, 100.0, 60)
 AMOEBA_MINIMIZE_ITERATIONS = 2
-AMOEBA_STEPS = 8
-AMOEBA_REPLAY = 2
+AMOEBA_STEPS = 2
+AMOEBA_REPLAY = 1
 AMOEBA_T_RANGE = (250.0, 360.0)
 AMOEBA_ENERGY_BAR = 1e-5        # relative, each group's energy
 SECOND_ORDER_TOL = 1e-5         # kernel 5's VJP against autograd's
@@ -5569,12 +5593,14 @@ def join_helper(started, label) -> tuple:
     return result, wait_s
 
 
-def _force_check(label, ctx, system, platform, groups=(0, 1)) -> dict:
+def _force_check(label, ctx, system, platform, groups=(0, 1),
+                 energy_bar=None) -> dict:
     """The Context's float32 forces and group energies against a float64
     Context (Precision "double": the plain versions) at its positions:
     the median relative force error and each group's relative energy
     error (the last group's the total less the others'), gated at
-    FORCE_ERR_BAR and AMOEBA_ENERGY_BAR."""
+    FORCE_ERR_BAR and `energy_bar` (AMOEBA_ENERGY_BAR by default)."""
+    energy_bar = AMOEBA_ENERGY_BAR if energy_bar is None else energy_bar
     st = ctx.getState(getForces=True, getPositions=True, getEnergy=True)
     props = {"Precision": "double"}
     oracle = (omm.Context(system, omm.VerletIntegrator(0.001),
@@ -5606,7 +5632,7 @@ def _force_check(label, ctx, system, platform, groups=(0, 1)) -> dict:
         raise RuntimeError("%s: median force error %.3e above %.0e"
                            % (label, err, FORCE_ERR_BAR))
     for g, e in energies.items():
-        if not e[2] <= AMOEBA_ENERGY_BAR:
+        if not e[2] <= energy_bar:
             raise RuntimeError("%s: group %d energy %.6f vs float64 %.6f"
                                % (label, g, e[0], e[1]))
     return {"force_err": err, "energies": energies}
@@ -6044,6 +6070,491 @@ def phase_hippo(device, deadline=None, n_waters=HIPPO_WATERS,
             "ms_per_step": run["wall_ms_per_step"]}
 
 
+# -- Drude and RPMD (the polarizable and the path-integral slice) ---------
+DRUDE_FORCEFIELD = "swm4ndp.json"
+DRUDE_BOX = 5.24                # nm cube: ~4,800 SWM4-NDP waters, ~24,000
+DRUDE_CUTOFF = 0.9              # particles with their M sites and Drudes
+DRUDE_TEMPERATURE = 300.0
+DRUDE_FRICTION = 1.0
+DRUDE_DRUDE_TEMPERATURE = 1.0
+DRUDE_DRUDE_FRICTION = 20.0
+DRUDE_DT = 0.001
+DRUDE_MINIMIZE_ITERATIONS = 10
+DRUDE_RELAX = 1000
+DRUDE_RELAX_FRICTION = 100.0    # 1/ps: the lattice's strain taken out
+DRUDE_STEPS = 100
+DRUDE_REPLAY = 10
+DRUDE_T_RANGE = (250.0, 360.0)  # the centres of mass and the other atoms
+DRUDE_REL_T_RANGE = (0.0, 10.0)  # the Drudes' relative motion (CHANGES.md)
+# the group energies' bar, relative: the NonbondedForce's group is the sum
+# of a direct part and a reciprocal one each ~250x larger than it (the
+# SWM4-NDP charges of 1.7 e, each Drude's pair correction ~1,600 kJ/mol),
+# so float32 parts at ~1e-7 leave ~1e-5 of the sum (1.3e-5 in a CPU run
+# of 343 waters)
+DRUDE_ENERGY_BAR = 1e-4
+DRUDE_SCF_STEPS = 4
+DRUDE_NH_STEPS = 6
+DRUDE_NH_FREQUENCY = 10.0
+DRUDE_NH_DRUDE_FREQUENCY = 50.0
+DRUDE_SIDE_REPLAY = 2
+RPMD_FORCEFIELD = "amber14-tip3p.json"
+RPMD_WATERS = 216
+RPMD_CUTOFF = 0.9
+RPMD_COPIES = 32
+RPMD_CONTRACTED = 4             # copies of the reciprocal space (group 1)
+RPMD_TEMPERATURE = 298.0
+RPMD_FRICTION = 1.0
+RPMD_DT = 0.00025
+RPMD_MINIMIZE_ITERATIONS = 10  # the lattice's strain, before the copies
+RPMD_RELAX = 30
+RPMD_STEPS = 30
+RPMD_REPLAY = 2
+RPMD_T_RANGE = (200.0, 420.0)   # the centroid's temperature (CHANGES.md)
+RPMD_NPT_FREQUENCY = 1
+RPMD_NPT_STEPS = 10             # 10 attempts
+RPMD_OFFSET_BAR = 1e-12         # nm: each copy's move against the centroid's
+
+
+def drude_build(box=DRUDE_BOX, cutoff=DRUDE_CUTOFF) -> tuple:
+    """The SWM4-NDP box as users build it: Modeller.addSolvent(
+    ForceField(DRUDE_FORCEFIELD), model="tip3p", a `box` nm cube), then
+    addExtraParticles (an M site and a Drude particle on each water),
+    then createSystem(PME `cutoff` nm, rigid water), the DrudeForce in
+    force group 1: (topology, positions, System, host seconds)."""
+    from openmm_tpu_torch import app
+    from openmm_tpu_torch import unit as u
+    t0 = time.perf_counter()
+    ff = app.ForceField(DRUDE_FORCEFIELD)
+    modeller = app.Modeller(app.Topology(), [])
+    modeller.addSolvent(ff, model="tip3p",
+                        boxSize=omm.Vec3(box, box, box) * u.nanometer)
+    modeller.addExtraParticles(ff)
+    system = ff.createSystem(modeller.topology, nonbondedMethod=app.PME,
+                             nonbondedCutoff=cutoff * u.nanometer,
+                             rigidWater=True)
+    for force in system.getForces():
+        if isinstance(force, omm.DrudeForce):
+            force.setForceGroup(1)
+    return (modeller.topology, modeller.positions, system,
+            time.perf_counter() - t0)
+
+
+def rpmd_build(waters=RPMD_WATERS, cutoff=RPMD_CUTOFF) -> tuple:
+    """`waters` flexible TIP3P waters at liquid density
+    (models.tip3p_water_box's lattice) through ForceField(
+    RPMD_FORCEFIELD).createSystem(PME `cutoff` nm, rigidWater=False, no
+    constraints, no CMMotionRemover), the reciprocal space in force group
+    1: (topology, positions, System, host seconds)."""
+    from openmm_tpu_torch import app
+    from openmm_tpu_torch import unit as u
+    t0 = time.perf_counter()
+    water, positions = tip3p_water_box(waters)
+    box = in_md(water.getDefaultPeriodicBoxVectors())
+    top = app.Topology()
+    chain = top.addChain()
+    oxygen, hydrogen = (app.Element.getBySymbol(s) for s in ("O", "H"))
+    for _ in range(waters):
+        res = top.addResidue("HOH", chain)
+        for name, el in (("O", oxygen), ("H1", hydrogen), ("H2", hydrogen)):
+            top.addAtom(name, el, res)
+    top.createStandardBonds()
+    top.setPeriodicBoxVectors(u.Quantity(
+        tuple(omm.Vec3(*row) for row in box), u.nanometer))
+    system = app.ForceField(RPMD_FORCEFIELD).createSystem(
+        top, nonbondedMethod=app.PME, nonbondedCutoff=cutoff * u.nanometer,
+        constraints=None, rigidWater=False, removeCMMotion=False)
+    for force in system.getForces():
+        if isinstance(force, omm.NonbondedForce):
+            force.setReciprocalSpaceForceGroup(1)
+    return top, positions, system, time.perf_counter() - t0
+
+
+def write_drude(path) -> None:
+    """The Drude path on the card in a forked helper (fork_helper): the
+    SWM4-NDP box built (drude_build), kernels 1-3 held against their plain
+    versions at its shapes (every Drude particle on its oxygen), then
+    phase_drude; its result pickled to `path`."""
+    import pickle
+    t0 = since_start()
+    set_fp32_matmul_exact()
+    device = torch.device("cuda", 0)
+    built = drude_build()
+    t1 = since_start()
+    inp = kernel_inputs(device, None, system=built[2],
+                        positions=in_md(built[1]), fine=True)
+    errors = phase_kernels(device, inp, Deadline(math.inf), MAIN_PATH_NAMES,
+                           " (drude box)")
+    del inp
+    out = dict(phase_drude(device, built=built), kernel_errors=errors)
+    with open(path, "wb") as f:
+        pickle.dump(out, f)
+    print("helper write_drude: %.1f to %.1f s of the script's clock (the "
+          "build to %.1f s), peak device memory reserved %.1f GB" % (
+              t0, since_start(), t1,
+              torch.cuda.max_memory_reserved(device) / 1e9))
+
+
+def write_rpmd(path) -> None:
+    """phase_rpmd on the card in a forked helper (fork_helper), its
+    System built there (rpmd_build), its result pickled to `path`."""
+    import pickle
+    t0 = since_start()
+    set_fp32_matmul_exact()
+    device = torch.device("cuda", 0)
+    out = phase_rpmd(device, built=rpmd_build())
+    with open(path, "wb") as f:
+        pickle.dump(out, f)
+    print("helper write_rpmd: %.1f to %.1f s of the script's clock, peak "
+          "device memory reserved %.1f GB" % (
+              t0, since_start(),
+              torch.cuda.max_memory_reserved(device) / 1e9))
+
+
+def _launches_since(before) -> dict:
+    return {k.name: k.launches - b for k, b in zip(KERNELS, before)
+            if k.launches != b}
+
+
+def _require_launched(label, launches, kernels) -> None:
+    """Raise unless every kernel of `kernels` launched on the path."""
+    missing = [k.name for k in kernels if launches.get(k.name, 0) <= 0]
+    if missing:
+        raise RuntimeError("%s: %s never launched (%s)"
+                           % (label, missing, launches))
+
+
+def drude_temperatures(ctx, pairs) -> tuple:
+    """(the temperature of the centres of mass of the (Drude, parent)
+    pairs with the other particles, the temperature of the pairs'
+    relative motion), K, from the Context's velocities: 3 degrees of
+    freedom a moving particle less the pairs' and the constraints for
+    the first, 3 a pair for the second."""
+    v = ctx._state["velocities"].cpu().numpy()
+    m = ctx._masses.cpu().numpy()
+    d, p = pairs[:, 0], pairs[:, 1]
+    single = np.ones(len(m), bool)
+    single[pairs.reshape(-1)] = False
+    mt = (m[d] + m[p])[:, None]
+    v_com = (m[d, None] * v[d] + m[p, None] * v[p]) / mt
+    mu = (m[d] * m[p])[:, None] / mt
+    v_rel = v[d] - v[p]
+    ke_com = 0.5 * (np.sum(m[single, None] * v[single] ** 2)
+                    + np.sum(mt * v_com ** 2))
+    ke_rel = 0.5 * np.sum(mu * v_rel ** 2)
+    dof_com = 3 * (int(np.count_nonzero(m)) - len(pairs)) \
+        - ctx._system.getNumConstraints()
+    return (2.0 * ke_com / (dof_com * omm.BOLTZ),
+            2.0 * ke_rel / (3 * len(pairs) * omm.BOLTZ))
+
+
+def phase_drude(device, deadline=None, built=None,
+                minimize_iterations=DRUDE_MINIMIZE_ITERATIONS,
+                relax=DRUDE_RELAX, steps=DRUDE_STEPS, replay=DRUDE_REPLAY,
+                scf_steps=DRUDE_SCF_STEPS, nh_steps=DRUDE_NH_STEPS,
+                side_replay=DRUDE_SIDE_REPLAY) -> dict:
+    """The SWM4-NDP box (drude_build: the water of CHARMM Drude
+    simulations at the main path's size) on the default platform:
+    minimizeEnergy (kernels 1, 4, 5) from every Drude particle on its
+    oxygen; the float32 forces and group energies (the DrudeForce in
+    group 1) against float64 (_force_check); DrudeLangevinIntegrator
+    (DRUDE_TEMPERATURE, DRUDE_FRICTION, DRUDE_DRUDE_TEMPERATURE,
+    DRUDE_DRUDE_FRICTION, DRUDE_DT) through the step program, `relax`
+    steps at DRUDE_RELAX_FRICTION (the lattice's strain, released as heat,
+    taken out) and `steps` of production (kernels 1-3 once a step, counted from
+    0), replayed from a snapshot through the eager loop for the same bits,
+    with its ns/day; the centres of mass' temperature within
+    DRUDE_T_RANGE and the Drudes' relative temperature within
+    DRUDE_REL_T_RANGE; DrudeSCFIntegrator (DRUDE_DT, kernel 1 thirteen
+    times a step) for `scf_steps`, the Drudes' largest residual force
+    printed; DrudeNoseHooverIntegrator for `nh_steps`; the SCF's and
+    Nose-Hoover's last `side_replay` steps through the eager loop for the
+    same bits; every energy finite. Raises on a miss."""
+    deadline = deadline or Deadline(math.inf)
+    cuda = device.type == "cuda"
+    platform = None if cuda else omm.Platform.getPlatformByName("CPU")
+    top, positions, system, build_s = built or drude_build()
+    drude = [f for f in system.getForces()
+             if isinstance(f, omm.DrudeForce)][0]
+    pairs = np.asarray(drude._drude_pairs(), np.int64)
+
+    def context(integ):
+        integ.setRandomNumberSeed(43)
+        return (omm.Context(system, integ) if cuda
+                else omm.Context(system, integ, platform))
+
+    integ = omm.DrudeLangevinIntegrator(
+        DRUDE_TEMPERATURE, DRUDE_FRICTION, DRUDE_DRUDE_TEMPERATURE,
+        DRUDE_DRUDE_FRICTION, DRUDE_DT)
+    ctx = context(integ)
+    ctx.setPositions(positions)
+    e0 = in_md(ctx.getState(getEnergy=True).getPotentialEnergy())
+    before = [k.launches for k in KERNELS]
+    t0 = time.perf_counter()
+    omm.LocalEnergyMinimizer.minimize(ctx, MINIMIZE_TOLERANCE,
+                                      minimize_iterations)
+    minimize_s = time.perf_counter() - t0
+    launches = {"minimize": _launches_since(before)}
+    if cuda:
+        _require_launched("drude minimize", launches["minimize"],
+                          MINIMIZER_KERNELS)
+    e1 = in_md(ctx.getState(getEnergy=True).getPotentialEnergy())
+    if not (math.isfinite(e0) and math.isfinite(e1) and e1 < e0):
+        raise RuntimeError("drude: minimization took %.3f to %.3f kJ/mol"
+                           % (e0, e1))
+    deadline.check("drude: minimize")
+    check = _force_check("drude", ctx, system, "CUDA" if cuda else "CPU",
+                         energy_bar=DRUDE_ENERGY_BAR)
+    ctx.setVelocitiesToTemperature(DRUDE_TEMPERATURE,
+                                   randomSeed=VELOCITY_SEED)
+    integ.setFriction(DRUDE_RELAX_FRICTION)
+    integ.step(relax)
+    integ.setFriction(DRUDE_FRICTION)
+    deadline.check("drude: relaxation")
+    energy = in_md(ctx.getState(getEnergy=True).getPotentialEnergy())
+    for kern in KERNELS:
+        kern.launches = 0
+    run = _production(device, ctx, integ.step, energy, steps, steps // 2,
+                      deadline)
+    launches["langevin"] = _launches_since([0] * len(KERNELS))
+    if cuda:
+        _require_launched("drude langevin", launches["langevin"],
+                          MAIN_PATH_KERNELS)
+    t_com, t_rel = drude_temperatures(ctx, pairs)
+    same = _md_replay(device, "drude langevin", ctx, integ.step, replay,
+                      deadline)
+    energies = list(run["energies"])
+    print("drude: %d particles (%d waters: M sites, Drudes), build %.2f s "
+          "on the host, energy %.2f after minimizeEnergy(%d) (%.2f s, from "
+          "%.2f); DrudeLangevin %.4f ms a step (eager %.4f), %.2f ns/day; "
+          "T %.2f K (band %s), Drude T %.3f K (band %s); launches %s" % (
+              system.getNumParticles(), len(pairs), build_s, e1,
+              minimize_iterations, minimize_s, e0, run["wall_ms_per_step"],
+              same["eager_ms"], run["ns_day"], t_com, DRUDE_T_RANGE, t_rel,
+              DRUDE_REL_T_RANGE, json.dumps(launches)))
+    if not DRUDE_T_RANGE[0] <= t_com <= DRUDE_T_RANGE[1]:
+        raise RuntimeError("drude: temperature %.2f K outside %s"
+                           % (t_com, DRUDE_T_RANGE))
+    if not DRUDE_REL_T_RANGE[0] <= t_rel <= DRUDE_REL_T_RANGE[1]:
+        raise RuntimeError("drude: Drude temperature %.3f K outside %s"
+                           % (t_rel, DRUDE_REL_T_RANGE))
+    state = ctx.getState(getPositions=True, getVelocities=True)
+    del ctx, same
+    _release(device)
+    side = {}
+    for label, make, n in (
+            ("scf", lambda: omm.DrudeSCFIntegrator(DRUDE_DT), scf_steps),
+            ("nose-hoover", lambda: omm.DrudeNoseHooverIntegrator(
+                DRUDE_TEMPERATURE, DRUDE_NH_FREQUENCY,
+                DRUDE_DRUDE_TEMPERATURE, DRUDE_NH_DRUDE_FREQUENCY,
+                DRUDE_DT), nh_steps)):
+        sctx = context(make())
+        sctx.setPositions(in_md(state.getPositions(asNumpy=True)))
+        sctx.setVelocities(in_md(state.getVelocities(asNumpy=True)))
+        for kern in KERNELS:
+            kern.launches = 0
+        srun = _production(device, sctx, sctx.getIntegrator().step, 0.0,
+                           n, n, deadline)
+        launches[label] = _launches_since([0] * len(KERNELS))
+        if cuda:
+            _require_launched("drude " + label, launches[label],
+                              MAIN_PATH_KERNELS)
+        rep = _md_replay(device, "drude " + label, sctx,
+                         sctx.getIntegrator().step, side_replay, deadline)
+        st = sctx.getState(getEnergy=True, getForces=True)
+        forces = in_md(st.getForces(asNumpy=True))
+        residual = float(np.linalg.norm(forces[pairs[:, 0]], axis=1).max())
+        side[label] = {"ms_per_step": srun["wall_ms_per_step"],
+                       "eager_ms": rep["eager_ms"], "residual": residual,
+                       "energy": in_md(st.getPotentialEnergy())}
+        energies += srun["energies"][1:] + [side[label]["energy"]]
+        print("drude %s: %d steps, %.4f ms a step (eager %.4f), energy "
+              "%.2f kJ/mol, the Drudes' largest force %.4e kJ/mol/nm%s, "
+              "launches %s" % (
+                  label, n, srun["wall_ms_per_step"], rep["eager_ms"],
+                  side[label]["energy"], residual,
+                  " (the SCF's residual after %d iterations)"
+                  % SCF_ITERATIONS if label == "scf" else "",
+                  json.dumps(launches[label])))
+        del sctx, rep
+        _release(device)
+        deadline.check("drude " + label)
+    if not all(math.isfinite(e) for e in energies):
+        raise RuntimeError("drude: an energy is not finite")
+    return {"atoms": system.getNumParticles(), "waters": len(pairs),
+            "check": check, "ms_per_step": run["wall_ms_per_step"],
+            "ns_day": run["ns_day"], "t_com": t_com, "t_rel": t_rel,
+            "launches": launches, "side": side, "build_s": build_s,
+            "minimize_s": minimize_s}
+
+
+def ring_polymer_spread(integ, atoms) -> float:
+    """The radius of gyration of the ring polymers of `atoms`, nm: the
+    root mean square distance of the copies from their centroid."""
+    x = integ._rp[0][:, atoms].to(torch.float64)
+    return float(((x - x.mean(dim=0)) ** 2).sum(dim=-1).mean().sqrt())
+
+
+def centroid_temperature(integ, ctx) -> float:
+    """The temperature of the copies' centroid velocities, K (3 degrees
+    of freedom a moving particle: no constraints)."""
+    v = integ._rp[1].mean(dim=0)
+    m = ctx._masses
+    return float((m[:, None] * v * v).sum()) / (
+        3 * ctx._n_massive * omm.BOLTZ)
+
+
+def phase_rpmd(device, deadline=None, built=None, copies=RPMD_COPIES,
+               minimize_iterations=RPMD_MINIMIZE_ITERATIONS,
+               relax=RPMD_RELAX, steps=RPMD_STEPS, replay=RPMD_REPLAY,
+               npt_steps=RPMD_NPT_STEPS) -> dict:
+    """216 flexible TIP3P waters (rpmd_build: the size and the bead count
+    of the RPMD water studies of Habershon, Markland and Manolopoulos, J.
+    Chem. Phys. 131, 024501 (2009); amber14's TIP3P stands in for their
+    q-TIP4P/F) under RPMDIntegrator(`copies`, RPMD_TEMPERATURE,
+    RPMD_FRICTION, RPMD_DT, the reciprocal space contracted to
+    RPMD_CONTRACTED copies: Markland and Manolopoulos, 2008), from the
+    lattice minimized (`minimize_iterations`, before the first step
+    takes every copy from the Context's positions): `relax` steps, then
+    `steps` through the step program (kernel 1 on every copy
+    twice a step, kernels 2-3 on the contracted ones, counted from 0),
+    replayed from a snapshot through the eager loop for the same bits,
+    with ms a step and ns/day; gates: finite energies (every copy's,
+    getTotalEnergy), the centroid's temperature within RPMD_T_RANGE, the
+    hydrogens' ring-polymer radius of gyration above the oxygens'. Then
+    RPMDMonteCarloBarostat (1 bar, every RPMD_NPT_FREQUENCY steps) for
+    `npt_steps` from the copies' state: at least one move accepted, and
+    one attempt made to accept moves every copy by its centroid's offset
+    (against torch's own molecule centres, RPMD_OFFSET_BAR). Raises on a
+    miss."""
+    deadline = deadline or Deadline(math.inf)
+    cuda = device.type == "cuda"
+    platform = None if cuda else omm.Platform.getPlatformByName("CPU")
+    top, positions, system, build_s = built or rpmd_build()
+
+    def make(integ):
+        integ.setRandomNumberSeed(47)
+        return (omm.Context(system, integ) if cuda
+                else omm.Context(system, integ, platform))
+
+    integ = omm.RPMDIntegrator(copies, RPMD_TEMPERATURE, RPMD_FRICTION,
+                               RPMD_DT, contractions={1: RPMD_CONTRACTED})
+    ctx = make(integ)
+    ctx.setPositions(positions)
+    omm.LocalEnergyMinimizer.minimize(ctx, MINIMIZE_TOLERANCE,
+                                      minimize_iterations)
+    ctx.setVelocitiesToTemperature(RPMD_TEMPERATURE, randomSeed=VELOCITY_SEED)
+    integ.step(relax)
+    deadline.check("rpmd: relaxation")
+    for kern in KERNELS:
+        kern.launches = 0
+    run = _production(device, ctx, integ.step, 0.0, steps, steps, deadline,
+                      lambda c: c.temperature())
+    launches = {"rpmd": _launches_since([0] * len(KERNELS))}
+    if cuda:
+        _require_launched("rpmd", launches["rpmd"], MAIN_PATH_KERNELS)
+    tiles_per_step = launches["rpmd"].get(tile_pairs.TILES.name, 0) / steps
+    t_c = centroid_temperature(integ, ctx)
+    oxygens = [a.index for a in top.atoms() if a.element.symbol == "O"]
+    hydrogens = [a.index for a in top.atoms() if a.element.symbol == "H"]
+    rg_o, rg_h = (ring_polymer_spread(integ, oxygens),
+                  ring_polymer_spread(integ, hydrogens))
+    total = in_md(integ.getTotalEnergy())
+    copy_energies = [in_md(integ.getState(c, getEnergy=True)
+                           .getPotentialEnergy()) for c in (0, copies - 1)]
+    same = _md_replay(device, "rpmd", ctx, integ.step, replay, deadline)
+    print("rpmd: %d waters, %d copies (the reciprocal space on %d), %.4f "
+          "ps; %.4f ms a step (eager %.4f), %.4f ns/day; kernel 1 %.1f "
+          "launches a step; centroid T %.2f K (band %s); radius of gyration "
+          "H %.5f nm, O %.5f nm; total energy %.2f kJ/mol, copies' "
+          "potential energies %s; launches %s" % (
+              len(oxygens), copies, RPMD_CONTRACTED, RPMD_DT,
+              run["wall_ms_per_step"], same["eager_ms"], run["ns_day"],
+              tiles_per_step, t_c, RPMD_T_RANGE, rg_h, rg_o, total,
+              " ".join("%.2f" % e for e in copy_energies),
+              json.dumps(launches["rpmd"])))
+    if not all(math.isfinite(e) for e in [total] + copy_energies):
+        raise RuntimeError("rpmd: an energy is not finite")
+    if not RPMD_T_RANGE[0] <= t_c <= RPMD_T_RANGE[1]:
+        raise RuntimeError("rpmd: centroid temperature %.2f K outside %s"
+                           % (t_c, RPMD_T_RANGE))
+    if not rg_h > rg_o > 0.0:
+        raise RuntimeError("rpmd: the hydrogens' radius of gyration %.5f nm "
+                           "is not above the oxygens' %.5f" % (rg_h, rg_o))
+    deadline.check("rpmd")
+    copies_pos = integ._rp[0].clone()
+    copies_vel = integ._rp[1].clone()
+    eager_ms = same["eager_ms"]
+    del ctx, same
+    _release(device)
+    baro = omm.RPMDMonteCarloBarostat(1.0, RPMD_NPT_FREQUENCY)
+    system.addForce(baro)
+    try:
+        npt = omm.RPMDIntegrator(copies, RPMD_TEMPERATURE, RPMD_FRICTION,
+                                 RPMD_DT, contractions={1: RPMD_CONTRACTED})
+        nctx = make(npt)
+        for c in range(copies):
+            npt.setPositions(c, copies_pos[c].cpu().numpy())
+            npt.setVelocities(c, copies_vel[c].cpu().numpy())
+        for kern in KERNELS:
+            kern.launches = 0
+        boxes = [float(nctx._box[0, 0])]
+        t0 = time.perf_counter()
+        for _ in range(npt_steps // RPMD_NPT_FREQUENCY):
+            npt.step(RPMD_NPT_FREQUENCY)
+            boxes.append(float(nctx._box[0, 0]))
+        npt_ms = (time.perf_counter() - t0) / npt_steps * 1e3
+        launches["rpmd_npt"] = _launches_since([0] * len(KERNELS))
+        accepted = sum(a != b for a, b in zip(boxes, boxes[1:]))
+        # one attempt made to accept (its Metropolis uniform 0): every copy
+        # moves by its centroid's molecule offsets
+        module = nctx._barostats[0]
+        pos_all = npt._rp[0].clone()
+        box = nctx._box.clone()
+        out = module.attempt(pos_all, box, torch.tensor(
+            [0.9, 0.0], dtype=torch.float64, device=pos_all.device),
+            nctx._gp, nctx._trial_energy)
+        scale = float(out["box"][0, 0] / box[0, 0])
+        centroid = pos_all.mean(dim=0)
+        mol = torch.as_tensor(nctx._molecule_id, device=pos_all.device)
+        m = nctx._masses[:, None]
+        com = torch.zeros((nctx._n_molecules, 3), dtype=torch.float64,
+                          device=pos_all.device).index_add_(
+            0, mol, m * centroid) / torch.zeros(
+            (nctx._n_molecules, 1), dtype=torch.float64,
+            device=pos_all.device).index_add_(0, mol, m)
+        offset = (com * (scale - 1.0))[mol]
+        offset_err = float((out["positions"] - pos_all - offset[None])
+                           .abs().max())
+        npt_energy = in_md(nctx.getState(getEnergy=True)
+                           .getPotentialEnergy())
+    finally:
+        system.removeForce(system.getNumForces() - 1)
+    print("rpmd npt: RPMDMonteCarloBarostat(1 bar, every %d steps), %d "
+          "steps, %d attempts, %d accepted, box %.5f to %.5f nm, %.4f ms a "
+          "step; an accepted attempt's copies against their centroid's "
+          "offset %.3e nm (scale %.6f); launches %s" % (
+              RPMD_NPT_FREQUENCY, npt_steps, npt_steps // RPMD_NPT_FREQUENCY,
+              accepted, boxes[0], boxes[-1], npt_ms, offset_err, scale,
+              json.dumps(launches["rpmd_npt"])))
+    if cuda:
+        _require_launched("rpmd npt", launches["rpmd_npt"],
+                          MAIN_PATH_KERNELS)
+    if accepted < 1 or not math.isfinite(npt_energy):
+        raise RuntimeError("rpmd npt: %d moves accepted, energy %r"
+                           % (accepted, npt_energy))
+    if not (bool(out["accept"]) and offset_err <= RPMD_OFFSET_BAR
+            and scale != 1.0):
+        raise RuntimeError("rpmd npt: the copies moved %.3e nm from their "
+                           "centroid's offset" % offset_err)
+    deadline.check("rpmd npt")
+    return {"waters": len(oxygens), "copies": copies,
+            "ms_per_step": run["wall_ms_per_step"],
+            "eager_ms": eager_ms, "ns_day": run["ns_day"],
+            "tiles_per_step": tiles_per_step, "t_centroid": t_c,
+            "rg": (rg_h, rg_o), "launches": launches,
+            "accepted": accepted, "npt_ms": npt_ms, "build_s": build_s}
+
+
 def _time_ms(fn, device, reps=20, warmup=3) -> float:
     """Median milliseconds per call over `reps` calls timed one by one
     with CUDA events, after `warmup` calls. Each call is queued behind a
@@ -6267,12 +6778,13 @@ def main() -> int:
     # forked before anything here touches the card (the availability
     # check below initialises CUDA, which a forked child then cannot
     # use): the AMOEBA peptide's build, minimization and relaxation, GK,
-    # HIPPO and the examples, beside the build, the kernel phases and the
-    # membrane's build, which time no device work. Without a card they
-    # fail, and are killed at exit.
+    # HIPPO, the examples and the Drude and RPMD paths, beside the build,
+    # the kernel phases and the membrane's build, which time no device
+    # work. Without a card they fail, and are killed at exit.
     forked = (fork_helper(write_amoeba_prep),
               fork_helper(write_amoeba_gk, NICE),
-              fork_helper(write_hippo, NICE), start_examples())
+              fork_helper(write_hippo, NICE), start_examples(),
+              fork_helper(write_drude, NICE), fork_helper(write_rpmd, NICE))
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is "
                            "visible to torch")
@@ -6287,7 +6799,7 @@ def main() -> int:
 
 def _main(deadline, forked, thresholds) -> int:
     import gc
-    amoeba_prep, amoeba_gk, hippo, examples = forked
+    amoeba_prep, amoeba_gk, hippo, examples, drude, rpmd = forked
     set_fp32_matmul_exact()
     device = torch.device("cuda", 0)
     info = phase_device(device)
@@ -6441,12 +6953,24 @@ def _main(deadline, forked, thresholds) -> int:
     amoeba = phase_amoeba_pme(device, deadline, prepared=amoeba_prep)
     _release(device)
     deadline.lap("amoeba pme")
+    drude, drude_wait = join_helper(drude, "drude")
+    rpmd, rpmd_wait = join_helper(rpmd, "rpmd")
+    deadline.lap("drude, rpmd (%.1f s waited)" % (drude_wait + rpmd_wait))
     counts = tile_counts(inp)
     records = phase_timing(device, inp, counts, launches, errors, deadline)
     records.append(rf_water["record"])
     records += ljpme["records"]
     records.append(alchemical["deriv_record"])
     records += amoeba["records"]
+    # each kernel's launches on the Drude and RPMD paths, each path's counts
+    # from 0 (the main path's stay in "launches")
+    for record in records[:len(KERNELS)]:
+        record["launches_new_paths"] = {
+            "drude_" + path: counts.get(record["name"], 0)
+            for path, counts in drude["launches"].items()}
+        record["launches_new_paths"].update({
+            path: counts.get(record["name"], 0)
+            for path, counts in rpmd["launches"].items()})
     deadline.lap("timing")
     print("main path: %.2f ns/day on %s (%s), %d steps of %.3f ps, "
           "through the step program (gating %s)" % (
@@ -6614,6 +7138,22 @@ def _main(deadline, forked, thresholds) -> int:
               amoeba_gk["check"]["force_err"],
               hippo["atoms"], hippo["ms_per_step"],
               hippo["check"]["force_err"]))
+    print("drude on %s (%s): SWM4-NDP box %d particles (%d waters), "
+          "DrudeLangevin %.4f ms a step, %.3f ns/day, T %.2f K, Drude T "
+          "%.3f K, median force error %.3e; SCF %.4f ms a step (the Drudes' "
+          "largest force %.3e kJ/mol/nm), Nose-Hoover %.4f ms a step; rpmd "
+          "%d waters x %d copies %.4f ms a step (eager %.4f), %.4f ns/day, "
+          "kernel 1 %.1f launches a step, centroid T %.2f K, radius of "
+          "gyration H %.5f O %.5f nm; NPT %.4f ms a step, %d accepted" % (
+              info["name"], info["smi"], drude["atoms"], drude["waters"],
+              drude["ms_per_step"], drude["ns_day"], drude["t_com"],
+              drude["t_rel"], drude["check"]["force_err"],
+              drude["side"]["scf"]["ms_per_step"],
+              drude["side"]["scf"]["residual"],
+              drude["side"]["nose-hoover"]["ms_per_step"], rpmd["waters"],
+              rpmd["copies"], rpmd["ms_per_step"], rpmd["eager_ms"],
+              rpmd["ns_day"], rpmd["tiles_per_step"], rpmd["t_centroid"],
+              *rpmd["rg"], rpmd["npt_ms"], rpmd["accepted"]))
     print("seconds by phase: %s" % ", ".join(
         "%s %.1f" % lap for lap in deadline.laps))
     print("total %.1f s of the %.0f s budget" % (deadline.elapsed(),

@@ -17,7 +17,9 @@ ManyParticle) with tabulated functions and energy parameter derivatives
 from symbolic derivatives (of NonbondedForce offsets too), RMSDForce,
 GayBerneForce, the AMOEBA forces (vdW, multipoles with induced dipoles at
 NoCutoff and PME, generalized Kirkwood, torsion-torsion, WCA dispersion)
-and HippoNonbondedForce,
+and HippoNonbondedForce, DrudeForce under the Drude Langevin, SCF and
+Nose-Hoover integrators, and ring-polymer MD (RPMDIntegrator, its
+contraction and RPMDMonteCarloBarostat),
 through three hand-written CUDA kernels (csrc/), and energy
 minimization (LocalEnergyMinimizer) through the differentiable dense PME
 and two more; Context.updateParametersInContext, createCheckpoint and
@@ -33,6 +35,7 @@ openmm_tpu_torch.testInstallation` checks an installation.
 from . import unit
 from .constants import BOLTZ, ONE_4PI_EPS0
 from .context import Context
+from .exceptions import OpenMMException
 from .forces import (AmoebaGeneralizedKirkwoodForce, AmoebaMultipoleForce,
                      AmoebaTorsionTorsionForce, AmoebaVdwForce,
                      AmoebaWcaDispersionForce, AndersenThermostat, CMAPTorsionForce, CMMotionRemover,
@@ -40,26 +43,30 @@ from .forces import (AmoebaGeneralizedKirkwoodForce, AmoebaMultipoleForce,
                      CustomCentroidBondForce, CustomCompoundBondForce,
                      CustomExternalForce, CustomGBForce, CustomHbondForce,
                      CustomManyParticleForce, CustomNonbondedForce,
-                     CustomTorsionForce, Force, GayBerneForce, GBSAOBCForce,
+                     CustomTorsionForce, DrudeForce, Force,
+                     GayBerneForce, GBSAOBCForce,
                      HarmonicAngleForce, HarmonicBondForce,
                      HippoNonbondedForce, MonteCarloAnisotropicBarostat,
                      MonteCarloBarostat, MonteCarloMembraneBarostat,
                      NonbondedForce, PeriodicTorsionForce, RBTorsionForce,
-                     RMSDForce)
+                     RMSDForce, RPMDMonteCarloBarostat, RPMDUpdater)
 from .integrators import (AMDForceGroupIntegrator, AMDIntegrator,
                           BrownianIntegrator, CompoundIntegrator,
-                          CustomIntegrator, DualAMDIntegrator,
+                          CustomIntegrator, DrudeLangevinIntegrator,
+                          DrudeNoseHooverIntegrator, DrudeSCFIntegrator,
+                          DualAMDIntegrator,
                           LangevinIntegrator, LangevinMiddleIntegrator,
                           MTSIntegrator, MTSLangevinIntegrator,
                           NoseHooverChain, NoseHooverIntegrator,
-                          VariableLangevinIntegrator,
+                          RPMDIntegrator, VariableLangevinIntegrator,
                           VariableVerletIntegrator, VerletIntegrator)
 from .minimize import LocalEnergyMinimizer, MinimizationReporter
 from .platform import Platform
 from .state import State
 from .tabulated import (Continuous1DFunction, Continuous2DFunction,
                         Continuous3DFunction, Discrete1DFunction,
-                        Discrete2DFunction, Discrete3DFunction)
+                        Discrete2DFunction, Discrete3DFunction,
+                        TabulatedFunction)
 from .system import (LocalCoordinatesSite, OutOfPlaneSite, System,
                      ThreeParticleAverageSite, TwoParticleAverageSite,
                      VirtualSite, from_numpy, to_numpy)
@@ -80,16 +87,19 @@ __all__ = ["AMDForceGroupIntegrator", "AMDIntegrator",
            "CustomManyParticleForce", "CustomNonbondedForce",
            "CustomTorsionForce", "GayBerneForce", "RMSDForce",
            "Discrete1DFunction", "Discrete2DFunction",
-           "Discrete3DFunction", "DualAMDIntegrator", "Force",
+           "Discrete3DFunction", "DrudeForce", "DrudeLangevinIntegrator",
+           "DrudeNoseHooverIntegrator", "DrudeSCFIntegrator",
+           "DualAMDIntegrator", "Force",
            "GBSAOBCForce", "HarmonicAngleForce", "HarmonicBondForce",
            "LangevinIntegrator", "LangevinMiddleIntegrator",
            "LocalCoordinatesSite", "LocalEnergyMinimizer", "MTSIntegrator", "MTSLangevinIntegrator",
            "MinimizationReporter", "MonteCarloAnisotropicBarostat",
            "MonteCarloBarostat", "MonteCarloMembraneBarostat",
            "NonbondedForce", "NoseHooverChain", "NoseHooverIntegrator",
-           "ONE_4PI_EPS0", "OutOfPlaneSite", "PeriodicTorsionForce",
-           "Platform", "RBTorsionForce", "State", "System",
-           "ThreeParticleAverageSite", "TwoParticleAverageSite",
+           "ONE_4PI_EPS0", "OpenMMException", "OutOfPlaneSite", "PeriodicTorsionForce",
+           "Platform", "RBTorsionForce", "RPMDIntegrator",
+           "RPMDMonteCarloBarostat", "RPMDUpdater", "State", "System",
+           "TabulatedFunction", "ThreeParticleAverageSite", "TwoParticleAverageSite",
            "VariableLangevinIntegrator", "VariableVerletIntegrator",
            "Vec3", "VerletIntegrator", "VirtualSite", "from_numpy",
            "to_numpy", "unit"]

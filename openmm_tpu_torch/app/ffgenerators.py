@@ -9,10 +9,9 @@ parameter tables and later adds Forces to the System being built.
 Registered here: CMAPTorsionForce (forcefield.py:2399), LennardJonesForce
 with NBFIX (forcefield.py:2672), CustomBond/Angle/Torsion/Nonbonded
 (forcefield.py:2773-2964), CustomGB/Hbond/ManyParticle
-(forcefield.py:3024-3294); the AMOEBA family (Urey-Bradley, which the
-CHARMM waters use too, among them) in ffgenerators_amoeba.py. The
-DrudeForce section needs a force the port has not got: parse_section
-raises NotImplementedError for it rather than load a file without it.
+(forcefield.py:3024-3294), DrudeForce (forcefield.py:5798); the AMOEBA
+family (Urey-Bradley, which the CHARMM waters use too, among them) in
+ffgenerators_amoeba.py.
 """
 from __future__ import annotations
 
@@ -20,6 +19,7 @@ import math
 from collections import defaultdict
 
 from .. import forces as mmforces
+from .. import unit as u
 from .. import tabulated
 from ..exceptions import OpenMMException
 
@@ -28,16 +28,11 @@ PARSERS = {}
 
 def parse_section(element, ff):
     """Hand a force-field section to its generator's parser (the AMOEBA
-    sections' in ffgenerators_amoeba.py). A section of the Drude force
-    fields raises; a tag no generator knows is left alone, as in the JAX
-    package."""
+    sections' in ffgenerators_amoeba.py). A tag no generator knows is
+    left alone, as in the JAX package."""
     tag = element.tag
     if tag in PARSERS:
         PARSERS[tag](element, ff)
-    elif tag == "DrudeForce":
-        raise NotImplementedError(
-            "the <%s> section needs the Drude force, which the port has not "
-            "got yet (ROADMAP item 7, plugins)" % tag)
 
 
 def _f(x):
@@ -94,15 +89,42 @@ def create_functions(force, functions):
             raise OpenMMException("unknown tabulated function type " + ftype)
 
 
+def bonds_with_children(bond_idx, exclude_with) -> list:
+    """The bonds that exclusions are built from, with each child particle
+    (a Drude particle: exclude_with maps a parent atom to its children)
+    given its parent's bonds and a bond to its parent, so that it shares
+    the parent's 1-2, 1-3 and 1-4 pairs and is excluded from the parent
+    (OpenMM forcefield.py _findBondsForExclusions; the JAX package never
+    reads the children). Without children the bonds are returned as they
+    are."""
+    bonds = [(int(a), int(b)) for a, b in bond_idx]
+    if not any(exclude_with.values()):
+        return bonds
+    k = 0
+    while k < len(bonds):
+        atom1, atom2 = bonds[k]
+        for child1 in exclude_with.get(atom1, ()):
+            bonds.append((child1, atom2))
+            for child2 in exclude_with.get(atom2, ()):
+                bonds.append((child1, child2))
+        for child2 in exclude_with.get(atom2, ()):
+            bonds.append((atom1, child2))
+        k += 1
+    for parent, children in sorted(exclude_with.items()):
+        bonds += [(child, parent) for child in children]
+    return list(dict.fromkeys(bonds))
+
+
 def find_bonds_for_exclusions(data, sys):
     """Bond index pairs for exclusion building, with each virtual site
-    bonded to its exclusion parent (forcefield.py:1428)."""
+    bonded to its exclusion parent (forcefield.py:1428) and each child
+    particle given its parent's bonds (bonds_with_children)."""
     bond_idx = [(b.atom1, b.atom2) for b in data.bonds]
     for i in range(sys.getNumParticles()):
         if sys.isVirtualSite(i):
             vs = sys.getVirtualSite(i)
             bond_idx.append((i, vs.getParticle(0)))
-    return bond_idx
+    return bonds_with_children(bond_idx, data.excludeAtomWith)
 
 
 class AtomTypeParameters(object):
@@ -408,6 +430,92 @@ class LennardJonesGenerator(object):
 
 
 PARSERS["LennardJonesForce"] = LennardJonesGenerator.parseElement
+
+
+# ---------------------------------------------------------------- Drude
+class DrudeGenerator(object):
+    """<DrudeForce> -> DrudeForce; Drude particle per matched atom, screened
+    pairs for excluded Drude pairs, mass repartitioning to drudeMass
+    (forcefield.py:5798). Each Drude particle is recorded as its parent's
+    child (data.excludeAtomWith), which the NonbondedForce's exceptions
+    read (bonds_with_children)."""
+
+    def __init__(self, ff):
+        self.ff = ff
+        self.typeMap = {}
+
+    @staticmethod
+    def parseElement(element, ff):
+        existing = [g for g in ff._forces if isinstance(g, DrudeGenerator)]
+        gen = existing[0] if existing else DrudeGenerator(ff)
+        if not existing:
+            ff.registerGenerator(gen)
+        for p in element.findall("Particle"):
+            types = ff._findAtomTypes(p.attrib, 5)
+            if None not in types[:2]:
+                values = (types[1], types[2], types[3], types[4],
+                          float(p.attrib["charge"]),
+                          float(p.attrib["polarizability"]),
+                          float(p.attrib.get("aniso12", 0.0)),
+                          float(p.attrib.get("aniso34", 0.0)),
+                          float(p.attrib["thole"]))
+                for t in types[0]:
+                    gen.typeMap[t] = values
+
+    def createForce(self, sys, data, nonbondedMethod, nonbondedCutoff, args):
+        force = mmforces.DrudeForce()
+        if not any(isinstance(f, mmforces.NonbondedForce)
+                   for f in sys.getForces()):
+            raise OpenMMException(
+                "<DrudeForce> requires a NonbondedForce")
+        for a in data.atoms:
+            t = data.atomType[a]
+            if t not in self.typeMap:
+                continue
+            p = [-1, -1, -1, -1]
+            values = self.typeMap[t]
+            for a2 in a.residue.atoms():
+                t2 = data.atomType[a2]
+                if t2 in values[0]:
+                    p[0] = a2.index
+                elif values[1] is not None and t2 in values[1]:
+                    p[1] = a2.index
+                elif values[2] is not None and t2 in values[2]:
+                    p[2] = a2.index
+                elif values[3] is not None and t2 in values[3]:
+                    p[3] = a2.index
+            force.addParticle(a.index, p[0], p[1], p[2], p[3],
+                              values[4], values[5], values[6], values[7])
+            data.excludeAtomWith[p[0]].append(a.index)
+        sys.addForce(force)
+
+    def postprocessSystem(self, sys, data, args):
+        drude = [f for f in sys.getForces()
+                 if isinstance(f, mmforces.DrudeForce)][0]
+        nonbonded = [f for f in sys.getForces()
+                     if isinstance(f, mmforces.NonbondedForce)][0]
+        particle_map = {}
+        for i in range(drude.getNumParticles()):
+            particle_map[drude.getParticleParameters(i)[0]] = i
+        # the exceptions' term list, plain numbers: the getters' Quantities
+        # cost ~1 s a thousand exceptions to strip
+        for p1, p2, qq, sig, eps in nonbonded._exceptions:
+            if qq == 0 and eps == 0 \
+                    and p1 in particle_map and p2 in particle_map:
+                t1 = data.atomType[data.atoms[p1]]
+                t2 = data.atomType[data.atoms[p2]]
+                drude.addScreenedPair(
+                    particle_map[p1], particle_map[p2],
+                    self.typeMap[t1][8] + self.typeMap[t2][8])
+        drude_mass = u.strip(args.get("drudeMass", 0.4), u.dalton)
+        for i in range(drude.getNumParticles()):
+            particle, parent = drude.getParticleParameters(i)[:2]
+            transfer = drude_mass - sys._masses[particle]
+            sys.setParticleMass(particle, drude_mass)
+            sys.setParticleMass(parent, sys._masses[parent] - transfer)
+
+
+PARSERS["DrudeForce"] = DrudeGenerator.parseElement
 
 
 # -------------------------------------------------------------- Custom*

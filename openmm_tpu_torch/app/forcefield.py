@@ -11,8 +11,9 @@ first), and residues with the same name, atoms and bonds share one match
 (the cache of createSystem). createSystem then builds the System's forces
 (the bonded forces, NonbondedForce with its exceptions from the bond
 graph, GBSAOBCForce) and runs the registered generators of the other
-sections (ffgenerators.py). Sections of the AMOEBA and Drude force fields
-raise NotImplementedError: the port has not got those forces yet.
+sections (ffgenerators.py, ffgenerators_amoeba.py). The NonbondedForce's
+exceptions are made after the generators' forces, so that a Drude
+particle shares its parent's (OpenMM's order).
 
 Numbers go into the System in MD units: a Quantity argument is stripped
 (unit.strip), a plain number is taken as already in MD units.
@@ -746,7 +747,9 @@ class ForceField(object):
                 tuple(a.element.atomic_number if a.element else -1
                       for a in template.atoms),
                 tuple(a.externalBonds for a in template.atoms),
-                tuple(tuple(a.bondedTo) for a in template.atoms))
+                tuple(tuple(a.bondedTo) for a in template.atoms),
+                tuple(None if a.element else a.name
+                      for a in template.atoms))
             template._spec = spec
         return spec
 
@@ -759,7 +762,8 @@ class ForceField(object):
         return (tuple(a.element.atomic_number if a.element else -1
                       for a in atoms),
                 tuple(external.get(i, 0) for i in range(len(atoms))),
-                tuple(tuple(neigh.get(i, ())) for i in range(len(atoms))))
+                tuple(tuple(neigh.get(i, ())) for i in range(len(atoms))),
+                tuple(None if a.element else a.name for a in atoms))
 
     def _match_residue(self, res, graph=None, _allow_generators=True):
         """(template, mapping) of a topology residue: the first template,
@@ -1100,9 +1104,6 @@ class ForceField(object):
                 if self._nonbonded["useChargeFromResidue"]:
                     q = tparams.get("charge", 0.0)
                 nb.addParticle(q, sigma, eps)
-            nb.createExceptionsFromBonds(
-                bonds + vsite_bonds, self._nonbonded["coulomb14scale"],
-                self._nonbonded["lj14scale"])
             sys.addForce(nb)
 
         # ---- GBSA-OBC -------------------------------------------------------------
@@ -1153,6 +1154,17 @@ class ForceField(object):
                     postprocess.append(gen)
             else:
                 gen(sys, data, nonbondedMethod, nonbondedCutoff)
+        # the NonbondedForce's exceptions once every generator has made its
+        # force, as OpenMM's NonbondedGenerator.postprocessSystem makes
+        # them: a Drude particle the DrudeForce's generator recorded as its
+        # parent's child shares the parent's exclusions and 1-4 pairs
+        if self._nonbonded is not None:
+            from .ffgenerators import bonds_with_children
+            nb.createExceptionsFromBonds(
+                bonds_with_children(bonds + vsite_bonds,
+                                    data.excludeAtomWith),
+                self._nonbonded["coulomb14scale"],
+                self._nonbonded["lj14scale"])
         for gen in postprocess:
             gen.postprocessSystem(sys, data, args)
 
@@ -1187,9 +1199,15 @@ def _match_graphs(res_spec, tpl_spec):
     degree, then highest degree, then index) and each tries the free
     template atoms in index order: the search of the JAX package's C
     matcher (openmm_tpu/_native/src/native.c match_residue), so both pick
-    the same mapping where a residue has symmetric atoms."""
-    r_el, r_ext, r_nb = res_spec
-    t_el, t_ext, t_nb = tpl_spec
+    the same mapping where a residue has symmetric atoms. An extra
+    particle (no element: a Drude particle, a lone pair, a water's M
+    site), which has no bonds to tell it from the others, takes the
+    template atom of its own name where the template has one (the JAX
+    package maps them in the order they come, which gives a Drude
+    particle or a lone pair another's parameters unless the residue
+    lists them in the template's order)."""
+    r_el, r_ext, r_nb, r_names = res_spec
+    t_el, t_ext, t_nb, t_names = tpl_spec
     n = len(r_el)
     if n != len(t_el) or sorted(r_el) != sorted(t_el):
         return None
@@ -1203,6 +1221,10 @@ def _match_graphs(res_spec, tpl_spec):
     options = [[c for c in range(n) if t_el[c] == r_el[i]
                 and t_deg[c] == r_deg[i] and t_ext[c] == r_ext[i]]
                for i in range(n)]
+    extra_names = {name for name in t_names if name is not None}
+    for i in range(n):
+        if r_names[i] in extra_names:
+            options[i] = [c for c in options[i] if t_names[c] == r_names[i]]
     if not all(options):
         return None
     t_sets = [frozenset(x) for x in t_nb]

@@ -682,7 +682,7 @@ class Modeller(object):
                     if ta.element is not None or ta.name in have:
                         continue
                     p = self._extra_site_position(template, ta, by_name,
-                                                  new_pos)
+                                                  new_pos, forcefield)
                     new_top.addAtom(ta.name, None, nr)
                     new_pos.append(p)
         for bond in self.topology.bonds():
@@ -711,8 +711,12 @@ class Modeller(object):
         return best
 
     @staticmethod
-    def _extra_site_position(template, ta, by_name, new_pos):
-        """Position of an extra particle from its VirtualSite definition."""
+    def _extra_site_position(template, ta, by_name, new_pos, forcefield):
+        """Position of an extra particle from its VirtualSite definition,
+        whose atoms are named (atomName<k>) or template indices (atom<k>,
+        as OpenMM's swm4ndp.xml has them); a Drude particle, which has
+        none, on its parent (the atom whose type its DrudeForce section
+        names); else on the template's first real atom."""
         for vs in template.virtualSites:
             site = vs.get("siteName")
             if site is None and "index" in vs:
@@ -721,8 +725,9 @@ class Modeller(object):
                 continue
             names = []
             i = 1
-            while ("atomName%d" % i) in vs:
-                names.append(vs["atomName%d" % i])
+            while ("atomName%d" % i) in vs or ("atom%d" % i) in vs:
+                names.append(vs["atomName%d" % i] if ("atomName%d" % i) in vs
+                             else template.atoms[int(vs["atom%d" % i])].name)
                 i += 1
             try:
                 pts = [new_pos[by_name[nm]] for nm in names]
@@ -757,9 +762,23 @@ class Modeller(object):
                 zn = z / max(np.linalg.norm(z), 1e-10)
                 y = np.cross(zn, x)
                 return origin + po[0] * x + po[1] * y + po[2] * zn
-        # fallback: on the first real atom of the template's residue
-        first = next(a for a in template.atoms if a.element is not None)
-        return new_pos[by_name[first.name]].copy()
+        parent = Modeller._drude_parent(template, ta, forcefield)
+        if parent is None or parent.name not in by_name:
+            # fallback: on the first real atom of the template's residue
+            parent = next(a for a in template.atoms if a.element is not None)
+        return new_pos[by_name[parent.name]].copy()
+
+    @staticmethod
+    def _drude_parent(template, ta, forcefield):
+        """The template atom that is the parent of the Drude particle ta
+        (its type in a DrudeForce section of `forcefield`), or None."""
+        from .ffgenerators import DrudeGenerator
+        for gen in forcefield._generators:
+            if isinstance(gen, DrudeGenerator) and ta.type in gen.typeMap:
+                parents = gen.typeMap[ta.type][0]
+                return next((a for a in template.atoms
+                             if a.type in parents), None)
+        return None
 
     # -------------------------------------------------------- addHydrogens
     _hydrogen_defs = None

@@ -88,6 +88,7 @@ from .forces import MODULE_FORCES
 from .forces.barostats import BAROSTATS
 from .forces.bonded import BONDED_FORCES, HarmonicAngleForce
 from .forces.cmmotion import CMMotionRemover
+from .forces.drude import DrudeForce
 from .forces.gbsa import GBSAOBCForce
 from .forces.nonbonded import (CandidateSet, NonbondedForce,
                                NonbondedModule, NonbondedVariable)
@@ -99,11 +100,15 @@ from .ops.constraints import (CCMA, Settle, Shake, partition_constraints,
 from .ops.pairs import needs_rebuild
 from .ops.vsites import VirtualSites
 from .platform import Platform, set_fp32_matmul_exact
+from .replicas import ReplicaStates
 from .state import State
 from .step_program import StepProgram, branch_host, loop_host
 from .system import reduced_box
 
 STEP_CHUNK = 100
+# the forces compiled with _compile(n, device) into a float64 module of
+# bonded terms (ef, energy, update)
+TERM_FORCES = BONDED_FORCES + (DrudeForce,)
 MAX_ESCALATIONS = 6
 CHECKPOINT_MAGIC = "OMMTORCH1"
 
@@ -179,7 +184,7 @@ class Context:
         for force in forces:
             if not isinstance(force, (NonbondedForce, GBSAOBCForce,
                                       CMMotionRemover, AndersenThermostat)
-                              + BONDED_FORCES + BAROSTATS + MODULE_FORCES):
+                              + TERM_FORCES + BAROSTATS + MODULE_FORCES):
                 raise NotImplementedError(
                     "%s is not in this slice of the port"
                     % type(force).__name__)
@@ -203,8 +208,16 @@ class Context:
             force, system._box.copy(), self._device,
             self._precision, self._gp, self._gp_index) for force in nonbonded]
         self._nonbonded = self._nonbondeds[0] if nonbonded else None
+        # a Drude particle's dipole, ~0.005 nm between charges of ~1.7 e,
+        # loses ~1e-4 of its length to float32 coordinates of a few nm
+        # (the median force error of a 5.24 nm SWM4-NDP box 1.4e-5 on an
+        # NVIDIA H100 80GB HBM3 at 700 W, 8.3e-6 with the pairs): kernel 1
+        # then takes the positions as float32 pairs
+        if any(isinstance(f, DrudeForce) for f in forces):
+            for module in self._nonbondeds:
+                module.fine_positions = True
         gb_forces = [f for f in forces if isinstance(f, GBSAOBCForce)]
-        bonded_forces = [f for f in forces if isinstance(f, BONDED_FORCES)]
+        bonded_forces = [f for f in forces if isinstance(f, TERM_FORCES)]
         # the custom forces read the masses (a centroid's weights)
         self._masses = torch.as_tensor(masses, **f64)
         self._gb = [self._compile_module(f) for f in gb_forces]
@@ -284,6 +297,8 @@ class Context:
         self.issue_seconds = 0.0
         self._params_written = integrator._params()
         self._params = torch.tensor(self._params_written, **f64)
+        # the candidate states of the eager loop's replica sets
+        self._replicas = ReplicaStates(self)
         self._deps = StepDeps(
             inv_masses=self._inv_masses,
             moving=(self._inv_masses != 0)[:, None],
@@ -296,7 +311,8 @@ class Context:
             update_hooks=self._make_hooks(self._attempt_eager),
             forces_by_groups=self._forces_for_step,
             branch=branch_host, loop=loop_host,
-            compute_vsites=self._compute_vsites)
+            compute_vsites=self._compute_vsites,
+            replica_forces=self._replica_forces)
         integrator._bind(self)
         integrator._init_state(self._deps)
         # the eager loop's step functions, by the integrator's program key
@@ -315,7 +331,7 @@ class Context:
             return force._compile(self)
         if isinstance(force, GBSAOBCForce):
             return force._compile(self._n, self._device, self._precision)
-        if isinstance(force, BONDED_FORCES):
+        if isinstance(force, TERM_FORCES):
             return force._compile(self._n, self._device)
         if isinstance(force, NonbondedForce):
             if force.usesPeriodicBoundaryConditions():
@@ -375,6 +391,10 @@ class Context:
             elif isinstance(force, BAROSTATS) and force.getFrequency() > 0:
                 hooks.append(self._barostat_hook(k, attempt))
                 k += 1
+            else:
+                continue
+            # the force a hook belongs to (RPMD runs its updaters' alone)
+            hooks[-1].force = force
         return hooks
 
     def _barostat_hook(self, k, attempt):
@@ -531,6 +551,17 @@ class Context:
         tiles = self._current_tiles()
         return self._evaluate(self._state["positions"], self._state["box"],
                               tiles, groups)
+
+    def _replica_forces(self, key, pos_all, box, mask):
+        """The eager loop's forces at several configurations
+        (replicas.py), the rebuild read on the host."""
+
+        def on_rebuild(overflow):
+            self._overflow = self._overflow + overflow
+            self.rebuild_count += 1
+
+        return self._replicas.forces(key, pos_all, box, mask, branch_host,
+                                     on_rebuild)
 
     def _integration_forces(self, pos, box):
         """The eager loop's force evaluation: the integration groups."""
@@ -950,6 +981,9 @@ class Context:
                               if self._tiles is not None
                               else torch.zeros_like(self._overflow))
             self._deps.step.fill_(self._state["step"])
+            # the replica sets are rebuilt at a chunk's first step, as
+            # the step program rebuilds them (replicas.py)
+            self._replicas.sets.clear()
             state = self._state
             step_fn, dt = self._eager_step_fn(), self._step_size_tensor()
             for _ in range(this):

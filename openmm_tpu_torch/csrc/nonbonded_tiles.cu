@@ -255,6 +255,7 @@ __device__ __forceinline__ void add_pair_deriv(const Params& pr, float4 qi,
 template <bool Ljpme, bool Deriv>
 __global__ void __launch_bounds__(32 * kWarps)
 nonbonded_tiles_kernel(const float4* __restrict__ pos,
+                       const float4* __restrict__ pos_lo,
                        const float4* __restrict__ par,
                        const float4* __restrict__ dpar,
                        const int* __restrict__ cand,
@@ -292,6 +293,8 @@ nonbonded_tiles_kernel(const float4* __restrict__ pos,
   const float reach2 = (rc + kCullSlack) * (rc + kCullSlack);
 
   const float4 pi = pos[i];
+  // the low parts of the float64 positions (pos + pos_lo), or none
+  const float4 li = pos_lo != nullptr ? pos_lo[i] : make_float4(0, 0, 0, 0);
   const float4 qi = par[i];
   float4 dqi;
   if constexpr (Deriv) dqi = dpar[i];
@@ -329,7 +332,16 @@ nonbonded_tiles_kernel(const float4* __restrict__ pos,
       const int s = min(s0 + half, n_live - 1);
       const int j = kb[s] * kBrick + l;
       const float4 pj = pos[j];
-      const float3 d = box.image(pi.x - pj.x, pi.y - pj.y, pi.z - pj.z);
+      float dx = pi.x - pj.x, dy = pi.y - pj.y, dz = pi.z - pj.z;
+      if (pos_lo != nullptr) {
+        // the high parts' difference is exact for nearby atoms (Sterbenz);
+        // the low parts' carries what float32 coordinates round away
+        const float4 lj = pos_lo[j];
+        dx = __fadd_rn(dx, __fsub_rn(li.x, lj.x));
+        dy = __fadd_rn(dy, __fsub_rn(li.y, lj.y));
+        dz = __fadd_rn(dz, __fsub_rn(li.z, lj.z));
+      }
+      const float3 d = box.image(dx, dy, dz);
       // r^2 rounded product by product and sum by sum, as the plain
       // version and the JAX package take it: the cutoff test r^2 < rc^2
       // must decide each pair as they do. A contracted (FMA) r^2 moves
@@ -392,7 +404,8 @@ nonbonded_tiles_kernel(const float4* __restrict__ pos,
 namespace {
 
 template <bool Deriv>
-int launch_tiles(const void* pos, const void* par, const void* dpar,
+int launch_tiles(const void* pos, const void* pos_lo, const void* par,
+                 const void* dpar,
                  const void* cand, const void* count, const void* words,
                  const void* consts, int n_bricks, int max_cand, int exc_cap,
                  int mode, int use_switch, void* bounds, void* out,
@@ -410,7 +423,8 @@ int launch_tiles(const void* pos, const void* par, const void* dpar,
     auto* kernel = mode == kModeLjpme ? nonbonded_tiles_kernel<true, Deriv>
                                       : nonbonded_tiles_kernel<false, Deriv>;
     kernel<<<n_bricks * kBrick / kWarps, 32 * kWarps, 0, s>>>(
-        p, static_cast<const float4*>(par), static_cast<const float4*>(dpar),
+        p, static_cast<const float4*>(pos_lo),
+        static_cast<const float4*>(par), static_cast<const float4*>(dpar),
         static_cast<const int*>(cand), static_cast<const int*>(count),
         static_cast<const int*>(words), static_cast<const float*>(consts),
         bb, max_cand, exc_cap, mode, use_switch, static_cast<float4*>(out));
@@ -427,9 +441,24 @@ extern "C" int omm_nonbonded_tiles(const void* pos, const void* par,
                                    int n_bricks, int max_cand, int exc_cap,
                                    int mode, int use_switch, void* bounds,
                                    void* out, void* stream) {
-  return launch_tiles<false>(pos, par, nullptr, cand, count, words, consts,
-                             n_bricks, max_cand, exc_cap, mode, use_switch,
-                             bounds, out, stream);
+  return launch_tiles<false>(pos, nullptr, par, nullptr, cand, count, words,
+                             consts, n_bricks, max_cand, exc_cap, mode,
+                             use_switch, bounds, out, stream);
+}
+
+// The same with each position a float32 pair, pos + pos_lo (the float64
+// position to ~1e-14 relative): displacements to float32's rounding of
+// the displacement, not of the coordinates.
+extern "C" int omm_nonbonded_tiles_fine(const void* pos, const void* pos_lo,
+                                        const void* par, const void* cand,
+                                        const void* count, const void* words,
+                                        const void* consts, int n_bricks,
+                                        int max_cand, int exc_cap, int mode,
+                                        int use_switch, void* bounds,
+                                        void* out, void* stream) {
+  return launch_tiles<false>(pos, pos_lo, par, nullptr, cand, count, words,
+                             consts, n_bricks, max_cand, exc_cap, mode,
+                             use_switch, bounds, out, stream);
 }
 
 // out[i].w: row atom i's sum of dE/dlambda over its partners (x, y, z 0).
@@ -438,7 +467,7 @@ extern "C" int omm_nonbonded_tiles_deriv(
     const void* count, const void* words, const void* consts, int n_bricks,
     int max_cand, int exc_cap, int mode, int use_switch, void* bounds,
     void* out, void* stream) {
-  return launch_tiles<true>(pos, par, dpar, cand, count, words, consts,
-                            n_bricks, max_cand, exc_cap, mode, use_switch,
-                            bounds, out, stream);
+  return launch_tiles<true>(pos, nullptr, par, dpar, cand, count, words,
+                            consts, n_bricks, max_cand, exc_cap, mode,
+                            use_switch, bounds, out, stream);
 }

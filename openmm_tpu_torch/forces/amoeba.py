@@ -1214,8 +1214,9 @@ class AmoebaTorsionTorsionModule(_AutogradModule):
         ncx, ncy = info[:, 4], info[:, 5]
         tx = torch.minimum(torch.clamp((a1 - x0) / dx, min=0.0), ncx - 1e-6)
         ty = torch.minimum(torch.clamp((a2 - y0) / dy, min=0.0), ncy - 1e-6)
-        sx = torch.minimum(torch.floor(tx), ncx - 1).long()
-        sy = torch.minimum(torch.floor(ty), ncy - 1).long()
+        # a NaN angle (an overflowed step's poison) reads cell 0
+        sx = torch.minimum(torch.floor(torch.nan_to_num(tx)), ncx - 1).long()
+        sy = torch.minimum(torch.floor(torch.nan_to_num(ty)), ncy - 1).long()
         da = tx - sx
         db = ty - sy
         c = self.coeffs[self.gidx, sx, sy]              # (m, 4, 4)

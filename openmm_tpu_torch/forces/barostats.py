@@ -213,8 +213,53 @@ class MonteCarloMembraneBarostat(_BarostatBase):
                 self.Temperature(): self._temperature}
 
 
+class RPMDUpdater:
+    """Marker of the forces whose update runs once a step over the whole
+    ring polymer (the rpmd plugin's RPMDUpdater.h): RPMDIntegrator runs
+    the hooks of these forces alone, on its (K, n, 3) copies."""
+
+    def updateRPMDState(self, context) -> None:
+        """A no-op: the update runs inside the step, as the JAX package's
+        does."""
+
+
+class RPMDMonteCarloBarostat(RPMDUpdater, _BarostatBase):
+    """A Monte Carlo barostat for ring-polymer MD
+    (RPMDMonteCarloBarostatImpl.cpp:51-156): a volume move scales the
+    molecules of the copies' centroid, moves every copy by its centroid's
+    offset, and accepts on the mean energy over the copies at the
+    integrator's temperature. It needs an RPMDIntegrator."""
+    SLOTS = 1
+
+    @staticmethod
+    def Pressure():
+        return "RPMDMonteCarloPressure"
+
+    def __init__(self, defaultPressure, frequency=25):
+        super().__init__()
+        self._pressure = float(u.strip(defaultPressure, _BAR))
+        self._frequency = int(frequency)
+        self._seed = 0
+
+    def getDefaultPressure(self):
+        return u.Quantity(self._pressure, _BAR)
+
+    def setDefaultPressure(self, pressure) -> None:
+        self._pressure = float(u.strip(pressure, _BAR))
+
+    def _global_defaults(self) -> dict:
+        return {self.Pressure(): self._pressure}
+
+    def _compile(self, context) -> "RPMDBarostatModule":
+        from ..integrators.rpmd import RPMDIntegrator
+        if not isinstance(context._integrator, RPMDIntegrator):
+            raise ValueError("RPMDMonteCarloBarostat must be used with an "
+                             "RPMDIntegrator")
+        return RPMDBarostatModule(self, context)
+
+
 BAROSTATS = (MonteCarloBarostat, MonteCarloAnisotropicBarostat,
-             MonteCarloMembraneBarostat)
+             MonteCarloMembraneBarostat, RPMDMonteCarloBarostat)
 
 
 class BarostatModule:
@@ -244,7 +289,9 @@ class BarostatModule:
         self.masses = context._masses
         self.molecule_mass = self.molecules(self.masses[:, None])
         index = context._gp_index
-        self._temperature = index[force.Temperature()]
+        self._context = context
+        self._temperature = (index[force.Temperature()]
+                             if hasattr(force, "Temperature") else None)
         if self.kind is MonteCarloAnisotropicBarostat:
             names = (force.PressureX(), force.PressureY(), force.PressureZ())
             self._pressure = torch.as_tensor([index[p] for p in names],
@@ -308,7 +355,7 @@ class BarostatModule:
         new_vol = vol + dv
         ratio = new_vol / vol
         one = torch.ones_like(ratio)
-        if self.kind is MonteCarloBarostat:
+        if self.slots == 1:
             ls = ratio ** (1.0 / 3.0)
             scale = torch.stack([ls, ls, ls])
         elif self.kind is MonteCarloAnisotropicBarostat:
@@ -336,16 +383,15 @@ class BarostatModule:
         Reads nothing on the host."""
         vs, n_att, n_acc = self.statistics()
         slot, dv, vol, new_vol, scale = self._move(box, vs, u)
-        new_pos = scale_molecules(pos, self.molecules, self.masses,
-                                  self.molecule_mass, scale)
-        if self.kind is MonteCarloBarostat:
+        new_pos = self._scaled(pos, scale)
+        if self.slots == 1:
             new_box = box * scale[0]
         else:
             new_box = box * scale[None, :]
-        e0, ov0 = energy(pos, box)
-        e1, ov1 = energy(new_pos, new_box)
-        kT = BOLTZ * gp[self._temperature]
-        if self.kind is MonteCarloBarostat:
+        de, overflow = self._energy_change(pos, box, new_pos, new_box,
+                                           energy)
+        kT = BOLTZ * self._kelvin(gp)
+        if self.slots == 1:
             work = gp[self._pressure] * PRESSURE_UNIT_FACTOR * dv
         elif self.kind is MonteCarloAnisotropicBarostat:
             p = (gp.index_select(0, self._pressure) * slot).sum()
@@ -356,7 +402,7 @@ class BarostatModule:
             d_area = new_box[0, 0] * new_box[1, 1] - box[0, 0] * box[1, 1]
             dv_eff = new_box[0, 0] * new_box[1, 1] * new_box[2, 2] - vol
             work = p_md * dv_eff - gamma * d_area
-        w = e1 - e0 + work - self.n_molecules * kT * torch.log(new_vol / vol)
+        w = de + work - self.n_molecules * kT * torch.log(new_vol / vol)
         accept = (w <= 0) | (u[-1] <= torch.exp(-w / kT))
         n_att = n_att + slot.to(n_att.dtype)
         n_acc = n_acc + (slot & accept).to(n_acc.dtype)
@@ -377,7 +423,22 @@ class BarostatModule:
                 "num_attempted": torch.where(reset, 0, n_att),
                 "num_accepted": torch.where(reset, 0, n_acc),
                 "accept": accept, "w": w, "trial_box": new_box,
-                "overflow": ov0 + ov1}
+                "overflow": overflow}
+
+    def _scaled(self, pos, scale):
+        """The trial positions: each molecule's centre of mass scaled."""
+        return scale_molecules(pos, self.molecules, self.masses,
+                               self.molecule_mass, scale)
+
+    def _energy_change(self, pos, box, new_pos, new_box, energy) -> tuple:
+        """(E(trial) - E, the trial states' overflow)."""
+        e0, ov0 = energy(pos, box)
+        e1, ov1 = energy(new_pos, new_box)
+        return e1 - e0, ov0 + ov1
+
+    def _kelvin(self, gp):
+        """The temperature of the Metropolis test, a device scalar."""
+        return gp[self._temperature]
 
     def store(self, out: dict) -> None:
         """Write an attempt's statistics into the device tensors."""
@@ -386,6 +447,29 @@ class BarostatModule:
         self.num_accepted.copy_(out["num_accepted"])
 
 
+class RPMDBarostatModule(BarostatModule):
+    """RPMDMonteCarloBarostat's attempt on the ring polymer's copies
+    (K, n, 3): the centroid's molecules scaled, every copy shifted by the
+    centroid's offset, the energy change averaged over the copies, the
+    temperature the integrator's (its parameters on the device)."""
+
+    def _scaled(self, pos, scale):
+        centroid = pos.mean(dim=0)
+        return pos + (super()._scaled(centroid, scale) - centroid)[None]
+
+    def _energy_change(self, pos, box, new_pos, new_box, energy) -> tuple:
+        de, overflow = None, None
+        for old, new in zip(pos.unbind(0), new_pos.unbind(0)):
+            d, ov = super()._energy_change(old, box, new, new_box, energy)
+            de = d if de is None else de + d
+            overflow = ov if overflow is None else overflow + ov
+        return de / pos.shape[0], overflow
+
+    def _kelvin(self, gp):
+        return self._context._params[1]
+
+
 __all__ = ["BAROSTATS", "BarostatModule", "MonteCarloAnisotropicBarostat",
            "MonteCarloBarostat", "MonteCarloMembraneBarostat",
-           "PRESSURE_UNIT_FACTOR", "scale_molecules"]
+           "PRESSURE_UNIT_FACTOR", "RPMDBarostatModule",
+           "RPMDMonteCarloBarostat", "RPMDUpdater", "scale_molecules"]

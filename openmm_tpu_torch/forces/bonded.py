@@ -190,7 +190,10 @@ def _cmap_cell(angle, size):
     two_pi = 2.0 * math.pi
     angle = torch.remainder(angle + two_pi, two_pi)
     delta = two_pi / size
-    cell = torch.clamp(torch.floor(angle / delta), max=size - 1)
+    # a NaN angle (an overflowed step's poison) reads cell 0, not out of
+    # the map (tabulated._cell)
+    cell = torch.clamp(torch.floor(torch.nan_to_num(angle / delta)), 0,
+                       size - 1)
     return cell.to(torch.int64), angle / delta - cell, delta
 
 
@@ -480,6 +483,15 @@ class CMAPTorsionForce(_PeriodicMixin, Force):
         size, energy = self._maps[index]
         return size, u.Quantity(list(energy), _E)
 
+    def setMapParameters(self, index, size, energy) -> None:
+        """A new map; a Context takes it through updateParametersInContext
+        (the map's size must stay)."""
+        energy = [float(u.strip(e, _E)) for e in energy]
+        if len(energy) != size * size:
+            raise ValueError("CMAP energy array must have size*size "
+                             "elements")
+        self._maps[index] = (int(size), energy)
+
     def addTorsion(self, map, a1, a2, a3, a4, b1, b2, b3, b4) -> int:  # noqa: A002
         self._torsions.append(tuple(int(x) for x in
                                     (map, a1, a2, a3, a4, b1, b2, b3, b4)))
@@ -487,6 +499,11 @@ class CMAPTorsionForce(_PeriodicMixin, Force):
 
     def getTorsionParameters(self, index):
         return self._torsions[index]
+
+    def setTorsionParameters(self, index, map, a1, a2, a3, a4, b1, b2, b3,
+                             b4) -> None:  # noqa: A002
+        self._torsions[index] = tuple(int(x) for x in
+                                      (map, a1, a2, a3, a4, b1, b2, b3, b4))
 
     def _bonded_particles(self):
         return [pair for t in self._torsions

@@ -440,10 +440,13 @@ def _exception_terms(pos, idx, cp, sig, eps, box=None):
     """Per exception pair (exceptions ignore the cutoff; minimum images
     only with a box, under setExceptionsUsePeriodicBoundaryConditions):
     energy, dE/d(r^2) and the displacement. idx (m, 2) long; per-pair
-    parameters."""
+    parameters. A pair whose chargeProd and epsilon are both 0 (an
+    exclusion) contributes nothing at any r, r = 0 too (a Drude particle
+    on its parent): its r^2 is replaced by 1 before the divisions."""
     dr = geom.bond_vectors(pos, idx, None if box is None
                            else box.to(pos.dtype))
-    inv_r2 = 1.0 / (dr * dr).sum(dim=-1)
+    r2 = (dr * dr).sum(dim=-1)
+    inv_r2 = 1.0 / torch.where((cp == 0) & (eps == 0), 1.0, r2)
     s6 = (sig * sig * inv_r2) ** 3
     inv_r = torch.sqrt(inv_r2)
     e = 4.0 * eps * s6 * (s6 - 1.0) + ONE_4PI_EPS0 * cp * inv_r
@@ -458,28 +461,84 @@ def exception_energy(pos, idx, cp, sig, eps, box=None):
         dtype=torch.float64)
 
 
+# erfinv(1e-6): below alpha r = ERF_SMALL_X an excluded pair's correction
+# takes its r -> 0 limit, -qq 2 alpha / sqrt(pi) with no force, where
+# OpenMM does (once 1 - erfc(alpha r) <= 1e-6)
+ERF_SMALL_X = 8.862269254527580e-7
+# below x = (alpha_LJ r)^2 = COMPLEMENT_SMALL_X the dispersion complement
+# c6 g(x) / r^6 takes its series, whose limit at r = 0 is c6 alpha_LJ^6 / 6;
+# the direct form there cancels to ~1e-16 / (x^3 / 6) relative and the
+# series through x^8 is exact to ~1e-16
+COMPLEMENT_SMALL_X = 1e-2
+# g = sum_n (-1)^(n+1) (n-1)(n-2) / (2 n!) x^n and h = g - e^-x x^3 / 6 =
+# sum_n (-1)^(n+1) (n-1)(n-2)(3-n) / (6 n!) x^n, n = 3..8
+_G_SERIES = tuple((-1) ** (n + 1) * (n - 1) * (n - 2)
+                  / (2.0 * math.factorial(n)) for n in range(3, 9))
+_H_SERIES = tuple((-1) ** (n + 1) * (n - 1) * (n - 2) * (3 - n)
+                  / (6.0 * math.factorial(n)) for n in range(4, 9))
+
+
+def _horner(coefficients, x):
+    out = coefficients[-1] + 0.0 * x
+    for c in coefficients[-2::-1]:
+        out = out * x + c
+    return out
+
+
+def erf_over_r(alpha, r2):
+    """(erf(alpha r) / r, d/dr of it divided by r, the mask of pairs at
+    their r -> 0 limit) at r^2 = r2 >= 0: 2 alpha / sqrt(pi) and 0 below
+    alpha r = ERF_SMALL_X, r = 0 included. The r^2 of those pairs is
+    replaced by 1 before any division, so that autograd through the
+    branch not taken meets no 0/0."""
+    small = alpha * alpha * r2 <= ERF_SMALL_X * ERF_SMALL_X
+    r2s = torch.where(small, 1.0, r2)
+    r = torch.sqrt(r2s)
+    erf_ar = torch.special.erf(alpha * r)
+    value = torch.where(small, TWO_OVER_SQRT_PI * alpha, erf_ar / r)
+    # d/dr (erf(ar)/r) = 2a/sqrt(pi) exp(-a^2 r^2) / r - erf(ar) / r^2
+    slope = (TWO_OVER_SQRT_PI * alpha * torch.exp(-alpha * alpha * r2s) / r
+             - erf_ar / r2s) / r
+    return value, torch.where(small, 0.0, slope), small
+
+
+def complement_over_r6(lj_alpha2, r2):
+    """(g(x) / r^6, h(x) / r^8) of dispersion_complement at x = lj_alpha2
+    r^2: its direct form, and below x = COMPLEMENT_SMALL_X its series
+    (_G_SERIES, _H_SERIES: the direct form cancels to noise there and
+    divides 0 by 0 at r = 0)."""
+    x = lj_alpha2 * r2
+    tiny = x < COMPLEMENT_SMALL_X
+    r2s = torch.where(tiny, 1.0, r2)
+    inv_r2 = 1.0 / r2s
+    g, h = dispersion_complement(lj_alpha2 * r2s)
+    a3 = lj_alpha2 * lj_alpha2 * lj_alpha2
+    g6 = torch.where(tiny, a3 * _horner(_G_SERIES, x),
+                     g * inv_r2 * inv_r2 * inv_r2)
+    h8 = torch.where(tiny, a3 * lj_alpha2 * _horner(_H_SERIES, x),
+                     h * inv_r2 * inv_r2 * inv_r2 * inv_r2)
+    return g6, h8
+
+
 def _exclusion_terms(pos, box, idx, qq, alpha, c6g=None, lj_alpha2=None):
     """Per excluded pair: energy -qq erf(alpha r) / r (the interaction the
     reciprocal sum contains but the direct sweep skips), dE/d(r^2) and the
     minimum-image displacement. qq holds k_e q_i q_j per pair. For LJPME
     (c6g the pairs' c6_i c6_j, lj_alpha2 the dispersion alpha squared) the
     pair's dispersion-grid term is cancelled too: + c6g / r^6 g(x), x =
-    alpha_LJ^2 r^2, g = 1 - e^-x (1 + x + x^2/2) (JAX nonbonded.py:636-640)."""
+    alpha_LJ^2 r^2, g = 1 - e^-x (1 + x + x^2/2) (JAX nonbonded.py:636-640).
+    Both are finite at r = 0, a Drude particle on its parent: the Coulomb
+    part takes OpenMM's limit (erf_over_r), the dispersion part its
+    series (complement_over_r6)."""
     dr = geom.periodic_delta(pos[idx[:, 0]] - pos[idx[:, 1]], box.to(pos.dtype))
     r2 = (dr * dr).sum(dim=-1)
-    r = torch.sqrt(r2)
-    erf_ar = torch.special.erf(alpha * r)
-    e = -qq * erf_ar / r
-    # dE/dr = qq (erf(ar)/r^2 - 2a/sqrt(pi) exp(-a^2 r^2) / r)
-    de_dr = qq * (erf_ar / r2 - TWO_OVER_SQRT_PI * alpha
-                  * torch.exp(-alpha * alpha * r2) / r)
-    dedr2 = 0.5 * de_dr / r
+    value, slope, _ = erf_over_r(alpha, r2)
+    e = -qq * value
+    dedr2 = -0.5 * qq * slope
     if c6g is not None:
-        inv_r2 = 1.0 / r2
-        g, h = dispersion_complement(lj_alpha2 * r2)
-        coef = c6g * inv_r2 * inv_r2 * inv_r2
-        e = e + coef * g
-        dedr2 = dedr2 - 3.0 * coef * h * inv_r2
+        g6, h8 = complement_over_r6(lj_alpha2, r2)
+        e = e + c6g * g6
+        dedr2 = dedr2 - 3.0 * c6g * h8
     return e, dedr2, dr
 
 
@@ -598,6 +657,9 @@ class NonbondedModule(nn.Module):
         self.skin = NEIGHBOR_SKIN
         self.box_widths = widths
         self.capacity_scale = 1.0
+        # kernel 1 on positions as float32 pairs (tile_energy_forces'
+        # fine): the Context sets it for a System with Drude particles
+        self.fine_positions = False
         self.use_switch = bool(force.getUseSwitchingFunction() and use_cutoff)
         rs = force._switch_dist if self.use_switch else 0.0
         inv_w = 1.0 / (self.cutoff - rs) if self.use_switch else 0.0
@@ -827,10 +889,11 @@ class NonbondedModule(nn.Module):
             b["max_bricks"], b["sort_cell"], b["exc_cap"], self.box_widths,
             c6=self.ljpme)
 
-    def _direct(self, posd, boxd, state, params):
+    def _direct(self, posd, boxd, state, params, pos=None, box=None):
         """(energy, forces) of the direct sweep: kernel 1 on the candidate
         state (with offsets, its parameters gathered anew from the
-        effective ones) or every pair."""
+        effective ones; with fine_positions, from the float64 `pos` and
+        `box` as float32 pairs) or every pair."""
         if not self.periodic:
             return pair_ops.pair_energy_forces_n2(
                 posd, *params, self.exclusions, self.terms)
@@ -838,9 +901,11 @@ class NonbondedModule(nn.Module):
         par4 = (tile_pairs.tile_params(*params, state["order"],
                                        c6=self.ljpme)
                 if self.has_offsets else None)
+        fine = ((pos, box) if self.fine_positions
+                and self.dtype == torch.float32 else None)
         return tile_pairs.tile_energy_forces(
             posd, boxd, state, consts, self.mode, self.use_switch,
-            plain=self.plain, par4=par4)
+            plain=self.plain, par4=par4, fine=fine)
 
     def _reciprocal(self, pos, posd, box, boxd, state, params):
         """(energy, forces) of the reciprocal grid or k-sum (without the
@@ -881,7 +946,7 @@ class NonbondedModule(nn.Module):
             state = self.build_state(pos, box)
         energy = f = None
         if direct:
-            energy, f = self._direct(posd, boxd, state, params)
+            energy, f = self._direct(posd, boxd, state, params, pos, box)
         qq, c6g, e_self = self._derived(params)
         if recip:
             e_rec, f_rec = self._reciprocal(pos, posd, box, boxd, state,
@@ -1045,7 +1110,10 @@ class NonbondedModule(nn.Module):
         dcp, desig, deeps = dexc
         dr = geom.bond_vectors(posd, self.exc_idx,
                                boxd if self.exc_pbc else None)
-        inv_r2 = 1.0 / (dr * dr).sum(dim=-1)
+        # an exclusion whose parameters no offset moves adds nothing, at
+        # r = 0 too
+        null = (cp == 0) & (eeps == 0) & (dcp == 0) & (deeps == 0)
+        inv_r2 = 1.0 / torch.where(null, 1.0, (dr * dr).sum(dim=-1))
         s6 = (esig * esig * inv_r2) ** 3
         d = (4.0 * deeps * s6 * (s6 - 1.0)
              + torch.where(desig != 0, 24.0 * eeps * s6 * (2.0 * s6 - 1.0)
@@ -1059,15 +1127,12 @@ class NonbondedModule(nn.Module):
         i, j = self.exc_idx[:, 0], self.exc_idx[:, 1]
         dr = geom.periodic_delta(posd[i] - posd[j], boxd)
         r2 = (dr * dr).sum(dim=-1)
-        r = torch.sqrt(r2)
         dqq = ONE_4PI_EPS0 * (dq[i] * q[j] + q[i] * dq[j])
-        d = -dqq * torch.special.erf(self.alpha * r) / r
+        d = -dqq * erf_over_r(self.alpha, r2)[0]
         if self.ljpme:
             c6, dc6 = _c6(sig, eps), _dc6(sig, eps, dsig, deps)
-            g, _ = dispersion_complement(self.tile_scalars[2] * r2)
-            inv_r2 = 1.0 / r2
             d = d + (dc6[i] * c6[j] + c6[i] * dc6[j]) \
-                * inv_r2 * inv_r2 * inv_r2 * g
+                * complement_over_r6(self.tile_scalars[2], r2)[0]
         return total + d.sum(dtype=torch.float64)
 
     def _recip_deriv(self, pos, posd, box, boxd, params, dparams):

@@ -87,6 +87,11 @@ class StepDeps:
     # every step calls it after each position update (the identity when
     # the System has no sites)
     compute_vsites: Callable = no_vsites
+    # (key, pos_all (count, n, 3), box, mask) -> forces (count, n, 3) of
+    # the groups in `mask` at each of count configurations (a ring
+    # polymer's copies), each through a candidate state of set `key`
+    # under one rebuild gate (replicas.py)
+    replica_forces: Callable = None
 
 
 class Integrator:

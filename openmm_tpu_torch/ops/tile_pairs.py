@@ -238,6 +238,23 @@ def sorted_positions(pos, box, st) -> torch.Tensor:
                                       device=ps.device)], dim=1)
 
 
+def sorted_positions_fine(pos, box, st) -> tuple:
+    """sorted_positions of float64 positions as two float32 tensors, the
+    rounded positions and what the rounding dropped (pos4 + lo4 is the
+    float64 position in the state's frame to ~1e-14 relative): kernel 1's
+    input for displacements that float32 coordinates do not round."""
+    order = st["order"]
+    n_pad = order.shape[0]
+    dt = st["par4"].dtype
+    pos = pos.to(torch.float64)
+    pos = torch.cat([pos, pos[:1].expand(n_pad - pos.shape[0], 3)])
+    ps = pos[order] - geom.from_fractional(st["wraps"], box.to(torch.float64))
+    hi = ps.to(dt)
+    lo = (ps - hi.to(torch.float64)).to(dt)
+    zeros = torch.zeros((n_pad, 1), dtype=dt, device=ps.device)
+    return torch.cat([hi, zeros], dim=1), torch.cat([lo, zeros], dim=1)
+
+
 def tile_consts(box, scalars) -> torch.Tensor:
     """The kernel's 16 constants: scalars = (alpha, cutoff^2, krf, crf,
     switch distance, 1/(cutoff - switch distance)) as a tensor, and in
@@ -273,15 +290,21 @@ def _check_tile_args(pos4, par4, cand, count, words, consts, mode):
 
 
 def nonbonded_tiles(pos4, par4, cand, count, words, consts, mode,
-                    use_switch) -> torch.Tensor:
+                    use_switch, pos_lo=None) -> torch.Tensor:
     """Kernel 1: per sorted atom (fx, fy, fz, e) as an (n_pad, 4) tensor,
     e the atom's full (not halved) pair energy. A CUDA tensor runs the
     hand-written kernel (float32 only: each brick's bounding box, then the
-    culled, compacted sweep); a CPU tensor runs the plain version."""
+    culled, compacted sweep); a CPU tensor runs the plain version.
+    pos_lo: the positions' low parts (sorted_positions_fine), or None."""
     _check_tile_args(pos4, par4, cand, count, words, consts, mode)
+    if pos_lo is not None and (pos_lo.shape != pos4.shape
+                               or pos_lo.dtype != pos4.dtype
+                               or pos_lo.device != pos4.device
+                               or not pos_lo.is_contiguous()):
+        raise ValueError("pos_lo must be a contiguous tensor like pos4")
     if pos4.device.type == "cpu":
         return nonbonded_tiles_plain(pos4, par4, cand, count, words, consts,
-                                     mode, use_switch)
+                                     mode, use_switch, pos_lo)
     if pos4.device.type != "cuda" or pos4.dtype != torch.float32:
         raise TypeError("the CUDA tile kernel takes float32 CUDA tensors")
     out = torch.empty_like(pos4)
@@ -289,11 +312,14 @@ def nonbonded_tiles(pos4, par4, cand, count, words, consts, mode,
                          device=pos4.device)
     lib = _build.library()
     stream = torch.cuda.current_stream(pos4.device).cuda_stream
-    code = lib.omm_nonbonded_tiles(
-        pos4.data_ptr(), par4.data_ptr(), cand.data_ptr(), count.data_ptr(),
-        words.data_ptr(), consts.data_ptr(), count.shape[0], cand.shape[1],
-        words.shape[1], int(mode), int(bool(use_switch)), bounds.data_ptr(),
-        out.data_ptr(), stream)
+    args = (par4.data_ptr(), cand.data_ptr(), count.data_ptr(),
+            words.data_ptr(), consts.data_ptr(), count.shape[0],
+            cand.shape[1], words.shape[1], int(mode), int(bool(use_switch)),
+            bounds.data_ptr(), out.data_ptr(), stream)
+    code = (lib.omm_nonbonded_tiles(pos4.data_ptr(), *args)
+            if pos_lo is None else
+            lib.omm_nonbonded_tiles_fine(pos4.data_ptr(), pos_lo.data_ptr(),
+                                         *args))
     _build.check_launch(code, TILES)
     TILES.launches += 1
     return out
@@ -433,9 +459,11 @@ def _row_chunks(n_bricks, max_cand, budget=1 << 22):
         yield r0, min(n_bricks, r0 + rows)
 
 
-def _chunk_pairs(pos4, cand, count, words, consts, r0, r1):
+def _chunk_pairs(pos4, cand, count, words, consts, r0, r1, pos_lo=None):
     """Displacements, r^2 and the interaction mask of row bricks r0:r1
-    against all their candidate atoms: each (rows, 16, max_cand * 16)."""
+    against all their candidate atoms: each (rows, 16, max_cand * 16);
+    with pos_lo, each displacement corrected by the low parts' difference
+    as kernel 1 corrects it."""
     rows = r1 - r0
     mc = cand.shape[1]
     exc_cap = words.shape[1]
@@ -448,6 +476,12 @@ def _chunk_pairs(pos4, cand, count, words, consts, r0, r1):
     dx = pi[:, :, None, 0] - pj[:, None, :, 0]
     dy = pi[:, :, None, 1] - pj[:, None, :, 1]
     dz = pi[:, :, None, 2] - pj[:, None, :, 2]
+    if pos_lo is not None:
+        li = pos_lo[r0 * BRICK:r1 * BRICK].view(rows, BRICK, 4)
+        lj = pos_lo[cj]
+        dx = dx + (li[:, :, None, 0] - lj[:, None, :, 0])
+        dy = dy + (li[:, :, None, 1] - lj[:, None, :, 1])
+        dz = dz + (li[:, :, None, 2] - lj[:, None, :, 2])
     dx, dy, dz = _staged_image(dx, dy, dz, consts)
     r2 = dx * dx + dy * dy + dz * dz
     w = torch.zeros((rows, BRICK, mc), dtype=torch.int32, device=dev)
@@ -462,7 +496,7 @@ def _chunk_pairs(pos4, cand, count, words, consts, r0, r1):
 
 
 def nonbonded_tiles_plain(pos4, par4, cand, count, words, consts, mode,
-                          use_switch) -> torch.Tensor:
+                          use_switch, pos_lo=None) -> torch.Tensor:
     """Plain PyTorch version of kernel 1 on the same inputs (the pair terms
     of ops/pairs.py:pair_terms). In float32 it repeats the kernel's
     arithmetic (Hastings erfc); in float64 it uses the exact erfc and
@@ -474,7 +508,7 @@ def nonbonded_tiles_plain(pos4, par4, cand, count, words, consts, mode,
     rs, inv_w = consts[13], consts[14]
     for r0, r1 in _row_chunks(n_pad // BRICK, cand.shape[1]):
         cj, dx, dy, dz, r2, ok = _chunk_pairs(pos4, cand, count, words,
-                                              consts, r0, r1)
+                                              consts, r0, r1, pos_lo)
         rows = r1 - r0
         qi = par4[r0 * BRICK:r1 * BRICK].view(rows, BRICK, 1, 4)
         qj = par4[cj][:, None]
@@ -531,14 +565,20 @@ def count_tile_pairs(pos4, cand, count, words, consts) -> dict:
 
 
 def tile_energy_forces(pos, box, st, consts, mode, use_switch,
-                       plain=False, par4=None):
+                       plain=False, par4=None, fine=None):
     """(energy, forces (n, 3)) of the direct-space sweep on state `st`.
     plain=True runs the plain version on any device (the float64 oracle).
     par4: parameters in the state's frame in place of those of its build
-    (tile_params of the effective parameters under offsets)."""
-    pos4 = sorted_positions(pos, box, st)
+    (tile_params of the effective parameters under offsets). fine: the
+    float64 positions and box, which kernel 1 then takes as float32 pairs
+    (sorted_positions_fine) in place of `pos`."""
+    pos_lo = None
+    if fine is None:
+        pos4 = sorted_positions(pos, box, st)
+    else:
+        pos4, pos_lo = sorted_positions_fine(*fine, st)
     fn = nonbonded_tiles_plain if plain else nonbonded_tiles
     out = fn(pos4, st["par4"] if par4 is None else par4, st["cand"],
-             st["count"], st["words"], consts, mode, use_switch)
+             st["count"], st["words"], consts, mode, use_switch, pos_lo)
     forces = out[st["inv_order"], :3][:pos.shape[0]]
     return 0.5 * out[:, 3].sum(dtype=torch.float64), forces

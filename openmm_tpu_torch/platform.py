@@ -40,6 +40,16 @@ class Platform:
             raise ValueError("unknown platform property: %s" % prop)
         return self._defaults[prop]
 
+    def setPropertyDefaultValue(self, prop, value) -> None:
+        """The value a Context built later takes when its properties do
+        not name `prop`."""
+        if prop not in self._defaults:
+            raise ValueError("unknown platform property: %s" % prop)
+        self._defaults[prop] = str(value)
+
+    def supportsDoublePrecision(self) -> bool:
+        return True
+
     def getPropertyValue(self, context, prop) -> str:
         return str((context._properties or {}).get(
             prop, self.getPropertyDefaultValue(prop)))
@@ -86,6 +96,25 @@ class Platform:
         if isinstance(index_or_name, int):
             return list(_REGISTRY.values())[index_or_name]
         return Platform.getPlatformByName(index_or_name)
+
+    @staticmethod
+    def registerPlatform(platform) -> None:
+        _REGISTRY[platform.getName()] = platform
+
+    @staticmethod
+    def findPlatform(kernelNames=()) -> "Platform":
+        """The fastest registered platform that can run here: CUDA where
+        torch sees a card, else CPU."""
+        usable = [p for p in _REGISTRY.values()
+                  if p._device_type != "cuda" or torch.cuda.is_available()]
+        if not usable:
+            raise ValueError("No Platform registered")
+        return max(usable, key=lambda p: p.getSpeed())
+
+    @staticmethod
+    def loadPluginsFromDirectory(directory) -> list:
+        """The port has no plugins: nothing is loaded."""
+        return []
 
     @staticmethod
     def getOpenMMVersion() -> str:

@@ -58,6 +58,7 @@ import torch
 
 from . import _build
 from .ops.pairs import needs_rebuild
+from .replicas import ReplicaStates
 
 # how the rebuild is gated on the card: (a) a conditional node, (b) two
 # graphs and a host read of the predicate a step, (c) a build every step
@@ -105,12 +106,16 @@ class StepProgram:
         self.counters = torch.zeros(2, dtype=torch.int64,
                                     device=self.pos.device)
         self.runs = None            # each gated body's runs in the chunk
+        # the candidate states of configurations beside the step's own (a
+        # ring polymer's copies), rebuilt under the gate too
+        self._replicas = ReplicaStates(context)
         self._step_fn = context._integrator._make_step_fn(
             dataclasses.replace(
                 context._deps, force_fn=self._forces,
                 forces_by_groups=self._forces_groups, branch=self._branch,
                 loop=self._loop,
-                update_hooks=context._make_hooks(self._attempt_gate)))
+                update_hooks=context._make_hooks(self._attempt_gate),
+                replica_forces=self._replica_forces))
         self._dt = context._step_size_tensor()
         self.graph = None
         self.launches = []      # (Kernel, its launches per replay)
@@ -133,6 +138,17 @@ class StepProgram:
 
     def _forces(self, pos, box):
         return self._forces_groups(pos, box, self._groups)
+
+    def _replica_forces(self, key, pos_all, box, mask):
+        """Forces at several configurations (replicas.py), each set's
+        rebuild under the gate, counted with the step's own."""
+
+        def on_rebuild(overflow):
+            self.counters[0].add_(overflow)
+            self.counters[1].add_(1)
+
+        return self._replicas.forces(key, pos_all, box, mask, self._gate,
+                                     on_rebuild)
 
     def _attempt_gate(self, k, step, pos, box, u):
         """A barostat hook's gate: run attempt k from the step's uniforms
@@ -314,6 +330,7 @@ class StepProgram:
                 buf.copy_(value)
         ctx._deps.step.fill_(state["step"])
         self.counters.zero_()
+        self._replicas.reset()
         if self.runs is not None:
             self.runs.zero_()
         if self._candidates is None:

@@ -195,6 +195,16 @@ class System:
         p1, p2, d = self._constraints[index]
         return p1, p2, u.Quantity(d, u.nanometer)
 
+    def setConstraintParameters(self, index: int, particle1, particle2,
+                                distance) -> None:
+        self._constraints[index] = (int(particle1), int(particle2),
+                                    float(u.strip(distance, u.nanometer)))
+
+    def removeConstraint(self, index: int) -> None:
+        """Remove a constraint; a Context built before keeps it (it copies
+        the constraints when it is built)."""
+        del self._constraints[index]
+
     def addForce(self, force) -> int:
         self._forces.append(force)
         return len(self._forces) - 1
@@ -207,6 +217,11 @@ class System:
 
     def getForces(self):
         return list(self._forces)
+
+    def removeForce(self, index: int) -> None:
+        """Remove a force; a Context built before keeps it (it takes the
+        System's forces when it is built)."""
+        del self._forces[index]
 
     def setDefaultPeriodicBoxVectors(self, a, b, c) -> None:
         self._box = reduced_box(*(u.strip(v, u.nanometer) for v in (a, b, c)))

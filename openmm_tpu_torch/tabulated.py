@@ -42,8 +42,11 @@ def _wrap(x, lo, hi, periodic):
 
 def _cell(x, lo, h, n):
     """(cell index clamped to [0, n - 2], position in the cell in [0, 1])
-    of x clamped into the table; the index by a floor on the device."""
-    i = torch.clamp(torch.floor((x - lo) / h), 0, n - 2)
+    of x clamped into the table; the index by a floor on the device. A
+    NaN x (the poison of an overflowed step) reads cell 0: a NaN cast to
+    an index reads out of the table, which on a card is a device-side
+    assert before the host can undo the step."""
+    i = torch.clamp(torch.floor(torch.nan_to_num((x - lo) / h)), 0, n - 2)
     return i.long(), (x - lo) / h - i
 
 
@@ -133,7 +136,8 @@ class Continuous1DFunction(TabulatedFunction):
             (x,) = _tensors((x,), dtype, device)
             x = _wrap(x, lo, hi, periodic)
             inside = (x >= lo) & (x <= hi)
-            xc = torch.clamp(x, lo, hi)
+            # a NaN x reads cell 0 (_cell); `inside` then gives 0
+            xc = torch.clamp(torch.nan_to_num(x, nan=lo), lo, hi)
             i = torch.clamp(torch.floor((xc - lo) / h), 0, n - 2)
             xl = lo + i * h
             a = (xl + h - xc) / h

@@ -331,22 +331,34 @@ def test_registered_template_generator(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["charmm_polar_2019.json", "swm4ndp.json"])
-def test_drude_and_amoeba_files_are_not_in_the_port(name):
-    """The port ships none of these files, and a name it lacks is never
-    looked up in the JAX package's data."""
-    assert os.path.exists(os.path.join(os.path.dirname(japp.__file__),
-                                       "data", name))
-    with pytest.raises(Exception, match="not found"):
-        papp.ForceField(name)
+def test_drude_files_are_the_ports(name):
+    """The port ships its own copy of each Drude force field, equal to the
+    JAX package's, and its Drude generator reads the same particle types
+    from it as the JAX generator does."""
+    from openmm_tpu.app.ffgenerators import DrudeGenerator as JaxDrude
+    from openmm_tpu_torch.app.ffgenerators import DrudeGenerator
+    ours = os.path.join(os.path.dirname(papp.__file__), "data", name)
+    theirs = os.path.join(os.path.dirname(japp.__file__), "data", name)
+    with open(ours, "rb") as a, open(theirs, "rb") as b:
+        assert a.read() == b.read()
+    got = [g for g in papp.ForceField(name)._generators
+           if isinstance(g, DrudeGenerator)][0].typeMap
+    want = [g for g in japp.ForceField(name)._forces
+            if isinstance(g, JaxDrude)][0].typeMap
+    assert got == want and got
 
 
-@pytest.mark.parametrize("section", [
-    '<DrudeForce><Particle type1="A" type2="A" charge="-1" '
-    'polarizability="0.001" thole="1.3"/></DrudeForce>'])
-def test_drude_and_amoeba_sections_raise(tmp_path, section):
+def test_drude_section_generator_builds_the_force(tmp_path):
+    """A <DrudeForce> section beside the custom XML's NonbondedForce makes
+    one Drude particle a matched atom (the section raised before the
+    Drude slice)."""
+    section = ('<DrudeForce><Particle type1="A" type2="A" charge="-1" '
+               'polarizability="0.001" thole="1.3"/></DrudeForce>')
     text = CUSTOM_XML.replace("</ForceField>", section + "</ForceField>")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        papp.ForceField(_xml(tmp_path, text, "later.xml"))
+    ff = papp.ForceField(_xml(tmp_path, text, "later.xml"))
+    generators = [g for g in ff._generators
+                  if type(g).__name__ == "DrudeGenerator"]
+    assert len(generators) == 1 and "A" in generators[0].typeMap
 
 
 def test_standard_gb_parameters_match_jax(cropped):

@@ -88,8 +88,8 @@ def test_platforms_and_precision():
 def test_app_reads_only_its_own_data():
     """ForceField, Topology.createStandardBonds, the patch loader and
     PDBFile open files under openmm_tpu_torch/app/data/ only, never under
-    the JAX package's openmm_tpu/; a file the port does not ship raises
-    though the JAX package has it."""
+    the JAX package's openmm_tpu/; a file the port does not ship raises,
+    looked up nowhere else (the audit sees every attempt to open)."""
     code = ("import os, sys\n"
             "opened = []\n"
             "sys.addaudithook(lambda event, args: opened.append(str(args[0]))"
@@ -107,8 +107,8 @@ def test_app_reads_only_its_own_data():
             "bare.createStandardBonds()\n"
             "assert len(list(bare.bonds())) == 2\n"
             "try:\n"
-            "    app.ForceField('swm4ndp.json')\n"
-            "    raise SystemExit('swm4ndp.json was found')\n"
+            "    app.ForceField('no_such_forcefield.json')\n"
+            "    raise SystemExit('no_such_forcefield.json was found')\n"
             "except Exception as e:\n"
             "    assert 'not found' in str(e), e\n"
             "jax_dir = os.path.join(os.getcwd(), 'openmm_tpu') + os.sep\n"

@@ -10,6 +10,7 @@ import math
 
 import numpy as np
 import pytest
+import torch
 
 import openmm_tpu as J
 import openmm_tpu_torch as T
@@ -235,6 +236,22 @@ def _build(pkg, name):
     if name == "LocalCoordinatesSite":
         return C([0, 1, 2], [1.0, 0.0, 0.0], [-1.0, 1.0, 0.0],
                  [-1.0, 0.0, 1.0], pkg.Vec3(0.1, 0.05, 0.0))
+    if name == "DrudeForce":
+        f = C()
+        f.addParticle(1, 0, 2, -1, -1, -1.1, 0.001, 1.2, 1.0)
+        f.addParticle(4, 3, -1, -1, -1, -1.3, 0.0012, 1.0, 1.0)
+        f.addScreenedPair(0, 1, 2.6)
+        return f
+    if name == "DrudeLangevinIntegrator":
+        return C(300.0, 1.0, 1.0, 20.0, 0.001)
+    if name == "DrudeSCFIntegrator":
+        return C(0.0005)
+    if name == "DrudeNoseHooverIntegrator":
+        return C(300.0, 10.0, 1.0, 50.0, 0.001)
+    if name == "RPMDIntegrator":
+        return C(8, 300.0, 1.0, 0.0005, {1: 2})
+    if name == "RPMDMonteCarloBarostat":
+        return C(2.0, 10)
     raise KeyError(name)
 
 
@@ -257,7 +274,9 @@ CLASSES = [
     "MTSIntegrator", "MTSLangevinIntegrator", "AMDIntegrator",
     "AMDForceGroupIntegrator", "DualAMDIntegrator",
     "TwoParticleAverageSite", "ThreeParticleAverageSite", "OutOfPlaneSite",
-    "LocalCoordinatesSite",
+    "LocalCoordinatesSite", "DrudeForce", "DrudeLangevinIntegrator",
+    "DrudeSCFIntegrator", "DrudeNoseHooverIntegrator", "RPMDIntegrator",
+    "RPMDMonteCarloBarostat",
 ]
 
 
@@ -424,3 +443,134 @@ def test_platform_getters():
         ["CUDA", "CPU"]
     assert isinstance(T.Platform.getOpenMMVersion(), str)
     assert T.Platform.getPluginLoadFailures() == []
+
+
+# -- API the port had not got (ROADMAP Queue C's C8) -----------------------
+def _system_pair(pkg):
+    system = _build(pkg, "System")
+    system.addParticle(1.008)
+    system.addConstraint(1, 2, 0.12)
+    system.addForce(_build(pkg, "HarmonicBondForce"))
+    system.addForce(_build(pkg, "HarmonicAngleForce"))
+    return system
+
+
+def test_system_removals_and_constraint_setter():
+    """removeForce, removeConstraint and setConstraintParameters as in the
+    JAX System; a Context built before a removal keeps what it took."""
+    out = []
+    for pkg in (J, T):
+        system = _system_pair(pkg)
+        system.setConstraintParameters(1, 2, 0, 0.15)
+        system.removeConstraint(0)
+        system.removeForce(0)
+        out.append(system)
+    jsys, tsys = out
+    assert tsys.getNumConstraints() == jsys.getNumConstraints() == 1
+    _same(tsys.getConstraintParameters(0), jsys.getConstraintParameters(0),
+          "System.getConstraintParameters")
+    assert [type(f).__name__ for f in tsys.getForces()] == \
+        [type(f).__name__ for f in jsys.getForces()] == ["HarmonicAngleForce"]
+    system = _system_pair(T)
+    ctx = T.Context(system, T.VerletIntegrator(0.001), "CPU")
+    ctx.setPositions(np.array([[0, 0, 0], [0.12, 0, 0], [0.1, 0.1, 0]]))
+    before = tu.plain(ctx.getState(getEnergy=True).getPotentialEnergy())
+    system.removeForce(0)
+    system.removeConstraint(0)
+    after = tu.plain(ctx.getState(getEnergy=True).getPotentialEnergy())
+    assert after == before
+    assert sum(ctx.constraint_split) == 2
+
+
+def test_cmap_setters():
+    """setMapParameters and setTorsionParameters as in the JAX force; a
+    new map reaches a Context through updateParametersInContext."""
+    forces = []
+    for pkg in (J, T):
+        f = _build(pkg, "CMAPTorsionForce")
+        f.setMapParameters(0, 4, list(np.linspace(2.0, -1.0, 16)))
+        f.setTorsionParameters(0, 0, 4, 1, 2, 3, 1, 2, 3, 0)
+        forces.append(f)
+    for getter in ("getMapParameters", "getTorsionParameters"):
+        _same(getattr(forces[1], getter)(0), getattr(forces[0], getter)(0),
+              "CMAPTorsionForce." + getter)
+    with pytest.raises(ValueError):
+        forces[1].setMapParameters(0, 3, [0.0])
+    system = T.System()
+    for _ in range(5):
+        system.addParticle(12.0)
+    f = _build(T, "CMAPTorsionForce")
+    system.addForce(f)
+    pos = np.array([[0, 0, 0], [0.15, 0, 0], [0.2, 0.14, 0],
+                    [0.35, 0.15, 0.05], [0.4, 0.3, 0.1]])
+    ctx = T.Context(system, T.VerletIntegrator(0.001), "CPU")
+    ctx.setPositions(pos)
+    e0 = tu.plain(ctx.getState(getEnergy=True).getPotentialEnergy())
+    f.setMapParameters(0, 4, list(np.linspace(2.0, -1.0, 16)))
+    f.updateParametersInContext(ctx)
+    e1 = tu.plain(ctx.getState(getEnergy=True).getPotentialEnergy())
+    fresh = T.Context(system, T.VerletIntegrator(0.001), "CPU")
+    fresh.setPositions(pos)
+    assert e1 != e0
+    assert e1 == tu.plain(fresh.getState(getEnergy=True)
+                          .getPotentialEnergy())
+
+
+def test_platform_methods():
+    """The five Platform methods of the JAX package."""
+    for name in ("registerPlatform", "findPlatform",
+                 "loadPluginsFromDirectory", "setPropertyDefaultValue",
+                 "supportsDoublePrecision"):
+        assert callable(getattr(J.Platform, name))
+        assert callable(getattr(T.Platform, name))
+    tp = T.Platform.getPlatformByName("CPU")
+    jp = J.Platform.getPlatformByName("CPU")
+    assert tp.supportsDoublePrecision() == jp.supportsDoublePrecision()
+    assert T.Platform.loadPluginsFromDirectory("plugins") == \
+        J.Platform.loadPluginsFromDirectory("plugins") == []
+    old = tp.getPropertyDefaultValue("Precision")
+    try:
+        tp.setPropertyDefaultValue("Precision", "double")
+        assert tp.getPropertyDefaultValue("Precision") == "double"
+        assert tp.resolve()[1] == "double"
+    finally:
+        tp.setPropertyDefaultValue("Precision", old)
+    with pytest.raises(ValueError):
+        tp.setPropertyDefaultValue("NoSuchProperty", "1")
+    found = T.Platform.findPlatform()
+    assert found.getName() == ("CUDA" if torch.cuda.is_available()
+                               else "CPU")
+    from openmm_tpu_torch import platform as tplatform
+    extra = tplatform.Platform("Extra", "cpu")
+    T.Platform.registerPlatform(extra)
+    try:
+        assert T.Platform.getPlatformByName("Extra") is extra
+        assert T.Platform.getNumPlatforms() == 3
+    finally:
+        del tplatform._REGISTRY["Extra"]
+
+
+def test_exports():
+    """OpenMMException and TabulatedFunction at the top level, the six
+    tabulated functions in openmm_tpu_torch.forces, as the JAX package
+    exports them; the Drude and RPMD classes in both."""
+    import openmm_tpu.forces as jf
+    import openmm_tpu.integrators as ji
+    import openmm_tpu_torch.forces as tf
+    import openmm_tpu_torch.integrators as ti
+    assert issubclass(T.OpenMMException, Exception)
+    for name in ("Continuous1DFunction", "Continuous2DFunction",
+                 "Continuous3DFunction", "Discrete1DFunction",
+                 "Discrete2DFunction", "Discrete3DFunction"):
+        assert issubclass(getattr(T, name), T.TabulatedFunction)
+        assert getattr(tf, name) is getattr(T, name)
+        assert hasattr(jf, name)
+    for name in ("DrudeForce", "RPMDMonteCarloBarostat", "RPMDUpdater",
+                 "TabulatedFunction"):
+        assert hasattr(jf, name) and hasattr(tf, name), name
+    for name in ("DrudeLangevinIntegrator", "DrudeSCFIntegrator",
+                 "DrudeNoseHooverIntegrator", "RPMDIntegrator"):
+        assert hasattr(ji, name) and hasattr(ti, name), name
+        assert getattr(T, name) is getattr(ti, name)
+    for name in ("OpenMMException", "TabulatedFunction"):
+        assert hasattr(J, name) and hasattr(T, name)

@@ -115,3 +115,31 @@ def test_api_copy_and_update_count():
     assert grid.getPeriodic() and grid.Copy().getPeriodic()
     with pytest.raises(ValueError):
         omm.Discrete2DFunction(2, 2, [1.0, 2.0, 3.0])
+
+
+def test_nan_argument_reads_inside_the_table():
+    """An overflowed step poisons the positions with NaN; a table read at
+    a NaN argument must stay inside the table (a NaN cast to an index is a
+    device-side assert on a card, before the host can undo the chunk), and
+    so must a CMAP map at a NaN angle."""
+    import math
+
+    from openmm_tpu_torch import tabulated
+    from openmm_tpu_torch.forces.bonded import _cmap_cell
+    x = torch.tensor([math.nan, 1.5], dtype=torch.float64)
+    fns = [tabulated.Continuous1DFunction([0.0, 1.0, 4.0, 9.0], 0.0, 3.0),
+           tabulated.Continuous2DFunction(3, 3, list(range(9)), 0.0, 2.0,
+                                          0.0, 2.0),
+           tabulated.Continuous3DFunction(2, 2, 2, list(range(8)), 0.0, 1.0,
+                                          0.0, 1.0, 0.0, 1.0),
+           tabulated.Discrete1DFunction([1.0, 2.0, 3.0])]
+    for fn in fns:
+        compiled = fn._compile(torch.float64, "cpu")
+        dims = {"Continuous1DFunction": 1, "Continuous2DFunction": 2,
+                "Continuous3DFunction": 3, "Discrete1DFunction": 1}[
+                    type(fn).__name__]
+        out = compiled(*([x] * dims))
+        assert out.shape == x.shape and math.isfinite(float(out[1]))
+    cell, frac, _ = _cmap_cell(torch.tensor([math.nan, 1.0],
+                                            dtype=torch.float64), 24)
+    assert cell.tolist()[0] == 0 and 0 <= cell.tolist()[1] < 24

@@ -977,3 +977,88 @@ def assert_close_to_jax(result, e_tol=1e-9, f_tol=1e-8, what=""):
     scale = np.abs(jf).max()
     assert np.abs(f - jf).max() <= f_tol * scale, \
         (what, np.abs(f - jf).max(), scale)
+
+
+def jax_topology(top):
+    """The JAX-package Topology of a port Topology (port_topology the
+    other way): the same chains, residues, atoms and bonds in the same
+    order, and the same box."""
+    from openmm_tpu import app as japp
+    from openmm_tpu.vec3 import Vec3
+    new = japp.Topology()
+    atoms = {}
+    for chain in top.chains():
+        c = new.addChain(chain.id)
+        for res in chain.residues():
+            r = new.addResidue(res.name, c, res.id, res.insertionCode)
+            for a in res.atoms():
+                el = (japp.Element.getBySymbol(a.element.symbol)
+                      if a.element is not None else None)
+                atoms[a] = new.addAtom(a.name, el, r, a.id)
+    for b in top.bonds():
+        new.addBond(atoms[b[0]], atoms[b[1]])
+    box = top.getPeriodicBoxVectors()
+    if box is not None:
+        new.setPeriodicBoxVectors(u.Quantity(
+            tuple(Vec3(*v) for v in plain(box)), u.nanometer))
+    return new
+
+
+def drude_twin(system, coulomb14, lj14, forcefield=None, topology=None):
+    """The JAX-package System `system`, built by its ForceField with a
+    DrudeForce, made right by hand, in place: the JAX createSystem never
+    excludes a Drude particle from anything (its generator's
+    excludeAtomWith is never read), so each exception (a, b) of the
+    NonbondedForce is repeated for every Drude particle of a and of b (an
+    exclusion as an exclusion, a 1-4 pair scaled by coulomb14 and lj14
+    with the Drude particle's own parameters), and each Drude particle is
+    excluded from its parent. Given the JAX ForceField and Topology, each
+    new exclusion between two Drude particles also becomes a screened pair
+    with the sum of their types' tholes, as the generator makes them from
+    the exclusions (OpenMM's DrudeGenerator.postprocessSystem). Returns
+    the System."""
+    drude = [f for f in system.getForces()
+             if type(f).__name__ == "DrudeForce"][0]
+    nb = [f for f in system.getForces() if isinstance(f, NonbondedForce)][0]
+    children = {}
+    for i in range(drude.getNumParticles()):
+        d, p = drude.getParticleParameters(i)[:2]
+        children.setdefault(p, []).append(d)
+    params = nb._particles
+    for a, b, qq, _, eps in list(nb._exceptions):
+        for x in [a] + children.get(a, []):
+            for y in [b] + children.get(b, []):
+                if (x, y) == (a, b):
+                    continue
+                if qq == 0 and eps == 0:
+                    nb.addException(x, y, 0.0, 1.0, 0.0, True)
+                else:
+                    (qx, sx, ex), (qy, sy, ey) = params[x], params[y]
+                    nb.addException(x, y, coulomb14 * qx * qy,
+                                    0.5 * (sx + sy),
+                                    lj14 * np.sqrt(ex * ey), True)
+    for p, ds in children.items():
+        for d in ds:
+            nb.addException(d, p, 0.0, 1.0, 0.0, True)
+    if forcefield is None:
+        return system
+    from openmm_tpu.app.ffgenerators import DrudeGenerator
+    tholes = [g for g in forcefield._forces
+              if isinstance(g, DrudeGenerator)][0].typeMap
+    types = []
+    for res, template in zip(topology.residues(),
+                             forcefield.getMatchingTemplates(topology)):
+        by_name = {a.name: a.type for a in template.atoms}
+        types += [by_name[a.name] for a in res.atoms()]
+    index = {drude.getParticleParameters(i)[0]: i
+             for i in range(drude.getNumParticles())}
+    screened = {tuple(sorted(drude.getScreenedPairParameters(i)[:2]))
+                for i in range(drude.getNumScreenedPairs())}
+    for a, b, qq, _, eps in nb._exceptions:
+        if qq == 0 and eps == 0 and a in index and b in index:
+            pair = tuple(sorted((index[a], index[b])))
+            if pair not in screened:
+                screened.add(pair)
+                drude.addScreenedPair(*pair, tholes[types[a]][8]
+                                      + tholes[types[b]][8])
+    return system
