@@ -159,8 +159,8 @@ comes out:
   float64 and a few steps (GK's through the eager loop). The peptide's
   build, minimization and relaxation, GK and HIPPO run in children
   forked at the start (fork_helper), beside the build, the kernel
-  phases, the examples and phase_modeller_membrane's build, which time
-  no device work;
+  phases and the examples, which time no device work, and so does the
+  helix in POPC (write_membrane: its build and phase_modeller_membrane);
 - Drude and RPMD: kernels 1-3 at the shapes of a SWM4-NDP box built as
   users build it (Modeller.addSolvent and addExtraParticles with
   ForceField("swm4ndp.json"), PME 0.9 nm, rigid water; ~24,000
@@ -176,7 +176,20 @@ comes out:
   centroid's offset (phase_rpmd). Both paths, their Systems' builds
   included, run in children forked at the start (write_drude,
   write_rpmd) and joined before the timing; each path's kernel launches
-  go into the kernels line (launches_new_paths).
+  go into the kernels line (launches_new_paths);
+- XmlSerializer and a periodic collective variable on the main path's
+  water box (phase_serialization, phase_cv_nonbonded): its System,
+  integrator and State (Simulation.saveState) written as XML and a
+  Simulation(topology, "system.xml", "integrator.xml", state="state.xml")
+  run from them with a CheckpointReporter(writeState=True), whose State
+  is loaded mid-run, giving the original Context's bits; the 32,512-atom
+  bilayer's System written and read back with equal parameters (a helper
+  forked at the start); the box's NonbondedForce as the variable of
+  CustomCVForce("s*E") against the plain force, halved at s = 0.5, and
+  200 steps with the variable's candidate state under the step
+  program's gate (kernels 1-3 every step), the eager loop's bits, ms a
+  step against the plain Context in turns; both paths' launches go into
+  launches_new_paths.
 
 It imports nothing of JAX or of openmm_tpu.
 
@@ -1924,7 +1937,7 @@ def modeller_membrane_build(device, deadline=None, n_ala=HELIX_ALANINES,
     Modeller.addHydrogens (gated not to move a heavy atom),
     addMembrane (its relaxation's captures and rebuilds gated) and
     createSystem(PME 0.9 nm, HBonds). It times no device work, so
-    _main runs it beside the helper processes. Returns what the phase
+    write_membrane runs it in a helper process. Returns what the phase
     reads: the topology, positions and System, the helix's
     atom count, the host seconds and the relaxation's counts and
     launches. Raises on a miss."""
@@ -2704,7 +2717,7 @@ def _in_turns(device, runs, steps, order, deadline,
         ms[key].append((time.perf_counter() - t0) / steps * 1e3)
         deadline.check(label + ": in turns")
     return {key: (ms[key], ctx.rebuild_count - r0[key],
-                  ctx._nonbonded.capacity_scale)
+                  ctx._candidates.capacity_scale)
             for key, (ctx, _) in runs.items()}
 
 
@@ -5540,9 +5553,9 @@ def start_helper(name) -> list:
     process of its own that sees no card, started after the script has
     touched the card (a forked child then could not use CUDA):
     write_app_build (host work: the app bilayer's build, more
-    custom's CPU references), beside the phases after the join, off the
-    critical path (a thread slowed the phases by its share of the
-    interpreter)."""
+    custom's CPU references) and write_serialization (the bilayer's XML
+    round trip), beside the phases after the join, off the critical path
+    (a thread slowed the phases by its share of the interpreter)."""
     import os
     import tempfile
 
@@ -6113,6 +6126,18 @@ RPMD_T_RANGE = (200.0, 420.0)   # the centroid's temperature (CHANGES.md)
 RPMD_NPT_FREQUENCY = 1
 RPMD_NPT_STEPS = 10             # 10 attempts
 RPMD_OFFSET_BAR = 1e-12         # nm: each copy's move against the centroid's
+# the XML round trip (phase_serialization) and a periodic NonbondedForce as
+# a collective variable (phase_cv_nonbonded), on the main path's water box
+XML_STEPS = 100                 # each run; the State reported at half
+XML_SEED = 7                    # the main path's integrator's seed
+CV_STEPS = 200
+CV_CHUNK = 50
+CV_REPLAY = 10
+CV_TURN_STEPS = 25
+CV_SEED = 43
+CV_ENERGY_BAR = 1e-9            # relative, s = 1 against the plain force
+CV_FORCE_BAR = 1e-6             # the median relative force difference
+CV_T_RANGE = (200.0, 450.0)
 
 
 def drude_build(box=DRUDE_BOX, cutoff=DRUDE_CUTOFF) -> tuple:
@@ -6149,17 +6174,7 @@ def rpmd_build(waters=RPMD_WATERS, cutoff=RPMD_CUTOFF) -> tuple:
     from openmm_tpu_torch import unit as u
     t0 = time.perf_counter()
     water, positions = tip3p_water_box(waters)
-    box = in_md(water.getDefaultPeriodicBoxVectors())
-    top = app.Topology()
-    chain = top.addChain()
-    oxygen, hydrogen = (app.Element.getBySymbol(s) for s in ("O", "H"))
-    for _ in range(waters):
-        res = top.addResidue("HOH", chain)
-        for name, el in (("O", oxygen), ("H1", hydrogen), ("H2", hydrogen)):
-            top.addAtom(name, el, res)
-    top.createStandardBonds()
-    top.setPeriodicBoxVectors(u.Quantity(
-        tuple(omm.Vec3(*row) for row in box), u.nanometer))
+    top = water_topology(waters, in_md(water.getDefaultPeriodicBoxVectors()))
     system = app.ForceField(RPMD_FORCEFIELD).createSystem(
         top, nonbondedMethod=app.PME, nonbondedCutoff=cutoff * u.nanometer,
         constraints=None, rigidWater=False, removeCMMotion=False)
@@ -6194,6 +6209,24 @@ def write_drude(path) -> None:
               torch.cuda.max_memory_reserved(device) / 1e9))
 
 
+def write_membrane(path) -> None:
+    """modeller_membrane_build and phase_modeller_membrane on the card in
+    a forked helper (fork_helper), the phase's result pickled to
+    `path`."""
+    import pickle
+    t0 = since_start()
+    set_fp32_matmul_exact()
+    device = torch.device("cuda", 0)
+    out = phase_modeller_membrane(device,
+                                  built=modeller_membrane_build(device))
+    with open(path, "wb") as f:
+        pickle.dump(out, f)
+    print("helper write_membrane: %.1f to %.1f s of the script's clock, "
+          "peak device memory reserved %.1f GB" % (
+              t0, since_start(),
+              torch.cuda.max_memory_reserved(device) / 1e9))
+
+
 def write_rpmd(path) -> None:
     """phase_rpmd on the card in a forked helper (fork_helper), its
     System built there (rpmd_build), its result pickled to `path`."""
@@ -6208,6 +6241,348 @@ def write_rpmd(path) -> None:
           "device memory reserved %.1f GB" % (
               t0, since_start(),
               torch.cuda.max_memory_reserved(device) / 1e9))
+
+
+def water_topology(n_waters, box=None):
+    """A Topology of `n_waters` waters (O, H1, H2 each, bonded), with the
+    periodic box `box` ((3, 3) nm) when given."""
+    from openmm_tpu_torch import app
+    from openmm_tpu_torch import unit as u
+    top = app.Topology()
+    chain = top.addChain()
+    oxygen, hydrogen = (app.Element.getBySymbol(s) for s in ("O", "H"))
+    for _ in range(n_waters):
+        res = top.addResidue("HOH", chain)
+        for name, el in (("O", oxygen), ("H1", hydrogen), ("H2", hydrogen)):
+            top.addAtom(name, el, res)
+    top.createStandardBonds()
+    if box is not None:
+        top.setPeriodicBoxVectors(u.Quantity(
+            tuple(omm.Vec3(*row) for row in box), u.nanometer))
+    return top
+
+
+def _same_arrays(what, got, want, path="system") -> None:
+    """Raise unless two from_numpy dicts (to_numpy) hold equal arrays and
+    equal values, naming the first key that differs."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or sorted(got) != sorted(want):
+            raise RuntimeError("%s: %s has keys %s, %s" % (
+                what, path, sorted(got), sorted(want)))
+        for key in want:
+            _same_arrays(what, got[key], want[key], "%s[%r]" % (path, key))
+    elif isinstance(want, np.ndarray):
+        if not (isinstance(got, np.ndarray) and got.shape == want.shape
+                and np.array_equal(got, want)):
+            raise RuntimeError("%s: %s differs" % (what, path))
+    elif isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            raise RuntimeError("%s: %s has %d entries, %d" % (
+                what, path, len(got), len(want)))
+        for k, (g, w) in enumerate(zip(got, want)):
+            _same_arrays(what, g, w, "%s[%d]" % (path, k))
+    elif got != want:
+        raise RuntimeError("%s: %s is %r, %r" % (what, path, got, want))
+
+
+def serialization_round_trip(build=popc_bilayer) -> dict:
+    """The host part of phase_serialization: the System of build() (by
+    default models.popc_bilayer()'s, 32,512 atoms) and a
+    LangevinMiddleIntegrator written as XML and
+    read back, each direction timed; raises unless every force's
+    parameters are equal after the round trip (to_numpy's arrays, and
+    the XML written again is the same text). {"system"|"integrator":
+    {"bytes", "serialize_s", "deserialize_s"}}, "atoms", "forces"."""
+    system, _ = build()
+    integ = omm.LangevinMiddleIntegrator(BILAYER_TEMPERATURE, FRICTION,
+                                         DT_PS)
+    integ.setRandomNumberSeed(XML_SEED)
+    out, again = {}, {}
+    for label, obj in (("system", system), ("integrator", integ)):
+        t0 = time.perf_counter()
+        xml = omm.XmlSerializer.serialize(obj)
+        t1 = time.perf_counter()
+        again[label] = omm.XmlSerializer.deserialize(xml)
+        t2 = time.perf_counter()
+        if omm.XmlSerializer.serialize(again[label]) != xml:
+            raise RuntimeError("bilayer xml: the %s read back writes "
+                               "another XML" % label)
+        out[label] = {"bytes": len(xml.encode()), "serialize_s": t1 - t0,
+                      "deserialize_s": t2 - t1}
+    got = [type(f).__name__ for f in again["system"].getForces()]
+    if got != [type(f).__name__ for f in system.getForces()]:
+        raise RuntimeError("bilayer xml: forces %s after the round trip"
+                           % got)
+    _same_arrays("bilayer xml", omm.to_numpy(again["system"]),
+                 omm.to_numpy(system))
+    out["atoms"] = system.getNumParticles()
+    out["forces"] = got
+    return out
+
+
+def write_serialization(path) -> None:
+    """serialization_round_trip in a helper process that sees no card
+    (start_helper), its result pickled to `path`."""
+    import pickle
+    t0 = since_start()
+    out = serialization_round_trip()
+    with open(path, "wb") as f:
+        pickle.dump(out, f)
+    print("helper write_serialization: %.1f to %.1f s of the script's "
+          "clock" % (t0, since_start()))
+
+
+def _same_run(what, got, want) -> None:
+    """Raise unless two Contexts hold the same positions, velocities,
+    clock and step count, in bits."""
+    for key in ("positions", "velocities"):
+        g, w = got._state[key], want._state[key]
+        if not torch.equal(g, w):
+            raise RuntimeError("%s: %s differ by up to %.3e" % (
+                what, key, float((g - w).abs().max())))
+    if (float(got._time), got.getStepCount()) != (float(want._time),
+                                                  want.getStepCount()):
+        raise RuntimeError("%s: clock %r step %d, the original %r step %d"
+                           % (what, float(got._time), got.getStepCount(),
+                              float(want._time), want.getStepCount()))
+
+
+def phase_serialization(device, main, deadline=None, host=None,
+                        steps=XML_STEPS) -> dict:
+    """The XML round trip of the main path's water box. `host`: what
+    serialization_round_trip gave (the bilayer's round trip, run in a
+    helper forked at the start). On the Context phase_main_path left: its
+    integrator's random seed fixed (XML_SEED), its System and integrator
+    written as XML and its State as Simulation.saveState writes it; a
+    Simulation(topology, "system.xml", "integrator.xml",
+    state="state.xml") on the card's platform with a
+    CheckpointReporter(writeState=True) every steps/2 steps, and the
+    original Context set to the same State with its generator at the
+    seed's start (as the new Context's); steps/2 steps each, equal in
+    bits (positions, velocities, clock, step count); then the new
+    Simulation loads the State its reporter wrote and the original sets
+    its own State (each drops its candidate state), steps/2 more each:
+    equal in bits again. Kernels 1-3 must launch in the new Simulation's
+    steps. Raises on a miss."""
+    import os
+    import shutil
+    import tempfile
+    from openmm_tpu_torch import app
+    deadline = deadline or Deadline(math.inf)
+    ctx = main["context"]
+    integ, system = ctx.getIntegrator(), ctx.getSystem()
+    integ.setRandomNumberSeed(XML_SEED)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_xml_")
+    paths = {k: os.path.join(tmp, k + ".xml")
+             for k in ("system", "integrator", "state", "reported")}
+    seconds = {}
+    try:
+        t0 = time.perf_counter()
+        xml = omm.XmlSerializer.serialize(system)
+        seconds["serialize"] = time.perf_counter() - t0
+        nbytes = len(xml.encode())
+        with open(paths["system"], "w") as f:
+            f.write(xml)
+        del xml
+        with open(paths["integrator"], "w") as f:
+            f.write(omm.XmlSerializer.serialize(integ))
+        # what Simulation.saveState writes (the reporter calls it below)
+        t0 = time.perf_counter()
+        state = ctx.getState(getPositions=True, getVelocities=True,
+                             getParameters=True, getIntegratorParameters=True)
+        with open(paths["state"], "w") as f:
+            f.write(omm.XmlSerializer.serialize(state))
+        seconds["save_state"] = time.perf_counter() - t0
+        platform = omm.Platform.getPlatformByName(
+            "CUDA" if device.type == "cuda" else "CPU")
+        t0 = time.perf_counter()
+        sim = app.Simulation(water_topology(system.getNumParticles() // 3),
+                             paths["system"], paths["integrator"], platform,
+                             state=paths["state"])
+        seconds["simulation"] = time.perf_counter() - t0
+        deadline.check("serialization: the Simulation from XML")
+        half = steps // 2
+        sim.reporters.append(app.CheckpointReporter(paths["reported"], half,
+                                                    writeState=True))
+        ctx.setState(state)
+        fresh = torch.Generator(device=device)
+        fresh.manual_seed(XML_SEED)
+        ctx._generator.set_state(fresh.get_state())
+        for kern in _build.KERNELS:
+            kern.launches = 0
+        sim.step(half)
+        launches = {k.name: k.launches for k in MAIN_PATH_KERNELS}
+        integ.step(half)
+        _same_run("serialization: %d steps" % half, sim.context, ctx)
+        deadline.check("serialization: steps")
+        sim.reporters.clear()
+        t0 = time.perf_counter()
+        sim.loadState(paths["reported"])
+        seconds["load_state"] = time.perf_counter() - t0
+        reported = sim.context.getStepCount()
+        ctx.setState(ctx.getState(getPositions=True, getVelocities=True,
+                                  getParameters=True,
+                                  getIntegratorParameters=True))
+        for kern in _build.KERNELS:
+            kern.launches = 0
+        sim.step(steps - half)
+        for kern in MAIN_PATH_KERNELS:
+            launches[kern.name] += kern.launches
+        integ.step(steps - half)
+        _same_run("serialization: the reported State's %d steps"
+                  % (steps - half), sim.context, ctx)
+        captures = _captures(sim.context)
+        del sim
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("serialization: water box (%d atoms) as XML %d bytes, written in "
+          "%.3f s; its State %.3f s, Simulation from system.xml, "
+          "integrator.xml and state.xml %.3f s (the Context and its "
+          "reading), loadState %.3f s; %d steps from the State, the "
+          "reporter's State (step %d) loaded and %d more: the original "
+          "Context's bits; captures %d; launches %s" % (
+              system.getNumParticles(), nbytes, seconds["serialize"],
+              seconds["save_state"], seconds["simulation"],
+              seconds["load_state"], half, reported, steps - half, captures,
+              json.dumps(launches)))
+    if host is not None:
+        print("serialization: the %d-atom host System (%d forces) as XML %d "
+              "bytes, written in %.3f s, read in %.3f s; its integrator %d "
+              "bytes; every force's parameters equal after the round "
+              "trip" % (
+                  host["atoms"], len(host["forces"]),
+                  host["system"]["bytes"], host["system"]["serialize_s"],
+                  host["system"]["deserialize_s"],
+                  host["integrator"]["bytes"]))
+    if device.type == "cuda":
+        _require_launched("serialization", launches, MAIN_PATH_KERNELS)
+    deadline.check("serialization")
+    return {"bytes": nbytes, "seconds": seconds, "launches": launches,
+            "host": host}
+
+
+def phase_cv_nonbonded(device, main, deadline=None, steps=CV_STEPS,
+                       chunk=CV_CHUNK, replay=CV_REPLAY,
+                       turn_steps=CV_TURN_STEPS, t_range=CV_T_RANGE) -> dict:
+    """The main path's water box with its NonbondedForce (PME) as the
+    variable E of CustomCVForce("s*E"), a global parameter s: the
+    variable's candidate state built under its Context's one gate
+    (kernels 1-3). At s = 1 its energy and forces against the plain
+    water Context at the same positions (CV_ENERGY_BAR relative,
+    CV_FORCE_BAR median relative); at s = 0.5 (setParameter, no new
+    capture) exactly half. Then `steps` LangevinMiddle steps at s = 1
+    through the step program in calls of `chunk`, each main-path kernel
+    launched at least once a step by those steps alone (the counts zeroed
+    before each call and read after), the variable's state rebuilt at
+    least once, the temperature in `t_range`; `replay` steps from a
+    snapshot through the step program and the eager loop: the same bits;
+    ms a step against the plain Context in turns (plain, cv, cv, plain).
+    Raises on a miss."""
+    deadline = deadline or Deadline(math.inf)
+    base = main["context"]
+    system = base.getSystem()
+    (nb,) = [f for f in system.getForces()
+             if isinstance(f, omm.NonbondedForce)]
+    cv_system = omm.System()
+    for i in range(system.getNumParticles()):
+        cv_system.addParticle(system.getParticleMass(i))
+    for i in range(system.getNumConstraints()):
+        cv_system.addConstraint(*system.getConstraintParameters(i))
+    cv_system.setDefaultPeriodicBoxVectors(
+        *system.getDefaultPeriodicBoxVectors())
+    cv = omm.CustomCVForce("s*E")
+    cv.addGlobalParameter("s", 1.0)
+    cv.addCollectiveVariable("E", nb)
+    cv_system.addForce(cv)
+    for force in system.getForces():
+        if force is not nb:
+            cv_system.addForce(force)
+    integ = omm.LangevinMiddleIntegrator(300.0, FRICTION, DT_PS)
+    integ.setRandomNumberSeed(CV_SEED)
+    ctx = _platform_context(device, cv_system, integ)
+    st = base.getState(getPositions=True, getVelocities=True)
+    pos = in_md(st.getPositions(asNumpy=True))
+    ctx.setPositions(pos)
+    ctx.setVelocities(in_md(st.getVelocities(asNumpy=True)))
+    # the plain Context's candidate state built at these positions too
+    base.setPositions(pos)
+    readings = {}
+    for label, c, s in (("plain", base, None), ("cv", ctx, 1.0),
+                        ("half", ctx, 0.5)):
+        if s is not None:
+            ctx.setParameter("s", s)
+        r = c.getState(getEnergy=True, getForces=True)
+        readings[label] = (in_md(r.getPotentialEnergy()),
+                           in_md(r.getForces(asNumpy=True)))
+    ctx.setParameter("s", 1.0)
+    (e_plain, f_plain), (e_cv, f_cv), (e_half, f_half) = (
+        readings[k] for k in ("plain", "cv", "half"))
+    e_err = abs(e_cv - e_plain) / abs(e_plain)
+    f_err = _median_relative_error(f_cv, f_plain)
+    deadline.check("cv nonbonded: readings")
+    r0 = ctx.rebuild_count
+    launches = dict.fromkeys(MAIN_PATH_NAMES, 0)
+    for done in range(0, steps, chunk):
+        for kern in _build.KERNELS:
+            kern.launches = 0
+        integ.step(min(chunk, steps - done))
+        for kern in MAIN_PATH_KERNELS:
+            launches[kern.name] += kern.launches
+        deadline.check("cv nonbonded: steps")
+    rebuilds = ctx.rebuild_count - r0
+    temperature = ctx.temperature()
+    captures = _captures(ctx)
+    start = ctx._snapshot()
+    graph = _production(device, ctx, integ.step, 0.0, replay, replay,
+                        deadline)
+    ctx._restore(start)
+    eager = _production(device, ctx, ctx._step_eager, 0.0, replay, replay,
+                        deadline)
+    _same_bits("cv nonbonded", (graph["positions"], graph["velocities"]),
+               (eager["positions"], eager["velocities"]))
+    _same_state("cv nonbonded", graph, eager)
+    turns = _in_turns(device, {"plain": (base, base.getIntegrator().step),
+                               "cv": (ctx, integ.step)}, turn_steps,
+                      ("plain", "cv", "cv", "plain"), deadline,
+                      label="cv nonbonded")
+    ms = {key: statistics.mean(v[0]) for key, v in turns.items()}
+    print("cv nonbonded: CustomCVForce s*E over the %d-atom box's PME "
+          "NonbondedForce: at s = 1 energy %.6f (plain %.6f, %.3e "
+          "relative, bar %.0e), median force difference %.3e (bar %.0e); "
+          "at s = 0.5 %.6f; %d steps: %d rebuilds of the variable's "
+          "candidate state, captures %d, T %.2f K, launches %s; %d steps "
+          "replayed through the eager loop: the same bits; in turns %.4f "
+          "ms a step (plain %.4f)" % (
+              system.getNumParticles(), e_cv, e_plain, e_err, CV_ENERGY_BAR,
+              f_err, CV_FORCE_BAR, e_half, steps, rebuilds, captures,
+              temperature, json.dumps(launches), replay, ms["cv"],
+              ms["plain"]))
+    if not e_err <= CV_ENERGY_BAR:
+        raise RuntimeError("cv nonbonded: energy %.9f against the plain "
+                           "force's %.9f" % (e_cv, e_plain))
+    if not f_err <= CV_FORCE_BAR:
+        raise RuntimeError("cv nonbonded: median force difference %.3e"
+                           % f_err)
+    if e_half != 0.5 * e_cv or not np.array_equal(f_half, 0.5 * f_cv):
+        raise RuntimeError("cv nonbonded: s = 0.5 gives %.9f, not half of "
+                           "%.9f" % (e_half, e_cv))
+    if rebuilds < 1:
+        raise RuntimeError("cv nonbonded: the variable's candidate state "
+                           "was never rebuilt in %d steps" % steps)
+    if device.type == "cuda":
+        if captures != 1:
+            raise RuntimeError("cv nonbonded: %d programs captured"
+                               % captures)
+        if min(launches.values()) < steps:
+            raise RuntimeError("cv nonbonded: in %d steps a kernel "
+                               "launched fewer times than once a step: %s"
+                               % (steps, launches))
+    if not t_range[0] <= temperature <= t_range[1]:
+        raise RuntimeError("cv nonbonded: temperature %.2f K" % temperature)
+    deadline.check("cv nonbonded")
+    return {"energy": e_cv, "plain_energy": e_plain, "e_err": e_err,
+            "force_err": f_err, "half": e_half, "rebuilds": rebuilds,
+            "temperature": temperature, "launches": launches, "ms": ms}
 
 
 def _launches_since(before) -> dict:
@@ -6778,13 +7153,15 @@ def main() -> int:
     # forked before anything here touches the card (the availability
     # check below initialises CUDA, which a forked child then cannot
     # use): the AMOEBA peptide's build, minimization and relaxation, GK,
-    # HIPPO, the examples and the Drude and RPMD paths, beside the build,
+    # HIPPO, the examples, the Drude, RPMD and membrane paths, beside the
+    # build,
     # the kernel phases and the membrane's build, which time no device
     # work. Without a card they fail, and are killed at exit.
     forked = (fork_helper(write_amoeba_prep),
               fork_helper(write_amoeba_gk, NICE),
               fork_helper(write_hippo, NICE), start_examples(),
-              fork_helper(write_drude, NICE), fork_helper(write_rpmd, NICE))
+              fork_helper(write_drude, NICE), fork_helper(write_rpmd, NICE),
+              fork_helper(write_membrane, NICE))
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is "
                            "visible to torch")
@@ -6799,7 +7176,7 @@ def main() -> int:
 
 def _main(deadline, forked, thresholds) -> int:
     import gc
-    amoeba_prep, amoeba_gk, hippo, examples, drude, rpmd = forked
+    amoeba_prep, amoeba_gk, hippo, examples, drude, rpmd, membrane = forked
     set_fp32_matmul_exact()
     device = torch.device("cuda", 0)
     info = phase_device(device)
@@ -6822,14 +7199,9 @@ def _main(deadline, forked, thresholds) -> int:
     phase_triclinic(device, deadline=deadline)
     warm.join()
     deadline.lap("kernels, triclinic")
-    # after the import thread's end: the relaxation captures a graph
-    _release(device)
-    membrane_built = modeller_membrane_build(device, deadline)
-    _release(device)
     print("script: %.1f s of its clock before the helpers' join, peak "
           "device memory reserved %.1f GB" % (
               since_start(), torch.cuda.max_memory_reserved(device) / 1e9))
-    deadline.lap("modeller membrane's build")
     examples = phase_examples(device, deadline, examples)
     deadline.lap("examples")
     amoeba_prep = join_helper(amoeba_prep, "amoeba pme's preparation")
@@ -6847,6 +7219,7 @@ def _main(deadline, forked, thresholds) -> int:
     # bilayer's PDB, createSystem and gate, and more custom's CPU float64
     # references
     app_build = start_helper("write_app_build")
+    xml_host = start_helper("write_serialization")
     for kern in KERNELS:
         kern.launches = 0
     result = phase_main_path(device, deadline=deadline)
@@ -6895,10 +7268,10 @@ def _main(deadline, forked, thresholds) -> int:
     tempering = phase_tempering(device, gromacs, deadline)
     deadline.lap("tempering")
     del gromacs["simulation"]
-    membrane = phase_modeller_membrane(device, deadline,
-                                       built=membrane_built)
-    del membrane_built
-    deadline.lap("modeller membrane")
+    # the water box's Context stays for the last two phases, which follow
+    # every host-bound phase: run before them, they slowed the minimizers
+    # and eager loops after them by 10-20 % on an H100's host
+    water = {"context": result["context"]}
     del result, offsets["context"]
     minimized = phase_minimize(device, deadline=deadline)
     if min(minimized["launches"].values()) <= 0:
@@ -6955,7 +7328,16 @@ def _main(deadline, forked, thresholds) -> int:
     deadline.lap("amoeba pme")
     drude, drude_wait = join_helper(drude, "drude")
     rpmd, rpmd_wait = join_helper(rpmd, "rpmd")
-    deadline.lap("drude, rpmd (%.1f s waited)" % (drude_wait + rpmd_wait))
+    membrane, membrane_wait = join_helper(membrane, "modeller membrane")
+    deadline.lap("drude, rpmd, modeller membrane (%.1f s waited)" % (
+        drude_wait + rpmd_wait + membrane_wait))
+    xml_host, xml_wait = join_helper(xml_host, "the bilayer's XML round trip")
+    serialization = phase_serialization(device, water, deadline,
+                                        host=xml_host)
+    deadline.lap("serialization (%.1f s waited)" % xml_wait)
+    cv_nonbonded = phase_cv_nonbonded(device, water, deadline)
+    del water
+    deadline.lap("cv nonbonded")
     counts = tile_counts(inp)
     records = phase_timing(device, inp, counts, launches, errors, deadline)
     records.append(rf_water["record"])
@@ -6971,6 +7353,9 @@ def _main(deadline, forked, thresholds) -> int:
         record["launches_new_paths"].update({
             path: counts.get(record["name"], 0)
             for path, counts in rpmd["launches"].items()})
+        for path, done in (("xml_round_trip", serialization["launches"]),
+                           ("cv_nonbonded", cv_nonbonded["launches"])):
+            record["launches_new_paths"][path] = done.get(record["name"], 0)
     deadline.lap("timing")
     print("main path: %.2f ns/day on %s (%s), %d steps of %.3f ps, "
           "through the step program (gating %s)" % (
@@ -7154,6 +7539,19 @@ def _main(deadline, forked, thresholds) -> int:
               rpmd["copies"], rpmd["ms_per_step"], rpmd["eager_ms"],
               rpmd["ns_day"], rpmd["tiles_per_step"], rpmd["t_centroid"],
               *rpmd["rg"], rpmd["npt_ms"], rpmd["accepted"]))
+    print("serialization and a periodic CV on %s (%s): water box XML %d "
+          "bytes written in %.3f s, Simulation from XML %.3f s, the "
+          "original Context's bits; bilayer XML %d bytes, %.3f s written, "
+          "%.3f s read; CustomCVForce over PME %.4f ms a step (plain "
+          "%.4f), %d rebuilds in %d steps, energy %.3e and median force "
+          "%.3e off the plain force" % (
+              info["name"], info["smi"], serialization["bytes"],
+              serialization["seconds"]["serialize"],
+              serialization["seconds"]["simulation"],
+              xml_host["system"]["bytes"], xml_host["system"]["serialize_s"],
+              xml_host["system"]["deserialize_s"], cv_nonbonded["ms"]["cv"],
+              cv_nonbonded["ms"]["plain"], cv_nonbonded["rebuilds"],
+              CV_STEPS, cv_nonbonded["e_err"], cv_nonbonded["force_err"]))
     print("seconds by phase: %s" % ", ".join(
         "%s %.1f" % lap for lap in deadline.laps))
     print("total %.1f s of the %.0f s budget" % (deadline.elapsed(),

@@ -29,7 +29,8 @@ bar, or plain values; setters take Quantities or plain numbers in those
 units. The app layer (openmm_tpu_torch.app: PDBFile, PDBxFile,
 ForceField, Modeller, the Amber, CHARMM, GROMACS and DMS readers,
 Simulation, reporters, Metadynamics, SimulatedTempering) builds and
-drives Systems as OpenMM's does; `python -m
+drives Systems as OpenMM's does; XmlSerializer writes and reads Systems,
+forces, integrators and States in the JAX package's XML; `python -m
 openmm_tpu_torch.testInstallation` checks an installation.
 """
 from . import unit
@@ -62,6 +63,7 @@ from .integrators import (AMDForceGroupIntegrator, AMDIntegrator,
                           VariableVerletIntegrator, VerletIntegrator)
 from .minimize import LocalEnergyMinimizer, MinimizationReporter
 from .platform import Platform
+from .serialization import XmlSerializer
 from .state import State
 from .tabulated import (Continuous1DFunction, Continuous2DFunction,
                         Continuous3DFunction, Discrete1DFunction,
@@ -101,5 +103,6 @@ __all__ = ["AMDForceGroupIntegrator", "AMDIntegrator",
            "RPMDMonteCarloBarostat", "RPMDUpdater", "State", "System",
            "TabulatedFunction", "ThreeParticleAverageSite", "TwoParticleAverageSite",
            "VariableLangevinIntegrator", "VariableVerletIntegrator",
-           "Vec3", "VerletIntegrator", "VirtualSite", "from_numpy",
+           "Vec3", "VerletIntegrator", "VirtualSite", "XmlSerializer",
+           "from_numpy",
            "to_numpy", "unit"]

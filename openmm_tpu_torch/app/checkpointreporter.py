@@ -1,8 +1,8 @@
-"""CheckpointReporter: a checkpoint every reportInterval steps, written
-through a temporary file and a rename (the port's copy of
+"""CheckpointReporter: a checkpoint (or, with writeState=True, a State's
+XML: Simulation.saveState) every reportInterval steps, written through a
+temporary file and a rename (the port's copy of
 openmm_tpu/app/checkpointreporter.py, after OpenMM's
-app/checkpointreporter.py:73,106). writeState=True needs XmlSerializer,
-which waits for ROADMAP item 8, and raises when it reports."""
+app/checkpointreporter.py:73,106)."""
 from __future__ import annotations
 
 import os

@@ -7,15 +7,15 @@ the next report in one integrator.step(k) (the step program replays its
 captured graph for any k, so no chunk size is captured), then takes one
 getState for all the reporters that are due, with the union of what they
 asked for. minimizeEnergy runs the port's LocalEnergyMinimizer;
-runForClockTime runs until a wall-clock limit, saving checkpoints on the
-way; saveCheckpoint and loadCheckpoint carry the Context's checkpoint
-bytes.
+runForClockTime runs until a wall-clock limit, saving checkpoints (and
+States) on the way; saveCheckpoint and loadCheckpoint carry the Context's
+checkpoint bytes, saveState and loadState a State as XML (XmlSerializer).
+A System or an Integrator may be given as the name of an XML file, and
+state= names a State's XML file to start from.
 
 The Context is built on the port's default platform, the CUDA one, unless
 a platform is given: Simulation(..., platform=Platform.getPlatformByName(
-"CPU")) runs on the host. The paths through XmlSerializer (a System or an
-Integrator given as a file name, state=, saveState, loadState) wait for
-the port's serialization (ROADMAP item 8) and raise.
+"CPU")) runs on the host.
 """
 from __future__ import annotations
 
@@ -24,20 +24,21 @@ import time
 
 from .. import unit as u
 from ..context import Context
+from ..serialization import XmlSerializer
 
-_SERIALIZATION = ("%s needs XmlSerializer, which the port has not got yet "
-                  "(ROADMAP item 8, serialization)")
+
+def _read_xml(path):
+    with open(path) as f:
+        return XmlSerializer.deserialize(f.read())
 
 
 class Simulation(object):
     def __init__(self, topology, system, integrator, platform=None,
                  platformProperties=None, state=None):
-        for what, value in (("a System from a file", system),
-                            ("an Integrator from a file", integrator)):
-            if isinstance(value, str):
-                raise NotImplementedError(_SERIALIZATION % what)
-        if state is not None:
-            raise NotImplementedError(_SERIALIZATION % "state=")
+        if isinstance(system, str):
+            system = _read_xml(system)
+        if isinstance(integrator, str):
+            integrator = _read_xml(integrator)
         self.topology = topology
         self.system = system
         self.integrator = integrator
@@ -45,8 +46,12 @@ class Simulation(object):
         self.reporters = []
         self.context = Context(system, integrator, platform,
                                platformProperties)
-        # the topology's box (when it has one) overrides the System's
-        # default, as in the JAX package
+        if state is not None:
+            self.context.setState(_read_xml(state))
+            return
+        # without a State, the topology's box (when it has one) overrides
+        # the System's default, as in the JAX package; after state= it
+        # would overwrite the State's box
         box = (topology.getPeriodicBoxVectors()
                if topology is not None else None)
         if box is not None:
@@ -63,10 +68,8 @@ class Simulation(object):
     def runForClockTime(self, time_limit, checkpointFile=None, stateFile=None,
                         checkpointInterval=None):
         """Run until `time_limit` (seconds, or a time Quantity) of wall
-        clock have passed, saving a checkpoint to checkpointFile every
-        checkpointInterval and at the end."""
-        if stateFile is not None:
-            raise NotImplementedError(_SERIALIZATION % "stateFile=")
+        clock have passed, saving a checkpoint to checkpointFile and a
+        State to stateFile every checkpointInterval and at the end."""
         if u.is_quantity(time_limit):
             time_limit = time_limit.value_in_unit(u.second)
         if checkpointInterval is not None and u.is_quantity(checkpointInterval):
@@ -80,6 +83,8 @@ class Simulation(object):
             self._simulate(endTime=next_time)
             if checkpointFile is not None:
                 self.saveCheckpoint(checkpointFile)
+            if stateFile is not None:
+                self.saveState(stateFile)
 
     def saveCheckpoint(self, file):
         if isinstance(file, str):
@@ -97,10 +102,29 @@ class Simulation(object):
         self.currentStep = self.context.getStepCount()
 
     def saveState(self, file):
-        raise NotImplementedError(_SERIALIZATION % "saveState")
+        """The Context's positions, velocities, global parameters and
+        integrator parameters as a State's XML, into a file name or an
+        open text file."""
+        state = self.context.getState(
+            getPositions=True, getVelocities=True, getParameters=True,
+            getIntegratorParameters=True)
+        xml = XmlSerializer.serialize(state)
+        if isinstance(file, str):
+            with open(file, "w") as f:
+                f.write(xml)
+        else:
+            file.write(xml)
 
     def loadState(self, file):
-        raise NotImplementedError(_SERIALIZATION % "loadState")
+        """Restore a saveState (Context.setState), from a file name or an
+        open text file."""
+        if isinstance(file, str):
+            with open(file) as f:
+                xml = f.read()
+        else:
+            xml = file.read()
+        self.context.setState(XmlSerializer.deserialize(xml))
+        self.currentStep = self.context.getStepCount()
 
     def _simulate(self, endStep=None, endTime=None):
         """Step to endStep (or, with endTime, until the clock passes it, in

@@ -213,9 +213,9 @@ class Context:
         # (the median force error of a 5.24 nm SWM4-NDP box 1.4e-5 on an
         # NVIDIA H100 80GB HBM3 at 700 W, 8.3e-6 with the pairs): kernel 1
         # then takes the positions as float32 pairs
-        if any(isinstance(f, DrudeForce) for f in forces):
-            for module in self._nonbondeds:
-                module.fine_positions = True
+        self._fine_positions = any(isinstance(f, DrudeForce) for f in forces)
+        for module in self._nonbondeds:
+            module.fine_positions = self._fine_positions
         gb_forces = [f for f in forces if isinstance(f, GBSAOBCForce)]
         bonded_forces = [f for f in forces if isinstance(f, TERM_FORCES)]
         # the custom forces read the masses (a centroid's weights)
@@ -225,12 +225,16 @@ class Context:
         # the pair lists of the periodic AMOEBA forces, made by the first
         # module that asks (_amoeba_pair_set)
         self._amoeba_pairs = None
+        # the NonbondedModules of the CustomCVForces' variables that keep
+        # a candidate state, which _compile_module gathers
+        self._cv_nonbondeds = []
         self._custom = [self._compile_module(f) for f in custom_forces]
         # the modules whose direct space keeps a candidate state (none
         # when every pair is computed, or there is no direct space: no
-        # rebuild, no overflow), and the AMOEBA pair lists: one itself,
-        # several a CandidateSet
+        # rebuild, no overflow), the CV variables' among them, and the
+        # AMOEBA pair lists: one itself, several a CandidateSet
         tiled = [m for m in self._nonbondeds if m.periodic and m.has_direct]
+        tiled += self._cv_nonbondeds
         if self._amoeba_pairs is not None:
             tiled.append(self._amoeba_pairs)
         self._candidates = (None if not tiled else tiled[0]
@@ -324,9 +328,11 @@ class Context:
         """The compiled module of a GBSAOBCForce, a bonded force or a force
         of MODULE_FORCES, for the Context's force lists or for a
         collective variable of a CustomCVForce, which the Context keeps
-        out of them; a CV may also be a NonbondedForce without periodic
-        boundaries. Each has ef, energy and update; the custom kinds also
-        parameter_derivatives."""
+        out of them; a CV may also be a NonbondedForce (any method): one
+        whose direct space keeps a candidate state joins
+        _cv_nonbondeds, so that the Context's rebuild gate builds that
+        state with its own. Each has ef, energy and update; the custom
+        kinds also parameter_derivatives."""
         if isinstance(force, MODULE_FORCES):
             return force._compile(self)
         if isinstance(force, GBSAOBCForce):
@@ -334,14 +340,13 @@ class Context:
         if isinstance(force, TERM_FORCES):
             return force._compile(self._n, self._device)
         if isinstance(force, NonbondedForce):
-            if force.usesPeriodicBoundaryConditions():
-                raise NotImplementedError(
-                    "a NonbondedForce with periodic boundaries as a "
-                    "collective variable needs a candidate state of its "
-                    "own, which this slice of the port does not build")
-            return NonbondedVariable(NonbondedModule(
-                force, self._system._box.copy(),
-                self._device, self._precision, self._gp, self._gp_index))
+            module = NonbondedModule(force, self._system._box.copy(),
+                                     self._device, self._precision, self._gp,
+                                     self._gp_index)
+            module.fine_positions = self._fine_positions
+            if module.periodic and module.has_direct:
+                self._cv_nonbondeds.append(module)
+            return NonbondedVariable(module)
         raise NotImplementedError("%s as a collective variable is not in "
                                   "this slice of the port"
                                   % type(force).__name__)
@@ -506,9 +511,8 @@ class Context:
                  for nb in self._nonbondeds if nb.active(groups)]
         parts += [m.ef(pos, box) for m in self._gb + self._bonded
                   if (groups >> m.group) & 1]
-        parts += [m.ef(pos, box) if getattr(m, "pair_set", None) is None
-                  else m.ef(pos, box, self._module_state(m.pair_set, tiles))
-                  for m in self._custom if (groups >> m.group) & 1]
+        parts += [self._custom_ef(m, pos, box, tiles) for m in self._custom
+                  if (groups >> m.group) & 1]
         if not parts:
             return (torch.zeros((), dtype=torch.float64, device=pos.device),
                     torch.zeros(pos.shape, dtype=torch.float64,
@@ -520,6 +524,18 @@ class Context:
         if self._vsites is not None:
             forces = self._vsites.distribute(pos, forces)
         return energy, forces
+
+    def _custom_ef(self, m, pos, box, tiles):
+        """(energy, forces) of custom module m; a module that reads the
+        Context's candidate states is handed its part of `tiles`: a
+        periodic AMOEBA force its pair lists' (pair_set), a CustomCVForce
+        over periodic NonbondedForces a lookup of each variable's
+        (tiled)."""
+        if getattr(m, "pair_set", None) is not None:
+            return m.ef(pos, box, self._module_state(m.pair_set, tiles))
+        if getattr(m, "tiled", None):
+            return m.ef(pos, box, lambda nb: self._module_state(nb, tiles))
+        return m.ef(pos, box)
 
     def _module_state(self, nb, tiles):
         """The candidate state of NonbondedModule nb within `tiles` (None
@@ -655,8 +671,9 @@ class Context:
 
     def setState(self, state) -> None:
         """Restore the box, the time, the step count, and what the State
-        holds of positions, velocities and this Context's global
-        parameters (Context::setState)."""
+        holds of positions, velocities, this Context's global parameters
+        and the integrator's parameters (Context::setState; the JAX
+        Context's setState)."""
         self.setPeriodicBoxVectors(*state.getPeriodicBoxVectors(asNumpy=True))
         self.setTime(state.getTime())
         self.setStepCount(state.getStepCount())
@@ -669,6 +686,30 @@ class Context:
             for name, value in state.getParameters().items():
                 if name in self._gp_index:
                     self.setParameter(name, value)
+        if types & State.IntegratorParameters:
+            self._set_integrator_parameters(state.getIntegratorParameters())
+
+    def _integrator_parameters(self) -> dict:
+        """{name: value} of the integrator's parameters as the next step
+        reads them from the device (_named_params), the host's written
+        first: what the JAX Context keeps in state["iparams"]."""
+        self._write_params()
+        start, names = self._integrator._named_params()
+        values = self._params[start:start + len(names)].tolist()
+        return dict(zip(names, values))
+
+    def _set_integrator_parameters(self, values: dict) -> None:
+        """Write the integrator's parameters of `values` (keys of
+        _named_params; others are ignored) into the step's device tensor.
+        They hold until an integrator setter changes the host's values,
+        as the JAX Context's state["iparams"] does."""
+        self._write_params()
+        start, names = self._integrator._named_params()
+        params = self._params.tolist()
+        for name, value in values.items():
+            if name in names:
+                params[start + names.index(name)] = float(value)
+        self._params.copy_(torch.tensor(params, dtype=torch.float64))
 
     def _set_position_tensor(self, pos) -> None:
         """New positions: the candidate state built for the old ones is
@@ -1001,14 +1042,17 @@ class Context:
     def getState(self, getEnergy=False, getForces=False, getPositions=False,
                  getVelocities=False, getParameters=False,
                  enforcePeriodicBox=False, groups=-1,
-                 getParameterDerivatives=False) -> State:
+                 getParameterDerivatives=False,
+                 getIntegratorParameters=False) -> State:
         """A State; energy, forces and parameter derivatives sum the forces
         in `groups`: a bit mask (-1, the default: all) or a collection of
         group numbers.
         The kinetic energy shifts the velocities by the integrator's
         _kinetic_energy_shift with these forces, as the JAX Context
         does. enforcePeriodicBox wraps each molecule whole into the home
-        box when the System uses periodic boundaries."""
+        box when the System uses periodic boundaries.
+        getIntegratorParameters: the integrator's parameters as the next
+        step reads them (_integrator_parameters)."""
         s = self._state
         box = _host(s["box"])
         kw = {"time": float(self._time), "step": s["step"], "box": box}
@@ -1035,6 +1079,8 @@ class Context:
                 raise RuntimeError("Particle positions have not been set")
             kw["parameter_derivatives"] = self._parameter_derivatives(
                 _group_mask(groups))
+        if getIntegratorParameters:
+            kw["integrator_parameters"] = self._integrator_parameters()
         return State(**kw)
 
     def _parameter_derivatives(self, groups) -> dict:

@@ -10,9 +10,10 @@ the variable's value is that module's energy, its forces the module's
 `ef`, and the CV's forces sum_k dE/dcv_k F_k with dE/dcv_k the
 expression's symbolic partial. The variables' own force groups do not
 count; the CV's does. A NonbondedForce variable with periodic boundaries
-would need a candidate state of its own beside the Context's, which this
-slice does not build (Context._compile_module raises for it); every
-other kind serves. Energy parameter derivatives take the expression's
+keeps a candidate state of its own, which the Context builds and
+rebuilds with its own under one gate (Context._cv_nonbondeds) and hands
+to the variable's kernels 1-3 through `state_of`; every kind serves.
+Energy parameter derivatives take the expression's
 explicit partial plus sum_k dE/dcv_k dcv_k/dparameter from the
 variables' modules. This is what metadynamics and steered or restrained
 MD build on.
@@ -90,6 +91,9 @@ class CustomCVModule(nn.Module):
         self.gp, self.gp_index = ctx._gp, ctx._gp_index
         self.cv_names = [name for name, _ in force._cvs]
         self.cvs = [ctx._compile_module(f) for _, f in force._cvs]
+        # the variables' NonbondedModules that keep a candidate state
+        self.tiled = [m.module for m in self.cvs if getattr(m, "tiled",
+                                                             False)]
         functions = force._tables(F64, ctx._device)
         self.tables = functions
         text = force.getEnergyFunction()
@@ -107,8 +111,12 @@ class CustomCVModule(nn.Module):
     def cv_values(self, pos, box) -> list:
         return [m.ef(pos, box)[0] for m in self.cvs]
 
-    def ef(self, pos, box):
-        parts = [m.ef(pos, box) for m in self.cvs]
+    def ef(self, pos, box, state_of=None):
+        """(energy, forces); state_of(module) gives the candidate state of
+        each tiled variable's module (without it, each builds one)."""
+        parts = [m.ef(pos, box, state_of(m.module))
+                 if state_of is not None and getattr(m, "tiled", False)
+                 else m.ef(pos, box) for m in self.cvs]
         e, partials = self._fn(self._env([p[0] for p in parts]))
         forces = torch.zeros(pos.shape, dtype=F64, device=pos.device)
         for de, (_, f) in zip(partials, parts):

@@ -1219,16 +1219,20 @@ def _c6(sigma, epsilon):
 
 
 class NonbondedVariable:
-    """A NonbondedForce without periodic boundaries (every pair, no
-    candidate state) as a CustomCVForce's collective variable: the
-    CustomModule contract over NonbondedModule."""
+    """A NonbondedForce as a CustomCVForce's collective variable: the
+    CustomModule contract over NonbondedModule. Every part of the force
+    counts, whatever its force group and reciprocal group. `tiled`: its
+    direct space keeps a candidate state, which the Context builds under
+    its rebuild gate (Context._cv_nonbondeds) and hands to ef; without
+    one, ef builds a state for the call."""
 
     def __init__(self, module: NonbondedModule):
         self.module = module
         self.name, self.group = module.name, module.group
+        self.tiled = module.periodic and module.has_direct
 
-    def ef(self, pos, box):
-        energy, forces = self.module(pos, box)
+    def ef(self, pos, box, state=None):
+        energy, forces = self.module(pos, box, state)
         return energy, forces.to(torch.float64)
 
     def energy(self, pos, box):

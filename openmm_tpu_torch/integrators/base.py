@@ -149,6 +149,17 @@ class Integrator:
         """The floats the step reads from deps.params, step size first."""
         return (self._step_size,)
 
+    def _param_names(self) -> tuple:
+        """The names of the _params floats, in their order: the keys of
+        the JAX package's _integrator_params, which getState reports
+        (getIntegratorParameters) and setState writes."""
+        return ("dt",)
+
+    def _named_params(self) -> tuple:
+        """(offset in deps.params, _param_names) of the parameters that
+        getState reports: all of them but in a CompoundIntegrator."""
+        return 0, self._param_names()
+
     def _dt_index(self) -> int:
         """Where the step size of the next step lies in deps.params."""
         return 0

@@ -79,6 +79,10 @@ class CompoundIntegrator(Integrator):
     def _dt_index(self) -> int:
         return self._offsets()[self._current] + self._member()._dt_index()
 
+    def _named_params(self) -> tuple:
+        """The current member's, as the JAX package reports them."""
+        return self._offsets()[self._current], self._member()._param_names()
+
     def _program_key(self):
         return self._current
 

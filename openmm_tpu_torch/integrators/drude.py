@@ -129,6 +129,10 @@ class DrudeLangevinIntegrator(_DrudeBase):
         return (self._step_size, self._temperature, self._friction,
                 self._drude_temperature, self._drude_friction)
 
+    def _param_names(self) -> tuple:
+        return ("dt", "temperature", "friction", "drudeTemperature",
+                "drudeFriction")
+
     def _make_step_fn(self, deps: StepDeps):
         pairs, sel = self._pairs(deps)
         inv_m = deps.inv_masses
@@ -277,6 +281,10 @@ class DrudeNoseHooverIntegrator(_DrudeBase):
     def _params(self) -> tuple:
         return (self._step_size, self._temperature, self._frequency,
                 self._drude_temperature, self._drude_frequency)
+
+    def _param_names(self) -> tuple:
+        return ("dt", "temperature", "frequency", "drudeTemperature",
+                "drudeFrequency")
 
     def _init_state(self, deps: StepDeps) -> None:
         m = self._chain_length

@@ -55,6 +55,9 @@ class _Stochastic(Integrator):
     def _params(self) -> tuple:
         return (self._step_size, self._friction, self._temperature)
 
+    def _param_names(self) -> tuple:
+        return ("dt", "friction", "temperature")
+
 
 def _noise(deps, pos):
     return torch.randn(pos.shape, generator=deps.generator, dtype=pos.dtype,

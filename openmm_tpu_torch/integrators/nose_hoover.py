@@ -300,6 +300,13 @@ class NoseHooverIntegrator(Integrator):
                     th["rel_temperature"], th["rel_frequency"]]
         return tuple(out)
 
+    def _param_names(self) -> tuple:
+        out = ["dt"]
+        for i in range(len(self._thermostats)):
+            out += ["temperature%d" % i, "frequency%d" % i,
+                    "rtemperature%d" % i, "rfrequency%d" % i]
+        return tuple(out)
+
     def _kinetic_energy_shift(self) -> float:
         return 0.0
 

@@ -178,6 +178,9 @@ class RPMDIntegrator(Integrator):
     def _params(self) -> tuple:
         return (self._step_size, self._temperature, self._friction)
 
+    def _param_names(self) -> tuple:
+        return ("dt", "temperature", "friction")
+
     def _kinetic_energy_shift(self) -> float:
         return 0.0
 

@@ -104,6 +104,9 @@ class VariableVerletIntegrator(_Variable):
     def _params(self) -> tuple:
         return (self._step_size, self._error_tol, self._max_step_size)
 
+    def _param_names(self) -> tuple:
+        return ("dt", "errorTol", "maxStepSize")
+
     def _make_step_fn(self, deps: StepDeps):
         inv_m = deps.inv_masses[:, None]
         pick = self._stepper(deps)
@@ -139,6 +142,9 @@ class VariableLangevinIntegrator(_Variable):
     def _params(self) -> tuple:
         return (self._step_size, self._friction, self._temperature,
                 self._error_tol, self._max_step_size)
+
+    def _param_names(self) -> tuple:
+        return ("dt", "friction", "temperature", "errorTol", "maxStepSize")
 
     def _make_step_fn(self, deps: StepDeps):
         inv_m = deps.inv_masses[:, None]

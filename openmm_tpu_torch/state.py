@@ -6,7 +6,9 @@ Quantities as the JAX State's do, and getPositions, getVelocities and
 getForces return a list of Vec3s, or with asNumpy=True an array, in a
 Quantity. The time, the step count, the box and what getState was asked
 for: positions, velocities, forces, energies, the global parameters and
-the energy parameter derivatives.
+the energy parameter derivatives, and the integrator's parameters (the
+JAX package's _integrator_params: "dt", and "temperature", "friction" and
+the like by integrator).
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ class State:
     def __init__(self, time=0.0, step=0, box=None, positions=None,
                  velocities=None, forces=None, potential_energy=None,
                  kinetic_energy=None, parameters=None,
-                 parameter_derivatives=None):
+                 parameter_derivatives=None, integrator_parameters=None):
         self._time = float(time)
         self._step = int(step)
         self._box = box
@@ -40,6 +42,7 @@ class State:
         self._ke = kinetic_energy
         self._parameters = parameters
         self._derivatives = parameter_derivatives
+        self._integrator_parameters = integrator_parameters
 
     @staticmethod
     def _need(value, what):
@@ -99,10 +102,10 @@ class State:
         return dict(self._need(self._derivatives, "parameter derivatives"))
 
     def getIntegratorParameters(self) -> dict:
-        """The port's integrators keep no parameters apart from the
-        Context's; the State holds none (the JAX State raises alike when
-        none were requested)."""
-        raise ValueError("integrator parameters were not requested")
+        """{name: value} of the integrator's parameters as the step reads
+        them (getState(getIntegratorParameters=True))."""
+        return dict(self._need(self._integrator_parameters,
+                               "integrator parameters"))
 
     def getDataTypes(self) -> int:
         """The flags of the data this State holds."""
@@ -110,7 +113,8 @@ class State:
                 (self._velocities, State.Velocities),
                 (self._forces, State.Forces), (self._ke, State.Energy),
                 (self._parameters, State.Parameters),
-                (self._derivatives, State.ParameterDerivatives))
+                (self._derivatives, State.ParameterDerivatives),
+                (self._integrator_parameters, State.IntegratorParameters))
         types = 0
         for value, flag in held:
             if value is not None:

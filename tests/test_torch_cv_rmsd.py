@@ -17,8 +17,8 @@ torch.autograd of the same RMSD through torch.linalg.eigvalsh (1e-12 of
 the largest force), the Newton root against eigvalsh (1e-12 relative).
 Ten steps at 0 K against the JAX "Reference" Context (1e-9 nm);
 updateParametersInContext; steering r0 by setParameter without a new
-capture; the step body on fake tensors; the refusal of a periodic
-NonbondedForce as a variable; from_numpy/to_numpy of the CV with its
+capture; the step body on fake tensors; a periodic (PME) NonbondedForce
+as a variable against the JAX "Reference" platform; from_numpy/to_numpy of the CV with its
 variables; chip_smoke.py's phase_rmsd_cv rehearsed on the CPU.
 """
 import numpy as np
@@ -263,16 +263,31 @@ def test_step_body_reads_nothing_from_the_device(case):
 
 
 def test_periodic_nonbonded_variable_is_refused(case):
+    """A periodic (PME) NonbondedForce as the CV's variable, with its
+    global parameter and particle offsets, once refused: its energy,
+    forces and the offsets' parameter derivative against the JAX
+    "Reference" platform, the variable's candidate state built under the
+    Context's gate."""
     params = dict(case[0])
     cv = _specs(params, case[1], case[2])[1]
     nb = dict(cv["variables"][3][1], method="PME")
     cv["variables"] = [("nb", nb)]
-    cv["energy"] = "nb"
-    cv["derivatives"] = []
+    cv["energy"] = "0.5*nb"
+    cv["globals"] = [("qscale", 0.5)]
+    cv["derivatives"] = ["qscale"]
     params["custom_forces"] = [cv]
-    with pytest.raises(NotImplementedError, match="candidate state"):
-        omm.Context(omm.from_numpy(params), omm.VerletIntegrator(0.001),
-                    "CPU")
+    ctx = omm.Context(omm.from_numpy(params), omm.VerletIntegrator(0.001),
+                      "CPU", {"Precision": "double"})
+    ctx.setPositions(case[1])
+    jctx = mm.Context(jax_system(params), mm.VerletIntegrator(0.001),
+                      mm.Platform.getPlatformByName("Reference"))
+    jctx.setPositions(case[1])
+    assert [m.tiled for m in ctx._custom] == [ctx._cv_nonbondeds]
+    assert ctx._candidates is ctx._cv_nonbondeds[0]
+    want = _reading(jctx, 2, jax=True)
+    assert abs(want[0]) > 1e-3
+    _close(_reading(ctx, 2), want)
+    assert ctx.rebuild_count == 1
 
 
 def test_from_numpy_round_trip(case):

@@ -10,8 +10,10 @@ StateDataReporter, a DCDReporter and a PDBReporter every 5 steps.
 - the PDB trajectories are equal;
 - a checkpoint that CheckpointReporter writes mid-run, loaded into a new
   Simulation, continues bit for bit;
-- the paths through XmlSerializer and the default platform without a card
-  raise, and so does a force field with a Drude section."""
+- the paths through XmlSerializer run: a System and an Integrator from
+  XML files, state=, saveState/loadState (also across the packages, both
+  ways), CheckpointReporter(writeState=True), runForClockTime(stateFile=);
+  the default platform without a card raises."""
 import gc
 import io
 import os
@@ -159,24 +161,49 @@ def test_checkpoint_continues_bitwise(tmp_path):
 
 
 def test_refusals(tmp_path):
+    """The XmlSerializer paths that raised before the port had a
+    serializer now run: a System and an Integrator given as files, state=,
+    saveState and loadState (the run continues bit for bit from the
+    State), CheckpointReporter(writeState=True); the default platform
+    without a card still raises, and the Drude force fields load."""
     system, pos = tip3p_water_box(27)
     top = port_topology(_water_topology(
         27, plain(system.getDefaultPeriodicBoxVectors())))
     cpu = omm.Platform.getPlatformByName("CPU")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        papp.Simulation(top, "system.xml", omm.VerletIntegrator(0.001),
-                        cpu)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        papp.Simulation(top, system, omm.VerletIntegrator(0.001), cpu,
-                        state="state.xml")
+    for name, obj in (("system.xml", system),
+                      ("integrator.xml", omm.VerletIntegrator(0.001))):
+        with open(str(tmp_path / name), "w") as f:
+            f.write(omm.XmlSerializer.serialize(obj))
     sim = _port_simulation(top, system, pos)
-    for call in (sim.saveState, sim.loadState):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-            call(str(tmp_path / "state.xml"))
+    sim.context.setVelocitiesToTemperature(300 * pu.kelvin, 3)
+    sim.step(5)
+    state = str(tmp_path / "state.xml")
+    sim.saveState(state)
+    again = papp.Simulation(top, str(tmp_path / "system.xml"),
+                            str(tmp_path / "integrator.xml"), cpu,
+                            {"Precision": "double"}, state=state)
+    assert type(again.integrator) is omm.VerletIntegrator
+    assert again.system.getNumParticles() == system.getNumParticles()
+    assert again.context.getStepCount() == 5
+    # a State set drops the candidate state, which the next step builds
+    # anew: the run compared sets its own State too
+    sim.loadState(state)
+    for run in (sim, again):
+        run.step(5)
+    got, want = (r.context.getState(getPositions=True, getVelocities=True)
+                 for r in (again, sim))
+    np.testing.assert_array_equal(plain(got.getPositions(asNumpy=True)),
+                                  plain(want.getPositions(asNumpy=True)))
+    np.testing.assert_array_equal(plain(got.getVelocities(asNumpy=True)),
+                                  plain(want.getVelocities(asNumpy=True)))
+    sim.loadState(state)
+    assert sim.currentStep == 5 and sim.context.getStepCount() == 5
     sim.reporters.append(papp.CheckpointReporter(
-        str(tmp_path / "state.xml"), 1, writeState=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        sim.step(1)
+        str(tmp_path / "reported.xml"), 1, writeState=True))
+    sim.step(1)
+    with open(str(tmp_path / "reported.xml")) as f:
+        reported = omm.XmlSerializer.deserialize(f.read())
+    assert reported.getStepCount() == 6
     # the Drude force fields load since the Drude slice
     drude = os.path.join(os.path.dirname(japp.__file__), "data",
                          "swm4ndp.json")
@@ -186,6 +213,94 @@ def test_refusals(tmp_path):
         with pytest.raises(RuntimeError, match="CUDA"):
             papp.Simulation(top, system, omm.VerletIntegrator(0.001))
 
+
+def _jax_simulation(jtop, jsys, jpos):
+    sim = japp.Simulation(jtop, jsys, mm.VerletIntegrator(0.001),
+                          mm.Platform.getPlatformByName("Reference"))
+    sim.context.setPositions(jpos)
+    return sim
+
+
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+def test_state_files_cross_between_packages(tmp_path, direction):
+    """A saveState of one package's Simulation loads with the other's
+    loadState: the same step count, time, positions and velocities, bit
+    for bit, and the integrator's parameters."""
+    jsys, jpos = jax_water_box(27)
+    psys, ppos = tip3p_water_box(27)
+    jtop = _water_topology(27, plain(psys.getDefaultPeriodicBoxVectors()))
+    sims = {"jax": _jax_simulation(jtop, jsys, jpos),
+            "port": _port_simulation(port_topology(jtop), psys, ppos)}
+    source, target = direction.split("_to_")
+    sims[source].step(7)
+    path = str(tmp_path / "state.xml")
+    sims[source].saveState(path)
+    sims[target].loadState(path)
+    assert sims[target].currentStep == 7
+    states = {k: s.context.getState(getPositions=True, getVelocities=True,
+                                    getIntegratorParameters=True)
+              for k, s in sims.items()}
+    assert states["port"].getStepCount() == states["jax"].getStepCount() == 7
+    assert plain(states["port"].getTime()) == float(
+        states["jax"].getTime()._value)
+    for getter in ("getPositions", "getVelocities"):
+        np.testing.assert_array_equal(
+            plain(getattr(states["port"], getter)(asNumpy=True)),
+            np.asarray(getattr(states["jax"], getter)(asNumpy=True)._value,
+                       np.float64))
+    assert states["port"].getIntegratorParameters() == {
+        k: float(v) for k, v in
+        states["jax"].getIntegratorParameters().items()}
+
+
+def test_checkpoint_reporter_writes_states(tmp_path):
+    """CheckpointReporter(writeState=True) every 4 steps: the file holds
+    the State of the last report, and a new Simulation that loads it
+    gives the bits of the run that loads it at that step."""
+    system, pos = tip3p_water_box(27)
+    top = port_topology(_water_topology(
+        27, plain(system.getDefaultPeriodicBoxVectors())))
+    sim = _port_simulation(top, system, pos)
+    sim.context.setVelocitiesToTemperature(300 * pu.kelvin, 9)
+    path = str(tmp_path / "run.xml")
+    sim.reporters.append(papp.CheckpointReporter(path, 4, writeState=True))
+    sim.step(10)
+    with open(path) as f:
+        text = f.read()
+    assert omm.XmlSerializer.deserialize(text).getStepCount() == 8
+    # the run compared sets the State at step 8 too (a State set drops the
+    # candidate state, which the next step builds anew)
+    sim.reporters.clear()
+    sim.loadState(io.StringIO(text))
+    sim.step(2)
+    want = sim.context.getState(getPositions=True, getVelocities=True)
+    again = _port_simulation(top, system, pos)
+    again.loadState(io.StringIO(text))
+    assert again.currentStep == 8
+    again.step(2)
+    got = again.context.getState(getPositions=True, getVelocities=True)
+    np.testing.assert_array_equal(plain(got.getPositions(asNumpy=True)),
+                                  plain(want.getPositions(asNumpy=True)))
+    np.testing.assert_array_equal(plain(got.getVelocities(asNumpy=True)),
+                                  plain(want.getVelocities(asNumpy=True)))
+
+
+def test_run_for_clock_time_saves_states(tmp_path):
+    """runForClockTime(stateFile=) leaves a State of its last step."""
+    system, pos = tip3p_water_box(27)
+    top = port_topology(_water_topology(
+        27, plain(system.getDefaultPeriodicBoxVectors())))
+    sim = _port_simulation(top, system, pos)
+    path = str(tmp_path / "clock.xml")
+    sim.runForClockTime(0.3 * pu.seconds, stateFile=path,
+                        checkpointInterval=0.1)
+    with open(path) as f:
+        state = omm.XmlSerializer.deserialize(f.read())
+    assert state.getStepCount() == sim.currentStep > 0
+    np.testing.assert_array_equal(
+        plain(state.getPositions(asNumpy=True)),
+        plain(sim.context.getState(getPositions=True).getPositions(
+            asNumpy=True)))
 
 
 def test_run_for_clock_time_saves_checkpoints(tmp_path):

@@ -189,3 +189,20 @@ def test_chip_smoke_gromacs_and_tempering_phases_on_cpu(main_path):
         3 * main_path["context"].getSystem().getNumParticles() // 3
     tempering = chip_smoke.phase_tempering(cpu, gromacs, steps=50)
     assert len(tempering["visited"]) == 2
+
+
+def test_chip_smoke_serialization_and_cv_phases_on_cpu(main_path):
+    """phase_serialization (the XML round trip of the rehearsed box: a
+    Simulation from its System, integrator and State files gives the
+    original Context's bits, before and after loading the State its
+    CheckpointReporter wrote) with the host part on a 3-lipid cluster,
+    then phase_cv_nonbonded (the box's PME force as a CV's variable)."""
+    from openmm_tpu_torch.models import popc_obc_cluster
+    cpu = torch.device("cpu")
+    host = chip_smoke.serialization_round_trip(lambda: popc_obc_cluster(3))
+    assert host["system"]["bytes"] > 0 and "NonbondedForce" in host["forces"]
+    xml = chip_smoke.phase_serialization(cpu, main_path, host=host, steps=8)
+    assert xml["bytes"] > 0
+    cv = chip_smoke.phase_cv_nonbonded(cpu, main_path, steps=20, chunk=10,
+                                       replay=3, turn_steps=2)
+    assert cv["rebuilds"] >= 1 and cv["e_err"] <= chip_smoke.CV_ENERGY_BAR

@@ -574,3 +574,59 @@ def test_exports():
         assert getattr(T, name) is getattr(ti, name)
     for name in ("OpenMMException", "TabulatedFunction"):
         assert hasattr(J, name) and hasattr(T, name)
+
+
+# -- integrator parameters in a State (ROADMAP Queue C's C10) ---------------
+def _drude_pair(pkg):
+    """An oxygen-like particle and its Drude particle on a spring."""
+    system = pkg.System()
+    system.addParticle(15.6)
+    system.addParticle(0.4)
+    drude = pkg.DrudeForce()
+    drude.addParticle(1, 0, -1, -1, -1, -1.1, 0.001, 1.0, 1.0)
+    system.addForce(drude)
+    return system
+
+
+_INTEGRATOR_CASES = {
+    "LangevinMiddleIntegrator": lambda pkg: pkg.LangevinMiddleIntegrator(
+        310.0, 2.0, 0.002),
+    "VerletIntegrator": lambda pkg: pkg.VerletIntegrator(0.0015),
+    "DrudeLangevinIntegrator": lambda pkg: pkg.DrudeLangevinIntegrator(
+        300.0, 1.5, 1.0, 20.0, 0.001),
+    "CustomIntegrator": lambda pkg: _build(pkg, "CustomIntegrator"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_INTEGRATOR_CASES))
+def test_integrator_parameters_match(name):
+    """getState(getIntegratorParameters=True) gives the JAX dict, and a
+    setState of a modified dict is what the next getState reads, in both
+    packages."""
+    out = []
+    for pkg, platform in ((J, "Reference"), (T, "CPU")):
+        system = (_drude_pair(pkg) if name.startswith("Drude")
+                  else _water_pair(pkg, platform).getSystem())
+        ctx = pkg.Context(system, _INTEGRATOR_CASES[name](pkg),
+                          pkg.Platform.getPlatformByName(platform))
+        ctx.setPositions([pkg.Vec3(0.1 * i, 0.05 * i, 0.0)
+                          for i in range(system.getNumParticles())])
+        st = ctx.getState(getIntegratorParameters=True)
+        assert st.getDataTypes() & pkg.State.IntegratorParameters
+        first = st.getIntegratorParameters()
+        changed = {k: 1.25 * v for k, v in first.items()}
+        changed_state = pkg.State(**(
+            {"integratorParams": changed, "boxVectors": st._box}
+            if pkg is J else {"integrator_parameters": changed,
+                              "box": st._box}))
+        ctx.setState(changed_state)
+        out.append((first, ctx.getState(
+            getIntegratorParameters=True).getIntegratorParameters(),
+            changed))
+    (jfirst, jback, jchanged), (tfirst, tback, tchanged) = out
+    assert set(tfirst) == set(jfirst)
+    for key, value in jfirst.items():
+        _same(tfirst[key], float(value), "%s %s" % (name, key))
+    assert jback == jchanged and tback == tchanged
+    with pytest.raises(ValueError, match="integrator parameters"):
+        T.State().getIntegratorParameters()
