@@ -156,11 +156,17 @@ comes out:
   loop's bits, the SCF's residual and the peak memory), generalized
   Kirkwood on ACE-(ALA)247-NME (phase_amoeba_gk, amoebagk's ~2,490
   atoms) and HIPPO on a 512-water cluster (phase_hippo), each against
-  float64 and a few steps (GK's through the eager loop). The peptide's
-  build, minimization and relaxation, GK and HIPPO run in children
-  forked at the start (fork_helper), beside the build, the kernel
-  phases and the examples, which time no device work, and so does the
-  helix in POPC (write_membrane: its build and phase_modeller_membrane);
+  float64 and a few steps (GK's through the eager loop). The three run
+  in children forked at the start (fork_helper), beside the build, the
+  kernel phases and the examples, which time no device work. The
+  AMOEBA-PME phase goes past its relaxation once GK's child has ended:
+  its float64 check and steps run beside the script's phases that need
+  no main path (minimize, ewald, gbsa, customgb, tip4pew and MTS
+  tip4pew, whose ms a step share the card with it), its timed replay
+  alone while the script waits for it before its main path, and the
+  script times kernels 4-5 at its shapes at the end. The helix in POPC
+  runs in a forked child too (write_membrane: its build and
+  phase_modeller_membrane);
 - Drude and RPMD: kernels 1-3 at the shapes of a SWM4-NDP box built as
   users build it (Modeller.addSolvent and addExtraParticles with
   ForceField("swm4ndp.json"), PME 0.9 nm, rigid water; ~24,000
@@ -189,7 +195,21 @@ comes out:
   200 steps with the variable's candidate state under the step
   program's gate (kernels 1-3 every step), the eager loop's bits, ms a
   step against the plain Context in turns; both paths' launches go into
-  launches_new_paths.
+  launches_new_paths;
+- the mesh (openmm_tpu_torch.parallel, one card): kernel 1 in each
+  instantiation on the row-brick ranges of 2, 4 and 8 ranks, their rows
+  put together the whole launch's bits, a half range timed against the
+  whole (phase_mesh_kernels); the water box on a one-rank NCCL mesh
+  (a FileStore group of world size 1), 100 steps through the step program
+  with the gather captured, the plain Context's bits, the first 25 the
+  eager loop's, ms a step against the plain Context in turns
+  (phase_mesh_nccl);
+  two gloo ranks sharing the card (children forked at the start,
+  ForkedRanks, each running parallel/ranks.py's water_box task after the
+  build), 20 eager steps, each rank's positions and energy the
+  single-process run's bits and its graph capture refused
+  (phase_mesh_ranks); kernel 1's record carries
+  the ranges' check ("mesh") and the mesh paths' launches.
 
 It imports nothing of JAX or of openmm_tpu.
 
@@ -208,10 +228,12 @@ Without a CUDA device it exits non-zero before printing any result.
 from __future__ import annotations
 
 import atexit
+import gc
 import importlib
 import io
 import json
 import math
+import pickle
 import statistics
 import subprocess
 import sys
@@ -228,10 +250,7 @@ from openmm_tpu_torch import step_program
 from openmm_tpu_torch.context import MAX_ESCALATIONS, STEP_CHUNK
 from openmm_tpu_torch.forces.nonbonded import NonbondedModule
 from openmm_tpu_torch.integrators.drude import SCF_ITERATIONS
-from openmm_tpu_torch.models import (alchemical_water_box, builders,
-                                     popc_bilayer, popc_obc_cluster,
-                                     tip3p_water_box, tip4pew_water_box,
-                                     water_droplet)
+from openmm_tpu_torch.models import builders, popc_bilayer, water_droplet
 from openmm_tpu_torch.models.builders import (ALCHEMICAL_GROUPS,
                                               TWIN_GROUPS,
                                               TWIN_INTEGRATION_GROUPS,
@@ -239,6 +258,9 @@ from openmm_tpu_torch.models.builders import (ALCHEMICAL_GROUPS,
 from openmm_tpu_torch.ops import geometry as geom
 from openmm_tpu_torch.ops import pallas_pme, pme_zslab, tile_pairs
 from openmm_tpu_torch.ops import pme as pme_mod
+from openmm_tpu_torch.parallel import (make_mesh, ranks,
+                                       set_default_mesh)
+from openmm_tpu_torch.parallel.mesh import row_split
 from openmm_tpu_torch.platform import set_fp32_matmul_exact
 from openmm_tpu_torch.profile_step import custom_verlet
 from openmm_tpu_torch.unit import plain as in_md
@@ -372,6 +394,7 @@ GBSA_GROUPS = {"NonbondedForce": 0, "GBSAOBCForce": 1,
                "PeriodicTorsionForce": 2, "CMMotionRemover": 3}
 GBSA_TEMPERATURE = 300.0
 GBSA_MINIMIZE_ITERATIONS = 5
+GBSA_LIPIDS = 19                # of models.popc_obc_cluster's cluster
 GBSA_STEPS = 100
 GBSA_RELAX_FRICTION = 10.0
 GBSA_REPLAY = 5
@@ -628,6 +651,48 @@ def phase_build(deadline) -> float:
         print("  ptxas: %s" % line[:110])
     _build.library()
     return seconds
+
+
+_BUILT = {}
+
+
+def _fresh(builder, *args, **kwargs):
+    """builder(*args, **kwargs), built once for each set of arguments and
+    handed out as a fresh copy (a pickle's): the phases add forces to the
+    System they get, and a build of the 24,000-atom water box takes ~10
+    times the host time of a copy."""
+    key = (builder.__name__, args, tuple(sorted(kwargs.items())))
+    if key not in _BUILT:
+        _BUILT[key] = pickle.dumps(builder(*args, **kwargs))
+    return pickle.loads(_BUILT[key])
+
+
+def tip3p_water_box(*args, **kwargs) -> tuple:
+    return _fresh(builders.tip3p_water_box, *args, **kwargs)
+
+
+def tip4pew_water_box(*args, **kwargs) -> tuple:
+    return _fresh(builders.tip4pew_water_box, *args, **kwargs)
+
+
+def alchemical_water_box(*args, **kwargs) -> tuple:
+    return _fresh(builders.alchemical_water_box, *args, **kwargs)
+
+
+def popc_obc_cluster(*args, **kwargs) -> tuple:
+    return _fresh(builders.popc_obc_cluster, *args, **kwargs)
+
+
+def prebuild(n_waters=N_WATERS) -> None:
+    """The models the phases after the helpers' join build, built while
+    the script waits for the helpers (host work only; _fresh keeps them),
+    with the arguments those phases pass."""
+    tip3p_water_box(n_waters)
+    tip3p_water_box(n_waters, nonbonded_method=omm.NonbondedForce.
+                    CutoffPeriodic, cutoff=RF_CUTOFF)
+    tip4pew_water_box(TIP4PEW_WATERS)
+    alchemical_water_box(n_waters, ALCHEMICAL_SOLUTE)
+    popc_obc_cluster(GBSA_LIPIDS)
 
 
 def water_box(n_waters, sheared=False):
@@ -1250,9 +1315,9 @@ class _Iterations(omm.MinimizationReporter):
 
 def _constraint_error(system, positions) -> float:
     """Largest |r - d| / d over the System's constraints."""
-    cons = [in_md(system.getConstraintParameters(i))
-            for i in range(system.getNumConstraints())]
-    p1, p2, d = (np.asarray(c) for c in zip(*cons))
+    cons = np.asarray(system._constraints, np.float64).reshape(-1, 3)
+    p1, p2 = cons[:, :2].astype(np.int64).T
+    d = cons[:, 2]
     r = np.linalg.norm(positions[p1] - positions[p2], axis=1)
     return float(np.max(np.abs(r - d) / d))
 
@@ -1733,7 +1798,6 @@ def app_bilayer_build(patch=None, reference=None) -> dict:
 def write_app_build(path) -> None:
     """app_bilayer_build and more_custom_references pickled to `path` (a
     process of its own that sees no card, beside the kernel phases)."""
-    import pickle
     out = (app_bilayer_build(), more_custom_references())
     with open(path, "wb") as f:
         pickle.dump(out, f)
@@ -2479,6 +2543,7 @@ NICE = 10
 # host builds (Modeller, createSystem) spent a quarter of their time in
 # full collections of a heap that the imports had filled
 GC_WINDOW_THRESHOLDS = (50000, 20, 10)
+GC_THRESHOLDS = gc.get_threshold()      # the interpreter's own
 
 
 def _exec_example(name, text) -> None:
@@ -3088,7 +3153,8 @@ def phase_ewald(device, deadline=None, n_waters=EWALD_WATERS,
                         friction=50.0)
 
 
-def phase_gbsa(device, deadline=None, lipids=19, steps=GBSA_STEPS,
+def phase_gbsa(device, deadline=None, lipids=GBSA_LIPIDS,
+               steps=GBSA_STEPS,
                replay=GBSA_REPLAY, energy_every=ENERGY_EVERY,
                minimize_iterations=GBSA_MINIMIZE_ITERATIONS) -> dict:
     """The implicit-solvent cluster (popc_obc_cluster(lipids)) on a
@@ -4790,7 +4856,8 @@ def _platform_context(device, system, integ, precision=None):
     return omm.Context(system, integ, "CPU", props)
 
 
-def phase_customgb(device, deadline=None, lipids=19, model=GB_MODEL,
+def phase_customgb(device, deadline=None, lipids=GBSA_LIPIDS,
+                   model=GB_MODEL,
                    steps=GB_STEPS, replay=GB_REPLAY,
                    iterations=GB_MINIMIZE_ITERATIONS,
                    t_range=GB_T_RANGE) -> dict:
@@ -5309,15 +5376,15 @@ AMOEBA_SLOW = ("AmoebaMultipoleForce", "AmoebaVdwForce",
                "AmoebaGeneralizedKirkwoodForce", "AmoebaWcaDispersionForce")
 # the lattice start's relaxation: (step ps, friction 1/ps, steps) of
 # LangevinMiddle with Extrapolated polarization, as the water box's RELAX
-AMOEBA_RELAX = (0.001, 100.0, 60)
-AMOEBA_MINIMIZE_ITERATIONS = 2
+AMOEBA_RELAX = (0.001, 100.0, 40)
+AMOEBA_MINIMIZE_ITERATIONS = 1
 AMOEBA_STEPS = 2
 AMOEBA_REPLAY = 1
 AMOEBA_T_RANGE = (250.0, 360.0)
 AMOEBA_ENERGY_BAR = 1e-5        # relative, each group's energy
 SECOND_ORDER_TOL = 1e-5         # kernel 5's VJP against autograd's
 GK_ALANINES = 247               # ~2,490 atoms, amoebagk's DHFR size
-GK_STEPS = 2
+GK_STEPS = 1
 HIPPO_WATERS = 512
 HIPPO_DT = 0.0005
 HIPPO_STEPS = 3
@@ -5328,7 +5395,6 @@ def _release(device) -> None:
     captured graphs' memory (the AMOEBA steps keep autograd's tensors in
     the graph's pool: ~12 GB at 24,000 atoms, more for GK's dense
     tensors) before the next phase."""
-    import gc
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -5392,7 +5458,6 @@ def _amoeba_gk_system(n_ala, platform):
 def write_amoeba_gk(path) -> None:
     """phase_amoeba_gk on the card, its result pickled to `path`: a
     forked helper (fork_helper)."""
-    import pickle
     t0 = since_start()
     set_fp32_matmul_exact()
     device = torch.device("cuda", 0)
@@ -5408,7 +5473,6 @@ def write_amoeba_gk(path) -> None:
 def write_hippo(path) -> None:
     """phase_hippo on the card, its result pickled to `path`: a forked
     helper (fork_helper)."""
-    import pickle
     t0 = since_start()
     set_fp32_matmul_exact()
     device = torch.device("cuda", 0)
@@ -5421,23 +5485,38 @@ def write_hippo(path) -> None:
               torch.cuda.max_memory_reserved(device) / 1e9))
 
 
-def write_amoeba_prep(path) -> None:
-    """phase_amoeba_pme's System built (Modeller, createSystem), minimized
-    and relaxed on the card (_amoeba_pme_prepare), pickled to `path` as
-    (topology, positions, System, Modeller s, createSystem s, the
-    preparation's result): a forked helper (fork_helper)."""
-    import pickle
+def write_amoeba_pme(path) -> None:
+    """phase_amoeba_pme on the card, from the peptide's build to its
+    steps' replay, its result pickled to `path`: a forked helper
+    (fork_helper). After the relaxation it waits for the file
+    `path`.check, which the script writes once GK's helper has ended (the
+    float64 check beside GK's capture ran the card out of memory), then
+    collects at the interpreter's own thresholds (the start's window kept
+    ~64 GB of the card); its float64 check and steps run beside the
+    script's phases that need no main path (_main). Before its timed
+    replay it waits for `path`.timing, which the script writes when those
+    phases are done and it waits for this helper; the script times the
+    kernels' records itself, alone on the card, at its end."""
+    import os
     t0 = since_start()
     set_fp32_matmul_exact()
     device = torch.device("cuda", 0)
-    modeller, system, build_s, create_s = _amoeba_pme_system(
-        HELIX_ALANINES, AMOEBA_BOX, None)
-    prep = _amoeba_pme_prepare(device, modeller, system,
-                               AMOEBA_MINIMIZE_ITERATIONS, AMOEBA_RELAX)
+
+    def ready(stage, timeout=600.0):
+        start = time.perf_counter()
+        while not os.path.exists(path + "." + stage):
+            if time.perf_counter() - start > timeout:
+                raise RuntimeError("amoeba pme: no %s from the script "
+                                   "after %.0f s" % (stage, timeout))
+            time.sleep(0.02)
+        if stage == "check":
+            gc.set_threshold(*GC_THRESHOLDS)
+            _release(device)
+
+    out = phase_amoeba_pme(device, ready=ready)
     with open(path, "wb") as f:
-        pickle.dump((modeller.topology, modeller.positions, system, build_s,
-                     create_s, prep), f)
-    print("helper write_amoeba_prep: %.1f to %.1f s of the script's clock, "
+        pickle.dump(out, f)
+    print("helper write_amoeba_pme: %.1f to %.1f s of the script's clock, "
           "peak device memory reserved %.1f GB" % (
               t0, since_start(),
               torch.cuda.max_memory_reserved(device) / 1e9))
@@ -5534,10 +5613,10 @@ def fork_helper(fn, nice=0) -> list:
     """[process, pickle path, its directory]: fn(path) in a Forked child
     with one intra-op thread (it shares the card host's cores with the
     script and the examples) and `nice`: write_amoeba_gk,
-    write_amoeba_prep and write_hippo, forked before the script touches
-    the card and run beside the build, the kernel phases, the membrane's
-    build and the examples, which time no device work. Killed at exit if
-    not joined."""
+    write_amoeba_pme, write_hippo and the Drude, RPMD and membrane
+    paths, forked before the script touches the card and run beside the
+    build, the kernel phases and the examples, which time no device
+    work. Killed at exit if not joined."""
     import os
     import tempfile
 
@@ -5589,7 +5668,6 @@ def join_helper(started, label) -> tuple:
     """(what the helper of fork_helper or start_helper pickled, seconds
     waited): the process waited for, its output printed, its result
     read; raises, naming `label`, with its error output if it failed."""
-    import pickle
     import shutil
     proc, path, tmp = started
     t0 = time.perf_counter()
@@ -5843,9 +5921,7 @@ def _amoeba_pme_prepare(device, modeller, system, minimize_iterations,
     integrator, minimizeEnergy (the energy must fall; raises), then the
     lattice start relaxed (_amoeba_relax). Returns the energies before
     and after, the seconds, and the relaxed positions, velocities and
-    temperature for the MD. (The float64 check stays in the phase: in
-    this process, beside GK's capture in another, it ran the card out of
-    memory.)"""
+    temperature for the MD."""
     from openmm_tpu_torch import app
     deadline = deadline or Deadline(math.inf)
     platform = (None if device.type == "cuda"
@@ -5862,7 +5938,8 @@ def _amoeba_pme_prepare(device, modeller, system, minimize_iterations,
     minimize_s = time.perf_counter() - t0
     e1 = in_md(ctx.getState(getEnergy=True).getPotentialEnergy())
     print("amoeba pme: minimizeEnergy(maxIterations=%d) %.6f -> %.6f "
-          "kJ/mol in %.2f s" % (minimize_iterations, e0, e1, minimize_s))
+          "kJ/mol in %.2f s (to %.1f s of the script's clock)" % (
+              minimize_iterations, e0, e1, minimize_s, since_start()))
     if not (math.isfinite(e1) and e1 < e0):
         raise RuntimeError("amoeba pme: the minimizer did not lower the "
                            "energy (%.6f -> %.6f)" % (e0, e1))
@@ -5876,8 +5953,10 @@ def _amoeba_pme_prepare(device, modeller, system, minimize_iterations,
     # the lattice start's ordering, thermalised, for the MD
     relax_s, relaxed = _amoeba_relax(system, minimized, platform, relax)
     print("amoeba pme: relaxed by %d LangevinMiddle steps of %.4f ps at "
-          "%.0f/ps with Extrapolated polarization in %.2f s; T %.1f K "
-          "after" % (relax[2], relax[0], relax[1], relax_s, relaxed[2]))
+          "%.0f/ps with Extrapolated polarization in %.2f s (to %.1f s of "
+          "the script's clock); T %.1f K after" % (
+              relax[2], relax[0], relax[1], relax_s, since_start(),
+              relaxed[2]))
     deadline.check("amoeba pme: relaxation")
     return {"e0": e0, "e1": e1, "minimize_s": minimize_s,
             "relax_s": relax_s, "positions": relaxed[0],
@@ -5888,7 +5967,7 @@ def phase_amoeba_pme(device, deadline=None, n_ala=HELIX_ALANINES,
                      box=AMOEBA_BOX, relax=AMOEBA_RELAX,
                      minimize_iterations=AMOEBA_MINIMIZE_ITERATIONS,
                      steps=AMOEBA_STEPS, replay=AMOEBA_REPLAY,
-                     t_range=AMOEBA_T_RANGE, prepared=None) -> dict:
+                     t_range=AMOEBA_T_RANGE, ready=None) -> dict:
     """The slice's path at full size: ACE-(ALA)n-NME (helix_pdb_text)
     through PDBFile and Modeller (addHydrogens, addSolvent in a cube of
     `box` nm with AMOEBA_BUILD_FORCEFIELD), the System from
@@ -5906,27 +5985,28 @@ def phase_amoeba_pme(device, deadline=None, n_ala=HELIX_ALANINES,
     launch), the temperature within `t_range`, and `replay` steps through
     the step program and the eager loop for the same bits. Prints ms a
     step, ns/day, launches a step, the SCF's residual and the peak device
-    memory. `prepared`: join_helper's result of
-    fork_helper(write_amoeba_prep), which built, minimized and relaxed it
-    beside the kernel phases; without, that is done here.
+    memory. `ready(stage)`: called with "check" between the preparation
+    and the float64 check and with "timing" before the timed replay,
+    which wait there for it (write_amoeba_pme's waits for the script).
+    The result holds the kernels' inputs (on the host) and errors for
+    their records (amoeba_kernel_records), which the caller times.
     Raises on a miss."""
     from openmm_tpu_torch import app
     deadline = deadline or Deadline(math.inf)
     cuda = device.type == "cuda"
     platform = None if cuda else omm.Platform.getPlatformByName("CPU")
-    if prepared is None:
-        modeller, system, build_s, create_s = _amoeba_pme_system(
-            n_ala, box, platform)
-        prep = _amoeba_pme_prepare(device, modeller, system,
-                                   minimize_iterations, relax, deadline)
-        wait_s = 0.0
-    else:
-        (top, pos, system, build_s, create_s, prep), wait_s = prepared
-        modeller = types.SimpleNamespace(topology=top, positions=pos)
+    modeller, system, build_s, create_s = _amoeba_pme_system(
+        n_ala, box, platform)
+    prep = _amoeba_pme_prepare(device, modeller, system,
+                               minimize_iterations, relax, deadline)
+    t0 = time.perf_counter()
+    if ready is not None:
+        ready("check")
+    wait_s = time.perf_counter() - t0
     n = system.getNumParticles()
     print("amoeba pme: %d atoms (ACE-(ALA)%d-NME in %d waters, %.1f nm "
           "box): Modeller %.2f s, createSystem %.2f s on the host (%.2f s "
-          "waited for them and the minimization); forces %s" % (
+          "waited after the relaxation); forces %s" % (
               n, n_ala, sum(r.name == "HOH"
                             for r in modeller.topology.residues()), box,
               build_s, create_s, wait_s, ", ".join(
@@ -5968,6 +6048,8 @@ def phase_amoeba_pme(device, deadline=None, n_ala=HELIX_ALANINES,
     if not t_range[0] <= temperature <= t_range[1]:
         raise RuntimeError("amoeba pme: temperature %.2f K outside %s"
                            % (temperature, t_range))
+    if ready is not None:
+        ready("timing")
     marks.append(time.perf_counter())
     graph = _md_replay(device, "amoeba pme", ctx, integ.step, replay,
                        deadline)
@@ -5981,11 +6063,10 @@ def phase_amoeba_pme(device, deadline=None, n_ala=HELIX_ALANINES,
           "last step; the eager loop's bits" % (
               graph["wall_ms_per_step"], graph["eager_ms"], graph["ns_day"],
               residual))
-    records = amoeba_kernel_records(device, tri, launches, errors)
     marks.append(time.perf_counter())
     print("amoeba pme: seconds for the float64 check %.1f, the kernel "
           "checks %.1f, the %d steps (the capture included) %.1f, the "
-          "replays %.1f, the SCF residual and the kernel timing %.1f" % (
+          "replays %.1f, the SCF residual %.1f" % (
               *np.diff(marks[:3]), steps, *np.diff(marks[2:])))
     deadline.check("amoeba pme")
     return {"atoms": n, "build_s": build_s, "create_s": create_s,
@@ -5994,7 +6075,10 @@ def phase_amoeba_pme(device, deadline=None, n_ala=HELIX_ALANINES,
             "launches": launches, "temperature": temperature,
             "ms_per_step": graph["wall_ms_per_step"],
             "eager_ms": graph["eager_ms"], "ns_day": graph["ns_day"],
-            "residual": residual, "peak_bytes": peak, "records": records,
+            "residual": residual, "peak_bytes": peak,
+            "kernel_inputs": dict(tri, fwd=[t.cpu() for t in tri["fwd"]],
+                                  bwd=[t.cpu() for t in tri["bwd"]]),
+            "kernel_errors": errors,
             "steps": steps}
 
 
@@ -6189,7 +6273,6 @@ def write_drude(path) -> None:
     SWM4-NDP box built (drude_build), kernels 1-3 held against their plain
     versions at its shapes (every Drude particle on its oxygen), then
     phase_drude; its result pickled to `path`."""
-    import pickle
     t0 = since_start()
     set_fp32_matmul_exact()
     device = torch.device("cuda", 0)
@@ -6213,7 +6296,6 @@ def write_membrane(path) -> None:
     """modeller_membrane_build and phase_modeller_membrane on the card in
     a forked helper (fork_helper), the phase's result pickled to
     `path`."""
-    import pickle
     t0 = since_start()
     set_fp32_matmul_exact()
     device = torch.device("cuda", 0)
@@ -6230,7 +6312,6 @@ def write_membrane(path) -> None:
 def write_rpmd(path) -> None:
     """phase_rpmd on the card in a forked helper (fork_helper), its
     System built there (rpmd_build), its result pickled to `path`."""
-    import pickle
     t0 = since_start()
     set_fp32_matmul_exact()
     device = torch.device("cuda", 0)
@@ -6323,7 +6404,6 @@ def serialization_round_trip(build=popc_bilayer) -> dict:
 def write_serialization(path) -> None:
     """serialization_round_trip in a helper process that sees no card
     (start_helper), its result pickled to `path`."""
-    import pickle
     t0 = since_start()
     out = serialization_round_trip()
     with open(path, "wb") as f:
@@ -6583,6 +6663,316 @@ def phase_cv_nonbonded(device, main, deadline=None, steps=CV_STEPS,
     return {"energy": e_cv, "plain_energy": e_plain, "e_err": e_err,
             "force_err": f_err, "half": e_half, "rebuilds": rebuilds,
             "temperature": temperature, "launches": launches, "ms": ms}
+
+
+# the mesh phases (openmm_tpu_torch/parallel): kernel 1 on the row-brick
+# ranges of D ranks, the water box on a one-rank NCCL mesh with the
+# gather captured, and two gloo ranks sharing the card
+MESH_SIZES = (2, 4, 8)
+MESH_STEPS = 100
+MESH_EAGER_STEPS = 25           # of them replayed through the eager loop
+MESH_TURN_STEPS = 50
+MESH_TURNS = ("plain", "mesh", "mesh", "plain")
+MESH_SEED = 23
+MESH_RANKS = 2
+MESH_RANK_STEPS = 20
+MESH_RF_DIELECTRIC = 78.3
+MESH_LJ_ALPHA = 3.0             # 1/nm, kernel 1's LJPME constants
+
+
+def _mesh_kernel_cases(inp, seed=31) -> dict:
+    """{instantiation: fn(bricks)}: kernel 1 on the main path's inputs in
+    each of its instantiations, the rows of `bricks` ((begin, end), or
+    None for all): Ewald and the reaction field (its constants at the
+    cutoff) in the energy-and-force kernel, LJPME (c6 in par4's fourth
+    slot, MESH_LJ_ALPHA, a shift, 1/rc^6), the float32-pair input (a
+    seeded low part) and the derivative instantiation (seeded dpar4)."""
+    pos4, par4, cand, count, words, consts = inp["tiles"]
+    sw = inp["module"].use_switch
+    gen = torch.Generator(device=pos4.device)
+    gen.manual_seed(seed)
+    rc = float(consts[1]) ** 0.5
+    eps = MESH_RF_DIELECTRIC
+    rf = consts.clone()
+    rf[2] = (eps - 1.0) / ((2.0 * eps + 1.0) * rc ** 3)
+    rf[3] = 3.0 * eps / ((2.0 * eps + 1.0) * rc)
+    lj_par = par4.clone()
+    lj_par[:, 3] = par4[:, 2] * (2.0 * par4[:, 1]) ** 3
+    lj = consts.clone()
+    x = (MESH_LJ_ALPHA * rc) ** 2
+    lj[2] = MESH_LJ_ALPHA ** 2
+    lj[3] = -(1.0 - math.exp(-x) * (1.0 + x + 0.5 * x * x)) / rc ** 6
+    lj[15] = 1.0 / rc ** 6
+    lo = 1e-8 * torch.randn(pos4.shape, generator=gen, device=pos4.device)
+    lo[:, 3] = 0.0
+    dpar4 = torch.randn(par4.shape, generator=gen, device=pos4.device)
+    tables = (cand, count, words)
+    tiles = tile_pairs.nonbonded_tiles
+    return {
+        "ewald": lambda b: tiles(pos4, par4, *tables, consts,
+                                 tile_pairs.MODE_EWALD, sw, None, b),
+        "rf": lambda b: tiles(pos4, par4, *tables, rf, tile_pairs.MODE_RF,
+                              sw, None, b),
+        "ljpme": lambda b: tiles(pos4, lj_par, *tables, lj,
+                                 tile_pairs.MODE_LJPME, False, None, b),
+        "fine": lambda b: tiles(pos4, par4, *tables, consts,
+                                tile_pairs.MODE_EWALD, sw, lo.contiguous(),
+                                b),
+        "deriv": lambda b: tile_pairs.nonbonded_tiles_deriv(
+            pos4, par4, dpar4, *tables, consts, tile_pairs.MODE_EWALD, sw,
+            b)}
+
+
+def phase_mesh_kernels(device, inp, deadline, sizes=MESH_SIZES) -> dict:
+    """Kernel 1 on the row-brick ranges of D ranks (D in `sizes`:
+    parallel/mesh.py's split) on the main path's inputs, in each
+    instantiation (_mesh_kernel_cases): every rank's rows put together
+    (zero outside its range, added as integers, as Mesh.gather adds them)
+    must be the whole launch's bits; then kernel 1 (Ewald) timed on each
+    half of the bricks against the whole launch. Raises on a miss."""
+    n_bricks = inp["tiles"][3].shape[0]
+    cases = _mesh_kernel_cases(inp)
+    for name, fn in cases.items():
+        whole = fn(None)
+        for d in sizes:
+            total = torch.zeros_like(whole).view(torch.int32)
+            for rank in range(d):
+                total += fn(row_split(n_bricks, rank, d)).view(torch.int32)
+            if not torch.equal(total.view(whole.dtype), whole):
+                bad = int((total.view(whole.dtype) != whole).sum())
+                raise RuntimeError("mesh kernels: kernel 1 (%s) on %d ranks' "
+                                   "row ranges differs from the whole launch "
+                                   "in %d values" % (name, d, bad))
+        deadline.check("mesh kernels: %s" % name)
+    halves = [row_split(n_bricks, r, 2) for r in range(2)]
+    whole_ms, half_ms = None, [None, None]
+    if device.type == "cuda":
+        whole_ms = _time_ms(lambda: cases["ewald"](None), device)
+        half_ms = [_time_ms(lambda b=b: cases["ewald"](b), device)
+                   for b in halves]
+    print("mesh kernels: kernel 1 on the row-brick ranges of %s ranks "
+          "(%d bricks) in %s: the whole launch's bits; Ewald on the halves "
+          "%s %s and %s ms a call, the whole %s ms" % (
+              "/".join(map(str, sizes)), n_bricks, ", ".join(cases),
+              halves, *("%.4f" % t if t is not None else "not timed"
+                        for t in half_ms + [whole_ms])))
+    deadline.check("mesh kernels")
+    return {"sizes": list(sizes), "instantiations": list(cases),
+            "same_bits": True, "bricks": n_bricks, "halves": halves,
+            "half_ms": half_ms, "whole_ms": whole_ms}
+
+
+def phase_mesh_nccl(device, main, deadline=None, steps=MESH_STEPS,
+                    eager_steps=MESH_EAGER_STEPS, turn_steps=MESH_TURN_STEPS,
+                    turns=MESH_TURNS, backend="nccl") -> dict:
+    """The main path's water box on a one-rank NCCL mesh: a process group
+    of world size 1 from a FileStore in a temporary directory,
+    set_default_mesh(make_mesh()), a Context built after it and a plain
+    one beside it (LangevinMiddle, the same seed), both from the main
+    Context's positions and velocities. `steps` steps of each through the
+    step program (the mesh Context's graph with the gather captured): the
+    same bits; the first `eager_steps` of the mesh Context's steps
+    replayed from its snapshot through the eager loop and through the
+    step program: the same bits again; then ms a step of each in turns. The group is torn down after the phase. Raises on a
+    miss. (backend "gloo": the CPU tests' rehearsal.)"""
+    import os
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    deadline = deadline or Deadline(math.inf)
+    base = main["context"]
+    system = base.getSystem()
+    st = base.getState(getPositions=True, getVelocities=True)
+    pos = in_md(st.getPositions(asNumpy=True))
+    vel = in_md(st.getVelocities(asNumpy=True))
+    store = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    # one rank: the bootstrap stays on the loopback interface
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    t0 = time.perf_counter()
+    dist.init_process_group(
+        backend, store=dist.FileStore(os.path.join(store, "store"), 1),
+        rank=0, world_size=1,
+        device_id=device if backend == "nccl" else None)
+    try:
+        init_s = time.perf_counter() - t0
+        mesh = make_mesh()
+        contexts = {}
+        for label in ("mesh", "plain"):
+            set_default_mesh(mesh if label == "mesh" else None)
+            try:
+                integ = omm.LangevinMiddleIntegrator(300.0, FRICTION, DT_PS)
+                integ.setRandomNumberSeed(MESH_SEED)
+                ctx = _platform_context(device, system, integ)
+            finally:
+                set_default_mesh(None)
+            ctx.setPositions(pos)
+            ctx.setVelocities(vel)
+            contexts[label] = (ctx, integ.step)
+        ctx = contexts["mesh"][0]
+        start = ctx._snapshot()
+        for kern in KERNELS:
+            kern.launches = 0
+        graph = _production(device, ctx, contexts["mesh"][1], 0.0, steps,
+                            steps, deadline)
+        launches = _launches_since([0] * len(KERNELS))
+        plain = _production(device, contexts["plain"][0],
+                            contexts["plain"][1], 0.0, steps, steps,
+                            deadline)
+        _same_bits("mesh nccl: the mesh Context against the plain one",
+                   (graph["positions"], graph["velocities"]),
+                   (plain["positions"], plain["velocities"]))
+        ctx._restore(start)
+        eager = _production(device, ctx, ctx._step_eager, 0.0, eager_steps,
+                            eager_steps, deadline)
+        ctx._restore(start)
+        again = _production(device, ctx, contexts["mesh"][1], 0.0,
+                            eager_steps, eager_steps, deadline)
+        _same_bits("mesh nccl", (again["positions"], again["velocities"]),
+                   (eager["positions"], eager["velocities"]))
+        _same_state("mesh nccl", again, eager)
+        timed = _in_turns(device, contexts, turn_steps, turns, deadline,
+                          label="mesh nccl")
+        ms = {key: statistics.mean(v[0]) for key, v in timed.items()}
+        captures = _captures(ctx)
+        # dE/dlambda through the offsets on the mesh: kernel 1's derivative
+        # instantiation, its rows gathered
+        deriv = ranks.offsets_derivative(
+            mesh, platform="CUDA" if device.type == "cuda" else "CPU",
+            reference=True)
+    finally:
+        set_default_mesh(None)
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    print("mesh nccl: %d-atom water box on a one-rank %s mesh (init %.2f "
+          "s): %d steps through the step program with the gather captured "
+          "(%d captures), the plain Context's bits, the first %d the eager "
+          "loop's; launches %s; in turns %.4f ms a step (plain %.4f)" % (
+              system.getNumParticles(), backend, init_s, steps, captures,
+              eager_steps,
+              json.dumps(launches), ms["mesh"], ms["plain"]))
+    if device.type == "cuda" and launches.get(tile_pairs.TILES.name, 0) \
+            < steps:
+        raise RuntimeError("mesh nccl: kernel 1 launched %s times in %d "
+                           "steps" % (launches, steps))
+    got, want = deriv["mesh"], deriv["single"]
+    print("mesh nccl: the alchemical water box's NonbondedForce energy "
+          "%.6f kJ/mol and dE/dlambda_electrostatics %.6f on the mesh "
+          "(derivative launches %d), the plain Context's %.6f and %.6f" % (
+              got["energy"], got["derivative"], got["launches"],
+              want["energy"], want["derivative"]))
+    if (got["energy"], got["derivative"]) != (want["energy"],
+                                              want["derivative"]) \
+            or not math.isfinite(got["derivative"]) \
+            or (device.type == "cuda" and got["launches"] <= 0):
+        raise RuntimeError("mesh nccl: dE/dlambda on the mesh %r, the "
+                           "plain Context's %r" % (got, want))
+    deadline.check("mesh nccl")
+    return {"atoms": system.getNumParticles(), "steps": steps,
+            "init_s": init_s, "ms": ms, "launches": launches,
+            "captures": captures, "derivative": deriv}
+
+
+class ForkedRanks:
+    """The MESH_RANKS ranks of start_mesh_ranks, each ranks.rank_main on
+    a spec of ranks.write_spec in a Forked child (one intra-op thread,
+    niced by `nice`): forked before the script touches the card, they
+    inherit its imports and await its build. join() returns each rank's
+    results as ranks.Ranks.join does; a rank not joined is killed at
+    exit."""
+
+    def __init__(self, tasks, nice=NICE):
+        import os
+        import shutil
+        import tempfile
+        self.tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_ranks_")
+        atexit.register(shutil.rmtree, self.tmp, True)
+        spec = ranks.write_spec(self.tmp, MESH_RANKS, tasks)
+        self.started = []
+        for rank in range(MESH_RANKS):
+            directory = os.path.join(self.tmp, "rank%d" % rank)
+            os.mkdir(directory)
+            proc = Forked(directory, ranks.rank_main, spec, rank, threads=1,
+                          nice=nice)
+            atexit.register(_stop_helper, proc, directory)
+            self.started.append([proc, ranks.out_path(spec, rank),
+                                 directory])
+
+    def join(self, timeout=None) -> list:
+        return [join_helper(started, "mesh rank %d" % rank)[0]
+                for rank, started in enumerate(self.started)]
+
+
+def start_mesh_ranks(n_waters=N_WATERS, steps=MESH_RANK_STEPS,
+                     platform="CUDA", fork=True):
+    """Two gloo ranks, each with a Context of the water box on this card:
+    `steps` LangevinMiddle steps through the eager loop on the mesh (a
+    graph capture first, which must raise), the first rank then the same
+    run without a mesh (parallel/ranks.py's water_box task). Forked
+    (ForkedRanks) at the script's start with the other helpers, they
+    await the build and run beside the phases until phase_mesh_ranks
+    joins them. fork=False starts them as fresh interpreters instead
+    (ranks.Ranks), which import the port anew; platform "CPU" captures
+    nothing (the CPU tests' rehearsal)."""
+    tasks = [("water_box", dict(
+        n_waters=n_waters, platform=platform, steps=steps, eager=True,
+        seed=MESH_SEED, reference=True, refuse_capture=platform == "CUDA"),
+        None)]
+    if fork:
+        return ForkedRanks(tasks)
+    started = ranks.Ranks(MESH_RANKS, tasks)
+    atexit.register(started.kill)
+    return started
+
+
+def phase_mesh_ranks(started, deadline, cuda=True) -> dict:
+    """The two ranks of start_mesh_ranks joined: each rank's energy and
+    forces, and its positions and energy after the steps, must be the
+    single-process run's bits; each rank launched kernel 1 on its half of
+    the row bricks; on a card (`cuda`) the graph capture raised naming
+    gloo; no rank loaded JAX. Raises on a miss."""
+    t0 = time.perf_counter()
+    results = started.join(timeout=max(deadline.remaining(), 1.0))
+    wait_s = time.perf_counter() - t0
+    single = results[0][0]["single"]
+    runs = [r[0]["mesh"] for r in results]
+    for rank, run in enumerate(runs):
+        differ = {key: float(np.abs(np.asarray(run[key])
+                                    - np.asarray(single[key])).max())
+                  for key in ("energy", "forces", "positions", "energy_after")
+                  if not np.array_equal(run[key], single[key])}
+        if differ:
+            raise RuntimeError("mesh ranks: rank %d differs from the "
+                               "single-process run by %s" % (rank, differ))
+        n_bricks = tile_pairs.pad_to_block(
+            single["forces"].shape[0], tile_pairs.BRICK) // tile_pairs.BRICK
+        if (cuda and run["launches"] <= 0) or run["bricks"] != row_split(
+                n_bricks, rank, MESH_RANKS):
+            raise RuntimeError("mesh ranks: rank %d swept %s, %d launches"
+                               % (rank, run["bricks"], run["launches"]))
+        if cuda and "gloo" not in (run["capture"] or ""):
+            raise RuntimeError("mesh ranks: rank %d's capture did not raise "
+                               "(%r)" % (rank, run["capture"]))
+        if not math.isfinite(run["energy_after"]):
+            raise RuntimeError("mesh ranks: energy %r" % run["energy_after"])
+    if any(r[-1]["modules"] for r in results):
+        raise RuntimeError("mesh ranks: a rank loaded %s"
+                           % results[0][-1]["modules"])
+    print("mesh ranks: %d gloo ranks sharing the card, the %d-atom water box "
+          "through the eager loop, %d steps: every rank the single-process "
+          "run's bits (energy %.6f kJ/mol after); row bricks %s, kernel 1 "
+          "launches %s; %.4f ms a step (single process %.4f); the capture "
+          "refused; waited %.1f s" % (
+              len(runs), single["forces"].shape[0], runs[0]["steps"],
+              single["energy_after"], [r["bricks"] for r in runs],
+              [r["launches"] for r in runs],
+              statistics.mean(r["ms_per_step"] for r in runs),
+              single["ms_per_step"], wait_s))
+    deadline.check("mesh ranks")
+    return {"ranks": len(runs), "bricks": [r["bricks"] for r in runs],
+            "launches": [r["launches"] for r in runs],
+            "ms_per_step": [r["ms_per_step"] for r in runs],
+            "single_ms_per_step": single["ms_per_step"], "wait_s": wait_s}
 
 
 def _launches_since(before) -> dict:
@@ -7140,7 +7530,6 @@ def phase_timing(device, inp, counts, launches, errors, deadline) -> list:
 
 
 def main() -> int:
-    import gc
     import os
     deadline = Deadline(BUDGET_S)
     os.environ["CHIP_SMOKE_EPOCH"] = repr(time.time())
@@ -7148,25 +7537,24 @@ def main() -> int:
     # collections until the children are joined (they inherit both)
     gc.collect()
     gc.freeze()
-    thresholds = gc.get_threshold()
     gc.set_threshold(*GC_WINDOW_THRESHOLDS)
     # forked before anything here touches the card (the availability
     # check below initialises CUDA, which a forked child then cannot
-    # use): the AMOEBA peptide's build, minimization and relaxation, GK,
-    # HIPPO, the examples, the Drude, RPMD and membrane paths, beside the
-    # build,
-    # the kernel phases and the membrane's build, which time no device
-    # work. Without a card they fail, and are killed at exit.
-    forked = (fork_helper(write_amoeba_prep),
+    # use): the AMOEBA-PME phase, GK, HIPPO, the examples, the Drude,
+    # RPMD and membrane paths and two gloo ranks of the water box, beside
+    # the build and the kernel phases, which time no device work (the
+    # AMOEBA phase past its relaxation while the script waits for it).
+    # Without a card they fail, and are killed at exit.
+    forked = (fork_helper(write_amoeba_pme),
               fork_helper(write_amoeba_gk, NICE),
               fork_helper(write_hippo, NICE), start_examples(),
               fork_helper(write_drude, NICE), fork_helper(write_rpmd, NICE),
-              fork_helper(write_membrane, NICE))
+              fork_helper(write_membrane, NICE), start_mesh_ranks())
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is "
                            "visible to torch")
     try:
-        return _main(deadline, forked, thresholds)
+        return _main(deadline, forked)
     except BaseException:
         print("seconds by phase before the failure: %s; %.1f s in all" % (
             ", ".join("%s %.1f" % lap for lap in deadline.laps),
@@ -7174,9 +7562,9 @@ def main() -> int:
         raise
 
 
-def _main(deadline, forked, thresholds) -> int:
-    import gc
-    amoeba_prep, amoeba_gk, hippo, examples, drude, rpmd, membrane = forked
+def _main(deadline, forked) -> int:
+    (amoeba, amoeba_gk, hippo, examples, drude, rpmd, membrane,
+     mesh_ranks) = forked
     set_fp32_matmul_exact()
     device = torch.device("cuda", 0)
     info = phase_device(device)
@@ -7194,6 +7582,7 @@ def _main(deadline, forked, thresholds) -> int:
     deadline.lap("device, build")
     inp = kernel_inputs(device, N_WATERS)
     errors = phase_kernels(device, inp, deadline)
+    mesh_kernels = phase_mesh_kernels(device, inp, deadline)
     phase_gather_orders(device, inp, deadline)
     phase_triple_shapes(device, deadline)
     phase_triclinic(device, deadline=deadline)
@@ -7204,17 +7593,43 @@ def _main(deadline, forked, thresholds) -> int:
               since_start(), torch.cuda.max_memory_reserved(device) / 1e9))
     examples = phase_examples(device, deadline, examples)
     deadline.lap("examples")
-    amoeba_prep = join_helper(amoeba_prep, "amoeba pme's preparation")
+    # host work while the AMOEBA helper prepares its peptide
+    prebuild()
+    deadline.lap("prebuild")
     amoeba_gk, gk_wait = join_helper(amoeba_gk, "amoeba gk")
     hippo, hippo_wait = join_helper(hippo, "hippo")
+    # GK's memory is free: the AMOEBA helper goes on past its relaxation
+    open(amoeba[1] + ".check", "w").close()
     # the collector's own thresholds for the phases that follow (their
     # Contexts' device memory is freed by collections), the objects alive
     # now (the helpers' results, the kernel inputs) out of them
-    gc.set_threshold(*thresholds)
+    gc.set_threshold(*GC_THRESHOLDS)
     gc.collect()
     gc.freeze()
-    deadline.lap("amoeba pme preparation, amoeba gk, hippo (%.1f s "
-                 "waited)" % (amoeba_prep[1] + gk_wait + hippo_wait))
+    deadline.lap("amoeba gk, hippo (%.1f s waited)" % (gk_wait
+                                                        + hippo_wait))
+    # beside the AMOEBA helper's float64 check and steps: the phases that
+    # need no main path (their ms a step share the card with it)
+    minimized = phase_minimize(device, deadline=deadline)
+    if min(minimized["launches"].values()) <= 0:
+        raise RuntimeError("a kernel of the minimizer path never launched: "
+                           "%s" % minimized["launches"])
+    deadline.lap("minimize")
+    ewald = phase_ewald(device, deadline)
+    deadline.lap("ewald")
+    gbsa = phase_gbsa(device, deadline)
+    deadline.lap("gbsa")
+    customgb = phase_customgb(device, deadline)
+    deadline.lap("customgb")
+    tip4pew = phase_tip4pew(device, deadline)
+    deadline.lap("tip4pew")
+    mts_tip4pew = phase_mts_tip4pew(device, tip4pew, deadline)
+    deadline.lap("mts tip4pew")
+    del tip4pew["system"], tip4pew["final_state"]
+    # the AMOEBA helper's timed replay with the card to itself
+    open(amoeba[1] + ".timing", "w").close()
+    amoeba, amoeba_wait = join_helper(amoeba, "amoeba pme")
+    deadline.lap("amoeba pme (%.1f s waited)" % amoeba_wait)
     # host work beside the phases that follow (it uses no card): the app
     # bilayer's PDB, createSystem and gate, and more custom's CPU float64
     # references
@@ -7228,10 +7643,14 @@ def _main(deadline, forked, thresholds) -> int:
     if min(launches.values()) <= 0:
         raise RuntimeError("a kernel of the main path never launched: %s"
                            % launches)
+    for kern in (pallas_pme.FWD, pallas_pme.BWD):
+        launches[kern.name] = minimized["launches"][kern.name]
     ns_day = result["ns_day"]
     deadline.lap("main path")
     phase_step_program(device, result, deadline)
     deadline.lap("step program")
+    mesh_nccl = phase_mesh_nccl(device, result, deadline)
+    deadline.lap("mesh nccl")
     npt_water = phase_npt_water(device, result, deadline)
     deadline.lap("npt water")
     rf_water = phase_rf_water(device, result, deadline)
@@ -7273,13 +7692,6 @@ def _main(deadline, forked, thresholds) -> int:
     # and eager loops after them by 10-20 % on an H100's host
     water = {"context": result["context"]}
     del result, offsets["context"]
-    minimized = phase_minimize(device, deadline=deadline)
-    if min(minimized["launches"].values()) <= 0:
-        raise RuntimeError("a kernel of the minimizer path never launched: "
-                           "%s" % minimized["launches"])
-    for kern in (pallas_pme.FWD, pallas_pme.BWD):
-        launches[kern.name] = minimized["launches"][kern.name]
-    deadline.lap("minimize")
     app_bilayer = phase_app_bilayer(device, deadline, built=app_build)
     deadline.lap("app bilayer")
     # the later bilayer phases take the ForceField's System, which the app
@@ -7311,21 +7723,6 @@ def _main(deadline, forked, thresholds) -> int:
     deadline.lap("rf bilayer")
     bilayer_ms = bilayer["graph"]["wall_ms_per_step"]
     del bilayer, npt["context"], npt["step"]
-    ewald = phase_ewald(device, deadline)
-    deadline.lap("ewald")
-    gbsa = phase_gbsa(device, deadline)
-    deadline.lap("gbsa")
-    customgb = phase_customgb(device, deadline)
-    deadline.lap("customgb")
-    tip4pew = phase_tip4pew(device, deadline)
-    deadline.lap("tip4pew")
-    mts_tip4pew = phase_mts_tip4pew(device, tip4pew, deadline)
-    deadline.lap("mts tip4pew")
-    del tip4pew["system"], tip4pew["final_state"]
-    _release(device)
-    amoeba = phase_amoeba_pme(device, deadline, prepared=amoeba_prep)
-    _release(device)
-    deadline.lap("amoeba pme")
     drude, drude_wait = join_helper(drude, "drude")
     rpmd, rpmd_wait = join_helper(rpmd, "rpmd")
     membrane, membrane_wait = join_helper(membrane, "modeller membrane")
@@ -7338,12 +7735,19 @@ def _main(deadline, forked, thresholds) -> int:
     cv_nonbonded = phase_cv_nonbonded(device, water, deadline)
     del water
     deadline.lap("cv nonbonded")
+    mesh_ranks = phase_mesh_ranks(mesh_ranks, deadline)
+    deadline.lap("mesh ranks (%.1f s waited)" % mesh_ranks["wait_s"])
     counts = tile_counts(inp)
     records = phase_timing(device, inp, counts, launches, errors, deadline)
     records.append(rf_water["record"])
     records += ljpme["records"]
     records.append(alchemical["deriv_record"])
-    records += amoeba["records"]
+    # kernels 4-5 at the AMOEBA shapes, timed here alone on the card
+    tri = amoeba["kernel_inputs"]
+    records += amoeba_kernel_records(
+        device, dict(tri, fwd=[t.to(device) for t in tri["fwd"]],
+                     bwd=[t.to(device) for t in tri["bwd"]]),
+        amoeba["launches"], amoeba["kernel_errors"])
     # each kernel's launches on the Drude and RPMD paths, each path's counts
     # from 0 (the main path's stay in "launches")
     for record in records[:len(KERNELS)]:
@@ -7354,8 +7758,15 @@ def _main(deadline, forked, thresholds) -> int:
             path: counts.get(record["name"], 0)
             for path, counts in rpmd["launches"].items()})
         for path, done in (("xml_round_trip", serialization["launches"]),
-                           ("cv_nonbonded", cv_nonbonded["launches"])):
+                           ("cv_nonbonded", cv_nonbonded["launches"]),
+                           ("mesh_nccl", mesh_nccl["launches"])):
             record["launches_new_paths"][path] = done.get(record["name"], 0)
+    # kernel 1 on a mesh: its row ranges' bits, a half range's time
+    # against the whole launch, each gloo rank's launches
+    records[0]["mesh"] = dict(mesh_kernels,
+                              launches_mesh_ranks=mesh_ranks["launches"])
+    records[0]["launches_new_paths"]["mesh_ranks"] = sum(
+        mesh_ranks["launches"])
     deadline.lap("timing")
     print("main path: %.2f ns/day on %s (%s), %d steps of %.3f ps, "
           "through the step program (gating %s)" % (
@@ -7552,6 +7963,17 @@ def _main(deadline, forked, thresholds) -> int:
               xml_host["system"]["deserialize_s"], cv_nonbonded["ms"]["cv"],
               cv_nonbonded["ms"]["plain"], cv_nonbonded["rebuilds"],
               CV_STEPS, cv_nonbonded["e_err"], cv_nonbonded["force_err"]))
+    print("mesh on %s (%s): kernel 1's row ranges of %s ranks the whole "
+          "launch's bits in %d instantiations, a half %.4f / %.4f ms against "
+          "the whole %.4f ms; one-rank NCCL mesh %.4f ms a step (plain "
+          "%.4f) with the gather captured; %d gloo ranks sharing the card "
+          "%s ms a step through the eager loop (single process %.4f)" % (
+              info["name"], info["smi"], mesh_kernels["sizes"],
+              len(mesh_kernels["instantiations"]), *mesh_kernels["half_ms"],
+              mesh_kernels["whole_ms"], mesh_nccl["ms"]["mesh"],
+              mesh_nccl["ms"]["plain"], mesh_ranks["ranks"], " ".join(
+                  "%.4f" % m for m in mesh_ranks["ms_per_step"]),
+              mesh_ranks["single_ms_per_step"]))
     print("seconds by phase: %s" % ", ".join(
         "%s %.1f" % lap for lap in deadline.laps))
     print("total %.1f s of the %.0f s budget" % (deadline.elapsed(),

@@ -243,10 +243,11 @@ def run_variants(prefix="") -> list:
             mode = tile_pairs.MODE_LJPME if lj else tile_pairs.MODE_EWALD
             out = torch.empty_like(t[0])
             bounds = torch.empty((t[3].shape[0], 2, 4), device=dev)
+            nb = t[3].shape[0]
             return (lambda: lib.omm_nonbonded_tiles(
-                *(x.data_ptr() for x in t), t[3].shape[0], t[2].shape[1],
-                t[4].shape[1], mode, 0 if lj else switch, bounds.data_ptr(),
-                out.data_ptr(), stream)), lambda: out
+                *(x.data_ptr() for x in t), nb, t[2].shape[1],
+                t[4].shape[1], mode, 0 if lj else switch, 0, nb,
+                bounds.data_ptr(), out.data_ptr(), stream)), lambda: out
         outs = tuple(torch.empty_like(t) for t in (a, wy, wz))
         entries = torch.empty((n, nx + ny + nz, 2), dtype=torch.int32,
                               device=dev)

@@ -39,11 +39,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "omm_nonbonded_tiles": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                            _P, _P, _P],
+                            _I, _I, _P, _P, _P],
     "omm_nonbonded_tiles_deriv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                  _I, _I, _P, _P, _P],
+                                  _I, _I, _I, _I, _P, _P, _P],
     "omm_nonbonded_tiles_fine": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                 _I, _I, _P, _P, _P],
+                                 _I, _I, _I, _I, _P, _P, _P],
     "omm_pme_spread": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "omm_pme_gather": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "omm_spread_triple_fwd": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,

@@ -99,6 +99,7 @@ from .ops.constraints import (CCMA, Settle, Shake, partition_constraints,
                               partition_shake_clusters)
 from .ops.pairs import needs_rebuild
 from .ops.vsites import VirtualSites
+from .parallel.mesh import get_default_mesh
 from .platform import Platform, set_fp32_matmul_exact
 from .replicas import ReplicaStates
 from .state import State
@@ -156,6 +157,11 @@ class Context:
             platform = Platform.getPlatformByName(platform)
         self._platform, self._properties = platform, properties
         self._device, self._precision = platform.resolve(properties)
+        # the mesh whose ranks split the direct sweeps (JAX context.py
+        # :126-132: a Context built after set_default_mesh takes it)
+        self._mesh = get_default_mesh()
+        if self._mesh is not None:
+            self._mesh.check_device(self._device)
         self._system = system
         self._integrator = integrator
         n = system.getNumParticles()
@@ -207,6 +213,8 @@ class Context:
         self._nonbondeds = [NonbondedModule(
             force, system._box.copy(), self._device,
             self._precision, self._gp, self._gp_index) for force in nonbonded]
+        for module in self._nonbondeds:
+            module.mesh = self._mesh
         self._nonbonded = self._nonbondeds[0] if nonbonded else None
         # a Drude particle's dipole, ~0.005 nm between charges of ~1.7 e,
         # loses ~1e-4 of its length to float32 coordinates of a few nm
@@ -344,6 +352,7 @@ class Context:
                                      self._device, self._precision, self._gp,
                                      self._gp_index)
             module.fine_positions = self._fine_positions
+            module.mesh = self._mesh
             if module.periodic and module.has_direct:
                 self._cv_nonbondeds.append(module)
             return NonbondedVariable(module)
@@ -372,10 +381,10 @@ class Context:
         for force in system.getForces():
             pairs += list(force._bonded_particles())
         first = _first_members(self._n, pairs)
-        numbers = {}
-        mol_id = np.asarray([numbers.setdefault(f, len(numbers))
-                             for f in first], np.int64)
-        return mol_id, len(numbers)
+        # a component's first atom carries its own number, so numbering
+        # in the order of first atoms is the order of those numbers
+        labels, mol_id = np.unique(first, return_inverse=True)
+        return mol_id.astype(np.int64), len(labels)
 
     # -- update hooks ------------------------------------------------------
     def _make_hooks(self, attempt) -> list:

@@ -264,13 +264,15 @@ nonbonded_tiles_kernel(const float4* __restrict__ pos,
                        const float* __restrict__ consts,
                        const float4* __restrict__ bounds, int max_cand,
                        int exc_cap, int mode, int use_switch,
-                       float4* __restrict__ out) {
+                       int brick_begin, float4* __restrict__ out) {
   __shared__ float4 queue_d[kWarps][kQueue];  // (dx, dy, dz, r^2)
   __shared__ int queue_j[kWarps][kQueue];
   __shared__ int kept_b[kWarps][32];        // a chunk's surviving bricks
   __shared__ unsigned kept_w[kWarps][32];   // and their exclusion words
   const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
-  const int i = blockIdx.x * kWarps + warp;  // n_pad is a multiple of 16
+  // the row atoms of bricks brick_begin.. (a rank's share of the rows:
+  // parallel/mesh.py); 16 rows a brick, a multiple of kWarps
+  const int i = brick_begin * kBrick + blockIdx.x * kWarps + warp;
   const int r = i / kBrick;
   float4* qd = queue_d[warp];
   int* qj = queue_j[warp];
@@ -408,9 +410,12 @@ int launch_tiles(const void* pos, const void* pos_lo, const void* par,
                  const void* dpar,
                  const void* cand, const void* count, const void* words,
                  const void* consts, int n_bricks, int max_cand, int exc_cap,
-                 int mode, int use_switch, void* bounds, void* out,
-                 void* stream) {
-  if (n_bricks > 0) {
+                 int mode, int use_switch, int brick_begin, int brick_end,
+                 void* bounds, void* out, void* stream) {
+  if (brick_begin < 0 || brick_end > n_bricks || brick_begin > brick_end) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (brick_end > brick_begin) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     const auto* p = static_cast<const float4*>(pos);
     auto* bb = static_cast<float4*>(bounds);
@@ -422,28 +427,35 @@ int launch_tiles(const void* pos, const void* pos_lo, const void* par,
     }
     auto* kernel = mode == kModeLjpme ? nonbonded_tiles_kernel<true, Deriv>
                                       : nonbonded_tiles_kernel<false, Deriv>;
-    kernel<<<n_bricks * kBrick / kWarps, 32 * kWarps, 0, s>>>(
+    // bounds of every brick (the columns are every rank's), rows of the
+    // range only
+    kernel<<<(brick_end - brick_begin) * kBrick / kWarps, 32 * kWarps, 0,
+             s>>>(
         p, static_cast<const float4*>(pos_lo),
         static_cast<const float4*>(par), static_cast<const float4*>(dpar),
         static_cast<const int*>(cand), static_cast<const int*>(count),
         static_cast<const int*>(words), static_cast<const float*>(consts),
-        bb, max_cand, exc_cap, mode, use_switch, static_cast<float4*>(out));
+        bb, max_cand, exc_cap, mode, use_switch, brick_begin,
+        static_cast<float4*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Scratch: bounds (2 n_bricks float4).
+// Scratch: bounds (2 n_bricks float4). Rows of bricks [brick_begin,
+// brick_end) are written, the other rows of out are not touched.
 extern "C" int omm_nonbonded_tiles(const void* pos, const void* par,
                                    const void* cand, const void* count,
                                    const void* words, const void* consts,
                                    int n_bricks, int max_cand, int exc_cap,
-                                   int mode, int use_switch, void* bounds,
-                                   void* out, void* stream) {
+                                   int mode, int use_switch, int brick_begin,
+                                   int brick_end, void* bounds, void* out,
+                                   void* stream) {
   return launch_tiles<false>(pos, nullptr, par, nullptr, cand, count, words,
                              consts, n_bricks, max_cand, exc_cap, mode,
-                             use_switch, bounds, out, stream);
+                             use_switch, brick_begin, brick_end, bounds, out,
+                             stream);
 }
 
 // The same with each position a float32 pair, pos + pos_lo (the float64
@@ -454,20 +466,23 @@ extern "C" int omm_nonbonded_tiles_fine(const void* pos, const void* pos_lo,
                                         const void* count, const void* words,
                                         const void* consts, int n_bricks,
                                         int max_cand, int exc_cap, int mode,
-                                        int use_switch, void* bounds,
+                                        int use_switch, int brick_begin,
+                                        int brick_end, void* bounds,
                                         void* out, void* stream) {
   return launch_tiles<false>(pos, pos_lo, par, nullptr, cand, count, words,
                              consts, n_bricks, max_cand, exc_cap, mode,
-                             use_switch, bounds, out, stream);
+                             use_switch, brick_begin, brick_end, bounds, out,
+                             stream);
 }
 
 // out[i].w: row atom i's sum of dE/dlambda over its partners (x, y, z 0).
 extern "C" int omm_nonbonded_tiles_deriv(
     const void* pos, const void* par, const void* dpar, const void* cand,
     const void* count, const void* words, const void* consts, int n_bricks,
-    int max_cand, int exc_cap, int mode, int use_switch, void* bounds,
-    void* out, void* stream) {
+    int max_cand, int exc_cap, int mode, int use_switch, int brick_begin,
+    int brick_end, void* bounds, void* out, void* stream) {
   return launch_tiles<true>(pos, nullptr, par, dpar, cand, count, words,
                             consts, n_bricks, max_cand, exc_cap, mode,
-                            use_switch, bounds, out, stream);
+                            use_switch, brick_begin, brick_end, bounds, out,
+                            stream);
 }

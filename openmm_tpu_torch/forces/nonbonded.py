@@ -660,6 +660,9 @@ class NonbondedModule(nn.Module):
         # kernel 1 on positions as float32 pairs (tile_energy_forces'
         # fine): the Context sets it for a System with Drude particles
         self.fine_positions = False
+        # the mesh whose ranks split the direct sweep's rows
+        # (parallel/mesh.py): the Context sets it from get_default_mesh()
+        self.mesh = None
         self.use_switch = bool(force.getUseSwitchingFunction() and use_cutoff)
         rs = force._switch_dist if self.use_switch else 0.0
         inv_w = 1.0 / (self.cutoff - rs) if self.use_switch else 0.0
@@ -896,7 +899,7 @@ class NonbondedModule(nn.Module):
         `box` as float32 pairs) or every pair."""
         if not self.periodic:
             return pair_ops.pair_energy_forces_n2(
-                posd, *params, self.exclusions, self.terms)
+                posd, *params, self.exclusions, self.terms, self.mesh)
         consts = tile_pairs.tile_consts(boxd, self.tile_scalars)
         par4 = (tile_pairs.tile_params(*params, state["order"],
                                        c6=self.ljpme)
@@ -905,7 +908,7 @@ class NonbondedModule(nn.Module):
                 and self.dtype == torch.float32 else None)
         return tile_pairs.tile_energy_forces(
             posd, boxd, state, consts, self.mode, self.use_switch,
-            plain=self.plain, par4=par4, fine=fine)
+            plain=self.plain, par4=par4, fine=fine, mesh=self.mesh)
 
     def _reciprocal(self, pos, posd, box, boxd, state, params):
         """(energy, forces) of the reciprocal grid or k-sum (without the
@@ -997,11 +1000,12 @@ class NonbondedModule(nn.Module):
                     if self.has_offsets else None)
             energy = pair_ops.AnalyticEnergy.apply(
                 tile_pairs.tile_energy_forces, posd, boxd, state, consts,
-                self.mode, self.use_switch, self.plain, par4)
+                self.mode, self.use_switch, self.plain, par4, None,
+                self.mesh)
         elif self.has_direct:
             energy = pair_ops.AnalyticEnergy.apply(
                 pair_ops.pair_energy_forces_n2, posd, *params,
-                self.exclusions, self.terms)
+                self.exclusions, self.terms, self.mesh)
         if self.method in (NonbondedForce.PME, NonbondedForce.LJPME):
             energy = energy + pme_mod.pme_reciprocal_energy(
                 posd, params[0], box, self.grid, pme_zslab.ORDER,
@@ -1101,7 +1105,7 @@ class NonbondedModule(nn.Module):
         consts = tile_pairs.tile_consts(boxd, self.tile_scalars)
         value = tile_pairs.tile_param_derivative(
             posd, boxd, state, consts, self.mode, self.use_switch, par4,
-            dpar4, plain=self.plain)
+            dpar4, plain=self.plain, mesh=self.mesh)
         return value + torch.where(state["overflow"] > 0, math.nan, 0.0)
 
     def _pairs_deriv(self, posd, boxd, params, exc, dparams, dexc):

@@ -93,6 +93,24 @@ TIP4PEW_M_WEIGHTS = (0.786646558, 0.106676721, 0.106676721)
 TIP4PEW_ANGLE = 1.82421813418     # rad, tip4pew.xml's (TIP3P's to 2e-12)
 
 
+def argon_gas(n=3, spacing=0.5):
+    """HelloArgon (examples/HelloArgon.cpp; openmm_tpu/models/builders.py
+    argon_gas): `n` uncharged argon atoms (39.95 amu, sigma 0.3350 nm,
+    epsilon 0.996 kJ/mol) `spacing` nm apart on the x axis, under a
+    NonbondedForce at NoCutoff. Returns (system, positions as an (n, 3)
+    float64 array in nm). The JAX builder places them 0.5 nm apart
+    whatever its `spacing`; at the default the two agree."""
+    system = System()
+    nb = NonbondedForce()
+    system.addForce(nb)
+    for _ in range(n):
+        system.addParticle(39.95)
+        nb.addParticle(0.0, 0.3350, 0.996)
+    positions = np.zeros((n, 3))
+    positions[:, 0] = spacing * np.arange(n)
+    return system, positions
+
+
 def _add_tip3p_water(system, nb, constraints):
     """One TIP3P water's particles, parameters, exclusions and (when
     `constraints`) its three rigid-water constraints."""

@@ -37,42 +37,64 @@ def partition_constraints(constraints, masses):
     triangle of three constraints whose atoms carry no other constraint,
     with a centre whose two distances and whose partners' masses are
     equal (tried in the order i, j, k of the triangle's first
-    constraint)."""
-    masses = np.asarray(masses, np.float64).tolist()
-    by_atom = {}
-    for ci, (i, j, _) in enumerate(constraints):
-        by_atom.setdefault(i, []).append(ci)
-        by_atom.setdefault(j, []).append(ci)
-    used = [False] * len(constraints)
-    settle = []
+    constraint).
 
-    def other(atom, ci):
-        """The constraint of `atom` (which has two) other than ci, and
-        that constraint's other atom."""
-        c1, c2 = by_atom[atom]
-        c = c2 if c1 == ci else c1
-        a, b, _ = constraints[c]
-        return c, b if a == atom else a
+    The triangles are found for all constraints at once: with every atom
+    of a triangle on two constraints, a triangle is a component of its
+    own, found at its first constraint, and a triangle without a centre
+    has none whichever of its constraints it is tried from."""
+    masses = np.asarray(masses, np.float64)
+    m = len(constraints)
+    if m == 0:
+        return [], []
+    table = np.asarray(constraints, np.float64).reshape(m, 3)
+    ends = table[:, :2].astype(np.int64)
+    dist = table[:, 2]
+    i, j = ends[:, 0], ends[:, 1]
+    # each atom's constraints in the order (constraint, then i before j)
+    flat = ends.ravel()
+    degree = np.bincount(flat, minlength=len(masses))
+    order = np.argsort(flat, kind="stable")
+    start = np.concatenate(([0], np.cumsum(degree)[:-1]))
+    first_c = np.zeros(len(degree), np.int64)
+    second_c = np.zeros(len(degree), np.int64)
+    two = degree == 2
+    first_c[two] = order[start[two]] // 2
+    second_c[two] = order[start[two] + 1] // 2
+    ci = np.nonzero((i != j) & two[i] & two[j])[0]
 
-    for ci, (i, j, d) in enumerate(constraints):
-        if (used[ci] or i == j or len(by_atom[i]) != 2
-                or len(by_atom[j]) != 2):
-            continue
-        c_ik, k = other(i, ci)
-        c_jk, k_j = other(j, ci)
-        if k != k_j or k in (i, j) or len(by_atom[k]) != 2:
-            continue
-        d_ik, d_jk = constraints[c_ik][2], constraints[c_jk][2]
-        # (centre, o1, o2, d(centre, o1), d(centre, o2), d(o1, o2))
-        for centre, o1, o2, d1, d2, d12 in ((i, j, k, d, d_ik, d_jk),
-                                            (j, i, k, d, d_jk, d_ik),
-                                            (k, i, j, d_ik, d_jk, d)):
-            if (abs(d1 - d2) < 1e-10 and abs(masses[o1] - masses[o2]) < 1e-10
-                    and masses[centre] > 0 and masses[o1] > 0):
-                settle.append((centre, o1, o2, d1, d12))
-                used[ci] = used[c_ik] = used[c_jk] = True
-                break
-    rest = [c for c, u in zip(constraints, used) if not u]
+    def other(atom, c):
+        """The constraint of `atom` (which has two) other than c, and that
+        constraint's other atom."""
+        oc = np.where(first_c[atom] == c, second_c[atom], first_c[atom])
+        a, b = ends[oc, 0], ends[oc, 1]
+        return oc, np.where(a == atom, b, a)
+
+    ii, jj = i[ci], j[ci]
+    c_ik, k = other(ii, ci)
+    c_jk, k_j = other(jj, ci)
+    keep = ((k == k_j) & (k != ii) & (k != jj) & two[k]
+            & (ci < c_ik) & (ci < c_jk))
+    ci, ii, jj, k, c_ik, c_jk = (a[keep] for a in (ci, ii, jj, k, c_ik,
+                                                   c_jk))
+    d, d_ik, d_jk = dist[ci], dist[c_ik], dist[c_jk]
+    # (centre, o1, o2, d(centre, o1), d(centre, o2), d(o1, o2)) in turn
+    tries = ((ii, jj, k, d, d_ik, d_jk), (jj, ii, k, d, d_jk, d_ik),
+             (k, ii, jj, d_ik, d_jk, d))
+    passes = np.stack([(np.abs(d1 - d2) < 1e-10)
+                       & (np.abs(masses[o1] - masses[o2]) < 1e-10)
+                       & (masses[centre] > 0) & (masses[o1] > 0)
+                       for centre, o1, o2, d1, d2, _ in tries])
+    found = passes.any(axis=0)
+    pick = np.argmax(passes, axis=0)
+    rows = np.arange(len(ci))
+    cols = [np.stack(col)[pick, rows] for col in zip(*tries)]
+    centre, o1, o2, d1, _, d12 = (c[found] for c in cols)
+    settle = list(zip(centre.tolist(), o1.tolist(), o2.tolist(),
+                      d1.tolist(), d12.tolist()))
+    used = np.zeros(m, bool)
+    used[np.concatenate([ci[found], c_ik[found], c_jk[found]])] = True
+    rest = [c for c, u in zip(constraints, used.tolist()) if not u]
     return settle, rest
 
 

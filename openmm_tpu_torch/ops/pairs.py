@@ -276,13 +276,16 @@ def _row_chunks(n: int, chunk: int = N2_CHUNK):
 
 
 def pair_energy_forces_n2(pos, charge, sigma, epsilon, exclusions,
-                          terms: PairTerms):
+                          terms: PairTerms, mesh=None):
     """(energy float64 scalar, forces (n, 3) in pos.dtype) of the
     Lennard-Jones and Coulomb terms over every pair of atoms that is not
     excluded: exclusions (n, E) int of excluded partners, -1 padded. Rows
     of atoms go in chunks against all n partners; each atom's force is its
-    row's sum (in float64), the energy half the sum of the rows
-    (pair_terms)."""
+    row's sum (in float64), the energy half the sum of the chunks' sums, in
+    chunk order (pair_terms). mesh: a parallel.Mesh whose rank sweeps its
+    share of the chunks (the same chunks as on one rank), the forces and
+    the chunks' energies gathered (Mesh.gather) before the energy is
+    summed, or None."""
     n = pos.shape[0]
     dt = pos.dtype
     dev = pos.device
@@ -290,9 +293,14 @@ def pair_energy_forces_n2(pos, charge, sigma, epsilon, exclusions,
     sh = 0.5 * sigma.to(dt)
     es = 2.0 * torch.sqrt(epsilon.to(dt))
     excl = torch.where(exclusions >= 0, exclusions.long(), n)
-    energy = torch.zeros((), dtype=torch.float64, device=dev)
-    forces = []
-    for r0, r1 in _row_chunks(n):
+    chunks = list(_row_chunks(n))
+    # the rows' forces (float64) and each chunk's energy, in one tensor
+    # that the mesh gathers
+    out = torch.zeros(3 * n + len(chunks), dtype=torch.float64, device=dev)
+    forces, energies = out[:3 * n].view(n, 3), out[3 * n:]
+    c0, c1 = (0, len(chunks)) if mesh is None else mesh.rows(len(chunks))
+    for c in range(c0, c1):
+        r0, r1 = chunks[c]
         rows = r1 - r0
         dr = pos[r0:r1, None, :] - pos[None, :, :]
         # product by product and sum by sum, in every precision: a pair
@@ -312,10 +320,15 @@ def pair_energy_forces_n2(pos, charge, sigma, epsilon, exclusions,
                            es[r0:r1, None] * es[None, :], terms.coulomb,
                            krf=terms.krf, crf=terms.crf, switch=terms.switch)
         dedr2 = torch.where(keep, de, 0.0)
-        energy = energy + torch.where(keep, e, 0.0).sum(dtype=torch.float64)
-        forces.append((-2.0 * dedr2[..., None] * dr).sum(
-            dim=1, dtype=torch.float64).to(dt))
-    return 0.5 * energy, torch.cat(forces)
+        energies[c] = torch.where(keep, e, 0.0).sum(dtype=torch.float64)
+        forces[r0:r1] = (-2.0 * dedr2[..., None] * dr).sum(
+            dim=1, dtype=torch.float64)
+    if mesh is not None:
+        mesh.gather(out)
+    energy = torch.zeros((), dtype=torch.float64, device=dev)
+    for c in range(len(chunks)):
+        energy = energy + energies[c]
+    return 0.5 * energy, forces.to(dt)
 
 
 class AnalyticEnergy(torch.autograd.Function):

@@ -26,6 +26,14 @@ unused]; `count` is the number of live candidates per row; `words` is
 (n_pad, exc_cap) int32 with bit l of words[i, k] set when row atom i must
 not interact with atom l of candidate brick k (exclusions and the atom
 itself); only the first exc_cap candidates can carry such bits.
+
+Row-brick ranges. Every output row of kernel 1 is owned by one warp (one
+row of the plain version), so the rows of a range [brick_begin,
+brick_end) of row bricks are those of the whole launch, bit for bit: the
+kernels and their plain versions take `bricks=(begin, end)` and leave the
+other rows 0. A mesh (parallel/mesh.py) gives each rank such a range and
+gathers the rows; energies are formed from the gathered rows, in the
+single-rank order.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ import torch
 
 from .. import _build
 from ..constants import ONE_4PI_EPS0
+from ..parallel.mesh import sharded_pair_energy
 from . import geometry as geom
 from .pairs import (pad_to_block, pair_param_derivative, pair_terms,
                     spatial_sort_keys)
@@ -268,6 +277,26 @@ def tile_consts(box, scalars) -> torch.Tensor:
                       1.0 / diag, scalars[4:6], tail])
 
 
+def _brick_range(bricks, n_bricks) -> tuple:
+    """(begin, end) of the row bricks to sweep: all of them when `bricks`
+    is None."""
+    if bricks is None:
+        return 0, n_bricks
+    begin, end = (int(b) for b in bricks)
+    if not 0 <= begin <= end <= n_bricks:
+        raise ValueError("row bricks [%d, %d) are not a range of the %d "
+                         "bricks" % (begin, end, n_bricks))
+    return begin, end
+
+
+def _rows_out(pos4, begin, end):
+    """The output tensor, like pos4, of a sweep of row bricks [begin,
+    end): zeros unless the range is every brick, which the sweep writes
+    whole."""
+    whole = begin == 0 and end * BRICK == pos4.shape[0]
+    return (torch.empty_like if whole else torch.zeros_like)(pos4)
+
+
 def _check_tile_args(pos4, par4, cand, count, words, consts, mode):
     if mode not in (MODE_EWALD, MODE_RF, MODE_LJPME):
         raise ValueError("mode must be MODE_EWALD, MODE_RF or MODE_LJPME")
@@ -290,12 +319,14 @@ def _check_tile_args(pos4, par4, cand, count, words, consts, mode):
 
 
 def nonbonded_tiles(pos4, par4, cand, count, words, consts, mode,
-                    use_switch, pos_lo=None) -> torch.Tensor:
+                    use_switch, pos_lo=None, bricks=None) -> torch.Tensor:
     """Kernel 1: per sorted atom (fx, fy, fz, e) as an (n_pad, 4) tensor,
     e the atom's full (not halved) pair energy. A CUDA tensor runs the
     hand-written kernel (float32 only: each brick's bounding box, then the
     culled, compacted sweep); a CPU tensor runs the plain version.
-    pos_lo: the positions' low parts (sorted_positions_fine), or None."""
+    pos_lo: the positions' low parts (sorted_positions_fine), or None.
+    bricks: (begin, end), the row bricks to sweep (the other rows 0), or
+    None for all."""
     _check_tile_args(pos4, par4, cand, count, words, consts, mode)
     if pos_lo is not None and (pos_lo.shape != pos4.shape
                                or pos_lo.dtype != pos4.dtype
@@ -304,10 +335,11 @@ def nonbonded_tiles(pos4, par4, cand, count, words, consts, mode,
         raise ValueError("pos_lo must be a contiguous tensor like pos4")
     if pos4.device.type == "cpu":
         return nonbonded_tiles_plain(pos4, par4, cand, count, words, consts,
-                                     mode, use_switch, pos_lo)
+                                     mode, use_switch, pos_lo, bricks)
     if pos4.device.type != "cuda" or pos4.dtype != torch.float32:
         raise TypeError("the CUDA tile kernel takes float32 CUDA tensors")
-    out = torch.empty_like(pos4)
+    begin, end = _brick_range(bricks, count.shape[0])
+    out = _rows_out(pos4, begin, end)
     bounds = torch.empty((count.shape[0], 2, 4), dtype=pos4.dtype,
                          device=pos4.device)
     lib = _build.library()
@@ -315,7 +347,7 @@ def nonbonded_tiles(pos4, par4, cand, count, words, consts, mode,
     args = (par4.data_ptr(), cand.data_ptr(), count.data_ptr(),
             words.data_ptr(), consts.data_ptr(), count.shape[0],
             cand.shape[1], words.shape[1], int(mode), int(bool(use_switch)),
-            bounds.data_ptr(), out.data_ptr(), stream)
+            begin, end, bounds.data_ptr(), out.data_ptr(), stream)
     code = (lib.omm_nonbonded_tiles(pos4.data_ptr(), *args)
             if pos_lo is None else
             lib.omm_nonbonded_tiles_fine(pos4.data_ptr(), pos_lo.data_ptr(),
@@ -326,7 +358,7 @@ def nonbonded_tiles(pos4, par4, cand, count, words, consts, mode,
 
 
 def nonbonded_tiles_deriv(pos4, par4, dpar4, cand, count, words, consts,
-                          mode, use_switch) -> torch.Tensor:
+                          mode, use_switch, bricks=None) -> torch.Tensor:
     """Kernel 1's derivative instantiation: per sorted atom the sum over
     its partners inside the cutoff of the pair energy's derivative in a
     global parameter lambda, at fixed positions, as an (n_pad,) tensor
@@ -334,17 +366,20 @@ def nonbonded_tiles_deriv(pos4, par4, dpar4, cand, count, words, consts,
     dE/dc6g dc6g in MODE_LJPME), from par4 and its derivative dpar4
     (tile_param_derivs). A CUDA tensor runs the hand-written kernel
     (float32 only; each output owned by one warp, its partial sums added
-    in a fixed order); a CPU tensor runs the plain version."""
+    in a fixed order); a CPU tensor runs the plain version. bricks: the
+    row bricks to sweep, as nonbonded_tiles takes them."""
     _check_tile_args(pos4, par4, cand, count, words, consts, mode)
     if dpar4.shape != par4.shape or dpar4.dtype != par4.dtype \
             or dpar4.device != par4.device or not dpar4.is_contiguous():
         raise ValueError("dpar4 must be a contiguous tensor like par4")
     if pos4.device.type == "cpu":
         return nonbonded_tiles_deriv_plain(pos4, par4, dpar4, cand, count,
-                                           words, consts, mode, use_switch)
+                                           words, consts, mode, use_switch,
+                                           bricks)
     if pos4.device.type != "cuda" or pos4.dtype != torch.float32:
         raise TypeError("the CUDA tile kernel takes float32 CUDA tensors")
-    out = torch.empty_like(pos4)
+    begin, end = _brick_range(bricks, count.shape[0])
+    out = _rows_out(pos4, begin, end)
     bounds = torch.empty((count.shape[0], 2, 4), dtype=pos4.dtype,
                          device=pos4.device)
     lib = _build.library()
@@ -353,22 +388,25 @@ def nonbonded_tiles_deriv(pos4, par4, dpar4, cand, count, words, consts,
         pos4.data_ptr(), par4.data_ptr(), dpar4.data_ptr(), cand.data_ptr(),
         count.data_ptr(), words.data_ptr(), consts.data_ptr(),
         count.shape[0], cand.shape[1], words.shape[1], int(mode),
-        int(bool(use_switch)), bounds.data_ptr(), out.data_ptr(), stream)
+        int(bool(use_switch)), begin, end, bounds.data_ptr(), out.data_ptr(),
+        stream)
     _build.check_launch(code, TILES_DERIV)
     TILES_DERIV.launches += 1
     return out[:, 3]
 
 
 def nonbonded_tiles_deriv_plain(pos4, par4, dpar4, cand, count, words,
-                                consts, mode, use_switch) -> torch.Tensor:
+                                consts, mode, use_switch,
+                                bricks=None) -> torch.Tensor:
     """Plain PyTorch version of nonbonded_tiles_deriv (ops/pairs.py
     pair_param_derivative on the pairs of nonbonded_tiles_plain)."""
     _check_tile_args(pos4, par4, cand, count, words, consts, mode)
     n_pad = pos4.shape[0]
-    out = torch.zeros(n_pad, dtype=pos4.dtype, device=pos4.device)
+    begin, end = _brick_range(bricks, n_pad // BRICK)
+    out = torch.zeros_like(pos4)
     alpha, _, krf, crf = consts[0:4]
     rs, inv_w = consts[13], consts[14]
-    for r0, r1 in _row_chunks(n_pad // BRICK, cand.shape[1]):
+    for r0, r1 in _row_chunks(end, cand.shape[1], begin=begin):
         cj, _, _, _, r2, ok = _chunk_pairs(pos4, cand, count, words,
                                            consts, r0, r1)
         rows = r1 - r0
@@ -388,20 +426,26 @@ def nonbonded_tiles_deriv_plain(pos4, par4, dpar4, cand, count, words,
             qi[..., 2] * qj[..., 2], mixed(2),
             "rf" if mode == MODE_RF else "ewald", alpha, krf, crf,
             (rs, inv_w) if use_switch else None, ljpme)
-        out[r0 * BRICK:r1 * BRICK] = torch.where(ok, d, 0.0).sum(
+        out[r0 * BRICK:r1 * BRICK, 3] = torch.where(ok, d, 0.0).sum(
             dim=-1).reshape(-1)
-    return out
+    # the kernel's layout: column 3 of the rows, a strided view
+    return out[:, 3]
 
 
 def tile_param_derivative(pos, box, st, consts, mode, use_switch, par4,
-                          dpar4, plain=False) -> torch.Tensor:
+                          dpar4, plain=False, mesh=None) -> torch.Tensor:
     """dE/dlambda (float64 scalar) of the direct-space sweep on state
     `st` with parameters par4 and their derivative dpar4 (both in the
-    state's frame); plain=True runs the plain version on any device."""
+    state's frame); plain=True runs the plain version on any device.
+    mesh: a parallel.Mesh whose rank sweeps its row bricks, the rows
+    gathered before the sum, or None."""
     pos4 = sorted_positions(pos, box, st)
     fn = nonbonded_tiles_deriv_plain if plain else nonbonded_tiles_deriv
-    out = fn(pos4, par4, dpar4, st["cand"], st["count"], st["words"],
-             consts, mode, use_switch)
+    # the sweep gives column 3 of its (n_pad, 4) rows, a strided view: the
+    # gather adds a contiguous copy
+    out = sharded_pair_energy(mesh, lambda begin, end: fn(
+        pos4, par4, dpar4, st["cand"], st["count"], st["words"], consts,
+        mode, use_switch, (begin, end)).contiguous(), st["count"].shape[0])
     return 0.5 * out.sum(dtype=torch.float64)
 
 
@@ -453,10 +497,12 @@ def _staged_image(dx, dy, dz, consts):
     return dx, dy, dz
 
 
-def _row_chunks(n_bricks, max_cand, budget=1 << 22):
+def _row_chunks(end, max_cand, budget=1 << 22, begin=0):
+    """Chunks of the row bricks [begin, end) that the plain versions
+    sweep at once."""
     rows = max(1, budget // (BRICK * BRICK * max(max_cand, 1)))
-    for r0 in range(0, n_bricks, rows):
-        yield r0, min(n_bricks, r0 + rows)
+    for r0 in range(begin, end, rows):
+        yield r0, min(end, r0 + rows)
 
 
 def _chunk_pairs(pos4, cand, count, words, consts, r0, r1, pos_lo=None):
@@ -496,17 +542,20 @@ def _chunk_pairs(pos4, cand, count, words, consts, r0, r1, pos_lo=None):
 
 
 def nonbonded_tiles_plain(pos4, par4, cand, count, words, consts, mode,
-                          use_switch, pos_lo=None) -> torch.Tensor:
+                          use_switch, pos_lo=None,
+                          bricks=None) -> torch.Tensor:
     """Plain PyTorch version of kernel 1 on the same inputs (the pair terms
     of ops/pairs.py:pair_terms). In float32 it repeats the kernel's
     arithmetic (Hastings erfc); in float64 it uses the exact erfc and
-    serves as the accuracy oracle."""
+    serves as the accuracy oracle. bricks: as nonbonded_tiles takes
+    them."""
     _check_tile_args(pos4, par4, cand, count, words, consts, mode)
     n_pad = pos4.shape[0]
+    begin, end = _brick_range(bricks, n_pad // BRICK)
     out = torch.zeros((n_pad, 4), dtype=pos4.dtype, device=pos4.device)
     alpha, _, krf, crf = consts[0:4]
     rs, inv_w = consts[13], consts[14]
-    for r0, r1 in _row_chunks(n_pad // BRICK, cand.shape[1]):
+    for r0, r1 in _row_chunks(end, cand.shape[1], begin=begin):
         cj, dx, dy, dz, r2, ok = _chunk_pairs(pos4, cand, count, words,
                                               consts, r0, r1, pos_lo)
         rows = r1 - r0
@@ -565,20 +614,25 @@ def count_tile_pairs(pos4, cand, count, words, consts) -> dict:
 
 
 def tile_energy_forces(pos, box, st, consts, mode, use_switch,
-                       plain=False, par4=None, fine=None):
+                       plain=False, par4=None, fine=None, mesh=None):
     """(energy, forces (n, 3)) of the direct-space sweep on state `st`.
     plain=True runs the plain version on any device (the float64 oracle).
     par4: parameters in the state's frame in place of those of its build
     (tile_params of the effective parameters under offsets). fine: the
     float64 positions and box, which kernel 1 then takes as float32 pairs
-    (sorted_positions_fine) in place of `pos`."""
+    (sorted_positions_fine) in place of `pos`. mesh: a parallel.Mesh whose
+    rank sweeps its row bricks and gathers every rank's rows (the
+    sharded_pair_energy of the JAX package), or None; the energy is then
+    summed from the gathered rows, as on one rank."""
     pos_lo = None
     if fine is None:
         pos4 = sorted_positions(pos, box, st)
     else:
         pos4, pos_lo = sorted_positions_fine(*fine, st)
     fn = nonbonded_tiles_plain if plain else nonbonded_tiles
-    out = fn(pos4, st["par4"] if par4 is None else par4, st["cand"],
-             st["count"], st["words"], consts, mode, use_switch, pos_lo)
+    par4 = st["par4"] if par4 is None else par4
+    out = sharded_pair_energy(mesh, lambda begin, end: fn(
+        pos4, par4, st["cand"], st["count"], st["words"], consts, mode,
+        use_switch, pos_lo, (begin, end)), st["count"].shape[0])
     forces = out[st["inv_order"], :3][:pos.shape[0]]
     return 0.5 * out[:, 3].sum(dtype=torch.float64), forces

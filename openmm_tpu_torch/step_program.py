@@ -40,7 +40,12 @@ whether, and how often, each body runs; each body adds one to its own
 device counter when it runs, and the host reads the counters (overflow,
 rebuilds, the bodies' runs, from which it counts the launches of kernels
 inside bodies) once at the end of the chunk. A capture that fails
-raises; there is no eager fallback. On the CPU the same body runs eagerly
+raises; there is no eager fallback. Under a mesh (parallel/mesh.py) the
+gather of each direct sweep is captured at the graph's top level, the
+communicator warmed up before; inside a conditional body the mesh is
+replicated (every rank sweeps every row, no collective), which gives
+the same bits. A mesh whose backend a graph cannot capture (gloo) raises
+at capture: such a Context steps through Context._step_eager. On the CPU the same body runs eagerly
 with the plain kernel versions, each gate a host `if` or `while`. The
 programs of a Context are cached by what fixes their shapes, the capacity
 scale, by the integration force groups they evaluate, and by the
@@ -219,10 +224,15 @@ class StepProgram:
         return i
 
     def _enter(self, fn) -> None:
+        """fn() as a gated body of the warm-up or the capture: a mesh is
+        replicated inside."""
         self._depth += 1
         self._max_depth = max(self._max_depth, self._depth)
+        mesh = self._ctx._mesh
         try:
-            fn()
+            with (contextlib.nullcontext() if mesh is None
+                  else mesh.replicated()):
+                fn()
         finally:
             self._depth -= 1
 
@@ -276,6 +286,9 @@ class StepProgram:
     def _capture(self) -> None:
         dev = self.pos.device
         ctx = self._ctx
+        if ctx._mesh is not None:
+            ctx._mesh.check_capture()
+            ctx._mesh.warm_up(dev)
         gen = ctx._generator
         before = [k.launches for k in _build.KERNELS]
         gen_state = gen.get_state()

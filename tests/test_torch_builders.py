@@ -50,3 +50,35 @@ def test_from_numpy_round_trips_switch_and_exceptions():
         "dispersion_correction": False, "switch_distance": 0.7,
     }
     _assert_params_equal(omm.to_numpy(omm.from_numpy(params)), params)
+
+
+@pytest.mark.parametrize("n", [3, 8])
+def test_argon_gas_matches_jax_builder(n):
+    """models.argon_gas (HelloArgon) against the JAX builder: the same
+    System and positions, and the same energy and forces against the JAX
+    "Reference" platform."""
+    import openmm_tpu as mm
+    from openmm_tpu.models import argon_gas as jax_argon_gas
+
+    from openmm_tpu_torch.models import argon_gas
+    from openmm_tpu_torch.unit import plain
+    jsys, jpos = jax_argon_gas(n)
+    system, pos = argon_gas(n)
+    np.testing.assert_array_equal(
+        pos, np.array([[p.x, p.y, p.z] for p in jpos]))
+    _assert_params_equal(omm.to_numpy(system), system_params(jsys))
+    jctx = mm.Context(jsys, mm.VerletIntegrator(0.002),
+                      mm.Platform.getPlatformByName("Reference"))
+    jctx.setPositions(jpos)
+    jst = jctx.getState(getEnergy=True, getForces=True)
+    ctx = omm.Context(system, omm.VerletIntegrator(0.002), "CPU",
+                      {"Precision": "double"})
+    ctx.setPositions(pos)
+    st = ctx.getState(getEnergy=True, getForces=True)
+    e_ref = jst.getPotentialEnergy()._value
+    f_ref = np.asarray(jst.getForces(asNumpy=True)._value)
+    assert abs(plain(st.getPotentialEnergy()) - e_ref) \
+        <= 1e-12 * max(abs(e_ref), 1.0)
+    assert np.abs(plain(st.getForces(asNumpy=True)) - f_ref).max() \
+        <= 1e-10 * max(np.abs(f_ref).max(), 1.0)
+    assert "argon_gas" in omm.models.__all__

@@ -35,8 +35,9 @@ def no_cuda():
 
 
 def test_import_loads_no_jax():
-    """Every module of the package, whether __init__ imports it or not,
-    and chip_smoke.py, kernel_lab.py, nh_startup.py and nve_drift.py."""
+    """Every module of the package, whether __init__ imports it or not
+    (the mesh's parallel/ among them), and chip_smoke.py, kernel_lab.py,
+    nh_startup.py and nve_drift.py."""
     code = ("import importlib, pkgutil, sys\n"
             "import openmm_tpu_torch, chip_smoke, kernel_lab, nh_startup, "
             "nve_drift\n"
@@ -45,7 +46,11 @@ def test_import_loads_no_jax():
             "for name in names:\n"
             "    importlib.import_module(name)\n"
             "assert {'openmm_tpu_torch.profile_step',\n"
-            "        'openmm_tpu_torch.ops.pallas_pme'} <= set(names), names\n"
+            "        'openmm_tpu_torch.ops.pallas_pme',\n"
+            "        'openmm_tpu_torch.parallel.mesh',\n"
+            "        'openmm_tpu_torch.parallel.fft',\n"
+            "        'openmm_tpu_torch.parallel.ranks',\n"
+            "        'openmm_tpu_torch.parallel.dryrun'} <= set(names), names\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', "
             "'openmm_tpu'))\n"

@@ -206,3 +206,32 @@ def test_chip_smoke_serialization_and_cv_phases_on_cpu(main_path):
     cv = chip_smoke.phase_cv_nonbonded(cpu, main_path, steps=20, chunk=10,
                                        replay=3, turn_steps=2)
     assert cv["rebuilds"] >= 1 and cv["e_err"] <= chip_smoke.CV_ENERGY_BAR
+
+
+def test_chip_smoke_mesh_phases_on_cpu(main_path):
+    """The mesh phases rehearsed: phase_mesh_kernels (kernel 1's plain
+    version in each instantiation on the row ranges of 2 and 3 ranks, the
+    whole sweep's bits) on the rehearsed box's inputs, phase_mesh_nccl on
+    a one-rank gloo group (the plain Context's bits and the eager loop's,
+    and its dE/dlambda through the offsets the plain Context's bits),
+    and two gloo ranks of 27 waters on the CPU through start_mesh_ranks
+    (as fresh interpreters: this process holds JAX, which a forked rank
+    would inherit) and phase_mesh_ranks (each rank the single-process
+    bits)."""
+    cpu = torch.device("cpu")
+    inp = chip_smoke.kernel_inputs(cpu, 343)
+    kernels = chip_smoke.phase_mesh_kernels(cpu, inp, chip_smoke.Deadline(
+        math.inf), sizes=(2, 3))
+    assert kernels["same_bits"] and len(kernels["instantiations"]) == 5
+    started = chip_smoke.start_mesh_ranks(n_waters=27, steps=4,
+                                          platform="CPU", fork=False)
+    nccl = chip_smoke.phase_mesh_nccl(cpu, main_path, steps=6,
+                                      eager_steps=3, turn_steps=2,
+                                      backend="gloo")
+    assert nccl["steps"] == 6 and set(nccl["ms"]) == {"mesh", "plain"}
+    assert nccl["derivative"]["mesh"]["derivative"] \
+        == nccl["derivative"]["single"]["derivative"]
+    got = chip_smoke.phase_mesh_ranks(started,
+                                      chip_smoke.Deadline(math.inf),
+                                      cuda=False)
+    assert got["ranks"] == 2 and got["bricks"] == [(0, 3), (3, 6)]
